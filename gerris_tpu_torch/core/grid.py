@@ -1,0 +1,68 @@
+"""Uniform structured grid descriptor (port of gerris_tpu/core/grid.py).
+
+A ``Grid`` is the uniform grid at refinement ``level`` (N = 2**level cells
+per axis) over the unit box centred at the origin.  Coordinates are host
+numpy arrays: geometry is static, and callers move what they need to the
+device of their tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import cached_property
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A uniform grid over a box of ``extents`` unit boxes per axis
+    (default: the single unit box).  Cell size h = size / 2**level."""
+
+    level: int
+    dim: int = 2
+    origin: tuple = (-0.5, -0.5)
+    size: float = 1.0
+    extents: tuple = None
+
+    def __post_init__(self):
+        if self.dim not in (2, 3):
+            raise ValueError("dim must be 2 or 3")
+        if len(self.origin) != self.dim:
+            object.__setattr__(self, "origin", tuple(self.origin[: self.dim])
+                               if len(self.origin) > self.dim
+                               else tuple(self.origin) + (-0.5,) * (self.dim - len(self.origin)))
+        if self.extents is None:
+            object.__setattr__(self, "extents", (1,) * self.dim)
+
+    @property
+    def n(self) -> int:
+        return 1 << self.level
+
+    @property
+    def h(self) -> float:
+        return self.size / self.n
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.n * self.extents[a] for a in range(self.dim))
+
+    def axis_centers(self, axis: int) -> np.ndarray:
+        """Cell-centre coordinates along one axis."""
+        i = np.arange(self.shape[axis])
+        return self.origin[axis] + (i + 0.5) * self.h
+
+    def axis_faces(self, axis: int) -> np.ndarray:
+        """Face coordinates along one axis (n+1 values)."""
+        i = np.arange(self.shape[axis] + 1)
+        return self.origin[axis] + i * self.h
+
+    @cached_property
+    def centers(self) -> tuple:
+        """Meshgrid (indexing='ij') of cell-centre coordinates, numpy."""
+        axes = [self.axis_centers(a) for a in range(self.dim)]
+        return tuple(np.meshgrid(*axes, indexing="ij"))
+
+    def face_shape(self, axis: int) -> tuple:
+        s = list(self.shape)
+        s[axis] += 1
+        return tuple(s)

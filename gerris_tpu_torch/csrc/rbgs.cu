@@ -1,0 +1,340 @@
+// Multigrid cycle kernels for Hopper (sm_90a): the fixed sawtooth cycle
+// of gerris_tpu_torch/solvers/poisson.py:fused_cycle.
+//
+// Four kernels, each templated on float and double, behind a plain C
+// interface (loaded with ctypes by gerris_tpu_torch/ops/cuda/rbgs.py):
+//
+//   residual_restrict  r0 = (rhs - sub) - (L - dia) u with static ghosts,
+//                      r1 = pool(r0), r2 = pool(r1), in one launch;
+//   restrict2          one 2x2 mean pool (the cascade's restriction);
+//   prolong_relax      bilinear prolongation of a coarse correction (or
+//                      du = 0) + nsweeps red-black Gauss-Seidel sweeps
+//                      (+ u), in one launch;
+//   and the cascade (ops/cuda/rbgs.py:cascade_prolong_relax) is a host
+//   sequence of restrict2 and prolong_relax launches.
+//
+// Layouts are logical: a cell field is a contiguous (n0, n1) row-major
+// array, axis 1 contiguous.  Ghost encoding per side: ghost =
+// sgn * mirror + off, sides ordered (x lo, x hi, y lo, y hi); periodic y
+// wraps instead.  Every launch is on the caller's stream, allocates
+// nothing, and returns cudaGetLastError().
+//
+// All three are memory-bound stencils (a few flops per loaded value, no
+// tensor-core work): bytes moved between device memory and the SMs are
+// what bounds them on the H100, so each design keeps intermediates in
+// shared memory and reads each input tile once.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int RR_TILE = 16;  // residual_restrict output tile (4-aligned)
+constexpr int PR_THREADS_X = 32;
+constexpr int PR_THREADS_Y = 8;
+
+// ---------------------------------------------------------------------------
+// K1 residual_restrict.
+// Replaces gerris_tpu/ops/pallas/rbgs.py:residual_restrict (core _rr_core).
+// Bound: device-memory bytes (reads u and rhs, writes r0 + r0/4 + r0/16).
+// Design: one block per 16x16 output tile; the u tile and its 1-cell halo
+// (with the domain ghosts) sit in shared memory, so u is read ~1.27x
+// instead of 5x; r0 stays in shared memory for the two pooling levels,
+// so r1 and r2 never re-read r0 from device memory.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void residual_restrict_kernel(
+    const T* __restrict__ u, const T* __restrict__ rhs,
+    const T* __restrict__ sub_ptr, T dia, T h2, int n0, int n1,
+    T sx0, T sx1, T sy0, T sy1, T ox0, T ox1, T oy0, T oy1, int per_y,
+    T* __restrict__ r0, T* __restrict__ r1, T* __restrict__ r2) {
+  __shared__ T su[RR_TILE + 2][RR_TILE + 2];
+  __shared__ T sr[RR_TILE][RR_TILE];
+  __shared__ T s1[RR_TILE / 2][RR_TILE / 2];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int i0 = blockIdx.y * RR_TILE, j0 = blockIdx.x * RR_TILE;
+  const int nt = RR_TILE * RR_TILE;
+  for (int k = ty * RR_TILE + tx; k < (RR_TILE + 2) * (RR_TILE + 2);
+       k += nt) {
+    const int li = k / (RR_TILE + 2), lj = k % (RR_TILE + 2);
+    const int gi = i0 + li - 1, gj = j0 + lj - 1;
+    const bool in_i = gi >= 0 && gi < n0, in_j = gj >= 0 && gj < n1;
+    T v = T(0);
+    if (in_i && in_j) {
+      v = u[(size_t)gi * n1 + gj];
+    } else if (in_j) {  // ghost row
+      v = gi < 0 ? sx0 * u[gj] + ox0
+                 : sx1 * u[(size_t)(n0 - 1) * n1 + gj] + ox1;
+    } else if (in_i) {  // ghost column
+      if (per_y)
+        v = u[(size_t)gi * n1 + (gj < 0 ? n1 - 1 : 0)];
+      else
+        v = gj < 0 ? sy0 * u[(size_t)gi * n1] + oy0
+                   : sy1 * u[(size_t)gi * n1 + n1 - 1] + oy1;
+    }
+    su[li][lj] = v;  // corner ghosts are never read
+  }
+  __syncthreads();
+  const T sub = sub_ptr ? *sub_ptr : T(0);
+  const int gi = i0 + ty, gj = j0 + tx;
+  const T c = su[ty + 1][tx + 1];
+  const T nb = su[ty][tx + 1] + su[ty + 2][tx + 1] + su[ty + 1][tx] +
+               su[ty + 1][tx + 2];
+  const T r = rhs[(size_t)gi * n1 + gj] - sub - (nb - T(4) * c) / h2 +
+              dia * c;
+  r0[(size_t)gi * n1 + gj] = r;
+  sr[ty][tx] = r;
+  __syncthreads();
+  // 2x2 means: rows first, then columns (the plain version's order)
+  if (ty < RR_TILE / 2 && tx < RR_TILE / 2) {
+    const T a = T(0.5) * (sr[2 * ty][2 * tx] + sr[2 * ty + 1][2 * tx]);
+    const T b =
+        T(0.5) * (sr[2 * ty][2 * tx + 1] + sr[2 * ty + 1][2 * tx + 1]);
+    const T m = T(0.5) * (a + b);
+    s1[ty][tx] = m;
+    r1[(size_t)(i0 / 2 + ty) * (n1 / 2) + j0 / 2 + tx] = m;
+  }
+  __syncthreads();
+  if (ty < RR_TILE / 4 && tx < RR_TILE / 4) {
+    const T a = T(0.5) * (s1[2 * ty][2 * tx] + s1[2 * ty + 1][2 * tx]);
+    const T b =
+        T(0.5) * (s1[2 * ty][2 * tx + 1] + s1[2 * ty + 1][2 * tx + 1]);
+    r2[(size_t)(i0 / 4 + ty) * (n1 / 4) + j0 / 4 + tx] = T(0.5) * (a + b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// restrict2: one 2x2 mean pool, (n0, n1) -> (n0/2, n1/2).
+// Part of the port of gerris_tpu/ops/pallas/rbgs.py:cascade_prolong_relax
+// (its in-VMEM restriction pyramid, _row_pool + _lane_pool).
+// Bound: device-memory bytes; one thread per coarse cell reads its four
+// children once.  The levels it serves are at most (n/4)^2, so the launch
+// latency, not the bytes, dominates at the coarse end.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void restrict2_kernel(const T* __restrict__ r, int n0, int n1,
+                                 T* __restrict__ out) {
+  const int m1 = n1 / 2;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= n0 / 2 || j >= m1) return;
+  const T* p = r + (size_t)(2 * i) * n1 + 2 * j;
+  const T a = T(0.5) * (p[0] + p[n1]);
+  const T b = T(0.5) * (p[1] + p[n1 + 1]);
+  out[(size_t)i * m1 + j] = T(0.5) * (a + b);
+}
+
+// ---------------------------------------------------------------------------
+// K3 prolong_relax.
+// Replaces gerris_tpu/ops/pallas/rbgs.py:prolong_relax (core _pr_core).
+// Bound: device-memory bytes for the fine levels (reads coarse/4 + rhs
+// (+ u), writes du once for all sweeps); at the coarse levels that fit
+// one block, launch latency and the block's serial sweeps.
+// Design: one block per tile x tile output tile.  The block's shared
+// buffer holds the tile plus a halo of `halo` = 2*nsweeps cells and one
+// outer frozen ring; the prolonged du and the rhs are placed there once,
+// every half-sweep updates the cells of one global colour (i+j)%2 inside
+// the buffer, and the valid region shrinks by at most one cell per
+// half-sweep, so after 2*nsweeps half-sweeps the tile is exact (the
+// TPU kernel's own argument, rbgs.py:5-10).  Domain-edge ghost cells that
+// fall inside the buffer are recomputed (homogeneous: sgn * mirror)
+// before every half-sweep.  A level that fits one block is run with
+// tile = n and halo = 0: the buffer is the whole level plus its ghost
+// ring (periodic columns are refreshed as ghosts there).
+// coarse == nullptr starts from du = 0 (the coarsest level); u != nullptr
+// adds u to the result.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void prolong_relax_kernel(
+    const T* __restrict__ coarse, const T* __restrict__ rhs,
+    const T* __restrict__ u, T* __restrict__ out, int n0, int n1, int tile,
+    int halo, int nsweeps, T h2, T inv_denom, T omega, T one_m_omega,
+    int use_omega, T sx0, T sx1, T sy0, T sy1, int per_y) {
+  extern __shared__ unsigned char smem_raw[];
+  const int B = tile + 2 * halo + 2;
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  T* rb = buf + (size_t)B * B;
+  const int gi0 = blockIdx.y * tile - halo - 1;
+  const int gj0 = blockIdx.x * tile - halo - 1;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int m1 = n1 / 2;
+  // whole-level blocks refresh periodic wrap columns like ghosts
+  const bool wrap_ghost = per_y && halo == 0;
+
+  // ---- place du (prolonged or zero) and rhs
+  for (int li = ty; li < B; li += PR_THREADS_Y) {
+    const int gi = gi0 + li;
+    const bool real_i = gi >= 0 && gi < n0;
+    for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+      int gj = gj0 + lj;
+      if (per_y && !wrap_ghost) gj = (gj % n1 + n1) % n1;
+      const bool real = real_i && gj >= 0 && gj < n1;
+      T du = T(0), r = T(0);
+      if (real) {
+        r = rhs[(size_t)gi * n1 + gj];
+        if (coarse) {
+          const int ci = gi >> 1, cj = gj >> 1;
+          const int cin = (gi & 1) ? ci + 1 : ci - 1;
+          // row step first, on coarse columns cj and its neighbour
+          auto rowstep = [&](int cc) -> T {
+            const T base = coarse[(size_t)ci * m1 + cc];
+            T nb;
+            if (gi == 0)
+              nb = sx0 * base;
+            else if (gi == n0 - 1)
+              nb = sx1 * base;
+            else
+              nb = coarse[(size_t)cin * m1 + cc];
+            return T(0.75) * base + T(0.25) * nb;
+          };
+          const T a = rowstep(cj);
+          int cjn = (gj & 1) ? cj + 1 : cj - 1;
+          T b;
+          if (per_y)
+            b = rowstep((cjn + m1) % m1);
+          else if (gj == 0)
+            b = sy0 * a;
+          else if (gj == n1 - 1)
+            b = sy1 * a;
+          else
+            b = rowstep(cjn);
+          du = T(0.75) * a + T(0.25) * b;
+        }
+      }
+      buf[li * B + lj] = du;
+      rb[li * B + lj] = r;
+    }
+  }
+  __syncthreads();
+
+  for (int s = 0; s < 2 * nsweeps; ++s) {
+    const int color = s & 1;  // red ((i+j) even) first
+    // ---- domain-edge ghosts from the current interior
+    for (int li = ty; li < B; li += PR_THREADS_Y) {
+      const int gi = gi0 + li;
+      const bool real_i = gi >= 0 && gi < n0;
+      const bool ghost_i = gi == -1 || gi == n0;
+      for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+        const int gj = gj0 + lj;
+        const bool real_j = per_y && !wrap_ghost ? true : gj >= 0 && gj < n1;
+        const bool ghost_j = !real_j && (gj == -1 || gj == n1);
+        if (ghost_i && real_j) {
+          buf[li * B + lj] = gi < 0 ? sx0 * buf[(li + 1) * B + lj]
+                                    : sx1 * buf[(li - 1) * B + lj];
+        } else if (real_i && ghost_j) {
+          if (wrap_ghost)
+            buf[li * B + lj] = gj < 0 ? buf[li * B + lj + n1]
+                                      : buf[li * B + lj - n1];
+          else
+            buf[li * B + lj] = gj < 0 ? sy0 * buf[li * B + lj + 1]
+                                      : sy1 * buf[li * B + lj - 1];
+        }
+      }
+    }
+    __syncthreads();
+    // ---- one colour; the frozen outer ring is never updated
+    for (int li = ty + 1; li < B - 1; li += PR_THREADS_Y) {
+      const int gi = gi0 + li;
+      if (gi < 0 || gi >= n0) continue;
+      for (int lj = tx + 1; lj < B - 1; lj += PR_THREADS_X) {
+        const int gj = gj0 + lj;
+        if (!per_y && (gj < 0 || gj >= n1)) continue;
+        if (wrap_ghost && (gj < 0 || gj >= n1)) continue;
+        if (((gi + gj) & 1) != color) continue;
+        const int k = li * B + lj;
+        const T c = buf[k];
+        const T nb = buf[k - B] + buf[k + B] + buf[k - 1] + buf[k + 1];
+        T nw = (nb - h2 * rb[k]) * inv_denom;
+        if (use_omega) nw = one_m_omega * c + omega * nw;
+        buf[k] = nw;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the tile (+ u)
+  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
+    const int gi = gi0 + li;
+    for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
+         lj += PR_THREADS_X) {
+      const int gj = gj0 + lj;
+      const size_t g = (size_t)gi * n1 + gj;
+      const T v = buf[li * B + lj];
+      out[g] = u ? v + u[g] : v;
+    }
+  }
+}
+
+template <typename T>
+int launch_residual_restrict(const void* u, const void* rhs, const void* sub,
+                             double dia, double h2, int n0, int n1,
+                             double sx0, double sx1, double sy0, double sy1,
+                             double ox0, double ox1, double oy0, double oy1,
+                             int per_y, void* r0, void* r1, void* r2,
+                             void* stream) {
+  dim3 block(RR_TILE, RR_TILE);
+  dim3 grid(n1 / RR_TILE, n0 / RR_TILE);
+  residual_restrict_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const T*)u, (const T*)rhs, (const T*)sub, T(dia), T(h2), n0, n1,
+      T(sx0), T(sx1), T(sy0), T(sy1), T(ox0), T(ox1), T(oy0), T(oy1), per_y,
+      (T*)r0, (T*)r1, (T*)r2);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_restrict2(const void* r, int n0, int n1, void* out, void* stream) {
+  dim3 block(32, 8);
+  dim3 grid((n1 / 2 + 31) / 32, (n0 / 2 + 7) / 8);
+  restrict2_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const T*)r, n0, n1, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_prolong_relax(const void* coarse, const void* rhs, const void* u,
+                         void* out, int n0, int n1, int tile, int halo,
+                         int nsweeps, double h2, double inv_denom,
+                         double omega, double sx0, double sx1, double sy0,
+                         double sy1, int per_y, void* stream) {
+  const int B = tile + 2 * halo + 2;
+  const size_t smem = 2 * (size_t)B * B * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(
+      prolong_relax_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 block(PR_THREADS_X, PR_THREADS_Y);
+  dim3 grid(n1 / tile, n0 / tile);
+  prolong_relax_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const T*)coarse, (const T*)rhs, (const T*)u, (T*)out, n0, n1, tile,
+      halo, nsweeps, T(h2), T(inv_denom), T(omega), T(1.0 - omega),
+      omega != 1.0, T(sx0), T(sx1), T(sy0), T(sy1), per_y);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define GTT_EXPORT(SUFFIX, T)                                                 \
+  extern "C" int gtt_residual_restrict_##SUFFIX(                              \
+      const void* u, const void* rhs, const void* sub, double dia,            \
+      double h2, int n0, int n1, double sx0, double sx1, double sy0,          \
+      double sy1, double ox0, double ox1, double oy0, double oy1, int per_y,  \
+      void* r0, void* r1, void* r2, void* stream) {                           \
+    return launch_residual_restrict<T>(u, rhs, sub, dia, h2, n0, n1, sx0,     \
+                                       sx1, sy0, sy1, ox0, ox1, oy0, oy1,     \
+                                       per_y, r0, r1, r2, stream);            \
+  }                                                                           \
+  extern "C" int gtt_restrict2_##SUFFIX(const void* r, int n0, int n1,        \
+                                        void* out, void* stream) {            \
+    return launch_restrict2<T>(r, n0, n1, out, stream);                      \
+  }                                                                           \
+  extern "C" int gtt_prolong_relax_##SUFFIX(                                  \
+      const void* coarse, const void* rhs, const void* u, void* out, int n0,  \
+      int n1, int tile, int halo, int nsweeps, double h2, double inv_denom,   \
+      double omega, double sx0, double sx1, double sy0, double sy1,           \
+      int per_y, void* stream) {                                              \
+    return launch_prolong_relax<T>(coarse, rhs, u, out, n0, n1, tile, halo,   \
+                                   nsweeps, h2, inv_denom, omega, sx0, sx1,   \
+                                   sy0, sy1, per_y, stream);                  \
+  }
+
+GTT_EXPORT(f32, float)
+GTT_EXPORT(f64, double)
