@@ -92,6 +92,14 @@ def default_scalar_bc(dim: int = 2) -> FieldBC:
     return FieldBC.uniform(Neumann(), dim)
 
 
+def grad_bc(u_bc: FieldBC) -> FieldBC:
+    """BC for pressure(-gradient) fields: periodic where the domain is
+    periodic, symmetric (Neumann 0) otherwise."""
+    return FieldBC(tuple(
+        tuple(Periodic() if b.kind == PERIODIC else Neumann() for b in ax)
+        for ax in u_bc.sides))
+
+
 def _ghost(interior: torch.Tensor, b: BC, side: int, k: int, h: float,
            homogeneous: bool) -> torch.Tensor:
     """Ghost layer k (1-based) from the interior layer mirrored through
@@ -111,18 +119,22 @@ def edge_extend(a: torch.Tensor, axis: int, width: int) -> torch.Tensor:
 
 
 def apply_bc(field: torch.Tensor, grid: Grid, fbc: FieldBC, width: int = 1,
-             homogeneous: bool = False, corners: bool = True) -> torch.Tensor:
+             homogeneous: bool = False, corners: bool = True,
+             axes=None) -> torch.Tensor:
     """Return ``field`` padded with ``width`` ghost layers per the BCs.
 
-    ``corners=True`` pads axis by axis, so corner ghosts are ghosts of
-    ghosts.  ``corners=False`` is the reference's SPMD-native variant: each
-    axis' ghost slabs come from the unpadded field, edge-extended along
-    the other axes, the later axis overwriting the corners.  Both give the
-    reference's values bit for bit."""
+    ``corners=True`` pads axis by axis in the order ``axes`` (default 0,
+    1[, 2]), so corner ghosts are ghosts of ghosts; ``axes=(1, 0)`` is the
+    CUDA kernels' order (csrc/stencil.cuh: a corner ghost is the row ghost
+    of a column ghost).  ``corners=False`` is the reference's SPMD-native
+    variant: each axis' ghost slabs come from the unpadded field,
+    edge-extended along the other axes, the later axis overwriting the
+    corners.  All give the reference's values bit for bit off the
+    corners."""
     if not corners:
         return _apply_bc_nocorner(field, grid, fbc, width, homogeneous)
     out = field
-    for axis in range(grid.dim):
+    for axis in (range(grid.dim) if axes is None else axes):
         lo_bc, hi_bc = fbc.sides[axis]
         n = out.shape[axis]
         if fbc.is_periodic(axis):

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core import bc as bcs
+from ..core.device import default_device
 from . import ns
 
 
@@ -31,9 +32,12 @@ class Simulation:
     """Incompressible NS simulation on a uniform grid.
 
         sim = Simulation(cfg, time=Time(end=300), events=[...],
-                         device="cuda", dtype=torch.float32)
+                         dtype=torch.float32)
         sim.init(U=..., V=...)
         sim.run()
+
+    ``device`` defaults to the CUDA card and raises without one; pass
+    ``device="cpu"`` to run the kernels' plain versions on the CPU.
     """
 
     def __init__(self, cfg: ns.NSConfig, time: Time = None, events=None,
@@ -41,7 +45,7 @@ class Simulation:
         self.cfg = cfg
         self.time = time or Time()
         self.events = list(events or [])
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         self.dtype = dtype
         self.state = {}
         self.stop = False

@@ -2,8 +2,9 @@
 
 The sources in ``gerris_tpu_torch/csrc`` are compiled at first use into
 ``build/gerris_tpu_torch/`` at the repository root, with a plain C
-interface (no PyTorch headers, so a build takes seconds).  The library
-name carries a hash of the sources, so an edited source is rebuilt.
+interface (no PyTorch headers, so a build takes seconds): one nvcc per
+source, all started together, then one link.  The library name carries
+a hash of the sources and headers, so an edited source is rebuilt.
 Importing this module never runs nvcc.
 """
 from __future__ import annotations
@@ -18,10 +19,13 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCES = (_PKG / "csrc" / "rbgs.cu",)
+_CSRC = _PKG / "csrc"
+SOURCES = tuple(_CSRC / f for f in ("rbgs.cu", "projops.cu", "predict.cu",
+                                        "bcg.cu"))
+HEADERS = (_CSRC / "stencil.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "gerris_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -37,10 +41,25 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha1()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgerris_rbgs-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"libgerris_kernels-{digest.hexdigest()[:12]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; raise with every failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> Path:
@@ -49,30 +68,36 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)   # atomic: a concurrent build never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(SOURCES, objs)])
+        lib = str(Path(tmp) / out.name)
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)   # atomic: a concurrent build never sees half
     return out
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_DP = ctypes.POINTER(ctypes.c_double)   # a host array of BC values
 _SIGNATURES = {
     "gtt_residual_restrict": [_P, _P, _P, _D, _D, _I, _I, _D, _D, _D, _D,
                               _D, _D, _D, _D, _I, _P, _P, _P, _P],
     "gtt_restrict2": [_P, _I, _I, _P, _P],
     "gtt_prolong_relax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D,
                           _D, _D, _D, _D, _I, _P],
+    "gtt_divergence_mac": [_P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P],
+    "gtt_correct_project": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP,
+                            _I, _P, _P, _P, _P, _P, _P, _P],
+    "gtt_interp_faces": [_P, _P, _P, _P, _D, _I, _I, _I, _DP, _D, _P, _P,
+                         _P, _P, _P, _P, _P, _P],
+    "gtt_predict_xy": [_P, _P, _I, _I, _D, _DP, _DP, _DP, _DP, _I, _DP, _D,
+                       _P, _P, _P, _P, _P, _P],
+    "gtt_advect2d": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP, _I, _I,
+                     _DP, _I, _D, _P, _P],
 }
 
 

@@ -64,10 +64,14 @@ def advected_face_values(v, grid: Grid, fbc: bcs.FieldBC, dt,
     """BCG-extrapolated face values of ``v`` at t+dt/2: per axis
     (v_plus, v_minus) on the 1-ghost padded cell layout, or None for an
     axis not in ``axes``.  ``uc_pad``: the advecting velocity per
-    component, 1-ghost padded.  Reference: src/advection.c:58-99."""
+    component, 1-ghost padded.  Reference: src/advection.c:58-99.
+    The ghosts of ``v`` are padded in the CUDA kernels' order (columns
+    first, csrc/stencil.cuh), whose corner ghosts the TPU kernels share
+    (gerris_tpu/ops/pallas/bcg.py, predict.py); the transverse term of a
+    ghost cell next to a corner reads them."""
     dim = grid.dim
     h = grid.h
-    v2 = bcs.apply_bc(v, grid, fbc, 2, corners=False)
+    v2 = bcs.apply_bc(v, grid, fbc, 2, axes=tuple(reversed(range(dim))))
     v1 = v2[tuple(slice(1, s - 1) for s in v2.shape)]
     out = []
     for c in range(dim):

@@ -5,65 +5,60 @@ The MAC projection makes the face-normal velocity exactly
 divergence-free: solve lap(p) = div(u_f)/dt, then u_f -= dt grad_f p.  The
 cell-centred gradient is the mean of a cell's two face gradients.
 Reference: src/timestep.c:60-145, 356-596.
+
+The divergence runs through K4 ``divergence_mac``, the correction
+through K5 ``correct_project`` and the face interpolation through K9
+``interp_faces`` (ops/cuda/projops.py).  BCs outside the kernels'
+encoding (ops/cuda/bcg.kernel_spec: periodic rows, inhomogeneous Neumann;
+for the faces also non-Dirichlet normal faces) take the kernels' plain
+versions, the torch route, as in the reference.  The choice is made from
+the configuration only.
 """
 from __future__ import annotations
 
 from ..core.grid import Grid
 from ..core import bc as bcs
-from ..ops.stencils import divergence, face_average, face_gradient
+from ..ops.cuda import bcg, projops
 from . import poisson
 
 
-def face_gradients(p, grid: Grid, p_bc: bcs.FieldBC) -> list:
-    """grad_face p for every face, per axis (face shapes)."""
-    p_pad = bcs.apply_bc(p, grid, p_bc, 1, corners=False)
-    return [face_gradient(p_pad, grid, axis) for axis in range(grid.dim)]
-
-
-def cell_gradient_from_faces(gf: list, grid: Grid) -> list:
-    """Mean of the two face gradients of each cell (reference:
-    src/timestep.c:60-113)."""
-    out = []
-    for axis in range(grid.dim):
-        f = gf[axis]
-        n = f.shape[axis]
-        out.append(0.5 * (f.narrow(axis, 0, n - 1) + f.narrow(axis, 1, n - 1)))
-    return out
-
-
 def mac_projection(u_face: list, p, grid: Grid, p_bc: bcs.FieldBC, dt,
-                   params: poisson.MultilevelParams, cells=None):
-    """Project the MAC field.  Returns (u_face', p, g_cell, stats), and
-    with ``cells`` (centred velocities) a fifth element, the cells
-    corrected by -dt g_cell.  For a pressure BC without Dirichlet sides
-    the compatibility mean of the rhs stays on the device and is
-    subtracted inside the solver's first kernel."""
-    div = divergence(u_face, grid) / dt
+                   params: poisson.MultilevelParams, cells=None,
+                   div_pre=None):
+    """Project the MAC field.  Returns (u_face', p, g_cell, stats,
+    cells'): with ``cells`` (centred velocities) cells' are those cells
+    corrected by -dt g_cell, else None.  ``div_pre``: the (div, total)
+    that the producer of ``u_face`` already emitted (K6/K9 with
+    div_scale), so no divergence launch runs here.  For a pressure BC
+    without Dirichlet sides the compatibility mean total / ncells stays on
+    the device and is subtracted inside the solver's first kernel."""
+    if div_pre is None:
+        div_pre = projops.divergence_mac(u_face[0], u_face[1], dt, grid.h)
+    div, total = div_pre
     rhs_sub = None
     if not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides for b in ax):
-        rhs_sub = div.mean().reshape(1)
+        rhs_sub = total / div.numel()
     p, stats = poisson.solve(p, div, grid, p_bc, params, rhs_sub=rhs_sub)
-    gf = face_gradients(p, grid, p_bc)
-    u_face = [u_face[c] - dt * gf[c] for c in range(grid.dim)]
-    g_cell = cell_gradient_from_faces(gf, grid)
-    if cells is not None:
-        cells = [cells[c] - dt * g_cell[c] for c in range(grid.dim)]
-        return u_face, p, g_cell, stats, cells
-    return u_face, p, g_cell, stats
+    kernel = bcg.applicable(grid) and bcg.kernel_spec(p_bc) is not None
+    correct = projops.correct_project if kernel else \
+        projops.correct_project_plain
+    out = correct(p, u_face[0], u_face[1], dt, grid, p_bc, cells)
+    cells = None if cells is None else [out[4], out[5]]
+    return [out[0], out[1]], p, [out[2], out[3]], stats, cells
 
 
 def face_interpolated_velocity(u_cell: list, grid: Grid, u_bcs: list,
-                               gp=None, dtv=None):
+                               gp=None, dtv=None, div_scale=None):
     """MAC velocities as the mean of the two adjacent centred values, with
     the Dirichlet value on boundary faces (reference: src/advection.c:
-    546-566).  ``gp``/``dtv``: per-component cell gradients first folded
-    into the cells (u += dtv gp, the gc re-add, src/simulation.c:520);
-    then (faces, updated cells) is returned."""
-    src = u_cell if gp is None else \
-        [u_cell[c] + dtv * gp[c] for c in range(grid.dim)]
-    out = []
-    for c in range(grid.dim):
-        pad = bcs.apply_bc(src[c], grid, u_bcs[c], 1, corners=False)
-        out.append(bcs.apply_face_bc(face_average(pad, grid, c), grid,
-                                     u_bcs[c], c))
-    return out if gp is None else (out, src)
+    546-566).  Returns (faces, cells, divp).  ``gp``/``dtv``: per-component
+    cell gradients first folded into the cells (u += dtv gp, the gc
+    re-add, src/simulation.c:520), and ``cells`` are the updated cells
+    (else the given ones).  ``div_scale``: ``divp`` is the faces'
+    divergence scaled by div_scale and its sum (K9's fold of the
+    projection's divergence), else None."""
+    kernel = bcg.applicable(grid) and bcg.face_specs(u_bcs) is not None
+    interp = projops.interp_faces if kernel else projops.interp_faces_plain
+    out = interp(u_cell[0], u_cell[1], grid, u_bcs, gp, dtv, div_scale)
+    divp = None if div_scale is None else (out[4], out[5])
+    return [out[0], out[1]], [out[2], out[3]], divp

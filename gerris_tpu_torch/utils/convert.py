@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core import bc as bcs
+from ..core.device import default_device
 from ..core.grid import Grid
 from ..models import ns
 from ..solvers.advection import AdvectionParams
@@ -23,12 +24,15 @@ from ..solvers.poisson import MultilevelParams
 COARSEST_FLOOR = 40
 
 _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
-                 "approx_projection", "nu", "beta", "diffusion_params"}
+                 "approx_projection", "nu", "beta", "diffusion_params",
+                 "div_in_src"}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
     """{name: array} (e.g. ``{k: np.asarray(v)}`` of a JAX state, or an
-    opened ``.npz``) -> {name: contiguous tensor on ``device``}."""
+    opened ``.npz``) -> {name: contiguous tensor on ``device``}, the CUDA
+    card by default (core/device.default_device)."""
+    device = default_device(device)
     return {k: torch.as_tensor(np.asarray(d[k])).to(
                 device=device, dtype=dtype).contiguous()
             for k in d.keys()}
@@ -86,4 +90,5 @@ def config_from_jax(cfg) -> ns.NSConfig:
         projection=params_from_jax(cfg.projection),
         approx_projection=params_from_jax(cfg.approx_projection),
         nu=float(cfg.nu), beta=float(cfg.beta),
-        diffusion_params=params_from_jax(cfg.diffusion_params))
+        diffusion_params=params_from_jax(cfg.diffusion_params),
+        div_in_src=bool(cfg.div_in_src))

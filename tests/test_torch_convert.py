@@ -55,6 +55,10 @@ def test_config_from_jax_bench():
     assert v_bc == tbc.FieldBC.uniform(tbc.Dirichlet(0.0), 2)
     assert cfg.p_bc == tbc.default_scalar_bc(2)
     assert cfg.advection.cfl == 0.8
+    assert not cfg.div_in_src
+    folded = convert.config_from_jax(
+        dataclasses.replace(cavity_cfg(6), div_in_src=True))
+    assert folded.div_in_src
 
 
 @pytest.mark.parametrize("field,value", [
@@ -95,7 +99,7 @@ def test_state_from_numpy_dict_and_npz(tmp_path):
     path = tmp_path / "state.npz"
     np.savez(path, **st)
     with np.load(path) as z:
-        got = convert.state_from_numpy(z)
+        got = convert.state_from_numpy(z, device="cpu")
     for n in names:
         assert got[n].dtype == torch.float64
         assert np.array_equal(got[n].numpy(), st[n])

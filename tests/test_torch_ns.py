@@ -12,6 +12,7 @@ state_from_numpy.  Tolerance: 1e-9 relative on U, V and P, in float64.
 """
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 
@@ -57,6 +58,15 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b.cpu().numpy())) / np.max(np.abs(a)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _clear_jax_step_cache():
+    """Drop this module's compiled JAX steps when it ends: other files on
+    the same test worker count ns_step's jit cache entries
+    (tests/test_rigid.py)."""
+    yield
+    jns.ns_step.clear_cache()
+
+
 class _JSim(JSimulation):
     """The JAX Simulation with the step's VOF sweep-direction argument left
     at its default, so both tests share one compiled ns_step."""
@@ -77,13 +87,47 @@ def test_ns_step_matches_jax():
     rng = np.random.default_rng(0)
     st = {n: 0.05 * rng.standard_normal(jcfg.grid.shape) for n in NAMES}
     js = {n: np.asarray(v) for n, v in st.items()}
-    ts = state_from_numpy(st)
+    ts = state_from_numpy(st, device="cpu")
     dt = 0.8 * jcfg.grid.h
     for i in range(10):
         js = jns.ns_step(js, dt, 0.0, jcfg, first_step=i == 0)
         ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0)
     for n in ("U", "V", "P"):
         assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
+
+
+def test_ns_step_div_in_src_matches_jax():
+    """div_in_src: the port folds each projection's divergence into K6 and
+    K9; the JAX CPU step takes its jnp route of the same config, run
+    eagerly (jax.disable_jit) so that this config costs no compile of
+    the jitted step.  4 steps at 64^2, fixed dt = 0.8 h."""
+    jcfg, tcfg = _configs()
+    jcfg = dataclasses.replace(jcfg, div_in_src=True)
+    tcfg = dataclasses.replace(tcfg, div_in_src=True)
+    assert config_from_jax(jcfg).div_in_src
+    rng = np.random.default_rng(1)
+    st = {n: 0.05 * rng.standard_normal(jcfg.grid.shape) for n in NAMES}
+    js = dict(st)
+    ts = state_from_numpy(st, device="cpu")
+    dt = 0.8 * jcfg.grid.h
+    for i in range(4):
+        with jax.disable_jit():
+            js = jns.ns_step(js, dt, 0.0, jcfg, first_step=i == 0)
+        ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0)
+    for n in ("U", "V", "P"):
+        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Simulation and state_from_numpy run on the CUDA card unless the
+    caller names a device; without a card they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _configs()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulation(tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        state_from_numpy({"U": np.zeros((4, 4))})
+    assert Simulation(tcfg, device="cpu").device == torch.device("cpu")
 
 
 def test_simulation_run_matches_jax():
