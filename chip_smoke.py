@@ -10,21 +10,29 @@ Phases (any failure ends the run with a non-zero exit and no result):
   2. kernel checks: every kernel wrapper against its plain version on the
      card, float64 and float32: the multigrid kernels K1-K3 at the 2048^2
      main-path shapes and their coarser levels, plus K3's tile invariance;
-     the predictor, projection and advection kernels K6, K4, K5 (with and
-     without the cells), K9 (with and without gp and div_scale) and K14
-     (both components, with and without the gp/oscale folds) at 2048^2
-     and 64^2, plus K4's div bit-identical across two block shapes; then
-     each kernel's time against its plain version's at the main-path
-     shapes, float32 (CUDA events);
+     the diffusion pair K8a-c (own offsets, subs and dias per system) at
+     2048^2 and 64^2, plus K8c's tile invariance; the predictor,
+     projection and advection kernels K6, K4, K5 (with and without the
+     cells), K9 (with and without gp and div_scale), K14 (both
+     components, with and without the gp/oscale folds) and K7 (both
+     modes, also against two K14 launches) at 2048^2 and 64^2, plus K4's
+     div bit-identical across two block shapes; then each kernel's time
+     against its plain version's at the main-path shapes, float32 (CUDA
+     events);
   3. main path: Simulation.init() + 20 steps of the 2048^2 lid cavity under
-     the bench schedule, float32, through the kernels: finite values,
-     launch counts, agreement with the same steps through the plain
-     versions on the card, the median step rate of five timed windows,
-     and a torch.profiler split of the step's device time;
-  4. physics: the 64^2 lid cavity under the bench schedule to steady state
-     (EventStop U 1e-4 every 10 steps, at most 20000 steps), float32,
-     against Ghia, Ghia & Shin (1982) at the reference tolerances and by
-     the reference's measure (tests/test_lid.py).
+     the bench's configuration (pair_advect: K7 and the K8 pair), float32,
+     through the kernels: finite values, launch counts, agreement with the
+     same steps through the plain versions on the card, the median step
+     rate of five timed windows, and a torch.profiler split of the step's
+     device time; then the other routes, init + 5 steps each, with their
+     launch counts and agreement with the plain versions: the
+     per-component route (pair_advect off: K14 per component, then the K8
+     pair) and the rr_in_advect route (K7's rr_dia mode in place of
+     K8a), and each against the main path's route after the same steps;
+  4. physics: the 64^2 lid cavity under the bench's configuration to
+     steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
+     float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
+     and by the reference's measure (tests/test_lid.py).
 The last two lines are the kernels' JSON record and the device line.
 """
 import contextlib
@@ -38,6 +46,7 @@ import numpy as np
 N_MAIN = 2048
 N_SMALL = 64
 MAIN_STEPS = 20
+ROUTE_STEPS = 5
 TIMED_STEPS = 20
 TIMED_WINDOWS = 5
 PROFILE_STEPS = 10
@@ -97,29 +106,60 @@ KERNELS = {
     "interp_faces": (CSRC + "projops.cu",
                      "gerris_tpu/ops/pallas/projops.py:172"),
     "advect2d": (CSRC + "bcg.cu", "gerris_tpu/ops/pallas/bcg.py:461"),
+    "advect2d_pair": (CSRC + "bcg.cu", "gerris_tpu/ops/pallas/bcg.py:319"),
+    "residual_restrict_pair": (CSRC + "rbgs.cu",
+                               "gerris_tpu/ops/pallas/rbgs.py:1194"),
+    "cascade_prolong_relax_pair": (CSRC + "rbgs.cu",
+                                   "gerris_tpu/ops/pallas/rbgs.py:1513"),
+    "prolong_relax_pair": (CSRC + "rbgs.cu",
+                           "gerris_tpu/ops/pallas/rbgs.py:421"),
 }
-# launches on the main path: init + MAIN_STEPS steps.  Per step: 4 solves
-# (2 projections + 2 diffusion components) of K1-K3; K6 once; K4 and K5
-# once per projection; K9 once; K14 once per component.  The initial
-# projection adds one solve, one K9, one K4 and one K5.
-WANT_LAUNCHES = {
-    "residual_restrict": 4 * MAIN_STEPS + 1,
-    "cascade_prolong_relax": 4 * MAIN_STEPS + 1,
-    "prolong_relax": 4 * MAIN_STEPS + 1,
-    "predict_xy": MAIN_STEPS,
-    "divergence_mac": 2 * MAIN_STEPS + 1,
-    "correct_project": 2 * MAIN_STEPS + 1,
-    "interp_faces": MAIN_STEPS + 1,
-    "advect2d": 2 * MAIN_STEPS,
-}
-# device kernels of the port, by a substring of their names
+# levels of a cascade at n/2 = 1024 with the 16^2 coarsest level: 5
+# restrict2 launches (512 -> 16), then 7 prolong_relax (16 .. 1024)
+CASCADE_POOLS, CASCADE_LEVELS = 5, 7
+# the routes of the velocity advection and diffusion (models/ns.py), by
+# their NSConfig flags
+ROUTES = {"pair": dict(pair_advect=True),
+          "per_component": dict(pair_advect=False),
+          "rr": dict(pair_advect=True, rr_in_advect=True)}
+
+
+def want_launches(route, steps):
+    """Launches of init + ``steps`` steps at 2048^2.  Per step: the two
+    projections' solves of K1-K3 (and the initial projection's); K6 once;
+    K4 and K5 once per projection; K9 once; the U+V diffusion pair's
+    K8a-c once (K7's rr_dia mode takes K8a's place on the rr route); K7
+    once, or K14 once per component on the per-component route."""
+    solves = 2 * steps + 1
+    pair = steps if route != "per_component" else 0
+    return {
+        "residual_restrict": solves, "cascade_prolong_relax": solves,
+        "prolong_relax": solves, "restrict2": CASCADE_POOLS * solves,
+        "cascade.prolong_relax": CASCADE_LEVELS * solves,
+        "predict_xy": steps, "divergence_mac": solves,
+        "correct_project": solves, "interp_faces": steps + 1,
+        "advect2d": 2 * steps - 2 * pair, "advect2d_pair": pair,
+        "residual_restrict_pair": steps if route != "rr" else 0,
+        "cascade_prolong_relax_pair": steps,
+        "restrict2_pair": CASCADE_POOLS * steps,
+        "cascade_pair.prolong_relax": CASCADE_LEVELS * steps,
+        "prolong_relax_pair": steps,
+    }
+
+
+# device kernels of the port, by a substring of their names.  The pairs
+# K8a-c launch the K1, restrict2 and K3 kernels with a batch of two, so
+# their names are K1's, restrict2's and K3's
 OWN_KERNELS = ("residual_restrict_kernel", "restrict2_kernel",
                "prolong_relax_kernel", "divergence_mac_kernel",
                "correct_project_kernel", "interp_faces_kernel",
-               "predict_xy_kernel", "advect2d_kernel", "sum_partials_kernel")
+               "predict_xy_kernel", "advect2d_kernel", "advect2d_pair_kernel",
+               "sum_partials_kernel")
 
 
-def lid_cfg(level):
+def lid_cfg(level, pair_advect=True, rr_in_advect=False):
+    """The bench's lid cavity (bench.py's defaults: GERRIS_PAIR_ADVECT=1,
+    GERRIS_RR_ADVECT=0, GERRIS_DIV_SRC=0) at 2^level cells per side."""
     from gerris_tpu_torch.core import bc
     from gerris_tpu_torch.core.grid import Grid
     from gerris_tpu_torch.models import ns
@@ -133,7 +173,8 @@ def lid_cfg(level):
     diff = MultilevelParams(nrelax=1, omega=1.0, coarsest_relax=40)
     return ns.NSConfig(grid=Grid(level=level), u_bcs=(u_bc, v_bc), nu=1e-3,
                        beta=1.0, projection=proj, approx_projection=proj,
-                       diffusion_params=diff)
+                       diffusion_params=diff, pair_advect=pair_advect,
+                       rr_in_advect=rr_in_advect)
 
 
 def launch_counts():
@@ -222,9 +263,12 @@ def plain_versions():
     version (the card-side reference run)."""
     from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs
     swaps = [(rbgs, "residual_restrict"), (rbgs, "cascade_prolong_relax"),
-             (rbgs, "prolong_relax"), (projops, "divergence_mac"),
+             (rbgs, "prolong_relax"), (rbgs, "residual_restrict_pair"),
+             (rbgs, "cascade_prolong_relax_pair"),
+             (rbgs, "prolong_relax_pair"), (projops, "divergence_mac"),
              (projops, "correct_project"), (projops, "interp_faces"),
-             (predict, "predict_xy"), (bcg, "advect2d")]
+             (predict, "predict_xy"), (bcg, "advect2d"),
+             (bcg, "advect2d_pair")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -235,12 +279,18 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
+def flat(outs):
+    """([a0, a1], [b0, b1], ...) -> [a0, a1, b0, b1, ...]"""
+    return [t for ts in outs for t in ts]
+
+
 def check_face_kernels(rnd, dtype, n, record):
-    """K6, K4, K5, K9 and K14 against their plain versions at n^2 (the
-    lid's BCs, dt = 0.8 h, the diffusion rhs scale of nu = 1e-3); errors
-    go to ``record`` when it is given."""
+    """K6, K4, K5, K9, K14 and K7 against their plain versions at n^2 (the
+    lid's BCs, dt = 0.8 h, the diffusion rhs scale of nu = 1e-3), and K7
+    against two K14 launches; errors go to ``record`` when it is given."""
     import torch
-    from gerris_tpu_torch.ops.cuda import bcg, predict, projops
+    from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs
+    from gerris_tpu_torch.solvers.poisson import _signs_offs
     cfg = lid_cfg(int(np.log2(n)))
     grid, u_bcs, p_bc = cfg.grid, cfg.u_bcs, cfg.p_bc
     name = str(dtype).replace("torch.", "")
@@ -291,9 +341,81 @@ def check_face_kernels(rnd, dtype, n, record):
                 bcg.advect2d(v, c, ufx, ufy, dt, grid, u_bcs[c], **kw),
                 bcg.advect2d_plain(v, c, ufx, ufy, dt, grid, u_bcs[c], **kw),
                 b))
+    # K7: both components with their own BCs (U's lid, V's walls), the
+    # g, gp and oscale folds, in the rhs mode and the rr_dia mode
+    fbcs = list(u_bcs)
+    GPx, GPy = rnd(dtype, n, n), rnd(dtype, n, n)
+    signs = _signs_offs(grid, fbcs[0], homogeneous=False)[0]
+    offss = [_signs_offs(grid, f, homogeneous=False)[1] for f in fbcs]
+    for rr in (False, True):
+        tag = " rr_dia" if rr else ""
+        kw = dict(g=(Gx, Gy), gp=(GPx, GPy), oscale=-dia,
+                  rr_dia=dia if rr else None)
+        got = bcg.advect2d_pair(U, V, ufx, ufy, dt, grid, fbcs, **kw)
+        ref = bcg.advect2d_pair_plain(U, V, ufx, ufy, dt, grid, fbcs, **kw)
+        got, ref = (flat(got), flat(ref)) if rr else (got, ref)
+        errs.setdefault("advect2d_pair", []).append(compare(
+            f"K7 advect2d_pair {n}{tag}", got, ref, b))
+        k14 = [bcg.advect2d(v, c, ufx, ufy, dt, grid, fbcs[c], g=g, gp=gp,
+                            oscale=-dia)
+               for c, (v, g, gp) in enumerate(((U, Gx, GPx), (V, Gy, GPy)))]
+        if rr:
+            k14 = flat(rbgs.residual_restrict_pair(
+                [U, V], k14, [dia, dia], h2=h * h, signs=signs,
+                offss=offss))
+        compare(f"K7 vs two K14{' + K8a' if rr else ''} {n}{tag}", got, k14,
+                b)
+        same = all(torch.equal(x, y) for x, y in zip(got, k14))
+        print(f"  K7 vs two K14{' + K8a' if rr else ''} {n}{tag}: "
+              f"bit-identical={same}")
     if record is not None:
         for k, es in errs.items():
             record[k].update(zip(ERR_KEYS, map(max, zip(*es))))
+
+
+def check_pair_kernels(rnd, dtype, n, record):
+    """The diffusion pair K8a, K8b (at n/2, 1 sweep, 40 coarsest) and K8c
+    against their plain versions at n^2, with the lid's U and V systems:
+    shared signs, their own ghost offsets (U's lid 2.0 on the top side),
+    subs and dias; errors go to ``record`` when it is given."""
+    from gerris_tpu_torch.ops.cuda import rbgs
+    from gerris_tpu_torch.solvers.poisson import _signs_offs
+    cfg = lid_cfg(int(np.log2(n)))
+    name = str(dtype).replace("torch.", "")
+    b = BOUND[name]
+    b2 = 1e-12 if name == "float64" else 1e-4
+    signs = _signs_offs(cfg.grid, cfg.u_bcs[0], homogeneous=False)[0]
+    offss = [_signs_offs(cfg.grid, f, homogeneous=False)[1]
+             for f in cfg.u_bcs]
+    h2 = 1.0 / n ** 2
+    # the diffusion systems' dia = 1/(dt nu) at dt = 0.8 h, and half of it
+    dias = [1.0 / (0.8 / n * 1e-3), 0.5 / (0.8 / n * 1e-3)]
+    us = [rnd(dtype, n, n) for _ in range(2)]
+    rhss = [rnd(dtype, n, n) for _ in range(2)]
+    subs = [0.0, rnd(dtype, 1)]
+    kw = dict(h2=h2, signs=signs, offss=offss, per_y=False)
+    errs = {"residual_restrict_pair": compare(
+        f"K8a residual_restrict_pair {n}",
+        flat(rbgs.residual_restrict_pair(us, rhss, dias, subs, **kw)),
+        flat(rbgs.residual_restrict_pair_plain(us, rhss, dias, subs, **kw)),
+        b)}
+    r1s = [rnd(dtype, n // 2, n // 2) for _ in range(2)]
+    r2s = [rnd(dtype, n // 4, n // 4) for _ in range(2)]
+    ckw = dict(nsweeps=1, coarsest=40, h2_half=4 * h2, signs=signs,
+               per_y=False, omega=1.0)
+    errs["cascade_prolong_relax_pair"] = compare(
+        f"K8b cascade_prolong_relax_pair {n // 2} nsweeps=1",
+        rbgs.cascade_prolong_relax_pair(r1s, r2s, dias, **ckw),
+        rbgs.cascade_prolong_relax_pair_plain(r1s, r2s, dias, **ckw), b2)
+    coarses = [rnd(dtype, n // 2, n // 2) for _ in range(2)]
+    pkw = dict(nsweeps=1, h2=h2, signs=signs, per_y=False, omega=1.0)
+    errs["prolong_relax_pair"] = compare(
+        f"K8c prolong_relax_pair {n} nsweeps=1",
+        rbgs.prolong_relax_pair(coarses, rhss, dias, us, **pkw),
+        rbgs.prolong_relax_pair_plain(coarses, rhss, dias, us, **pkw), b)
+    if record is not None:
+        for k, e in errs.items():
+            record[k].update(zip(ERR_KEYS, e))
 
 
 def nbytes(*ts):
@@ -314,6 +436,16 @@ def cycle_flops(n, nsweeps, omega):
     """Operations of K3 on an n^2 level: the prolongation (6 per cell), a
     sweep's update (7 per cell, 3 more with omega != 1), the + u (1)."""
     return n * n * (7 + nsweeps * (7 + (3 if omega != 1.0 else 0)))
+
+
+def cascade_flops(n_half, nsweeps, omega, coarsest=40):
+    """Operations of K2 at n/2 = n_half: K3 at every level from 2 x 16 up
+    to n_half, ``coarsest`` sweeps at 16^2, and the pools (3 per coarse
+    cell) from n_half/4 down to 16."""
+    levels = [n_half >> k for k in range(CASCADE_LEVELS - 1)]
+    return (sum(cycle_flops(m, nsweeps, omega) for m in levels)
+            + cycle_flops(16, coarsest, omega)
+            + sum(m * m * 3 for m in levels[2:]) + 16 * 16 * 3)
 
 
 def phase_kernels(dev, record):
@@ -390,8 +522,10 @@ def phase_kernels(dev, record):
                         b2)
             if main and nsw == 5:
                 record["cascade_prolong_relax"].update(zip(ERR_KEYS, e))
-        # the predictor and projection kernels at the main path's size
-        # and at the Ghia phase's
+        # the diffusion pair, and the predictor, projection and advection
+        # kernels, at the main path's size and at the Ghia phase's
+        check_pair_kernels(rnd, dtype, n, record if main else None)
+        check_pair_kernels(rnd, dtype, N_SMALL, None)
         check_face_kernels(rnd, dtype, n, record if main else None)
         check_face_kernels(rnd, dtype, N_SMALL, None)
 
@@ -410,9 +544,32 @@ def phase_kernels(dev, record):
         raise AssertionError("K3: whole-level and tiled launches differ")
     print("  K3 tile 32 == tile 16 at 2048, whole == tiled at 64: "
           "bit-identical")
+    # K8c: the same, for both systems of a pair (own dias)
+    cs = [rnd(torch.float32, n // 2, n // 2) for _ in range(2)]
+    rhs_s = [rnd(torch.float32, n, n) for _ in range(2)]
+    us = [rnd(torch.float32, n, n) for _ in range(2)]
+    dias = [dia_diff, 0.5 * dia_diff]
+    kw = dict(nsweeps=1, h2=h2, signs=signs)
+    a = rbgs.prolong_relax_pair(cs, rhs_s, dias, us, tile=32, **kw)
+    b = rbgs.prolong_relax_pair(cs, rhs_s, dias, us, tile=16, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("K8c: tile 32 and tile 16 differ")
+    cs = [rnd(torch.float32, 32, 32) for _ in range(2)]
+    rhs_s = [rnd(torch.float32, 64, 64) for _ in range(2)]
+    kw["h2"] = 1.0 / 64 ** 2
+    none = [None, None]
+    if not all(torch.equal(x, y) for x, y in zip(
+            rbgs.prolong_relax_pair(cs, rhs_s, dias, none, **kw),
+            rbgs.prolong_relax_pair(cs, rhs_s, dias, none, tile=16,
+                                    whole_max=32, **kw))):
+        raise AssertionError("K8c: whole-level and tiled launches differ")
+    print("  K8c tile 32 == tile 16 at 2048, whole == tiled at 64: "
+          "bit-identical")
 
     # times at the main path's shapes, float32 (CUDA events).  Each entry:
-    # (kernel call, plain call, input bytes, operations, library call)
+    # (kernel call, plain call, input bytes, operations, library call); a
+    # key "name|variant" records the variant's times beside the kernel's
+    # own as ms_variant, plain_ms_variant and bound_ms_variant
     f32 = torch.float32
     h = 1.0 / n
     dt = 0.8 * h
@@ -440,14 +597,38 @@ def phase_kernels(dev, record):
     r1, r2 = rnd(f32, n // 2, n // 2), rnd(f32, n // 4, n // 4)
     kw2 = dict(nsweeps=5, coarsest=40, h2_half=4 * h2, signs=signs,
                per_y=False, omega=1.5)
-    cascade_ops = sum(cycle_flops(m, 5, 1.5) for m in (1024, 512, 256, 128,
-                                                       64, 32)) + \
-        cycle_flops(16, 40, 1.5) + sum(m * m * 3 for m in (256, 128, 64, 32,
-                                                           16))
     timings["cascade_prolong_relax"] = (
         lambda: rbgs.cascade_prolong_relax(r1, r2, 0.0, **kw2),
         lambda: rbgs.cascade_prolong_relax_plain(r1, r2, 0.0, **kw2),
-        nbytes(r1, r2), cascade_ops, None)
+        nbytes(r1, r2), cascade_flops(n // 2, 5, 1.5), None)
+    # the diffusion pair as the main path runs it: 1 sweep, omega 1, both
+    # systems at dia = 1/(dt nu), their own ghost offsets and subs
+    offss = [offs, _signs_offs(cfg.grid, cfg.u_bcs[1],
+                               homogeneous=False)[1]]
+    dias = [dia_diff, dia_diff]
+    us = [rnd(f32, n, n) for _ in range(2)]
+    rhss = [rnd(f32, n, n) for _ in range(2)]
+    subs = [sub, rnd(f32, 1)]
+    kwa = dict(h2=h2, signs=signs, offss=offss, per_y=False)
+    timings["residual_restrict_pair"] = (
+        lambda: rbgs.residual_restrict_pair(us, rhss, dias, subs, **kwa),
+        lambda: rbgs.residual_restrict_pair_plain(us, rhss, dias, subs,
+                                                  **kwa),
+        nbytes(*us, *rhss, *subs), 2 * n * n * 8, None)
+    r1s = [rnd(f32, n // 2, n // 2) for _ in range(2)]
+    r2s = [rnd(f32, n // 4, n // 4) for _ in range(2)]
+    kwb = dict(nsweeps=1, coarsest=40, h2_half=4 * h2, signs=signs,
+               per_y=False, omega=1.0)
+    timings["cascade_prolong_relax_pair"] = (
+        lambda: rbgs.cascade_prolong_relax_pair(r1s, r2s, dias, **kwb),
+        lambda: rbgs.cascade_prolong_relax_pair_plain(r1s, r2s, dias, **kwb),
+        nbytes(*r1s, *r2s), 2 * cascade_flops(n // 2, 1, 1.0), None)
+    cs = [rnd(f32, n // 2, n // 2) for _ in range(2)]
+    kwc = dict(nsweeps=1, h2=h2, signs=signs, per_y=False, omega=1.0)
+    timings["prolong_relax_pair"] = (
+        lambda: rbgs.prolong_relax_pair(cs, rhss, dias, us, **kwc),
+        lambda: rbgs.prolong_relax_pair_plain(cs, rhss, dias, us, **kwc),
+        nbytes(*cs, *rhss, *us), 2 * cycle_flops(n, 1, 1.0), None)
     grid, u_bcs, p_bc = cfg.grid, cfg.u_bcs, cfg.p_bc
     dia = 1.0 / (dt * cfg.nu)
     U, V, Gx, Gy, p = (rnd(f32, n, n) for _ in range(5))
@@ -471,7 +652,7 @@ def phase_kernels(dev, record):
         lambda: projops.correct_project_plain(p, ufx, ufy, dt, grid, p_bc,
                                               (U, V)),
         nbytes(p, ufx, ufy, U, V), n * n * 20, None)
-    timings["correct_project without cells"] = (
+    timings["correct_project|without_cells"] = (
         lambda: projops.correct_project(p, ufx, ufy, dt, grid, p_bc),
         lambda: projops.correct_project_plain(p, ufx, ufy, dt, grid, p_bc),
         nbytes(p, ufx, ufy), n * n * 16, None)
@@ -490,6 +671,23 @@ def phase_kernels(dev, record):
         lambda: bcg.advect2d_plain(U, 0, ufx, ufy, dt, grid, u_bcs[0], g=Gx,
                                    gp=Gy, oscale=-dia),
         nbytes(U, ufx, ufy, Gx, Gy), n * n * 75, None)
+    # K7 as on the main path: both components, g, gp and oscale, K14's
+    # operations twice; rr_dia mode: the residual (7 per cell) and the two
+    # pools (3 per coarse cell) of both systems on top
+    GPx, GPy = rnd(f32, n, n), rnd(f32, n, n)
+    kw7 = dict(g=(Gx, Gy), gp=(GPx, GPy), oscale=-dia)
+    in7 = nbytes(U, V, ufx, ufy, Gx, Gy, GPx, GPy)
+    timings["advect2d_pair"] = (
+        lambda: bcg.advect2d_pair(U, V, ufx, ufy, dt, grid, u_bcs, **kw7),
+        lambda: bcg.advect2d_pair_plain(U, V, ufx, ufy, dt, grid, u_bcs,
+                                        **kw7),
+        in7, 2 * n * n * 75, None)
+    timings["advect2d_pair|rr_dia"] = (
+        lambda: flat(bcg.advect2d_pair(U, V, ufx, ufy, dt, grid, u_bcs,
+                                       rr_dia=dia, **kw7)),
+        lambda: flat(bcg.advect2d_pair_plain(U, V, ufx, ufy, dt, grid, u_bcs,
+                                             rr_dia=dia, **kw7)),
+        in7, 2 * n * n * (75 + 8), None)
     print("phase 2 times (float32, main-path shapes; plain, kernel, "
           "kernel, plain)")
     for k, (kern, plain, in_bytes, ops, lib) in timings.items():
@@ -498,12 +696,15 @@ def phase_kernels(dev, record):
         k2 = cuda_ms(kern)
         p2 = cuda_ms(plain)
         lib_ms = None if lib is None else cuda_ms(lib)
-        bms, by = bound(in_bytes, kern(), ops)
+        out = kern()
+        bms, by = bound(in_bytes, flat(out) if isinstance(out[0], list)
+                        else out, ops)
         vals = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
-        if k.endswith(" without cells"):
-            record["correct_project"].update(
-                {f"{key}_without_cells": v for key, v in vals.items()
+        name, _, variant = k.partition("|")
+        if variant:
+            record[name].update(
+                {f"{key}_{variant}": v for key, v in vals.items()
                  if key in ("ms", "plain_ms", "bound_ms")})
         else:
             record[k].update(vals)
@@ -512,49 +713,62 @@ def phase_kernels(dev, record):
               + ("" if lib_ms is None else f", library {lib_ms:.4f} ms"))
 
 
-def phase_main_path(dev, card):
+def lid_sim(dev, route, level=11):
+    """The 2^level lid cavity of ``route`` (ROUTES), float32, after init.
+    dtmax = the bench's fixed dt 0.8 h; from rest the CFL bound is
+    unbounded, later steps run at 0.8 h / max|u| <= 0.8 h."""
     import torch
     from gerris_tpu_torch.models.simulation import Simulation, Time
-    cfg = lid_cfg(11)
-    h = cfg.grid.h
-    print(f"phase 3: {N_MAIN}^2 lid cavity, float32, {MAIN_STEPS} steps")
+    cfg = lid_cfg(level, **ROUTES[route])
+    return Simulation(cfg, time=Time(dtmax=0.8 * cfg.grid.h), device=dev,
+                      dtype=torch.float32).init()
 
-    def sim():
-        # dtmax = the bench's fixed dt 0.8 h; from rest the CFL bound is
-        # unbounded, later steps run at 0.8 h / max|u| <= 0.8 h
-        return Simulation(cfg, time=Time(dtmax=0.8 * h), device=dev,
-                          dtype=torch.float32).init()
 
-    s = sim()
+def run_route(dev, route, steps):
+    """init + ``steps`` steps of ``route`` through the kernels, with the
+    launch counts set to 0 just before and gated just after; then the same
+    steps through the plain versions on the card, held to MAIN_PATH_RTOL.
+    Returns (the simulation, its launch counts)."""
+    import torch
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s.run(max_steps=MAIN_STEPS)
+    s = lid_sim(dev, route)
+    s.run(max_steps=steps)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     counts = launch_counts()
-    print(f"  run incl. initial projection: {t_run:.3f} s; launches {counts}")
-    for k, want in WANT_LAUNCHES.items():
+    print(f"  {route} route, init + {steps} steps: {t_run:.3f} s; "
+          f"launches {counts}")
+    for k, want in want_launches(route, steps).items():
         if counts[k] != want:
-            raise AssertionError(f"{k}: {counts[k]} launches, want {want}")
-    for k in ("restrict2", "cascade.prolong_relax"):
-        if counts[k] == 0:
-            raise AssertionError(f"{k}: never launched on the main path")
+            raise AssertionError(f"{route} route: {k}: {counts[k]} "
+                                 f"launches, want {want}")
     for k, v in s.state.items():
-        if v.shape != cfg.grid.shape or not bool(torch.isfinite(v).all()):
+        if v.shape != s.cfg.grid.shape or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{k}: not finite or wrong shape")
-    state = {k: s.state[k].clone() for k in ("U", "V", "P")}
-
     with plain_versions():
-        ref = sim().run(max_steps=MAIN_STEPS)
+        ref = lid_sim(dev, route).run(max_steps=steps)
     if launch_counts() != counts:
         raise AssertionError("the plain reference run launched kernels")
-    for k, v in state.items():
-        rel = float((v - ref.state[k]).abs().max() / ref.state[k].abs().max())
-        print(f"  kernels vs plain after {MAIN_STEPS} steps, {k}: "
+    for k in ("U", "V", "P"):
+        rel = rel_err(s.state[k], ref.state[k])
+        print(f"  {route} route, kernels vs plain after {steps} steps, {k}: "
               f"rel {rel:.3e} (bound {MAIN_PATH_RTOL:.0e})")
         if not rel <= MAIN_PATH_RTOL:
-            raise AssertionError(f"main path {k}: rel {rel:.3e}")
+            raise AssertionError(f"{route} route {k}: rel {rel:.3e}")
+    return s, counts
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_main_path(dev, card):
+    import torch
+    print(f"phase 3: {N_MAIN}^2 lid cavity, float32, {MAIN_STEPS} steps, "
+          "the bench's route")
+    s, counts = run_route(dev, "pair", MAIN_STEPS)
 
     walls = []
     for _ in range(TIMED_WINDOWS):
@@ -569,6 +783,28 @@ def phase_main_path(dev, card):
           f"{' '.join(f'{w:.4f}' for w in walls)} s; median {sps:.3f} "
           f"steps/s, {sps * N_MAIN ** 2 / 1e6:.2f}M cell-updates/s on {card}")
     phase_profile(s, dt / TIMED_STEPS, card)
+    return counts
+
+
+def phase_routes(dev):
+    """The per-component and rr_in_advect routes at ROUTE_STEPS steps,
+    each gated and held to its plain versions, and each against the
+    bench's route after the same steps on the card (the same functions:
+    K7 computes K14 twice over, its rr_dia mode K8a's residual)."""
+    print(f"phase 3, other routes: {N_MAIN}^2, float32, {ROUTE_STEPS} steps")
+    pair = lid_sim(dev, "pair").run(max_steps=ROUTE_STEPS)
+    counts = {}
+    for route in ("per_component", "rr"):
+        s, counts[route] = run_route(dev, route, ROUTE_STEPS)
+        for k in ("U", "V", "P"):
+            rel = rel_err(s.state[k], pair.state[k])
+            same = bool((s.state[k] == pair.state[k]).all())
+            print(f"  {route} vs pair route after {ROUTE_STEPS} steps, {k}: "
+                  f"rel {rel:.3e} (bound {MAIN_PATH_RTOL:.0e}), "
+                  f"bit-identical={same}")
+            if not rel <= MAIN_PATH_RTOL:
+                raise AssertionError(f"{route} vs pair route {k}: "
+                                     f"rel {rel:.3e}")
     return counts
 
 
@@ -684,10 +920,18 @@ def main():
               for k, (src, rep) in KERNELS.items()}
     phase_kernels(dev, record)
     counts = phase_main_path(dev, card)
+    route_counts = phase_routes(dev)
+    # launches on the main path; K14 is off it (K7 takes its place), so
+    # its count is that of its own path, the per-component route
     for k in record:
-        record[k]["launches"] = counts[k]
-    record["cascade_prolong_relax"]["launches_prolong_relax"] = \
-        counts["cascade.prolong_relax"]
+        path = "main" if k != "advect2d" else "per_component"
+        c = counts if path == "main" else route_counts[path]
+        record[k].update(launches=c[k], path=path)
+    for k, sub in (("cascade_prolong_relax", ""),
+                   ("cascade_prolong_relax_pair", "_pair")):
+        record[k]["launches_restrict2"] = counts["restrict2" + sub]
+        record[k]["launches_prolong_relax"] = \
+            counts[f"cascade{sub}.prolong_relax"]
 
     ok, eu, ev = phase_physics(dev, card)
     if not (ok and eu <= GHIA_LINF_U and ev <= GHIA_LINF_V):

@@ -1,7 +1,8 @@
 // Multigrid cycle kernels for Hopper (sm_90a): the fixed sawtooth cycle
-// of gerris_tpu_torch/solvers/poisson.py:fused_cycle.
+// of gerris_tpu_torch/solvers/poisson.py:fused_cycle, and its U+V pair
+// (poisson.py:solve_fixed_batched).
 //
-// Four kernels, each templated on float and double, behind a plain C
+// Three kernels, each templated on float and double, behind a plain C
 // interface (loaded with ctypes by gerris_tpu_torch/ops/cuda/rbgs.py):
 //
 //   residual_restrict  r0 = (rhs - sub) - (L - dia) u with static ghosts,
@@ -12,6 +13,15 @@
 //                      (+ u), in one launch;
 //   and the cascade (ops/cuda/rbgs.py:cascade_prolong_relax) is a host
 //   sequence of restrict2 and prolong_relax launches.
+//
+// Every kernel takes a batch of 1 or 2 independent systems of one size:
+// gridDim.z is the batch and blockIdx.z picks the system's pointers and
+// scalars from a small struct passed by value.  A single solve launches
+// with a batch of 1 (K1-K3); the U+V implicit-diffusion pair launches the
+// same kernels with a batch of 2 (K8a-c, the TPU's *_pair kernels), so a
+// system's output in the pair is the single launch's by construction.
+// The ghost signs and the periodicity are shared by the batch, as in the
+// TPU kernels; dia, sub and the ghost offsets are per system.
 //
 // Layouts are logical: a cell field is a contiguous (n0, n1) row-major
 // array, axis 1 contiguous.  Ghost encoding per side: ghost =
@@ -28,28 +38,84 @@
 
 namespace {
 
+constexpr int MAX_BATCH = 2;
 constexpr int RR_TILE = 16;  // residual_restrict output tile (4-aligned)
 constexpr int PR_THREADS_X = 32;
 constexpr int PR_THREADS_Y = 8;
 
+// One system of a residual_restrict launch.
+template <typename T>
+struct RRSystem {
+  const T* u;
+  const T* rhs;
+  const T* sub;  // one value in device memory, or nullptr for 0
+  T dia;
+  T off[4];
+  T* r0;
+  T* r1;
+  T* r2;
+};
+
+template <typename T>
+struct RRArgs {
+  RRSystem<T> sys[MAX_BATCH];
+  T h2;
+  int n0, n1;
+  T sgn[4];
+  int per_y;
+};
+
+// One system of a restrict2 launch.
+template <typename T>
+struct R2System {
+  const T* r;
+  T* out;
+};
+
+template <typename T>
+struct R2Args {
+  R2System<T> sys[MAX_BATCH];
+  int n0, n1;
+};
+
+// One system of a prolong_relax launch.
+template <typename T>
+struct PRSystem {
+  const T* coarse;  // nullptr: start from du = 0
+  const T* rhs;
+  const T* u;  // nullptr: return du, else u + du
+  T* out;
+  T inv_denom;  // 1 / (4 + dia h2)
+};
+
+template <typename T>
+struct PRArgs {
+  PRSystem<T> sys[MAX_BATCH];
+  int n0, n1, tile, halo, nsweeps;
+  T h2, omega, one_m_omega;
+  int use_omega;
+  T sgn[4];
+  int per_y;
+};
+
 // ---------------------------------------------------------------------------
-// K1 residual_restrict.
-// Replaces gerris_tpu/ops/pallas/rbgs.py:residual_restrict (core _rr_core).
-// Bound: device-memory bytes (reads u and rhs, writes r0 + r0/4 + r0/16).
-// Design: one block per 16x16 output tile; the u tile and its 1-cell halo
-// (with the domain ghosts) sit in shared memory, so u is read ~1.27x
-// instead of 5x; r0 stays in shared memory for the two pooling levels,
-// so r1 and r2 never re-read r0 from device memory.
+// K1 residual_restrict (batch 1) and K8a residual_restrict_pair (batch 2).
+// Replaces gerris_tpu/ops/pallas/rbgs.py:residual_restrict (core _rr_core)
+// and residual_restrict_pair (_resid_restrict_kernel_pair).
+// Bound: device-memory bytes (reads u and rhs, writes r0 + r0/4 + r0/16,
+// per system).
+// Design: one block per 16x16 output tile of one system; the u tile and its
+// 1-cell halo (with the domain ghosts) sit in shared memory, so u is read
+// ~1.27x instead of 5x; r0 stays in shared memory for the two pooling
+// levels, so r1 and r2 never re-read r0 from device memory.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void residual_restrict_kernel(
-    const T* __restrict__ u, const T* __restrict__ rhs,
-    const T* __restrict__ sub_ptr, T dia, T h2, int n0, int n1,
-    T sx0, T sx1, T sy0, T sy1, T ox0, T ox1, T oy0, T oy1, int per_y,
-    T* __restrict__ r0, T* __restrict__ r1, T* __restrict__ r2) {
+__global__ void residual_restrict_kernel(RRArgs<T> a) {
   __shared__ T su[RR_TILE + 2][RR_TILE + 2];
   __shared__ T sr[RR_TILE][RR_TILE];
   __shared__ T s1[RR_TILE / 2][RR_TILE / 2];
+  const RRSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
+  const int n0 = a.n0, n1 = a.n1;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int i0 = blockIdx.y * RR_TILE, j0 = blockIdx.x * RR_TILE;
   const int nt = RR_TILE * RR_TILE;
@@ -60,96 +126,99 @@ __global__ void residual_restrict_kernel(
     const bool in_i = gi >= 0 && gi < n0, in_j = gj >= 0 && gj < n1;
     T v = T(0);
     if (in_i && in_j) {
-      v = u[(size_t)gi * n1 + gj];
+      v = s.u[(size_t)gi * n1 + gj];
     } else if (in_j) {  // ghost row
-      v = gi < 0 ? sx0 * u[gj] + ox0
-                 : sx1 * u[(size_t)(n0 - 1) * n1 + gj] + ox1;
+      v = gi < 0 ? a.sgn[0] * s.u[gj] + s.off[0]
+                 : a.sgn[1] * s.u[(size_t)(n0 - 1) * n1 + gj] + s.off[1];
     } else if (in_i) {  // ghost column
-      if (per_y)
-        v = u[(size_t)gi * n1 + (gj < 0 ? n1 - 1 : 0)];
+      if (a.per_y)
+        v = s.u[(size_t)gi * n1 + (gj < 0 ? n1 - 1 : 0)];
       else
-        v = gj < 0 ? sy0 * u[(size_t)gi * n1] + oy0
-                   : sy1 * u[(size_t)gi * n1 + n1 - 1] + oy1;
+        v = gj < 0 ? a.sgn[2] * s.u[(size_t)gi * n1] + s.off[2]
+                   : a.sgn[3] * s.u[(size_t)gi * n1 + n1 - 1] + s.off[3];
     }
     su[li][lj] = v;  // corner ghosts are never read
   }
   __syncthreads();
-  const T sub = sub_ptr ? *sub_ptr : T(0);
+  const T sub = s.sub ? *s.sub : T(0);
   const int gi = i0 + ty, gj = j0 + tx;
   const T c = su[ty + 1][tx + 1];
   const T nb = su[ty][tx + 1] + su[ty + 2][tx + 1] + su[ty + 1][tx] +
                su[ty + 1][tx + 2];
-  const T r = rhs[(size_t)gi * n1 + gj] - sub - (nb - T(4) * c) / h2 +
-              dia * c;
-  r0[(size_t)gi * n1 + gj] = r;
+  const T r = s.rhs[(size_t)gi * n1 + gj] - sub - (nb - T(4) * c) / a.h2 +
+              s.dia * c;
+  s.r0[(size_t)gi * n1 + gj] = r;
   sr[ty][tx] = r;
   __syncthreads();
   // 2x2 means: rows first, then columns (the plain version's order)
   if (ty < RR_TILE / 2 && tx < RR_TILE / 2) {
-    const T a = T(0.5) * (sr[2 * ty][2 * tx] + sr[2 * ty + 1][2 * tx]);
-    const T b =
+    const T p = T(0.5) * (sr[2 * ty][2 * tx] + sr[2 * ty + 1][2 * tx]);
+    const T q =
         T(0.5) * (sr[2 * ty][2 * tx + 1] + sr[2 * ty + 1][2 * tx + 1]);
-    const T m = T(0.5) * (a + b);
+    const T m = T(0.5) * (p + q);
     s1[ty][tx] = m;
-    r1[(size_t)(i0 / 2 + ty) * (n1 / 2) + j0 / 2 + tx] = m;
+    s.r1[(size_t)(i0 / 2 + ty) * (n1 / 2) + j0 / 2 + tx] = m;
   }
   __syncthreads();
   if (ty < RR_TILE / 4 && tx < RR_TILE / 4) {
-    const T a = T(0.5) * (s1[2 * ty][2 * tx] + s1[2 * ty + 1][2 * tx]);
-    const T b =
+    const T p = T(0.5) * (s1[2 * ty][2 * tx] + s1[2 * ty + 1][2 * tx]);
+    const T q =
         T(0.5) * (s1[2 * ty][2 * tx + 1] + s1[2 * ty + 1][2 * tx + 1]);
-    r2[(size_t)(i0 / 4 + ty) * (n1 / 4) + j0 / 4 + tx] = T(0.5) * (a + b);
+    s.r2[(size_t)(i0 / 4 + ty) * (n1 / 4) + j0 / 4 + tx] = T(0.5) * (p + q);
   }
 }
 
 // ---------------------------------------------------------------------------
-// restrict2: one 2x2 mean pool, (n0, n1) -> (n0/2, n1/2).
+// restrict2: one 2x2 mean pool, (n0, n1) -> (n0/2, n1/2), per system.
 // Part of the port of gerris_tpu/ops/pallas/rbgs.py:cascade_prolong_relax
-// (its in-VMEM restriction pyramid, _row_pool + _lane_pool).
+// and cascade_prolong_relax_pair (their in-VMEM restriction pyramid,
+// _row_pool + _lane_pool).
 // Bound: device-memory bytes; one thread per coarse cell reads its four
 // children once.  The levels it serves are at most (n/4)^2, so the launch
 // latency, not the bytes, dominates at the coarse end.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void restrict2_kernel(const T* __restrict__ r, int n0, int n1,
-                                 T* __restrict__ out) {
-  const int m1 = n1 / 2;
+__global__ void restrict2_kernel(R2Args<T> a) {
+  const R2System<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
+  const int n1 = a.n1, m1 = n1 / 2;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= n0 / 2 || j >= m1) return;
-  const T* p = r + (size_t)(2 * i) * n1 + 2 * j;
-  const T a = T(0.5) * (p[0] + p[n1]);
-  const T b = T(0.5) * (p[1] + p[n1 + 1]);
-  out[(size_t)i * m1 + j] = T(0.5) * (a + b);
+  if (i >= a.n0 / 2 || j >= m1) return;
+  const T* p = s.r + (size_t)(2 * i) * n1 + 2 * j;
+  const T x = T(0.5) * (p[0] + p[n1]);
+  const T y = T(0.5) * (p[1] + p[n1 + 1]);
+  s.out[(size_t)i * m1 + j] = T(0.5) * (x + y);
 }
 
 // ---------------------------------------------------------------------------
-// K3 prolong_relax.
-// Replaces gerris_tpu/ops/pallas/rbgs.py:prolong_relax (core _pr_core).
+// K3 prolong_relax (batch 1) and K8c prolong_relax_pair (batch 2).
+// Replaces gerris_tpu/ops/pallas/rbgs.py:prolong_relax (core _pr_core) and
+// prolong_relax_pair (_prolong_relax_kernel_pair).
 // Bound: device-memory bytes for the fine levels (reads coarse/4 + rhs
 // (+ u), writes du once for all sweeps); at the coarse levels that fit
 // one block, launch latency and the block's serial sweeps.
-// Design: one block per tile x tile output tile.  The block's shared
-// buffer holds the tile plus a halo of `halo` = 2*nsweeps cells and one
-// outer frozen ring; the prolonged du and the rhs are placed there once,
-// every half-sweep updates the cells of one global colour (i+j)%2 inside
-// the buffer, and the valid region shrinks by at most one cell per
-// half-sweep, so after 2*nsweeps half-sweeps the tile is exact (the
-// TPU kernel's own argument, rbgs.py:5-10).  Domain-edge ghost cells that
-// fall inside the buffer are recomputed (homogeneous: sgn * mirror)
+// Design: one block per tile x tile output tile of one system.  The
+// block's shared buffer holds the tile plus a halo of `halo` = 2*nsweeps
+// cells and one outer frozen ring; the prolonged du and the rhs are placed
+// there once, every half-sweep updates the cells of one global colour
+// (i+j)%2 inside the buffer, and the valid region shrinks by at most one
+// cell per half-sweep, so after 2*nsweeps half-sweeps the tile is exact
+// (the TPU kernel's own argument, rbgs.py:5-10).  Domain-edge ghost cells
+// that fall inside the buffer are recomputed (homogeneous: sgn * mirror)
 // before every half-sweep.  A level that fits one block is run with
 // tile = n and halo = 0: the buffer is the whole level plus its ghost
-// ring (periodic columns are refreshed as ghosts there).
+// ring (periodic columns are refreshed as ghosts there); the pair then
+// runs as two blocks.
 // coarse == nullptr starts from du = 0 (the coarsest level); u != nullptr
 // adds u to the result.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void prolong_relax_kernel(
-    const T* __restrict__ coarse, const T* __restrict__ rhs,
-    const T* __restrict__ u, T* __restrict__ out, int n0, int n1, int tile,
-    int halo, int nsweeps, T h2, T inv_denom, T omega, T one_m_omega,
-    int use_omega, T sx0, T sx1, T sy0, T sy1, int per_y) {
+__global__ void prolong_relax_kernel(PRArgs<T> a) {
   extern __shared__ unsigned char smem_raw[];
+  const PRSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
+  const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
+  const int per_y = a.per_y;
+  const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
   const int B = tile + 2 * halo + 2;
   T* buf = reinterpret_cast<T*>(smem_raw);
   T* rb = buf + (size_t)B * B;
@@ -157,6 +226,7 @@ __global__ void prolong_relax_kernel(
   const int gj0 = blockIdx.x * tile - halo - 1;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int m1 = n1 / 2;
+  const T* coarse = s.coarse;
   // whole-level blocks refresh periodic wrap columns like ghosts
   const bool wrap_ghost = per_y && halo == 0;
 
@@ -170,7 +240,7 @@ __global__ void prolong_relax_kernel(
       const bool real = real_i && gj >= 0 && gj < n1;
       T du = T(0), r = T(0);
       if (real) {
-        r = rhs[(size_t)gi * n1 + gj];
+        r = s.rhs[(size_t)gi * n1 + gj];
         if (coarse) {
           const int ci = gi >> 1, cj = gj >> 1;
           const int cin = (gi & 1) ? ci + 1 : ci - 1;
@@ -186,18 +256,18 @@ __global__ void prolong_relax_kernel(
               nb = coarse[(size_t)cin * m1 + cc];
             return T(0.75) * base + T(0.25) * nb;
           };
-          const T a = rowstep(cj);
+          const T p = rowstep(cj);
           int cjn = (gj & 1) ? cj + 1 : cj - 1;
-          T b;
+          T q;
           if (per_y)
-            b = rowstep((cjn + m1) % m1);
+            q = rowstep((cjn + m1) % m1);
           else if (gj == 0)
-            b = sy0 * a;
+            q = sy0 * p;
           else if (gj == n1 - 1)
-            b = sy1 * a;
+            q = sy1 * p;
           else
-            b = rowstep(cjn);
-          du = T(0.75) * a + T(0.25) * b;
+            q = rowstep(cjn);
+          du = T(0.75) * p + T(0.25) * q;
         }
       }
       buf[li * B + lj] = du;
@@ -206,8 +276,8 @@ __global__ void prolong_relax_kernel(
   }
   __syncthreads();
 
-  for (int s = 0; s < 2 * nsweeps; ++s) {
-    const int color = s & 1;  // red ((i+j) even) first
+  for (int sw = 0; sw < 2 * a.nsweeps; ++sw) {
+    const int color = sw & 1;  // red ((i+j) even) first
     // ---- domain-edge ghosts from the current interior
     for (int li = ty; li < B; li += PR_THREADS_Y) {
       const int gi = gi0 + li;
@@ -243,8 +313,8 @@ __global__ void prolong_relax_kernel(
         const int k = li * B + lj;
         const T c = buf[k];
         const T nb = buf[k - B] + buf[k + B] + buf[k - 1] + buf[k + 1];
-        T nw = (nb - h2 * rb[k]) * inv_denom;
-        if (use_omega) nw = one_m_omega * c + omega * nw;
+        T nw = (nb - a.h2 * rb[k]) * s.inv_denom;
+        if (a.use_omega) nw = a.one_m_omega * c + a.omega * nw;
         buf[k] = nw;
       }
     }
@@ -259,42 +329,89 @@ __global__ void prolong_relax_kernel(
       const int gj = gj0 + lj;
       const size_t g = (size_t)gi * n1 + gj;
       const T v = buf[li * B + lj];
-      out[g] = u ? v + u[g] : v;
+      s.out[g] = s.u ? v + s.u[g] : v;
     }
   }
 }
 
+bool batch_ok(int batch) { return batch >= 1 && batch <= MAX_BATCH; }
+
 template <typename T>
-int launch_residual_restrict(const void* u, const void* rhs, const void* sub,
-                             double dia, double h2, int n0, int n1,
-                             double sx0, double sx1, double sy0, double sy1,
-                             double ox0, double ox1, double oy0, double oy1,
-                             int per_y, void* r0, void* r1, void* r2,
-                             void* stream) {
+int launch_residual_restrict(int batch, const void* const* u,
+                             const void* const* rhs, const void* const* sub,
+                             const double* dia, const double* off, double h2,
+                             int n0, int n1, const double* sgn, int per_y,
+                             void* const* r0, void* const* r1,
+                             void* const* r2, void* stream) {
+  if (!batch_ok(batch)) return (int)cudaErrorInvalidValue;
+  RRArgs<T> a = {};
+  for (int b = 0; b < batch; ++b) {
+    RRSystem<T>& s = a.sys[b];
+    s.u = (const T*)u[b];
+    s.rhs = (const T*)rhs[b];
+    s.sub = (const T*)sub[b];
+    s.dia = T(dia[b]);
+    for (int k = 0; k < 4; ++k) s.off[k] = T(off[4 * b + k]);
+    s.r0 = (T*)r0[b];
+    s.r1 = (T*)r1[b];
+    s.r2 = (T*)r2[b];
+  }
+  a.h2 = T(h2);
+  a.n0 = n0;
+  a.n1 = n1;
+  for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
+  a.per_y = per_y;
   dim3 block(RR_TILE, RR_TILE);
-  dim3 grid(n1 / RR_TILE, n0 / RR_TILE);
-  residual_restrict_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)u, (const T*)rhs, (const T*)sub, T(dia), T(h2), n0, n1,
-      T(sx0), T(sx1), T(sy0), T(sy1), T(ox0), T(ox1), T(oy0), T(oy1), per_y,
-      (T*)r0, (T*)r1, (T*)r2);
+  dim3 grid(n1 / RR_TILE, n0 / RR_TILE, batch);
+  residual_restrict_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_restrict2(const void* r, int n0, int n1, void* out, void* stream) {
+int launch_restrict2(int batch, const void* const* r, int n0, int n1,
+                     void* const* out, void* stream) {
+  if (!batch_ok(batch)) return (int)cudaErrorInvalidValue;
+  R2Args<T> a = {};
+  for (int b = 0; b < batch; ++b) {
+    a.sys[b].r = (const T*)r[b];
+    a.sys[b].out = (T*)out[b];
+  }
+  a.n0 = n0;
+  a.n1 = n1;
   dim3 block(32, 8);
-  dim3 grid((n1 / 2 + 31) / 32, (n0 / 2 + 7) / 8);
-  restrict2_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)r, n0, n1, (T*)out);
+  dim3 grid((n1 / 2 + 31) / 32, (n0 / 2 + 7) / 8, batch);
+  restrict2_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_prolong_relax(const void* coarse, const void* rhs, const void* u,
-                         void* out, int n0, int n1, int tile, int halo,
-                         int nsweeps, double h2, double inv_denom,
-                         double omega, double sx0, double sx1, double sy0,
-                         double sy1, int per_y, void* stream) {
+int launch_prolong_relax(int batch, const void* const* coarse,
+                         const void* const* rhs, const void* const* u,
+                         void* const* out, const double* dia, int n0, int n1,
+                         int tile, int halo, int nsweeps, double h2,
+                         double omega, const double* sgn, int per_y,
+                         void* stream) {
+  if (!batch_ok(batch)) return (int)cudaErrorInvalidValue;
+  PRArgs<T> a = {};
+  for (int b = 0; b < batch; ++b) {
+    PRSystem<T>& s = a.sys[b];
+    s.coarse = (const T*)coarse[b];
+    s.rhs = (const T*)rhs[b];
+    s.u = (const T*)u[b];
+    s.out = (T*)out[b];
+    s.inv_denom = T(1.0 / (4.0 + dia[b] * h2));
+  }
+  a.n0 = n0;
+  a.n1 = n1;
+  a.tile = tile;
+  a.halo = halo;
+  a.nsweeps = nsweeps;
+  a.h2 = T(h2);
+  a.omega = T(omega);
+  a.one_m_omega = T(1.0 - omega);
+  a.use_omega = omega != 1.0;
+  for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
+  a.per_y = per_y;
   const int B = tile + 2 * halo + 2;
   const size_t smem = 2 * (size_t)B * B * sizeof(T);
   cudaError_t e = cudaFuncSetAttribute(
@@ -302,38 +419,38 @@ int launch_prolong_relax(const void* coarse, const void* rhs, const void* u,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 block(PR_THREADS_X, PR_THREADS_Y);
-  dim3 grid(n1 / tile, n0 / tile);
-  prolong_relax_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const T*)coarse, (const T*)rhs, (const T*)u, (T*)out, n0, n1, tile,
-      halo, nsweeps, T(h2), T(inv_denom), T(omega), T(1.0 - omega),
-      omega != 1.0, T(sx0), T(sx1), T(sy0), T(sy1), per_y);
+  dim3 grid(n1 / tile, n0 / tile, batch);
+  prolong_relax_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The C interface: the device pointers of a launch are one host table of
+// `batch` entries per argument, in the order listed (residual_restrict: u,
+// rhs, sub, r0, r1, r2; restrict2: r, out; prolong_relax: coarse, rhs, u,
+// out), so that a launch builds one array; dia is a host array of `batch`
+// entries, the ghost offsets of 4 * batch.
 #define GTT_EXPORT(SUFFIX, T)                                                 \
   extern "C" int gtt_residual_restrict_##SUFFIX(                              \
-      const void* u, const void* rhs, const void* sub, double dia,            \
-      double h2, int n0, int n1, double sx0, double sx1, double sy0,          \
-      double sy1, double ox0, double ox1, double oy0, double oy1, int per_y,  \
-      void* r0, void* r1, void* r2, void* stream) {                           \
-    return launch_residual_restrict<T>(u, rhs, sub, dia, h2, n0, n1, sx0,     \
-                                       sx1, sy0, sy1, ox0, ox1, oy0, oy1,     \
-                                       per_y, r0, r1, r2, stream);            \
+      int batch, void* const* ptr, const double* dia, const double* off,      \
+      double h2, int n0, int n1, const double* sgn, int per_y,                \
+      void* stream) {                                                         \
+    return launch_residual_restrict<T>(                                       \
+        batch, ptr, ptr + batch, ptr + 2 * batch, dia, off, h2, n0, n1, sgn,  \
+        per_y, ptr + 3 * batch, ptr + 4 * batch, ptr + 5 * batch, stream);    \
   }                                                                           \
-  extern "C" int gtt_restrict2_##SUFFIX(const void* r, int n0, int n1,        \
-                                        void* out, void* stream) {            \
-    return launch_restrict2<T>(r, n0, n1, out, stream);                      \
+  extern "C" int gtt_restrict2_##SUFFIX(int batch, void* const* ptr, int n0,  \
+                                        int n1, void* stream) {               \
+    return launch_restrict2<T>(batch, ptr, n0, n1, ptr + batch, stream);     \
   }                                                                           \
   extern "C" int gtt_prolong_relax_##SUFFIX(                                  \
-      const void* coarse, const void* rhs, const void* u, void* out, int n0,  \
-      int n1, int tile, int halo, int nsweeps, double h2, double inv_denom,   \
-      double omega, double sx0, double sx1, double sy0, double sy1,           \
-      int per_y, void* stream) {                                              \
-    return launch_prolong_relax<T>(coarse, rhs, u, out, n0, n1, tile, halo,   \
-                                   nsweeps, h2, inv_denom, omega, sx0, sx1,   \
-                                   sy0, sy1, per_y, stream);                  \
+      int batch, void* const* ptr, const double* dia, int n0, int n1,         \
+      int tile, int halo, int nsweeps, double h2, double omega,               \
+      const double* sgn, int per_y, void* stream) {                           \
+    return launch_prolong_relax<T>(batch, ptr, ptr + batch, ptr + 2 * batch,  \
+                                   ptr + 3 * batch, dia, n0, n1, tile, halo,  \
+                                   nsweeps, h2, omega, sgn, per_y, stream);   \
   }
 
 GTT_EXPORT(f32, float)

@@ -6,13 +6,15 @@ One step (reference: src/simulation.c:432-557):
      ``predict_xy``;
   2. MAC projection at dt/2 on Pmac -> divergence-free faces + gmac
      (K4 ``divergence_mac``, the solve, K5 ``correct_project``);
-  3. centred velocity advection per component (BCG with the MAC faces
-     and the gmac face correction), K14 ``advect2d``, then its implicit
-     diffusion solve;
+  3. centred velocity advection (BCG with the MAC faces and the gmac
+     face correction) and the implicit diffusion: both components in K7
+     ``advect2d_pair`` (``pair_advect``) or one K14 ``advect2d`` each,
+     then the U+V Helmholtz pair through K8a-c (``diffuse_pair``);
   4. approximate projection at dt on P, with the gc gradient re-add
      folded into K9 ``interp_faces`` and the centred correction into K5.
-Every solve goes through poisson.solve -> fused_cycle -> the CUDA kernels
-K1-K3; the kernels run on CUDA tensors, their plain versions on the CPU.
+Every projection solve goes through poisson.solve -> fused_cycle -> the
+CUDA kernels K1-K3; the kernels run on CUDA tensors, their plain versions
+on the CPU.
 Tracers, VOF, variable density, tension, body forces, solids and metrics
 are later slices.
 """
@@ -49,6 +51,13 @@ class NSConfig:
     # fold each projection's divergence into the launch that builds its
     # faces (K6 / K9 with div_scale; gerris_tpu/models/ns.py:909-986)
     div_in_src: bool = False
+    # both components' BCG advections in one K7 launch (the bench's
+    # route, gerris_tpu/models/ns.py:132-136)
+    pair_advect: bool = False
+    # with pair_advect and a one-cycle multigrid diffusion schedule: K7
+    # also gives the diffusion pair's first residual pyramid, replacing
+    # its K8a launch (gerris_tpu/models/ns.py:144-149)
+    rr_in_advect: bool = False
 
     def __post_init__(self):
         if self.grid.dim != 2:
@@ -83,17 +92,55 @@ def predicted_face_velocities(U: list, grid: Grid, cfg: NSConfig, dt,
     return [out[0], out[1]], None if div_scale is None else (out[2], out[3])
 
 
+def _pair_route(grid: Grid, cfg: NSConfig) -> bool:
+    """The reference's batched U+V route (gerris_tpu/models/ns.py:257-264):
+    2D, fully implicit diffusion on a fixed schedule, the kernel route,
+    and K14's BCs (periodic y refused) for both components."""
+    return (cfg.nu > 0.0 and cfg.beta == 1.0
+            and cfg.diffusion_params.ncycles > 0
+            and bcg.applicable(grid, cfg.advection)
+            and all(bcg.advect_spec(f) is not None for f in cfg.u_bcs))
+
+
 def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
                                  grid: Grid, cfg: NSConfig, dt):
     """BCG advection of each component with the MAC faces, the gmac face
-    correction and the -dt g_prev gc term (K14 ``advect2d`` where the BCs
-    allow it, else its plain version), then its implicit diffusion
+    correction and the -dt g_prev gc term, then its implicit diffusion
     (reference: src/timestep.c:976-1017; gerris_tpu ns.py:257-374).  With
     beta = 1 the advection launch emits the diffusion system's rhs
-    -dia (v + fv), dia = 1/(dt nu), as the reference's kernel route does
-    (its oscale fold); the beta < 1 explicit term needs diffuse()."""
+    -dia (v + fv), dia = 1/(dt nu) (its oscale fold; the beta < 1
+    explicit term needs diffuse()).
+
+    On the pair route (_pair_route) both components go through K7
+    ``advect2d_pair`` (``pair_advect``) or one K14 ``advect2d`` each,
+    and the two diffusion systems through diffuse_pair (K8a-c); with
+    ``rr_in_advect`` K7 also gives the pair's first residual pyramid.
+    Otherwise each component takes K14 where its BCs allow it, else its
+    plain version, and its own solve."""
     fold = cfg.nu > 0.0 and cfg.beta == 1.0
     dia = 1.0 / (dt * cfg.nu) if fold else None
+    gp = None if g_prev is None else list(g_prev)
+    if _pair_route(grid, cfg):
+        bcs_ = list(cfg.u_bcs)
+        dp = cfg.diffusion_params
+        kw = dict(g=gmac, gp=gp, oscale=-dia)
+        if cfg.pair_advect:
+            if (cfg.rr_in_advect and dp.ncycles == 1
+                    and dp.solver != "relax"
+                    and poisson.batched_fixed_eligible(U, grid, bcs_,
+                                                       [dia, dia])):
+                rr = bcg.advect2d_pair(U[0], U[1], uf[0], uf[1], dt, grid,
+                                       bcs_, rr_dia=dia, **kw)
+                return diff.diffuse_pair(U, grid, bcs_, dt, cfg.nu,
+                                         cfg.beta, dp, rr_pre=rr)[0]
+            rhss = bcg.advect2d_pair(U[0], U[1], uf[0], uf[1], dt, grid,
+                                     bcs_, **kw)
+        else:
+            rhss = [bcg.advect2d(U[c], c, uf[0], uf[1], dt, grid, bcs_[c],
+                                 g=gmac[c], gp=None if gp is None else gp[c],
+                                 oscale=-dia) for c in range(2)]
+        return diff.diffuse_pair(U, grid, bcs_, dt, cfg.nu, cfg.beta, dp,
+                                 rhss=rhss)[0]
     kernel = bcg.applicable(grid, cfg.advection)
     out = []
     for c in range(grid.dim):
@@ -101,7 +148,7 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
         advect = bcg.advect2d if kernel and bcg.advect_spec(fbc) is not None \
             else bcg.advect2d_plain
         fv = advect(U[c], c, uf[0], uf[1], dt, grid, fbc, g=gmac[c],
-                    gp=None if g_prev is None else g_prev[c],
+                    gp=None if gp is None else gp[c],
                     oscale=None if dia is None else -dia)
         if fold:
             v_new, _ = poisson.solve(U[c], fv, grid, fbc,

@@ -1,4 +1,4 @@
-"""The BCG advection kernel, and the route choice and BC encoding of the
+"""The BCG advection kernels, and the route choice and BC encoding of the
 BCG/projection kernels (counterpart of gerris_tpu/ops/pallas/bcg.py).
 
 ``kernel_spec`` encodes a FieldBC for the kernels as ghost = sgn *
@@ -6,13 +6,15 @@ mirror + off per side, sides ordered (x lo, x hi, y lo, y hi), or returns
 None for BCs outside their scope (periodic rows, inhomogeneous Neumann).
 ``applicable`` says whether the kernel route applies at all.
 
-K14 ``advect2d``, the corrector advection increment of one component, has
-its kernel in ``gerris_tpu_torch/csrc/bcg.cu``, whose source note gives
-the arithmetic, the bound on the H100 and the design.  Its wrapper follows
+K14 ``advect2d``, the corrector advection increment of one component,
+and K7 ``advect2d_pair``, both components' increments in one launch (with
+the ``rr_dia`` mode that also gives the first residual of their diffusion
+systems), are kernels in ``gerris_tpu_torch/csrc/bcg.cu`` that share
+K14's per-cell code; its source notes give the arithmetic, the bound on
+the H100 and the design.  The wrappers follow
 ops/cuda/rbgs.py: CPU tensors take the plain version (the torch route,
 which also serves the BCs the kernel refuses), CUDA tensors launch the
-kernel (counted in ``LAUNCHES``) or raise.  K7 ``advect2d_pair`` will live
-here too.
+kernel (counted in ``LAUNCHES``) or raise.
 """
 from __future__ import annotations
 
@@ -23,10 +25,14 @@ import torch
 from ...core import bc as bcs
 from ...solvers import advection as adv
 from ..stencils import face_average
-from .rbgs import _call, _on_cpu
+from .rbgs import _call, _on_cpu, doubles, pointers, residual_restrict_plain
 
 # kernel launches by wrapper name, counted only where a kernel launches
-LAUNCHES = {"advect2d": 0}
+LAUNCHES = {"advect2d": 0, "advect2d_pair": 0}
+
+# K7's block of threads (along columns, rows); the rr_dia mode needs
+# grids it tiles
+PAIR_BLOCK = (32, 8)
 
 
 def reset_launch_counts():
@@ -119,18 +125,13 @@ def check_faces(ufx, ufy, n0, n1):
     check(ufy, "ufy", (n0, n1 + 1))
 
 
-def doubles(*vals):
-    """A host array of C doubles (the kernels' BC values)."""
-    return (ctypes.c_double * len(vals))(*map(float, vals))
-
-
 def refused(name, what):
     return ValueError(f"{name}: {what} outside the kernel's scope; the "
                       "caller takes the plain version for such BCs")
 
 
 # -----------------------------------------------------------------------------
-# K14 advect2d
+# K14 advect2d and K7 advect2d_pair
 # -----------------------------------------------------------------------------
 
 def advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None,
@@ -158,32 +159,109 @@ def advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None,
     return fv if oscale is None else oscale * (v + fv)
 
 
+def advect2d_pair_plain(v0, v1, ufx, ufy, dt, grid, fbcs, g=None, gp=None,
+                        oscale=None, rr_dia=None):
+    """advect2d_plain of each component; with ``rr_dia``, each output then
+    goes through residual_restrict_plain as the rhs of its diffusion
+    system (L - rr_dia) u = rhs at u = v, with the system's ghosts (the
+    kernel encoding of its BCs)."""
+    g = g or (None, None)
+    gp = gp or (None, None)
+    outs = [advect2d_plain(v, c, ufx, ufy, dt, grid, fbcs[c], g[c], gp[c],
+                           oscale) for c, v in enumerate((v0, v1))]
+    if rr_dia is None:
+        return outs
+    rrs = []
+    for c, (v, rhs) in enumerate(zip((v0, v1), outs)):
+        spec = advect_spec(fbcs[c])
+        if spec is None:
+            raise refused("advect2d_pair_plain rr_dia", f"BCs {fbcs[c]}")
+        rrs.append(residual_restrict_plain(
+            v, rhs, rr_dia, h2=grid.h * grid.h, signs=spec["sgn"],
+            offs=spec["off"]))
+    return tuple(list(x) for x in zip(*rrs))
+
+
+def _check_advect(vs, ufx, ufy, gs, gps):
+    n0, n1 = vs[0].shape
+    for k, v in enumerate(vs):
+        check(v, f"v{k}", (n0, n1))
+    check_faces(ufx, ufy, n0, n1)
+    for ts, name in ((gs, "g"), (gps, "gp")):
+        for k, t in enumerate(ts):
+            if t is not None:
+                check(t, f"{name}{k}", (n0, n1))
+
+
+def _launch_args(name, vs, cs, fbcs):
+    """The per-component BC arguments of a launch: the sgn and off
+    encodings, each component's forced-face mask (bit 0 the low face of
+    its own axis, bit 1 the high) and those faces' values."""
+    specs = [advect_spec(f) for f in fbcs]
+    for c, f, spec in zip(cs, fbcs, specs):
+        if spec is None or c not in (0, 1):
+            raise refused(name, f"component {c} with BCs {f}")
+    fbs = [spec["fb_x"] if c == 0 else spec["fb_y"]
+           for c, spec in zip(cs, specs)]
+    return (doubles(*(x for s in specs for x in s["sgn"])),
+            doubles(*(x for s in specs for x in s["off"])),
+            [(fb[0] is not None) | (fb[1] is not None) << 1 for fb in fbs],
+            doubles(*(0.0 if b is None else b for fb in fbs for b in fb)))
+
+
 def advect2d(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None, oscale=None):
     """The BCG advection increment fv of component ``c``'s cells ``v``
     with the MAC faces (ufx, ufy) and the BCs ``fbc``: with ``g`` (the
     gmac cell gradient) the faces' dt/2 face-mean correction, with ``gp``
     fv -= dt gp, and with ``oscale`` the output oscale (v + fv), the
     implicit-diffusion rhs, instead of fv."""
-    n0, n1 = v.shape
-    check(v, "v", (n0, n1))
-    check_faces(ufx, ufy, n0, n1)
-    for t, name in ((g, "g"), (gp, "gp")):
-        if t is not None:
-            check(t, name, (n0, n1))
+    _check_advect([v], ufx, ufy, [g], [gp])
     if _on_cpu(v, ufx, ufy, g, gp):
         return advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g, gp, oscale)
-    spec = advect_spec(fbc)
-    if spec is None or c not in (0, 1):
-        raise refused("advect2d", f"component {c} with BCs {fbc}")
-    fb = spec["fb_x"] if c == 0 else spec["fb_y"]
-    mask = (fb[0] is not None) | (fb[1] is not None) << 1
+    sgn, off, (mask,), fb = _launch_args("advect2d", [v], [c], [fbc])
+    n0, n1 = v.shape
     out = torch.empty_like(v)
     _call("advect2d", v.dtype, v.device, v.data_ptr(), ufx.data_ptr(),
           ufy.data_ptr(), None if g is None else g.data_ptr(),
           None if gp is None else gp.data_ptr(), n0, n1, float(dt),
-          float(grid.h), doubles(*spec["sgn"]), doubles(*spec["off"]), c,
-          mask, doubles(*(0.0 if b is None else b for b in fb)),
-          int(oscale is not None), 0.0 if oscale is None else float(oscale),
-          out.data_ptr())
+          float(grid.h), sgn, off, c, mask, fb, int(oscale is not None),
+          0.0 if oscale is None else float(oscale), out.data_ptr())
     LAUNCHES["advect2d"] += 1
     return out
+
+
+def advect2d_pair(v0, v1, ufx, ufy, dt, grid, fbcs, g=None, gp=None,
+                  oscale=None, rr_dia=None):
+    """advect2d of both velocity components (v0 along x, v1 along y, BCs
+    ``fbcs``) in one launch; ``g`` and ``gp`` are pairs or None, the
+    folds as in advect2d.  Returns [out0, out1].  ``rr_dia`` (with
+    ``oscale``): returns ([r0_0, r0_1], [r1_0, r1_1], [r2_0, r2_1]), the
+    residual of each component's diffusion system (L - rr_dia) u = out at
+    u = v and its two 2x2 pools, as residual_restrict_pair gives them."""
+    g = g or (None, None)
+    gp = gp or (None, None)
+    vs = [v0, v1]
+    _check_advect(vs, ufx, ufy, g, gp)
+    if rr_dia is not None and oscale is None:
+        raise ValueError("advect2d_pair: rr_dia needs oscale (the rhs)")
+    if _on_cpu(*vs, ufx, ufy, *g, *gp):
+        return advect2d_pair_plain(v0, v1, ufx, ufy, dt, grid, fbcs, g, gp,
+                                   oscale, rr_dia)
+    sgn, off, masks, fb = _launch_args("advect2d_pair", vs, [0, 1], fbcs)
+    n0, n1 = v0.shape
+    if rr_dia is not None and (n0 % PAIR_BLOCK[1] or n1 % PAIR_BLOCK[0]):
+        raise ValueError(f"advect2d_pair: rr_dia wants whole {PAIR_BLOCK[0]}"
+                         f"x{PAIR_BLOCK[1]} tiles, got {n0}x{n1} cells")
+    outs = [torch.empty_like(v) for v in vs]
+    r1s = r2s = [None, None]
+    if rr_dia is not None:
+        r1s = [v.new_empty((n0 // 2, n1 // 2)) for v in vs]
+        r2s = [v.new_empty((n0 // 4, n1 // 4)) for v in vs]
+    _call("advect2d_pair", v0.dtype, v0.device,
+          pointers(vs, g, gp, outs, r1s, r2s), ufx.data_ptr(),
+          ufy.data_ptr(), n0, n1, float(dt), float(grid.h), sgn, off,
+          (ctypes.c_int * 2)(*masks), fb, int(oscale is not None),
+          0.0 if oscale is None else float(oscale), int(rr_dia is not None),
+          0.0 if rr_dia is None else float(rr_dia), float(grid.h * grid.h))
+    LAUNCHES["advect2d_pair"] += 1
+    return outs if rr_dia is None else (outs, r1s, r2s)

@@ -83,12 +83,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _DP = ctypes.POINTER(ctypes.c_double)   # a host array of BC values
+_PP = ctypes.POINTER(ctypes.c_void_p)   # a host table of device pointers
+_IP = ctypes.POINTER(ctypes.c_int)       # a host array of ints
 _SIGNATURES = {
-    "gtt_residual_restrict": [_P, _P, _P, _D, _D, _I, _I, _D, _D, _D, _D,
-                              _D, _D, _D, _D, _I, _P, _P, _P, _P],
-    "gtt_restrict2": [_P, _I, _I, _P, _P],
-    "gtt_prolong_relax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D,
-                          _D, _D, _D, _D, _I, _P],
+    "gtt_residual_restrict": [_I, _PP, _DP, _DP, _D, _I, _I, _DP, _I, _P],
+    "gtt_restrict2": [_I, _PP, _I, _I, _P],
+    "gtt_prolong_relax": [_I, _PP, _DP, _I, _I, _I, _I, _I, _D, _D, _DP, _I,
+                          _P],
     "gtt_divergence_mac": [_P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P],
     "gtt_correct_project": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP,
                             _I, _P, _P, _P, _P, _P, _P, _P],
@@ -98,6 +99,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P],
     "gtt_advect2d": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP, _I, _I,
                      _DP, _I, _D, _P, _P],
+    "gtt_advect2d_pair": [_PP, _P, _P, _I, _I, _D, _D, _DP, _DP, _IP, _DP, _I,
+                          _D, _I, _D, _D, _P],
 }
 
 

@@ -1,10 +1,16 @@
 """The multigrid cycle's kernels: CUDA wrappers and their plain versions.
 
-Port of the three TPU kernels of the fixed sawtooth cycle in
-gerris_tpu/ops/pallas/rbgs.py (K1 ``residual_restrict``, K2
-``cascade_prolong_relax``, K3 ``prolong_relax``).  The kernels are in
+Port of the TPU kernels of the fixed sawtooth cycle in
+gerris_tpu/ops/pallas/rbgs.py: K1 ``residual_restrict``, K2
+``cascade_prolong_relax``, K3 ``prolong_relax``, and their U+V pairs K8a
+``residual_restrict_pair``, K8b ``cascade_prolong_relax_pair`` and K8c
+``prolong_relax_pair``.  The kernels are in
 ``gerris_tpu_torch/csrc/rbgs.cu``; each one's source note says what it
 replaces, what bounds it on the H100 and what its design does about it.
+A pair launches the single kernel with a batch of two systems, which
+share the ghost signs and the periodicity and have their own dia, sub
+and ghost offsets; its plain version is the single plain version per
+system.
 
 Each wrapper checks its inputs (dtype float32/float64, contiguous, square
 power-of-two levels >= 16) and then:
@@ -20,13 +26,21 @@ periodic columns are (``per_y``).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 # kernel launches by wrapper name, counted only where a kernel launches.
-# "cascade_prolong_relax" counts calls of that host-side sequence; the
-# prolong_relax launches it makes are counted apart from K3's own.
+# A cascade counts calls of its host-side sequence; the restrict2 and
+# prolong_relax launches it makes are counted apart from the wrappers'
+# own: "restrict2" and "cascade.prolong_relax" for K2, "restrict2_pair"
+# and "cascade_pair.prolong_relax" for K8b.
 LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "prolong_relax": 0,
-            "cascade_prolong_relax": 0, "cascade.prolong_relax": 0}
+            "cascade_prolong_relax": 0, "cascade.prolong_relax": 0,
+            "residual_restrict_pair": 0, "prolong_relax_pair": 0,
+            "cascade_prolong_relax_pair": 0, "restrict2_pair": 0,
+            "cascade_pair.prolong_relax": 0}
 
 _SMEM_MAX = 232448        # dynamic shared memory a block may use on sm_90
 _HOMOGENEOUS = (0.0, 0.0, 0.0, 0.0)
@@ -115,32 +129,73 @@ def prolong_relax_plain(coarse, rhs, dia=0.0, u=None, *, nsweeps, h2,
 def cascade_prolong_relax_plain(r1, r2, dia=0.0, *, nsweeps, coarsest,
                                 h2_half, signs, per_y=False, omega=1.0,
                                 min_n=16):
-    return _cascade(r1, r2, dia, nsweeps, coarsest, h2_half, signs, per_y,
-                    omega, min_n, pool_plain, prolong_relax_plain)
+    return _cascade([r1], [r2], [dia], nsweeps, coarsest, h2_half, signs,
+                    per_y, omega, min_n, _each(pool_plain),
+                    _each(prolong_relax_plain))[0]
 
 
-def _cascade(r1, r2, dia, nsweeps, coarsest, h2_half, signs, per_y, omega,
-             min_n, pool, prolong_relax_fn):
-    """Every correction level at or below n/2 = r1.shape[0]: restrict r2
-    down to min(min_n, n/4), ``coarsest`` sweeps from zero there, then
-    prolong + ``nsweeps`` sweeps at each level up to n/2.  At level
-    size m the cell size squared is h2_half * (n/2 / m)**2."""
-    n_half = r1.shape[0]
+def _each(fn):
+    """fn applied per system: lists in, a list out (the pair's plain
+    versions, and the single cascade's steps)."""
+    def per_system(*lists, **kw):
+        return [fn(*args, **kw) for args in zip(*lists)]
+    return per_system
+
+
+def _transpose(outs):
+    """Per-system (r0, r1, r2) -> ([r0 per system], [r1 ...], [r2 ...])."""
+    return tuple(list(x) for x in zip(*outs))
+
+
+def residual_restrict_pair_plain(us, rhss, dias, subs=(0.0, 0.0), *, h2,
+                                 signs, offss, per_y=False):
+    return _transpose(
+        residual_restrict_plain(u, r, d, s, h2=h2, signs=signs, offs=o,
+                                per_y=per_y)
+        for u, r, d, s, o in zip(us, rhss, dias, subs, offss))
+
+
+def prolong_relax_pair_plain(coarses, rhss, dias, us, *, nsweeps, h2, signs,
+                             per_y=False, omega=1.0):
+    return _each(prolong_relax_plain)(coarses, rhss, dias, us,
+                                      nsweeps=nsweeps, h2=h2, signs=signs,
+                                      per_y=per_y, omega=omega)
+
+
+def cascade_prolong_relax_pair_plain(r1s, r2s, dias, *, nsweeps, coarsest,
+                                     h2_half, signs, per_y=False, omega=1.0,
+                                     min_n=16):
+    return [cascade_prolong_relax_plain(
+        r1, r2, d, nsweeps=nsweeps, coarsest=coarsest, h2_half=h2_half,
+        signs=signs, per_y=per_y, omega=omega, min_n=min_n)
+        for r1, r2, d in zip(r1s, r2s, dias)]
+
+
+def _cascade(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs, per_y,
+             omega, min_n, pool, prolong_relax_fn):
+    """Every correction level at or below n/2 = r1.shape[0] of each
+    system: restrict r2 down to min(min_n, n/4), ``coarsest`` sweeps from
+    zero there, then prolong + ``nsweeps`` sweeps at each level up to
+    n/2.  At level size m the cell size squared is h2_half * (n/2 / m)**2.
+    Lists over the systems in and out: ``pool(rs)`` and
+    ``prolong_relax_fn(coarses, rhss, dias, **kw)`` take and return lists."""
+    n_half = r1s[0].shape[0]
     min_n = min(min_n, n_half // 2)
-    rs = {n_half // 2: r2}
+    rs = {n_half // 2: list(r2s)}
     n = n_half // 2
     while n > min_n:
         rs[n // 2] = pool(rs[n])
         n //= 2
     kw = dict(signs=signs, per_y=per_y, omega=omega)
-    du = prolong_relax_fn(None, rs[min_n], dia, nsweeps=coarsest,
+    du = prolong_relax_fn([None] * len(dias), rs[min_n], dias,
+                          nsweeps=coarsest,
                           h2=h2_half * (n_half // min_n) ** 2, **kw)
     n = 2 * min_n
     while n <= n_half // 2:
-        du = prolong_relax_fn(du, rs[n], dia, nsweeps=nsweeps,
+        du = prolong_relax_fn(du, rs[n], dias, nsweeps=nsweeps,
                               h2=h2_half * (n_half // n) ** 2, **kw)
         n *= 2
-    return prolong_relax_fn(du, r1, dia, nsweeps=nsweeps, h2=h2_half, **kw)
+    return prolong_relax_fn(du, r1s, dias, nsweeps=nsweeps, h2=h2_half, **kw)
 
 
 # -----------------------------------------------------------------------------
@@ -161,6 +216,12 @@ def _check_level(t, name, n=None, min_n=16):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _check_pair(*lists):
+    for ts in lists:
+        if len(ts) != 2:
+            raise ValueError(f"a pair wants two systems, got {len(ts)}")
+
+
 def _on_cpu(*tensors):
     """True for CPU tensors (plain version), False for CUDA (kernel)."""
     ts = [t for t in tensors if t is not None]
@@ -176,6 +237,22 @@ def _on_cpu(*tensors):
     raise RuntimeError(f"no kernel for device {dev}")
 
 
+@functools.lru_cache(maxsize=1024)
+def doubles(*vals):
+    """A host array of C doubles (the kernels' scalars and BC values),
+    cached: a solve passes the same values at every launch, and building
+    the array costs host time that the shortest kernels would see.  The
+    kernels only read it."""
+    return (ctypes.c_double * len(vals))(*map(float, vals))
+
+
+def pointers(*groups):
+    """One host table of the device pointers of a launch: the groups'
+    tensors in order (NULL for None)."""
+    ptrs = [None if t is None else t.data_ptr() for ts in groups for t in ts]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
 def _call(fn_name, dtype, device, *args):
     from .build import library
     suffix = "f32" if dtype == torch.float32 else "f64"
@@ -187,6 +264,32 @@ def _call(fn_name, dtype, device, *args):
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
 
+def _sub_tensor(sub, u):
+    """``sub`` as a one-element tensor of u's dtype and device, or None for
+    0.0 (the kernel reads it, so a device-side mean costs no host sync)."""
+    if not isinstance(sub, torch.Tensor):
+        return None if sub == 0.0 else \
+            torch.full((1,), sub, dtype=u.dtype, device=u.device)
+    if sub.numel() != 1 or sub.dtype != u.dtype or sub.device != u.device:
+        raise ValueError("sub: want one element of u's dtype and device")
+    return sub
+
+
+def _residual_restrict_cuda(us, rhss, dias, subs, h2, signs, offss, per_y,
+                            counter):
+    n = us[0].shape[0]
+    r0s = [torch.empty_like(u) for u in us]
+    r1s = [u.new_empty((n // 2, n // 2)) for u in us]
+    r2s = [u.new_empty((n // 4, n // 4)) for u in us]
+    sub_ts = [_sub_tensor(s, u) for s, u in zip(subs, us)]  # held to launch
+    _call("residual_restrict", us[0].dtype, us[0].device, len(us),
+          pointers(us, rhss, sub_ts, r0s, r1s, r2s), doubles(*dias),
+          doubles(*(o for offs in offss for o in offs)), float(h2), n, n,
+          doubles(*signs), int(per_y))
+    LAUNCHES[counter] += 1
+    return r0s, r1s, r2s
+
+
 def residual_restrict(u, rhs, dia=0.0, sub=0.0, *, h2, signs,
                       offs=_HOMOGENEOUS, per_y=False):
     """(r0, r1, r2): r0 = (rhs - sub) - (L - dia) u with static ghosts
@@ -195,26 +298,40 @@ def residual_restrict(u, rhs, dia=0.0, sub=0.0, *, h2, signs,
     kernel, so a device-side mean costs no host sync)."""
     _check_level(u, "u")
     _check_level(rhs, "rhs", u.shape[0])
-    sub_t = sub if isinstance(sub, torch.Tensor) else None
     if _on_cpu(u, rhs):
         return residual_restrict_plain(u, rhs, dia, sub, h2=h2, signs=signs,
                                        offs=offs, per_y=per_y)
-    n = u.shape[0]
-    if sub_t is None and sub != 0.0:
-        sub_t = torch.full((1,), sub, dtype=u.dtype, device=u.device)
-    if sub_t is not None and (sub_t.numel() != 1 or sub_t.dtype != u.dtype
-                              or sub_t.device != u.device):
-        raise ValueError("sub: want one element of u's dtype and device")
-    r0 = torch.empty_like(u)
-    r1 = u.new_empty((n // 2, n // 2))
-    r2 = u.new_empty((n // 4, n // 4))
-    _call("residual_restrict", u.dtype, u.device, u.data_ptr(),
-          rhs.data_ptr(), None if sub_t is None else sub_t.data_ptr(),
-          float(dia), float(h2), n, n, *map(float, signs),
-          *map(float, offs), int(per_y), r0.data_ptr(), r1.data_ptr(),
-          r2.data_ptr())
-    LAUNCHES["residual_restrict"] += 1
-    return r0, r1, r2
+    out = _residual_restrict_cuda([u], [rhs], [dia], [sub], h2, signs,
+                                  [offs], per_y, "residual_restrict")
+    return tuple(x[0] for x in out)
+
+
+def residual_restrict_pair(us, rhss, dias, subs=(0.0, 0.0), *, h2, signs,
+                           offss, per_y=False):
+    """K1 for the two systems of a pair in one launch: each has its own
+    ``dia``, ``sub`` (as in residual_restrict) and ghost offsets
+    ``offss[b]``; the signs and ``per_y`` are shared.  Returns ([r0_0,
+    r0_1], [r1_0, r1_1], [r2_0, r2_1])."""
+    _check_pair(us, rhss, dias, subs, offss)
+    n = us[0].shape[0]
+    for b in range(2):
+        _check_level(us[b], f"us[{b}]", n)
+        _check_level(rhss[b], f"rhss[{b}]", n)
+    if _on_cpu(*us, *rhss):
+        return residual_restrict_pair_plain(us, rhss, dias, subs, h2=h2,
+                                            signs=signs, offss=offss,
+                                            per_y=per_y)
+    return _residual_restrict_cuda(us, rhss, dias, subs, h2, signs, offss,
+                                   per_y, "residual_restrict_pair")
+
+
+def _restrict2_cuda(rs, counter):
+    n = rs[0].shape[0]
+    outs = [r.new_empty((n // 2, n // 2)) for r in rs]
+    _call("restrict2", rs[0].dtype, rs[0].device, len(rs),
+          pointers(rs, outs), n, n)
+    LAUNCHES[counter] += 1
+    return outs
 
 
 def restrict2(r):
@@ -222,11 +339,7 @@ def restrict2(r):
     _check_level(r, "r", min_n=32)
     if _on_cpu(r):
         return pool_plain(r)
-    n = r.shape[0]
-    out = r.new_empty((n // 2, n // 2))
-    _call("restrict2", r.dtype, r.device, r.data_ptr(), n, n, out.data_ptr())
-    LAUNCHES["restrict2"] += 1
-    return out
+    return _restrict2_cuda([r], "restrict2")[0]
 
 
 def _prolong_geometry(n, nsweeps, tile, whole_max, itemsize):
@@ -246,28 +359,27 @@ def _prolong_geometry(n, nsweeps, tile, whole_max, itemsize):
     return tile, halo
 
 
-def _prolong_relax_cuda(coarse, rhs, dia, u, nsweeps, h2, signs, per_y,
+def _prolong_relax_cuda(coarses, rhss, dias, us, nsweeps, h2, signs, per_y,
                         omega, tile, whole_max, counter):
-    n = rhs.shape[0]
+    n = rhss[0].shape[0]
     tile, halo = _prolong_geometry(n, nsweeps, tile, whole_max,
-                                   rhs.element_size())
-    out = torch.empty_like(rhs)
-    _call("prolong_relax", rhs.dtype, rhs.device,
-          None if coarse is None else coarse.data_ptr(), rhs.data_ptr(),
-          None if u is None else u.data_ptr(), out.data_ptr(), n, n, tile,
-          halo, int(nsweeps), float(h2), 1.0 / (4.0 + dia * h2),
-          float(omega), *map(float, signs), int(per_y))
+                                   rhss[0].element_size())
+    outs = [torch.empty_like(r) for r in rhss]
+    _call("prolong_relax", rhss[0].dtype, rhss[0].device, len(rhss),
+          pointers(coarses, rhss, us, outs), doubles(*dias), n, n, tile, halo,
+          int(nsweeps), float(h2), float(omega), doubles(*signs),
+          int(per_y))
     LAUNCHES[counter] += 1
-    return out
+    return outs
 
 
-def _check_prolong(coarse, rhs, u):
-    _check_level(rhs, "rhs")
+def _check_prolong(coarse, rhs, u, n=None, tag=""):
+    _check_level(rhs, "rhs" + tag, n)
     n = rhs.shape[0]
     if coarse is not None:
-        _check_level(coarse, "coarse", n // 2, min_n=8)
+        _check_level(coarse, "coarse" + tag, n // 2, min_n=8)
     if u is not None:
-        _check_level(u, "u", n)
+        _check_level(u, "u" + tag, n)
 
 
 def prolong_relax(coarse, rhs, dia=0.0, u=None, *, nsweeps, h2, signs,
@@ -280,19 +392,54 @@ def prolong_relax(coarse, rhs, dia=0.0, u=None, *, nsweeps, h2, signs,
         return prolong_relax_plain(coarse, rhs, dia, u, nsweeps=nsweeps,
                                    h2=h2, signs=signs, per_y=per_y,
                                    omega=omega)
-    return _prolong_relax_cuda(coarse, rhs, dia, u, nsweeps, h2, signs,
+    return _prolong_relax_cuda([coarse], [rhs], [dia], [u], nsweeps, h2,
+                               signs, per_y, omega, tile, whole_max,
+                               "prolong_relax")[0]
+
+
+def prolong_relax_pair(coarses, rhss, dias, us, *, nsweeps, h2, signs,
+                       per_y=False, omega=1.0, tile=32, whole_max=64):
+    """K3 for the two systems of a pair in one launch, each with its own
+    ``dia``: [u_b + relax^nsweeps(prolong(coarses[b]))].  A coarse of
+    None starts that system from du = 0; ``us`` entries may be None
+    (du alone)."""
+    _check_pair(coarses, rhss, dias, us)
+    n = rhss[0].shape[0]
+    for b in range(2):
+        _check_prolong(coarses[b], rhss[b], us[b], n, f"[{b}]")
+    if _on_cpu(*coarses, *rhss, *us):
+        return prolong_relax_pair_plain(coarses, rhss, dias, us,
+                                        nsweeps=nsweeps, h2=h2, signs=signs,
+                                        per_y=per_y, omega=omega)
+    return _prolong_relax_cuda(coarses, rhss, dias, us, nsweeps, h2, signs,
                                per_y, omega, tile, whole_max,
-                               "prolong_relax")
+                               "prolong_relax_pair")
+
+
+def _cascade_cuda(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs, per_y,
+                  omega, min_n, restrict_counter, prolong_counter):
+    """The cascade on the card: restrict2 launches down to min(min_n,
+    n/4), then prolong_relax launches (the coarsest from zero with
+    ``coarsest`` sweeps), each over the whole batch of systems.  The TPU
+    kernels ran this in one launch with the sub-cascade carried across
+    grid steps in VMEM; blocks of a GPU grid carry nothing, so the
+    sequence runs from the host."""
+    def pool(rs):
+        return _restrict2_cuda(rs, restrict_counter)
+
+    def launch(coarses, rhss, ds, *, nsweeps, h2, signs, per_y, omega):
+        return _prolong_relax_cuda(coarses, rhss, ds, [None] * len(ds),
+                                   nsweeps, h2, signs, per_y, omega, 32, 64,
+                                   prolong_counter)
+
+    return _cascade(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs,
+                    per_y, omega, min_n, pool, launch)
 
 
 def cascade_prolong_relax(r1, r2, dia=0.0, *, nsweeps, coarsest, h2_half,
                           signs, per_y=False, omega=1.0, min_n=16):
     """The whole correction at and below n/2 = r1.shape[0], returned as a
-    plain (n/2, n/2) du.  On the card: restrict2 launches down to
-    min(min_n, n/4), then prolong_relax launches (the coarsest from zero
-    with ``coarsest`` sweeps).  The TPU kernel ran this in one launch with
-    the sub-cascade carried across grid steps in VMEM; blocks of a GPU
-    grid carry nothing, so the sequence runs from the host."""
+    plain (n/2, n/2) du (no rep layout)."""
     _check_level(r1, "r1", min_n=32)
     _check_level(r2, "r2", r1.shape[0] // 2)
     if _on_cpu(r1, r2):
@@ -300,12 +447,28 @@ def cascade_prolong_relax(r1, r2, dia=0.0, *, nsweeps, coarsest, h2_half,
             r1, r2, dia, nsweeps=nsweeps, coarsest=coarsest,
             h2_half=h2_half, signs=signs, per_y=per_y, omega=omega,
             min_n=min_n)
-
-    def launch(coarse, rhs, d, *, nsweeps, h2, signs, per_y, omega):
-        return _prolong_relax_cuda(coarse, rhs, d, None, nsweeps, h2, signs,
-                                   per_y, omega, 32, 64,
-                                   "cascade.prolong_relax")
-
     LAUNCHES["cascade_prolong_relax"] += 1
-    return _cascade(r1, r2, dia, nsweeps, coarsest, h2_half, signs, per_y,
-                    omega, min_n, restrict2, launch)
+    return _cascade_cuda([r1], [r2], [dia], nsweeps, coarsest, h2_half,
+                         signs, per_y, omega, min_n, "restrict2",
+                         "cascade.prolong_relax")[0]
+
+
+def cascade_prolong_relax_pair(r1s, r2s, dias, *, nsweeps, coarsest,
+                               h2_half, signs, per_y=False, omega=1.0,
+                               min_n=16):
+    """K2 for the two systems of a pair, each with its own ``dia`` and its
+    own pyramid: [du_0, du_1], plain (n/2, n/2) corrections.  On the card
+    every step of the sequence is one launch for both systems."""
+    _check_pair(r1s, r2s, dias)
+    for b in range(2):
+        _check_level(r1s[b], f"r1s[{b}]", r1s[0].shape[0], min_n=32)
+        _check_level(r2s[b], f"r2s[{b}]", r1s[0].shape[0] // 2)
+    if _on_cpu(*r1s, *r2s):
+        return cascade_prolong_relax_pair_plain(
+            r1s, r2s, dias, nsweeps=nsweeps, coarsest=coarsest,
+            h2_half=h2_half, signs=signs, per_y=per_y, omega=omega,
+            min_n=min_n)
+    LAUNCHES["cascade_prolong_relax_pair"] += 1
+    return _cascade_cuda(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs,
+                         per_y, omega, min_n, "restrict2_pair",
+                         "cascade_pair.prolong_relax")

@@ -34,3 +34,52 @@ def diffuse(v, grid: Grid, fbc: bcs.FieldBC, dt: float, D: float,
     scale = beta * dt * D
     return poisson.solve(v, -rhs / scale, grid, fbc, params,
                          dia=rho / scale)
+
+
+def diffuse_pair(vs, grid: Grid, fbcs, dt: float, D: float, beta: float,
+                 params: poisson.MultilevelParams, extra_rhss=None,
+                 rhss=None, rr_pre=None):
+    """The U+V scalar implicit-diffusion systems solved together
+    (reference: gerris_tpu/solvers/diffusion.py:82-125): where
+    poisson.batched_fixed_eligible holds and beta = 1, one batched launch
+    chain per cycle for both (solve_fixed_batched, or solve_relax_pair for the
+    "relax" solver); else one solve per component.  Scalar D, unit rho.
+    Give ``extra_rhss`` (momentum increments; the rhs is built here),
+    ``rhss`` (the system rhs -dia (v + extra), e.g. from the advection
+    kernels' oscale fold) or ``rr_pre`` (the first cycle's residual
+    pyramid from K7's rr_dia mode; one multigrid cycle only).  Returns
+    ([v_new...], stats)."""
+    if not isinstance(D, (int, float)):
+        raise NotImplementedError("face-valued D (ROADMAP Queue 1, "
+                                  "slice 3)")
+    scale = beta * dt * D
+    dia = 1.0 / scale
+    n = len(vs)
+    if rr_pre is not None:
+        if params.ncycles != 1 or params.solver != "multigrid":
+            raise ValueError("diffuse_pair: rr_pre needs one multigrid "
+                             "cycle")
+        return poisson.solve_fixed_batched(vs, None, grid, fbcs, params,
+                                           [dia] * n, rr_pre=rr_pre)
+    if beta < 1.0 and rhss is not None:
+        raise ValueError("diffuse_pair: a prebuilt rhs omits the beta < 1 "
+                         "explicit term; give extra_rhss")
+    if (params.ncycles > 0 and beta == 1.0
+            and poisson.batched_fixed_eligible(vs, grid, fbcs, [dia] * n)):
+        if rhss is None:
+            rhss = [-(vs[c] + extra_rhss[c]) * dia for c in range(n)]
+        if params.solver == "relax":
+            return poisson.solve_relax_pair(vs, rhss, grid, fbcs, params,
+                                            [dia] * n)
+        return poisson.solve_fixed_batched(vs, rhss, grid, fbcs, params,
+                                           [dia] * n)
+    outs, stats = [], None
+    for c in range(n):
+        if rhss is not None:
+            v_new, stats = poisson.solve(vs[c], rhss[c], grid, fbcs[c],
+                                         params, dia=dia)
+        else:
+            v_new, stats = diffuse(vs[c], grid, fbcs[c], dt, D, beta=beta,
+                                   params=params, extra_rhs=extra_rhss[c])
+        outs.append(v_new)
+    return outs, stats

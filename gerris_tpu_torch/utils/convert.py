@@ -25,7 +25,7 @@ COARSEST_FLOOR = 40
 
 _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "approx_projection", "nu", "beta", "diffusion_params",
-                 "div_in_src"}
+                 "div_in_src", "pair_advect", "rr_in_advect"}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
@@ -91,4 +91,6 @@ def config_from_jax(cfg) -> ns.NSConfig:
         approx_projection=params_from_jax(cfg.approx_projection),
         nu=float(cfg.nu), beta=float(cfg.beta),
         diffusion_params=params_from_jax(cfg.diffusion_params),
-        div_in_src=bool(cfg.div_in_src))
+        div_in_src=bool(cfg.div_in_src),
+        pair_advect=bool(cfg.pair_advect),
+        rr_in_advect=bool(cfg.rr_in_advect))

@@ -64,7 +64,7 @@ def test_config_from_jax_bench():
 @pytest.mark.parametrize("field,value", [
     ("tracers", (("T", jbc.default_scalar_bc(2), 0.0),)),
     ("solid_phi", lambda x, y: x),
-    ("pair_advect", True),
+    ("block_advect", True),
     ("body_force", (0.0, -1.0)),
 ])
 def test_config_from_jax_refuses_fields_outside_slice(field, value):

@@ -248,3 +248,148 @@ def test_kernels_refuse_bcs_outside_their_scope(dev):
         bcg.advect2d(U, 0, *_rnd(dev, torch.float32, 12,
                                  grid.face_shape(0), grid.face_shape(1)),
                      0.01, grid, _velocity_bcs(True)[0])
+
+
+# --- the U+V pair kernels (K7, K8a-c) and the pair solve
+
+
+def _lid_pair():
+    """The lid's U and V BCs with their K8 ghost encodings: shared signs,
+    U's lid offset 2.0 on the top side, V's none."""
+    from gerris_tpu_torch.solvers.poisson import _signs_offs
+    fbcs = _velocity_bcs(False)
+    grid = GRIDS[0]
+    offss = [_signs_offs(grid, f, homogeneous=False)[1] for f in fbcs]
+    return fbcs, _signs_offs(grid, fbcs[0], homogeneous=False)[0], offss
+
+
+def _check_all(got, ref, dtype):
+    if isinstance(ref, (list, tuple)):
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            _check_all(a, b, dtype)
+    else:
+        assert got.shape == ref.shape
+        assert _rel(got, ref) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rr,grid", [(False, GRIDS[0]), (False, GRIDS[1]),
+                                     (True, GRIDS[0])])
+def test_advect2d_pair_kernel(dev, dtype, rr, grid):
+    """K7 with the lid's U and V BCs, g, gp and oscale, against its plain
+    version and against two K14 launches; ``rr``: the rr_dia mode, which
+    takes whole 16x16 tiles only (the ragged grid raises, below)."""
+    n0, n1 = grid.shape
+    v0, v1, ufx, ufy, g0, g1, gp0, gp1 = _rnd(
+        dev, dtype, 13, grid.shape, grid.shape, (n0 + 1, n1), (n0, n1 + 1),
+        *[grid.shape] * 4)
+    fbcs = _velocity_bcs(False)
+    dt = 0.3 * grid.h
+    dia = 1.0 / (dt * 1e-3)
+    kw = dict(g=(g0, g1), gp=(gp0, gp1), oscale=-dia,
+              rr_dia=dia if rr else None)
+    bcg.reset_launch_counts()
+    got = bcg.advect2d_pair(v0, v1, ufx, ufy, dt, grid, fbcs, **kw)
+    assert bcg.LAUNCHES == {"advect2d": 0, "advect2d_pair": 1}
+    _check_all(got, bcg.advect2d_pair_plain(v0, v1, ufx, ufy, dt, grid,
+                                            fbcs, **kw), dtype)
+    k14 = [bcg.advect2d(v, c, ufx, ufy, dt, grid, fbcs[c], g=g, gp=gp,
+                        oscale=-dia)
+           for c, (v, g, gp) in enumerate(((v0, g0, gp0), (v1, g1, gp1)))]
+    if rr:
+        k14 = rbgs.residual_restrict_pair(
+            [v0, v1], k14, [dia, dia], h2=grid.h ** 2, signs=_lid_pair()[1],
+            offss=_lid_pair()[2])
+    _check_all(got, k14, dtype)
+
+
+def test_advect2d_pair_rr_needs_whole_tiles(dev):
+    grid = GRIDS[1]
+    n0, n1 = grid.shape
+    v, ufx, ufy = _rnd(dev, torch.float32, 14, grid.shape, (n0 + 1, n1),
+                       (n0, n1 + 1))
+    with pytest.raises(ValueError, match="tiles"):
+        bcg.advect2d_pair(v, v, ufx, ufy, 0.01, grid, _velocity_bcs(False),
+                          oscale=-1.0, rr_dia=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_multigrid_kernels(dev, dtype):
+    """K8a, K8b and K8c with their own dia, sub and ghost offsets per
+    system, each against its plain version; each system of a pair launch
+    is bit-identical to the single kernel's launch on that system."""
+    n = 256
+    _, signs, offss = _lid_pair()
+    dias, h2 = [0.6, 0.9], 1.0 / n ** 2
+    us = _rnd(dev, dtype, 15, (n, n), (n, n))
+    rhss = _rnd(dev, dtype, 16, (n, n), (n, n))
+    subs = [0.0, _rnd(dev, dtype, 17, (1,))[0]]
+    rbgs.reset_launch_counts()
+    rr = rbgs.residual_restrict_pair(us, rhss, dias, subs, h2=h2,
+                                     signs=signs, offss=offss)
+    _check_all(rr, rbgs.residual_restrict_pair_plain(
+        us, rhss, dias, subs, h2=h2, signs=signs, offss=offss), dtype)
+    for b in range(2):
+        single = rbgs.residual_restrict(us[b], rhss[b], dias[b], subs[b],
+                                        h2=h2, signs=signs, offs=offss[b])
+        assert all(torch.equal(rr[k][b], single[k]) for k in range(3))
+    ckw = dict(nsweeps=1, coarsest=40, h2_half=4 * h2, signs=signs)
+    du = rbgs.cascade_prolong_relax_pair(rr[1], rr[2], dias, **ckw)
+    ref = rbgs.cascade_prolong_relax_pair_plain(rr[1], rr[2], dias, **ckw)
+    bound = 1e-4 if dtype == torch.float32 else 1e-12
+    assert all(_rel(a, b) <= bound for a, b in zip(du, ref))
+    for b in range(2):
+        assert torch.equal(du[b], rbgs.cascade_prolong_relax(
+            rr[1][b], rr[2][b], dias[b], **ckw))
+    pkw = dict(nsweeps=1, h2=h2, signs=signs)
+    out = rbgs.prolong_relax_pair(du, rr[0], dias, us, **pkw)
+    _check_all(out, rbgs.prolong_relax_pair_plain(du, rr[0], dias, us,
+                                                  **pkw), dtype)
+    for b in range(2):
+        assert torch.equal(out[b], rbgs.prolong_relax(du[b], rr[0][b],
+                                                      dias[b], us[b], **pkw))
+    # r2 64 -> 32 -> 16: two pair pools, then 16 (from zero), 32, 64 and
+    # the n/2 = 128 level
+    assert rbgs.LAUNCHES["residual_restrict_pair"] == 1
+    assert rbgs.LAUNCHES["cascade_prolong_relax_pair"] == 1
+    assert rbgs.LAUNCHES["restrict2_pair"] == 2
+    assert rbgs.LAUNCHES["cascade_pair.prolong_relax"] == 4
+    assert rbgs.LAUNCHES["prolong_relax_pair"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_prolong_relax_pair_tile_invariance(dev, dtype):
+    c0, c1, r0, r1, u0, u1 = _rnd(dev, dtype, 18, *[(128, 128)] * 2,
+                                  *[(256, 256)] * 4)
+    kw = dict(nsweeps=5, h2=1.0 / 256 ** 2, signs=SIGNS_LID, omega=1.5)
+    a = rbgs.prolong_relax_pair([c0, c1], [r0, r1], [0.2, 0.4], [u0, u1],
+                                tile=32, **kw)
+    b = rbgs.prolong_relax_pair([c0, c1], [r0, r1], [0.2, 0.4], [u0, u1],
+                                tile=16, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_relax_pair_kernels(dev, dtype):
+    """The "relax" solver's pair solve on the card against the same solve
+    through the plain versions (CPU tensors of the same values)."""
+    from gerris_tpu_torch.solvers import poisson
+    grid = GRIDS[0]
+    fbcs = _velocity_bcs(False)
+    dia = 1.0 / (0.8 * grid.h * 1e-3)
+    us = _rnd(dev, dtype, 19, grid.shape, grid.shape)
+    rhss = [-(u + 0.01 * r) * dia
+            for u, r in zip(us, _rnd(dev, dtype, 20, grid.shape,
+                                     grid.shape))]
+    params = poisson.MultilevelParams(nrelax=2, solver="relax")
+    rbgs.reset_launch_counts()
+    got, _ = poisson.solve_relax_pair(us, rhss, grid, fbcs, params,
+                                      [dia, dia])
+    assert rbgs.LAUNCHES["residual_restrict_pair"] == 1
+    assert rbgs.LAUNCHES["prolong_relax_pair"] == 1
+    ref, _ = poisson.solve_relax_pair([u.cpu() for u in us],
+                                      [r.cpu() for r in rhss], grid, fbcs,
+                                      params, [dia, dia])
+    for a, b in zip(got, ref):
+        assert _rel(a.cpu(), b) <= BOUND[dtype]
