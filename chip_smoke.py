@@ -16,9 +16,12 @@ Phases (any failure ends the run with a non-zero exit and no result):
      cells), K9 (with and without gp and div_scale), K14 (both
      components, with and without the gp/oscale folds) and K7 (both
      modes, also against two K14 launches) at 2048^2 and 64^2, plus K4's
-     div bit-identical across two block shapes; then each kernel's time
-     against its plain version's at the main-path shapes, float32 (CUDA
-     events);
+     div bit-identical across two block shapes; the adaptive solve's K11
+     (the lid's offsets, periodic rows, periodic columns; bit-identical
+     to K1's r0), K10 (non-periodic, periodic rows, doubly periodic, plus
+     its tile invariance) at 2048^2, and K12 at 512^2 (per_y off and on)
+     with its 64^2 block kernel alone; then each kernel's time against
+     its plain version's at the main-path shapes, float32 (CUDA events);
   3. main path: Simulation.init() + 20 steps of the 2048^2 lid cavity under
      the bench's configuration (pair_advect: K7 and the K8 pair), float32,
      through the kernels: finite values, launch counts, agreement with the
@@ -29,6 +32,19 @@ Phases (any failure ends the run with a non-zero exit and no result):
      per-component route (pair_advect off: K14 per component, then the K8
      pair) and the rr_in_advect route (K7's rr_dia mode in place of
      K8a), and each against the main path's route after the same steps;
+     then the adaptive routes at 2048^2, float32: ``adaptive`` (the
+     bench's cfg_ada: both projections and the diffusion to tolerance
+     1e-3; K11, K12 and K3 in every cycle) and ``adaptive_relax`` (the
+     "relax" diffusion: K11 -> K10 -> K11), init + 5 steps each, their
+     cycle counts printed and their launches gated as functions of them,
+     held to the plain versions on a fixed-count run (nitermin = nitermax
+     = 2) at the main path's bound and on the adaptive run at the
+     tolerance's; ``adaptive``'s step timed in five windows with its host
+     syncs and profiled; the bench's honesty check (one fixed and one
+     adaptive step from the main path's state, fixed_vs_adaptive_rel <
+     2e-3); and ``periodic_poisson``, a doubly periodic adaptive solve in
+     float64 at 1024^2 and 2048^2 (K11, the dense 64^2 solve, prolong +
+     K10), its second order gated and held to the plain route;
   4. physics: the 64^2 lid cavity under the bench's configuration to
      steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
      float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
@@ -87,6 +103,21 @@ GHIA_V = np.array([
     (0.46884, -0.214023), (0.5, -6.20706e-17),
 ])
 
+# the adaptive routes: a run through the kernels and one through the plain
+# versions stop their solves at max|r| <= 1e-3 max|rhs| each, and float32
+# rounding can move a solve's last check by a cycle, so the two runs agree
+# to the tolerance's order, not to rounding: twice the tolerance, the
+# bound of the bench's own honesty check (tests/test_bench_schedule.py)
+ADAPTIVE_RTOL = 2e-3
+FIXED_VS_ADAPTIVE_MAX = 2e-3
+ADA_STEPS = 5
+ADA_TIMED_STEPS = 10
+ADA_PROFILE_STEPS = 5
+# periodic_poisson: second order, err(1024^2) / err(2048^2) in this range;
+# kernels vs plain to well below the 1e-6 discretisation error it measures
+POISSON_ORDER = (3.5, 4.5)
+POISSON_PLAIN_RTOL = 1e-9
+
 ERR_KEYS = ("max_abs_err", "max_rel_err")
 CSRC = "gerris_tpu_torch/csrc/"
 # wrapper -> (source, the TPU kernel it replaces)
@@ -113,7 +144,16 @@ KERNELS = {
                                    "gerris_tpu/ops/pallas/rbgs.py:1513"),
     "prolong_relax_pair": (CSRC + "rbgs.cu",
                            "gerris_tpu/ops/pallas/rbgs.py:421"),
+    "residual": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:247"),
+    "rbgs_relax": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:1560"),
+    "coarse_vcycle": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:871"),
+    "coarse_block": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:871"),
 }
+# the kernels of the adaptive routes, and the route whose run gives each
+# one's launches
+ADAPTIVE_KERNELS = {"residual": "adaptive", "coarse_vcycle": "adaptive",
+                    "coarse_block": "adaptive",
+                    "rbgs_relax": "adaptive_relax"}
 # levels of a cascade at n/2 = 1024 with the 16^2 coarsest level: 5
 # restrict2 launches (512 -> 16), then 7 prolong_relax (16 .. 1024)
 CASCADE_POOLS, CASCADE_LEVELS = 5, 7
@@ -122,6 +162,10 @@ CASCADE_POOLS, CASCADE_LEVELS = 5, 7
 ROUTES = {"pair": dict(pair_advect=True),
           "per_component": dict(pair_advect=False),
           "rr": dict(pair_advect=True, rr_in_advect=True)}
+# K12's levels at 512^2: 3 restrict2 down to 64^2 and 3 K3 up from it; the
+# correction's restrictions 2048 -> 1024 -> 512 and its K3 launches at
+# 1024^2 and 2048^2
+K12_LEVELS, ADA_POOLS, ADA_PROLONGS = 3, 2, 2
 
 
 def want_launches(route, steps):
@@ -144,7 +188,39 @@ def want_launches(route, steps):
         "restrict2_pair": CASCADE_POOLS * steps,
         "cascade_pair.prolong_relax": CASCADE_LEVELS * steps,
         "prolong_relax_pair": steps,
+        "residual": 0, "rbgs_relax": 0, "coarse_vcycle": 0,
+        "coarse_vcycle.restrict2": 0, "coarse_block": 0,
+        "coarse_vcycle.prolong_relax": 0,
     }
+
+
+def want_adaptive(steps, solves):
+    """Launches of init + ``steps`` steps of an adaptive route at 2048^2
+    from its solves' records (solver, niter, fixed count or not): per
+    multigrid solve one K11 for r0, one per cycle (and one more after
+    the cycles of a fixed count), and per cycle the correction's K12 at
+    512^2 (its 3 + 1 + 3 launches), 2 restrict2 and 2 K3; per "relax"
+    solve K11 twice and K10 once.  Per step K6 once, K4 and K5 once per
+    projection, K9 once, K14 once per component (the per-component route:
+    the pair route needs a fixed diffusion schedule); no K1, K2, K7 or
+    K8."""
+    w = {k: 0 for k in want_launches("pair", 0)}
+    w.update(predict_xy=steps, divergence_mac=2 * steps + 1,
+             correct_project=2 * steps + 1, interp_faces=steps + 1,
+             advect2d=2 * steps)
+    for solver, niter, fixed in solves:
+        if solver == "relax":
+            w["residual"] += 2
+            w["rbgs_relax"] += 1
+            continue
+        w["residual"] += 1 + niter + int(fixed)
+        w["coarse_vcycle"] += niter
+        w["coarse_block"] += niter
+        w["coarse_vcycle.restrict2"] += K12_LEVELS * niter
+        w["coarse_vcycle.prolong_relax"] += K12_LEVELS * niter
+        w["restrict2"] += ADA_POOLS * niter
+        w["prolong_relax"] += ADA_PROLONGS * niter
+    return w
 
 
 # device kernels of the port, by a substring of their names.  The pairs
@@ -154,23 +230,52 @@ OWN_KERNELS = ("residual_restrict_kernel", "restrict2_kernel",
                "prolong_relax_kernel", "divergence_mac_kernel",
                "correct_project_kernel", "interp_faces_kernel",
                "predict_xy_kernel", "advect2d_kernel", "advect2d_pair_kernel",
-               "sum_partials_kernel")
+               "sum_partials_kernel", "residual_kernel", "rbgs_relax_kernel",
+               "coarse_block_kernel")
 
 
-def lid_cfg(level, pair_advect=True, rr_in_advect=False):
+def schedules():
+    """The solver schedules of the routes, with the TPU floors applied as
+    utils/convert.params_from_jax applies them:
+    * "fixed": the bench's (bench.py:128-161), one cycle per solve,
+      projections 5 sweeps/level at omega 1.5, diffusion 1 sweep, 40
+      coarsest sweeps;
+    * "adaptive": the bench's cfg_ada (bench.py:174-179), tolerance 1e-3
+      in at most 100 cycles, tpu_nrelax 5: 5 sweeps per level at omega 1
+      and 10 coarsest sweeps (K12 takes max(10, 40));
+    * "adaptive_fixed": the same cycles, 2 per solve (nitermin =
+      nitermax), with no tolerance decision;
+    * "relax": the "relax" diffusion solver, max(nrelax, 4) sweeps."""
+    import dataclasses
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    ada = MultilevelParams(tolerance=1e-3, nitermax=100, nrelax=5,
+                           coarsest_relax=10)
+    return {
+        "fixed": (MultilevelParams(nrelax=5, omega=1.5, coarsest_relax=40,
+                                   ncycles=1),
+                  MultilevelParams(nrelax=1, omega=1.0, coarsest_relax=40,
+                                   ncycles=1)),
+        "adaptive": (ada, ada),
+        "adaptive_fixed": (dataclasses.replace(ada, nitermin=2, nitermax=2),
+                           dataclasses.replace(ada, nitermin=2, nitermax=2)),
+        "relax": (ada, MultilevelParams(tolerance=1e-3, nitermax=100,
+                                        solver="relax")),
+        "relax_fixed": (dataclasses.replace(ada, nitermin=2, nitermax=2),
+                        MultilevelParams(tolerance=1e-3, nitermax=100,
+                                         solver="relax")),
+    }
+
+
+def lid_cfg(level, pair_advect=True, rr_in_advect=False, schedule="fixed"):
     """The bench's lid cavity (bench.py's defaults: GERRIS_PAIR_ADVECT=1,
-    GERRIS_RR_ADVECT=0, GERRIS_DIV_SRC=0) at 2^level cells per side."""
+    GERRIS_RR_ADVECT=0, GERRIS_DIV_SRC=0) at 2^level cells per side, with
+    the solver schedule ``schedule`` (schedules())."""
     from gerris_tpu_torch.core import bc
     from gerris_tpu_torch.core.grid import Grid
     from gerris_tpu_torch.models import ns
-    from gerris_tpu_torch.solvers.poisson import MultilevelParams
     u_bc = bc.FieldBC.make(2, default=bc.Dirichlet(0.0), top=bc.Dirichlet(1.0))
     v_bc = bc.FieldBC.uniform(bc.Dirichlet(0.0), 2)
-    # the bench schedule with the TPU floors applied (utils/convert):
-    # projections 5 sweeps/level at omega 1.5, diffusion 1 sweep, 40
-    # coarsest sweeps, one cycle per solve
-    proj = MultilevelParams(nrelax=5, omega=1.5, coarsest_relax=40)
-    diff = MultilevelParams(nrelax=1, omega=1.0, coarsest_relax=40)
+    proj, diff = schedules()[schedule]
     return ns.NSConfig(grid=Grid(level=level), u_bcs=(u_bc, v_bc), nu=1e-3,
                        beta=1.0, projection=proj, approx_projection=proj,
                        diffusion_params=diff, pair_advect=pair_advect,
@@ -265,13 +370,16 @@ def plain_versions():
     swaps = [(rbgs, "residual_restrict"), (rbgs, "cascade_prolong_relax"),
              (rbgs, "prolong_relax"), (rbgs, "residual_restrict_pair"),
              (rbgs, "cascade_prolong_relax_pair"),
-             (rbgs, "prolong_relax_pair"), (projops, "divergence_mac"),
+             (rbgs, "prolong_relax_pair"), (rbgs, "residual"),
+             (rbgs, "rbgs_relax"), (rbgs, "coarse_vcycle"),
+             (rbgs, "restrict2"), (projops, "divergence_mac"),
              (projops, "correct_project"), (projops, "interp_faces"),
              (predict, "predict_xy"), (bcg, "advect2d"),
              (bcg, "advect2d_pair")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
-        setattr(mod, name, getattr(mod, name + "_plain"))
+        plain = "pool_plain" if name == "restrict2" else name + "_plain"
+        setattr(mod, name, getattr(mod, plain))
     try:
         yield
     finally:
@@ -418,6 +526,105 @@ def check_pair_kernels(rnd, dtype, n, record):
             record[k].update(zip(ERR_KEYS, e))
 
 
+def check_adaptive_kernels(rnd, dtype, record):
+    """K11, K10 and K12 against their plain versions at the adaptive
+    routes' shapes: K11 at 2048^2 with the lid's offsets (and bit-identical
+    to K1's r0 with sub = 0), periodic rows, periodic columns and both;
+    K10 at 2048^2 with the "relax" diffusion's 4 sweeps at dia = 1/(dt nu)
+    (the lid's walls), periodic rows and doubly periodic (the periodic
+    Poisson's corrections); K12 at 512^2 with 5 sweeps, 40 coarsest, per_y
+    off and on, dia 0 and the diffusion's; its 64^2 block kernel alone.
+    Errors go to ``record`` when it is given."""
+    import torch
+    from gerris_tpu_torch.ops.cuda import rbgs
+    from gerris_tpu_torch.solvers.poisson import _signs_offs
+    cfg = lid_cfg(11)
+    signs, offs = _signs_offs(cfg.grid, cfg.u_bcs[0], homogeneous=False)
+    name = str(dtype).replace("torch.", "")
+    b = BOUND[name]
+    n = N_MAIN
+    h2 = 1.0 / n ** 2
+    dia_diff = 1.0 / (0.8 / n * 1e-3)
+    neumann, per_signs = (1.0,) * 4, (1.0,) * 4
+    errs = {}
+    u, rhs = rnd(dtype, n, n), rnd(dtype, n, n)
+    for per, sg, of in (((False, False), signs, offs),
+                        ((True, False), (1.0, 1.0, -1.0, -1.0),
+                         (0.0, 0.0, 0.5, -0.25)),
+                        ((False, True), (-1.0, 1.0, 1.0, 1.0),
+                         (1.5, 0.25, 0.0, 0.0)),
+                        ((True, True), per_signs, (0.0,) * 4)):
+        kw = dict(h2=h2, signs=sg, offs=of, periodic=per)
+        errs.setdefault("residual", []).append(compare(
+            f"K11 residual {n} periodic={per}",
+            rbgs.residual(u, rhs, dia_diff, **kw),
+            rbgs.residual_plain(u, rhs, dia_diff, **kw), b))
+    r0 = rbgs.residual_restrict(u, rhs, dia_diff, 0.0, h2=h2, signs=signs,
+                                offs=offs)[0]
+    if not torch.equal(r0, rbgs.residual(u, rhs, dia_diff, h2=h2,
+                                         signs=signs, offs=offs)):
+        raise AssertionError("K11 and K1's r0 differ")
+    print(f"  K11 {n}: bit-identical to K1's r0 (sub = 0)")
+    for per, sg, dia, nsw, omega in (
+            ((False, False), signs, dia_diff, 4, 1.0),
+            ((True, False), (1.0, 1.0, -1.0, 1.0), 0.0, 5, 1.5),
+            ((True, True), per_signs, 0.0, 4, 1.0)):
+        kw = dict(nsweeps=nsw, h2=h2, signs=sg, periodic=per, omega=omega)
+        errs.setdefault("rbgs_relax", []).append(compare(
+            f"K10 rbgs_relax {n} nsweeps={nsw} periodic={per}",
+            rbgs.rbgs_relax(u, rhs, dia, **kw),
+            rbgs.rbgs_relax_plain(u, rhs, dia, **kw), b))
+    r512 = rnd(dtype, 512, 512)
+    for per_y, dia in ((False, 0.0), (True, 0.0), (False, dia_diff)):
+        sg = (1.0, 1.0, 1.0, 1.0) if per_y else (signs if dia else neumann)
+        kw = dict(nsweeps=5, coarsest=40, h2=16 * h2, signs=sg,
+                  per_y=per_y, min_n=16)
+        errs.setdefault("coarse_vcycle", []).append(compare(
+            f"K12 coarse_vcycle 512 per_y={per_y} dia={dia:.3g}",
+            rbgs.coarse_vcycle(r512, dia, **kw),
+            rbgs.coarse_vcycle_plain(r512, dia, **kw), b))
+    r64 = rnd(dtype, 64, 64)
+    for per_y in (False, True):
+        kw = dict(nsweeps=5, coarsest=40, h2=(n // 64) ** 2 * h2,
+                  signs=per_signs if per_y else neumann, per_y=per_y,
+                  min_n=16)
+        errs.setdefault("coarse_block", []).append(compare(
+            f"K12 coarse_block 64 per_y={per_y}",
+            rbgs.coarse_block(r64, 0.0, **kw),
+            rbgs.coarse_vcycle_plain(r64, 0.0, **kw), b))
+    if record is not None:
+        for k, es in errs.items():
+            record[k].update(zip(ERR_KEYS, map(max, zip(*es))))
+
+
+def check_relax_tiles(rnd):
+    """K10 bit-identical across tiles 32 and 16, whole-level and tiled, on
+    every periodicity, and with its sweeps split over two launches."""
+    import torch
+    from gerris_tpu_torch.ops.cuda import rbgs
+    n = N_MAIN
+    u, rhs = rnd(torch.float32, n, n), rnd(torch.float32, n, n)
+    u64, r64 = u[:64, :64].contiguous(), rhs[:64, :64].contiguous()
+    for per in ((False, False), (True, False), (True, True)):
+        kw = dict(nsweeps=4, h2=1.0 / n ** 2, signs=(-1.0, 1.0, -1.0, 1.0),
+                  periodic=per)
+        if not torch.equal(rbgs.rbgs_relax(u, rhs, 0.5, tile=32, **kw),
+                           rbgs.rbgs_relax(u, rhs, 0.5, tile=16, **kw)):
+            raise AssertionError(f"K10 periodic={per}: tiles 32 and 16 "
+                                 "differ")
+        if not torch.equal(rbgs.rbgs_relax(u64, r64, 0.5, **kw),
+                           rbgs.rbgs_relax(u64, r64, 0.5, tile=16,
+                                           whole_max=32, **kw)):
+            raise AssertionError(f"K10 periodic={per}: whole-level and "
+                                 "tiled launches differ")
+    kw["nsweeps"] = 40
+    if not torch.equal(rbgs.rbgs_relax(u, rhs, 0.5, **kw),
+                       rbgs.rbgs_relax(u, rhs, 0.5, tile=16, **kw)):
+        raise AssertionError("K10: split sweeps differ across tiles")
+    print("  K10 tile 32 == tile 16 at 2048, whole == tiled at 64, every "
+          "periodicity; 40 sweeps over two launches: bit-identical")
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -446,6 +653,15 @@ def cascade_flops(n_half, nsweeps, omega, coarsest=40):
     return (sum(cycle_flops(m, nsweeps, omega) for m in levels)
             + cycle_flops(16, coarsest, omega)
             + sum(m * m * 3 for m in levels[2:]) + 16 * 16 * 3)
+
+
+def vcycle_flops(n_top, nsweeps, coarsest, min_n=16):
+    """Operations of K12 at n_top: K3's at every level from 2 min_n up to
+    n_top, ``coarsest`` sweeps at min_n^2, the pools (3 per coarse cell)."""
+    levels = [m for m in (n_top >> k for k in range(12)) if m > min_n]
+    return (sum(cycle_flops(m, nsweeps, 1.0) for m in levels)
+            + cycle_flops(min_n, coarsest, 1.0)
+            + sum((m // 2) ** 2 * 3 for m in levels))
 
 
 def phase_kernels(dev, record):
@@ -528,6 +744,8 @@ def phase_kernels(dev, record):
         check_pair_kernels(rnd, dtype, N_SMALL, None)
         check_face_kernels(rnd, dtype, n, record if main else None)
         check_face_kernels(rnd, dtype, N_SMALL, None)
+        check_adaptive_kernels(rnd, dtype, record if main else None)
+    check_relax_tiles(rnd)
 
     # K3 tile invariance: bit-identical across tile sizes and whole-level
     c, rh, uu = (rnd(torch.float32, n // 2, n // 2),
@@ -688,6 +906,39 @@ def phase_kernels(dev, record):
         lambda: flat(bcg.advect2d_pair_plain(U, V, ufx, ufy, dt, grid, u_bcs,
                                              rr_dia=dia, **kw7)),
         in7, 2 * n * n * (75 + 8), None)
+    # the adaptive routes' kernels.  K11 with the lid's offsets: the
+    # neighbour sum, the difference, the scale, the dia term (8 per cell)
+    kw11 = dict(h2=h2, signs=signs, offs=offs)
+    timings["residual"] = (
+        lambda: rbgs.residual(u, rhs, dia, **kw11),
+        lambda: rbgs.residual_plain(u, rhs, dia, **kw11),
+        nbytes(u, rhs), n * n * 8, None)
+    # K10 as the "relax" diffusion runs it (4 sweeps at dia = 1/(dt nu), 7
+    # per cell per sweep), and as the periodic corrections run it
+    kw10 = dict(nsweeps=4, h2=h2, signs=signs)
+    timings["rbgs_relax"] = (
+        lambda: rbgs.rbgs_relax(u, rhs, dia, **kw10),
+        lambda: rbgs.rbgs_relax_plain(u, rhs, dia, **kw10),
+        nbytes(u, rhs), n * n * 4 * 7, None)
+    kwp = dict(kw10, signs=(1.0,) * 4, periodic=(True, True))
+    timings["rbgs_relax|periodic"] = (
+        lambda: rbgs.rbgs_relax(u, rhs, 0.0, **kwp),
+        lambda: rbgs.rbgs_relax_plain(u, rhs, 0.0, **kwp),
+        nbytes(u, rhs), n * n * 4 * 7, None)
+    # K12 as the adaptive projections run it: 512^2 with the adaptive
+    # schedule's 5 sweeps and 40 coarsest; its block kernel alone at 64^2
+    r512k, r64k = rnd(f32, 512, 512), rnd(f32, 64, 64)
+    kw12 = dict(nsweeps=5, coarsest=40, h2=16 * h2, signs=(1.0,) * 4,
+                min_n=16)
+    timings["coarse_vcycle"] = (
+        lambda: rbgs.coarse_vcycle(r512k, 0.0, **kw12),
+        lambda: rbgs.coarse_vcycle_plain(r512k, 0.0, **kw12),
+        nbytes(r512k), vcycle_flops(512, 5, 40), None)
+    kwcb = dict(kw12, h2=(n // 64) ** 2 * h2)
+    timings["coarse_block"] = (
+        lambda: rbgs.coarse_block(r64k, 0.0, **kwcb),
+        lambda: rbgs.coarse_vcycle_plain(r64k, 0.0, **kwcb),
+        nbytes(r64k), vcycle_flops(64, 5, 40), None)
     print("phase 2 times (float32, main-path shapes; plain, kernel, "
           "kernel, plain)")
     for k, (kern, plain, in_bytes, ops, lib) in timings.items():
@@ -783,7 +1034,7 @@ def phase_main_path(dev, card):
           f"{' '.join(f'{w:.4f}' for w in walls)} s; median {sps:.3f} "
           f"steps/s, {sps * N_MAIN ** 2 / 1e6:.2f}M cell-updates/s on {card}")
     phase_profile(s, dt / TIMED_STEPS, card)
-    return counts
+    return counts, s
 
 
 def phase_routes(dev):
@@ -808,8 +1059,8 @@ def phase_routes(dev):
     return counts
 
 
-def phase_profile(s, step_s, card):
-    """torch.profiler over PROFILE_STEPS steps of the running simulation:
+def phase_profile(s, step_s, card, steps=PROFILE_STEPS):
+    """torch.profiler over ``steps`` steps of the running simulation:
     device time by kernel, the port's kernels against the plain torch
     ops, and the device's busy share of an unprofiled step."""
     import torch
@@ -818,7 +1069,7 @@ def phase_profile(s, step_s, card):
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        s.run(max_steps=PROFILE_STEPS)
+        s.run(max_steps=steps)
         torch.cuda.synchronize()
     rows = []
     for evt in prof.key_averages():
@@ -836,9 +1087,9 @@ def phase_profile(s, step_s, card):
         raise AssertionError("profiler: no device time recorded")
     own = sum(r[0] for r in rows if any(k in r[2] for k in OWN_KERNELS))
     launches = sum(r[1] for r in rows)
-    busy = total / 1e6 / PROFILE_STEPS
-    print(f"  profile, {PROFILE_STEPS} steps on {card}: device {total / 1e3:.3f}"
-          f" ms ({busy * 1e3:.3f} ms/step); {launches / PROFILE_STEPS:.0f} "
+    busy = total / 1e6 / steps
+    print(f"  profile, {steps} steps on {card}: device {total / 1e3:.3f}"
+          f" ms ({busy * 1e3:.3f} ms/step); {launches / steps:.0f} "
           f"device ops per step")
     print(f"  port kernels {own / 1e3:.3f} ms ({100 * own / total:.1f}%), "
           f"plain torch {(total - own) / 1e3:.3f} ms "
@@ -847,7 +1098,200 @@ def phase_profile(s, step_s, card):
           f"of it")
     for us, count, key in rows[:16]:
         print(f"    {us / 1e3:9.3f} ms {100 * us / total:5.1f}% "
-              f"{count / PROFILE_STEPS:6.1f}/step  {key[:90]}")
+              f"{count / steps:6.1f}/step  {key[:90]}")
+
+
+@contextlib.contextmanager
+def recording_solves():
+    """Record every poisson.solve call of the block: (solver, niter, a
+    fixed count (nitermin = nitermax) or not, host syncs)."""
+    from gerris_tpu_torch.solvers import poisson
+    solve = poisson.solve
+    log = []
+
+    def recorded(*args, **kw):
+        out = solve(*args, **kw)
+        params = args[4] if len(args) > 4 else kw["params"]
+        fixed = params.ncycles == 0 and params.nitermin == params.nitermax
+        log.append((params.solver, out[1].niter, fixed, out[1].host_syncs))
+        return out
+
+    poisson.solve = recorded
+    try:
+        yield log
+    finally:
+        poisson.solve = solve
+
+
+def ada_sim(dev, schedule):
+    """The 2048^2 lid cavity under ``schedule`` (schedules()), float32,
+    not yet initialised."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    cfg = lid_cfg(11, schedule=schedule)
+    return Simulation(cfg, time=Time(dtmax=0.8 * cfg.grid.h), device=dev,
+                      dtype=torch.float32)
+
+
+def run_adaptive(dev, schedule, steps):
+    """init + ``steps`` steps under ``schedule`` through the kernels, the
+    launch counts set to 0 just before and gated just after as functions
+    of the solves' cycle counts; then the same steps through the plain
+    versions on the card.  Returns (run, plain run, counts, solves of
+    the kernels' run, solves of the plain run)."""
+    import torch
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_solves() as log:
+        s = ada_sim(dev, schedule).init()
+        s.run(max_steps=steps)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"  {schedule}, init + {steps} steps: {t_run:.3f} s; niter per "
+          f"solve {[n for _, n, _, _ in log]}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    want = want_adaptive(steps, [(sv, n, f) for sv, n, f, _ in log])
+    for k, w in want.items():
+        if counts[k] != w:
+            raise AssertionError(f"{schedule}: {k}: {counts[k]} launches, "
+                                 f"want {w}")
+    for k, v in s.state.items():
+        if v.shape != s.cfg.grid.shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{schedule} {k}: not finite or wrong shape")
+    with plain_versions(), recording_solves() as plog:
+        ref = ada_sim(dev, schedule).init().run(max_steps=steps)
+    if launch_counts() != counts:
+        raise AssertionError("the plain reference run launched kernels")
+    print(f"  {schedule}, plain versions: niter per solve "
+          f"{[n for _, n, _, _ in plog]}")
+    return s, ref, counts, log, plog
+
+
+def hold(name, s, ref, bound):
+    for k in ("U", "V", "P"):
+        rel = rel_err(s.state[k], ref.state[k])
+        print(f"  {name}, kernels vs plain after {ADA_STEPS} steps, {k}: "
+              f"rel {rel:.3e} (bound {bound:.0e})")
+        if not rel <= bound:
+            raise AssertionError(f"{name} {k}: rel {rel:.3e}")
+
+
+def phase_adaptive(dev, card, main_sim):
+    """The adaptive routes at 2048^2, float32: ``adaptive`` (K11, K12, K3)
+    and ``adaptive_relax`` (K11, K10), each as a fixed-count run held to
+    the plain versions at MAIN_PATH_RTOL and as the tolerance run, gated
+    from its cycle counts and held to its plain run at ADAPTIVE_RTOL;
+    ``adaptive``'s step timed and profiled; the honesty check; the
+    periodic Poisson solve.  Returns the launch counts of the tolerance
+    runs by route."""
+    import torch
+    print(f"phase 3, adaptive routes: {N_MAIN}^2, float32, {ADA_STEPS} steps")
+    counts = {}
+    for route, (sched, fixed) in (("adaptive", ("adaptive", "adaptive_fixed")),
+                                  ("adaptive_relax", ("relax",
+                                                      "relax_fixed"))):
+        s, ref, _, _, _ = run_adaptive(dev, fixed, ADA_STEPS)
+        hold(fixed, s, ref, MAIN_PATH_RTOL)
+        s, ref, counts[route], _, _ = run_adaptive(dev, sched, ADA_STEPS)
+        hold(sched, s, ref, ADAPTIVE_RTOL)
+        if route == "adaptive":
+            ada = s
+    walls, syncs = [], []
+    for _ in range(TIMED_WINDOWS):
+        with recording_solves() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ada.run(max_steps=ADA_TIMED_STEPS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        # the solves' condition reads, and the CFL dt's one per step
+        syncs.append(sum(x[3] for x in log) / ADA_TIMED_STEPS + 1)
+        niters = [x[1] for x in log]
+    step = float(np.median(walls)) / ADA_TIMED_STEPS
+    print(f"  adaptive step, timed windows of {ADA_TIMED_STEPS} steps: "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s; median "
+          f"{step * 1e3:.3f} ms/step; host syncs per step "
+          f"{' '.join(f'{x:.1f}' for x in syncs)}; niter per solve in the "
+          f"last window {niters} on {card}")
+    phase_profile(ada, step, card, ADA_PROFILE_STEPS)
+    honesty_check(main_sim)
+    errs = {n: periodic_poisson(dev, n) for n in (1024, 2048)}
+    ratio = errs[1024] / errs[2048]
+    print(f"  periodic_poisson: Linf error 1024^2 {errs[1024]:.4e}, 2048^2 "
+          f"{errs[2048]:.4e}, ratio {ratio:.4f} (want {POISSON_ORDER})")
+    if not POISSON_ORDER[0] <= ratio <= POISSON_ORDER[1]:
+        raise AssertionError(f"periodic_poisson: order ratio {ratio:.4f}")
+    return counts
+
+
+def honesty_check(main_sim):
+    """The bench's honesty check (bench.py:250-267): from the main path's
+    state, one fixed-schedule step and one adaptive step at dt = 0.8 h;
+    max over U, V of max|fixed - adaptive| / max|adaptive|."""
+    from gerris_tpu_torch.models import ns
+    cfg_ada = lid_cfg(11, schedule="adaptive")
+    dt = 0.8 * cfg_ada.grid.h
+    t = main_sim.time.t
+    s_fix = ns.ns_step(dict(main_sim.state), dt, t, main_sim.cfg)
+    s_ada = ns.ns_step(dict(main_sim.state), dt, t, cfg_ada)
+    rel = max(rel_err(s_fix[k], s_ada[k]) for k in ("U", "V"))
+    print(f"  honesty check after {main_sim.time.i} steps of the main path: "
+          f"fixed_vs_adaptive_rel {rel:.4e} (bound {FIXED_VS_ADAPTIVE_MAX})")
+    if not rel < FIXED_VS_ADAPTIVE_MAX:
+        raise AssertionError(f"fixed_vs_adaptive_rel {rel:.4e}")
+
+
+def periodic_poisson(dev, n):
+    """lap p = -8 pi^2 cos(2 pi x) cos(2 pi y), mean subtracted, doubly
+    periodic, at n^2 in float64 to tolerance 1e-10 (in float32, or at
+    1e-3, the solver's error or the rounding would hide the ~1e-6
+    discretisation error): K11, restrict2, the dense 64^2 solve and
+    prolong + K10 per level; launches gated, held to the plain route.
+    Returns the Linf error against the exact p, both means removed."""
+    import math
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.solvers import poisson
+    grid = Grid(level=int(math.log2(n)))
+    fbc = bc.FieldBC.uniform(bc.Periodic(), 2)
+    x, y = (torch.from_numpy(c).to(dev) for c in grid.centers)
+    exact = torch.cos(2 * math.pi * x) * torch.cos(2 * math.pi * y)
+    rhs = -8 * math.pi ** 2 * exact
+    rhs = rhs - rhs.mean()
+    params = poisson.MultilevelParams(tolerance=1e-10)
+    p0 = torch.zeros_like(rhs)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, st = poisson.solve(p0, rhs, grid, fbc, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    levels = grid.level - 6       # restrictions down to the dense 64^2
+    want = {k: 0 for k in counts}
+    want.update(residual=st.niter + 1, restrict2=levels * st.niter,
+                rbgs_relax=levels * st.niter)
+    if counts != want:
+        raise AssertionError(f"periodic_poisson {n}: launches {counts}, "
+                             f"want {want}")
+    with plain_versions():
+        pr, rst = poisson.solve(p0, rhs, grid, fbc, params)
+    if launch_counts() != counts:
+        raise AssertionError("the plain reference run launched kernels")
+    rel = rel_err(p, pr)
+    err = float(((p - p.mean()) - (exact - exact.mean())).abs().max())
+    print(f"  periodic_poisson {n}^2 float64: niter {st.niter} (plain "
+          f"{rst.niter}), {wall:.3f} s, residual "
+          f"{float(st.residual_after['infty']):.3e}, Linf error {err:.4e}; "
+          f"kernels vs plain rel {rel:.3e} (bound {POISSON_PLAIN_RTOL:.0e}); "
+          f"launches {counts['residual']} K11, {counts['restrict2']} "
+          f"restrict2, {counts['rbgs_relax']} K10")
+    if not rel <= POISSON_PLAIN_RTOL:
+        raise AssertionError(f"periodic_poisson {n}: rel {rel:.3e}")
+    return err
 
 
 def phase_physics(dev, card, dtype_name="float32"):
@@ -919,12 +1363,15 @@ def main():
     record = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
               for k, (src, rep) in KERNELS.items()}
     phase_kernels(dev, record)
-    counts = phase_main_path(dev, card)
+    counts, main_sim = phase_main_path(dev, card)
     route_counts = phase_routes(dev)
-    # launches on the main path; K14 is off it (K7 takes its place), so
-    # its count is that of its own path, the per-component route
+    route_counts.update(phase_adaptive(dev, card, main_sim))
+    # launches on each kernel's path: the main path's; K14 is off it (K7
+    # takes its place), so its count is that of its own path, the
+    # per-component route; K10-K12 are the adaptive routes'
     for k in record:
-        path = "main" if k != "advect2d" else "per_component"
+        path = ("per_component" if k == "advect2d" else
+                ADAPTIVE_KERNELS.get(k, "main"))
         c = counts if path == "main" else route_counts[path]
         record[k].update(launches=c[k], path=path)
     for k, sub in (("cascade_prolong_relax", ""),
@@ -932,6 +1379,11 @@ def main():
         record[k]["launches_restrict2"] = counts["restrict2" + sub]
         record[k]["launches_prolong_relax"] = \
             counts[f"cascade{sub}.prolong_relax"]
+    ada = route_counts["adaptive"]
+    record["coarse_vcycle"].update(
+        launches_restrict2=ada["coarse_vcycle.restrict2"],
+        launches_block=ada["coarse_block"],
+        launches_prolong_relax=ada["coarse_vcycle.prolong_relax"])
 
     ok, eu, ev = phase_physics(dev, card)
     if not (ok and eu <= GHIA_LINF_U and ev <= GHIA_LINF_V):

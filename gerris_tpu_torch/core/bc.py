@@ -1,13 +1,16 @@
 """Boundary conditions applied as ghost-cell padding
-(port of gerris_tpu/core/bc.py; constant BC values only).
+(port of gerris_tpu/core/bc.py).
 
 Ghost-cell formulas follow the reference (src/boundary.c):
 * Dirichlet: ghost = 2*b - interior;
 * Neumann:   ghost = interior -/+ g * (2k-1) h for ghost layer k;
 * Periodic:  wrap-around copy.
 ``homogeneous=True`` gives the zero-valued variants used by the multigrid
-correction sweeps.  Callable (space/time dependent) values, Navier slip
-and contact angles are outside this slice and raise.
+correction sweeps.  A Dirichlet or Neumann value is a constant or a
+callable ``f(x, y[, t])`` of torch tensors (space/time dependent values,
+evaluated at the boundary face centres by ``apply_bc``); the kernels'
+static ghost encoding takes constants only (``static_values``).  Navier
+slip and contact angles are outside this slice and raise.
 """
 from __future__ import annotations
 
@@ -33,11 +36,8 @@ class BC:
             raise NotImplementedError(
                 f"BC kind {self.kind!r} is not ported yet "
                 "(ROADMAP Queue 1, slices 3-4)")
-        if callable(self.value):
-            raise NotImplementedError(
-                "callable BC values are not ported yet (ROADMAP Queue 1, "
-                "slice 7); the port takes constant values only")
-        object.__setattr__(self, "value", float(self.value))
+        if not callable(self.value):
+            object.__setattr__(self, "value", float(self.value))
 
 
 def Dirichlet(value: float = 0.0) -> BC:
@@ -55,8 +55,19 @@ def Periodic() -> BC:
 def bc_value(b: BC) -> float:
     """BC value for static-offset ghost consumers (the kernels' "ghost =
     sgn*mirror + off" encoding).  The reference maps a contact angle to
-    0 here; contact angles are not ported, so this is the plain value."""
+    0 here; contact angles are not ported, so this is the plain value.
+    A callable value has no static offset: the callers check
+    ``static_values`` first."""
+    if callable(b.value):
+        raise ValueError("a callable BC value has no static ghost offset")
     return b.value
+
+
+def static_values(fbc: "FieldBC") -> bool:
+    """True when no side's value is callable: the kernels' ghost encoding
+    takes the BCs (reference: poisson.residual's static_ok and
+    _bc_values_static)."""
+    return not any(callable(b.value) for ax in fbc.sides for b in ax)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,14 +112,58 @@ def grad_bc(u_bc: FieldBC) -> FieldBC:
 
 
 def _ghost(interior: torch.Tensor, b: BC, side: int, k: int, h: float,
-           homogeneous: bool) -> torch.Tensor:
+           homogeneous: bool, v=None) -> torch.Tensor:
     """Ghost layer k (1-based) from the interior layer mirrored through
-    the boundary face."""
-    v = 0.0 if homogeneous else b.value
+    the boundary face; ``v``: the value evaluated on the slab (a callable
+    BC), else the constant."""
+    if homogeneous:
+        v = 0.0
+    elif v is None:
+        v = _constant(b)
     if b.kind == DIRICHLET:
         return 2.0 * v - interior
     step = v * (2 * k - 1) * h
     return interior + step if side else interior - step
+
+
+def _constant(b: BC) -> float:
+    if callable(b.value):
+        raise NotImplementedError(
+            "a callable BC value on this route: only apply_bc with corners "
+            "evaluates them (the multigrid residual's padded route)")
+    return b.value
+
+
+def _boundary_coords(grid: Grid, axis: int, side: int, pad: list,
+                     like: torch.Tensor) -> tuple:
+    """Coordinates of the face centres of one boundary slab, as tensors of
+    ``like``'s dtype and device broadcastable to the slab: the boundary
+    plane along ``axis`` (a one-element tensor); cell centres along the
+    other axes, extended by the ghost layers ``pad[a]`` already added on
+    axis a (reference gerris_tpu/core/bc.py:_boundary_coords)."""
+    coords = []
+    for a in range(grid.dim):
+        if a == axis:
+            coords.append(like.new_full((1,) * grid.dim,
+                                        grid.boundary_coord(axis, side)))
+            continue
+        i = torch.arange(-pad[a], grid.shape[a] + pad[a], dtype=like.dtype,
+                         device=like.device)
+        shape = [1] * grid.dim
+        shape[a] = i.numel()
+        coords.append((grid.origin[a] + (i + 0.5) * grid.h).reshape(shape))
+    return tuple(coords)
+
+
+def _eval(value, coords, t=0.0):
+    """A callable value at ``coords`` (with the time t when it takes
+    one), or the constant (reference gerris_tpu/core/bc.py:_eval)."""
+    if callable(value):
+        try:
+            return value(*coords, t)
+        except TypeError:
+            return value(*coords)
+    return value
 
 
 def edge_extend(a: torch.Tensor, axis: int, width: int) -> torch.Tensor:
@@ -120,7 +175,7 @@ def edge_extend(a: torch.Tensor, axis: int, width: int) -> torch.Tensor:
 
 def apply_bc(field: torch.Tensor, grid: Grid, fbc: FieldBC, width: int = 1,
              homogeneous: bool = False, corners: bool = True,
-             axes=None) -> torch.Tensor:
+             axes=None, t: float = 0.0) -> torch.Tensor:
     """Return ``field`` padded with ``width`` ghost layers per the BCs.
 
     ``corners=True`` pads axis by axis in the order ``axes`` (default 0,
@@ -130,24 +185,35 @@ def apply_bc(field: torch.Tensor, grid: Grid, fbc: FieldBC, width: int = 1,
     variant: each axis' ghost slabs come from the unpadded field,
     edge-extended along the other axes, the later axis overwriting the
     corners.  All give the reference's values bit for bit off the
-    corners."""
+    corners.  A callable value (corners=True only) is evaluated at time
+    ``t`` on each slab's boundary face centres, the slab spanning the
+    ghost layers already added (reference gerris_tpu/core/bc.py:182-240)."""
     if not corners:
         return _apply_bc_nocorner(field, grid, fbc, width, homogeneous)
     out = field
+    pad = [0] * grid.dim
     for axis in (range(grid.dim) if axes is None else axes):
         lo_bc, hi_bc = fbc.sides[axis]
         n = out.shape[axis]
         if fbc.is_periodic(axis):
             out = torch.cat([out.narrow(axis, n - width, width), out,
                              out.narrow(axis, 0, width)], dim=axis)
+            pad[axis] = width
             continue
         lo, hi = [], []
         for k in range(1, width + 1):
-            lo.append(_ghost(out.narrow(axis, k - 1, 1), lo_bc, 0, k,
-                             grid.h, homogeneous))
-            hi.append(_ghost(out.narrow(axis, n - k, 1), hi_bc, 1, k,
-                             grid.h, homogeneous))
+            vals = [None if homogeneous or not callable(b.value) else
+                    _eval(b.value, _boundary_coords(grid, axis, sd, pad,
+                                                    field), t)
+                    for sd, b in ((0, lo_bc), (1, hi_bc))]
+            g_lo = _ghost(out.narrow(axis, k - 1, 1), lo_bc, 0, k, grid.h,
+                          homogeneous, vals[0])
+            g_hi = _ghost(out.narrow(axis, n - k, 1), hi_bc, 1, k, grid.h,
+                          homogeneous, vals[1])
+            lo.append(g_lo.expand_as(out.narrow(axis, 0, 1)))
+            hi.append(g_hi.expand_as(out.narrow(axis, 0, 1)))
         out = torch.cat(lo[::-1] + [out] + hi, dim=axis)
+        pad[axis] = width
     return out
 
 
@@ -188,5 +254,5 @@ def apply_face_bc(f: torch.Tensor, grid: Grid, fbc: FieldBC, axis: int,
         if bc.kind != DIRICHLET:
             continue
         f.narrow(axis, 0 if side == 0 else n - 1, 1).fill_(
-            0.0 if homogeneous else bc.value)
+            0.0 if homogeneous else _constant(bc))
     return f

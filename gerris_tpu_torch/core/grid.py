@@ -62,6 +62,11 @@ class Grid:
         axes = [self.axis_centers(a) for a in range(self.dim)]
         return tuple(np.meshgrid(*axes, indexing="ij"))
 
+    def boundary_coord(self, axis: int, side: int) -> float:
+        """Physical coordinate of the domain boundary plane."""
+        return self.origin[axis] + (self.size * self.extents[axis]
+                                    if side == 1 else 0.0)
+
     def face_shape(self, axis: int) -> tuple:
         s = list(self.shape)
         s[axis] += 1

@@ -1,20 +1,27 @@
-// Multigrid cycle kernels for Hopper (sm_90a): the fixed sawtooth cycle
-// of gerris_tpu_torch/solvers/poisson.py:fused_cycle, and its U+V pair
-// (poisson.py:solve_fixed_batched).
+// Multigrid kernels for Hopper (sm_90a): the fixed sawtooth cycle of
+// gerris_tpu_torch/solvers/poisson.py:fused_cycle and its U+V pair
+// (poisson.py:solve_fixed_batched), and the adaptive solve's residual,
+// smoother and coarse cascade (poisson.py:correction, solve_relax).
 //
-// Three kernels, each templated on float and double, behind a plain C
+// Six kernels, each templated on float and double, behind a plain C
 // interface (loaded with ctypes by gerris_tpu_torch/ops/cuda/rbgs.py):
 //
 //   residual_restrict  r0 = (rhs - sub) - (L - dia) u with static ghosts,
 //                      r1 = pool(r0), r2 = pool(r1), in one launch;
-//   restrict2          one 2x2 mean pool (the cascade's restriction);
+//   restrict2          one 2x2 mean pool (the cascades' restriction);
 //   prolong_relax      bilinear prolongation of a coarse correction (or
 //                      du = 0) + nsweeps red-black Gauss-Seidel sweeps
 //                      (+ u), in one launch;
-//   and the cascade (ops/cuda/rbgs.py:cascade_prolong_relax) is a host
-//   sequence of restrict2 and prolong_relax launches.
+//   residual           r = rhs - (L - dia) u, periodic on either axis;
+//   rbgs_relax         nsweeps red-black sweeps from a given u, periodic
+//                      on either axis, in one launch;
+//   coarse_block       the whole cascade of a level of at most 64^2 in
+//                      one block;
+//   and the cascades (ops/cuda/rbgs.py:cascade_prolong_relax and
+//   coarse_vcycle) are host sequences of restrict2, prolong_relax and
+//   coarse_block launches.
 //
-// Every kernel takes a batch of 1 or 2 independent systems of one size:
+// The first three take a batch of 1 or 2 independent systems of one size:
 // gridDim.z is the batch and blockIdx.z picks the system's pointers and
 // scalars from a small struct passed by value.  A single solve launches
 // with a batch of 1 (K1-K3); the U+V implicit-diffusion pair launches the
@@ -25,16 +32,19 @@
 //
 // Layouts are logical: a cell field is a contiguous (n0, n1) row-major
 // array, axis 1 contiguous.  Ghost encoding per side: ghost =
-// sgn * mirror + off, sides ordered (x lo, x hi, y lo, y hi); periodic y
-// wraps instead.  Every launch is on the caller's stream, allocates
+// sgn * mirror + off, sides ordered (x lo, x hi, y lo, y hi); a periodic
+// axis wraps instead.  Every launch is on the caller's stream, allocates
 // nothing, and returns cudaGetLastError().
 //
-// All three are memory-bound stencils (a few flops per loaded value, no
-// tensor-core work): bytes moved between device memory and the SMs are
-// what bounds them on the H100, so each design keeps intermediates in
-// shared memory and reads each input tile once.
+// All are stencils with a few flops per loaded value and no tensor-core
+// work: bytes moved between device memory and the SMs bound the fine
+// levels on the H100, so each design keeps intermediates in shared memory
+// and reads each input tile once; the coarse levels are bound by launches
+// and by the barriers between serial half-sweeps.
 
 #include <cuda_runtime.h>
+
+#include "stencil.cuh"
 
 namespace {
 
@@ -145,8 +155,8 @@ __global__ void residual_restrict_kernel(RRArgs<T> a) {
   const T c = su[ty + 1][tx + 1];
   const T nb = su[ty][tx + 1] + su[ty + 2][tx + 1] + su[ty + 1][tx] +
                su[ty + 1][tx + 2];
-  const T r = s.rhs[(size_t)gi * n1 + gj] - sub - (nb - T(4) * c) / a.h2 +
-              s.dia * c;
+  const T r = gtt::residual_value(s.rhs[(size_t)gi * n1 + gj] - sub, nb, c,
+                                  a.h2, s.dia);
   s.r0[(size_t)gi * n1 + gj] = r;
   sr[ty][tx] = r;
   __syncthreads();
@@ -334,6 +344,338 @@ __global__ void prolong_relax_kernel(PRArgs<T> a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K11 residual.
+// Replaces gerris_tpu/ops/pallas/rbgs.py:residual_pallas (_residual_kernel):
+// r = rhs - (L - dia) u with static ghosts (sgn * mirror + off per side),
+// periodic on either axis.  The adaptive solve's one residual per cycle.
+// Bound: device-memory bytes (reads u and rhs once, writes r once).
+// Design: one thread per cell reading its four neighbours straight from
+// device memory: a neighbour is the next thread's cell or the row above,
+// so L1 and L2 serve all but one read of each u value, and no tile is
+// staged.  The cell's value is K1's expression (gtt::residual_value), so
+// K1 with sub = 0 gives this r0 bit for bit.
+// ---------------------------------------------------------------------------
+template <typename T>
+struct ResArgs {
+  const T* u;
+  const T* rhs;
+  T* r;
+  T dia, h2;
+  T sgn[4], off[4];
+  int n0, n1, per_x, per_y;
+};
+
+template <typename T>
+__global__ void residual_kernel(ResArgs<T> a) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int n0 = a.n0, n1 = a.n1;
+  if (i >= n0 || j >= n1) return;
+  const T* u = a.u;
+  const size_t k = (size_t)i * n1 + j;
+  const T c = u[k];
+  T up, dn, lf, rt;
+  if (i > 0)
+    up = u[k - n1];
+  else if (a.per_x)
+    up = u[(size_t)(n0 - 1) * n1 + j];
+  else
+    up = a.sgn[0] * c + a.off[0];
+  if (i < n0 - 1)
+    dn = u[k + n1];
+  else if (a.per_x)
+    dn = u[j];
+  else
+    dn = a.sgn[1] * c + a.off[1];
+  if (j > 0)
+    lf = u[k - 1];
+  else if (a.per_y)
+    lf = u[k + n1 - 1];
+  else
+    lf = a.sgn[2] * c + a.off[2];
+  if (j < n1 - 1)
+    rt = u[k + 1];
+  else if (a.per_y)
+    rt = u[k - (n1 - 1)];
+  else
+    rt = a.sgn[3] * c + a.off[3];
+  const T nb = up + dn + lf + rt;
+  a.r[k] = gtt::residual_value(a.rhs[k], nb, c, a.h2, a.dia);
+}
+
+// ---------------------------------------------------------------------------
+// K10 rbgs_relax.
+// Replaces gerris_tpu/ops/pallas/rbgs.py:rbgs_relax (_kernel): nsweeps
+// red-black Gauss-Seidel sweeps (red = global (i+j) even first) from a given
+// u on (L - dia) u = rhs, scalar dia, homogeneous ghosts, periodic rows
+// and/or columns.  The "relax" solver's sweeps and the upward levels of a
+// correction with periodic rows.
+// Bound: device-memory bytes for a level of many tiles (reads u and rhs,
+// writes the result once for all sweeps); a level that fits one block is
+// bound by its serial half-sweeps.
+// Design: K3's tile without its prolongation.  One block per tile x tile
+// output tile; the shared buffer holds the tile, a halo of 2*nsweeps cells
+// and a frozen outer ring, and the rhs beside it.  On a periodic axis the
+// halo is read across the wrap (the TPU kernel's wrapped halo DMAs); on a
+// non-periodic one, the domain-edge ghosts inside the buffer are
+// recomputed (sgn * mirror) before every half-sweep.  The valid region
+// shrinks by at most one cell per half-sweep, so the tile is exact after
+// 2*nsweeps of them, for any tile size.  A level that fits one block runs
+// with tile = n and halo = 0, its periodic wrap refreshed like a ghost
+// ring.  The global colour of a wrapped cell is that of its unwrapped
+// position: the levels are even.
+// ---------------------------------------------------------------------------
+template <typename T>
+struct RXArgs {
+  const T* u;
+  const T* rhs;
+  T* out;
+  int n0, n1, tile, halo, nsweeps;
+  T h2, inv_denom, omega, one_m_omega;
+  int use_omega;
+  T sgn[4];
+  int per_x, per_y;
+};
+
+template <typename T>
+__global__ void rbgs_relax_kernel(RXArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
+  const int B = tile + 2 * halo + 2;
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  T* rb = buf + (size_t)B * B;
+  const int gi0 = blockIdx.y * tile - halo - 1;
+  const int gj0 = blockIdx.x * tile - halo - 1;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  // a tiled block reads its halo across a periodic axis' wrap; a
+  // whole-level block (halo 0) refreshes the wrap like a ghost ring
+  const bool wrap_x = a.per_x && halo > 0, wrap_y = a.per_y && halo > 0;
+  const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
+
+  // ---- place u and rhs
+  for (int li = ty; li < B; li += PR_THREADS_Y) {
+    int gi = gi0 + li;
+    if (wrap_x) gi = (gi % n0 + n0) % n0;
+    const bool real_i = gi >= 0 && gi < n0;
+    for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+      int gj = gj0 + lj;
+      if (wrap_y) gj = (gj % n1 + n1) % n1;
+      const bool real = real_i && gj >= 0 && gj < n1;
+      const size_t g = (size_t)gi * n1 + gj;
+      buf[li * B + lj] = real ? a.u[g] : T(0);
+      rb[li * B + lj] = real ? a.rhs[g] : T(0);
+    }
+  }
+  __syncthreads();
+
+  for (int sw = 0; sw < 2 * a.nsweeps; ++sw) {
+    const int color = sw & 1;  // red ((i+j) even) first
+    // ---- ghosts from the current interior: domain edges, and the wrap of
+    // a whole-level block
+    for (int li = ty; li < B; li += PR_THREADS_Y) {
+      const int gi = gi0 + li;
+      const bool real_i = wrap_x || (gi >= 0 && gi < n0);
+      const bool ghost_i = !real_i && (gi == -1 || gi == n0);
+      for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+        const int gj = gj0 + lj;
+        const bool real_j = wrap_y || (gj >= 0 && gj < n1);
+        const bool ghost_j = !real_j && (gj == -1 || gj == n1);
+        const int k = li * B + lj;
+        if (ghost_i && real_j) {
+          if (a.per_x)
+            buf[k] = gi < 0 ? buf[k + n0 * B] : buf[k - n0 * B];
+          else
+            buf[k] = gi < 0 ? sx0 * buf[k + B] : sx1 * buf[k - B];
+        } else if (real_i && ghost_j) {
+          if (a.per_y)
+            buf[k] = gj < 0 ? buf[k + n1] : buf[k - n1];
+          else
+            buf[k] = gj < 0 ? sy0 * buf[k + 1] : sy1 * buf[k - 1];
+        }
+      }
+    }
+    __syncthreads();
+    // ---- one colour; the frozen outer ring is never updated
+    for (int li = ty + 1; li < B - 1; li += PR_THREADS_Y) {
+      const int gi = gi0 + li;
+      if (!wrap_x && (gi < 0 || gi >= n0)) continue;
+      for (int lj = tx + 1; lj < B - 1; lj += PR_THREADS_X) {
+        const int gj = gj0 + lj;
+        if (!wrap_y && (gj < 0 || gj >= n1)) continue;
+        if (((gi + gj) & 1) != color) continue;
+        const int k = li * B + lj;
+        const T c = buf[k];
+        const T nb = buf[k - B] + buf[k + B] + buf[k - 1] + buf[k + 1];
+        T nw = (nb - a.h2 * rb[k]) * a.inv_denom;
+        if (a.use_omega) nw = a.one_m_omega * c + a.omega * nw;
+        buf[k] = nw;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the tile
+  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
+    const int gi = gi0 + li;
+    for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
+         lj += PR_THREADS_X) {
+      a.out[(size_t)gi * n1 + gj0 + lj] = buf[li * B + lj];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K12 coarse_vcycle, its block kernel.
+// Replaces gerris_tpu/ops/pallas/rbgs.py:coarse_vcycle (_cv_kernel, its
+// smoother _cv_relax) together with the restrict2 and K3 launches of the
+// levels above 64^2 (ops/cuda/rbgs.py:coarse_vcycle): du for the whole
+// sub-hierarchy at and below r's level, homogeneous ghosts, non-periodic
+// rows, periodic columns or not, omega 1.
+// Bound: barriers and launches, not bytes: at the 64^2 top it reads r
+// (16 KB in f32) and writes du once, and its work is ~2 * coarsest +
+// 4 * nsweeps half-sweeps of at most 2048 cells each, serial in between.
+// Design: the TPU kernel holds a 512^2 cascade in one launch; a 512^2
+// level does not fit one block's shared memory, so on the card one block
+// of 1024 threads holds the cascade from a top of at most 64^2 down to
+// min_n^2 and back: the residual pyramid (r at the top, restricted in
+// shared memory) and du in two ping-pong buffers (level l from the top in
+// buffer l % 2), ~41 KB in f32 and ~82 KB in f64.  A cell's neighbours
+// are read through index tests instead of a ghost ring, so a half-sweep
+// costs one barrier.  The coarsest level starts from du = 0 with
+// `coarsest` sweeps; every level above it is a bilinear prolongation
+// (K3's arithmetic) and `nsweeps` sweeps.
+// ---------------------------------------------------------------------------
+constexpr int CB_TOP = 64;
+constexpr int CB_THREADS = 1024;
+constexpr int CB_LEVELS = 7;  // 64^2 .. 1^2
+
+template <typename T>
+struct CBArgs {
+  const T* r;
+  T* du;
+  int n, min_n, nsweeps, coarsest;
+  double dia, h2;  // h2 at r's level
+  T sgn[4];
+  int per_y;
+};
+
+template <typename T>
+__device__ void cb_restrict(const T* f, T* c, int s) {
+  const int n1 = 2 * s;
+  for (int k = threadIdx.x; k < s * s; k += CB_THREADS) {
+    const int i = k / s, j = k - i * s;
+    const T* p = f + (size_t)(2 * i) * n1 + 2 * j;
+    const T x = T(0.5) * (p[0] + p[n1]);
+    const T y = T(0.5) * (p[1] + p[n1 + 1]);
+    c[k] = T(0.5) * (x + y);
+  }
+  __syncthreads();
+}
+
+// nsweeps red-black sweeps of the s x s level d on rhs, one barrier per
+// half-sweep
+template <typename T>
+__device__ void cb_sweeps(T* d, const T* rhs, int s, int nsweeps,
+                          const CBArgs<T>& a) {
+  const double h2d = a.h2 * double(a.n / s) * double(a.n / s);
+  const T h2 = T(h2d);
+  const T inv_denom = T(1.0 / (4.0 + a.dia * h2d));
+  const int half = s / 2;  // cells of one colour per row
+  const int cells = s * half;
+  for (int sw = 0; sw < 2 * nsweeps; ++sw) {
+    const int color = sw & 1;  // red ((i+j) even) first
+    for (int k = threadIdx.x; k < cells; k += CB_THREADS) {
+      const int i = k / half;
+      const int j = 2 * (k - i * half) + ((i + color) & 1);
+      const int q = i * s + j;
+      const T c = d[q];
+      const T up = i > 0 ? d[q - s] : a.sgn[0] * c;
+      const T dn = i < s - 1 ? d[q + s] : a.sgn[1] * c;
+      T lf, rt;
+      if (a.per_y) {
+        lf = d[j > 0 ? q - 1 : q + s - 1];
+        rt = d[j < s - 1 ? q + 1 : q - (s - 1)];
+      } else {
+        lf = j > 0 ? d[q - 1] : a.sgn[2] * c;
+        rt = j < s - 1 ? d[q + 1] : a.sgn[3] * c;
+      }
+      d[q] = (up + dn + lf + rt - h2 * rhs[q]) * inv_denom;
+    }
+    __syncthreads();
+  }
+}
+
+// bilinear prolongation of the (s/2)^2 level c into the s^2 level f (rows
+// first, homogeneous ghosts; K3's arithmetic)
+template <typename T>
+__device__ void cb_prolong(const T* c, T* f, int s, const CBArgs<T>& a) {
+  const int m1 = s / 2;
+  for (int k = threadIdx.x; k < s * s; k += CB_THREADS) {
+    const int gi = k / s, gj = k - gi * s;
+    const int ci = gi >> 1, cj = gj >> 1;
+    const int cin = (gi & 1) ? ci + 1 : ci - 1;
+    auto rowstep = [&](int cc) -> T {
+      const T base = c[ci * m1 + cc];
+      T nb;
+      if (gi == 0)
+        nb = a.sgn[0] * base;
+      else if (gi == s - 1)
+        nb = a.sgn[1] * base;
+      else
+        nb = c[cin * m1 + cc];
+      return T(0.75) * base + T(0.25) * nb;
+    };
+    const T p = rowstep(cj);
+    const int cjn = (gj & 1) ? cj + 1 : cj - 1;
+    T q;
+    if (a.per_y)
+      q = rowstep((cjn + m1) % m1);
+    else if (gj == 0)
+      q = a.sgn[2] * p;
+    else if (gj == s - 1)
+      q = a.sgn[3] * p;
+    else
+      q = rowstep(cjn);
+    f[k] = T(0.75) * p + T(0.25) * q;
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void coarse_block_kernel(CBArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int n = a.n;
+  // the residual pyramid n^2 .. min_n^2, then the two du buffers
+  T* rs[CB_LEVELS];
+  int sizes[CB_LEVELS];
+  int nl = 0;
+  T* p = sm;
+  for (int s = n; s >= a.min_n; s >>= 1, ++nl) {
+    rs[nl] = p;
+    sizes[nl] = s;
+    p += s * s;
+  }
+  T* dbuf[2] = {p, p + n * n};
+  for (int k = threadIdx.x; k < n * n; k += CB_THREADS) rs[0][k] = a.r[k];
+  __syncthreads();
+  for (int l = 1; l < nl; ++l) cb_restrict(rs[l - 1], rs[l], sizes[l]);
+  // the coarsest level from du = 0
+  T* d = dbuf[(nl - 1) & 1];
+  const int sc = sizes[nl - 1];
+  for (int k = threadIdx.x; k < sc * sc; k += CB_THREADS) d[k] = T(0);
+  __syncthreads();
+  cb_sweeps(d, rs[nl - 1], sc, a.coarsest, a);
+  for (int l = nl - 2; l >= 0; --l) {
+    T* f = dbuf[l & 1];
+    cb_prolong(d, f, sizes[l], a);
+    cb_sweeps(f, rs[l], sizes[l], a.nsweeps, a);
+    d = f;
+  }
+  for (int k = threadIdx.x; k < n * n; k += CB_THREADS) a.du[k] = d[k];
+}
+
 bool batch_ok(int batch) { return batch >= 1 && batch <= MAX_BATCH; }
 
 template <typename T>
@@ -424,13 +766,100 @@ int launch_prolong_relax(int batch, const void* const* coarse,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_residual(const void* u, const void* rhs, void* r, int n0, int n1,
+                    double dia, double h2, const double* sgn,
+                    const double* off, int per_x, int per_y, void* stream) {
+  ResArgs<T> a = {};
+  a.u = (const T*)u;
+  a.rhs = (const T*)rhs;
+  a.r = (T*)r;
+  a.dia = T(dia);
+  a.h2 = T(h2);
+  for (int k = 0; k < 4; ++k) {
+    a.sgn[k] = T(sgn[k]);
+    a.off[k] = T(off[k]);
+  }
+  a.n0 = n0;
+  a.n1 = n1;
+  a.per_x = per_x;
+  a.per_y = per_y;
+  dim3 block(32, 8);
+  dim3 grid((n1 + 31) / 32, (n0 + 7) / 8);
+  residual_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rbgs_relax(const void* u, const void* rhs, void* out, int n0,
+                      int n1, int tile, int halo, int nsweeps, double dia,
+                      double h2, double omega, const double* sgn, int per_x,
+                      int per_y, void* stream) {
+  RXArgs<T> a = {};
+  a.u = (const T*)u;
+  a.rhs = (const T*)rhs;
+  a.out = (T*)out;
+  a.n0 = n0;
+  a.n1 = n1;
+  a.tile = tile;
+  a.halo = halo;
+  a.nsweeps = nsweeps;
+  a.h2 = T(h2);
+  a.inv_denom = T(1.0 / (4.0 + dia * h2));
+  a.omega = T(omega);
+  a.one_m_omega = T(1.0 - omega);
+  a.use_omega = omega != 1.0;
+  for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
+  a.per_x = per_x;
+  a.per_y = per_y;
+  const int B = tile + 2 * halo + 2;
+  const size_t smem = 2 * (size_t)B * B * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(
+      rbgs_relax_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 block(PR_THREADS_X, PR_THREADS_Y);
+  dim3 grid(n1 / tile, n0 / tile);
+  rbgs_relax_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_coarse_block(const void* r, void* du, int n, int min_n,
+                        int nsweeps, int coarsest, double dia, double h2,
+                        const double* sgn, int per_y, void* stream) {
+  if (n > CB_TOP || min_n < 2 || min_n > n) return (int)cudaErrorInvalidValue;
+  CBArgs<T> a = {};
+  a.r = (const T*)r;
+  a.du = (T*)du;
+  a.n = n;
+  a.min_n = min_n;
+  a.nsweeps = nsweeps;
+  a.coarsest = coarsest;
+  a.dia = dia;
+  a.h2 = h2;
+  for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
+  a.per_y = per_y;
+  size_t cells = 0;
+  for (int s = n; s >= min_n; s >>= 1) cells += (size_t)s * s;
+  cells += (size_t)n * n + (size_t)(n / 2) * (n / 2);
+  const size_t smem = cells * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(
+      coarse_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  coarse_block_kernel<T><<<1, CB_THREADS, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The C interface: the device pointers of a launch are one host table of
-// `batch` entries per argument, in the order listed (residual_restrict: u,
-// rhs, sub, r0, r1, r2; restrict2: r, out; prolong_relax: coarse, rhs, u,
-// out), so that a launch builds one array; dia is a host array of `batch`
-// entries, the ghost offsets of 4 * batch.
+// The C interface.  For the batched kernels the device pointers of a
+// launch are one host table of `batch` entries per argument, in the order
+// listed (residual_restrict: u, rhs, sub, r0, r1, r2; restrict2: r, out;
+// prolong_relax: coarse, rhs, u, out), so that a launch builds one array;
+// dia is a host array of `batch` entries, the ghost offsets of 4 * batch.
+// residual, rbgs_relax and coarse_block take one system's pointers.
 #define GTT_EXPORT(SUFFIX, T)                                                 \
   extern "C" int gtt_residual_restrict_##SUFFIX(                              \
       int batch, void* const* ptr, const double* dia, const double* off,      \
@@ -451,6 +880,26 @@ int launch_prolong_relax(int batch, const void* const* coarse,
     return launch_prolong_relax<T>(batch, ptr, ptr + batch, ptr + 2 * batch,  \
                                    ptr + 3 * batch, dia, n0, n1, tile, halo,  \
                                    nsweeps, h2, omega, sgn, per_y, stream);   \
+  }                                                                           \
+  extern "C" int gtt_residual_##SUFFIX(                                       \
+      const void* u, const void* rhs, void* r, int n0, int n1, double dia,    \
+      double h2, const double* sgn, const double* off, int per_x, int per_y, \
+      void* stream) {                                                         \
+    return launch_residual<T>(u, rhs, r, n0, n1, dia, h2, sgn, off, per_x,   \
+                              per_y, stream);                                 \
+  }                                                                           \
+  extern "C" int gtt_rbgs_relax_##SUFFIX(                                     \
+      const void* u, const void* rhs, void* out, int n0, int n1, int tile,    \
+      int halo, int nsweeps, double dia, double h2, double omega,             \
+      const double* sgn, int per_x, int per_y, void* stream) {                \
+    return launch_rbgs_relax<T>(u, rhs, out, n0, n1, tile, halo, nsweeps,     \
+                                dia, h2, omega, sgn, per_x, per_y, stream);   \
+  }                                                                           \
+  extern "C" int gtt_coarse_block_##SUFFIX(                                   \
+      const void* r, void* du, int n, int min_n, int nsweeps, int coarsest,   \
+      double dia, double h2, const double* sgn, int per_y, void* stream) {    \
+    return launch_coarse_block<T>(r, du, n, min_n, nsweeps, coarsest, dia,    \
+                                  h2, sgn, per_y, stream);                    \
   }
 
 GTT_EXPORT(f32, float)

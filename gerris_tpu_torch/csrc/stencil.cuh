@@ -55,6 +55,16 @@ __device__ __forceinline__ T at(const T* __restrict__ u, int i, int j,
   return v;
 }
 
+// The residual of one cell, r = rhs - (L - dia) u = rhs - (nb - 4 c) / h2
+// + dia c, from the sum of its four neighbours nb = up + dn + lf + rt
+// (that order).  K1 (residual_restrict, with rhs - sub) and K11
+// (residual) both compute a cell through this one expression, so K1's r0
+// with sub = 0 is K11's bit for bit.
+template <typename T>
+__device__ __forceinline__ T residual_value(T rhs, T nb, T c, T h2, T dia) {
+  return rhs - (nb - T(4) * c) / h2 + dia * c;
+}
+
 // Sum of one value per thread over the block, by a shared-memory tree over
 // the flattened thread index (a fixed order, so a launch is reproducible
 // bit for bit).  The block's thread count must be a power of two; ``red``

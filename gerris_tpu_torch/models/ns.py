@@ -12,9 +12,12 @@ One step (reference: src/simulation.c:432-557):
      then the U+V Helmholtz pair through K8a-c (``diffuse_pair``);
   4. approximate projection at dt on P, with the gc gradient re-add
      folded into K9 ``interp_faces`` and the centred correction into K5.
-Every projection solve goes through poisson.solve -> fused_cycle -> the
-CUDA kernels K1-K3; the kernels run on CUDA tensors, their plain versions
-on the CPU.
+Every projection solve goes through poisson.solve: the fixed schedule's
+fused cycle (K1-K3), or by default the reference's adaptive tolerance
+loop (K11 per cycle, K12 and K3 in each correction).  With an adaptive
+diffusion schedule (the default) the step takes the per-component route:
+K14 with its rhs fold, then one adaptive solve per component.  The
+kernels run on CUDA tensors, their plain versions on the CPU.
 Tracers, VOF, variable density, tension, body forces, solids and metrics
 are later slices.
 """
@@ -36,18 +39,22 @@ from ..solvers import projection as proj
 @dataclasses.dataclass(frozen=True)
 class NSConfig:
     """Static configuration of the step (the slice's fields of the
-    reference NSConfig).  The solver schedules are the port's fixed-cycle
-    MultilevelParams; utils/convert.config_from_jax builds one from a JAX
-    NSConfig and refuses fields outside this slice."""
+    reference NSConfig, with its defaults: both projections adaptive to
+    tolerance 1e-3 in at most 100 cycles, and diffusion_params None for
+    diffuse's default).  utils/convert.config_from_jax builds one from a
+    JAX NSConfig and refuses fields outside this slice."""
     grid: Grid
     u_bcs: tuple                      # FieldBC per velocity component
     p_bc: bcs.FieldBC = None          # default: bcs.grad_bc(u_bcs[0])
     advection: adv.AdvectionParams = adv.AdvectionParams()
-    projection: poisson.MultilevelParams = poisson.MultilevelParams()
-    approx_projection: poisson.MultilevelParams = poisson.MultilevelParams()
+    projection: poisson.MultilevelParams = poisson.MultilevelParams(
+        tolerance=1e-3, nitermax=100)
+    approx_projection: poisson.MultilevelParams = poisson.MultilevelParams(
+        tolerance=1e-3, nitermax=100)
     nu: float = 0.0                   # kinematic viscosity
     beta: float = 1.0                 # diffusion implicitness
-    diffusion_params: poisson.MultilevelParams = poisson.MultilevelParams()
+    # None: diffusion.DEFAULT_PARAMS (adaptive, at most 10 cycles)
+    diffusion_params: poisson.MultilevelParams = None
     # fold each projection's divergence into the launch that builds its
     # faces (K6 / K9 with div_scale; gerris_tpu/models/ns.py:909-986)
     div_in_src: bool = False
@@ -97,6 +104,7 @@ def _pair_route(grid: Grid, cfg: NSConfig) -> bool:
     2D, fully implicit diffusion on a fixed schedule, the kernel route,
     and K14's BCs (periodic y refused) for both components."""
     return (cfg.nu > 0.0 and cfg.beta == 1.0
+            and cfg.diffusion_params is not None
             and cfg.diffusion_params.ncycles > 0
             and bcg.applicable(grid, cfg.advection)
             and all(bcg.advect_spec(f) is not None for f in cfg.u_bcs))
@@ -115,8 +123,10 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     ``advect2d_pair`` (``pair_advect``) or one K14 ``advect2d`` each,
     and the two diffusion systems through diffuse_pair (K8a-c); with
     ``rr_in_advect`` K7 also gives the pair's first residual pyramid.
-    Otherwise each component takes K14 where its BCs allow it, else its
-    plain version, and its own solve."""
+    Otherwise (an adaptive diffusion schedule among them, as in the
+    reference, gerris_tpu/models/ns.py:257-262, 347-372) each component
+    takes K14 where its BCs allow it, else its plain version, and its own
+    solve."""
     fold = cfg.nu > 0.0 and cfg.beta == 1.0
     dia = 1.0 / (dt * cfg.nu) if fold else None
     gp = None if g_prev is None else list(g_prev)
@@ -151,8 +161,9 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
                     gp=None if gp is None else gp[c],
                     oscale=None if dia is None else -dia)
         if fold:
-            v_new, _ = poisson.solve(U[c], fv, grid, fbc,
-                                     cfg.diffusion_params, dia=dia)
+            v_new, _ = poisson.solve(
+                U[c], fv, grid, fbc,
+                diff.params_or_default(cfg.diffusion_params), dia=dia)
         elif cfg.nu > 0.0:
             v_new, _ = diff.diffuse(U[c], grid, fbc, dt, cfg.nu, rho=1.0,
                                     beta=cfg.beta,

@@ -44,8 +44,10 @@ def kernel_spec(fbc: bcs.FieldBC, with_face_bc: bool = False):
     """dict(sgn, off, per_y, fb_x, fb_y) for ``fbc``, or None when the BCs
     are outside the kernels' scope.  ``with_face_bc``: also give the
     Dirichlet value forced on each axis' domain-boundary faces (None for
-    a non-Dirichlet side).  The port's BCs hold constant values only, so
-    the reference's callable-value refusal is the BC's own (core/bc.py)."""
+    a non-Dirichlet side).  Callable values are refused, as the
+    reference refuses them."""
+    if not bcs.static_values(fbc):
+        return None
     sgn = [1.0] * 4
     off = [0.0] * 4
     fb = [[None, None], [None, None]]

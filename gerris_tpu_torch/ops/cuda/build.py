@@ -90,6 +90,10 @@ _SIGNATURES = {
     "gtt_restrict2": [_I, _PP, _I, _I, _P],
     "gtt_prolong_relax": [_I, _PP, _DP, _I, _I, _I, _I, _I, _D, _D, _DP, _I,
                           _P],
+    "gtt_residual": [_P, _P, _P, _I, _I, _D, _D, _DP, _DP, _I, _I, _P],
+    "gtt_rbgs_relax": [_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _DP, _I,
+                       _I, _P],
+    "gtt_coarse_block": [_P, _P, _I, _I, _I, _I, _D, _D, _DP, _I, _P],
     "gtt_divergence_mac": [_P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P],
     "gtt_correct_project": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP,
                             _I, _P, _P, _P, _P, _P, _P, _P],

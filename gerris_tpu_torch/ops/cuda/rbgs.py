@@ -1,10 +1,11 @@
-"""The multigrid cycle's kernels: CUDA wrappers and their plain versions.
+"""The multigrid kernels: CUDA wrappers and their plain versions.
 
-Port of the TPU kernels of the fixed sawtooth cycle in
-gerris_tpu/ops/pallas/rbgs.py: K1 ``residual_restrict``, K2
-``cascade_prolong_relax``, K3 ``prolong_relax``, and their U+V pairs K8a
-``residual_restrict_pair``, K8b ``cascade_prolong_relax_pair`` and K8c
-``prolong_relax_pair``.  The kernels are in
+Port of the TPU kernels of gerris_tpu/ops/pallas/rbgs.py: the fixed
+sawtooth cycle's K1 ``residual_restrict``, K2 ``cascade_prolong_relax``,
+K3 ``prolong_relax``, their U+V pairs K8a ``residual_restrict_pair``, K8b
+``cascade_prolong_relax_pair`` and K8c ``prolong_relax_pair``, and the
+adaptive solve's K10 ``rbgs_relax``, K11 ``residual`` (the TPU's
+``residual_pallas``) and K12 ``coarse_vcycle``.  The kernels are in
 ``gerris_tpu_torch/csrc/rbgs.cu``; each one's source note says what it
 replaces, what bounds it on the H100 and what its design does about it.
 A pair launches the single kernel with a batch of two systems, which
@@ -13,7 +14,7 @@ and ghost offsets; its plain version is the single plain version per
 system.
 
 Each wrapper checks its inputs (dtype float32/float64, contiguous, square
-power-of-two levels >= 16) and then:
+power-of-two levels) and then:
 * for tensors on the CPU, returns the plain PyTorch version below (the
   CPU tests and the card-side reference in chip_smoke.py use these);
 * for CUDA tensors, launches the kernel on the current stream and adds
@@ -21,8 +22,8 @@ power-of-two levels >= 16) and then:
 
 Ghosts are encoded per side as ghost = sgn * mirror + off, sides ordered
 (x lo, x hi, y lo, y hi) (poisson._signs_offs); the correction-phase
-kernels use off = 0 (homogeneous).  Periodic rows are not supported;
-periodic columns are (``per_y``).
+kernels use off = 0 (homogeneous).  K10 and K11 take periodic rows and
+columns; the others periodic columns only (``per_y``).
 """
 from __future__ import annotations
 
@@ -32,18 +33,25 @@ import functools
 import torch
 
 # kernel launches by wrapper name, counted only where a kernel launches.
-# A cascade counts calls of its host-side sequence; the restrict2 and
-# prolong_relax launches it makes are counted apart from the wrappers'
-# own: "restrict2" and "cascade.prolong_relax" for K2, "restrict2_pair"
-# and "cascade_pair.prolong_relax" for K8b.
+# A cascade counts calls of its host-side sequence; the restrict2,
+# prolong_relax and coarse_block launches it makes are counted apart from
+# the wrappers' own: "restrict2" and "cascade.prolong_relax" for K2,
+# "restrict2_pair" and "cascade_pair.prolong_relax" for K8b,
+# "coarse_vcycle.restrict2", "coarse_block" and
+# "coarse_vcycle.prolong_relax" for K12.
 LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "prolong_relax": 0,
             "cascade_prolong_relax": 0, "cascade.prolong_relax": 0,
             "residual_restrict_pair": 0, "prolong_relax_pair": 0,
             "cascade_prolong_relax_pair": 0, "restrict2_pair": 0,
-            "cascade_pair.prolong_relax": 0}
+            "cascade_pair.prolong_relax": 0, "residual": 0,
+            "rbgs_relax": 0, "coarse_vcycle": 0,
+            "coarse_vcycle.restrict2": 0, "coarse_block": 0,
+            "coarse_vcycle.prolong_relax": 0}
 
 _SMEM_MAX = 232448        # dynamic shared memory a block may use on sm_90
 _HOMOGENEOUS = (0.0, 0.0, 0.0, 0.0)
+# K12's block kernel holds levels of at most this many cells per side
+COARSE_BLOCK_MAX = 64
 
 
 def reset_launch_counts():
@@ -106,6 +114,35 @@ def rbgs_plain(u, rhs, nsweeps, h2, inv_denom, signs, periodic, omega=1.0,
                 new = (1.0 - omega) * u + omega * new
             u = torch.where(color, new, u)
     return u
+
+
+def residual_plain(u, rhs, dia=0.0, *, h2, signs, offs=_HOMOGENEOUS,
+                   periodic=(False, False)):
+    up, dn, lf, rt = _neighbours(u, signs, offs, periodic)
+    return rhs - (up + dn + lf + rt - 4.0 * u) / h2 + dia * u
+
+
+def rbgs_relax_plain(u, rhs, dia=0.0, *, nsweeps, h2, signs,
+                     periodic=(False, False), omega=1.0):
+    return rbgs_plain(u, rhs, nsweeps, h2, 1.0 / (4.0 + dia * h2), signs,
+                      periodic, omega)
+
+
+def coarse_vcycle_plain(r, dia=0.0, *, nsweeps, coarsest, h2, signs,
+                        per_y=False, min_n=16):
+    """The ladder of tests/test_mgfuse.py: restrict r down to min(min_n,
+    n), ``coarsest`` sweeps from zero there, then prolong + ``nsweeps``
+    sweeps (omega 1) at each level up to r's; h2 is r's level's."""
+    n = r.shape[0]
+    rs = [r]
+    while rs[-1].shape[0] > min(min_n, n):
+        rs.append(pool_plain(rs[-1]))
+    du = None
+    for rk in reversed(rs):
+        du = prolong_relax_plain(
+            du, rk, dia, nsweeps=coarsest if du is None else nsweeps,
+            h2=h2 * (n // rk.shape[0]) ** 2, signs=signs, per_y=per_y)
+    return du
 
 
 def residual_restrict_plain(u, rhs, dia=0.0, sub=0.0, *, h2, signs,
@@ -335,8 +372,9 @@ def _restrict2_cuda(rs, counter):
 
 
 def restrict2(r):
-    """One 2x2 mean pool (the cascade's restriction)."""
-    _check_level(r, "r", min_n=32)
+    """One 2x2 mean pool (the cascades' and the correction's
+    restriction)."""
+    _check_level(r, "r", min_n=2)
     if _on_cpu(r):
         return pool_plain(r)
     return _restrict2_cuda([r], "restrict2")[0]
@@ -374,12 +412,12 @@ def _prolong_relax_cuda(coarses, rhss, dias, us, nsweeps, h2, signs, per_y,
 
 
 def _check_prolong(coarse, rhs, u, n=None, tag=""):
-    _check_level(rhs, "rhs" + tag, n)
+    _check_level(rhs, "rhs" + tag, n, min_n=2)
     n = rhs.shape[0]
     if coarse is not None:
-        _check_level(coarse, "coarse" + tag, n // 2, min_n=8)
+        _check_level(coarse, "coarse" + tag, n // 2, min_n=1)
     if u is not None:
-        _check_level(u, "u" + tag, n)
+        _check_level(u, "u" + tag, n, min_n=2)
 
 
 def prolong_relax(coarse, rhs, dia=0.0, u=None, *, nsweeps, h2, signs,
@@ -472,3 +510,135 @@ def cascade_prolong_relax_pair(r1s, r2s, dias, *, nsweeps, coarsest,
     return _cascade_cuda(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs,
                          per_y, omega, min_n, "restrict2_pair",
                          "cascade_pair.prolong_relax")
+
+
+# -----------------------------------------------------------------------------
+# The adaptive solve's kernels: K11 residual, K10 rbgs_relax, K12
+# coarse_vcycle
+# -----------------------------------------------------------------------------
+
+def residual(u, rhs, dia=0.0, *, h2, signs, offs=_HOMOGENEOUS,
+             periodic=(False, False)):
+    """K11: r = rhs - (L - dia) u with static ghosts (sgn, off), periodic
+    on either axis (``periodic`` per axis overrides the signs)."""
+    _check_level(u, "u", min_n=2)
+    _check_level(rhs, "rhs", u.shape[0], min_n=2)
+    if _on_cpu(u, rhs):
+        return residual_plain(u, rhs, dia, h2=h2, signs=signs, offs=offs,
+                              periodic=periodic)
+    n = u.shape[0]
+    r = torch.empty_like(u)
+    _call("residual", u.dtype, u.device, u.data_ptr(), rhs.data_ptr(),
+          r.data_ptr(), n, n, float(dia), float(h2), doubles(*signs),
+          doubles(*offs), int(periodic[0]), int(periodic[1]))
+    LAUNCHES["residual"] += 1
+    return r
+
+
+def _relax_plan(n, nsweeps, tile, whole_max, itemsize):
+    """(tile, sweeps per launch) of K10: a level of at most ``whole_max``
+    cells per side is one block with no halo and takes every sweep in one
+    launch; a larger level uses tile x tile tiles with a halo of 2 sweeps
+    per launch, as many sweeps per launch as the halo lets fit in shared
+    memory (the sweeps of consecutive launches compose exactly)."""
+    if n <= whole_max:
+        if 2 * (n + 2) ** 2 * itemsize > _SMEM_MAX:
+            raise ValueError(f"rbgs_relax: a whole {n}^2 level does not fit "
+                             "in shared memory (a smaller whole_max)")
+        return n, nsweeps
+    if n % tile:
+        raise ValueError(f"tile {tile} does not divide {n}")
+    side_max = int((_SMEM_MAX / (2 * itemsize)) ** 0.5)
+    per = (side_max - tile - 2) // 4
+    if per < 1:
+        raise ValueError(f"rbgs_relax: tile {tile} does not fit in shared "
+                         "memory")
+    return tile, min(per, nsweeps)
+
+
+def rbgs_relax(u, rhs, dia=0.0, *, nsweeps, h2, signs,
+               periodic=(False, False), omega=1.0, tile=32, whole_max=64):
+    """K10: ``nsweeps`` red-black Gauss-Seidel sweeps from ``u`` on
+    (L - dia) u = rhs with homogeneous ghosts, periodic on either axis.
+    One launch, unless the sweeps' halo outgrows shared memory (then
+    consecutive launches of fewer sweeps each)."""
+    _check_level(u, "u", min_n=2)
+    _check_level(rhs, "rhs", u.shape[0], min_n=2)
+    if _on_cpu(u, rhs):
+        return rbgs_relax_plain(u, rhs, dia, nsweeps=nsweeps, h2=h2,
+                                signs=signs, periodic=periodic, omega=omega)
+    n = u.shape[0]
+    tile, per = _relax_plan(n, nsweeps, tile, whole_max, u.element_size())
+    left = nsweeps
+    while left > 0:
+        k = min(left, per)
+        out = torch.empty_like(u)
+        _call("rbgs_relax", u.dtype, u.device, u.data_ptr(), rhs.data_ptr(),
+              out.data_ptr(), n, n, tile, 0 if tile == n else 2 * k, k,
+              float(dia), float(h2), float(omega), doubles(*signs),
+              int(periodic[0]), int(periodic[1]))
+        LAUNCHES["rbgs_relax"] += 1
+        u, left = out, left - k
+    return u
+
+
+def _check_coarse(r, min_n):
+    _check_level(r, "r", min_n=2)
+    if min(min_n, r.shape[0]) > COARSE_BLOCK_MAX:
+        raise ValueError(f"coarse_vcycle: min_n {min_n} above the block "
+                         f"kernel's {COARSE_BLOCK_MAX}")
+
+
+def _coarse_block_cuda(r, dia, nsweeps, coarsest, h2, signs, per_y, min_n):
+    n = r.shape[0]
+    du = torch.empty_like(r)
+    _call("coarse_block", r.dtype, r.device, r.data_ptr(), du.data_ptr(), n,
+          min(min_n, n), int(nsweeps), int(coarsest), float(dia), float(h2),
+          doubles(*signs), int(per_y))
+    LAUNCHES["coarse_block"] += 1
+    return du
+
+
+def coarse_block(r, dia=0.0, *, nsweeps, coarsest, h2, signs, per_y=False,
+                 min_n=16):
+    """K12's block kernel alone: coarse_vcycle of a level of at most
+    COARSE_BLOCK_MAX cells per side, in one launch of one block."""
+    _check_coarse(r, min_n)
+    if r.shape[0] > COARSE_BLOCK_MAX:
+        raise ValueError(f"coarse_block: {r.shape[0]}^2 above "
+                         f"{COARSE_BLOCK_MAX}^2")
+    if _on_cpu(r):
+        return coarse_vcycle_plain(r, dia, nsweeps=nsweeps, coarsest=coarsest,
+                                   h2=h2, signs=signs, per_y=per_y,
+                                   min_n=min_n)
+    return _coarse_block_cuda(r, dia, nsweeps, coarsest, h2, signs, per_y,
+                              min_n)
+
+
+def coarse_vcycle(r, dia=0.0, *, nsweeps, coarsest, h2, signs, per_y=False,
+                  min_n=16):
+    """K12: du for the sub-hierarchy at and below r's level (homogeneous
+    ghosts, non-periodic rows, omega 1; ``h2`` is r's level's).  On the
+    card the levels above COARSE_BLOCK_MAX are restrict2 launches down and
+    K3 launches up around one coarse_block launch (3 + 1 + 3 launches at
+    512^2): a TPU kernel held the whole cascade in one launch, and a
+    512^2 level does not fit one block's shared memory."""
+    _check_coarse(r, min_n)
+    if _on_cpu(r):
+        return coarse_vcycle_plain(r, dia, nsweeps=nsweeps, coarsest=coarsest,
+                                   h2=h2, signs=signs, per_y=per_y,
+                                   min_n=min_n)
+    LAUNCHES["coarse_vcycle"] += 1
+    n = r.shape[0]
+    rs = [r]
+    while rs[-1].shape[0] > COARSE_BLOCK_MAX:
+        rs.append(_restrict2_cuda(rs[-1:], "coarse_vcycle.restrict2")[0])
+    du = _coarse_block_cuda(rs[-1], dia, nsweeps, coarsest,
+                            h2 * (n // rs[-1].shape[0]) ** 2, signs, per_y,
+                            min_n)
+    for rk in reversed(rs[:-1]):
+        du = _prolong_relax_cuda([du], [rk], [dia], [None], nsweeps,
+                                 h2 * (n // rk.shape[0]) ** 2, signs, per_y,
+                                 1.0, 32, 64,
+                                 "coarse_vcycle.prolong_relax")[0]
+    return du

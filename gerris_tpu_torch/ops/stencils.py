@@ -60,3 +60,11 @@ def norms(e: torch.Tensor, w: torch.Tensor = None) -> dict:
             "infty": e.abs().max(),
             "bias": (e * w).sum() / tw,
             "w": tw}
+
+
+def unbiased_error(e: torch.Tensor, w: torch.Tensor = None) -> torch.Tensor:
+    """Subtract the volume-weighted mean before taking norms
+    (reference: src/output.c OutputErrorNorm ``unbiased = 1``)."""
+    if w is None:
+        w = torch.ones_like(e)
+    return e - (e * w).sum() / w.sum()

@@ -13,18 +13,26 @@ from ..core import bc as bcs
 from ..ops.stencils import laplacian
 from . import poisson
 
+# the reference's default schedule of a diffusion solve
+# (gerris_tpu/solvers/diffusion.py:40-44: GfsMultilevelParams' tolerance,
+# 10 cycles at most; the system is identity-dominated)
+DEFAULT_PARAMS = poisson.MultilevelParams(tolerance=1e-3, nitermax=10)
+
+
+def params_or_default(params):
+    return DEFAULT_PARAMS if params is None else params
+
 
 def diffuse(v, grid: Grid, fbc: bcs.FieldBC, dt: float, D: float,
             rho: float = 1.0, beta: float = 0.5,
-            params: poisson.MultilevelParams = None, extra_rhs=None):
+            params: poisson.MultilevelParams = None, extra_rhs=None,
+            t: float = 0.0):
     """One implicit diffusion solve for ``v``; returns (v_new, stats).
-    ``params=None`` is the reference's adaptive default, which is not
-    ported (poisson.solve raises)."""
+    ``params=None`` is the reference's adaptive default, DEFAULT_PARAMS."""
     if not isinstance(D, (int, float)) or not isinstance(rho, (int, float)):
         raise NotImplementedError("face-valued D or cell-valued rho "
                                   "(ROADMAP Queue 1, slice 3)")
-    if params is None:
-        params = poisson.MultilevelParams(ncycles=0)
+    params = params_or_default(params)
     rhs = rho * v
     if beta < 1.0:
         v_pad = bcs.apply_bc(v, grid, fbc, 1, corners=False)
@@ -33,7 +41,7 @@ def diffuse(v, grid: Grid, fbc: bcs.FieldBC, dt: float, D: float,
         rhs = rhs + extra_rhs
     scale = beta * dt * D
     return poisson.solve(v, -rhs / scale, grid, fbc, params,
-                         dia=rho / scale)
+                         dia=rho / scale, t=t)
 
 
 def diffuse_pair(vs, grid: Grid, fbcs, dt: float, D: float, beta: float,
@@ -47,11 +55,13 @@ def diffuse_pair(vs, grid: Grid, fbcs, dt: float, D: float, beta: float,
     Give ``extra_rhss`` (momentum increments; the rhs is built here),
     ``rhss`` (the system rhs -dia (v + extra), e.g. from the advection
     kernels' oscale fold) or ``rr_pre`` (the first cycle's residual
-    pyramid from K7's rr_dia mode; one multigrid cycle only).  Returns
-    ([v_new...], stats)."""
+    pyramid from K7's rr_dia mode; one multigrid cycle only).
+    ``params=None`` is diffuse's default (adaptive, so one solve per
+    component).  Returns ([v_new...], stats)."""
     if not isinstance(D, (int, float)):
         raise NotImplementedError("face-valued D (ROADMAP Queue 1, "
                                   "slice 3)")
+    params = params_or_default(params)
     scale = beta * dt * D
     dia = 1.0 / scale
     n = len(vs)

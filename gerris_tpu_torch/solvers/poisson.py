@@ -1,30 +1,43 @@
 """Geometric multigrid for (L - dia) u = rhs on uniform 2D grids
-(port of gerris_tpu/solvers/poisson.py, the fixed-cycle half, with the
-batched U+V pair of the implicit diffusion).
+(port of gerris_tpu/solvers/poisson.py: unit coefficients and a scalar
+dia; per-face coefficients and cell-valued dia are slice 3).
 
-L is the unit-coefficient 5-point Laplacian and dia a scalar.  The solve
-runs ``ncycles`` fixed sawtooth cycles, each the three-step fused cycle
-of the TPU production path (``fused_cycle``), on every device alike:
-``nrelax`` sweeps with ``omega`` at every level, a restriction cascade
-down to min(16, n/4) and ``coarsest_relax`` sweeps from zero there.  The
-reference derives that schedule from the TPU backend and its
-``tpu_nrelax`` floors; the port takes it from the parameters only
-(utils/convert.params_from_jax applies the floors).
+L is the unit-coefficient 5-point Laplacian and dia a scalar.  ``solve``
+takes the reference's branches (poisson.py:1090-1162):
+* ``ncycles > 0``: that many fixed sawtooth cycles, each the three-step
+  fused cycle of the TPU production path (``fused_cycle``: K1 -> K2 ->
+  K3) where the BCs allow it (static values, non-periodic rows), else
+  residual + ``correction`` per cycle;
+* a registry solver (``solver != "multigrid"``, SOLVER_REGISTRY): the
+  fine-relax-only ``solve_relax`` (K11 -> K10 -> K11); cg and mgcg wait
+  for slice 3 and raise;
+* ``nitermin == nitermax``: that many cycles, looped from the host;
+* else the adaptive tolerance loop (``_solve_adaptive``): one residual
+  (K11) per cycle, cycles until max|r| <= tolerance * max|rhs| or
+  nitermax, at least nitermin, the condition read on the host once per
+  cycle.
+A cycle's ``correction`` restricts the residual (restrict2) and solves
+the coarsest level by one of three branches: K12 ``coarse_vcycle`` for a
+level above ``coarse_top`` with non-periodic rows, the dense
+eigendecomposed solve at or below ``dense_coarse_max`` unknowns, or
+relaxation from zero; then it prolongs and relaxes upward in K3 launches
+(u folded into the last), or by ``prolong`` + K10 on periodic rows.
+The schedule is what the parameters say on every device: the reference
+raises nrelax and coarsest_relax to its ``tpu_nrelax`` floors on the TPU
+and caps ``dense_coarse_max`` at 1024 elsewhere; the port takes neither
+from the device (utils/convert.params_from_jax applies the floors).
 
 The U+V implicit-diffusion pair solves both systems together, every
 launch of the cycle serving both (``solve_fixed_batched``, K8a-c;
 ``solve_relax_pair``, the "relax" solver's fine-relax-only correction,
 K8a + K8c).
-
-Not in this slice, and raising NotImplementedError: the adaptive
-tolerance loop (``ncycles == 0``), the cg/mgcg solvers and "relax"
-outside the pair, per-face coefficients, cell-valued dia and periodic
-rows.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from ..core.grid import Grid
@@ -32,35 +45,56 @@ from ..core import bc as bcs
 from ..ops.stencils import norms
 from ..ops.cuda import rbgs
 
-# the restriction cascade stops at min(MIN_N, n/4) cells per side
+# the fused cycle's cascade stops at min(MIN_N, n/4) cells per side, as
+# does K12's
 MIN_N = 16
+# the fused cycle's and K12's coarsest level always gets at least this
+# many sweeps (gerris_tpu poisson.py:568, :683)
+COARSEST_FLOOR = 40
 
 
 @dataclasses.dataclass(frozen=True)
 class MultilevelParams:
-    """The fixed-cycle schedule (reference: GfsMultilevelParams,
-    src/poisson.c:40-126, and gerris_tpu MultilevelParams).
+    """The solver's schedule (reference: GfsMultilevelParams,
+    src/poisson.c:40-126, and gerris_tpu MultilevelParams, whose fields
+    and defaults these are, without its TPU floor ``tpu_nrelax`` and its
+    unported K16/K17 folds).
 
-    nrelax: RBGS sweeps per level; omega: over-relaxation; coarsest_relax:
-    sweeps from zero at the coarsest level; ncycles: sawtooth cycles per
-    solve (0 = the adaptive loop, not ported); solver: "multigrid", or
-    "relax" for the diffusion pair (solve_relax_pair)."""
+    tolerance: the adaptive loop stops at max|r| <= tolerance * max|rhs|;
+    nrelax: RBGS sweeps per level (times erelax**k at k levels above the
+    fine one); minlevel: the coarsest level of the hierarchy; nitermax /
+    nitermin: the adaptive loop's cycle bounds; omega: over-relaxation;
+    coarsest_relax: extra sweeps from zero at the coarsest level; solver:
+    "multigrid" or a SOLVER_REGISTRY name; ncycles: > 0 runs that many
+    fixed cycles with no tolerance check, 0 the adaptive loop;
+    coarse_top: the level at and below which K12 runs the whole cascade;
+    dense_coarse_max: the most unknowns of a dense direct coarsest solve
+    (0 disables it)."""
 
+    tolerance: float = 1e-3
     nrelax: int = 4
+    erelax: int = 1
+    minlevel: int = 2
+    nitermax: int = 100
+    nitermin: int = 1
     omega: float = 1.0
-    coarsest_relax: int = 40
-    ncycles: int = 1
+    coarsest_relax: int = 8
     solver: str = "multigrid"
+    ncycles: int = 0
+    coarse_top: int = 512
+    dense_coarse_max: int = 4096
 
 
 @dataclasses.dataclass
 class SolveStats:
     """Reference: src/poisson.h output fields.  The residual tensors are
     kept and their norms computed on demand, so an unread statistic costs
-    no device work."""
+    no device work.  ``host_syncs``: the adaptive loop's reads of its
+    condition on the host."""
     niter: int
     r_before: torch.Tensor
     r_after: torch.Tensor
+    host_syncs: int = 0
 
     @property
     def residual_before(self) -> dict:
@@ -104,23 +138,46 @@ def _check_2d(grid: Grid):
         raise NotImplementedError("3D multigrid is slice 2 (ROADMAP Queue 1)")
 
 
+def _scalar_dia(dia) -> float:
+    if dia is None:
+        return 0.0
+    if isinstance(dia, (int, float)):
+        return float(dia)
+    raise NotImplementedError("dia must be a scalar; cell-valued dia is "
+                              "ROADMAP Queue 1, slice 3")
+
+
 def residual(u, rhs, grid: Grid, fbc: bcs.FieldBC, dia=None,
-             homogeneous: bool = False):
-    """r = rhs - (L - dia) u (reference: src/poisson.c:634-747)."""
+             homogeneous: bool = False, t: float = 0.0):
+    """r = rhs - (L - dia) u (reference: src/poisson.c:634-747,
+    gerris_tpu poisson.py:136-182): K11 where the ghosts are static
+    (homogeneous, or constant values), else the reference's padded route
+    (poisson.py:177-182), which evaluates callable values at time ``t``."""
     _check_2d(grid)
-    signs, offs = _signs_offs(grid, fbc, homogeneous)
-    up, dn, lf, rt = rbgs._neighbours(u, signs, offs, _periodic(fbc))
-    d = 0.0 if dia is None else dia
-    return rhs - (up + dn + lf + rt - 4.0 * u) / (grid.h * grid.h) + d * u
+    d = _scalar_dia(dia)
+    if homogeneous or bcs.static_values(fbc):
+        signs, offs = _signs_offs(grid, fbc, homogeneous)
+        return rbgs.residual(u, rhs, d, h2=grid.h * grid.h, signs=signs,
+                             offs=offs, periodic=_periodic(fbc))
+    p = bcs.apply_bc(u, grid, fbc, 1, t=t)
+    nb = p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
+    lap = (nb - 4.0 * u) / (grid.h * grid.h)
+    return rhs - (lap - d * u)
 
 
 def relax(u, rhs, grid: Grid, fbc: bcs.FieldBC, nsweeps: int, dia=None,
           homogeneous: bool = True, omega: float = 1.0):
-    """Red-black Gauss-Seidel sweeps (reference: src/poisson.c:507-586)."""
+    """Red-black Gauss-Seidel sweeps (reference: src/poisson.c:507-586):
+    K10 with homogeneous ghosts (the multigrid's sweeps), else the torch
+    route with the BCs' static offsets."""
     _check_2d(grid)
-    signs, offs = _signs_offs(grid, fbc, homogeneous)
+    d = _scalar_dia(dia)
     h2 = grid.h * grid.h
-    d = 0.0 if dia is None else dia
+    signs, offs = _signs_offs(grid, fbc, homogeneous)
+    if homogeneous:
+        return rbgs.rbgs_relax(u, rhs, d, nsweeps=nsweeps, h2=h2,
+                               signs=signs, periodic=_periodic(fbc),
+                               omega=omega)
     return rbgs.rbgs_plain(u, rhs, nsweeps, h2, 1.0 / (4.0 + d * h2), signs,
                            _periodic(fbc), omega, offs)
 
@@ -138,37 +195,158 @@ def prolong(c, fbc: bcs.FieldBC):
     return rbgs.prolong_plain(c, signs, _periodic(fbc))
 
 
-def _check_fused(u, grid: Grid, fbc: bcs.FieldBC):
-    """The levels and BCs the fused cycle's kernels take."""
+def _laplacian_matrix(shape, h: float, kinds) -> np.ndarray:
+    """The dense homogeneous-BC Laplacian of a level, row-major cells
+    (reference poisson.py:_coarse_eig)."""
+    n0, n1 = shape
+    A = np.zeros((n0 * n1, n0 * n1))
+    for i in range(n0):
+        for j in range(n1):
+            k = i * n1 + j
+            for axis, pos, n in ((0, i, n0), (1, j, n1)):
+                for side, step in ((0, -1), (1, 1)):
+                    q = pos + step
+                    if 0 <= q < n or kinds[axis][side] == bcs.PERIODIC:
+                        q %= n
+                        A[k, q * n1 + j if axis == 0 else i * n1 + q] += 1.0
+                        A[k, k] -= 1.0
+                    elif kinds[axis][side] == bcs.DIRICHLET:
+                        A[k, k] -= 2.0      # homogeneous ghost = -interior
+                    # homogeneous Neumann: ghost = interior, no net term
+    return A / (h * h)
+
+
+@functools.lru_cache(maxsize=8)
+def _coarse_eig(shape, h: float, kinds, device, dtype):
+    """(w, Q) of the dense coarse Laplacian, eigendecomposed once per
+    (level, BC kinds, device, dtype) by torch.linalg.eigh in float64 on
+    the solve's device, then cast to the solve's dtype (reference
+    poisson.py:459-499, which decomposes in numpy on the host)."""
+    A = torch.from_numpy(_laplacian_matrix(shape, h, kinds)).to(device)
+    w, Q = torch.linalg.eigh(A)
+    return w.to(dtype), Q.to(dtype)
+
+
+def _dense_solve(rc, grid_c: Grid, fbc: bcs.FieldBC, d: float):
+    """du = Q diag(1/(w - d)) Q^T r on the coarsest level: the exact
+    solve of (L - d) du = r for any scalar d, with the zero-eigenvalue
+    mode of a pure-Neumann or periodic level projected out (reference
+    poisson.py:571-583).  The products are torch.matmul, as the
+    reference leaves them to XLA outside any kernel."""
+    kinds = tuple(tuple(b.kind for b in ax) for ax in fbc.sides)
+    w, Q = _coarse_eig(tuple(rc.shape), grid_c.h, kinds, rc.device,
+                       rc.dtype)
+    denom = w - d
+    z = torch.matmul(Q.T, rc.reshape(-1))
+    keep = denom.abs() > 1e-12 / grid_c.h ** 2
+    z = torch.where(keep, z / torch.where(denom == 0, 1.0, denom), 0.0)
+    return torch.matmul(Q, z).reshape(rc.shape)
+
+
+def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
+               dia=None, u_fine=None):
+    """The correction phase of one sawtooth cycle (reference
+    poisson.py:520-617, src/poisson.c:1109-1166): restrict the residual
+    (restrict2) down the hierarchy, solve the coarsest level, then
+    prolong + relax upward with homogeneous BCs; with ``u_fine`` returns
+    u_fine + du, folded into the last K3 launch.  The coarsest level is
+    * K12 (``coarse_vcycle`` with max(coarsest_relax, 40) coarsest sweeps)
+      at ``coarse_top`` when the level is above it and the rows are not
+      periodic;
+    * else the dense solve at the finest level of at most
+      ``dense_coarse_max`` unknowns;
+    * else ``minlevel``, relaxed from zero with nrelax * erelax**(levels)
+      + coarsest_relax sweeps.
+    Upward, each level is one K3 launch, or ``prolong`` + K10 on periodic
+    rows (K3 takes periodic columns only)."""
     _check_2d(grid)
+    d = _scalar_dia(dia)
+    per_x = fbc.is_periodic(0)
+    minlevel = min(params.minlevel, grid.level)
+    fused_coarse = not per_x and grid.shape[0] > params.coarse_top
+    if fused_coarse:
+        minlevel = params.coarse_top.bit_length() - 1
+    else:
+        while (minlevel < grid.level and int(np.prod(dataclasses.replace(
+                grid, level=minlevel + 1).shape)) <= params.dense_coarse_max):
+            minlevel += 1
+    grids = [dataclasses.replace(grid, level=lv)
+             for lv in range(grid.level, minlevel - 1, -1)]
+    rs = [r]
+    for _ in grids[1:]:
+        rs.append(rbgs.restrict2(rs[-1]))
+    signs, _ = _signs_offs(grid, fbc, True)
+    per_y = fbc.is_periodic(1)
+    nl = len(grids)
+    gc = grids[-1]
+    if fused_coarse:
+        du = rbgs.coarse_vcycle(
+            rs[-1], d, nsweeps=params.nrelax,
+            coarsest=max(params.coarsest_relax, COARSEST_FLOOR),
+            h2=gc.h ** 2, signs=signs, per_y=per_y, min_n=MIN_N)
+    elif int(np.prod(gc.shape)) <= params.dense_coarse_max:
+        du = _dense_solve(rs[-1], gc, fbc, d)
+    else:
+        du = relax(torch.zeros_like(rs[-1]), rs[-1], gc, fbc,
+                   params.nrelax * params.erelax ** (nl - 1)
+                   + params.coarsest_relax, dia, omega=params.omega)
+    for k in range(nl - 2, -1, -1):
+        nswp = params.nrelax * params.erelax ** k
+        if not per_x:
+            add_u = k == 0 and u_fine is not None
+            du = rbgs.prolong_relax(du, rs[k], d, u_fine if add_u else None,
+                                    nsweeps=nswp, h2=grids[k].h ** 2,
+                                    signs=signs, per_y=per_y,
+                                    omega=params.omega)
+            if add_u:
+                return du
+            continue
+        du = relax(prolong(du, fbc), rs[k], grids[k], fbc, nswp, dia,
+                   omega=params.omega)
+    return du if u_fine is None else u_fine + du
+
+
+def cycle(u, rhs, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
+          dia=None, t: float = 0.0):
+    """One sawtooth cycle: residual + correction (reference
+    src/poisson.c:1109-1178 gfs_poisson_cycle)."""
+    r = residual(u, rhs, grid, fbc, dia, t=t)
+    return correction(r, grid, fbc, params, dia, u_fine=u)
+
+
+def _fused_eligible(u, grid: Grid, fbc: bcs.FieldBC, dia) -> bool:
+    """The levels and BCs the fused cycle's kernels take: 2D, a scalar
+    dia, static BC values, non-periodic rows, square power-of-two levels
+    of at least 4 * MIN_N (reference poisson.py:648-659, without its
+    device, dtype and size tests)."""
     n0, n1 = u.shape
-    if fbc.is_periodic(0):
-        raise NotImplementedError("periodic rows in the fused cycle "
-                                  "(ROADMAP Queue 1, item 1)")
-    if n0 != n1 or n0 < 4 * MIN_N or n0 & (n0 - 1):
-        raise NotImplementedError(f"fused cycle on a {n0}x{n1} level: want "
-                                  f"square powers of two >= {4 * MIN_N}")
+    return (grid.dim == 2 and (dia is None or isinstance(dia, (int, float)))
+            and bcs.static_values(fbc) and not fbc.is_periodic(0)
+            and n0 == n1 and n0 >= 4 * MIN_N and not n0 & (n0 - 1))
 
 
 def fused_cycle(u, rhs, grid: Grid, fbc: bcs.FieldBC,
                 params: MultilevelParams, dia=None, rhs_sub=0.0):
     """One sawtooth cycle as K1 -> K2 -> K3 (reference poisson.py:662-690):
       1. residual_restrict: r0 = (rhs - rhs_sub) - (L - dia) u, r1, r2;
-      2. cascade_prolong_relax: the whole correction at and below n/2;
+      2. cascade_prolong_relax: the whole correction at and below n/2,
+         with max(coarsest_relax, 40) sweeps at the coarsest level;
       3. prolong_relax: fine prolong + relax + u += du.
     Returns (u_new, r0)."""
-    _check_fused(u, grid, fbc)
-    if dia is not None and not isinstance(dia, (int, float)):
-        raise NotImplementedError("dia must be a scalar; cell-valued dia "
-                                  "is ROADMAP Queue 1, slice 3")
+    if not _fused_eligible(u, grid, fbc, dia):
+        raise NotImplementedError(
+            f"fused cycle on a {tuple(u.shape)} level with these BCs: want "
+            "2D, a scalar dia, static BC values, non-periodic rows and "
+            f"square powers of two >= {4 * MIN_N}")
     signs, offs = _signs_offs(grid, fbc, homogeneous=False)
     per_y = fbc.is_periodic(1)
-    d = 0.0 if dia is None else float(dia)
+    d = _scalar_dia(dia)
     h2 = grid.h * grid.h
     r0, r1, r2 = rbgs.residual_restrict(u, rhs, d, rhs_sub, h2=h2,
                                         signs=signs, offs=offs, per_y=per_y)
     du = rbgs.cascade_prolong_relax(
-        r1, r2, d, nsweeps=params.nrelax, coarsest=params.coarsest_relax,
+        r1, r2, d, nsweeps=params.nrelax,
+        coarsest=max(params.coarsest_relax, COARSEST_FLOOR),
         h2_half=4.0 * h2, signs=signs, per_y=per_y, omega=params.omega,
         min_n=MIN_N)
     u = rbgs.prolong_relax(du, r0, d, u, nsweeps=params.nrelax, h2=h2,
@@ -176,27 +354,104 @@ def fused_cycle(u, rhs, grid: Grid, fbc: bcs.FieldBC,
     return u, r0
 
 
+def _solve_adaptive(u, rhs, grid, fbc, params, dia, t, r, tol):
+    """The tolerance loop with one residual per cycle: the residual that
+    ends cycle i is the correction's input of cycle i + 1 (reference
+    poisson.py:914-932).  The condition i < nitermin or (i < nitermax and
+    max|r| > tol) is read on the host, one sync per check.  Returns (u,
+    niter, final residual, host syncs)."""
+    i = syncs = 0
+    while True:
+        if i >= params.nitermin:
+            if i >= params.nitermax:
+                break
+            syncs += 1
+            if not bool(r.abs().max() > tol):
+                break
+        u = correction(r, grid, fbc, params, dia, u_fine=u)
+        r = residual(u, rhs, grid, fbc, dia, t=t)
+        i += 1
+    return u, i, r, syncs
+
+
 def solve(u, rhs, grid: Grid, fbc: bcs.FieldBC,
           params: MultilevelParams = MultilevelParams(), dia=None,
-          rhs_sub=None):
-    """``params.ncycles`` fixed sawtooth cycles on (L - dia) u = rhs -
-    rhs_sub (reference poisson.py:1090-1127).  ``rhs_sub``: the
+          rhs_sub=None, t: float = 0.0):
+    """Solve (L - dia) u = rhs - rhs_sub (reference poisson.py:1090-1162;
+    the branches are listed in the module's docstring).  ``rhs_sub``: the
     pure-Neumann compatibility mean, a float or a one-element tensor,
-    folded into the first kernel.  Stats report the residual entering the
-    last cycle."""
+    folded into the fused cycle's first kernel.  ``t``: the time at
+    which callable BC values are evaluated.  Stats of a fused fixed
+    schedule report the residual entering the last cycle; the others
+    report the residuals before and after the solve."""
+    _check_2d(grid)
+    if params.ncycles > 0 and params.solver == "multigrid":
+        if _fused_eligible(u, grid, fbc, dia):
+            sub = 0.0 if rhs_sub is None else rhs_sub
+            r0 = None
+            for _ in range(params.ncycles):
+                u, r0 = fused_cycle(u, rhs, grid, fbc, params, dia, sub)
+            return u, SolveStats(niter=params.ncycles, r_before=r0,
+                                 r_after=r0)
+        if rhs_sub is not None:
+            rhs = rhs - rhs_sub
+        r0 = residual(u, rhs, grid, fbc, dia, t=t)
+        for _ in range(params.ncycles):
+            u = cycle(u, rhs, grid, fbc, params, dia, t)
+        return u, SolveStats(niter=params.ncycles, r_before=r0,
+                             r_after=residual(u, rhs, grid, fbc, dia, t=t))
+    if rhs_sub is not None:
+        rhs = rhs - rhs_sub
     if params.solver != "multigrid":
+        if params.solver not in SOLVER_REGISTRY:
+            raise ValueError(f"unknown solver {params.solver!r}")
+        return SOLVER_REGISTRY[params.solver](u, rhs, grid, fbc, params, dia,
+                                              t)
+    r0 = residual(u, rhs, grid, fbc, dia, t=t)
+    if params.nitermin == params.nitermax:
+        for _ in range(params.nitermax):
+            u = cycle(u, rhs, grid, fbc, params, dia, t)
+        return u, SolveStats(niter=params.nitermax, r_before=r0,
+                             r_after=residual(u, rhs, grid, fbc, dia, t=t))
+    # the reference guards with 1e-300, which is 0 in float32
+    scale = torch.clamp(rhs.abs().max(), min=torch.finfo(rhs.dtype).tiny)
+    u, niter, r1, syncs = _solve_adaptive(u, rhs, grid, fbc, params, dia, t,
+                                          r0, params.tolerance * scale)
+    return u, SolveStats(niter=niter, r_before=r0, r_after=r1,
+                         host_syncs=syncs)
+
+
+def solve_relax(u, rhs, grid: Grid, fbc: bcs.FieldBC,
+                params: MultilevelParams = None, dia=None, t: float = 0.0):
+    """The fine-level-relaxation-only solve (reference poisson.py:996-
+    1017): r0 (K11), max(nrelax, 4) homogeneous sweeps of the correction
+    from zero (K10), u + du, and the final residual (K11)."""
+    params = params or MultilevelParams()
+    r0 = residual(u, rhs, grid, fbc, dia, t=t)
+    du = relax(torch.zeros_like(u), r0, grid, fbc, max(params.nrelax, 4),
+               dia, omega=params.omega)
+    u = u + du
+    return u, SolveStats(niter=1, r_before=r0,
+                         r_after=residual(u, rhs, grid, fbc, dia, t=t))
+
+
+def _slice3(name):
+    def solver(*args, **kwargs):
         raise NotImplementedError(
-            f"solver {params.solver!r}: the cg/mgcg/relax registry is not "
-            "ported yet (ROADMAP Queue 1, slice 7)")
-    if params.ncycles <= 0:
-        raise NotImplementedError(
-            "the adaptive tolerance loop (ncycles == 0) is not ported yet "
-            "(ROADMAP Queue 1, item 1); give a fixed ncycles > 0")
-    sub = 0.0 if rhs_sub is None else rhs_sub
-    r0 = None
-    for _ in range(params.ncycles):
-        u, r0 = fused_cycle(u, rhs, grid, fbc, params, dia, sub)
-    return u, SolveStats(niter=params.ncycles, r_before=r0, r_after=r0)
+            f"solver {name!r} (gerris_tpu poisson.py:935-1079) comes with "
+            "per-face coefficients in slice 3 (ROADMAP Queue 1)")
+    return solver
+
+
+# the reference's pluggable-solver seam (par->poisson_solve): a registered
+# name is usable as MultilevelParams.solver; a solver is called as
+# fn(u, rhs, grid, fbc, params, dia, t) -> (u, SolveStats)
+SOLVER_REGISTRY = {"relax": solve_relax, "cg": _slice3("cg"),
+                   "mgcg": _slice3("mgcg")}
+
+
+def register_solver(name: str, fn):
+    SOLVER_REGISTRY[name] = fn
 
 
 def batched_fixed_eligible(us, grid: Grid, fbcs, dias) -> bool:
@@ -211,7 +466,7 @@ def batched_fixed_eligible(us, grid: Grid, fbcs, dias) -> bool:
         return False
     if not all(d is None or isinstance(d, (int, float)) for d in dias):
         return False
-    if any(f.is_periodic(0) for f in fbcs):
+    if any(f.is_periodic(0) or not bcs.static_values(f) for f in fbcs):
         return False
     sp = [(_signs_offs(grid, f, False)[0], f.is_periodic(1)) for f in fbcs]
     return all(x == sp[0] for x in sp[1:])
@@ -236,8 +491,10 @@ def solve_fixed_batched(us, rhss, grid: Grid, fbcs,
     the first cycle's precomputed ([r0s], [r1s], [r2s]) (K7's rr_dia
     mode), which replaces its K8a launch; ``rhss`` may then be None when
     ncycles == 1.  Returns ([u0, u1], stats of system 0)."""
-    for u, fbc in zip(us, fbcs):
-        _check_fused(u, grid, fbc)
+    for u, fbc, d in zip(us, fbcs, dias):
+        if not _fused_eligible(u, grid, fbc, d):
+            raise NotImplementedError("solve_fixed_batched: a system the "
+                                      "fused cycle does not take")
     if rr_pre is None and rhss is None:
         raise ValueError("solve_fixed_batched: give rhss or rr_pre")
     if rhss is None and params.ncycles > 1:
@@ -258,7 +515,8 @@ def solve_fixed_batched(us, rhss, grid: Grid, fbcs,
                 per_y=per_y)
         du = rbgs.cascade_prolong_relax_pair(
             r1, r2, ds, nsweeps=params.nrelax,
-            coarsest=params.coarsest_relax, h2_half=4.0 * h2, signs=signs,
+            coarsest=max(params.coarsest_relax, COARSEST_FLOOR),
+            h2_half=4.0 * h2, signs=signs,
             per_y=per_y, omega=params.omega, min_n=MIN_N)
         U = rbgs.prolong_relax_pair(du, r0, ds, U, nsweeps=params.nrelax,
                                     h2=h2, signs=signs, per_y=per_y,

@@ -17,11 +17,8 @@ from ..core.device import default_device
 from ..core.grid import Grid
 from ..models import ns
 from ..solvers.advection import AdvectionParams
-from ..solvers.poisson import MultilevelParams
-
-# the fused cycle's coarsest level always gets at least this many sweeps
-# (gerris_tpu poisson.py:683, max(coarsest_relax, 40))
-COARSEST_FLOOR = 40
+from ..solvers.diffusion import DEFAULT_PARAMS
+from ..solvers.poisson import COARSEST_FLOOR, MultilevelParams
 
 _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "approx_projection", "nu", "beta", "diffusion_params",
@@ -44,30 +41,50 @@ def grid_from_jax(g) -> Grid:
 
 
 def fieldbc_from_jax(fbc) -> bcs.FieldBC:
-    """BC kinds and constant values; other kinds or callable values raise
-    (port BC)."""
+    """BC kinds and constant values.  Kinds outside the port raise (port
+    BC), and so do callable values: a JAX callable computes on jnp
+    arrays, where the port's take torch tensors."""
+    for ax in fbc.sides:
+        for b in ax:
+            if callable(b.value):
+                raise NotImplementedError(
+                    "a JAX callable BC value: give the port a function of "
+                    "torch tensors")
     return bcs.FieldBC(tuple(tuple(bcs.BC(b.kind, b.value) for b in ax)
                              for ax in fbc.sides))
 
 
 def params_from_jax(p) -> MultilevelParams:
-    """The schedule the TPU's fused path runs for ``p``: nrelax raised to
-    ``tpu_nrelax`` and the coarsest sweeps to max(coarsest_relax,
-    2*tpu_nrelax, 40) (gerris_tpu poisson.py:1105-1118, :683).
-    ``p=None`` (the reference's adaptive default) gives ncycles=0.  The
-    adaptive-loop and dense-coarse knobs (tolerance, nitermax, nitermin,
-    minlevel, erelax, coarse_top, dense_coarse_max) have no counterpart in
-    the fixed cycle; the K16/K17 folds are not ported and raise."""
+    """The schedule the TPU runs for the JAX params ``p``, route by route
+    (gerris_tpu poisson.py:1090-1162): every field carried over, and
+    * fixed multigrid (ncycles > 0): nrelax raised to ``tpu_nrelax`` and
+      the coarsest sweeps to max(coarsest_relax, 2 * tpu_nrelax, 40)
+      (:1105-1110, and the fused cycle's :683);
+    * adaptive multigrid: nrelax raised to ``tpu_nrelax`` and the
+      coarsest sweeps to max(coarsest_relax, 2 * tpu_nrelax)
+      (:1139-1143); K12's floor of 40 is applied at its call (:568);
+    * a registry solver ("relax", ...): as given, with no floor.
+    The TPU applies the floors on its Pallas path (2D, float32, levels of
+    at least 128); the port's schedule does not depend on the device.
+    ``p=None`` (a diffusion's reference default) gives diffuse's
+    default.  The K16/K17 folds are not ported and raise."""
     if p is None:
-        return MultilevelParams(ncycles=0)
+        return DEFAULT_PARAMS
     if getattr(p, "fold_div", False) or getattr(p, "fold_correct", False):
         raise NotImplementedError("fold_div/fold_correct (K16/K17) are not "
                                   "ported yet (ROADMAP Queue 2)")
-    tpu = p.tpu_nrelax
-    return MultilevelParams(
-        nrelax=max(p.nrelax, tpu), omega=float(p.omega),
-        coarsest_relax=max(p.coarsest_relax, 2 * tpu, COARSEST_FLOOR),
-        ncycles=p.ncycles, solver=p.solver)
+    fields = {f.name: getattr(p, f.name)
+              for f in dataclasses.fields(MultilevelParams)}
+    if p.solver == "multigrid":
+        tpu = p.tpu_nrelax
+        fields["nrelax"] = max(p.nrelax, tpu)
+        fields["coarsest_relax"] = max(p.coarsest_relax, 2 * tpu)
+        if p.ncycles > 0:
+            fields["coarsest_relax"] = max(fields["coarsest_relax"],
+                                           COARSEST_FLOOR)
+    fields["omega"] = float(fields["omega"])
+    fields["tolerance"] = float(fields["tolerance"])
+    return MultilevelParams(**fields)
 
 
 def config_from_jax(cfg) -> ns.NSConfig:

@@ -21,19 +21,37 @@ from test_bench_schedule import cavity_cfg  # noqa: E402
 @pytest.mark.parametrize("jp,want", [
     # the bench projections: nrelax 4 -> tpu_nrelax 5, coarsest -> 40
     (jpoisson.MultilevelParams(ncycles=1, omega=1.5, tpu_nrelax=5),
-     tpoisson.MultilevelParams(nrelax=5, omega=1.5, coarsest_relax=40)),
+     tpoisson.MultilevelParams(nrelax=5, omega=1.5, coarsest_relax=40,
+                               ncycles=1)),
     # the bench diffusion: 1 sweep stays 1
     (jpoisson.MultilevelParams(ncycles=1, nrelax=1, tpu_nrelax=1),
-     tpoisson.MultilevelParams(nrelax=1, coarsest_relax=40)),
-    # the reference default: tpu_nrelax 8 raises nrelax, adaptive loop
+     tpoisson.MultilevelParams(nrelax=1, coarsest_relax=40, ncycles=1)),
+    # the reference default, the adaptive loop: tpu_nrelax 8 raises nrelax
+    # and the coarsest sweeps to 2 * 8 (poisson.py:1139-1143); the fused
+    # cycle's 40 is not the adaptive relax-coarsest branch's
     (jpoisson.MultilevelParams(),
-     tpoisson.MultilevelParams(nrelax=8, coarsest_relax=40, ncycles=0)),
+     tpoisson.MultilevelParams(nrelax=8, coarsest_relax=16, ncycles=0)),
     # floors never lower an explicit schedule
     (jpoisson.MultilevelParams(ncycles=2, nrelax=12, coarsest_relax=50,
                                tpu_nrelax=3),
      tpoisson.MultilevelParams(nrelax=12, coarsest_relax=50, ncycles=2)),
     (jpoisson.MultilevelParams(ncycles=1, tpu_nrelax=30),
-     tpoisson.MultilevelParams(nrelax=30, coarsest_relax=60)),
+     tpoisson.MultilevelParams(nrelax=30, coarsest_relax=60, ncycles=1)),
+    # the bench's cfg_ada (bench.py:174-179): adaptive, tpu_nrelax 5
+    (jpoisson.MultilevelParams(tolerance=1e-3, nitermax=100, tpu_nrelax=5),
+     tpoisson.MultilevelParams(nrelax=5, coarsest_relax=10)),
+    # every field carries over
+    (jpoisson.MultilevelParams(tolerance=1e-6, erelax=2, minlevel=3,
+                               nitermax=7, nitermin=2, coarse_top=256,
+                               dense_coarse_max=1024, tpu_nrelax=1),
+     tpoisson.MultilevelParams(tolerance=1e-6, erelax=2, minlevel=3,
+                               nitermax=7, nitermin=2, coarse_top=256,
+                               dense_coarse_max=1024)),
+    # a registry solver runs unfloored (poisson.py:1130-1132)
+    (jpoisson.MultilevelParams(nrelax=2, solver="relax", ncycles=1),
+     tpoisson.MultilevelParams(nrelax=2, solver="relax", ncycles=1)),
+    (jpoisson.MultilevelParams(tolerance=1e-3, nitermax=100, solver="relax"),
+     tpoisson.MultilevelParams(solver="relax")),
 ])
 def test_params_from_jax_floors(jp, want):
     assert convert.params_from_jax(jp) == want
@@ -41,6 +59,9 @@ def test_params_from_jax_floors(jp, want):
 
 def test_params_from_jax_refuses_folds_and_maps_none():
     assert convert.params_from_jax(None).ncycles == 0
+    # diffuse's default (gerris_tpu/solvers/diffusion.py:40-44)
+    assert convert.params_from_jax(None) == tpoisson.MultilevelParams(
+        tolerance=1e-3, nitermax=10)
     with pytest.raises(NotImplementedError):
         convert.params_from_jax(jpoisson.MultilevelParams(fold_div=True))
 

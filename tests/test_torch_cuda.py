@@ -4,10 +4,12 @@ Marked ``cuda``: each test skips, with the reason, where torch has no CUDA
 device (the CPU test run).  On a machine with a card:
     python -m pytest tests/test_torch_cuda.py -q
 Tolerances: float64 1e-12 and float32 1e-5 (1e-4 for the cascade, whose
-40 coarsest sweeps accumulate rounding) of max|plain|, and of sum|div| for
-a divergence's total; tiled and whole-level K3 launches are
-bit-identical, and so is K4's div across block shapes.  A kernel given
-BCs outside its encoding raises.
+40 coarsest sweeps accumulate rounding, as K12's do) of max|plain|, and
+of sum|div| for a divergence's total; tiled and whole-level K3 and K10
+launches are bit-identical, and so are K4's div across block shapes and
+K11's residual against K1's r0.  A kernel given BCs outside its encoding
+raises.  The adaptive solve on the card is held to the same solve
+through the plain versions.
 """
 import pytest
 
@@ -393,3 +395,145 @@ def test_solve_relax_pair_kernels(dev, dtype):
                                       params, [dia, dia])
     for a, b in zip(got, ref):
         assert _rel(a.cpu(), b) <= BOUND[dtype]
+
+
+# --- the adaptive solve's kernels: K11 residual, K10 rbgs_relax, K12
+# coarse_vcycle ---------------------------------------------------------------------
+
+PERIODIC_CASES = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("periodic", PERIODIC_CASES)
+def test_residual_kernel(dev, dtype, periodic):
+    n = 256
+    u, rhs = _rnd(dev, dtype, 21, (n, n), (n, n))
+    kw = dict(h2=1.0 / n ** 2, signs=(-1.0, 1.0, -1.0, 1.0),
+              offs=(0.2, -0.3, 0.0, 2.0), periodic=periodic)
+    rbgs.reset_launch_counts()
+    got = rbgs.residual(u, rhs, 0.7, **kw)
+    assert rbgs.LAUNCHES["residual"] == 1
+    assert _rel(got, rbgs.residual_plain(u, rhs, 0.7, **kw)) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("per_y", [False, True])
+def test_residual_is_k1_r0(dev, dtype, per_y):
+    """K11 and K1 compute a cell through one expression: K1's r0 with sub
+    = 0 is K11's residual bit for bit."""
+    n = 512
+    u, rhs = _rnd(dev, dtype, 22, (n, n), (n, n))
+    kw = dict(h2=1.0 / n ** 2, signs=SIGNS_LID, offs=OFFS_LID)
+    r0 = rbgs.residual_restrict(u, rhs, 0.6, 0.0, per_y=per_y, **kw)[0]
+    r = rbgs.residual(u, rhs, 0.6, periodic=(False, per_y), **kw)
+    assert torch.equal(r0, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,nsweeps", [(256, 5), (64, 8), (16, 20)])
+@pytest.mark.parametrize("periodic", PERIODIC_CASES)
+def test_rbgs_relax_kernel(dev, dtype, n, nsweeps, periodic):
+    u, rhs = _rnd(dev, dtype, 23, (n, n), (n, n))
+    kw = dict(nsweeps=nsweeps, h2=1.0 / n ** 2,
+              signs=(-1.0, 1.0, 1.0, -1.0), periodic=periodic, omega=1.2)
+    rbgs.reset_launch_counts()
+    got = rbgs.rbgs_relax(u, rhs, 0.3, **kw)
+    assert rbgs.LAUNCHES["rbgs_relax"] == 1
+    assert _rel(got, rbgs.rbgs_relax_plain(u, rhs, 0.3, **kw)) <= \
+        BOUND[dtype]
+
+
+@pytest.mark.parametrize("periodic", PERIODIC_CASES)
+def test_rbgs_relax_tile_invariance(dev, periodic):
+    """Bit-identical across tiles 32 and 16, whole-level and tiled, and
+    one launch against several (sweeps split when their halo outgrows
+    shared memory)."""
+    u, rhs = _rnd(dev, torch.float64, 24, (256, 256), (256, 256))
+    kw = dict(nsweeps=5, h2=1.0 / 256 ** 2, signs=SIGNS_LID,
+              periodic=periodic, omega=1.5)
+    assert torch.equal(rbgs.rbgs_relax(u, rhs, 0.1, tile=32, **kw),
+                       rbgs.rbgs_relax(u, rhs, 0.1, tile=16, **kw))
+    u64, r64 = u[:64, :64].contiguous(), rhs[:64, :64].contiguous()
+    assert torch.equal(rbgs.rbgs_relax(u64, r64, 0.1, **kw),
+                       rbgs.rbgs_relax(u64, r64, 0.1, tile=16, whole_max=32,
+                                       **kw))
+    kw["nsweeps"] = 30
+    rbgs.reset_launch_counts()
+    split = rbgs.rbgs_relax(u, rhs, 0.1, **kw)
+    assert rbgs.LAUNCHES["rbgs_relax"] == 2      # 21 + 9 sweeps in float64
+    assert torch.equal(split, rbgs.rbgs_relax(u, rhs, 0.1, tile=16, **kw))
+    assert _rel(split, rbgs.rbgs_relax_plain(u, rhs, 0.1, **kw)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [512, 128, 64, 16])
+@pytest.mark.parametrize("per_y", [False, True])
+def test_coarse_vcycle_kernel(dev, dtype, n, per_y):
+    """K12 against its plain ladder: 3 + 1 + 3 launches at 512^2, the
+    block kernel alone at 64^2 and below.  Its 40 coarsest sweeps
+    accumulate float32 rounding, as K2's do (1e-4)."""
+    (r,) = _rnd(dev, dtype, 25, (n, n))
+    signs = (-1.0, 1.0, 1.0, 1.0) if per_y else SIGNS_LID
+    kw = dict(nsweeps=5, coarsest=40, h2=1.0 / n ** 2, signs=signs,
+              per_y=per_y, min_n=16)
+    rbgs.reset_launch_counts()
+    got = rbgs.coarse_vcycle(r, 0.4, **kw)
+    levels = {512: 3, 128: 1}.get(n, 0)
+    assert rbgs.LAUNCHES["coarse_vcycle.restrict2"] == levels
+    assert rbgs.LAUNCHES["coarse_block"] == 1
+    assert rbgs.LAUNCHES["coarse_vcycle.prolong_relax"] == levels
+    bound = 1e-12 if dtype == torch.float64 else 1e-4
+    assert _rel(got, rbgs.coarse_vcycle_plain(r, 0.4, **kw)) <= bound
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.float64, "lid"),
+                                        (torch.float64, "periodic"),
+                                        (torch.float32, "lid")])
+def test_adaptive_solve_on_the_card(dev, dtype, kind):
+    """The adaptive solve at 1024^2 on the card against the same solve on
+    the card through the plain versions: the lid's U diffusion system
+    (K11, K12, K3; rhs -dia (u + du) as the step builds it) and a doubly
+    periodic one (K11, the dense 64^2 solve, prolong + K10).  Float64
+    to 1e-8: equal cycle counts and 1e-10 of max|u|.  Float32 to the
+    path's 1e-3: the counts within one (rounding can move the last
+    check) and the tolerance reached.  A periodic float32 system of
+    white noise cannot reach 1e-3: its residual's rounding (eps * 4|u|/h^2)
+    is above it."""
+    from gerris_tpu_torch.solvers import poisson
+    n = 1024
+    grid = Grid(level=10)
+    u, noise = _rnd(dev, dtype, 26, (n, n), (n, n))
+    if kind == "lid":
+        fbc = bc.FieldBC.make(2, default=bc.Dirichlet(0.0),
+                              top=bc.Dirichlet(1.0))
+        dia = 1.0 / (0.8 * grid.h * 1e-3)
+        rhs = -dia * (u + 0.01 * noise)
+    else:
+        fbc = bc.FieldBC.uniform(bc.Periodic(), 2)
+        dia = None
+        rhs = noise - noise.mean()
+    params = poisson.MultilevelParams(
+        tolerance=1e-8 if dtype == torch.float64 else 1e-3)
+    rbgs.reset_launch_counts()
+    got, st = poisson.solve(u, rhs, grid, fbc, params, dia=dia)
+    assert rbgs.LAUNCHES["residual"] == st.niter + 1
+    assert rbgs.LAUNCHES["coarse_vcycle"] == (st.niter if kind == "lid"
+                                              else 0)
+    swaps = ("residual", "rbgs_relax", "coarse_vcycle", "prolong_relax",
+             "restrict2")
+    saved = {k: getattr(rbgs, k) for k in swaps}
+    for k in swaps:
+        setattr(rbgs, k, getattr(rbgs, k + "_plain" if k != "restrict2"
+                                 else "pool_plain"))
+    try:
+        ref, rst = poisson.solve(u, rhs, grid, fbc, params, dia=dia)
+    finally:
+        for k, fn in saved.items():
+            setattr(rbgs, k, fn)
+    tol = params.tolerance * float(rhs.abs().max())
+    assert float(st.residual_after["infty"]) <= tol
+    if dtype == torch.float64:
+        assert st.niter == rst.niter
+        assert _rel(got, ref) <= 1e-10
+    else:
+        assert abs(st.niter - rst.niter) <= 1

@@ -153,17 +153,28 @@ def test_simulation_run_matches_jax():
 
 
 def test_adaptive_and_other_solvers_raise():
+    """The adaptive loop runs (it raised before the adaptive slice); the
+    cg and mgcg registry solvers wait for slice 3 and raise, naming it,
+    and an unknown solver name raises."""
     _, tcfg = _configs()
     sim = Simulation(tcfg, device="cpu").init()
     grid = tcfg.grid
     u = torch.zeros(grid.shape, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
+    rhs = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        grid.shape))
+    rhs = rhs - rhs.mean()
+    adaptive = tpoisson.MultilevelParams(dense_coarse_max=1024)
+    _, stats = tpoisson.solve(u, rhs, grid, tcfg.p_bc, adaptive)
+    assert 1 <= stats.niter < adaptive.nitermax
+    assert float(stats.residual_after["infty"]) <= \
+        adaptive.tolerance * float(rhs.abs().max())
+    for name in ("cg", "mgcg"):
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            tpoisson.solve(u, u, grid, tcfg.p_bc,
+                           tpoisson.MultilevelParams(solver=name))
+    with pytest.raises(ValueError):
         tpoisson.solve(u, u, grid, tcfg.p_bc,
-                       tpoisson.MultilevelParams(ncycles=0))
-    with pytest.raises(NotImplementedError):
-        tpoisson.solve(u, u, grid, tcfg.p_bc,
-                       tpoisson.MultilevelParams(solver="cg"))
-    adaptive = dataclasses.replace(
-        tcfg, approx_projection=tpoisson.MultilevelParams(ncycles=0))
-    with pytest.raises(NotImplementedError):
-        tns.initial_projection(sim.state, 0.01, 0.0, adaptive)
+                       tpoisson.MultilevelParams(solver="hypre"))
+    st = tns.initial_projection(sim.state, 0.01, 0.0, dataclasses.replace(
+        tcfg, approx_projection=adaptive))
+    assert all(bool(torch.isfinite(v).all()) for v in st.values())

@@ -222,7 +222,8 @@ def test_diffuse_pair_forms_and_fallback():
     _, tfbcs = _pair_bcs()
     grid = TGrid(level=6)
     dt, nu = 0.8 * grid.h, 1e-3
-    params = tpoisson.MultilevelParams(nrelax=1, coarsest_relax=40)
+    params = tpoisson.MultilevelParams(nrelax=1, coarsest_relax=40,
+                                       ncycles=1)
     rng = np.random.default_rng(45)
     vs = _t(*(rng.standard_normal(grid.shape) for _ in range(2)))
     extra = _t(*(0.01 * rng.standard_normal(grid.shape) for _ in range(2)))
