@@ -20,8 +20,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      (the lid's offsets, periodic rows, periodic columns; bit-identical
      to K1's r0), K10 (non-periodic, periodic rows, doubly periodic, plus
      its tile invariance) at 2048^2, and K12 at 512^2 (per_y off and on)
-     with its 64^2 block kernel alone; then each kernel's time against
-     its plain version's at the main-path shapes, float32 (CUDA events);
+     with its 64^2 block kernel alone; the 3D smoother K13 at 128^3 with
+     the projections' and the diffusion's settings, at 32^3, 64^3 and
+     (32, 64, 128) with mixed sides, and at 256^3 (float32); then each
+     kernel's time against its plain version's at the main-path shapes
+     (K13 at 128^3), float32 (CUDA events);
   3. main path: Simulation.init() + 20 steps of the 2048^2 lid cavity under
      the bench's configuration (pair_advect: K7 and the K8 pair), float32,
      through the kernels: finite values, launch counts, agreement with the
@@ -44,7 +47,16 @@ Phases (any failure ends the run with a non-zero exit and no result):
      adaptive step from the main path's state, fixed_vs_adaptive_rel <
      2e-3); and ``periodic_poisson``, a doubly periodic adaptive solve in
      float64 at 1024^2 and 2048^2 (K11, the dense 64^2 solve, prolong +
-     K10), its second order gated and held to the plain route;
+     K10), its second order gated and held to the plain route; then the
+     3D path, ``lid3d``: Simulation.init() + 20 steps of the bench's 128^3
+     lid cavity under its fixed 3D schedule (bench.py:271-312), float32,
+     through K13 (every other phase of the 3D step is torch): finite
+     values, K13's launches gated, agreement with the same steps through
+     the plain versions, the median step rate of five timed windows as
+     ``cups_3d_128`` and a profile; and ``poisson3d``, a Neumann box
+     solved adaptively in float64 at 64^3 and 128^3 (the torch residual,
+     the dense 16^3 solve, K13), its second order gated and held to the
+     plain route;
   4. physics: the 64^2 lid cavity under the bench's configuration to
      steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
      float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
@@ -115,8 +127,20 @@ ADA_TIMED_STEPS = 10
 ADA_PROFILE_STEPS = 5
 # periodic_poisson: second order, err(1024^2) / err(2048^2) in this range;
 # kernels vs plain to well below the 1e-6 discretisation error it measures
+# (poisson3d: err(64^3) / err(128^3), the same bounds)
 POISSON_ORDER = (3.5, 4.5)
 POISSON_PLAIN_RTOL = 1e-9
+# lid3d: the bench's 3D figure at 128^3 (bench.py:271-312)
+LEVEL_3D = 7
+LID3D_STEPS = 20
+LID3D_TIMED_STEPS = 10
+LID3D_PROFILE_STEPS = 5
+# K13 calls per correction at 128^3: the levels 32^3, 64^3 and 128^3
+# above the dense 16^3 level; per step one correction per projection (4
+# sweeps) and one per velocity component's diffusion (1 sweep)
+K13_LEVELS = 3
+K13_PER_STEP = K13_LEVELS * (2 + 3)
+K13_HALF_SWEEPS_PER_STEP = K13_LEVELS * 2 * (2 * 4 + 3 * 1)
 
 ERR_KEYS = ("max_abs_err", "max_rel_err")
 CSRC = "gerris_tpu_torch/csrc/"
@@ -148,6 +172,8 @@ KERNELS = {
     "rbgs_relax": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:1560"),
     "coarse_vcycle": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:871"),
     "coarse_block": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:871"),
+    "rbgs_relax_3d": (CSRC + "rbgs3d.cu",
+                      "gerris_tpu/ops/pallas/rbgs3d.py:119"),
 }
 # the kernels of the adaptive routes, and the route whose run gives each
 # one's launches
@@ -191,6 +217,7 @@ def want_launches(route, steps):
         "residual": 0, "rbgs_relax": 0, "coarse_vcycle": 0,
         "coarse_vcycle.restrict2": 0, "coarse_block": 0,
         "coarse_vcycle.prolong_relax": 0,
+        "rbgs_relax_3d": 0, "rbgs_relax_3d.half_sweep": 0,
     }
 
 
@@ -231,7 +258,7 @@ OWN_KERNELS = ("residual_restrict_kernel", "restrict2_kernel",
                "correct_project_kernel", "interp_faces_kernel",
                "predict_xy_kernel", "advect2d_kernel", "advect2d_pair_kernel",
                "sum_partials_kernel", "residual_kernel", "rbgs_relax_kernel",
-               "coarse_block_kernel")
+               "coarse_block_kernel", "rbgs3d_half_sweep_kernel")
 
 
 def schedules():
@@ -283,14 +310,14 @@ def lid_cfg(level, pair_advect=True, rr_in_advect=False, schedule="fixed"):
 
 
 def launch_counts():
-    from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs
+    from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs, rbgs3d
     return {**rbgs.LAUNCHES, **projops.LAUNCHES, **predict.LAUNCHES,
-            **bcg.LAUNCHES}
+            **bcg.LAUNCHES, **rbgs3d.LAUNCHES}
 
 
 def reset_launch_counts():
-    from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs
-    for mod in (rbgs, projops, predict, bcg):
+    from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs, rbgs3d
+    for mod in (rbgs, projops, predict, bcg, rbgs3d):
         mod.reset_launch_counts()
 
 
@@ -366,7 +393,7 @@ def compare_faces(name, got, ref, bound, div=True):
 def plain_versions():
     """Route every kernel wrapper of the main path through its plain
     version (the card-side reference run)."""
-    from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs
+    from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs, rbgs3d
     swaps = [(rbgs, "residual_restrict"), (rbgs, "cascade_prolong_relax"),
              (rbgs, "prolong_relax"), (rbgs, "residual_restrict_pair"),
              (rbgs, "cascade_prolong_relax_pair"),
@@ -375,7 +402,7 @@ def plain_versions():
              (rbgs, "restrict2"), (projops, "divergence_mac"),
              (projops, "correct_project"), (projops, "interp_faces"),
              (predict, "predict_xy"), (bcg, "advect2d"),
-             (bcg, "advect2d_pair")]
+             (bcg, "advect2d_pair"), (rbgs3d, "rbgs_relax_3d")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         plain = "pool_plain" if name == "restrict2" else name + "_plain"
@@ -597,6 +624,63 @@ def check_adaptive_kernels(rnd, dtype, record):
             record[k].update(zip(ERR_KEYS, map(max, zip(*es))))
 
 
+def lid3d_cfg(level=LEVEL_3D):
+    """The bench's 3D figure (bench.py:279-294): the lid cavity in 3D, U
+    = 1 on the top side and 0 on the other walls, V and W 0, pressure
+    Neumann, nu 1e-3, beta 1, both projections one fixed cycle at nrelax 4
+    and omega 1.5 (no TPU floor in 3D), the diffusion one cycle at 1
+    sweep, the dense coarsest solve at 16^3 (dense_coarse_max 4096)."""
+    import dataclasses
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    u_bc = bc.FieldBC.make(3, default=bc.Dirichlet(0.0), top=bc.Dirichlet(1.0))
+    v_bc = bc.FieldBC.uniform(bc.Dirichlet(0.0), 3)
+    proj = MultilevelParams(tolerance=1e-3, nitermax=100, ncycles=1,
+                            omega=1.5)
+    diff = dataclasses.replace(proj, nrelax=1, omega=1.0)
+    return ns.NSConfig(grid=Grid(level=level, dim=3), u_bcs=(u_bc, v_bc, v_bc),
+                       nu=1e-3, beta=1.0, projection=proj,
+                       approx_projection=proj, diffusion_params=diff)
+
+
+def check_rbgs3d(rnd, dtype, record):
+    """K13 against its plain version: at 128^3 with the projections'
+    settings (Neumann, 4 sweeps, omega 1.5, dia 0) and the diffusion's
+    (the lid's Dirichlet sides, 1 sweep, dia = 1/(dt nu) at dt = 0.8 h);
+    at 32^3, 64^3 and (32, 64, 128) with mixed sides; at 256^3 in float32
+    (the port's K13 has no plane limit); u left as it was.  Errors go to
+    ``record`` when it is given."""
+    import torch
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+    name = str(dtype).replace("torch.", "")
+    b = BOUND[name]
+    n = 1 << LEVEL_3D
+    mixed = (-1.0, 1.0, 1.0, -1.0, -1.0, 1.0)
+    cases = [((n,) * 3, (1.0,) * 6, 4, 1.5, 0.0),
+             ((n,) * 3, (-1.0,) * 6, 1, 1.0, 1.0 / (0.8 / n * 1e-3)),
+             ((32,) * 3, mixed, 4, 1.5, 0.0), ((64,) * 3, mixed, 3, 1.3, 0.7),
+             ((32, 64, 128), mixed, 4, 1.5, 0.0)]
+    if dtype == torch.float32:
+        cases.append(((256,) * 3, (1.0,) * 6, 4, 1.5, 0.0))
+    errs = []
+    for shape, signs, nsw, omega, dia in cases:
+        u, rhs = rnd(dtype, *shape), rnd(dtype, *shape)
+        u0 = u.clone()
+        kw = dict(nsweeps=nsw, h2=1.0 / shape[0] ** 2, signs=signs,
+                  omega=omega)
+        errs.append(compare(
+            f"K13 rbgs_relax_3d {shape} nsweeps={nsw} omega={omega} "
+            f"dia={dia:.4g} signs={signs}",
+            rbgs3d.rbgs_relax_3d(u, rhs, dia, **kw),
+            rbgs3d.rbgs_relax_3d_plain(u, rhs, dia, **kw), b))
+        if not torch.equal(u, u0):
+            raise AssertionError("K13 changed its input u")
+    if record is not None:
+        record["rbgs_relax_3d"].update(zip(ERR_KEYS, map(max, zip(*errs))))
+
+
 def check_relax_tiles(rnd):
     """K10 bit-identical across tiles 32 and 16, whole-level and tiled, on
     every periodicity, and with its sweeps split over two launches."""
@@ -745,6 +829,7 @@ def phase_kernels(dev, record):
         check_face_kernels(rnd, dtype, n, record if main else None)
         check_face_kernels(rnd, dtype, N_SMALL, None)
         check_adaptive_kernels(rnd, dtype, record if main else None)
+        check_rbgs3d(rnd, dtype, record if main else None)
     check_relax_tiles(rnd)
 
     # K3 tile invariance: bit-identical across tile sizes and whole-level
@@ -939,6 +1024,22 @@ def phase_kernels(dev, record):
         lambda: rbgs.coarse_block(r64k, 0.0, **kwcb),
         lambda: rbgs.coarse_vcycle_plain(r64k, 0.0, **kwcb),
         nbytes(r64k), vcycle_flops(64, 5, 40), None)
+    # K13 at 128^3 as the projections run it (4 sweeps, omega 1.5: 10 per
+    # cell per sweep) and as the diffusion does (1 sweep, 7 per cell)
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+    n3 = 1 << LEVEL_3D
+    u3, r3 = rnd(f32, n3, n3, n3), rnd(f32, n3, n3, n3)
+    kw13 = dict(nsweeps=4, h2=1.0 / n3 ** 2, signs=(1.0,) * 6, omega=1.5)
+    timings["rbgs_relax_3d"] = (
+        lambda: rbgs3d.rbgs_relax_3d(u3, r3, 0.0, **kw13),
+        lambda: rbgs3d.rbgs_relax_3d_plain(u3, r3, 0.0, **kw13),
+        nbytes(u3, r3), n3 ** 3 * 4 * 10, None)
+    dia3 = 1.0 / (0.8 / n3 * 1e-3)
+    kw13d = dict(nsweeps=1, h2=1.0 / n3 ** 2, signs=(-1.0,) * 6)
+    timings["rbgs_relax_3d|diffusion"] = (
+        lambda: rbgs3d.rbgs_relax_3d(u3, r3, dia3, **kw13d),
+        lambda: rbgs3d.rbgs_relax_3d_plain(u3, r3, dia3, **kw13d),
+        nbytes(u3, r3), n3 ** 3 * 7, None)
     print("phase 2 times (float32, main-path shapes; plain, kernel, "
           "kernel, plain)")
     for k, (kern, plain, in_bytes, ops, lib) in timings.items():
@@ -1294,6 +1395,145 @@ def periodic_poisson(dev, n):
     return err
 
 
+def lid3d_sim(dev):
+    """The 128^3 lid cavity of lid3d_cfg(), float32, after init; dtmax =
+    the bench's fixed dt 0.8 h (from rest the CFL bound is unbounded,
+    later steps run at 0.8 h / max|u| <= 0.8 h)."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    cfg = lid3d_cfg()
+    return Simulation(cfg, time=Time(dtmax=0.8 * cfg.grid.h), device=dev,
+                      dtype=torch.float32).init()
+
+
+def phase_lid3d(dev, card):
+    """init + LID3D_STEPS steps of the bench's 3D figure through the
+    kernels, the counts set to 0 just before and gated just after (K13
+    only: K13_PER_STEP calls per step and the initial projection's
+    K13_LEVELS, no 2D kernel); the same steps through the plain versions
+    on the card, held to MAIN_PATH_RTOL on U, V, W and P; five timed
+    windows (cups_3d_128, the bench's key) and a profile.  Returns the
+    launch counts."""
+    import torch
+    print(f"phase 3, lid3d: {1 << LEVEL_3D}^3 lid cavity, float32, "
+          f"{LID3D_STEPS} steps, the bench's fixed 3D schedule")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = lid3d_sim(dev)
+    s.run(max_steps=LID3D_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    solves = LID3D_STEPS + 1
+    want = {k: 0 for k in counts}
+    want.update({
+        "rbgs_relax_3d": K13_PER_STEP * LID3D_STEPS + K13_LEVELS,
+        "rbgs_relax_3d.half_sweep":
+            K13_HALF_SWEEPS_PER_STEP * LID3D_STEPS + K13_LEVELS * 2 * 4})
+    print(f"  lid3d, init + {LID3D_STEPS} steps (the first builds the dense "
+          f"16^3 solves): {t_run:.3f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; {solves} approximate"
+          " projections")
+    if counts != want:
+        raise AssertionError(f"lid3d: launches {counts}, want {want}")
+    for k, v in s.state.items():
+        if v.shape != s.cfg.grid.shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"lid3d {k}: not finite or wrong shape")
+    with plain_versions():
+        ref = lid3d_sim(dev).run(max_steps=LID3D_STEPS)
+    if launch_counts() != counts:
+        raise AssertionError("the plain reference run launched kernels")
+    for k in ("U", "V", "W", "P"):
+        rel = rel_err(s.state[k], ref.state[k])
+        print(f"  lid3d, kernels vs plain after {LID3D_STEPS} steps, {k}: "
+              f"rel {rel:.3e} (bound {MAIN_PATH_RTOL:.0e})")
+        if not rel <= MAIN_PATH_RTOL:
+            raise AssertionError(f"lid3d {k}: rel {rel:.3e}")
+    walls = []
+    for _ in range(TIMED_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(max_steps=LID3D_TIMED_STEPS)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    step = float(np.median(walls)) / LID3D_TIMED_STEPS
+    cups = (1 << LEVEL_3D) ** 3 / step
+    print(f"  lid3d, timed windows of {LID3D_TIMED_STEPS} steps: "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s; median "
+          f"{step * 1e3:.3f} ms/step, cups_3d_128 {cups:.6e} cell-updates/s "
+          f"on {card}")
+    phase_profile(s, step, card, LID3D_PROFILE_STEPS)
+    # a fixed-schedule solve computes its residual before and after the
+    # cycle eagerly besides the cycle's own (poisson.solve's statistics);
+    # a jitted JAX step drops the unused one and shares the other
+    from gerris_tpu_torch.solvers import poisson
+    p, cfg = s.state["P"], s.cfg
+    res_ms = cuda_ms(lambda: poisson.residual(p, p, cfg.grid, cfg.p_bc))
+    print(f"  lid3d: one 128^3 residual {res_ms:.4f} ms; the statistics' "
+          f"2 per fixed solve, 5 solves per step: {10 * res_ms:.3f} ms/step")
+    return counts
+
+
+def neumann_poisson_3d(dev, n):
+    """lap p = -3 pi^2 p for p = cos pi(x+1/2) cos pi(y+1/2) cos pi(z+1/2)
+    in the Neumann box, the rhs's mean subtracted, at n^3 in float64 to
+    tolerance 1e-10 (default schedule: 4 sweeps, the dense 16^3 solve):
+    the torch residual and restriction, K13 at every level above 16^3;
+    launches gated, held to the plain route.  Returns the Linf error
+    against the exact p, both means removed."""
+    import math
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.solvers import poisson
+    grid = Grid(level=int(math.log2(n)), dim=3)
+    fbc = bc.FieldBC.uniform(bc.Neumann(), 3)
+    x, y, z = (torch.from_numpy(c).to(dev) for c in grid.centers)
+    exact = (torch.cos(math.pi * (x + 0.5)) * torch.cos(math.pi * (y + 0.5))
+             * torch.cos(math.pi * (z + 0.5)))
+    rhs = -3 * math.pi ** 2 * exact
+    rhs = rhs - rhs.mean()
+    params = poisson.MultilevelParams(tolerance=1e-10)
+    p0 = torch.zeros_like(rhs)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, st = poisson.solve(p0, rhs, grid, fbc, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    levels = grid.level - 4       # the levels above the dense 16^3
+    want = {k: 0 for k in counts}
+    want.update({"rbgs_relax_3d": levels * st.niter,
+                 "rbgs_relax_3d.half_sweep": levels * st.niter * 2 * 4})
+    if counts != want:
+        raise AssertionError(f"poisson3d {n}: launches {counts}, want {want}")
+    with plain_versions():
+        pr, rst = poisson.solve(p0, rhs, grid, fbc, params)
+    if launch_counts() != counts:
+        raise AssertionError("the plain reference run launched kernels")
+    rel = rel_err(p, pr)
+    err = float(((p - p.mean()) - (exact - exact.mean())).abs().max())
+    print(f"  poisson3d {n}^3 float64: niter {st.niter} (plain {rst.niter}),"
+          f" {wall:.3f} s, residual {float(st.residual_after['infty']):.3e},"
+          f" Linf error {err:.4e}; kernels vs plain rel {rel:.3e} (bound "
+          f"{POISSON_PLAIN_RTOL:.0e}); launches {counts['rbgs_relax_3d']} "
+          f"K13")
+    if not rel <= POISSON_PLAIN_RTOL:
+        raise AssertionError(f"poisson3d {n}: rel {rel:.3e}")
+    return err
+
+
+def phase_poisson3d(dev):
+    errs = {n: neumann_poisson_3d(dev, n) for n in (64, 128)}
+    ratio = errs[64] / errs[128]
+    print(f"  poisson3d: Linf error 64^3 {errs[64]:.4e}, 128^3 "
+          f"{errs[128]:.4e}, ratio {ratio:.4f} (want {POISSON_ORDER})")
+    if not POISSON_ORDER[0] <= ratio <= POISSON_ORDER[1]:
+        raise AssertionError(f"poisson3d: order ratio {ratio:.4f}")
+
+
 def phase_physics(dev, card, dtype_name="float32"):
     import torch
     from gerris_tpu_torch.events.events import EventStop
@@ -1351,8 +1591,9 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
-    # no matrix product or convolution runs in this slice; TF32 is pinned
-    # off all the same, so no float32 reference could round to it
+    # the dense coarsest solves' products (the 2D periodic Poisson's 64^2,
+    # the 3D path's 16^3: mat-vecs with a 4096^2 Q) stay in float32, and
+    # no float32 reference could round to TF32 either
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1366,11 +1607,14 @@ def main():
     counts, main_sim = phase_main_path(dev, card)
     route_counts = phase_routes(dev)
     route_counts.update(phase_adaptive(dev, card, main_sim))
+    route_counts["lid3d"] = phase_lid3d(dev, card)
+    phase_poisson3d(dev)
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
-    # per-component route; K10-K12 are the adaptive routes'
+    # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
     for k in record:
         path = ("per_component" if k == "advect2d" else
+                "lid3d" if k == "rbgs_relax_3d" else
                 ADAPTIVE_KERNELS.get(k, "main"))
         c = counts if path == "main" else route_counts[path]
         record[k].update(launches=c[k], path=path)
@@ -1379,6 +1623,8 @@ def main():
         record[k]["launches_restrict2"] = counts["restrict2" + sub]
         record[k]["launches_prolong_relax"] = \
             counts[f"cascade{sub}.prolong_relax"]
+    record["rbgs_relax_3d"]["launches_half_sweep"] = \
+        route_counts["lid3d"]["rbgs_relax_3d.half_sweep"]
     ada = route_counts["adaptive"]
     record["coarse_vcycle"].update(
         launches_restrict2=ada["coarse_vcycle.restrict2"],

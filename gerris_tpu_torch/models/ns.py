@@ -1,5 +1,5 @@
 """Incompressible Navier-Stokes time step (port of gerris_tpu/models/ns.py,
-the uniform-grid, solid-free, single-phase 2D step).
+the uniform-grid, solid-free, single-phase step, 2D and 3D).
 
 One step (reference: src/simulation.c:432-557):
   1. predicted face velocities (BCG from the centred field), K6
@@ -18,6 +18,11 @@ loop (K11 per cycle, K12 and K3 in each correction).  With an adaptive
 diffusion schedule (the default) the step takes the per-component route:
 K14 with its rhs fold, then one adaptive solve per component.  The
 kernels run on CUDA tensors, their plain versions on the CPU.
+In 3D every phase but the multigrid's smoother takes the reference's
+generic torch route (gerris_tpu/models/ns.py:208-223, :335-447;
+solvers/projection.py), and each solve's upward levels run K13
+``rbgs_relax_3d``; ``div_in_src``, ``pair_advect`` and ``rr_in_advect``
+are 2D routes and are ignored in 3D, as the reference ignores them.
 Tracers, VOF, variable density, tension, body forces, solids and metrics
 are later slices.
 """
@@ -30,6 +35,7 @@ import torch
 from ..core.grid import Grid
 from ..core import bc as bcs
 from ..ops.cuda import bcg, predict
+from ..ops.stencils import face_average
 from ..solvers import advection as adv
 from ..solvers import diffusion as diff
 from ..solvers import poisson
@@ -67,8 +73,6 @@ class NSConfig:
     rr_in_advect: bool = False
 
     def __post_init__(self):
-        if self.grid.dim != 2:
-            raise NotImplementedError("3D NS is slice 2 (ROADMAP Queue 1)")
         if self.p_bc is None:
             object.__setattr__(self, "p_bc", bcs.grad_bc(self.u_bcs[0]))
 
@@ -91,7 +95,19 @@ def predicted_face_velocities(U: list, grid: Grid, cfg: NSConfig, dt,
     src/timestep.c:681-717): (faces, divp).  Through K6 where the BCs
     allow it (gerris_tpu/models/ns.py:190-196), else its plain version.
     ``div_scale``: ``divp`` is (div, total), the faces' divergence scaled
-    by div_scale and its sum; else None."""
+    by div_scale and its sum; else None (always in 3D, where the faces
+    take the reference's generic route, gerris_tpu/models/ns.py:208-223)."""
+    if grid.dim == 3:
+        uc_pad = [bcs.apply_bc(U[c], grid, cfg.u_bcs[c], 1, corners=False)
+                  for c in range(3)]
+        uf = []
+        for c in range(3):
+            vp, vm = adv.advected_face_values(U[c], grid, cfg.u_bcs[c], dt,
+                                              uc_pad, axes=(c,))[c]
+            un = face_average(uc_pad[c], grid, c)
+            uf.append(bcs.apply_face_bc(adv.upwind_face_value(vp, vm, un, c),
+                                        grid, cfg.u_bcs[c], c))
+        return uf, None
     kernel = (bcg.applicable(grid, cfg.advection)
               and bcg.face_specs(cfg.u_bcs) is not None)
     fn = predict.predict_xy if kernel else predict.predict_xy_plain
@@ -126,7 +142,9 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     Otherwise (an adaptive diffusion schedule among them, as in the
     reference, gerris_tpu/models/ns.py:257-262, 347-372) each component
     takes K14 where its BCs allow it, else its plain version, and its own
-    solve."""
+    solve.  3D: the reference's generic route, advection_diffusion_3d."""
+    if grid.dim == 3:
+        return advection_diffusion_3d(U, uf, gmac, g_prev, grid, cfg, dt)
     fold = cfg.nu > 0.0 and cfg.beta == 1.0
     dia = 1.0 / (dt * cfg.nu) if fold else None
     gp = None if g_prev is None else list(g_prev)
@@ -175,11 +193,47 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     return out
 
 
+def advection_diffusion_3d(U: list, uf: list, gmac: list, g_prev,
+                           grid: Grid, cfg: NSConfig, dt):
+    """Per component: the BCG face values with the MAC faces' cell means
+    as the advecting velocity, upwinded by the MAC faces, minus the face
+    mean of gmac times dt/2 (the component's own faces then take its
+    Dirichlet value), the flux divergence, minus dt g_prev, then the
+    implicit diffusion solve (reference gerris_tpu/models/ns.py:375-447,
+    src/advection.c:419)."""
+    uc_pad = adv.mac_cell_mean(uf, grid)
+    gbc = bcs.grad_bc(cfg.u_bcs[0])
+    out = []
+    for c in range(3):
+        fbc = cfg.u_bcs[c]
+        fvals = adv.advected_face_values(U[c], grid, fbc, dt, uc_pad)
+        g_pad = bcs.apply_bc(gmac[c], grid, gbc, 1, corners=False)
+        v_faces = []
+        for a in range(3):
+            vface = adv.upwind_face_value(fvals[a][0], fvals[a][1], uf[a], a)
+            vface = vface - face_average(g_pad, grid, a) * dt / 2.0
+            if a == c:
+                vface = bcs.apply_face_bc(vface, grid, fbc, a)
+            v_faces.append(vface)
+        fv = adv.flux_divergence(v_faces, uf, grid, dt)
+        if g_prev is not None:
+            fv = fv - dt * g_prev[c]
+        if cfg.nu > 0.0:
+            v_new, _ = diff.diffuse(U[c], grid, fbc, dt, cfg.nu, rho=1.0,
+                                    beta=cfg.beta,
+                                    params=cfg.diffusion_params,
+                                    extra_rhs=fv)
+        else:
+            v_new = U[c] + fv
+        out.append(v_new)
+    return out
+
+
 def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
             first_step: bool = False) -> dict:
-    """One full time step; ``state`` holds U, V, P, Pmac, Gx, Gy.  ``dt``
-    is a host float (the Helmholtz dia = 1/(beta dt nu) is a kernel
-    argument).  ``t`` is unused while BC values are constant; it is kept
+    """One full time step; ``state`` holds U, V[, W], P, Pmac, Gx, Gy[,
+    Gz].  ``dt`` is a host float (the Helmholtz dia = 1/(beta dt nu) is a
+    kernel argument).  ``t`` is unused while BC values are constant; it is kept
     for the reference's signature.  Returns a new state dict."""
     grid = cfg.grid
     dim = grid.dim
@@ -187,11 +241,12 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
     U = [state[n] for n in names]
     g_prev = [state[n] for n in gradient_names(dim)]
     # 1-2. prediction, MAC projection at dt/2 (the reference swaps P and
-    # Pmac around it, src/simulation.c:498-504).  div_in_src: each
+    # Pmac around it, src/simulation.c:498-504).  div_in_src (2D): each
     # projection's divergence comes out of the launch that builds its faces
+    fold = cfg.div_in_src and dim == 2
     uf, mac_divp = predicted_face_velocities(
         U, grid, cfg, dt,
-        div_scale=1.0 / (grid.h * (dt / 2.0)) if cfg.div_in_src else None)
+        div_scale=1.0 / (grid.h * (dt / 2.0)) if fold else None)
     uf, pmac, gmac, _, _ = proj.mac_projection(
         uf, state["Pmac"], grid, cfg.p_bc, dt / 2.0, cfg.projection,
         div_pre=mac_divp)
@@ -205,7 +260,7 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
     # correction into the projection's correction launch
     uf2, U, apx_divp = proj.face_interpolated_velocity(
         U, grid, list(cfg.u_bcs), gp=g_prev, dtv=dt,
-        div_scale=1.0 / (grid.h * dt) if cfg.div_in_src else None)
+        div_scale=1.0 / (grid.h * dt) if fold else None)
     _, p, g_cell, _, U = proj.mac_projection(uf2, state["P"], grid,
                                              cfg.p_bc, dt,
                                              cfg.approx_projection, cells=U,

@@ -21,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 SOURCES = tuple(_CSRC / f for f in ("rbgs.cu", "projops.cu", "predict.cu",
-                                        "bcg.cu"))
+                                        "bcg.cu", "rbgs3d.cu"))
 HEADERS = (_CSRC / "stencil.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "gerris_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -94,6 +94,7 @@ _SIGNATURES = {
     "gtt_rbgs_relax": [_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _DP, _I,
                        _I, _P],
     "gtt_coarse_block": [_P, _P, _I, _I, _I, _I, _D, _D, _DP, _I, _P],
+    "gtt_rbgs_relax_3d": [_P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _DP, _P],
     "gtt_divergence_mac": [_P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P],
     "gtt_correct_project": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP,
                             _I, _P, _P, _P, _P, _P, _P, _P],

@@ -1,5 +1,6 @@
 """Godunov/BCG second-order upwind advection
-(port of gerris_tpu/solvers/advection.py; centred unlimited slope).
+(port of gerris_tpu/solvers/advection.py; centred unlimited slope; 2D
+and 3D).
 
 Face value of v at t+dt/2, extrapolated from the upwind cell:
   v_face(+side) = v + min((1-u dt/h)/2, 1/2) * h dv/dx
@@ -65,13 +66,18 @@ def advected_face_values(v, grid: Grid, fbc: bcs.FieldBC, dt,
     (v_plus, v_minus) on the 1-ghost padded cell layout, or None for an
     axis not in ``axes``.  ``uc_pad``: the advecting velocity per
     component, 1-ghost padded.  Reference: src/advection.c:58-99.
-    The ghosts of ``v`` are padded in the CUDA kernels' order (columns
-    first, csrc/stencil.cuh), whose corner ghosts the TPU kernels share
-    (gerris_tpu/ops/pallas/bcg.py, predict.py); the transverse term of a
-    ghost cell next to a corner reads them."""
+    The transverse term of a ghost cell next to an edge reads the corner
+    ghosts.  In 2D the ghosts of ``v`` are padded in the CUDA kernels'
+    order (columns first, csrc/stencil.cuh), whose corner ghosts the TPU
+    kernels share (gerris_tpu/ops/pallas/bcg.py, predict.py); in 3D, with
+    no kernel, as the reference's generic route pads them (corners=False,
+    gerris_tpu/solvers/advection.py:101)."""
     dim = grid.dim
     h = grid.h
-    v2 = bcs.apply_bc(v, grid, fbc, 2, axes=tuple(reversed(range(dim))))
+    if dim == 2:
+        v2 = bcs.apply_bc(v, grid, fbc, 2, axes=(1, 0))
+    else:
+        v2 = bcs.apply_bc(v, grid, fbc, 2, corners=False)
     v1 = v2[tuple(slice(1, s - 1) for s in v2.shape)]
     out = []
     for c in range(dim):

@@ -1,9 +1,9 @@
-"""Geometric multigrid for (L - dia) u = rhs on uniform 2D grids
+"""Geometric multigrid for (L - dia) u = rhs on uniform 2D and 3D grids
 (port of gerris_tpu/solvers/poisson.py: unit coefficients and a scalar
 dia; per-face coefficients and cell-valued dia are slice 3).
 
-L is the unit-coefficient 5-point Laplacian and dia a scalar.  ``solve``
-takes the reference's branches (poisson.py:1090-1162):
+L is the unit-coefficient 5-point (2D) or 7-point (3D) Laplacian and dia
+a scalar.  ``solve`` takes the reference's branches (poisson.py:1090-1162):
 * ``ncycles > 0``: that many fixed sawtooth cycles, each the three-step
   fused cycle of the TPU production path (``fused_cycle``: K1 -> K2 ->
   K3) where the BCs allow it (static values, non-periodic rows), else
@@ -31,6 +31,14 @@ The U+V implicit-diffusion pair solves both systems together, every
 launch of the cycle serving both (``solve_fixed_batched``, K8a-c;
 ``solve_relax_pair``, the "relax" solver's fine-relax-only correction,
 K8a + K8c).
+
+In 3D the reference runs one kernel, K13 ``rbgs_relax_3d``, and so does
+the port (poisson.py:304-319): ``relax`` with homogeneous ghosts and only
+Dirichlet/Neumann sides, so every upward level of a correction.  The
+residual, the 2x2x2 restriction, the trilinear prolongation and the dense
+coarsest solve are torch (the reference's generic jnp route); the fused
+cycle, K1-K3, K11 and K12 are 2D only, and no fixed 3D schedule is
+fused (poisson.py:534-538, :595-598, :648-659).
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ import torch
 from ..core.grid import Grid
 from ..core import bc as bcs
 from ..ops.stencils import norms
-from ..ops.cuda import rbgs
+from ..ops.cuda import rbgs, rbgs3d
 
 # the fused cycle's cascade stops at min(MIN_N, n/4) cells per side, as
 # does K12's
@@ -113,11 +121,13 @@ class SolveStats:
 
 def _signs_offs(grid: Grid, fbc: bcs.FieldBC, homogeneous: bool):
     """(signs, offs) ghost encodings for the kernels (ghost = sign *
-    mirror + off per side; reference poisson.py:628-645)."""
+    mirror + off per side, sides ordered (x lo, x hi, y lo, y hi[, z lo,
+    z hi]); reference poisson.py:628-645)."""
+    dim = len(fbc.sides)
     signs = tuple(-1.0 if fbc.sides[ax][sd].kind == bcs.DIRICHLET else 1.0
-                  for ax in range(2) for sd in range(2))
+                  for ax in range(dim) for sd in range(2))
     offs = []
-    for ax in range(2):
+    for ax in range(dim):
         for sd in range(2):
             b = fbc.sides[ax][sd]
             if homogeneous or b.kind == bcs.PERIODIC:
@@ -130,12 +140,13 @@ def _signs_offs(grid: Grid, fbc: bcs.FieldBC, homogeneous: bool):
 
 
 def _periodic(fbc: bcs.FieldBC):
-    return (fbc.is_periodic(0), fbc.is_periodic(1))
+    return tuple(fbc.is_periodic(a) for a in range(len(fbc.sides)))
 
 
 def _check_2d(grid: Grid):
     if grid.dim != 2:
-        raise NotImplementedError("3D multigrid is slice 2 (ROADMAP Queue 1)")
+        raise NotImplementedError("the fused and paired cycles are 2D (the "
+                                  "reference's are too)")
 
 
 def _scalar_dia(dia) -> float:
@@ -150,30 +161,48 @@ def _scalar_dia(dia) -> float:
 def residual(u, rhs, grid: Grid, fbc: bcs.FieldBC, dia=None,
              homogeneous: bool = False, t: float = 0.0):
     """r = rhs - (L - dia) u (reference: src/poisson.c:634-747,
-    gerris_tpu poisson.py:136-182): K11 where the ghosts are static
-    (homogeneous, or constant values), else the reference's padded route
-    (poisson.py:177-182), which evaluates callable values at time ``t``."""
-    _check_2d(grid)
+    gerris_tpu poisson.py:136-182) where the ghosts are static
+    (homogeneous, or constant values): K11 in 2D, in 3D the reference's
+    shifted-neighbour torch route (``_neighbor_sums_shifted``); else the
+    reference's padded route (poisson.py:177-182), which evaluates
+    callable values at time ``t``."""
     d = _scalar_dia(dia)
+    h2 = grid.h * grid.h
     if homogeneous or bcs.static_values(fbc):
         signs, offs = _signs_offs(grid, fbc, homogeneous)
-        return rbgs.residual(u, rhs, d, h2=grid.h * grid.h, signs=signs,
-                             offs=offs, periodic=_periodic(fbc))
+        if grid.dim == 2:
+            return rbgs.residual(u, rhs, d, h2=h2, signs=signs, offs=offs,
+                                 periodic=_periodic(fbc))
+        nb = rbgs3d.neighbour_sum(u, signs, offs, _periodic(fbc))
+        return rhs - ((nb - 6.0 * u) / h2 - d * u)
     p = bcs.apply_bc(u, grid, fbc, 1, t=t)
-    nb = p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
-    lap = (nb - 4.0 * u) / (grid.h * grid.h)
+    nb = 0.0
+    for axis in range(grid.dim):
+        n = p.shape[axis]
+        inner = [slice(1, s - 1) for s in p.shape]
+        for lo in (0, 2):
+            inner[axis] = slice(lo, lo + n - 2)
+            nb = nb + p[tuple(inner)]
+    lap = (nb - 2.0 * grid.dim * u) / h2
     return rhs - (lap - d * u)
 
 
 def relax(u, rhs, grid: Grid, fbc: bcs.FieldBC, nsweeps: int, dia=None,
           homogeneous: bool = True, omega: float = 1.0):
     """Red-black Gauss-Seidel sweeps (reference: src/poisson.c:507-586):
-    K10 with homogeneous ghosts (the multigrid's sweeps), else the torch
-    route with the BCs' static offsets."""
-    _check_2d(grid)
+    with homogeneous ghosts (the multigrid's sweeps) K10 in 2D, and in 3D
+    K13 where every side is Dirichlet or Neumann (reference
+    poisson.py:304-319); else the torch route with the BCs' static
+    offsets, periodic sides included."""
     d = _scalar_dia(dia)
     h2 = grid.h * grid.h
     signs, offs = _signs_offs(grid, fbc, homogeneous)
+    if grid.dim == 3:
+        if homogeneous and not any(_periodic(fbc)):
+            return rbgs3d.rbgs_relax_3d(u, rhs, d, nsweeps=nsweeps, h2=h2,
+                                        signs=signs, omega=omega)
+        return rbgs3d.rbgs3d_plain(u, rhs, nsweeps, h2, 1.0 / (6.0 + d * h2),
+                                   signs, _periodic(fbc), omega, offs)
     if homogeneous:
         return rbgs.rbgs_relax(u, rhs, d, nsweeps=nsweeps, h2=h2,
                                signs=signs, periodic=_periodic(fbc),
@@ -183,36 +212,50 @@ def relax(u, rhs, grid: Grid, fbc: bcs.FieldBC, nsweeps: int, dia=None,
 
 
 def restrict(r):
-    """Mean of the 2x2 children (reference: get_from_below,
-    src/poisson.c:1044-1068)."""
-    return rbgs.pool_plain(r)
+    """Mean of the 2x2 (2D) or 2x2x2 (3D) children (reference:
+    get_from_below, src/poisson.c:1044-1068)."""
+    if r.dim() == 2:
+        return rbgs.pool_plain(r)
+    n0, n1, n2 = r.shape
+    return r.reshape(n0 // 2, 2, n1 // 2, 2, n2 // 2, 2).mean(dim=(1, 3, 5))
 
 
 def prolong(c, fbc: bcs.FieldBC):
-    """Bilinear prolongation coarse -> fine with homogeneous BCs
-    (reference: get_from_above, src/poisson.c:1005-1042)."""
+    """Bilinear (2D) or trilinear (3D) prolongation coarse -> fine with
+    homogeneous BCs (reference: get_from_above, src/poisson.c:1005-1042;
+    in 3D poisson.py:379-390: axis by axis, weights 0.75/0.25, ghosts
+    sgn * c or wrapped)."""
     signs, _ = _signs_offs(None, fbc, True)
-    return rbgs.prolong_plain(c, signs, _periodic(fbc))
+    if c.dim() == 2:
+        return rbgs.prolong_plain(c, signs, _periodic(fbc))
+    a = c
+    for axis in range(3):
+        lo, hi = rbgs3d.axis_neighbours(a, axis, signs,
+                                        periodic=fbc.is_periodic(axis))
+        shape = list(a.shape)
+        shape[axis] *= 2
+        a = torch.stack([0.75 * a + 0.25 * lo, 0.75 * a + 0.25 * hi],
+                        axis + 1).reshape(shape)
+    return a
 
 
 def _laplacian_matrix(shape, h: float, kinds) -> np.ndarray:
-    """The dense homogeneous-BC Laplacian of a level, row-major cells
-    (reference poisson.py:_coarse_eig)."""
-    n0, n1 = shape
-    A = np.zeros((n0 * n1, n0 * n1))
-    for i in range(n0):
-        for j in range(n1):
-            k = i * n1 + j
-            for axis, pos, n in ((0, i, n0), (1, j, n1)):
-                for side, step in ((0, -1), (1, 1)):
-                    q = pos + step
-                    if 0 <= q < n or kinds[axis][side] == bcs.PERIODIC:
-                        q %= n
-                        A[k, q * n1 + j if axis == 0 else i * n1 + q] += 1.0
-                        A[k, k] -= 1.0
-                    elif kinds[axis][side] == bcs.DIRICHLET:
-                        A[k, k] -= 2.0      # homogeneous ghost = -interior
-                    # homogeneous Neumann: ghost = interior, no net term
+    """The dense homogeneous-BC Laplacian of a 2D or 3D level, row-major
+    cells (reference poisson.py:_coarse_eig)."""
+    ncell = int(np.prod(shape))
+    strides = [int(np.prod(shape[a + 1:])) for a in range(len(shape))]
+    A = np.zeros((ncell, ncell))
+    for pos in np.ndindex(*shape):
+        k = sum(p * s for p, s in zip(pos, strides))
+        for axis, n in enumerate(shape):
+            for side, step in ((0, -1), (1, 1)):
+                q = pos[axis] + step
+                if 0 <= q < n or kinds[axis][side] == bcs.PERIODIC:
+                    A[k, k + (q % n - pos[axis]) * strides[axis]] += 1.0
+                    A[k, k] -= 1.0
+                elif kinds[axis][side] == bcs.DIRICHLET:
+                    A[k, k] -= 2.0      # homogeneous ghost = -interior
+                # homogeneous Neumann: ghost = interior, no net term
     return A / (h * h)
 
 
@@ -247,23 +290,25 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
                dia=None, u_fine=None):
     """The correction phase of one sawtooth cycle (reference
     poisson.py:520-617, src/poisson.c:1109-1166): restrict the residual
-    (restrict2) down the hierarchy, solve the coarsest level, then
-    prolong + relax upward with homogeneous BCs; with ``u_fine`` returns
-    u_fine + du, folded into the last K3 launch.  The coarsest level is
+    (restrict2 in 2D, the 2x2x2 mean in 3D) down the hierarchy, solve the
+    coarsest level, then prolong + relax upward with homogeneous BCs; with
+    ``u_fine`` returns u_fine + du, folded into the last K3 launch in 2D.
+    The coarsest level is
     * K12 (``coarse_vcycle`` with max(coarsest_relax, 40) coarsest sweeps)
-      at ``coarse_top`` when the level is above it and the rows are not
-      periodic;
+      at ``coarse_top`` when the level is 2D, above it, and its rows are
+      not periodic;
     * else the dense solve at the finest level of at most
       ``dense_coarse_max`` unknowns;
     * else ``minlevel``, relaxed from zero with nrelax * erelax**(levels)
       + coarsest_relax sweeps.
-    Upward, each level is one K3 launch, or ``prolong`` + K10 on periodic
-    rows (K3 takes periodic columns only)."""
-    _check_2d(grid)
+    Upward, each 2D level is one K3 launch, or ``prolong`` + K10 on
+    periodic rows (K3 takes periodic columns only); each 3D level is
+    ``prolong`` + ``relax`` (K13)."""
     d = _scalar_dia(dia)
     per_x = fbc.is_periodic(0)
+    flat = grid.dim == 2
     minlevel = min(params.minlevel, grid.level)
-    fused_coarse = not per_x and grid.shape[0] > params.coarse_top
+    fused_coarse = flat and not per_x and grid.shape[0] > params.coarse_top
     if fused_coarse:
         minlevel = params.coarse_top.bit_length() - 1
     else:
@@ -274,7 +319,7 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
              for lv in range(grid.level, minlevel - 1, -1)]
     rs = [r]
     for _ in grids[1:]:
-        rs.append(rbgs.restrict2(rs[-1]))
+        rs.append(rbgs.restrict2(rs[-1]) if flat else restrict(rs[-1]))
     signs, _ = _signs_offs(grid, fbc, True)
     per_y = fbc.is_periodic(1)
     nl = len(grids)
@@ -292,7 +337,7 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
                    + params.coarsest_relax, dia, omega=params.omega)
     for k in range(nl - 2, -1, -1):
         nswp = params.nrelax * params.erelax ** k
-        if not per_x:
+        if flat and not per_x:
             add_u = k == 0 and u_fine is not None
             du = rbgs.prolong_relax(du, rs[k], d, u_fine if add_u else None,
                                     nsweeps=nswp, h2=grids[k].h ** 2,
@@ -319,8 +364,10 @@ def _fused_eligible(u, grid: Grid, fbc: bcs.FieldBC, dia) -> bool:
     dia, static BC values, non-periodic rows, square power-of-two levels
     of at least 4 * MIN_N (reference poisson.py:648-659, without its
     device, dtype and size tests)."""
+    if grid.dim != 2:
+        return False
     n0, n1 = u.shape
-    return (grid.dim == 2 and (dia is None or isinstance(dia, (int, float)))
+    return ((dia is None or isinstance(dia, (int, float)))
             and bcs.static_values(fbc) and not fbc.is_periodic(0)
             and n0 == n1 and n0 >= 4 * MIN_N and not n0 & (n0 - 1))
 
@@ -384,7 +431,6 @@ def solve(u, rhs, grid: Grid, fbc: bcs.FieldBC,
     which callable BC values are evaluated.  Stats of a fused fixed
     schedule report the residual entering the last cycle; the others
     report the residuals before and after the solve."""
-    _check_2d(grid)
     if params.ncycles > 0 and params.solver == "multigrid":
         if _fused_eligible(u, grid, fbc, dia):
             sub = 0.0 if rhs_sub is None else rhs_sub

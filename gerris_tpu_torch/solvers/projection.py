@@ -13,12 +13,20 @@ encoding (ops/cuda/bcg.kernel_spec: periodic rows, inhomogeneous Neumann;
 for the faces also non-Dirichlet normal faces) take the kernels' plain
 versions, the torch route, as in the reference.  The choice is made from
 the configuration only.
+
+In 3D both take the reference's generic torch route (gerris_tpu/solvers/
+projection.py:24-58, :164-167, :201-209, :247-280, :333-343): the
+divergence / dt with its mean subtracted, the solve, face gradients on
+the pressure padded with corners=False, u_f -= dt grad_f p, cell
+gradients as the mean of the two face gradients, and the cells' -dt g
+correction.
 """
 from __future__ import annotations
 
 from ..core.grid import Grid
 from ..core import bc as bcs
 from ..ops.cuda import bcg, projops
+from ..ops.stencils import divergence, face_average, face_gradient
 from . import poisson
 
 
@@ -32,6 +40,8 @@ def mac_projection(u_face: list, p, grid: Grid, p_bc: bcs.FieldBC, dt,
     div_scale), so no divergence launch runs here.  For a pressure BC
     without Dirichlet sides the compatibility mean total / ncells stays on
     the device and is subtracted inside the solver's first kernel."""
+    if grid.dim == 3:
+        return _mac_projection_3d(u_face, p, grid, p_bc, dt, params, cells)
     if div_pre is None:
         div_pre = projops.divergence_mac(u_face[0], u_face[1], dt, grid.h)
     div, total = div_pre
@@ -56,9 +66,33 @@ def face_interpolated_velocity(u_cell: list, grid: Grid, u_bcs: list,
     re-add, src/simulation.c:520), and ``cells`` are the updated cells
     (else the given ones).  ``div_scale``: ``divp`` is the faces'
     divergence scaled by div_scale and its sum (K9's fold of the
-    projection's divergence), else None."""
+    projection's divergence), else None (always in 3D)."""
+    if grid.dim == 3:
+        src = u_cell if gp is None else [u_cell[c] + dtv * gp[c]
+                                         for c in range(3)]
+        faces = [bcs.apply_face_bc(face_average(bcs.apply_bc(
+            src[c], grid, u_bcs[c], 1, corners=False), grid, c), grid,
+            u_bcs[c], c) for c in range(3)]
+        return faces, src, None
     kernel = bcg.applicable(grid) and bcg.face_specs(u_bcs) is not None
     interp = projops.interp_faces if kernel else projops.interp_faces_plain
     out = interp(u_cell[0], u_cell[1], grid, u_bcs, gp, dtv, div_scale)
     divp = None if div_scale is None else (out[4], out[5])
     return [out[0], out[1]], [out[2], out[3]], divp
+
+
+def _mac_projection_3d(u_face, p, grid, p_bc, dt, params, cells):
+    div = divergence(u_face, grid) / dt
+    if not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides for b in ax):
+        div = div - div.mean()
+    p, stats = poisson.solve(p, div, grid, p_bc, params)
+    p_pad = bcs.apply_bc(p, grid, p_bc, 1, corners=False)
+    gf = [face_gradient(p_pad, grid, a) for a in range(3)]
+    u_face = [u_face[c] - dt * gf[c] for c in range(3)]
+    # a cell's gradient: the mean of its two face gradients
+    n = grid.shape
+    g_cell = [0.5 * (f.narrow(a, 0, n[a]) + f.narrow(a, 1, n[a]))
+              for a, f in enumerate(gf)]
+    if cells is not None:
+        cells = [cells[c] - dt * g_cell[c] for c in range(3)]
+    return u_face, p, g_cell, stats, cells

@@ -54,9 +54,10 @@ def fieldbc_from_jax(fbc) -> bcs.FieldBC:
                              for ax in fbc.sides))
 
 
-def params_from_jax(p) -> MultilevelParams:
-    """The schedule the TPU runs for the JAX params ``p``, route by route
-    (gerris_tpu poisson.py:1090-1162): every field carried over, and
+def params_from_jax(p, dim: int = 2) -> MultilevelParams:
+    """The schedule the TPU runs for the JAX params ``p`` on a ``dim``-D
+    grid, route by route (gerris_tpu poisson.py:1090-1162): every field
+    carried over, and in 2D
     * fixed multigrid (ncycles > 0): nrelax raised to ``tpu_nrelax`` and
       the coarsest sweeps to max(coarsest_relax, 2 * tpu_nrelax, 40)
       (:1105-1110, and the fused cycle's :683);
@@ -65,7 +66,9 @@ def params_from_jax(p) -> MultilevelParams:
       (:1139-1143); K12's floor of 40 is applied at its call (:568);
     * a registry solver ("relax", ...): as given, with no floor.
     The TPU applies the floors on its Pallas path (2D, float32, levels of
-    at least 128); the port's schedule does not depend on the device.
+    at least 128); the port's schedule does not depend on the device.  In
+    3D the TPU applies none (``_pallas_relax_applicable`` is False for dim
+    != 2, poisson.py:191), so the params carry over as given.
     ``p=None`` (a diffusion's reference default) gives diffuse's
     default.  The K16/K17 folds are not ported and raise."""
     if p is None:
@@ -75,7 +78,7 @@ def params_from_jax(p) -> MultilevelParams:
                                   "ported yet (ROADMAP Queue 2)")
     fields = {f.name: getattr(p, f.name)
               for f in dataclasses.fields(MultilevelParams)}
-    if p.solver == "multigrid":
+    if p.solver == "multigrid" and dim == 2:
         tpu = p.tpu_nrelax
         fields["nrelax"] = max(p.nrelax, tpu)
         fields["coarsest_relax"] = max(p.coarsest_relax, 2 * tpu)
@@ -98,16 +101,17 @@ def config_from_jax(cfg) -> ns.NSConfig:
                 f"NSConfig.{f.name} = {getattr(cfg, f.name)!r} is outside "
                 "the ported slice (ROADMAP Queue 1)")
     a = cfg.advection
+    dim = cfg.grid.dim
     return ns.NSConfig(
         grid=grid_from_jax(cfg.grid),
         u_bcs=tuple(fieldbc_from_jax(b) for b in cfg.u_bcs),
         p_bc=fieldbc_from_jax(cfg.p_bc),
         advection=AdvectionParams(cfl=a.cfl, gradient=a.gradient,
                                   scheme=a.scheme, gc=a.gc),
-        projection=params_from_jax(cfg.projection),
-        approx_projection=params_from_jax(cfg.approx_projection),
+        projection=params_from_jax(cfg.projection, dim),
+        approx_projection=params_from_jax(cfg.approx_projection, dim),
         nu=float(cfg.nu), beta=float(cfg.beta),
-        diffusion_params=params_from_jax(cfg.diffusion_params),
+        diffusion_params=params_from_jax(cfg.diffusion_params, dim),
         div_in_src=bool(cfg.div_in_src),
         pair_advect=bool(cfg.pair_advect),
         rr_in_advect=bool(cfg.rr_in_advect))

@@ -8,6 +8,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gerris_tpu.core import bc as jbc  # noqa: E402
+from gerris_tpu.core.grid import Grid as JGrid  # noqa: E402
 from gerris_tpu.models import ns as jns  # noqa: E402
 from gerris_tpu.solvers import poisson as jpoisson  # noqa: E402
 
@@ -124,3 +125,37 @@ def test_state_from_numpy_dict_and_npz(tmp_path):
     for n in names:
         assert got[n].dtype == torch.float64
         assert np.array_equal(got[n].numpy(), st[n])
+
+
+def bench_3d_cfg(level=7, dense_coarse_max=4096):
+    """The bench's 3D figure (bench.py:279-294): the lid cavity in 3D
+    under the fixed schedule, projections 1 cycle at omega 1.5 and
+    tpu_nrelax 5, diffusion 1 sweep."""
+    grid = JGrid(level=level, dim=3)
+    ub = jbc.FieldBC.make(3, default=jbc.Dirichlet(0.0),
+                          top=jbc.Dirichlet(1.0))
+    vb = jbc.FieldBC.uniform(jbc.Dirichlet(0.0), 3)
+    mp1 = jpoisson.MultilevelParams(tolerance=1e-3, nitermax=100, ncycles=1,
+                                    omega=1.5, tpu_nrelax=5,
+                                    dense_coarse_max=dense_coarse_max)
+    mpd = dataclasses.replace(mp1, nrelax=1, omega=1.0, tpu_nrelax=1)
+    return jns.NSConfig(grid=grid, u_bcs=(ub, vb, vb), nu=1e-3, beta=1.0,
+                        projection=mp1, approx_projection=mp1,
+                        diffusion_params=mpd)
+
+
+def test_config_from_jax_3d_bench_keeps_schedule():
+    """In 3D the TPU applies no floor (poisson.py:191): the bench's
+    projections keep nrelax 4 and 8 coarsest sweeps, the diffusion 1."""
+    cfg = convert.config_from_jax(bench_3d_cfg())
+    assert cfg.grid.shape == (128, 128, 128)
+    for p in (cfg.projection, cfg.approx_projection):
+        assert (p.nrelax, p.coarsest_relax, p.omega, p.ncycles) == \
+            (4, 8, 1.5, 1)
+    d = cfg.diffusion_params
+    assert (d.nrelax, d.coarsest_relax, d.omega) == (1, 8, 1.0)
+    assert cfg.u_bcs[0].sides[1][1] == tbc.Dirichlet(1.0)
+    assert cfg.p_bc == tbc.default_scalar_bc(3)
+    jp = jpoisson.MultilevelParams(tpu_nrelax=8)
+    assert convert.params_from_jax(jp, dim=3) == tpoisson.MultilevelParams()
+    assert convert.params_from_jax(jp).nrelax == 8

@@ -9,7 +9,8 @@ of sum|div| for a divergence's total; tiled and whole-level K3 and K10
 launches are bit-identical, and so are K4's div across block shapes and
 K11's residual against K1's r0.  A kernel given BCs outside its encoding
 raises.  The adaptive solve on the card is held to the same solve
-through the plain versions.
+through the plain versions, and so are three steps of the 3D lid cavity
+(K13, the 3D smoother, at every level above the dense one).
 """
 import pytest
 
@@ -537,3 +538,110 @@ def test_adaptive_solve_on_the_card(dev, dtype, kind):
         assert _rel(got, ref) <= 1e-10
     else:
         assert abs(st.niter - rst.niter) <= 1
+
+
+MIXED_3D = (-1.0, 1.0, 1.0, -1.0, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,signs,nsweeps,omega,dia", [
+    # the 128^3 bench's projections (Neumann, 4 sweeps, omega 1.5) and
+    # diffusion (the lid's walls, 1 sweep, dia = 1/(dt nu), dt = 0.8 h)
+    ((128, 128, 128), (1.0,) * 6, 4, 1.5, 0.0),
+    ((128, 128, 128), (-1.0,) * 6, 1, 1.0, 1.0 / (0.8 / 128 * 1e-3)),
+    ((32, 32, 32), MIXED_3D, 4, 1.5, 0.0),
+    ((64, 64, 64), MIXED_3D, 3, 1.3, 0.7),
+    ((32, 64, 128), MIXED_3D, 4, 1.5, 0.0),
+    ((5, 7, 9), MIXED_3D, 2, 1.0, 0.3),
+])
+def test_rbgs_relax_3d_kernel(dev, dtype, shape, signs, nsweeps, omega, dia):
+    """K13 against its plain version: one call, 2 * nsweeps half-sweep
+    launches, u left as it was."""
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+    u, rhs = _rnd(dev, dtype, 30, shape, shape)
+    u0 = u.clone()
+    kw = dict(nsweeps=nsweeps, h2=1.0 / shape[0] ** 2, signs=signs,
+              omega=omega)
+    rbgs3d.reset_launch_counts()
+    got = rbgs3d.rbgs_relax_3d(u, rhs, dia, **kw)
+    assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 1,
+                               "rbgs_relax_3d.half_sweep": 2 * nsweeps}
+    assert torch.equal(u, u0)
+    assert _rel(got, rbgs3d.rbgs_relax_3d_plain(u, rhs, dia, **kw)) \
+        <= BOUND[dtype]
+
+
+def test_rbgs_relax_3d_kernel_256(dev):
+    """K13 at 256^3 in float32: no plane limit (the TPU kernel's was 128)."""
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+    u, rhs = _rnd(dev, torch.float32, 31, (256,) * 3, (256,) * 3)
+    kw = dict(nsweeps=4, h2=1.0 / 256 ** 2, signs=(1.0,) * 6, omega=1.5)
+    assert _rel(rbgs3d.rbgs_relax_3d(u, rhs, 0.0, **kw),
+                rbgs3d.rbgs_relax_3d_plain(u, rhs, 0.0, **kw)) <= 1e-5
+
+
+def test_rbgs_relax_3d_kernel_zero_sweeps(dev):
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+    u, rhs = _rnd(dev, torch.float64, 32, (8, 8, 8), (8, 8, 8))
+    out = rbgs3d.rbgs_relax_3d(u, rhs, nsweeps=0, h2=0.1, signs=(1.0,) * 6)
+    assert torch.equal(out, u) and out.data_ptr() != u.data_ptr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_3d_step_kernels_match_plain(dev, dtype):
+    """Three steps of the bench's 3D lid cavity at 32^3 on the card
+    (dense 16^3, K13 at 32^3 only): 5 K13 calls per step, the same steps
+    through the plain K13 to 1e-12 (float64) / 1e-4 (float32)."""
+    import dataclasses
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    ub = bc.FieldBC.make(3, default=bc.Dirichlet(0.0), top=bc.Dirichlet(1.0))
+    vb = bc.FieldBC.uniform(bc.Dirichlet(0.0), 3)
+    proj = MultilevelParams(ncycles=1, omega=1.5)
+    cfg = ns.NSConfig(grid=Grid(level=5, dim=3), u_bcs=(ub, vb, vb), nu=1e-3,
+                      projection=proj, approx_projection=proj,
+                      diffusion_params=dataclasses.replace(proj, nrelax=1,
+                                                           omega=1.0))
+    names = ("U", "V", "W", "P", "Pmac", "Gx", "Gy", "Gz")
+    state = dict(zip(names, (0.1 * a for a in _rnd(
+        dev, dtype, 33, *[(32, 32, 32)] * 8))))
+    dt = 0.8 / 32
+
+    def run():
+        s = dict(state)
+        for _ in range(3):
+            s = ns.ns_step(s, dt, 0.0, cfg)
+        return s
+
+    rbgs3d.reset_launch_counts()
+    got = run()
+    assert rbgs3d.LAUNCHES["rbgs_relax_3d"] == 15
+    k13 = rbgs3d.rbgs_relax_3d
+    rbgs3d.rbgs_relax_3d = rbgs3d.rbgs_relax_3d_plain
+    try:
+        ref = run()
+    finally:
+        rbgs3d.rbgs_relax_3d = k13
+    for k in ("U", "V", "W", "P"):
+        assert _rel(got[k], ref[k]) <= (1e-12 if dtype == torch.float64
+                                        else 1e-4), k
+
+
+def test_rbgs_relax_3d_cuda_never_runs_plain(dev, monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel: the plain version
+    is never reached."""
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(rbgs3d, "rbgs_relax_3d_plain", refuse)
+    monkeypatch.setattr(rbgs3d, "rbgs3d_plain", refuse)
+    u = torch.randn(16, 16, 16, device=dev)
+    rbgs3d.reset_launch_counts()
+    out = rbgs3d.rbgs_relax_3d(u, torch.randn_like(u), nsweeps=2, h2=0.01,
+                               signs=(-1.0,) * 6)
+    assert out.is_cuda
+    assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 1,
+                               "rbgs_relax_3d.half_sweep": 4}
