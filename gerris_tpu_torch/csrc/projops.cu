@@ -58,12 +58,8 @@ __global__ void divergence_mac_kernel(const T* __restrict__ ufx,
   extern __shared__ unsigned char smem_raw[];
   T* red = reinterpret_cast<T*>(smem_raw);
   const Cell c = gtt::this_cell(n0, n1);
-  T d = T(0);
-  if (c.in) {
-    const size_t fx = (size_t)c.i * n1 + c.j;
-    const size_t fy = (size_t)c.i * (n1 + 1) + c.j;
-    d = ((ufx[fx + n1] - ufx[fx]) + (ufy[fy + 1] - ufy[fy])) * scale;
-  }
+  const T d = c.in ? gtt::mac_divergence(ufx, ufy, c.i, c.j, n1, scale)
+                   : T(0);
   gtt::store_div(c, d, n1, div, partials, red);
 }
 
@@ -78,37 +74,21 @@ __global__ void divergence_mac_kernel(const T* __restrict__ ufx,
 // Design: one thread per cell reads p's 5-point stencil with the static
 // ghosts (gtt::at) and forms its four face gradients in registers: its
 // low faces' corrected velocities, the domain's last faces, the cell
-// gradient as the mean of the two face gradients, and the corrected cells.
+// gradient as the mean of the two face gradients, and the corrected cells
+// (gtt::correct_cell, which K17's epilogue shares).
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void correct_project_kernel(
-    const T* __restrict__ p, const T* __restrict__ ufx,
-    const T* __restrict__ ufy, const T* __restrict__ uc,
-    const T* __restrict__ vc, int n0, int n1, T dt, T h, Ghosts<T> g,
-    T* __restrict__ oufx, T* __restrict__ oufy, T* __restrict__ gx,
-    T* __restrict__ gy, T* __restrict__ ouc, T* __restrict__ ovc) {
+__global__ void correct_project_kernel(const T* __restrict__ p, int n0,
+                                       int n1, Ghosts<T> g,
+                                       gtt::Correction<T> o) {
   const Cell c = gtt::this_cell(n0, n1);
   if (!c.in) return;
   const int i = c.i, j = c.j;
-  const size_t k = (size_t)i * n1 + j;
-  const size_t ky = (size_t)i * (n1 + 1) + j;
-  const T pc = p[k];
-  const T gx_lo = (pc - gtt::at(p, i - 1, j, n0, n1, g)) / h;
-  const T gx_hi = (gtt::at(p, i + 1, j, n0, n1, g) - pc) / h;
-  const T gy_lo = (pc - gtt::at(p, i, j - 1, n0, n1, g)) / h;
-  const T gy_hi = (gtt::at(p, i, j + 1, n0, n1, g) - pc) / h;
-  oufx[k] = ufx[k] - dt * gx_lo;
-  if (i == n0 - 1) oufx[k + n1] = ufx[k + n1] - dt * gx_hi;
-  oufy[ky] = ufy[ky] - dt * gy_lo;
-  if (j == n1 - 1) oufy[ky + 1] = ufy[ky + 1] - dt * gy_hi;
-  const T cx = T(0.5) * (gx_lo + gx_hi);
-  const T cy = T(0.5) * (gy_lo + gy_hi);
-  gx[k] = cx;
-  gy[k] = cy;
-  if (uc) {
-    ouc[k] = uc[k] - dt * cx;
-    ovc[k] = vc[k] - dt * cy;
-  }
+  gtt::correct_cell(o, i, j, n0, n1, p[(size_t)i * n1 + j],
+                    gtt::at(p, i - 1, j, n0, n1, g),
+                    gtt::at(p, i + 1, j, n0, n1, g),
+                    gtt::at(p, i, j - 1, n0, n1, g),
+                    gtt::at(p, i, j + 1, n0, n1, g));
 }
 
 // ---------------------------------------------------------------------------
@@ -226,11 +206,13 @@ int launch_correct_project(const void* p, const void* ufx, const void* ufy,
                            void* oufy, void* gx, void* gy, void* ouc,
                            void* ovc, void* stream) {
   const dim3 block(32, 8);
+  const gtt::Correction<T> o{(const T*)ufx, (const T*)ufy, (const T*)uc,
+                             (const T*)vc,  (T*)oufx,       (T*)oufy,
+                             (T*)gx,        (T*)gy,         (T*)ouc,
+                             (T*)ovc,       T(dt),          T(h)};
   correct_project_kernel<T><<<gtt::cell_grid(n0, n1, 32, 8), block, 0,
                               (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)ufx, (const T*)ufy, (const T*)uc, (const T*)vc,
-      n0, n1, T(dt), T(h), gtt::make_ghosts<T>(sgn, off, per_y), (T*)oufx,
-      (T*)oufy, (T*)gx, (T*)gy, (T*)ouc, (T*)ovc);
+      (const T*)p, n0, n1, gtt::make_ghosts<T>(sgn, off, per_y), o);
   return (int)cudaGetLastError();
 }
 

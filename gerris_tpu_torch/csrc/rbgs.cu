@@ -3,7 +3,7 @@
 // (poisson.py:solve_fixed_batched), and the adaptive solve's residual,
 // smoother and coarse cascade (poisson.py:correction, solve_relax).
 //
-// Six kernels, each templated on float and double, behind a plain C
+// Eight kernels, each templated on float and double, behind a plain C
 // interface (loaded with ctypes by gerris_tpu_torch/ops/cuda/rbgs.py):
 //
 //   residual_restrict  r0 = (rhs - sub) - (L - dia) u with static ghosts,
@@ -17,6 +17,10 @@
 //                      on either axis, in one launch;
 //   coarse_block       the whole cascade of a level of at most 64^2 in
 //                      one block;
+//   residual_restrict_div  residual_restrict with rhs = div(uf) / dt formed
+//                      from the MAC faces in the kernel;
+//   prolong_relax_correct  prolong_relax (+ u) with the projection's
+//                      correction by the result as its epilogue;
 //   and the cascades (ops/cuda/rbgs.py:cascade_prolong_relax and
 //   coarse_vcycle) are host sequences of restrict2, prolong_relax and
 //   coarse_block launches.
@@ -53,11 +57,15 @@ constexpr int RR_TILE = 16;  // residual_restrict output tile (4-aligned)
 constexpr int PR_THREADS_X = 32;
 constexpr int PR_THREADS_Y = 8;
 
-// One system of a residual_restrict launch.
+// One system of a residual_restrict launch.  K16 (residual_restrict_div)
+// forms the rhs from the MAC faces ufx, ufy instead of reading rhs.
 template <typename T>
 struct RRSystem {
   const T* u;
   const T* rhs;
+  const T* ufx;
+  const T* ufy;
+  T div_scale;   // 1 / (dt h)
   const T* sub;  // one value in device memory, or nullptr for 0
   T dia;
   T off[4];
@@ -118,8 +126,19 @@ struct PRArgs {
 // 1-cell halo (with the domain ghosts) sit in shared memory, so u is read
 // ~1.27x instead of 5x; r0 stays in shared memory for the two pooling
 // levels, so r1 and r2 never re-read r0 from device memory.
+//
+// K16 residual_restrict_div (DIV = true, batch 1).
+// Replaces gerris_tpu/ops/pallas/rbgs.py:residual_restrict_div
+// (_resid_restrict_div_kernel): the MAC projection's K4 + K1 in one
+// launch on the fold route.
+// Bound: device-memory bytes (reads u, ufx and ufy, writes r0 + r0/4 +
+// r0/16; at 2048^2 f32 4.31 n^2 words, ~72 MB, ~22 us).
+// Design: K1's tile; a thread forms its cell's rhs from the four faces
+// (gtt::mac_divergence, K4's expression) in registers, so div never goes
+// to device memory.  The faces of a tile are read once, coalesced along
+// the rows.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool DIV>
 __global__ void residual_restrict_kernel(RRArgs<T> a) {
   __shared__ T su[RR_TILE + 2][RR_TILE + 2];
   __shared__ T sr[RR_TILE][RR_TILE];
@@ -155,8 +174,10 @@ __global__ void residual_restrict_kernel(RRArgs<T> a) {
   const T c = su[ty + 1][tx + 1];
   const T nb = su[ty][tx + 1] + su[ty + 2][tx + 1] + su[ty + 1][tx] +
                su[ty + 1][tx + 2];
-  const T r = gtt::residual_value(s.rhs[(size_t)gi * n1 + gj] - sub, nb, c,
-                                  a.h2, s.dia);
+  const T rhs = DIV ? gtt::mac_divergence(s.ufx, s.ufy, gi, gj, n1,
+                                          s.div_scale)
+                    : s.rhs[(size_t)gi * n1 + gj];
+  const T r = gtt::residual_value(rhs - sub, nb, c, a.h2, s.dia);
   s.r0[(size_t)gi * n1 + gj] = r;
   sr[ty][tx] = r;
   __syncthreads();
@@ -222,16 +243,18 @@ __global__ void restrict2_kernel(R2Args<T> a) {
 // coarse == nullptr starts from du = 0 (the coarsest level); u != nullptr
 // adds u to the result.
 // ---------------------------------------------------------------------------
+// The prolongation and the sweeps of one block, in its shared buffers buf
+// (du) and rb (rhs), each B x B with B = tile + 2 halo + 2; ends with the
+// block synchronised and du final on the tile and on the halo's cells at
+// most halo - 2 nsweeps + 1 from it.
 template <typename T>
-__global__ void prolong_relax_kernel(PRArgs<T> a) {
-  extern __shared__ unsigned char smem_raw[];
-  const PRSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
+__device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
+                                         const PRSystem<T>& s, T* buf,
+                                         T* rb) {
   const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
   const int per_y = a.per_y;
   const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
   const int B = tile + 2 * halo + 2;
-  T* buf = reinterpret_cast<T*>(smem_raw);
-  T* rb = buf + (size_t)B * B;
   const int gi0 = blockIdx.y * tile - halo - 1;
   const int gj0 = blockIdx.x * tile - halo - 1;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -330,6 +353,20 @@ __global__ void prolong_relax_kernel(PRArgs<T> a) {
     }
     __syncthreads();
   }
+}
+
+template <typename T>
+__global__ void prolong_relax_kernel(PRArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  const PRSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
+  const int n1 = a.n1, tile = a.tile, halo = a.halo;
+  const int B = tile + 2 * halo + 2;
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  T* rb = buf + (size_t)B * B;
+  pr_relax(a, s, buf, rb);
+  const int gi0 = blockIdx.y * tile - halo - 1;
+  const int gj0 = blockIdx.x * tile - halo - 1;
+  const int tx = threadIdx.x, ty = threadIdx.y;
 
   // ---- the tile (+ u)
   for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
@@ -340,6 +377,101 @@ __global__ void prolong_relax_kernel(PRArgs<T> a) {
       const size_t g = (size_t)gi * n1 + gj;
       const T v = buf[li * B + lj];
       s.out[g] = s.u ? v + s.u[g] : v;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K17 prolong_relax_correct (batch 1).
+// Replaces gerris_tpu/ops/pallas/rbgs.py:prolong_relax_correct
+// (_pr_correct_kernel), including the x face n0 that its wrapper appends:
+// the fold route's K3 + K5 in one launch.  p' = u + du as K3 computes it
+// (homogeneous ghosts in the sweeps), then the projection's correction by
+// p' with the real pressure ghosts (sgn * mirror + off): uf' = uf - dt
+// grad_f p', g = the mean of a cell's two face gradients, and with cells
+// U' = U - dt gx, V' = V - dt gy.
+// Bound: device-memory bytes (reads coarse/4, rhs, u, ufx, ufy [, U, V];
+// writes p', ufx', ufy', gx, gy [, U', V']; at 2048^2 f32 9.25 n^2 words,
+// ~155 MB, ~46 us, with the cells 13.25 n^2, ~222 MB, ~66 us).
+// Design: K3's tile and sweeps (pr_relax), then an epilogue.  The face
+// gradients of the tile's cells read p' on a one-cell ring around the
+// tile.  The TPU kernel widens its halo to 2*nsweeps + 1 for that ring
+// (rbgs.py:702), since its window's edge rows are rewritten as ghosts at
+// every half-sweep; K3's buffer keeps a frozen ring beyond its halo of
+// 2*nsweeps, the cells next to which go wrong one per half-sweep, so
+// after 2*nsweeps half-sweeps du is exact on the tile's ring already, at
+// K3's buffer size.  The ring's domain ghosts are then rebuilt from p'
+// with the real BCs (a whole-level block's periodic columns wrap), and
+// each thread finishes its tile cells from the buffer through
+// gtt::correct_cell, K5's per-cell code: its low faces, the domain's last
+// faces, g and the cells.  The faces and cells are read from device
+// memory in the epilogue, not staged in shared memory.
+// ---------------------------------------------------------------------------
+// g: the real pressure BCs' ghosts
+template <typename T>
+__global__ void prolong_relax_correct_kernel(PRArgs<T> a,
+                                             gtt::Correction<T> o,
+                                             gtt::Ghosts<T> g) {
+  extern __shared__ unsigned char smem_raw[];
+  const PRSystem<T>& s = a.sys[0];
+  const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
+  const int B = tile + 2 * halo + 2;
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  T* rb = buf + (size_t)B * B;
+  pr_relax(a, s, buf, rb);
+  const int gi0 = blockIdx.y * tile - halo - 1;
+  const int gj0 = blockIdx.x * tile - halo - 1;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  // a tiled block holds periodic columns across the wrap
+  const bool wrap_y = a.per_y && halo > 0;
+  const int lo = halo, hi = halo + tile + 1;  // the tile and its ring
+
+  // ---- p' = du + u where the ring lies in the domain
+  for (int li = lo + ty; li <= hi; li += PR_THREADS_Y) {
+    const int gi = gi0 + li;
+    if (gi < 0 || gi >= n0) continue;
+    for (int lj = lo + tx; lj <= hi; lj += PR_THREADS_X) {
+      int gj = gj0 + lj;
+      if (wrap_y)
+        gj = (gj + n1) % n1;
+      else if (gj < 0 || gj >= n1)
+        continue;
+      buf[li * B + lj] += s.u[(size_t)gi * n1 + gj];
+    }
+  }
+  __syncthreads();
+  // ---- the ring's domain ghosts from p' with the real BCs
+  for (int li = lo + ty; li <= hi; li += PR_THREADS_Y) {
+    const int gi = gi0 + li;
+    const bool real_i = gi >= 0 && gi < n0;
+    for (int lj = lo + tx; lj <= hi; lj += PR_THREADS_X) {
+      const int gj = gj0 + lj;
+      const bool real_j = wrap_y || (gj >= 0 && gj < n1);
+      const int k = li * B + lj;
+      if (!real_i && real_j) {
+        buf[k] = gi < 0 ? g.s[0] * buf[k + B] + g.o[0]
+                        : g.s[1] * buf[k - B] + g.o[1];
+      } else if (real_i && !real_j) {
+        if (a.per_y)  // a whole-level block: wrap
+          buf[k] = gj < 0 ? buf[k + n1] : buf[k - n1];
+        else
+          buf[k] = gj < 0 ? g.s[2] * buf[k + 1] + g.o[2]
+                          : g.s[3] * buf[k - 1] + g.o[3];
+      }
+    }
+  }
+  __syncthreads();
+  // ---- p' and the correction of the tile's cells
+  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
+    const int i = gi0 + li;
+    for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
+         lj += PR_THREADS_X) {
+      const int j = gj0 + lj;
+      const int k = li * B + lj;
+      const T pc = buf[k];
+      s.out[(size_t)i * n1 + j] = pc;
+      gtt::correct_cell(o, i, j, n0, n1, pc, buf[k - B], buf[k + B],
+                        buf[k - 1], buf[k + 1]);
     }
   }
 }
@@ -705,7 +837,38 @@ int launch_residual_restrict(int batch, const void* const* u,
   a.per_y = per_y;
   dim3 block(RR_TILE, RR_TILE);
   dim3 grid(n1 / RR_TILE, n0 / RR_TILE, batch);
-  residual_restrict_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  residual_restrict_kernel<T, false>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_residual_restrict_div(const void* const* ptr, double dia,
+                                 const double* off, double h2,
+                                 double div_scale, int n0, int n1,
+                                 const double* sgn, int per_y,
+                                 void* stream) {
+  RRArgs<T> a = {};
+  RRSystem<T>& s = a.sys[0];
+  s.u = (const T*)ptr[0];
+  s.ufx = (const T*)ptr[1];
+  s.ufy = (const T*)ptr[2];
+  s.sub = (const T*)ptr[3];
+  s.r0 = (T*)ptr[4];
+  s.r1 = (T*)ptr[5];
+  s.r2 = (T*)ptr[6];
+  s.div_scale = T(div_scale);
+  s.dia = T(dia);
+  for (int k = 0; k < 4; ++k) s.off[k] = T(off[k]);
+  a.h2 = T(h2);
+  a.n0 = n0;
+  a.n1 = n1;
+  for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
+  a.per_y = per_y;
+  dim3 block(RR_TILE, RR_TILE);
+  dim3 grid(n1 / RR_TILE, n0 / RR_TILE, 1);
+  residual_restrict_kernel<T, true>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -727,13 +890,11 @@ int launch_restrict2(int batch, const void* const* r, int n0, int n1,
 }
 
 template <typename T>
-int launch_prolong_relax(int batch, const void* const* coarse,
-                         const void* const* rhs, const void* const* u,
-                         void* const* out, const double* dia, int n0, int n1,
-                         int tile, int halo, int nsweeps, double h2,
-                         double omega, const double* sgn, int per_y,
-                         void* stream) {
-  if (!batch_ok(batch)) return (int)cudaErrorInvalidValue;
+PRArgs<T> prolong_args(int batch, const void* const* coarse,
+                       const void* const* rhs, const void* const* u,
+                       void* const* out, const double* dia, int n0, int n1,
+                       int tile, int halo, int nsweeps, double h2,
+                       double omega, const double* sgn, int per_y) {
   PRArgs<T> a = {};
   for (int b = 0; b < batch; ++b) {
     PRSystem<T>& s = a.sys[b];
@@ -754,6 +915,20 @@ int launch_prolong_relax(int batch, const void* const* coarse,
   a.use_omega = omega != 1.0;
   for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
   a.per_y = per_y;
+  return a;
+}
+
+template <typename T>
+int launch_prolong_relax(int batch, const void* const* coarse,
+                         const void* const* rhs, const void* const* u,
+                         void* const* out, const double* dia, int n0, int n1,
+                         int tile, int halo, int nsweeps, double h2,
+                         double omega, const double* sgn, int per_y,
+                         void* stream) {
+  if (!batch_ok(batch)) return (int)cudaErrorInvalidValue;
+  const PRArgs<T> a =
+      prolong_args<T>(batch, coarse, rhs, u, out, dia, n0, n1, tile, halo,
+                      nsweeps, h2, omega, sgn, per_y);
   const int B = tile + 2 * halo + 2;
   const size_t smem = 2 * (size_t)B * B * sizeof(T);
   cudaError_t e = cudaFuncSetAttribute(
@@ -763,6 +938,37 @@ int launch_prolong_relax(int batch, const void* const* coarse,
   dim3 block(PR_THREADS_X, PR_THREADS_Y);
   dim3 grid(n1 / tile, n0 / tile, batch);
   prolong_relax_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ptr: coarse, rhs, u, ufx, ufy, U, V (nullptr without cells), then the
+// outputs p', ufx', ufy', gx, gy, U', V'
+template <typename T>
+int launch_prolong_relax_correct(const void* const* ptr, double dia, int n0,
+                                 int n1, int tile, int halo, int nsweeps,
+                                 double h2, double omega, double dt,
+                                 double h, const double* sgn,
+                                 const double* off, int per_y,
+                                 void* stream) {
+  void* const* out = (void* const*)(ptr + 7);
+  const PRArgs<T> a = prolong_args<T>(1, ptr, ptr + 1, ptr + 2, out, &dia,
+                                      n0, n1, tile, halo, nsweeps, h2,
+                                      omega, sgn, per_y);
+  const gtt::Correction<T> o{
+      (const T*)ptr[3], (const T*)ptr[4], (const T*)ptr[5], (const T*)ptr[6],
+      (T*)out[1],       (T*)out[2],       (T*)out[3],       (T*)out[4],
+      (T*)out[5],       (T*)out[6],       T(dt),            T(h)};
+  const int B = tile + 2 * halo + 2;
+  const size_t smem = 2 * (size_t)B * B * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(
+      prolong_relax_correct_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 block(PR_THREADS_X, PR_THREADS_Y);
+  dim3 grid(n1 / tile, n0 / tile, 1);
+  prolong_relax_correct_kernel<T>
+      <<<grid, block, smem, (cudaStream_t)stream>>>(
+          a, o, gtt::make_ghosts<T>(sgn, off, per_y));
   return (int)cudaGetLastError();
 }
 
@@ -859,7 +1065,10 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
 // listed (residual_restrict: u, rhs, sub, r0, r1, r2; restrict2: r, out;
 // prolong_relax: coarse, rhs, u, out), so that a launch builds one array;
 // dia is a host array of `batch` entries, the ghost offsets of 4 * batch.
-// residual, rbgs_relax and coarse_block take one system's pointers.
+// residual, rbgs_relax and coarse_block take one system's pointers;
+// residual_restrict_div one table (u, ufx, ufy, sub, r0, r1, r2) and
+// prolong_relax_correct one table (coarse, rhs, u, ufx, ufy, U, V, p',
+// ufx', ufy', gx, gy, U', V'; the cells NULL without them).
 #define GTT_EXPORT(SUFFIX, T)                                                 \
   extern "C" int gtt_residual_restrict_##SUFFIX(                              \
       int batch, void* const* ptr, const double* dia, const double* off,      \
@@ -894,6 +1103,21 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
       const double* sgn, int per_x, int per_y, void* stream) {                \
     return launch_rbgs_relax<T>(u, rhs, out, n0, n1, tile, halo, nsweeps,     \
                                 dia, h2, omega, sgn, per_x, per_y, stream);   \
+  }                                                                           \
+  extern "C" int gtt_residual_restrict_div_##SUFFIX(                          \
+      void* const* ptr, double dia, const double* off, double h2,             \
+      double div_scale, int n0, int n1, const double* sgn, int per_y,         \
+      void* stream) {                                                         \
+    return launch_residual_restrict_div<T>(ptr, dia, off, h2, div_scale, n0,  \
+                                           n1, sgn, per_y, stream);           \
+  }                                                                           \
+  extern "C" int gtt_prolong_relax_correct_##SUFFIX(                          \
+      void* const* ptr, double dia, int n0, int n1, int tile, int halo,       \
+      int nsweeps, double h2, double omega, double dt, double h,              \
+      const double* sgn, const double* off, int per_y, void* stream) {        \
+    return launch_prolong_relax_correct<T>(ptr, dia, n0, n1, tile, halo,      \
+                                           nsweeps, h2, omega, dt, h, sgn,    \
+                                           off, per_y, stream);               \
   }                                                                           \
   extern "C" int gtt_coarse_block_##SUFFIX(                                   \
       const void* r, void* du, int n, int min_n, int nsweeps, int coarsest,   \

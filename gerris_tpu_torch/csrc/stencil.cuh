@@ -1,6 +1,8 @@
-// Helpers shared by the face and projection kernels (projops.cu,
-// predict.cu): ghost-cell reads in the kernels' BC encoding, and the
-// bit-reproducible two-pass sum of a cell field.
+// Helpers shared by the kernels (rbgs.cu, projops.cu, predict.cu, bcg.cu):
+// ghost-cell reads in the kernels' BC encoding, the per-cell expressions
+// that two kernels share (the residual, the MAC divergence, the
+// projection's correction), and the bit-reproducible two-pass sum of a
+// cell field.
 //
 // Ghost encoding per side, sides ordered (x lo, x hi, y lo, y hi):
 // ghost = sgn * mirror + off, where the mirror of ghost layer k is interior
@@ -63,6 +65,64 @@ __device__ __forceinline__ T at(const T* __restrict__ u, int i, int j,
 template <typename T>
 __device__ __forceinline__ T residual_value(T rhs, T nb, T c, T h2, T dia) {
   return rhs - (nb - T(4) * c) / h2 + dia * c;
+}
+
+// The MAC divergence of cell (i, j) times ``scale``: x faces (n0 + 1,
+// n1), y faces (n0, n1 + 1), contiguous.  K4 (divergence_mac) and K16
+// (residual_restrict_div, whose rhs it is) compute a cell through this
+// one expression, so K16's r0 is K1's on K4's div bit for bit.
+template <typename T>
+__device__ __forceinline__ T mac_divergence(const T* __restrict__ ufx,
+                                            const T* __restrict__ ufy, int i,
+                                            int j, int n1, T scale) {
+  const size_t fx = (size_t)i * n1 + j;
+  const size_t fy = (size_t)i * (n1 + 1) + j;
+  return ((ufx[fx + n1] - ufx[fx]) + (ufy[fy + 1] - ufy[fy])) * scale;
+}
+
+// The projection's correction of one cell (K5 correct_project, and K17
+// prolong_relax_correct's epilogue) from p at the cell and its four
+// neighbours up, dn, lf, rt (ghosts included): the face gradients, the
+// cell's low x and y faces uf -= dt grad_f p (and the domain's last
+// faces, i = n0 - 1 and j = n1 - 1), the cell gradient as the mean of its
+// two face gradients, and with cells (uc != nullptr) U, V -= dt g.
+template <typename T>
+struct Correction {
+  const T* ufx;
+  const T* ufy;
+  const T* uc;  // nullptr: no cells
+  const T* vc;
+  T* oufx;
+  T* oufy;
+  T* gx;
+  T* gy;
+  T* ouc;
+  T* ovc;
+  T dt, h;
+};
+
+template <typename T>
+__device__ __forceinline__ void correct_cell(const Correction<T>& o, int i,
+                                             int j, int n0, int n1, T pc,
+                                             T up, T dn, T lf, T rt) {
+  const size_t k = (size_t)i * n1 + j;
+  const size_t ky = (size_t)i * (n1 + 1) + j;
+  const T gx_lo = (pc - up) / o.h;
+  const T gx_hi = (dn - pc) / o.h;
+  const T gy_lo = (pc - lf) / o.h;
+  const T gy_hi = (rt - pc) / o.h;
+  o.oufx[k] = o.ufx[k] - o.dt * gx_lo;
+  if (i == n0 - 1) o.oufx[k + n1] = o.ufx[k + n1] - o.dt * gx_hi;
+  o.oufy[ky] = o.ufy[ky] - o.dt * gy_lo;
+  if (j == n1 - 1) o.oufy[ky + 1] = o.ufy[ky + 1] - o.dt * gy_hi;
+  const T cx = T(0.5) * (gx_lo + gx_hi);
+  const T cy = T(0.5) * (gy_lo + gy_hi);
+  o.gx[k] = cx;
+  o.gy[k] = cy;
+  if (o.uc) {
+    o.ouc[k] = o.uc[k] - o.dt * cx;
+    o.ovc[k] = o.vc[k] - o.dt * cy;
+  }
 }
 
 // Sum of one value per thread over the block, by a shared-memory tree over

@@ -25,7 +25,8 @@ import torch
 from ...core import bc as bcs
 from ...solvers import advection as adv
 from ..stencils import face_average
-from .rbgs import _call, _on_cpu, doubles, pointers, residual_restrict_plain
+from .rbgs import (_call, _on_cpu, check, check_faces, doubles, pointers,
+                   residual_restrict_plain)
 
 # kernel launches by wrapper name, counted only where a kernel launches
 LAUNCHES = {"advect2d": 0, "advect2d_pair": 0}
@@ -113,20 +114,6 @@ def advect_spec(fbc: bcs.FieldBC):
 # Input checks shared by the wrappers
 # -----------------------------------------------------------------------------
 
-def check(t, name, shape):
-    if t.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: dtype {t.dtype}, want float32/float64")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def check_faces(ufx, ufy, n0, n1):
-    check(ufx, "ufx", (n0 + 1, n1))
-    check(ufy, "ufy", (n0, n1 + 1))
-
-
 def refused(name, what):
     return ValueError(f"{name}: {what} outside the kernel's scope; the "
                       "caller takes the plain version for such BCs")
@@ -141,10 +128,14 @@ def advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None,
     """The torch route: BCG face values of ``v`` on both axes with the
     advecting velocities from the MAC faces, the Godunov choice, the gmac
     face correction, the Dirichlet faces of axis ``c`` and the flux
-    difference (reference: src/timestep.c:976-1017)."""
+    difference (reference: src/timestep.c:976-1017).  Corner ghosts in
+    the kernel's order where K14 takes ``fbc``, else the reference's
+    generic route's (solvers/advection.advected_face_values)."""
     uf = [ufx, ufy]
     uc_pad = adv.mac_cell_mean(uf, grid)
-    fvals = adv.advected_face_values(v, grid, fbc, dt, uc_pad)
+    fvals = adv.advected_face_values(
+        v, grid, fbc, dt, uc_pad,
+        kernel_corners=advect_spec(fbc) is not None)
     g_pad = None if g is None else \
         bcs.apply_bc(g, grid, bcs.grad_bc(fbc), 1, corners=False)
     v_faces = []

@@ -30,14 +30,18 @@ def reset_launch_counts():
 def predict_xy_plain(U, V, dt, grid, u_bcs, div_scale=None):
     """The torch route: per component, the BCG values along its own axis,
     the Godunov choice on the centred normal velocity and the Dirichlet
-    boundary faces."""
+    boundary faces.  Corner ghosts in the kernel's order where K6 takes
+    ``u_bcs``, else the reference's generic route's
+    (solvers/advection.advected_face_values)."""
     U = [U, V]
     uc_pad = [bcs.apply_bc(U[c], grid, u_bcs[c], 1, corners=False)
               for c in range(2)]
+    kernel_corners = face_specs(u_bcs) is not None
     uf = []
     for c in range(2):
         vp, vm = adv.advected_face_values(U[c], grid, u_bcs[c], dt, uc_pad,
-                                          axes=(c,))[c]
+                                          axes=(c,),
+                                          kernel_corners=kernel_corners)[c]
         un = face_average(uc_pad[c], grid, c)
         uf.append(bcs.apply_face_bc(adv.upwind_face_value(vp, vm, un, c),
                                     grid, u_bcs[c], c))

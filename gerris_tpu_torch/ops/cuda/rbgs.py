@@ -5,7 +5,10 @@ sawtooth cycle's K1 ``residual_restrict``, K2 ``cascade_prolong_relax``,
 K3 ``prolong_relax``, their U+V pairs K8a ``residual_restrict_pair``, K8b
 ``cascade_prolong_relax_pair`` and K8c ``prolong_relax_pair``, and the
 adaptive solve's K10 ``rbgs_relax``, K11 ``residual`` (the TPU's
-``residual_pallas``) and K12 ``coarse_vcycle``.  The kernels are in
+``residual_pallas``) and K12 ``coarse_vcycle``, and the fold route's K16
+``residual_restrict_div`` (K1 with the MAC divergence as its rhs) and K17
+``prolong_relax_correct`` (K3 with the projection's correction as its
+epilogue).  The kernels are in
 ``gerris_tpu_torch/csrc/rbgs.cu``; each one's source note says what it
 replaces, what bounds it on the H100 and what its design does about it.
 A pair launches the single kernel with a batch of two systems, which
@@ -46,7 +49,8 @@ LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "prolong_relax": 0,
             "cascade_pair.prolong_relax": 0, "residual": 0,
             "rbgs_relax": 0, "coarse_vcycle": 0,
             "coarse_vcycle.restrict2": 0, "coarse_block": 0,
-            "coarse_vcycle.prolong_relax": 0}
+            "coarse_vcycle.prolong_relax": 0, "residual_restrict_div": 0,
+            "prolong_relax_correct": 0}
 
 _SMEM_MAX = 232448        # dynamic shared memory a block may use on sm_90
 _HOMOGENEOUS = (0.0, 0.0, 0.0, 0.0)
@@ -163,6 +167,43 @@ def prolong_relax_plain(coarse, rhs, dia=0.0, u=None, *, nsweeps, h2,
     return du if u is None else du + u
 
 
+def residual_restrict_div_plain(u, ufx, ufy, dtm, dia=0.0, sub=0.0, *, h2,
+                                signs, offs=_HOMOGENEOUS, per_y=False):
+    """K4's divergence div(uf) / dt (``dtm`` = dt * h) as the rhs of K1."""
+    from .projops import divergence_plain  # projops imports this module
+    rhs = divergence_plain(ufx, ufy, 1.0 / dtm)[0]
+    return residual_restrict_plain(u, rhs, dia, sub, h2=h2, signs=signs,
+                                   offs=offs, per_y=per_y)
+
+
+def correct_plain(p, ufx, ufy, dt, h, signs, offs, per_y=False, cells=None):
+    """K5's function (projops.correct_project_plain) with p's ghosts in
+    the kernels' encoding: face gradients of p, uf -= dt grad_f p, the
+    cell gradient as the mean of its two face gradients, and with
+    ``cells`` U, V -= dt g.  Returns (ufx', ufy', gx, gy, U', V'), the
+    last two None without cells."""
+    up, dn, lf, rt = _neighbours(p, signs, offs, (False, per_y))
+    gfx = torch.cat([p[:1] - up[:1], p[1:] - p[:-1], dn[-1:] - p[-1:]]) / h
+    gfy = torch.cat([p[:, :1] - lf[:, :1], p[:, 1:] - p[:, :-1],
+                     rt[:, -1:] - p[:, -1:]], 1) / h
+    gx = 0.5 * (gfx[:-1] + gfx[1:])
+    gy = 0.5 * (gfy[:, :-1] + gfy[:, 1:])
+    cells = (None, None) if cells is None else \
+        (cells[0] - dt * gx, cells[1] - dt * gy)
+    return (ufx - dt * gfx, ufy - dt * gfy, gx, gy) + cells
+
+
+def prolong_relax_correct_plain(coarse, rhs, dia, u, ufx, ufy, dt, h,
+                                cells=None, *, nsweeps, h2, signs, offs,
+                                per_y=False, omega=1.0):
+    """K3 (p' = u + relax^nsweeps(prolong(coarse)), homogeneous ghosts),
+    then K5's correction by p' with the real ghosts (signs, offs)."""
+    p = prolong_relax_plain(coarse, rhs, dia, u, nsweeps=nsweeps, h2=h2,
+                            signs=signs, per_y=per_y, omega=omega)
+    return (p,) + correct_plain(p, ufx, ufy, dt, h, signs, offs, per_y,
+                                cells)
+
+
 def cascade_prolong_relax_plain(r1, r2, dia=0.0, *, nsweeps, coarsest,
                                 h2_half, signs, per_y=False, omega=1.0,
                                 min_n=16):
@@ -251,6 +292,20 @@ def _check_level(t, name, n=None, min_n=16):
         raise ValueError(f"{name}: size {m}, want a power of two >= {min_n}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def check(t, name, shape):
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {t.dtype}, want float32/float64")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def check_faces(ufx, ufy, n0, n1):
+    check(ufx, "ufx", (n0 + 1, n1))
+    check(ufy, "ufy", (n0, n1 + 1))
 
 
 def _check_pair(*lists):
@@ -452,6 +507,70 @@ def prolong_relax_pair(coarses, rhss, dias, us, *, nsweeps, h2, signs,
     return _prolong_relax_cuda(coarses, rhss, dias, us, nsweeps, h2, signs,
                                per_y, omega, tile, whole_max,
                                "prolong_relax_pair")
+
+
+def residual_restrict_div(u, ufx, ufy, dtm, dia=0.0, sub=0.0, *, h2, signs,
+                          offs=_HOMOGENEOUS, per_y=False):
+    """K16: K1's (r0, r1, r2) with the rhs formed in the kernel from the
+    MAC faces ufx (n+1, n) and ufy (n, n+1): rhs = div(uf) / dt, where
+    ``dtm`` = dt * h.  One launch in place of K4 + K1.  ``sub`` as in
+    residual_restrict (the fold route passes 0)."""
+    _check_level(u, "u")
+    n = u.shape[0]
+    check_faces(ufx, ufy, n, n)
+    if _on_cpu(u, ufx, ufy):
+        return residual_restrict_div_plain(u, ufx, ufy, dtm, dia, sub, h2=h2,
+                                           signs=signs, offs=offs,
+                                           per_y=per_y)
+    r0 = torch.empty_like(u)
+    r1, r2 = u.new_empty((n // 2, n // 2)), u.new_empty((n // 4, n // 4))
+    sub_t = _sub_tensor(sub, u)  # held to the launch
+    _call("residual_restrict_div", u.dtype, u.device,
+          pointers((u, ufx, ufy, sub_t, r0, r1, r2)), float(dia),
+          doubles(*offs), float(h2), 1.0 / float(dtm), n, n, doubles(*signs),
+          int(per_y))
+    LAUNCHES["residual_restrict_div"] += 1
+    return r0, r1, r2
+
+
+def prolong_relax_correct(coarse, rhs, dia, u, ufx, ufy, dt, h, cells=None,
+                          *, nsweeps, h2, signs, offs, per_y=False,
+                          omega=1.0, tile=32, whole_max=64):
+    """K17: p' = u + relax^nsweeps(prolong(coarse)) as K3 computes it
+    (homogeneous ghosts), then in the same launch the projection's
+    correction by p' with the real ghosts (signs, offs): (p', ufx', ufy',
+    gx, gy, U', V'), with uf' = uf - dt grad_f p', g the mean of a cell's
+    two face gradients and, with ``cells`` = (U, V), U' = U - dt gx, V' =
+    V - dt gy (else None, None).  One launch in place of K3 + K5."""
+    if u is None:
+        raise ValueError("prolong_relax_correct: u is required")
+    _check_prolong(coarse, rhs, u)
+    n = rhs.shape[0]
+    check_faces(ufx, ufy, n, n)
+    cells = None if cells is None else tuple(cells)
+    for c in cells or ():
+        _check_level(c, "cells", n, min_n=2)
+    if _on_cpu(coarse, rhs, u, ufx, ufy, *(cells or ())):
+        return prolong_relax_correct_plain(
+            coarse, rhs, dia, u, ufx, ufy, dt, h, cells, nsweeps=nsweeps,
+            h2=h2, signs=signs, offs=offs, per_y=per_y, omega=omega)
+    # K3's geometry: its frozen outer ring lies beyond the halo, so du,
+    # and hence p', is exact on the ring around each tile that the tile's
+    # face gradients read (csrc/rbgs.cu, K17's note)
+    tile, halo = _prolong_geometry(n, nsweeps, tile, whole_max,
+                                   rhs.element_size())
+    p = torch.empty_like(rhs)
+    out = [p, torch.empty_like(ufx), torch.empty_like(ufy),
+           torch.empty_like(rhs), torch.empty_like(rhs)]
+    out += [None, None] if cells is None else \
+        [torch.empty_like(rhs), torch.empty_like(rhs)]
+    _call("prolong_relax_correct", rhs.dtype, rhs.device,
+          pointers((coarse, rhs, u, ufx, ufy) + (cells or (None, None)),
+                   out), float(dia), n, n, tile, halo, int(nsweeps),
+          float(h2), float(omega), float(dt), float(h), doubles(*signs),
+          doubles(*offs), int(per_y))
+    LAUNCHES["prolong_relax_correct"] += 1
+    return tuple(out)
 
 
 def _cascade_cuda(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs, per_y,

@@ -61,20 +61,23 @@ def mac_cell_mean(u_face: list, grid: Grid) -> list:
 
 
 def advected_face_values(v, grid: Grid, fbc: bcs.FieldBC, dt,
-                         uc_pad: list, axes=None):
+                         uc_pad: list, axes=None, kernel_corners=False):
     """BCG-extrapolated face values of ``v`` at t+dt/2: per axis
     (v_plus, v_minus) on the 1-ghost padded cell layout, or None for an
     axis not in ``axes``.  ``uc_pad``: the advecting velocity per
     component, 1-ghost padded.  Reference: src/advection.c:58-99.
     The transverse term of a ghost cell next to an edge reads the corner
-    ghosts.  In 2D the ghosts of ``v`` are padded in the CUDA kernels'
-    order (columns first, csrc/stencil.cuh), whose corner ghosts the TPU
-    kernels share (gerris_tpu/ops/pallas/bcg.py, predict.py); in 3D, with
-    no kernel, as the reference's generic route pads them (corners=False,
-    gerris_tpu/solvers/advection.py:101)."""
+    ghosts, and where a boundary face carries flux (periodic, outflow)
+    they reach the result.  By default the ghosts of ``v`` are padded as
+    the reference's generic route pads them (corners=False,
+    gerris_tpu/solvers/advection.py:101).  ``kernel_corners`` (2D): pad
+    them in the CUDA kernels' order (columns first, csrc/stencil.cuh),
+    whose corner ghosts the TPU kernels share (gerris_tpu/ops/pallas/
+    bcg.py, predict.py); the plain versions of K6/K14/K7 ask for it on
+    the BCs their kernels take, and only there."""
     dim = grid.dim
     h = grid.h
-    if dim == 2:
+    if kernel_corners and dim == 2:
         v2 = bcs.apply_bc(v, grid, fbc, 2, axes=(1, 0))
     else:
         v2 = bcs.apply_bc(v, grid, fbc, 2, corners=False)

@@ -65,8 +65,7 @@ COARSEST_FLOOR = 40
 class MultilevelParams:
     """The solver's schedule (reference: GfsMultilevelParams,
     src/poisson.c:40-126, and gerris_tpu MultilevelParams, whose fields
-    and defaults these are, without its TPU floor ``tpu_nrelax`` and its
-    unported K16/K17 folds).
+    and defaults these are, without its TPU floor ``tpu_nrelax``).
 
     tolerance: the adaptive loop stops at max|r| <= tolerance * max|rhs|;
     nrelax: RBGS sweeps per level (times erelax**k at k levels above the
@@ -77,7 +76,11 @@ class MultilevelParams:
     fixed cycles with no tolerance check, 0 the adaptive loop;
     coarse_top: the level at and below which K12 runs the whole cascade;
     dense_coarse_max: the most unknowns of a dense direct coarsest solve
-    (0 disables it)."""
+    (0 disables it); fold_div: a MAC projection's one fixed cycle forms
+    its divergence rhs inside its first kernel (K16, solve_fused_div),
+    where fold_div_eligible holds; fold_correct: with fold_div, the
+    projection's correction also runs inside its last kernel (K17,
+    solve_fused_div_correct)."""
 
     tolerance: float = 1e-3
     nrelax: int = 4
@@ -91,6 +94,8 @@ class MultilevelParams:
     ncycles: int = 0
     coarse_top: int = 512
     dense_coarse_max: int = 4096
+    fold_div: bool = False
+    fold_correct: bool = False
 
 
 @dataclasses.dataclass
@@ -399,6 +404,71 @@ def fused_cycle(u, rhs, grid: Grid, fbc: bcs.FieldBC,
     u = rbgs.prolong_relax(du, r0, d, u, nsweeps=params.nrelax, h2=h2,
                            signs=signs, per_y=per_y, omega=params.omega)
     return u, r0
+
+
+def fold_div_eligible(u, grid: Grid, fbc: bcs.FieldBC,
+                      params: MultilevelParams) -> bool:
+    """Does a MAC projection take the folded solve (reference
+    poisson.py:770-778)?  ``fold_div``, one fixed multigrid cycle, no
+    Dirichlet side in the pressure BCs (so the compatibility mean is
+    analytically zero), and the fused cycle's levels and BCs."""
+    return (params.fold_div and params.ncycles == 1
+            and params.solver == "multigrid"
+            and not any(b.kind == bcs.DIRICHLET
+                        for ax in fbc.sides for b in ax)
+            and _fused_eligible(u, grid, fbc, None))
+
+
+def _fold_cycle(u, ufx, ufy, grid, fbc, params, dt, dia):
+    """K16 -> K2 of a folded solve: r0 = div(uf) / dt - (L - dia) u with
+    sub = 0 (the reference drops the compatibility mean here, poisson.py:
+    711-714, and so does the port) and its pools, then the correction at
+    and below n/2.  Returns (r0, du at n/2, the fine level's K3 or K17
+    arguments)."""
+    signs, offs = _signs_offs(grid, fbc, homogeneous=False)
+    per_y = fbc.is_periodic(1)
+    d = _scalar_dia(dia)
+    h2 = grid.h * grid.h
+    r0, r1, r2 = rbgs.residual_restrict_div(u, ufx, ufy, dt * grid.h, d, 0.0,
+                                            h2=h2, signs=signs, offs=offs,
+                                            per_y=per_y)
+    du = rbgs.cascade_prolong_relax(
+        r1, r2, d, nsweeps=params.nrelax,
+        coarsest=max(params.coarsest_relax, COARSEST_FLOOR),
+        h2_half=4.0 * h2, signs=signs, per_y=per_y, omega=params.omega,
+        min_n=MIN_N)
+    fine = dict(nsweeps=params.nrelax, h2=h2, signs=signs, per_y=per_y,
+                omega=params.omega)
+    return r0, du, d, offs, fine
+
+
+def solve_fused_div(u, ufx, ufy, grid: Grid, fbc: bcs.FieldBC,
+                    params: MultilevelParams, dt, dia=None):
+    """The MAC projection's one fixed cycle with its rhs div(uf) / dt
+    formed inside the first kernel (reference poisson.py:693-727): K16
+    ``residual_restrict_div`` -> K2 -> K3 (+ u), so no divergence launch
+    runs.  The caller checks fold_div_eligible.  Stats report r0 before
+    and after, as the reference does.  Returns (p, stats)."""
+    r0, du, d, _, fine = _fold_cycle(u, ufx, ufy, grid, fbc, params, dt,
+                                     dia)
+    u = rbgs.prolong_relax(du, r0, d, u, **fine)
+    return u, SolveStats(niter=1, r_before=r0, r_after=r0)
+
+
+def solve_fused_div_correct(u, ufx, ufy, grid: Grid, fbc: bcs.FieldBC,
+                            params: MultilevelParams, dt, cells=None,
+                            dia=None):
+    """solve_fused_div with the projection's correction in its last
+    kernel (reference poisson.py:730-761): K16 -> K2 -> K17
+    ``prolong_relax_correct``, the whole MAC projection in three
+    launches.  Returns (ufx', ufy', p, gx, gy, stats[, U', V'])."""
+    r0, du, d, offs, fine = _fold_cycle(u, ufx, ufy, grid, fbc, params, dt,
+                                        dia)
+    p, ufx, ufy, gx, gy, uc, vc = rbgs.prolong_relax_correct(
+        du, r0, d, u, ufx, ufy, dt, grid.h, cells, offs=offs, **fine)
+    stats = SolveStats(niter=1, r_before=r0, r_after=r0)
+    out = (ufx, ufy, p, gx, gy, stats)
+    return out if cells is None else out + (uc, vc)
 
 
 def _solve_adaptive(u, rhs, grid, fbc, params, dia, t, r, tol):

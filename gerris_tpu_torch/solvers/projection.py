@@ -14,6 +14,13 @@ for the faces also non-Dirichlet normal faces) take the kernels' plain
 versions, the torch route, as in the reference.  The choice is made from
 the configuration only.
 
+With ``fold_div`` (poisson.fold_div_eligible) and no producer divergence,
+a MAC projection takes the reference's fold route (projection.py:
+135-155): its one cycle forms the divergence inside K16
+``residual_restrict_div``, then runs K2, K3 and the K5 correction, or
+with ``fold_correct`` K2 and K17 ``prolong_relax_correct``, whose
+epilogue is the correction: three launches per projection.
+
 In 3D both take the reference's generic torch route (gerris_tpu/solvers/
 projection.py:24-58, :164-167, :201-209, :247-280, :333-343): the
 divergence / dt with its mean subtracted, the solve, face gradients on
@@ -39,16 +46,32 @@ def mac_projection(u_face: list, p, grid: Grid, p_bc: bcs.FieldBC, dt,
     that the producer of ``u_face`` already emitted (K6/K9 with
     div_scale), so no divergence launch runs here.  For a pressure BC
     without Dirichlet sides the compatibility mean total / ncells stays on
-    the device and is subtracted inside the solver's first kernel."""
+    the device and is subtracted inside the solver's first kernel, except
+    on the fold route, which drops it as the reference does."""
     if grid.dim == 3:
         return _mac_projection_3d(u_face, p, grid, p_bc, dt, params, cells)
-    if div_pre is None:
-        div_pre = projops.divergence_mac(u_face[0], u_face[1], dt, grid.h)
-    div, total = div_pre
-    rhs_sub = None
-    if not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides for b in ax):
-        rhs_sub = total / div.numel()
-    p, stats = poisson.solve(p, div, grid, p_bc, params, rhs_sub=rhs_sub)
+    if (div_pre is None and bcg.applicable(grid)
+            and poisson.fold_div_eligible(p, grid, p_bc, params)):
+        # the fold route (reference projection.py:135-155): the divergence
+        # is formed inside K16, and with fold_correct the correction runs
+        # inside K17
+        if params.fold_correct:
+            out = poisson.solve_fused_div_correct(
+                p, u_face[0], u_face[1], grid, p_bc, params, dt, cells)
+            cells = None if cells is None else [out[6], out[7]]
+            return [out[0], out[1]], out[2], [out[3], out[4]], out[5], cells
+        p, stats = poisson.solve_fused_div(p, u_face[0], u_face[1], grid,
+                                           p_bc, params, dt)
+    else:
+        if div_pre is None:
+            div_pre = projops.divergence_mac(u_face[0], u_face[1], dt,
+                                             grid.h)
+        div, total = div_pre
+        rhs_sub = None
+        if not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides
+                   for b in ax):
+            rhs_sub = total / div.numel()
+        p, stats = poisson.solve(p, div, grid, p_bc, params, rhs_sub=rhs_sub)
     kernel = bcg.applicable(grid) and bcg.kernel_spec(p_bc) is not None
     correct = projops.correct_project if kernel else \
         projops.correct_project_plain

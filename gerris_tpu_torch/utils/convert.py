@@ -70,12 +70,12 @@ def params_from_jax(p, dim: int = 2) -> MultilevelParams:
     3D the TPU applies none (``_pallas_relax_applicable`` is False for dim
     != 2, poisson.py:191), so the params carry over as given.
     ``p=None`` (a diffusion's reference default) gives diffuse's
-    default.  The K16/K17 folds are not ported and raise."""
+    default.  ``fold_div`` and ``fold_correct`` (the bench's
+    GERRIS_FOLD_DIV / GERRIS_FOLD_CORRECT, bench.py:142-150) carry over:
+    a MAC projection then takes the K16/K17 fold route where
+    poisson.fold_div_eligible holds."""
     if p is None:
         return DEFAULT_PARAMS
-    if getattr(p, "fold_div", False) or getattr(p, "fold_correct", False):
-        raise NotImplementedError("fold_div/fold_correct (K16/K17) are not "
-                                  "ported yet (ROADMAP Queue 2)")
     fields = {f.name: getattr(p, f.name)
               for f in dataclasses.fields(MultilevelParams)}
     if p.solver == "multigrid" and dim == 2:

@@ -59,12 +59,22 @@ def test_params_from_jax_floors(jp, want):
 
 
 def test_params_from_jax_refuses_folds_and_maps_none():
+    """None maps to diffuse's default.  The fold knobs, which the port
+    refused before K16/K17, now carry over as the bench sets them
+    (bench.py:142-150: GERRIS_FOLD_CORRECT sets both)."""
     assert convert.params_from_jax(None).ncycles == 0
     # diffuse's default (gerris_tpu/solvers/diffusion.py:40-44)
     assert convert.params_from_jax(None) == tpoisson.MultilevelParams(
         tolerance=1e-3, nitermax=10)
-    with pytest.raises(NotImplementedError):
-        convert.params_from_jax(jpoisson.MultilevelParams(fold_div=True))
+    for fold_div, fold_correct in ((True, False), (True, True)):
+        jp = jpoisson.MultilevelParams(tolerance=1e-3, nitermax=100,
+                                       ncycles=1, omega=1.5, tpu_nrelax=5,
+                                       fold_div=fold_div,
+                                       fold_correct=fold_correct)
+        assert convert.params_from_jax(jp) == tpoisson.MultilevelParams(
+            nrelax=5, omega=1.5, coarsest_relax=40, ncycles=1,
+            fold_div=fold_div, fold_correct=fold_correct)
+    assert not convert.params_from_jax(jpoisson.MultilevelParams()).fold_div
 
 
 def test_config_from_jax_bench():

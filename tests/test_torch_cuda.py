@@ -7,10 +7,12 @@ Tolerances: float64 1e-12 and float32 1e-5 (1e-4 for the cascade, whose
 40 coarsest sweeps accumulate rounding, as K12's do) of max|plain|, and
 of sum|div| for a divergence's total; tiled and whole-level K3 and K10
 launches are bit-identical, and so are K4's div across block shapes and
-K11's residual against K1's r0.  A kernel given BCs outside its encoding
-raises.  The adaptive solve on the card is held to the same solve
-through the plain versions, and so are three steps of the 3D lid cavity
-(K13, the 3D smoother, at every level above the dense one).
+K11's residual against K1's r0, and K17 across tiles.  A kernel given BCs
+outside its encoding raises.  The adaptive solve on the card is held to
+the same solve through the plain versions, and so are three steps of the
+3D lid cavity (K13, the 3D smoother, at every level above the dense
+one); three steps of the fold route (K16, K2, K17 per projection) are
+held to the unfolded route.
 """
 import pytest
 
@@ -645,3 +647,106 @@ def test_rbgs_relax_3d_cuda_never_runs_plain(dev, monkeypatch):
     assert out.is_cuda
     assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 1,
                                "rbgs_relax_3d.half_sweep": 4}
+
+
+# the fold route's pressure ghosts: the lid's (homogeneous Neumann),
+# inhomogeneous Neumann, and Neumann rows with periodic columns
+FOLD_GHOSTS = [((1.0,) * 4, (0.0,) * 4, False),
+               ((1.0,) * 4, (-0.25 / 256, -0.5 / 256, 0.4 / 256, 0.75 / 256),
+                False),
+               ((1.0,) * 4, (-0.25 / 256, 0.0, 0.0, 0.0), True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("signs,offs,per_y", FOLD_GHOSTS)
+def test_residual_restrict_div_kernel(dev, dtype, signs, offs, per_y):
+    """K16 against its plain version (K4's divergence as K1's rhs), with a
+    device-side sub and without."""
+    n = 256
+    u, ufx, ufy, sub = _rnd(dev, dtype, 31, (n, n), (n + 1, n), (n, n + 1),
+                            (1,))
+    kw = dict(h2=1.0 / n ** 2, signs=signs, offs=offs, per_y=per_y)
+    for s in (0.0, sub):
+        rbgs.reset_launch_counts()
+        got = rbgs.residual_restrict_div(u, ufx, ufy, 0.3 / n ** 2, 0.0, s,
+                                         **kw)
+        assert rbgs.LAUNCHES["residual_restrict_div"] == 1
+        ref = rbgs.residual_restrict_div_plain(u, ufx, ufy, 0.3 / n ** 2,
+                                               0.0, s, **kw)
+        for a, b in zip(got, ref):
+            assert _rel(a, b) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_cells", [False, True])
+@pytest.mark.parametrize("n", [256, 64])
+@pytest.mark.parametrize("signs,offs,per_y", FOLD_GHOSTS)
+def test_prolong_relax_correct_kernel(dev, dtype, with_cells, n, signs, offs,
+                                      per_y):
+    """K17 against its plain version (K3 + K5's correction), each output
+    relative to its own max; tiled (256^2) and whole-level (64^2)."""
+    c, rhs, u, ufx, ufy, U, V = _rnd(
+        dev, dtype, 32, (n // 2, n // 2), (n, n), (n, n), (n + 1, n),
+        (n, n + 1), (n, n), (n, n))
+    cells = (U, V) if with_cells else None
+    kw = dict(nsweeps=5, h2=1.0 / n ** 2, signs=signs, offs=offs,
+              per_y=per_y, omega=1.5)
+    rbgs.reset_launch_counts()
+    got = rbgs.prolong_relax_correct(c, rhs, 0.0, u, ufx, ufy, 0.4 / n,
+                                     1.0 / n, cells, **kw)
+    assert rbgs.LAUNCHES["prolong_relax_correct"] == 1
+    ref = rbgs.prolong_relax_correct_plain(c, rhs, 0.0, u, ufx, ufy, 0.4 / n,
+                                           1.0 / n, cells, **kw)
+    for a, b in zip(got, ref):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _rel(a, b) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("per_y", [False, True])
+def test_prolong_relax_correct_tile_invariance(dev, per_y):
+    """K17 bit-identical across tiles 32 and 16, and whole-level against
+    tiled at 64^2."""
+    signs, offs = (1.0,) * 4, (-0.001, 0.002, 0.0, 0.0)
+    for n, kws in ((256, (dict(tile=32), dict(tile=16))),
+                   (64, (dict(), dict(tile=16, whole_max=32)))):
+        c, rhs, u, ufx, ufy, U, V = _rnd(
+            dev, torch.float32, 33, (n // 2, n // 2), (n, n), (n, n),
+            (n + 1, n), (n, n + 1), (n, n), (n, n))
+        kw = dict(nsweeps=5, h2=1.0 / n ** 2, signs=signs, offs=offs,
+                  per_y=per_y, omega=1.5)
+        a, b = (rbgs.prolong_relax_correct(c, rhs, 0.0, u, ufx, ufy, 0.4 / n,
+                                           1.0 / n, (U, V), **kw, **k)
+                for k in kws)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), n
+
+
+def test_fold_step_matches_unfolded_on_the_card(dev):
+    """Three steps of the 64^2 lid cavity on the fold_correct route (K16,
+    K2, K17 per projection) against the unfolded route, float64."""
+    import dataclasses
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    proj = MultilevelParams(nrelax=5, omega=1.5, coarsest_relax=40,
+                            ncycles=1)
+    cfg = ns.NSConfig(grid=Grid(level=6), u_bcs=_velocity_bcs(False),
+                      nu=1e-3, beta=1.0, projection=proj,
+                      approx_projection=proj,
+                      diffusion_params=dataclasses.replace(proj, nrelax=1,
+                                                           omega=1.0),
+                      pair_advect=True)
+    fold = dataclasses.replace(proj, fold_div=True, fold_correct=True)
+    folded = dataclasses.replace(cfg, projection=fold, approx_projection=fold)
+    runs = {}
+    for name, c in (("unfolded", cfg), ("fold", folded)):
+        rbgs.reset_launch_counts()
+        sim = Simulation(c, time=Time(dtmax=0.8 / 64), device=dev,
+                         dtype=torch.float64).init()
+        runs[name] = sim.run(max_steps=3).state
+        if name == "fold":
+            assert rbgs.LAUNCHES["residual_restrict_div"] == 7
+            assert rbgs.LAUNCHES["prolong_relax_correct"] == 7
+            assert rbgs.LAUNCHES["residual_restrict"] == 0
+    for k in ("U", "V"):
+        assert _rel(runs["fold"][k], runs["unfolded"][k]) <= 1e-9, k
