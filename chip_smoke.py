@@ -26,9 +26,12 @@ Phases (any failure ends the run with a non-zero exit and no result):
      without the cells), plus K17's tile invariance; the 3D smoother K13
      at 128^3 with the projections' and the diffusion's settings, at
      32^3, 64^3 and (32, 64, 128) with mixed sides, and at 256^3
-     (float32); then each
-     kernel's time against its plain version's at the main-path shapes
-     (K13 at 128^3), float32 (CUDA events);
+     (float32); the two-phase smoother K15 at 1024^2 (walls, periodic
+     rows, doubly periodic; scalar and cell dia; omega 1 and 1.5; 8 and
+     24 sweeps; zero-diagonal cells) and at every level down to 4^2,
+     plus its tile invariance; then each kernel's time against its plain
+     version's at the main-path shapes (K13 at 128^3, K15 at 1024^2),
+     float32 (CUDA events);
   3. main path: Simulation.init() + 20 steps of the 2048^2 lid cavity under
      the bench's configuration (pair_advect: K7 and the K8 pair), float32,
      through the kernels: finite values, launch counts, agreement with the
@@ -64,11 +67,20 @@ Phases (any failure ends the run with a non-zero exit and no result):
      ``cups_3d_128`` and a profile; and ``poisson3d``, a Neumann box
      solved adaptively in float64 at 64^3 and 128^3 (the torch residual,
      the dense 16^3 solve, K13), its second order gated and held to the
-     plain route;
+     plain route; then ``twophase``, __graft_entry__._dryrun_twophase at
+     1024^2 in float32 (VOF, height-function tension, density 10/1, the
+     default adaptive solves on the TPU's floored schedule): init + 20
+     steps through K6, K4, K15 in every correction of the four alpha
+     solves per step, K14 per component and K9, launches gated from every
+     solve's recorded cycle count, finite values, T's volume, the first 5
+     steps held to the plain versions, five timed windows and a profile;
   4. physics: the 64^2 lid cavity under the bench's configuration to
      steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
      float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
-     and by the reference's measure (tests/test_lid.py).
+     and by the reference's measure (tests/test_lid.py); and the
+     reference's test/oscillation at level 6 in float32 to t = 1
+     (tests/test_oscillation.py): the fitted frequency within 0.5% of the
+     reference's 153.984, decaying.
 The last two lines are the kernels' JSON record and the device line.
 """
 import contextlib
@@ -150,6 +162,32 @@ K13_LEVELS = 3
 K13_PER_STEP = K13_LEVELS * (2 + 3)
 K13_HALF_SWEEPS_PER_STEP = K13_LEVELS * 2 * (2 * 4 + 3 * 1)
 
+# twophase: __graft_entry__._dryrun_twophase at full width, 1024^2
+# float32 (VOF, height-function tension, variable density 10 / 1)
+LEVEL_TWOPHASE = 10
+TWOPHASE_STEPS = 20
+TWOPHASE_CHECK_STEPS = 5
+TWOPHASE_TIMED_STEPS = 10
+TWOPHASE_PROFILE_STEPS = 5
+# K15 launches per correction at 1024^2: every level from 1024^2 down to
+# minlevel 2 (4^2), 1 at the coarsest and 8 upward; the correction's
+# residual restrictions (restrict2) between them
+K15_LEVELS = LEVEL_TWOPHASE - 2 + 1
+# |sum(T) - sum(T0)| / sum(T0) after init + TWOPHASE_STEPS steps in
+# float32: the direction-split advection with its dilation bookkeeping
+# conserves the volume to float32 rounding; the first run on an H100
+# measured 3.1e-10, and the bound leaves 30x that for the rounding of
+# other runs
+TWOPHASE_VOLUME_RTOL = 1e-8
+# the reference's test/oscillation (tests/test_oscillation.py): a
+# quarter droplet D 0.2, mode-2 perturbation 0.05, sigma 1, rho 1 / 1e-3,
+# nu 0, projections to 1e-4, level 6, to t = 1; the frequency of the fit
+# within 0.5% of the reference's fit.ref column (L6 153.984)
+OSC_LEVEL = 6
+OSC_D, OSC_EPS, OSC_SIGMA, OSC_RHO_L, OSC_RHO_G = 0.2, 0.05, 1.0, 1.0, 1e-3
+OSC_REF_C = 153.984
+OSC_RTOL = 0.005
+
 ERR_KEYS = ("max_abs_err", "max_rel_err")
 CSRC = "gerris_tpu_torch/csrc/"
 # wrapper -> (source, the TPU kernel it replaces)
@@ -186,6 +224,8 @@ KERNELS = {
                               "gerris_tpu/ops/pallas/rbgs.py:1111"),
     "prolong_relax_correct": (CSRC + "rbgs.cu",
                               "gerris_tpu/ops/pallas/rbgs.py:685"),
+    "rbgs_relax_alpha": (CSRC + "rbgs.cu",
+                         "gerris_tpu/ops/pallas/rbgs.py:1601"),
 }
 # the kernels of the adaptive routes, and the route whose run gives each
 # one's launches
@@ -246,6 +286,7 @@ def want_launches(route, steps):
         "coarse_vcycle.restrict2": 0, "coarse_block": 0,
         "coarse_vcycle.prolong_relax": 0,
         "rbgs_relax_3d": 0, "rbgs_relax_3d.half_sweep": 0,
+        "rbgs_relax_alpha": 0,
     }
 
 
@@ -287,7 +328,7 @@ OWN_KERNELS = ("residual_restrict_kernel", "restrict2_kernel",
                "predict_xy_kernel", "advect2d_kernel", "advect2d_pair_kernel",
                "sum_partials_kernel", "residual_kernel", "rbgs_relax_kernel",
                "coarse_block_kernel", "rbgs3d_half_sweep_kernel",
-               "prolong_relax_correct_kernel")
+               "prolong_relax_correct_kernel", "rbgs_relax_alpha_kernel")
 
 
 def schedules():
@@ -438,7 +479,7 @@ def plain_versions():
              (predict, "predict_xy"), (bcg, "advect2d"),
              (bcg, "advect2d_pair"), (rbgs3d, "rbgs_relax_3d"),
              (rbgs, "residual_restrict_div"),
-             (rbgs, "prolong_relax_correct")]
+             (rbgs, "prolong_relax_correct"), (rbgs, "rbgs_relax_alpha")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         plain = "pool_plain" if name == "restrict2" else name + "_plain"
@@ -839,6 +880,124 @@ def check_relax_tiles(rnd):
           "periodicity; 40 sweeps over two launches: bit-identical")
 
 
+ALPHA_CASES = (("walls", (-1.0, -1.0, -1.0, -1.0), (False, False)),
+               ("per_x", (1.0, 1.0, -1.0, 1.0), (True, False)),
+               ("per_xy", (1.0, 1.0, 1.0, 1.0), (True, True)))
+
+
+def alpha_system(rnd, dtype, n, periodic, cell, dead):
+    """u, rhs, positive face coefficients (face n = face 0 on a periodic
+    axis, as the two-phase coefficients are), a scalar or positive cell
+    dia; ``dead``: a few cells with all four faces and dia zero."""
+    u, rhs = rnd(dtype, n, n), rnd(dtype, n, n)
+    ax = 0.2 + rnd(dtype, n + 1, n).abs()
+    ay = 0.2 + rnd(dtype, n, n + 1).abs()
+    dia = 0.5 + rnd(dtype, n, n).abs() if cell else 0.3
+    if periodic[0]:
+        ax[n] = ax[0]
+    if periodic[1]:
+        ay[:, n] = ay[:, 0]
+    if dead:
+        for i, j in ((1, 2), (n // 2, n // 2 + 1), (n - 2, 3)):
+            ax[i, j] = ax[i + 1, j] = ay[i, j] = ay[i, j + 1] = 0.0
+            if cell:
+                dia[i, j] = 0.0
+        if not cell:
+            dia = 0.0
+    return u, rhs, ax, ay, dia
+
+
+def check_alpha_kernels(rnd, dtype, record):
+    """K15 against its plain version at 1024^2 (the twophase route's
+    finest level): walls, periodic rows, doubly periodic; scalar and cell
+    dia; omega 1 and 1.5; 8 sweeps (every upward level) and 24 (the
+    coarsest level's 8 + 16); with zero-diagonal cells, which keep their
+    value.  Then every level size of a correction down to 4^2."""
+    from gerris_tpu_torch.ops.cuda import rbgs
+    name = str(dtype).replace("torch.", "")
+    b = BOUND[name]
+    n = 1 << LEVEL_TWOPHASE
+    errs = []
+    for kind, signs, per in ALPHA_CASES:
+        for cell in (False, True):
+            for omega, nsw, dead in ((1.0, 8, False), (1.5, 8, True),
+                                     (1.0, 24, True), (1.5, 24, False)):
+                u, rhs, ax, ay, dia = alpha_system(rnd, dtype, n, per, cell,
+                                                   dead)
+                kw = dict(nsweeps=nsw, h2=1.0 / n ** 2, signs=signs,
+                          periodic=per, omega=omega, dia_cell=cell)
+                got = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw)
+                errs.append(compare(
+                    f"K15 rbgs_relax_alpha {n} {kind} "
+                    f"dia={'cell' if cell else 'scalar'} omega={omega} "
+                    f"nsweeps={nsw}{' dead cells' if dead else ''}", got,
+                    rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, **kw),
+                    b))
+                if dead and not (got[1, 2] == u[1, 2]
+                                 and got[n - 2, 3] == u[n - 2, 3]):
+                    raise AssertionError("K15: a zero-diagonal cell moved")
+    m = n // 2
+    while m >= 4:
+        for kind, signs, per in ALPHA_CASES:
+            u, rhs, ax, ay, dia = alpha_system(rnd, dtype, m, per, True,
+                                               False)
+            kw = dict(nsweeps=24 if m == 4 else 8, h2=1.0 / m ** 2,
+                      signs=signs, periodic=per, omega=1.0, dia_cell=True)
+            compare(f"K15 rbgs_relax_alpha {m} {kind}",
+                    rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw),
+                    rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, **kw),
+                    b)
+        m //= 2
+    if record is not None:
+        record["rbgs_relax_alpha"].update(zip(ERR_KEYS, map(max, zip(*errs))))
+
+
+def check_alpha_tiles(rnd):
+    """K15 bit-identical across tiles 64, 32 and 16 at 1024^2 (float32;
+    32 and 16 in float64), whole-level and tiled at 64^2, on every
+    periodicity, and with its sweeps split over launches."""
+    import torch
+    from gerris_tpu_torch.ops.cuda import rbgs
+    n = 1 << LEVEL_TWOPHASE
+    for dtype, tiles in ((torch.float32, (64, 32, 16)),
+                         (torch.float64, (32, 16))):
+        for kind, signs, per in ALPHA_CASES:
+            u, rhs, ax, ay, dia = alpha_system(rnd, dtype, n, per, True, True)
+            kw = dict(nsweeps=8, h2=1.0 / n ** 2, signs=signs, periodic=per,
+                      omega=1.5, dia_cell=True)
+            outs = [rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, tile=t, **kw)
+                    for t in tiles]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"K15 {kind} {dtype}: tiles {tiles} "
+                                     "differ")
+            s64 = alpha_system(rnd, dtype, 64, per, True, True)
+            if not torch.equal(
+                    rbgs.rbgs_relax_alpha(*s64, **kw),
+                    rbgs.rbgs_relax_alpha(*s64, tile=16, whole_max=32,
+                                          **kw)):
+                raise AssertionError(f"K15 {kind} {dtype}: whole-level and "
+                                     "tiled launches differ")
+            rbgs.reset_launch_counts()
+            split = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, tile=32,
+                                          **dict(kw, nsweeps=30))
+            if rbgs.LAUNCHES["rbgs_relax_alpha"] < 2 or not torch.equal(
+                    split, rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia,
+                                                 tile=16,
+                                                 **dict(kw, nsweeps=30))):
+                raise AssertionError(f"K15 {kind} {dtype}: split sweeps "
+                                     "differ across tiles")
+    print(f"  K15 tiles 64 == 32 == 16 at {n} (float64: 32 == 16), whole "
+          "== tiled at 64, every periodicity; 30 sweeps over several "
+          "launches: bit-identical")
+
+
+def alpha_flops(n, nsweeps, omega):
+    """Operations of K15 on an n^2 level: den once (5 per cell), then per
+    sweep the numerator (7), the rhs term (2), the division (1) and the
+    omega blend (3)."""
+    return n * n * (5 + nsweeps * (10 + (3 if omega != 1.0 else 0)))
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -962,8 +1121,10 @@ def phase_kernels(dev, record):
         check_fold_kernels(rnd, dtype, n, record if main else None)
         check_fold_kernels(rnd, dtype, N_SMALL, None)
         check_rbgs3d(rnd, dtype, record if main else None)
+        check_alpha_kernels(rnd, dtype, record if main else None)
     check_relax_tiles(rnd)
     check_fold_tiles(rnd)
+    check_alpha_tiles(rnd)
 
     # K3 tile invariance: bit-identical across tile sizes and whole-level
     c, rh, uu = (rnd(torch.float32, n // 2, n // 2),
@@ -1201,6 +1362,39 @@ def phase_kernels(dev, record):
         lambda: rbgs3d.rbgs_relax_3d(u3, r3, dia3, **kw13d),
         lambda: rbgs3d.rbgs_relax_3d_plain(u3, r3, dia3, **kw13d),
         nbytes(u3, r3), n3 ** 3 * 7, None)
+    # K15 as the twophase route runs it at its finest level, 1024^2: the
+    # diffusion's cell dia (rho) and 8 sweeps, and the projections'
+    # scalar dia 0
+    na = 1 << LEVEL_TWOPHASE
+    ua, ra, axa, aya, da = alpha_system(rnd, f32, na, (False, False), True,
+                                        False)
+    kw15 = dict(nsweeps=8, h2=1.0 / na ** 2, signs=(-1.0,) * 4)
+    timings["rbgs_relax_alpha"] = (
+        lambda: rbgs.rbgs_relax_alpha(ua, ra, axa, aya, da, dia_cell=True,
+                                      **kw15),
+        lambda: rbgs.rbgs_relax_alpha_plain(ua, ra, axa, aya, da,
+                                            dia_cell=True, **kw15),
+        nbytes(ua, ra, axa, aya, da), alpha_flops(na, 8, 1.0), None)
+    kw15p = dict(kw15, signs=(1.0,) * 4)
+    timings["rbgs_relax_alpha|scalar_dia"] = (
+        lambda: rbgs.rbgs_relax_alpha(ua, ra, axa, aya, 0.0, **kw15p),
+        lambda: rbgs.rbgs_relax_alpha_plain(ua, ra, axa, aya, 0.0, **kw15p),
+        nbytes(ua, ra, axa, aya), alpha_flops(na, 8, 1.0), None)
+    # K15 at every level of a twophase correction with the default tiles
+    # (printed only; the record holds the 1024^2 time)
+    per_level = []
+    m = na
+    while m >= 4:
+        ul, rl, axl, ayl, dl = alpha_system(rnd, f32, m, (False, False),
+                                            True, False)
+        kwl = dict(nsweeps=24 if m == 4 else 8, h2=1.0 / m ** 2,
+                   signs=(-1.0,) * 4, dia_cell=True)
+        t = cuda_ms(lambda: rbgs.rbgs_relax_alpha(ul, rl, axl, ayl, dl,
+                                                  **kwl))
+        per_level.append(f"{m}: {t:.4f}")
+        m //= 2
+    print(f"  K15 per level of a twophase correction (float32, cell dia, 8 "
+          f"sweeps, 24 at 4^2; ms): {', '.join(per_level)}")
     print("phase 2 times (float32, main-path shapes; plain, kernel, "
           "kernel, plain)")
     for k, (kern, plain, in_bytes, ops, lib) in timings.items():
@@ -1688,6 +1882,224 @@ def phase_lid3d(dev, card):
     return counts
 
 
+def twophase_cfg(level=LEVEL_TWOPHASE):
+    """__graft_entry__._dryrun_twophase at 2^level cells per side: walls
+    with Dirichlet 0 velocities, nu 1e-3, beta 1, one VOF tracer T with
+    the default scalar BCs, tension 0.5, density ("T", 10, 1, 1), the
+    default projections (adaptive to 1e-3, at most 100 cycles) and
+    diffusion (diffuse's default), on the schedule that
+    utils/convert.config_from_jax gives them: the TPU's floors, nrelax 8
+    and 16 coarsest sweeps."""
+    import dataclasses
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    from gerris_tpu_torch.utils.convert import params_from_jax
+    walls = bc.FieldBC.uniform(bc.Dirichlet(0.0), 2)
+    proj = MultilevelParams(tolerance=1e-3, nitermax=100, nrelax=8,
+                            coarsest_relax=16)
+    diff = params_from_jax(None, 2)
+    if dataclasses.replace(proj, nitermax=10) != diff:
+        raise AssertionError(f"the diffusion's default schedule {diff}")
+    return ns.NSConfig(grid=Grid(level=level), u_bcs=(walls, walls),
+                       nu=1e-3, beta=1.0,
+                       vof_tracers=(("T", bc.default_scalar_bc(2)),),
+                       tension=(("T", 0.5),), density=("T", 10.0, 1.0, 1),
+                       projection=proj, approx_projection=proj,
+                       diffusion_params=diff)
+
+
+def twophase_sim(dev):
+    """The twophase configuration in float32 on the card, T0 the fraction
+    of the level set -(y - 0.01 cos 2 pi x) (the capwave-style perturbed
+    interface of _dryrun_twophase), at rest, not yet run."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    cfg = twophase_cfg()
+    T0 = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y: -(y - 0.01 * torch.cos(2 * torch.pi * x)),
+        device=dev, dtype=torch.float32)
+    return Simulation(cfg, time=Time(), device=dev,
+                      dtype=torch.float32).init(T=T0)
+
+
+def want_twophase(steps, niters):
+    """Launches of init + ``steps`` two-phase steps from the cycle counts
+    of every solve (the initial projection's, then per step the MAC
+    projection, the U and V diffusions, the approximate projection): per
+    cycle K15 at each of the K15_LEVELS levels and restrict2 between
+    them; per step K6 once, K4 once per projection, K14 once per
+    component, K9 once; no K1-K3, K5, K7, K8, K10-K13, K16, K17 (the
+    alpha solves and the generic correction take none)."""
+    w = {k: 0 for k in want_launches("pair", 0)}
+    cycles = sum(niters)
+    w.update(predict_xy=steps, divergence_mac=2 * steps + 1,
+             interp_faces=steps + 1, advect2d=2 * steps,
+             rbgs_relax_alpha=K15_LEVELS * cycles,
+             restrict2=(K15_LEVELS - 1) * cycles)
+    return w
+
+
+def phase_twophase(dev, card):
+    """init + TWOPHASE_STEPS steps of the twophase configuration through
+    the kernels, the counts set to 0 just before and gated just after
+    from every solve's recorded cycle count; finite values; T's volume;
+    the first TWOPHASE_CHECK_STEPS steps against the same steps through
+    the plain versions on the card (U, V, T, mean-free P, ADAPTIVE_RTOL:
+    the solves stop at their tolerance); five timed windows and a
+    profile.  Returns the launch counts."""
+    import torch
+    n = 1 << LEVEL_TWOPHASE
+    print(f"phase 3, twophase: {n}^2 VOF + tension + density 10/1, "
+          f"float32, init + {TWOPHASE_STEPS} steps")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_solves() as log:
+        s = twophase_sim(dev)
+        vol0 = float(s.state["T"].double().sum())
+        s.run(max_steps=TWOPHASE_CHECK_STEPS)
+        early = {k: v.clone() for k, v in s.state.items()}
+        s.run(max_steps=TWOPHASE_STEPS - TWOPHASE_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    niters = [x[1] for x in log]
+    print(f"  twophase, init + {TWOPHASE_STEPS} steps: {t_run:.3f} s; "
+          f"{len(niters)} solves, niter {niters}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if len(niters) != 4 * TWOPHASE_STEPS + 1:
+        raise AssertionError(f"twophase: {len(niters)} solves")
+    want = want_twophase(TWOPHASE_STEPS, niters)
+    for k, w in want.items():
+        if counts[k] != w:
+            raise AssertionError(f"twophase: {k}: {counts[k]} launches, "
+                                 f"want {w}")
+    print(f"  twophase: rbgs_relax_alpha {counts['rbgs_relax_alpha']} "
+          f"launches = {K15_LEVELS} x sum(niter) {sum(niters)}")
+    for k, v in s.state.items():
+        if v.shape != s.cfg.grid.shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"twophase {k}: not finite or wrong shape")
+    vol = float(s.state["T"].double().sum())
+    dvol = abs(vol - vol0) / vol0
+    print(f"  twophase: T's volume {vol0 / n ** 2:.9f} -> {vol / n ** 2:.9f}"
+          f", rel change {dvol:.3e} (bound {TWOPHASE_VOLUME_RTOL:.0e}); "
+          f"t {s.time.t:.6e} after {s.time.i} steps, dt {s.dt:.6e}")
+    if not dvol <= TWOPHASE_VOLUME_RTOL:
+        raise AssertionError(f"twophase: T's volume changed by {dvol:.3e}")
+    with plain_versions(), recording_solves() as plog:
+        ref = twophase_sim(dev).run(max_steps=TWOPHASE_CHECK_STEPS)
+    if launch_counts() != counts:
+        raise AssertionError("the plain reference run launched kernels")
+    print(f"  twophase, plain versions: niter {[x[1] for x in plog]}")
+    for k in ("U", "V", "T", "P"):
+        a, b = early[k], ref.state[k]
+        if k == "P":
+            a, b = a - a.mean(), b - b.mean()
+        rel = rel_err(a, b)
+        print(f"  twophase, kernels vs plain after {TWOPHASE_CHECK_STEPS} "
+              f"steps, {k}{' (mean-free)' if k == 'P' else ''}: rel "
+              f"{rel:.3e} (bound {ADAPTIVE_RTOL:.0e})")
+        if not rel <= ADAPTIVE_RTOL:
+            raise AssertionError(f"twophase {k}: rel {rel:.3e}")
+    walls, syncs = [], []
+    for _ in range(TIMED_WINDOWS):
+        with recording_solves() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run(max_steps=TWOPHASE_TIMED_STEPS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        # the solves' condition reads, and the CFL dt's one per step
+        syncs.append(sum(x[3] for x in log) / TWOPHASE_TIMED_STEPS + 1)
+        niters = [x[1] for x in log]
+    step = float(np.median(walls)) / TWOPHASE_TIMED_STEPS
+    print(f"  twophase step, timed windows of {TWOPHASE_TIMED_STEPS} steps: "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s; median "
+          f"{step * 1e3:.3f} ms/step; host syncs per step "
+          f"{' '.join(f'{x:.1f}' for x in syncs)}; niter per solve in the "
+          f"last window {niters} on {card}")
+    phase_profile(s, step, card, TWOPHASE_PROFILE_STEPS)
+    return counts
+
+
+def oscillation_cfg(level=OSC_LEVEL):
+    """test/oscillation (tests/test_oscillation.py): symmetry walls
+    (normal velocity Dirichlet 0, tangential Neumann), nu 0, sigma 1, rho
+    1 inside / 1e-3 outside through the filtered fraction, projections
+    adaptive to 1e-4 in at most 100 cycles (the port's schedule as
+    given: the reference's test states it)."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    d, nn = bc.Dirichlet(0.0), bc.Neumann()
+    proj = MultilevelParams(tolerance=1e-4, nitermax=100)
+    return ns.NSConfig(
+        grid=Grid(level=level), u_bcs=(bc.FieldBC(((d, d), (nn, nn))),
+                                       bc.FieldBC(((nn, nn), (d, d)))),
+        nu=0.0, vof_tracers=(("T", bc.default_scalar_bc(2)),),
+        tension=(("T", OSC_SIGMA),),
+        density=("T", OSC_RHO_L, OSC_RHO_G, 1), projection=proj,
+        approx_projection=proj)
+
+
+def phase_oscillation(dev, card):
+    """The reference's test/oscillation on the card in float32 at level
+    6 to t = 1: the kinetic energy every step, fitted by k(t) = a
+    exp(-b t) (1 - cos c t); gate |c - 153.984| / 153.984 < 0.005 and
+    b > 0."""
+    import math
+    import torch
+    from scipy.optimize import curve_fit
+    from gerris_tpu_torch.events.events import Event
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    cfg = oscillation_cfg()
+    h2 = cfg.grid.h ** 2
+    ke = []
+
+    def record(sim):
+        st = sim.state
+        rho = OSC_RHO_G + torch.clamp(st["T"], 0, 1) * (OSC_RHO_L - OSC_RHO_G)
+        ke.append((sim.time.t, torch.sum(rho * (st["U"] ** 2
+                                                + st["V"] ** 2)) * h2))
+
+    def phi(x, y):
+        xx, yy = x + 0.5, y + 0.5
+        r = OSC_D / 2.0 * (1.0 + OSC_EPS
+                           * torch.cos(2.0 * torch.atan2(yy, xx)))
+        return r * r - (xx * xx + yy * yy)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = Simulation(cfg, time=Time(end=1.0), device=dev, dtype=torch.float32,
+                   events=[Event(action=record, istep=1)])
+    s.init(T=vof.fraction_from_levelset(cfg.grid, phi, device=dev,
+                                        dtype=torch.float32))
+    s.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k = np.array([(t, float(e)) for t, e in ke])
+    omega0 = math.sqrt(6.0 * OSC_SIGMA / ((OSC_RHO_L + OSC_RHO_G)
+                                          * (OSC_D / 2) ** 3))
+
+    def model(t, a, b, c):
+        return a * np.exp(-b * t) * (1.0 - np.cos(c * t))
+
+    (a, b, c), _ = curve_fit(model, k[:, 0], k[:, 1],
+                             p0=(3e-4, 1.5, 2 * omega0), maxfev=20000)
+    rel = abs(c - OSC_REF_C) / OSC_REF_C
+    print(f"phase 4, oscillation: level {OSC_LEVEL} float32, {s.time.i} "
+          f"steps to t = {s.time.t:.6f} in {wall:.2f} s; fit a {a:.4e} b "
+          f"{b:.4f} c {c:.4f} (reference {OSC_REF_C}, rel {rel:.3e} < "
+          f"{OSC_RTOL}; 2 omega0 {2 * omega0:.2f}) on {card}")
+    if not (rel < OSC_RTOL and b > 0):
+        raise AssertionError("oscillation: the fit misses the reference")
+
+
 def neumann_poisson_3d(dev, n):
     """lap p = -3 pi^2 p for p = cos pi(x+1/2) cos pi(y+1/2) cos pi(z+1/2)
     in the Neumann box, the rhs's mean subtracted, at n^3 in float64 to
@@ -1822,12 +2234,14 @@ def main():
     route_counts.update(phase_adaptive(dev, card, main_sim))
     route_counts["lid3d"] = phase_lid3d(dev, card)
     phase_poisson3d(dev)
+    route_counts["twophase"] = phase_twophase(dev, card)
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
     for k in record:
         path = ("per_component" if k == "advect2d" else
                 "lid3d" if k == "rbgs_relax_3d" else
+                "twophase" if k == "rbgs_relax_alpha" else
                 FOLD_KERNELS.get(k) or ADAPTIVE_KERNELS.get(k, "main"))
         c = counts if path == "main" else route_counts[path]
         record[k].update(launches=c[k], path=path)
@@ -1852,6 +2266,7 @@ def main():
             # for the diagnosis: the same run in f64
             phase_physics(dev, card, "float64")
         raise AssertionError("Ghia phase failed")
+    phase_oscillation(dev, card)
 
     print(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 // (poisson.py:solve_fixed_batched), and the adaptive solve's residual,
 // smoother and coarse cascade (poisson.py:correction, solve_relax).
 //
-// Eight kernels, each templated on float and double, behind a plain C
+// Nine kernels, each templated on float and double, behind a plain C
 // interface (loaded with ctypes by gerris_tpu_torch/ops/cuda/rbgs.py):
 //
 //   residual_restrict  r0 = (rhs - sub) - (L - dia) u with static ghosts,
@@ -15,6 +15,8 @@
 //   residual           r = rhs - (L - dia) u, periodic on either axis;
 //   rbgs_relax         nsweeps red-black sweeps from a given u, periodic
 //                      on either axis, in one launch;
+//   rbgs_relax_alpha   the same with face coefficients and a scalar or
+//                      per-cell dia (div(alpha grad u) - dia u = rhs);
 //   coarse_block       the whole cascade of a level of at most 64^2 in
 //                      one block;
 //   residual_restrict_div  residual_restrict with rhs = div(uf) / dt formed
@@ -658,6 +660,162 @@ __global__ void rbgs_relax_kernel(RXArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
+// K15 rbgs_relax_alpha.
+// Replaces gerris_tpu/ops/pallas/rbgs.py:rbgs_relax_alpha (_kernel_alpha):
+// nsweeps red-black Gauss-Seidel sweeps (red = global (i+j) even first)
+// from a given u on div(alpha grad u) - dia u = rhs, face coefficients ax
+// ((n0+1) x n1) and ay (n0 x (n1+1)), a scalar or per-cell dia,
+// homogeneous ghosts, periodic rows and/or columns.  A cell's update is
+// (ax_lo u_up + ax_hi u_dn + ay_lo u_lf + ay_hi u_rt - h2 rhs) / den with
+// den = ax_lo + ax_hi + ay_lo + ay_hi + dia h2, summed in that order;
+// a cell with den <= 1e-20 (a zero diagonal) keeps its value.  On a
+// periodic axis face n is face 0.  Every level of the two-phase
+// projections' and the variable-density diffusion's corrections.
+// Bound: device-memory bytes for a level of many tiles (reads u, rhs,
+// ax, ay and the cell dia once, writes the result once for all sweeps);
+// a level that fits one block is bound by its serial half-sweeps.
+// Design: K10's tile.  One block per tile x tile output tile; shared
+// buffers of B x B (B = tile + 2 halo + 2, the halo 2 nsweeps, then a
+// frozen outer ring) hold u, rhs, each local cell's low x face (row li
+// holds face gi0 + li, so a cell reads rows li and li + 1), its low y
+// face (column lj likewise), and den, formed once per launch from the
+// faces and dia.  The coefficients are static across the sweeps, so the
+// valid region shrinks by at most one cell per half-sweep exactly as in
+// K10, and the tile is exact after 2 nsweeps of them for any tile size.
+// On a periodic axis the halo and the face windows are read across the
+// wrap; a level that fits one block runs with tile = n and halo = 0, its
+// periodic wrap refreshed like a ghost ring.
+// ---------------------------------------------------------------------------
+template <typename T>
+struct RAArgs {
+  const T* u;
+  const T* rhs;
+  const T* ax;
+  const T* ay;
+  const T* dia_cell;  // nullptr: the scalar dia
+  T* out;
+  int n0, n1, tile, halo, nsweeps;
+  T dia, h2, omega, one_m_omega;
+  int use_omega;
+  T sgn[4];
+  int per_x, per_y;
+};
+
+template <typename T>
+__global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
+  const int B = tile + 2 * halo + 2;
+  const size_t BB = (size_t)B * B;
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  T* rb = buf + BB;
+  T* axs = rb + BB;
+  T* ays = axs + BB;
+  T* den = ays + BB;
+  const int gi0 = blockIdx.y * tile - halo - 1;
+  const int gj0 = blockIdx.x * tile - halo - 1;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const bool wrap_x = a.per_x && halo > 0, wrap_y = a.per_y && halo > 0;
+  const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
+
+  // ---- place u, rhs, the faces and the cell dia (in den for now)
+  for (int li = ty; li < B; li += PR_THREADS_Y) {
+    int gi = gi0 + li;
+    if (wrap_x) gi = (gi % n0 + n0) % n0;
+    const bool real_i = gi >= 0 && gi < n0;
+    // the low x face of local row li: face n0 is face 0 when periodic
+    int fi = gi0 + li;
+    if (a.per_x) fi = (fi % n0 + n0) % n0;
+    const bool face_i = fi >= 0 && fi <= n0;
+    for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+      int gj = gj0 + lj;
+      if (wrap_y) gj = (gj % n1 + n1) % n1;
+      const bool real_j = gj >= 0 && gj < n1;
+      int fj = gj0 + lj;
+      if (a.per_y) fj = (fj % n1 + n1) % n1;
+      const bool face_j = fj >= 0 && fj <= n1;
+      const size_t g = (size_t)gi * n1 + gj;
+      const int k = li * B + lj;
+      buf[k] = real_i && real_j ? a.u[g] : T(0);
+      rb[k] = real_i && real_j ? a.rhs[g] : T(0);
+      axs[k] = face_i && real_j ? a.ax[(size_t)fi * n1 + gj] : T(0);
+      ays[k] = real_i && face_j ? a.ay[(size_t)gi * (n1 + 1) + fj] : T(0);
+      den[k] = a.dia_cell == nullptr ? a.dia
+               : (real_i && real_j ? a.dia_cell[g] : T(0));
+    }
+  }
+  __syncthreads();
+  // ---- den = ax_lo + ax_hi + ay_lo + ay_hi + dia h2 of the cells a
+  // sweep may update (each thread rewrites only its own entries)
+  for (int li = ty + 1; li < B - 1; li += PR_THREADS_Y) {
+    for (int lj = tx + 1; lj < B - 1; lj += PR_THREADS_X) {
+      const int k = li * B + lj;
+      const T dh2 = den[k] * a.h2;
+      den[k] = axs[k] + axs[k + B] + ays[k] + ays[k + 1] + dh2;
+    }
+  }
+  __syncthreads();
+
+  for (int sw = 0; sw < 2 * a.nsweeps; ++sw) {
+    const int color = sw & 1;  // red ((i+j) even) first
+    // ---- ghosts from the current interior: domain edges, and the wrap of
+    // a whole-level block
+    for (int li = ty; li < B; li += PR_THREADS_Y) {
+      const int gi = gi0 + li;
+      const bool real_i = wrap_x || (gi >= 0 && gi < n0);
+      const bool ghost_i = !real_i && (gi == -1 || gi == n0);
+      for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+        const int gj = gj0 + lj;
+        const bool real_j = wrap_y || (gj >= 0 && gj < n1);
+        const bool ghost_j = !real_j && (gj == -1 || gj == n1);
+        const int k = li * B + lj;
+        if (ghost_i && real_j) {
+          if (a.per_x)
+            buf[k] = gi < 0 ? buf[k + n0 * B] : buf[k - n0 * B];
+          else
+            buf[k] = gi < 0 ? sx0 * buf[k + B] : sx1 * buf[k - B];
+        } else if (real_i && ghost_j) {
+          if (a.per_y)
+            buf[k] = gj < 0 ? buf[k + n1] : buf[k - n1];
+          else
+            buf[k] = gj < 0 ? sy0 * buf[k + 1] : sy1 * buf[k - 1];
+        }
+      }
+    }
+    __syncthreads();
+    // ---- one colour; the frozen outer ring is never updated
+    for (int li = ty + 1; li < B - 1; li += PR_THREADS_Y) {
+      const int gi = gi0 + li;
+      if (!wrap_x && (gi < 0 || gi >= n0)) continue;
+      for (int lj = tx + 1; lj < B - 1; lj += PR_THREADS_X) {
+        const int gj = gj0 + lj;
+        if (!wrap_y && (gj < 0 || gj >= n1)) continue;
+        if (((gi + gj) & 1) != color) continue;
+        const int k = li * B + lj;
+        const T d0 = den[k];
+        if (!(d0 > T(1e-20))) continue;  // a zero diagonal: untouched
+        const T c = buf[k];
+        const T num = axs[k] * buf[k - B] + axs[k + B] * buf[k + B] +
+                      ays[k] * buf[k - 1] + ays[k + 1] * buf[k + 1];
+        T nw = (num - a.h2 * rb[k]) / d0;
+        if (a.use_omega) nw = a.one_m_omega * c + a.omega * nw;
+        buf[k] = nw;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the tile
+  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
+    const int gi = gi0 + li;
+    for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
+         lj += PR_THREADS_X) {
+      a.out[(size_t)gi * n1 + gj0 + lj] = buf[li * B + lj];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K12 coarse_vcycle, its block kernel.
 // Replaces gerris_tpu/ops/pallas/rbgs.py:coarse_vcycle (_cv_kernel, its
 // smoother _cv_relax) together with the restrict2 and K3 launches of the
@@ -1030,6 +1188,44 @@ int launch_rbgs_relax(const void* u, const void* rhs, void* out, int n0,
   return (int)cudaGetLastError();
 }
 
+// ptr: u, rhs, ax, ay, dia (nullptr for the scalar), out
+template <typename T>
+int launch_rbgs_relax_alpha(const void* const* ptr, int n0, int n1,
+                            int tile, int halo, int nsweeps, double dia,
+                            double h2, double omega, const double* sgn,
+                            int per_x, int per_y, void* stream) {
+  RAArgs<T> a = {};
+  a.u = (const T*)ptr[0];
+  a.rhs = (const T*)ptr[1];
+  a.ax = (const T*)ptr[2];
+  a.ay = (const T*)ptr[3];
+  a.dia_cell = (const T*)ptr[4];
+  a.out = (T*)ptr[5];
+  a.n0 = n0;
+  a.n1 = n1;
+  a.tile = tile;
+  a.halo = halo;
+  a.nsweeps = nsweeps;
+  a.dia = T(dia);
+  a.h2 = T(h2);
+  a.omega = T(omega);
+  a.one_m_omega = T(1.0 - omega);
+  a.use_omega = omega != 1.0;
+  for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
+  a.per_x = per_x;
+  a.per_y = per_y;
+  const int B = tile + 2 * halo + 2;
+  const size_t smem = 5 * (size_t)B * B * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(
+      rbgs_relax_alpha_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 block(PR_THREADS_X, PR_THREADS_Y);
+  dim3 grid(n1 / tile, n0 / tile);
+  rbgs_relax_alpha_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_coarse_block(const void* r, void* du, int n, int min_n,
                         int nsweeps, int coarsest, double dia, double h2,
@@ -1066,6 +1262,8 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
 // prolong_relax: coarse, rhs, u, out), so that a launch builds one array;
 // dia is a host array of `batch` entries, the ghost offsets of 4 * batch.
 // residual, rbgs_relax and coarse_block take one system's pointers;
+// rbgs_relax_alpha one table (u, rhs, ax, ay, dia, out; dia NULL for the
+// scalar);
 // residual_restrict_div one table (u, ufx, ufy, sub, r0, r1, r2) and
 // prolong_relax_correct one table (coarse, rhs, u, ufx, ufy, U, V, p',
 // ufx', ufy', gx, gy, U', V'; the cells NULL without them).
@@ -1118,6 +1316,13 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
     return launch_prolong_relax_correct<T>(ptr, dia, n0, n1, tile, halo,      \
                                            nsweeps, h2, omega, dt, h, sgn,    \
                                            off, per_y, stream);               \
+  }                                                                           \
+  extern "C" int gtt_rbgs_relax_alpha_##SUFFIX(                               \
+      void* const* ptr, int n0, int n1, int tile, int halo, int nsweeps,      \
+      double dia, double h2, double omega, const double* sgn, int per_x,      \
+      int per_y, void* stream) {                                              \
+    return launch_rbgs_relax_alpha<T>(ptr, n0, n1, tile, halo, nsweeps, dia,  \
+                                      h2, omega, sgn, per_x, per_y, stream);  \
   }                                                                           \
   extern "C" int gtt_coarse_block_##SUFFIX(                                   \
       const void* r, void* du, int n, int min_n, int nsweeps, int coarsest,   \

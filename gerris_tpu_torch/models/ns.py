@@ -23,8 +23,17 @@ generic torch route (gerris_tpu/models/ns.py:208-223, :335-447;
 solvers/projection.py), and each solve's upward levels run K13
 ``rbgs_relax_3d``; ``div_in_src``, ``pair_advect`` and ``rr_in_advect``
 are 2D routes and are ignored in 3D, as the reference ignores them.
-Tracers, VOF, variable density, tension, body forces, solids and metrics
-are later slices.
+
+The two-phase step (2D; reference ns.py:822-1011): ``density`` names a
+VOF tracer whose filtered fraction gives the cell densities rho and the
+face coefficients alpha = 1/rho (``density_fields``); ``tension`` gives
+well-balanced face sources from the height-function curvature
+(``tension_sources``).  Both projections then solve div(alpha grad p)
+with the face sources (K4, K15, a torch correction), each velocity
+component takes K14 and a rho-weighted diffusion solve (face
+coefficients dt nu, cell dia rho: K15), and step 5 advects each VOF
+tracer with the projected faces.  Plain tracers, CSS tension, variable
+viscosity, body forces, 3D VOF, solids and metrics are later slices.
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ from ..solvers import advection as adv
 from ..solvers import diffusion as diff
 from ..solvers import poisson
 from ..solvers import projection as proj
+from ..physics import tension as tens
+from ..physics import vof
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,10 +82,23 @@ class NSConfig:
     # also gives the diffusion pair's first residual pyramid, replacing
     # its K8a launch (gerris_tpu/models/ns.py:144-149)
     rr_in_advect: bool = False
+    # VOF interface tracking (GfsVariableTracerVOF, src/vof.c): (name,
+    # FieldBC) pairs, 2D
+    vof_tracers: tuple = ()
+    # surface tension (GfsSourceTension, src/tension.c): (vof_name,
+    # sigma) pairs
+    tension: tuple = ()
+    # variable density from a VOF tracer (PhysicalParams alpha =
+    # 1/RHO(T1), test/oscillation): (tracer, rho1, rho2, filter_passes)
+    density: tuple = None
 
     def __post_init__(self):
         if self.p_bc is None:
             object.__setattr__(self, "p_bc", bcs.grad_bc(self.u_bcs[0]))
+        if (self.vof_tracers or self.tension or self.density is not None) \
+                and self.grid.dim != 2:
+            raise NotImplementedError("3D VOF, tension and variable density "
+                                      "are slice 3b (ROADMAP Queue 1)")
 
     @property
     def dim(self):
@@ -115,11 +139,12 @@ def predicted_face_velocities(U: list, grid: Grid, cfg: NSConfig, dt,
     return [out[0], out[1]], None if div_scale is None else (out[2], out[3])
 
 
-def _pair_route(grid: Grid, cfg: NSConfig) -> bool:
+def _pair_route(grid: Grid, cfg: NSConfig, rho=None) -> bool:
     """The reference's batched U+V route (gerris_tpu/models/ns.py:257-264):
-    2D, fully implicit diffusion on a fixed schedule, the kernel route,
-    and K14's BCs (periodic y refused) for both components."""
-    return (cfg.nu > 0.0 and cfg.beta == 1.0
+    2D, unit density, fully implicit diffusion on a fixed schedule, the
+    kernel route, and K14's BCs (periodic y refused) for both
+    components."""
+    return (rho is None and cfg.nu > 0.0 and cfg.beta == 1.0
             and cfg.diffusion_params is not None
             and cfg.diffusion_params.ncycles > 0
             and bcg.applicable(grid, cfg.advection)
@@ -127,7 +152,7 @@ def _pair_route(grid: Grid, cfg: NSConfig) -> bool:
 
 
 def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
-                                 grid: Grid, cfg: NSConfig, dt):
+                                 grid: Grid, cfg: NSConfig, dt, rho=None):
     """BCG advection of each component with the MAC faces, the gmac face
     correction and the -dt g_prev gc term, then its implicit diffusion
     (reference: src/timestep.c:976-1017; gerris_tpu ns.py:257-374).  With
@@ -142,13 +167,17 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     Otherwise (an adaptive diffusion schedule among them, as in the
     reference, gerris_tpu/models/ns.py:257-262, 347-372) each component
     takes K14 where its BCs allow it, else its plain version, and its own
-    solve.  3D: the reference's generic route, advection_diffusion_3d."""
+    solve.  With the cell densities ``rho`` (two-phase) each component's
+    K14 gives fv - dt g_prev and its diffusion solves rho u - dt div(nu
+    grad u) = rho (u + fv) (face coefficients dt nu, cell dia rho: K15;
+    reference ns.py:339-373).  3D: the reference's generic route,
+    advection_diffusion_3d."""
     if grid.dim == 3:
         return advection_diffusion_3d(U, uf, gmac, g_prev, grid, cfg, dt)
-    fold = cfg.nu > 0.0 and cfg.beta == 1.0
+    fold = cfg.nu > 0.0 and cfg.beta == 1.0 and rho is None
     dia = 1.0 / (dt * cfg.nu) if fold else None
     gp = None if g_prev is None else list(g_prev)
-    if _pair_route(grid, cfg):
+    if _pair_route(grid, cfg, rho):
         bcs_ = list(cfg.u_bcs)
         dp = cfg.diffusion_params
         kw = dict(g=gmac, gp=gp, oscale=-dia)
@@ -183,10 +212,12 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
                 U[c], fv, grid, fbc,
                 diff.params_or_default(cfg.diffusion_params), dia=dia)
         elif cfg.nu > 0.0:
-            v_new, _ = diff.diffuse(U[c], grid, fbc, dt, cfg.nu, rho=1.0,
+            v_new, _ = diff.diffuse(U[c], grid, fbc, dt, cfg.nu,
+                                    rho=1.0 if rho is None else rho,
                                     beta=cfg.beta,
                                     params=cfg.diffusion_params,
-                                    extra_rhs=fv)
+                                    extra_rhs=fv if rho is None
+                                    else rho * fv)
         else:
             v_new = U[c] + fv
         out.append(v_new)
@@ -229,42 +260,103 @@ def advection_diffusion_3d(U: list, uf: list, gmac: list, g_prev,
     return out
 
 
+def _vof_bc(cfg: NSConfig, name: str) -> bcs.FieldBC:
+    return dict((v[0], v[1]) for v in cfg.vof_tracers)[name]
+
+
+def filtered(T, grid: Grid, fbc: bcs.FieldBC, npass: int = 1):
+    """The tracer smoothed by ``npass`` passes of the separable (1,2,1)/4
+    kernel (GfsVariableFiltered, src/variable.c; gerris_tpu
+    ns.py:489-505)."""
+    for _ in range(npass):
+        p = bcs.apply_bc(T, grid, fbc, 1)
+        for ax in range(grid.dim):
+            n = p.shape[ax]
+            p = 0.25 * (p.narrow(ax, 0, n - 2) + 2.0 * p.narrow(ax, 1, n - 2)
+                        + p.narrow(ax, 2, n - 2))
+        T = p
+    return T
+
+
+def density_fields(state: dict, cfg: NSConfig):
+    """(rho_cell, alpha_faces) from the VOF tracer: rho = rho2 + T1 (rho1 -
+    rho2) with T1 the filtered fraction clipped to [0, 1], alpha = 1 /
+    rho(T1 on the face) (gfs_poisson_coefficients src/poisson.c:868;
+    gerris_tpu ns.py:507-527), or (None, None) at unit density."""
+    if cfg.density is None:
+        return None, None
+    name, rho1, rho2, npass = cfg.density
+    fbc = _vof_bc(cfg, name)
+    grid = cfg.grid
+    T1 = filtered(state[name], grid, fbc, npass)
+    rho_c = rho2 + torch.clamp(T1, 0.0, 1.0) * (rho1 - rho2)
+    T1p = bcs.apply_bc(T1, grid, fbc, 1)
+    alpha = tuple(
+        1.0 / (rho2 + torch.clamp(face_average(T1p, grid, ax), 0.0, 1.0)
+               * (rho1 - rho2))
+        for ax in range(grid.dim))
+    return rho_c, alpha
+
+
+def tension_sources(state: dict, cfg: NSConfig, alpha=None,
+                    off_max: int = 2):
+    """The well-balanced tension face sources of every (vof_name, sigma)
+    in ``cfg.tension``, summed: height-function curvature, filled twice
+    into the neighbouring cells, times sigma grad(T) on the faces (and
+    alpha; gerris_tpu ns.py:575-597), or None without tension."""
+    srcs = None
+    for name, sigma in cfg.tension:
+        fbc = _vof_bc(cfg, name)
+        T = state[name]
+        kap = vof.curvature(T, cfg.grid, fbc, off_max=off_max)
+        kap = vof.fill_curvature(kap, None, niter=2)
+        dp = tens.tension_face_sources(T, kap, sigma, cfg.grid, fbc,
+                                       alpha=alpha)
+        srcs = dp if srcs is None else [a + b for a, b in zip(srcs, dp)]
+    return srcs
+
+
 def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
-            first_step: bool = False) -> dict:
+            first_step: bool = False, cstart: int = 0) -> dict:
     """One full time step; ``state`` holds U, V[, W], P, Pmac, Gx, Gy[,
-    Gz].  ``dt`` is a host float (the Helmholtz dia = 1/(beta dt nu) is a
-    kernel argument).  ``t`` is unused while BC values are constant; it is kept
-    for the reference's signature.  Returns a new state dict."""
+    Gz] and the VOF tracers.  ``dt`` is a host float (the Helmholtz dia =
+    1/(beta dt nu) is a kernel argument).  ``t`` is unused while BC values
+    are constant; it is kept for the reference's signature.  ``cstart``:
+    the VOF advection's first sweep direction (Simulation rotates it,
+    src/vof.c:1648,1721).  Returns a new state dict."""
     grid = cfg.grid
     dim = grid.dim
     names = velocity_names(dim)
     U = [state[n] for n in names]
     g_prev = [state[n] for n in gradient_names(dim)]
+    rho_c, alpha = density_fields(state, cfg)
+    fs = tension_sources(state, cfg, alpha=alpha)
     # 1-2. prediction, MAC projection at dt/2 (the reference swaps P and
     # Pmac around it, src/simulation.c:498-504).  div_in_src (2D): each
-    # projection's divergence comes out of the launch that builds its faces
-    fold = cfg.div_in_src and dim == 2
+    # projection's divergence comes out of the launch that builds its
+    # faces, unless face sources or coefficients touch the faces first
+    fold = cfg.div_in_src and dim == 2 and fs is None and alpha is None
     uf, mac_divp = predicted_face_velocities(
         U, grid, cfg, dt,
         div_scale=1.0 / (grid.h * (dt / 2.0)) if fold else None)
     uf, pmac, gmac, _, _ = proj.mac_projection(
         uf, state["Pmac"], grid, cfg.p_bc, dt / 2.0, cfg.projection,
-        div_pre=mac_divp)
+        div_pre=mac_divp, alpha=alpha, face_sources=fs)
     # 3. at i == 0 the gc gradient role is played by this step's gmac
     # (src/simulation.c:514-521)
     if first_step:
         g_prev = gmac
-    U = velocity_advection_diffusion(U, uf, gmac, g_prev, grid, cfg, dt)
+    U = velocity_advection_diffusion(U, uf, gmac, g_prev, grid, cfg, dt,
+                                     rho=rho_c)
     # 4. approximate projection at dt with the gc re-add folded into the
     # face interpolation (src/simulation.c:520) and the centred
     # correction into the projection's correction launch
     uf2, U, apx_divp = proj.face_interpolated_velocity(
         U, grid, list(cfg.u_bcs), gp=g_prev, dtv=dt,
         div_scale=1.0 / (grid.h * dt) if fold else None)
-    _, p, g_cell, _, U = proj.mac_projection(uf2, state["P"], grid,
-                                             cfg.p_bc, dt,
-                                             cfg.approx_projection, cells=U,
-                                             div_pre=apx_divp)
+    uf2, p, g_cell, _, U = proj.mac_projection(
+        uf2, state["P"], grid, cfg.p_bc, dt, cfg.approx_projection, cells=U,
+        div_pre=apx_divp, alpha=alpha, face_sources=fs)
     new = dict(state)
     for c, n in enumerate(names):
         new[n] = U[c]
@@ -272,19 +364,28 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
     new["Pmac"] = pmac
     for c, n in enumerate(gradient_names(dim)):
         new[n] = g_cell[c]
+    # 5. VOF tracers with the projected faces (gfs_advance_tracers)
+    for name, fbc in cfg.vof_tracers:
+        new[name] = vof.advect(state[name], uf2, grid, fbc, dt,
+                               cstart=cstart)
     return new
 
 
 def initial_projection(state: dict, dt: float, t: float,
                        cfg: NSConfig) -> dict:
     """The i == 0 approximate projection that makes the initial field
-    divergence-free and seeds the gc gradient (src/simulation.c:466-474)."""
+    divergence-free and seeds the gc gradient (src/simulation.c:466-474),
+    with the density's face coefficients and no tension: the reference's
+    curvature is not evaluated yet at that time (gerris_tpu
+    ns.py:1014-1044, src/poisson.c:929-936)."""
     names = velocity_names(cfg.dim)
     U = [state[n] for n in names]
+    _, alpha = density_fields(state, cfg)
     uf, _, _ = proj.face_interpolated_velocity(U, cfg.grid, list(cfg.u_bcs))
     _, p, g_cell, _, U = proj.mac_projection(uf, state["P"], cfg.grid,
                                              cfg.p_bc, dt,
-                                             cfg.approx_projection, cells=U)
+                                             cfg.approx_projection, cells=U,
+                                             alpha=alpha)
     new = dict(state)
     for c, n in enumerate(names):
         new[n] = U[c]

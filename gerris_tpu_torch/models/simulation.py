@@ -15,6 +15,7 @@ import torch
 
 from ..core import bc as bcs
 from ..core.device import default_device
+from ..physics.tension import stability_dt
 from . import ns
 
 
@@ -53,12 +54,14 @@ class Simulation:
         self._tnext = None
 
     def init(self, **fields):
-        """Fields by name: a scalar, an array (numpy or torch) of the grid
-        shape, or a callable of the cell-centre coordinates.  Missing
-        fields start at zero."""
+        """Fields by name (the velocities, P, Pmac, the gradients and the
+        VOF tracers, e.g. ``T=vof.fraction_from_levelset(...)``): a
+        scalar, an array (numpy or torch) of the grid shape, or a callable
+        of the cell-centre coordinates.  Missing fields start at zero."""
         grid = self.cfg.grid
         names = list(ns.velocity_names(grid.dim)) + ["P", "Pmac"] + \
-            list(ns.gradient_names(grid.dim))
+            list(ns.gradient_names(grid.dim)) + \
+            [v[0] for v in self.cfg.vof_tracers]
         for n in names:
             v = fields.get(n, 0.0)
             if callable(v):
@@ -69,10 +72,20 @@ class Simulation:
 
     def set_timestep(self):
         """CFL timestep snapped to the next event time (reference:
-        gfs_simulation_set_timestep src/simulation.c:1569).  Reads one
-        number back from the device."""
-        dt = self.cfg.advection.cfl * float(ns.timescale(self.state, self.cfg))
+        gfs_simulation_set_timestep src/simulation.c:1569; gerris_tpu
+        simulation.py:91-105): with VOF tracers the CFL is at most 0.45
+        (their sweeps need <= 0.5, src/vof.c:1654), then the capillary
+        bound of each tension (src/tension.c:106-137).  Reads one number
+        back from the device."""
+        cfl = self.cfg.advection.cfl
+        if self.cfg.vof_tracers:
+            cfl = min(cfl, 0.45)
+        dt = cfl * float(ns.timescale(self.state, self.cfg))
         dt = min(dt, self.time.dtmax)
+        for _, sigma in self.cfg.tension:
+            r1, r2 = (1.0, 1.0) if self.cfg.density is None else \
+                (self.cfg.density[1], self.cfg.density[2])
+            dt = min(dt, stability_dt(self.cfg.grid, sigma, r1, r2))
         t = self.time.t
         tnext = min((e.next_time(t) for e in self.events), default=math.inf)
         if tnext < math.inf:
@@ -114,7 +127,8 @@ class Simulation:
             if self.stop:
                 break
             self.state = ns.ns_step(self.state, self.dt, self.time.t,
-                                    self.cfg, first_step=self.time.i == 0)
+                                    self.cfg, first_step=self.time.i == 0,
+                                    cstart=self.time.i % self.cfg.dim)
             self.time.t = self._tnext
             self.time.i += 1
             self.set_timestep()

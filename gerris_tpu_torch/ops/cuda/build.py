@@ -94,6 +94,8 @@ _SIGNATURES = {
     "gtt_rbgs_relax": [_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _DP, _I,
                        _I, _P],
     "gtt_coarse_block": [_P, _P, _I, _I, _I, _I, _D, _D, _DP, _I, _P],
+    "gtt_rbgs_relax_alpha": [_PP, _I, _I, _I, _I, _I, _D, _D, _D, _DP, _I,
+                             _I, _P],
     "gtt_residual_restrict_div": [_PP, _D, _DP, _D, _D, _I, _I, _DP, _I, _P],
     "gtt_prolong_relax_correct": [_PP, _D, _I, _I, _I, _I, _I, _D, _D, _D,
                                   _D, _DP, _DP, _I, _P],

@@ -5,7 +5,9 @@ sawtooth cycle's K1 ``residual_restrict``, K2 ``cascade_prolong_relax``,
 K3 ``prolong_relax``, their U+V pairs K8a ``residual_restrict_pair``, K8b
 ``cascade_prolong_relax_pair`` and K8c ``prolong_relax_pair``, and the
 adaptive solve's K10 ``rbgs_relax``, K11 ``residual`` (the TPU's
-``residual_pallas``) and K12 ``coarse_vcycle``, and the fold route's K16
+``residual_pallas``) and K12 ``coarse_vcycle``, the variable-coefficient
+smoother K15 ``rbgs_relax_alpha`` (the two-phase projections and the
+variable-density diffusion), and the fold route's K16
 ``residual_restrict_div`` (K1 with the MAC divergence as its rhs) and K17
 ``prolong_relax_correct`` (K3 with the projection's correction as its
 epilogue).  The kernels are in
@@ -25,8 +27,8 @@ power-of-two levels) and then:
 
 Ghosts are encoded per side as ghost = sgn * mirror + off, sides ordered
 (x lo, x hi, y lo, y hi) (poisson._signs_offs); the correction-phase
-kernels use off = 0 (homogeneous).  K10 and K11 take periodic rows and
-columns; the others periodic columns only (``per_y``).
+kernels use off = 0 (homogeneous).  K10, K11 and K15 take periodic rows
+and columns; the others periodic columns only (``per_y``).
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "prolong_relax": 0,
             "rbgs_relax": 0, "coarse_vcycle": 0,
             "coarse_vcycle.restrict2": 0, "coarse_block": 0,
             "coarse_vcycle.prolong_relax": 0, "residual_restrict_div": 0,
-            "prolong_relax_correct": 0}
+            "prolong_relax_correct": 0, "rbgs_relax_alpha": 0}
 
 _SMEM_MAX = 232448        # dynamic shared memory a block may use on sm_90
 _HOMOGENEOUS = (0.0, 0.0, 0.0, 0.0)
@@ -130,6 +132,40 @@ def rbgs_relax_plain(u, rhs, dia=0.0, *, nsweeps, h2, signs,
                      periodic=(False, False), omega=1.0):
     return rbgs_plain(u, rhs, nsweeps, h2, 1.0 / (4.0 + dia * h2), signs,
                       periodic, omega)
+
+
+def rbgs_relax_alpha_plain(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
+                           periodic=(False, False), omega=1.0,
+                           dia_cell=False):
+    """K15's function (gerris_tpu/ops/pallas/rbgs.py:_kernel_alpha):
+    ``nsweeps`` red-black sweeps (red = global (i+j) even first) on
+    div(alpha grad u) - dia u = rhs with face coefficients ``ax`` (n0+1,
+    n1) and ``ay`` (n0, n1+1), a scalar or (``dia_cell``) per-cell dia,
+    homogeneous ghosts sgn * mirror or a wrap on a periodic axis, where
+    face n is face 0 (the TPU kernel's wrapped face windows, rbgs.py:
+    127-129).  den = ax_lo + ax_hi + ay_lo + ay_hi + dia h2, in that
+    order; a cell with den <= 1e-20 (a zero diagonal) is left
+    untouched."""
+    n0, n1 = u.shape
+    ax_lo, ay_lo = ax[:n0], ay[:, :n1]
+    ax_hi = torch.cat([ax[1:n0], ax[:1]]) if periodic[0] else ax[1:]
+    ay_hi = torch.cat([ay[:, 1:n1], ay[:, :1]], 1) if periodic[1] \
+        else ay[:, 1:]
+    den0 = ax_lo + ax_hi + ay_lo + ay_hi + dia * h2
+    den = torch.clamp(den0, min=1e-30)
+    live = den0 > 1e-20
+    rows = torch.arange(n0, device=u.device).unsqueeze(1)
+    cols = torch.arange(n1, device=u.device).unsqueeze(0)
+    red = ((rows + cols) % 2) == 0
+    for _ in range(nsweeps):
+        for color in (red, ~red):
+            up, dn, lf, rt = _neighbours(u, signs, _HOMOGENEOUS, periodic)
+            num = ax_lo * up + ax_hi * dn + ay_lo * lf + ay_hi * rt
+            new = (num - h2 * rhs) / den
+            if omega != 1.0:
+                new = (1.0 - omega) * u + omega * new
+            u = torch.where(color & live, new, u)
+    return u
 
 
 def coarse_vcycle_plain(r, dia=0.0, *, nsweeps, coarsest, h2, signs,
@@ -697,6 +733,85 @@ def rbgs_relax(u, rhs, dia=0.0, *, nsweeps, h2, signs,
               float(dia), float(h2), float(omega), doubles(*signs),
               int(periodic[0]), int(periodic[1]))
         LAUNCHES["rbgs_relax"] += 1
+        u, left = out, left - k
+    return u
+
+
+def _alpha_plan(n, nsweeps, tile, whole_max, itemsize, sms=1):
+    """(tile, sweeps per launch) of K15, K10's plan with five B x B
+    buffers (u, rhs, the x and y face coefficients, den) per block, B =
+    tile + 2 halo + 2: a level of at most ``whole_max`` cells per side is
+    one block with no halo; a larger one takes ``tile`` if given, else
+    the largest of 64, 32, 16 whose halo of 2 nsweeps fits in shared
+    memory and that still gives every one of the card's ``sms``
+    multiprocessors a block (else the smallest that fits: a level's
+    blocks run side by side, and its half-sweeps one after another), else
+    32 with the sweeps split over launches.  The tile changes the launch
+    geometry only: the result is bit-identical for every tile."""
+    if n <= whole_max:
+        if 5 * (n + 2) ** 2 * itemsize > _SMEM_MAX:
+            raise ValueError(f"rbgs_relax_alpha: a whole {n}^2 level does "
+                             "not fit in shared memory (a smaller "
+                             "whole_max)")
+        return n, nsweeps
+    side_max = int((_SMEM_MAX / (5 * itemsize)) ** 0.5)
+    if tile is None:
+        fits = [t for t in (64, 32, 16)
+                if n % t == 0 and t + 4 * nsweeps + 2 <= side_max]
+        wide = [t for t in fits if (n // t) ** 2 >= sms]
+        tile = wide[0] if wide else fits[-1] if fits else 32
+    if n % tile:
+        raise ValueError(f"tile {tile} does not divide {n}")
+    per = (side_max - tile - 2) // 4
+    if per < 1:
+        raise ValueError(f"rbgs_relax_alpha: tile {tile} does not fit in "
+                         "shared memory")
+    return tile, min(per, nsweeps)
+
+
+@functools.lru_cache(maxsize=8)
+def _multiprocessors(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_alpha(u, rhs, ax, ay, dia, dia_cell):
+    _check_level(u, "u", min_n=2)
+    _check_level(rhs, "rhs", u.shape[0], min_n=2)
+    n = u.shape[0]
+    check_faces(ax, ay, n, n)
+    if dia_cell:
+        check(dia, "dia", (n, n))
+    elif isinstance(dia, torch.Tensor):
+        raise TypeError("rbgs_relax_alpha: a tensor dia needs dia_cell")
+
+
+def rbgs_relax_alpha(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
+                     periodic=(False, False), omega=1.0, dia_cell=False,
+                     tile=None, whole_max=64):
+    """K15: ``nsweeps`` red-black Gauss-Seidel sweeps from ``u`` on
+    div(alpha grad u) - dia u = rhs with face coefficients ``ax`` (n0+1,
+    n1), ``ay`` (n0, n1+1) and a scalar or (``dia_cell``) per-cell
+    ``dia``, homogeneous ghosts, periodic on either axis.  One launch,
+    unless the sweeps' halo outgrows shared memory (then consecutive
+    launches of fewer sweeps each)."""
+    _check_alpha(u, rhs, ax, ay, dia, dia_cell)
+    if _on_cpu(u, rhs, ax, ay, dia if dia_cell else None):
+        return rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, nsweeps=nsweeps,
+                                      h2=h2, signs=signs, periodic=periodic,
+                                      omega=omega, dia_cell=dia_cell)
+    n = u.shape[0]
+    tile, per = _alpha_plan(n, nsweeps, tile, whole_max, u.element_size(),
+                            _multiprocessors(u.device))
+    left = nsweeps
+    while left > 0:
+        k = min(left, per)
+        out = torch.empty_like(u)
+        _call("rbgs_relax_alpha", u.dtype, u.device,
+              pointers((u, rhs, ax, ay, dia if dia_cell else None, out)),
+              n, n, tile, 0 if tile == n else 2 * k, k,
+              0.0 if dia_cell else float(dia), float(h2), float(omega),
+              doubles(*signs), int(periodic[0]), int(periodic[1]))
+        LAUNCHES["rbgs_relax_alpha"] += 1
         u, left = out, left - k
     return u
 

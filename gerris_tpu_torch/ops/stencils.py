@@ -43,10 +43,13 @@ def divergence(fluxes, grid: Grid) -> torch.Tensor:
     return out
 
 
-def laplacian(u_pad: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """Unit-coefficient 5-point Laplacian of a 1-ghost padded field."""
-    return divergence([face_gradient(u_pad, grid, a) for a in range(grid.dim)],
-                      grid)
+def laplacian(u_pad: torch.Tensor, grid: Grid, alpha=None) -> torch.Tensor:
+    """div(alpha grad u) of a 1-ghost padded field, alpha per axis face
+    arrays or None for unit coefficients (the 5-point Laplacian)."""
+    fluxes = [face_gradient(u_pad, grid, a) for a in range(grid.dim)]
+    if alpha is not None:
+        fluxes = [f * a for f, a in zip(fluxes, alpha)]
+    return divergence(fluxes, grid)
 
 
 def norms(e: torch.Tensor, w: torch.Tensor = None) -> dict:

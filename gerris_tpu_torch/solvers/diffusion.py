@@ -1,12 +1,18 @@
 """Implicit diffusion via multigrid (port of gerris_tpu/solvers/diffusion.py,
-the scalar-D scalar-rho system).
+a scalar D with a scalar or cell-valued rho).
 
 Solves  rho u - beta dt D lap(u) = rho u_old + (1-beta) dt D lap(u_old)
-[+ extra], divided through by beta dt D into the Helmholtz system
-lap(u) - (rho / (beta dt D)) u = -rhs / (beta dt D) with a scalar dia.
+[+ extra].  With a scalar rho it is divided through by beta dt D into
+the Helmholtz system lap(u) - (rho / (beta dt D)) u = -rhs / (beta dt D)
+with a scalar dia; with a cell rho (the variable-density velocity
+diffusion) it is div(beta dt D grad u) - rho u = -rhs, face coefficients
+beta dt D on every face and the cell dia rho (K15 in the multigrid).
+Face-valued D (a variable viscosity) is slice 3b.
 Reference: src/poisson.c:1280-1467, src/timestep.c:720-790.
 """
 from __future__ import annotations
+
+import torch
 
 from ..core.grid import Grid
 from ..core import bc as bcs
@@ -28,17 +34,27 @@ def diffuse(v, grid: Grid, fbc: bcs.FieldBC, dt: float, D: float,
             params: poisson.MultilevelParams = None, extra_rhs=None,
             t: float = 0.0):
     """One implicit diffusion solve for ``v``; returns (v_new, stats).
+    ``rho``: a scalar or a cell array (the reference's rhoc mass
+    coefficient, the density of the velocity diffusion).
     ``params=None`` is the reference's adaptive default, DEFAULT_PARAMS."""
-    if not isinstance(D, (int, float)) or not isinstance(rho, (int, float)):
-        raise NotImplementedError("face-valued D or cell-valued rho "
-                                  "(ROADMAP Queue 1, slice 3)")
+    if not isinstance(D, (int, float)):
+        raise NotImplementedError("face-valued D (ROADMAP Queue 1, "
+                                  "slice 3b)")
     params = params_or_default(params)
     rhs = rho * v
     if beta < 1.0:
-        v_pad = bcs.apply_bc(v, grid, fbc, 1, corners=False)
+        v_pad = bcs.apply_bc(v, grid, fbc, 1, t=t, corners=False)
         rhs = rhs + (1.0 - beta) * dt * D * laplacian(v_pad, grid)
     if extra_rhs is not None:
         rhs = rhs + extra_rhs
+    if isinstance(rho, torch.Tensor):
+        # the reference's alpha_imp / dia = rho branch (diffusion.py:
+        # 50-56, :77-78): beta dt D on every face
+        alpha = tuple(beta * dt * torch.full(grid.face_shape(c), D,
+                                             dtype=v.dtype, device=v.device)
+                      for c in range(grid.dim))
+        return poisson.solve(v, -rhs, grid, fbc, params, dia=rho, t=t,
+                             alpha=alpha)
     scale = beta * dt * D
     return poisson.solve(v, -rhs / scale, grid, fbc, params,
                          dia=rho / scale, t=t)
@@ -60,7 +76,7 @@ def diffuse_pair(vs, grid: Grid, fbcs, dt: float, D: float, beta: float,
     component).  Returns ([v_new...], stats)."""
     if not isinstance(D, (int, float)):
         raise NotImplementedError("face-valued D (ROADMAP Queue 1, "
-                                  "slice 3)")
+                                  "slice 3b)")
     params = params_or_default(params)
     scale = beta * dt * D
     dia = 1.0 / scale

@@ -1,9 +1,10 @@
 """Geometric multigrid for (L - dia) u = rhs on uniform 2D and 3D grids
-(port of gerris_tpu/solvers/poisson.py: unit coefficients and a scalar
-dia; per-face coefficients and cell-valued dia are slice 3).
+(port of gerris_tpu/solvers/poisson.py).
 
-L is the unit-coefficient 5-point (2D) or 7-point (3D) Laplacian and dia
-a scalar.  ``solve`` takes the reference's branches (poisson.py:1090-1162):
+L is the 5-point (2D) or 7-point (3D) Laplacian, div(alpha grad u) with
+per-face coefficients ``alpha`` (one face array per axis) or unit ones,
+and dia a scalar or a cell array.  ``solve`` takes the reference's
+branches (poisson.py:1090-1162):
 * ``ncycles > 0``: that many fixed sawtooth cycles, each the three-step
   fused cycle of the TPU production path (``fused_cycle``: K1 -> K2 ->
   K3) where the BCs allow it (static values, non-periodic rows), else
@@ -26,6 +27,17 @@ The schedule is what the parameters say on every device: the reference
 raises nrelax and coarsest_relax to its ``tpu_nrelax`` floors on the TPU
 and caps ``dense_coarse_max`` at 1024 elsewhere; the port takes neither
 from the device (utils/convert.params_from_jax applies the floors).
+
+With per-face coefficients or a cell dia (the two-phase projections and
+the variable-density diffusion) every branch takes the reference's
+generic route: the torch residual, and a ``correction`` that coarsens the
+coefficients with the residual (``coarsen_face_coeff``: every second
+face, the mean of its transverse pair; the cell dia pooled) down to
+``minlevel`` with no K12, dense solve or K3, relaxes there from zero with
+nrelax * erelax**(levels) + coarsest_relax sweeps, then prolongs and
+relaxes each level upward.  In 2D each of those relaxations is one K15
+``rbgs_relax_alpha`` launch on every level, where the TPU ran it at 128^2
+and above and the same function in jnp below.
 
 The U+V implicit-diffusion pair solves both systems together, every
 launch of the cycle serving both (``solve_fixed_batched``, K8a-c;
@@ -155,50 +167,165 @@ def _check_2d(grid: Grid):
 
 
 def _scalar_dia(dia) -> float:
+    """The scalar dia of the unit-coefficient kernels (K1-K3, K8, K10-K12,
+    K16, K17), which take no cell dia, as on the TPU."""
     if dia is None:
         return 0.0
     if isinstance(dia, (int, float)):
         return float(dia)
-    raise NotImplementedError("dia must be a scalar; cell-valued dia is "
-                              "ROADMAP Queue 1, slice 3")
+    raise NotImplementedError("a cell dia takes the variable-coefficient "
+                              "route (alpha, K15), not this one")
+
+
+def _variable(alpha, dia) -> bool:
+    """Face coefficients or a cell dia: the generic route (K15 in 2D)."""
+    return alpha is not None or isinstance(dia, torch.Tensor)
+
+
+def _shifted(u, grid: Grid, fbc: bcs.FieldBC, homogeneous: bool):
+    """Per axis (lo, hi) neighbour values of u, same shape, with the
+    static ghosts sgn * mirror + off at non-periodic domain edges
+    (reference poisson.py:_shifted_neighbor)."""
+    signs, offs = _signs_offs(grid, fbc, homogeneous)
+    out = []
+    for axis in range(grid.dim):
+        n = u.shape[axis]
+        lo, hi = torch.roll(u, 1, axis), torch.roll(u, -1, axis)
+        if not fbc.is_periodic(axis):
+            shape = [1] * grid.dim
+            shape[axis] = n
+            idx = torch.arange(n, device=u.device).reshape(shape)
+            lo = torch.where(idx == 0, signs[2 * axis] * u + offs[2 * axis],
+                             lo)
+            hi = torch.where(idx == n - 1,
+                             signs[2 * axis + 1] * u + offs[2 * axis + 1],
+                             hi)
+        out.append((lo, hi))
+    return out
+
+
+def _padded(u, grid: Grid, fbc: bcs.FieldBC, homogeneous: bool, t: float):
+    """Per axis (lo, hi) neighbours from the padded field (callable BC
+    values evaluated at ``t``; reference poisson.py:_neighbor_sums)."""
+    p = bcs.apply_bc(u, grid, fbc, 1, homogeneous=homogeneous, t=t)
+    out = []
+    for axis in range(grid.dim):
+        inner = [slice(1, s - 1) for s in p.shape]
+        pair = []
+        for lo in (0, 2):
+            inner[axis] = slice(lo, lo + p.shape[axis] - 2)
+            pair.append(p[tuple(inner)])
+        out.append(tuple(pair))
+    return out
+
+
+def _neighbor_sums(nbs, alpha):
+    """(sum_d alpha_lo u_lo + alpha_hi u_hi, sum_d alpha_lo + alpha_hi)
+    per cell, axis by axis in the reference's order (poisson.py:103-133,
+    :249-273); unit coefficients when ``alpha`` is None."""
+    num = den = 0.0
+    for axis, (u_lo, u_hi) in enumerate(nbs):
+        if alpha is None:
+            num = num + u_lo + u_hi
+            den = den + 2.0
+            continue
+        a = alpha[axis]
+        n = a.shape[axis]
+        a_lo, a_hi = a.narrow(axis, 0, n - 1), a.narrow(axis, 1, n - 1)
+        num = num + a_lo * u_lo + a_hi * u_hi
+        den = den + a_lo + a_hi
+    return num, den
+
+
+def _neighbours_of(u, grid, fbc, homogeneous, t):
+    if homogeneous or bcs.static_values(fbc):
+        return _shifted(u, grid, fbc, homogeneous)
+    return _padded(u, grid, fbc, homogeneous, t)
+
+
+def _residual_generic(u, rhs, grid, fbc, alpha, dia, homogeneous, t):
+    """The reference's jnp residual (poisson.py:173-182): face
+    coefficients or unit ones, a scalar or cell dia, shifted neighbours
+    with static ghosts or the padded field (callable values at ``t``)."""
+    num, den = _neighbor_sums(_neighbours_of(u, grid, fbc, homogeneous, t),
+                              alpha)
+    lap = (num - den * u) / (grid.h * grid.h)
+    d = 0.0 if dia is None else dia
+    return rhs - (lap - d * u)
+
+
+def _relax_generic(u, rhs, grid, fbc, nsweeps, alpha, dia, homogeneous,
+                   omega, t):
+    """The reference's jnp red-black sweeps (poisson.py:321-346) with face
+    coefficients or a cell dia: the route of what K15 does not take (3D,
+    inhomogeneous ghosts, a cell dia with unit coefficients)."""
+    h2 = grid.h * grid.h
+    idx = sum(torch.arange(n, device=u.device).reshape(
+        [n if a == b else 1 for b in range(grid.dim)])
+        for a, n in enumerate(u.shape))
+    red = (idx % 2) == 0
+    d = 0.0 if dia is None else dia
+
+    def half(u, mask):
+        num, den = _neighbor_sums(
+            _neighbours_of(u, grid, fbc, homogeneous, t), alpha)
+        dd = den + d * h2
+        new = (num - h2 * rhs) / torch.clamp(dd, min=1e-30)
+        if omega != 1.0:
+            new = (1.0 - omega) * u + omega * new
+        new = torch.where(dd > 1e-20, new, u)
+        return torch.where(mask, new, u)
+
+    for _ in range(nsweeps):
+        u = half(u, red)
+        u = half(u, ~red)
+    return u
 
 
 def residual(u, rhs, grid: Grid, fbc: bcs.FieldBC, dia=None,
-             homogeneous: bool = False, t: float = 0.0):
+             homogeneous: bool = False, t: float = 0.0, alpha=None):
     """r = rhs - (L - dia) u (reference: src/poisson.c:634-747,
     gerris_tpu poisson.py:136-182) where the ghosts are static
     (homogeneous, or constant values): K11 in 2D, in 3D the reference's
     shifted-neighbour torch route (``_neighbor_sums_shifted``); else the
     reference's padded route (poisson.py:177-182), which evaluates
-    callable values at time ``t``."""
+    callable values at time ``t``.  With face coefficients ``alpha`` or a
+    cell dia, the reference's torch route on every device (K11 takes
+    neither, as residual_pallas does not)."""
+    if _variable(alpha, dia) or not (homogeneous or bcs.static_values(fbc)):
+        return _residual_generic(u, rhs, grid, fbc, alpha, dia, homogeneous,
+                                 t)
     d = _scalar_dia(dia)
     h2 = grid.h * grid.h
-    if homogeneous or bcs.static_values(fbc):
-        signs, offs = _signs_offs(grid, fbc, homogeneous)
-        if grid.dim == 2:
-            return rbgs.residual(u, rhs, d, h2=h2, signs=signs, offs=offs,
-                                 periodic=_periodic(fbc))
-        nb = rbgs3d.neighbour_sum(u, signs, offs, _periodic(fbc))
-        return rhs - ((nb - 6.0 * u) / h2 - d * u)
-    p = bcs.apply_bc(u, grid, fbc, 1, t=t)
-    nb = 0.0
-    for axis in range(grid.dim):
-        n = p.shape[axis]
-        inner = [slice(1, s - 1) for s in p.shape]
-        for lo in (0, 2):
-            inner[axis] = slice(lo, lo + n - 2)
-            nb = nb + p[tuple(inner)]
-    lap = (nb - 2.0 * grid.dim * u) / h2
-    return rhs - (lap - d * u)
+    signs, offs = _signs_offs(grid, fbc, homogeneous)
+    if grid.dim == 2:
+        return rbgs.residual(u, rhs, d, h2=h2, signs=signs, offs=offs,
+                             periodic=_periodic(fbc))
+    nb = rbgs3d.neighbour_sum(u, signs, offs, _periodic(fbc))
+    return rhs - ((nb - 6.0 * u) / h2 - d * u)
 
 
 def relax(u, rhs, grid: Grid, fbc: bcs.FieldBC, nsweeps: int, dia=None,
-          homogeneous: bool = True, omega: float = 1.0):
+          homogeneous: bool = True, omega: float = 1.0, alpha=None,
+          t: float = 0.0):
     """Red-black Gauss-Seidel sweeps (reference: src/poisson.c:507-586):
     with homogeneous ghosts (the multigrid's sweeps) K10 in 2D, and in 3D
     K13 where every side is Dirichlet or Neumann (reference
     poisson.py:304-319); else the torch route with the BCs' static
-    offsets, periodic sides included."""
+    offsets, periodic sides included.  With face coefficients ``alpha``
+    (and a scalar or cell dia) K15 in 2D with homogeneous ghosts
+    (poisson.py:289-303), at every level size; otherwise, and for a cell
+    dia with unit coefficients, the reference's jnp sweeps in torch."""
+    if _variable(alpha, dia):
+        if alpha is not None and homogeneous and grid.dim == 2:
+            cell = isinstance(dia, torch.Tensor)
+            return rbgs.rbgs_relax_alpha(
+                u, rhs, alpha[0], alpha[1], dia if cell else
+                _scalar_dia(dia), nsweeps=nsweeps, h2=grid.h * grid.h,
+                signs=_signs_offs(grid, fbc, True)[0],
+                periodic=_periodic(fbc), omega=omega, dia_cell=cell)
+        return _relax_generic(u, rhs, grid, fbc, nsweeps, alpha, dia,
+                              homogeneous, omega, t)
     d = _scalar_dia(dia)
     h2 = grid.h * grid.h
     signs, offs = _signs_offs(grid, fbc, homogeneous)
@@ -242,6 +369,40 @@ def prolong(c, fbc: bcs.FieldBC):
         a = torch.stack([0.75 * a + 0.25 * lo, 0.75 * a + 0.25 * hi],
                         axis + 1).reshape(shape)
     return a
+
+
+def coarsen_face_coeff(alpha, dim: int):
+    """Coarse face coefficients: every second face along its axis, the
+    mean of each transverse pair of child faces (reference
+    poisson.py:411-431)."""
+    out = []
+    for axis in range(dim):
+        a = alpha[axis]
+        idx = [slice(None)] * a.dim()
+        idx[axis] = slice(0, a.shape[axis], 2)
+        a = a[tuple(idx)]
+        for ax2 in range(dim):
+            if ax2 == axis:
+                continue
+            sh = list(a.shape)
+            sh[ax2:ax2 + 1] = [sh[ax2] // 2, 2]
+            a = a.reshape(sh).mean(dim=ax2 + 1)
+        out.append(a.contiguous())
+    return tuple(out)
+
+
+def _coeff_hierarchy(grid: Grid, minlevel: int, alpha, dia):
+    """Face coefficients and dia down the levels (reference
+    poisson.py:442-452): faces by coarsen_face_coeff, a cell dia by the
+    children's mean, a scalar dia as it is."""
+    alphas, dias = [alpha], [dia]
+    for _ in range(grid.level - minlevel):
+        alphas.append(None if alphas[-1] is None
+                      else coarsen_face_coeff(alphas[-1], grid.dim))
+        d = dias[-1]
+        dias.append(restrict(d).contiguous()
+                    if isinstance(d, torch.Tensor) else d)
+    return alphas, dias
 
 
 def _laplacian_matrix(shape, h: float, kinds) -> np.ndarray:
@@ -291,8 +452,34 @@ def _dense_solve(rc, grid_c: Grid, fbc: bcs.FieldBC, d: float):
     return torch.matmul(Q, z).reshape(rc.shape)
 
 
+def _correction_variable(r, grid, fbc, params, alpha, dia, u_fine):
+    """The correction with face coefficients or a cell dia (reference
+    poisson.py:534-617 with alpha): no K12, dense solve or K3; the
+    residual and the coefficients restricted down to ``minlevel``,
+    nrelax * erelax**(levels) + coarsest_relax sweeps from zero there,
+    then ``prolong`` + ``relax`` (K15 in 2D) up every level."""
+    minlevel = min(params.minlevel, grid.level)
+    grids = [dataclasses.replace(grid, level=lv)
+             for lv in range(grid.level, minlevel - 1, -1)]
+    alphas, dias = _coeff_hierarchy(grid, minlevel, alpha, dia)
+    rs = [r]
+    for _ in grids[1:]:
+        rs.append(rbgs.restrict2(rs[-1]) if grid.dim == 2
+                  else restrict(rs[-1]))
+    nl = len(grids)
+    du = relax(torch.zeros_like(rs[-1]), rs[-1], grids[-1], fbc,
+               params.nrelax * params.erelax ** (nl - 1)
+               + params.coarsest_relax, dias[-1], omega=params.omega,
+               alpha=alphas[-1])
+    for k in range(nl - 2, -1, -1):
+        du = relax(prolong(du, fbc), rs[k], grids[k], fbc,
+                   params.nrelax * params.erelax ** k, dias[k],
+                   omega=params.omega, alpha=alphas[k])
+    return du if u_fine is None else u_fine + du
+
+
 def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
-               dia=None, u_fine=None):
+               dia=None, u_fine=None, alpha=None):
     """The correction phase of one sawtooth cycle (reference
     poisson.py:520-617, src/poisson.c:1109-1166): restrict the residual
     (restrict2 in 2D, the 2x2x2 mean in 3D) down the hierarchy, solve the
@@ -308,7 +495,11 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
       + coarsest_relax sweeps.
     Upward, each 2D level is one K3 launch, or ``prolong`` + K10 on
     periodic rows (K3 takes periodic columns only); each 3D level is
-    ``prolong`` + ``relax`` (K13)."""
+    ``prolong`` + ``relax`` (K13).  With face coefficients ``alpha`` or a
+    cell dia: _correction_variable."""
+    if _variable(alpha, dia):
+        return _correction_variable(r, grid, fbc, params, alpha, dia,
+                                    u_fine)
     d = _scalar_dia(dia)
     per_x = fbc.is_periodic(0)
     flat = grid.dim == 2
@@ -357,19 +548,20 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
 
 
 def cycle(u, rhs, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
-          dia=None, t: float = 0.0):
+          dia=None, t: float = 0.0, alpha=None):
     """One sawtooth cycle: residual + correction (reference
     src/poisson.c:1109-1178 gfs_poisson_cycle)."""
-    r = residual(u, rhs, grid, fbc, dia, t=t)
-    return correction(r, grid, fbc, params, dia, u_fine=u)
+    r = residual(u, rhs, grid, fbc, dia, t=t, alpha=alpha)
+    return correction(r, grid, fbc, params, dia, u_fine=u, alpha=alpha)
 
 
-def _fused_eligible(u, grid: Grid, fbc: bcs.FieldBC, dia) -> bool:
-    """The levels and BCs the fused cycle's kernels take: 2D, a scalar
-    dia, static BC values, non-periodic rows, square power-of-two levels
-    of at least 4 * MIN_N (reference poisson.py:648-659, without its
-    device, dtype and size tests)."""
-    if grid.dim != 2:
+def _fused_eligible(u, grid: Grid, fbc: bcs.FieldBC, dia,
+                    alpha=None) -> bool:
+    """The levels and BCs the fused cycle's kernels take: 2D, unit
+    coefficients, a scalar dia, static BC values, non-periodic rows,
+    square power-of-two levels of at least 4 * MIN_N (reference
+    poisson.py:648-659, without its device, dtype and size tests)."""
+    if grid.dim != 2 or alpha is not None:
         return False
     n0, n1 = u.shape
     return ((dia is None or isinstance(dia, (int, float)))
@@ -471,7 +663,7 @@ def solve_fused_div_correct(u, ufx, ufy, grid: Grid, fbc: bcs.FieldBC,
     return out if cells is None else out + (uc, vc)
 
 
-def _solve_adaptive(u, rhs, grid, fbc, params, dia, t, r, tol):
+def _solve_adaptive(u, rhs, grid, fbc, params, dia, t, r, tol, alpha=None):
     """The tolerance loop with one residual per cycle: the residual that
     ends cycle i is the correction's input of cycle i + 1 (reference
     poisson.py:914-932).  The condition i < nitermin or (i < nitermax and
@@ -485,24 +677,27 @@ def _solve_adaptive(u, rhs, grid, fbc, params, dia, t, r, tol):
             syncs += 1
             if not bool(r.abs().max() > tol):
                 break
-        u = correction(r, grid, fbc, params, dia, u_fine=u)
-        r = residual(u, rhs, grid, fbc, dia, t=t)
+        u = correction(r, grid, fbc, params, dia, u_fine=u, alpha=alpha)
+        r = residual(u, rhs, grid, fbc, dia, t=t, alpha=alpha)
         i += 1
     return u, i, r, syncs
 
 
 def solve(u, rhs, grid: Grid, fbc: bcs.FieldBC,
           params: MultilevelParams = MultilevelParams(), dia=None,
-          rhs_sub=None, t: float = 0.0):
+          rhs_sub=None, t: float = 0.0, alpha=None):
     """Solve (L - dia) u = rhs - rhs_sub (reference poisson.py:1090-1162;
     the branches are listed in the module's docstring).  ``rhs_sub``: the
     pure-Neumann compatibility mean, a float or a one-element tensor,
     folded into the fused cycle's first kernel.  ``t``: the time at
-    which callable BC values are evaluated.  Stats of a fused fixed
-    schedule report the residual entering the last cycle; the others
-    report the residuals before and after the solve."""
+    which callable BC values are evaluated.  ``alpha``: per-axis face
+    coefficients (None: unit); ``dia`` a scalar or a cell array.  Stats
+    of a fused fixed schedule report the residual entering the last
+    cycle; the others report the residuals before and after the
+    solve."""
+    kw = dict(t=t, alpha=alpha)
     if params.ncycles > 0 and params.solver == "multigrid":
-        if _fused_eligible(u, grid, fbc, dia):
+        if _fused_eligible(u, grid, fbc, dia, alpha):
             sub = 0.0 if rhs_sub is None else rhs_sub
             r0 = None
             for _ in range(params.ncycles):
@@ -511,51 +706,56 @@ def solve(u, rhs, grid: Grid, fbc: bcs.FieldBC,
                                  r_after=r0)
         if rhs_sub is not None:
             rhs = rhs - rhs_sub
-        r0 = residual(u, rhs, grid, fbc, dia, t=t)
+        r0 = residual(u, rhs, grid, fbc, dia, **kw)
         for _ in range(params.ncycles):
-            u = cycle(u, rhs, grid, fbc, params, dia, t)
+            u = cycle(u, rhs, grid, fbc, params, dia, **kw)
         return u, SolveStats(niter=params.ncycles, r_before=r0,
-                             r_after=residual(u, rhs, grid, fbc, dia, t=t))
+                             r_after=residual(u, rhs, grid, fbc, dia, **kw))
     if rhs_sub is not None:
         rhs = rhs - rhs_sub
     if params.solver != "multigrid":
         if params.solver not in SOLVER_REGISTRY:
             raise ValueError(f"unknown solver {params.solver!r}")
+        extra = {} if alpha is None else {"alpha": alpha}
         return SOLVER_REGISTRY[params.solver](u, rhs, grid, fbc, params, dia,
-                                              t)
-    r0 = residual(u, rhs, grid, fbc, dia, t=t)
+                                              t, **extra)
+    r0 = residual(u, rhs, grid, fbc, dia, **kw)
     if params.nitermin == params.nitermax:
         for _ in range(params.nitermax):
-            u = cycle(u, rhs, grid, fbc, params, dia, t)
+            u = cycle(u, rhs, grid, fbc, params, dia, **kw)
         return u, SolveStats(niter=params.nitermax, r_before=r0,
-                             r_after=residual(u, rhs, grid, fbc, dia, t=t))
+                             r_after=residual(u, rhs, grid, fbc, dia, **kw))
     # the reference guards with 1e-300, which is 0 in float32
     scale = torch.clamp(rhs.abs().max(), min=torch.finfo(rhs.dtype).tiny)
     u, niter, r1, syncs = _solve_adaptive(u, rhs, grid, fbc, params, dia, t,
-                                          r0, params.tolerance * scale)
+                                          r0, params.tolerance * scale,
+                                          alpha)
     return u, SolveStats(niter=niter, r_before=r0, r_after=r1,
                          host_syncs=syncs)
 
 
 def solve_relax(u, rhs, grid: Grid, fbc: bcs.FieldBC,
-                params: MultilevelParams = None, dia=None, t: float = 0.0):
+                params: MultilevelParams = None, dia=None, t: float = 0.0,
+                alpha=None):
     """The fine-level-relaxation-only solve (reference poisson.py:996-
     1017): r0 (K11), max(nrelax, 4) homogeneous sweeps of the correction
-    from zero (K10), u + du, and the final residual (K11)."""
+    from zero (K10, or K15 with face coefficients), u + du, and the
+    final residual (K11)."""
     params = params or MultilevelParams()
-    r0 = residual(u, rhs, grid, fbc, dia, t=t)
+    r0 = residual(u, rhs, grid, fbc, dia, t=t, alpha=alpha)
     du = relax(torch.zeros_like(u), r0, grid, fbc, max(params.nrelax, 4),
-               dia, omega=params.omega)
+               dia, omega=params.omega, alpha=alpha)
     u = u + du
     return u, SolveStats(niter=1, r_before=r0,
-                         r_after=residual(u, rhs, grid, fbc, dia, t=t))
+                         r_after=residual(u, rhs, grid, fbc, dia, t=t,
+                                          alpha=alpha))
 
 
 def _slice3(name):
     def solver(*args, **kwargs):
         raise NotImplementedError(
-            f"solver {name!r} (gerris_tpu poisson.py:935-1079) comes with "
-            "per-face coefficients in slice 3 (ROADMAP Queue 1)")
+            f"solver {name!r} (gerris_tpu poisson.py:935-1079) is not "
+            "ported yet (ROADMAP Queue 1, slice 3b)")
     return solver
 
 

@@ -1,9 +1,16 @@
 """MAC and approximate projections (port of gerris_tpu/solvers/projection.py;
-unit density, no embedded solids, no face sources).
+no embedded solids).
 
 The MAC projection makes the face-normal velocity exactly
-divergence-free: solve lap(p) = div(u_f)/dt, then u_f -= dt grad_f p.  The
-cell-centred gradient is the mean of a cell's two face gradients.
+divergence-free: solve div(alpha grad p) = div(u_f)/dt, then u_f -= dt
+alpha grad_f p.  The cell-centred gradient is the mean of a cell's two
+face gradients.  ``alpha`` (1/rho per face, the two-phase projections)
+and ``face_sources`` (the well-balanced tension dp per face: u_f += dt dp
+before the solve, and the net gradient alpha grad p - dp after it) take
+the reference's generic correction (projection.py:248-280): K4 still
+forms the divergence (:156-163), the solve runs K15, and the face
+gradients, the correction and the cell gradient are torch, as the TPU
+runs them in jnp (K5 takes neither, :218-219).
 Reference: src/timestep.c:60-145, 356-596.
 
 The divergence runs through K4 ``divergence_mac``, the correction
@@ -37,9 +44,70 @@ from ..ops.stencils import divergence, face_average, face_gradient
 from . import poisson
 
 
+def face_gradients(p, grid: Grid, p_bc: bcs.FieldBC, alpha=None) -> list:
+    """alpha_face * grad_face p for every face, per axis, on p padded with
+    corners=False (reference projection.py:24-42)."""
+    p_pad = bcs.apply_bc(p, grid, p_bc, 1, corners=False)
+    out = []
+    for axis in range(grid.dim):
+        g = face_gradient(p_pad, grid, axis)
+        out.append(g if alpha is None else g * alpha[axis])
+    return out
+
+
+def cell_gradient_from_faces(gf: list) -> list:
+    """The mean of each cell's two face values, per axis (reference
+    projection.py:45-58)."""
+    return [0.5 * (f.narrow(a, 0, f.shape[a] - 1)
+                   + f.narrow(a, 1, f.shape[a] - 1))
+            for a, f in enumerate(gf)]
+
+
+def _refuse_slice4(div_source, face_frac, vol_frac):
+    if div_source is not None or face_frac is not None \
+            or vol_frac is not None:
+        raise NotImplementedError("div_source, face_frac and vol_frac "
+                                  "(embedded solids) are slice 4 "
+                                  "(ROADMAP Queue 1)")
+
+
+def _mac_projection_generic(u_face, p, grid, p_bc, dt, params, alpha,
+                            face_sources, cells, t):
+    """mac_projection on the reference's generic route (projection.py:
+    93-280), taken in 3D and with face coefficients and/or face sources:
+    u_f += dt dp, the divergence (K4 in 2D) and its mean as rhs_sub (no
+    Dirichlet side), the solve, then alpha grad_f p, u_f -= dt alpha
+    grad_f p, the net gradient alpha grad_f p - dp averaged to the cells,
+    and the cells corrected by -dt g_cell."""
+    if face_sources is not None:
+        u_face = [u_face[c] + dt * face_sources[c] for c in range(grid.dim)]
+    rhs_sub = None
+    pure = not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides for b in ax)
+    if grid.dim == 2:
+        div, total = projops.divergence_mac(u_face[0], u_face[1], dt, grid.h)
+        if pure:
+            rhs_sub = total / div.numel()
+    else:
+        div = divergence(u_face, grid) / dt
+        if pure:
+            div = div - div.mean()
+    p, stats = poisson.solve(p, div, grid, p_bc, params, rhs_sub=rhs_sub,
+                             t=t, alpha=alpha)
+    gf = face_gradients(p, grid, p_bc, alpha)
+    u_face = [u_face[c] - dt * gf[c] for c in range(grid.dim)]
+    if face_sources is not None:
+        gf = [gf[c] - face_sources[c] for c in range(grid.dim)]
+    g_cell = cell_gradient_from_faces(gf)
+    if cells is not None:
+        cells = [cells[c] - dt * g_cell[c] for c in range(grid.dim)]
+    return u_face, p, g_cell, stats, cells
+
+
 def mac_projection(u_face: list, p, grid: Grid, p_bc: bcs.FieldBC, dt,
                    params: poisson.MultilevelParams, cells=None,
-                   div_pre=None):
+                   div_pre=None, alpha=None, face_sources=None,
+                   div_source=None, face_frac=None, vol_frac=None,
+                   t: float = 0.0):
     """Project the MAC field.  Returns (u_face', p, g_cell, stats,
     cells'): with ``cells`` (centred velocities) cells' are those cells
     corrected by -dt g_cell, else None.  ``div_pre``: the (div, total)
@@ -47,9 +115,19 @@ def mac_projection(u_face: list, p, grid: Grid, p_bc: bcs.FieldBC, dt,
     div_scale), so no divergence launch runs here.  For a pressure BC
     without Dirichlet sides the compatibility mean total / ncells stays on
     the device and is subtracted inside the solver's first kernel, except
-    on the fold route, which drops it as the reference does."""
-    if grid.dim == 3:
-        return _mac_projection_3d(u_face, p, grid, p_bc, dt, params, cells)
+    on the fold route, which drops it as the reference does.
+    ``alpha``: per-axis face coefficients 1/rho; ``face_sources``: per-axis
+    face accelerations dp (surface tension), see
+    _mac_projection_generic.  ``div_source``, ``face_frac`` and
+    ``vol_frac`` (embedded solids) are slice 4 and raise."""
+    _refuse_slice4(div_source, face_frac, vol_frac)
+    variable = alpha is not None or face_sources is not None
+    if variable and div_pre is not None:
+        raise ValueError("mac_projection: a producer divergence with alpha "
+                         "or face sources (the reference folds none there)")
+    if grid.dim == 3 or variable:
+        return _mac_projection_generic(u_face, p, grid, p_bc, dt, params,
+                                       alpha, face_sources, cells, t)
     if (div_pre is None and bcg.applicable(grid)
             and poisson.fold_div_eligible(p, grid, p_bc, params)):
         # the fold route (reference projection.py:135-155): the divergence
@@ -102,20 +180,3 @@ def face_interpolated_velocity(u_cell: list, grid: Grid, u_bcs: list,
     out = interp(u_cell[0], u_cell[1], grid, u_bcs, gp, dtv, div_scale)
     divp = None if div_scale is None else (out[4], out[5])
     return [out[0], out[1]], [out[2], out[3]], divp
-
-
-def _mac_projection_3d(u_face, p, grid, p_bc, dt, params, cells):
-    div = divergence(u_face, grid) / dt
-    if not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides for b in ax):
-        div = div - div.mean()
-    p, stats = poisson.solve(p, div, grid, p_bc, params)
-    p_pad = bcs.apply_bc(p, grid, p_bc, 1, corners=False)
-    gf = [face_gradient(p_pad, grid, a) for a in range(3)]
-    u_face = [u_face[c] - dt * gf[c] for c in range(3)]
-    # a cell's gradient: the mean of its two face gradients
-    n = grid.shape
-    g_cell = [0.5 * (f.narrow(a, 0, n[a]) + f.narrow(a, 1, n[a]))
-              for a, f in enumerate(gf)]
-    if cells is not None:
-        cells = [cells[c] - dt * g_cell[c] for c in range(3)]
-    return u_face, p, g_cell, stats, cells

@@ -20,9 +20,14 @@ from ..solvers.advection import AdvectionParams
 from ..solvers.diffusion import DEFAULT_PARAMS
 from ..solvers.poisson import COARSEST_FLOOR, MultilevelParams
 
+# the reference's MultilevelParams.tpu_nrelax default, the floor its
+# diffusion default takes on the TPU (gerris_tpu poisson.py:70)
+TPU_NRELAX = 8
+
 _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "approx_projection", "nu", "beta", "diffusion_params",
-                 "div_in_src", "pair_advect", "rr_in_advect"}
+                 "div_in_src", "pair_advect", "rr_in_advect", "vof_tracers",
+                 "tension", "density"}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
@@ -69,17 +74,21 @@ def params_from_jax(p, dim: int = 2) -> MultilevelParams:
     at least 128); the port's schedule does not depend on the device.  In
     3D the TPU applies none (``_pallas_relax_applicable`` is False for dim
     != 2, poisson.py:191), so the params carry over as given.
-    ``p=None`` (a diffusion's reference default) gives diffuse's
-    default.  ``fold_div`` and ``fold_correct`` (the bench's
+    ``p=None`` (a diffusion's reference default) gives diffuse's default
+    with the same floors in 2D: the reference's ``solve`` raises it on
+    the TPU like any adaptive schedule (poisson.py:1139-1143, reached
+    from diffusion.py:40-46) with the reference's default tpu_nrelax, so
+    nrelax 8 and 16 coarsest sweeps in 2D, and diffuse's default as it is
+    in 3D.  ``fold_div`` and ``fold_correct`` (the bench's
     GERRIS_FOLD_DIV / GERRIS_FOLD_CORRECT, bench.py:142-150) carry over:
     a MAC projection then takes the K16/K17 fold route where
     poisson.fold_div_eligible holds."""
+    tpu = TPU_NRELAX if p is None else p.tpu_nrelax
     if p is None:
-        return DEFAULT_PARAMS
+        p = DEFAULT_PARAMS
     fields = {f.name: getattr(p, f.name)
               for f in dataclasses.fields(MultilevelParams)}
     if p.solver == "multigrid" and dim == 2:
-        tpu = p.tpu_nrelax
         fields["nrelax"] = max(p.nrelax, tpu)
         fields["coarsest_relax"] = max(p.coarsest_relax, 2 * tpu)
         if p.ncycles > 0:
@@ -114,4 +123,10 @@ def config_from_jax(cfg) -> ns.NSConfig:
         diffusion_params=params_from_jax(cfg.diffusion_params, dim),
         div_in_src=bool(cfg.div_in_src),
         pair_advect=bool(cfg.pair_advect),
-        rr_in_advect=bool(cfg.rr_in_advect))
+        rr_in_advect=bool(cfg.rr_in_advect),
+        vof_tracers=tuple((name, fieldbc_from_jax(fbc))
+                          for name, fbc in cfg.vof_tracers),
+        tension=tuple((name, float(sigma)) for name, sigma in cfg.tension),
+        density=None if cfg.density is None else
+        (cfg.density[0], float(cfg.density[1]), float(cfg.density[2]),
+         int(cfg.density[3])))

@@ -59,13 +59,15 @@ def test_params_from_jax_floors(jp, want):
 
 
 def test_params_from_jax_refuses_folds_and_maps_none():
-    """None maps to diffuse's default.  The fold knobs, which the port
-    refused before K16/K17, now carry over as the bench sets them
-    (bench.py:142-150: GERRIS_FOLD_CORRECT sets both)."""
+    """None maps to diffuse's default as the TPU runs it: in 2D the
+    reference's solve raises it to tpu_nrelax 8 and 16 coarsest sweeps
+    (poisson.py:1139-1143, reached from diffusion.py:40-46).  The fold
+    knobs, which the port refused before K16/K17, now carry over as the
+    bench sets them (bench.py:142-150: GERRIS_FOLD_CORRECT sets both)."""
     assert convert.params_from_jax(None).ncycles == 0
-    # diffuse's default (gerris_tpu/solvers/diffusion.py:40-44)
+    # diffuse's default (gerris_tpu/solvers/diffusion.py:40-44), floored
     assert convert.params_from_jax(None) == tpoisson.MultilevelParams(
-        tolerance=1e-3, nitermax=10)
+        tolerance=1e-3, nitermax=10, nrelax=8, coarsest_relax=16)
     for fold_div, fold_correct in ((True, False), (True, True)):
         jp = jpoisson.MultilevelParams(tolerance=1e-3, nitermax=100,
                                        ncycles=1, omega=1.5, tpu_nrelax=5,
@@ -75,6 +77,37 @@ def test_params_from_jax_refuses_folds_and_maps_none():
             nrelax=5, omega=1.5, coarsest_relax=40, ncycles=1,
             fold_div=fold_div, fold_correct=fold_correct)
     assert not convert.params_from_jax(jpoisson.MultilevelParams()).fold_div
+
+
+@pytest.mark.parametrize("dim,want", [
+    # the TPU's floors in 2D (poisson.py:1139-1143)
+    (2, dict(nrelax=8, coarsest_relax=16)),
+    # none in 3D (poisson.py:191): diffuse's default as it is
+    (3, dict(nrelax=4, coarsest_relax=8)),
+])
+def test_params_from_jax_none_by_dim(dim, want):
+    got = convert.params_from_jax(None, dim)
+    assert got == tpoisson.MultilevelParams(tolerance=1e-3, nitermax=10,
+                                            **want)
+
+
+@pytest.mark.parametrize("dim,want", [(2, (8, 16)), (3, (4, 8))])
+def test_config_from_jax_default_diffusion_schedule(dim, want):
+    """A JAX config that leaves diffusion_params at None (the two-phase
+    configuration, __graft_entry__._dryrun_twophase) converts to the
+    schedule the TPU runs: nrelax 8 and 16 coarsest sweeps in 2D, 4 and
+    8 in 3D.  A port-native NSConfig keeps None (diffuse's default)."""
+    if dim == 2:
+        jcfg = dataclasses.replace(cavity_cfg(5), diffusion_params=None)
+    else:
+        jcfg = dataclasses.replace(bench_3d_cfg(level=4),
+                                   diffusion_params=None)
+    d = convert.config_from_jax(jcfg).diffusion_params
+    assert (d.nrelax, d.coarsest_relax, d.tolerance, d.nitermax) == \
+        want + (1e-3, 10)
+    port = dataclasses.replace(convert.config_from_jax(jcfg),
+                               diffusion_params=None)
+    assert port.diffusion_params is None
 
 
 def test_config_from_jax_bench():

@@ -12,7 +12,10 @@ outside its encoding raises.  The adaptive solve on the card is held to
 the same solve through the plain versions, and so are three steps of the
 3D lid cavity (K13, the 3D smoother, at every level above the dense
 one); three steps of the fold route (K16, K2, K17 per projection) are
-held to the unfolded route.
+held to the unfolded route.  K15, the variable-coefficient smoother, is
+held to its plain version on every periodicity, dia mode and level size
+of a two-phase correction, bit-identical across tiles, and three
+two-phase steps on the card to the same steps on the CPU.
 """
 import pytest
 
@@ -750,3 +753,147 @@ def test_fold_step_matches_unfolded_on_the_card(dev):
             assert rbgs.LAUNCHES["residual_restrict"] == 0
     for k in ("U", "V"):
         assert _rel(runs["fold"][k], runs["unfolded"][k]) <= 1e-9, k
+
+
+# --- K15 rbgs_relax_alpha, the variable-coefficient smoother -------------------
+
+ALPHA_CASES = {"walls": (SIGNS_LID, (False, False)),
+               "per_x": ((1.0, 1.0, -1.0, 1.0), (True, False)),
+               "per_xy": ((1.0, 1.0, 1.0, 1.0), (True, True))}
+
+
+def _alpha_system(dev, dtype, seed, n, periodic, cell, dead):
+    """u, rhs, positive face coefficients (face n = face 0 on a periodic
+    axis), and a scalar or positive cell dia; ``dead``: a few cells with
+    all four faces and dia zero."""
+    u, rhs, ax, ay, d = _rnd(dev, dtype, seed, (n, n), (n, n), (n + 1, n),
+                             (n, n + 1), (n, n))
+    ax, ay = 0.2 + ax.abs(), 0.2 + ay.abs()
+    dia = 0.5 + d.abs() if cell else 0.3
+    if dead:
+        for i, j in ((1, 2), (n // 2, n // 2 + 1), (n - 2, 3)):
+            ax[i, j] = ax[i + 1, j] = ay[i, j] = ay[i, j + 1] = 0.0
+            if cell:
+                dia[i, j] = 0.0
+        if not cell:
+            dia = 0.0
+    if periodic[0]:
+        ax[n] = ax[0]
+    if periodic[1]:
+        ay[:, n] = ay[:, 0]
+    return u, rhs, ax, ay, dia
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("cell", [False, True])
+@pytest.mark.parametrize("kind", list(ALPHA_CASES))
+def test_rbgs_relax_alpha_kernel(dev, dtype, kind, cell, dead):
+    """K15 against its plain version at 256^2 (tiled), 8 sweeps, omega
+    1.2: walls, periodic rows, doubly periodic; scalar and cell dia; with
+    and without zero-diagonal cells, which keep their value."""
+    n = 256
+    signs, periodic = ALPHA_CASES[kind]
+    u, rhs, ax, ay, dia = _alpha_system(dev, dtype, 40, n, periodic, cell,
+                                        dead)
+    kw = dict(nsweeps=8, h2=1.0 / n ** 2, signs=signs, periodic=periodic,
+              omega=1.2, dia_cell=cell)
+    rbgs.reset_launch_counts()
+    got = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw)
+    assert rbgs.LAUNCHES["rbgs_relax_alpha"] == 1
+    assert _rel(got, rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, **kw)) \
+        <= BOUND[dtype]
+    if dead:
+        assert got[1, 2] == u[1, 2] and got[n - 2, 3] == u[n - 2, 3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,nsweeps", [(128, 8), (64, 8), (32, 8), (16, 8),
+                                       (8, 8), (4, 24)])
+@pytest.mark.parametrize("kind", list(ALPHA_CASES))
+def test_rbgs_relax_alpha_levels(dev, dtype, n, nsweeps, kind):
+    """Every level size of a two-phase correction down to 4^2 (24 sweeps
+    there, 8 * 1 + 16: the coarsest level's count), cell dia."""
+    signs, periodic = ALPHA_CASES[kind]
+    u, rhs, ax, ay, dia = _alpha_system(dev, dtype, 41, n, periodic, True,
+                                        False)
+    kw = dict(nsweeps=nsweeps, h2=1.0 / n ** 2, signs=signs,
+              periodic=periodic, omega=1.0, dia_cell=True)
+    got = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw)
+    assert _rel(got, rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, **kw)) \
+        <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", list(ALPHA_CASES))
+def test_rbgs_relax_alpha_tile_invariance(dev, dtype, kind):
+    """Bit-identical across tiles 64 (float32), 32 and 16, whole-level and
+    tiled, and one launch against several (sweeps split when their halo
+    outgrows shared memory)."""
+    signs, periodic = ALPHA_CASES[kind]
+    u, rhs, ax, ay, dia = _alpha_system(dev, dtype, 42, 256, periodic, True,
+                                        True)
+    kw = dict(nsweeps=8, h2=1.0 / 256 ** 2, signs=signs, periodic=periodic,
+              omega=1.5, dia_cell=True)
+    ref = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, tile=16, **kw)
+    tiles = (64, 32) if dtype == torch.float32 else (32,)
+    for tile in tiles:
+        assert torch.equal(ref, rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia,
+                                                      tile=tile, **kw)), tile
+    s = [t[:64, :64].contiguous() for t in (u, rhs, dia)]
+    fx, fy = ax[:65, :64].contiguous(), ay[:64, :65].contiguous()
+    if periodic[0]:
+        fx[64] = fx[0]
+    if periodic[1]:
+        fy[:, 64] = fy[:, 0]
+    whole = rbgs.rbgs_relax_alpha(s[0], s[1], fx, fy, s[2], **kw)
+    assert torch.equal(whole, rbgs.rbgs_relax_alpha(
+        s[0], s[1], fx, fy, s[2], tile=16, whole_max=32, **kw))
+    kw["nsweeps"] = 30
+    rbgs.reset_launch_counts()
+    split = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, tile=32, **kw)
+    assert rbgs.LAUNCHES["rbgs_relax_alpha"] > 1
+    assert torch.equal(split, rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia,
+                                                    tile=16, **kw))
+    assert _rel(split, rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia,
+                                                   **kw)) <= BOUND[dtype]
+
+
+def test_twophase_step_on_the_card(dev):
+    """Three two-phase steps at 64^2 in float64 on the card against the
+    same steps on the CPU (the plain versions): K15 in every correction
+    of the four solves per step, K6, K4, K14 and K9 around them."""
+    import numpy as np
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import vof
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    tb = bc.default_scalar_bc(2)
+    walls = bc.FieldBC.uniform(bc.Dirichlet(0.0), 2)
+    proj = MultilevelParams(nrelax=8, coarsest_relax=16, tolerance=1e-3,
+                            nitermax=100)
+    cfg = ns.NSConfig(grid=Grid(level=6), u_bcs=(walls, walls), nu=1e-3,
+                      vof_tracers=(("T", tb),), tension=(("T", 0.5),),
+                      density=("T", 10.0, 1.0, 1), projection=proj,
+                      approx_projection=proj,
+                      diffusion_params=MultilevelParams(
+                          nrelax=8, coarsest_relax=16, tolerance=1e-3,
+                          nitermax=10))
+    rng = np.random.default_rng(7)
+    st = {k: torch.from_numpy(0.01 * rng.standard_normal((64, 64)))
+          for k in ("U", "V", "P", "Pmac", "Gx", "Gy")}
+    st["T"] = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y: -(y - 0.01 * torch.cos(2 * torch.pi * x)),
+        device="cpu")
+    dt = 0.2 / 64
+    runs = {}
+    for where in ("cpu", dev):
+        s = {k: v.to(where) for k, v in st.items()}
+        rbgs.reset_launch_counts()
+        for i in range(3):
+            s = ns.ns_step(s, dt, 0.0, cfg, first_step=i == 0, cstart=i % 2)
+        runs[str(where)] = s
+        if where != "cpu":
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] > 0
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] % 5 == 0  # 64^2 .. 4^2
+    for k in ("U", "V", "T"):
+        assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k
