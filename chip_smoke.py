@@ -9,7 +9,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      parallel);
   2. kernel checks: every kernel wrapper against its plain version on the
      card, float64 and float32: the multigrid kernels K1-K3 at the 2048^2
-     main-path shapes and their coarser levels, plus K3's tile invariance;
+     main-path shapes and their coarser levels (K3 at each level's tile),
+     the restriction pyramid bit-identical to the chain of restrict2
+     launches and to its plain version (single and pair; 512 -> 16,
+     2048 -> 512, 1024 -> 4), plus K3's tile invariance (64, 32, 16);
      the diffusion pair K8a-c (own offsets, subs and dias per system) at
      2048^2 and 64^2, plus K8c's tile invariance; the predictor,
      projection and advection kernels K6, K4, K5 (with and without the
@@ -31,7 +34,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
      24 sweeps; zero-diagonal cells) and at every level down to 4^2,
      plus its tile invariance; then each kernel's time against its plain
      version's at the main-path shapes (K13 at 128^3, K15 at 1024^2),
-     float32 (CUDA events);
+     float32 (CUDA events), K15's and K3's per level, and the host's time
+     per call and the card's per launch of restrict2 and avg_pool2d;
   3. main path: Simulation.init() + 20 steps of the 2048^2 lid cavity under
      the bench's configuration (pair_advect: K7 and the K8 pair), float32,
      through the kernels: finite values, launch counts, agreement with the
@@ -171,7 +175,7 @@ TWOPHASE_TIMED_STEPS = 10
 TWOPHASE_PROFILE_STEPS = 5
 # K15 launches per correction at 1024^2: every level from 1024^2 down to
 # minlevel 2 (4^2), 1 at the coarsest and 8 upward; the correction's
-# residual restrictions (restrict2) between them
+# residual restrictions in one restrict_pyramid launch
 K15_LEVELS = LEVEL_TWOPHASE - 2 + 1
 # |sum(T) - sum(T0)| / sum(T0) after init + TWOPHASE_STEPS steps in
 # float32: the direction-split advection with its dilation bookkeeping
@@ -196,7 +200,8 @@ KERNELS = {
                           "gerris_tpu/ops/pallas/rbgs.py:1234"),
     "cascade_prolong_relax": (CSRC + "rbgs.cu",
                               "gerris_tpu/ops/pallas/rbgs.py:1446"),
-    "restrict2": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:1446"),
+    "restrict_pyramid": (CSRC + "rbgs.cu",
+                         "gerris_tpu/ops/pallas/rbgs.py:1446"),
     "prolong_relax": (CSRC + "rbgs.cu", "gerris_tpu/ops/pallas/rbgs.py:468"),
     "divergence_mac": (CSRC + "projops.cu",
                        "gerris_tpu/ops/pallas/projops.py:294"),
@@ -232,9 +237,10 @@ KERNELS = {
 ADAPTIVE_KERNELS = {"residual": "adaptive", "coarse_vcycle": "adaptive",
                     "coarse_block": "adaptive",
                     "rbgs_relax": "adaptive_relax"}
-# levels of a cascade at n/2 = 1024 with the 16^2 coarsest level: 5
-# restrict2 launches (512 -> 16), then 7 prolong_relax (16 .. 1024)
-CASCADE_POOLS, CASCADE_LEVELS = 5, 7
+# levels of a cascade at n/2 = 1024 with the 16^2 coarsest level: one
+# restrict_pyramid launch (512 -> 16, 5 levels), then 7 prolong_relax
+# (16 .. 1024)
+CASCADE_LEVELS = 7
 # the routes of the velocity advection and diffusion (models/ns.py), by
 # their NSConfig flags
 ROUTES = {"pair": dict(pair_advect=True),
@@ -247,10 +253,10 @@ ROUTES = {"pair": dict(pair_advect=True),
 # launches (bench.py's GERRIS_FOLD_CORRECT=1)
 FOLD_KERNELS = {"residual_restrict_div": "fold_correct",
                 "prolong_relax_correct": "fold_correct"}
-# K12's levels at 512^2: 3 restrict2 down to 64^2 and 3 K3 up from it; the
-# correction's restrictions 2048 -> 1024 -> 512 and its K3 launches at
+# K12's levels at 512^2: one pyramid down to 64^2 and 3 K3 up from it;
+# the correction's pyramid 2048 -> 1024 -> 512 and its K3 launches at
 # 1024^2 and 2048^2
-K12_LEVELS, ADA_POOLS, ADA_PROLONGS = 3, 2, 2
+K12_LEVELS, ADA_PROLONGS = 3, 2
 
 
 def want_launches(route, steps):
@@ -271,7 +277,8 @@ def want_launches(route, steps):
         "cascade_prolong_relax": solves,
         "prolong_relax": 0 if correct else solves,
         "prolong_relax_correct": solves if correct else 0,
-        "restrict2": CASCADE_POOLS * solves,
+        "restrict2": 0, "restrict_pyramid": 0, "restrict_pyramid_pair": 0,
+        "cascade.restrict_pyramid": solves,
         "cascade.prolong_relax": CASCADE_LEVELS * solves,
         "predict_xy": steps, "divergence_mac": 0 if fold else solves,
         "correct_project": 0 if correct else solves,
@@ -279,11 +286,11 @@ def want_launches(route, steps):
         "advect2d": 2 * steps - 2 * pair, "advect2d_pair": pair,
         "residual_restrict_pair": steps if route != "rr" else 0,
         "cascade_prolong_relax_pair": steps,
-        "restrict2_pair": CASCADE_POOLS * steps,
+        "cascade_pair.restrict_pyramid": steps,
         "cascade_pair.prolong_relax": CASCADE_LEVELS * steps,
         "prolong_relax_pair": steps,
         "residual": 0, "rbgs_relax": 0, "coarse_vcycle": 0,
-        "coarse_vcycle.restrict2": 0, "coarse_block": 0,
+        "coarse_vcycle.restrict_pyramid": 0, "coarse_block": 0,
         "coarse_vcycle.prolong_relax": 0,
         "rbgs_relax_3d": 0, "rbgs_relax_3d.half_sweep": 0,
         "rbgs_relax_alpha": 0,
@@ -295,7 +302,8 @@ def want_adaptive(steps, solves):
     from its solves' records (solver, niter, fixed count or not): per
     multigrid solve one K11 for r0, one per cycle (and one more after
     the cycles of a fixed count), and per cycle the correction's K12 at
-    512^2 (its 3 + 1 + 3 launches), 2 restrict2 and 2 K3; per "relax"
+    512^2 (its 1 + 1 + 3 launches), 1 restrict_pyramid and 2 K3; per
+    "relax"
     solve K11 twice and K10 once.  Per step K6 once, K4 and K5 once per
     projection, K9 once, K14 once per component (the per-component route:
     the pair route needs a fixed diffusion schedule); no K1, K2, K7 or
@@ -312,17 +320,17 @@ def want_adaptive(steps, solves):
         w["residual"] += 1 + niter + int(fixed)
         w["coarse_vcycle"] += niter
         w["coarse_block"] += niter
-        w["coarse_vcycle.restrict2"] += K12_LEVELS * niter
+        w["coarse_vcycle.restrict_pyramid"] += niter
         w["coarse_vcycle.prolong_relax"] += K12_LEVELS * niter
-        w["restrict2"] += ADA_POOLS * niter
+        w["restrict_pyramid"] += niter
         w["prolong_relax"] += ADA_PROLONGS * niter
     return w
 
 
 # device kernels of the port, by a substring of their names.  The pairs
-# K8a-c launch the K1, restrict2 and K3 kernels with a batch of two, so
-# their names are K1's, restrict2's and K3's
-OWN_KERNELS = ("residual_restrict_kernel", "restrict2_kernel",
+# K8a-c launch the K1, restrict_pyramid and K3 kernels with a batch of
+# two, so their names are K1's, restrict_pyramid's and K3's
+OWN_KERNELS = ("residual_restrict_kernel", "restrict_pyramid_kernel",
                "prolong_relax_kernel", "divergence_mac_kernel",
                "correct_project_kernel", "interp_faces_kernel",
                "predict_xy_kernel", "advect2d_kernel", "advect2d_pair_kernel",
@@ -474,7 +482,8 @@ def plain_versions():
              (rbgs, "cascade_prolong_relax_pair"),
              (rbgs, "prolong_relax_pair"), (rbgs, "residual"),
              (rbgs, "rbgs_relax"), (rbgs, "coarse_vcycle"),
-             (rbgs, "restrict2"), (projops, "divergence_mac"),
+             (rbgs, "restrict2"), (rbgs, "restrict_pyramid"),
+             (projops, "divergence_mac"),
              (projops, "correct_project"), (projops, "interp_faces"),
              (predict, "predict_xy"), (bcg, "advect2d"),
              (bcg, "advect2d_pair"), (rbgs3d, "rbgs_relax_3d"),
@@ -482,7 +491,9 @@ def plain_versions():
              (rbgs, "prolong_relax_correct"), (rbgs, "rbgs_relax_alpha")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
-        plain = "pool_plain" if name == "restrict2" else name + "_plain"
+        plain = {"restrict2": "pool_plain",
+                 "restrict_pyramid": "pyramid_plain"}.get(name,
+                                                          name + "_plain")
         setattr(mod, name, getattr(mod, plain))
     try:
         yield
@@ -701,11 +712,13 @@ def check_fold_kernels(rnd, dtype, n, record):
 
 
 def check_fold_tiles(rnd):
-    """K17 bit-identical across tiles 32 and 16 at 2048^2, and whole-level
-    against tiled at 64^2, with and without periodic columns."""
+    """K17 bit-identical across tiles 64 (the plan's at 2048^2), 32 and 16
+    at 2048^2, and whole-level against tiled at 64^2, with and without
+    periodic columns."""
     import torch
     from gerris_tpu_torch.ops.cuda import rbgs
-    for n, kws in ((N_MAIN, (dict(tile=32), dict(tile=16))),
+    for n, kws in ((N_MAIN, (dict(tile=16), dict(tile=32), dict(tile=64),
+                             dict())),
                    (N_SMALL, (dict(), dict(tile=16, whole_max=32)))):
         f32 = torch.float32
         c = rnd(f32, n // 2, n // 2)
@@ -714,14 +727,15 @@ def check_fold_tiles(rnd):
         for tag, signs, offs, per_y in fold_ghosts(n)[1:]:
             kw = dict(nsweeps=5, h2=1.0 / n ** 2, signs=signs, offs=offs,
                       per_y=per_y, omega=1.5)
-            a, b = (rbgs.prolong_relax_correct(c, rhs, 0.0, u, ufx, ufy,
-                                               0.8 / n, 1.0 / n, (U, V),
-                                               **kw, **k) for k in kws)
-            if not all(torch.equal(x, y) for x, y in zip(a, b)):
-                raise AssertionError(f"K17 {n} {tag}: {kws[0]} and {kws[1]}"
-                                     " differ")
-    print("  K17 tile 32 == tile 16 at 2048, whole == tiled at 64, "
-          "periodic columns or not: bit-identical")
+            a, *others = (rbgs.prolong_relax_correct(
+                c, rhs, 0.0, u, ufx, ufy, 0.8 / n, 1.0 / n, (U, V), **kw,
+                **k) for k in kws)
+            for k, b in zip(kws[1:], others):
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"K17 {n} {tag}: {kws[0]} and {k}"
+                                         " differ")
+    print("  K17 tiles 64 == 32 == 16 == the plan's at 2048, whole == tiled "
+          "at 64, periodic columns or not: bit-identical")
 
 
 def check_adaptive_kernels(rnd, dtype, record):
@@ -1037,6 +1051,74 @@ def vcycle_flops(n_top, nsweeps, coarsest, min_n=16):
             + sum((m // 2) ** 2 * 3 for m in levels))
 
 
+# the pyramids of the paths: (top, levels) of the cascades (512 -> 16),
+# the adaptive correction (2048 -> 512) and the twophase correction
+# (1024 -> 4, past one cell per tile)
+PYRAMIDS = ((512, 5), (2048, 2), (1024, 8))
+
+
+def check_pyramids(rnd, dtype):
+    """restrict_pyramid, single and pair, bit-identical at every level to
+    the chain of restrict2 launches it replaces and to its plain version,
+    at each path's shape, twice (the last block resets the arrival count
+    for the next launch).  Returns the (max_abs_err, max_rel_err) of the
+    cascade's pyramid against its plain version, (0, 0) when it holds."""
+    import torch
+    from gerris_tpu_torch.ops.cuda import rbgs
+    for n, levels in PYRAMIDS:
+        r, r2 = rnd(dtype, n, n), rnd(dtype, n, n)
+        chain, x = [], r
+        for _ in range(levels):
+            x = rbgs.restrict2(x)
+            chain.append(x)
+        for _ in range(2):
+            got = rbgs.restrict_pyramid(r, levels)
+            pair = rbgs.restrict_pyramid_pair([r, r2], levels)
+            for name, want in (("the restrict2 chain", chain),
+                               ("the plain version",
+                                rbgs.pyramid_plain(r, levels)),
+                               ("the pair's first system", pair[0])):
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"restrict_pyramid {n} {levels} "
+                                         f"{dtype}: differs from {name}")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    pair[1], rbgs.pyramid_plain(r2, levels))):
+                raise AssertionError(f"restrict_pyramid_pair {n} {levels} "
+                                     f"{dtype}: second system differs")
+    print(f"  restrict_pyramid {dtype}, single and pair, "
+          f"{', '.join(f'{n} -> {n >> lv}' for n, lv in PYRAMIDS)}: "
+          "bit-identical to the restrict2 chain and the plain version")
+    return 0.0, 0.0
+
+
+def host_device_us(fn, calls=1000):
+    """(host us per call, device us per launch) of ``fn``: time.perf_counter
+    over ``calls`` calls with no synchronisation (the card's queue absorbs
+    them), then torch.profiler's device time over as many calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            dev_us += evt.self_cuda_time_total if us is None else us
+            launches += evt.count
+    return host, dev_us / max(launches, 1)
+
+
 def phase_kernels(dev, record):
     import torch
     import torch.nn.functional as F
@@ -1067,14 +1149,9 @@ def phase_kernels(dev, record):
                     b13)
         if main:
             record["residual_restrict"].update(zip(ERR_KEYS, e))
-        m = 512
-        while m >= 32:
-            r = rnd(dtype, m, m)
-            e = compare(f"restrict2 {m}", rbgs.restrict2(r),
-                        rbgs.pool_plain(r), b13)
-            if main and m == 512:
-                record["restrict2"].update(zip(ERR_KEYS, e))
-            m //= 2
+        e = check_pyramids(rnd, dtype)
+        if main:
+            record["restrict_pyramid"].update(zip(ERR_KEYS, e))
         # K3 at every level of the main path's cycle
         for m, nsw, omega, dia, add_u in (
                 (2048, 5, 1.5, 0.0, True), (2048, 1, 1.0, dia_diff, True),
@@ -1126,31 +1203,39 @@ def phase_kernels(dev, record):
     check_fold_tiles(rnd)
     check_alpha_tiles(rnd)
 
-    # K3 tile invariance: bit-identical across tile sizes and whole-level
-    c, rh, uu = (rnd(torch.float32, n // 2, n // 2),
-                 rnd(torch.float32, n, n), rnd(torch.float32, n, n))
-    kw = dict(nsweeps=5, h2=h2, signs=signs, omega=1.5)
-    a = rbgs.prolong_relax(c, rh, 0.0, uu, tile=32, **kw)
-    b = rbgs.prolong_relax(c, rh, 0.0, uu, tile=16, **kw)
-    if not torch.equal(a, b):
-        raise AssertionError("K3: tile 32 and tile 16 differ")
-    c, rh = rnd(torch.float32, 32, 32), rnd(torch.float32, 64, 64)
-    if not torch.equal(rbgs.prolong_relax(c, rh, 0.0, **kw),
-                       rbgs.prolong_relax(c, rh, 0.0, tile=16, whole_max=32,
-                                          **kw)):
-        raise AssertionError("K3: whole-level and tiled launches differ")
-    print("  K3 tile 32 == tile 16 at 2048, whole == tiled at 64: "
-          "bit-identical")
+    # K3 tile invariance: bit-identical across tile sizes (the plan's
+    # choice, 64 at 2048^2, against 32 and 16) and whole-level, f32 and
+    # f64, periodic columns or not
+    for dtype in (torch.float32, torch.float64):
+        c, rh, uu = (rnd(dtype, n // 2, n // 2), rnd(dtype, n, n),
+                     rnd(dtype, n, n))
+        for per_y in (False, True):
+            kw = dict(nsweeps=5, h2=h2, signs=signs, omega=1.5, per_y=per_y)
+            a = rbgs.prolong_relax(c, rh, 0.0, uu, tile=16, **kw)
+            for tile in (32, 64, None):
+                if not torch.equal(a, rbgs.prolong_relax(c, rh, 0.0, uu,
+                                                         tile=tile, **kw)):
+                    raise AssertionError(f"K3 {dtype} per_y={per_y}: tile "
+                                         f"{tile} and tile 16 differ")
+            c64, rh64 = rnd(dtype, 32, 32), rnd(dtype, 64, 64)
+            if not torch.equal(rbgs.prolong_relax(c64, rh64, 0.0, **kw),
+                               rbgs.prolong_relax(c64, rh64, 0.0, tile=16,
+                                                  whole_max=32, **kw)):
+                raise AssertionError("K3: whole-level and tiled launches "
+                                     "differ")
+    print("  K3 tiles 64 == 32 == 16 == the plan's at 2048 (f32, f64, "
+          "periodic columns or not), whole == tiled at 64: bit-identical")
     # K8c: the same, for both systems of a pair (own dias)
     cs = [rnd(torch.float32, n // 2, n // 2) for _ in range(2)]
     rhs_s = [rnd(torch.float32, n, n) for _ in range(2)]
     us = [rnd(torch.float32, n, n) for _ in range(2)]
     dias = [dia_diff, 0.5 * dia_diff]
     kw = dict(nsweeps=1, h2=h2, signs=signs)
-    a = rbgs.prolong_relax_pair(cs, rhs_s, dias, us, tile=32, **kw)
-    b = rbgs.prolong_relax_pair(cs, rhs_s, dias, us, tile=16, **kw)
-    if not all(torch.equal(x, y) for x, y in zip(a, b)):
-        raise AssertionError("K8c: tile 32 and tile 16 differ")
+    a = rbgs.prolong_relax_pair(cs, rhs_s, dias, us, tile=16, **kw)
+    for tile in (32, 64, None):
+        b = rbgs.prolong_relax_pair(cs, rhs_s, dias, us, tile=tile, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"K8c: tile {tile} and tile 16 differ")
     cs = [rnd(torch.float32, 32, 32) for _ in range(2)]
     rhs_s = [rnd(torch.float32, 64, 64) for _ in range(2)]
     kw["h2"] = 1.0 / 64 ** 2
@@ -1160,8 +1245,8 @@ def phase_kernels(dev, record):
             rbgs.prolong_relax_pair(cs, rhs_s, dias, none, tile=16,
                                     whole_max=32, **kw))):
         raise AssertionError("K8c: whole-level and tiled launches differ")
-    print("  K8c tile 32 == tile 16 at 2048, whole == tiled at 64: "
-          "bit-identical")
+    print("  K8c tiles 64 == 32 == 16 == the plan's at 2048, whole == tiled "
+          "at 64: bit-identical")
 
     # times at the main path's shapes, float32 (CUDA events).  Each entry:
     # (kernel call, plain call, input bytes, operations, library call); a
@@ -1179,12 +1264,22 @@ def phase_kernels(dev, record):
             lambda: rbgs.residual_restrict_plain(u, rhs, 0.0, sub, **kw),
             nbytes(u, rhs, sub), n * n * 8, None),
     }
-    r512 = rnd(f32, 512, 512)
+    # the cascades' pyramid, 512^2 -> 16^2 (3 operations per coarse
+    # cell), single and pair; its one-level case restrict2 at 512^2
+    # beside avg_pool2d, which computes that level
+    r512, r512b = rnd(f32, 512, 512), rnd(f32, 512, 512)
     r512_4d = r512.view(1, 1, 512, 512)
-    timings["restrict2"] = (lambda: rbgs.restrict2(r512),
-                            lambda: rbgs.pool_plain(r512), nbytes(r512),
-                            256 * 256 * 3,
-                            lambda: F.avg_pool2d(r512_4d, 2))
+    pyr_ops = sum((512 >> k) ** 2 * 3 for k in range(1, 6))
+    timings["restrict_pyramid"] = (
+        lambda: rbgs.restrict_pyramid(r512, 5),
+        lambda: rbgs.pyramid_plain(r512, 5), nbytes(r512), pyr_ops, None)
+    timings["restrict_pyramid|pair"] = (
+        lambda: flat(rbgs.restrict_pyramid_pair([r512, r512b], 5)),
+        lambda: flat([rbgs.pyramid_plain(r, 5) for r in (r512, r512b)]),
+        nbytes(r512, r512b), 2 * pyr_ops, None)
+    timings["restrict_pyramid|restrict2"] = (
+        lambda: rbgs.restrict2(r512), lambda: rbgs.pool_plain(r512),
+        nbytes(r512), 256 * 256 * 3, lambda: F.avg_pool2d(r512_4d, 2))
     c = rnd(f32, n // 2, n // 2)
     kw3 = dict(nsweeps=5, h2=h2, signs=signs, per_y=False, omega=1.5)
     timings["prolong_relax"] = (
@@ -1395,6 +1490,37 @@ def phase_kernels(dev, record):
         m //= 2
     print(f"  K15 per level of a twophase correction (float32, cell dia, 8 "
           f"sweeps, 24 at 4^2; ms): {', '.join(per_level)}")
+    # K3 at every level of the main path's cycle with the plan's tiles:
+    # 5 sweeps at omega 1.5 from the prolonged correction (+ u at 2048^2),
+    # 40 from zero at 16^2; each level's bound beside its time
+    k3_levels = {}
+    for m in (2048, 1024, 512, 256, 128, 64, 32, 16):
+        cl = None if m == 16 else rnd(f32, m // 2, m // 2)
+        rl = rnd(f32, m, m)
+        ul = rnd(f32, m, m) if m == n else None
+        nsw = 40 if m == 16 else 5
+        kwl = dict(nsweeps=nsw, h2=1.0 / m ** 2, signs=signs, omega=1.5)
+        t = cuda_ms(lambda: rbgs.prolong_relax(cl, rl, 0.0, ul, **kwl))
+        tile = rbgs._prolong_plan(rl, nsw, None, 64)[0]
+        bms, _ = bound(nbytes(cl, rl, ul), rl, cycle_flops(m, nsw, 1.5))
+        k3_levels[m] = {"ms": t, "bound_ms": bms, "tile": tile}
+    record["prolong_relax"]["levels"] = k3_levels
+    print("  K3 per level of the main path's cycle (float32, omega 1.5, 5 "
+          "sweeps, 40 from zero at 16^2; ms, bound, tile): " + ", ".join(
+              f"{m}: {v['ms']:.4f} ({v['bound_ms']:.4f}, {v['tile']})"
+              for m, v in k3_levels.items()))
+    # the host's time per call and the card's per launch: restrict2 (one
+    # pyramid level) and avg_pool2d at 512^2, and the cascade's pyramid
+    hd = {"restrict2": host_device_us(lambda: rbgs.restrict2(r512)),
+          "avg_pool2d": host_device_us(lambda: F.avg_pool2d(r512_4d, 2)),
+          "restrict_pyramid": host_device_us(
+              lambda: rbgs.restrict_pyramid(r512, 5))}
+    for k, (host_us, dev_us) in hd.items():
+        record["restrict_pyramid"].update(
+            {f"host_us_{k}": host_us, f"device_us_{k}": dev_us})
+    print("  host us per call (1000 calls, no sync) and device us per "
+          "launch (profiled), 512^2: " + ", ".join(
+              f"{k} {h:.2f} / {d:.2f}" for k, (h, d) in hd.items()))
     print("phase 2 times (float32, main-path shapes; plain, kernel, "
           "kernel, plain)")
     for k, (kern, plain, in_bytes, ops, lib) in timings.items():
@@ -1412,7 +1538,8 @@ def phase_kernels(dev, record):
         if variant:
             record[name].update(
                 {f"{key}_{variant}": v for key, v in vals.items()
-                 if key in ("ms", "plain_ms", "bound_ms")})
+                 if key in ("ms", "plain_ms", "bound_ms")
+                 or key == "library_ms" and v is not None})
         else:
             record[k].update(vals)
         print(f"  {k}: kernel {k1:.4f} {k2:.4f} ms, plain {p1:.4f} "
@@ -1755,8 +1882,9 @@ def periodic_poisson(dev, n):
     """lap p = -8 pi^2 cos(2 pi x) cos(2 pi y), mean subtracted, doubly
     periodic, at n^2 in float64 to tolerance 1e-10 (in float32, or at
     1e-3, the solver's error or the rounding would hide the ~1e-6
-    discretisation error): K11, restrict2, the dense 64^2 solve and
-    prolong + K10 per level; launches gated, held to the plain route.
+    discretisation error): K11, one restrict_pyramid per cycle, the dense
+    64^2 solve and prolong + K10 per level; launches gated, held to the
+    plain route.
     Returns the Linf error against the exact p, both means removed."""
     import math
     import torch
@@ -1780,7 +1908,7 @@ def periodic_poisson(dev, n):
     counts = launch_counts()
     levels = grid.level - 6       # restrictions down to the dense 64^2
     want = {k: 0 for k in counts}
-    want.update(residual=st.niter + 1, restrict2=levels * st.niter,
+    want.update(residual=st.niter + 1, restrict_pyramid=st.niter,
                 rbgs_relax=levels * st.niter)
     if counts != want:
         raise AssertionError(f"periodic_poisson {n}: launches {counts}, "
@@ -1795,8 +1923,9 @@ def periodic_poisson(dev, n):
           f"{rst.niter}), {wall:.3f} s, residual "
           f"{float(st.residual_after['infty']):.3e}, Linf error {err:.4e}; "
           f"kernels vs plain rel {rel:.3e} (bound {POISSON_PLAIN_RTOL:.0e}); "
-          f"launches {counts['residual']} K11, {counts['restrict2']} "
-          f"restrict2, {counts['rbgs_relax']} K10")
+          f"launches {counts['residual']} K11, "
+          f"{counts['restrict_pyramid']} restrict_pyramid, "
+          f"{counts['rbgs_relax']} K10")
     if not rel <= POISSON_PLAIN_RTOL:
         raise AssertionError(f"periodic_poisson {n}: rel {rel:.3e}")
     return err
@@ -1929,8 +2058,9 @@ def want_twophase(steps, niters):
     """Launches of init + ``steps`` two-phase steps from the cycle counts
     of every solve (the initial projection's, then per step the MAC
     projection, the U and V diffusions, the approximate projection): per
-    cycle K15 at each of the K15_LEVELS levels and restrict2 between
-    them; per step K6 once, K4 once per projection, K14 once per
+    cycle K15 at each of the K15_LEVELS levels and one restrict_pyramid
+    of the levels below the top; per step K6 once, K4 once per
+    projection, K14 once per
     component, K9 once; no K1-K3, K5, K7, K8, K10-K13, K16, K17 (the
     alpha solves and the generic correction take none)."""
     w = {k: 0 for k in want_launches("pair", 0)}
@@ -1938,7 +2068,7 @@ def want_twophase(steps, niters):
     w.update(predict_xy=steps, divergence_mac=2 * steps + 1,
              interp_faces=steps + 1, advect2d=2 * steps,
              rbgs_relax_alpha=K15_LEVELS * cycles,
-             restrict2=(K15_LEVELS - 1) * cycles)
+             restrict_pyramid=cycles)
     return w
 
 
@@ -2245,9 +2375,15 @@ def main():
                 FOLD_KERNELS.get(k) or ADAPTIVE_KERNELS.get(k, "main"))
         c = counts if path == "main" else route_counts[path]
         record[k].update(launches=c[k], path=path)
+    # the pyramid's launches on the main path: K2's and K8b's, one each
+    # per cascade
+    pyramids = {sub: counts[f"cascade{sub}.restrict_pyramid"]
+                for sub in ("", "_pair")}
+    record["restrict_pyramid"].update(
+        launches=sum(pyramids.values()), launches_pair=pyramids["_pair"])
     for k, sub in (("cascade_prolong_relax", ""),
                    ("cascade_prolong_relax_pair", "_pair")):
-        record[k]["launches_restrict2"] = counts["restrict2" + sub]
+        record[k]["launches_restrict_pyramid"] = pyramids[sub]
         record[k]["launches_prolong_relax"] = \
             counts[f"cascade{sub}.prolong_relax"]
     record["residual_restrict_div"]["launches_fold_div"] = \
@@ -2256,7 +2392,7 @@ def main():
         route_counts["lid3d"]["rbgs_relax_3d.half_sweep"]
     ada = route_counts["adaptive"]
     record["coarse_vcycle"].update(
-        launches_restrict2=ada["coarse_vcycle.restrict2"],
+        launches_restrict_pyramid=ada["coarse_vcycle.restrict_pyramid"],
         launches_block=ada["coarse_block"],
         launches_prolong_relax=ada["coarse_vcycle.prolong_relax"])
 

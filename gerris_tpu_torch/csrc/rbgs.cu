@@ -8,7 +8,9 @@
 //
 //   residual_restrict  r0 = (rhs - sub) - (L - dia) u with static ghosts,
 //                      r1 = pool(r0), r2 = pool(r1), in one launch;
-//   restrict2          one 2x2 mean pool (the cascades' restriction);
+//   restrict_pyramid   successive 2x2 mean pools of a level, every level in
+//                      one launch (the cascades' and corrections'
+//                      restriction; restrict2 is its one-level case);
 //   prolong_relax      bilinear prolongation of a coarse correction (or
 //                      du = 0) + nsweeps red-black Gauss-Seidel sweeps
 //                      (+ u), in one launch;
@@ -24,10 +26,10 @@
 //   prolong_relax_correct  prolong_relax (+ u) with the projection's
 //                      correction by the result as its epilogue;
 //   and the cascades (ops/cuda/rbgs.py:cascade_prolong_relax and
-//   coarse_vcycle) are host sequences of restrict2, prolong_relax and
-//   coarse_block launches.
+//   coarse_vcycle) are host sequences of one restrict_pyramid launch and
+//   prolong_relax and coarse_block launches.
 //
-// The first three take a batch of 1 or 2 independent systems of one size:
+// The first three and restrict_pyramid take a batch of 1 or 2 independent systems of one size:
 // gridDim.z is the batch and blockIdx.z picks the system's pointers and
 // scalars from a small struct passed by value.  A single solve launches
 // with a batch of 1 (K1-K3); the U+V implicit-diffusion pair launches the
@@ -56,8 +58,8 @@ namespace {
 
 constexpr int MAX_BATCH = 2;
 constexpr int RR_TILE = 16;  // residual_restrict output tile (4-aligned)
-constexpr int PR_THREADS_X = 32;
-constexpr int PR_THREADS_Y = 8;
+constexpr int RX_THREADS_X = 32;  // K10 and K15's blocks
+constexpr int RX_THREADS_Y = 8;
 
 // One system of a residual_restrict launch.  K16 (residual_restrict_div)
 // forms the rhs from the MAC faces ufx, ufy instead of reading rhs.
@@ -83,19 +85,6 @@ struct RRArgs {
   int n0, n1;
   T sgn[4];
   int per_y;
-};
-
-// One system of a restrict2 launch.
-template <typename T>
-struct R2System {
-  const T* r;
-  T* out;
-};
-
-template <typename T>
-struct R2Args {
-  R2System<T> sys[MAX_BATCH];
-  int n0, n1;
 };
 
 // One system of a prolong_relax launch.
@@ -202,25 +191,115 @@ __global__ void residual_restrict_kernel(RRArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
-// restrict2: one 2x2 mean pool, (n0, n1) -> (n0/2, n1/2), per system.
-// Part of the port of gerris_tpu/ops/pallas/rbgs.py:cascade_prolong_relax
-// and cascade_prolong_relax_pair (their in-VMEM restriction pyramid,
-// _row_pool + _lane_pool).
-// Bound: device-memory bytes; one thread per coarse cell reads its four
-// children once.  The levels it serves are at most (n/4)^2, so the launch
-// latency, not the bytes, dominates at the coarse end.
+// restrict_pyramid: `levels` successive 2x2 mean pools of an n x n level,
+// (n/2)^2, (n/4)^2, ..., (n >> levels)^2, per system, in one launch;
+// restrict2 is its one-level case.
+// Replaces the cascades' in-VMEM restriction pyramid of
+// gerris_tpu/ops/pallas/rbgs.py:cascade_prolong_relax and
+// cascade_prolong_relax_pair (_cp_core's _row_pool + _lane_pool,
+// rbgs.py:915-944 and 1310-1330), and the chains of one-level pools that
+// K12's and the adaptive corrections' levels ran from the host.
+// Bound: device-memory bytes (reads the top level once, writes each level
+// once: 1/3 of the top's bytes more); at the cascades' 512^2 top that is
+// ~1.4 MB, under 1 us at 3.35 TB/s, so one launch's latency bounds it and
+// the design's point is to make it one launch instead of one per level.
+// Design: one block per PY_TILE x PY_TILE tile of the top (the whole top
+// if smaller), one thread per cell of the first level, which it forms
+// from its four children in device memory; the block's later levels come
+// from shared memory, each written once.  Levels coarser than one cell
+// per tile are finished in the same launch by the last block to arrive
+// (a device-wide arrival count per system and __threadfence), which
+// reads the one-cell-per-tile level back from L2 and then resets the
+// count to 0 for the next launch on the stream, so no memset launch is
+// needed.  Every cell is independent of the tiling: the mean of its
+// four children, rows first, 0.5 * (0.5 (a + c) + 0.5 (b + d)) (the plain
+// version's order, ops/cuda/rbgs.py:pool_plain), so every level is bit
+// for bit the chain of one-level pools; multiplying by 0.5 is exact, so
+// FMA contraction changes no bit either.
 // ---------------------------------------------------------------------------
+constexpr int PY_TILE = 32;  // top cells per block side: 16 x 16 threads
+
+// One system of a restrict_pyramid launch: the levels back to back in
+// `out`, the finest first; `count` the blocks' arrivals (nullptr when no
+// level is coarser than one cell per tile).
 template <typename T>
-__global__ void restrict2_kernel(R2Args<T> a) {
-  const R2System<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
-  const int n1 = a.n1, m1 = n1 / 2;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= a.n0 / 2 || j >= m1) return;
-  const T* p = s.r + (size_t)(2 * i) * n1 + 2 * j;
-  const T x = T(0.5) * (p[0] + p[n1]);
-  const T y = T(0.5) * (p[1] + p[n1 + 1]);
-  s.out[(size_t)i * m1 + j] = T(0.5) * (x + y);
+struct PYSystem {
+  const T* r;
+  T* out;
+  unsigned int* count;
+};
+
+template <typename T>
+struct PYArgs {
+  PYSystem<T> sys[MAX_BATCH];
+  int n, levels, tile;
+};
+
+// the 2x2 mean of a cell's children a = (2i, 2j), b = (2i, 2j + 1),
+// c = (2i + 1, 2j), d = (2i + 1, 2j + 1): rows first, then columns
+template <typename T>
+__device__ __forceinline__ T mean4(T a, T b, T c, T d) {
+  const T x = T(0.5) * (a + c);
+  const T y = T(0.5) * (b + d);
+  return T(0.5) * (x + y);
+}
+
+template <typename T>
+__global__ void restrict_pyramid_kernel(PYArgs<T> a) {
+  __shared__ T sl[PY_TILE / 2][PY_TILE / 2 + 1];
+  __shared__ int last;
+  const PYSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
+  const int n = a.n, half = a.tile / 2;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  // level 1: one cell per thread from its children in device memory
+  int m = n / 2, w = half, lv = 1;
+  const int i = blockIdx.y * half + ty, j = blockIdx.x * half + tx;
+  const T* p = s.r + (size_t)(2 * i) * n + 2 * j;
+  T v = mean4(p[0], p[1], p[n], p[n + 1]);
+  T* out = s.out;
+  out[(size_t)i * m + j] = v;
+  // the block's coarser levels, from its own cells in shared memory
+  while (lv < a.levels && w > 1) {
+    if (ty < w && tx < w) sl[ty][tx] = v;
+    __syncthreads();
+    out += (size_t)m * m;
+    m /= 2;
+    w /= 2;
+    ++lv;
+    if (ty < w && tx < w) {
+      v = mean4(sl[2 * ty][2 * tx], sl[2 * ty][2 * tx + 1],
+                sl[2 * ty + 1][2 * tx], sl[2 * ty + 1][2 * tx + 1]);
+      out[(size_t)(blockIdx.y * w + ty) * m + blockIdx.x * w + tx] = v;
+    }
+    __syncthreads();
+  }
+  if (lv == a.levels) return;
+  // levels coarser than one cell per tile: the last block to arrive
+  __threadfence();
+  __syncthreads();
+  if (tx == 0 && ty == 0)
+    last = atomicAdd(s.count, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int t = ty * half + tx, nt = half * half;
+  while (lv < a.levels) {
+    const T* f = out;
+    const int mf = m;
+    out += (size_t)m * m;
+    m /= 2;
+    ++lv;
+    for (int k = t; k < m * m; k += nt) {
+      const int ci = k / m, cj = k - ci * m;
+      const T* q = f + (size_t)(2 * ci) * mf + 2 * cj;
+      // other blocks wrote the first of these levels: read it from L2
+      out[k] = mean4(__ldcg(q), __ldcg(q + 1), __ldcg(q + mf),
+                     __ldcg(q + mf + 1));
+    }
+    __threadfence();
+    __syncthreads();
+  }
+  if (t == 0) *s.count = 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -230,48 +309,93 @@ __global__ void restrict2_kernel(R2Args<T> a) {
 // Bound: device-memory bytes for the fine levels (reads coarse/4 + rhs
 // (+ u), writes du once for all sweeps); at the coarse levels that fit
 // one block, launch latency and the block's serial sweeps.
-// Design: one block per tile x tile output tile of one system.  The
-// block's shared buffer holds the tile plus a halo of `halo` = 2*nsweeps
-// cells and one outer frozen ring; the prolonged du and the rhs are placed
-// there once, every half-sweep updates the cells of one global colour
-// (i+j)%2 inside the buffer, and the valid region shrinks by at most one
-// cell per half-sweep, so after 2*nsweeps half-sweeps the tile is exact
-// (the TPU kernel's own argument, rbgs.py:5-10).  Domain-edge ghost cells
-// that fall inside the buffer are recomputed (homogeneous: sgn * mirror)
-// before every half-sweep.  A level that fits one block is run with
-// tile = n and halo = 0: the buffer is the whole level plus its ghost
-// ring (periodic columns are refreshed as ghosts there); the pair then
-// runs as two blocks.
-// coarse == nullptr starts from du = 0 (the coarsest level); u != nullptr
-// adds u to the result.
+// Design: one block per tile x tile output tile of one system, the tile
+// chosen per level by the wrapper (the largest whose buffers fit shared
+// memory and that still gives every SM a block).  The block's shared
+// buffers hold the tile plus a halo of `halo` = 2*nsweeps cells and one
+// outer frozen ring; the prolonged du and the rhs are placed there once,
+// and every half-sweep updates the cells of one global colour (i+j)%2.
+// The valid region shrinks by at most one cell per half-sweep, so after
+// 2*nsweeps half-sweeps the tile is exact (the TPU kernel's own argument,
+// rbgs.py:5-10).  The sweep engine, pr_relax, is shared by K3, K8c, the
+// K3 launches of the cascades K2, K8b and K12, and K17:
+// * colour-split storage: a buffer cell (li, lj) lies in the half of its
+//   local parity (li + lj) & 1, at li * B/2 + lj / 2, so a half-sweep's
+//   cells are one half, read and written at unit stride, and their four
+//   neighbours the other half at unit stride: no lane idles on the other
+//   colour, and no two lanes of a warp share a bank;
+// * a shrinking update region: half-sweep s (1-based) updates only the
+//   cells within 2*nsweeps - s (+1 for K17's ring) of the tile, the
+//   cells that the tile's final values depend on; the others would be
+//   overwritten by nothing that is read, so the result is that of
+//   updating the whole buffer, bit for bit, at ~half the work at tile 64;
+// * no ghost cells in the sweeps: a cell on a domain edge reads its
+//   ghost as sgn * its own value (a whole-level block's periodic column
+//   as the cell across the wrap, which is of the other colour), the
+//   value that a ghost refreshed before the half-sweep held; only blocks
+//   that touch a domain edge test for it, and a half-sweep costs one
+//   barrier.
+// A level that fits one block is run with tile = n and halo = 0: the
+// buffer is the whole level plus its ghost ring; the pair then runs as
+// two blocks.  coarse == nullptr starts from du = 0 (the coarsest
+// level); u != nullptr adds u to the result.
 // ---------------------------------------------------------------------------
+// threads of a K3-family block: 512 for the largest tiles, whose
+// half-sweeps have ~1500-3500 cells (16 warps hide the shared-memory
+// latency of a half-sweep better than 8: 0.119 against 0.146 ms for K3
+// at 2048^2 on an H100), 256 for smaller tiles and whole levels, whose
+// half-sweeps are short and whose barriers then cost more with more warps
+constexpr int PR_THREADS = 512;
+__host__ __forceinline__ int pr_threads(int tile, int halo) {
+  return halo > 0 && tile >= 64 ? 512 : 256;
+}
+
+// The colour-split buffer of a side-B square: half (li + lj) & 1, row
+// stride B / 2 (B is even), each half `hs` entries, padded so that hs % 32
+// is 16: the two halves of a row's neighbouring cells then fall in other
+// banks (the placement and the tile's writes read both)
+__host__ __device__ __forceinline__ int pr_half(int B) {
+  const int e = B * (B / 2);
+  return e + ((48 - e % 32) % 32);
+}
+
+struct PRBuf {
+  int B, H, hs;
+  __device__ __forceinline__ int at(int li, int lj) const {
+    return ((li + lj) & 1) * hs + li * H + (lj >> 1);
+  }
+};
+
 // The prolongation and the sweeps of one block, in its shared buffers buf
-// (du) and rb (rhs), each B x B with B = tile + 2 halo + 2; ends with the
-// block synchronised and du final on the tile and on the halo's cells at
-// most halo - 2 nsweeps + 1 from it.
+// (du) and rb (rhs), each 2 * hs entries (pr_half); ends with the block
+// synchronised and du final on the tile and, with ring = 1, on the
+// one-cell ring around it.
 template <typename T>
 __device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
-                                         const PRSystem<T>& s, T* buf,
-                                         T* rb) {
+                                         const PRSystem<T>& s,
+                                         const PRBuf& L, T* buf, T* rb,
+                                         int ring) {
   const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
   const int per_y = a.per_y;
   const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
-  const int B = tile + 2 * halo + 2;
+  const int B = L.B, H = L.H, hs = L.hs;
   const int gi0 = blockIdx.y * tile - halo - 1;
   const int gj0 = blockIdx.x * tile - halo - 1;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int tx = t & 31, ty = t >> 5, nty = nt >> 5;
   const int m1 = n1 / 2;
   const T* coarse = s.coarse;
-  // whole-level blocks refresh periodic wrap columns like ghosts
-  const bool wrap_ghost = per_y && halo == 0;
+  // a tiled block reads periodic columns across the wrap; a whole-level
+  // block's wrap is read in the sweeps
+  const bool wrap_y = per_y && halo > 0;
 
   // ---- place du (prolonged or zero) and rhs
-  for (int li = ty; li < B; li += PR_THREADS_Y) {
+  for (int li = ty; li < B; li += nty) {
     const int gi = gi0 + li;
     const bool real_i = gi >= 0 && gi < n0;
-    for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+    for (int lj = tx; lj < B; lj += 32) {
       int gj = gj0 + lj;
-      if (per_y && !wrap_ghost) gj = (gj % n1 + n1) % n1;
+      if (wrap_y) gj = (gj % n1 + n1) % n1;
       const bool real = real_i && gj >= 0 && gj < n1;
       T du = T(0), r = T(0);
       if (real) {
@@ -305,52 +429,75 @@ __device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
           du = T(0.75) * p + T(0.25) * q;
         }
       }
-      buf[li * B + lj] = du;
-      rb[li * B + lj] = r;
+      const int k = L.at(li, lj);
+      buf[k] = du;
+      rb[k] = r;
     }
   }
   __syncthreads();
 
-  for (int sw = 0; sw < 2 * a.nsweeps; ++sw) {
-    const int color = sw & 1;  // red ((i+j) even) first
-    // ---- domain-edge ghosts from the current interior
-    for (int li = ty; li < B; li += PR_THREADS_Y) {
-      const int gi = gi0 + li;
-      const bool real_i = gi >= 0 && gi < n0;
-      const bool ghost_i = gi == -1 || gi == n0;
-      for (int lj = tx; lj < B; lj += PR_THREADS_X) {
-        const int gj = gj0 + lj;
-        const bool real_j = per_y && !wrap_ghost ? true : gj >= 0 && gj < n1;
-        const bool ghost_j = !real_j && (gj == -1 || gj == n1);
-        if (ghost_i && real_j) {
-          buf[li * B + lj] = gi < 0 ? sx0 * buf[(li + 1) * B + lj]
-                                    : sx1 * buf[(li - 1) * B + lj];
-        } else if (real_i && ghost_j) {
-          if (wrap_ghost)
-            buf[li * B + lj] = gj < 0 ? buf[li * B + lj + n1]
-                                      : buf[li * B + lj - n1];
-          else
-            buf[li * B + lj] = gj < 0 ? sy0 * buf[li * B + lj + 1]
-                                      : sy1 * buf[li * B + lj - 1];
+  // the domain's cells in the buffer, inside the frozen outer ring
+  const int di0 = max(1, -gi0), di1 = min(B - 2, n0 - 1 - gi0);
+  const int dj0 = wrap_y ? 1 : max(1, -gj0);
+  const int dj1 = wrap_y ? B - 2 : min(B - 2, n1 - 1 - gj0);
+  // the block holds a domain edge (or a whole level's periodic columns)
+  const bool edge = gi0 < 0 || gi0 + B > n0 ||
+                    (!wrap_y && (gj0 < 0 || gj0 + B > n1));
+  const int par0 = (gi0 + gj0) & 1;
+  const int S = 2 * a.nsweeps;
+  for (int sw = 0; sw < S; ++sw) {
+    // the tile grown by the half-sweeps still to come (+ the ring)
+    const int grow = S - 1 - sw + ring;
+    const int li0 = max(di0, halo + 1 - grow);
+    const int li1 = min(di1, halo + tile + grow);
+    const int lj0 = max(dj0, halo + 1 - grow);
+    const int lj1 = min(dj1, halo + tile + grow);
+    // the colour's local parity: red ((i+j) even) first
+    const int pc = (sw & 1) ^ par0;
+    T* const own = buf + pc * hs;
+    const T* const nbr = buf + (pc ^ 1) * hs;
+    const T* const own_rb = rb + pc * hs;
+    // slots of the region: rows x cells of the colour per row (the
+    // count differs by one between rows on a clipped odd width)
+    const int hw = (lj1 - lj0 + 2) >> 1, nr = li1 - li0 + 1;
+    if (hw > 0 && nr > 0) {
+      int r = t / hw, c = t - r * hw;
+      const int dr = nt / hw, dc = nt - dr * hw;
+      while (r < nr) {
+        const int li = li0 + r;
+        const int q = (pc + li) & 1;  // the colour's column parity
+        const int m = ((lj0 - q + 1) >> 1) + c;
+        const int lj = 2 * m + q;
+        if (lj <= lj1) {
+          const int k = li * H + m;
+          const T cv = own[k];
+          T up = nbr[k - H], dn = nbr[k + H];
+          T lf = nbr[k - 1 + q], rt = nbr[k + q];
+          if (edge) {
+            const int gi = gi0 + li, gj = gj0 + lj;
+            if (gi == 0) up = sx0 * cv;
+            if (gi == n0 - 1) dn = sx1 * cv;
+            if (!wrap_y) {
+              if (per_y) {  // a whole level: across the wrap
+                if (gj == 0) lf = buf[L.at(li, lj + n1 - 1)];
+                if (gj == n1 - 1) rt = buf[L.at(li, lj - n1 + 1)];
+              } else {
+                if (gj == 0) lf = sy0 * cv;
+                if (gj == n1 - 1) rt = sy1 * cv;
+              }
+            }
+          }
+          const T nb = up + dn + lf + rt;
+          T nw = fma(-a.h2, own_rb[k], nb) * s.inv_denom;
+          if (a.use_omega) nw = fma(a.omega, nw, a.one_m_omega * cv);
+          own[k] = nw;
         }
-      }
-    }
-    __syncthreads();
-    // ---- one colour; the frozen outer ring is never updated
-    for (int li = ty + 1; li < B - 1; li += PR_THREADS_Y) {
-      const int gi = gi0 + li;
-      if (gi < 0 || gi >= n0) continue;
-      for (int lj = tx + 1; lj < B - 1; lj += PR_THREADS_X) {
-        const int gj = gj0 + lj;
-        if (!per_y && (gj < 0 || gj >= n1)) continue;
-        if (wrap_ghost && (gj < 0 || gj >= n1)) continue;
-        if (((gi + gj) & 1) != color) continue;
-        const int k = li * B + lj;
-        const T c = buf[k];
-        const T nb = buf[k - B] + buf[k + B] + buf[k - 1] + buf[k + 1];
-        T nw = (nb - a.h2 * rb[k]) * s.inv_denom;
-        if (a.use_omega) nw = a.one_m_omega * c + a.omega * nw;
-        buf[k] = nw;
+        c += dc;
+        r += dr;
+        if (c >= hw) {
+          c -= hw;
+          ++r;
+        }
       }
     }
     __syncthreads();
@@ -358,26 +505,28 @@ __device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
 }
 
 template <typename T>
-__global__ void prolong_relax_kernel(PRArgs<T> a) {
+__global__ void __launch_bounds__(PR_THREADS)
+    prolong_relax_kernel(PRArgs<T> a) {
   extern __shared__ unsigned char smem_raw[];
   const PRSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
   const int n1 = a.n1, tile = a.tile, halo = a.halo;
   const int B = tile + 2 * halo + 2;
+  const PRBuf L{B, B / 2, pr_half(B)};
   T* buf = reinterpret_cast<T*>(smem_raw);
-  T* rb = buf + (size_t)B * B;
-  pr_relax(a, s, buf, rb);
+  T* rb = buf + 2 * L.hs;
+  pr_relax(a, s, L, buf, rb, 0);
   const int gi0 = blockIdx.y * tile - halo - 1;
   const int gj0 = blockIdx.x * tile - halo - 1;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int nty = blockDim.x >> 5;
 
   // ---- the tile (+ u)
-  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
+  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += nty) {
     const int gi = gi0 + li;
-    for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
-         lj += PR_THREADS_X) {
+    for (int lj = halo + 1 + tx; lj < halo + 1 + tile; lj += 32) {
       const int gj = gj0 + lj;
       const size_t g = (size_t)gi * n1 + gj;
-      const T v = buf[li * B + lj];
+      const T v = buf[L.at(li, lj)];
       s.out[g] = s.u ? v + s.u[g] : v;
     }
   }
@@ -395,85 +544,84 @@ __global__ void prolong_relax_kernel(PRArgs<T> a) {
 // Bound: device-memory bytes (reads coarse/4, rhs, u, ufx, ufy [, U, V];
 // writes p', ufx', ufy', gx, gy [, U', V']; at 2048^2 f32 9.25 n^2 words,
 // ~155 MB, ~46 us, with the cells 13.25 n^2, ~222 MB, ~66 us).
-// Design: K3's tile and sweeps (pr_relax), then an epilogue.  The face
-// gradients of the tile's cells read p' on a one-cell ring around the
-// tile.  The TPU kernel widens its halo to 2*nsweeps + 1 for that ring
-// (rbgs.py:702), since its window's edge rows are rewritten as ghosts at
-// every half-sweep; K3's buffer keeps a frozen ring beyond its halo of
-// 2*nsweeps, the cells next to which go wrong one per half-sweep, so
-// after 2*nsweeps half-sweeps du is exact on the tile's ring already, at
-// K3's buffer size.  The ring's domain ghosts are then rebuilt from p'
-// with the real BCs (a whole-level block's periodic columns wrap), and
-// each thread finishes its tile cells from the buffer through
-// gtt::correct_cell, K5's per-cell code: its low faces, the domain's last
-// faces, g and the cells.  The faces and cells are read from device
-// memory in the epilogue, not staged in shared memory.
+// Design: K3's tile and sweep engine (pr_relax) with its update region
+// one cell wider, so that du is exact on the one-cell ring around the
+// tile that the tile's face gradients read (the TPU kernel widens its
+// halo to 2*nsweeps + 1 for that ring, rbgs.py:702; here the ring lies
+// inside K3's buffer, whose frozen outer ring is beyond the halo), then
+// an epilogue.  The ring's domain ghosts are rebuilt from p' with the
+// real BCs (a whole-level block's periodic columns wrap), and each thread
+// finishes its tile cells from the buffer through gtt::correct_cell, K5's
+// per-cell code: its low faces, the domain's last faces, g and the
+// cells.  The faces and cells are read from device memory in the
+// epilogue, not staged in shared memory.
 // ---------------------------------------------------------------------------
 // g: the real pressure BCs' ghosts
 template <typename T>
-__global__ void prolong_relax_correct_kernel(PRArgs<T> a,
-                                             gtt::Correction<T> o,
-                                             gtt::Ghosts<T> g) {
+__global__ void __launch_bounds__(PR_THREADS)
+    prolong_relax_correct_kernel(PRArgs<T> a, gtt::Correction<T> o,
+                                 gtt::Ghosts<T> g) {
   extern __shared__ unsigned char smem_raw[];
   const PRSystem<T>& s = a.sys[0];
   const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
   const int B = tile + 2 * halo + 2;
+  const PRBuf L{B, B / 2, pr_half(B)};
   T* buf = reinterpret_cast<T*>(smem_raw);
-  T* rb = buf + (size_t)B * B;
-  pr_relax(a, s, buf, rb);
+  T* rb = buf + 2 * L.hs;
+  pr_relax(a, s, L, buf, rb, 1);
   const int gi0 = blockIdx.y * tile - halo - 1;
   const int gj0 = blockIdx.x * tile - halo - 1;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int nty = blockDim.x >> 5;
   // a tiled block holds periodic columns across the wrap
   const bool wrap_y = a.per_y && halo > 0;
   const int lo = halo, hi = halo + tile + 1;  // the tile and its ring
 
   // ---- p' = du + u where the ring lies in the domain
-  for (int li = lo + ty; li <= hi; li += PR_THREADS_Y) {
+  for (int li = lo + ty; li <= hi; li += nty) {
     const int gi = gi0 + li;
     if (gi < 0 || gi >= n0) continue;
-    for (int lj = lo + tx; lj <= hi; lj += PR_THREADS_X) {
+    for (int lj = lo + tx; lj <= hi; lj += 32) {
       int gj = gj0 + lj;
       if (wrap_y)
         gj = (gj + n1) % n1;
       else if (gj < 0 || gj >= n1)
         continue;
-      buf[li * B + lj] += s.u[(size_t)gi * n1 + gj];
+      buf[L.at(li, lj)] += s.u[(size_t)gi * n1 + gj];
     }
   }
   __syncthreads();
   // ---- the ring's domain ghosts from p' with the real BCs
-  for (int li = lo + ty; li <= hi; li += PR_THREADS_Y) {
+  for (int li = lo + ty; li <= hi; li += nty) {
     const int gi = gi0 + li;
     const bool real_i = gi >= 0 && gi < n0;
-    for (int lj = lo + tx; lj <= hi; lj += PR_THREADS_X) {
+    for (int lj = lo + tx; lj <= hi; lj += 32) {
       const int gj = gj0 + lj;
       const bool real_j = wrap_y || (gj >= 0 && gj < n1);
-      const int k = li * B + lj;
+      const int k = L.at(li, lj);
       if (!real_i && real_j) {
-        buf[k] = gi < 0 ? g.s[0] * buf[k + B] + g.o[0]
-                        : g.s[1] * buf[k - B] + g.o[1];
+        buf[k] = gi < 0 ? g.s[0] * buf[L.at(li + 1, lj)] + g.o[0]
+                        : g.s[1] * buf[L.at(li - 1, lj)] + g.o[1];
       } else if (real_i && !real_j) {
         if (a.per_y)  // a whole-level block: wrap
-          buf[k] = gj < 0 ? buf[k + n1] : buf[k - n1];
+          buf[k] = gj < 0 ? buf[L.at(li, lj + n1)] : buf[L.at(li, lj - n1)];
         else
-          buf[k] = gj < 0 ? g.s[2] * buf[k + 1] + g.o[2]
-                          : g.s[3] * buf[k - 1] + g.o[3];
+          buf[k] = gj < 0 ? g.s[2] * buf[L.at(li, lj + 1)] + g.o[2]
+                          : g.s[3] * buf[L.at(li, lj - 1)] + g.o[3];
       }
     }
   }
   __syncthreads();
   // ---- p' and the correction of the tile's cells
-  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
+  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += nty) {
     const int i = gi0 + li;
-    for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
-         lj += PR_THREADS_X) {
+    for (int lj = halo + 1 + tx; lj < halo + 1 + tile; lj += 32) {
       const int j = gj0 + lj;
-      const int k = li * B + lj;
-      const T pc = buf[k];
+      const T pc = buf[L.at(li, lj)];
       s.out[(size_t)i * n1 + j] = pc;
-      gtt::correct_cell(o, i, j, n0, n1, pc, buf[k - B], buf[k + B],
-                        buf[k - 1], buf[k + 1]);
+      gtt::correct_cell(o, i, j, n0, n1, pc, buf[L.at(li - 1, lj)],
+                        buf[L.at(li + 1, lj)], buf[L.at(li, lj - 1)],
+                        buf[L.at(li, lj + 1)]);
     }
   }
 }
@@ -548,9 +696,10 @@ __global__ void residual_kernel(ResArgs<T> a) {
 // Bound: device-memory bytes for a level of many tiles (reads u and rhs,
 // writes the result once for all sweeps); a level that fits one block is
 // bound by its serial half-sweeps.
-// Design: K3's tile without its prolongation.  One block per tile x tile
-// output tile; the shared buffer holds the tile, a halo of 2*nsweeps cells
-// and a frozen outer ring, and the rhs beside it.  On a periodic axis the
+// Design: K3's tile as it was before K3's sweep engine was redesigned,
+// without the prolongation.  One block per tile x tile output tile; the
+// shared buffer holds the tile, a halo of 2*nsweeps cells and a frozen
+// outer ring, and the rhs beside it.  On a periodic axis the
 // halo is read across the wrap (the TPU kernel's wrapped halo DMAs); on a
 // non-periodic one, the domain-edge ghosts inside the buffer are
 // recomputed (sgn * mirror) before every half-sweep.  The valid region
@@ -588,11 +737,11 @@ __global__ void rbgs_relax_kernel(RXArgs<T> a) {
   const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
 
   // ---- place u and rhs
-  for (int li = ty; li < B; li += PR_THREADS_Y) {
+  for (int li = ty; li < B; li += RX_THREADS_Y) {
     int gi = gi0 + li;
     if (wrap_x) gi = (gi % n0 + n0) % n0;
     const bool real_i = gi >= 0 && gi < n0;
-    for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+    for (int lj = tx; lj < B; lj += RX_THREADS_X) {
       int gj = gj0 + lj;
       if (wrap_y) gj = (gj % n1 + n1) % n1;
       const bool real = real_i && gj >= 0 && gj < n1;
@@ -607,11 +756,11 @@ __global__ void rbgs_relax_kernel(RXArgs<T> a) {
     const int color = sw & 1;  // red ((i+j) even) first
     // ---- ghosts from the current interior: domain edges, and the wrap of
     // a whole-level block
-    for (int li = ty; li < B; li += PR_THREADS_Y) {
+    for (int li = ty; li < B; li += RX_THREADS_Y) {
       const int gi = gi0 + li;
       const bool real_i = wrap_x || (gi >= 0 && gi < n0);
       const bool ghost_i = !real_i && (gi == -1 || gi == n0);
-      for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+      for (int lj = tx; lj < B; lj += RX_THREADS_X) {
         const int gj = gj0 + lj;
         const bool real_j = wrap_y || (gj >= 0 && gj < n1);
         const bool ghost_j = !real_j && (gj == -1 || gj == n1);
@@ -631,10 +780,10 @@ __global__ void rbgs_relax_kernel(RXArgs<T> a) {
     }
     __syncthreads();
     // ---- one colour; the frozen outer ring is never updated
-    for (int li = ty + 1; li < B - 1; li += PR_THREADS_Y) {
+    for (int li = ty + 1; li < B - 1; li += RX_THREADS_Y) {
       const int gi = gi0 + li;
       if (!wrap_x && (gi < 0 || gi >= n0)) continue;
-      for (int lj = tx + 1; lj < B - 1; lj += PR_THREADS_X) {
+      for (int lj = tx + 1; lj < B - 1; lj += RX_THREADS_X) {
         const int gj = gj0 + lj;
         if (!wrap_y && (gj < 0 || gj >= n1)) continue;
         if (((gi + gj) & 1) != color) continue;
@@ -650,10 +799,10 @@ __global__ void rbgs_relax_kernel(RXArgs<T> a) {
   }
 
   // ---- the tile
-  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
+  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += RX_THREADS_Y) {
     const int gi = gi0 + li;
     for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
-         lj += PR_THREADS_X) {
+         lj += RX_THREADS_X) {
       a.out[(size_t)gi * n1 + gj0 + lj] = buf[li * B + lj];
     }
   }
@@ -719,7 +868,7 @@ __global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
   const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
 
   // ---- place u, rhs, the faces and the cell dia (in den for now)
-  for (int li = ty; li < B; li += PR_THREADS_Y) {
+  for (int li = ty; li < B; li += RX_THREADS_Y) {
     int gi = gi0 + li;
     if (wrap_x) gi = (gi % n0 + n0) % n0;
     const bool real_i = gi >= 0 && gi < n0;
@@ -727,7 +876,7 @@ __global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
     int fi = gi0 + li;
     if (a.per_x) fi = (fi % n0 + n0) % n0;
     const bool face_i = fi >= 0 && fi <= n0;
-    for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+    for (int lj = tx; lj < B; lj += RX_THREADS_X) {
       int gj = gj0 + lj;
       if (wrap_y) gj = (gj % n1 + n1) % n1;
       const bool real_j = gj >= 0 && gj < n1;
@@ -747,8 +896,8 @@ __global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
   __syncthreads();
   // ---- den = ax_lo + ax_hi + ay_lo + ay_hi + dia h2 of the cells a
   // sweep may update (each thread rewrites only its own entries)
-  for (int li = ty + 1; li < B - 1; li += PR_THREADS_Y) {
-    for (int lj = tx + 1; lj < B - 1; lj += PR_THREADS_X) {
+  for (int li = ty + 1; li < B - 1; li += RX_THREADS_Y) {
+    for (int lj = tx + 1; lj < B - 1; lj += RX_THREADS_X) {
       const int k = li * B + lj;
       const T dh2 = den[k] * a.h2;
       den[k] = axs[k] + axs[k + B] + ays[k] + ays[k + 1] + dh2;
@@ -760,11 +909,11 @@ __global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
     const int color = sw & 1;  // red ((i+j) even) first
     // ---- ghosts from the current interior: domain edges, and the wrap of
     // a whole-level block
-    for (int li = ty; li < B; li += PR_THREADS_Y) {
+    for (int li = ty; li < B; li += RX_THREADS_Y) {
       const int gi = gi0 + li;
       const bool real_i = wrap_x || (gi >= 0 && gi < n0);
       const bool ghost_i = !real_i && (gi == -1 || gi == n0);
-      for (int lj = tx; lj < B; lj += PR_THREADS_X) {
+      for (int lj = tx; lj < B; lj += RX_THREADS_X) {
         const int gj = gj0 + lj;
         const bool real_j = wrap_y || (gj >= 0 && gj < n1);
         const bool ghost_j = !real_j && (gj == -1 || gj == n1);
@@ -784,10 +933,10 @@ __global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
     }
     __syncthreads();
     // ---- one colour; the frozen outer ring is never updated
-    for (int li = ty + 1; li < B - 1; li += PR_THREADS_Y) {
+    for (int li = ty + 1; li < B - 1; li += RX_THREADS_Y) {
       const int gi = gi0 + li;
       if (!wrap_x && (gi < 0 || gi >= n0)) continue;
-      for (int lj = tx + 1; lj < B - 1; lj += PR_THREADS_X) {
+      for (int lj = tx + 1; lj < B - 1; lj += RX_THREADS_X) {
         const int gj = gj0 + lj;
         if (!wrap_y && (gj < 0 || gj >= n1)) continue;
         if (((gi + gj) & 1) != color) continue;
@@ -806,10 +955,10 @@ __global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
   }
 
   // ---- the tile
-  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += PR_THREADS_Y) {
+  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += RX_THREADS_Y) {
     const int gi = gi0 + li;
     for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
-         lj += PR_THREADS_X) {
+         lj += RX_THREADS_X) {
       a.out[(size_t)gi * n1 + gj0 + lj] = buf[li * B + lj];
     }
   }
@@ -818,8 +967,8 @@ __global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
 // ---------------------------------------------------------------------------
 // K12 coarse_vcycle, its block kernel.
 // Replaces gerris_tpu/ops/pallas/rbgs.py:coarse_vcycle (_cv_kernel, its
-// smoother _cv_relax) together with the restrict2 and K3 launches of the
-// levels above 64^2 (ops/cuda/rbgs.py:coarse_vcycle): du for the whole
+// smoother _cv_relax) together with the restrict_pyramid and K3 launches
+// of the levels above 64^2 (ops/cuda/rbgs.py:coarse_vcycle): du for the whole
 // sub-hierarchy at and below r's level, homogeneous ghosts, non-periodic
 // rows, periodic columns or not, omega 1.
 // Bound: barriers and launches, not bytes: at the 64^2 top it reads r
@@ -1030,20 +1179,28 @@ int launch_residual_restrict_div(const void* const* ptr, double dia,
   return (int)cudaGetLastError();
 }
 
+// r: the top level per system; out: its levels back to back per system;
+// count: one arrival count per system, 0 between launches (used only when
+// a level is coarser than one cell per tile)
 template <typename T>
-int launch_restrict2(int batch, const void* const* r, int n0, int n1,
-                     void* const* out, void* stream) {
-  if (!batch_ok(batch)) return (int)cudaErrorInvalidValue;
-  R2Args<T> a = {};
+int launch_restrict_pyramid(int batch, const void* const* r, int n,
+                            int levels, void* const* out,
+                            unsigned int* count, void* stream) {
+  if (!batch_ok(batch) || levels < 1 || (n >> levels) < 1)
+    return (int)cudaErrorInvalidValue;
+  PYArgs<T> a = {};
   for (int b = 0; b < batch; ++b) {
     a.sys[b].r = (const T*)r[b];
     a.sys[b].out = (T*)out[b];
+    a.sys[b].count = count + b;
   }
-  a.n0 = n0;
-  a.n1 = n1;
-  dim3 block(32, 8);
-  dim3 grid((n1 / 2 + 31) / 32, (n0 / 2 + 7) / 8, batch);
-  restrict2_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  const int tile = n < PY_TILE ? n : PY_TILE;
+  a.n = n;
+  a.levels = levels;
+  a.tile = tile;
+  dim3 block(tile / 2, tile / 2);
+  dim3 grid(n / tile, n / tile, batch);
+  restrict_pyramid_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1076,6 +1233,13 @@ PRArgs<T> prolong_args(int batch, const void* const* coarse,
   return a;
 }
 
+// the dynamic shared memory of a K3-family block: du and rhs, each in
+// two colour halves (pr_half)
+template <typename T>
+size_t pr_smem(int tile, int halo) {
+  return 4 * (size_t)pr_half(tile + 2 * halo + 2) * sizeof(T);
+}
+
 template <typename T>
 int launch_prolong_relax(int batch, const void* const* coarse,
                          const void* const* rhs, const void* const* u,
@@ -1087,15 +1251,14 @@ int launch_prolong_relax(int batch, const void* const* coarse,
   const PRArgs<T> a =
       prolong_args<T>(batch, coarse, rhs, u, out, dia, n0, n1, tile, halo,
                       nsweeps, h2, omega, sgn, per_y);
-  const int B = tile + 2 * halo + 2;
-  const size_t smem = 2 * (size_t)B * B * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      prolong_relax_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static int smem_set[gtt::MAX_DEVICES];
+  cudaError_t e = gtt::allow_smem((const void*)prolong_relax_kernel<T>,
+                                  smem_set);
   if (e != cudaSuccess) return (int)e;
-  dim3 block(PR_THREADS_X, PR_THREADS_Y);
   dim3 grid(n1 / tile, n0 / tile, batch);
-  prolong_relax_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  prolong_relax_kernel<T>
+      <<<grid, pr_threads(tile, halo), pr_smem<T>(tile, halo),
+         (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1116,16 +1279,14 @@ int launch_prolong_relax_correct(const void* const* ptr, double dia, int n0,
       (const T*)ptr[3], (const T*)ptr[4], (const T*)ptr[5], (const T*)ptr[6],
       (T*)out[1],       (T*)out[2],       (T*)out[3],       (T*)out[4],
       (T*)out[5],       (T*)out[6],       T(dt),            T(h)};
-  const int B = tile + 2 * halo + 2;
-  const size_t smem = 2 * (size_t)B * B * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      prolong_relax_correct_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int smem_set[gtt::MAX_DEVICES];
+  cudaError_t e = gtt::allow_smem(
+      (const void*)prolong_relax_correct_kernel<T>, smem_set);
   if (e != cudaSuccess) return (int)e;
-  dim3 block(PR_THREADS_X, PR_THREADS_Y);
   dim3 grid(n1 / tile, n0 / tile, 1);
   prolong_relax_correct_kernel<T>
-      <<<grid, block, smem, (cudaStream_t)stream>>>(
+      <<<grid, pr_threads(tile, halo), pr_smem<T>(tile, halo),
+         (cudaStream_t)stream>>>(
           a, o, gtt::make_ghosts<T>(sgn, off, per_y));
   return (int)cudaGetLastError();
 }
@@ -1178,11 +1339,10 @@ int launch_rbgs_relax(const void* u, const void* rhs, void* out, int n0,
   a.per_y = per_y;
   const int B = tile + 2 * halo + 2;
   const size_t smem = 2 * (size_t)B * B * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      rbgs_relax_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static int smem_set[gtt::MAX_DEVICES];
+  cudaError_t e = gtt::allow_smem((const void*)rbgs_relax_kernel<T>, smem_set);
   if (e != cudaSuccess) return (int)e;
-  dim3 block(PR_THREADS_X, PR_THREADS_Y);
+  dim3 block(RX_THREADS_X, RX_THREADS_Y);
   dim3 grid(n1 / tile, n0 / tile);
   rbgs_relax_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -1216,11 +1376,10 @@ int launch_rbgs_relax_alpha(const void* const* ptr, int n0, int n1,
   a.per_y = per_y;
   const int B = tile + 2 * halo + 2;
   const size_t smem = 5 * (size_t)B * B * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      rbgs_relax_alpha_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int smem_set[gtt::MAX_DEVICES];
+  cudaError_t e = gtt::allow_smem((const void*)rbgs_relax_alpha_kernel<T>, smem_set);
   if (e != cudaSuccess) return (int)e;
-  dim3 block(PR_THREADS_X, PR_THREADS_Y);
+  dim3 block(RX_THREADS_X, RX_THREADS_Y);
   dim3 grid(n1 / tile, n0 / tile);
   rbgs_relax_alpha_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -1246,9 +1405,8 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
   for (int s = n; s >= min_n; s >>= 1) cells += (size_t)s * s;
   cells += (size_t)n * n + (size_t)(n / 2) * (n / 2);
   const size_t smem = cells * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      coarse_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static int smem_set[gtt::MAX_DEVICES];
+  cudaError_t e = gtt::allow_smem((const void*)coarse_block_kernel<T>, smem_set);
   if (e != cudaSuccess) return (int)e;
   coarse_block_kernel<T><<<1, CB_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -1258,7 +1416,8 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
 
 // The C interface.  For the batched kernels the device pointers of a
 // launch are one host table of `batch` entries per argument, in the order
-// listed (residual_restrict: u, rhs, sub, r0, r1, r2; restrict2: r, out;
+// listed (residual_restrict: u, rhs, sub, r0, r1, r2; restrict_pyramid: r,
+// out, its levels back to back;
 // prolong_relax: coarse, rhs, u, out), so that a launch builds one array;
 // dia is a host array of `batch` entries, the ghost offsets of 4 * batch.
 // residual, rbgs_relax and coarse_block take one system's pointers;
@@ -1276,9 +1435,11 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
         batch, ptr, ptr + batch, ptr + 2 * batch, dia, off, h2, n0, n1, sgn,  \
         per_y, ptr + 3 * batch, ptr + 4 * batch, ptr + 5 * batch, stream);    \
   }                                                                           \
-  extern "C" int gtt_restrict2_##SUFFIX(int batch, void* const* ptr, int n0,  \
-                                        int n1, void* stream) {               \
-    return launch_restrict2<T>(batch, ptr, n0, n1, ptr + batch, stream);     \
+  extern "C" int gtt_restrict_pyramid_##SUFFIX(                              \
+      int batch, void* const* ptr, int n, int levels, unsigned int* count,    \
+      void* stream) {                                                         \
+    return launch_restrict_pyramid<T>(batch, ptr, n, levels, ptr + batch,     \
+                                      count, stream);                         \
   }                                                                           \
   extern "C" int gtt_prolong_relax_##SUFFIX(                                  \
       int batch, void* const* ptr, const double* dia, int n0, int n1,         \

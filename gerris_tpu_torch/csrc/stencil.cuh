@@ -194,6 +194,31 @@ inline dim3 cell_grid(int n0, int n1, int bx, int by) {
   return dim3((n1 + bx - 1) / bx, (n0 + by - 1) / by);
 }
 
+// Raise a kernel's dynamic shared memory limit to the device's opt-in
+// maximum (less its static shared memory), once per kernel and device: ``done`` is the launcher's own
+// static table, by device.  The limit is a ceiling, not a reservation, so
+// every launch of the kernel fits under it, and the host pays
+// cudaFuncSetAttribute once instead of at every launch.
+constexpr int MAX_DEVICES = 64;
+
+inline cudaError_t allow_smem(const void* kernel, int* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  int bytes = 0;
+  e = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes - (int)attr.sharedSizeBytes);
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = 1;
+  return e;
+}
+
 template <typename T>
 int launch_sum(const T* partials, int n, T* total, cudaStream_t stream) {
   sum_partials_kernel<T><<<1, SUM_THREADS, 0, stream>>>(partials, n, total);

@@ -10,7 +10,11 @@ smoother K15 ``rbgs_relax_alpha`` (the two-phase projections and the
 variable-density diffusion), and the fold route's K16
 ``residual_restrict_div`` (K1 with the MAC divergence as its rhs) and K17
 ``prolong_relax_correct`` (K3 with the projection's correction as its
-epilogue).  The kernels are in
+epilogue), and the restriction pyramid ``restrict_pyramid`` (every level
+of the cascades' and the 2D corrections' restriction in one launch,
+``restrict2`` its one-level case).  K3, K8c, K17 and the cascades' K3
+launches share one sweep engine and pick their tile per level from the
+card's shared memory and multiprocessor count.  The kernels are in
 ``gerris_tpu_torch/csrc/rbgs.cu``; each one's source note says what it
 replaces, what bounds it on the H100 and what its design does about it.
 A pair launches the single kernel with a batch of two systems, which
@@ -38,23 +42,26 @@ import functools
 import torch
 
 # kernel launches by wrapper name, counted only where a kernel launches.
-# A cascade counts calls of its host-side sequence; the restrict2,
+# A cascade counts calls of its host-side sequence; the restrict_pyramid,
 # prolong_relax and coarse_block launches it makes are counted apart from
-# the wrappers' own: "restrict2" and "cascade.prolong_relax" for K2,
-# "restrict2_pair" and "cascade_pair.prolong_relax" for K8b,
-# "coarse_vcycle.restrict2", "coarse_block" and
+# the wrappers' own: "cascade.restrict_pyramid" and "cascade.prolong_relax"
+# for K2, "cascade_pair.restrict_pyramid" and "cascade_pair.prolong_relax"
+# for K8b, "coarse_vcycle.restrict_pyramid", "coarse_block" and
 # "coarse_vcycle.prolong_relax" for K12.
-LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "prolong_relax": 0,
-            "cascade_prolong_relax": 0, "cascade.prolong_relax": 0,
-            "residual_restrict_pair": 0, "prolong_relax_pair": 0,
-            "cascade_prolong_relax_pair": 0, "restrict2_pair": 0,
+LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "restrict_pyramid": 0,
+            "restrict_pyramid_pair": 0, "prolong_relax": 0,
+            "cascade_prolong_relax": 0, "cascade.restrict_pyramid": 0,
+            "cascade.prolong_relax": 0, "residual_restrict_pair": 0,
+            "prolong_relax_pair": 0, "cascade_prolong_relax_pair": 0,
+            "cascade_pair.restrict_pyramid": 0,
             "cascade_pair.prolong_relax": 0, "residual": 0,
             "rbgs_relax": 0, "coarse_vcycle": 0,
-            "coarse_vcycle.restrict2": 0, "coarse_block": 0,
+            "coarse_vcycle.restrict_pyramid": 0, "coarse_block": 0,
             "coarse_vcycle.prolong_relax": 0, "residual_restrict_div": 0,
             "prolong_relax_correct": 0, "rbgs_relax_alpha": 0}
 
 _SMEM_MAX = 232448        # dynamic shared memory a block may use on sm_90
+MAX_BATCH = 2             # systems in one launch (csrc/rbgs.cu)
 _HOMOGENEOUS = (0.0, 0.0, 0.0, 0.0)
 # K12's block kernel holds levels of at most this many cells per side
 COARSE_BLOCK_MAX = 64
@@ -90,6 +97,16 @@ def pool_plain(r):
     """2x2 mean: rows first, then columns."""
     a = 0.5 * (r[0::2] + r[1::2])
     return 0.5 * (a[:, 0::2] + a[:, 1::2])
+
+
+def pyramid_plain(r, levels):
+    """The ``levels`` successive 2x2 means of r, finest first: the chain
+    of pool_plain."""
+    out = []
+    for _ in range(levels):
+        r = pool_plain(r)
+        out.append(r)
+    return out
 
 
 def prolong_plain(c, signs, periodic):
@@ -244,8 +261,12 @@ def cascade_prolong_relax_plain(r1, r2, dia=0.0, *, nsweeps, coarsest,
                                 h2_half, signs, per_y=False, omega=1.0,
                                 min_n=16):
     return _cascade([r1], [r2], [dia], nsweeps, coarsest, h2_half, signs,
-                    per_y, omega, min_n, _each(pool_plain),
+                    per_y, omega, min_n, _pyramids_plain,
                     _each(prolong_relax_plain))[0]
+
+
+def _pyramids_plain(rs, levels):
+    return [pyramid_plain(r, levels) for r in rs]
 
 
 def _each(fn):
@@ -286,29 +307,28 @@ def cascade_prolong_relax_pair_plain(r1s, r2s, dias, *, nsweeps, coarsest,
 
 
 def _cascade(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs, per_y,
-             omega, min_n, pool, prolong_relax_fn):
+             omega, min_n, pyramid, prolong_relax_fn):
     """Every correction level at or below n/2 = r1.shape[0] of each
     system: restrict r2 down to min(min_n, n/4), ``coarsest`` sweeps from
     zero there, then prolong + ``nsweeps`` sweeps at each level up to
     n/2.  At level size m the cell size squared is h2_half * (n/2 / m)**2.
-    Lists over the systems in and out: ``pool(rs)`` and
-    ``prolong_relax_fn(coarses, rhss, dias, **kw)`` take and return lists."""
+    Lists over the systems in and out: ``pyramid(rs, levels)`` returns
+    each system's levels, and ``prolong_relax_fn(coarses, rhss, dias,
+    **kw)`` takes and returns lists."""
     n_half = r1s[0].shape[0]
     min_n = min(min_n, n_half // 2)
-    rs = {n_half // 2: list(r2s)}
-    n = n_half // 2
-    while n > min_n:
-        rs[n // 2] = pool(rs[n])
-        n //= 2
+    levels = (n_half // 2 // min_n).bit_length() - 1
+    pyr = pyramid(r2s, levels) if levels else [[] for _ in r2s]
+    # the levels by size, each a list over the systems
+    rs = [list(r2s)] + [list(lv) for lv in zip(*pyr)]
     kw = dict(signs=signs, per_y=per_y, omega=omega)
-    du = prolong_relax_fn([None] * len(dias), rs[min_n], dias,
+    du = prolong_relax_fn([None] * len(dias), rs[-1], dias,
                           nsweeps=coarsest,
                           h2=h2_half * (n_half // min_n) ** 2, **kw)
-    n = 2 * min_n
-    while n <= n_half // 2:
-        du = prolong_relax_fn(du, rs[n], dias, nsweeps=nsweeps,
-                              h2=h2_half * (n_half // n) ** 2, **kw)
-        n *= 2
+    for rk in reversed(rs[:-1]):
+        du = prolong_relax_fn(du, rk, dias, nsweeps=nsweeps,
+                              h2=h2_half * (n_half // rk[0].shape[0]) ** 2,
+                              **kw)
     return prolong_relax_fn(du, r1s, dias, nsweeps=nsweeps, h2=h2_half, **kw)
 
 
@@ -353,11 +373,11 @@ def _check_pair(*lists):
 def _on_cpu(*tensors):
     """True for CPU tensors (plain version), False for CUDA (kernel)."""
     ts = [t for t in tensors if t is not None]
-    devs = {t.device for t in ts}
-    dtypes = {t.dtype for t in ts}
-    if len(devs) != 1 or len(dtypes) != 1:
-        raise ValueError(f"inputs on {devs} with dtypes {dtypes}: want one")
-    dev = devs.pop()
+    dev, dtype = ts[0].device, ts[0].dtype
+    for t in ts[1:]:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"inputs on {[t.device for t in ts]} with "
+                             f"dtypes {[t.dtype for t in ts]}: want one")
     if dev.type == "cpu":
         return True
     if dev.type == "cuda":
@@ -381,13 +401,37 @@ def pointers(*groups):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _call(fn_name, dtype, device, *args):
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(fn_name, dtype):
+    """The library's C function of a kernel, looked up once per (name,
+    dtype)."""
     from .build import library
     suffix = "f32" if dtype == torch.float32 else "f64"
-    fn = getattr(library(), f"gtt_{fn_name}_{suffix}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    return getattr(library(), f"gtt_{fn_name}_{suffix}")
+
+
+# the current stream's handle without a Stream object (PyTorch's own
+# launchers read it so); torch.cuda.current_stream where it is missing
+_CURRENT_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _raw_stream(index):
+    """The current stream of device ``index`` as a handle."""
+    if _CURRENT_RAW_STREAM is not None:
+        return _CURRENT_RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _call(fn_name, dtype, device, *args):
+    """Launch ``fn_name`` on the current stream of ``device``, entering the
+    device only when it is not the current one; raise on a launch error."""
+    fn = _kernel_fn(fn_name, dtype)
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
@@ -453,46 +497,141 @@ def residual_restrict_pair(us, rhss, dias, subs=(0.0, 0.0), *, h2, signs,
                                    per_y, "residual_restrict_pair")
 
 
-def _restrict2_cuda(rs, counter):
-    n = rs[0].shape[0]
-    outs = [r.new_empty((n // 2, n // 2)) for r in rs]
-    _call("restrict2", rs[0].dtype, rs[0].device, len(rs),
-          pointers(rs, outs), n, n)
+# the pyramid's arrival counts (one per system of a launch) by device and
+# stream, 0 between launches: the last block of a launch resets its own;
+# and the cascades' pyramid workspaces by (device, stream, dtype, size,
+# levels, batch)
+_ARRIVALS = {}
+_WORKSPACES = {}
+
+
+def _pyramid_levels(r, batch, levels):
+    """``batch`` buffers of the levels below r's, and each one's levels
+    as (m, m) views of it, finest first."""
+    n = r.shape[0]
+    bufs, outs = [], []
+    for _ in range(batch):
+        buf = r.new_empty(sum((n >> k) ** 2 for k in range(1, levels + 1)))
+        views, off = [], 0
+        for k in range(1, levels + 1):
+            m = n >> k
+            views.append(buf[off:off + m * m].view(m, m))
+            off += m * m
+        bufs.append(buf)
+        outs.append(views)
+    return bufs, outs
+
+
+def _pyramid_cuda(rs, levels, counter, workspace=False):
+    """One restrict_pyramid launch over the systems ``rs``: each system's
+    ``levels`` levels, finest first.  With ``workspace`` (the cascades,
+    whose own launches consume the levels in stream order before the
+    next pyramid on the stream) the levels are one reused workspace per
+    shape and stream, which saves the host the tensors' creation; else
+    new tensors."""
+    r, dev = rs[0], rs[0].device
+    stream = _raw_stream(dev.index)
+    count = _ARRIVALS.get((dev.index, stream))
+    if count is None:
+        count = _ARRIVALS[dev.index, stream] = torch.zeros(
+            MAX_BATCH, dtype=torch.int32, device=dev)
+    key = (dev.index, stream, r.dtype, r.shape[0], levels, len(rs))
+    made = _WORKSPACES.get(key) if workspace else None
+    if made is None:
+        made = _pyramid_levels(r, len(rs), levels)
+        if workspace:
+            _WORKSPACES[key] = made
+    bufs, outs = made
+    _call("restrict_pyramid", r.dtype, dev, len(rs), pointers(rs, bufs),
+          r.shape[0], levels, count.data_ptr())
     LAUNCHES[counter] += 1
     return outs
 
 
-def restrict2(r):
-    """One 2x2 mean pool (the cascades' and the correction's
+def _check_pyramid(r, levels, name="r", n=None):
+    _check_level(r, name, n, min_n=2)
+    if not 1 <= levels or r.shape[0] >> levels < 1:
+        raise ValueError(f"restrict_pyramid: {levels} levels of a "
+                         f"{r.shape[0]}^2 level, want 1 to "
+                         f"{r.shape[0].bit_length() - 1}")
+
+
+def restrict_pyramid(r, levels):
+    """The ``levels`` successive 2x2 means of r, finest first: [pool(r),
+    pool(pool(r)), ...], in one launch (the corrections' and cascades'
     restriction)."""
+    _check_pyramid(r, levels)
+    if _on_cpu(r):
+        return pyramid_plain(r, levels)
+    return _pyramid_cuda([r], levels, "restrict_pyramid")[0]
+
+
+def restrict_pyramid_pair(rs, levels):
+    """restrict_pyramid of the two systems of a pair in one launch: [levels
+    of rs[0], levels of rs[1]]."""
+    _check_pair(rs)
+    for b in range(2):
+        _check_pyramid(rs[b], levels, f"rs[{b}]", rs[0].shape[0])
+    if _on_cpu(*rs):
+        return [pyramid_plain(r, levels) for r in rs]
+    return _pyramid_cuda(rs, levels, "restrict_pyramid_pair")
+
+
+def restrict2(r):
+    """One 2x2 mean pool: restrict_pyramid's one-level case."""
     _check_level(r, "r", min_n=2)
     if _on_cpu(r):
         return pool_plain(r)
-    return _restrict2_cuda([r], "restrict2")[0]
+    return _pyramid_cuda([r], 1, "restrict2")[0][0]
 
 
-def _prolong_geometry(n, nsweeps, tile, whole_max, itemsize):
-    """(tile, halo) of a launch: a level of at most ``whole_max`` cells
-    per side is one block with no halo; larger levels use ``tile`` x
-    ``tile`` tiles with a halo of 2*nsweeps."""
+def _pr_smem(side, itemsize):
+    """Shared memory of a K3-family block of ``side`` cells a side: du and
+    rhs, each in two colour halves padded as csrc/rbgs.cu:pr_half."""
+    e = side * (side // 2)
+    return 4 * (e + (48 - e % 32) % 32) * itemsize
+
+
+@functools.lru_cache(maxsize=1024)
+def _prolong_geometry(n, nsweeps, tile, whole_max, itemsize, blocks=1):
+    """(tile, halo) of a K3-family launch: a level of at most
+    ``whole_max`` cells per side is one block with no halo; a larger
+    level uses tile x tile tiles with a halo of 2*nsweeps, ``tile`` if
+    given, else the largest of 64, 32, 16 whose buffers fit in shared
+    memory and that still gives each of the card's multiprocessors a
+    block (``blocks``: the multiprocessors over the batch), else the
+    smallest that fits.  The tile changes the launch geometry only: the
+    result is bit-identical for every tile."""
     if n <= whole_max:
         tile, halo = n, 0
     else:
         halo = 2 * nsweeps
+        if tile is None:
+            fits = [t for t in (64, 32, 16) if n % t == 0 and _pr_smem(
+                t + 2 * halo + 2, itemsize) <= _SMEM_MAX]
+            wide = [t for t in fits if (n // t) ** 2 >= blocks]
+            tile = wide[0] if wide else fits[-1] if fits else 16
         if n % tile:
             raise ValueError(f"tile {tile} does not divide {n}")
     side = tile + 2 * halo + 2
-    if 2 * side * side * itemsize > _SMEM_MAX:
+    if _pr_smem(side, itemsize) > _SMEM_MAX:
         raise ValueError(f"prolong_relax: a {side}^2 buffer does not fit "
                          "in shared memory (fewer sweeps or a smaller tile)")
     return tile, halo
 
 
+def _prolong_plan(rhs, nsweeps, tile, whole_max, batch=1):
+    """_prolong_geometry for a launch of ``batch`` systems like ``rhs``
+    on its card."""
+    sms = _multiprocessors(rhs.device)
+    return _prolong_geometry(rhs.shape[0], nsweeps, tile, whole_max,
+                             rhs.element_size(), -(-sms // batch))
+
+
 def _prolong_relax_cuda(coarses, rhss, dias, us, nsweeps, h2, signs, per_y,
                         omega, tile, whole_max, counter):
     n = rhss[0].shape[0]
-    tile, halo = _prolong_geometry(n, nsweeps, tile, whole_max,
-                                   rhss[0].element_size())
+    tile, halo = _prolong_plan(rhss[0], nsweeps, tile, whole_max, len(rhss))
     outs = [torch.empty_like(r) for r in rhss]
     _call("prolong_relax", rhss[0].dtype, rhss[0].device, len(rhss),
           pointers(coarses, rhss, us, outs), doubles(*dias), n, n, tile, halo,
@@ -512,7 +651,7 @@ def _check_prolong(coarse, rhs, u, n=None, tag=""):
 
 
 def prolong_relax(coarse, rhs, dia=0.0, u=None, *, nsweeps, h2, signs,
-                  per_y=False, omega=1.0, tile=32, whole_max=64):
+                  per_y=False, omega=1.0, tile=None, whole_max=64):
     """du = relax^nsweeps(prolong(coarse)) on (L - dia) du = rhs with
     homogeneous ghosts; returns du, or u + du when ``u`` is given.
     ``coarse=None`` starts from du = 0 (the coarsest level)."""
@@ -527,7 +666,7 @@ def prolong_relax(coarse, rhs, dia=0.0, u=None, *, nsweeps, h2, signs,
 
 
 def prolong_relax_pair(coarses, rhss, dias, us, *, nsweeps, h2, signs,
-                       per_y=False, omega=1.0, tile=32, whole_max=64):
+                       per_y=False, omega=1.0, tile=None, whole_max=64):
     """K3 for the two systems of a pair in one launch, each with its own
     ``dia``: [u_b + relax^nsweeps(prolong(coarses[b]))].  A coarse of
     None starts that system from du = 0; ``us`` entries may be None
@@ -571,7 +710,7 @@ def residual_restrict_div(u, ufx, ufy, dtm, dia=0.0, sub=0.0, *, h2, signs,
 
 def prolong_relax_correct(coarse, rhs, dia, u, ufx, ufy, dt, h, cells=None,
                           *, nsweeps, h2, signs, offs, per_y=False,
-                          omega=1.0, tile=32, whole_max=64):
+                          omega=1.0, tile=None, whole_max=64):
     """K17: p' = u + relax^nsweeps(prolong(coarse)) as K3 computes it
     (homogeneous ghosts), then in the same launch the projection's
     correction by p' with the real ghosts (signs, offs): (p', ufx', ufy',
@@ -593,8 +732,7 @@ def prolong_relax_correct(coarse, rhs, dia, u, ufx, ufy, dt, h, cells=None,
     # K3's geometry: its frozen outer ring lies beyond the halo, so du,
     # and hence p', is exact on the ring around each tile that the tile's
     # face gradients read (csrc/rbgs.cu, K17's note)
-    tile, halo = _prolong_geometry(n, nsweeps, tile, whole_max,
-                                   rhs.element_size())
+    tile, halo = _prolong_plan(rhs, nsweeps, tile, whole_max)
     p = torch.empty_like(rhs)
     out = [p, torch.empty_like(ufx), torch.empty_like(ufy),
            torch.empty_like(rhs), torch.empty_like(rhs)]
@@ -610,23 +748,24 @@ def prolong_relax_correct(coarse, rhs, dia, u, ufx, ufy, dt, h, cells=None,
 
 
 def _cascade_cuda(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs, per_y,
-                  omega, min_n, restrict_counter, prolong_counter):
-    """The cascade on the card: restrict2 launches down to min(min_n,
-    n/4), then prolong_relax launches (the coarsest from zero with
-    ``coarsest`` sweeps), each over the whole batch of systems.  The TPU
-    kernels ran this in one launch with the sub-cascade carried across
-    grid steps in VMEM; blocks of a GPU grid carry nothing, so the
+                  omega, min_n, counter):
+    """The cascade on the card: one restrict_pyramid launch down to
+    min(min_n, n/4), then prolong_relax launches (the coarsest from zero
+    with ``coarsest`` sweeps), each over the whole batch of systems,
+    counted under ``counter``.restrict_pyramid and .prolong_relax.  The
+    TPU kernels ran this in one launch with the sub-cascade carried
+    across grid steps in VMEM; blocks of a GPU grid carry nothing, so the
     sequence runs from the host."""
-    def pool(rs):
-        return _restrict2_cuda(rs, restrict_counter)
+    def pyramid(rs, levels):
+        return _pyramid_cuda(rs, levels, counter + ".restrict_pyramid", True)
 
     def launch(coarses, rhss, ds, *, nsweeps, h2, signs, per_y, omega):
         return _prolong_relax_cuda(coarses, rhss, ds, [None] * len(ds),
-                                   nsweeps, h2, signs, per_y, omega, 32, 64,
-                                   prolong_counter)
+                                   nsweeps, h2, signs, per_y, omega, None,
+                                   64, counter + ".prolong_relax")
 
     return _cascade(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs,
-                    per_y, omega, min_n, pool, launch)
+                    per_y, omega, min_n, pyramid, launch)
 
 
 def cascade_prolong_relax(r1, r2, dia=0.0, *, nsweeps, coarsest, h2_half,
@@ -642,8 +781,7 @@ def cascade_prolong_relax(r1, r2, dia=0.0, *, nsweeps, coarsest, h2_half,
             min_n=min_n)
     LAUNCHES["cascade_prolong_relax"] += 1
     return _cascade_cuda([r1], [r2], [dia], nsweeps, coarsest, h2_half,
-                         signs, per_y, omega, min_n, "restrict2",
-                         "cascade.prolong_relax")[0]
+                         signs, per_y, omega, min_n, "cascade")[0]
 
 
 def cascade_prolong_relax_pair(r1s, r2s, dias, *, nsweeps, coarsest,
@@ -663,8 +801,7 @@ def cascade_prolong_relax_pair(r1s, r2s, dias, *, nsweeps, coarsest,
             min_n=min_n)
     LAUNCHES["cascade_prolong_relax_pair"] += 1
     return _cascade_cuda(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs,
-                         per_y, omega, min_n, "restrict2_pair",
-                         "cascade_pair.prolong_relax")
+                         per_y, omega, min_n, "cascade_pair")
 
 
 # -----------------------------------------------------------------------------
@@ -853,10 +990,10 @@ def coarse_vcycle(r, dia=0.0, *, nsweeps, coarsest, h2, signs, per_y=False,
                   min_n=16):
     """K12: du for the sub-hierarchy at and below r's level (homogeneous
     ghosts, non-periodic rows, omega 1; ``h2`` is r's level's).  On the
-    card the levels above COARSE_BLOCK_MAX are restrict2 launches down and
-    K3 launches up around one coarse_block launch (3 + 1 + 3 launches at
-    512^2): a TPU kernel held the whole cascade in one launch, and a
-    512^2 level does not fit one block's shared memory."""
+    card the levels above COARSE_BLOCK_MAX are one restrict_pyramid launch
+    down and K3 launches up around one coarse_block launch (1 + 1 + 3
+    launches at 512^2): a TPU kernel held the whole cascade in one launch,
+    and a 512^2 level does not fit one block's shared memory."""
     _check_coarse(r, min_n)
     if _on_cpu(r):
         return coarse_vcycle_plain(r, dia, nsweeps=nsweeps, coarsest=coarsest,
@@ -864,15 +1001,15 @@ def coarse_vcycle(r, dia=0.0, *, nsweeps, coarsest, h2, signs, per_y=False,
                                    min_n=min_n)
     LAUNCHES["coarse_vcycle"] += 1
     n = r.shape[0]
-    rs = [r]
-    while rs[-1].shape[0] > COARSE_BLOCK_MAX:
-        rs.append(_restrict2_cuda(rs[-1:], "coarse_vcycle.restrict2")[0])
+    levels = max(n // COARSE_BLOCK_MAX, 1).bit_length() - 1
+    rs = [r] + (_pyramid_cuda([r], levels, "coarse_vcycle.restrict_pyramid",
+                              True)[0] if levels else [])
     du = _coarse_block_cuda(rs[-1], dia, nsweeps, coarsest,
                             h2 * (n // rs[-1].shape[0]) ** 2, signs, per_y,
                             min_n)
     for rk in reversed(rs[:-1]):
         du = _prolong_relax_cuda([du], [rk], [dia], [None], nsweeps,
                                  h2 * (n // rk.shape[0]) ** 2, signs, per_y,
-                                 1.0, 32, 64,
+                                 1.0, None, 64,
                                  "coarse_vcycle.prolong_relax")[0]
     return du

@@ -17,9 +17,9 @@ branches (poisson.py:1090-1162):
   (K11) per cycle, cycles until max|r| <= tolerance * max|rhs| or
   nitermax, at least nitermin, the condition read on the host once per
   cycle.
-A cycle's ``correction`` restricts the residual (restrict2) and solves
-the coarsest level by one of three branches: K12 ``coarse_vcycle`` for a
-level above ``coarse_top`` with non-periodic rows, the dense
+A cycle's ``correction`` restricts the residual (restrict_pyramid) and
+solves the coarsest level by one of three branches: K12 ``coarse_vcycle``
+for a level above ``coarse_top`` with non-periodic rows, the dense
 eigendecomposed solve at or below ``dense_coarse_max`` unknowns, or
 relaxation from zero; then it prolongs and relaxes upward in K3 launches
 (u folded into the last), or by ``prolong`` + K10 on periodic rows.
@@ -452,6 +452,17 @@ def _dense_solve(rc, grid_c: Grid, fbc: bcs.FieldBC, d: float):
     return torch.matmul(Q, z).reshape(rc.shape)
 
 
+def _residual_levels(r, levels):
+    """[r, restrict(r), ...]: r and its ``levels`` coarser levels, one
+    restrict_pyramid launch in 2D."""
+    if r.dim() == 2:
+        return [r] + (rbgs.restrict_pyramid(r, levels) if levels else [])
+    rs = [r]
+    for _ in range(levels):
+        rs.append(restrict(rs[-1]))
+    return rs
+
+
 def _correction_variable(r, grid, fbc, params, alpha, dia, u_fine):
     """The correction with face coefficients or a cell dia (reference
     poisson.py:534-617 with alpha): no K12, dense solve or K3; the
@@ -462,10 +473,7 @@ def _correction_variable(r, grid, fbc, params, alpha, dia, u_fine):
     grids = [dataclasses.replace(grid, level=lv)
              for lv in range(grid.level, minlevel - 1, -1)]
     alphas, dias = _coeff_hierarchy(grid, minlevel, alpha, dia)
-    rs = [r]
-    for _ in grids[1:]:
-        rs.append(rbgs.restrict2(rs[-1]) if grid.dim == 2
-                  else restrict(rs[-1]))
+    rs = _residual_levels(r, len(grids) - 1)
     nl = len(grids)
     du = relax(torch.zeros_like(rs[-1]), rs[-1], grids[-1], fbc,
                params.nrelax * params.erelax ** (nl - 1)
@@ -482,9 +490,10 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
                dia=None, u_fine=None, alpha=None):
     """The correction phase of one sawtooth cycle (reference
     poisson.py:520-617, src/poisson.c:1109-1166): restrict the residual
-    (restrict2 in 2D, the 2x2x2 mean in 3D) down the hierarchy, solve the
-    coarsest level, then prolong + relax upward with homogeneous BCs; with
-    ``u_fine`` returns u_fine + du, folded into the last K3 launch in 2D.
+    (one restrict_pyramid launch in 2D, the 2x2x2 mean in 3D) down the
+    hierarchy, solve the coarsest level, then prolong + relax upward with
+    homogeneous BCs; with ``u_fine`` returns u_fine + du, folded into the
+    last K3 launch in 2D.
     The coarsest level is
     * K12 (``coarse_vcycle`` with max(coarsest_relax, 40) coarsest sweeps)
       at ``coarse_top`` when the level is 2D, above it, and its rows are
@@ -513,9 +522,7 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
             minlevel += 1
     grids = [dataclasses.replace(grid, level=lv)
              for lv in range(grid.level, minlevel - 1, -1)]
-    rs = [r]
-    for _ in grids[1:]:
-        rs.append(rbgs.restrict2(rs[-1]) if flat else restrict(rs[-1]))
+    rs = _residual_levels(r, len(grids) - 1)
     signs, _ = _signs_offs(grid, fbc, True)
     per_y = fbc.is_periodic(1)
     nl = len(grids)

@@ -28,6 +28,8 @@ from gerris_tpu_torch.ops.cuda import rbgs as trbgs  # noqa: E402
 from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils.convert import fieldbc_from_jax  # noqa: E402
 
+from test_torch_rbgs import jnp_cascade  # noqa: E402
+
 BOUND = 1e-12
 
 
@@ -164,30 +166,28 @@ def test_coarse_block_matches_pallas(per_y):
 @pytest.mark.parametrize("kind,dia", [("lid", 2.5e4), ("per_y", None)])
 def test_correction_k12_route_matches_jax(kind, dia):
     """The K12 route of the port's correction (256^2 above coarse_top =
-    64: restrict2 to 64, K12 there with its 40 coarsest sweeps, K3 at 128
-    and 256 with u folded in) against restrict -> coarse_vcycle
-    (interpret) -> prolong + relax per level + u, composed of
-    gerris_tpu's public functions, for two cycles, each from the JAX
-    side's u: the lid's Helmholtz system, and periodic columns."""
+    64: one restrict_pyramid to 64, K12 there with its 40 coarsest
+    sweeps, K3 at 128 and 256 with u folded in) against restrict -> K12's
+    schedule as the jnp ladder (64 -> 16, 40 sweeps from zero, prolong +
+    relax up; the Pallas K12 itself is held to the port's in
+    test_coarse_block_matches_pallas, interpret mode tracing every
+    sweep) -> prolong + relax per level + u, composed of gerris_tpu's
+    public functions, for two cycles, each from the JAX side's u: the
+    lid's Helmholtz system, and periodic columns."""
     fbc = _fbc(kind)
     tfbc = fieldbc_from_jax(fbc)
     grid, tgrid = JGrid(level=8), TGrid(level=8)
     params = tpoisson.MultilevelParams(nrelax=3, omega=1.5, coarsest_relax=8,
                                        coarse_top=64)
-    signs, _ = jpoisson._signs_offs(grid, fbc, homogeneous=True)
     u, rhs = _fields(15, grid.shape, grid.shape)
     grids = [dataclasses.replace(grid, level=lv) for lv in (8, 7, 6)]
-    d = 0.0 if dia is None else dia
     for _ in range(2):
         r = jpoisson.residual(jnp.asarray(u), jnp.asarray(rhs), grid, fbc,
                               dia=dia)
         rs = [r]
         for _g in grids[1:]:
             rs.append(jpoisson.restrict(rs[-1], 2))
-        du = jrbgs.coarse_vcycle(rs[-1], d, nsweeps=3, coarsest=40,
-                                 h2=grids[-1].h ** 2, signs=signs,
-                                 per_y=fbc.is_periodic(1), min_n=16,
-                                 interpret=True)
+        du = jnp_cascade([rs[-1]], grids[-1], fbc, dia, 3, 40)
         for k in (1, 0):
             du = jpoisson.prolong(du, grids[k + 1], fbc)
             du = jpoisson.relax(du, rs[k], grids[k], fbc, 3, dia=dia,

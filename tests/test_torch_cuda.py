@@ -7,7 +7,9 @@ Tolerances: float64 1e-12 and float32 1e-5 (1e-4 for the cascade, whose
 40 coarsest sweeps accumulate rounding, as K12's do) of max|plain|, and
 of sum|div| for a divergence's total; tiled and whole-level K3 and K10
 launches are bit-identical, and so are K4's div across block shapes and
-K11's residual against K1's r0, and K17 across tiles.  A kernel given BCs
+K11's residual against K1's r0, K3, K8c and K17 across tiles, and the
+restriction pyramid against the chain of restrict2 launches it
+replaces.  A kernel given BCs
 outside its encoding raises.  The adaptive solve on the card is held to
 the same solve through the plain versions, and so are three steps of the
 3D lid cavity (K13, the 3D smoother, at every level above the dense
@@ -79,13 +81,36 @@ def test_prolong_relax_kernel(dev, dtype, n, coarse, add_u, per_y):
     assert _rel(got, ref) <= BOUND[dtype]
 
 
-def test_prolong_relax_tile_invariance(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,coarse", [
+    (1024, True), (512, True), (256, True), (128, True), (64, True),
+    (32, True), (16, False)])
+@pytest.mark.parametrize("per_y", [False, True])
+def test_prolong_relax_every_cascade_level(dev, dtype, n, coarse, per_y):
+    """K3 at every level of the main path's cascade, at the tile its plan
+    picks for the card (64 at 1024^2, 32 at 512^2, 16 below, whole
+    levels at 64^2 and under), 5 sweeps at omega 1.5, 40 from zero at
+    16^2."""
+    c, rhs = _rnd(dev, dtype, 40 + n, (n // 2, n // 2), (n, n))
+    signs = (-1.0, -1.0, 1.0, 1.0) if per_y else SIGNS_LID
+    kw = dict(nsweeps=5 if coarse else 40, h2=1.0 / n ** 2, signs=signs,
+              per_y=per_y, omega=1.5)
+    c = c if coarse else None
+    got = rbgs.prolong_relax(c, rhs, 0.0, **kw)
+    assert _rel(got, rbgs.prolong_relax_plain(c, rhs, 0.0, **kw)) \
+        <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("per_y", [False, True])
+def test_prolong_relax_tile_invariance(dev, per_y):
     c, rhs, u = _rnd(dev, torch.float32, 3, (128, 128), (256, 256),
                      (256, 256))
-    kw = dict(nsweeps=5, h2=1.0 / 256 ** 2, signs=SIGNS_LID, omega=1.5)
-    a = rbgs.prolong_relax(c, rhs, 0.0, u, tile=32, **kw)
-    b = rbgs.prolong_relax(c, rhs, 0.0, u, tile=16, **kw)
-    assert torch.equal(a, b)
+    kw = dict(nsweeps=5, h2=1.0 / 256 ** 2, signs=SIGNS_LID, omega=1.5,
+              per_y=per_y)
+    a = rbgs.prolong_relax(c, rhs, 0.0, u, tile=16, **kw)
+    for tile in (32, 64, None):
+        assert torch.equal(a, rbgs.prolong_relax(c, rhs, 0.0, u, tile=tile,
+                                                 **kw))
     c, rhs = _rnd(dev, torch.float32, 4, (32, 32), (64, 64))
     whole = rbgs.prolong_relax(c, rhs, 0.0, **kw)
     tiled = rbgs.prolong_relax(c, rhs, 0.0, tile=16, whole_max=32, **kw)
@@ -99,16 +124,52 @@ def test_cascade_and_restrict_kernels(dev, dtype):
               signs=SIGNS_LID, omega=1.5)
     rbgs.reset_launch_counts()
     got = rbgs.cascade_prolong_relax(r1, r2, 0.0, **kw)
-    # 128 -> 64 -> 32 -> 16: three pools, then 16 (from zero), 32, 64,
-    # 128 and the n/2 level
+    # 128 -> 64 -> 32 -> 16: one pyramid of three levels, then 16 (from
+    # zero), 32, 64, 128 and the n/2 level
     assert rbgs.LAUNCHES["cascade_prolong_relax"] == 1
-    assert rbgs.LAUNCHES["restrict2"] == 3
+    assert rbgs.LAUNCHES["cascade.restrict_pyramid"] == 1
+    assert rbgs.LAUNCHES["restrict2"] == 0
     assert rbgs.LAUNCHES["cascade.prolong_relax"] == 5
     assert rbgs.LAUNCHES["prolong_relax"] == 0
     ref = rbgs.cascade_prolong_relax_plain(r1, r2, 0.0, **kw)
     bound = 1e-4 if dtype == torch.float32 else 1e-12
     assert _rel(got, ref) <= bound
-    assert _rel(rbgs.restrict2(r1), rbgs.pool_plain(r1)) <= BOUND[dtype]
+    assert torch.equal(rbgs.restrict2(r1), rbgs.pool_plain(r1))
+
+
+def _restrict2_chain(r, levels):
+    out = []
+    for _ in range(levels):
+        r = rbgs.restrict2(r)
+        out.append(r)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,levels", [(512, 5), (2048, 2), (1024, 8),
+                                      (32, 5), (2, 1)])
+def test_restrict_pyramid_kernel(dev, dtype, n, levels):
+    """The pyramid bit-identical to the chain of restrict2 launches it
+    replaces and to its plain version at every level, single and pair:
+    the cascades' 512 -> 16, the adaptive correction's 2048 -> 512, the
+    two-phase correction's 1024 -> 4 (past one cell per tile: the last
+    block's tail), a one-block pyramid down to 1^2; and again, since the
+    last block resets the arrival count for the next launch."""
+    r, r2 = _rnd(dev, dtype, 41 + n, (n, n), (n, n))
+    rbgs.reset_launch_counts()
+    for _ in range(2):
+        got = rbgs.restrict_pyramid(r, levels)
+        pair = rbgs.restrict_pyramid_pair([r, r2], levels)
+        assert [tuple(t.shape) for t in got] == \
+            [(n >> k, n >> k) for k in range(1, levels + 1)]
+        for want in (_restrict2_chain(r, levels),
+                     rbgs.pyramid_plain(r, levels), pair[0]):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(pair[1], rbgs.pyramid_plain(r2, levels)))
+    assert rbgs.LAUNCHES["restrict_pyramid"] == 2
+    assert rbgs.LAUNCHES["restrict_pyramid_pair"] == 2
+    assert rbgs.LAUNCHES["restrict2"] == 2 * levels
 
 
 # --- the predictor, projection and advection kernels (K6, K4, K5, K9, K14)
@@ -357,11 +418,11 @@ def test_pair_multigrid_kernels(dev, dtype):
     for b in range(2):
         assert torch.equal(out[b], rbgs.prolong_relax(du[b], rr[0][b],
                                                       dias[b], us[b], **pkw))
-    # r2 64 -> 32 -> 16: two pair pools, then 16 (from zero), 32, 64 and
-    # the n/2 = 128 level
+    # r2 64 -> 32 -> 16: one pair pyramid of two levels, then 16 (from
+    # zero), 32, 64 and the n/2 = 128 level
     assert rbgs.LAUNCHES["residual_restrict_pair"] == 1
     assert rbgs.LAUNCHES["cascade_prolong_relax_pair"] == 1
-    assert rbgs.LAUNCHES["restrict2_pair"] == 2
+    assert rbgs.LAUNCHES["cascade_pair.restrict_pyramid"] == 1
     assert rbgs.LAUNCHES["cascade_pair.prolong_relax"] == 4
     assert rbgs.LAUNCHES["prolong_relax_pair"] == 1
 
@@ -372,10 +433,20 @@ def test_prolong_relax_pair_tile_invariance(dev, dtype):
                                   *[(256, 256)] * 4)
     kw = dict(nsweeps=5, h2=1.0 / 256 ** 2, signs=SIGNS_LID, omega=1.5)
     a = rbgs.prolong_relax_pair([c0, c1], [r0, r1], [0.2, 0.4], [u0, u1],
-                                tile=32, **kw)
-    b = rbgs.prolong_relax_pair([c0, c1], [r0, r1], [0.2, 0.4], [u0, u1],
                                 tile=16, **kw)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for tile in (32, 64, None):
+        b = rbgs.prolong_relax_pair([c0, c1], [r0, r1], [0.2, 0.4],
+                                    [u0, u1], tile=tile, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    c0, c1 = _rnd(dev, dtype, 42, (32, 32), (32, 32))
+    r0, r1 = _rnd(dev, dtype, 43, (64, 64), (64, 64))
+    kw["h2"] = 1.0 / 64 ** 2
+    whole = rbgs.prolong_relax_pair([c0, c1], [r0, r1], [0.2, 0.4],
+                                    [None, None], **kw)
+    tiled = rbgs.prolong_relax_pair([c0, c1], [r0, r1], [0.2, 0.4],
+                                    [None, None], tile=16, whole_max=32,
+                                    **kw)
+    assert all(torch.equal(x, y) for x, y in zip(whole, tiled))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -475,9 +546,10 @@ def test_rbgs_relax_tile_invariance(dev, periodic):
 @pytest.mark.parametrize("n", [512, 128, 64, 16])
 @pytest.mark.parametrize("per_y", [False, True])
 def test_coarse_vcycle_kernel(dev, dtype, n, per_y):
-    """K12 against its plain ladder: 3 + 1 + 3 launches at 512^2, the
-    block kernel alone at 64^2 and below.  Its 40 coarsest sweeps
-    accumulate float32 rounding, as K2's do (1e-4)."""
+    """K12 against its plain ladder: 1 + 1 + 3 launches at 512^2 (one
+    pyramid of three levels), the block kernel alone at 64^2 and below.
+    Its 40 coarsest sweeps accumulate float32 rounding, as K2's do
+    (1e-4)."""
     (r,) = _rnd(dev, dtype, 25, (n, n))
     signs = (-1.0, 1.0, 1.0, 1.0) if per_y else SIGNS_LID
     kw = dict(nsweeps=5, coarsest=40, h2=1.0 / n ** 2, signs=signs,
@@ -485,7 +557,8 @@ def test_coarse_vcycle_kernel(dev, dtype, n, per_y):
     rbgs.reset_launch_counts()
     got = rbgs.coarse_vcycle(r, 0.4, **kw)
     levels = {512: 3, 128: 1}.get(n, 0)
-    assert rbgs.LAUNCHES["coarse_vcycle.restrict2"] == levels
+    assert rbgs.LAUNCHES["coarse_vcycle.restrict_pyramid"] == \
+        int(levels > 0)
     assert rbgs.LAUNCHES["coarse_block"] == 1
     assert rbgs.LAUNCHES["coarse_vcycle.prolong_relax"] == levels
     bound = 1e-12 if dtype == torch.float64 else 1e-4
@@ -525,12 +598,15 @@ def test_adaptive_solve_on_the_card(dev, dtype, kind):
     assert rbgs.LAUNCHES["residual"] == st.niter + 1
     assert rbgs.LAUNCHES["coarse_vcycle"] == (st.niter if kind == "lid"
                                               else 0)
+    # one pyramid per cycle: the lid's 1024 -> 512 above K12, the
+    # periodic system's 1024 -> 64 above the dense solve
+    assert rbgs.LAUNCHES["restrict_pyramid"] == st.niter
     swaps = ("residual", "rbgs_relax", "coarse_vcycle", "prolong_relax",
-             "restrict2")
+             "restrict_pyramid")
     saved = {k: getattr(rbgs, k) for k in swaps}
     for k in swaps:
-        setattr(rbgs, k, getattr(rbgs, k + "_plain" if k != "restrict2"
-                                 else "pool_plain"))
+        setattr(rbgs, k, getattr(rbgs, k.replace("restrict_", "")
+                                 + "_plain"))
     try:
         ref, rst = poisson.solve(u, rhs, grid, fbc, params, dia=dia)
     finally:
@@ -708,20 +784,21 @@ def test_prolong_relax_correct_kernel(dev, dtype, with_cells, n, signs, offs,
 
 @pytest.mark.parametrize("per_y", [False, True])
 def test_prolong_relax_correct_tile_invariance(dev, per_y):
-    """K17 bit-identical across tiles 32 and 16, and whole-level against
-    tiled at 64^2."""
+    """K17 bit-identical across tiles 64, 32 and 16, and whole-level
+    against tiled at 64^2."""
     signs, offs = (1.0,) * 4, (-0.001, 0.002, 0.0, 0.0)
-    for n, kws in ((256, (dict(tile=32), dict(tile=16))),
+    for n, kws in ((256, (dict(tile=16), dict(tile=32), dict(tile=64))),
                    (64, (dict(), dict(tile=16, whole_max=32)))):
         c, rhs, u, ufx, ufy, U, V = _rnd(
             dev, torch.float32, 33, (n // 2, n // 2), (n, n), (n, n),
             (n + 1, n), (n, n + 1), (n, n), (n, n))
         kw = dict(nsweeps=5, h2=1.0 / n ** 2, signs=signs, offs=offs,
                   per_y=per_y, omega=1.5)
-        a, b = (rbgs.prolong_relax_correct(c, rhs, 0.0, u, ufx, ufy, 0.4 / n,
-                                           1.0 / n, (U, V), **kw, **k)
-                for k in kws)
-        assert all(torch.equal(x, y) for x, y in zip(a, b)), n
+        a, *others = (rbgs.prolong_relax_correct(
+            c, rhs, 0.0, u, ufx, ufy, 0.4 / n, 1.0 / n, (U, V), **kw, **k)
+            for k in kws)
+        for b in others:
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), n
 
 
 def test_fold_step_matches_unfolded_on_the_card(dev):

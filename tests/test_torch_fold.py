@@ -2,9 +2,9 @@
 float64: the plain versions of K16 residual_restrict_div and K17
 prolong_relax_correct against the JAX package's Pallas kernels run in
 interpret mode with 32-row strips at 128^2 (as tests/test_mgfuse.py runs
-them), the port's folded solves against the Pallas composition K16 -> K2
--> K3 -> K5, the folded ns_step against the port's unfolded step, and the
-route's choice.
+them), the port's folded solves against the composition K16 -> K2 -> K3
+-> K5 (K2 as the jnp ladder of its schedule), the folded ns_step against
+the port's unfolded step, and the route's choice.
 
 The JAX CPU step never takes this route (its _bcg.applicable asks for
 the TPU), so the folded step is held to the port's unfolded step.  The
@@ -38,6 +38,7 @@ from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             grid_from_jax, state_from_numpy)
 
 from test_bench_schedule import cavity_cfg  # noqa: E402
+from test_torch_rbgs import jnp_cascade  # noqa: E402
 
 TOL = 1e-12
 STEP_RTOL = 1e-9
@@ -149,8 +150,11 @@ def test_correct_plain_is_k5_plain(per_y):
 
 def _pallas_fold(u, ufx, ufy, jgrid, fbc, params, dt, cells):
     """The Pallas composition K16 -> K2 -> K3 -> K5 of one folded
-    projection in interpret mode, with 32-row strips (built as
-    tests/test_mgfuse.py:_ladder_cycle): (p, ufx', ufy', gx, gy[, U',
+    projection, K16, K3 and K5 in interpret mode with 32-row strips, K2
+    as the jnp ladder of its schedule (interpret mode traces each of its
+    40 coarsest sweeps; tests/test_torch_rbgs.py holds the Pallas K2 to
+    the port's and tests/test_mgfuse.py to the ladder), built as
+    tests/test_mgfuse.py:_ladder_cycle: (p, ufx', ufy', gx, gy[, U',
     V'])."""
     signs, offs = jpoisson._signs_offs(jgrid, fbc, homogeneous=False)
     per_y = fbc.is_periodic(1)
@@ -160,15 +164,12 @@ def _pallas_fold(u, ufx, ufy, jgrid, fbc, params, dt, cells):
         u, jnp.asarray(ufx), jnp.asarray(ufy), dt * h, 0.0, 0.0, h2=h2,
         signs=signs, offs=offs, periodic=(False, per_y), S=STRIP,
         interpret=True)
-    rep = jrbgs.cascade_prolong_relax(
-        r1, r2, 0.0, nsweeps=params.nrelax,
-        coarsest=max(params.coarsest_relax, 40), h2_half=4 * h2,
-        signs=signs, per_y=per_y, min_n=16, omega=params.omega,
-        interpret=True)
-    p = jrbgs.prolong_relax(rep, r0, 0.0, u, nsweeps=params.nrelax, h2=h2,
+    du = jnp_cascade([r1, r2], dataclasses.replace(
+        jgrid, level=jgrid.level - 1), fbc, 0.0, params.nrelax,
+        max(params.coarsest_relax, 40), params.omega)
+    p = jrbgs.prolong_relax(du, r0, 0.0, u, nsweeps=params.nrelax, h2=h2,
                             signs=signs, periodic_y=per_y, add_u=True,
-                            pre_rep=True, omega=params.omega, S=STRIP,
-                            interpret=True)
+                            omega=params.omega, S=STRIP, interpret=True)
     out = jprojops.correct_project(
         p, jnp.asarray(ufx), jnp.asarray(ufy), dt, h,
         None if cells is None else tuple(map(jnp.asarray, cells)),
