@@ -6,7 +6,8 @@
 Phases (any failure ends the run with a non-zero exit and no result):
   1. setup: the card's name and power limit, torch/CUDA versions, the
      kernels' build from gerris_tpu_torch/csrc (one nvcc per source, in
-     parallel);
+     parallel), ptxas's registers, stack frame and spills of the BCG
+     kernels (K6, K7/K14);
   2. kernel checks: every kernel wrapper against its plain version on the
      card, float64 and float32: the multigrid kernels K1-K3 at the 2048^2
      main-path shapes and their coarser levels (K3 at each level's tile),
@@ -18,8 +19,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      projection and advection kernels K6, K4, K5 (with and without the
      cells), K9 (with and without gp and div_scale), K14 (both
      components, with and without the gp/oscale folds) and K7 (both
-     modes, also against two K14 launches) at 2048^2 and 64^2, plus K4's
-     div bit-identical across two block shapes; the adaptive solve's K11
+     modes, also against two K14 launches, bit-identical in the rhs
+     mode) at 2048^2 and 64^2, plus K4's div bit-identical across two
+     block shapes, K6's, K7's and K14's outputs bit-identical across
+     their tile plans and K6's div bit-identical to K4's on its faces; the adaptive solve's K11
      (the lid's offsets, periodic rows, periodic columns; bit-identical
      to K1's r0), K10 (non-periodic, periodic rows, doubly periodic, plus
      its tile invariance) at 2048^2, and K12 at 512^2 (per_y off and on)
@@ -34,7 +37,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
      24 sweeps; zero-diagonal cells) and at every level down to 4^2,
      plus its tile invariance; then each kernel's time against its plain
      version's at the main-path shapes (K13 at 128^3, K15 at 1024^2),
-     float32 (CUDA events), K15's and K3's per level, and the host's time
+     float32 (CUDA events), K7 beside two K14 launches, K15's and K3's
+     per level, K7's, K14's and K6's per tile plan, and the host's time
      per call and the card's per launch of restrict2 and avg_pool2d;
   3. main path: Simulation.init() + 20 steps of the 2048^2 lid cavity under
      the bench's configuration (pair_advect: K7 and the K8 pair), float32,
@@ -329,12 +333,12 @@ def want_adaptive(steps, solves):
 
 # device kernels of the port, by a substring of their names.  The pairs
 # K8a-c launch the K1, restrict_pyramid and K3 kernels with a batch of
-# two, so their names are K1's, restrict_pyramid's and K3's
+# two, so their names are K1's, restrict_pyramid's and K3's; K7 and K14
+# are instances of one kernel, advect2d_kernel
 OWN_KERNELS = ("residual_restrict_kernel", "restrict_pyramid_kernel",
                "prolong_relax_kernel", "divergence_mac_kernel",
                "correct_project_kernel", "interp_faces_kernel",
-               "predict_xy_kernel", "advect2d_kernel", "advect2d_pair_kernel",
-               "sum_partials_kernel", "residual_kernel", "rbgs_relax_kernel",
+               "predict_xy_kernel", "advect2d_kernel", "sum_partials_kernel", "residual_kernel", "rbgs_relax_kernel",
                "coarse_block_kernel", "rbgs3d_half_sweep_kernel",
                "prolong_relax_correct_kernel", "rbgs_relax_alpha_kernel")
 
@@ -402,6 +406,23 @@ def reset_launch_counts():
     from gerris_tpu_torch.ops.cuda import bcg, predict, projops, rbgs, rbgs3d
     for mod in (rbgs, projops, predict, bcg, rbgs3d):
         mod.reset_launch_counts()
+
+
+def print_ptxas(entries):
+    """ptxas's registers, stack frame and spills of the BCG kernels (K6,
+    and K7/K14's engine), one line per template instance."""
+    names = [name for name, _ in entries]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    print(f"  ptxas -v, {len(entries)} BCG kernel instances:")
+    for name, (_, lines) in zip(names, entries):
+        short = name.replace("(anonymous namespace)::", "").split("(")[0]
+        short = short.removeprefix("void ")
+        print(f"    {short}: {'; '.join(lines[1:])}")
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -530,6 +551,19 @@ def check_face_kernels(rnd, dtype, n, record):
         ref = predict.predict_xy_plain(U, V, dt, grid, u_bcs, sc)
         errs.setdefault("predict_xy", []).append(compare_faces(
             f"K6 predict_xy {n}{tag}", got, ref, b))
+        # every tile plan gives the same faces (and div) bit for bit
+        for tile in bcg.TILES:
+            other = predict.predict_xy(U, V, dt, grid, u_bcs, sc, tile=tile)
+            if not all(x is y or torch.equal(x, y)
+                       for x, y in zip(got[:3], other[:3])):
+                raise AssertionError(f"K6 {n}{tag}: tile {tile} differs")
+        if sc is not None:
+            # K4 on K6's faces: K6's div bit for bit (K4's scale 1/(dt h))
+            k4 = projops.divergence_mac(got[0], got[1], dt / 2.0, h)[0]
+            if not torch.equal(k4, got[2]):
+                raise AssertionError(f"K6 {n}: div differs from K4's")
+    print(f"  K6 {n}: tiles {', '.join(map(str, bcg.TILES))} bit-identical; "
+          "div bit-identical to K4's on its faces")
     errs["divergence_mac"] = [compare_div(
         f"K4 divergence_mac {n}", projops.divergence_mac(ufx, ufy, dt, h),
         projops.divergence_mac_plain(ufx, ufy, dt, h), b)]
@@ -559,11 +593,17 @@ def check_face_kernels(rnd, dtype, n, record):
         for folds in (False, True):
             kw = dict(g=(Gx, Gy)[c], gp=p if folds else None,
                       oscale=-dia if folds else None)
+            got = bcg.advect2d(v, c, ufx, ufy, dt, grid, u_bcs[c], **kw)
             errs.setdefault("advect2d", []).append(compare(
                 f"K14 advect2d {n} c={c}{' gp oscale' if folds else ''}",
-                bcg.advect2d(v, c, ufx, ufy, dt, grid, u_bcs[c], **kw),
+                got,
                 bcg.advect2d_plain(v, c, ufx, ufy, dt, grid, u_bcs[c], **kw),
                 b))
+            for tile in bcg.TILES:
+                if not torch.equal(got, bcg.advect2d(
+                        v, c, ufx, ufy, dt, grid, u_bcs[c], tile=tile, **kw)):
+                    raise AssertionError(f"K14 {n} c={c}: tile {tile} "
+                                         "differs")
     # K7: both components with their own BCs (U's lid, V's walls), the
     # g, gp and oscale folds, in the rhs mode and the rr_dia mode
     fbcs = list(u_bcs)
@@ -579,6 +619,12 @@ def check_face_kernels(rnd, dtype, n, record):
         got, ref = (flat(got), flat(ref)) if rr else (got, ref)
         errs.setdefault("advect2d_pair", []).append(compare(
             f"K7 advect2d_pair {n}{tag}", got, ref, b))
+        for tile in bcg.TILES:
+            other = bcg.advect2d_pair(U, V, ufx, ufy, dt, grid, fbcs,
+                                      tile=tile, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(
+                    got, flat(other) if rr else other)):
+                raise AssertionError(f"K7 {n}{tag}: tile {tile} differs")
         k14 = [bcg.advect2d(v, c, ufx, ufy, dt, grid, fbcs[c], g=g, gp=gp,
                             oscale=-dia)
                for c, (v, g, gp) in enumerate(((U, Gx, GPx), (V, Gy, GPy)))]
@@ -591,6 +637,11 @@ def check_face_kernels(rnd, dtype, n, record):
         same = all(torch.equal(x, y) for x, y in zip(got, k14))
         print(f"  K7 vs two K14{' + K8a' if rr else ''} {n}{tag}: "
               f"bit-identical={same}")
+        # K14 is the one-component instance of K7's engine
+        if not rr and not same:
+            raise AssertionError(f"K7 {n}: not two K14 launches bit for bit")
+    print(f"  K7 (both modes) and K14 {n}: tiles "
+          f"{', '.join(map(str, bcg.TILES))} bit-identical")
     if record is not None:
         for k, es in errs.items():
             record[k].update(zip(ERR_KEYS, map(max, zip(*es))))
@@ -1408,6 +1459,15 @@ def phase_kernels(dev, record):
         lambda: flat(bcg.advect2d_pair_plain(U, V, ufx, ufy, dt, grid, u_bcs,
                                              rr_dia=dia, **kw7)),
         in7, 2 * n * n * (75 + 8), None)
+    # K7's function as the per-component route computes it: two K14
+    # launches, timed in turns with K7
+    k14_kw = [dict(g=Gx, gp=GPx, oscale=-dia), dict(g=Gy, gp=GPy, oscale=-dia)]
+    timings["advect2d_pair|two_k14"] = (
+        lambda: [bcg.advect2d(v, c, ufx, ufy, dt, grid, u_bcs[c], **k14_kw[c])
+                 for c, v in enumerate((U, V))],
+        lambda: [bcg.advect2d_plain(v, c, ufx, ufy, dt, grid, u_bcs[c],
+                                    **k14_kw[c]) for c, v in enumerate((U, V))],
+        in7, 2 * n * n * 75, None)
     # the adaptive routes' kernels.  K11 with the lid's offsets: the
     # neighbour sum, the difference, the scale, the dia term (8 per cell)
     kw11 = dict(h2=h2, signs=signs, offs=offs)
@@ -1509,6 +1569,27 @@ def phase_kernels(dev, record):
           "sweeps, 40 from zero at 16^2; ms, bound, tile): " + ", ".join(
               f"{m}: {v['ms']:.4f} ({v['bound_ms']:.4f}, {v['tile']})"
               for m, v in k3_levels.items()))
+    # K7 (rhs mode, as on the main path), K14 (u) and K6 at every tile
+    # plan, in turns (plans forward, then backward; the lower time)
+    tile_ms = {}
+    for tile in list(bcg.TILES) + list(reversed(bcg.TILES)):
+        key = f"{tile[0]}x{tile[1]}"
+        ts = {"advect2d_pair": cuda_ms(lambda: bcg.advect2d_pair(
+                  U, V, ufx, ufy, dt, grid, u_bcs, tile=tile, **kw7)),
+              "advect2d": cuda_ms(lambda: bcg.advect2d(
+                  U, 0, ufx, ufy, dt, grid, u_bcs[0], tile=tile,
+                  **k14_kw[0])),
+              "predict_xy": cuda_ms(lambda: predict.predict_xy(
+                  U, V, dt, grid, u_bcs, tile=tile))}
+        tile_ms[key] = {k: min(v, tile_ms.get(key, {}).get(k, v))
+                        for k, v in ts.items()}
+    for k in ("advect2d_pair", "advect2d", "predict_xy"):
+        record[k]["tiles"] = {t: v[k] for t, v in tile_ms.items()}
+        record[k]["tile"] = "x".join(map(str, bcg.tile_plan()))
+    print(f"  K7, K14 and K6 per tile plan (float32, {n}^2; ms; the plan "
+          f"{record['predict_xy']['tile']}): " + ", ".join(
+              f"{t} K7 {v['advect2d_pair']:.4f} K14 {v['advect2d']:.4f} "
+              f"K6 {v['predict_xy']:.4f}" for t, v in tile_ms.items()))
     # the host's time per call and the card's per launch: restrict2 (one
     # pyramid level) and avg_pool2d at 512^2, and the cascade's pyramid
     hd = {"restrict2": host_device_us(lambda: rbgs.restrict2(r512)),
@@ -2355,6 +2436,7 @@ def main():
     build.library()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
+    print_ptxas(build.ptxas_report("predict_xy_kernel", "advect2d_kernel"))
 
     record = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
               for k, (src, rep) in KERNELS.items()}

@@ -10,36 +10,6 @@
 // library for the port, f64 on the same route as f32.
 //
 // ---------------------------------------------------------------------------
-// K14 advect2d.
-// Replaces gerris_tpu/ops/pallas/bcg.py:advect2d (_kernel/_advect_core
-// without the rr fold), with its g, gp and oscale folds.
-// Computes (reference: gfs_cell_advected_face_values src/advection.c:58-99,
-// gfs_face_upwinded_value :267-345, gfs_face_advection_flux :356-385):
-//   the advecting cell velocities, the means of each cell's two MAC faces,
-//   edge-extended past the domain (ucx, ucy);
-//   per cell and axis, the BCG values of v at the high and low face
-//     vp = v + min((1 - unorm)/2, 0.5) gs,  vm = v + max((-1 - unorm)/2,
-//     -0.5) gs,  gs = (v[+1] - v[-1]) / 2,  unorm = dt/h uc(axis),
-//   less the transverse term dt/h vt (upwind difference) / 2 (vt the other
-//   axis' uc, the side picked by its sign, 0 when it is 0);
-//   per face, the Godunov choice on the MAC velocity uf: vp of the low cell
-//   if uf > 0, vm of the high cell if uf < 0, their mean if uf = 0; less
-//   dt/2 times the face mean of g (edge ghosts: the Neumann-0 gmac BC);
-//   on the component's own axis, the Dirichlet values on the domain faces;
-//   fv = -dt/h (d(uf F)/dx + d(uf F)/dy), then fv -= dt gp, and with oscale
-//   out = oscale (v + fv) (the implicit-diffusion rhs), else out = fv.
-// Ghost cells of v follow stencil.cuh (ghost = sgn * mirror + off, two
-// layers deep, a corner ghost the row ghost of a column ghost).
-// Bound: device-memory bytes (reads v, ufx, ufy, g, gp; writes out; at
-// 2048^2 f32 ~101 MB, ~30 us at 3.35 TB/s).  ~250 flops per cell (8 BCG
-// values, 4 Godunov choices and fluxes) against 24 bytes per cell in f32 is
-// about 10 flops/byte, below the card's ~20 f32 flops/byte: still bytes.
-// Design: one thread per cell computes the fluxes through its four faces;
-// a face shared by two cells is computed by both, with the same expression,
-// so both see the same value.  Every read comes from global memory (the
-// 13-point neighbourhood from L1/L2), no shared-memory halo.
-//
-// ---------------------------------------------------------------------------
 // K7 advect2d_pair: both components in one launch.
 // Replaces gerris_tpu/ops/pallas/bcg.py:advect2d_pair (_kernel_pair), both
 // modes: the rhs mode (K14's output for each component) and the rr_dia
@@ -47,23 +17,54 @@
 // v of its implicit-diffusion system at initial guess v, with the
 // system's 1-cell ghosts in the same sgn/off encoding, and its two 2x2
 // pools r1, r2: the first K8a launch of the diffusion pair folded in.
-// Bound: device-memory bytes (reads v0, v1, ufx, ufy, g0, g1, gp0, gp1,
-// writes two outputs, plus r1 and r2 in rr_dia mode; ~0.050 / 0.053 ms at
-// 2048^2 f32).  The faces are half of K14's bytes, and the pair reads them
-// once for the two components: that shared face read is why the TPU
-// kernel exists.
-// Design: K14's per-cell code (advect_value) with each component's own K14
-// arguments; a block computes one component, blockIdx.z picks it, as the K8
-// pairs batch their systems (rbgs.cu).  The faces are then read twice, from
-// L2: one thread per cell computing both components (the TPU kernel's
-// shared face read) ran slower on the H100, where K14 is far from its bytes
-// bound.  Each branch on blockIdx.z reads its component's arguments at a
-// fixed index: gtt::at indexes the ghost encoding at run time, and a
-// run-time component index would make every such read an indexed load.  In
-// rr_dia mode the block's r0 tile goes to shared memory and the block
-// writes r1 and r2 from there, as K1 does (rbgs.cu).  K14 keeps its own
-// kernel: as the one-component case of K7's kernel (another argument
-// layout) it ran slower on the H100.
+// K14 advect2d: one component.
+// Replaces gerris_tpu/ops/pallas/bcg.py:advect2d (_kernel/_advect_core
+// without the rr fold), with its g, gp and oscale folds.
+// Computes (reference: gfs_cell_advected_face_values src/advection.c:58-99,
+// gfs_face_upwinded_value :267-345, gfs_face_advection_flux :356-385):
+//   the advecting cell velocities, the means of each cell's two MAC faces,
+//   edge-extended past the domain (ucx, ucy);
+//   per cell and axis, the BCG values of v at the high and low face
+//   (gtt::bcg_value, un = uc along the axis, vt the other axis' uc);
+//   per face, the Godunov choice on the MAC velocity uf, less dt/2 times
+//   the face mean of g (edge ghosts: the Neumann-0 gmac BC); on the
+//   component's own axis, the Dirichlet values on the domain faces;
+//   fv = -dt/h (d(uf F)/dx + d(uf F)/dy), then fv -= dt gp, and with oscale
+//   out = oscale (v + fv) (the implicit-diffusion rhs), else out = fv.
+// Ghost cells of v follow stencil.cuh (ghost = sgn * mirror + off, two
+// layers deep, a corner ghost the row ghost of a column ghost).
+//
+// The TPU kernel DMAs one 64-row strip with 8 halo rows of v0, v1, ufx,
+// ufy, g0, g1 into VMEM once and computes both components from the same
+// face buffers, whole-strip and vectorised (bcg.py:_advect_core).
+// Bound: device-memory bytes (K7 reads v0, v1, ufx, ufy, g0, g1, gp0, gp1
+// and writes two outputs, plus r1 and r2 in rr_dia mode: ~0.050 / 0.053
+// ms at 2048^2 f32; K14 ~0.030).  ~75 flops per cell and component
+// against 24 bytes per cell and component in f32 is below the card's
+// ~20 f32 flops/byte.  What held the kernel from it was instructions: one
+// thread per cell computed its four face fluxes, 8 BCG values per cell
+// and component, each face twice (once by each neighbour), every value
+// read through the ghost logic (~140 loads per cell from L1/L2).
+// Design: one engine for K7 and K14 (a template on the component count
+// NC), one block of 256 threads per TR x TC tile of cells:
+//   1. load v of each component (halo 2, gtt::load_tile: ghosts resolved
+//      once, 16-byte loads in the interior), the face means ucx, ucy (a
+//      halo of 1, shared by the components) and g (halo 1, clamped) into
+//      shared memory;
+//   2. every x face flux (TR + 1) x TC and y face flux TR x (TC + 1) of
+//      the tile once into shared memory, in one loop over the threads,
+//      each face of each component from its two cells' BCG values (so
+//      each BCG value is computed once), the components sharing the
+//      face's uf and its cells' face means;
+//   3. per cell, the flux differences, gp from device memory, oscale (v +
+//      fv) (rr_dia: the residual from the tile's v, its r0 tile into
+//      shared memory, then the pools per 2x2 and 4x4 group, K1's order).
+// Every block runs the same compute code, edge or interior (the ghosts
+// are in the tile), so a face on a block boundary gets the same value in
+// both blocks and the results do not depend on the tile (ops/cuda/bcg.py:
+// TILES; 16 x 32 by default: at 32 x 32 the f32 pair's 47 KB of shared
+// memory held an SM to 4 blocks, at 16 x 32 it holds 8).  K14 is the
+// NC = 1 instance, so K7 is two K14 launches bit for bit.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -72,218 +73,274 @@
 
 namespace {
 
-using gtt::Cell;
 using gtt::Ghosts;
 
-template <typename T>
-struct AdvectArgs {
-  const T* v;
+constexpr int TILE_THREADS = 256;
+
+// The arguments of one launch of NC components
+template <typename T, int NC>
+struct TileArgs {
+  const T* v[NC];
+  const T* g[NC];   // nullptr: no gmac face correction
+  const T* gp[NC];  // nullptr: no -dt gp
+  T* out[NC];
+  T* r1[NC];  // rr_dia mode: the pools of r0 = out
+  T* r2[NC];
   const T* ufx;
   const T* ufy;
-  const T* g;   // nullptr: no gmac face correction
-  const T* gp;  // nullptr: no -dt gp
+  Ghosts<T> gv[NC];
+  T fb_lo[NC], fb_hi[NC];
+  int fb_mask[NC];  // bit 0: the low face of the own axis is forced, bit 1
+                    // the high face
+  int axis0;        // the first component's axis (K7: 0, then 1)
   int n0, n1;
-  T dt, h, dt_h, oscale;
+  T dt, h, dt_h, oscale, dia, h2;
   int use_os;
-  Ghosts<T> gv;
-  int fb_axis;  // the component's axis, whose domain faces may be forced
-  int fb_mask;  // bit 0: the low face is forced, bit 1: the high face
-  T fb_lo, fb_hi;
 };
 
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// the advecting cell velocities, edge-extended past the domain
-template <typename T>
-__device__ __forceinline__ T ucx(const AdvectArgs<T>& a, int i, int j) {
-  i = clampi(i, 0, a.n0 - 1);
-  j = clampi(j, 0, a.n1 - 1);
-  const size_t k = (size_t)i * a.n1 + j;
-  return T(0.5) * (a.ufx[k] + a.ufx[k + a.n1]);
-}
-
-template <typename T>
-__device__ __forceinline__ T ucy(const AdvectArgs<T>& a, int i, int j) {
-  i = clampi(i, 0, a.n0 - 1);
-  j = clampi(j, 0, a.n1 - 1);
-  const size_t k = (size_t)i * (a.n1 + 1) + j;
-  return T(0.5) * (a.ufy[k] + a.ufy[k + 1]);
-}
-
-// g with Neumann-0 ghosts (edge values)
-template <typename T>
-__device__ __forceinline__ T gat(const AdvectArgs<T>& a, int i, int j) {
-  return a.g[(size_t)clampi(i, 0, a.n0 - 1) * a.n1 + clampi(j, 0, a.n1 - 1)];
-}
-
-// BCG value of v at cell (i, j) extrapolated to its high (high = true) or
-// low face along `axis`
-template <typename T>
-__device__ __forceinline__ T bcg_value(const AdvectArgs<T>& a, int axis,
-                                       int i, int j, bool high) {
-  const int di = axis == 0, dj = axis == 1;
-  const T c = gtt::at(a.v, i, j, a.n0, a.n1, a.gv);
-  const T gs = T(0.5) * (gtt::at(a.v, i + di, j + dj, a.n0, a.n1, a.gv) -
-                         gtt::at(a.v, i - di, j - dj, a.n0, a.n1, a.gv));
-  const T un = axis == 0 ? ucx(a, i, j) : ucy(a, i, j);
-  const T unorm = a.dt_h * un;
-  const T val = high ? c + fmin((T(1) - unorm) / T(2), T(0.5)) * gs
-                     : c + fmax((T(-1) - unorm) / T(2), T(-0.5)) * gs;
-  const T vt = axis == 0 ? ucy(a, i, j) : ucx(a, i, j);
-  T gdiff = T(0);
-  if (vt > T(0))
-    gdiff = c - gtt::at(a.v, i - dj, j - di, a.n0, a.n1, a.gv);
-  else if (vt < T(0))
-    gdiff = gtt::at(a.v, i + dj, j + di, a.n0, a.n1, a.gv) - c;
-  return val - a.dt_h * vt * gdiff / T(2);
-}
-
-// uf F through face f of `axis` (0..n along it) at cross index m
-template <typename T>
-__device__ __forceinline__ T flux(const AdvectArgs<T>& a, int axis, int f,
-                                  int m) {
-  const int n = axis == 0 ? a.n0 : a.n1;
-  const T uf = axis == 0 ? a.ufx[(size_t)f * a.n1 + m]
-                         : a.ufy[(size_t)m * (a.n1 + 1) + f];
-  if (axis == a.fb_axis) {
-    if (f == 0 && (a.fb_mask & 1)) return uf * a.fb_lo;
-    if (f == n && (a.fb_mask & 2)) return uf * a.fb_hi;
+// Shared-memory layout of a tile, in elements of T: each component's v
+// (rows i0 - 2 .. i0 + TR + 1, columns j0 - P .. j0 + TC + P - 1, P >= 2
+// so that the rows are 16-byte aligned), ucx, ucy and each component's g
+// (rows i0 - 1 .. i0 + TR, columns j0 - 1 .. j0 + TC), each component's
+// x and y face fluxes.  rr_dia mode: the r0 tiles and their first pools
+// take the place of ucx, ucy and g once the fluxes are done.
+template <typename T, int NC, int TR, int TC>
+struct Layout {
+  static constexpr int P = 16 / sizeof(T);
+  static constexpr int VR = TR + 4, VW = TC + 2 * P, V_SZ = VR * VW;
+  static constexpr int UR = TR + 2, UW = TC + 2, U_SZ = UR * UW;
+  static constexpr int FX_SZ = (TR + 1) * TC, FY_SZ = TR * (TC + 1);
+  static constexpr int UCX = NC * V_SZ, UCY = UCX + U_SZ, G = UCY + U_SZ;
+  static constexpr int FX = G + NC * U_SZ;
+  static constexpr int SIZE = FX + NC * (FX_SZ + FY_SZ);
+  static constexpr int R0 = UCX, S1 = R0 + NC * TR * TC;
+  static_assert(S1 + NC * TR * TC / 4 <= FX, "r0 tiles overlap the fluxes");
+  static_assert(TR % 4 == 0 && TC % 4 == 0, "pools want 4x4 groups");
+  __host__ __device__ static constexpr int v(int q) { return q * V_SZ; }
+  __host__ __device__ static constexpr int g(int q) { return G + q * U_SZ; }
+  __host__ __device__ static constexpr int fx(int q) {
+    return FX + q * (FX_SZ + FY_SZ);
   }
-  const int i0 = axis == 0 ? f - 1 : m, j0 = axis == 0 ? m : f - 1;
-  const int i1 = axis == 0 ? f : m, j1 = axis == 0 ? m : f;
-  const T left = bcg_value(a, axis, i0, j0, true);
-  const T right = bcg_value(a, axis, i1, j1, false);
-  T F = uf > T(0) ? left : (uf < T(0) ? right : T(0.5) * (left + right));
-  if (a.g) F = F - T(0.5) * (gat(a, i1, j1) + gat(a, i0, j0)) * a.dt / T(2);
+  __host__ __device__ static constexpr int fy(int q) {
+    return fx(q) + FX_SZ;
+  }
+};
+
+// uf F through one face along AXIS: uf the MAC velocity, vlo the low
+// cell's v in the tile (the high cell at +1 along the axis, row stride
+// VW), un and vt the two cells' face means along the axis and across it,
+// g (nullptr: none) the low cell's g in its tile (the high cell at +su)
+template <typename T, int AXIS, int VW>
+__device__ __forceinline__ T face_flux(const T* vlo, const T (&un)[2],
+                                       const T (&vt)[2], const T* g, int su,
+                                       T uf, T dt, T dt_h) {
+  constexpr int sa = AXIS == 0 ? VW : 1;
+  const T left = gtt::bcg_value<T, AXIS>(vlo, VW, un[0], vt[0], dt_h, true);
+  const T right =
+      gtt::bcg_value<T, AXIS>(vlo + sa, VW, un[1], vt[1], dt_h, false);
+  T F = gtt::godunov(uf, left, right);
+  if (g) F = F - T(0.5) * (g[su] + g[0]) * dt / T(2);
   return uf * F;
 }
 
-// the component's output at cell (i, j): fv, or oscale (v + fv)
-template <typename T>
-__device__ __forceinline__ T advect_value(const AdvectArgs<T>& a, int i,
-                                          int j) {
-  const size_t k = (size_t)i * a.n1 + j;
-  const T fx = flux(a, 0, i + 1, j) - flux(a, 0, i, j);
-  const T fy = flux(a, 1, j + 1, i) - flux(a, 1, j, i);
-  T fv = -a.dt * fx / a.h - a.dt * fy / a.h;
-  if (a.gp) fv = fv - a.dt * a.gp[k];
-  return a.use_os ? a.oscale * (a.v[k] + fv) : fv;
+// The flux of face k (row-major over x faces (TR + 1) x TC, or y faces
+// TR x (TC + 1)) along AXIS of every component, into shared memory, if
+// the face exists.  The components share the face's MAC velocity and its
+// cells' face means.
+template <typename T, int NC, int TR, int TC, int AXIS>
+__device__ __forceinline__ void face_flux_at(const TileArgs<T, NC>& a, T* sm,
+                                             int i0, int j0, int k) {
+  using L = Layout<T, NC, TR, TC>;
+  constexpr int FC = AXIS == 0 ? TC : TC + 1;
+  constexpr int su = AXIS == 0 ? L::UW : 1;  // the high cell in ucx/ucy/g
+  const int n0 = a.n0, n1 = a.n1;
+  const int n = AXIS == 0 ? n0 : n1;
+  const int r = k / FC, c = k % FC;
+  const int i = i0 + r, j = j0 + c;
+  if (AXIS == 0 ? (i > n0 || j >= n1) : (i >= n0 || j > n1)) return;
+  const int f = AXIS == 0 ? i : j;
+  // the low cell in the v tiles and in the ucx/ucy/g tiles
+  const int sv = AXIS == 0 ? (r + 1) * L::VW + c + L::P
+                           : (r + 2) * L::VW + c - 1 + L::P;
+  const int su0 = AXIS == 0 ? r * L::UW + c + 1 : (r + 1) * L::UW + c;
+  const T uf = AXIS == 0 ? __ldg(a.ufx + (size_t)i * n1 + j)
+                         : __ldg(a.ufy + (size_t)i * (n1 + 1) + j);
+  const T* ua = sm + (AXIS == 0 ? L::UCX : L::UCY);
+  const T* ut = sm + (AXIS == 0 ? L::UCY : L::UCX);
+  const T un[2] = {ua[su0], ua[su0 + su]};
+  const T vt[2] = {ut[su0], ut[su0 + su]};
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const bool own = (NC == 2 ? q : a.axis0) == AXIS;  // forced faces
+    T fl;
+    if (own && f == 0 && (a.fb_mask[q] & 1))
+      fl = uf * a.fb_lo[q];
+    else if (own && f == n && (a.fb_mask[q] & 2))
+      fl = uf * a.fb_hi[q];
+    else
+      fl = face_flux<T, AXIS, L::VW>(
+          sm + L::v(q) + sv, un, vt, a.g[q] ? sm + L::g(q) + su0 : nullptr,
+          su, uf, a.dt, a.dt_h);
+    sm[(AXIS == 0 ? L::fx(q) : L::fy(q)) + k] = fl;
+  }
 }
 
-template <typename T>
-__global__ void advect2d_kernel(AdvectArgs<T> a, T* __restrict__ out) {
-  const Cell c = gtt::this_cell(a.n0, a.n1);
-  if (!c.in) return;
-  out[(size_t)c.i * a.n1 + c.j] = advect_value(a, c.i, c.j);
+// Every face flux of the tile, x faces then y faces in one loop over the
+// block's threads (the x faces are whole warps: TC is a multiple of 32)
+template <typename T, int NC, int TR, int TC>
+__device__ __forceinline__ void face_fluxes(const TileArgs<T, NC>& a, T* sm,
+                                            int i0, int j0, int t) {
+  constexpr int NX = (TR + 1) * TC, NY = TR * (TC + 1);
+  for (int k = t; k < NX + NY; k += TILE_THREADS) {
+    if (k < NX)
+      face_flux_at<T, NC, TR, TC, 0>(a, sm, i0, j0, k);
+    else
+      face_flux_at<T, NC, TR, TC, 1>(a, sm, i0, j0, k - NX);
+  }
 }
 
-// K7: each component's K14 arguments, its outputs, and in rr_dia mode the
-// diffusion system (L - dia) u = rhs
-template <typename T>
-struct PairArgs {
-  AdvectArgs<T> c[2];
-  T* out[2];
-  T* r1[2];
-  T* r2[2];
-  T dia, h2;
-};
-
-constexpr int PAIR_BX = 32, PAIR_BY = 8;  // K7's block; rr_dia: its tile
-
-// rr_dia mode: r0 = rhs - (L - dia) v at cell (i, j), K1's expression with
-// sub = 0 (rbgs.cu:residual_restrict_kernel)
-template <typename T>
-__device__ __forceinline__ T residual(const AdvectArgs<T>& a, T rhs, T dia,
-                                      T h2, int i, int j) {
-  const T c = a.v[(size_t)i * a.n1 + j];
-  const T nb = gtt::at(a.v, i - 1, j, a.n0, a.n1, a.gv) +
-               gtt::at(a.v, i + 1, j, a.n0, a.n1, a.gv) +
-               gtt::at(a.v, i, j - 1, a.n0, a.n1, a.gv) +
-               gtt::at(a.v, i, j + 1, a.n0, a.n1, a.gv);
-  return rhs - (nb - T(4) * c) / h2 + dia * c;
-}
-
-// rr_dia mode: the block's r0 tile (sr) -> its r1 and r2 tiles, the 2x2
-// means rows first, then columns (K1's order)
-template <typename T>
-__device__ void pools(T (*sr)[PAIR_BX], int n1, T* __restrict__ r1,
-                      T* __restrict__ r2) {
-  constexpr int BX = PAIR_BX, BY = PAIR_BY;
-  __shared__ T s1[BY / 2][BX / 2];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i0 = blockIdx.y * BY, j0 = blockIdx.x * BX;
-  __syncthreads();
-  if (ty < BY / 2 && tx < BX / 2) {
-    const T a = T(0.5) * (sr[2 * ty][2 * tx] + sr[2 * ty + 1][2 * tx]);
-    const T b = T(0.5) * (sr[2 * ty][2 * tx + 1] + sr[2 * ty + 1][2 * tx + 1]);
+// rr_dia mode: the 2x2 means of an (R x C) tile s, rows first, then
+// columns (K1's order), into the tile d (R/2 x C/2) and, where the group
+// lies in the grid (rows < m0, columns < m1 of the pooled level), into
+// dst at (r0, c0) with row stride ld
+template <typename T, int R, int C>
+__device__ __forceinline__ void pool_tile(const T* s, T* d, T* dst, int ld,
+                                          int r0, int c0, int m0, int m1,
+                                          int t) {
+  constexpr int R2 = R / 2, C2 = C / 2;
+  for (int k = t; k < R2 * C2; k += TILE_THREADS) {
+    const int r = k / C2, c = k % C2;
+    const T a = T(0.5) * (s[2 * r * C + 2 * c] + s[(2 * r + 1) * C + 2 * c]);
+    const T b = T(0.5) * (s[2 * r * C + 2 * c + 1] +
+                          s[(2 * r + 1) * C + 2 * c + 1]);
     const T m = T(0.5) * (a + b);
-    s1[ty][tx] = m;
-    r1[(size_t)(i0 / 2 + ty) * (n1 / 2) + j0 / 2 + tx] = m;
+    if (d) d[k] = m;
+    if (r0 + r < m0 && c0 + c < m1) dst[(size_t)(r0 + r) * ld + c0 + c] = m;
   }
+}
+
+template <typename T, int NC, bool RR, int TR, int TC>
+__global__ void __launch_bounds__(TILE_THREADS)
+    advect2d_kernel(const TileArgs<T, NC> a) {
+  using L = Layout<T, NC, TR, TC>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int t = threadIdx.x;
+  const int i0 = blockIdx.y * TR, j0 = blockIdx.x * TC;
+  const int n0 = a.n0, n1 = a.n1;
+#pragma unroll
+  for (int q = 0; q < NC; ++q)
+    gtt::load_tile<T, L::VR, L::VW>(sm + L::v(q), L::VW, a.v[q], n0, n1,
+                                    i0 - 2, j0 - L::P, 2, a.gv[q], t,
+                                    TILE_THREADS);
+  gtt::load_face_means<T, L::UR, L::UW>(sm + L::UCX, sm + L::UCY, a.ufx,
+                                        a.ufy, n0, n1, i0 - 1, j0 - 1, t,
+                                        TILE_THREADS);
+#pragma unroll
+  for (int q = 0; q < NC; ++q)
+    if (a.g[q])
+      gtt::load_clamped<T, L::UR, L::UW>(sm + L::g(q), a.g[q], n0, n1,
+                                         i0 - 1, j0 - 1, t, TILE_THREADS);
   __syncthreads();
-  if (ty < BY / 4 && tx < BX / 4) {
-    const T a = T(0.5) * (s1[2 * ty][2 * tx] + s1[2 * ty + 1][2 * tx]);
-    const T b = T(0.5) * (s1[2 * ty][2 * tx + 1] + s1[2 * ty + 1][2 * tx + 1]);
-    r2[(size_t)(i0 / 4 + ty) * (n1 / 4) + j0 / 4 + tx] = T(0.5) * (a + b);
+  face_fluxes<T, NC, TR, TC>(a, sm, i0, j0, t);
+  __syncthreads();
+  for (int k = t; k < TR * TC; k += TILE_THREADS) {
+    const int r = k / TC, c = k % TC;
+    const int i = i0 + r, j = j0 + c;
+    if (i >= n0 || j >= n1) continue;
+    const size_t kg = (size_t)i * n1 + j;
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const T* fx = sm + L::fx(q);
+      const T* fy = sm + L::fy(q);
+      const T* v = sm + L::v(q) + (r + 2) * L::VW + c + L::P;
+      const T dfx = fx[(r + 1) * TC + c] - fx[r * TC + c];
+      const T dfy = fy[r * (TC + 1) + c + 1] - fy[r * (TC + 1) + c];
+      T fv = -a.dt * dfx / a.h - a.dt * dfy / a.h;
+      if (a.gp[q]) fv = fv - a.dt * __ldg(a.gp[q] + kg);
+      T o = a.use_os ? a.oscale * (v[0] + fv) : fv;
+      if constexpr (RR) {
+        const T nb = v[-L::VW] + v[L::VW] + v[-1] + v[1];
+        o = gtt::residual_value(o, nb, v[0], a.h2, a.dia);
+        sm[L::R0 + q * TR * TC + k] = o;
+      }
+      a.out[q][kg] = o;
+    }
   }
-}
-
-// One component of K7 at the block's cells; RR: the rr_dia mode, on a grid
-// the PAIR_BX x PAIR_BY blocks tile
-template <typename T, bool RR>
-__device__ __forceinline__ void pair_component(const AdvectArgs<T>& a,
-                                               T* __restrict__ out,
-                                               T* __restrict__ r1,
-                                               T* __restrict__ r2, T dia,
-                                               T h2) {
-  const Cell c = gtt::this_cell(a.n0, a.n1);
-  if (!RR && !c.in) return;
-  const size_t k = (size_t)c.i * a.n1 + c.j;
-  const T v = advect_value(a, c.i, c.j);
   if constexpr (RR) {
-    __shared__ T sr[PAIR_BY][PAIR_BX];
-    const T r = residual(a, v, dia, h2, c.i, c.j);
-    out[k] = r;
-    sr[threadIdx.y][threadIdx.x] = r;
-    pools(sr, a.n1, r1, r2);
-  } else {
-    out[k] = v;
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < NC; ++q)
+      pool_tile<T, TR, TC>(sm + L::R0 + q * TR * TC,
+                           sm + L::S1 + q * TR * TC / 4, a.r1[q], n1 / 2,
+                           i0 / 2, j0 / 2, n0 / 2, n1 / 2, t);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < NC; ++q)
+      pool_tile<T, TR / 2, TC / 2>(sm + L::S1 + q * TR * TC / 4, nullptr,
+                                   a.r2[q], n1 / 4, i0 / 4, j0 / 4, n0 / 4,
+                                   n1 / 4, t);
   }
 }
 
-template <typename T, bool RR>
-__global__ void advect2d_pair_kernel(PairArgs<T> p) {
-  if (blockIdx.z == 0)
-    pair_component<T, RR>(p.c[0], p.out[0], p.r1[0], p.r2[0], p.dia, p.h2);
-  else
-    pair_component<T, RR>(p.c[1], p.out[1], p.r1[1], p.r2[1], p.dia, p.h2);
+// the rr_dia mode's grids: whole tiles of the TPU kernel's and K1's
+// 32 x 8 blocks (ops/cuda/bcg.py:RR_TILE)
+constexpr int RR_COLS = 32, RR_ROWS = 8;
+
+template <typename T, int NC, bool RR, int TR, int TC>
+int launch_tile(const TileArgs<T, NC>& a, cudaStream_t stream) {
+  static int smem_set[gtt::MAX_DEVICES];
+  const size_t smem = Layout<T, NC, TR, TC>::SIZE * sizeof(T);
+  auto kernel = advect2d_kernel<T, NC, RR, TR, TC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = gtt::allow_smem((const void*)kernel, smem_set);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((a.n1 + TC - 1) / TC, (a.n0 + TR - 1) / TR);
+  kernel<<<grid, TILE_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-AdvectArgs<T> advect_args(const void* v, const void* ufx, const void* ufy,
-                          const void* g, const void* gp, int n0, int n1,
-                          double dt, double h, const double* sgn,
-                          const double* off, int fb_axis, int fb_mask,
-                          const double* fb, int use_os, double oscale) {
-  return AdvectArgs<T>{(const T*)v,
-                        (const T*)ufx,
-                        (const T*)ufy,
-                        (const T*)g,
-                        (const T*)gp,
-                        n0,
-                        n1,
-                        T(dt),
-                        T(h),
-                        T(dt / h),
-                        T(oscale),
-                        use_os,
-                        gtt::make_ghosts<T>(sgn, off, 0),
-                        fb_axis,
-                        fb_mask,
-                        T(fb[0]),
-                        T(fb[1])};
+// the tiles the wrappers take (ops/cuda/bcg.py:TILES)
+template <typename T, int NC, bool RR>
+int launch(const TileArgs<T, NC>& a, int tr, int tc, cudaStream_t stream) {
+  if (tr == 32 && tc == 32) return launch_tile<T, NC, RR, 32, 32>(a, stream);
+  if (tr == 16 && tc == 32) return launch_tile<T, NC, RR, 16, 32>(a, stream);
+  if (tr == 16 && tc == 64) return launch_tile<T, NC, RR, 16, 64>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Per-component arguments are host arrays, NC entries (4 per component for
+// sgn/off, 2 for fb); component q's axis is axis0 + q.
+template <typename T, int NC>
+TileArgs<T, NC> tile_args(const void* const* v, const void* ufx,
+                          const void* ufy, const void* const* g,
+                          const void* const* gp, int n0, int n1, double dt,
+                          double h, const double* sgn, const double* off,
+                          int axis0, const int* fb_mask, const double* fb,
+                          int use_os, double oscale, void* const* out) {
+  TileArgs<T, NC> a = {};
+  for (int q = 0; q < NC; ++q) {
+    a.v[q] = (const T*)v[q];
+    a.g[q] = (const T*)g[q];
+    a.gp[q] = (const T*)gp[q];
+    a.out[q] = (T*)out[q];
+    a.gv[q] = gtt::make_ghosts<T>(sgn + 4 * q, off + 4 * q, 0);
+    a.fb_mask[q] = fb_mask[q];
+    a.fb_lo[q] = T(fb[2 * q]);
+    a.fb_hi[q] = T(fb[2 * q + 1]);
+  }
+  a.ufx = (const T*)ufx;
+  a.ufy = (const T*)ufy;
+  a.axis0 = axis0;
+  a.n0 = n0;
+  a.n1 = n1;
+  a.dt = T(dt);
+  a.h = T(h);
+  a.dt_h = T(dt / h);
+  a.oscale = T(oscale);
+  a.use_os = use_os;
+  return a;
 }
 
 template <typename T>
@@ -291,20 +348,16 @@ int launch_advect2d(const void* v, const void* ufx, const void* ufy,
                     const void* g, const void* gp, int n0, int n1, double dt,
                     double h, const double* sgn, const double* off,
                     int fb_axis, int fb_mask, const double* fb, int use_os,
-                    double oscale, void* out, void* stream) {
-  const int bx = 32, by = 8;
-  const AdvectArgs<T> a =
-      advect_args<T>(v, ufx, ufy, g, gp, n0, n1, dt, h, sgn, off, fb_axis,
-                     fb_mask, fb, use_os, oscale);
-  advect2d_kernel<T><<<gtt::cell_grid(n0, n1, bx, by), dim3(bx, by), 0,
-                       (cudaStream_t)stream>>>(a, (T*)out);
-  return (int)cudaGetLastError();
+                    double oscale, void* out, int tr, int tc, void* stream) {
+  const TileArgs<T, 1> a =
+      tile_args<T, 1>(&v, ufx, ufy, &g, &gp, n0, n1, dt, h, sgn, off,
+                      fb_axis, &fb_mask, fb, use_os, oscale, &out);
+  return launch<T, 1, false>(a, tr, tc, (cudaStream_t)stream);
 }
 
-// Per-component arguments are host arrays of two entries (4 per component
-// for sgn/off, 2 for fb); component 0 is along x, 1 along y.  rr != 0: the
-// rr_dia mode, out = r0 and the pools r1, r2.  The C interface takes the
-// device pointers as one host table: v, g, gp, out, r1, r2, two each.
+// rr != 0: the rr_dia mode, out = r0 and the pools r1, r2.  The C
+// interface takes the device pointers as one host table: v, g, gp, out,
+// r1, r2, two each.
 template <typename T>
 int launch_advect2d_pair(const void* const* v, const void* ufx,
                          const void* ufy, const void* const* g,
@@ -313,27 +366,19 @@ int launch_advect2d_pair(const void* const* v, const void* ufx,
                          const int* fb_mask, const double* fb, int use_os,
                          double oscale, int rr, double dia, double h2,
                          void* const* out, void* const* r1, void* const* r2,
-                         void* stream) {
-  if (rr && (n0 % PAIR_BY || n1 % PAIR_BX)) return (int)cudaErrorInvalidValue;
-  PairArgs<T> p = {};
+                         int tr, int tc, void* stream) {
+  if (rr && (n0 % RR_ROWS || n1 % RR_COLS)) return (int)cudaErrorInvalidValue;
+  TileArgs<T, 2> a = tile_args<T, 2>(v, ufx, ufy, g, gp, n0, n1, dt, h, sgn,
+                                     off, 0, fb_mask, fb, use_os, oscale,
+                                     out);
+  if (!rr) return launch<T, 2, false>(a, tr, tc, (cudaStream_t)stream);
   for (int q = 0; q < 2; ++q) {
-    p.c[q] = advect_args<T>(v[q], ufx, ufy, g[q], gp[q], n0, n1, dt, h,
-                            sgn + 4 * q, off + 4 * q, q, fb_mask[q],
-                            fb + 2 * q, use_os, oscale);
-    p.out[q] = (T*)out[q];
-    p.r1[q] = rr ? (T*)r1[q] : nullptr;
-    p.r2[q] = rr ? (T*)r2[q] : nullptr;
+    a.r1[q] = (T*)r1[q];
+    a.r2[q] = (T*)r2[q];
   }
-  p.dia = T(dia);
-  p.h2 = T(h2);
-  dim3 grid = gtt::cell_grid(n0, n1, PAIR_BX, PAIR_BY);
-  grid.z = 2;
-  const dim3 block(PAIR_BX, PAIR_BY);
-  if (rr)
-    advect2d_pair_kernel<T, true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
-  else
-    advect2d_pair_kernel<T, false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  a.dia = T(dia);
+  a.h2 = T(h2);
+  return launch<T, 2, true>(a, tr, tc, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -343,20 +388,20 @@ int launch_advect2d_pair(const void* const* v, const void* ufx,
       const void* v, const void* ufx, const void* ufy, const void* g,         \
       const void* gp, int n0, int n1, double dt, double h, const double* sgn, \
       const double* off, int fb_axis, int fb_mask, const double* fb,          \
-      int use_os, double oscale, void* out, void* stream) {                   \
+      int use_os, double oscale, void* out, int tr, int tc, void* stream) {   \
     return launch_advect2d<T>(v, ufx, ufy, g, gp, n0, n1, dt, h, sgn, off,    \
-                              fb_axis, fb_mask, fb, use_os, oscale, out,      \
-                              stream);                                        \
+                              fb_axis, fb_mask, fb, use_os, oscale, out, tr,  \
+                              tc, stream);                                    \
   }                                                                           \
   extern "C" int gtt_advect2d_pair_##SUFFIX(                                  \
       void* const* ptr, const void* ufx, const void* ufy, int n0, int n1,     \
       double dt, double h, const double* sgn, const double* off,              \
       const int* fb_mask, const double* fb, int use_os, double oscale,        \
-      int rr, double dia, double h2, void* stream) {                          \
+      int rr, double dia, double h2, int tr, int tc, void* stream) {          \
     return launch_advect2d_pair<T>(ptr, ufx, ufy, ptr + 2, ptr + 4, n0, n1,   \
                                    dt, h, sgn, off, fb_mask, fb, use_os,      \
                                    oscale, rr, dia, h2, ptr + 6, ptr + 8,     \
-                                   ptr + 10, stream);                         \
+                                   ptr + 10, tr, tc, stream);                 \
   }
 
 GTT_EXPORT(f32, float)

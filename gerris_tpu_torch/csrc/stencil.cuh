@@ -1,8 +1,9 @@
 // Helpers shared by the kernels (rbgs.cu, projops.cu, predict.cu, bcg.cu):
-// ghost-cell reads in the kernels' BC encoding, the per-cell expressions
-// that two kernels share (the residual, the MAC divergence, the
-// projection's correction), and the bit-reproducible two-pass sum of a
-// cell field.
+// ghost-cell reads in the kernels' BC encoding, the haloed shared-memory
+// tiles of the BCG kernels (K6, K7/K14) and their per-face expressions,
+// the per-cell expressions that two kernels share (the residual, the MAC
+// divergence, the projection's correction), and the bit-reproducible
+// two-pass sum of a cell field.
 //
 // Ghost encoding per side, sides ordered (x lo, x hi, y lo, y hi):
 // ghost = sgn * mirror + off, where the mirror of ghost layer k is interior
@@ -14,6 +15,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace gtt {
 namespace {  // internal linkage: each source compiles its own copy
@@ -37,24 +40,144 @@ Ghosts<T> make_ghosts(const double* sgn, const double* off, int per_y) {
 }
 
 // u(i, j) of a contiguous (n0, n1) field for i in [-n0, 2 n0), j in
-// [-n1, 2 n1) (the kernels read at most two ghost layers).
+// [-n1, 2 n1) (the kernels read at most two ghost layers).  Each side's
+// coefficients are read at a fixed index: a run-time index into a Ghosts
+// held in the kernel's parameters would copy it to local memory.
 template <typename T>
 __device__ __forceinline__ T at(const T* __restrict__ u, int i, int j,
                                 int n0, int n1, const Ghosts<T>& g) {
-  int col_side = -1, row_side = -1;
+  bool c_lo = false, c_hi = false, r_lo = false, r_hi = false;
   if (j < 0) {
     if (g.per_y) j += n1;
-    else { col_side = 2; j = -1 - j; }
+    else { c_lo = true; j = -1 - j; }
   } else if (j >= n1) {
     if (g.per_y) j -= n1;
-    else { col_side = 3; j = 2 * n1 - 1 - j; }
+    else { c_hi = true; j = 2 * n1 - 1 - j; }
   }
-  if (i < 0) { row_side = 0; i = -1 - i; }
-  else if (i >= n0) { row_side = 1; i = 2 * n0 - 1 - i; }
+  if (i < 0) { r_lo = true; i = -1 - i; }
+  else if (i >= n0) { r_hi = true; i = 2 * n0 - 1 - i; }
   T v = u[(size_t)i * n1 + j];
-  if (col_side >= 0) v = g.s[col_side] * v + g.o[col_side];
-  if (row_side >= 0) v = g.s[row_side] * v + g.o[row_side];
+  if (c_lo) v = g.s[2] * v + g.o[2];
+  if (c_hi) v = g.s[3] * v + g.o[3];
+  if (r_lo) v = g.s[0] * v + g.o[0];
+  if (r_hi) v = g.s[1] * v + g.o[1];
   return v;
+}
+
+// The BCG stencils' haloed tile (K6 predict_xy, K7 advect2d_pair, K14
+// advect2d): rows [r0, r0 + R) x columns [c0, c0 + C) of a contiguous
+// (n0, n1) cell field into shared memory s (row stride ld), by all
+// ``nt`` threads of the block (flat index t), ghosts resolved once here
+// (at()), so the compute that follows reads shared memory only and
+// is the same code in every block.  Cells beyond the H ghost layers (a
+// tile larger than the grid) are set to 0: no output reads them.  A
+// window inside the grid is read with plain loads, 16 bytes a thread
+// where its rows are 16-byte aligned (c0, n1, C and ld multiples of
+// 16 / sizeof(T), the field 16-byte aligned).
+template <typename T, int R, int C>
+__device__ __forceinline__ void load_tile(T* __restrict__ s, int ld,
+                                          const T* __restrict__ u, int n0,
+                                          int n1, int r0, int c0, int H,
+                                          const Ghosts<T>& g, int t,
+                                          int nt) {
+  constexpr int VEC = 16 / sizeof(T);
+  using V16 = typename std::conditional<sizeof(T) == 4, float4,
+                                        double2>::type;
+  if (r0 >= 0 && c0 >= 0 && r0 + R <= n0 && c0 + C <= n1) {
+    if (C % VEC == 0 && c0 % VEC == 0 && n1 % VEC == 0 && ld % VEC == 0 &&
+        reinterpret_cast<size_t>(u) % 16 == 0) {
+      constexpr int CV = C / VEC;
+      for (int k = t; k < R * CV; k += nt) {
+        const int r = k / CV, c = (k % CV) * VEC;
+        *reinterpret_cast<V16*>(s + r * ld + c) =
+            __ldg(reinterpret_cast<const V16*>(u + (size_t)(r0 + r) * n1 +
+                                               c0 + c));
+      }
+    } else {
+      for (int k = t; k < R * C; k += nt) {
+        const int r = k / C, c = k % C;
+        s[r * ld + c] = __ldg(u + (size_t)(r0 + r) * n1 + c0 + c);
+      }
+    }
+    return;
+  }
+  for (int k = t; k < R * C; k += nt) {
+    const int r = k / C, c = k % C;
+    const int i = r0 + r, j = c0 + c;
+    s[r * ld + c] = (i >= -H && i < n0 + H && j >= -H && j < n1 + H)
+                        ? at(u, i, j, n0, n1, g)
+                        : T(0);
+  }
+}
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// The advecting cell velocities of K7/K14 at cells [r0, r0 + R) x
+// [c0, c0 + C), the means of each cell's two MAC faces (ufx (n0 + 1, n1),
+// ufy (n0, n1 + 1)) with the cell index clamped to the grid (edge-
+// extended past the domain), into shared memory sx, sy (row stride C).
+template <typename T, int R, int C>
+__device__ __forceinline__ void load_face_means(
+    T* __restrict__ sx, T* __restrict__ sy, const T* __restrict__ ufx,
+    const T* __restrict__ ufy, int n0, int n1, int r0, int c0, int t,
+    int nt) {
+  for (int k = t; k < R * C; k += nt) {
+    const int r = k / C, c = k % C;
+    const int i = clampi(r0 + r, 0, n0 - 1), j = clampi(c0 + c, 0, n1 - 1);
+    const size_t kx = (size_t)i * n1 + j;
+    const size_t ky = (size_t)i * (n1 + 1) + j;
+    sx[k] = T(0.5) * (__ldg(ufx + kx) + __ldg(ufx + kx + n1));
+    sy[k] = T(0.5) * (__ldg(ufy + ky) + __ldg(ufy + ky + 1));
+  }
+}
+
+// The same window of a cell field with the index clamped alike (Neumann-0
+// ghosts: K7/K14's gmac cell gradient g), into s (row stride C).
+template <typename T, int R, int C>
+__device__ __forceinline__ void load_clamped(T* __restrict__ s,
+                                             const T* __restrict__ u, int n0,
+                                             int n1, int r0, int c0, int t,
+                                             int nt) {
+  for (int k = t; k < R * C; k += nt) {
+    const int r = k / C, c = k % C;
+    s[k] = __ldg(u + (size_t)clampi(r0 + r, 0, n0 - 1) * n1 +
+                 clampi(c0 + c, 0, n1 - 1));
+  }
+}
+
+// The BCG value of v at a cell extrapolated to its high (high = true) or
+// low face along AXIS (reference: gfs_cell_advected_face_values,
+// src/advection.c:58-99): vp = c + min((1 - unorm)/2, 0.5) gs, vm = c +
+// max((-1 - unorm)/2, -0.5) gs, gs = (v[+1] - v[-1]) / 2, unorm = dt_h un,
+// less dt_h vt (upwind difference) / 2, the side picked by the sign of
+// the transverse velocity vt (0 when it is 0).  v points at the cell in
+// a shared tile of row stride ld.  K6 (un = the cell's own component)
+// and K7/K14 (un, vt the face means) share it.
+template <typename T, int AXIS>
+__device__ __forceinline__ T bcg_value(const T* v, int ld, T un, T vt, T dt_h,
+                                       bool high) {
+  const int sa = AXIS == 0 ? ld : 1;  // along the axis
+  const int st = AXIS == 0 ? 1 : ld;  // transverse
+  const T c = v[0];
+  const T gs = T(0.5) * (v[sa] - v[-sa]);
+  const T unorm = dt_h * un;
+  const T val = high ? c + fmin((T(1) - unorm) / T(2), T(0.5)) * gs
+                     : c + fmax((T(-1) - unorm) / T(2), T(-0.5)) * gs;
+  T gdiff = T(0);
+  if (vt > T(0))
+    gdiff = c - v[-st];
+  else if (vt < T(0))
+    gdiff = v[st] - c;
+  return val - dt_h * vt * gdiff / T(2);
+}
+
+// The Godunov choice on the face's normal velocity: the low cell's value
+// if un > 0, the high cell's if un < 0, their mean if un = 0
+template <typename T>
+__device__ __forceinline__ T godunov(T un, T left, T right) {
+  return un > T(0) ? left : (un < T(0) ? right : T(0.5) * (left + right));
 }
 
 // The residual of one cell, r = rhs - (L - dia) u = rhs - (nb - 4 c) / h2

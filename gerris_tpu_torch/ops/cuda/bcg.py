@@ -9,9 +9,11 @@ None for BCs outside their scope (periodic rows, inhomogeneous Neumann).
 K14 ``advect2d``, the corrector advection increment of one component,
 and K7 ``advect2d_pair``, both components' increments in one launch (with
 the ``rr_dia`` mode that also gives the first residual of their diffusion
-systems), are kernels in ``gerris_tpu_torch/csrc/bcg.cu`` that share
-K14's per-cell code; its source notes give the arithmetic, the bound on
-the H100 and the design.  The wrappers follow
+systems), are one engine in ``gerris_tpu_torch/csrc/bcg.cu`` on haloed
+shared-memory tiles (K14 its one-component instance); its source notes
+give the arithmetic, the bound on the H100 and the design.  ``tile_plan``
+gives the tile of that engine and of K6 (csrc/predict.cu).
+The wrappers follow
 ops/cuda/rbgs.py: CPU tensors take the plain version (the torch route,
 which also serves the BCs the kernel refuses), CUDA tensors launch the
 kernel (counted in ``LAUNCHES``) or raise.
@@ -31,9 +33,14 @@ from .rbgs import (_call, _on_cpu, check, check_faces, doubles, pointers,
 # kernel launches by wrapper name, counted only where a kernel launches
 LAUNCHES = {"advect2d": 0, "advect2d_pair": 0}
 
-# K7's block of threads (along columns, rows); the rr_dia mode needs
-# grids it tiles
-PAIR_BLOCK = (32, 8)
+# the rr_dia mode takes grids of whole tiles of K1's 32 x 8 blocks
+# (columns, rows), as the TPU kernel's pools do
+RR_TILE = (32, 8)
+# the tiles (rows, columns) that K6's and the K7/K14 engine's kernels are
+# built for.  The wrappers take the first: at 2048^2 float32 on the H100
+# it gave K7 its lowest time, K6 and K14 theirs within 3% (PERF.md), and
+# a small grid the most blocks
+TILES = ((16, 32), (32, 32), (16, 64))
 
 
 def reset_launch_counts():
@@ -111,8 +118,21 @@ def advect_spec(fbc: bcs.FieldBC):
 
 
 # -----------------------------------------------------------------------------
-# Input checks shared by the wrappers
+# Input checks and the tile plan shared by the wrappers
 # -----------------------------------------------------------------------------
+
+def tile_plan(tile=None):
+    """(rows, columns) of the tile of a K6, K7 or K14 launch: TILES[0],
+    or ``tile`` (one of TILES) for tests.  The tile changes the launch
+    geometry only: the outputs are bit-identical for every tile (a
+    divergence's total sums in another order)."""
+    if tile is None:
+        return TILES[0]
+    tile = tuple(tile)
+    if tile not in TILES:
+        raise ValueError(f"tile {tile}: want one of {TILES}")
+    return tile
+
 
 def refused(name, what):
     return ValueError(f"{name}: {what} outside the kernel's scope; the "
@@ -202,35 +222,39 @@ def _launch_args(name, vs, cs, fbcs):
             doubles(*(0.0 if b is None else b for fb in fbs for b in fb)))
 
 
-def advect2d(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None, oscale=None):
+def advect2d(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None, oscale=None,
+             tile=None):
     """The BCG advection increment fv of component ``c``'s cells ``v``
     with the MAC faces (ufx, ufy) and the BCs ``fbc``: with ``g`` (the
     gmac cell gradient) the faces' dt/2 face-mean correction, with ``gp``
     fv -= dt gp, and with ``oscale`` the output oscale (v + fv), the
-    implicit-diffusion rhs, instead of fv."""
+    implicit-diffusion rhs, instead of fv.  ``tile``: the kernel's tile
+    (tile_plan), for tests."""
     _check_advect([v], ufx, ufy, [g], [gp])
     if _on_cpu(v, ufx, ufy, g, gp):
         return advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g, gp, oscale)
     sgn, off, (mask,), fb = _launch_args("advect2d", [v], [c], [fbc])
     n0, n1 = v.shape
+    tr, tc = tile_plan(tile)
     out = torch.empty_like(v)
     _call("advect2d", v.dtype, v.device, v.data_ptr(), ufx.data_ptr(),
           ufy.data_ptr(), None if g is None else g.data_ptr(),
           None if gp is None else gp.data_ptr(), n0, n1, float(dt),
           float(grid.h), sgn, off, c, mask, fb, int(oscale is not None),
-          0.0 if oscale is None else float(oscale), out.data_ptr())
+          0.0 if oscale is None else float(oscale), out.data_ptr(), tr, tc)
     LAUNCHES["advect2d"] += 1
     return out
 
 
 def advect2d_pair(v0, v1, ufx, ufy, dt, grid, fbcs, g=None, gp=None,
-                  oscale=None, rr_dia=None):
+                  oscale=None, rr_dia=None, tile=None):
     """advect2d of both velocity components (v0 along x, v1 along y, BCs
     ``fbcs``) in one launch; ``g`` and ``gp`` are pairs or None, the
     folds as in advect2d.  Returns [out0, out1].  ``rr_dia`` (with
     ``oscale``): returns ([r0_0, r0_1], [r1_0, r1_1], [r2_0, r2_1]), the
     residual of each component's diffusion system (L - rr_dia) u = out at
-    u = v and its two 2x2 pools, as residual_restrict_pair gives them."""
+    u = v and its two 2x2 pools, as residual_restrict_pair gives them.
+    ``tile``: the kernel's tile (tile_plan), for tests."""
     g = g or (None, None)
     gp = gp or (None, None)
     vs = [v0, v1]
@@ -242,9 +266,10 @@ def advect2d_pair(v0, v1, ufx, ufy, dt, grid, fbcs, g=None, gp=None,
                                    oscale, rr_dia)
     sgn, off, masks, fb = _launch_args("advect2d_pair", vs, [0, 1], fbcs)
     n0, n1 = v0.shape
-    if rr_dia is not None and (n0 % PAIR_BLOCK[1] or n1 % PAIR_BLOCK[0]):
-        raise ValueError(f"advect2d_pair: rr_dia wants whole {PAIR_BLOCK[0]}"
-                         f"x{PAIR_BLOCK[1]} tiles, got {n0}x{n1} cells")
+    if rr_dia is not None and (n0 % RR_TILE[1] or n1 % RR_TILE[0]):
+        raise ValueError(f"advect2d_pair: rr_dia wants whole {RR_TILE[0]}"
+                         f"x{RR_TILE[1]} tiles, got {n0}x{n1} cells")
+    tr, tc = tile_plan(tile)
     outs = [torch.empty_like(v) for v in vs]
     r1s = r2s = [None, None]
     if rr_dia is not None:
@@ -255,6 +280,7 @@ def advect2d_pair(v0, v1, ufx, ufy, dt, grid, fbcs, g=None, gp=None,
           ufy.data_ptr(), n0, n1, float(dt), float(grid.h), sgn, off,
           (ctypes.c_int * 2)(*masks), fb, int(oscale is not None),
           0.0 if oscale is None else float(oscale), int(rr_dia is not None),
-          0.0 if rr_dia is None else float(rr_dia), float(grid.h * grid.h))
+          0.0 if rr_dia is None else float(rr_dia), float(grid.h * grid.h),
+          tr, tc)
     LAUNCHES["advect2d_pair"] += 1
     return outs if rr_dia is None else (outs, r1s, r2s)

@@ -5,7 +5,9 @@ The sources in ``gerris_tpu_torch/csrc`` are compiled at first use into
 interface (no PyTorch headers, so a build takes seconds): one nvcc per
 source, all started together, then one link.  The library name carries
 a hash of the sources and headers, so an edited source is rebuilt.
-Importing this module never runs nvcc.
+ptxas reports each kernel's registers, stack frame, spills and shared
+memory (``-Xptxas -v``) into a text file beside the library
+(``ptxas_report``).  Importing this module never runs nvcc.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ SOURCES = tuple(_CSRC / f for f in ("rbgs.cu", "projops.cu", "predict.cu",
 HEADERS = (_CSRC / "stencil.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "gerris_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -48,18 +51,21 @@ def library_path() -> Path:
 
 
 def _run_all(cmds):
-    """Run the commands in parallel; raise with every failure's output."""
+    """Run the commands in parallel; raise with every failure's output,
+    else return their outputs joined."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
-    failed = []
+    failed, outs = [], []
     for cmd, proc in procs:
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "".join(outs)
 
 
 def build() -> Path:
@@ -71,12 +77,38 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                  for src, obj in zip(SOURCES, objs)])
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                           for src, obj in zip(SOURCES, objs)])
+        _report_path(out).write_text(report)
         lib = str(Path(tmp) / out.name)
         _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, out)   # atomic: a concurrent build never sees half
     return out
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(*names):
+    """ptxas's lines for each kernel whose mangled name holds one of
+    ``names``, from the build of the current sources: [(kernel, [line,
+    ...]), ...] (registers, stack frame, spills, shared memory)."""
+    path = _report_path(library_path())
+    if not path.exists():
+        return []
+    entries, cur = [], None
+    for line in path.read_text().splitlines():
+        line = line.removeprefix("ptxas info    : ").strip()
+        if line.startswith("Compiling entry function"):
+            name = line.split("'")[1]
+            cur = (name, []) if any(n in name for n in names) else None
+            if cur:
+                entries.append(cur)
+        elif cur and (line.startswith(("Function properties", "Used"))
+                      or "stack frame" in line):
+            cur[1].append(line)
+    return entries
 
 
 _P = ctypes.c_void_p
@@ -106,11 +138,11 @@ _SIGNATURES = {
     "gtt_interp_faces": [_P, _P, _P, _P, _D, _I, _I, _I, _DP, _D, _P, _P,
                          _P, _P, _P, _P, _P, _P],
     "gtt_predict_xy": [_P, _P, _I, _I, _D, _DP, _DP, _DP, _DP, _I, _DP, _D,
-                       _P, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _I, _I, _P],
     "gtt_advect2d": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP, _I, _I,
-                     _DP, _I, _D, _P, _P],
+                     _DP, _I, _D, _P, _I, _I, _P],
     "gtt_advect2d_pair": [_PP, _P, _P, _I, _I, _D, _D, _DP, _DP, _IP, _DP, _I,
-                          _D, _I, _D, _D, _P],
+                          _D, _I, _D, _D, _I, _I, _P],
 }
 
 

@@ -3,7 +3,8 @@
 Port of K6 ``predict_xy`` of gerris_tpu/ops/pallas/predict.py: both
 velocity components' BCG predicted MAC faces (reference:
 src/timestep.c:681-717, centred upwinding).  The kernel is in
-``gerris_tpu_torch/csrc/predict.cu``, whose source note gives the
+``gerris_tpu_torch/csrc/predict.cu`` (haloed shared-memory tiles, the
+tile by ops/cuda/bcg.py:tile_plan), whose source note gives the
 arithmetic, the bound on the H100 and the design.  The wrapper follows
 ops/cuda/rbgs.py: CPU tensors take the plain version (the torch route,
 which also serves the BCs the kernel refuses), CUDA tensors launch the
@@ -14,7 +15,7 @@ from __future__ import annotations
 from ...core import bc as bcs
 from ...solvers import advection as adv
 from ..stencils import face_average
-from .bcg import check, doubles, face_specs, refused
+from .bcg import check, doubles, face_specs, refused, tile_plan
 from .projops import div_buffers, divergence_plain
 from .rbgs import _call, _on_cpu
 
@@ -50,12 +51,13 @@ def predict_xy_plain(U, V, dt, grid, u_bcs, div_scale=None):
     return (uf[0], uf[1]) + div
 
 
-def predict_xy(U, V, dt, grid, u_bcs, div_scale=None):
+def predict_xy(U, V, dt, grid, u_bcs, div_scale=None, tile=None):
     """(ufx (n0+1, n1), ufy (n0, n1+1), div, total): the BCG predicted MAC
     faces of both components at t + dt/2 from the centred U, V with their
     BCs ``u_bcs``.  ``div_scale``: div and total are the divergence of the
     faces built, (dx ufx + dy ufy) * div_scale, and its sum (the MAC
-    projection's divergence folded in); else both are None."""
+    projection's divergence folded in); else both are None.  ``tile``:
+    the kernel's tile (bcg.tile_plan), for tests."""
     n0, n1 = U.shape
     check(U, "U", (n0, n1))
     check(V, "V", (n0, n1))
@@ -66,16 +68,17 @@ def predict_xy(U, V, dt, grid, u_bcs, div_scale=None):
         raise refused("predict_xy", f"velocity BCs {u_bcs}")
     su, sv = specs
     fb_y = (0.0, 0.0) if su["per_y"] else sv["fb_y"]
+    tr, tc = tile_plan(tile)
     ufx, ufy = U.new_empty((n0 + 1, n1)), U.new_empty((n0, n1 + 1))
     divs = (None, None, None)
     if div_scale is not None:
-        divs = div_buffers(U, n0, n1)
+        divs = div_buffers(U, n0, n1, block=(tc, tr))
     _call("predict_xy", U.dtype, U.device, U.data_ptr(), V.data_ptr(), n0,
           n1, float(dt) / float(grid.h), doubles(*su["sgn"]),
           doubles(*su["off"]), doubles(*sv["sgn"]), doubles(*sv["off"]),
           int(su["per_y"]), doubles(*su["fb_x"], *fb_y),
           0.0 if div_scale is None else float(div_scale), ufx.data_ptr(),
           ufy.data_ptr(), *[None if t is None else t.data_ptr()
-                            for t in divs])
+                            for t in divs], tr, tc)
     LAUNCHES["predict_xy"] += 1
     return ufx, ufy, divs[0], divs[2]

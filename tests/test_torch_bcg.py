@@ -73,3 +73,13 @@ def test_advect_spec_refuses_periodic_y():
     assert tbcg.advect_spec(fbc) is None
     rows = fieldbc_from_jax(jbc.FieldBC((per, per)))
     assert tbcg.advect_spec(rows) is None
+
+
+def test_tile_plan():
+    """K6's and the K7/K14 engine's tile: the first the kernels are built
+    for, or one of them given by a test; any other raises."""
+    assert tbcg.tile_plan() == tbcg.TILES[0]
+    for tile in tbcg.TILES:
+        assert tbcg.tile_plan(list(tile)) == tile
+    with pytest.raises(ValueError, match="want one of"):
+        tbcg.tile_plan((8, 8))

@@ -9,7 +9,8 @@ of sum|div| for a divergence's total; tiled and whole-level K3 and K10
 launches are bit-identical, and so are K4's div across block shapes and
 K11's residual against K1's r0, K3, K8c and K17 across tiles, and the
 restriction pyramid against the chain of restrict2 launches it
-replaces.  A kernel given BCs
+replaces; K6, K7 and K14 across their tile plans, K7 against two K14
+launches, and K6's div against K4's on its faces.  A kernel given BCs
 outside its encoding raises.  The adaptive solve on the card is held to
 the same solve through the plain versions, and so are three steps of the
 3D lid cavity (K13, the 3D smoother, at every level above the dense
@@ -348,7 +349,7 @@ def _check_all(got, ref, dtype):
 def test_advect2d_pair_kernel(dev, dtype, rr, grid):
     """K7 with the lid's U and V BCs, g, gp and oscale, against its plain
     version and against two K14 launches; ``rr``: the rr_dia mode, which
-    takes whole 16x16 tiles only (the ragged grid raises, below)."""
+    takes whole 32x8 tiles only (the ragged grid raises, below)."""
     n0, n1 = grid.shape
     v0, v1, ufx, ufy, g0, g1, gp0, gp1 = _rnd(
         dev, dtype, 13, grid.shape, grid.shape, (n0 + 1, n1), (n0, n1 + 1),
@@ -381,6 +382,85 @@ def test_advect2d_pair_rr_needs_whole_tiles(dev):
     with pytest.raises(ValueError, match="tiles"):
         bcg.advect2d_pair(v, v, ufx, ufy, 0.01, grid, _velocity_bcs(False),
                           oscale=-1.0, rr_dia=1.0)
+
+
+# --- K6 and the K7/K14 engine on their shared-memory tiles: a grid
+# smaller than one tile (20 x 12) and one whose last block row and column
+# are partial under every tile plan (52 x 84)
+TILE_GRIDS = [Grid(level=1, extents=(10, 6)), Grid(level=2, extents=(13, 21))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("per_y", [False, True])
+@pytest.mark.parametrize("grid", TILE_GRIDS)
+def test_predict_xy_tiles(dev, dtype, per_y, grid):
+    """K6 against its plain version on grids its tiles do not divide,
+    periodic y included; faces and div bit-identical across the tile
+    plans (the total sums in each plan's order), and the div
+    bit-identical to K4's on the faces built."""
+    U, V = _rnd(dev, dtype, 15, grid.shape, grid.shape)
+    dt = 0.4 * grid.h
+    u_bcs = _velocity_bcs(per_y)
+    scale = 2.0 / (grid.h * dt)
+    ref = predict.predict_xy_plain(U, V, dt, grid, u_bcs, scale)
+    outs = [predict.predict_xy(U, V, dt, grid, u_bcs, scale, tile=t)
+            for t in bcg.TILES]
+    for got in outs:
+        for a, b in zip(got[:2], ref[:2]):
+            assert _rel(a, b) <= BOUND[dtype]
+        _check_div(got[2:], ref[2:], dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], outs[0][:3]))
+    k4 = projops.divergence_mac(outs[0][0], outs[0][1], dt / 2.0, grid.h)
+    assert torch.equal(k4[0], outs[0][2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid", TILE_GRIDS + GRIDS)
+def test_advect_tiles(dev, dtype, grid):
+    """K7 and K14 (g, gp, oscale) against their plain versions on grids
+    their tiles do not divide, bit-identical across the tile plans, and K7
+    bit-identical to two K14 launches (K14 is the one-component instance
+    of K7's engine)."""
+    n0, n1 = grid.shape
+    v0, v1, ufx, ufy, g0, g1, gp0, gp1 = _rnd(
+        dev, dtype, 16, grid.shape, grid.shape, (n0 + 1, n1), (n0, n1 + 1),
+        *[grid.shape] * 4)
+    fbcs = _velocity_bcs(False)
+    dt = 0.3 * grid.h
+    kw = dict(g=(g0, g1), gp=(gp0, gp1), oscale=-1.0 / (dt * 1e-3))
+    ref = bcg.advect2d_pair_plain(v0, v1, ufx, ufy, dt, grid, fbcs, **kw)
+    outs = [bcg.advect2d_pair(v0, v1, ufx, ufy, dt, grid, fbcs, tile=t, **kw)
+            for t in bcg.TILES]
+    for tile, got in zip(bcg.TILES, outs):
+        _check_all(got, ref, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, outs[0]))
+        k14 = [bcg.advect2d(v, c, ufx, ufy, dt, grid, fbcs[c], g=kw["g"][c],
+                            gp=kw["gp"][c], oscale=kw["oscale"], tile=tile)
+               for c, v in enumerate((v0, v1))]
+        assert all(torch.equal(a, b) for a, b in zip(k14, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_advect2d_pair_rr_tiles(dev, dtype):
+    """K7's rr_dia mode on a grid of whole 32x8 tiles that no tile plan
+    divides (40 x 96): against its plain version, bit-identical across
+    the tile plans."""
+    grid = Grid(level=3, extents=(5, 12))
+    n0, n1 = grid.shape
+    v0, v1, ufx, ufy, g0, g1 = _rnd(dev, dtype, 17, grid.shape, grid.shape,
+                                    (n0 + 1, n1), (n0, n1 + 1), grid.shape,
+                                    grid.shape)
+    fbcs = _velocity_bcs(False)
+    dt = 0.3 * grid.h
+    dia = 1.0 / (dt * 1e-3)
+    kw = dict(g=(g0, g1), oscale=-dia, rr_dia=dia)
+    ref = bcg.advect2d_pair_plain(v0, v1, ufx, ufy, dt, grid, fbcs, **kw)
+    outs = [bcg.advect2d_pair(v0, v1, ufx, ufy, dt, grid, fbcs, tile=t, **kw)
+            for t in bcg.TILES]
+    for got in outs:
+        _check_all(got, ref, dtype)
+        assert all(torch.equal(a, b) for x, y in zip(got, outs[0])
+                   for a, b in zip(x, y))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -15,8 +15,11 @@ Prints one JSON line, float32 throughout:
   this is the host's own time), and ``device_ms``: CUDA events around
   100 back-to-back calls after a warm-up, per call (the larger of the
   kernels' time and the host's); restrict2 and F.avg_pool2d at 512^2,
-  prolong_relax at 2048^2 (5 sweeps, omega 1.5, + u), and
-  cascade_prolong_relax at n/2 = 1024 (5 sweeps, 40 coarsest);
+  prolong_relax at 2048^2 (5 sweeps, omega 1.5, + u),
+  cascade_prolong_relax at n/2 = 1024 (5 sweeps, 40 coarsest), and the
+  BCG kernels at 2048^2 with the lid's BCs as the main path runs them:
+  predict_xy (K6), advect2d_pair (K7, g, gp and oscale) and advect2d
+  (K14, u with the same folds);
 * ``step_ms``: the lid step of chip_smoke.lid_cfg(11) (the bench's
   route), the median of five 20-step windows closed by a synchronize,
   after init and 20 steps;
@@ -70,7 +73,7 @@ def main():
     import torch.nn.functional as F
     import chip_smoke
     from gerris_tpu_torch.models.simulation import Simulation, Time
-    from gerris_tpu_torch.ops.cuda import build, rbgs
+    from gerris_tpu_torch.ops.cuda import bcg, build, predict, rbgs
     if not torch.cuda.is_available():
         print("torch_host_cost: no CUDA device", file=sys.stderr)
         return 1
@@ -87,6 +90,12 @@ def main():
     r512_4d = r512.view(1, 1, 512, 512)
     c, rhs, u = rnd(n // 2, n // 2), rnd(n, n), rnd(n, n)
     r1, r2 = rnd(n // 2, n // 2), rnd(n // 4, n // 4)
+    cfg = chip_smoke.lid_cfg(11)
+    grid, u_bcs = cfg.grid, cfg.u_bcs
+    dt = 0.8 * grid.h
+    osc = -1.0 / (dt * cfg.nu)
+    U, V, gx, gy, px, py = (rnd(n, n) for _ in range(6))
+    ufx, ufy = rnd(n + 1, n), rnd(n, n + 1)
     calls = {
         "restrict2": lambda: rbgs.restrict2(r512),
         "avg_pool2d": lambda: F.avg_pool2d(r512_4d, 2),
@@ -96,11 +105,16 @@ def main():
         "cascade_prolong_relax": lambda: rbgs.cascade_prolong_relax(
             r1, r2, 0.0, nsweeps=5, coarsest=40, h2_half=4.0 / n ** 2,
             signs=signs, omega=1.5),
+        "predict_xy": lambda: predict.predict_xy(U, V, dt, grid, u_bcs),
+        "advect2d_pair": lambda: bcg.advect2d_pair(
+            U, V, ufx, ufy, dt, grid, u_bcs, g=(gx, gy), gp=(px, py),
+            oscale=osc),
+        "advect2d": lambda: bcg.advect2d(U, 0, ufx, ufy, dt, grid, u_bcs[0],
+                                         g=gx, gp=px, oscale=osc),
     }
     out = {"root": str(root)}
     for name, fn in calls.items():
         out[name] = {"host_us": host_us(fn), "device_ms": device_ms(fn)}
-    cfg = chip_smoke.lid_cfg(11)
     sim = Simulation(cfg, time=Time(dtmax=0.8 * cfg.grid.h), device=dev,
                      dtype=torch.float32).init()
     sim.run(max_steps=WINDOW_STEPS)
