@@ -25,7 +25,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
      their tile plans and K6's div bit-identical to K4's on its faces; the adaptive solve's K11
      (the lid's offsets, periodic rows, periodic columns; bit-identical
      to K1's r0), K10 (non-periodic, periodic rows, doubly periodic, plus
-     its tile invariance) at 2048^2, and K12 at 512^2 (per_y off and on)
+     its invariance across tiles, threads and sweep splits) at 2048^2,
+     and K12 at 512^2 (per_y off and on)
      with its 64^2 block kernel alone; the fold route's K16 and K17 at
      2048^2 and 64^2 (the lid's pressure ghosts, inhomogeneous Neumann
      offsets, periodic columns; K16 with and without a sub, K17 with and
@@ -34,12 +35,16 @@ Phases (any failure ends the run with a non-zero exit and no result):
      32^3, 64^3 and (32, 64, 128) with mixed sides, and at 256^3
      (float32); the two-phase smoother K15 at 1024^2 (walls, periodic
      rows, doubly periodic; scalar and cell dia; omega 1 and 1.5; 8 and
-     24 sweeps; zero-diagonal cells) and at every level down to 4^2,
-     plus its tile invariance; then each kernel's time against its plain
-     version's at the main-path shapes (K13 at 128^3, K15 at 1024^2),
-     float32 (CUDA events), K7 beside two K14 launches, K15's and K3's
-     per level, K7's, K14's and K6's per tile plan, and the host's time
-     per call and the card's per launch of restrict2 and avg_pool2d;
+     24 sweeps; zero-diagonal cells), from a given u and with the
+     prolongation of a coarse correction folded in (+ u), and at every
+     level down to 4^2 as a correction runs it, plus its invariance
+     across tiles, threads and sweep splits; then each kernel's time
+     against its plain version's at the main-path shapes (K13 at 128^3,
+     K15 at 1024^2), float32 (CUDA events), K7 beside two K14 launches,
+     K15's and K3's per level, K15's per tile and threads (with and
+     without the coarse correction), K10's per tile and threads, K7's,
+     K14's and K6's per tile plan, and the host's time per call and the
+     card's per launch of restrict2 and avg_pool2d;
   3. main path: Simulation.init() + 20 steps of the 2048^2 lid cavity under
      the bench's configuration (pair_advect: K7 and the K8 pair), float32,
      through the kernels: finite values, launch counts, agreement with the
@@ -79,9 +84,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      1024^2 in float32 (VOF, height-function tension, density 10/1, the
      default adaptive solves on the TPU's floored schedule): init + 20
      steps through K6, K4, K15 in every correction of the four alpha
-     solves per step, K14 per component and K9, launches gated from every
-     solve's recorded cycle count, finite values, T's volume, the first 5
-     steps held to the plain versions, five timed windows and a profile;
+     solves per step (one launch per level, the prolongation folded into
+     every upward one), K14 per component and K9, launches gated from
+     every solve's recorded cycle count, finite values, T's volume, the
+     first 5 steps held to the plain versions, five timed windows and a
+     profile with its device ops per step;
   4. physics: the 64^2 lid cavity under the bench's configuration to
      steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
      float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
@@ -178,7 +185,8 @@ TWOPHASE_CHECK_STEPS = 5
 TWOPHASE_TIMED_STEPS = 10
 TWOPHASE_PROFILE_STEPS = 5
 # K15 launches per correction at 1024^2: every level from 1024^2 down to
-# minlevel 2 (4^2), 1 at the coarsest and 8 upward; the correction's
+# minlevel 2 (4^2), 1 at the coarsest and 8 upward, each upward one with
+# the coarser level's result prolonged at placement; the correction's
 # residual restrictions in one restrict_pyramid launch
 K15_LEVELS = LEVEL_TWOPHASE - 2 + 1
 # |sum(T) - sum(T0)| / sum(T0) after init + TWOPHASE_STEPS steps in
@@ -297,7 +305,7 @@ def want_launches(route, steps):
         "coarse_vcycle.restrict_pyramid": 0, "coarse_block": 0,
         "coarse_vcycle.prolong_relax": 0,
         "rbgs_relax_3d": 0, "rbgs_relax_3d.half_sweep": 0,
-        "rbgs_relax_alpha": 0,
+        "rbgs_relax_alpha": 0, "rbgs_relax_alpha.prolong": 0,
     }
 
 
@@ -918,8 +926,9 @@ def check_rbgs3d(rnd, dtype, record):
 
 
 def check_relax_tiles(rnd):
-    """K10 bit-identical across tiles 32 and 16, whole-level and tiled, on
-    every periodicity, and with its sweeps split over two launches."""
+    """K10 bit-identical across tiles 64, 32 and 16 and threads 256 and
+    512 at 2048^2, whole-level and tiled at 64^2, on every periodicity,
+    and with its sweeps split over launches."""
     import torch
     from gerris_tpu_torch.ops.cuda import rbgs
     n = N_MAIN
@@ -928,21 +937,28 @@ def check_relax_tiles(rnd):
     for per in ((False, False), (True, False), (True, True)):
         kw = dict(nsweeps=4, h2=1.0 / n ** 2, signs=(-1.0, 1.0, -1.0, 1.0),
                   periodic=per)
-        if not torch.equal(rbgs.rbgs_relax(u, rhs, 0.5, tile=32, **kw),
-                           rbgs.rbgs_relax(u, rhs, 0.5, tile=16, **kw)):
-            raise AssertionError(f"K10 periodic={per}: tiles 32 and 16 "
-                                 "differ")
+        ref = rbgs.rbgs_relax(u, rhs, 0.5, tile=16, threads=256, **kw)
+        for tile in (64, 32, 16):
+            for threads in (256, 512):
+                if not torch.equal(ref, rbgs.rbgs_relax(
+                        u, rhs, 0.5, tile=tile, threads=threads, **kw)):
+                    raise AssertionError(f"K10 periodic={per}: tile {tile} "
+                                         f"x {threads} threads differs")
         if not torch.equal(rbgs.rbgs_relax(u64, r64, 0.5, **kw),
                            rbgs.rbgs_relax(u64, r64, 0.5, tile=16,
                                            whole_max=32, **kw)):
             raise AssertionError(f"K10 periodic={per}: whole-level and "
                                  "tiled launches differ")
     kw["nsweeps"] = 40
-    if not torch.equal(rbgs.rbgs_relax(u, rhs, 0.5, **kw),
-                       rbgs.rbgs_relax(u, rhs, 0.5, tile=16, **kw)):
+    rbgs.reset_launch_counts()
+    split = rbgs.rbgs_relax(u, rhs, 0.5, tile=32, **kw)
+    if rbgs.LAUNCHES["rbgs_relax"] < 2 or not all(
+            torch.equal(split, rbgs.rbgs_relax(u, rhs, 0.5, tile=t, **kw))
+            for t in (64, 16)):
         raise AssertionError("K10: split sweeps differ across tiles")
-    print("  K10 tile 32 == tile 16 at 2048, whole == tiled at 64, every "
-          "periodicity; 40 sweeps over two launches: bit-identical")
+    print("  K10 tiles 64 == 32 == 16 x threads 256 == 512 at 2048, whole "
+          "== tiled at 64, every periodicity; 40 sweeps split over "
+          "launches at each tile: bit-identical")
 
 
 ALPHA_CASES = (("walls", (-1.0, -1.0, -1.0, -1.0), (False, False)),
@@ -977,7 +993,10 @@ def check_alpha_kernels(rnd, dtype, record):
     finest level): walls, periodic rows, doubly periodic; scalar and cell
     dia; omega 1 and 1.5; 8 sweeps (every upward level) and 24 (the
     coarsest level's 8 + 16); with zero-diagonal cells, which keep their
-    value.  Then every level size of a correction down to 4^2."""
+    value; each from a given u and with a coarse correction's
+    prolongation folded in, + u.  Then every level size of a correction
+    down to 4^2 as the correction runs it: from zero at 4^2, the coarser
+    level prolonged above, + u at the top."""
     from gerris_tpu_torch.ops.cuda import rbgs
     name = str(dtype).replace("torch.", "")
     b = BOUND[name]
@@ -989,38 +1008,52 @@ def check_alpha_kernels(rnd, dtype, record):
                                      (1.0, 24, True), (1.5, 24, False)):
                 u, rhs, ax, ay, dia = alpha_system(rnd, dtype, n, per, cell,
                                                    dead)
+                c = rnd(dtype, n // 2, n // 2)
                 kw = dict(nsweeps=nsw, h2=1.0 / n ** 2, signs=signs,
                           periodic=per, omega=omega, dia_cell=cell)
+                tag = (f"{n} {kind} dia={'cell' if cell else 'scalar'} "
+                       f"omega={omega} nsweeps={nsw}"
+                       f"{' dead cells' if dead else ''}")
                 got = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw)
                 errs.append(compare(
-                    f"K15 rbgs_relax_alpha {n} {kind} "
-                    f"dia={'cell' if cell else 'scalar'} omega={omega} "
-                    f"nsweeps={nsw}{' dead cells' if dead else ''}", got,
+                    f"K15 rbgs_relax_alpha {tag}", got,
                     rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, **kw),
                     b))
                 if dead and not (got[1, 2] == u[1, 2]
                                  and got[n - 2, 3] == u[n - 2, 3]):
                     raise AssertionError("K15: a zero-diagonal cell moved")
-    m = n // 2
+                fold = dict(kw, coarse=c, add=u)
+                errs.append(compare(
+                    f"K15 rbgs_relax_alpha coarse + u {tag}",
+                    rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, **fold),
+                    rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dia,
+                                                **fold), b))
+    m = n
     while m >= 4:
         for kind, signs, per in ALPHA_CASES:
             u, rhs, ax, ay, dia = alpha_system(rnd, dtype, m, per, True,
                                                False)
             kw = dict(nsweeps=24 if m == 4 else 8, h2=1.0 / m ** 2,
-                      signs=signs, periodic=per, omega=1.0, dia_cell=True)
-            compare(f"K15 rbgs_relax_alpha {m} {kind}",
-                    rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw),
-                    rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, **kw),
-                    b)
+                      signs=signs, periodic=per, omega=1.0, dia_cell=True,
+                      coarse=None if m == 4 else rnd(dtype, m // 2, m // 2),
+                      add=u if m == n else None)
+            compare(f"K15 rbgs_relax_alpha {m} {kind} "
+                    f"{'from zero' if m == 4 else 'coarse'}"
+                    f"{' + u' if m == n else ''}",
+                    rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, **kw),
+                    rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dia,
+                                                **kw), b)
         m //= 2
     if record is not None:
         record["rbgs_relax_alpha"].update(zip(ERR_KEYS, map(max, zip(*errs))))
 
 
 def check_alpha_tiles(rnd):
-    """K15 bit-identical across tiles 64, 32 and 16 at 1024^2 (float32;
-    32 and 16 in float64), whole-level and tiled at 64^2, on every
-    periodicity, and with its sweeps split over launches."""
+    """K15 bit-identical across tiles 64, 32 and 16 and threads 256 and
+    512 at 1024^2 (float32; tiles 32 and 16 in float64), from a given u
+    and with the coarse correction folded in (+ u), whole-level and tiled
+    at 64^2, on every periodicity, and with its sweeps split over
+    launches."""
     import torch
     from gerris_tpu_torch.ops.cuda import rbgs
     n = 1 << LEVEL_TWOPHASE
@@ -1028,39 +1061,48 @@ def check_alpha_tiles(rnd):
                          (torch.float64, (32, 16))):
         for kind, signs, per in ALPHA_CASES:
             u, rhs, ax, ay, dia = alpha_system(rnd, dtype, n, per, True, True)
+            c = rnd(dtype, n // 2, n // 2)
             kw = dict(nsweeps=8, h2=1.0 / n ** 2, signs=signs, periodic=per,
                       omega=1.5, dia_cell=True)
-            outs = [rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, tile=t, **kw)
-                    for t in tiles]
-            if not all(torch.equal(outs[0], o) for o in outs[1:]):
-                raise AssertionError(f"K15 {kind} {dtype}: tiles {tiles} "
-                                     "differ")
+            for start in (dict(), dict(coarse=c, add=u)):
+                x = None if start else u
+                outs = [rbgs.rbgs_relax_alpha(x, rhs, ax, ay, dia, tile=t,
+                                              threads=th, **start, **kw)
+                        for t in tiles for th in (256, 512)]
+                if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                    raise AssertionError(f"K15 {kind} {dtype} {list(start)}:"
+                                         f" tiles {tiles} differ")
             s64 = alpha_system(rnd, dtype, 64, per, True, True)
-            if not torch.equal(
-                    rbgs.rbgs_relax_alpha(*s64, **kw),
-                    rbgs.rbgs_relax_alpha(*s64, tile=16, whole_max=32,
-                                          **kw)):
-                raise AssertionError(f"K15 {kind} {dtype}: whole-level and "
-                                     "tiled launches differ")
+            c64 = rnd(dtype, 32, 32)
+            for x, start in ((s64[0], dict()), (None, dict(coarse=c64))):
+                if not torch.equal(
+                        rbgs.rbgs_relax_alpha(x, *s64[1:], **start, **kw),
+                        rbgs.rbgs_relax_alpha(x, *s64[1:], tile=16,
+                                              whole_max=32, **start, **kw)):
+                    raise AssertionError(f"K15 {kind} {dtype}: whole-level "
+                                         "and tiled launches differ")
             rbgs.reset_launch_counts()
-            split = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, tile=32,
-                                          **dict(kw, nsweeps=30))
+            kws = dict(kw, nsweeps=30, coarse=c, add=u)
+            split = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, tile=32,
+                                          **kws)
             if rbgs.LAUNCHES["rbgs_relax_alpha"] < 2 or not torch.equal(
-                    split, rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia,
-                                                 tile=16,
-                                                 **dict(kw, nsweeps=30))):
+                    split, rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia,
+                                                 tile=16, **kws)):
                 raise AssertionError(f"K15 {kind} {dtype}: split sweeps "
                                      "differ across tiles")
-    print(f"  K15 tiles 64 == 32 == 16 at {n} (float64: 32 == 16), whole "
-          "== tiled at 64, every periodicity; 30 sweeps over several "
-          "launches: bit-identical")
+    print(f"  K15 tiles 64 == 32 == 16 x threads 256 == 512 at {n} "
+          "(float64: 32 == 16), from u and from a coarse correction + u, "
+          "whole == tiled at 64, every periodicity; 30 sweeps over "
+          "several launches: bit-identical")
 
 
-def alpha_flops(n, nsweeps, omega):
+def alpha_flops(n, nsweeps, omega, coarse=False, add=False):
     """Operations of K15 on an n^2 level: den once (5 per cell), then per
     sweep the numerator (7), the rhs term (2), the division (1) and the
-    omega blend (3)."""
-    return n * n * (5 + nsweeps * (10 + (3 if omega != 1.0 else 0)))
+    omega blend (3); with a coarse correction its prolongation (6 per
+    cell), with an added u 1 per cell."""
+    return n * n * (5 + nsweeps * (10 + (3 if omega != 1.0 else 0))
+                    + (6 if coarse else 0) + (1 if add else 0))
 
 
 def nbytes(*ts):
@@ -1518,11 +1560,13 @@ def phase_kernels(dev, record):
         lambda: rbgs3d.rbgs_relax_3d_plain(u3, r3, dia3, **kw13d),
         nbytes(u3, r3), n3 ** 3 * 7, None)
     # K15 as the twophase route runs it at its finest level, 1024^2: the
-    # diffusion's cell dia (rho) and 8 sweeps, and the projections'
-    # scalar dia 0
+    # diffusion's cell dia (rho) and 8 sweeps from a given u, the
+    # projections' scalar dia 0, and the correction's fold: the coarse
+    # level's result prolonged at placement, + u
     na = 1 << LEVEL_TWOPHASE
     ua, ra, axa, aya, da = alpha_system(rnd, f32, na, (False, False), True,
                                         False)
+    ca = rnd(f32, na // 2, na // 2)
     kw15 = dict(nsweeps=8, h2=1.0 / na ** 2, signs=(-1.0,) * 4)
     timings["rbgs_relax_alpha"] = (
         lambda: rbgs.rbgs_relax_alpha(ua, ra, axa, aya, da, dia_cell=True,
@@ -1535,21 +1579,94 @@ def phase_kernels(dev, record):
         lambda: rbgs.rbgs_relax_alpha(ua, ra, axa, aya, 0.0, **kw15p),
         lambda: rbgs.rbgs_relax_alpha_plain(ua, ra, axa, aya, 0.0, **kw15p),
         nbytes(ua, ra, axa, aya), alpha_flops(na, 8, 1.0), None)
-    # K15 at every level of a twophase correction with the default tiles
-    # (printed only; the record holds the 1024^2 time)
-    per_level = []
+    kw15c = dict(kw15, dia_cell=True, coarse=ca, add=ua)
+    timings["rbgs_relax_alpha|coarse"] = (
+        lambda: rbgs.rbgs_relax_alpha(None, ra, axa, aya, da, **kw15c),
+        lambda: rbgs.rbgs_relax_alpha_plain(None, ra, axa, aya, da, **kw15c),
+        nbytes(ca, ra, axa, aya, da, ua),
+        alpha_flops(na, 8, 1.0, coarse=True, add=True), None)
+    # K15 at 1024^2 per tile and threads, with and without the coarse
+    # correction, in turns (forward, then backward; the lower time)
+    combos = [(t, th) for t in (64, 32, 16) for th in (256, 512)]
+    k15_tiles = {}
+    for t, th in combos + combos[::-1]:
+        key = f"{t}x{th}"
+        ts = {"u": cuda_ms(lambda: rbgs.rbgs_relax_alpha(
+                  ua, ra, axa, aya, da, dia_cell=True, tile=t, threads=th,
+                  **kw15)),
+              "coarse": cuda_ms(lambda: rbgs.rbgs_relax_alpha(
+                  None, ra, axa, aya, da, tile=t, threads=th, **kw15c))}
+        k15_tiles[key] = {k: min(v, k15_tiles.get(key, {}).get(k, v))
+                          for k, v in ts.items()}
+    plan15 = rbgs._plan("rbgs_relax_alpha", ra, 8, None, None, 64)
+    record["rbgs_relax_alpha"]["tiles"] = k15_tiles
+    record["rbgs_relax_alpha"]["plan"] = f"{plan15[0]}x{plan15[2]}"
+    print(f"  K15 per tile x threads at {na}^2 (float32, cell dia, 8 "
+          f"sweeps; ms from u / from a coarse correction + u; the plan "
+          f"{plan15[0]}x{plan15[2]}): " + ", ".join(
+              f"{k} {v['u']:.4f} / {v['coarse']:.4f}"
+              for k, v in k15_tiles.items()))
+    # K15 at every level of a twophase correction as the correction runs
+    # it (from zero with 24 sweeps at 4^2, the coarser level prolonged
+    # with 8 above, + u at the top), the plan's tile: CUDA events at 256
+    # and 512 threads (back to back, so the smallest levels read the
+    # host's time per call), and the plan's device and host time per
+    # launch (profiled); each level's plain time and bound beside
+    k15_levels = {}
     m = na
     while m >= 4:
         ul, rl, axl, ayl, dl = alpha_system(rnd, f32, m, (False, False),
                                             True, False)
-        kwl = dict(nsweeps=24 if m == 4 else 8, h2=1.0 / m ** 2,
-                   signs=(-1.0,) * 4, dia_cell=True)
-        t = cuda_ms(lambda: rbgs.rbgs_relax_alpha(ul, rl, axl, ayl, dl,
-                                                  **kwl))
-        per_level.append(f"{m}: {t:.4f}")
+        cl = None if m == 4 else rnd(f32, m // 2, m // 2)
+        al = ul if m == na else None
+        nsw = 24 if m == 4 else 8
+        kwl = dict(nsweeps=nsw, h2=1.0 / m ** 2, signs=(-1.0,) * 4,
+                   dia_cell=True, coarse=cl, add=al)
+        pl = rbgs._plan("rbgs_relax_alpha", rl, nsw, None, None, 64)
+        lv = {f"ms_{th}": cuda_ms(lambda: rbgs.rbgs_relax_alpha(
+                  None, rl, axl, ayl, dl, threads=th, **kwl))
+              for th in (256, 512)}
+        host, dev_us = host_device_us(lambda: rbgs.rbgs_relax_alpha(
+            None, rl, axl, ayl, dl, **kwl), calls=200)
+        lv.update(ms=lv[f"ms_{pl[2]}"], device_us=dev_us, host_us=host,
+                  plain_ms=cuda_ms(lambda: rbgs.rbgs_relax_alpha_plain(
+                      None, rl, axl, ayl, dl, **kwl)),
+                  bound_ms=bound(nbytes(cl, rl, axl, ayl, dl, al), rl,
+                                 alpha_flops(m, nsw, 1.0, cl is not None,
+                                             al is not None))[0],
+                  tile=pl[0], threads=pl[2])
+        k15_levels[m] = lv
         m //= 2
-    print(f"  K15 per level of a twophase correction (float32, cell dia, 8 "
-          f"sweeps, 24 at 4^2; ms): {', '.join(per_level)}")
+    whole = sum(v["ms"] for m, v in k15_levels.items() if m <= 64)
+    whole_dev = sum(v["device_us"] for m, v in k15_levels.items()
+                    if m <= 64) / 1e3
+    record["rbgs_relax_alpha"]["levels"] = k15_levels
+    record["rbgs_relax_alpha"].update(whole_levels_ms=whole,
+                                      whole_levels_device_ms=whole_dev)
+    print("  K15 per level of a twophase correction (float32, cell dia, 8 "
+          "sweeps, 24 from zero at 4^2, + u at the top; ms at 256 / 512 "
+          "threads, the plan's device us and host us per launch, plain "
+          "ms, bound ms, the plan): " + ", ".join(
+              f"{m}: {v['ms_256']:.4f} / {v['ms_512']:.4f} "
+              f"({v['device_us']:.2f} us, {v['host_us']:.2f} us, "
+              f"{v['plain_ms']:.4f}, {v['bound_ms']:.4f}, "
+              f"{v['tile']}x{v['threads']})" for m, v in k15_levels.items())
+          + f"; the whole levels 64^2..4^2 {whole:.4f} ms per correction "
+          f"back to back, {whole_dev:.4f} ms of device time")
+    # K10 at 2048^2 per tile and threads (the "relax" diffusion's 4
+    # sweeps), in turns
+    k10_tiles = {}
+    for t, th in combos + combos[::-1]:
+        key = f"{t}x{th}"
+        v = cuda_ms(lambda: rbgs.rbgs_relax(u, rhs, dia, tile=t, threads=th,
+                                            **kw10))
+        k10_tiles[key] = min(v, k10_tiles.get(key, v))
+    plan10 = rbgs._plan("rbgs_relax", u, 4, None, None, 64)
+    record["rbgs_relax"]["tiles"] = k10_tiles
+    record["rbgs_relax"]["plan"] = f"{plan10[0]}x{plan10[2]}"
+    print(f"  K10 per tile x threads at {n}^2 (float32, 4 sweeps; ms; the "
+          f"plan {plan10[0]}x{plan10[2]}): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in k10_tiles.items()))
     # K3 at every level of the main path's cycle with the plan's tiles:
     # 5 sweeps at omega 1.5 from the prolonged correction (+ u at 2048^2),
     # 40 from zero at 16^2; each level's bound beside its time
@@ -1775,10 +1892,20 @@ def time_fold(fold_sim, main_sim, card):
     phase_profile(fold_sim, step["fold_correct"], card)
 
 
-def phase_profile(s, step_s, card, steps=PROFILE_STEPS):
+# device kernels of the torch ops that the 2D alpha correction's
+# prolongation (rbgs.prolong_plain) ran between K15 launches, by a
+# substring of their names: roll, where, stack (a cat), the 0.75/0.25
+# products and sums, the edge masks' arange and ==
+PROLONG_OPS = ("roll", "where", "CatArray", "MulFunctor", "CUDAFunctor_add",
+               "arange", "CompareEqFunctor")
+
+
+def phase_profile(s, step_s, card, steps=PROFILE_STEPS, watch=()):
     """torch.profiler over ``steps`` steps of the running simulation:
     device time by kernel, the port's kernels against the plain torch
-    ops, and the device's busy share of an unprofiled step."""
+    ops, and the device's busy share of an unprofiled step; the device
+    ops per step whose kernel names hold each substring of ``watch``.
+    Returns the device ops per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1815,6 +1942,11 @@ def phase_profile(s, step_s, card, steps=PROFILE_STEPS):
     for us, count, key in rows[:16]:
         print(f"    {us / 1e3:9.3f} ms {100 * us / total:5.1f}% "
               f"{count / steps:6.1f}/step  {key[:90]}")
+    if watch:
+        print("  device ops per step by kind: " + ", ".join(
+            f"{w} {sum(r[1] for r in rows if w in r[2]) / steps:.1f}"
+            for w in watch))
+    return launches / steps
 
 
 @contextlib.contextmanager
@@ -2139,8 +2271,9 @@ def want_twophase(steps, niters):
     """Launches of init + ``steps`` two-phase steps from the cycle counts
     of every solve (the initial projection's, then per step the MAC
     projection, the U and V diffusions, the approximate projection): per
-    cycle K15 at each of the K15_LEVELS levels and one restrict_pyramid
-    of the levels below the top; per step K6 once, K4 once per
+    cycle K15 at each of the K15_LEVELS levels, all but the coarsest
+    with the prolongation folded in, and one restrict_pyramid of the
+    levels below the top; per step K6 once, K4 once per
     projection, K14 once per
     component, K9 once; no K1-K3, K5, K7, K8, K10-K13, K16, K17 (the
     alpha solves and the generic correction take none)."""
@@ -2150,6 +2283,7 @@ def want_twophase(steps, niters):
              interp_faces=steps + 1, advect2d=2 * steps,
              rbgs_relax_alpha=K15_LEVELS * cycles,
              restrict_pyramid=cycles)
+    w["rbgs_relax_alpha.prolong"] = (K15_LEVELS - 1) * cycles
     return w
 
 
@@ -2189,7 +2323,9 @@ def phase_twophase(dev, card):
             raise AssertionError(f"twophase: {k}: {counts[k]} launches, "
                                  f"want {w}")
     print(f"  twophase: rbgs_relax_alpha {counts['rbgs_relax_alpha']} "
-          f"launches = {K15_LEVELS} x sum(niter) {sum(niters)}")
+          f"launches = {K15_LEVELS} x sum(niter) {sum(niters)}, "
+          f"{counts['rbgs_relax_alpha.prolong']} of them with the "
+          f"prolongation folded in = {K15_LEVELS - 1} x {sum(niters)}")
     for k, v in s.state.items():
         if v.shape != s.cfg.grid.shape or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"twophase {k}: not finite or wrong shape")
@@ -2232,7 +2368,7 @@ def phase_twophase(dev, card):
           f"{step * 1e3:.3f} ms/step; host syncs per step "
           f"{' '.join(f'{x:.1f}' for x in syncs)}; niter per solve in the "
           f"last window {niters} on {card}")
-    phase_profile(s, step, card, TWOPHASE_PROFILE_STEPS)
+    phase_profile(s, step, card, TWOPHASE_PROFILE_STEPS, watch=PROLONG_OPS)
     return counts
 
 
@@ -2472,6 +2608,8 @@ def main():
         route_counts["fold_div"]["residual_restrict_div"]
     record["rbgs_relax_3d"]["launches_half_sweep"] = \
         route_counts["lid3d"]["rbgs_relax_3d.half_sweep"]
+    record["rbgs_relax_alpha"]["launches_prolong"] = \
+        route_counts["twophase"]["rbgs_relax_alpha.prolong"]
     ada = route_counts["adaptive"]
     record["coarse_vcycle"].update(
         launches_restrict_pyramid=ada["coarse_vcycle.restrict_pyramid"],

@@ -18,7 +18,9 @@
 //   rbgs_relax         nsweeps red-black sweeps from a given u, periodic
 //                      on either axis, in one launch;
 //   rbgs_relax_alpha   the same with face coefficients and a scalar or
-//                      per-cell dia (div(alpha grad u) - dia u = rhs);
+//                      per-cell dia (div(alpha grad u) - dia u = rhs),
+//                      from a given u or from a prolonged coarse
+//                      correction (+ u);
 //   coarse_block       the whole cascade of a level of at most 64^2 in
 //                      one block;
 //   residual_restrict_div  residual_restrict with rhs = div(uf) / dt formed
@@ -28,6 +30,13 @@
 //   and the cascades (ops/cuda/rbgs.py:cascade_prolong_relax and
 //   coarse_vcycle) are host sequences of one restrict_pyramid launch and
 //   prolong_relax and coarse_block launches.
+//
+// One sweep engine (pr_relax) runs every tiled red-black smoother: K3,
+// K8c, K17, the K3 launches of K2, K8b and K12, K10 and K15.  Its
+// compile-time parameters are the placement (the prolonged coarse
+// correction or zero, or a given u), the coefficients (the constant
+// 1 / (4 + dia h2), or face coefficients with a per-cell denominator)
+// and periodic rows, so that no instance pays for another's branches.
 //
 // The first three and restrict_pyramid take a batch of 1 or 2 independent systems of one size:
 // gridDim.z is the batch and blockIdx.z picks the system's pointers and
@@ -58,8 +67,6 @@ namespace {
 
 constexpr int MAX_BATCH = 2;
 constexpr int RR_TILE = 16;  // residual_restrict output tile (4-aligned)
-constexpr int RX_THREADS_X = 32;  // K10 and K15's blocks
-constexpr int RX_THREADS_Y = 8;
 
 // One system of a residual_restrict launch.  K16 (residual_restrict_div)
 // forms the rhs from the MAC faces ufx, ufy instead of reading rhs.
@@ -87,14 +94,16 @@ struct RRArgs {
   int per_y;
 };
 
-// One system of a prolong_relax launch.
+// One system of a sweep-engine launch (pr_relax).
 template <typename T>
 struct PRSystem {
-  const T* coarse;  // nullptr: start from du = 0
+  // PL_PROLONG: the coarse correction, prolonged at placement (nullptr:
+  // start from du = 0); PL_GIVEN: the start value
+  const T* src;
   const T* rhs;
   const T* u;  // nullptr: return du, else u + du
   T* out;
-  T inv_denom;  // 1 / (4 + dia h2)
+  T inv_denom;  // CF_CONST: 1 / (4 + dia h2)
 };
 
 template <typename T>
@@ -105,6 +114,20 @@ struct PRArgs {
   int use_omega;
   T sgn[4];
   int per_y;
+};
+
+// The sweep engine's placement of the start value, and its coefficients
+enum Place { PL_PROLONG, PL_GIVEN };
+enum Coef { CF_CONST, CF_FACES };
+
+// The face coefficients of a CF_FACES engine (K15): ax ((n0+1) x n1), ay
+// (n0 x (n1+1)), and a cell dia or (dia == nullptr) the scalar dia_s
+template <typename T>
+struct PRFaces {
+  const T* ax;
+  const T* ay;
+  const T* dia;
+  T dia_s;
 };
 
 // ---------------------------------------------------------------------------
@@ -318,7 +341,10 @@ __global__ void restrict_pyramid_kernel(PYArgs<T> a) {
 // The valid region shrinks by at most one cell per half-sweep, so after
 // 2*nsweeps half-sweeps the tile is exact (the TPU kernel's own argument,
 // rbgs.py:5-10).  The sweep engine, pr_relax, is shared by K3, K8c, the
-// K3 launches of the cascades K2, K8b and K12, and K17:
+// K3 launches of the cascades K2, K8b and K12, K17, K10 and K15 (its
+// placement, coefficients and periodic rows are template parameters;
+// K3's instance prolongs or starts from zero, with the constant
+// coefficient and non-periodic rows):
 // * colour-split storage: a buffer cell (li, lj) lies in the half of its
 //   local parity (li + lj) & 1, at li * B/2 + lj / 2, so a half-sweep's
 //   cells are one half, read and written at unit stride, and their four
@@ -330,17 +356,18 @@ __global__ void restrict_pyramid_kernel(PYArgs<T> a) {
 //   overwritten by nothing that is read, so the result is that of
 //   updating the whole buffer, bit for bit, at ~half the work at tile 64;
 // * no ghost cells in the sweeps: a cell on a domain edge reads its
-//   ghost as sgn * its own value (a whole-level block's periodic column
-//   as the cell across the wrap, which is of the other colour), the
+//   ghost as sgn * its own value (a whole-level block's periodic row or
+//   column as the cell across the wrap, which is of the other colour), the
 //   value that a ghost refreshed before the half-sweep held; only blocks
 //   that touch a domain edge test for it, and a half-sweep costs one
 //   barrier.
 // A level that fits one block is run with tile = n and halo = 0: the
 // buffer is the whole level plus its ghost ring; the pair then runs as
-// two blocks.  coarse == nullptr starts from du = 0 (the coarsest
-// level); u != nullptr adds u to the result.
+// two blocks.  src == nullptr starts from du = 0 (the coarsest level);
+// u != nullptr adds u to the result.
 // ---------------------------------------------------------------------------
-// threads of a K3-family block: 512 for the largest tiles, whose
+// threads of a K3 block (K10's and K15's come from their wrapper's
+// plan, ops/cuda/rbgs.py:_sweep_plan): 512 for the largest tiles, whose
 // half-sweeps have ~1500-3500 cells (16 warps hide the shared-memory
 // latency of a half-sweep better than 8: 0.119 against 0.146 ms for K3
 // at 2048^2 on an H100), 256 for smaller tiles and whole levels, whose
@@ -366,53 +393,113 @@ struct PRBuf {
   }
 };
 
-// The prolongation and the sweeps of one block, in its shared buffers buf
-// (du) and rb (rhs), each 2 * hs entries (pr_half); ends with the block
+// Products and sums that nvcc never contracts into an FMA: each rounded
+// on its own, as PyTorch's separate elementwise kernels round them (K15's
+// prolongation, so that it gives prolong_plain's bits)
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// The shared buffers of an engine block, each 2 * hs entries (pr_half):
+// du and rhs, then with CF_FACES each cell's low x face, its low y face
+// and its denominator
+template <Coef COEF>
+__host__ __device__ __forceinline__ int pr_buffers() {
+  return COEF == CF_FACES ? 5 : 2;
+}
+
+// The sweep engine: the placement and the sweeps of one block in its
+// shared buffers from buf on (pr_buffers); ends with the block
 // synchronised and du final on the tile and, with ring = 1, on the
 // one-cell ring around it.
-template <typename T>
+// PLACE: PL_PROLONG places the bilinear prolongation of s.src (rows
+// first, homogeneous ghosts sgn * c or a wrap; zero when s.src is
+// nullptr), PL_GIVEN places s.src itself.
+// COEF: CF_CONST updates a cell to (nb - h2 rhs) * inv_denom; CF_FACES to
+// (num - h2 rhs) / den, num = ax_lo up + ax_hi dn + ay_lo lf + ay_hi rt
+// and den = ax_lo + ax_hi + ay_lo + ay_hi + dia h2 formed once at
+// placement, a cell with den <= 1e-20 keeping its value.  A cell's high
+// faces are its neighbours' low faces, in the other colour half at k + H
+// (x) and k + q (y); on a periodic axis face n is face 0.  Keep the
+// expressions of the sweeps and of K15's den as they are: nvcc contracts
+// each into FMAs by its shape, and the two-phase step's results (whose
+// VOF and curvature decisions amplify a rounding difference past
+// chip_smoke's gate, PERF.md) are held bit for bit to this arithmetic.
+// CF_FACES prolongs with every product and sum rounded on its own
+// (mul_rn, add_rn), as the plain prolong_plain rounds them.
+// PX: periodic rows (per_y, periodic columns, is a run-time flag).  A
+// tiled block reads its halo (values, faces) across a periodic axis'
+// wrap at placement; a whole-level block reads the cell across the wrap
+// in the sweeps.
+template <typename T, Place PLACE, Coef COEF, bool PX>
 __device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
                                          const PRSystem<T>& s,
-                                         const PRBuf& L, T* buf, T* rb,
-                                         int ring) {
+                                         const PRFaces<T>& f,
+                                         const PRBuf& L, T* buf, int ring) {
   const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
   const int per_y = a.per_y;
   const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
   const int B = L.B, H = L.H, hs = L.hs;
+  T* const rb = buf + 2 * hs;
+  T* const axs = buf + 4 * hs;  // CF_FACES only, as the next two
+  T* const ays = buf + 6 * hs;
+  T* const dns = buf + 8 * hs;
   const int gi0 = blockIdx.y * tile - halo - 1;
   const int gj0 = blockIdx.x * tile - halo - 1;
   const int t = threadIdx.x, nt = blockDim.x;
   const int tx = t & 31, ty = t >> 5, nty = nt >> 5;
-  const int m1 = n1 / 2;
-  const T* coarse = s.coarse;
-  // a tiled block reads periodic columns across the wrap; a whole-level
-  // block's wrap is read in the sweeps
+  const int m0 = n0 / 2, m1 = n1 / 2;
+  const T* src = s.src;
+  // a tiled block reads periodic rows and columns across the wrap; a
+  // whole-level block's wrap is read in the sweeps
+  const bool wrap_x = PX && halo > 0;
   const bool wrap_y = per_y && halo > 0;
 
-  // ---- place du (prolonged or zero) and rhs
+  // ---- place du (prolonged, zero or given) and rhs (and the faces)
   for (int li = ty; li < B; li += nty) {
-    const int gi = gi0 + li;
+    int gi = gi0 + li;
+    if (wrap_x) gi = (gi % n0 + n0) % n0;
     const bool real_i = gi >= 0 && gi < n0;
+    // the low x face of local row li: face n0 is face 0 when periodic
+    int fi = gi0 + li;
+    if (PX) fi = (fi % n0 + n0) % n0;
     for (int lj = tx; lj < B; lj += 32) {
       int gj = gj0 + lj;
       if (wrap_y) gj = (gj % n1 + n1) % n1;
-      const bool real = real_i && gj >= 0 && gj < n1;
+      const bool real_j = gj >= 0 && gj < n1;
+      const bool real = real_i && real_j;
       T du = T(0), r = T(0);
       if (real) {
         r = s.rhs[(size_t)gi * n1 + gj];
-        if (coarse) {
+        if (PLACE == PL_GIVEN) {
+          du = src[(size_t)gi * n1 + gj];
+        } else if (src) {
           const int ci = gi >> 1, cj = gj >> 1;
-          const int cin = (gi & 1) ? ci + 1 : ci - 1;
+          int cin = (gi & 1) ? ci + 1 : ci - 1;
+          if (PX) cin = (cin + m0) % m0;
           // row step first, on coarse columns cj and its neighbour
           auto rowstep = [&](int cc) -> T {
-            const T base = coarse[(size_t)ci * m1 + cc];
+            const T base = src[(size_t)ci * m1 + cc];
             T nb;
-            if (gi == 0)
+            if (PX)
+              nb = src[(size_t)cin * m1 + cc];
+            else if (gi == 0)
               nb = sx0 * base;
             else if (gi == n0 - 1)
               nb = sx1 * base;
             else
-              nb = coarse[(size_t)cin * m1 + cc];
+              nb = src[(size_t)cin * m1 + cc];
+            if constexpr (COEF == CF_FACES)
+              return add_rn(mul_rn(T(0.75), base), mul_rn(T(0.25), nb));
             return T(0.75) * base + T(0.25) * nb;
           };
           const T p = rowstep(cj);
@@ -426,22 +513,47 @@ __device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
             q = sy1 * p;
           else
             q = rowstep(cjn);
-          du = T(0.75) * p + T(0.25) * q;
+          if constexpr (COEF == CF_FACES)
+            du = add_rn(mul_rn(T(0.75), p), mul_rn(T(0.25), q));
+          else
+            du = T(0.75) * p + T(0.25) * q;
         }
       }
       const int k = L.at(li, lj);
       buf[k] = du;
       rb[k] = r;
+      if (COEF == CF_FACES) {
+        int fj = gj0 + lj;
+        if (per_y) fj = (fj % n1 + n1) % n1;
+        const T ax_lo =
+            fi >= 0 && fi <= n0 && real_j ? f.ax[(size_t)fi * n1 + gj] : T(0);
+        const T ay_lo = real_i && fj >= 0 && fj <= n1
+                            ? f.ay[(size_t)gi * (n1 + 1) + fj]
+                            : T(0);
+        T den = T(0);
+        if (real) {
+          const int hi = PX && gi == n0 - 1 ? 0 : gi + 1;
+          const int hj = per_y && gj == n1 - 1 ? 0 : gj + 1;
+          const T ax_hi = f.ax[(size_t)hi * n1 + gj];
+          const T ay_hi = f.ay[(size_t)gi * (n1 + 1) + hj];
+          const T dh2 = (f.dia ? f.dia[(size_t)gi * n1 + gj] : f.dia_s) * a.h2;
+          den = ax_lo + ax_hi + ay_lo + ay_hi + dh2;
+        }
+        axs[k] = ax_lo;
+        ays[k] = ay_lo;
+        dns[k] = den;
+      }
     }
   }
   __syncthreads();
 
   // the domain's cells in the buffer, inside the frozen outer ring
-  const int di0 = max(1, -gi0), di1 = min(B - 2, n0 - 1 - gi0);
+  const int di0 = wrap_x ? 1 : max(1, -gi0);
+  const int di1 = wrap_x ? B - 2 : min(B - 2, n0 - 1 - gi0);
   const int dj0 = wrap_y ? 1 : max(1, -gj0);
   const int dj1 = wrap_y ? B - 2 : min(B - 2, n1 - 1 - gj0);
-  // the block holds a domain edge (or a whole level's periodic columns)
-  const bool edge = gi0 < 0 || gi0 + B > n0 ||
+  // the block holds a domain edge (or a whole level's periodic cells)
+  const bool edge = (!wrap_x && (gi0 < 0 || gi0 + B > n0)) ||
                     (!wrap_y && (gj0 < 0 || gj0 + B > n1));
   const int par0 = (gi0 + gj0) & 1;
   const int S = 2 * a.nsweeps;
@@ -470,27 +582,47 @@ __device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
         const int lj = 2 * m + q;
         if (lj <= lj1) {
           const int k = li * H + m;
-          const T cv = own[k];
-          T up = nbr[k - H], dn = nbr[k + H];
-          T lf = nbr[k - 1 + q], rt = nbr[k + q];
-          if (edge) {
-            const int gi = gi0 + li, gj = gj0 + lj;
-            if (gi == 0) up = sx0 * cv;
-            if (gi == n0 - 1) dn = sx1 * cv;
-            if (!wrap_y) {
-              if (per_y) {  // a whole level: across the wrap
-                if (gj == 0) lf = buf[L.at(li, lj + n1 - 1)];
-                if (gj == n1 - 1) rt = buf[L.at(li, lj - n1 + 1)];
-              } else {
-                if (gj == 0) lf = sy0 * cv;
-                if (gj == n1 - 1) rt = sy1 * cv;
+          const T d0 = COEF == CF_FACES ? dns[pc * hs + k] : T(1);
+          // a zero diagonal (CF_FACES): the cell keeps its value
+          if (COEF == CF_CONST || d0 > T(1e-20)) {
+            const T cv = own[k];
+            T up = nbr[k - H], dn = nbr[k + H];
+            T lf = nbr[k - 1 + q], rt = nbr[k + q];
+            if (edge) {
+              const int gi = gi0 + li, gj = gj0 + lj;
+              if (!wrap_x) {
+                if (PX) {  // a whole level: across the wrap
+                  if (gi == 0) up = buf[L.at(li + n0 - 1, lj)];
+                  if (gi == n0 - 1) dn = buf[L.at(li - n0 + 1, lj)];
+                } else {
+                  if (gi == 0) up = sx0 * cv;
+                  if (gi == n0 - 1) dn = sx1 * cv;
+                }
+              }
+              if (!wrap_y) {
+                if (per_y) {  // a whole level: across the wrap
+                  if (gj == 0) lf = buf[L.at(li, lj + n1 - 1)];
+                  if (gj == n1 - 1) rt = buf[L.at(li, lj - n1 + 1)];
+                } else {
+                  if (gj == 0) lf = sy0 * cv;
+                  if (gj == n1 - 1) rt = sy1 * cv;
+                }
               }
             }
+            T nw;
+            if constexpr (COEF == CF_CONST) {
+              const T nb = up + dn + lf + rt;
+              nw = fma(-a.h2, own_rb[k], nb) * s.inv_denom;
+              if (a.use_omega) nw = fma(a.omega, nw, a.one_m_omega * cv);
+            } else {
+              const int o = pc * hs + k, x = (pc ^ 1) * hs + k;
+              const T num = axs[o] * up + axs[x + H] * dn + ays[o] * lf +
+                            ays[x + q] * rt;
+              nw = (num - a.h2 * own_rb[k]) / d0;
+              if (a.use_omega) nw = a.one_m_omega * cv + a.omega * nw;
+            }
+            own[k] = nw;
           }
-          const T nb = up + dn + lf + rt;
-          T nw = fma(-a.h2, own_rb[k], nb) * s.inv_denom;
-          if (a.use_omega) nw = fma(a.omega, nw, a.one_m_omega * cv);
-          own[k] = nw;
         }
         c += dc;
         r += dr;
@@ -504,23 +636,16 @@ __device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
   }
 }
 
+// The block's tile of the engine's result (+ u) to device memory
 template <typename T>
-__global__ void __launch_bounds__(PR_THREADS)
-    prolong_relax_kernel(PRArgs<T> a) {
-  extern __shared__ unsigned char smem_raw[];
-  const PRSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
+__device__ __forceinline__ void pr_write_tile(const PRArgs<T>& a,
+                                              const PRSystem<T>& s,
+                                              const PRBuf& L, const T* buf) {
   const int n1 = a.n1, tile = a.tile, halo = a.halo;
-  const int B = tile + 2 * halo + 2;
-  const PRBuf L{B, B / 2, pr_half(B)};
-  T* buf = reinterpret_cast<T*>(smem_raw);
-  T* rb = buf + 2 * L.hs;
-  pr_relax(a, s, L, buf, rb, 0);
   const int gi0 = blockIdx.y * tile - halo - 1;
   const int gj0 = blockIdx.x * tile - halo - 1;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int nty = blockDim.x >> 5;
-
-  // ---- the tile (+ u)
   for (int li = halo + 1 + ty; li < halo + 1 + tile; li += nty) {
     const int gi = gi0 + li;
     for (int lj = halo + 1 + tx; lj < halo + 1 + tile; lj += 32) {
@@ -530,6 +655,18 @@ __global__ void __launch_bounds__(PR_THREADS)
       s.out[g] = s.u ? v + s.u[g] : v;
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PR_THREADS)
+    prolong_relax_kernel(PRArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  const PRSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
+  const int B = a.tile + 2 * a.halo + 2;
+  const PRBuf L{B, B / 2, pr_half(B)};
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  pr_relax<T, PL_PROLONG, CF_CONST, false>(a, s, PRFaces<T>{}, L, buf, 0);
+  pr_write_tile(a, s, L, buf);
 }
 
 // ---------------------------------------------------------------------------
@@ -567,8 +704,7 @@ __global__ void __launch_bounds__(PR_THREADS)
   const int B = tile + 2 * halo + 2;
   const PRBuf L{B, B / 2, pr_half(B)};
   T* buf = reinterpret_cast<T*>(smem_raw);
-  T* rb = buf + 2 * L.hs;
-  pr_relax(a, s, L, buf, rb, 1);
+  pr_relax<T, PL_PROLONG, CF_CONST, false>(a, s, PRFaces<T>{}, L, buf, 1);
   const int gi0 = blockIdx.y * tile - halo - 1;
   const int gj0 = blockIdx.x * tile - halo - 1;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
@@ -691,277 +827,78 @@ __global__ void residual_kernel(ResArgs<T> a) {
 // Replaces gerris_tpu/ops/pallas/rbgs.py:rbgs_relax (_kernel): nsweeps
 // red-black Gauss-Seidel sweeps (red = global (i+j) even first) from a given
 // u on (L - dia) u = rhs, scalar dia, homogeneous ghosts, periodic rows
-// and/or columns.  The "relax" solver's sweeps and the upward levels of a
-// correction with periodic rows.
+// and/or columns, omega.  The "relax" solver's sweeps and the upward
+// levels of a correction with periodic rows.
 // Bound: device-memory bytes for a level of many tiles (reads u and rhs,
-// writes the result once for all sweeps); a level that fits one block is
-// bound by its serial half-sweeps.
-// Design: K3's tile as it was before K3's sweep engine was redesigned,
-// without the prolongation.  One block per tile x tile output tile; the
-// shared buffer holds the tile, a halo of 2*nsweeps cells and a frozen
-// outer ring, and the rhs beside it.  On a periodic axis the
-// halo is read across the wrap (the TPU kernel's wrapped halo DMAs); on a
-// non-periodic one, the domain-edge ghosts inside the buffer are
-// recomputed (sgn * mirror) before every half-sweep.  The valid region
-// shrinks by at most one cell per half-sweep, so the tile is exact after
-// 2*nsweeps of them, for any tile size.  A level that fits one block runs
-// with tile = n and halo = 0, its periodic wrap refreshed like a ghost
-// ring.  The global colour of a wrapped cell is that of its unwrapped
-// position: the levels are even.
+// writes the result once for all sweeps; at 2048^2 f32 ~50 MB, ~15 us);
+// a level that fits one block is bound by its serial half-sweeps.
+// Design: the sweep engine (pr_relax) with the given-u placement and the
+// constant coefficient, K3's tile without the prolongation: colour-split
+// bank-padded buffers of u and rhs, a shrinking update region, no ghost
+// pass, one barrier per half-sweep, the tile and threads chosen per level
+// by the wrapper (ops/cuda/rbgs.py:_sweep_plan).  On a periodic axis a
+// tiled block reads its halo across the wrap (the TPU kernel's wrapped
+// halo DMAs); a whole-level block reads the cell across it.  The
+// wrapper splits the sweeps over consecutive launches when their halo
+// outgrows shared memory; the sweeps of consecutive launches compose
+// exactly, so the result is bit-identical for every tile and split.
 // ---------------------------------------------------------------------------
-template <typename T>
-struct RXArgs {
-  const T* u;
-  const T* rhs;
-  T* out;
-  int n0, n1, tile, halo, nsweeps;
-  T h2, inv_denom, omega, one_m_omega;
-  int use_omega;
-  T sgn[4];
-  int per_x, per_y;
-};
-
-template <typename T>
-__global__ void rbgs_relax_kernel(RXArgs<T> a) {
+template <typename T, bool PX>
+__global__ void __launch_bounds__(PR_THREADS)
+    rbgs_relax_kernel(PRArgs<T> a) {
   extern __shared__ unsigned char smem_raw[];
-  const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
-  const int B = tile + 2 * halo + 2;
+  const PRSystem<T>& s = a.sys[0];
+  const int B = a.tile + 2 * a.halo + 2;
+  const PRBuf L{B, B / 2, pr_half(B)};
   T* buf = reinterpret_cast<T*>(smem_raw);
-  T* rb = buf + (size_t)B * B;
-  const int gi0 = blockIdx.y * tile - halo - 1;
-  const int gj0 = blockIdx.x * tile - halo - 1;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  // a tiled block reads its halo across a periodic axis' wrap; a
-  // whole-level block (halo 0) refreshes the wrap like a ghost ring
-  const bool wrap_x = a.per_x && halo > 0, wrap_y = a.per_y && halo > 0;
-  const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
-
-  // ---- place u and rhs
-  for (int li = ty; li < B; li += RX_THREADS_Y) {
-    int gi = gi0 + li;
-    if (wrap_x) gi = (gi % n0 + n0) % n0;
-    const bool real_i = gi >= 0 && gi < n0;
-    for (int lj = tx; lj < B; lj += RX_THREADS_X) {
-      int gj = gj0 + lj;
-      if (wrap_y) gj = (gj % n1 + n1) % n1;
-      const bool real = real_i && gj >= 0 && gj < n1;
-      const size_t g = (size_t)gi * n1 + gj;
-      buf[li * B + lj] = real ? a.u[g] : T(0);
-      rb[li * B + lj] = real ? a.rhs[g] : T(0);
-    }
-  }
-  __syncthreads();
-
-  for (int sw = 0; sw < 2 * a.nsweeps; ++sw) {
-    const int color = sw & 1;  // red ((i+j) even) first
-    // ---- ghosts from the current interior: domain edges, and the wrap of
-    // a whole-level block
-    for (int li = ty; li < B; li += RX_THREADS_Y) {
-      const int gi = gi0 + li;
-      const bool real_i = wrap_x || (gi >= 0 && gi < n0);
-      const bool ghost_i = !real_i && (gi == -1 || gi == n0);
-      for (int lj = tx; lj < B; lj += RX_THREADS_X) {
-        const int gj = gj0 + lj;
-        const bool real_j = wrap_y || (gj >= 0 && gj < n1);
-        const bool ghost_j = !real_j && (gj == -1 || gj == n1);
-        const int k = li * B + lj;
-        if (ghost_i && real_j) {
-          if (a.per_x)
-            buf[k] = gi < 0 ? buf[k + n0 * B] : buf[k - n0 * B];
-          else
-            buf[k] = gi < 0 ? sx0 * buf[k + B] : sx1 * buf[k - B];
-        } else if (real_i && ghost_j) {
-          if (a.per_y)
-            buf[k] = gj < 0 ? buf[k + n1] : buf[k - n1];
-          else
-            buf[k] = gj < 0 ? sy0 * buf[k + 1] : sy1 * buf[k - 1];
-        }
-      }
-    }
-    __syncthreads();
-    // ---- one colour; the frozen outer ring is never updated
-    for (int li = ty + 1; li < B - 1; li += RX_THREADS_Y) {
-      const int gi = gi0 + li;
-      if (!wrap_x && (gi < 0 || gi >= n0)) continue;
-      for (int lj = tx + 1; lj < B - 1; lj += RX_THREADS_X) {
-        const int gj = gj0 + lj;
-        if (!wrap_y && (gj < 0 || gj >= n1)) continue;
-        if (((gi + gj) & 1) != color) continue;
-        const int k = li * B + lj;
-        const T c = buf[k];
-        const T nb = buf[k - B] + buf[k + B] + buf[k - 1] + buf[k + 1];
-        T nw = (nb - a.h2 * rb[k]) * a.inv_denom;
-        if (a.use_omega) nw = a.one_m_omega * c + a.omega * nw;
-        buf[k] = nw;
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- the tile
-  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += RX_THREADS_Y) {
-    const int gi = gi0 + li;
-    for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
-         lj += RX_THREADS_X) {
-      a.out[(size_t)gi * n1 + gj0 + lj] = buf[li * B + lj];
-    }
-  }
+  pr_relax<T, PL_GIVEN, CF_CONST, PX>(a, s, PRFaces<T>{}, L, buf, 0);
+  pr_write_tile(a, s, L, buf);
 }
 
 // ---------------------------------------------------------------------------
 // K15 rbgs_relax_alpha.
-// Replaces gerris_tpu/ops/pallas/rbgs.py:rbgs_relax_alpha (_kernel_alpha):
-// nsweeps red-black Gauss-Seidel sweeps (red = global (i+j) even first)
-// from a given u on div(alpha grad u) - dia u = rhs, face coefficients ax
-// ((n0+1) x n1) and ay (n0 x (n1+1)), a scalar or per-cell dia,
-// homogeneous ghosts, periodic rows and/or columns.  A cell's update is
+// Replaces gerris_tpu/ops/pallas/rbgs.py:rbgs_relax_alpha (_kernel_alpha),
+// with the bilinear prolongation between its levels folded in: nsweeps
+// red-black Gauss-Seidel sweeps (red = global (i+j) even first) on
+// div(alpha grad u) - dia u = rhs, face coefficients ax ((n0+1) x n1) and
+// ay (n0 x (n1+1)), a scalar or per-cell dia, homogeneous ghosts,
+// periodic rows and/or columns, from a given u or from the prolongation
+// of a coarse correction (zero without one), + u.  A cell's update is
 // (ax_lo u_up + ax_hi u_dn + ay_lo u_lf + ay_hi u_rt - h2 rhs) / den with
 // den = ax_lo + ax_hi + ay_lo + ay_hi + dia h2, summed in that order;
 // a cell with den <= 1e-20 (a zero diagonal) keeps its value.  On a
 // periodic axis face n is face 0.  Every level of the two-phase
-// projections' and the variable-density diffusion's corrections.
-// Bound: device-memory bytes for a level of many tiles (reads u, rhs,
-// ax, ay and the cell dia once, writes the result once for all sweeps);
-// a level that fits one block is bound by its serial half-sweeps.
-// Design: K10's tile.  One block per tile x tile output tile; shared
-// buffers of B x B (B = tile + 2 halo + 2, the halo 2 nsweeps, then a
-// frozen outer ring) hold u, rhs, each local cell's low x face (row li
-// holds face gi0 + li, so a cell reads rows li and li + 1), its low y
-// face (column lj likewise), and den, formed once per launch from the
-// faces and dia.  The coefficients are static across the sweeps, so the
-// valid region shrinks by at most one cell per half-sweep exactly as in
-// K10, and the tile is exact after 2 nsweeps of them for any tile size.
-// On a periodic axis the halo and the face windows are read across the
-// wrap; a level that fits one block runs with tile = n and halo = 0, its
-// periodic wrap refreshed like a ghost ring.
+// projections' and the variable-density diffusion's corrections: the
+// coarsest from zero, every upward level from the coarser one's result,
+// the finest + u (solvers/poisson.py:_correction_variable).
+// Bound: device-memory bytes for a level of many tiles (reads the coarse
+// correction or u, rhs, ax, ay and the cell dia once, writes the result
+// once for all sweeps; at 1024^2 f32 ~25 MB, ~7.5 us); a level that fits
+// one block is bound by its serial half-sweeps.
+// Design: the sweep engine (pr_relax) with the face coefficients: five
+// colour-split bank-padded buffers (u, rhs, each cell's low x face, its
+// low y face, den), den formed once at placement from the faces and dia;
+// a cell's high faces are its neighbours' low faces in the other colour
+// half.  The coefficients are static across the sweeps, so the update
+// region shrinks by one cell a side per half-sweep as in K3, and a
+// half-sweep costs one barrier.  The prolonged placement is K3's, with
+// periodic rows.  The tile (64/32/16) and the threads (256/512) are
+// chosen per level by the wrapper (_sweep_plan); at 64^2 and below a
+// level is one whole-level block.  The sweeps are split over
+// consecutive launches when their halo outgrows shared memory (the first
+// places the prolongation, the last adds u): bit-identical for every
+// tile and split.
 // ---------------------------------------------------------------------------
-template <typename T>
-struct RAArgs {
-  const T* u;
-  const T* rhs;
-  const T* ax;
-  const T* ay;
-  const T* dia_cell;  // nullptr: the scalar dia
-  T* out;
-  int n0, n1, tile, halo, nsweeps;
-  T dia, h2, omega, one_m_omega;
-  int use_omega;
-  T sgn[4];
-  int per_x, per_y;
-};
-
-template <typename T>
-__global__ void rbgs_relax_alpha_kernel(RAArgs<T> a) {
+template <typename T, Place PLACE, bool PX>
+__global__ void __launch_bounds__(PR_THREADS)
+    rbgs_relax_alpha_kernel(PRArgs<T> a, PRFaces<T> f) {
   extern __shared__ unsigned char smem_raw[];
-  const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
-  const int B = tile + 2 * halo + 2;
-  const size_t BB = (size_t)B * B;
+  const PRSystem<T>& s = a.sys[0];
+  const int B = a.tile + 2 * a.halo + 2;
+  const PRBuf L{B, B / 2, pr_half(B)};
   T* buf = reinterpret_cast<T*>(smem_raw);
-  T* rb = buf + BB;
-  T* axs = rb + BB;
-  T* ays = axs + BB;
-  T* den = ays + BB;
-  const int gi0 = blockIdx.y * tile - halo - 1;
-  const int gj0 = blockIdx.x * tile - halo - 1;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const bool wrap_x = a.per_x && halo > 0, wrap_y = a.per_y && halo > 0;
-  const T sx0 = a.sgn[0], sx1 = a.sgn[1], sy0 = a.sgn[2], sy1 = a.sgn[3];
-
-  // ---- place u, rhs, the faces and the cell dia (in den for now)
-  for (int li = ty; li < B; li += RX_THREADS_Y) {
-    int gi = gi0 + li;
-    if (wrap_x) gi = (gi % n0 + n0) % n0;
-    const bool real_i = gi >= 0 && gi < n0;
-    // the low x face of local row li: face n0 is face 0 when periodic
-    int fi = gi0 + li;
-    if (a.per_x) fi = (fi % n0 + n0) % n0;
-    const bool face_i = fi >= 0 && fi <= n0;
-    for (int lj = tx; lj < B; lj += RX_THREADS_X) {
-      int gj = gj0 + lj;
-      if (wrap_y) gj = (gj % n1 + n1) % n1;
-      const bool real_j = gj >= 0 && gj < n1;
-      int fj = gj0 + lj;
-      if (a.per_y) fj = (fj % n1 + n1) % n1;
-      const bool face_j = fj >= 0 && fj <= n1;
-      const size_t g = (size_t)gi * n1 + gj;
-      const int k = li * B + lj;
-      buf[k] = real_i && real_j ? a.u[g] : T(0);
-      rb[k] = real_i && real_j ? a.rhs[g] : T(0);
-      axs[k] = face_i && real_j ? a.ax[(size_t)fi * n1 + gj] : T(0);
-      ays[k] = real_i && face_j ? a.ay[(size_t)gi * (n1 + 1) + fj] : T(0);
-      den[k] = a.dia_cell == nullptr ? a.dia
-               : (real_i && real_j ? a.dia_cell[g] : T(0));
-    }
-  }
-  __syncthreads();
-  // ---- den = ax_lo + ax_hi + ay_lo + ay_hi + dia h2 of the cells a
-  // sweep may update (each thread rewrites only its own entries)
-  for (int li = ty + 1; li < B - 1; li += RX_THREADS_Y) {
-    for (int lj = tx + 1; lj < B - 1; lj += RX_THREADS_X) {
-      const int k = li * B + lj;
-      const T dh2 = den[k] * a.h2;
-      den[k] = axs[k] + axs[k + B] + ays[k] + ays[k + 1] + dh2;
-    }
-  }
-  __syncthreads();
-
-  for (int sw = 0; sw < 2 * a.nsweeps; ++sw) {
-    const int color = sw & 1;  // red ((i+j) even) first
-    // ---- ghosts from the current interior: domain edges, and the wrap of
-    // a whole-level block
-    for (int li = ty; li < B; li += RX_THREADS_Y) {
-      const int gi = gi0 + li;
-      const bool real_i = wrap_x || (gi >= 0 && gi < n0);
-      const bool ghost_i = !real_i && (gi == -1 || gi == n0);
-      for (int lj = tx; lj < B; lj += RX_THREADS_X) {
-        const int gj = gj0 + lj;
-        const bool real_j = wrap_y || (gj >= 0 && gj < n1);
-        const bool ghost_j = !real_j && (gj == -1 || gj == n1);
-        const int k = li * B + lj;
-        if (ghost_i && real_j) {
-          if (a.per_x)
-            buf[k] = gi < 0 ? buf[k + n0 * B] : buf[k - n0 * B];
-          else
-            buf[k] = gi < 0 ? sx0 * buf[k + B] : sx1 * buf[k - B];
-        } else if (real_i && ghost_j) {
-          if (a.per_y)
-            buf[k] = gj < 0 ? buf[k + n1] : buf[k - n1];
-          else
-            buf[k] = gj < 0 ? sy0 * buf[k + 1] : sy1 * buf[k - 1];
-        }
-      }
-    }
-    __syncthreads();
-    // ---- one colour; the frozen outer ring is never updated
-    for (int li = ty + 1; li < B - 1; li += RX_THREADS_Y) {
-      const int gi = gi0 + li;
-      if (!wrap_x && (gi < 0 || gi >= n0)) continue;
-      for (int lj = tx + 1; lj < B - 1; lj += RX_THREADS_X) {
-        const int gj = gj0 + lj;
-        if (!wrap_y && (gj < 0 || gj >= n1)) continue;
-        if (((gi + gj) & 1) != color) continue;
-        const int k = li * B + lj;
-        const T d0 = den[k];
-        if (!(d0 > T(1e-20))) continue;  // a zero diagonal: untouched
-        const T c = buf[k];
-        const T num = axs[k] * buf[k - B] + axs[k + B] * buf[k + B] +
-                      ays[k] * buf[k - 1] + ays[k + 1] * buf[k + 1];
-        T nw = (num - a.h2 * rb[k]) / d0;
-        if (a.use_omega) nw = a.one_m_omega * c + a.omega * nw;
-        buf[k] = nw;
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- the tile
-  for (int li = halo + 1 + ty; li < halo + 1 + tile; li += RX_THREADS_Y) {
-    const int gi = gi0 + li;
-    for (int lj = halo + 1 + tx; lj < halo + 1 + tile;
-         lj += RX_THREADS_X) {
-      a.out[(size_t)gi * n1 + gj0 + lj] = buf[li * B + lj];
-    }
-  }
+  pr_relax<T, PLACE, CF_FACES, PX>(a, s, f, L, buf, 0);
+  pr_write_tile(a, s, L, buf);
 }
 
 // ---------------------------------------------------------------------------
@@ -1205,7 +1142,7 @@ int launch_restrict_pyramid(int batch, const void* const* r, int n,
 }
 
 template <typename T>
-PRArgs<T> prolong_args(int batch, const void* const* coarse,
+PRArgs<T> prolong_args(int batch, const void* const* src,
                        const void* const* rhs, const void* const* u,
                        void* const* out, const double* dia, int n0, int n1,
                        int tile, int halo, int nsweeps, double h2,
@@ -1213,7 +1150,7 @@ PRArgs<T> prolong_args(int batch, const void* const* coarse,
   PRArgs<T> a = {};
   for (int b = 0; b < batch; ++b) {
     PRSystem<T>& s = a.sys[b];
-    s.coarse = (const T*)coarse[b];
+    s.src = (const T*)src[b];
     s.rhs = (const T*)rhs[b];
     s.u = (const T*)u[b];
     s.out = (T*)out[b];
@@ -1233,11 +1170,12 @@ PRArgs<T> prolong_args(int batch, const void* const* coarse,
   return a;
 }
 
-// the dynamic shared memory of a K3-family block: du and rhs, each in
-// two colour halves (pr_half)
-template <typename T>
-size_t pr_smem(int tile, int halo) {
-  return 4 * (size_t)pr_half(tile + 2 * halo + 2) * sizeof(T);
+// the dynamic shared memory of an engine block of COEF's buffers, each
+// in two colour halves (pr_half)
+template <typename T, Coef COEF>
+size_t engine_smem(int tile, int halo) {
+  return 2 * (size_t)pr_buffers<COEF>() * pr_half(tile + 2 * halo + 2) *
+         sizeof(T);
 }
 
 template <typename T>
@@ -1257,7 +1195,7 @@ int launch_prolong_relax(int batch, const void* const* coarse,
   if (e != cudaSuccess) return (int)e;
   dim3 grid(n1 / tile, n0 / tile, batch);
   prolong_relax_kernel<T>
-      <<<grid, pr_threads(tile, halo), pr_smem<T>(tile, halo),
+      <<<grid, pr_threads(tile, halo), engine_smem<T, CF_CONST>(tile, halo),
          (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1285,7 +1223,7 @@ int launch_prolong_relax_correct(const void* const* ptr, double dia, int n0,
   if (e != cudaSuccess) return (int)e;
   dim3 grid(n1 / tile, n0 / tile, 1);
   prolong_relax_correct_kernel<T>
-      <<<grid, pr_threads(tile, halo), pr_smem<T>(tile, halo),
+      <<<grid, pr_threads(tile, halo), engine_smem<T, CF_CONST>(tile, halo),
          (cudaStream_t)stream>>>(
           a, o, gtt::make_ghosts<T>(sgn, off, per_y));
   return (int)cudaGetLastError();
@@ -1315,74 +1253,66 @@ int launch_residual(const void* u, const void* rhs, void* r, int n0, int n1,
   return (int)cudaGetLastError();
 }
 
+// launch one engine instance with its own once-per-device smem opt-in
+template <typename Kernel, typename... Args>
+int launch_engine(Kernel kernel, int* smem_set, dim3 grid, int threads,
+                  size_t smem, void* stream, Args... args) {
+  cudaError_t e = gtt::allow_smem((const void*)kernel, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_rbgs_relax(const void* u, const void* rhs, void* out, int n0,
                       int n1, int tile, int halo, int nsweeps, double dia,
                       double h2, double omega, const double* sgn, int per_x,
-                      int per_y, void* stream) {
-  RXArgs<T> a = {};
-  a.u = (const T*)u;
-  a.rhs = (const T*)rhs;
-  a.out = (T*)out;
-  a.n0 = n0;
-  a.n1 = n1;
-  a.tile = tile;
-  a.halo = halo;
-  a.nsweeps = nsweeps;
-  a.h2 = T(h2);
-  a.inv_denom = T(1.0 / (4.0 + dia * h2));
-  a.omega = T(omega);
-  a.one_m_omega = T(1.0 - omega);
-  a.use_omega = omega != 1.0;
-  for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
-  a.per_x = per_x;
-  a.per_y = per_y;
-  const int B = tile + 2 * halo + 2;
-  const size_t smem = 2 * (size_t)B * B * sizeof(T);
-  static int smem_set[gtt::MAX_DEVICES];
-  cudaError_t e = gtt::allow_smem((const void*)rbgs_relax_kernel<T>, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  dim3 block(RX_THREADS_X, RX_THREADS_Y);
-  dim3 grid(n1 / tile, n0 / tile);
-  rbgs_relax_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                      int per_y, int threads, void* stream) {
+  const void* add = nullptr;
+  const PRArgs<T> a =
+      prolong_args<T>(1, &u, &rhs, &add, &out, &dia, n0, n1, tile, halo,
+                      nsweeps, h2, omega, sgn, per_y);
+  const dim3 grid(n1 / tile, n0 / tile, 1);
+  const size_t smem = engine_smem<T, CF_CONST>(tile, halo);
+  static int set[2][gtt::MAX_DEVICES];
+  if (per_x)
+    return launch_engine(rbgs_relax_kernel<T, true>, set[1], grid, threads,
+                         smem, stream, a);
+  return launch_engine(rbgs_relax_kernel<T, false>, set[0], grid, threads,
+                       smem, stream, a);
 }
 
-// ptr: u, rhs, ax, ay, dia (nullptr for the scalar), out
+// ptr: src (the start u, or the coarse correction with prolong, NULL for
+// zero), rhs, ax, ay, dia (NULL for the scalar), u (added; NULL for
+// none), out
 template <typename T>
-int launch_rbgs_relax_alpha(const void* const* ptr, int n0, int n1,
-                            int tile, int halo, int nsweeps, double dia,
-                            double h2, double omega, const double* sgn,
-                            int per_x, int per_y, void* stream) {
-  RAArgs<T> a = {};
-  a.u = (const T*)ptr[0];
-  a.rhs = (const T*)ptr[1];
-  a.ax = (const T*)ptr[2];
-  a.ay = (const T*)ptr[3];
-  a.dia_cell = (const T*)ptr[4];
-  a.out = (T*)ptr[5];
-  a.n0 = n0;
-  a.n1 = n1;
-  a.tile = tile;
-  a.halo = halo;
-  a.nsweeps = nsweeps;
-  a.dia = T(dia);
-  a.h2 = T(h2);
-  a.omega = T(omega);
-  a.one_m_omega = T(1.0 - omega);
-  a.use_omega = omega != 1.0;
-  for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
-  a.per_x = per_x;
-  a.per_y = per_y;
-  const int B = tile + 2 * halo + 2;
-  const size_t smem = 5 * (size_t)B * B * sizeof(T);
-  static int smem_set[gtt::MAX_DEVICES];
-  cudaError_t e = gtt::allow_smem((const void*)rbgs_relax_alpha_kernel<T>, smem_set);
-  if (e != cudaSuccess) return (int)e;
-  dim3 block(RX_THREADS_X, RX_THREADS_Y);
-  dim3 grid(n1 / tile, n0 / tile);
-  rbgs_relax_alpha_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+int launch_rbgs_relax_alpha(const void* const* ptr, int prolong, int n0,
+                            int n1, int tile, int halo, int nsweeps,
+                            double dia, double h2, double omega,
+                            const double* sgn, int per_x, int per_y,
+                            int threads, void* stream) {
+  const double zero = 0.0;  // den is formed from the faces
+  const PRArgs<T> a =
+      prolong_args<T>(1, ptr, ptr + 1, ptr + 5, (void* const*)(ptr + 6),
+                      &zero, n0, n1, tile, halo, nsweeps, h2, omega, sgn,
+                      per_y);
+  const PRFaces<T> f{(const T*)ptr[2], (const T*)ptr[3], (const T*)ptr[4],
+                     T(dia)};
+  const dim3 grid(n1 / tile, n0 / tile, 1);
+  const size_t smem = engine_smem<T, CF_FACES>(tile, halo);
+  static int set[4][gtt::MAX_DEVICES];
+  if (prolong) {
+    if (per_x)
+      return launch_engine(rbgs_relax_alpha_kernel<T, PL_PROLONG, true>,
+                           set[3], grid, threads, smem, stream, a, f);
+    return launch_engine(rbgs_relax_alpha_kernel<T, PL_PROLONG, false>,
+                         set[2], grid, threads, smem, stream, a, f);
+  }
+  if (per_x)
+    return launch_engine(rbgs_relax_alpha_kernel<T, PL_GIVEN, true>, set[1],
+                         grid, threads, smem, stream, a, f);
+  return launch_engine(rbgs_relax_alpha_kernel<T, PL_GIVEN, false>, set[0],
+                       grid, threads, smem, stream, a, f);
 }
 
 template <typename T>
@@ -1421,8 +1351,9 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
 // prolong_relax: coarse, rhs, u, out), so that a launch builds one array;
 // dia is a host array of `batch` entries, the ghost offsets of 4 * batch.
 // residual, rbgs_relax and coarse_block take one system's pointers;
-// rbgs_relax_alpha one table (u, rhs, ax, ay, dia, out; dia NULL for the
-// scalar);
+// rbgs_relax_alpha one table (src, rhs, ax, ay, dia, u, out: src the
+// start u, or with prolong = 1 the coarse correction or NULL for zero;
+// dia NULL for the scalar; u, added to the result, NULL for none);
 // residual_restrict_div one table (u, ufx, ufy, sub, r0, r1, r2) and
 // prolong_relax_correct one table (coarse, rhs, u, ufx, ufy, U, V, p',
 // ufx', ufy', gx, gy, U', V'; the cells NULL without them).
@@ -1459,9 +1390,10 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
   extern "C" int gtt_rbgs_relax_##SUFFIX(                                     \
       const void* u, const void* rhs, void* out, int n0, int n1, int tile,    \
       int halo, int nsweeps, double dia, double h2, double omega,             \
-      const double* sgn, int per_x, int per_y, void* stream) {                \
+      const double* sgn, int per_x, int per_y, int threads, void* stream) {   \
     return launch_rbgs_relax<T>(u, rhs, out, n0, n1, tile, halo, nsweeps,     \
-                                dia, h2, omega, sgn, per_x, per_y, stream);   \
+                                dia, h2, omega, sgn, per_x, per_y, threads,   \
+                                stream);                                      \
   }                                                                           \
   extern "C" int gtt_residual_restrict_div_##SUFFIX(                          \
       void* const* ptr, double dia, const double* off, double h2,             \
@@ -1479,11 +1411,12 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
                                            off, per_y, stream);               \
   }                                                                           \
   extern "C" int gtt_rbgs_relax_alpha_##SUFFIX(                               \
-      void* const* ptr, int n0, int n1, int tile, int halo, int nsweeps,      \
-      double dia, double h2, double omega, const double* sgn, int per_x,      \
-      int per_y, void* stream) {                                              \
-    return launch_rbgs_relax_alpha<T>(ptr, n0, n1, tile, halo, nsweeps, dia,  \
-                                      h2, omega, sgn, per_x, per_y, stream);  \
+      void* const* ptr, int prolong, int n0, int n1, int tile, int halo,      \
+      int nsweeps, double dia, double h2, double omega, const double* sgn,    \
+      int per_x, int per_y, int threads, void* stream) {                      \
+    return launch_rbgs_relax_alpha<T>(ptr, prolong, n0, n1, tile, halo,       \
+                                      nsweeps, dia, h2, omega, sgn, per_x,    \
+                                      per_y, threads, stream);                \
   }                                                                           \
   extern "C" int gtt_coarse_block_##SUFFIX(                                   \
       const void* r, void* du, int n, int min_n, int nsweeps, int coarsest,   \

@@ -12,9 +12,13 @@ variable-density diffusion), and the fold route's K16
 ``prolong_relax_correct`` (K3 with the projection's correction as its
 epilogue), and the restriction pyramid ``restrict_pyramid`` (every level
 of the cascades' and the 2D corrections' restriction in one launch,
-``restrict2`` its one-level case).  K3, K8c, K17 and the cascades' K3
-launches share one sweep engine and pick their tile per level from the
-card's shared memory and multiprocessor count.  The kernels are in
+``restrict2`` its one-level case).  K3, K8c, K17, the cascades' K3
+launches, K10 and K15 share one sweep engine and pick their tile per
+level from the card's shared memory and multiprocessor count (K10 and
+K15 their threads too, and they split their sweeps over launches when
+the halo outgrows shared memory).  K15 also takes the prolongation of a
+coarse correction as its start and adds u to its result, so that an
+alpha correction's upward level is one launch.  The kernels are in
 ``gerris_tpu_torch/csrc/rbgs.cu``; each one's source note says what it
 replaces, what bounds it on the H100 and what its design does about it.
 A pair launches the single kernel with a batch of two systems, which
@@ -47,7 +51,9 @@ import torch
 # the wrappers' own: "cascade.restrict_pyramid" and "cascade.prolong_relax"
 # for K2, "cascade_pair.restrict_pyramid" and "cascade_pair.prolong_relax"
 # for K8b, "coarse_vcycle.restrict_pyramid", "coarse_block" and
-# "coarse_vcycle.prolong_relax" for K12.
+# "coarse_vcycle.prolong_relax" for K12.  "rbgs_relax_alpha.prolong"
+# counts the K15 launches (also counted under "rbgs_relax_alpha") that
+# prolonged a coarse correction at placement.
 LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "restrict_pyramid": 0,
             "restrict_pyramid_pair": 0, "prolong_relax": 0,
             "cascade_prolong_relax": 0, "cascade.restrict_pyramid": 0,
@@ -58,7 +64,8 @@ LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "restrict_pyramid": 0,
             "rbgs_relax": 0, "coarse_vcycle": 0,
             "coarse_vcycle.restrict_pyramid": 0, "coarse_block": 0,
             "coarse_vcycle.prolong_relax": 0, "residual_restrict_div": 0,
-            "prolong_relax_correct": 0, "rbgs_relax_alpha": 0}
+            "prolong_relax_correct": 0, "rbgs_relax_alpha": 0,
+            "rbgs_relax_alpha.prolong": 0}
 
 _SMEM_MAX = 232448        # dynamic shared memory a block may use on sm_90
 MAX_BATCH = 2             # systems in one launch (csrc/rbgs.cu)
@@ -153,7 +160,7 @@ def rbgs_relax_plain(u, rhs, dia=0.0, *, nsweeps, h2, signs,
 
 def rbgs_relax_alpha_plain(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
                            periodic=(False, False), omega=1.0,
-                           dia_cell=False):
+                           dia_cell=False, coarse=None, add=None):
     """K15's function (gerris_tpu/ops/pallas/rbgs.py:_kernel_alpha):
     ``nsweeps`` red-black sweeps (red = global (i+j) even first) on
     div(alpha grad u) - dia u = rhs with face coefficients ``ax`` (n0+1,
@@ -162,7 +169,11 @@ def rbgs_relax_alpha_plain(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
     face n is face 0 (the TPU kernel's wrapped face windows, rbgs.py:
     127-129).  den = ax_lo + ax_hi + ay_lo + ay_hi + dia h2, in that
     order; a cell with den <= 1e-20 (a zero diagonal) is left
-    untouched."""
+    untouched.  From ``u``; with u None from prolong_plain(``coarse``),
+    or from zero without a coarse; ``add`` is added to the result."""
+    if u is None:
+        u = torch.zeros_like(rhs) if coarse is None else \
+            prolong_plain(coarse, signs, periodic)
     n0, n1 = u.shape
     ax_lo, ay_lo = ax[:n0], ay[:, :n1]
     ax_hi = torch.cat([ax[1:n0], ax[:1]]) if periodic[0] else ax[1:]
@@ -182,7 +193,7 @@ def rbgs_relax_alpha_plain(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
             if omega != 1.0:
                 new = (1.0 - omega) * u + omega * new
             u = torch.where(color & live, new, u)
-    return u
+    return u if add is None else u + add
 
 
 def coarse_vcycle_plain(r, dia=0.0, *, nsweeps, coarsest, h2, signs,
@@ -585,11 +596,12 @@ def restrict2(r):
     return _pyramid_cuda([r], 1, "restrict2")[0][0]
 
 
-def _pr_smem(side, itemsize):
-    """Shared memory of a K3-family block of ``side`` cells a side: du and
-    rhs, each in two colour halves padded as csrc/rbgs.cu:pr_half."""
+def _engine_smem(side, itemsize, buffers=2):
+    """Shared memory of a sweep-engine block of ``side`` cells a side and
+    ``buffers`` buffers (K3 and K10: du and rhs; K15 five), each in two
+    colour halves padded as csrc/rbgs.cu:pr_half."""
     e = side * (side // 2)
-    return 4 * (e + (48 - e % 32) % 32) * itemsize
+    return 2 * buffers * (e + (48 - e % 32) % 32) * itemsize
 
 
 @functools.lru_cache(maxsize=1024)
@@ -607,14 +619,14 @@ def _prolong_geometry(n, nsweeps, tile, whole_max, itemsize, blocks=1):
     else:
         halo = 2 * nsweeps
         if tile is None:
-            fits = [t for t in (64, 32, 16) if n % t == 0 and _pr_smem(
+            fits = [t for t in (64, 32, 16) if n % t == 0 and _engine_smem(
                 t + 2 * halo + 2, itemsize) <= _SMEM_MAX]
             wide = [t for t in fits if (n // t) ** 2 >= blocks]
             tile = wide[0] if wide else fits[-1] if fits else 16
         if n % tile:
             raise ValueError(f"tile {tile} does not divide {n}")
     side = tile + 2 * halo + 2
-    if _pr_smem(side, itemsize) > _SMEM_MAX:
+    if _engine_smem(side, itemsize) > _SMEM_MAX:
         raise ValueError(f"prolong_relax: a {side}^2 buffer does not fit "
                          "in shared memory (fewer sweeps or a smaller tile)")
     return tile, halo
@@ -827,40 +839,80 @@ def residual(u, rhs, dia=0.0, *, h2, signs, offs=_HOMOGENEOUS,
     return r
 
 
-def _relax_plan(n, nsweeps, tile, whole_max, itemsize):
-    """(tile, sweeps per launch) of K10: a level of at most ``whole_max``
-    cells per side is one block with no halo and takes every sweep in one
-    launch; a larger level uses tile x tile tiles with a halo of 2 sweeps
-    per launch, as many sweeps per launch as the halo lets fit in shared
-    memory (the sweeps of consecutive launches compose exactly)."""
+# shared-memory buffers of a sweep-engine block: u and rhs (K3, K10),
+# and K15's two face buffers and den
+BUFFERS = {"rbgs_relax": 2, "rbgs_relax_alpha": 5}
+
+
+@functools.lru_cache(maxsize=4096)
+def _sweep_plan(n, nsweeps, buffers, itemsize, sms=1, tile=None,
+                threads=None, whole_max=64):
+    """(tile, sweeps per launch, threads) of a K10 (``buffers`` 2) or K15
+    (5) launch on an n^2 level.  A level of at most ``whole_max`` cells
+    per side is one block with no halo that takes every sweep.  A larger
+    one uses tile x tile tiles with a halo of 2 sweeps per launch:
+    ``tile`` if given, else the largest of 64, 32, 16 whose buffers hold
+    the halo of all the sweeps in shared memory and that still gives each
+    of the card's ``sms`` multiprocessors a block (else the smallest that
+    holds them: a level's blocks run side by side, and its half-sweeps
+    one after another), else 32 with the sweeps split over consecutive
+    launches of as many as fit.  ``threads``, unless given: 512 for whole
+    levels (their serial half-sweeps hide shared-memory latency better
+    with 16 warps than with 8), for tile 64, and for K15's tile 32 (five
+    buffers, more work per cell), else 256 (the times per tile and
+    threads on an H100: PERF.md, and chip_smoke.py's phase 2).  The tile, the threads and the split change the
+    launch geometry only: the result is bit-identical for all of them."""
+    if threads not in (None, 256, 512):
+        raise ValueError(f"threads {threads}, want 256 or 512")
     if n <= whole_max:
-        if 2 * (n + 2) ** 2 * itemsize > _SMEM_MAX:
-            raise ValueError(f"rbgs_relax: a whole {n}^2 level does not fit "
-                             "in shared memory (a smaller whole_max)")
-        return n, nsweeps
+        if _engine_smem(n + 2, itemsize, buffers) > _SMEM_MAX:
+            raise ValueError(f"a whole {n}^2 level does not fit in shared "
+                             "memory (a smaller whole_max)")
+        return n, nsweeps, threads or 512
+
+    def most(t):
+        """The most sweeps (up to nsweeps) of one launch at tile t."""
+        k = 0
+        while k < nsweeps and _engine_smem(t + 4 * k + 6, itemsize,
+                                           buffers) <= _SMEM_MAX:
+            k += 1
+        return k
+
+    if tile is None:
+        fits = [t for t in (64, 32, 16) if n % t == 0 and most(t) == nsweeps]
+        wide = [t for t in fits if (n // t) ** 2 >= sms]
+        tile = wide[0] if wide else fits[-1] if fits else 32
     if n % tile:
         raise ValueError(f"tile {tile} does not divide {n}")
-    side_max = int((_SMEM_MAX / (2 * itemsize)) ** 0.5)
-    per = (side_max - tile - 2) // 4
+    per = most(tile)
     if per < 1:
-        raise ValueError(f"rbgs_relax: tile {tile} does not fit in shared "
-                         "memory")
-    return tile, min(per, nsweeps)
+        raise ValueError(f"tile {tile} does not fit in shared memory")
+    wide = 64 if buffers == BUFFERS["rbgs_relax"] else 32
+    return tile, per, threads or (512 if tile >= wide else 256)
+
+
+def _plan(kernel, u, nsweeps, tile, threads, whole_max):
+    return _sweep_plan(u.shape[0], int(nsweeps), BUFFERS[kernel],
+                       u.element_size(), _multiprocessors(u.device), tile,
+                       threads, whole_max)
 
 
 def rbgs_relax(u, rhs, dia=0.0, *, nsweeps, h2, signs,
-               periodic=(False, False), omega=1.0, tile=32, whole_max=64):
+               periodic=(False, False), omega=1.0, tile=None, threads=None,
+               whole_max=64):
     """K10: ``nsweeps`` red-black Gauss-Seidel sweeps from ``u`` on
     (L - dia) u = rhs with homogeneous ghosts, periodic on either axis.
     One launch, unless the sweeps' halo outgrows shared memory (then
-    consecutive launches of fewer sweeps each)."""
+    consecutive launches of fewer sweeps each).  ``tile``, ``threads``
+    and ``whole_max`` override the plan (_sweep_plan; tests)."""
     _check_level(u, "u", min_n=2)
     _check_level(rhs, "rhs", u.shape[0], min_n=2)
     if _on_cpu(u, rhs):
         return rbgs_relax_plain(u, rhs, dia, nsweeps=nsweeps, h2=h2,
                                 signs=signs, periodic=periodic, omega=omega)
     n = u.shape[0]
-    tile, per = _relax_plan(n, nsweeps, tile, whole_max, u.element_size())
+    tile, per, threads = _plan("rbgs_relax", u, nsweeps, tile, threads,
+                               whole_max)
     left = nsweeps
     while left > 0:
         k = min(left, per)
@@ -868,42 +920,10 @@ def rbgs_relax(u, rhs, dia=0.0, *, nsweeps, h2, signs,
         _call("rbgs_relax", u.dtype, u.device, u.data_ptr(), rhs.data_ptr(),
               out.data_ptr(), n, n, tile, 0 if tile == n else 2 * k, k,
               float(dia), float(h2), float(omega), doubles(*signs),
-              int(periodic[0]), int(periodic[1]))
+              int(periodic[0]), int(periodic[1]), threads)
         LAUNCHES["rbgs_relax"] += 1
         u, left = out, left - k
     return u
-
-
-def _alpha_plan(n, nsweeps, tile, whole_max, itemsize, sms=1):
-    """(tile, sweeps per launch) of K15, K10's plan with five B x B
-    buffers (u, rhs, the x and y face coefficients, den) per block, B =
-    tile + 2 halo + 2: a level of at most ``whole_max`` cells per side is
-    one block with no halo; a larger one takes ``tile`` if given, else
-    the largest of 64, 32, 16 whose halo of 2 nsweeps fits in shared
-    memory and that still gives every one of the card's ``sms``
-    multiprocessors a block (else the smallest that fits: a level's
-    blocks run side by side, and its half-sweeps one after another), else
-    32 with the sweeps split over launches.  The tile changes the launch
-    geometry only: the result is bit-identical for every tile."""
-    if n <= whole_max:
-        if 5 * (n + 2) ** 2 * itemsize > _SMEM_MAX:
-            raise ValueError(f"rbgs_relax_alpha: a whole {n}^2 level does "
-                             "not fit in shared memory (a smaller "
-                             "whole_max)")
-        return n, nsweeps
-    side_max = int((_SMEM_MAX / (5 * itemsize)) ** 0.5)
-    if tile is None:
-        fits = [t for t in (64, 32, 16)
-                if n % t == 0 and t + 4 * nsweeps + 2 <= side_max]
-        wide = [t for t in fits if (n // t) ** 2 >= sms]
-        tile = wide[0] if wide else fits[-1] if fits else 32
-    if n % tile:
-        raise ValueError(f"tile {tile} does not divide {n}")
-    per = (side_max - tile - 2) // 4
-    if per < 1:
-        raise ValueError(f"rbgs_relax_alpha: tile {tile} does not fit in "
-                         "shared memory")
-    return tile, min(per, nsweeps)
 
 
 @functools.lru_cache(maxsize=8)
@@ -911,10 +931,17 @@ def _multiprocessors(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_alpha(u, rhs, ax, ay, dia, dia_cell):
-    _check_level(u, "u", min_n=2)
-    _check_level(rhs, "rhs", u.shape[0], min_n=2)
-    n = u.shape[0]
+def _check_alpha(u, rhs, ax, ay, dia, dia_cell, coarse, add):
+    _check_level(rhs, "rhs", min_n=2)
+    n = rhs.shape[0]
+    if u is not None:
+        if coarse is not None:
+            raise ValueError("rbgs_relax_alpha: give u or coarse, not both")
+        _check_level(u, "u", n, min_n=2)
+    if coarse is not None:
+        _check_level(coarse, "coarse", n // 2, min_n=1)
+    if add is not None:
+        _check_level(add, "add", n, min_n=2)
     check_faces(ax, ay, n, n)
     if dia_cell:
         check(dia, "dia", (n, n))
@@ -924,33 +951,45 @@ def _check_alpha(u, rhs, ax, ay, dia, dia_cell):
 
 def rbgs_relax_alpha(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
                      periodic=(False, False), omega=1.0, dia_cell=False,
-                     tile=None, whole_max=64):
-    """K15: ``nsweeps`` red-black Gauss-Seidel sweeps from ``u`` on
-    div(alpha grad u) - dia u = rhs with face coefficients ``ax`` (n0+1,
-    n1), ``ay`` (n0, n1+1) and a scalar or (``dia_cell``) per-cell
-    ``dia``, homogeneous ghosts, periodic on either axis.  One launch,
-    unless the sweeps' halo outgrows shared memory (then consecutive
-    launches of fewer sweeps each)."""
-    _check_alpha(u, rhs, ax, ay, dia, dia_cell)
-    if _on_cpu(u, rhs, ax, ay, dia if dia_cell else None):
+                     coarse=None, add=None, tile=None, threads=None,
+                     whole_max=64):
+    """K15: ``nsweeps`` red-black Gauss-Seidel sweeps on div(alpha grad
+    u) - dia u = rhs with face coefficients ``ax`` (n0+1, n1), ``ay``
+    (n0, n1+1) and a scalar or (``dia_cell``) per-cell ``dia``,
+    homogeneous ghosts, periodic on either axis; from ``u``, or with u
+    None from the bilinear prolongation of ``coarse`` (n/2 x n/2,
+    homogeneous ghosts, placed in the kernel), or from zero without one;
+    ``add`` is added to the result.  One launch, unless the sweeps' halo
+    outgrows shared memory (then consecutive launches of fewer sweeps
+    each: the first places the prolongation, the last adds).  ``tile``,
+    ``threads`` and ``whole_max`` override the plan (_sweep_plan;
+    tests)."""
+    _check_alpha(u, rhs, ax, ay, dia, dia_cell, coarse, add)
+    if _on_cpu(u, rhs, ax, ay, dia if dia_cell else None, coarse, add):
         return rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, nsweeps=nsweeps,
                                       h2=h2, signs=signs, periodic=periodic,
-                                      omega=omega, dia_cell=dia_cell)
-    n = u.shape[0]
-    tile, per = _alpha_plan(n, nsweeps, tile, whole_max, u.element_size(),
-                            _multiprocessors(u.device))
+                                      omega=omega, dia_cell=dia_cell,
+                                      coarse=coarse, add=add)
+    n = rhs.shape[0]
+    tile, per, threads = _plan("rbgs_relax_alpha", rhs, nsweeps, tile,
+                               threads, whole_max)
+    src, prolong = (coarse, 1) if u is None else (u, 0)
     left = nsweeps
-    while left > 0:
+    while True:
         k = min(left, per)
-        out = torch.empty_like(u)
-        _call("rbgs_relax_alpha", u.dtype, u.device,
-              pointers((u, rhs, ax, ay, dia if dia_cell else None, out)),
-              n, n, tile, 0 if tile == n else 2 * k, k,
+        out = torch.empty_like(rhs)
+        _call("rbgs_relax_alpha", rhs.dtype, rhs.device,
+              pointers((src, rhs, ax, ay, dia if dia_cell else None,
+                        add if k >= left else None, out)),
+              prolong, n, n, tile, 0 if tile == n else 2 * k, k,
               0.0 if dia_cell else float(dia), float(h2), float(omega),
-              doubles(*signs), int(periodic[0]), int(periodic[1]))
+              doubles(*signs), int(periodic[0]), int(periodic[1]), threads)
         LAUNCHES["rbgs_relax_alpha"] += 1
-        u, left = out, left - k
-    return u
+        if prolong and src is not None:
+            LAUNCHES["rbgs_relax_alpha.prolong"] += 1
+        src, prolong, left = out, 0, left - k
+        if left <= 0:
+            return src
 
 
 def _check_coarse(r, min_n):

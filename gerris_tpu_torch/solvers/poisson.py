@@ -35,9 +35,12 @@ coefficients with the residual (``coarsen_face_coeff``: every second
 face, the mean of its transverse pair; the cell dia pooled) down to
 ``minlevel`` with no K12, dense solve or K3, relaxes there from zero with
 nrelax * erelax**(levels) + coarsest_relax sweeps, then prolongs and
-relaxes each level upward.  In 2D each of those relaxations is one K15
-``rbgs_relax_alpha`` launch on every level, where the TPU ran it at 128^2
-and above and the same function in jnp below.
+relaxes each level upward.  In 2D with face coefficients each level is
+one K15 ``rbgs_relax_alpha`` launch: the coarsest from zero, every upward
+level with the bilinear prolongation of the coarser one's result placed
+in the kernel, and the finest with u added, where the TPU ran K15 at
+128^2 and above and the same function in jnp below, prolonging in jnp
+between the levels.
 
 The U+V implicit-diffusion pair solves both systems together, every
 launch of the cycle serving both (``solve_fixed_batched``, K8a-c;
@@ -318,12 +321,8 @@ def relax(u, rhs, grid: Grid, fbc: bcs.FieldBC, nsweeps: int, dia=None,
     dia with unit coefficients, the reference's jnp sweeps in torch."""
     if _variable(alpha, dia):
         if alpha is not None and homogeneous and grid.dim == 2:
-            cell = isinstance(dia, torch.Tensor)
-            return rbgs.rbgs_relax_alpha(
-                u, rhs, alpha[0], alpha[1], dia if cell else
-                _scalar_dia(dia), nsweeps=nsweeps, h2=grid.h * grid.h,
-                signs=_signs_offs(grid, fbc, True)[0],
-                periodic=_periodic(fbc), omega=omega, dia_cell=cell)
+            return _relax_alpha(u, rhs, grid, fbc, nsweeps, dia, alpha,
+                                omega)
         return _relax_generic(u, rhs, grid, fbc, nsweeps, alpha, dia,
                               homogeneous, omega, t)
     d = _scalar_dia(dia)
@@ -341,6 +340,19 @@ def relax(u, rhs, grid: Grid, fbc: bcs.FieldBC, nsweeps: int, dia=None,
                                omega=omega)
     return rbgs.rbgs_plain(u, rhs, nsweeps, h2, 1.0 / (4.0 + d * h2), signs,
                            _periodic(fbc), omega, offs)
+
+
+def _relax_alpha(u, rhs, grid, fbc, nsweeps, dia, alpha, omega,
+                 coarse=None, add=None):
+    """K15 on a 2D level with face coefficients and homogeneous ghosts:
+    from ``u``, or with u None from the prolongation of ``coarse`` (zero
+    without one), + ``add``."""
+    cell = isinstance(dia, torch.Tensor)
+    return rbgs.rbgs_relax_alpha(
+        u, rhs, alpha[0], alpha[1], dia if cell else _scalar_dia(dia),
+        nsweeps=nsweeps, h2=grid.h * grid.h,
+        signs=_signs_offs(grid, fbc, True)[0], periodic=_periodic(fbc),
+        omega=omega, dia_cell=cell, coarse=coarse, add=add)
 
 
 def restrict(r):
@@ -468,17 +480,29 @@ def _correction_variable(r, grid, fbc, params, alpha, dia, u_fine):
     poisson.py:534-617 with alpha): no K12, dense solve or K3; the
     residual and the coefficients restricted down to ``minlevel``,
     nrelax * erelax**(levels) + coarsest_relax sweeps from zero there,
-    then ``prolong`` + ``relax`` (K15 in 2D) up every level."""
+    then ``prolong`` + ``relax`` up every level.  In 2D with face
+    coefficients each level is one K15 launch: the coarsest from zero,
+    each upward level with the prolongation of the coarser one's du
+    placed in the kernel, the finest with u_fine added."""
     minlevel = min(params.minlevel, grid.level)
     grids = [dataclasses.replace(grid, level=lv)
              for lv in range(grid.level, minlevel - 1, -1)]
     alphas, dias = _coeff_hierarchy(grid, minlevel, alpha, dia)
     rs = _residual_levels(r, len(grids) - 1)
     nl = len(grids)
-    du = relax(torch.zeros_like(rs[-1]), rs[-1], grids[-1], fbc,
-               params.nrelax * params.erelax ** (nl - 1)
-               + params.coarsest_relax, dias[-1], omega=params.omega,
-               alpha=alphas[-1])
+    coarsest = (params.nrelax * params.erelax ** (nl - 1)
+                + params.coarsest_relax)
+    if grid.dim == 2 and alpha is not None:
+        du = None
+        for k in range(nl - 1, -1, -1):
+            nswp = coarsest if k == nl - 1 else \
+                params.nrelax * params.erelax ** k
+            du = _relax_alpha(None, rs[k], grids[k], fbc, nswp, dias[k],
+                              alphas[k], params.omega, coarse=du,
+                              add=u_fine if k == 0 else None)
+        return du
+    du = relax(torch.zeros_like(rs[-1]), rs[-1], grids[-1], fbc, coarsest,
+               dias[-1], omega=params.omega, alpha=alphas[-1])
     for k in range(nl - 2, -1, -1):
         du = relax(prolong(du, fbc), rs[k], grids[k], fbc,
                    params.nrelax * params.erelax ** k, dias[k],

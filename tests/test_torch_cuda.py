@@ -17,8 +17,10 @@ the same solve through the plain versions, and so are three steps of the
 one); three steps of the fold route (K16, K2, K17 per projection) are
 held to the unfolded route.  K15, the variable-coefficient smoother, is
 held to its plain version on every periodicity, dia mode and level size
-of a two-phase correction, bit-identical across tiles, and three
-two-phase steps on the card to the same steps on the CPU.
+of a two-phase correction, from a given u and with the coarse
+correction's prolongation folded in (+ u), bit-identical across tiles,
+threads and sweep splits, and three two-phase steps on the card to the
+same steps on the CPU.  K10 likewise at 2048^2.
 """
 import pytest
 
@@ -1014,6 +1016,140 @@ def test_rbgs_relax_alpha_tile_invariance(dev, dtype, kind):
                                                     tile=16, **kw))
     assert _rel(split, rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia,
                                                    **kw)) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("cell", [False, True])
+@pytest.mark.parametrize("kind", list(ALPHA_CASES))
+def test_rbgs_relax_alpha_fold_kernel(dev, dtype, kind, cell, dead):
+    """K15 with a coarse correction prolonged at placement and u added,
+    one launch, against its plain version (prolong_plain, the sweeps,
+    + u) at 256^2, 8 sweeps, omega 1.2; and from zero without one."""
+    n = 256
+    signs, periodic = ALPHA_CASES[kind]
+    u, rhs, ax, ay, dia = _alpha_system(dev, dtype, 43, n, periodic, cell,
+                                        dead)
+    c, = _rnd(dev, dtype, 44, (n // 2, n // 2))
+    kw = dict(nsweeps=8, h2=1.0 / n ** 2, signs=signs, periodic=periodic,
+              omega=1.2, dia_cell=cell)
+    rbgs.reset_launch_counts()
+    got = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, coarse=c, add=u,
+                                **kw)
+    assert rbgs.LAUNCHES["rbgs_relax_alpha"] == 1
+    assert rbgs.LAUNCHES["rbgs_relax_alpha.prolong"] == 1
+    assert _rel(got, rbgs.rbgs_relax_alpha_plain(
+        None, rhs, ax, ay, dia, coarse=c, add=u, **kw)) <= BOUND[dtype]
+    zero = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, **kw)
+    assert rbgs.LAUNCHES["rbgs_relax_alpha.prolong"] == 1
+    assert _rel(zero, rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dia,
+                                                  **kw)) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1024, 512, 128, 64, 32, 16, 8, 4])
+@pytest.mark.parametrize("kind", list(ALPHA_CASES))
+def test_rbgs_relax_alpha_fold_levels(dev, dtype, n, kind):
+    """Every level of a two-phase correction as the correction runs it:
+    from zero with 24 sweeps at 4^2, the coarser level prolonged with 8
+    sweeps above, + u at 1024^2; cell dia, the plan's tile."""
+    signs, periodic = ALPHA_CASES[kind]
+    u, rhs, ax, ay, dia = _alpha_system(dev, dtype, 45, n, periodic, True,
+                                        False)
+    c = None if n == 4 else _rnd(dev, dtype, 46, (n // 2, n // 2))[0]
+    kw = dict(nsweeps=24 if n == 4 else 8, h2=1.0 / n ** 2, signs=signs,
+              periodic=periodic, omega=1.0, dia_cell=True, coarse=c,
+              add=u if n == 1024 else None)
+    got = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, **kw)
+    assert _rel(got, rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dia,
+                                                 **kw)) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", list(ALPHA_CASES))
+def test_rbgs_relax_alpha_fold_tile_invariance(dev, dtype, kind):
+    """The fold bit-identical across tiles and threads, whole-level and
+    tiled, and with its sweeps split over launches (the first prolongs,
+    the last adds u)."""
+    signs, periodic = ALPHA_CASES[kind]
+    u, rhs, ax, ay, dia = _alpha_system(dev, dtype, 47, 256, periodic, True,
+                                        True)
+    c, = _rnd(dev, dtype, 48, (128, 128))
+    kw = dict(nsweeps=8, h2=1.0 / 256 ** 2, signs=signs, periodic=periodic,
+              omega=1.5, dia_cell=True, coarse=c, add=u)
+    ref = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, tile=16, threads=256,
+                                **kw)
+    tiles = (64, 32, 16) if dtype == torch.float32 else (32, 16)
+    for tile in tiles:
+        for threads in (256, 512):
+            assert torch.equal(ref, rbgs.rbgs_relax_alpha(
+                None, rhs, ax, ay, dia, tile=tile, threads=threads, **kw)), \
+                (tile, threads)
+    s = [t[:64, :64].contiguous() for t in (rhs, dia)]
+    fx, fy = ax[:65, :64].contiguous(), ay[:64, :65].contiguous()
+    if periodic[0]:
+        fx[64] = fx[0]
+    if periodic[1]:
+        fy[:, 64] = fy[:, 0]
+    kw64 = dict(kw, coarse=c[:32, :32].contiguous(), add=None)
+    assert torch.equal(
+        rbgs.rbgs_relax_alpha(None, s[0], fx, fy, s[1], **kw64),
+        rbgs.rbgs_relax_alpha(None, s[0], fx, fy, s[1], tile=16,
+                              whole_max=32, **kw64))
+    kw["nsweeps"] = 30
+    rbgs.reset_launch_counts()
+    split = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, tile=32, **kw)
+    assert rbgs.LAUNCHES["rbgs_relax_alpha"] > 1
+    assert rbgs.LAUNCHES["rbgs_relax_alpha.prolong"] == 1
+    assert torch.equal(split, rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia,
+                                                    tile=16, **kw))
+    assert _rel(split, rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dia,
+                                                   **kw)) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("periodic", [(False, False), (True, False),
+                                      (True, True)])
+def test_rbgs_relax_kernel_2048(dev, dtype, periodic):
+    """K10 at the adaptive_relax route's 2048^2 with its 4 sweeps:
+    non-periodic, periodic rows, doubly periodic; bit-identical across
+    tiles and threads."""
+    n = 2048
+    u, rhs = _rnd(dev, dtype, 49, (n, n), (n, n))
+    kw = dict(nsweeps=4, h2=1.0 / n ** 2, signs=SIGNS_LID,
+              periodic=periodic)
+    rbgs.reset_launch_counts()
+    got = rbgs.rbgs_relax(u, rhs, 0.4, **kw)
+    assert rbgs.LAUNCHES["rbgs_relax"] == 1
+    assert _rel(got, rbgs.rbgs_relax_plain(u, rhs, 0.4, **kw)) <= \
+        BOUND[dtype]
+    for tile in (64, 32, 16):
+        for threads in (256, 512):
+            assert torch.equal(got, rbgs.rbgs_relax(
+                u, rhs, 0.4, tile=tile, threads=threads, **kw)), \
+                (tile, threads)
+
+
+def test_engine_kernels_never_run_plain(dev, monkeypatch):
+    """A CUDA tensor given to K10 or K15 (from u, or with the fold)
+    launches the kernel: their plain versions and the plain prolongation
+    are never called."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("rbgs_relax_plain", "rbgs_relax_alpha_plain",
+                 "prolong_plain", "rbgs_plain"):
+        monkeypatch.setattr(rbgs, name, refuse)
+    u, rhs, ax, ay, dia = _alpha_system(dev, torch.float32, 50, 128,
+                                        (True, False), True, False)
+    c, = _rnd(dev, torch.float32, 51, (64, 64))
+    kw = dict(nsweeps=3, h2=1.0 / 128 ** 2, signs=(1.0, 1.0, -1.0, 1.0),
+              periodic=(True, False), dia_cell=True)
+    rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw)
+    rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, coarse=c, add=u, **kw)
+    rbgs.rbgs_relax(u, rhs, 0.2, nsweeps=3, h2=1.0 / 128 ** 2,
+                    signs=(1.0,) * 4, periodic=(True, True))
+    torch.cuda.synchronize()
 
 
 def test_twophase_step_on_the_card(dev):

@@ -19,12 +19,31 @@ Prints one JSON line, float32 throughout:
   cascade_prolong_relax at n/2 = 1024 (5 sweeps, 40 coarsest), and the
   BCG kernels at 2048^2 with the lid's BCs as the main path runs them:
   predict_xy (K6), advect2d_pair (K7, g, gp and oscale) and advect2d
-  (K14, u with the same folds);
+  (K14, u with the same folds); the two-phase smoother K15 at 1024^2
+  (cell dia, 8 sweeps) from a given u and with a coarse correction
+  (``rbgs_relax_alpha_coarse``: one launch where K15 takes the coarse
+  correction, else the plain prolongation then K15, as the 2D alpha
+  correction ran them); K10 at 2048^2 (4 sweeps, walls and doubly
+  periodic);
+* ``digests``: SHA-256 of the outputs of K3, K8c, K17, K2, K8b and K12
+  (each cascade's own K3 launches) and of K15 (from u, cell and scalar
+  dia, walls and doubly periodic; and a coarse correction + u: the fold
+  where K15 takes it, else prolong_plain, K15 and the sum) on fixed
+  inputs, float32 and float64, and of chip_smoke's twophase state after
+  init + 5 steps, to hold two checkouts bit for bit;
 * ``step_ms``: the lid step of chip_smoke.lid_cfg(11) (the bench's
   route), the median of five 20-step windows closed by a synchronize,
   after init and 20 steps;
+* ``twophase`` and ``adaptive_relax``: chip_smoke's twophase step
+  (1024^2) and adaptive_relax step (2048^2), ms/step as the median of
+  three timed windows after init and a few steps, and from
+  torch.profiler over a few more steps the device ms/step, the device
+  ops per step and, for twophase, the ops per step of the kinds the 2D
+  alpha correction's plain prolongation ran (roll, where, cat, mul,
+  add, arange, ==);
 * the card's name and power limit (nvidia-smi).
 """
+import inspect
 import json
 import subprocess
 import sys
@@ -34,6 +53,11 @@ from pathlib import Path
 CALLS = 1000
 EVENT_CALLS = 100
 WINDOWS, WINDOW_STEPS = 5, 20
+# (warm-up steps, windows, steps per window, profiled steps) of the
+# twophase and adaptive_relax steps
+ROUTE_STEPS = {"twophase": (3, 3, 4, 3), "adaptive_relax": (5, 3, 10, 5)}
+PROLONG_OPS = ("roll", "where", "CatArray", "MulFunctor", "CUDAFunctor_add",
+               "arange", "CompareEqFunctor")
 
 
 def host_us(fn, calls=CALLS):
@@ -62,6 +86,116 @@ def device_ms(fn, calls=EVENT_CALLS):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def route_cost(sim, warm, windows, steps, profiled, watch=()):
+    """ms/step (median of ``windows`` windows of ``steps`` steps after
+    ``warm`` steps), device ms/step and device ops/step (torch.profiler
+    over ``profiled`` steps), and the ops per step whose kernel names
+    hold each substring of ``watch``."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sim.run(max_steps=warm)
+    walls = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(max_steps=steps)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.run(max_steps=profiled)
+        torch.cuda.synchronize()
+    us, ops, kinds = 0.0, 0, {w: 0 for w in watch}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        us += evt.self_cuda_time_total if t is None else t
+        ops += evt.count
+        for w in watch:
+            if w in evt.key:
+                kinds[w] += evt.count
+    return {"step_ms": float(np.median(walls)) / steps * 1e3,
+            "windows_s": walls, "device_ms": us / 1e3 / profiled,
+            "device_ops": ops / profiled,
+            "ops_by_kind": {w: c / profiled for w, c in kinds.items()}}
+
+
+def sha(*ts):
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        if t is not None:
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def digests(rbgs, dev, chip_smoke):
+    """SHA-256 of the K3-family kernels', K15's and the twophase step's
+    outputs on fixed inputs."""
+    import torch
+    fold = "coarse" in inspect.signature(rbgs.rbgs_relax_alpha).parameters
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(11)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+        n = 1024
+        sg = (-1.0, -1.0, 1.0, -1.0)
+        c, rhs, u, v = rnd(n // 2, n // 2), rnd(n, n), rnd(n, n), rnd(n, n)
+        ufx, ufy = rnd(n + 1, n), rnd(n, n + 1)
+        kw = dict(nsweeps=5, h2=1.0 / n ** 2, signs=sg, omega=1.5)
+        outs = {
+            "k3": rbgs.prolong_relax(c, rhs, 0.0, u, **kw),
+            "k3_per_y": rbgs.prolong_relax(c, rhs, 0.0, u, per_y=True, **kw),
+            "k3_zero": rbgs.prolong_relax(None, rhs[:16, :16].contiguous(),
+                                          0.0, **dict(kw, nsweeps=40)),
+            "k8c": rbgs.prolong_relax_pair([c, c], [rhs, v], [0.0, 3.0],
+                                           [u, None], **kw),
+            "k17": rbgs.prolong_relax_correct(
+                c, rhs, 0.0, u, ufx, ufy, 1e-3, 1.0 / n, (u, v),
+                offs=(0.0, 0.0, 0.0, 0.5), **kw),
+            "k2": rbgs.cascade_prolong_relax(
+                rhs[:512, :512].contiguous(), c[:256, :256].contiguous(),
+                0.0, nsweeps=5, coarsest=40, h2_half=4.0 / n ** 2,
+                signs=sg, omega=1.5),
+            "k8b": rbgs.cascade_prolong_relax_pair(
+                [rhs[:512, :512].contiguous(), v[:512, :512].contiguous()],
+                [c[:256, :256].contiguous(), c[256:, 256:].contiguous()],
+                [0.0, 2.0], nsweeps=1, coarsest=40, h2_half=4.0 / n ** 2,
+                signs=sg),
+            "k12": rbgs.coarse_vcycle(c, 0.0, nsweeps=5, coarsest=40,
+                                      h2=4.0 / n ** 2, signs=(1.0,) * 4),
+        }
+        ax, ay = 0.2 + rnd(n + 1, n).abs(), 0.2 + rnd(n, n + 1).abs()
+        dia = 0.5 + rnd(n, n).abs()
+        for per in ((False, False), (True, True)):
+            if per[0]:
+                ax[n], ay[:, n] = ax[0], ay[:, 0]
+            kw = dict(nsweeps=8, h2=1.0 / n ** 2, periodic=per, omega=1.5,
+                      signs=(1.0,) * 4 if per[0] else sg)
+            tag = "per_xy" if per[0] else "walls"
+            outs[f"k15_u_{tag}"] = rbgs.rbgs_relax_alpha(
+                u, rhs, ax, ay, dia, dia_cell=True, **kw)
+            outs[f"k15_scalar_{tag}"] = rbgs.rbgs_relax_alpha(
+                u, rhs, ax, ay, 0.3, **kw)
+            outs[f"k15_fold_{tag}"] = rbgs.rbgs_relax_alpha(
+                None, rhs, ax, ay, dia, dia_cell=True, coarse=c, add=u,
+                **kw) if fold else u + rbgs.rbgs_relax_alpha(
+                rbgs.prolong_plain(c, kw["signs"], per), rhs, ax, ay, dia,
+                dia_cell=True, **kw)
+        for k, o in outs.items():
+            out[f"{k}_{str(dtype)[6:]}"] = sha(
+                *(o if isinstance(o, (tuple, list)) else (o,)))
+    s = chip_smoke.twophase_sim(dev).run(max_steps=5)
+    out["twophase_5"] = sha(*(s.state[k] for k in ("U", "V", "T", "P")))
+    return out
 
 
 def main():
@@ -111,7 +245,28 @@ def main():
             oscale=osc),
         "advect2d": lambda: bcg.advect2d(U, 0, ufx, ufy, dt, grid, u_bcs[0],
                                          g=gx, gp=px, oscale=osc),
+        "rbgs_relax": lambda: rbgs.rbgs_relax(
+            u, rhs, 1e3, nsweeps=4, h2=1.0 / n ** 2, signs=signs),
+        "rbgs_relax_periodic": lambda: rbgs.rbgs_relax(
+            u, rhs, 0.0, nsweeps=4, h2=1.0 / n ** 2, signs=(1.0,) * 4,
+            periodic=(True, True)),
     }
+    # K15 at 1024^2, cell dia, 8 sweeps: from u, and with a coarse
+    # correction (the fold where K15 takes it, else prolong + K15)
+    na = 1024
+    ua, ra, da = rnd(na, na), rnd(na, na), 0.5 + rnd(na, na).abs()
+    axa, aya = 0.2 + rnd(na + 1, na).abs(), 0.2 + rnd(na, na + 1).abs()
+    ca = rnd(na // 2, na // 2)
+    kw15 = dict(nsweeps=8, h2=1.0 / na ** 2, signs=signs, dia_cell=True)
+    calls["rbgs_relax_alpha"] = lambda: rbgs.rbgs_relax_alpha(
+        ua, ra, axa, aya, da, **kw15)
+    if "coarse" in inspect.signature(rbgs.rbgs_relax_alpha).parameters:
+        calls["rbgs_relax_alpha_coarse"] = lambda: rbgs.rbgs_relax_alpha(
+            None, ra, axa, aya, da, coarse=ca, **kw15)
+    else:
+        calls["rbgs_relax_alpha_coarse"] = lambda: rbgs.rbgs_relax_alpha(
+            rbgs.prolong_plain(ca, signs, (False, False)), ra, axa, aya, da,
+            **kw15)
     out = {"root": str(root)}
     for name, fn in calls.items():
         out[name] = {"host_us": host_us(fn), "device_ms": device_ms(fn)}
@@ -127,6 +282,13 @@ def main():
         walls.append(time.perf_counter() - t0)
     out["step_ms"] = float(np.median(walls)) / WINDOW_STEPS * 1e3
     out["step_windows_s"] = walls
+    del sim
+    out["digests"] = digests(rbgs, dev, chip_smoke)
+    out["twophase"] = route_cost(chip_smoke.twophase_sim(dev),
+                                 *ROUTE_STEPS["twophase"], watch=PROLONG_OPS)
+    out["adaptive_relax"] = route_cost(
+        chip_smoke.ada_sim(dev, "relax").init(),
+        *ROUTE_STEPS["adaptive_relax"])
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
