@@ -7,7 +7,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
   1. setup: the card's name and power limit, torch/CUDA versions, the
      kernels' build from gerris_tpu_torch/csrc (one nvcc per source, in
      parallel), ptxas's registers, stack frame and spills of the BCG
-     kernels (K6, K7/K14);
+     kernels (K6, K7/K14), K1's and K13's;
   2. kernel checks: every kernel wrapper against its plain version on the
      card, float64 and float32: the multigrid kernels K1-K3 at the 2048^2
      main-path shapes and their coarser levels (K3 at each level's tile),
@@ -30,17 +30,25 @@ Phases (any failure ends the run with a non-zero exit and no result):
      with its 64^2 block kernel alone; the fold route's K16 and K17 at
      2048^2 and 64^2 (the lid's pressure ghosts, inhomogeneous Neumann
      offsets, periodic columns; K16 with and without a sub, K17 with and
-     without the cells), plus K17's tile invariance; the 3D smoother K13
-     at 128^3 with the projections' and the diffusion's settings, at
-     32^3, 64^3 and (32, 64, 128) with mixed sides, and at 256^3
-     (float32); the two-phase smoother K15 at 1024^2 (walls, periodic
+     without the cells), plus K17's tile invariance; K1, K8a and K16
+     also at a 16^2 level, and bit-identical across K1's tile heights;
+     the 3D smoother K13 at 128^3 with the projections' and the
+     diffusion's settings, at 32^3, 64^3 and (32, 64, 128) with mixed
+     sides, and at 256^3 (float32), from a given u and with the
+     prolongation of a coarse correction folded in (+ u) at 32^3, 64^3,
+     128^3 and 256^3, one launch a call, u and the coarse correction left
+     as they were, bit-identical across block counts, threads and bricks;
+     the two-phase
+     smoother K15 at 1024^2 (walls, periodic
      rows, doubly periodic; scalar and cell dia; omega 1 and 1.5; 8 and
      24 sweeps; zero-diagonal cells), from a given u and with the
      prolongation of a coarse correction folded in (+ u), and at every
      level down to 4^2 as a correction runs it, plus its invariance
      across tiles, threads and sweep splits; then each kernel's time
      against its plain version's at the main-path shapes (K13 at 128^3,
-     K15 at 1024^2), float32 (CUDA events), K7 beside two K14 launches,
+     from u and with the fold; K15 at 1024^2), float32 (CUDA events), K1
+     per tile height, K13 per level and launch shape (device time per
+     launch, profiled), K7 beside two K14 launches,
      K15's and K3's per level, K15's per tile and threads (with and
      without the coarse correction), K10's per tile and threads, K7's,
      K14's and K6's per tile plan, and the host's time per call and the
@@ -75,9 +83,12 @@ Phases (any failure ends the run with a non-zero exit and no result):
      3D path, ``lid3d``: Simulation.init() + 20 steps of the bench's 128^3
      lid cavity under its fixed 3D schedule (bench.py:271-312), float32,
      through K13 (every other phase of the 3D step is torch): finite
-     values, K13's launches gated, agreement with the same steps through
-     the plain versions, the median step rate of five timed windows as
-     ``cups_3d_128`` and a profile; and ``poisson3d``, a Neumann box
+     values, K13's launches gated (one launch a call, every call with the
+     coarser level's correction prolonged in the kernel), agreement with
+     the same steps through the plain versions, the median step rate of
+     five timed windows as ``cups_3d_128`` and a profile with the device
+     ops per step and the torch prolongation's kinds (roll, where, the
+     stack's CatArray copies) per step; and ``poisson3d``, a Neumann box
      solved adaptively in float64 at 64^3 and 128^3 (the torch residual,
      the dense 16^3 solve, K13), its second order gated and held to the
      plain route; then ``twophase``, __graft_entry__._dryrun_twophase at
@@ -171,11 +182,15 @@ LID3D_STEPS = 20
 LID3D_TIMED_STEPS = 10
 LID3D_PROFILE_STEPS = 5
 # K13 calls per correction at 128^3: the levels 32^3, 64^3 and 128^3
-# above the dense 16^3 level; per step one correction per projection (4
-# sweeps) and one per velocity component's diffusion (1 sweep)
+# above the dense 16^3 level, each one launch with the coarser level's
+# correction prolonged in the kernel; per step one correction per
+# projection (4 sweeps) and one per velocity component's diffusion (1
+# sweep)
 K13_LEVELS = 3
 K13_PER_STEP = K13_LEVELS * (2 + 3)
-K13_HALF_SWEEPS_PER_STEP = K13_LEVELS * 2 * (2 * 4 + 3 * 1)
+# the torch prolongation's device kernels, by a substring of their names
+# (torch.roll, torch.where, torch.stack's copies), counted per lid3d step
+PROLONG_KINDS = ("roll", "where", "CatArray")
 
 # twophase: __graft_entry__._dryrun_twophase at full width, 1024^2
 # float32 (VOF, height-function tension, variable density 10 / 1)
@@ -304,7 +319,8 @@ def want_launches(route, steps):
         "residual": 0, "rbgs_relax": 0, "coarse_vcycle": 0,
         "coarse_vcycle.restrict_pyramid": 0, "coarse_block": 0,
         "coarse_vcycle.prolong_relax": 0,
-        "rbgs_relax_3d": 0, "rbgs_relax_3d.half_sweep": 0,
+        "rbgs_relax_3d": 0, "rbgs_relax_3d.launch": 0,
+        "rbgs_relax_3d.prolong": 0,
         "rbgs_relax_alpha": 0, "rbgs_relax_alpha.prolong": 0,
     }
 
@@ -347,7 +363,7 @@ OWN_KERNELS = ("residual_restrict_kernel", "restrict_pyramid_kernel",
                "prolong_relax_kernel", "divergence_mac_kernel",
                "correct_project_kernel", "interp_faces_kernel",
                "predict_xy_kernel", "advect2d_kernel", "sum_partials_kernel", "residual_kernel", "rbgs_relax_kernel",
-               "coarse_block_kernel", "rbgs3d_half_sweep_kernel",
+               "coarse_block_kernel", "rbgs3d_",
                "prolong_relax_correct_kernel", "rbgs_relax_alpha_kernel")
 
 
@@ -417,8 +433,9 @@ def reset_launch_counts():
 
 
 def print_ptxas(entries):
-    """ptxas's registers, stack frame and spills of the BCG kernels (K6,
-    and K7/K14's engine), one line per template instance."""
+    """ptxas's registers, stack frame and spills of the given kernels (the
+    BCG kernels K6 and K7/K14's engine, K1's and K13's), one line per
+    template instance."""
     names = [name for name, _ in entries]
     try:
         names = subprocess.run(["c++filt"], input="\n".join(names),
@@ -426,7 +443,7 @@ def print_ptxas(entries):
                                check=True).stdout.splitlines()
     except (OSError, subprocess.CalledProcessError):
         pass
-    print(f"  ptxas -v, {len(entries)} BCG kernel instances:")
+    print(f"  ptxas -v, {len(entries)} kernel instances:")
     for name, (_, lines) in zip(names, entries):
         short = name.replace("(anonymous namespace)::", "").split("(")[0]
         short = short.removeprefix("void ")
@@ -868,6 +885,52 @@ def check_adaptive_kernels(rnd, dtype, record):
             record[k].update(zip(ERR_KEYS, map(max, zip(*es))))
 
 
+def check_residual_restrict(rnd, dtype, b):
+    """K1, K8a and K16 at 16^2, a level smaller than the kernel's tile
+    (the lid's ghosts, periodic columns or not, own subs and dias per
+    system), against their plain versions; and each bit-identical across
+    K1's tile heights (16 and 8 rows against 32) at 2048^2 and 64^2."""
+    import torch
+    from gerris_tpu_torch.ops.cuda import rbgs
+    signs, offs = (-1.0,) * 4, (0.0, 0.0, 0.0, 2.0)
+    for n in (16, 2048, 64):
+        u, u2, rhs, rhs2 = (rnd(dtype, n, n) for _ in range(4))
+        ufx, ufy, sub = rnd(dtype, n + 1, n), rnd(dtype, n, n + 1), rnd(
+            dtype, 1)
+        for per_y in (False, True):
+            kw = dict(h2=1.0 / n ** 2, signs=signs, offs=offs, per_y=per_y)
+            kwp = dict(h2=1.0 / n ** 2, signs=signs, per_y=per_y,
+                       offss=[offs, (0.0,) * 4])
+            pair = ([u, u2], [rhs, rhs2], [0.6, 2.0], [sub, 0.0])
+            calls = {
+                "K1": (lambda **t: rbgs.residual_restrict(
+                           u, rhs, 0.6, sub, **kw, **t),
+                       lambda: rbgs.residual_restrict_plain(
+                           u, rhs, 0.6, sub, **kw)),
+                "K8a": (lambda **t: flat(rbgs.residual_restrict_pair(
+                            *pair, **kwp, **t)),
+                        lambda: flat(rbgs.residual_restrict_pair_plain(
+                            *pair, **kwp))),
+                "K16": (lambda **t: rbgs.residual_restrict_div(
+                            u, ufx, ufy, 0.3 / n ** 2, 0.0, sub, **kw, **t),
+                        lambda: rbgs.residual_restrict_div_plain(
+                            u, ufx, ufy, 0.3 / n ** 2, 0.0, sub, **kw)),
+            }
+            for k, (kern, plain) in calls.items():
+                if n == 16:
+                    compare(f"{k} {n}^2 per_y={per_y}", kern(), plain(), b)
+                    continue
+                ref = kern()
+                for rows in rbgs.RR_ROWS[1:]:
+                    if not all(torch.equal(x, y) for x, y in zip(
+                            ref, kern(tile_rows=rows))):
+                        raise AssertionError(f"{k} {n}^2 {dtype} per_y="
+                                             f"{per_y}: tile rows {rows} "
+                                             "and 32 differ")
+    print(f"  K1, K8a, K16 {dtype}: tile rows 16 and 8 bit-identical to 32 "
+          "at 2048^2 and 64^2")
+
+
 def lid3d_cfg(level=LEVEL_3D):
     """The bench's 3D figure (bench.py:279-294): the lid cavity in 3D, U
     = 1 on the top side and 0 on the other walls, V and W 0, pressure
@@ -894,7 +957,13 @@ def check_rbgs3d(rnd, dtype, record):
     settings (Neumann, 4 sweeps, omega 1.5, dia 0) and the diffusion's
     (the lid's Dirichlet sides, 1 sweep, dia = 1/(dt nu) at dt = 0.8 h);
     at 32^3, 64^3 and (32, 64, 128) with mixed sides; at 256^3 in float32
-    (the port's K13 has no plane limit); u left as it was.  Errors go to
+    (the port's K13 has no plane limit); and with the fold, from the
+    prolongation of a coarse correction, with and without an added u, at
+    32^3, 64^3 and 128^3 with mixed sides, at 128^3 with the diffusion's
+    settings and at 256^3 in float32.  Each call one launch; u, the
+    coarse correction and the added field left as they were.  Then the
+    launch at 256 and 512 threads, several block counts and bricks
+    bit-identical to the plan's at 32^3 and 64^3.  Errors go to
     ``record`` when it is given."""
     import torch
     from gerris_tpu_torch.ops.cuda import rbgs3d
@@ -902,13 +971,29 @@ def check_rbgs3d(rnd, dtype, record):
     b = BOUND[name]
     n = 1 << LEVEL_3D
     mixed = (-1.0, 1.0, 1.0, -1.0, -1.0, 1.0)
+    dia_diff = 1.0 / (0.8 / n * 1e-3)
     cases = [((n,) * 3, (1.0,) * 6, 4, 1.5, 0.0),
-             ((n,) * 3, (-1.0,) * 6, 1, 1.0, 1.0 / (0.8 / n * 1e-3)),
+             ((n,) * 3, (-1.0,) * 6, 1, 1.0, dia_diff),
              ((32,) * 3, mixed, 4, 1.5, 0.0), ((64,) * 3, mixed, 3, 1.3, 0.7),
              ((32, 64, 128), mixed, 4, 1.5, 0.0)]
+    folds = [((32,) * 3, mixed, 4, 1.5, 0.0), ((64,) * 3, mixed, 4, 1.5, 0.0),
+             ((n,) * 3, mixed, 4, 1.5, 0.0),
+             ((n,) * 3, (-1.0,) * 6, 1, 1.0, dia_diff)]
     if dtype == torch.float32:
         cases.append(((256,) * 3, (1.0,) * 6, 4, 1.5, 0.0))
+        folds.append(((256,) * 3, (1.0,) * 6, 4, 1.5, 0.0))
     errs = []
+
+    def one_launch(fn, prolong):
+        before = dict(rbgs3d.LAUNCHES)
+        out = fn()
+        delta = {k: v - before[k] for k, v in rbgs3d.LAUNCHES.items()}
+        want = {"rbgs_relax_3d": 1, "rbgs_relax_3d.launch": 1,
+                "rbgs_relax_3d.prolong": int(prolong)}
+        if delta != want:
+            raise AssertionError(f"K13: launches {delta}, want {want}")
+        return out
+
     for shape, signs, nsw, omega, dia in cases:
         u, rhs = rnd(dtype, *shape), rnd(dtype, *shape)
         u0 = u.clone()
@@ -917,10 +1002,47 @@ def check_rbgs3d(rnd, dtype, record):
         errs.append(compare(
             f"K13 rbgs_relax_3d {shape} nsweeps={nsw} omega={omega} "
             f"dia={dia:.4g} signs={signs}",
-            rbgs3d.rbgs_relax_3d(u, rhs, dia, **kw),
+            one_launch(lambda: rbgs3d.rbgs_relax_3d(u, rhs, dia, **kw),
+                       False),
             rbgs3d.rbgs_relax_3d_plain(u, rhs, dia, **kw), b))
         if not torch.equal(u, u0):
             raise AssertionError("K13 changed its input u")
+    for shape, signs, nsw, omega, dia in folds:
+        c = rnd(dtype, *(m // 2 for m in shape))
+        rhs, add = rnd(dtype, *shape), rnd(dtype, *shape)
+        c0, add0 = c.clone(), add.clone()
+        for a in (None, add):
+            kw = dict(nsweeps=nsw, h2=1.0 / shape[0] ** 2, signs=signs,
+                      omega=omega, coarse=c, add=a)
+            errs.append(compare(
+                f"K13 fold {shape} nsweeps={nsw} omega={omega} dia={dia:.4g}"
+                f" signs={signs} add={a is not None}",
+                one_launch(lambda: rbgs3d.rbgs_relax_3d(None, rhs, dia, **kw),
+                           True),
+                rbgs3d.rbgs_relax_3d_plain(None, rhs, dia, **kw), b))
+        if not (torch.equal(c, c0) and torch.equal(add, add0)):
+            raise AssertionError("K13 changed its coarse correction or add")
+    # the block decompositions: bit-identical to the plan's launch
+    variants = [dict(threads=t, blocks=nb, brick=br)
+                for t, nb, br in ((256, None, None), (512, 1, None),
+                                  (256, 7, (1, 1)), (512, 132, (8, 16)),
+                                  (512, None, (2, 4)), (256, None, (3, 5)))]
+    for m in (32, 64):
+        c, rhs, add = (rnd(dtype, m // 2, m // 2, m // 2),
+                       rnd(dtype, m, m, m), rnd(dtype, m, m, m))
+        kw = dict(nsweeps=4, h2=1.0 / m ** 2, signs=mixed, omega=1.5)
+        for src in ("u", "coarse"):
+            args = dict(kw, coarse=c, add=add) if src == "coarse" else kw
+            first = add if src == "u" else None
+            ref = rbgs3d.rbgs_relax_3d(first, rhs, 0.3, **args)
+            for v in variants:
+                if not torch.equal(ref, rbgs3d.rbgs_relax_3d(
+                        first, rhs, 0.3, **args, **v)):
+                    raise AssertionError(f"K13 {m}^3 {dtype} from {src}: "
+                                         f"{v} differs from the plan's")
+    print(f"  K13 {name}: {len(variants)} block decompositions bit-identical "
+          "to the plan's at 32^3 and 64^3, from u and from a coarse "
+          "correction + u")
     if record is not None:
         record["rbgs_relax_3d"].update(zip(ERR_KEYS, map(max, zip(*errs))))
 
@@ -1105,6 +1227,15 @@ def alpha_flops(n, nsweeps, omega, coarse=False, add=False):
                     + (6 if coarse else 0) + (1 if add else 0))
 
 
+def k13_flops(n, nsweeps, omega, coarse=False, add=False):
+    """Operations of K13 on an n^3 level: per sweep the neighbour sum and
+    update (7 per cell, 3 more with omega != 1); with a coarse correction
+    its prolongation (3 per cell of each axis's output: 5.25 per fine
+    cell, counted 6), with an added field 1 per cell."""
+    return n ** 3 * (nsweeps * (7 + (3 if omega != 1.0 else 0))
+                     + (6 if coarse else 0) + (1 if add else 0))
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -1242,6 +1373,7 @@ def phase_kernels(dev, record):
                     b13)
         if main:
             record["residual_restrict"].update(zip(ERR_KEYS, e))
+        check_residual_restrict(rnd, dtype, b13)
         e = check_pyramids(rnd, dtype)
         if main:
             record["restrict_pyramid"].update(zip(ERR_KEYS, e))
@@ -1357,6 +1489,12 @@ def phase_kernels(dev, record):
             lambda: rbgs.residual_restrict_plain(u, rhs, 0.0, sub, **kw),
             nbytes(u, rhs, sub), n * n * 8, None),
     }
+    for rows in rbgs.RR_ROWS[1:]:
+        timings[f"residual_restrict|rows{rows}"] = (
+            lambda rows=rows: rbgs.residual_restrict(u, rhs, 0.0, sub,
+                                                     tile_rows=rows, **kw),
+            timings["residual_restrict"][1], nbytes(u, rhs, sub), n * n * 8,
+            None)
     # the cascades' pyramid, 512^2 -> 16^2 (3 operations per coarse
     # cell), single and pair; its one-level case restrict2 at 512^2
     # beside avg_pool2d, which computes that level
@@ -1552,13 +1690,21 @@ def phase_kernels(dev, record):
     timings["rbgs_relax_3d"] = (
         lambda: rbgs3d.rbgs_relax_3d(u3, r3, 0.0, **kw13),
         lambda: rbgs3d.rbgs_relax_3d_plain(u3, r3, 0.0, **kw13),
-        nbytes(u3, r3), n3 ** 3 * 4 * 10, None)
+        nbytes(u3, r3), k13_flops(n3, 4, 1.5), None)
+    # the fold as the projections' finest level runs it: the 64^3
+    # correction prolonged in the kernel, 4 sweeps, + u
+    c3 = rnd(f32, n3 // 2, n3 // 2, n3 // 2)
+    kw13f = dict(kw13, coarse=c3, add=u3)
+    timings["rbgs_relax_3d|fold"] = (
+        lambda: rbgs3d.rbgs_relax_3d(None, r3, 0.0, **kw13f),
+        lambda: rbgs3d.rbgs_relax_3d_plain(None, r3, 0.0, **kw13f),
+        nbytes(c3, r3, u3), k13_flops(n3, 4, 1.5, True, True), None)
     dia3 = 1.0 / (0.8 / n3 * 1e-3)
     kw13d = dict(nsweeps=1, h2=1.0 / n3 ** 2, signs=(-1.0,) * 6)
     timings["rbgs_relax_3d|diffusion"] = (
         lambda: rbgs3d.rbgs_relax_3d(u3, r3, dia3, **kw13d),
         lambda: rbgs3d.rbgs_relax_3d_plain(u3, r3, dia3, **kw13d),
-        nbytes(u3, r3), n3 ** 3 * 7, None)
+        nbytes(u3, r3), k13_flops(n3, 1, 1.0), None)
     # K15 as the twophase route runs it at its finest level, 1024^2: the
     # diffusion's cell dia (rho) and 8 sweeps from a given u, the
     # projections' scalar dia 0, and the correction's fold: the coarse
@@ -1653,6 +1799,54 @@ def phase_kernels(dev, record):
               f"{v['tile']}x{v['threads']})" for m, v in k15_levels.items())
           + f"; the whole levels 64^2..4^2 {whole:.4f} ms per correction "
           f"back to back, {whole_dev:.4f} ms of device time")
+    # K13 at every level of a lid3d projection's correction (4 sweeps at
+    # omega 1.5, Neumann, the coarser level's correction prolonged in the
+    # kernel, + u at 128^3) at the plan's launch and at other threads,
+    # block counts and bricks: CUDA events ms (back to back: the smaller
+    # levels read the host's time per call), device us and host us per
+    # launch (profiled); the plain version's ms and the bound beside
+    k13_levels = {}
+    cands = {"default": {}, "t256": dict(threads=256),
+             "b132": dict(blocks=132),
+             "t256_brick2x4": dict(threads=256, brick=(2, 4)),
+             "brick8x8": dict(brick=(8, 8)), "brick8x16": dict(brick=(8, 16))}
+    for m in (32, 64, 128):
+        cl, rl = rnd(f32, m // 2, m // 2, m // 2), rnd(f32, m, m, m)
+        al = rnd(f32, m, m, m) if m == n3 else None
+        kwl = dict(nsweeps=4, h2=1.0 / m ** 2, signs=(1.0,) * 6, omega=1.5,
+                   coarse=cl, add=al)
+        lv = {}
+        for key, extra in cands.items():
+            fn = lambda: rbgs3d.rbgs_relax_3d(None, rl, 0.0, **extra, **kwl)
+            host, dev_us = host_device_us(fn, calls=200)
+            lv[key] = {"ms": cuda_ms(fn), "device_us": dev_us,
+                       "host_us": host}
+        lv.update(plan=" ".join(map(str, rbgs3d.plan())),
+                  plain_ms=cuda_ms(lambda: rbgs3d.rbgs_relax_3d_plain(
+                      None, rl, 0.0, **kwl)),
+                  bound_ms=bound(nbytes(cl, rl, al), rl,
+                                 k13_flops(m, 4, 1.5, True,
+                                           al is not None))[0])
+        k13_levels[m] = lv
+    record["rbgs_relax_3d"]["levels"] = k13_levels
+    print("  K13 per level of a lid3d correction (float32, 4 sweeps, omega "
+          "1.5, coarse prolonged in the kernel, + u at 128^3; per launch "
+          "shape ms / device us / host us per launch; the plan (blocks, "
+          "threads, brick); plain ms; bound ms): " + "; ".join(
+              f"{m}: " + ", ".join(
+                  f"{k} {v['ms']:.4f} / {v['device_us']:.2f} / "
+                  f"{v['host_us']:.2f}" for k, v in lv.items()
+                  if isinstance(v, dict))
+              + f"; plan {lv['plan']}; plain {lv['plain_ms']:.4f}; bound "
+              f"{lv['bound_ms']:.4f}" for m, lv in k13_levels.items()))
+    # K1 per tile height at 2048^2, device us per launch (profiled)
+    k1_rows = {rows: host_device_us(lambda rows=rows: rbgs.residual_restrict(
+                   u, rhs, 0.0, sub, tile_rows=rows, h2=h2, signs=signs,
+                   offs=offs), calls=200)[1] for rows in rbgs.RR_ROWS}
+    record["residual_restrict"]["device_us_rows"] = k1_rows
+    print(f"  K1 at {n}^2 per tile height (float32; device us per launch, "
+          "profiled): " + ", ".join(f"{r}x128 {v:.2f}"
+                                    for r, v in k1_rows.items()))
     # K10 at 2048^2 per tile and threads (the "relax" diffusion's 4
     # sweeps), in turns
     k10_tiles = {}
@@ -1900,12 +2094,14 @@ PROLONG_OPS = ("roll", "where", "CatArray", "MulFunctor", "CUDAFunctor_add",
                "arange", "CompareEqFunctor")
 
 
-def phase_profile(s, step_s, card, steps=PROFILE_STEPS, watch=()):
+def phase_profile(s, step_s, card, steps=PROFILE_STEPS, watch=(),
+                  kinds=None):
     """torch.profiler over ``steps`` steps of the running simulation:
     device time by kernel, the port's kernels against the plain torch
     ops, and the device's busy share of an unprofiled step; the device
-    ops per step whose kernel names hold each substring of ``watch``.
-    Returns the device ops per step."""
+    ops per step whose kernel names hold each substring of ``watch``
+    (also into the dict ``kinds`` when given).  Returns the device ops
+    per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1942,10 +2138,13 @@ def phase_profile(s, step_s, card, steps=PROFILE_STEPS, watch=()):
     for us, count, key in rows[:16]:
         print(f"    {us / 1e3:9.3f} ms {100 * us / total:5.1f}% "
               f"{count / steps:6.1f}/step  {key[:90]}")
+    per_kind = {w: sum(r[1] for r in rows if w in r[2]) / steps
+                for w in watch}
     if watch:
         print("  device ops per step by kind: " + ", ".join(
-            f"{w} {sum(r[1] for r in rows if w in r[2]) / steps:.1f}"
-            for w in watch))
+            f"{w} {v:.1f}" for w, v in per_kind.items()))
+    if kinds is not None:
+        kinds.update(per_kind)
     return launches / steps
 
 
@@ -2159,7 +2358,9 @@ def phase_lid3d(dev, card):
     """init + LID3D_STEPS steps of the bench's 3D figure through the
     kernels, the counts set to 0 just before and gated just after (K13
     only: K13_PER_STEP calls per step and the initial projection's
-    K13_LEVELS, no 2D kernel); the same steps through the plain versions
+    K13_LEVELS, each one launch with the coarser level's correction
+    prolonged in the kernel, no 2D kernel; the profile's K13 kernels per
+    step on the card too); the same steps through the plain versions
     on the card, held to MAIN_PATH_RTOL on U, V, W and P; five timed
     windows (cups_3d_128, the bench's key) and a profile.  Returns the
     launch counts."""
@@ -2176,10 +2377,9 @@ def phase_lid3d(dev, card):
     counts = launch_counts()
     solves = LID3D_STEPS + 1
     want = {k: 0 for k in counts}
-    want.update({
-        "rbgs_relax_3d": K13_PER_STEP * LID3D_STEPS + K13_LEVELS,
-        "rbgs_relax_3d.half_sweep":
-            K13_HALF_SWEEPS_PER_STEP * LID3D_STEPS + K13_LEVELS * 2 * 4})
+    k13 = K13_PER_STEP * LID3D_STEPS + K13_LEVELS
+    want.update({"rbgs_relax_3d": k13, "rbgs_relax_3d.launch": k13,
+                 "rbgs_relax_3d.prolong": k13})
     print(f"  lid3d, init + {LID3D_STEPS} steps (the first builds the dense "
           f"16^3 solves): {t_run:.3f} s; launches "
           f"{ {k: v for k, v in counts.items() if v} }; {solves} approximate"
@@ -2212,7 +2412,16 @@ def phase_lid3d(dev, card):
           f"{' '.join(f'{w:.4f}' for w in walls)} s; median "
           f"{step * 1e3:.3f} ms/step, cups_3d_128 {cups:.6e} cell-updates/s "
           f"on {card}")
-    phase_profile(s, step, card, LID3D_PROFILE_STEPS)
+    kinds = {}
+    ops = phase_profile(s, step, card, LID3D_PROFILE_STEPS,
+                        watch=PROLONG_KINDS + ("rbgs3d_",), kinds=kinds)
+    print(f"  lid3d: {ops:.1f} device ops per step; K13 kernels "
+          f"{kinds['rbgs3d_']:.1f} per step on the card (want "
+          f"{K13_PER_STEP}); the torch prolongation's kinds per step: "
+          + ", ".join(f"{k} {kinds[k]:.1f}" for k in PROLONG_KINDS))
+    if kinds["rbgs3d_"] != K13_PER_STEP:
+        raise AssertionError(f"lid3d: {kinds['rbgs3d_']} K13 kernels per "
+                             f"step on the card, want {K13_PER_STEP}")
     # a fixed-schedule solve computes its residual before and after the
     # cycle eagerly besides the cycle's own (poisson.solve's statistics);
     # a jitted JAX step drops the unused one and shares the other
@@ -2477,8 +2686,8 @@ def neumann_poisson_3d(dev, n):
     counts = launch_counts()
     levels = grid.level - 4       # the levels above the dense 16^3
     want = {k: 0 for k in counts}
-    want.update({"rbgs_relax_3d": levels * st.niter,
-                 "rbgs_relax_3d.half_sweep": levels * st.niter * 2 * 4})
+    want.update({k: levels * st.niter for k in (
+        "rbgs_relax_3d", "rbgs_relax_3d.launch", "rbgs_relax_3d.prolong")})
     if counts != want:
         raise AssertionError(f"poisson3d {n}: launches {counts}, want {want}")
     with plain_versions():
@@ -2572,7 +2781,9 @@ def main():
     build.library()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    print_ptxas(build.ptxas_report("predict_xy_kernel", "advect2d_kernel"))
+    print_ptxas(build.ptxas_report("predict_xy_kernel", "advect2d_kernel",
+                                   "residual_restrict_kernel",
+                                   "rbgs3d_grid_kernel"))
 
     record = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
               for k, (src, rep) in KERNELS.items()}
@@ -2606,8 +2817,8 @@ def main():
             counts[f"cascade{sub}.prolong_relax"]
     record["residual_restrict_div"]["launches_fold_div"] = \
         route_counts["fold_div"]["residual_restrict_div"]
-    record["rbgs_relax_3d"]["launches_half_sweep"] = \
-        route_counts["lid3d"]["rbgs_relax_3d.half_sweep"]
+    record["rbgs_relax_3d"]["launches_prolong"] = \
+        route_counts["lid3d"]["rbgs_relax_3d.prolong"]
     record["rbgs_relax_alpha"]["launches_prolong"] = \
         route_counts["twophase"]["rbgs_relax_alpha.prolong"]
     ada = route_counts["adaptive"]

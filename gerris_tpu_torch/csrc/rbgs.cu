@@ -66,7 +66,14 @@
 namespace {
 
 constexpr int MAX_BATCH = 2;
-constexpr int RR_TILE = 16;  // residual_restrict output tile (4-aligned)
+// residual_restrict's block: 32 x (rows / 4) threads, each owning a 4 x 4
+// patch of r0, so a block covers rows x RR_COLS cells (rows 32 by
+// default, 8 or 16 on request; the level's own size where it is
+// smaller); its u tile's rows are RR_LD wide, the interior from column 4
+// (16-byte aligned) with the halo at 3 and 4 + RR_COLS
+constexpr int RR_ROWS = 32;
+constexpr int RR_COLS = 128;
+constexpr int RR_LD = RR_COLS + 8;
 
 // One system of a residual_restrict launch.  K16 (residual_restrict_div)
 // forms the rhs from the MAC faces ufx, ufy instead of reading rhs.
@@ -92,6 +99,7 @@ struct RRArgs {
   int n0, n1;
   T sgn[4];
   int per_y;
+  int vec;  // every field's pointer 16-byte aligned: vector loads, stores
 };
 
 // One system of a sweep-engine launch (pr_relax).
@@ -130,16 +138,82 @@ struct PRFaces {
   T dia_s;
 };
 
+// the 2x2 mean of a cell's children a = (2i, 2j), b = (2i, 2j + 1),
+// c = (2i + 1, 2j), d = (2i + 1, 2j + 1): rows first, then columns
+template <typename T>
+__device__ __forceinline__ T mean4(T a, T b, T c, T d) {
+  const T x = T(0.5) * (a + c);
+  const T y = T(0.5) * (b + d);
+  return T(0.5) * (x + y);
+}
+
+// Four consecutive cells from or to device or shared memory, by 16-byte
+// vectors where `vec` (the address 16-byte aligned), else one by one;
+// two by one 8-byte (float) or 16-byte (double) vector
+__device__ __forceinline__ void ld4(const float* p, float* v, bool vec) {
+  if (vec) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    for (int e = 0; e < 4; ++e) v[e] = p[e];
+  }
+}
+__device__ __forceinline__ void ld4(const double* p, double* v, bool vec) {
+  if (vec) {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    const double2 r = *reinterpret_cast<const double2*>(p + 2);
+    v[0] = q.x, v[1] = q.y, v[2] = r.x, v[3] = r.y;
+  } else {
+    for (int e = 0; e < 4; ++e) v[e] = p[e];
+  }
+}
+__device__ __forceinline__ void st4(float* p, const float* v, bool vec) {
+  if (vec) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else for (int e = 0; e < 4; ++e) p[e] = v[e];
+}
+__device__ __forceinline__ void st4(double* p, const double* v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+    *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+  } else {
+    for (int e = 0; e < 4; ++e) p[e] = v[e];
+  }
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ void st2(float* p, float a, float b, bool vec) {
+  if (vec) *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else p[0] = a, p[1] = b;
+}
+__device__ __forceinline__ void st2(double* p, double a, double b, bool vec) {
+  if (vec) *reinterpret_cast<double2*>(p) = make_double2(a, b);
+  else p[0] = a, p[1] = b;
+}
+
 // ---------------------------------------------------------------------------
 // K1 residual_restrict (batch 1) and K8a residual_restrict_pair (batch 2).
 // Replaces gerris_tpu/ops/pallas/rbgs.py:residual_restrict (core _rr_core)
 // and residual_restrict_pair (_resid_restrict_kernel_pair).
 // Bound: device-memory bytes (reads u and rhs, writes r0 + r0/4 + r0/16,
-// per system).
-// Design: one block per 16x16 output tile of one system; the u tile and its
-// 1-cell halo (with the domain ghosts) sit in shared memory, so u is read
-// ~1.27x instead of 5x; r0 stays in shared memory for the two pooling
-// levels, so r1 and r2 never re-read r0 from device memory.
+// per system: at 2048^2 float32 ~53 MB, ~16 us).
+// Design: a block of 32 x 8 threads covers a wide tile of 32 x 128 cells,
+// each thread a 4 x 4 patch of r0 (tiles of 8 or 16 rows on request, to
+// time them).  The u tile, its ghost rows (sgn * u + off, or the
+// neighbour tiles' rows) and its two halo columns sit in shared memory,
+// loaded by 16-byte vectors (the columns one value a row); one barrier.
+// A thread reads its patch's rows by 16-byte vectors and its left and
+// right neighbours from the next lanes (shuffles) or the halo, reads rhs
+// and writes r0 by 16-byte vectors, and pools its patch's 2 x 2 of r1
+// and its one r2 in registers: no barrier and no shared buffer for the
+// pools, and a warp's r1 pairs and r2 values land on contiguous
+// addresses.  Every value is one expression in one order whatever the
+// tile (gtt::residual_value, the neighbour sum up + down + left + right,
+// mean4 rows first, K16's div * scale - sub one fused multiply-add), so
+// r0, r1 and r2 do not depend on the tiling.
 //
 // K16 residual_restrict_div (DIV = true, batch 1).
 // Replaces gerris_tpu/ops/pallas/rbgs.py:residual_restrict_div
@@ -147,70 +221,113 @@ struct PRFaces {
 // launch on the fold route.
 // Bound: device-memory bytes (reads u, ufx and ufy, writes r0 + r0/4 +
 // r0/16; at 2048^2 f32 4.31 n^2 words, ~72 MB, ~22 us).
-// Design: K1's tile; a thread forms its cell's rhs from the four faces
-// (gtt::mac_divergence, K4's expression) in registers, so div never goes
-// to device memory.  The faces of a tile are read once, coalesced along
-// the rows.
+// Design: K1's tile; a thread forms its patch's rhs - sub from the four
+// faces of each cell (gtt::divergence_sum, K4's face sum, times the scale
+// minus sub in one fused multiply-add) in registers, so div never goes to
+// device memory; the x faces are read by 16-byte vectors, the y faces
+// (rows of n1 + 1, so unaligned) one by one, coalesced.
 // ---------------------------------------------------------------------------
 template <typename T, bool DIV>
-__global__ void residual_restrict_kernel(RRArgs<T> a) {
-  __shared__ T su[RR_TILE + 2][RR_TILE + 2];
-  __shared__ T sr[RR_TILE][RR_TILE];
-  __shared__ T s1[RR_TILE / 2][RR_TILE / 2];
+__global__ void __launch_bounds__(256) residual_restrict_kernel(RRArgs<T> a) {
+  __shared__ __align__(16) T su[RR_ROWS + 2][RR_LD];
   const RRSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
   const int n0 = a.n0, n1 = a.n1;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i0 = blockIdx.y * RR_TILE, j0 = blockIdx.x * RR_TILE;
-  const int nt = RR_TILE * RR_TILE;
-  for (int k = ty * RR_TILE + tx; k < (RR_TILE + 2) * (RR_TILE + 2);
-       k += nt) {
-    const int li = k / (RR_TILE + 2), lj = k % (RR_TILE + 2);
-    const int gi = i0 + li - 1, gj = j0 + lj - 1;
-    const bool in_i = gi >= 0 && gi < n0, in_j = gj >= 0 && gj < n1;
-    T v = T(0);
-    if (in_i && in_j) {
-      v = s.u[(size_t)gi * n1 + gj];
-    } else if (in_j) {  // ghost row
-      v = gi < 0 ? a.sgn[0] * s.u[gj] + s.off[0]
-                 : a.sgn[1] * s.u[(size_t)(n0 - 1) * n1 + gj] + s.off[1];
-    } else if (in_i) {  // ghost column
-      if (a.per_y)
-        v = s.u[(size_t)gi * n1 + (gj < 0 ? n1 - 1 : 0)];
-      else
-        v = gj < 0 ? a.sgn[2] * s.u[(size_t)gi * n1] + s.off[2]
-                   : a.sgn[3] * s.u[(size_t)gi * n1 + n1 - 1] + s.off[3];
+  const int nt = 32 * blockDim.y;
+  const int rows = min(4 * (int)blockDim.y, n0), cols = min(RR_COLS, n1);
+  const int i0 = blockIdx.y * rows, j0 = blockIdx.x * cols;
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * 32 + tx;
+  const bool vec = a.vec;
+  // the tile's rows and its ghost or neighbour rows, 4 cells at a time
+  const int q4 = cols / 4;
+  for (int k = t; k < (rows + 2) * q4; k += nt) {
+    const int li = k / q4, q = k - li * q4;
+    const int gi = i0 + li - 1;
+    const int mi = gi < 0 ? 0 : gi >= n0 ? n0 - 1 : gi;
+    T v[4];
+    ld4(s.u + (size_t)mi * n1 + j0 + 4 * q, v, vec);
+    if (gi < 0) {
+      for (int e = 0; e < 4; ++e) v[e] = a.sgn[0] * v[e] + s.off[0];
+    } else if (gi >= n0) {
+      for (int e = 0; e < 4; ++e) v[e] = a.sgn[1] * v[e] + s.off[1];
     }
-    su[li][lj] = v;  // corner ghosts are never read
+    st4(&su[li][4 + 4 * q], v, true);
+  }
+  // the halo columns of the tile's rows (corner ghosts are never read)
+  for (int k = t; k < 2 * rows; k += nt) {
+    const int li = 1 + (k >> 1);
+    const T* row = s.u + (size_t)(i0 + li - 1) * n1;
+    if (!(k & 1)) {
+      su[li][3] = j0 > 0 ? row[j0 - 1]
+                  : a.per_y ? row[n1 - 1]
+                            : a.sgn[2] * row[0] + s.off[2];
+    } else {
+      su[li][4 + cols] = j0 + cols < n1 ? row[j0 + cols]
+                         : a.per_y ? row[0]
+                                   : a.sgn[3] * row[n1 - 1] + s.off[3];
+    }
   }
   __syncthreads();
   const T sub = s.sub ? *s.sub : T(0);
-  const int gi = i0 + ty, gj = j0 + tx;
-  const T c = su[ty + 1][tx + 1];
-  const T nb = su[ty][tx + 1] + su[ty + 2][tx + 1] + su[ty + 1][tx] +
-               su[ty + 1][tx + 2];
-  const T rhs = DIV ? gtt::mac_divergence(s.ufx, s.ufy, gi, gj, n1,
-                                          s.div_scale)
-                    : s.rhs[(size_t)gi * n1 + gj];
-  const T r = gtt::residual_value(rhs - sub, nb, c, a.h2, s.dia);
-  s.r0[(size_t)gi * n1 + gj] = r;
-  sr[ty][tx] = r;
-  __syncthreads();
-  // 2x2 means: rows first, then columns (the plain version's order)
-  if (ty < RR_TILE / 2 && tx < RR_TILE / 2) {
-    const T p = T(0.5) * (sr[2 * ty][2 * tx] + sr[2 * ty + 1][2 * tx]);
-    const T q =
-        T(0.5) * (sr[2 * ty][2 * tx + 1] + sr[2 * ty + 1][2 * tx + 1]);
-    const T m = T(0.5) * (p + q);
-    s1[ty][tx] = m;
-    s.r1[(size_t)(i0 / 2 + ty) * (n1 / 2) + j0 / 2 + tx] = m;
+  // the thread's patch: rows lr..lr+3, columns lc..lc+3 of the tile.  Every
+  // thread computes (the shuffles want the whole warp): a patch outside a
+  // smaller level's tile reads shared memory inside the buffer and the
+  // level's first rows in device memory, and only a patch inside the
+  // level stores
+  const int lr = 4 * ty, lc = 4 * tx;
+  const bool live = lr < rows && lc < cols;
+  const int gi0 = live ? i0 + lr : 0, gj0 = live ? j0 + lc : 0;
+  T r0[4][4];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int li = lr + rr + 1;
+    T up[4], c[4], dn[4], rhs[4];
+    ld4(&su[li - 1][4 + lc], up, true);
+    ld4(&su[li][4 + lc], c, true);
+    ld4(&su[li + 1][4 + lc], dn, true);
+    const T lf_lane = __shfl_up_sync(0xffffffffu, c[3], 1);
+    const T rt_lane = __shfl_down_sync(0xffffffffu, c[0], 1);
+    const T lf = tx == 0 ? su[li][3] : lf_lane;
+    const T rt = lc + 4 == cols ? su[li][4 + cols] : rt_lane;
+    const size_t g = (size_t)(gi0 + rr) * n1 + gj0;
+    // rhs - sub; K16's rhs is the faces' divergence times the scale, and
+    // div * scale - sub is one fused multiply-add, written out so that
+    // nvcc's contraction (which stops at a basic block's edge) cannot
+    // round some cells of a patch otherwise than others
+    if (DIV) {
+      T x0[4], x1[4];
+      ld4(s.ufx + g, x0, vec);
+      ld4(s.ufx + g + n1, x1, vec);
+      const T* fy = s.ufy + (size_t)(gi0 + rr) * (n1 + 1) + gj0;
+      for (int e = 0; e < 4; ++e)
+        rhs[e] = fma_rn(gtt::divergence_sum(x0[e], x1[e], fy[e], fy[e + 1]),
+                        s.div_scale, -sub);
+    } else {
+      ld4(s.rhs + g, rhs, vec);
+      for (int e = 0; e < 4; ++e) rhs[e] = rhs[e] - sub;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const T l = cc > 0 ? c[cc - 1] : lf;
+      const T r = cc < 3 ? c[cc + 1] : rt;
+      const T nb = up[cc] + dn[cc] + l + r;
+      r0[rr][cc] = gtt::residual_value(rhs[cc], nb, c[cc], a.h2, s.dia);
+    }
+    if (live) st4(s.r0 + (size_t)(gi0 + rr) * n1 + gj0, r0[rr], vec);
   }
-  __syncthreads();
-  if (ty < RR_TILE / 4 && tx < RR_TILE / 4) {
-    const T p = T(0.5) * (s1[2 * ty][2 * tx] + s1[2 * ty + 1][2 * tx]);
-    const T q =
-        T(0.5) * (s1[2 * ty][2 * tx + 1] + s1[2 * ty + 1][2 * tx + 1]);
-    s.r2[(size_t)(i0 / 4 + ty) * (n1 / 4) + j0 / 4 + tx] = T(0.5) * (p + q);
-  }
+  if (!live) return;
+  // the patch's 2 x 2 of r1 and its r2, in registers
+  T m[2][2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      m[p][q] = mean4(r0[2 * p][2 * q], r0[2 * p][2 * q + 1],
+                      r0[2 * p + 1][2 * q], r0[2 * p + 1][2 * q + 1]);
+  const int h1 = n1 / 2;
+  for (int p = 0; p < 2; ++p)
+    st2(s.r1 + (size_t)(gi0 / 2 + p) * h1 + gj0 / 2, m[p][0], m[p][1], vec);
+  s.r2[(size_t)(gi0 / 4) * (n1 / 4) + gj0 / 4] =
+      mean4(m[0][0], m[0][1], m[1][0], m[1][1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -257,15 +374,6 @@ struct PYArgs {
   PYSystem<T> sys[MAX_BATCH];
   int n, levels, tile;
 };
-
-// the 2x2 mean of a cell's children a = (2i, 2j), b = (2i, 2j + 1),
-// c = (2i + 1, 2j), d = (2i + 1, 2j + 1): rows first, then columns
-template <typename T>
-__device__ __forceinline__ T mean4(T a, T b, T c, T d) {
-  const T x = T(0.5) * (a + c);
-  const T y = T(0.5) * (b + d);
-  return T(0.5) * (x + y);
-}
 
 template <typename T>
 __global__ void restrict_pyramid_kernel(PYArgs<T> a) {
@@ -1054,13 +1162,33 @@ __global__ void coarse_block_kernel(CBArgs<T> a) {
 
 bool batch_ok(int batch) { return batch >= 1 && batch <= MAX_BATCH; }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// residual_restrict_kernel on square power-of-two levels of at least 16^2:
+// a block per RR_ROWS x RR_COLS tile (the level's size where smaller)
+template <typename T, bool DIV>
+int launch_rr(const RRArgs<T>& a, int batch, int tile_rows, void* stream) {
+  if (a.n0 < 16 || a.n1 < 16 || a.n0 & 3 || a.n1 & 3 ||
+      (tile_rows != 8 && tile_rows != 16 && tile_rows != RR_ROWS))
+    return (int)cudaErrorInvalidValue;
+  const int rows = a.n0 < tile_rows ? a.n0 : tile_rows;
+  const int cols = a.n1 < RR_COLS ? a.n1 : RR_COLS;
+  if (a.n0 % rows || a.n1 % cols) return (int)cudaErrorInvalidValue;
+  dim3 grid(a.n1 / cols, a.n0 / rows, batch);
+  residual_restrict_kernel<T, DIV>
+      <<<grid, dim3(32, tile_rows / 4), 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_residual_restrict(int batch, const void* const* u,
                              const void* const* rhs, const void* const* sub,
                              const double* dia, const double* off, double h2,
                              int n0, int n1, const double* sgn, int per_y,
                              void* const* r0, void* const* r1,
-                             void* const* r2, void* stream) {
+                             void* const* r2, int tile_rows, void* stream) {
   if (!batch_ok(batch)) return (int)cudaErrorInvalidValue;
   RRArgs<T> a = {};
   for (int b = 0; b < batch; ++b) {
@@ -1079,11 +1207,13 @@ int launch_residual_restrict(int batch, const void* const* u,
   a.n1 = n1;
   for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
   a.per_y = per_y;
-  dim3 block(RR_TILE, RR_TILE);
-  dim3 grid(n1 / RR_TILE, n0 / RR_TILE, batch);
-  residual_restrict_kernel<T, false>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  a.vec = 1;
+  for (int b = 0; b < batch; ++b) {
+    const RRSystem<T>& q = a.sys[b];
+    a.vec = a.vec && aligned16(q.u) && aligned16(q.rhs) &&
+            aligned16(q.r0) && aligned16(q.r1) && aligned16(q.r2);
+  }
+  return launch_rr<T, false>(a, batch, tile_rows, stream);
 }
 
 template <typename T>
@@ -1091,7 +1221,7 @@ int launch_residual_restrict_div(const void* const* ptr, double dia,
                                  const double* off, double h2,
                                  double div_scale, int n0, int n1,
                                  const double* sgn, int per_y,
-                                 void* stream) {
+                                 int tile_rows, void* stream) {
   RRArgs<T> a = {};
   RRSystem<T>& s = a.sys[0];
   s.u = (const T*)ptr[0];
@@ -1109,11 +1239,9 @@ int launch_residual_restrict_div(const void* const* ptr, double dia,
   a.n1 = n1;
   for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
   a.per_y = per_y;
-  dim3 block(RR_TILE, RR_TILE);
-  dim3 grid(n1 / RR_TILE, n0 / RR_TILE, 1);
-  residual_restrict_kernel<T, true>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  a.vec = aligned16(s.u) && aligned16(s.ufx) && aligned16(s.r0) &&
+          aligned16(s.r1) && aligned16(s.r2);
+  return launch_rr<T, true>(a, 1, tile_rows, stream);
 }
 
 // r: the top level per system; out: its levels back to back per system;
@@ -1361,10 +1489,11 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
   extern "C" int gtt_residual_restrict_##SUFFIX(                              \
       int batch, void* const* ptr, const double* dia, const double* off,      \
       double h2, int n0, int n1, const double* sgn, int per_y,                \
-      void* stream) {                                                         \
+      int tile_rows, void* stream) {                                          \
     return launch_residual_restrict<T>(                                       \
         batch, ptr, ptr + batch, ptr + 2 * batch, dia, off, h2, n0, n1, sgn,  \
-        per_y, ptr + 3 * batch, ptr + 4 * batch, ptr + 5 * batch, stream);    \
+        per_y, ptr + 3 * batch, ptr + 4 * batch, ptr + 5 * batch, tile_rows,  \
+        stream);                                                              \
   }                                                                           \
   extern "C" int gtt_restrict_pyramid_##SUFFIX(                              \
       int batch, void* const* ptr, int n, int levels, unsigned int* count,    \
@@ -1398,9 +1527,10 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
   extern "C" int gtt_residual_restrict_div_##SUFFIX(                          \
       void* const* ptr, double dia, const double* off, double h2,             \
       double div_scale, int n0, int n1, const double* sgn, int per_y,         \
-      void* stream) {                                                         \
+      int tile_rows, void* stream) {                                          \
     return launch_residual_restrict_div<T>(ptr, dia, off, h2, div_scale, n0,  \
-                                           n1, sgn, per_y, stream);           \
+                                           n1, sgn, per_y, tile_rows,         \
+                                           stream);                           \
   }                                                                           \
   extern "C" int gtt_prolong_relax_correct_##SUFFIX(                          \
       void* const* ptr, double dia, int n0, int n1, int tile, int halo,       \

@@ -192,15 +192,22 @@ __device__ __forceinline__ T residual_value(T rhs, T nb, T c, T h2, T dia) {
 
 // The MAC divergence of cell (i, j) times ``scale``: x faces (n0 + 1,
 // n1), y faces (n0, n1 + 1), contiguous.  K4 (divergence_mac) and K16
-// (residual_restrict_div, whose rhs it is) compute a cell through this
-// one expression, so K16's r0 is K1's on K4's div bit for bit.
+// (residual_restrict_div, whose rhs it is) compute a cell's face sum
+// through this one expression; K16 fuses the scale with its - sub, so
+// with sub = 0 (the fold route's) its r0 is K1's on K4's div bit for
+// bit.
+template <typename T>
+__device__ __forceinline__ T divergence_sum(T x_lo, T x_hi, T y_lo, T y_hi) {
+  return (x_hi - x_lo) + (y_hi - y_lo);
+}
+
 template <typename T>
 __device__ __forceinline__ T mac_divergence(const T* __restrict__ ufx,
                                             const T* __restrict__ ufy, int i,
                                             int j, int n1, T scale) {
   const size_t fx = (size_t)i * n1 + j;
   const size_t fy = (size_t)i * (n1 + 1) + j;
-  return ((ufx[fx + n1] - ufx[fx]) + (ufy[fy + 1] - ufy[fy])) * scale;
+  return divergence_sum(ufx[fx], ufx[fx + n1], ufy[fy], ufy[fy + 1]) * scale;
 }
 
 // The projection's correction of one cell (K5 correct_project, and K17

@@ -118,7 +118,8 @@ _DP = ctypes.POINTER(ctypes.c_double)   # a host array of BC values
 _PP = ctypes.POINTER(ctypes.c_void_p)   # a host table of device pointers
 _IP = ctypes.POINTER(ctypes.c_int)       # a host array of ints
 _SIGNATURES = {
-    "gtt_residual_restrict": [_I, _PP, _DP, _DP, _D, _I, _I, _DP, _I, _P],
+    "gtt_residual_restrict": [_I, _PP, _DP, _DP, _D, _I, _I, _DP, _I, _I,
+                              _P],
     "gtt_restrict_pyramid": [_I, _PP, _I, _I, _P, _P],
     "gtt_prolong_relax": [_I, _PP, _DP, _I, _I, _I, _I, _I, _D, _D, _DP, _I,
                           _P],
@@ -128,10 +129,12 @@ _SIGNATURES = {
     "gtt_coarse_block": [_P, _P, _I, _I, _I, _I, _D, _D, _DP, _I, _P],
     "gtt_rbgs_relax_alpha": [_PP, _I, _I, _I, _I, _I, _I, _D, _D, _D, _DP,
                              _I, _I, _I, _P],
-    "gtt_residual_restrict_div": [_PP, _D, _DP, _D, _D, _I, _I, _DP, _I, _P],
+    "gtt_residual_restrict_div": [_PP, _D, _DP, _D, _D, _I, _I, _DP, _I, _I,
+                                  _P],
     "gtt_prolong_relax_correct": [_PP, _D, _I, _I, _I, _I, _I, _D, _D, _D,
                                   _D, _DP, _DP, _I, _P],
-    "gtt_rbgs_relax_3d": [_P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _DP, _P],
+    "gtt_rbgs_relax_3d": [_PP, _I, _I, _I, _I, _I, _D, _D, _D, _DP, _I, _I,
+                          _I, _I, _P],
     "gtt_divergence_mac": [_P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P],
     "gtt_correct_project": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP,
                             _I, _P, _P, _P, _P, _P, _P, _P],

@@ -458,8 +458,20 @@ def _sub_tensor(sub, u):
     return sub
 
 
+# residual_restrict's tile rows (its tiles are rows x 128 cells): 32, or 8
+# and 16 on request (test-only, to time them)
+RR_ROWS = (32, 16, 8)
+
+
+def _rr_rows(tile_rows):
+    rows = RR_ROWS[0] if tile_rows is None else tile_rows
+    if rows not in RR_ROWS:
+        raise ValueError(f"tile_rows {rows}, want one of {RR_ROWS}")
+    return rows
+
+
 def _residual_restrict_cuda(us, rhss, dias, subs, h2, signs, offss, per_y,
-                            counter):
+                            counter, tile_rows=None):
     n = us[0].shape[0]
     r0s = [torch.empty_like(u) for u in us]
     r1s = [u.new_empty((n // 2, n // 2)) for u in us]
@@ -468,29 +480,31 @@ def _residual_restrict_cuda(us, rhss, dias, subs, h2, signs, offss, per_y,
     _call("residual_restrict", us[0].dtype, us[0].device, len(us),
           pointers(us, rhss, sub_ts, r0s, r1s, r2s), doubles(*dias),
           doubles(*(o for offs in offss for o in offs)), float(h2), n, n,
-          doubles(*signs), int(per_y))
+          doubles(*signs), int(per_y), _rr_rows(tile_rows))
     LAUNCHES[counter] += 1
     return r0s, r1s, r2s
 
 
 def residual_restrict(u, rhs, dia=0.0, sub=0.0, *, h2, signs,
-                      offs=_HOMOGENEOUS, per_y=False):
+                      offs=_HOMOGENEOUS, per_y=False, tile_rows=None):
     """(r0, r1, r2): r0 = (rhs - sub) - (L - dia) u with static ghosts
     (sgn, off), r1 = pool(r0), r2 = pool(r1).  ``dia`` is a float; ``sub``
     a float or a one-element tensor on the device of ``u`` (read by the
-    kernel, so a device-side mean costs no host sync)."""
+    kernel, so a device-side mean costs no host sync).  ``tile_rows``
+    (RR_ROWS; test-only): the kernel's tile height."""
     _check_level(u, "u")
     _check_level(rhs, "rhs", u.shape[0])
     if _on_cpu(u, rhs):
         return residual_restrict_plain(u, rhs, dia, sub, h2=h2, signs=signs,
                                        offs=offs, per_y=per_y)
     out = _residual_restrict_cuda([u], [rhs], [dia], [sub], h2, signs,
-                                  [offs], per_y, "residual_restrict")
+                                  [offs], per_y, "residual_restrict",
+                                  tile_rows)
     return tuple(x[0] for x in out)
 
 
 def residual_restrict_pair(us, rhss, dias, subs=(0.0, 0.0), *, h2, signs,
-                           offss, per_y=False):
+                           offss, per_y=False, tile_rows=None):
     """K1 for the two systems of a pair in one launch: each has its own
     ``dia``, ``sub`` (as in residual_restrict) and ghost offsets
     ``offss[b]``; the signs and ``per_y`` are shared.  Returns ([r0_0,
@@ -505,7 +519,8 @@ def residual_restrict_pair(us, rhss, dias, subs=(0.0, 0.0), *, h2, signs,
                                             signs=signs, offss=offss,
                                             per_y=per_y)
     return _residual_restrict_cuda(us, rhss, dias, subs, h2, signs, offss,
-                                   per_y, "residual_restrict_pair")
+                                   per_y, "residual_restrict_pair",
+                                   tile_rows)
 
 
 # the pyramid's arrival counts (one per system of a launch) by device and
@@ -697,7 +712,7 @@ def prolong_relax_pair(coarses, rhss, dias, us, *, nsweeps, h2, signs,
 
 
 def residual_restrict_div(u, ufx, ufy, dtm, dia=0.0, sub=0.0, *, h2, signs,
-                          offs=_HOMOGENEOUS, per_y=False):
+                          offs=_HOMOGENEOUS, per_y=False, tile_rows=None):
     """K16: K1's (r0, r1, r2) with the rhs formed in the kernel from the
     MAC faces ufx (n+1, n) and ufy (n, n+1): rhs = div(uf) / dt, where
     ``dtm`` = dt * h.  One launch in place of K4 + K1.  ``sub`` as in
@@ -715,7 +730,7 @@ def residual_restrict_div(u, ufx, ufy, dtm, dia=0.0, sub=0.0, *, h2, signs,
     _call("residual_restrict_div", u.dtype, u.device,
           pointers((u, ufx, ufy, sub_t, r0, r1, r2)), float(dia),
           doubles(*offs), float(h2), 1.0 / float(dtm), n, n, doubles(*signs),
-          int(per_y))
+          int(per_y), _rr_rows(tile_rows))
     LAUNCHES["residual_restrict_div"] += 1
     return r0, r1, r2
 

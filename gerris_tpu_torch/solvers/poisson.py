@@ -49,8 +49,10 @@ K8a + K8c).
 
 In 3D the reference runs one kernel, K13 ``rbgs_relax_3d``, and so does
 the port (poisson.py:304-319): ``relax`` with homogeneous ghosts and only
-Dirichlet/Neumann sides, so every upward level of a correction.  The
-residual, the 2x2x2 restriction, the trilinear prolongation and the dense
+Dirichlet/Neumann sides, and every upward level of a correction on such
+sides as one K13 launch that places the trilinear prolongation of the
+coarser level's du itself (and adds u at the finest).  The residual, the
+2x2x2 restriction, the prolongation on periodic sides and the dense
 coarsest solve are torch (the reference's generic jnp route); the fused
 cycle, K1-K3, K11 and K12 are 2D only, and no fixed 3D schedule is
 fused (poisson.py:534-538, :595-598, :648-659).
@@ -372,15 +374,7 @@ def prolong(c, fbc: bcs.FieldBC):
     signs, _ = _signs_offs(None, fbc, True)
     if c.dim() == 2:
         return rbgs.prolong_plain(c, signs, _periodic(fbc))
-    a = c
-    for axis in range(3):
-        lo, hi = rbgs3d.axis_neighbours(a, axis, signs,
-                                        periodic=fbc.is_periodic(axis))
-        shape = list(a.shape)
-        shape[axis] *= 2
-        a = torch.stack([0.75 * a + 0.25 * lo, 0.75 * a + 0.25 * hi],
-                        axis + 1).reshape(shape)
-    return a
+    return rbgs3d.prolong3d_plain(c, signs, _periodic(fbc))
 
 
 def coarsen_face_coeff(alpha, dim: int):
@@ -527,8 +521,10 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
     * else ``minlevel``, relaxed from zero with nrelax * erelax**(levels)
       + coarsest_relax sweeps.
     Upward, each 2D level is one K3 launch, or ``prolong`` + K10 on
-    periodic rows (K3 takes periodic columns only); each 3D level is
-    ``prolong`` + ``relax`` (K13).  With face coefficients ``alpha`` or a
+    periodic rows (K3 takes periodic columns only); each 3D level is one
+    K13 launch with the coarser level's du prolonged at placement (+
+    u_fine at the finest), or ``prolong`` + ``relax`` in torch on
+    periodic sides.  With face coefficients ``alpha`` or a
     cell dia: _correction_variable."""
     if _variable(alpha, dia):
         return _correction_variable(r, grid, fbc, params, alpha, dia,
@@ -562,19 +558,27 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
         du = relax(torch.zeros_like(rs[-1]), rs[-1], gc, fbc,
                    params.nrelax * params.erelax ** (nl - 1)
                    + params.coarsest_relax, dia, omega=params.omega)
+    k13 = not flat and not any(_periodic(fbc))
     for k in range(nl - 2, -1, -1):
         nswp = params.nrelax * params.erelax ** k
+        add_u = k == 0 and u_fine is not None
         if flat and not per_x:
-            add_u = k == 0 and u_fine is not None
             du = rbgs.prolong_relax(du, rs[k], d, u_fine if add_u else None,
                                     nsweeps=nswp, h2=grids[k].h ** 2,
                                     signs=signs, per_y=per_y,
                                     omega=params.omega)
-            if add_u:
-                return du
+        elif k13:
+            h = grids[k].h
+            du = rbgs3d.rbgs_relax_3d(None, rs[k], d, nsweeps=nswp, h2=h * h,
+                                      signs=signs, omega=params.omega,
+                                      coarse=du,
+                                      add=u_fine if add_u else None)
+        else:
+            du = relax(prolong(du, fbc), rs[k], grids[k], fbc, nswp, dia,
+                       omega=params.omega)
             continue
-        du = relax(prolong(du, fbc), rs[k], grids[k], fbc, nswp, dia,
-                   omega=params.omega)
+        if add_u:
+            return du
     return du if u_fine is None else u_fine + du
 
 

@@ -14,13 +14,17 @@ launches, and K6's div against K4's on its faces.  A kernel given BCs
 outside its encoding raises.  The adaptive solve on the card is held to
 the same solve through the plain versions, and so are three steps of the
 3D lid cavity (K13, the 3D smoother, at every level above the dense
-one); three steps of the fold route (K16, K2, K17 per projection) are
-held to the unfolded route.  K15, the variable-coefficient smoother, is
-held to its plain version on every periodicity, dia mode and level size
-of a two-phase correction, from a given u and with the coarse
-correction's prolongation folded in (+ u), bit-identical across tiles,
-threads and sweep splits, and three two-phase steps on the card to the
-same steps on the CPU.  K10 likewise at 2048^2.
+one, one launch a level with the coarser level's correction prolonged in
+it; bit-identical across its block decompositions, the fold held to
+prolong + sweeps + add); K1, K8a and K16 at levels below and above
+their tile and bit-identical across tile heights; three steps of the
+fold route (K16, K2, K17 per projection) are held to the unfolded route.
+K15, the variable-coefficient smoother, is held to its plain version on
+every periodicity, dia mode and level size of a two-phase correction,
+from a given u and with the coarse correction's prolongation folded in
+(+ u), bit-identical across tiles, threads and sweep splits, and three
+two-phase steps on the card to the same steps on the CPU.  K10 likewise
+at 2048^2.
 """
 import pytest
 
@@ -66,6 +70,46 @@ def test_residual_restrict_kernel(dev, dtype, per_y):
     ref = rbgs.residual_restrict_plain(u, rhs, 0.6, sub, **kw)
     for a, b in zip(got, ref):
         assert _rel(a, b) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [16, 32, 64, 512])
+@pytest.mark.parametrize("per_y", [False, True])
+def test_residual_restrict_tiles(dev, dtype, n, per_y):
+    """K1, K8a and K16 against their plain versions at levels smaller
+    and larger than the kernel's 32 x 128 tile, and bit-identical across
+    its tile heights (8, 16, 32 rows); a u that is not 16-byte aligned
+    takes the scalar loads and gives the same r0, r1, r2."""
+    u, u2, rhs, rhs2, ufx, ufy, sub = _rnd(
+        dev, dtype, 40, (n, n), (n, n), (n, n), (n, n), (n + 1, n),
+        (n, n + 1), (1,))
+    kw = dict(h2=1.0 / n ** 2, signs=SIGNS_LID, offs=OFFS_LID, per_y=per_y)
+    kwp = dict(h2=1.0 / n ** 2, signs=SIGNS_LID, per_y=per_y,
+               offss=[OFFS_LID, (0.0,) * 4])
+    pair = ([u, u2], [rhs, rhs2], [0.6, 2.0], [sub, 0.0])
+    calls = [
+        (lambda **t: rbgs.residual_restrict(u, rhs, 0.6, sub, **kw, **t),
+         rbgs.residual_restrict_plain(u, rhs, 0.6, sub, **kw)),
+        (lambda **t: [x for xs in rbgs.residual_restrict_pair(
+            *pair, **kwp, **t) for x in xs],
+         [x for xs in rbgs.residual_restrict_pair_plain(*pair, **kwp)
+          for x in xs]),
+        (lambda **t: rbgs.residual_restrict_div(
+            u, ufx, ufy, 0.3 / n ** 2, 0.0, sub, **kw, **t),
+         rbgs.residual_restrict_div_plain(u, ufx, ufy, 0.3 / n ** 2, 0.0,
+                                          sub, **kw))]
+    for kern, ref in calls:
+        got = kern()
+        for a, b in zip(got, ref):
+            assert _rel(a, b) <= BOUND[dtype]
+        for rows in (8, 16):
+            assert all(torch.equal(a, b)
+                       for a, b in zip(got, kern(tile_rows=rows)))
+    shifted = torch.empty(n * n + 1, device=dev, dtype=dtype)[1:].view(n, n)
+    shifted.copy_(u)
+    assert all(torch.equal(a, b) for a, b in zip(
+        rbgs.residual_restrict(shifted, rhs, 0.6, sub, **kw),
+        rbgs.residual_restrict(u, rhs, 0.6, sub, **kw)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -718,8 +762,8 @@ MIXED_3D = (-1.0, 1.0, 1.0, -1.0, -1.0, 1.0)
     ((5, 7, 9), MIXED_3D, 2, 1.0, 0.3),
 ])
 def test_rbgs_relax_3d_kernel(dev, dtype, shape, signs, nsweeps, omega, dia):
-    """K13 against its plain version: one call, 2 * nsweeps half-sweep
-    launches, u left as it was."""
+    """K13 against its plain version: one call, one launch, u left as it
+    was."""
     from gerris_tpu_torch.ops.cuda import rbgs3d
     u, rhs = _rnd(dev, dtype, 30, shape, shape)
     u0 = u.clone()
@@ -727,11 +771,63 @@ def test_rbgs_relax_3d_kernel(dev, dtype, shape, signs, nsweeps, omega, dia):
               omega=omega)
     rbgs3d.reset_launch_counts()
     got = rbgs3d.rbgs_relax_3d(u, rhs, dia, **kw)
-    assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 1,
-                               "rbgs_relax_3d.half_sweep": 2 * nsweeps}
+    assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 1, "rbgs_relax_3d.launch": 1,
+                               "rbgs_relax_3d.prolong": 0}
     assert torch.equal(u, u0)
     assert _rel(got, rbgs3d.rbgs_relax_3d_plain(u, rhs, dia, **kw)) \
         <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,signs,nsweeps,omega,dia", [
+    ((128, 128, 128), (1.0,) * 6, 4, 1.5, 0.0),
+    ((128, 128, 128), (-1.0,) * 6, 1, 1.0, 1.0 / (0.8 / 128 * 1e-3)),
+    ((32, 32, 32), MIXED_3D, 4, 1.5, 0.0),
+    ((64, 64, 64), MIXED_3D, 3, 1.3, 0.7),
+    ((6, 10, 14), MIXED_3D, 2, 1.0, 0.3),
+    ((8, 8, 8), MIXED_3D, 0, 1.5, 0.0),
+])
+def test_rbgs_relax_3d_fold_kernel(dev, dtype, shape, signs, nsweeps, omega,
+                                   dia):
+    """K13 from the prolongation of a coarse correction, with and without
+    an added field, against its plain version (prolong3d_plain, the
+    sweeps, the add): one launch each, counted as prolonged; the coarse
+    correction and the added field left as they were."""
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+    half = tuple(n // 2 for n in shape)
+    c, rhs, add = _rnd(dev, dtype, 34, half, shape, shape)
+    c0, add0 = c.clone(), add.clone()
+    for a in (None, add):
+        kw = dict(nsweeps=nsweeps, h2=1.0 / shape[0] ** 2, signs=signs,
+                  omega=omega, coarse=c, add=a)
+        rbgs3d.reset_launch_counts()
+        got = rbgs3d.rbgs_relax_3d(None, rhs, dia, **kw)
+        assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 1,
+                                   "rbgs_relax_3d.launch": 1,
+                                   "rbgs_relax_3d.prolong": 1}
+        assert _rel(got, rbgs3d.rbgs_relax_3d_plain(None, rhs, dia, **kw)) \
+            <= BOUND[dtype]
+    assert torch.equal(c, c0) and torch.equal(add, add0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [16, 32, 64])
+def test_rbgs_relax_3d_decompositions(dev, dtype, m):
+    """K13 gives the plan's result bit for bit at 256 and 512 threads, one
+    block, a few blocks and bricks of 1 x 1 to 8 x 16 rows (ragged at the
+    level's edges); from u and from a coarse correction + u."""
+    from gerris_tpu_torch.ops.cuda import rbgs3d
+    c, rhs, add = _rnd(dev, dtype, 35, (m // 2,) * 3, (m,) * 3, (m,) * 3)
+    kw = dict(nsweeps=3, h2=1.0 / m ** 2, signs=MIXED_3D, omega=1.5)
+    variants = [dict(threads=t, blocks=b, brick=br)
+                for t, b, br in ((256, None, None), (512, 1, None),
+                                 (256, 5, (1, 1)), (512, None, (8, 16)),
+                                 (256, 3, (3, 5)))]
+    for first, args in ((add, kw), (None, dict(kw, coarse=c, add=add))):
+        ref = rbgs3d.rbgs_relax_3d(first, rhs, 0.2, **args)
+        for v in variants:
+            assert torch.equal(ref, rbgs3d.rbgs_relax_3d(first, rhs, 0.2,
+                                                         **args, **v)), v
 
 
 def test_rbgs_relax_3d_kernel_256(dev):
@@ -801,13 +897,20 @@ def test_rbgs_relax_3d_cuda_never_runs_plain(dev, monkeypatch):
 
     monkeypatch.setattr(rbgs3d, "rbgs_relax_3d_plain", refuse)
     monkeypatch.setattr(rbgs3d, "rbgs3d_plain", refuse)
+    monkeypatch.setattr(rbgs3d, "prolong3d_plain", refuse)
     u = torch.randn(16, 16, 16, device=dev)
     rbgs3d.reset_launch_counts()
     out = rbgs3d.rbgs_relax_3d(u, torch.randn_like(u), nsweeps=2, h2=0.01,
                                signs=(-1.0,) * 6)
     assert out.is_cuda
-    assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 1,
-                               "rbgs_relax_3d.half_sweep": 4}
+    assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 1, "rbgs_relax_3d.launch": 1,
+                               "rbgs_relax_3d.prolong": 0}
+    out = rbgs3d.rbgs_relax_3d(None, u, nsweeps=2, h2=0.01,
+                               signs=(-1.0,) * 6, coarse=u[:8, :8, :8]
+                               .contiguous(), add=u)
+    assert out.is_cuda
+    assert rbgs3d.LAUNCHES == {"rbgs_relax_3d": 2, "rbgs_relax_3d.launch": 2,
+                               "rbgs_relax_3d.prolong": 1}
 
 
 # the fold route's pressure ghosts: the lid's (homogeneous Neumann),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Host and device cost of the port's 2D multigrid wrappers, and the
-bench's 2048^2 lid step, for one checkout of gerris_tpu_torch on a card.
+"""Host and device cost of the port's multigrid wrappers, and the bench's
+2048^2 lid step, for one checkout of gerris_tpu_torch on a card.
 
     python3 tools/torch_host_cost.py [ROOT]
 
@@ -28,19 +28,28 @@ Prints one JSON line, float32 throughout:
 * ``digests``: SHA-256 of the outputs of K3, K8c, K17, K2, K8b and K12
   (each cascade's own K3 launches) and of K15 (from u, cell and scalar
   dia, walls and doubly periodic; and a coarse correction + u: the fold
-  where K15 takes it, else prolong_plain, K15 and the sum) on fixed
-  inputs, float32 and float64, and of chip_smoke's twophase state after
-  init + 5 steps, to hold two checkouts bit for bit;
+  where K15 takes it, else prolong_plain, K15 and the sum), of K1, K8a
+  and K16 (sub a device tensor, periodic columns or not) and of K13
+  (from u, and from a coarse correction with and without + u: the fold
+  where K13 takes it, else poisson.prolong, K13 and the sum; walls and
+  Neumann) on fixed inputs, float32 and float64, and of chip_smoke's
+  twophase state after init + 5 steps and lid3d's U, V, W, P after init
+  + 5 steps, to hold two checkouts bit for bit;
+* ``device_us``: torch.profiler's device time per call of K1 at 2048^2
+  and of K13 at each level of a lid3d projection's correction (32^3,
+  64^3, 128^3: 4 sweeps at omega 1.5, Neumann, the coarser correction
+  prolonged, + u at 128^3; the parent's prolongation, K13 and add
+  counted together);
 * ``step_ms``: the lid step of chip_smoke.lid_cfg(11) (the bench's
   route), the median of five 20-step windows closed by a synchronize,
   after init and 20 steps;
-* ``twophase`` and ``adaptive_relax``: chip_smoke's twophase step
-  (1024^2) and adaptive_relax step (2048^2), ms/step as the median of
-  three timed windows after init and a few steps, and from
-  torch.profiler over a few more steps the device ms/step, the device
-  ops per step and, for twophase, the ops per step of the kinds the 2D
-  alpha correction's plain prolongation ran (roll, where, cat, mul,
-  add, arange, ==);
+* ``twophase``, ``adaptive_relax`` and ``lid3d``: chip_smoke's twophase
+  step (1024^2), adaptive_relax step (2048^2) and lid3d step (128^3),
+  ms/step as the median of three timed windows after init and a few
+  steps, and from torch.profiler over a few more steps the device
+  ms/step, the device ops per step and, for twophase and lid3d, the ops
+  per step of the kinds the plain prolongations ran (roll, where, cat,
+  mul, add, arange, ==);
 * the card's name and power limit (nvidia-smi).
 """
 import inspect
@@ -55,7 +64,8 @@ EVENT_CALLS = 100
 WINDOWS, WINDOW_STEPS = 5, 20
 # (warm-up steps, windows, steps per window, profiled steps) of the
 # twophase and adaptive_relax steps
-ROUTE_STEPS = {"twophase": (3, 3, 4, 3), "adaptive_relax": (5, 3, 10, 5)}
+ROUTE_STEPS = {"twophase": (3, 3, 4, 3), "adaptive_relax": (5, 3, 10, 5),
+               "lid3d": (3, 3, 5, 3)}
 PROLONG_OPS = ("roll", "where", "CatArray", "MulFunctor", "CUDAFunctor_add",
                "arange", "CompareEqFunctor")
 
@@ -123,6 +133,44 @@ def route_cost(sim, warm, windows, steps, profiled, watch=()):
             "windows_s": walls, "device_ms": us / 1e3 / profiled,
             "device_ops": ops / profiled,
             "ops_by_kind": {w: c / profiled for w, c in kinds.items()}}
+
+
+def device_us(fn, calls=100):
+    """torch.profiler's device time per call of ``fn`` (every kernel it
+    launches), after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            t = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if t is None else t
+    return us / calls
+
+
+def k13_call(rbgs3d, poisson, bc, rhs, nsweeps, h2, signs, omega=1.0,
+             u=None, coarse=None, add=None):
+    """K13 from u, or from a coarse correction (+ add): the fold where K13
+    takes it, else poisson.prolong, K13 and the sum as the parent's 3D
+    correction ran them."""
+    kw = dict(nsweeps=nsweeps, h2=h2, signs=signs, omega=omega)
+    if u is not None:
+        return rbgs3d.rbgs_relax_3d(u, rhs, 0.0, **kw)
+    if "coarse" in inspect.signature(rbgs3d.rbgs_relax_3d).parameters:
+        return rbgs3d.rbgs_relax_3d(None, rhs, 0.0, coarse=coarse, add=add,
+                                    **kw)
+    kind = bc.Neumann() if signs[0] > 0 else bc.Dirichlet(0.0)
+    du = rbgs3d.rbgs_relax_3d(poisson.prolong(
+        coarse, bc.FieldBC.uniform(kind, 3)), rhs, 0.0, **kw)
+    return du if add is None else add + du
 
 
 def sha(*ts):
@@ -195,6 +243,48 @@ def digests(rbgs, dev, chip_smoke):
                 *(o if isinstance(o, (tuple, list)) else (o,)))
     s = chip_smoke.twophase_sim(dev).run(max_steps=5)
     out["twophase_5"] = sha(*(s.state[k] for k in ("U", "V", "T", "P")))
+    s = chip_smoke.lid3d_sim(dev).run(max_steps=5)
+    out["lid3d_5"] = sha(*(s.state[k] for k in ("U", "V", "W", "P")))
+    return out
+
+
+def digests_k1_k13(rbgs, rbgs3d, poisson, bc, dev):
+    """SHA-256 of K1, K8a, K16 and K13's outputs on fixed inputs."""
+    import torch
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(12)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+        n = 1024
+        u, v, rhs, w = rnd(n, n), rnd(n, n), rnd(n, n), rnd(n, n)
+        ufx, ufy, sub = rnd(n + 1, n), rnd(n, n + 1), rnd(1)
+        offs = (0.0, 0.0, 0.0, 2.0)
+        for per_y in (False, True):
+            kw = dict(h2=1.0 / n ** 2, signs=(-1.0,) * 4, offs=offs,
+                      per_y=per_y)
+            tag = "per_y" if per_y else "walls"
+            outs = {
+                "k1": rbgs.residual_restrict(u, rhs, 0.6, sub, **kw),
+                "k8a": [x for xs in rbgs.residual_restrict_pair(
+                    [u, v], [rhs, w], [0.6, 2.0], [sub, 0.0], h2=1.0 / n ** 2,
+                    signs=(-1.0,) * 4, offss=[offs, (0.0,) * 4],
+                    per_y=per_y) for x in xs],
+                "k16": rbgs.residual_restrict_div(u, ufx, ufy, 0.3 / n ** 2,
+                                                  0.0, sub, **kw),
+            }
+            for k, o in outs.items():
+                out[f"{k}_{tag}_{str(dtype)[6:]}"] = sha(*o)
+        m = 128
+        c, r3, u3 = rnd(m // 2, m // 2, m // 2), rnd(m, m, m), rnd(m, m, m)
+        for signs, tag in (((-1.0,) * 6, "walls"), ((1.0,) * 6, "neumann")):
+            kw = dict(nsweeps=4, h2=1.0 / m ** 2, signs=signs, omega=1.5)
+            for name, extra in (("u", dict(u=u3)), ("fold", dict(coarse=c)),
+                                ("fold_add", dict(coarse=c, add=u3))):
+                o = k13_call(rbgs3d, poisson, bc, r3, **kw, **extra)
+                out[f"k13_{name}_{tag}_{str(dtype)[6:]}"] = sha(o)
     return out
 
 
@@ -207,7 +297,9 @@ def main():
     import torch.nn.functional as F
     import chip_smoke
     from gerris_tpu_torch.models.simulation import Simulation, Time
-    from gerris_tpu_torch.ops.cuda import bcg, build, predict, rbgs
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.ops.cuda import bcg, build, predict, rbgs, rbgs3d
+    from gerris_tpu_torch.solvers import poisson
     if not torch.cuda.is_available():
         print("torch_host_cost: no CUDA device", file=sys.stderr)
         return 1
@@ -283,12 +375,30 @@ def main():
     out["step_ms"] = float(np.median(walls)) / WINDOW_STEPS * 1e3
     out["step_windows_s"] = walls
     del sim
+    # device time per call: K1 at 2048^2, K13 per level of a lid3d
+    # projection's correction
+    sub = rnd(1)
+    dev_us = {"residual_restrict": device_us(lambda: rbgs.residual_restrict(
+        u, rhs, 0.0, sub, h2=1.0 / n ** 2, signs=signs))}
+    for m in (32, 64, 128):
+        cl, rl = rnd(m // 2, m // 2, m // 2), rnd(m, m, m)
+        al = rnd(m, m, m) if m == 128 else None
+        dev_us[f"rbgs_relax_3d_{m}"] = device_us(
+            lambda: k13_call(rbgs3d, poisson, bc, rl, 4, 1.0 / m ** 2,
+                             (1.0,) * 6, 1.5, coarse=cl, add=al))
+        dev_us[f"rbgs_relax_3d_{m}_u"] = device_us(
+            lambda: k13_call(rbgs3d, poisson, bc, rl, 4, 1.0 / m ** 2,
+                             (1.0,) * 6, 1.5, u=rl))
+    out["device_us"] = dev_us
     out["digests"] = digests(rbgs, dev, chip_smoke)
+    out["digests"].update(digests_k1_k13(rbgs, rbgs3d, poisson, bc, dev))
     out["twophase"] = route_cost(chip_smoke.twophase_sim(dev),
                                  *ROUTE_STEPS["twophase"], watch=PROLONG_OPS)
     out["adaptive_relax"] = route_cost(
         chip_smoke.ada_sim(dev, "relax").init(),
         *ROUTE_STEPS["adaptive_relax"])
+    out["lid3d"] = route_cost(chip_smoke.lid3d_sim(dev),
+                              *ROUTE_STEPS["lid3d"], watch=PROLONG_OPS)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
