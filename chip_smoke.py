@@ -7,7 +7,7 @@ Phases (any failure ends the run with a non-zero exit and no result):
   1. setup: the card's name and power limit, torch/CUDA versions, the
      kernels' build from gerris_tpu_torch/csrc (one nvcc per source, in
      parallel), ptxas's registers, stack frame and spills of the BCG
-     kernels (K6, K7/K14), K1's and K13's;
+     kernels (K6, K7/K14), K1's, K13's, the block kernel's and K4's;
   2. kernel checks: every kernel wrapper against its plain version on the
      card, float64 and float32: the multigrid kernels K1-K3 at the 2048^2
      main-path shapes and their coarser levels (K3 at each level's tile),
@@ -21,21 +21,24 @@ Phases (any failure ends the run with a non-zero exit and no result):
      components, with and without the gp/oscale folds) and K7 (both
      modes, also against two K14 launches, bit-identical in the rhs
      mode) at 2048^2 and 64^2, plus K4's div bit-identical across two
-     block shapes, K6's, K7's and K14's outputs bit-identical across
+     sum tiles, K6's, K7's and K14's outputs bit-identical across
      their tile plans and K6's div bit-identical to K4's on its faces; the adaptive solve's K11
      (the lid's offsets, periodic rows, periodic columns; bit-identical
      to K1's r0), K10 (non-periodic, periodic rows, doubly periodic, plus
      its invariance across tiles, threads and sweep splits) at 2048^2,
      and K12 at 512^2 (per_y off and on)
-     with its 64^2 block kernel alone; the fold route's K16 and K17 at
-     2048^2 and 64^2 (the lid's pressure ghosts, inhomogeneous Neumann
-     offsets, periodic columns; K16 with and without a sub, K17 with and
-     without the cells), plus K17's tile invariance; K1, K8a and K16
-     also at a 16^2 level, and bit-identical across K1's tile heights;
-     the 3D smoother K13 at 128^3 with the projections' and the
-     diffusion's settings, at 32^3, 64^3 and (32, 64, 128) with mixed
-     sides, and at 256^3 (float32), from a given u and with the
-     prolongation of a coarse correction folded in (+ u) at 32^3, 64^3,
+     with its 64^2 block kernel alone; the block kernel as every cascade
+     runs it (K2's and K8b's tails at the main path's shapes, a periodic
+     pair down to 2^2) bit-identical to the K3 launches it replaces, and
+     alone and as a pair at omega 1.5 against its plain version; the
+     fold route's K16 and K17 at 2048^2 and 64^2 (the lid's pressure
+     ghosts, inhomogeneous Neumann offsets, periodic columns; K16 with
+     and without a sub, K17 with and without the cells), plus K17's tile
+     invariance; K1, K8a and K16 also at a 16^2 level, and bit-identical
+     across K1's tile heights; the 3D smoother K13 at 128^3 with the
+     projections' and the diffusion's settings, at 32^3, 64^3 and (32, 64,
+     128) with mixed sides, and at 256^3 (float32), from a given u and with
+     the prolongation of a coarse correction folded in (+ u) at 32^3, 64^3,
      128^3 and 256^3, one launch a call, u and the coarse correction left
      as they were, bit-identical across block counts, threads and bricks;
      the two-phase
@@ -51,8 +54,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      launch, profiled), K7 beside two K14 launches,
      K15's and K3's per level, K15's per tile and threads (with and
      without the coarse correction), K10's per tile and threads, K7's,
-     K14's and K6's per tile plan, and the host's time per call and the
-     card's per launch of restrict2 and avg_pool2d;
+     K14's and K6's per tile plan, the host's time per call and the
+     card's per launch of restrict2 and avg_pool2d, the block kernel at
+     K12's shape and at the main path's tails beside the K3 launches they
+     replace, and device time per call (profiled) of K4, K5, K9, K11, K17
+     and the block kernel at those shapes;
   3. main path: Simulation.init() + 20 steps of the 2048^2 lid cavity under
      the bench's configuration (pair_advect: K7 and the K8 pair), float32,
      through the kernels: finite values, launch counts, agreement with the
@@ -265,9 +271,11 @@ ADAPTIVE_KERNELS = {"residual": "adaptive", "coarse_vcycle": "adaptive",
                     "coarse_block": "adaptive",
                     "rbgs_relax": "adaptive_relax"}
 # levels of a cascade at n/2 = 1024 with the 16^2 coarsest level: one
-# restrict_pyramid launch (512 -> 16, 5 levels), then 7 prolong_relax
-# (16 .. 1024)
+# restrict_pyramid launch (512 -> 16, 5 levels), one coarse_block launch
+# for the 3 levels 16 .. 64, then CASCADE_K3 prolong_relax (128 .. 1024)
 CASCADE_LEVELS = 7
+CASCADE_TAIL = 3
+CASCADE_K3 = CASCADE_LEVELS - CASCADE_TAIL
 # the routes of the velocity advection and diffusion (models/ns.py), by
 # their NSConfig flags
 ROUTES = {"pair": dict(pair_advect=True),
@@ -280,7 +288,8 @@ ROUTES = {"pair": dict(pair_advect=True),
 # launches (bench.py's GERRIS_FOLD_CORRECT=1)
 FOLD_KERNELS = {"residual_restrict_div": "fold_correct",
                 "prolong_relax_correct": "fold_correct"}
-# K12's levels at 512^2: one pyramid down to 64^2 and 3 K3 up from it;
+# K12's levels at 512^2: one pyramid down to 16^2, one block-kernel
+# launch for 64^2 .. 16^2 and 3 K3 up from it;
 # the correction's pyramid 2048 -> 1024 -> 512 and its K3 launches at
 # 1024^2 and 2048^2
 K12_LEVELS, ADA_PROLONGS = 3, 2
@@ -288,7 +297,9 @@ K12_LEVELS, ADA_PROLONGS = 3, 2
 
 def want_launches(route, steps):
     """Launches of init + ``steps`` steps at 2048^2.  Per step: the two
-    projections' solves of K1-K3 (and the initial projection's); K6 once;
+    projections' solves of K1-K3 (and the initial projection's; K2 a
+    pyramid, one block-kernel launch for its levels 16 .. 64 and K3 above);
+    K6 once;
     K4 and K5 once per projection; K9 once; the U+V diffusion pair's
     K8a-c once (K7's rr_dia mode takes K8a's place on the rr route); K7
     once, or K14 once per component on the per-component route.  The
@@ -306,7 +317,8 @@ def want_launches(route, steps):
         "prolong_relax_correct": solves if correct else 0,
         "restrict2": 0, "restrict_pyramid": 0, "restrict_pyramid_pair": 0,
         "cascade.restrict_pyramid": solves,
-        "cascade.prolong_relax": CASCADE_LEVELS * solves,
+        "cascade.coarse_block": solves,
+        "cascade.prolong_relax": CASCADE_K3 * solves,
         "predict_xy": steps, "divergence_mac": 0 if fold else solves,
         "correct_project": 0 if correct else solves,
         "interp_faces": steps + 1,
@@ -314,12 +326,14 @@ def want_launches(route, steps):
         "residual_restrict_pair": steps if route != "rr" else 0,
         "cascade_prolong_relax_pair": steps,
         "cascade_pair.restrict_pyramid": steps,
-        "cascade_pair.prolong_relax": CASCADE_LEVELS * steps,
+        "cascade_pair.coarse_block": steps,
+        "cascade_pair.prolong_relax": CASCADE_K3 * steps,
         "prolong_relax_pair": steps,
         "residual": 0, "rbgs_relax": 0, "coarse_vcycle": 0,
         "coarse_vcycle.restrict_pyramid": 0, "coarse_block": 0,
-        "coarse_vcycle.prolong_relax": 0,
-        "rbgs_relax_3d": 0, "rbgs_relax_3d.launch": 0,
+        "coarse_block_pair": 0, "coarse_vcycle.prolong_relax": 0,
+        "coarse_block.restrict_pyramid": 0,
+        "coarse_block_pair.restrict_pyramid": 0, "rbgs_relax_3d": 0, "rbgs_relax_3d.launch": 0,
         "rbgs_relax_3d.prolong": 0,
         "rbgs_relax_alpha": 0, "rbgs_relax_alpha.prolong": 0,
     }
@@ -434,8 +448,8 @@ def reset_launch_counts():
 
 def print_ptxas(entries):
     """ptxas's registers, stack frame and spills of the given kernels (the
-    BCG kernels K6 and K7/K14's engine, K1's and K13's), one line per
-    template instance."""
+    BCG kernels K6 and K7/K14's engine, K1's, K13's, the block kernel's
+    and K4's), one line per template instance."""
     names = [name for name, _ in entries]
     try:
         names = subprocess.run(["c++filt"], input="\n".join(names),
@@ -592,11 +606,6 @@ def check_face_kernels(rnd, dtype, n, record):
     errs["divergence_mac"] = [compare_div(
         f"K4 divergence_mac {n}", projops.divergence_mac(ufx, ufy, dt, h),
         projops.divergence_mac_plain(ufx, ufy, dt, h), b)]
-    if not torch.equal(projops.divergence_mac(ufx, ufy, dt, h)[0],
-                       projops.divergence_mac(ufx, ufy, dt, h,
-                                              block=(16, 16))[0]):
-        raise AssertionError("K4: div differs between blocks 32x8 and 16x16")
-    print(f"  K4 {n}: div bit-identical with blocks 32x8 and 16x16")
     for cells in (None, (U, V)):
         tag = "" if cells is None else " cells"
         errs.setdefault("correct_project", []).append(compare_faces(
@@ -880,9 +889,109 @@ def check_adaptive_kernels(rnd, dtype, record):
             f"K12 coarse_block 64 per_y={per_y}",
             rbgs.coarse_block(r64, 0.0, **kw),
             rbgs.coarse_vcycle_plain(r64, 0.0, **kw), b))
+    check_coarse_tails(rnd, dtype, dia_diff, errs)
     if record is not None:
         for k, es in errs.items():
             record[k].update(zip(ERR_KEYS, map(max, zip(*es))))
+
+
+def k3_tail(levels, dias, nsweeps, coarsest, h2, signs, omega, per_y=False):
+    """A cascade's levels at and below 64^2 (``levels`` per system, finest
+    first, ``h2`` the finest's) as the K3 launches that ran them before the
+    block kernel: from zero at the coarsest, prolong + relax above, each
+    launch over the batch."""
+    from gerris_tpu_torch.ops.cuda import rbgs
+    n = levels[0][0].shape[0]
+    kw = dict(signs=signs, per_y=per_y, omega=omega)
+    du = [None] * len(levels)
+    for k in reversed(range(len(levels[0]))):
+        rk = [lv[k] for lv in levels]
+        h2k = h2 * (n // rk[0].shape[0]) ** 2
+        nsw = coarsest if du[0] is None else nsweeps
+        if len(levels) == 2:
+            du = rbgs.prolong_relax_pair(du, rk, dias, [None, None],
+                                         nsweeps=nsw, h2=h2k, **kw)
+        else:
+            du = [rbgs.prolong_relax(du[0], rk[0], dias[0], nsweeps=nsw,
+                                     h2=h2k, **kw)]
+    return du
+
+
+def tail_kernel(levels, dias, nsweeps, coarsest, h2, signs, omega,
+                per_y=False):
+    """The same levels in one launch of the block kernel (the cascades'
+    route into it)."""
+    from gerris_tpu_torch.ops.cuda import rbgs
+    return rbgs._coarse_block_cuda(levels, dias, nsweeps, coarsest, h2, signs,
+                                   per_y, omega, "coarse_block")
+
+
+def tail_plain(levels, dias, nsweeps, coarsest, h2, signs, omega,
+               per_y=False):
+    from gerris_tpu_torch.ops.cuda import rbgs
+    return [rbgs.coarse_tail_plain(lv, d, nsweeps=nsweeps, coarsest=coarsest,
+                                   h2=h2, signs=signs, per_y=per_y,
+                                   omega=omega) for lv, d in zip(levels, dias)]
+
+
+def main_tails(rnd, dtype, dia):
+    """The main path's cascade tails at 2048^2, levels 64^2, 32^2 and 16^2
+    (40 sweeps there): K2's (one system, 5 sweeps at omega 1.5, the
+    pressure's Neumann signs) and K8b's (the U+V pair, 1 sweep at omega
+    1, each at the diffusion's dia, Dirichlet signs), as (levels, dias,
+    nsweeps, coarsest, h2, signs, omega)."""
+    def levels():
+        return [rnd(dtype, m, m) for m in (64, 32, 16)]
+    h2 = (N_MAIN // 64) ** 2 / N_MAIN ** 2
+    return {"k2": ([levels()], [0.0], 5, 40, h2, (1.0,) * 4, 1.5),
+            "k8b": ([levels(), levels()], [dia, dia], 1, 40, h2, (-1.0,) * 4,
+                    1.0)}
+
+
+def tail_flops(args):
+    """Operations of a tail: K3's at each level above the coarsest, the
+    coarsest's sweeps, per system."""
+    levels, _, nsweeps, coarsest, _, _, omega = args
+    sizes = [t.shape[0] for t in levels[0]]
+    return len(levels) * (sum(cycle_flops(m, nsweeps, omega)
+                              for m in sizes[:-1])
+                          + cycle_flops(sizes[-1], coarsest, omega))
+
+
+def check_coarse_tails(rnd, dtype, dia, errs):
+    """The block kernel as the cascades run it, bit for bit the K3
+    launches it replaced: K2's and K8b's tails at the main path's shapes
+    and a periodic-column pair down to 2^2 at omega 1.2; and alone and as
+    a pair (two dias) at omega 1.5, periodic columns or not, against its
+    plain version (errors into ``errs``)."""
+    import torch
+    from gerris_tpu_torch.ops.cuda import rbgs
+    b = 1e-12 if dtype == torch.float64 else 1e-4
+    cases = dict(main_tails(rnd, dtype, dia))
+    cases["per_y_2"] = ([[rnd(dtype, m, m) for m in (64, 32, 16, 8, 4, 2)]
+                         for _ in range(2)], [0.0, dia], 2, 24, 1.0 / 64 ** 2,
+                        (1.0, -1.0, 1.0, 1.0), 1.2)
+    for name, args in cases.items():
+        per_y = name == "per_y_2"
+        got = tail_kernel(*args, per_y=per_y)
+        if not all(torch.equal(x, y) for x, y in
+                   zip(got, k3_tail(*args, per_y=per_y))):
+            raise AssertionError(f"coarse_block {name} {dtype}: differs "
+                                 "from the K3 launches it replaces")
+        errs.setdefault("coarse_block", []).append(compare(
+            f"coarse_block tail {name}", got,
+            tail_plain(*args, per_y=per_y), b))
+    r, r2 = rnd(dtype, 64, 64), rnd(dtype, 64, 64)
+    for per_y in (False, True):
+        kw = dict(nsweeps=5, coarsest=40, h2=1.0 / 64 ** 2, omega=1.5,
+                  signs=(1.0,) * 4 if per_y else (-1.0,) * 4, per_y=per_y)
+        errs["coarse_block"].append(compare(
+            f"coarse_block pair 64 omega 1.5 per_y={per_y}",
+            rbgs.coarse_block_pair([r, r2], [0.0, dia], **kw),
+            [rbgs.coarse_vcycle_plain(x, d, **kw)
+             for x, d in ((r, 0.0), (r2, dia))], b))
+    print(f"  coarse_block {dtype}: K2's and K8b's tails and a per_y pair "
+          "to 2^2 bit-identical to the K3 launches they replace")
 
 
 def check_residual_restrict(rnd, dtype, b):
@@ -1669,6 +1778,7 @@ def phase_kernels(dev, record):
         nbytes(u, rhs), n * n * 4 * 7, None)
     # K12 as the adaptive projections run it: 512^2 with the adaptive
     # schedule's 5 sweeps and 40 coarsest; its block kernel alone at 64^2
+    # (one launch on the levels 64^2 .. 16^2 that K12's pyramid gives it)
     r512k, r64k = rnd(f32, 512, 512), rnd(f32, 64, 64)
     kw12 = dict(nsweeps=5, coarsest=40, h2=16 * h2, signs=(1.0,) * 4,
                 min_n=16)
@@ -1677,10 +1787,27 @@ def phase_kernels(dev, record):
         lambda: rbgs.coarse_vcycle_plain(r512k, 0.0, **kw12),
         nbytes(r512k), vcycle_flops(512, 5, 40), None)
     kwcb = dict(kw12, h2=(n // 64) ** 2 * h2)
+    levels12 = [r64k] + rbgs.restrict_pyramid(r64k, 2)
+
+    def k12_block(**kw):
+        k = dict(kwcb, **kw)
+        return rbgs._coarse_block_cuda(
+            [levels12], [0.0], k["nsweeps"], k["coarsest"], k["h2"],
+            k["signs"], False, 1.0, "coarse_block", fused=True)[0]
+
     timings["coarse_block"] = (
-        lambda: rbgs.coarse_block(r64k, 0.0, **kwcb),
+        k12_block,
         lambda: rbgs.coarse_vcycle_plain(r64k, 0.0, **kwcb),
         nbytes(r64k), vcycle_flops(64, 5, 40), None)
+    # the block kernel at the main path's cascade tails (K2's, K8b's),
+    # beside the three K3 launches that ran each before it
+    tails = main_tails(rnd, f32, dia_diff)
+    for name, args in tails.items():
+        for how, fn in (("tail", tail_kernel), ("k3", k3_tail)):
+            timings[f"coarse_block|{name}_{how}"] = (
+                lambda fn=fn, args=args: fn(*args),
+                lambda args=args: tail_plain(*args),
+                nbytes(*flat(args[0])), tail_flops(args), None)
     # K13 at 128^3 as the projections run it (4 sweeps, omega 1.5: 10 per
     # cell per sweep) and as the diffusion does (1 sweep, 7 per cell)
     from gerris_tpu_torch.ops.cuda import rbgs3d
@@ -1844,6 +1971,36 @@ def phase_kernels(dev, record):
                    u, rhs, 0.0, sub, tile_rows=rows, h2=h2, signs=signs,
                    offs=offs), calls=200)[1] for rows in rbgs.RR_ROWS}
     record["residual_restrict"]["device_us_rows"] = k1_rows
+    # device us per launch (profiled) of the single-launch kernels that
+    # the event times above leave host-bound, at the same inputs: K4, K5,
+    # K9, K11, K17 and K12's block kernel; the main path's tails in one
+    # block launch and as their three K3 launches (per call)
+    dev_us = {k: host_device_us(timings[k][0], calls=200)[1]
+              for k in ("divergence_mac", "correct_project",
+                        "correct_project|without_cells", "interp_faces",
+                        "residual", "prolong_relax_correct",
+                        "prolong_relax_correct|without_cells",
+                        "coarse_block")}
+    # K12's block with its coarsest or its upper sweeps, or both, left
+    # out: where its time goes
+    # (the timings' lambdas read kw and the like when called: no loop
+    # here rebinds them)
+    for part, kwz in (("no_coarsest", dict(coarsest=0)),
+                      ("no_sweeps", dict(nsweeps=0)),
+                      ("bare", dict(coarsest=0, nsweeps=0))):
+        dev_us[f"coarse_block|{part}"] = host_device_us(
+            lambda kwz=kwz: k12_block(**kwz), calls=200)[1]
+    for name, args in tails.items():
+        dev_us[f"coarse_block|{name}_tail"] = host_device_us(
+            lambda args=args: tail_kernel(*args), calls=200)[1]
+        dev_us[f"coarse_block|{name}_k3"] = CASCADE_TAIL * host_device_us(
+            lambda args=args: k3_tail(*args), calls=200)[1]
+    for k, v in dev_us.items():
+        name, _, variant = k.partition("|")
+        record[name]["device_us" + (f"_{variant}" if variant else "")] = v
+    record["coarse_block"]["plan"] = "x".join(map(str, rbgs.CB_WARPS))
+    print("  device us per call (profiled, float32): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in dev_us.items()))
     print(f"  K1 at {n}^2 per tile height (float32; device us per launch, "
           "profiled): " + ", ".join(f"{r}x128 {v:.2f}"
                                     for r, v in k1_rows.items()))
@@ -2783,7 +2940,8 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     print_ptxas(build.ptxas_report("predict_xy_kernel", "advect2d_kernel",
                                    "residual_restrict_kernel",
-                                   "rbgs3d_grid_kernel"))
+                                   "rbgs3d_grid_kernel", "coarse_block_kernel",
+                                   "divergence_mac_kernel"))
 
     record = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep}
               for k, (src, rep) in KERNELS.items()}
@@ -2813,8 +2971,13 @@ def main():
     for k, sub in (("cascade_prolong_relax", ""),
                    ("cascade_prolong_relax_pair", "_pair")):
         record[k]["launches_restrict_pyramid"] = pyramids[sub]
+        record[k]["launches_coarse_block"] = \
+            counts[f"cascade{sub}.coarse_block"]
         record[k]["launches_prolong_relax"] = \
             counts[f"cascade{sub}.prolong_relax"]
+    # the block kernel's launches on the main path: every cascade's tail
+    record["coarse_block"]["launches_main"] = sum(
+        counts[f"cascade{sub}.coarse_block"] for sub in ("", "_pair"))
     record["residual_restrict_div"]["launches_fold_div"] = \
         route_counts["fold_div"]["residual_restrict_div"]
     record["rbgs_relax_3d"]["launches_prolong"] = \

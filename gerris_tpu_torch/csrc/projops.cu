@@ -8,7 +8,8 @@
 // projops.py); every launch is on the caller's stream, allocates nothing
 // and returns cudaGetLastError():
 //
-//   divergence_mac   div = (dx ufx + dy ufy) * scale and its global sum;
+//   divergence_mac   div = (dx ufx + dy ufy) * scale and its global sum,
+//                    in one launch;
 //   correct_project  face gradients of p, uf -= dt grad_f p, the cell
 //                    gradient (face mean) [, U, V -= dt g];
 //   interp_faces     [u += dtv Gx, v += dtv Gy,] face means of the cells
@@ -16,20 +17,22 @@
 //                    [, the divergence of those faces and its sum].
 //
 // Layouts are logical: cells (n0, n1), x faces (n0+1, n1), y faces
-// (n0, n1+1), all contiguous row-major.  One thread per cell; a cell's
-// thread also writes the domain's last x face (i = n0-1) and last y face
-// (j = n1-1).  All three are elementwise stencils of a few flops per value
-// read: bytes between device memory and the SMs bound them on the H100,
+// (n0, n1+1), all contiguous row-major.  K5 and K9 run one thread per
+// cell (K4 a 4 x DIV_ROWS patch); a cell's thread also writes the
+// domain's last x face (i = n0-1) and last y face (j = n1-1).  All
+// three are elementwise stencils of a few flops per value read: bytes
+// between device memory and the SMs bound them on the H100,
 // so each reads every input once from device memory (neighbour reads hit
 // L1/L2) and keeps every intermediate in registers.  CUDA C++ and not
 // Triton: they are small stencils, the port already has one build route
 // and one library, and f64 stays on the same route as f32.
 //
-// The global sum of a divergence is two passes, per-block partial sums
-// by a fixed-order tree, then one block that sums the partials in a fixed
-// order (stencil.cuh): no float atomics, so a run is reproducible bit for
-// bit and the compatibility mean can stay on the device as the solver's
-// `sub` (no host sync).
+// The global sum of a divergence is per-tile partial sums by a
+// fixed-order tree, then the partials summed in a fixed order, by the last
+// block of K4's launch, by a second launch after K9's (stencil.cuh): no
+// float atomics on values, so a run is reproducible bit for bit and the
+// compatibility mean can stay on the device as the solver's `sub` (no
+// host sync).
 
 #include <cuda_runtime.h>
 
@@ -41,26 +44,160 @@ using gtt::Cell;
 using gtt::Ghosts;
 
 // ---------------------------------------------------------------------------
-// K4 divergence_mac.
+// K4 divergence_mac, in one launch.
 // Replaces gerris_tpu/ops/pallas/projops.py:divergence_mac (_kern_div).
 // Bound: device-memory bytes (reads ufx and ufy, writes div; at 2048^2
 // f32 ~50 MB, ~15 us at 3.35 TB/s).
-// Design: one thread per cell; the block's partial sum by a shared-memory
-// tree, then gtt::sum_partials_kernel.  The TPU kernel carried its strip
-// sums out as one padded tile per grid step and let XLA add them; blocks
-// of a GPU grid carry nothing, hence the second pass.
+// Design: the global sum keeps the association of the two-pass sum it
+// replaces (a tree over each DIV_COLS x DIV_ROWS tile of cells, the
+// flattened thread order of a 32 x 8 block: its rows' steps, then its
+// columns'; then 1024 strided accumulators over the tiles' partials and
+// their tree), so div and total are the two-pass version's bit for bit,
+// in one launch and with no shared-memory tree in the cell pass.  A warp
+// takes a strip of 128 columns x DIV_ROWS rows, 4 columns a lane: 16-byte
+// loads of ufx and stores of div where the rows are aligned, each row's
+// low x faces carried from the row below; each tile's rows are summed in
+// the lane's registers and its columns by shuffles across the tile's
+// 8 lanes, then the lane's own 4.  The TPU kernel carried its strip
+// sums out as one tile per grid step and let XLA add them; here the last
+// block to arrive (an arrival count and __threadfence, as
+// restrict_pyramid finishes its coarsest levels) sums the partials in the
+// second pass's order, writes the total and resets the count for the
+// next launch on the stream.
 // ---------------------------------------------------------------------------
+constexpr int DIV_ROWS = 8;        // rows of a sum tile
+constexpr int DIV_COLS = 32;       // columns of a sum tile
+constexpr int DIV_THREADS = 256;   // 8 warps, a strip each
+constexpr int DIV_STRIP = 128;     // columns of a warp's strip
+
+// four consecutive values of a row from column j0 (0 beyond n1), by one
+// 16-byte load (two for double) where the row is aligned
+__device__ __forceinline__ void load4(const float* __restrict__ p, int j0,
+                                      int n1, bool vec, float v[4]) {
+  if (vec && j0 + 3 < n1) {
+    const float4 q = *reinterpret_cast<const float4*>(p + j0);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    for (int e = 0; e < 4; ++e) v[e] = j0 + e < n1 ? p[j0 + e] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void load4(const double* __restrict__ p, int j0,
+                                      int n1, bool vec, double v[4]) {
+  if (vec && j0 + 3 < n1) {
+    const double2 q0 = *reinterpret_cast<const double2*>(p + j0);
+    const double2 q1 = *reinterpret_cast<const double2*>(p + j0 + 2);
+    v[0] = q0.x, v[1] = q0.y, v[2] = q1.x, v[3] = q1.y;
+  } else {
+    for (int e = 0; e < 4; ++e) v[e] = j0 + e < n1 ? p[j0 + e] : 0.0;
+  }
+}
+
+__device__ __forceinline__ void store4(float* __restrict__ p, int j0, int n1,
+                                       bool vec, const float v[4]) {
+  if (vec && j0 + 3 < n1) {
+    *reinterpret_cast<float4*>(p + j0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int e = 0; e < 4; ++e)
+      if (j0 + e < n1) p[j0 + e] = v[e];
+  }
+}
+
+__device__ __forceinline__ void store4(double* __restrict__ p, int j0, int n1,
+                                       bool vec, const double v[4]) {
+  if (vec && j0 + 3 < n1) {
+    *reinterpret_cast<double2*>(p + j0) = make_double2(v[0], v[1]);
+    *reinterpret_cast<double2*>(p + j0 + 2) = make_double2(v[2], v[3]);
+  } else {
+    for (int e = 0; e < 4; ++e)
+      if (j0 + e < n1) p[j0 + e] = v[e];
+  }
+}
+
 template <typename T>
-__global__ void divergence_mac_kernel(const T* __restrict__ ufx,
-                                      const T* __restrict__ ufy, int n0,
-                                      int n1, T scale, T* __restrict__ div,
-                                      T* __restrict__ partials) {
-  extern __shared__ unsigned char smem_raw[];
-  T* red = reinterpret_cast<T*>(smem_raw);
-  const Cell c = gtt::this_cell(n0, n1);
-  const T d = c.in ? gtt::mac_divergence(ufx, ufy, c.i, c.j, n1, scale)
-                   : T(0);
-  gtt::store_div(c, d, n1, div, partials, red);
+__global__ void __launch_bounds__(DIV_THREADS)
+    divergence_mac_kernel(const T* __restrict__ ufx,
+                          const T* __restrict__ ufy, int n0, int n1,
+                          T scale, int vec, T* __restrict__ div,
+                          T* __restrict__ partials, T* __restrict__ total,
+                          unsigned int* count) {
+  __shared__ T red[DIV_THREADS];
+  __shared__ int last;
+  const int lane = threadIdx.x & 31;
+  const int strips = (n1 + DIV_STRIP - 1) / DIV_STRIP;
+  const int tiles_x = (n1 + DIV_COLS - 1) / DIV_COLS;
+  const int tiles_y = (n0 + DIV_ROWS - 1) / DIV_ROWS;
+  const int unit = blockIdx.x * (DIV_THREADS / 32) + (threadIdx.x >> 5);
+  if (unit < strips * tiles_y) {  // the same for the whole warp
+    const int R = unit / strips, C = unit - R * strips;
+    const int i0 = R * DIV_ROWS, j0 = C * DIV_STRIP + 4 * lane;
+    T d[DIV_ROWS][4], xl[4];
+    load4(ufx + (size_t)i0 * n1, j0, n1, vec, xl);
+#pragma unroll
+    for (int r = 0; r < DIV_ROWS; ++r) {
+      const int i = i0 + r;
+      if (i < n0) {
+        T xh[4], y[5];
+        load4(ufx + (size_t)(i + 1) * n1, j0, n1, vec, xh);
+        const T* yr = ufy + (size_t)i * (n1 + 1);
+#pragma unroll
+        for (int e = 0; e < 5; ++e) y[e] = j0 + e <= n1 ? yr[j0 + e] : T(0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          d[r][e] = j0 + e < n1
+                        ? gtt::divergence_sum(xl[e], xh[e], y[e], y[e + 1]) *
+                              scale
+                        : T(0);
+          xl[e] = xh[e];
+        }
+        store4(div + (size_t)i * n1, j0, n1, vec, d[r]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[r][e] = T(0);
+      }
+    }
+    // the tile's tree: its rows (ty, ty + h) in the lane's registers ...
+#pragma unroll
+    for (int h = DIV_ROWS / 2; h >= 1; h >>= 1)
+#pragma unroll
+      for (int r = 0; r < h; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[r][e] += d[r + h][e];
+    // ... then its columns (tx, tx + w): w / 4 lanes apart down to w = 4,
+    // then the lane's own four
+#pragma unroll
+    for (int w = DIV_COLS / 2; w >= 4; w >>= 1)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        d[0][e] += __shfl_down_sync(0xffffffffu, d[0][e], w >> 2);
+    const T v = (d[0][0] + d[0][2]) + (d[0][1] + d[0][3]);
+    const int g = DIV_COLS / 4;  // lanes of a tile row
+    const int tc = C * (DIV_STRIP / DIV_COLS) + lane / g;
+    if (lane % g == 0 && tc < tiles_x) partials[R * tiles_x + tc] = v;
+  }
+  // the last block to arrive sums the partials as sum_partials_kernel
+  // does: 1024 strided accumulators, then their tree, whose first two
+  // steps (1024 -> 512 -> 256) pair this thread's four
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(count, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int np = tiles_x * tiles_y, t = threadIdx.x;
+  T acc[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    T x = T(0);
+    for (int k = t + q * DIV_THREADS; k < np; k += gtt::SUM_THREADS)
+      x += __ldcg(partials + k);
+    acc[q] = x;
+  }
+  const T sum = gtt::block_sum((acc[0] + acc[2]) + (acc[1] + acc[3]), red);
+  if (t == 0) {
+    *total = sum;
+    *count = 0u;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -182,20 +319,25 @@ __global__ void interp_faces_kernel(InterpArgs<T> a, T div_scale,
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
+bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// count: the launch's arrival count, 0 between launches
 template <typename T>
 int launch_divergence_mac(const void* ufx, const void* ufy, int n0, int n1,
-                          double scale, int bx, int by, void* div,
-                          void* partials, void* total, void* stream) {
-  if (!gtt::block_ok(bx, by)) return (int)cudaErrorInvalidValue;
-  const dim3 grid = gtt::cell_grid(n0, n1, bx, by);
-  const size_t smem = (size_t)bx * by * sizeof(T);
-  divergence_mac_kernel<T><<<grid, dim3(bx, by), smem,
+                          double scale, void* div, void* partials,
+                          void* total, void* count, void* stream) {
+  if (n0 < 1 || n1 < 1) return (int)cudaErrorInvalidValue;
+  const int units = (n1 + DIV_STRIP - 1) / DIV_STRIP *
+                    ((n0 + DIV_ROWS - 1) / DIV_ROWS);
+  const int warps = DIV_THREADS / 32;
+  const int vec = n1 % 4 == 0 && aligned16(ufx) && aligned16(div);
+  divergence_mac_kernel<T><<<(units + warps - 1) / warps, DIV_THREADS, 0,
                              (cudaStream_t)stream>>>(
-      (const T*)ufx, (const T*)ufy, n0, n1, T(scale), (T*)div, (T*)partials);
-  const int e = (int)cudaGetLastError();
-  if (e) return e;
-  return gtt::launch_sum<T>((const T*)partials, grid.x * grid.y, (T*)total,
-                            (cudaStream_t)stream);
+      (const T*)ufx, (const T*)ufy, n0, n1, T(scale), vec, (T*)div,
+      (T*)partials, (T*)total, (unsigned int*)count);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -242,10 +384,10 @@ int launch_interp_faces(const void* u, const void* v, const void* gx,
 
 #define GTT_EXPORT(SUFFIX, T)                                                 \
   extern "C" int gtt_divergence_mac_##SUFFIX(                                 \
-      const void* ufx, const void* ufy, int n0, int n1, double scale, int bx, \
-      int by, void* div, void* partials, void* total, void* stream) {         \
-    return launch_divergence_mac<T>(ufx, ufy, n0, n1, scale, bx, by, div,     \
-                                    partials, total, stream);                 \
+      const void* ufx, const void* ufy, int n0, int n1, double scale,         \
+      void* div, void* partials, void* total, void* count, void* stream) {    \
+    return launch_divergence_mac<T>(ufx, ufy, n0, n1, scale, div, partials,   \
+                                    total, count, stream);                    \
   }                                                                           \
   extern "C" int gtt_correct_project_##SUFFIX(                                \
       const void* p, const void* ufx, const void* ufy, const void* uc,        \

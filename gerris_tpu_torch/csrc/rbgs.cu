@@ -21,15 +21,17 @@
 //                      per-cell dia (div(alpha grad u) - dia u = rhs),
 //                      from a given u or from a prolonged coarse
 //                      correction (+ u);
-//   coarse_block       the whole cascade of a level of at most 64^2 in
-//                      one block;
+//   coarse_block       a cascade's levels at and below 64^2 (du = 0 and
+//                      sweeps at the coarsest, prolong + sweeps above),
+//                      one block per system, in one launch;
 //   residual_restrict_div  residual_restrict with rhs = div(uf) / dt formed
 //                      from the MAC faces in the kernel;
 //   prolong_relax_correct  prolong_relax (+ u) with the projection's
 //                      correction by the result as its epilogue;
 //   and the cascades (ops/cuda/rbgs.py:cascade_prolong_relax and
-//   coarse_vcycle) are host sequences of one restrict_pyramid launch and
-//   prolong_relax and coarse_block launches.
+//   coarse_vcycle) are host sequences of one restrict_pyramid launch, one
+//   coarse_block launch for the levels at and below 64^2, and
+//   prolong_relax launches above.
 //
 // One sweep engine (pr_relax) runs every tiled red-black smoother: K3,
 // K8c, K17, the K3 launches of K2, K8b and K12, K10 and K15.  Its
@@ -38,7 +40,8 @@
 // 1 / (4 + dia h2), or face coefficients with a per-cell denominator)
 // and periodic rows, so that no instance pays for another's branches.
 //
-// The first three and restrict_pyramid take a batch of 1 or 2 independent systems of one size:
+// The first three, restrict_pyramid and coarse_block take a batch of 1 or
+// 2 independent systems of one size (coarse_block one block per system):
 // gridDim.z is the batch and blockIdx.z picks the system's pointers and
 // scalars from a small struct passed by value.  A single solve launches
 // with a batch of 1 (K1-K3); the U+V implicit-diffusion pair launches the
@@ -60,6 +63,8 @@
 // and by the barriers between serial half-sweeps.
 
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 #include "stencil.cuh"
 
@@ -1010,154 +1015,317 @@ __global__ void __launch_bounds__(PR_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K12 coarse_vcycle, its block kernel.
+// coarse_block: the coarse tail of a cascade in one launch, one block per
+// system: K12 coarse_vcycle's block kernel, and the levels at and below
+// 64^2 of K2 cascade_prolong_relax and of K8b cascade_prolong_relax_pair.
 // Replaces gerris_tpu/ops/pallas/rbgs.py:coarse_vcycle (_cv_kernel, its
-// smoother _cv_relax) together with the restrict_pyramid and K3 launches
-// of the levels above 64^2 (ops/cuda/rbgs.py:coarse_vcycle): du for the whole
-// sub-hierarchy at and below r's level, homogeneous ghosts, non-periodic
-// rows, periodic columns or not, omega 1.
-// Bound: barriers and launches, not bytes: at the 64^2 top it reads r
-// (16 KB in f32) and writes du once, and its work is ~2 * coarsest +
-// 4 * nsweeps half-sweeps of at most 2048 cells each, serial in between.
-// Design: the TPU kernel holds a 512^2 cascade in one launch; a 512^2
-// level does not fit one block's shared memory, so on the card one block
-// of 1024 threads holds the cascade from a top of at most 64^2 down to
-// min_n^2 and back: the residual pyramid (r at the top, restricted in
-// shared memory) and du in two ping-pong buffers (level l from the top in
-// buffer l % 2), ~41 KB in f32 and ~82 KB in f64.  A cell's neighbours
-// are read through index tests instead of a ghost ring, so a half-sweep
-// costs one barrier.  The coarsest level starts from du = 0 with
-// `coarsest` sweeps; every level above it is a bilinear prolongation
-// (K3's arithmetic) and `nsweeps` sweeps.
+// smoother _cv_relax) at and below 64^2, and the sub-cascade that the
+// cascade kernels run on r2 in VMEM (_cp_core's "coarse_vcycle on r2",
+// rbgs.py:1325-1356).  For 1 or 2 systems of one size n <= 64, each with
+// its own dia, given each level's rhs down to the coarsest (the
+// cascades' and K12's restrict_pyramid makes them): du = 0 at the
+// coarsest level and `coarsest` red-black sweeps there, then at each
+// level up to n the bilinear prolongation of the coarser du and `nsweeps`
+// sweeps, with omega, homogeneous ghosts sgn * mirror, periodic columns
+// or not.
+// Bound: latency, not bytes or operations.  A 64^2 tail reads ~21 KB of
+// rhs and writes 16 KB (f32), but its ~100 half-sweeps (80 at 16^2 for the
+// cascades' 40 coarsest sweeps, 10 at each of 32^2 and 64^2) run one
+// after another, each a few shared-memory loads deep and ended by a
+// barrier.
+// Design: every level lives in shared memory, colour-split as the sweep
+// engine's buffers (pr_half; no ghost ring: a cell on a domain edge reads
+// sgn * its own value, or the cell across the periodic wrap), so a
+// half-sweep's neighbours are read at unit stride with no bank conflict
+// and every index comes from shifts and masks.  The threads that sweep
+// follow the level: `warps16` warps at 16^2 and below (__syncwarp between
+// half-sweeps for one warp), `warps32` at 32^2 (a named barrier), the
+// whole block at 64^2; the others wait at the block barrier that ends the
+// level.  A thread keeps its cells (at most 4 of a colour) in registers
+// for the whole level, du and rhs, with their neighbours' indices and
+// domain edges: a cell is updated by its thread alone, so a half-sweep
+// is the neighbours' loads (unconditional, issued together), the
+// arithmetic and one store a cell, then the barrier.  The whole block
+// loads the rhs of every level in one round of loads, places each
+// prolongation, and writes du.  A pair runs as two
+// blocks, on two SMs.  The arithmetic is the sweep engine's, written out
+// where nvcc would otherwise pick a contraction: the update fma(-h2, rhs,
+// nb) * inv_denom with the neighbour sum ((up + dn) + lf) + rt, omega as
+// fma(omega, new, (1 - omega) cv), and K3's prolongation, 0.75 c + 0.25
+// nb per axis (rows first) with the 0.75 c product fused; so a cascade's
+// tail is the K3 launches it replaces bit for bit.  inv_denom comes per
+// level and system from the launcher: K3's 1 / (4 + dia h2), or with
+// `fused` the one K12's earlier block kernel formed on the card, 1 /
+// fma(dia, h2, 4), so that K12 keeps its bits.
 // ---------------------------------------------------------------------------
 constexpr int CB_TOP = 64;
-constexpr int CB_THREADS = 1024;
-constexpr int CB_LEVELS = 7;  // 64^2 .. 1^2
+constexpr int CB_LEVELS = 6;     // 64^2 .. 2^2
+constexpr int CB_THREADS = 512;  // threads of a block
+constexpr int CB_LOADS = 12;     // loads of rhs a thread has in flight
+
+template <typename T>
+struct CBSystem {
+  const T* rhs[CB_LEVELS];  // finest first
+  T* du;
+  T inv_denom[CB_LEVELS];
+};
 
 template <typename T>
 struct CBArgs {
-  const T* r;
-  T* du;
-  int n, min_n, nsweeps, coarsest;
-  double dia, h2;  // h2 at r's level
+  CBSystem<T> sys[MAX_BATCH];
+  T h2[CB_LEVELS];
+  int n, levels, nsweeps, coarsest, warps16, warps32;
+  T omega, one_m_omega;
+  int use_omega;
   T sgn[4];
   int per_y;
 };
 
-template <typename T>
-__device__ void cb_restrict(const T* f, T* c, int s) {
-  const int n1 = 2 * s;
-  for (int k = threadIdx.x; k < s * s; k += CB_THREADS) {
-    const int i = k / s, j = k - i * s;
-    const T* p = f + (size_t)(2 * i) * n1 + 2 * j;
-    const T x = T(0.5) * (p[0] + p[n1]);
-    const T y = T(0.5) * (p[1] + p[n1 + 1]);
-    c[k] = T(0.5) * (x + y);
+// A level in shared memory: s x s cells (s a power of two, at least 2),
+// cell (i, j) in the half of its colour (i + j) & 1 at i * s/2 + j/2,
+// each half hs entries (pr_half); the level's rhs, then its du
+struct CBLevel {
+  int s, lh, hs;  // side, log2(s / 2), half size
+  __device__ __forceinline__ int at(int i, int j) const {
+    return ((i + j) & 1) * hs + (i << lh) + (j >> 1);
   }
-  __syncthreads();
+};
+
+__device__ __forceinline__ CBLevel cb_level(int s) {
+  return CBLevel{s, __ffs(s) - 2, pr_half(s)};
 }
 
-// nsweeps red-black sweeps of the s x s level d on rhs, one barrier per
-// half-sweep
+// the offset of level l (side n >> l) in shared memory: the levels above
+// it, each its rhs and du in two halves
+__host__ __device__ __forceinline__ int cb_offset(int n, int l) {
+  int off = 0;
+  for (int k = 0; k < l; ++k) off += 4 * pr_half(n >> k);
+  return off;
+}
+
+// The barrier between the steps of a level's p threads: the warp's, a
+// named barrier of p threads, or the block's
+__device__ __forceinline__ void cb_sync(int p) {
+  if (p == 32)
+    __syncwarp();
+  else if (p < (int)blockDim.x)
+    asm volatile("bar.sync 1, %0;" ::"r"(p) : "memory");
+  else
+    __syncthreads();
+}
+
+// One half-sweep, colour C, of a thread's N cells k[u] of a level (see
+// cb_sweeps): the neighbours, the other colour, from shared memory at
+// the indices fixed for the level (a domain edge's read at the cell's
+// own index and replaced by sgn * c after), the cell's du and rhs from
+// registers; the new value back to both.
+template <typename T, int N, int C>
+__device__ __forceinline__ void cb_half(const CBArgs<T>& a, T* du, int hs,
+                                        const int (&k)[N],
+                                        const bool (&own)[N],
+                                        const int (&ui)[N],
+                                        const int (&di)[N],
+                                        const int (&li)[N],
+                                        const int (&ri)[N],
+                                        const int (&edge)[N], T (&v)[N],
+                                        const T (&r)[N], T h2, T inv) {
+  const T* const nbr = du + (C ^ 1) * hs;
+  T* const out = du + C * hs;
+  T up[N], dn[N], lf[N], rt[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    up[u] = nbr[ui[u]];
+    dn[u] = nbr[di[u]];
+    lf[u] = nbr[li[u]];
+    rt[u] = nbr[ri[u]];
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const T c = v[u];
+    const T U = edge[u] & 1 ? mul_rn(a.sgn[0], c) : up[u];
+    const T D = edge[u] & 2 ? mul_rn(a.sgn[1], c) : dn[u];
+    const T Lf = edge[u] & 4 ? mul_rn(a.sgn[2], c) : lf[u];
+    const T R = edge[u] & 8 ? mul_rn(a.sgn[3], c) : rt[u];
+    T nw = fma(-h2, r[u], U + D + Lf + R) * inv;
+    if (a.use_omega) nw = fma(a.omega, nw, a.one_m_omega * c);
+    v[u] = nw;
+    if (own[u]) out[k[u]] = nw;
+  }
+}
+
+// The sweeps of level L by threads [0, p) (red, (i + j) even, first): a
+// thread's cells are the colour-split indices k = t, t + p, ..., N of
+// them in each colour (the level has at most N p cells of a colour; a
+// thread left with none still meets the barriers).  A cell is updated by
+// its thread alone, so the thread keeps its cells' du and rhs in
+// registers and reads only their neighbours from shared memory, at
+// indices fixed for the level.
+template <typename T, int N>
+__device__ __forceinline__ void cb_sweeps(const CBArgs<T>& a, T* du,
+                                          const T* rhs, const CBLevel& L,
+                                          int p, int half_sweeps, T h2,
+                                          T inv) {
+  const int s = L.s, H = s >> 1, cells = s * H, hs = L.hs;
+  const bool per_y = a.per_y;
+  int k[N], ui[N], di[N], li[2][N], ri[2][N], edge[2][N];
+  bool own[N];
+  T v[2][N], r[2][N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int kk = threadIdx.x + u * p;
+    own[u] = kk < cells;
+    k[u] = own[u] ? kk : 0;
+    const int i = k[u] >> L.lh, m = k[u] & (H - 1);
+    const bool top = i == 0, bottom = i == s - 1;
+    ui[u] = top ? k[u] : k[u] - H;
+    di[u] = bottom ? k[u] : k[u] + H;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int q = (c + i) & 1;  // the column parity: j = 2 m + q
+      const bool left = q == 0 && m == 0, right = q == 1 && m == H - 1;
+      li[c][u] = left ? (per_y ? k[u] + H - 1 : k[u]) : k[u] - 1 + q;
+      ri[c][u] = right ? (per_y ? k[u] - H + 1 : k[u]) : k[u] + q;
+      edge[c][u] = top | bottom << 1 | (left && !per_y) << 2 |
+                   (right && !per_y) << 3;
+      v[c][u] = du[c * hs + k[u]];
+      r[c][u] = rhs[c * hs + k[u]];
+    }
+  }
+  for (int sw = 0; sw < half_sweeps; sw += 2) {
+    cb_half<T, N, 0>(a, du, hs, k, own, ui, di, li[0], ri[0], edge[0], v[0],
+                     r[0], h2, inv);
+    cb_sync(p);
+    cb_half<T, N, 1>(a, du, hs, k, own, ui, di, li[1], ri[1], edge[1], v[1],
+                     r[1], h2, inv);
+    cb_sync(p);
+  }
+}
+
+// Level F's du (side s) = the bilinear prolongation of level C's (side
+// s / 2), as K3 places it: rows first, a domain edge's ghost sgn * c or
+// the column across the periodic wrap; by the whole block, in F's
+// colour-split order, every load unconditional (a domain edge's ghost
+// replaced after)
 template <typename T>
-__device__ void cb_sweeps(T* d, const T* rhs, int s, int nsweeps,
-                          const CBArgs<T>& a) {
-  const double h2d = a.h2 * double(a.n / s) * double(a.n / s);
-  const T h2 = T(h2d);
-  const T inv_denom = T(1.0 / (4.0 + a.dia * h2d));
-  const int half = s / 2;  // cells of one colour per row
-  const int cells = s * half;
-  for (int sw = 0; sw < 2 * nsweeps; ++sw) {
-    const int color = sw & 1;  // red ((i+j) even) first
-    for (int k = threadIdx.x; k < cells; k += CB_THREADS) {
-      const int i = k / half;
-      const int j = 2 * (k - i * half) + ((i + color) & 1);
-      const int q = i * s + j;
-      const T c = d[q];
-      const T up = i > 0 ? d[q - s] : a.sgn[0] * c;
-      const T dn = i < s - 1 ? d[q + s] : a.sgn[1] * c;
-      T lf, rt;
-      if (a.per_y) {
-        lf = d[j > 0 ? q - 1 : q + s - 1];
-        rt = d[j < s - 1 ? q + 1 : q - (s - 1)];
-      } else {
-        lf = j > 0 ? d[q - 1] : a.sgn[2] * c;
-        rt = j < s - 1 ? d[q + 1] : a.sgn[3] * c;
+__device__ __forceinline__ void cb_prolong(const CBArgs<T>& a, const T* c,
+                                           const CBLevel& C, T* f,
+                                           const CBLevel& F) {
+  const int p = blockDim.x;
+  const int s = F.s, H = s >> 1, half = s * H, m1 = C.s;
+  const bool per_y = a.per_y;
+#pragma unroll 2
+  for (int idx = threadIdx.x; idx < 2 * half; idx += p) {
+    const int h = idx >= half;
+    const int kk = idx - h * half;
+    const int gi = kk >> F.lh;
+    const int gj = 2 * (kk & (H - 1)) + ((gi + h) & 1);
+    const int ci = gi >> 1, cj = gj >> 1;
+    const bool top = gi == 0, bottom = gi == s - 1;
+    // the coarse row beside ci (ci itself at a domain edge, unused)
+    const int cin = top || bottom ? ci : (gi & 1) ? ci + 1 : ci - 1;
+    // the coarse column beside cj: across the wrap when periodic (cj
+    // itself at a domain edge, unused)
+    int cjn = (gj & 1) ? cj + 1 : cj - 1;
+    const bool left = !per_y && gj == 0, right = !per_y && gj == s - 1;
+    cjn = per_y ? (cjn + m1) & (m1 - 1) : left || right ? cj : cjn;
+    const T b0 = c[C.at(ci, cj)], n0 = c[C.at(cin, cj)];
+    const T b1 = c[C.at(ci, cjn)], n1 = c[C.at(cin, cjn)];
+    // the row step on coarse columns cj and cjn
+    const T nb0 = top ? mul_rn(a.sgn[0], b0)
+                      : bottom ? mul_rn(a.sgn[1], b0) : n0;
+    const T nb1 = top ? mul_rn(a.sgn[0], b1)
+                      : bottom ? mul_rn(a.sgn[1], b1) : n1;
+    const T pv = fma(T(0.75), b0, mul_rn(T(0.25), nb0));
+    const T qr = fma(T(0.75), b1, mul_rn(T(0.25), nb1));
+    const T qv = left ? mul_rn(a.sgn[2], pv)
+                      : right ? mul_rn(a.sgn[3], pv) : qr;
+    f[h * F.hs + kk] = fma(T(0.75), pv, mul_rn(T(0.25), qv));
+  }
+}
+
+// arr[l] by static indices only (a run-time index into the kernel's
+// parameters would copy them to local memory)
+template <typename V, int M>
+__device__ __forceinline__ V cb_pick(const V (&arr)[M], int l) {
+  V x = arr[0];
+#pragma unroll
+  for (int k = 1; k < M; ++k)
+    if (l == k) x = arr[k];
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CB_THREADS)
+    coarse_block_kernel(CBArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ T h2s[CB_LEVELS], invs[CB_LEVELS];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const CBSystem<T> s = blockIdx.x ? a.sys[1] : a.sys[0];
+  const int n = a.n, nl = a.levels, t = threadIdx.x;
+  if (t < nl) {
+    h2s[t] = cb_pick(a.h2, t);
+    invs[t] = cb_pick(s.inv_denom, t);
+  }
+  // every level's rhs from device memory (levels 0 .. nl - 1 as one index
+  // range), CB_LOADS loads a thread in flight; the coarsest du = 0
+  int total = 0;
+  for (int l = 0; l < nl; ++l) total += (n >> l) * (n >> l);
+  for (int g0 = t; g0 < total; g0 += CB_LOADS * CB_THREADS) {
+    T x[CB_LOADS];
+    int at[CB_LOADS];
+#pragma unroll
+    for (int e = 0; e < CB_LOADS; ++e) {
+      int g = g0 + e * CB_THREADS, l = 0;
+      at[e] = -1;
+      if (g < total) {
+        while (g >= (n >> l) * (n >> l)) g -= (n >> l) * (n >> l), ++l;
+        const CBLevel L = cb_level(n >> l);
+        x[e] = cb_pick(s.rhs, l)[g];
+        at[e] = cb_offset(n, l) + L.at(g >> (L.lh + 1), g & (L.s - 1));
       }
-      d[q] = (up + dn + lf + rt - h2 * rhs[q]) * inv_denom;
+    }
+#pragma unroll
+    for (int e = 0; e < CB_LOADS; ++e)
+      if (at[e] >= 0) sm[at[e]] = x[e];
+  }
+  {
+    const CBLevel L = cb_level(n >> (nl - 1));
+    T* const du = sm + cb_offset(n, nl - 1) + 2 * L.hs;
+    for (int k = t; k < 2 * L.hs; k += CB_THREADS) du[k] = T(0);
+  }
+  __syncthreads();
+  // coarsest first: its sweeps from du = 0, then prolong + sweeps
+  for (int l = nl - 1; l >= 0; --l) {
+    const int side = n >> l;
+    const CBLevel L = cb_level(side);
+    T* const rhs = sm + cb_offset(n, l);
+    T* const du = rhs + 2 * L.hs;
+    if (l < nl - 1) {
+      const CBLevel C = cb_level(side >> 1);
+      cb_prolong(a, sm + cb_offset(n, l + 1) + 2 * C.hs, C, du, L);
+      __syncthreads();
+    }
+    const int p = side <= 16   ? 32 * a.warps16
+                  : side == 32 ? 32 * a.warps32
+                               : CB_THREADS;
+    if (t < p) {
+      const T h2 = h2s[l], inv = invs[l];
+      const int half_sweeps = 2 * (l == nl - 1 ? a.coarsest : a.nsweeps);
+      const int per = side * (side >> 1) / p;  // cells of a colour a thread
+      if (per >= 4)
+        cb_sweeps<T, 4>(a, du, rhs, L, p, half_sweeps, h2, inv);
+      else if (per == 2)
+        cb_sweeps<T, 2>(a, du, rhs, L, p, half_sweeps, h2, inv);
+      else
+        cb_sweeps<T, 1>(a, du, rhs, L, p, half_sweeps, h2, inv);
     }
     __syncthreads();
   }
-}
-
-// bilinear prolongation of the (s/2)^2 level c into the s^2 level f (rows
-// first, homogeneous ghosts; K3's arithmetic)
-template <typename T>
-__device__ void cb_prolong(const T* c, T* f, int s, const CBArgs<T>& a) {
-  const int m1 = s / 2;
-  for (int k = threadIdx.x; k < s * s; k += CB_THREADS) {
-    const int gi = k / s, gj = k - gi * s;
-    const int ci = gi >> 1, cj = gj >> 1;
-    const int cin = (gi & 1) ? ci + 1 : ci - 1;
-    auto rowstep = [&](int cc) -> T {
-      const T base = c[ci * m1 + cc];
-      T nb;
-      if (gi == 0)
-        nb = a.sgn[0] * base;
-      else if (gi == s - 1)
-        nb = a.sgn[1] * base;
-      else
-        nb = c[cin * m1 + cc];
-      return T(0.75) * base + T(0.25) * nb;
-    };
-    const T p = rowstep(cj);
-    const int cjn = (gj & 1) ? cj + 1 : cj - 1;
-    T q;
-    if (a.per_y)
-      q = rowstep((cjn + m1) % m1);
-    else if (gj == 0)
-      q = a.sgn[2] * p;
-    else if (gj == s - 1)
-      q = a.sgn[3] * p;
-    else
-      q = rowstep(cjn);
-    f[k] = T(0.75) * p + T(0.25) * q;
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void coarse_block_kernel(CBArgs<T> a) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int n = a.n;
-  // the residual pyramid n^2 .. min_n^2, then the two du buffers
-  T* rs[CB_LEVELS];
-  int sizes[CB_LEVELS];
-  int nl = 0;
-  T* p = sm;
-  for (int s = n; s >= a.min_n; s >>= 1, ++nl) {
-    rs[nl] = p;
-    sizes[nl] = s;
-    p += s * s;
-  }
-  T* dbuf[2] = {p, p + n * n};
-  for (int k = threadIdx.x; k < n * n; k += CB_THREADS) rs[0][k] = a.r[k];
-  __syncthreads();
-  for (int l = 1; l < nl; ++l) cb_restrict(rs[l - 1], rs[l], sizes[l]);
-  // the coarsest level from du = 0
-  T* d = dbuf[(nl - 1) & 1];
-  const int sc = sizes[nl - 1];
-  for (int k = threadIdx.x; k < sc * sc; k += CB_THREADS) d[k] = T(0);
-  __syncthreads();
-  cb_sweeps(d, rs[nl - 1], sc, a.coarsest, a);
-  for (int l = nl - 2; l >= 0; --l) {
-    T* f = dbuf[l & 1];
-    cb_prolong(d, f, sizes[l], a);
-    cb_sweeps(f, rs[l], sizes[l], a.nsweeps, a);
-    d = f;
-  }
-  for (int k = threadIdx.x; k < n * n; k += CB_THREADS) a.du[k] = d[k];
+  // the top level's du to device memory
+  const CBLevel L = cb_level(n);
+  const T* const du = sm + 2 * L.hs;
+  for (int g = t; g < n * n; g += CB_THREADS)
+    s.du[g] = du[L.at(g >> (L.lh + 1), g & (n - 1))];
 }
 
 bool batch_ok(int batch) { return batch >= 1 && batch <= MAX_BATCH; }
@@ -1443,30 +1611,53 @@ int launch_rbgs_relax_alpha(const void* const* ptr, int prolong, int n0,
                        grid, threads, smem, stream, a, f);
 }
 
+// ptr: per system its levels' rhs (`levels` entries, finest first), then
+// per system its du; dia per system.  warps16, warps32:
+// the warps that sweep the levels of 16^2 and below and the 32^2 level
+// (1 to 16, and 4 to 16: a thread holds at most 4 cells of a colour).
 template <typename T>
-int launch_coarse_block(const void* r, void* du, int n, int min_n,
-                        int nsweeps, int coarsest, double dia, double h2,
-                        const double* sgn, int per_y, void* stream) {
-  if (n > CB_TOP || min_n < 2 || min_n > n) return (int)cudaErrorInvalidValue;
+int launch_coarse_block(int batch, const void* const* ptr, const double* dia,
+                        int n, int levels, int nsweeps, int coarsest,
+                        double h2, double omega, const double* sgn,
+                        int per_y, int fused, int warps16, int warps32,
+                        void* stream) {
+  if (!batch_ok(batch) || n < 2 || n > CB_TOP || (n & (n - 1)) ||
+      levels < 1 || levels > CB_LEVELS || (n >> (levels - 1)) < 2 ||
+      warps16 < 1 || 32 * warps16 > CB_THREADS || warps32 < 4 ||
+      32 * warps32 > CB_THREADS)
+    return (int)cudaErrorInvalidValue;
   CBArgs<T> a = {};
-  a.r = (const T*)r;
-  a.du = (T*)du;
+  for (int b = 0; b < batch; ++b) {
+    CBSystem<T>& s = a.sys[b];
+    if (!ptr[batch * levels + b]) return (int)cudaErrorInvalidValue;
+    for (int l = 0; l < levels; ++l) {
+      if (!ptr[b * levels + l]) return (int)cudaErrorInvalidValue;
+      s.rhs[l] = (const T*)ptr[b * levels + l];
+      const double h2l = h2 * double(1 << (2 * l));
+      s.inv_denom[l] = T(fused ? 1.0 / std::fma(dia[b], h2l, 4.0)
+                               : 1.0 / (4.0 + dia[b] * h2l));
+    }
+    s.du = (T*)ptr[batch * levels + b];
+  }
+  for (int l = 0; l < levels; ++l) a.h2[l] = T(h2 * double(1 << (2 * l)));
   a.n = n;
-  a.min_n = min_n;
+  a.levels = levels;
   a.nsweeps = nsweeps;
   a.coarsest = coarsest;
-  a.dia = dia;
-  a.h2 = h2;
+  a.warps16 = warps16;
+  a.warps32 = warps32;
+  a.omega = T(omega);
+  a.one_m_omega = T(1.0 - omega);
+  a.use_omega = omega != 1.0;
   for (int k = 0; k < 4; ++k) a.sgn[k] = T(sgn[k]);
   a.per_y = per_y;
-  size_t cells = 0;
-  for (int s = n; s >= min_n; s >>= 1) cells += (size_t)s * s;
-  cells += (size_t)n * n + (size_t)(n / 2) * (n / 2);
-  const size_t smem = cells * sizeof(T);
+  const size_t smem = (size_t)cb_offset(n, levels) * sizeof(T);
   static int smem_set[gtt::MAX_DEVICES];
-  cudaError_t e = gtt::allow_smem((const void*)coarse_block_kernel<T>, smem_set);
+  cudaError_t e =
+      gtt::allow_smem((const void*)coarse_block_kernel<T>, smem_set);
   if (e != cudaSuccess) return (int)e;
-  coarse_block_kernel<T><<<1, CB_THREADS, smem, (cudaStream_t)stream>>>(a);
+  coarse_block_kernel<T>
+      <<<batch, CB_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1478,7 +1669,9 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
 // out, its levels back to back;
 // prolong_relax: coarse, rhs, u, out), so that a launch builds one array;
 // dia is a host array of `batch` entries, the ghost offsets of 4 * batch.
-// residual, rbgs_relax and coarse_block take one system's pointers;
+// coarse_block: each system's levels (finest first), then each system's
+// du;
+// residual and rbgs_relax take one system's pointers;
 // rbgs_relax_alpha one table (src, rhs, ax, ay, dia, u, out: src the
 // start u, or with prolong = 1 the coarse correction or NULL for zero;
 // dia NULL for the scalar; u, added to the result, NULL for none);
@@ -1549,10 +1742,12 @@ int launch_coarse_block(const void* r, void* du, int n, int min_n,
                                       per_y, threads, stream);                \
   }                                                                           \
   extern "C" int gtt_coarse_block_##SUFFIX(                                   \
-      const void* r, void* du, int n, int min_n, int nsweeps, int coarsest,   \
-      double dia, double h2, const double* sgn, int per_y, void* stream) {    \
-    return launch_coarse_block<T>(r, du, n, min_n, nsweeps, coarsest, dia,    \
-                                  h2, sgn, per_y, stream);                    \
+      int batch, void* const* ptr, const double* dia, int n, int levels,      \
+      int nsweeps, int coarsest, double h2, double omega, const double* sgn,  \
+      int per_y, int fused, int warps16, int warps32, void* stream) {         \
+    return launch_coarse_block<T>(batch, ptr, dia, n, levels, nsweeps,        \
+                                  coarsest, h2, omega, sgn, per_y, fused,     \
+                                  warps16, warps32, stream);                  \
   }
 
 GTT_EXPORT(f32, float)

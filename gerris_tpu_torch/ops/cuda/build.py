@@ -126,7 +126,8 @@ _SIGNATURES = {
     "gtt_residual": [_P, _P, _P, _I, _I, _D, _D, _DP, _DP, _I, _I, _P],
     "gtt_rbgs_relax": [_P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _DP, _I,
                        _I, _I, _P],
-    "gtt_coarse_block": [_P, _P, _I, _I, _I, _I, _D, _D, _DP, _I, _P],
+    "gtt_coarse_block": [_I, _PP, _DP, _I, _I, _I, _I, _D, _D, _DP, _I, _I, _I,
+                         _I, _P],
     "gtt_rbgs_relax_alpha": [_PP, _I, _I, _I, _I, _I, _I, _D, _D, _D, _DP,
                              _I, _I, _I, _P],
     "gtt_residual_restrict_div": [_PP, _D, _DP, _D, _D, _I, _I, _DP, _I, _I,
@@ -135,7 +136,7 @@ _SIGNATURES = {
                                   _D, _DP, _DP, _I, _P],
     "gtt_rbgs_relax_3d": [_PP, _I, _I, _I, _I, _I, _D, _D, _D, _DP, _I, _I,
                           _I, _I, _P],
-    "gtt_divergence_mac": [_P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P],
+    "gtt_divergence_mac": [_P, _P, _I, _I, _D, _P, _P, _P, _P, _P],
     "gtt_correct_project": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _DP, _DP,
                             _I, _P, _P, _P, _P, _P, _P, _P],
     "gtt_interp_faces": [_P, _P, _P, _P, _D, _I, _I, _I, _DP, _D, _P, _P,

@@ -27,7 +27,7 @@ from ...core import bc as bcs
 from ..stencils import face_average, face_gradient
 from .bcg import (check, check_faces, doubles, face_specs, kernel_spec,
                   refused)
-from .rbgs import _call, _on_cpu
+from .rbgs import _call, _on_cpu, _raw_stream
 
 # kernel launches by wrapper name, counted only where a kernel launches
 LAUNCHES = {"divergence_mac": 0, "correct_project": 0, "interp_faces": 0}
@@ -97,19 +97,33 @@ def div_buffers(like, n0, n1, block=BLOCK):
             like.new_empty(1))
 
 
-def divergence_mac(ufx, ufy, dt, h, *, block=BLOCK):
+# K4's arrival counts by device and stream, 0 between launches (the last
+# block of a launch resets its own)
+_ARRIVALS = {}
+
+
+def _arrival_count(device):
+    stream = _raw_stream(device.index)
+    count = _ARRIVALS.get((device.index, stream))
+    if count is None:
+        count = _ARRIVALS[device.index, stream] = torch.zeros(
+            1, dtype=torch.int32, device=device)
+    return count
+
+
+def divergence_mac(ufx, ufy, dt, h):
     """(div, total): div = MAC divergence / dt, (dx ufx + dy ufy) / (h dt),
-    and its global sum as a one-element tensor.  ``block`` (threads per
-    block, a power-of-two count) changes the sum's association only: div
-    is the same bit for bit."""
+    and its global sum as a one-element tensor, in one launch (the sum
+    over BLOCK's tiles, as K9's)."""
     n0, n1 = ufy.shape[0], ufx.shape[1]
     check_faces(ufx, ufy, n0, n1)
     if _on_cpu(ufx, ufy):
         return divergence_mac_plain(ufx, ufy, dt, h)
-    div, partials, total = div_buffers(ufx, n0, n1, block)
+    div, partials, total = div_buffers(ufx, n0, n1)
     _call("divergence_mac", ufx.dtype, ufx.device, ufx.data_ptr(),
-          ufy.data_ptr(), n0, n1, 1.0 / (dt * h), block[0], block[1],
-          div.data_ptr(), partials.data_ptr(), total.data_ptr())
+          ufy.data_ptr(), n0, n1, 1.0 / (dt * h),
+          div.data_ptr(), partials.data_ptr(), total.data_ptr(),
+          _arrival_count(ufx.device).data_ptr())
     LAUNCHES["divergence_mac"] += 1
     return div, total
 

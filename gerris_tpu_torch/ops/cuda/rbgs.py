@@ -12,19 +12,21 @@ variable-density diffusion), and the fold route's K16
 ``prolong_relax_correct`` (K3 with the projection's correction as its
 epilogue), and the restriction pyramid ``restrict_pyramid`` (every level
 of the cascades' and the 2D corrections' restriction in one launch,
-``restrict2`` its one-level case).  K3, K8c, K17, the cascades' K3
-launches, K10 and K15 share one sweep engine and pick their tile per
-level from the card's shared memory and multiprocessor count (K10 and
-K15 their threads too, and they split their sweeps over launches when
-the halo outgrows shared memory).  K15 also takes the prolongation of a
-coarse correction as its start and adds u to its result, so that an
-alpha correction's upward level is one launch.  The kernels are in
-``gerris_tpu_torch/csrc/rbgs.cu``; each one's source note says what it
-replaces, what bounds it on the H100 and what its design does about it.
-A pair launches the single kernel with a batch of two systems, which
-share the ghost signs and the periodicity and have their own dia, sub
-and ghost offsets; its plain version is the single plain version per
-system.
+``restrict2`` its one-level case) and the block kernel ``coarse_block``
+(K12's levels at and below 64^2, and every cascade's: one launch of a
+block per system, with omega).  K3, K8c, K17, the cascades' K3
+launches above 64^2, K10 and K15 share one sweep engine and pick their
+tile per level from the card's shared memory and multiprocessor count
+(K10 and K15 their threads too, and they split their sweeps over
+launches when the halo outgrows shared memory).  K15 also takes the
+prolongation of a coarse correction as its start and adds u to its
+result, so that an alpha correction's upward level is one launch.  The
+kernels are in ``gerris_tpu_torch/csrc/rbgs.cu``; each one's source note
+says what it replaces, what bounds it on the H100 and what its design
+does about it.  A pair launches the single kernel with a batch of two
+systems, which share the ghost signs and the periodicity and have their
+own dia, sub and ghost offsets; its plain version is the single plain
+version per system.
 
 Each wrapper checks its inputs (dtype float32/float64, contiguous, square
 power-of-two levels) and then:
@@ -47,31 +49,46 @@ import torch
 
 # kernel launches by wrapper name, counted only where a kernel launches.
 # A cascade counts calls of its host-side sequence; the restrict_pyramid,
-# prolong_relax and coarse_block launches it makes are counted apart from
-# the wrappers' own: "cascade.restrict_pyramid" and "cascade.prolong_relax"
-# for K2, "cascade_pair.restrict_pyramid" and "cascade_pair.prolong_relax"
-# for K8b, "coarse_vcycle.restrict_pyramid", "coarse_block" and
-# "coarse_vcycle.prolong_relax" for K12.  "rbgs_relax_alpha.prolong"
+# coarse_block and prolong_relax launches it makes are counted apart from
+# the wrappers' own: "cascade.restrict_pyramid", "cascade.coarse_block"
+# and "cascade.prolong_relax" for K2, the same under "cascade_pair." for
+# K8b, and "coarse_vcycle.restrict_pyramid", "coarse_block" and
+# "coarse_vcycle.prolong_relax" for K12 (whose block launches share the
+# block kernel's own count); the block kernel's wrappers count their
+# pyramids under "coarse_block.restrict_pyramid" and
+# "coarse_block_pair.restrict_pyramid".  "rbgs_relax_alpha.prolong"
 # counts the K15 launches (also counted under "rbgs_relax_alpha") that
 # prolonged a coarse correction at placement.
 LAUNCHES = {"residual_restrict": 0, "restrict2": 0, "restrict_pyramid": 0,
             "restrict_pyramid_pair": 0, "prolong_relax": 0,
             "cascade_prolong_relax": 0, "cascade.restrict_pyramid": 0,
-            "cascade.prolong_relax": 0, "residual_restrict_pair": 0,
-            "prolong_relax_pair": 0, "cascade_prolong_relax_pair": 0,
+            "cascade.coarse_block": 0, "cascade.prolong_relax": 0,
+            "residual_restrict_pair": 0, "prolong_relax_pair": 0,
+            "cascade_prolong_relax_pair": 0,
             "cascade_pair.restrict_pyramid": 0,
+            "cascade_pair.coarse_block": 0,
             "cascade_pair.prolong_relax": 0, "residual": 0,
             "rbgs_relax": 0, "coarse_vcycle": 0,
             "coarse_vcycle.restrict_pyramid": 0, "coarse_block": 0,
-            "coarse_vcycle.prolong_relax": 0, "residual_restrict_div": 0,
-            "prolong_relax_correct": 0, "rbgs_relax_alpha": 0,
-            "rbgs_relax_alpha.prolong": 0}
+            "coarse_block_pair": 0, "coarse_vcycle.prolong_relax": 0,
+            "coarse_block.restrict_pyramid": 0,
+            "coarse_block_pair.restrict_pyramid": 0,
+            "residual_restrict_div": 0, "prolong_relax_correct": 0,
+            "rbgs_relax_alpha": 0, "rbgs_relax_alpha.prolong": 0}
 
 _SMEM_MAX = 232448        # dynamic shared memory a block may use on sm_90
 MAX_BATCH = 2             # systems in one launch (csrc/rbgs.cu)
 _HOMOGENEOUS = (0.0, 0.0, 0.0, 0.0)
-# K12's block kernel holds levels of at most this many cells per side
+# the block kernel (coarse_block) holds levels of at most this many cells
+# per side: K12's levels and every cascade's at and below this size are
+# one launch of it
 COARSE_BLOCK_MAX = 64
+# the warps (of its 16) that sweep its levels of 16^2 and below and its
+# 32^2 level (the times per choice on an H100: PERF.md), and the launch
+# shapes that a test may ask for instead (``warps``, test-only: the
+# launch geometry changes, the result is bit-identical)
+CB_WARPS = (4, 8)
+CB_WARPS_SHAPES = (CB_WARPS, (1, 4), (8, 4), (4, 16), (16, 16))
 
 
 def reset_launch_counts():
@@ -196,21 +213,38 @@ def rbgs_relax_alpha_plain(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
     return u if add is None else u + add
 
 
-def coarse_vcycle_plain(r, dia=0.0, *, nsweeps, coarsest, h2, signs,
-                        per_y=False, min_n=16):
-    """The ladder of tests/test_mgfuse.py: restrict r down to min(min_n,
-    n), ``coarsest`` sweeps from zero there, then prolong + ``nsweeps``
-    sweeps (omega 1) at each level up to r's; h2 is r's level's."""
-    n = r.shape[0]
-    rs = [r]
-    while rs[-1].shape[0] > min(min_n, n):
-        rs.append(pool_plain(rs[-1]))
+def coarse_tail_plain(rs, dia=0.0, *, nsweeps, coarsest, h2, signs,
+                      per_y=False, omega=1.0):
+    """The block kernel's function, a cascade's coarse tail: given each
+    level's rhs ``rs``, finest first (each half the side of the one
+    before), du = 0 and ``coarsest`` sweeps at the coarsest level, then
+    prolong + ``nsweeps`` sweeps at each level up to rs[0]'s, whose du it
+    returns; h2 is rs[0]'s level's."""
+    n = rs[0].shape[0]
     du = None
     for rk in reversed(rs):
         du = prolong_relax_plain(
             du, rk, dia, nsweeps=coarsest if du is None else nsweeps,
-            h2=h2 * (n // rk.shape[0]) ** 2, signs=signs, per_y=per_y)
+            h2=h2 * (n // rk.shape[0]) ** 2, signs=signs, per_y=per_y,
+            omega=omega)
     return du
+
+
+def _tail_levels(n, min_n):
+    """The levels below an n^2 level down to min(min_n, n)^2."""
+    return (n // min(min_n, n)).bit_length() - 1
+
+
+def coarse_vcycle_plain(r, dia=0.0, *, nsweeps, coarsest, h2, signs,
+                        per_y=False, min_n=16, omega=1.0):
+    """The ladder of tests/test_mgfuse.py: restrict r down to min(min_n,
+    n), ``coarsest`` sweeps from zero there, then prolong + ``nsweeps``
+    sweeps at each level up to r's (K12's omega is 1); h2 is r's
+    level's."""
+    return coarse_tail_plain(
+        [r] + pyramid_plain(r, _tail_levels(r.shape[0], min_n)), dia,
+        nsweeps=nsweeps, coarsest=coarsest, h2=h2, signs=signs, per_y=per_y,
+        omega=omega)
 
 
 def residual_restrict_plain(u, rhs, dia=0.0, sub=0.0, *, h2, signs,
@@ -273,11 +307,15 @@ def cascade_prolong_relax_plain(r1, r2, dia=0.0, *, nsweeps, coarsest,
                                 min_n=16):
     return _cascade([r1], [r2], [dia], nsweeps, coarsest, h2_half, signs,
                     per_y, omega, min_n, _pyramids_plain,
-                    _each(prolong_relax_plain))[0]
+                    _tails_plain, _each(prolong_relax_plain))[0]
 
 
 def _pyramids_plain(rs, levels):
     return [pyramid_plain(r, levels) for r in rs]
+
+
+def _tails_plain(levels, dias, **kw):
+    return [coarse_tail_plain(lv, d, **kw) for lv, d in zip(levels, dias)]
 
 
 def _each(fn):
@@ -318,29 +356,35 @@ def cascade_prolong_relax_pair_plain(r1s, r2s, dias, *, nsweeps, coarsest,
 
 
 def _cascade(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs, per_y,
-             omega, min_n, pyramid, prolong_relax_fn):
+             omega, min_n, pyramid, tail, prolong_relax_fn):
     """Every correction level at or below n/2 = r1.shape[0] of each
     system: restrict r2 down to min(min_n, n/4), ``coarsest`` sweeps from
     zero there, then prolong + ``nsweeps`` sweeps at each level up to
     n/2.  At level size m the cell size squared is h2_half * (n/2 / m)**2.
     Lists over the systems in and out: ``pyramid(rs, levels)`` returns
-    each system's levels, and ``prolong_relax_fn(coarses, rhss, dias,
-    **kw)`` takes and returns lists."""
+    each system's levels; ``tail(levels, dias, **kw)`` takes each
+    system's levels at and below COARSE_BLOCK_MAX cells per side (finest
+    first, h2 the finest's) and returns each system's du at the finest of
+    them; ``prolong_relax_fn(coarses, rhss, dias, **kw)`` runs each level
+    above."""
     n_half = r1s[0].shape[0]
     min_n = min(min_n, n_half // 2)
     levels = (n_half // 2 // min_n).bit_length() - 1
     pyr = pyramid(r2s, levels) if levels else [[] for _ in r2s]
-    # the levels by size, each a list over the systems
-    rs = [list(r2s)] + [list(lv) for lv in zip(*pyr)]
+    # each system's levels, finest first, and the first of the tail
+    lvs = [[r1, r2] + list(p) for r1, r2, p in zip(r1s, r2s, pyr)]
+    top = next(k for k, r in enumerate(lvs[0])
+               if r.shape[0] <= COARSE_BLOCK_MAX)
     kw = dict(signs=signs, per_y=per_y, omega=omega)
-    du = prolong_relax_fn([None] * len(dias), rs[-1], dias,
-                          nsweeps=coarsest,
-                          h2=h2_half * (n_half // min_n) ** 2, **kw)
-    for rk in reversed(rs[:-1]):
+    du = tail([lv[top:] for lv in lvs], dias, nsweeps=nsweeps,
+              coarsest=coarsest,
+              h2=h2_half * (n_half // lvs[0][top].shape[0]) ** 2, **kw)
+    for k in reversed(range(top)):
+        rk = [lv[k] for lv in lvs]
         du = prolong_relax_fn(du, rk, dias, nsweeps=nsweeps,
                               h2=h2_half * (n_half // rk[0].shape[0]) ** 2,
                               **kw)
-    return prolong_relax_fn(du, r1s, dias, nsweeps=nsweeps, h2=h2_half, **kw)
+    return du
 
 
 # -----------------------------------------------------------------------------
@@ -777,14 +821,20 @@ def prolong_relax_correct(coarse, rhs, dia, u, ufx, ufy, dt, h, cells=None,
 def _cascade_cuda(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs, per_y,
                   omega, min_n, counter):
     """The cascade on the card: one restrict_pyramid launch down to
-    min(min_n, n/4), then prolong_relax launches (the coarsest from zero
-    with ``coarsest`` sweeps), each over the whole batch of systems,
-    counted under ``counter``.restrict_pyramid and .prolong_relax.  The
+    min(min_n, n/4), one coarse_block launch for the levels at and below
+    COARSE_BLOCK_MAX (from zero with ``coarsest`` sweeps at the coarsest;
+    the whole cascade when n/2 is that small), then prolong_relax
+    launches, each over the whole batch of systems, counted under
+    ``counter``.restrict_pyramid, .coarse_block and .prolong_relax.  The
     TPU kernels ran this in one launch with the sub-cascade carried
     across grid steps in VMEM; blocks of a GPU grid carry nothing, so the
     sequence runs from the host."""
     def pyramid(rs, levels):
         return _pyramid_cuda(rs, levels, counter + ".restrict_pyramid", True)
+
+    def tail(levels, ds, *, nsweeps, coarsest, h2, signs, per_y, omega):
+        return _coarse_block_cuda(levels, ds, nsweeps, coarsest, h2, signs,
+                                  per_y, omega, counter + ".coarse_block")
 
     def launch(coarses, rhss, ds, *, nsweeps, h2, signs, per_y, omega):
         return _prolong_relax_cuda(coarses, rhss, ds, [None] * len(ds),
@@ -792,7 +842,12 @@ def _cascade_cuda(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs, per_y,
                                    64, counter + ".prolong_relax")
 
     return _cascade(r1s, r2s, dias, nsweeps, coarsest, h2_half, signs,
-                    per_y, omega, min_n, pyramid, launch)
+                    per_y, omega, min_n, pyramid, tail, launch)
+
+
+def _check_min_n(min_n):
+    if not 2 <= min_n <= 16:
+        raise ValueError(f"cascade: min_n {min_n}, want 2 to 16")
 
 
 def cascade_prolong_relax(r1, r2, dia=0.0, *, nsweeps, coarsest, h2_half,
@@ -801,6 +856,7 @@ def cascade_prolong_relax(r1, r2, dia=0.0, *, nsweeps, coarsest, h2_half,
     plain (n/2, n/2) du (no rep layout)."""
     _check_level(r1, "r1", min_n=32)
     _check_level(r2, "r2", r1.shape[0] // 2)
+    _check_min_n(min_n)
     if _on_cpu(r1, r2):
         return cascade_prolong_relax_plain(
             r1, r2, dia, nsweeps=nsweeps, coarsest=coarsest,
@@ -821,6 +877,7 @@ def cascade_prolong_relax_pair(r1s, r2s, dias, *, nsweeps, coarsest,
     for b in range(2):
         _check_level(r1s[b], f"r1s[{b}]", r1s[0].shape[0], min_n=32)
         _check_level(r2s[b], f"r2s[{b}]", r1s[0].shape[0] // 2)
+    _check_min_n(min_n)
     if _on_cpu(*r1s, *r2s):
         return cascade_prolong_relax_pair_plain(
             r1s, r2s, dias, nsweeps=nsweeps, coarsest=coarsest,
@@ -1007,47 +1064,109 @@ def rbgs_relax_alpha(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
             return src
 
 
-def _check_coarse(r, min_n):
-    _check_level(r, "r", min_n=2)
-    if min(min_n, r.shape[0]) > COARSE_BLOCK_MAX:
-        raise ValueError(f"coarse_vcycle: min_n {min_n} above the block "
-                         f"kernel's {COARSE_BLOCK_MAX}")
+def _check_coarse(r, min_n, name="r", n=None):
+    _check_level(r, name, n, min_n=2)
+    if not 2 <= min(min_n, r.shape[0]) <= COARSE_BLOCK_MAX:
+        raise ValueError(f"coarse_vcycle: min_n {min_n}, want 2 to "
+                         f"{COARSE_BLOCK_MAX}")
 
 
-def _coarse_block_cuda(r, dia, nsweeps, coarsest, h2, signs, per_y, min_n):
-    n = r.shape[0]
-    du = torch.empty_like(r)
-    _call("coarse_block", r.dtype, r.device, r.data_ptr(), du.data_ptr(), n,
-          min(min_n, n), int(nsweeps), int(coarsest), float(dia), float(h2),
-          doubles(*signs), int(per_y))
-    LAUNCHES["coarse_block"] += 1
-    return du
+def _coarse_block_cuda(levels, dias, nsweeps, coarsest, h2, signs, per_y,
+                       omega, counter, fused=False, warps=None):
+    """One coarse_block launch, a block per system: ``levels`` holds each
+    system's levels' rhs, finest first, the finest (at most
+    COARSE_BLOCK_MAX per side) with h2 ``h2``.  Returns each system's du
+    at the finest level.  ``fused``: each level's 1 / (4 + dia h2) formed
+    with one rounding of dia h2 + 4, as K12's block kernel did before the
+    cascades took it (K12's route); else as K3's launches form it."""
+    top = levels[0][0]
+    n = top.shape[0]
+    if n > COARSE_BLOCK_MAX or n >> (len(levels[0]) - 1) < 2:
+        raise ValueError(f"coarse_block: levels {n}^2 to "
+                         f"{n >> (len(levels[0]) - 1)}^2, want at most "
+                         f"{COARSE_BLOCK_MAX}^2 down to at least 2^2")
+    warps = _check_warps(warps)
+    dus = [torch.empty_like(lv[0]) for lv in levels]
+    _call("coarse_block", top.dtype, top.device, len(levels),
+          pointers(*levels, dus), doubles(*dias), n, len(levels[0]),
+          int(nsweeps), int(coarsest), float(h2), float(omega),
+          doubles(*signs), int(per_y), int(fused), *warps)
+    LAUNCHES[counter] += 1
+    return dus
+
+
+def _check_warps(warps):
+    warps = tuple(warps or CB_WARPS)
+    if warps not in CB_WARPS_SHAPES:
+        raise ValueError(f"coarse_block: warps {warps} (16^2 and below, "
+                         f"32^2), want one of {CB_WARPS_SHAPES}")
+    return warps
+
+
+def _with_pyramid(rs, min_n, counter):
+    """Each system's levels, finest first: its r and, by one
+    restrict_pyramid launch over the systems, its levels down to
+    min(min_n, n)."""
+    levels = _tail_levels(rs[0].shape[0], min_n)
+    if not levels:
+        return [[r] for r in rs]
+    return [[r] + lv for r, lv in zip(rs, _pyramid_cuda(rs, levels, counter,
+                                                          True))]
 
 
 def coarse_block(r, dia=0.0, *, nsweeps, coarsest, h2, signs, per_y=False,
-                 min_n=16):
-    """K12's block kernel alone: coarse_vcycle of a level of at most
-    COARSE_BLOCK_MAX cells per side, in one launch of one block."""
+                 min_n=16, omega=1.0, warps=None):
+    """The block kernel alone (K12's route): coarse_vcycle of a level of at
+    most COARSE_BLOCK_MAX cells per side, its levels down to min(min_n,
+    n) from one restrict_pyramid launch, then one launch of one block.
+    ``warps`` (test-only, one of CB_WARPS_SHAPES) overrides the launch's
+    (CB_WARPS)."""
     _check_coarse(r, min_n)
+    _check_warps(warps)
     if r.shape[0] > COARSE_BLOCK_MAX:
         raise ValueError(f"coarse_block: {r.shape[0]}^2 above "
                          f"{COARSE_BLOCK_MAX}^2")
     if _on_cpu(r):
         return coarse_vcycle_plain(r, dia, nsweeps=nsweeps, coarsest=coarsest,
                                    h2=h2, signs=signs, per_y=per_y,
-                                   min_n=min_n)
-    return _coarse_block_cuda(r, dia, nsweeps, coarsest, h2, signs, per_y,
-                              min_n)
+                                   min_n=min_n, omega=omega)
+    return _coarse_block_cuda(
+        _with_pyramid([r], min_n, "coarse_block.restrict_pyramid"), [dia],
+        nsweeps, coarsest, h2, signs, per_y, omega, "coarse_block", True,
+        warps)[0]
+
+
+def coarse_block_pair(rs, dias, *, nsweeps, coarsest, h2, signs,
+                      per_y=False, min_n=16, omega=1.0, warps=None):
+    """coarse_block for the two systems of a pair, each with its own
+    ``dia``: one pair pyramid, one launch of two blocks; [du_0, du_1]."""
+    _check_pair(rs, dias)
+    for b in range(2):
+        _check_coarse(rs[b], min_n, f"rs[{b}]", rs[0].shape[0])
+    _check_warps(warps)
+    if rs[0].shape[0] > COARSE_BLOCK_MAX:
+        raise ValueError(f"coarse_block_pair: {rs[0].shape[0]}^2 above "
+                         f"{COARSE_BLOCK_MAX}^2")
+    if _on_cpu(*rs):
+        return [coarse_vcycle_plain(r, d, nsweeps=nsweeps, coarsest=coarsest,
+                                    h2=h2, signs=signs, per_y=per_y,
+                                    min_n=min_n, omega=omega)
+                for r, d in zip(rs, dias)]
+    return _coarse_block_cuda(
+        _with_pyramid(rs, min_n, "coarse_block_pair.restrict_pyramid"), dias,
+        nsweeps, coarsest, h2, signs, per_y, omega, "coarse_block_pair", True,
+        warps)
 
 
 def coarse_vcycle(r, dia=0.0, *, nsweeps, coarsest, h2, signs, per_y=False,
                   min_n=16):
     """K12: du for the sub-hierarchy at and below r's level (homogeneous
     ghosts, non-periodic rows, omega 1; ``h2`` is r's level's).  On the
-    card the levels above COARSE_BLOCK_MAX are one restrict_pyramid launch
-    down and K3 launches up around one coarse_block launch (1 + 1 + 3
-    launches at 512^2): a TPU kernel held the whole cascade in one launch,
-    and a 512^2 level does not fit one block's shared memory."""
+    card: one restrict_pyramid launch down to min_n, one coarse_block
+    launch for the levels at and below COARSE_BLOCK_MAX and K3 launches
+    up from there (1 + 1 + 3 launches at 512^2; 1 + 1 at most that
+    size).  A TPU kernel held the whole cascade in one launch, and a
+    512^2 level does not fit one block's shared memory."""
     _check_coarse(r, min_n)
     if _on_cpu(r):
         return coarse_vcycle_plain(r, dia, nsweeps=nsweeps, coarsest=coarsest,
@@ -1055,13 +1174,12 @@ def coarse_vcycle(r, dia=0.0, *, nsweeps, coarsest, h2, signs, per_y=False,
                                    min_n=min_n)
     LAUNCHES["coarse_vcycle"] += 1
     n = r.shape[0]
-    levels = max(n // COARSE_BLOCK_MAX, 1).bit_length() - 1
-    rs = [r] + (_pyramid_cuda([r], levels, "coarse_vcycle.restrict_pyramid",
-                              True)[0] if levels else [])
-    du = _coarse_block_cuda(rs[-1], dia, nsweeps, coarsest,
-                            h2 * (n // rs[-1].shape[0]) ** 2, signs, per_y,
-                            min_n)
-    for rk in reversed(rs[:-1]):
+    rs = _with_pyramid([r], min_n, "coarse_vcycle.restrict_pyramid")[0]
+    top = next(k for k, x in enumerate(rs) if x.shape[0] <= COARSE_BLOCK_MAX)
+    du = _coarse_block_cuda([rs[top:]], [dia], nsweeps, coarsest,
+                            h2 * (n // rs[top].shape[0]) ** 2, signs, per_y,
+                            1.0, "coarse_block", True)[0]
+    for rk in reversed(rs[:top]):
         du = _prolong_relax_cuda([du], [rk], [dia], [None], nsweeps,
                                  h2 * (n // rk.shape[0]) ** 2, signs, per_y,
                                  1.0, None, 64,

@@ -6,7 +6,8 @@ device (the CPU test run).  On a machine with a card:
 Tolerances: float64 1e-12 and float32 1e-5 (1e-4 for the cascade, whose
 40 coarsest sweeps accumulate rounding, as K12's do) of max|plain|, and
 of sum|div| for a divergence's total; tiled and whole-level K3 and K10
-launches are bit-identical, and so are K4's div across block shapes and
+launches are bit-identical, and so are K4's div across sum tiles (its
+total bit for bit the two-pass sum's association, in one launch) and
 K11's residual against K1's r0, K3, K8c and K17 across tiles, and the
 restriction pyramid against the chain of restrict2 launches it
 replaces; K6, K7 and K14 across their tile plans, K7 against two K14
@@ -24,7 +25,10 @@ every periodicity, dia mode and level size of a two-phase correction,
 from a given u and with the coarse correction's prolongation folded in
 (+ u), bit-identical across tiles, threads and sweep splits, and three
 two-phase steps on the card to the same steps on the CPU.  K10 likewise
-at 2048^2.
+at 2048^2.  The block kernel is held to its plain version at every level
+count, omega, periodicity and batch, bit-identical across its launch
+shapes, and each cascade's tail in it bit for bit the K3 launches it
+replaces.
 """
 import pytest
 
@@ -171,13 +175,15 @@ def test_cascade_and_restrict_kernels(dev, dtype):
               signs=SIGNS_LID, omega=1.5)
     rbgs.reset_launch_counts()
     got = rbgs.cascade_prolong_relax(r1, r2, 0.0, **kw)
-    # 128 -> 64 -> 32 -> 16: one pyramid of three levels, then 16 (from
-    # zero), 32, 64, 128 and the n/2 level
+    # 128 -> 64 -> 32 -> 16: one pyramid of three levels, then one block
+    # launch for 16 (from zero), 32 and 64, then 128 and the n/2 level
     assert rbgs.LAUNCHES["cascade_prolong_relax"] == 1
     assert rbgs.LAUNCHES["cascade.restrict_pyramid"] == 1
     assert rbgs.LAUNCHES["restrict2"] == 0
-    assert rbgs.LAUNCHES["cascade.prolong_relax"] == 5
+    assert rbgs.LAUNCHES["cascade.coarse_block"] == 1
+    assert rbgs.LAUNCHES["cascade.prolong_relax"] == 2
     assert rbgs.LAUNCHES["prolong_relax"] == 0
+    assert rbgs.LAUNCHES["coarse_block"] == 0
     ref = rbgs.cascade_prolong_relax_plain(r1, r2, 0.0, **kw)
     bound = 1e-4 if dtype == torch.float32 else 1e-12
     assert _rel(got, ref) <= bound
@@ -275,12 +281,68 @@ def test_divergence_mac_kernel(dev, dtype, grid):
     assert projops.LAUNCHES["divergence_mac"] == 1
     _check_div(got, projops.divergence_mac_plain(ufx, ufy, 0.01, grid.h),
                dtype)
-    # another block shape: the same div bit for bit, the same total in
-    # every run of one shape
-    other = projops.divergence_mac(ufx, ufy, 0.01, grid.h, block=(16, 16))
-    assert torch.equal(other[0], got[0])
-    again = projops.divergence_mac(ufx, ufy, 0.01, grid.h, block=(16, 16))
-    assert torch.equal(again[1], other[1])
+    # the same div and total in every run
+    again = projops.divergence_mac(ufx, ufy, 0.01, grid.h)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def _two_pass_total(div, bx, by):
+    """The total of the two-pass sum that K4 replaced, in its association:
+    a tree over each bx x by tile's flattened cells (cells outside the
+    grid 0), then 1024 strided accumulators over the tiles' partials and
+    their tree."""
+    n0, n1 = div.shape
+    ty, tx = -(-n0 // by), -(-n1 // bx)
+    pad = div.new_zeros((ty * by, tx * bx))
+    pad[:n0, :n1] = div
+    red = pad.view(ty, by, tx, bx).permute(0, 2, 1, 3).reshape(ty * tx, -1)
+    s = red.shape[1] // 2
+    while s:
+        red = red[:, :s] + red[:, s:2 * s]
+        s //= 2
+    parts = red[:, 0]
+    acc = div.new_zeros(1024)
+    for k in range(0, parts.numel(), 1024):
+        chunk = parts[k:k + 1024]
+        acc[:chunk.numel()] = acc[:chunk.numel()] + chunk
+    while acc.numel() > 1:
+        acc = acc[:acc.numel() // 2] + acc[acc.numel() // 2:]
+    return acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(2048, 2048), (72, 100), (100, 72),
+                                   (1, 1), (9, 130)])
+def test_divergence_mac_one_launch(dev, dtype, shape):
+    """K4 in one launch: div bit for bit its plain version's, total bit for
+    bit the two-pass sum's association over BLOCK's tiles, twice (the
+    last block resets the arrival count), and one device kernel per
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n0, n1 = shape
+    ufx, ufy = _rnd(dev, dtype, 71, (n0 + 1, n1), (n0, n1 + 1))
+    ref = projops.divergence_mac_plain(ufx, ufy, 0.01, 1.0 / n1)
+    for _ in range(2):
+        div, total = projops.divergence_mac(ufx, ufy, 0.01, 1.0 / n1)
+        assert torch.equal(div, ref[0])
+        assert torch.equal(total, _two_pass_total(div, *projops.BLOCK))
+    assert float((total - ref[1]).abs()) <= \
+        BOUND[dtype] * float(ref[0].abs().sum())
+    # the profiler at times records no device event of a short run (seen
+    # on an H100): an empty trace shows nothing, so take the first of
+    # three that holds any
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            projops.divergence_mac(ufx, ufy, 0.01, 1.0 / n1)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert [e.count for e in kernels] == [1]
+    assert "divergence_mac_kernel" in kernels[0].key
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -544,12 +606,13 @@ def test_pair_multigrid_kernels(dev, dtype):
     for b in range(2):
         assert torch.equal(out[b], rbgs.prolong_relax(du[b], rr[0][b],
                                                       dias[b], us[b], **pkw))
-    # r2 64 -> 32 -> 16: one pair pyramid of two levels, then 16 (from
-    # zero), 32, 64 and the n/2 = 128 level
+    # r2 64 -> 32 -> 16: one pair pyramid of two levels, then one block
+    # launch for 16 (from zero), 32 and 64, then the n/2 = 128 level
     assert rbgs.LAUNCHES["residual_restrict_pair"] == 1
     assert rbgs.LAUNCHES["cascade_prolong_relax_pair"] == 1
     assert rbgs.LAUNCHES["cascade_pair.restrict_pyramid"] == 1
-    assert rbgs.LAUNCHES["cascade_pair.prolong_relax"] == 4
+    assert rbgs.LAUNCHES["cascade_pair.coarse_block"] == 1
+    assert rbgs.LAUNCHES["cascade_pair.prolong_relax"] == 1
     assert rbgs.LAUNCHES["prolong_relax_pair"] == 1
 
 
@@ -673,9 +736,10 @@ def test_rbgs_relax_tile_invariance(dev, periodic):
 @pytest.mark.parametrize("per_y", [False, True])
 def test_coarse_vcycle_kernel(dev, dtype, n, per_y):
     """K12 against its plain ladder: 1 + 1 + 3 launches at 512^2 (one
-    pyramid of three levels), the block kernel alone at 64^2 and below.
-    Its 40 coarsest sweeps accumulate float32 rounding, as K2's do
-    (1e-4)."""
+    pyramid down to 16^2, the block kernel for 64^2 .. 16^2), the pyramid
+    and the block kernel at 128^2 and 64^2 (and K3 at 128^2), the block
+    kernel alone at 16^2.  Its 40 coarsest sweeps accumulate float32
+    rounding, as K2's do (1e-4)."""
     (r,) = _rnd(dev, dtype, 25, (n, n))
     signs = (-1.0, 1.0, 1.0, 1.0) if per_y else SIGNS_LID
     kw = dict(nsweeps=5, coarsest=40, h2=1.0 / n ** 2, signs=signs,
@@ -683,12 +747,113 @@ def test_coarse_vcycle_kernel(dev, dtype, n, per_y):
     rbgs.reset_launch_counts()
     got = rbgs.coarse_vcycle(r, 0.4, **kw)
     levels = {512: 3, 128: 1}.get(n, 0)
-    assert rbgs.LAUNCHES["coarse_vcycle.restrict_pyramid"] == \
-        int(levels > 0)
+    assert rbgs.LAUNCHES["coarse_vcycle.restrict_pyramid"] == int(n > 16)
     assert rbgs.LAUNCHES["coarse_block"] == 1
     assert rbgs.LAUNCHES["coarse_vcycle.prolong_relax"] == levels
     bound = 1e-12 if dtype == torch.float64 else 1e-4
     assert _rel(got, rbgs.coarse_vcycle_plain(r, 0.4, **kw)) <= bound
+
+
+# --- the block kernel: K12's, and every cascade's coarse tail
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [16, 32, 64])
+@pytest.mark.parametrize("min_n", [2, 4, 8, 16])
+@pytest.mark.parametrize("omega", [1.0, 1.5])
+def test_coarse_block_kernel(dev, dtype, n, min_n, omega):
+    """The block kernel alone and as a pair (two dias) against its plain
+    version, periodic columns or not: its levels down to min(min_n, n)
+    from one pyramid launch, 40 sweeps there, 5 per level above; the
+    pair's systems each bit for bit its single launch."""
+    r, r2 = _rnd(dev, dtype, 80 + n + min_n, (n, n), (n, n))
+    bound = 1e-12 if dtype == torch.float64 else 1e-4
+    for per_y in (False, True):
+        signs = (1.0, -1.0, 1.0, 1.0) if per_y else (-1.0, 1.0, -1.0, 1.0)
+        kw = dict(nsweeps=5, coarsest=40, h2=1.0 / n ** 2, signs=signs,
+                  per_y=per_y, min_n=min_n, omega=omega)
+        rbgs.reset_launch_counts()
+        one = rbgs.coarse_block(r, 0.3, **kw)
+        pair = rbgs.coarse_block_pair([r, r2], [0.3, 2.0], **kw)
+        assert rbgs.LAUNCHES["coarse_block"] == 1
+        assert rbgs.LAUNCHES["coarse_block_pair"] == 1
+        pyramid = int(n > min_n)
+        assert rbgs.LAUNCHES["coarse_block.restrict_pyramid"] == pyramid
+        assert rbgs.LAUNCHES["coarse_block_pair.restrict_pyramid"] == pyramid
+        assert torch.equal(pair[0], one)
+        assert _rel(one, rbgs.coarse_vcycle_plain(r, 0.3, **kw)) <= bound
+        assert _rel(pair[1], rbgs.coarse_vcycle_plain(r2, 2.0, **kw)) <= \
+            bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coarse_block_launch_shapes(dev, dtype):
+    """Bit-identical for every launch shape a test may ask for (warps at
+    16^2 and below and at 32^2: the launch geometry only)."""
+    r, r2 = _rnd(dev, dtype, 90, (64, 64), (64, 64))
+    kw = dict(nsweeps=5, coarsest=40, h2=1.0 / 64 ** 2,
+              signs=(-1.0, -1.0, 1.0, -1.0), omega=1.5, min_n=4)
+    want = rbgs.coarse_block_pair([r, r2], [0.0, 1.0], **kw)
+    for warps in rbgs.CB_WARPS_SHAPES:
+        got = rbgs.coarse_block_pair([r, r2], [0.0, 1.0], warps=warps, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _cascade_by_k3(r1s, r2s, dias, *, nsweeps, coarsest, h2_half, signs,
+                   per_y, omega, min_n):
+    """A cascade as the K3 launches before the block kernel ran it: one
+    pyramid, then K3 from zero at the coarsest level and prolong + relax
+    at each level up to n/2, all through the public wrappers."""
+    pair = len(r1s) == 2
+    n_half = r1s[0].shape[0]
+    m = min(min_n, n_half // 2)
+    levels = (n_half // 2 // m).bit_length() - 1
+    pyr = [[] for _ in r2s]
+    if levels:
+        pyr = (rbgs.restrict_pyramid_pair(r2s, levels) if pair
+               else [rbgs.restrict_pyramid(r2s[0], levels)])
+    lvs = [[r1, r2] + list(p) for r1, r2, p in zip(r1s, r2s, pyr)]
+    kw = dict(signs=signs, per_y=per_y, omega=omega)
+    du = [None] * len(r1s)
+    for k in reversed(range(len(lvs[0]))):
+        rk = [lv[k] for lv in lvs]
+        h2 = h2_half * (n_half // rk[0].shape[0]) ** 2
+        nsw = coarsest if du[0] is None else nsweeps
+        du = (rbgs.prolong_relax_pair(du, rk, dias, [None, None],
+                                      nsweeps=nsw, h2=h2, **kw) if pair
+              else [rbgs.prolong_relax(du[0], rk[0], dias[0], nsweeps=nsw,
+                                       h2=h2, **kw)])
+    return du
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_half", [32, 64, 512])
+@pytest.mark.parametrize("nsweeps,omega,min_n", [(5, 1.5, 16), (1, 1.0, 16),
+                                                 (5, 1.5, 2), (2, 1.2, 4)])
+@pytest.mark.parametrize("per_y", [False, True])
+def test_cascade_tail_is_the_k3_launches(dev, dtype, n_half, nsweeps, omega,
+                                         min_n, per_y):
+    """K2 and K8b with their levels at and below 64^2 in one block launch,
+    bit for bit the sequence of K3 launches they replace, single and pair
+    (two dias); one block launch per cascade."""
+    r1s = _rnd(dev, dtype, 95 + n_half, (n_half, n_half), (n_half, n_half))
+    r2s = _rnd(dev, dtype, 96 + n_half, (n_half // 2, n_half // 2),
+               (n_half // 2, n_half // 2))
+    signs = (1.0, -1.0, 1.0, 1.0) if per_y else SIGNS_LID
+    kw = dict(nsweeps=nsweeps, coarsest=40, h2_half=1.0 / n_half ** 2,
+              signs=signs, per_y=per_y, omega=omega, min_n=min_n)
+    dias = [0.0, 3.0]
+    rbgs.reset_launch_counts()
+    one = rbgs.cascade_prolong_relax(r1s[0], r2s[0], 0.7, **kw)
+    pair = rbgs.cascade_prolong_relax_pair(r1s, r2s, dias, **kw)
+    above = max(n_half // 64, 1).bit_length() - 1
+    for route in ("cascade", "cascade_pair"):
+        assert rbgs.LAUNCHES[f"{route}.coarse_block"] == 1
+        assert rbgs.LAUNCHES[f"{route}.prolong_relax"] == above
+    assert torch.equal(one, _cascade_by_k3([r1s[0]], [r2s[0]], [0.7],
+                                           **kw)[0])
+    assert all(torch.equal(a, b) for a, b in
+               zip(pair, _cascade_by_k3(r1s, r2s, dias, **kw)))
 
 
 @pytest.mark.parametrize("dtype,kind", [(torch.float64, "lid"),

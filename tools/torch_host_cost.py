@@ -2,12 +2,17 @@
 """Host and device cost of the port's multigrid wrappers, and the bench's
 2048^2 lid step, for one checkout of gerris_tpu_torch on a card.
 
-    python3 tools/torch_host_cost.py [ROOT]
+    python3 tools/torch_host_cost.py [ROOT] [--digests | --warps]
 
 ROOT is the checkout to measure (default: the one holding this script);
 its gerris_tpu_torch and chip_smoke.py are imported, its kernels built.
 To compare two commits, unpack one into a directory that .gitignore
 lists (git archive) and run the script on both in one session, in turns.
+With ``--digests`` it prints the card and the digests only; with
+``--warps`` the card and the block kernel's device time per launch at
+the main path's two cascade tails (chip_smoke.main_tails) for each of
+its launch shapes (rbgs.CB_WARPS_SHAPES: warps at 16^2 and below x
+warps at 32^2), where the checkout has them.
 
 Prints one JSON line, float32 throughout:
 * per wrapper, ``host_us``: time.perf_counter over 1000 calls with no
@@ -34,17 +39,31 @@ Prints one JSON line, float32 throughout:
   where K13 takes it, else poisson.prolong, K13 and the sum; walls and
   Neumann) on fixed inputs, float32 and float64, and of chip_smoke's
   twophase state after init + 5 steps and lid3d's U, V, W, P after init
-  + 5 steps, to hold two checkouts bit for bit;
-* ``device_us``: torch.profiler's device time per call of K1 at 2048^2
-  and of K13 at each level of a lid3d projection's correction (32^3,
+  + 5 steps, to hold two checkouts bit for bit; of K4 (div and total,
+  2048^2 and a ragged 100 x 72 grid), of the block kernel's function
+  where both checkouts compute it (a cascade at n/2 = 64, omega 1.5 and
+  per_y, single and as a pair with two dias: the whole cascade is its
+  tail; K12 with dia 3 at 512^2 and its 64^2 block alone) and of the
+  2048^2 main path's U, V, P after init + 5 steps (``main_5``);
+* ``device_us``: torch.profiler's device time per call of K1 and K4 at
+  2048^2, of K12 at 512^2 (``coarse_vcycle``: the pyramid, the block
+  kernel and the K3 launches above 64^2, counted together) and of its
+  block route alone (``coarse_block``, 64^2, 5 sweeps, 40 coarsest at
+  16^2: where the block kernel restricts in the block, one launch, else
+  one pyramid launch and the block kernel), of a cascade's tail as the main path runs it
+  (its levels 64^2 to 16^2: K2's 5 sweeps at omega 1.5, K8b's pair at 1
+  sweep; the parent's three K3 launches counted together), and of K13
+  at each level of a lid3d projection's correction (32^3,
   64^3, 128^3: 4 sweeps at omega 1.5, Neumann, the coarser correction
   prolonged, + u at 128^3; the parent's prolongation, K13 and add
   counted together);
 * ``step_ms``: the lid step of chip_smoke.lid_cfg(11) (the bench's
   route), the median of five 20-step windows closed by a synchronize,
   after init and 20 steps;
-* ``twophase``, ``adaptive_relax`` and ``lid3d``: chip_smoke's twophase
-  step (1024^2), adaptive_relax step (2048^2) and lid3d step (128^3),
+* ``main``, ``twophase``, ``adaptive_relax``, ``adaptive`` and ``lid3d``:
+  chip_smoke's main path step (2048^2, the bench's route), twophase
+  step (1024^2), adaptive_relax and adaptive steps (2048^2) and lid3d
+  step (128^3),
   ms/step as the median of three timed windows after init and a few
   steps, and from torch.profiler over a few more steps the device
   ms/step, the device ops per step and, for twophase and lid3d, the ops
@@ -65,6 +84,7 @@ WINDOWS, WINDOW_STEPS = 5, 20
 # (warm-up steps, windows, steps per window, profiled steps) of the
 # twophase and adaptive_relax steps
 ROUTE_STEPS = {"twophase": (3, 3, 4, 3), "adaptive_relax": (5, 3, 10, 5),
+               "adaptive": (5, 3, 10, 5), "main": (20, 5, 20, 10),
                "lid3d": (3, 3, 5, 3)}
 PROLONG_OPS = ("roll", "where", "CatArray", "MulFunctor", "CUDAFunctor_add",
                "arange", "CompareEqFunctor")
@@ -243,9 +263,63 @@ def digests(rbgs, dev, chip_smoke):
                 *(o if isinstance(o, (tuple, list)) else (o,)))
     s = chip_smoke.twophase_sim(dev).run(max_steps=5)
     out["twophase_5"] = sha(*(s.state[k] for k in ("U", "V", "T", "P")))
+    s = chip_smoke.lid_sim(dev, "pair").run(max_steps=5)
+    out["main_5"] = sha(*(s.state[k] for k in ("U", "V", "P")))
     s = chip_smoke.lid3d_sim(dev).run(max_steps=5)
     out["lid3d_5"] = sha(*(s.state[k] for k in ("U", "V", "W", "P")))
     return out
+
+
+def digests_k4_tail(rbgs, projops, dev):
+    """SHA-256 of K4's outputs and of the block kernel's function on fixed
+    inputs, computed through wrappers that both checkouts have."""
+    import torch
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(13)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+        tag = str(dtype)[6:]
+        for n0, n1 in ((2048, 2048), (100, 72)):
+            ufx, ufy = rnd(n0 + 1, n1), rnd(n0, n1 + 1)
+            out[f"k4_{n0}x{n1}_{tag}"] = sha(
+                *projops.divergence_mac(ufx, ufy, 0.3 / n1, 1.0 / n1))
+        r1, r2, v1, v2 = rnd(64, 64), rnd(32, 32), rnd(64, 64), rnd(32, 32)
+        sg = (-1.0, 1.0, 1.0, -1.0)
+        kw = dict(nsweeps=5, coarsest=40, h2_half=1.0 / 64 ** 2, signs=sg,
+                  omega=1.5)
+        out[f"tail_{tag}"] = sha(rbgs.cascade_prolong_relax(
+            r1, r2, 0.7, **kw))
+        out[f"tail_per_y_{tag}"] = sha(rbgs.cascade_prolong_relax(
+            r1, r2, 0.0, per_y=True, **dict(kw, signs=(1.0,) * 4)))
+        out[f"tail_pair_{tag}"] = sha(*rbgs.cascade_prolong_relax_pair(
+            [r1, v1], [r2, v2], [0.0, 2.5], **kw))
+        r512, r64 = rnd(512, 512), rnd(64, 64)
+        kw12 = dict(nsweeps=5, coarsest=40, signs=sg)
+        out[f"k12_dia_{tag}"] = sha(rbgs.coarse_vcycle(
+            r512, 3.0, h2=1.0 / 512 ** 2, **kw12))
+        out[f"k12_block_dia_{tag}"] = sha(rbgs.coarse_block(
+            r64, 3.0, h2=1.0 / 64 ** 2, **kw12))
+    return out
+
+
+def warps_sweep(rbgs, chip_smoke, dev):
+    """Device us per launch of the block kernel at the main path's cascade
+    tails, K2's and K8b's, for each launch shape it takes."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    dia = 1.0 / (0.8 / chip_smoke.N_MAIN * 1e-3)
+    tails = chip_smoke.main_tails(rnd, torch.float32, dia)
+    return {"x".join(map(str, w)): {
+        name: device_us(lambda a=a, w=w: rbgs._coarse_block_cuda(
+            *a[:6], False, a[6], "coarse_block", warps=w))
+        for name, a in tails.items()} for w in rbgs.CB_WARPS_SHAPES}
 
 
 def digests_k1_k13(rbgs, rbgs3d, poisson, bc, dev):
@@ -289,7 +363,8 @@ def digests_k1_k13(rbgs, rbgs3d, poisson, bc, dev):
 
 
 def main():
-    root = Path(sys.argv[1] if len(sys.argv) > 1
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    root = Path(args[0] if args
                 else Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(root))
     import numpy as np
@@ -298,13 +373,29 @@ def main():
     import chip_smoke
     from gerris_tpu_torch.models.simulation import Simulation, Time
     from gerris_tpu_torch.core import bc
-    from gerris_tpu_torch.ops.cuda import bcg, build, predict, rbgs, rbgs3d
+    from gerris_tpu_torch.ops.cuda import (bcg, build, predict, projops,
+                                           rbgs, rbgs3d)
     from gerris_tpu_torch.solvers import poisson
     if not torch.cuda.is_available():
         print("torch_host_cost: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     build.library()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    if "--warps" in sys.argv:
+        print(json.dumps({"root": str(root), "card": card,
+                          "warps_us": warps_sweep(rbgs, chip_smoke, dev)}))
+        return 0
+    if "--digests" in sys.argv:
+        out = {"root": str(root), "card": card,
+               "digests": digests(rbgs, dev, chip_smoke)}
+        out["digests"].update(digests_k4_tail(rbgs, projops, dev))
+        out["digests"].update(digests_k1_k13(rbgs, rbgs3d, poisson, bc, dev))
+        print(json.dumps(out))
+        return 0
     gen = torch.Generator(device=dev).manual_seed(8)
 
     def rnd(*shape):
@@ -379,7 +470,23 @@ def main():
     # projection's correction
     sub = rnd(1)
     dev_us = {"residual_restrict": device_us(lambda: rbgs.residual_restrict(
-        u, rhs, 0.0, sub, h2=1.0 / n ** 2, signs=signs))}
+        u, rhs, 0.0, sub, h2=1.0 / n ** 2, signs=signs)),
+        "divergence_mac": device_us(lambda: projops.divergence_mac(
+            ufx, ufy, dt, grid.h))}
+    # the block kernel at K12's shape, and a cascade's tail as the main
+    # path's K2 and K8b run it (at n/2 = 64 the whole cascade is the tail)
+    r64, r32 = rnd(64, 64), rnd(32, 32)
+    dev_us["coarse_vcycle"] = device_us(lambda: rbgs.coarse_vcycle(
+        r512, 0.0, nsweeps=5, coarsest=40, h2=1.0 / 512 ** 2,
+        signs=(1.0,) * 4))
+    dev_us["coarse_block"] = device_us(lambda: rbgs.coarse_block(
+        r64, 0.0, nsweeps=5, coarsest=40, h2=1.0 / 64 ** 2,
+        signs=(1.0,) * 4))
+    kwt = dict(coarsest=40, h2_half=1.0 / 64 ** 2, signs=signs)
+    dev_us["tail_k2"] = device_us(lambda: rbgs.cascade_prolong_relax(
+        r64, r32, 0.0, nsweeps=5, omega=1.5, **kwt))
+    dev_us["tail_k8b"] = device_us(lambda: rbgs.cascade_prolong_relax_pair(
+        [r64, r64], [r32, r32], [3.0, 3.0], nsweeps=1, **kwt))
     for m in (32, 64, 128):
         cl, rl = rnd(m // 2, m // 2, m // 2), rnd(m, m, m)
         al = rnd(m, m, m) if m == 128 else None
@@ -391,18 +498,20 @@ def main():
                              (1.0,) * 6, 1.5, u=rl))
     out["device_us"] = dev_us
     out["digests"] = digests(rbgs, dev, chip_smoke)
+    out["digests"].update(digests_k4_tail(rbgs, projops, dev))
     out["digests"].update(digests_k1_k13(rbgs, rbgs3d, poisson, bc, dev))
+    out["main"] = route_cost(chip_smoke.lid_sim(dev, "pair"),
+                             *ROUTE_STEPS["main"])
     out["twophase"] = route_cost(chip_smoke.twophase_sim(dev),
                                  *ROUTE_STEPS["twophase"], watch=PROLONG_OPS)
     out["adaptive_relax"] = route_cost(
         chip_smoke.ada_sim(dev, "relax").init(),
         *ROUTE_STEPS["adaptive_relax"])
+    out["adaptive"] = route_cost(chip_smoke.ada_sim(dev, "adaptive").init(),
+                                 *ROUTE_STEPS["adaptive"])
     out["lid3d"] = route_cost(chip_smoke.lid3d_sim(dev),
                               *ROUTE_STEPS["lid3d"], watch=PROLONG_OPS)
-    out["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    out["card"] = card
     print(json.dumps(out))
     return 0
 
