@@ -13,7 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
      main-path shapes and their coarser levels (K3 at each level's tile),
      the restriction pyramid bit-identical to the chain of restrict2
      launches and to its plain version (single and pair; 512 -> 16,
-     2048 -> 512, 1024 -> 4), plus K3's tile invariance (64, 32, 16);
+     2048 -> 512, 1024 -> 4, and the bubble's box (1024, 2048) -> (4,
+     8)), plus K3's tile invariance (64, 32, 16);
      the diffusion pair K8a-c (own offsets, subs and dias per system) at
      2048^2 and 64^2, plus K8c's tile invariance; the predictor,
      projection and advection kernels K6, K4, K5 (with and without the
@@ -46,10 +47,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
      rows, doubly periodic; scalar and cell dia; omega 1 and 1.5; 8 and
      24 sweeps; zero-diagonal cells), from a given u and with the
      prolongation of a coarse correction folded in (+ u), and at every
-     level down to 4^2 as a correction runs it, plus its invariance
-     across tiles, threads and sweep splits; then each kernel's time
+     level down to 4^2 as a correction runs it, and on the bubble's box
+     levels, (1024, 2048) down to (4, 8), plus its invariance across
+     tiles, threads and sweep splits (the box's tiles, and a whole 32 x
+     64 level against the same level tiled); then each kernel's time
      against its plain version's at the main-path shapes (K13 at 128^3,
-     from u and with the fold; K15 at 1024^2), float32 (CUDA events), K1
+     from u and with the fold; K15 at 1024^2 and at the bubble's (1024,
+     2048), the pyramid also at (1024, 2048)), float32 (CUDA events), K1
      per tile height, K13 per level and launch shape (device time per
      launch, profiled), K7 beside two K14 launches,
      K15's and K3's per level, K15's per tile and threads (with and
@@ -105,18 +109,32 @@ Phases (any failure ends the run with a non-zero exit and no result):
      every upward one), K14 per component and K9, launches gated from
      every solve's recorded cycle count, finite values, T's volume, the
      first 5 steps held to the plain versions, five timed windows and a
-     profile with its device ops per step;
+     profile with its device ops per step; then ``bubble``, Hysing et
+     al.'s rising bubble (test case 1) at 1024 x 2048 in float32 (a
+     variable viscosity of the filtered fraction, gravity and tension as
+     face sources, density 1000/100, the box 1 x 2): init + 20 steps
+     through the twophase route's kernels (K15 on the box's levels),
+     launches gated from the recorded cycle counts, finite values, the
+     first 5 steps held to the plain versions (float64 kernels vs plain
+     to 1e-9; in float32, where the velocities of the state from rest
+     are at float32's floor, T and P to 2e-3 and U and V to twice the
+     plain route's own distance from float64), five timed
+     windows and a profile;
   4. physics: the 64^2 lid cavity under the bench's configuration to
      steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
      float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
      and by the reference's measure (tests/test_lid.py); and the
      reference's test/oscillation at level 6 in float32 to t = 1
      (tests/test_oscillation.py): the fitted frequency within 0.5% of the
-     reference's 153.984, decaying.
+     reference's 153.984, decaying; and the bubble at level 6 (64 x 128)
+     in float32 to t = 3: its maximum mean rise velocity and its centroid
+     at t = 3 within 3% and 2% of Hysing's (0.2417, 1.0813) and within 1%
+     of gerris_tpu's own level-6 values.
 The last two lines are the kernels' JSON record and the device line.
 """
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -224,6 +242,38 @@ OSC_LEVEL = 6
 OSC_D, OSC_EPS, OSC_SIGMA, OSC_RHO_L, OSC_RHO_G = 0.2, 0.05, 1.0, 1.0, 1e-3
 OSC_REF_C = 153.984
 OSC_RTOL = 0.005
+
+# bubble: Hysing et al., "Quantitative benchmark computations of
+# two-dimensional bubble dynamics", Int. J. Numer. Meth. Fluids 60 (2009)
+# 1259-1288, test case 1, at full width: level 10 in the 1 x 2 box,
+# 1024 x 2048 cells, float32 (rho 1000 / 100, mu 10 / 1, g 0.98, sigma
+# 24.5, the bubble of radius 0.25 at (0.5, 0.5)); its step runs the
+# twophase route's kernels, K15 on the box's levels
+LEVEL_BUBBLE = 10
+BUBBLE_STEPS = 20
+BUBBLE_CHECK_STEPS = 5
+BUBBLE_TIMED_STEPS = 10
+BUBBLE_PROFILE_STEPS = 5
+# the same steps through the kernels and through the plain versions in
+# float64: the two compute one function, and in float64 no VOF or
+# curvature decision sits at the rounding's edge, so they agree to the
+# CPU gates' bound between two float64 implementations (the port and
+# gerris_tpu, tests/test_torch_bubble.py)
+BUBBLE_F64_RTOL = 1e-9
+# the physics gate: the bubble at level 6 (64 x 128) in float32 to t = 3;
+# the mean rise velocity sum((1 - T) V) / sum(1 - T) and the centroid
+# sum((1 - T) y) / sum(1 - T), each step.  Hysing's reference values
+# (TP2D, test case 1): maximum rise velocity 0.2417 at t = 0.9213,
+# centroid 1.0813 at t = 3, gated within 3% and 2%; and gerris_tpu's own
+# at level 6 in float64 on the CPU (tools/bubble_reference.py 6 3.0: 575
+# steps, the maximum 0.24064975467766936 at t = 0.9286956521739148, the
+# centroid 1.0777377578901863 at t = 3), both within 1%
+BUBBLE_GATE_LEVEL = 6
+BUBBLE_GATE_T = 3.0
+HYSING_VMAX, HYSING_YC = 0.2417, 1.0813
+HYSING_VMAX_RTOL, HYSING_YC_RTOL = 0.03, 0.02
+JAX_VMAX, JAX_YC = 0.24064975467766936, 1.0777377578901863
+JAX_RTOL = 0.01
 
 ERR_KEYS = ("max_abs_err", "max_rel_err")
 CSRC = "gerris_tpu_torch/csrc/"
@@ -1200,17 +1250,20 @@ ALPHA_CASES = (("walls", (-1.0, -1.0, -1.0, -1.0), (False, False)),
 def alpha_system(rnd, dtype, n, periodic, cell, dead):
     """u, rhs, positive face coefficients (face n = face 0 on a periodic
     axis, as the two-phase coefficients are), a scalar or positive cell
-    dia; ``dead``: a few cells with all four faces and dia zero."""
-    u, rhs = rnd(dtype, n, n), rnd(dtype, n, n)
-    ax = 0.2 + rnd(dtype, n + 1, n).abs()
-    ay = 0.2 + rnd(dtype, n, n + 1).abs()
-    dia = 0.5 + rnd(dtype, n, n).abs() if cell else 0.3
+    dia on an n^2 level, or an n0 x n1 one for ``n`` = (n0, n1) (a box's,
+    such as the bubble's n x 2n); ``dead``: a few cells with all four
+    faces and dia zero."""
+    n0, n1 = (n, n) if isinstance(n, int) else n
+    u, rhs = rnd(dtype, n0, n1), rnd(dtype, n0, n1)
+    ax = 0.2 + rnd(dtype, n0 + 1, n1).abs()
+    ay = 0.2 + rnd(dtype, n0, n1 + 1).abs()
+    dia = 0.5 + rnd(dtype, n0, n1).abs() if cell else 0.3
     if periodic[0]:
-        ax[n] = ax[0]
+        ax[n0] = ax[0]
     if periodic[1]:
-        ay[:, n] = ay[:, 0]
+        ay[:, n1] = ay[:, 0]
     if dead:
-        for i, j in ((1, 2), (n // 2, n // 2 + 1), (n - 2, 3)):
+        for i, j in ((1, 2), (n0 // 2, n1 // 2 + 1), (n0 - 2, 3)):
             ax[i, j] = ax[i + 1, j] = ay[i, j] = ay[i, j + 1] = 0.0
             if cell:
                 dia[i, j] = 0.0
@@ -1275,6 +1328,41 @@ def check_alpha_kernels(rnd, dtype, record):
                     rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dia,
                                                 **kw), b)
         m //= 2
+    # the bubble's box levels (n, 2n): at (1024, 2048) with walls, a
+    # scalar and a cell dia, zero-diagonal cells, from u and with a coarse
+    # correction's prolongation + u; then every level of a bubble
+    # correction down to (4, 8) with V's signs (Neumann x, Dirichlet y)
+    box = (n, 2 * n)
+    for cell in (False, True):
+        u, rhs, ax, ay, dia = alpha_system(rnd, dtype, box, (False, False),
+                                           cell, True)
+        kw = dict(nsweeps=8, h2=1.0 / n ** 2, signs=(-1.0,) * 4,
+                  periodic=(False, False), omega=1.0, dia_cell=cell)
+        tag = f"{n}x{2 * n} walls dia={'cell' if cell else 'scalar'}"
+        errs.append(compare(
+            f"K15 rbgs_relax_alpha {tag}",
+            rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw),
+            rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, **kw), b))
+        fold = dict(kw, coarse=rnd(dtype, n // 2, n), add=u)
+        errs.append(compare(
+            f"K15 rbgs_relax_alpha coarse + u {tag}",
+            rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, **fold),
+            rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dia, **fold), b))
+    m = n
+    while m >= 4:
+        u, rhs, ax, ay, dia = alpha_system(rnd, dtype, (m, 2 * m),
+                                           (False, False), True, False)
+        kw = dict(nsweeps=24 if m == 4 else 8, h2=1.0 / m ** 2,
+                  signs=(1.0, 1.0, -1.0, -1.0), periodic=(False, False),
+                  omega=1.0, dia_cell=True,
+                  coarse=None if m == 4 else rnd(dtype, m // 2, m),
+                  add=u if m == n else None)
+        compare(f"K15 rbgs_relax_alpha {m}x{2 * m} "
+                f"{'from zero' if m == 4 else 'coarse'}"
+                f"{' + u' if m == n else ''}",
+                rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, **kw),
+                rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dia, **kw), b)
+        m //= 2
     if record is not None:
         record["rbgs_relax_alpha"].update(zip(ERR_KEYS, map(max, zip(*errs))))
 
@@ -1312,6 +1400,29 @@ def check_alpha_tiles(rnd):
                                               whole_max=32, **start, **kw)):
                     raise AssertionError(f"K15 {kind} {dtype}: whole-level "
                                          "and tiled launches differ")
+            if kind == "walls":
+                # the bubble's box (n, 2n): tiled at every tile, and a
+                # whole (32, 64) level (one block on the square buffer of
+                # its longer side) against the same level tiled
+                bu, brhs, bax, bay, bdia = alpha_system(
+                    rnd, dtype, (n, 2 * n), per, True, True)
+                bc_ = rnd(dtype, n // 2, n)
+                outs = [rbgs.rbgs_relax_alpha(None, brhs, bax, bay, bdia,
+                                              tile=t, coarse=bc_, add=bu,
+                                              **kw) for t in tiles]
+                if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                    raise AssertionError(f"K15 box {dtype}: tiles {tiles} "
+                                         "differ")
+                w = alpha_system(rnd, dtype, (32, 64), per, True, True)
+                cw = rnd(dtype, 16, 32)
+                for x, start in ((w[0], dict()), (None, dict(coarse=cw))):
+                    if not torch.equal(
+                            rbgs.rbgs_relax_alpha(x, *w[1:], **start, **kw),
+                            rbgs.rbgs_relax_alpha(x, *w[1:], tile=16,
+                                                  whole_max=32, **start,
+                                                  **kw)):
+                        raise AssertionError(f"K15 box {dtype}: whole-level"
+                                             " and tiled launches differ")
             rbgs.reset_launch_counts()
             kws = dict(kw, nsweeps=30, coarse=c, add=u)
             split = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, tile=32,
@@ -1324,7 +1435,8 @@ def check_alpha_tiles(rnd):
     print(f"  K15 tiles 64 == 32 == 16 x threads 256 == 512 at {n} "
           "(float64: 32 == 16), from u and from a coarse correction + u, "
           "whole == tiled at 64, every periodicity; 30 sweeps over "
-          "several launches: bit-identical")
+          f"several launches; the box {n}x{2 * n} at every tile and a "
+          "whole 32x64 level == tiled: bit-identical")
 
 
 def alpha_flops(n, nsweeps, omega, coarse=False, add=False):
@@ -1385,9 +1497,10 @@ def vcycle_flops(n_top, nsweeps, coarsest, min_n=16):
 
 
 # the pyramids of the paths: (top, levels) of the cascades (512 -> 16),
-# the adaptive correction (2048 -> 512) and the twophase correction
-# (1024 -> 4, past one cell per tile)
-PYRAMIDS = ((512, 5), (2048, 2), (1024, 8))
+# the adaptive correction (2048 -> 512), the twophase correction (1024 ->
+# 4, past one cell per tile) and the bubble's ((1024, 2048) -> (4, 8))
+PYRAMIDS = (((512, 512), 5), ((2048, 2048), 2), ((1024, 1024), 8),
+            ((1024, 2048), 8))
 
 
 def check_pyramids(rnd, dtype):
@@ -1399,7 +1512,7 @@ def check_pyramids(rnd, dtype):
     import torch
     from gerris_tpu_torch.ops.cuda import rbgs
     for n, levels in PYRAMIDS:
-        r, r2 = rnd(dtype, n, n), rnd(dtype, n, n)
+        r, r2 = rnd(dtype, *n), rnd(dtype, *n)
         chain, x = [], r
         for _ in range(levels):
             x = rbgs.restrict2(x)
@@ -1418,9 +1531,9 @@ def check_pyramids(rnd, dtype):
                     pair[1], rbgs.pyramid_plain(r2, levels))):
                 raise AssertionError(f"restrict_pyramid_pair {n} {levels} "
                                      f"{dtype}: second system differs")
-    print(f"  restrict_pyramid {dtype}, single and pair, "
-          f"{', '.join(f'{n} -> {n >> lv}' for n, lv in PYRAMIDS)}: "
-          "bit-identical to the restrict2 chain and the plain version")
+    print(f"  restrict_pyramid {dtype}, single and pair, " + ", ".join(
+        f"{n[0]}x{n[1]} -> {n[0] >> lv}x{n[1] >> lv}" for n, lv in PYRAMIDS)
+        + ": bit-identical to the restrict2 chain and the plain version")
     return 0.0, 0.0
 
 
@@ -1858,6 +1971,23 @@ def phase_kernels(dev, record):
         lambda: rbgs.rbgs_relax_alpha_plain(None, ra, axa, aya, da, **kw15c),
         nbytes(ca, ra, axa, aya, da, ua),
         alpha_flops(na, 8, 1.0, coarse=True, add=True), None)
+    # K15 at the bubble's finest level, the box's (1024, 2048), as its
+    # corrections run it there: the coarse level's result prolonged at
+    # placement, + u, the diffusion's cell dia; and the bubble's pyramid,
+    # (1024, 2048) -> (4, 8) (3 operations per coarse cell)
+    bx = alpha_system(rnd, f32, (na, 2 * na), (False, False), True, False)
+    cbx = rnd(f32, na // 2, na)
+    kwbx = dict(kw15, dia_cell=True, coarse=cbx, add=bx[0])
+    timings["rbgs_relax_alpha|box"] = (
+        lambda: rbgs.rbgs_relax_alpha(None, *bx[1:], **kwbx),
+        lambda: rbgs.rbgs_relax_alpha_plain(None, *bx[1:], **kwbx),
+        nbytes(cbx, *bx), 2 * alpha_flops(na, 8, 1.0, coarse=True, add=True),
+        None)
+    rbx = rnd(f32, na, 2 * na)
+    timings["restrict_pyramid|box"] = (
+        lambda: rbgs.restrict_pyramid(rbx, 8),
+        lambda: rbgs.pyramid_plain(rbx, 8), nbytes(rbx),
+        sum((na >> k) * (2 * na >> k) * 3 for k in range(1, 9)), None)
     # K15 at 1024^2 per tile and threads, with and without the coarse
     # correction, in turns (forward, then backward; the lower time)
     combos = [(t, th) for t in (64, 32, 16) for th in (256, 512)]
@@ -2738,6 +2868,231 @@ def phase_twophase(dev, card):
     return counts
 
 
+def bubble_mu(x, y, t=0.0, T1=None):
+    """The dynamic viscosity of the filtered liquid fraction T1: 10 in the
+    liquid, 1 in the bubble (MU(T1), test/capwave/air-water's form)."""
+    return 10.0 * T1 + 1.0 * (1.0 - T1)
+
+
+def bubble_cfg(level=LEVEL_BUBBLE):
+    """Hysing test case 1 in the box [0, 1] x [0, 2] at 2^level cells per
+    unit: one VOF tracer T (1 in the liquid), density ("T", 1000, 100, 1),
+    nu 0 and the variable viscosity bubble_mu of the once-filtered T,
+    gravity (None, -0.98) and tension 24.5 as face sources, no-slip bottom
+    and top walls, free-slip side walls; the default adaptive projections
+    and diffusion on the TPU's floored schedule (utils/convert), as
+    twophase_cfg."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    from gerris_tpu_torch.utils.convert import params_from_jax
+    d0, nn = bc.Dirichlet(0.0), bc.Neumann()
+    proj = MultilevelParams(tolerance=1e-3, nitermax=100, nrelax=8,
+                            coarsest_relax=16)
+    return ns.NSConfig(
+        grid=Grid(level=level, dim=2, origin=(0.0, 0.0), extents=(1, 2)),
+        u_bcs=(bc.FieldBC(((d0, d0), (d0, d0))),
+               bc.FieldBC(((nn, nn), (d0, d0)))),
+        nu=0.0, beta=1.0, vof_tracers=(("T", bc.default_scalar_bc(2)),),
+        tension=(("T", 24.5),), density=("T", 1000.0, 100.0, 1),
+        body_force=(None, -0.98), nu_var=bubble_mu,
+        nu_var_fields=(("T1", "T", 1),), projection=proj,
+        approx_projection=proj, diffusion_params=params_from_jax(None, 2))
+
+
+def bubble_sim(dev, level=LEVEL_BUBBLE, events=(), end=math.inf,
+               dtype=None):
+    """The bubble on the card in ``dtype`` (float32 by default), at rest,
+    not yet run (to ``end`` when it is run to its end)."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    dtype = dtype or torch.float32
+    cfg = bubble_cfg(level)
+    T0 = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y: torch.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2)
+        - 0.25, device=dev, dtype=dtype)
+    return Simulation(cfg, time=Time(end=end), device=dev, dtype=dtype,
+                      events=list(events)).init(T=T0)
+
+
+def phase_bubble(dev, card):
+    """init + BUBBLE_STEPS steps of the bubble at 1024 x 2048 through the
+    kernels, the counts set to 0 just before and gated just after from
+    every solve's recorded cycle count (the twophase route's launches:
+    want_twophase); finite values; the first
+    BUBBLE_CHECK_STEPS steps against the same steps through the plain
+    versions on the card, in float32 and float64 (check_bubble_plain);
+    five timed windows and a profile.  Returns (launch counts, the profile's device
+    ops per step)."""
+    import torch
+    n0, n1 = bubble_cfg().grid.shape
+    print(f"phase 3, bubble: Hysing test case 1, {n0} x {n1}, float32, "
+          f"init + {BUBBLE_STEPS} steps")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_solves() as log:
+        s = bubble_sim(dev)
+        vol0 = float(s.state["T"].double().sum())
+        s.run(max_steps=BUBBLE_CHECK_STEPS)
+        early = {k: v.clone() for k, v in s.state.items()}
+        s.run(max_steps=BUBBLE_STEPS - BUBBLE_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    niters = [x[1] for x in log]
+    print(f"  bubble, init + {BUBBLE_STEPS} steps: {t_run:.3f} s; "
+          f"{len(niters)} solves, niter {niters}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if len(niters) != 4 * BUBBLE_STEPS + 1:
+        raise AssertionError(f"bubble: {len(niters)} solves")
+    for k, w in want_twophase(BUBBLE_STEPS, niters).items():
+        if counts[k] != w:
+            raise AssertionError(f"bubble: {k}: {counts[k]} launches, "
+                                 f"want {w}")
+    print(f"  bubble: rbgs_relax_alpha {counts['rbgs_relax_alpha']} "
+          f"launches = {K15_LEVELS} x sum(niter) {sum(niters)}, "
+          f"{counts['rbgs_relax_alpha.prolong']} of them with the "
+          f"prolongation folded in, {counts['restrict_pyramid']} "
+          "restrict_pyramid")
+    for k, v in s.state.items():
+        if v.shape != (n0, n1) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"bubble {k}: not finite or wrong shape")
+    # T's volume is printed, not gated: the VOF update sets fractions
+    # within FULL_TOL of 0 or 1 to 0 or 1 (physics/vof.py:sweep_update),
+    # which a rising bubble's interface meets, unlike twophase's nearly
+    # resting one
+    vol = float(s.state["T"].double().sum())
+    print(f"  bubble: T's volume rel change {abs(vol - vol0) / vol0:.3e}; "
+          f"t {s.time.t:.6e} after {s.time.i} steps, dt {s.dt:.6e}; "
+          f"max|V| {float(s.state['V'].abs().max()):.6e}")
+    check_bubble_plain(dev, early, counts)
+    del early
+    walls, syncs = [], []
+    for _ in range(TIMED_WINDOWS):
+        with recording_solves() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run(max_steps=BUBBLE_TIMED_STEPS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        syncs.append(sum(x[3] for x in log) / BUBBLE_TIMED_STEPS + 1)
+        niters = [x[1] for x in log]
+    step = float(np.median(walls)) / BUBBLE_TIMED_STEPS
+    print(f"  bubble step, timed windows of {BUBBLE_TIMED_STEPS} steps: "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s; median "
+          f"{step * 1e3:.3f} ms/step, "
+          f"{n0 * n1 / step / 1e6:.2f}M cell-updates/s; host syncs per "
+          f"step {' '.join(f'{x:.1f}' for x in syncs)}; niter per solve in "
+          f"the last window {niters} on {card}")
+    ops = phase_profile(s, step, card, BUBBLE_PROFILE_STEPS)
+    return counts, ops
+
+
+def check_bubble_plain(dev, early, counts):
+    """The bubble's first BUBBLE_CHECK_STEPS steps against the plain
+    versions on the card: the float32 kernels' state ``early`` against
+    the float32 and float64 plain runs, and the same steps through the
+    kernels in float64 against the plain float64 run.
+    From rest the bubble's U and V after 5 steps (~1e-5 at dt 8e-5) are
+    at float32's floor: the hydrostatic pressure (~2000) in float32 moves
+    the velocities by ~1e-7 a step, and the plain float32 run itself
+    differs from the plain float64 run by more than ADAPTIVE_RTOL there
+    (printed below).  So the gates are: float64 kernels vs plain within
+    BUBBLE_F64_RTOL on U, V, T and mean-free P (same arithmetic, no
+    floor); float32 kernels vs plain within ADAPTIVE_RTOL on T and
+    mean-free P; and on U and V the float32 kernels no further from the
+    float64 plain run than twice the plain float32 run is (or
+    ADAPTIVE_RTOL, the larger): as accurate as float32 allows."""
+    import torch
+    runs = {}
+    for name, dtype, plain in (("plain32", torch.float32, True),
+                               ("plain64", torch.float64, True),
+                               ("kernels64", torch.float64, False)):
+        ctx = plain_versions() if plain else contextlib.nullcontext()
+        with ctx, recording_solves() as log:
+            runs[name] = bubble_sim(dev, dtype=dtype).run(
+                max_steps=BUBBLE_CHECK_STEPS).state
+        print(f"  bubble, {name}: niter {[x[1] for x in log]}")
+        if plain and launch_counts() != counts:
+            raise AssertionError("the plain reference run launched kernels")
+    for k in ("U", "V", "T", "P"):
+        def rel(a, b):
+            a, b = a.double(), b.double()
+            if k == "P":
+                a, b = a - a.mean(), b - b.mean()
+            return rel_err(a, b)
+        e32 = rel(early[k], runs["plain32"][k])
+        floor = rel(runs["plain32"][k], runs["plain64"][k])
+        e32_64 = rel(early[k], runs["plain64"][k])
+        e64 = rel(runs["kernels64"][k], runs["plain64"][k])
+        print(f"  bubble after {BUBBLE_CHECK_STEPS} steps, {k}"
+              f"{' (mean-free)' if k == 'P' else ''}: kernels vs plain "
+              f"float32 {e32:.3e}, float64 {e64:.3e} (bound "
+              f"{BUBBLE_F64_RTOL:.0e}); against the plain float64 run: "
+              f"float32 kernels {e32_64:.3e}, float32 plain {floor:.3e}")
+        if not e64 <= BUBBLE_F64_RTOL:
+            raise AssertionError(f"bubble {k}: float64 kernels vs plain "
+                                 f"{e64:.3e}")
+        if k in ("T", "P") and not e32 <= ADAPTIVE_RTOL:
+            raise AssertionError(f"bubble {k}: kernels vs plain {e32:.3e}")
+        if k in ("U", "V") and not e32_64 <= max(2 * floor, ADAPTIVE_RTOL):
+            raise AssertionError(f"bubble {k}: float32 kernels {e32_64:.3e}"
+                                 f" from float64, plain {floor:.3e}")
+
+
+def phase_bubble_gate(dev, card):
+    """The physics gate: the bubble at level 6 (64 x 128) in float32 to t
+    = 3, the mean rise velocity and the centroid of the gas recorded each
+    step on the card and read once at the end; the maximum rise velocity
+    within HYSING_VMAX_RTOL of Hysing's and within JAX_RTOL of
+    gerris_tpu's, and the centroid at t = 3 within HYSING_YC_RTOL and
+    JAX_RTOL."""
+    import torch
+    from gerris_tpu_torch.events.events import Event
+    samples = []
+    yc = None
+
+    def record(sim):
+        nonlocal yc
+        if yc is None:
+            from gerris_tpu_torch.models import ns
+            yc = ns.cell_centers(sim.cfg.grid, dev, torch.float32)[1]
+        g = 1.0 - sim.state["T"]
+        m = g.sum()
+        samples.append(torch.stack([
+            torch.tensor(sim.time.t, device=dev), (g * sim.state["V"]).sum()
+            / m, (g * yc).sum() / m]))
+
+    t0 = time.perf_counter()
+    s = bubble_sim(dev, BUBBLE_GATE_LEVEL,
+                   events=[Event(action=record, istep=1)], end=BUBBLE_GATE_T)
+    s.run()
+    rec = torch.stack(samples).double().cpu().numpy()
+    t_run = time.perf_counter() - t0
+    k = int(np.argmax(rec[:, 1]))
+    vmax, t_vmax, yc3, t_end = rec[k, 1], rec[k, 0], rec[-1, 2], rec[-1, 0]
+    print(f"phase 4, bubble gate: level {BUBBLE_GATE_LEVEL} "
+          f"({s.cfg.grid.shape[0]} x {s.cfg.grid.shape[1]}), float32, to t "
+          f"= {t_end:.6f} in {s.time.i} steps, {t_run:.1f} s on {card}")
+    checks = (("maximum rise velocity", vmax, HYSING_VMAX, HYSING_VMAX_RTOL,
+               JAX_VMAX), ("centroid at t = 3", yc3, HYSING_YC,
+                           HYSING_YC_RTOL, JAX_YC))
+    for what, got, ref, rtol, jax_ref in checks:
+        e_ref, e_jax = abs(got - ref) / ref, abs(got - jax_ref) / jax_ref
+        print(f"  bubble gate, {what}: {got:.6f}"
+              f"{f' at t = {t_vmax:.4f}' if 'velocity' in what else ''}; "
+              f"Hysing {ref} (rel {e_ref:.4f}, bound {rtol}), gerris_tpu "
+              f"level {BUBBLE_GATE_LEVEL} f64 {jax_ref:.6f} (rel "
+              f"{e_jax:.4f}, bound {JAX_RTOL})")
+        if not (e_ref <= rtol and e_jax <= JAX_RTOL):
+            raise AssertionError(f"bubble gate: {what} {got:.6f}")
+    if abs(t_end - BUBBLE_GATE_T) > 1e-6 or not np.isfinite(rec).all():
+        raise AssertionError(f"bubble gate: ended at t = {t_end}")
+
+
 def oscillation_cfg(level=OSC_LEVEL):
     """test/oscillation (tests/test_oscillation.py): symmetry walls
     (normal velocity Dirichlet 0, tangential Neumann), nu 0, sigma 1, rho
@@ -2952,6 +3307,7 @@ def main():
     route_counts["lid3d"] = phase_lid3d(dev, card)
     phase_poisson3d(dev)
     route_counts["twophase"] = phase_twophase(dev, card)
+    route_counts["bubble"], bubble_ops = phase_bubble(dev, card)
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
@@ -2984,6 +3340,12 @@ def main():
         route_counts["lid3d"]["rbgs_relax_3d.prolong"]
     record["rbgs_relax_alpha"]["launches_prolong"] = \
         route_counts["twophase"]["rbgs_relax_alpha.prolong"]
+    # the bubble's launches (init + BUBBLE_STEPS steps) of the kernels
+    # its step runs
+    for k in ("predict_xy", "divergence_mac", "rbgs_relax_alpha",
+              "advect2d", "interp_faces", "restrict_pyramid"):
+        record[k]["launches_bubble"] = route_counts["bubble"][k]
+    record["rbgs_relax_alpha"]["bubble_device_ops_per_step"] = bubble_ops
     ada = route_counts["adaptive"]
     record["coarse_vcycle"].update(
         launches_restrict_pyramid=ada["coarse_vcycle.restrict_pyramid"],
@@ -2997,6 +3359,7 @@ def main():
             phase_physics(dev, card, "float64")
         raise AssertionError("Ghia phase failed")
     phase_oscillation(dev, card)
+    phase_bubble_gate(dev, card)
 
     print(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ Ghost-cell formulas follow the reference (src/boundary.c):
 ``homogeneous=True`` gives the zero-valued variants used by the multigrid
 correction sweeps.  A Dirichlet or Neumann value is a constant or a
 callable ``f(x, y[, t])`` of torch tensors (space/time dependent values,
-evaluated at the boundary face centres by ``apply_bc``); the kernels'
-static ghost encoding takes constants only (``static_values``).  Navier
-slip and contact angles are outside this slice and raise.
+evaluated at time ``t`` at the boundary face centres by ``apply_bc`` and
+``apply_face_bc``); the kernels' static ghost encoding takes constants
+only (``static_values``), so a configuration with a callable value takes
+the torch routes.  Navier slip and contact angles are outside this slice
+and raise.
 """
 from __future__ import annotations
 
@@ -119,19 +121,11 @@ def _ghost(interior: torch.Tensor, b: BC, side: int, k: int, h: float,
     if homogeneous:
         v = 0.0
     elif v is None:
-        v = _constant(b)
+        v = b.value
     if b.kind == DIRICHLET:
         return 2.0 * v - interior
     step = v * (2 * k - 1) * h
     return interior + step if side else interior - step
-
-
-def _constant(b: BC) -> float:
-    if callable(b.value):
-        raise NotImplementedError(
-            "a callable BC value on this route: only apply_bc with corners "
-            "evaluates them (the multigrid residual's padded route)")
-    return b.value
 
 
 def _boundary_coords(grid: Grid, axis: int, side: int, pad: list,
@@ -185,11 +179,12 @@ def apply_bc(field: torch.Tensor, grid: Grid, fbc: FieldBC, width: int = 1,
     variant: each axis' ghost slabs come from the unpadded field,
     edge-extended along the other axes, the later axis overwriting the
     corners.  All give the reference's values bit for bit off the
-    corners.  A callable value (corners=True only) is evaluated at time
-    ``t`` on each slab's boundary face centres, the slab spanning the
-    ghost layers already added (reference gerris_tpu/core/bc.py:182-240)."""
+    corners.  A callable value is evaluated at time ``t`` on each slab's
+    boundary face centres: with corners the slab spans the ghost layers
+    already added, without them the unpadded field's (reference
+    gerris_tpu/core/bc.py:182-300)."""
     if not corners:
-        return _apply_bc_nocorner(field, grid, fbc, width, homogeneous)
+        return _apply_bc_nocorner(field, grid, fbc, width, homogeneous, t)
     out = field
     pad = [0] * grid.dim
     for axis in (range(grid.dim) if axes is None else axes):
@@ -202,10 +197,7 @@ def apply_bc(field: torch.Tensor, grid: Grid, fbc: FieldBC, width: int = 1,
             continue
         lo, hi = [], []
         for k in range(1, width + 1):
-            vals = [None if homogeneous or not callable(b.value) else
-                    _eval(b.value, _boundary_coords(grid, axis, sd, pad,
-                                                    field), t)
-                    for sd, b in ((0, lo_bc), (1, hi_bc))]
+            vals = _slab_values(grid, fbc, axis, homogeneous, pad, field, t)
             g_lo = _ghost(out.narrow(axis, k - 1, 1), lo_bc, 0, k, grid.h,
                           homogeneous, vals[0])
             g_hi = _ghost(out.narrow(axis, n - k, 1), hi_bc, 1, k, grid.h,
@@ -217,22 +209,36 @@ def apply_bc(field: torch.Tensor, grid: Grid, fbc: FieldBC, width: int = 1,
     return out
 
 
-def _apply_bc_nocorner(field, grid, fbc, width, homogeneous):
+def _slab_values(grid, fbc, axis, homogeneous, pad, like, t):
+    """The (lo, hi) values of one axis' callable BCs on their boundary
+    slabs at time ``t`` (None for a constant, or with homogeneous)."""
+    return [None if homogeneous or not callable(b.value) else
+            _eval(b.value, _boundary_coords(grid, axis, sd, pad, like), t)
+            for sd, b in enumerate(fbc.sides[axis])]
+
+
+def _apply_bc_nocorner(field, grid, fbc, width, homogeneous, t):
     n = field.shape
     g = field.new_zeros(tuple(s + 2 * width for s in n))
     g[tuple(slice(width, width + s) for s in n)] = field
     for axis in range(grid.dim):
         lo_bc, hi_bc = fbc.sides[axis]
         per = fbc.is_periodic(axis)
+        vals = None if per else _slab_values(grid, fbc, axis, homogeneous,
+                                             [0] * grid.dim, field, t)
         for k in range(1, width + 1):
             if per:
                 lo = field.narrow(axis, n[axis] - k, 1)
                 hi = field.narrow(axis, k - 1, 1)
             else:
                 lo = _ghost(field.narrow(axis, k - 1, 1), lo_bc, 0, k,
-                            grid.h, homogeneous)
+                            grid.h, homogeneous, vals[0])
                 hi = _ghost(field.narrow(axis, n[axis] - k, 1), hi_bc, 1, k,
-                            grid.h, homogeneous)
+                            grid.h, homogeneous, vals[1])
+                if vals != [None, None]:    # a value of the slab's shape
+                    shape = list(field.shape)
+                    shape[axis] = 1
+                    lo, hi = lo.expand(shape), hi.expand(shape)
             for a in range(grid.dim):
                 if a != axis:
                     lo = edge_extend(lo, a, width)
@@ -243,16 +249,24 @@ def _apply_bc_nocorner(field, grid, fbc, width, homogeneous):
 
 
 def apply_face_bc(f: torch.Tensor, grid: Grid, fbc: FieldBC, axis: int,
-                  homogeneous: bool = False) -> torch.Tensor:
+                  homogeneous: bool = False, t: float = 0.0) -> torch.Tensor:
     """Overwrite the two boundary slabs of a face-shaped array with the
-    Dirichlet value (Neumann/periodic keep the computed values).  Writes
-    in place — the callers own the freshly computed face array — and
-    returns ``f``."""
+    Dirichlet value (Neumann/periodic keep the computed values), a
+    callable one evaluated at time ``t`` on the boundary face centres
+    (reference gerris_tpu/core/bc.py:apply_face_bc).  Writes in place —
+    the callers own the freshly computed face array — and returns
+    ``f``."""
     n = f.shape[axis]
     for side in (0, 1):
         bc = fbc.sides[axis][side]
         if bc.kind != DIRICHLET:
             continue
-        f.narrow(axis, 0 if side == 0 else n - 1, 1).fill_(
-            0.0 if homogeneous else _constant(bc))
+        slab = f.narrow(axis, 0 if side == 0 else n - 1, 1)
+        if homogeneous or not callable(bc.value):
+            slab.fill_(0.0 if homogeneous else bc.value)
+        else:
+            slab.copy_(torch.as_tensor(
+                _eval(bc.value, _boundary_coords(grid, axis, side,
+                                                 [0] * grid.dim, f), t),
+                dtype=f.dtype, device=f.device).expand_as(slab))
     return f

@@ -336,9 +336,10 @@ __global__ void __launch_bounds__(256) residual_restrict_kernel(RRArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
-// restrict_pyramid: `levels` successive 2x2 mean pools of an n x n level,
-// (n/2)^2, (n/4)^2, ..., (n >> levels)^2, per system, in one launch;
-// restrict2 is its one-level case.
+// restrict_pyramid: `levels` successive 2x2 mean pools of an n0 x n1
+// level (n0/2 x n1/2, ..., n0 >> levels x n1 >> levels; a square level
+// or a box of several unit boxes, such as n x 2n), per system, in one
+// launch; restrict2 is its one-level case.
 // Replaces the cascades' in-VMEM restriction pyramid of
 // gerris_tpu/ops/pallas/rbgs.py:cascade_prolong_relax and
 // cascade_prolong_relax_pair (_cp_core's _row_pool + _lane_pool,
@@ -348,8 +349,10 @@ __global__ void __launch_bounds__(256) residual_restrict_kernel(RRArgs<T> a) {
 // once: 1/3 of the top's bytes more); at the cascades' 512^2 top that is
 // ~1.4 MB, under 1 us at 3.35 TB/s, so one launch's latency bounds it and
 // the design's point is to make it one launch instead of one per level.
-// Design: one block per PY_TILE x PY_TILE tile of the top (the whole top
-// if smaller), one thread per cell of the first level, which it forms
+// Design: one block per tile x tile tile of the top, the tile PY_TILE or
+// the largest power of two below it that divides both sides (the whole
+// top of a square level below PY_TILE), one thread per cell of the first
+// level, which it forms
 // from its four children in device memory; the block's later levels come
 // from shared memory, each written once.  Levels coarser than one cell
 // per tile are finished in the same launch by the last block to arrive
@@ -377,7 +380,7 @@ struct PYSystem {
 template <typename T>
 struct PYArgs {
   PYSystem<T> sys[MAX_BATCH];
-  int n, levels, tile;
+  int n0, n1, levels, tile;
 };
 
 template <typename T>
@@ -385,27 +388,28 @@ __global__ void restrict_pyramid_kernel(PYArgs<T> a) {
   __shared__ T sl[PY_TILE / 2][PY_TILE / 2 + 1];
   __shared__ int last;
   const PYSystem<T> s = blockIdx.z ? a.sys[1] : a.sys[0];
-  const int n = a.n, half = a.tile / 2;
+  const int n1 = a.n1, half = a.tile / 2;
   const int tx = threadIdx.x, ty = threadIdx.y;
   // level 1: one cell per thread from its children in device memory
-  int m = n / 2, w = half, lv = 1;
+  int m0 = a.n0 / 2, m1 = n1 / 2, w = half, lv = 1;
   const int i = blockIdx.y * half + ty, j = blockIdx.x * half + tx;
-  const T* p = s.r + (size_t)(2 * i) * n + 2 * j;
-  T v = mean4(p[0], p[1], p[n], p[n + 1]);
+  const T* p = s.r + (size_t)(2 * i) * n1 + 2 * j;
+  T v = mean4(p[0], p[1], p[n1], p[n1 + 1]);
   T* out = s.out;
-  out[(size_t)i * m + j] = v;
+  out[(size_t)i * m1 + j] = v;
   // the block's coarser levels, from its own cells in shared memory
   while (lv < a.levels && w > 1) {
     if (ty < w && tx < w) sl[ty][tx] = v;
     __syncthreads();
-    out += (size_t)m * m;
-    m /= 2;
+    out += (size_t)m0 * m1;
+    m0 /= 2;
+    m1 /= 2;
     w /= 2;
     ++lv;
     if (ty < w && tx < w) {
       v = mean4(sl[2 * ty][2 * tx], sl[2 * ty][2 * tx + 1],
                 sl[2 * ty + 1][2 * tx], sl[2 * ty + 1][2 * tx + 1]);
-      out[(size_t)(blockIdx.y * w + ty) * m + blockIdx.x * w + tx] = v;
+      out[(size_t)(blockIdx.y * w + ty) * m1 + blockIdx.x * w + tx] = v;
     }
     __syncthreads();
   }
@@ -421,12 +425,13 @@ __global__ void restrict_pyramid_kernel(PYArgs<T> a) {
   const int t = ty * half + tx, nt = half * half;
   while (lv < a.levels) {
     const T* f = out;
-    const int mf = m;
-    out += (size_t)m * m;
-    m /= 2;
+    const int mf = m1;
+    out += (size_t)m0 * m1;
+    m0 /= 2;
+    m1 /= 2;
     ++lv;
-    for (int k = t; k < m * m; k += nt) {
-      const int ci = k / m, cj = k - ci * m;
+    for (int k = t; k < m0 * m1; k += nt) {
+      const int ci = k / m1, cj = k - ci * m1;
       const T* q = f + (size_t)(2 * ci) * mf + 2 * cj;
       // other blocks wrote the first of these levels: read it from L2
       out[k] = mean4(__ldcg(q), __ldcg(q + 1), __ldcg(q + mf),
@@ -749,20 +754,23 @@ __device__ __forceinline__ void pr_relax(const PRArgs<T>& a,
   }
 }
 
-// The block's tile of the engine's result (+ u) to device memory
+// The block's tile of the engine's result (+ u) to device memory (of a
+// whole level on a rectangle, the tile of its longer side: its cells)
 template <typename T>
 __device__ __forceinline__ void pr_write_tile(const PRArgs<T>& a,
                                               const PRSystem<T>& s,
                                               const PRBuf& L, const T* buf) {
-  const int n1 = a.n1, tile = a.tile, halo = a.halo;
+  const int n0 = a.n0, n1 = a.n1, tile = a.tile, halo = a.halo;
   const int gi0 = blockIdx.y * tile - halo - 1;
   const int gj0 = blockIdx.x * tile - halo - 1;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int nty = blockDim.x >> 5;
   for (int li = halo + 1 + ty; li < halo + 1 + tile; li += nty) {
     const int gi = gi0 + li;
+    if (gi >= n0) break;
     for (int lj = halo + 1 + tx; lj < halo + 1 + tile; lj += 32) {
       const int gj = gj0 + lj;
+      if (gj >= n1) break;
       const size_t g = (size_t)gi * n1 + gj;
       const T v = buf[L.at(li, lj)];
       s.out[g] = s.u ? v + s.u[g] : v;
@@ -983,7 +991,10 @@ __global__ void __launch_bounds__(PR_THREADS)
 // periodic axis face n is face 0.  Every level of the two-phase
 // projections' and the variable-density diffusion's corrections: the
 // coarsest from zero, every upward level from the coarser one's result,
-// the finest + u (solvers/poisson.py:_correction_variable).
+// the finest + u (solvers/poisson.py:_correction_variable).  A level may
+// be a rectangle (a box of several unit boxes, n x 2n): tiles divide
+// both sides, and a whole level is one block on the square buffer of its
+// longer side, its sweeps clipped to the domain.
 // Bound: device-memory bytes for a level of many tiles (reads the coarse
 // correction or u, rhs, ax, ay and the cell dia once, writes the result
 // once for all sweeps; at 1024^2 f32 ~25 MB, ~7.5 us); a level that fits
@@ -1416,10 +1427,11 @@ int launch_residual_restrict_div(const void* const* ptr, double dia,
 // count: one arrival count per system, 0 between launches (used only when
 // a level is coarser than one cell per tile)
 template <typename T>
-int launch_restrict_pyramid(int batch, const void* const* r, int n,
+int launch_restrict_pyramid(int batch, const void* const* r, int n0, int n1,
                             int levels, void* const* out,
                             unsigned int* count, void* stream) {
-  if (!batch_ok(batch) || levels < 1 || (n >> levels) < 1)
+  if (!batch_ok(batch) || levels < 1 || levels > 30 ||
+      n0 % (1 << levels) || n1 % (1 << levels) || n0 < 2 || n1 < 2)
     return (int)cudaErrorInvalidValue;
   PYArgs<T> a = {};
   for (int b = 0; b < batch; ++b) {
@@ -1427,12 +1439,14 @@ int launch_restrict_pyramid(int batch, const void* const* r, int n,
     a.sys[b].out = (T*)out[b];
     a.sys[b].count = count + b;
   }
-  const int tile = n < PY_TILE ? n : PY_TILE;
-  a.n = n;
+  int tile = PY_TILE;
+  while (n0 % tile || n1 % tile) tile /= 2;
+  a.n0 = n0;
+  a.n1 = n1;
   a.levels = levels;
   a.tile = tile;
   dim3 block(tile / 2, tile / 2);
-  dim3 grid(n / tile, n / tile, batch);
+  dim3 grid(n1 / tile, n0 / tile, batch);
   restrict_pyramid_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1594,7 +1608,10 @@ int launch_rbgs_relax_alpha(const void* const* ptr, int prolong, int n0,
                       per_y);
   const PRFaces<T> f{(const T*)ptr[2], (const T*)ptr[3], (const T*)ptr[4],
                      T(dia)};
-  const dim3 grid(n1 / tile, n0 / tile, 1);
+  // a whole level on a rectangle is one block whose tile is its longer
+  // side: the engine clips the sweeps to the domain and the write to
+  // its cells
+  const dim3 grid((n1 + tile - 1) / tile, (n0 + tile - 1) / tile, 1);
   const size_t smem = engine_smem<T, CF_FACES>(tile, halo);
   static int set[4][gtt::MAX_DEVICES];
   if (prolong) {
@@ -1689,10 +1706,10 @@ int launch_coarse_block(int batch, const void* const* ptr, const double* dia,
         stream);                                                              \
   }                                                                           \
   extern "C" int gtt_restrict_pyramid_##SUFFIX(                              \
-      int batch, void* const* ptr, int n, int levels, unsigned int* count,    \
-      void* stream) {                                                         \
-    return launch_restrict_pyramid<T>(batch, ptr, n, levels, ptr + batch,     \
-                                      count, stream);                         \
+      int batch, void* const* ptr, int n0, int n1, int levels,                \
+      unsigned int* count, void* stream) {                                    \
+    return launch_restrict_pyramid<T>(batch, ptr, n0, n1, levels,             \
+                                      ptr + batch, count, stream);            \
   }                                                                           \
   extern "C" int gtt_prolong_relax_##SUFFIX(                                  \
       int batch, void* const* ptr, const double* dia, int n0, int n1,         \

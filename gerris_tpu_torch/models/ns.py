@@ -28,23 +28,30 @@ The two-phase step (2D; reference ns.py:822-1011): ``density`` names a
 VOF tracer whose filtered fraction gives the cell densities rho and the
 face coefficients alpha = 1/rho (``density_fields``); ``tension`` gives
 well-balanced face sources from the height-function curvature
-(``tension_sources``).  Both projections then solve div(alpha grad p)
-with the face sources (K4, K15, a torch correction), each velocity
-component takes K14 and a rho-weighted diffusion solve (face
+(``tension_sources``), and ``body_force`` (gravity) face sources beside
+them (``body_force_sources``).  Both projections then solve div(alpha
+grad p) with the face sources (K4, K15, a torch correction), each
+velocity component takes K14 and a rho-weighted diffusion solve (face
 coefficients dt nu, cell dia rho: K15), and step 5 advects each VOF
-tracer with the projected faces.  Plain tracers, CSS tension, variable
-viscosity, body forces, 3D VOF, solids and metrics are later slices.
+tracer with the projected faces.  A variable viscosity ``nu_var``
+(``viscosity_field``) gives the diffusion face coefficients dt mu_face
+and the explicit transpose-stress sources (``viscous_transpose_sources``).
+Callable BC values are evaluated at the step's time ``t`` on every
+torch route; the kernels take constant values only, so such a
+configuration takes the plain versions where its callables are.  Plain
+tracers, CSS tension, 3D VOF, solids and metrics are later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..core.grid import Grid
 from ..core import bc as bcs
 from ..ops.cuda import bcg, predict
-from ..ops.stencils import face_average
+from ..ops.stencils import center_gradient, face_average
 from ..solvers import advection as adv
 from ..solvers import diffusion as diff
 from ..solvers import poisson
@@ -91,14 +98,29 @@ class NSConfig:
     # variable density from a VOF tracer (PhysicalParams alpha =
     # 1/RHO(T1), test/oscillation): (tracer, rho1, rho2, filter_passes)
     density: tuple = None
+    # a body force per component (GfsSource on a velocity component,
+    # src/source.c: gravity): None, or per component None, a float or a
+    # function f(x, y, t=...) of torch tensors; it enters both
+    # projections as well-balanced face sources beside tension
+    body_force: tuple = None
+    # variable dynamic viscosity (GfsSourceViscosity with a GfsFunction,
+    # src/source.c; MU(T1) in test/capwave/air-water): a function
+    # f(x, y, t=..., **fields) of torch tensors giving the viscosity per
+    # cell; nu_var_fields: the (name, parent, npass) fields it reads, a
+    # field not in the state being ``npass`` filter passes of its parent
+    # VOF tracer
+    nu_var: object = None
+    nu_var_fields: tuple = ()
 
     def __post_init__(self):
         if self.p_bc is None:
             object.__setattr__(self, "p_bc", bcs.grad_bc(self.u_bcs[0]))
-        if (self.vof_tracers or self.tension or self.density is not None) \
+        if (self.vof_tracers or self.tension or self.density is not None
+                or self.body_force is not None or self.nu_var is not None) \
                 and self.grid.dim != 2:
-            raise NotImplementedError("3D VOF, tension and variable density "
-                                      "are slice 3b (ROADMAP Queue 1)")
+            raise NotImplementedError("3D VOF, tension, variable density, "
+                                      "body forces and variable viscosity "
+                                      "are slice 3c (ROADMAP Queue 1)")
 
     @property
     def dim(self):
@@ -114,37 +136,40 @@ def gradient_names(dim):
 
 
 def predicted_face_velocities(U: list, grid: Grid, cfg: NSConfig, dt,
-                              div_scale=None):
+                              div_scale=None, t: float = 0.0):
     """BCG predicted MAC velocities with centred upwinding (reference:
     src/timestep.c:681-717): (faces, divp).  Through K6 where the BCs
-    allow it (gerris_tpu/models/ns.py:190-196), else its plain version.
-    ``div_scale``: ``divp`` is (div, total), the faces' divergence scaled
-    by div_scale and its sum; else None (always in 3D, where the faces
-    take the reference's generic route, gerris_tpu/models/ns.py:208-223)."""
+    allow it (gerris_tpu/models/ns.py:190-196), else its plain version,
+    with callable BC values at time ``t``.  ``div_scale``: ``divp`` is
+    (div, total), the faces' divergence scaled by div_scale and its sum;
+    else None (always in 3D, where the faces take the reference's generic
+    route, gerris_tpu/models/ns.py:208-223)."""
     if grid.dim == 3:
-        uc_pad = [bcs.apply_bc(U[c], grid, cfg.u_bcs[c], 1, corners=False)
-                  for c in range(3)]
+        uc_pad = [bcs.apply_bc(U[c], grid, cfg.u_bcs[c], 1, corners=False,
+                               t=t) for c in range(3)]
         uf = []
         for c in range(3):
             vp, vm = adv.advected_face_values(U[c], grid, cfg.u_bcs[c], dt,
-                                              uc_pad, axes=(c,))[c]
+                                              uc_pad, axes=(c,), t=t)[c]
             un = face_average(uc_pad[c], grid, c)
             uf.append(bcs.apply_face_bc(adv.upwind_face_value(vp, vm, un, c),
-                                        grid, cfg.u_bcs[c], c))
+                                        grid, cfg.u_bcs[c], c, t=t))
         return uf, None
-    kernel = (bcg.applicable(grid, cfg.advection)
-              and bcg.face_specs(cfg.u_bcs) is not None)
-    fn = predict.predict_xy if kernel else predict.predict_xy_plain
-    out = fn(U[0], U[1], dt, grid, cfg.u_bcs, div_scale)
+    if (bcg.applicable(grid, cfg.advection)
+            and bcg.face_specs(cfg.u_bcs) is not None):
+        out = predict.predict_xy(U[0], U[1], dt, grid, cfg.u_bcs, div_scale)
+    else:
+        out = predict.predict_xy_plain(U[0], U[1], dt, grid, cfg.u_bcs,
+                                       div_scale, t=t)
     return [out[0], out[1]], None if div_scale is None else (out[2], out[3])
 
 
-def _pair_route(grid: Grid, cfg: NSConfig, rho=None) -> bool:
+def _pair_route(grid: Grid, cfg: NSConfig, rho=None, mu=None) -> bool:
     """The reference's batched U+V route (gerris_tpu/models/ns.py:257-264):
-    2D, unit density, fully implicit diffusion on a fixed schedule, the
-    kernel route, and K14's BCs (periodic y refused) for both
-    components."""
-    return (rho is None and cfg.nu > 0.0 and cfg.beta == 1.0
+    2D, unit density, a constant viscosity, fully implicit diffusion on a
+    fixed schedule, the kernel route, and K14's BCs (periodic y refused)
+    for both components."""
+    return (rho is None and mu is None and cfg.nu > 0.0 and cfg.beta == 1.0
             and cfg.diffusion_params is not None
             and cfg.diffusion_params.ncycles > 0
             and bcg.applicable(grid, cfg.advection)
@@ -152,7 +177,8 @@ def _pair_route(grid: Grid, cfg: NSConfig, rho=None) -> bool:
 
 
 def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
-                                 grid: Grid, cfg: NSConfig, dt, rho=None):
+                                 grid: Grid, cfg: NSConfig, dt, rho=None,
+                                 mu=None, sources=None, t: float = 0.0):
     """BCG advection of each component with the MAC faces, the gmac face
     correction and the -dt g_prev gc term, then its implicit diffusion
     (reference: src/timestep.c:976-1017; gerris_tpu ns.py:257-374).  With
@@ -170,14 +196,19 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     solve.  With the cell densities ``rho`` (two-phase) each component's
     K14 gives fv - dt g_prev and its diffusion solves rho u - dt div(nu
     grad u) = rho (u + fv) (face coefficients dt nu, cell dia rho: K15;
-    reference ns.py:339-373).  3D: the reference's generic route,
-    advection_diffusion_3d."""
+    reference ns.py:339-373).  With a variable viscosity ``mu`` (cells)
+    the diffusion's face coefficients are dt times its face means, and
+    ``sources`` (per component, e.g. viscous_transpose_sources) add dt
+    sources to each component's increment (reference ns.py:247-252,
+    :418-437).  Callable BC values are evaluated at time ``t``.  3D: the
+    reference's generic route, advection_diffusion_3d."""
     if grid.dim == 3:
-        return advection_diffusion_3d(U, uf, gmac, g_prev, grid, cfg, dt)
-    fold = cfg.nu > 0.0 and cfg.beta == 1.0 and rho is None
+        return advection_diffusion_3d(U, uf, gmac, g_prev, grid, cfg, dt, t)
+    fold = cfg.nu > 0.0 and cfg.beta == 1.0 and rho is None and mu is None \
+        and sources is None
     dia = 1.0 / (dt * cfg.nu) if fold else None
     gp = None if g_prev is None else list(g_prev)
-    if _pair_route(grid, cfg, rho):
+    if sources is None and _pair_route(grid, cfg, rho, mu):
         bcs_ = list(cfg.u_bcs)
         dp = cfg.diffusion_params
         kw = dict(g=gmac, gp=gp, oscale=-dia)
@@ -198,26 +229,35 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
                                  oscale=-dia) for c in range(2)]
         return diff.diffuse_pair(U, grid, bcs_, dt, cfg.nu, cfg.beta, dp,
                                  rhss=rhss)[0]
+    D = cfg.nu
+    if mu is not None:
+        # the face viscosity of the implicit solve (reference ns.py:247-252)
+        mu_pad = bcs.apply_bc(mu, grid, bcs.default_scalar_bc(2), 1, t=t)
+        D = tuple(face_average(mu_pad, grid, a) for a in range(2))
     kernel = bcg.applicable(grid, cfg.advection)
     out = []
     for c in range(grid.dim):
         fbc = cfg.u_bcs[c]
-        advect = bcg.advect2d if kernel and bcg.advect_spec(fbc) is not None \
-            else bcg.advect2d_plain
-        fv = advect(U[c], c, uf[0], uf[1], dt, grid, fbc, g=gmac[c],
-                    gp=None if gp is None else gp[c],
-                    oscale=None if dia is None else -dia)
+        kw = dict(g=gmac[c], gp=None if gp is None else gp[c],
+                  oscale=None if dia is None else -dia)
+        if kernel and bcg.advect_spec(fbc) is not None:
+            fv = bcg.advect2d(U[c], c, uf[0], uf[1], dt, grid, fbc, **kw)
+        else:
+            fv = bcg.advect2d_plain(U[c], c, uf[0], uf[1], dt, grid, fbc,
+                                    t=t, **kw)
+        if sources is not None:
+            fv = fv + dt * sources[c]
         if fold:
             v_new, _ = poisson.solve(
                 U[c], fv, grid, fbc,
-                diff.params_or_default(cfg.diffusion_params), dia=dia)
-        elif cfg.nu > 0.0:
-            v_new, _ = diff.diffuse(U[c], grid, fbc, dt, cfg.nu,
+                diff.params_or_default(cfg.diffusion_params), dia=dia, t=t)
+        elif cfg.nu > 0.0 or mu is not None:
+            v_new, _ = diff.diffuse(U[c], grid, fbc, dt, D,
                                     rho=1.0 if rho is None else rho,
                                     beta=cfg.beta,
                                     params=cfg.diffusion_params,
                                     extra_rhs=fv if rho is None
-                                    else rho * fv)
+                                    else rho * fv, t=t)
         else:
             v_new = U[c] + fv
         out.append(v_new)
@@ -225,26 +265,26 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
 
 
 def advection_diffusion_3d(U: list, uf: list, gmac: list, g_prev,
-                           grid: Grid, cfg: NSConfig, dt):
+                           grid: Grid, cfg: NSConfig, dt, t: float = 0.0):
     """Per component: the BCG face values with the MAC faces' cell means
     as the advecting velocity, upwinded by the MAC faces, minus the face
     mean of gmac times dt/2 (the component's own faces then take its
     Dirichlet value), the flux divergence, minus dt g_prev, then the
     implicit diffusion solve (reference gerris_tpu/models/ns.py:375-447,
-    src/advection.c:419)."""
+    src/advection.c:419); callable BC values at time ``t``."""
     uc_pad = adv.mac_cell_mean(uf, grid)
     gbc = bcs.grad_bc(cfg.u_bcs[0])
     out = []
     for c in range(3):
         fbc = cfg.u_bcs[c]
-        fvals = adv.advected_face_values(U[c], grid, fbc, dt, uc_pad)
+        fvals = adv.advected_face_values(U[c], grid, fbc, dt, uc_pad, t=t)
         g_pad = bcs.apply_bc(gmac[c], grid, gbc, 1, corners=False)
         v_faces = []
         for a in range(3):
             vface = adv.upwind_face_value(fvals[a][0], fvals[a][1], uf[a], a)
             vface = vface - face_average(g_pad, grid, a) * dt / 2.0
             if a == c:
-                vface = bcs.apply_face_bc(vface, grid, fbc, a)
+                vface = bcs.apply_face_bc(vface, grid, fbc, a, t=t)
             v_faces.append(vface)
         fv = adv.flux_divergence(v_faces, uf, grid, dt)
         if g_prev is not None:
@@ -253,7 +293,7 @@ def advection_diffusion_3d(U: list, uf: list, gmac: list, g_prev,
             v_new, _ = diff.diffuse(U[c], grid, fbc, dt, cfg.nu, rho=1.0,
                                     beta=cfg.beta,
                                     params=cfg.diffusion_params,
-                                    extra_rhs=fv)
+                                    extra_rhs=fv, t=t)
         else:
             v_new = U[c] + fv
         out.append(v_new)
@@ -264,12 +304,13 @@ def _vof_bc(cfg: NSConfig, name: str) -> bcs.FieldBC:
     return dict((v[0], v[1]) for v in cfg.vof_tracers)[name]
 
 
-def filtered(T, grid: Grid, fbc: bcs.FieldBC, npass: int = 1):
+def filtered(T, grid: Grid, fbc: bcs.FieldBC, npass: int = 1,
+             t: float = 0.0):
     """The tracer smoothed by ``npass`` passes of the separable (1,2,1)/4
     kernel (GfsVariableFiltered, src/variable.c; gerris_tpu
-    ns.py:489-505)."""
+    ns.py:489-505), on its padding with BC values at time ``t``."""
     for _ in range(npass):
-        p = bcs.apply_bc(T, grid, fbc, 1)
+        p = bcs.apply_bc(T, grid, fbc, 1, t=t)
         for ax in range(grid.dim):
             n = p.shape[ax]
             p = 0.25 * (p.narrow(ax, 0, n - 2) + 2.0 * p.narrow(ax, 1, n - 2)
@@ -278,7 +319,7 @@ def filtered(T, grid: Grid, fbc: bcs.FieldBC, npass: int = 1):
     return T
 
 
-def density_fields(state: dict, cfg: NSConfig):
+def density_fields(state: dict, cfg: NSConfig, t: float = 0.0):
     """(rho_cell, alpha_faces) from the VOF tracer: rho = rho2 + T1 (rho1 -
     rho2) with T1 the filtered fraction clipped to [0, 1], alpha = 1 /
     rho(T1 on the face) (gfs_poisson_coefficients src/poisson.c:868;
@@ -288,9 +329,9 @@ def density_fields(state: dict, cfg: NSConfig):
     name, rho1, rho2, npass = cfg.density
     fbc = _vof_bc(cfg, name)
     grid = cfg.grid
-    T1 = filtered(state[name], grid, fbc, npass)
+    T1 = filtered(state[name], grid, fbc, npass, t)
     rho_c = rho2 + torch.clamp(T1, 0.0, 1.0) * (rho1 - rho2)
-    T1p = bcs.apply_bc(T1, grid, fbc, 1)
+    T1p = bcs.apply_bc(T1, grid, fbc, 1, t=t)
     alpha = tuple(
         1.0 / (rho2 + torch.clamp(face_average(T1p, grid, ax), 0.0, 1.0)
                * (rho1 - rho2))
@@ -299,7 +340,7 @@ def density_fields(state: dict, cfg: NSConfig):
 
 
 def tension_sources(state: dict, cfg: NSConfig, alpha=None,
-                    off_max: int = 2):
+                    off_max: int = 2, t: float = 0.0):
     """The well-balanced tension face sources of every (vof_name, sigma)
     in ``cfg.tension``, summed: height-function curvature, filled twice
     into the neighbouring cells, times sigma grad(T) on the faces (and
@@ -308,29 +349,142 @@ def tension_sources(state: dict, cfg: NSConfig, alpha=None,
     for name, sigma in cfg.tension:
         fbc = _vof_bc(cfg, name)
         T = state[name]
-        kap = vof.curvature(T, cfg.grid, fbc, off_max=off_max)
+        kap = vof.curvature(T, cfg.grid, fbc, off_max=off_max, t=t)
         kap = vof.fill_curvature(kap, None, niter=2)
         dp = tens.tension_face_sources(T, kap, sigma, cfg.grid, fbc,
-                                       alpha=alpha)
+                                       alpha=alpha, t=t)
         srcs = dp if srcs is None else [a + b for a, b in zip(srcs, dp)]
     return srcs
 
 
+@functools.lru_cache(maxsize=16)
+def cell_centers(grid: Grid, device, dtype) -> tuple:
+    """The cell-centre coordinates per axis as broadcast (meshgrid,
+    indexing 'ij') tensors on ``device``, formed there from the axis
+    coordinates in float64 and cast (grid.centers' values), once per
+    grid, device and dtype."""
+    axes = [torch.as_tensor(grid.axis_centers(a), dtype=torch.float64,
+                            device=device).to(dtype)
+            for a in range(grid.dim)]
+    return tuple(torch.meshgrid(*axes, indexing="ij"))
+
+
+def viscosity_field(state: dict, cfg: NSConfig, t: float = 0.0):
+    """The dynamic viscosity per cell from ``cfg.nu_var`` at time ``t``
+    (GfsSourceViscosity with a GfsFunction, src/source.c; gerris_tpu
+    ns.py:530-548), or None without one.  A field of ``nu_var_fields``
+    that the state lacks is ``npass`` filter passes of its parent tracer
+    on the parent's BCs (a VOF tracer's, else the default scalar BCs)."""
+    if cfg.nu_var is None:
+        return None
+    grid = cfg.grid
+    like = state[velocity_names(grid.dim)[0]]
+    vof_bc = dict((v[0], v[1]) for v in cfg.vof_tracers)
+    fields = {}
+    for name, parent, npass in cfg.nu_var_fields:
+        if parent is None or name in state:
+            fields[name] = state[name]
+        else:
+            fbc = vof_bc.get(parent) or bcs.default_scalar_bc(grid.dim)
+            fields[name] = filtered(state[parent], grid, fbc, npass, t)
+    mu = cfg.nu_var(*cell_centers(grid, like.device, like.dtype), t=t,
+                    **fields)
+    return torch.broadcast_to(torch.as_tensor(mu, dtype=like.dtype,
+                                              device=like.device),
+                              grid.shape)
+
+
+def viscous_transpose_sources(U: list, mu, grid: Grid, cfg: NSConfig,
+                              alpha_cell=None, t: float = 0.0) -> list:
+    """The explicit remainder of the variable-viscosity stress divergence,
+    per component c: (1/rho) sum_j (d_c u_j)(d_j mu), the div(mu grad(u)^T)
+    part that the implicit div(mu grad u_c) solve does not see, in
+    centred gradients (source_viscosity_non_diffusion_value,
+    src/source.c:1412-1438; gerris_tpu ns.py:551-573).  ``alpha_cell``:
+    1/rho per cell, or None for unit density."""
+    dim = grid.dim
+    mu_pad = bcs.apply_bc(mu, grid, bcs.default_scalar_bc(dim), 1, t=t)
+    dmu = [center_gradient(mu_pad, grid, j) for j in range(dim)]
+    u_pads = [bcs.apply_bc(U[j], grid, cfg.u_bcs[j], 1, corners=False, t=t)
+              for j in range(dim)]
+    srcs = []
+    for c in range(dim):
+        s = 0.0
+        for j in range(dim):
+            s = s + center_gradient(u_pads[j], grid, c) * dmu[j]
+        srcs.append(s if alpha_cell is None else s * alpha_cell)
+    return srcs
+
+
+def _face_coords(grid: Grid, axis: int, like) -> list:
+    """The centres of the faces of ``axis``, per axis broadcastable
+    tensors of ``like``'s dtype and device (face coordinates along
+    ``axis``, cell centres along the others)."""
+    coords = []
+    for a in range(grid.dim):
+        x = grid.axis_faces(a) if a == axis else grid.axis_centers(a)
+        sh = [1] * grid.dim
+        sh[a] = len(x)
+        coords.append(torch.as_tensor(x, dtype=torch.float64,
+                                      device=like.device)
+                      .to(like.dtype).reshape(sh))
+    return coords
+
+
+def body_force_sources(cfg: NSConfig, like, t: float = 0.0) -> list:
+    """The body force as per-axis face sources (gerris_tpu ns.py:846-891,
+    src/timestep.c:245-290): component c's value at the centres of the
+    faces of axis c (a None component: zero faces; a callable one
+    evaluated at time ``t``), on the same well-balanced path as tension,
+    so that a hydrostatic state stays at rest to rounding.  A boundary
+    face whose normal velocity is Dirichlet (prescribed) carries no
+    force.  The reference zeroes the force on every non-periodic
+    boundary face instead, where the normal velocity is prescribed or not
+    (ROADMAP Queue 3): on walls the two agree."""
+    grid = cfg.grid
+    out = []
+    for c in range(grid.dim):
+        shp = grid.face_shape(c)
+        bf = cfg.body_force[c]
+        if bf is None:
+            out.append(torch.zeros(shp, dtype=like.dtype, device=like.device))
+            continue
+        if callable(bf):
+            f = torch.broadcast_to(torch.as_tensor(
+                bf(*_face_coords(grid, c, like), t=t), dtype=like.dtype,
+                device=like.device), shp).clone()
+        else:
+            f = torch.full(shp, float(bf), dtype=like.dtype,
+                           device=like.device)
+        for side in (0, 1):
+            if cfg.u_bcs[c].sides[c][side].kind == bcs.DIRICHLET:
+                f.narrow(c, 0 if side == 0 else shp[c] - 1, 1).zero_()
+        out.append(f)
+    return out
+
+
 def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
             first_step: bool = False, cstart: int = 0) -> dict:
-    """One full time step; ``state`` holds U, V[, W], P, Pmac, Gx, Gy[,
-    Gz] and the VOF tracers.  ``dt`` is a host float (the Helmholtz dia =
-    1/(beta dt nu) is a kernel argument).  ``t`` is unused while BC values
-    are constant; it is kept for the reference's signature.  ``cstart``:
-    the VOF advection's first sweep direction (Simulation rotates it,
+    """One full time step from time ``t``; ``state`` holds U, V[, W], P,
+    Pmac, Gx, Gy[, Gz] and the VOF tracers.  ``dt`` is a host float (the
+    Helmholtz dia = 1/(beta dt nu) is a kernel argument).  Callable BC
+    values, a callable body force and ``nu_var`` are evaluated at ``t``
+    throughout the step, as the reference does.  ``cstart``: the VOF
+    advection's first sweep direction (Simulation rotates it,
     src/vof.c:1648,1721).  Returns a new state dict."""
     grid = cfg.grid
     dim = grid.dim
     names = velocity_names(dim)
     U = [state[n] for n in names]
     g_prev = [state[n] for n in gradient_names(dim)]
-    rho_c, alpha = density_fields(state, cfg)
-    fs = tension_sources(state, cfg, alpha=alpha)
+    rho_c, alpha = density_fields(state, cfg, t)
+    fs = tension_sources(state, cfg, alpha=alpha, t=t)
+    if cfg.body_force is not None:
+        fg = body_force_sources(cfg, U[0], t)
+        fs = fg if fs is None else [a + b for a, b in zip(fs, fg)]
+    mu = viscosity_field(state, cfg, t)
+    sources = None if mu is None else viscous_transpose_sources(
+        U, mu, grid, cfg, None if rho_c is None else 1.0 / rho_c, t)
     # 1-2. prediction, MAC projection at dt/2 (the reference swaps P and
     # Pmac around it, src/simulation.c:498-504).  div_in_src (2D): each
     # projection's divergence comes out of the launch that builds its
@@ -338,25 +492,25 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
     fold = cfg.div_in_src and dim == 2 and fs is None and alpha is None
     uf, mac_divp = predicted_face_velocities(
         U, grid, cfg, dt,
-        div_scale=1.0 / (grid.h * (dt / 2.0)) if fold else None)
+        div_scale=1.0 / (grid.h * (dt / 2.0)) if fold else None, t=t)
     uf, pmac, gmac, _, _ = proj.mac_projection(
         uf, state["Pmac"], grid, cfg.p_bc, dt / 2.0, cfg.projection,
-        div_pre=mac_divp, alpha=alpha, face_sources=fs)
+        div_pre=mac_divp, alpha=alpha, face_sources=fs, t=t)
     # 3. at i == 0 the gc gradient role is played by this step's gmac
     # (src/simulation.c:514-521)
     if first_step:
         g_prev = gmac
     U = velocity_advection_diffusion(U, uf, gmac, g_prev, grid, cfg, dt,
-                                     rho=rho_c)
+                                     rho=rho_c, mu=mu, sources=sources, t=t)
     # 4. approximate projection at dt with the gc re-add folded into the
     # face interpolation (src/simulation.c:520) and the centred
     # correction into the projection's correction launch
     uf2, U, apx_divp = proj.face_interpolated_velocity(
         U, grid, list(cfg.u_bcs), gp=g_prev, dtv=dt,
-        div_scale=1.0 / (grid.h * dt) if fold else None)
+        div_scale=1.0 / (grid.h * dt) if fold else None, t=t)
     uf2, p, g_cell, _, U = proj.mac_projection(
         uf2, state["P"], grid, cfg.p_bc, dt, cfg.approx_projection, cells=U,
-        div_pre=apx_divp, alpha=alpha, face_sources=fs)
+        div_pre=apx_divp, alpha=alpha, face_sources=fs, t=t)
     new = dict(state)
     for c, n in enumerate(names):
         new[n] = U[c]
@@ -367,7 +521,7 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
     # 5. VOF tracers with the projected faces (gfs_advance_tracers)
     for name, fbc in cfg.vof_tracers:
         new[name] = vof.advect(state[name], uf2, grid, fbc, dt,
-                               cstart=cstart)
+                               cstart=cstart, t=t)
     return new
 
 
@@ -375,17 +529,19 @@ def initial_projection(state: dict, dt: float, t: float,
                        cfg: NSConfig) -> dict:
     """The i == 0 approximate projection that makes the initial field
     divergence-free and seeds the gc gradient (src/simulation.c:466-474),
-    with the density's face coefficients and no tension: the reference's
-    curvature is not evaluated yet at that time (gerris_tpu
-    ns.py:1014-1044, src/poisson.c:929-936)."""
+    with the density's face coefficients and no face sources: the
+    reference's curvature is not evaluated yet at that time, and its body
+    force is not applied there either (gerris_tpu ns.py:1014-1044,
+    src/poisson.c:929-936)."""
     names = velocity_names(cfg.dim)
     U = [state[n] for n in names]
-    _, alpha = density_fields(state, cfg)
-    uf, _, _ = proj.face_interpolated_velocity(U, cfg.grid, list(cfg.u_bcs))
+    _, alpha = density_fields(state, cfg, t)
+    uf, _, _ = proj.face_interpolated_velocity(U, cfg.grid, list(cfg.u_bcs),
+                                               t=t)
     _, p, g_cell, _, U = proj.mac_projection(uf, state["P"], cfg.grid,
                                              cfg.p_bc, dt,
                                              cfg.approx_projection, cells=U,
-                                             alpha=alpha)
+                                             alpha=alpha, t=t)
     new = dict(state)
     for c, n in enumerate(names):
         new[n] = U[c]
@@ -397,13 +553,26 @@ def initial_projection(state: dict, dt: float, t: float,
 
 def timescale(state: dict, cfg: NSConfig) -> torch.Tensor:
     """min over components of h / max|u| (reference: gfs_domain_cfl,
-    src/domain.c:2857-2906), a 0-d tensor on the state's device.  The
-    reference guards with 1e-300, which is 0 in float32: the port uses
-    the dtype's smallest normal number."""
+    src/domain.c:2857-2906), and with a body force the acceleration bound
+    sqrt(2 h / max|a|) of each component that has one, a callable force
+    evaluated at the cell centres at t = 0 as the reference does
+    (gerris_tpu ns.py:1061-1080); a 0-d tensor on the state's device.
+    The reference guards with 1e-300, which is 0 in float32: the port
+    uses the dtype's smallest normal number."""
     ts = None
+    h = cfg.grid.h
     for n in velocity_names(cfg.dim):
         v = state[n]
         umax = torch.clamp(v.abs().max(), min=torch.finfo(v.dtype).tiny)
-        t_c = cfg.grid.h / umax
+        t_c = h / umax
         ts = t_c if ts is None else torch.minimum(ts, t_c)
+    for bf in cfg.body_force or ():
+        if bf is None:
+            continue
+        if callable(bf):
+            bf = bf(*cell_centers(cfg.grid, ts.device, ts.dtype), 0.0)
+        amax = torch.as_tensor(bf, dtype=ts.dtype, device=ts.device) \
+            .abs().max()
+        ts = torch.minimum(ts, torch.sqrt(
+            2.0 * h / torch.clamp(amax, min=torch.finfo(ts.dtype).tiny)))
     return ts

@@ -144,18 +144,19 @@ def refused(name, what):
 # -----------------------------------------------------------------------------
 
 def advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None,
-                   oscale=None):
+                   oscale=None, t=0.0):
     """The torch route: BCG face values of ``v`` on both axes with the
     advecting velocities from the MAC faces, the Godunov choice, the gmac
     face correction, the Dirichlet faces of axis ``c`` and the flux
     difference (reference: src/timestep.c:976-1017).  Corner ghosts in
     the kernel's order where K14 takes ``fbc``, else the reference's
-    generic route's (solvers/advection.advected_face_values)."""
+    generic route's (solvers/advection.advected_face_values).  Callable
+    BC values (which K14 does not take) are evaluated at time ``t``."""
     uf = [ufx, ufy]
     uc_pad = adv.mac_cell_mean(uf, grid)
     fvals = adv.advected_face_values(
         v, grid, fbc, dt, uc_pad,
-        kernel_corners=advect_spec(fbc) is not None)
+        kernel_corners=advect_spec(fbc) is not None, t=t)
     g_pad = None if g is None else \
         bcs.apply_bc(g, grid, bcs.grad_bc(fbc), 1, corners=False)
     v_faces = []
@@ -164,7 +165,7 @@ def advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None,
         if g_pad is not None:
             vface = vface - face_average(g_pad, grid, a) * dt / 2.0
         if a == c:
-            vface = bcs.apply_face_bc(vface, grid, fbc, a)
+            vface = bcs.apply_face_bc(vface, grid, fbc, a, t=t)
         v_faces.append(vface)
     fv = adv.flux_divergence(v_faces, uf, grid, dt)
     if gp is not None:

@@ -120,7 +120,7 @@ _IP = ctypes.POINTER(ctypes.c_int)       # a host array of ints
 _SIGNATURES = {
     "gtt_residual_restrict": [_I, _PP, _DP, _DP, _D, _I, _I, _DP, _I, _I,
                               _P],
-    "gtt_restrict_pyramid": [_I, _PP, _I, _I, _P, _P],
+    "gtt_restrict_pyramid": [_I, _PP, _I, _I, _I, _P, _P],
     "gtt_prolong_relax": [_I, _PP, _DP, _I, _I, _I, _I, _I, _D, _D, _DP, _I,
                           _P],
     "gtt_residual": [_P, _P, _P, _I, _I, _D, _D, _DP, _DP, _I, _I, _P],

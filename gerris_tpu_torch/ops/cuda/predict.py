@@ -28,24 +28,26 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
-def predict_xy_plain(U, V, dt, grid, u_bcs, div_scale=None):
+def predict_xy_plain(U, V, dt, grid, u_bcs, div_scale=None, t=0.0):
     """The torch route: per component, the BCG values along its own axis,
     the Godunov choice on the centred normal velocity and the Dirichlet
     boundary faces.  Corner ghosts in the kernel's order where K6 takes
     ``u_bcs``, else the reference's generic route's
-    (solvers/advection.advected_face_values)."""
+    (solvers/advection.advected_face_values).  Callable BC values (which
+    K6 does not take) are evaluated at time ``t``."""
     U = [U, V]
-    uc_pad = [bcs.apply_bc(U[c], grid, u_bcs[c], 1, corners=False)
+    uc_pad = [bcs.apply_bc(U[c], grid, u_bcs[c], 1, corners=False, t=t)
               for c in range(2)]
     kernel_corners = face_specs(u_bcs) is not None
     uf = []
     for c in range(2):
         vp, vm = adv.advected_face_values(U[c], grid, u_bcs[c], dt, uc_pad,
                                           axes=(c,),
-                                          kernel_corners=kernel_corners)[c]
+                                          kernel_corners=kernel_corners,
+                                          t=t)[c]
         un = face_average(uc_pad[c], grid, c)
         uf.append(bcs.apply_face_bc(adv.upwind_face_value(vp, vm, un, c),
-                                    grid, u_bcs[c], c))
+                                    grid, u_bcs[c], c, t=t))
     div = (None, None) if div_scale is None else \
         divergence_plain(uf[0], uf[1], div_scale)
     return (uf[0], uf[1]) + div

@@ -55,11 +55,12 @@ def divergence_mac_plain(ufx, ufy, dt, h):
     return divergence_plain(ufx, ufy, 1.0 / (dt * h))
 
 
-def correct_project_plain(p, ufx, ufy, dt, grid, p_bc, cells=None):
+def correct_project_plain(p, ufx, ufy, dt, grid, p_bc, cells=None, t=0.0):
     """Face gradients of p (reference: src/timestep.c:60-145), the faces
     corrected by -dt of them, the cell gradient as the mean of a cell's
-    two face gradients, and the cells corrected by -dt of it."""
-    p_pad = bcs.apply_bc(p, grid, p_bc, 1, corners=False)
+    two face gradients, and the cells corrected by -dt of it.  Callable
+    BC values are evaluated at time ``t``."""
+    p_pad = bcs.apply_bc(p, grid, p_bc, 1, corners=False, t=t)
     gfx, gfy = (face_gradient(p_pad, grid, a) for a in range(2))
     gx = 0.5 * (gfx[:-1] + gfx[1:])
     gy = 0.5 * (gfy[:, :-1] + gfy[:, 1:])
@@ -69,16 +70,17 @@ def correct_project_plain(p, ufx, ufy, dt, grid, p_bc, cells=None):
 
 
 def interp_faces_plain(U, V, grid, u_bcs, gp=None, dtv=None,
-                       div_scale=None):
+                       div_scale=None, t=0.0):
     """Face means of the (gc re-added) cells with the Dirichlet boundary
-    faces (reference: src/advection.c:546-566, src/simulation.c:520)."""
+    faces (reference: src/advection.c:546-566, src/simulation.c:520),
+    callable BC values evaluated at time ``t``."""
     if gp is not None:
         U, V = U + dtv * gp[0], V + dtv * gp[1]
     faces = []
     for c, u in enumerate((U, V)):
-        pad = bcs.apply_bc(u, grid, u_bcs[c], 1, corners=False)
+        pad = bcs.apply_bc(u, grid, u_bcs[c], 1, corners=False, t=t)
         faces.append(bcs.apply_face_bc(face_average(pad, grid, c), grid,
-                                       u_bcs[c], c))
+                                       u_bcs[c], c, t=t))
     div = (None, None) if div_scale is None else \
         divergence_plain(faces[0], faces[1], div_scale)
     return (faces[0], faces[1], U, V) + div

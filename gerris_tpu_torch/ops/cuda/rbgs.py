@@ -29,7 +29,9 @@ own dia, sub and ghost offsets; its plain version is the single plain
 version per system.
 
 Each wrapper checks its inputs (dtype float32/float64, contiguous, square
-power-of-two levels) and then:
+power-of-two levels; ``restrict_pyramid`` and K15 also the levels of a
+box of several unit boxes, whose longer side is a multiple of its
+shorter, power-of-two one, such as n x 2n) and then:
 * for tensors on the CPU, returns the plain PyTorch version below (the
   CPU tests and the card-side reference in chip_smoke.py use these);
 * for CUDA tensors, launches the kernel on the current stream and adds
@@ -405,6 +407,27 @@ def _check_level(t, name, n=None, min_n=16):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _check_box(t, name, shape=None, min_n=2):
+    """A level of a box of unit boxes: 2D, the shorter side a power of two
+    of at least ``min_n`` and the longer side a multiple of it (a square
+    level is the one-box case), of ``shape`` if given."""
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {t.dtype}, want float32/float64")
+    if t.dim() != 2:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want 2D")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+    m = min(t.shape)
+    if m < min_n or m & (m - 1):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want its shorter "
+                         f"side a power of two >= {min_n}")
+    if max(t.shape) % m:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want its longer "
+                         "side a multiple of its shorter one")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
 def check(t, name, shape):
     if t.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {t.dtype}, want float32/float64")
@@ -577,16 +600,17 @@ _WORKSPACES = {}
 
 def _pyramid_levels(r, batch, levels):
     """``batch`` buffers of the levels below r's, and each one's levels
-    as (m, m) views of it, finest first."""
-    n = r.shape[0]
+    as (m0, m1) views of it, finest first."""
+    n0, n1 = r.shape
     bufs, outs = [], []
     for _ in range(batch):
-        buf = r.new_empty(sum((n >> k) ** 2 for k in range(1, levels + 1)))
+        buf = r.new_empty(sum((n0 >> k) * (n1 >> k)
+                              for k in range(1, levels + 1)))
         views, off = [], 0
         for k in range(1, levels + 1):
-            m = n >> k
-            views.append(buf[off:off + m * m].view(m, m))
-            off += m * m
+            m0, m1 = n0 >> k, n1 >> k
+            views.append(buf[off:off + m0 * m1].view(m0, m1))
+            off += m0 * m1
         bufs.append(buf)
         outs.append(views)
     return bufs, outs
@@ -605,7 +629,7 @@ def _pyramid_cuda(rs, levels, counter, workspace=False):
     if count is None:
         count = _ARRIVALS[dev.index, stream] = torch.zeros(
             MAX_BATCH, dtype=torch.int32, device=dev)
-    key = (dev.index, stream, r.dtype, r.shape[0], levels, len(rs))
+    key = (dev.index, stream, r.dtype, tuple(r.shape), levels, len(rs))
     made = _WORKSPACES.get(key) if workspace else None
     if made is None:
         made = _pyramid_levels(r, len(rs), levels)
@@ -613,23 +637,25 @@ def _pyramid_cuda(rs, levels, counter, workspace=False):
             _WORKSPACES[key] = made
     bufs, outs = made
     _call("restrict_pyramid", r.dtype, dev, len(rs), pointers(rs, bufs),
-          r.shape[0], levels, count.data_ptr())
+          r.shape[0], r.shape[1], levels, count.data_ptr())
     LAUNCHES[counter] += 1
     return outs
 
 
-def _check_pyramid(r, levels, name="r", n=None):
-    _check_level(r, name, n, min_n=2)
-    if not 1 <= levels or r.shape[0] >> levels < 1:
+def _check_pyramid(r, levels, name="r", shape=None):
+    _check_box(r, name, shape)
+    m = min(r.shape)
+    if not 1 <= levels or m >> levels < 1:
         raise ValueError(f"restrict_pyramid: {levels} levels of a "
-                         f"{r.shape[0]}^2 level, want 1 to "
-                         f"{r.shape[0].bit_length() - 1}")
+                         f"{tuple(r.shape)} level, want 1 to "
+                         f"{m.bit_length() - 1}")
 
 
 def restrict_pyramid(r, levels):
     """The ``levels`` successive 2x2 means of r, finest first: [pool(r),
     pool(pool(r)), ...], in one launch (the corrections' and cascades'
-    restriction)."""
+    restriction).  r is a square level or a box's (n0, n1) level
+    (_check_box)."""
     _check_pyramid(r, levels)
     if _on_cpu(r):
         return pyramid_plain(r, levels)
@@ -641,7 +667,7 @@ def restrict_pyramid_pair(rs, levels):
     of rs[0], levels of rs[1]]."""
     _check_pair(rs)
     for b in range(2):
-        _check_pyramid(rs[b], levels, f"rs[{b}]", rs[0].shape[0])
+        _check_pyramid(rs[b], levels, f"rs[{b}]", rs[0].shape)
     if _on_cpu(*rs):
         return [pyramid_plain(r, levels) for r in rs]
     return _pyramid_cuda(rs, levels, "restrict_pyramid_pair")
@@ -649,7 +675,7 @@ def restrict_pyramid_pair(rs, levels):
 
 def restrict2(r):
     """One 2x2 mean pool: restrict_pyramid's one-level case."""
-    _check_level(r, "r", min_n=2)
+    _check_pyramid(r, 1)
     if _on_cpu(r):
         return pool_plain(r)
     return _pyramid_cuda([r], 1, "restrict2")[0][0]
@@ -917,12 +943,14 @@ BUFFERS = {"rbgs_relax": 2, "rbgs_relax_alpha": 5}
 
 
 @functools.lru_cache(maxsize=4096)
-def _sweep_plan(n, nsweeps, buffers, itemsize, sms=1, tile=None,
+def _sweep_plan(shape, nsweeps, buffers, itemsize, sms=1, tile=None,
                 threads=None, whole_max=64):
     """(tile, sweeps per launch, threads) of a K10 (``buffers`` 2) or K15
-    (5) launch on an n^2 level.  A level of at most ``whole_max`` cells
-    per side is one block with no halo that takes every sweep.  A larger
-    one uses tile x tile tiles with a halo of 2 sweeps per launch:
+    (5) launch on an n0 x n1 level (``shape``, or n for a square one;
+    K15's may be a box's rectangle).  A level of at most ``whole_max`` cells per side is one
+    block with no halo that takes every sweep, its tile the longer side.
+    A larger one uses tile x tile tiles with a halo of 2 sweeps per
+    launch:
     ``tile`` if given, else the largest of 64, 32, 16 whose buffers hold
     the halo of all the sweeps in shared memory and that still gives each
     of the card's ``sms`` multiprocessors a block (else the smallest that
@@ -936,11 +964,14 @@ def _sweep_plan(n, nsweeps, buffers, itemsize, sms=1, tile=None,
     launch geometry only: the result is bit-identical for all of them."""
     if threads not in (None, 256, 512):
         raise ValueError(f"threads {threads}, want 256 or 512")
+    shape = (shape, shape) if isinstance(shape, int) else tuple(shape)
+    n = max(shape)
     if n <= whole_max:
         if _engine_smem(n + 2, itemsize, buffers) > _SMEM_MAX:
-            raise ValueError(f"a whole {n}^2 level does not fit in shared "
+            raise ValueError(f"a whole {shape} level does not fit in shared "
                              "memory (a smaller whole_max)")
         return n, nsweeps, threads or 512
+    n0, n1 = shape
 
     def most(t):
         """The most sweeps (up to nsweeps) of one launch at tile t."""
@@ -951,11 +982,13 @@ def _sweep_plan(n, nsweeps, buffers, itemsize, sms=1, tile=None,
         return k
 
     if tile is None:
-        fits = [t for t in (64, 32, 16) if n % t == 0 and most(t) == nsweeps]
-        wide = [t for t in fits if (n // t) ** 2 >= sms]
-        tile = wide[0] if wide else fits[-1] if fits else 32
-    if n % tile:
-        raise ValueError(f"tile {tile} does not divide {n}")
+        fits = [t for t in (64, 32, 16) if n0 % t == 0 and n1 % t == 0
+                and most(t) == nsweeps]
+        wide = [t for t in fits if (n0 // t) * (n1 // t) >= sms]
+        tile = wide[0] if wide else fits[-1] if fits else \
+            32 if min(shape) % 32 == 0 else 16
+    if n0 % tile or n1 % tile:
+        raise ValueError(f"tile {tile} does not divide {shape}")
     per = most(tile)
     if per < 1:
         raise ValueError(f"tile {tile} does not fit in shared memory")
@@ -964,7 +997,7 @@ def _sweep_plan(n, nsweeps, buffers, itemsize, sms=1, tile=None,
 
 
 def _plan(kernel, u, nsweeps, tile, threads, whole_max):
-    return _sweep_plan(u.shape[0], int(nsweeps), BUFFERS[kernel],
+    return _sweep_plan(tuple(u.shape), int(nsweeps), BUFFERS[kernel],
                        u.element_size(), _multiprocessors(u.device), tile,
                        threads, whole_max)
 
@@ -1004,19 +1037,19 @@ def _multiprocessors(device):
 
 
 def _check_alpha(u, rhs, ax, ay, dia, dia_cell, coarse, add):
-    _check_level(rhs, "rhs", min_n=2)
-    n = rhs.shape[0]
+    _check_box(rhs, "rhs")
+    n0, n1 = rhs.shape
     if u is not None:
         if coarse is not None:
             raise ValueError("rbgs_relax_alpha: give u or coarse, not both")
-        _check_level(u, "u", n, min_n=2)
+        _check_box(u, "u", rhs.shape)
     if coarse is not None:
-        _check_level(coarse, "coarse", n // 2, min_n=1)
+        _check_box(coarse, "coarse", (n0 // 2, n1 // 2), min_n=1)
     if add is not None:
-        _check_level(add, "add", n, min_n=2)
-    check_faces(ax, ay, n, n)
+        _check_box(add, "add", rhs.shape)
+    check_faces(ax, ay, n0, n1)
     if dia_cell:
-        check(dia, "dia", (n, n))
+        check(dia, "dia", (n0, n1))
     elif isinstance(dia, torch.Tensor):
         raise TypeError("rbgs_relax_alpha: a tensor dia needs dia_cell")
 
@@ -1031,20 +1064,22 @@ def rbgs_relax_alpha(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
     homogeneous ghosts, periodic on either axis; from ``u``, or with u
     None from the bilinear prolongation of ``coarse`` (n/2 x n/2,
     homogeneous ghosts, placed in the kernel), or from zero without one;
-    ``add`` is added to the result.  One launch, unless the sweeps' halo
-    outgrows shared memory (then consecutive launches of fewer sweeps
-    each: the first places the prolongation, the last adds).  ``tile``,
-    ``threads`` and ``whole_max`` override the plan (_sweep_plan;
-    tests)."""
+    ``add`` is added to the result.  The level may be a box's rectangle
+    (n0, n1) (_check_box), ``coarse`` then (n0/2, n1/2).  One launch,
+    unless the sweeps' halo outgrows shared memory (then consecutive
+    launches of fewer sweeps each: the first places the prolongation, the
+    last adds).  ``tile``, ``threads`` and ``whole_max`` override the plan
+    (_sweep_plan; tests)."""
     _check_alpha(u, rhs, ax, ay, dia, dia_cell, coarse, add)
     if _on_cpu(u, rhs, ax, ay, dia if dia_cell else None, coarse, add):
         return rbgs_relax_alpha_plain(u, rhs, ax, ay, dia, nsweeps=nsweeps,
                                       h2=h2, signs=signs, periodic=periodic,
                                       omega=omega, dia_cell=dia_cell,
                                       coarse=coarse, add=add)
-    n = rhs.shape[0]
+    n0, n1 = rhs.shape
     tile, per, threads = _plan("rbgs_relax_alpha", rhs, nsweeps, tile,
                                threads, whole_max)
+    whole = tile == max(n0, n1)
     src, prolong = (coarse, 1) if u is None else (u, 0)
     left = nsweeps
     while True:
@@ -1053,7 +1088,7 @@ def rbgs_relax_alpha(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
         _call("rbgs_relax_alpha", rhs.dtype, rhs.device,
               pointers((src, rhs, ax, ay, dia if dia_cell else None,
                         add if k >= left else None, out)),
-              prolong, n, n, tile, 0 if tile == n else 2 * k, k,
+              prolong, n0, n1, tile, 0 if whole else 2 * k, k,
               0.0 if dia_cell else float(dia), float(h2), float(omega),
               doubles(*signs), int(periodic[0]), int(periodic[1]), threads)
         LAUNCHES["rbgs_relax_alpha"] += 1

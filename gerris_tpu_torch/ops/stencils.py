@@ -18,6 +18,16 @@ def _crop_other(a: torch.Tensor, axis: int) -> torch.Tensor:
     return a[tuple(idx)]
 
 
+def center_gradient(u_pad: torch.Tensor, grid: Grid,
+                    axis: int) -> torch.Tensor:
+    """Centred gradient (u[i+1] - u[i-1]) / 2h at the cell centres from a
+    1-ghost padded field (interior shape).  Reference: src/fluid.c:434
+    gfs_center_gradient."""
+    a = _crop_other(u_pad, axis)
+    n = a.shape[axis]
+    return (a.narrow(axis, 2, n - 2) - a.narrow(axis, 0, n - 2)) / (2.0 * grid.h)
+
+
 def face_gradient(u_pad: torch.Tensor, grid: Grid, axis: int) -> torch.Tensor:
     """Normal gradient at every face of ``axis`` from a 1-ghost padded
     field (face shape).  Reference: src/fluid.c:778 gfs_face_gradient."""

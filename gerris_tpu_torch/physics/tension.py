@@ -8,7 +8,7 @@ pressure balances it to the solver's tolerance (reference:
 GfsSourceTension src/tension.c:307-385, tension_coeff src/poisson.c:
 903-996, gfs_velocity_face_sources src/timestep.c:245-290).
 kappa > 0 for a convex fluid body; the force is + sigma kappa grad(c).
-The CSS variant is slice 3b.
+The CSS variant is slice 3c.
 """
 from __future__ import annotations
 
@@ -38,10 +38,10 @@ def face_kappa_pair(kap, axis: int):
 
 
 def tension_face_sources(T, kap, sigma, grid: Grid, fbc: bcs.FieldBC,
-                         alpha=None) -> list:
+                         alpha=None, t: float = 0.0) -> list:
     """Per-axis face arrays dp = alpha sigma kappa_face grad_face(T), the
-    projections' ``face_sources``."""
-    T_pad = bcs.apply_bc(T, grid, fbc, 1)
+    projections' ``face_sources`` (T's BC values at time ``t``)."""
+    T_pad = bcs.apply_bc(T, grid, fbc, 1, t=t)
     out = []
     for axis in range(grid.dim):
         dp = sigma * face_kappa_pair(kap, axis) * \

@@ -11,7 +11,7 @@ Conventions (the reference's):
   cell is {x : m.x <= alpha} with |mx| + |my| = 1;
 * kappa > 0 for a convex fluid body, the divergence of the outward
   normal.
-3D VOF, contact angles and concentrations are slice 3b and raise.
+3D VOF, contact angles and concentrations are slice 3c and raise.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ FULL_TOL = 1e-10   # reference: f_over_dV clamping, src/vof.c:1616
 def _check_2d(grid: Grid):
     if grid.dim != 2:
         raise NotImplementedError("3D VOF (curvature_3d, the plane "
-                                  "geometry) is slice 3b (ROADMAP Queue 1)")
+                                  "geometry) is slice 3c (ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -151,16 +151,17 @@ def has_contact(fbc: bcs.FieldBC) -> bool:
     3b: the port's BCs refuse the kind (core/bc.BC), and a side that
     names it raises here."""
     if any(b.kind == "contact" for pair in fbc.sides for b in pair):
-        raise NotImplementedError("contact angles are slice 3b "
+        raise NotImplementedError("contact angles are slice 3c "
                                   "(ROADMAP Queue 1)")
     return False
 
 
-def normals(f, grid: Grid, fbc: bcs.FieldBC):
-    """MYC normals of f padded with its BCs (gerris_tpu vof.py:425-433)."""
+def normals(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0):
+    """MYC normals of f padded with its BCs at time ``t`` (gerris_tpu
+    vof.py:425-433)."""
     _check_2d(grid)
     has_contact(fbc)
-    return mycs_normals(bcs.apply_bc(f, grid, fbc, 1))
+    return mycs_normals(bcs.apply_bc(f, grid, fbc, 1, t=t))
 
 
 # ---------------------------------------------------------------------------
@@ -236,15 +237,16 @@ def _face_flux_1d(f_pad, mx_pad, my_pad, un, axis, dun=None, bands=4):
     return torch.where(interfacial, flux_b, flux)
 
 
-def sweep_flux(f, u_face: list, grid: Grid, fbc: bcs.FieldBC, c: int, dt):
+def sweep_flux(f, u_face: list, grid: Grid, fbc: bcs.FieldBC, c: int, dt,
+               t: float = 0.0):
     """(geometric flux, face CFL) of one direction-split sweep along ``c``
     (gerris_tpu vof.py:530-583): MYC normals on the 2-ghost padding, the
     band refinement's transverse velocity increment from the cell means
     of u_face[c] (grad_u src/vof.c:1595, dun :1491)."""
     _check_2d(grid)
     has_contact(fbc)
-    f_pad = bcs.apply_bc(f, grid, fbc, 1)
-    pad2 = bcs.apply_bc(f, grid, fbc, 2)
+    f_pad = bcs.apply_bc(f, grid, fbc, 1, t=t)
+    pad2 = bcs.apply_bc(f, grid, fbc, 2, t=t)
     un = u_face[c] * dt / grid.h
     mx, my = mycs_normals(pad2)     # on the +1 ring layout
     o = 1 - c
@@ -276,19 +278,20 @@ def sweep_update(f, dV, flux, un, c: int):
 
 
 def advect(f, u_face: list, grid: Grid, fbc: bcs.FieldBC, dt,
-           cstart: int = 0, concentrations=None):
+           cstart: int = 0, concentrations=None, t: float = 0.0):
     """One VOF advection step: direction-split sweeps starting at
     component ``cstart`` (rotated by the caller each step, src/vof.c:1648,
     1721), the dilation field carried across the sweeps (gerris_tpu
     vof.py:473-528).  Needs a per-sweep CFL u dt / h <= 0.5.
-    Concentrations are slice 3b and raise."""
+    Concentrations are slice 3c and raise.  Callable BC values are
+    evaluated at time ``t``."""
     if concentrations is not None:
-        raise NotImplementedError("VOF concentrations are slice 3b "
+        raise NotImplementedError("VOF concentrations are slice 3c "
                                   "(ROADMAP Queue 1)")
     dV = torch.ones_like(f)
     for k in range(grid.dim):
         c = (cstart + k) % grid.dim
-        flux, un = sweep_flux(f, u_face, grid, fbc, c, dt)
+        flux, un = sweep_flux(f, u_face, grid, fbc, c, dt, t)
         f, dV = sweep_update(f, dV, flux, un, c)
     return f
 
@@ -297,7 +300,8 @@ def advect(f, u_face: list, grid: Grid, fbc: bcs.FieldBC, dt,
 # Height-function curvature (gerris_tpu vof.py:610-733, :968-1112)
 # ---------------------------------------------------------------------------
 
-def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2):
+def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2,
+              t: float = 0.0):
     """Interface curvature on interface cells (NaN elsewhere), 2D.
 
     Height functions: 7-cell column sums of f along each axis with
@@ -309,20 +313,21 @@ def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2):
     The padding is the reference's: P = R + o_max + 1 ghosts with
     corners, axis 0 then axis 1 (apply_bc's default order); the normals
     come from a 1-ghost padding, whose corner ghosts differ from the
-    wide pad's (gerris_tpu vof.py:646-650)."""
+    wide pad's (gerris_tpu vof.py:646-650).  Callable BC values are
+    evaluated at time ``t``."""
     _check_2d(grid)
     has_contact(fbc)
     R = 3  # column half-height
     o_max = min(off_max, max(0, (min(grid.shape) - 2 * R) // 2))
     OFF = (0,) + sum(((-o, o) for o in range(1, o_max + 1)), ())
     P = R + o_max + 1
-    f_pad = bcs.apply_bc(f, grid, fbc, P)
+    f_pad = bcs.apply_bc(f, grid, fbc, P, t=t)
     n0, n1 = grid.shape
 
     def sub(di, dj):
         return f_pad[P + di:P + di + n0, P + dj:P + dj + n1]
 
-    mx, my = mycs_normals(bcs.apply_bc(f, grid, fbc, 1))
+    mx, my = mycs_normals(bcs.apply_bc(f, grid, fbc, 1, t=t))
     interface = (f > FULL_TOL) & (f < 1.0 - FULL_TOL)
     nan = torch.full_like(f, math.nan)
 
@@ -360,7 +365,7 @@ def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2):
     kap = torch.where(use_y & valids[1], kappas[1],
                       torch.where(valids[0], kappas[0],
                                   torch.where(valids[1], kappas[1], nan)))
-    kap_fit = parabola_curvature(f, grid, fbc, mx, my)
+    kap_fit = parabola_curvature(f, grid, fbc, mx, my, t)
     kap = torch.where(torch.isfinite(kap), kap, kap_fit)
     return torch.where(interface, kap, nan)
 
@@ -380,7 +385,8 @@ def _det3(M):
             + M[0][2] * (M[1][0] * M[2][1] - M[1][1] * M[2][0]))
 
 
-def parabola_curvature(f, grid: Grid, fbc: bcs.FieldBC, mx, my):
+def parabola_curvature(f, grid: Grid, fbc: bcs.FieldBC, mx, my,
+                       t: float = 0.0):
     """Least-squares parabola eta = a0 + a1 xi + a2 xi^2 through the
     interface points of the 5x5 stencil in the centre cell's normal frame;
     kappa = -2 a2 / (1 + a1^2)^(3/2) / h where at least 4 points and a
@@ -388,8 +394,8 @@ def parabola_curvature(f, grid: Grid, fbc: bcs.FieldBC, mx, my):
     _check_2d(grid)
     has_contact(fbc)
     W = 2
-    f_all = bcs.apply_bc(f, grid, fbc, W)
-    mcx, mcy = mycs_normals(bcs.apply_bc(f, grid, fbc, W + 1))
+    f_all = bcs.apply_bc(f, grid, fbc, W, t=t)
+    mcx, mcy = mycs_normals(bcs.apply_bc(f, grid, fbc, W + 1, t=t))
     n0, n1 = grid.shape
 
     def sub(a, di, dj):

@@ -61,7 +61,8 @@ def mac_cell_mean(u_face: list, grid: Grid) -> list:
 
 
 def advected_face_values(v, grid: Grid, fbc: bcs.FieldBC, dt,
-                         uc_pad: list, axes=None, kernel_corners=False):
+                         uc_pad: list, axes=None, kernel_corners=False,
+                         t: float = 0.0):
     """BCG-extrapolated face values of ``v`` at t+dt/2: per axis
     (v_plus, v_minus) on the 1-ghost padded cell layout, or None for an
     axis not in ``axes``.  ``uc_pad``: the advecting velocity per
@@ -74,13 +75,14 @@ def advected_face_values(v, grid: Grid, fbc: bcs.FieldBC, dt,
     them in the CUDA kernels' order (columns first, csrc/stencil.cuh),
     whose corner ghosts the TPU kernels share (gerris_tpu/ops/pallas/
     bcg.py, predict.py); the plain versions of K6/K14/K7 ask for it on
-    the BCs their kernels take, and only there."""
+    the BCs their kernels take, and only there.  Callable BC values are
+    evaluated at time ``t``."""
     dim = grid.dim
     h = grid.h
     if kernel_corners and dim == 2:
-        v2 = bcs.apply_bc(v, grid, fbc, 2, axes=(1, 0))
+        v2 = bcs.apply_bc(v, grid, fbc, 2, axes=(1, 0), t=t)
     else:
-        v2 = bcs.apply_bc(v, grid, fbc, 2, corners=False)
+        v2 = bcs.apply_bc(v, grid, fbc, 2, corners=False, t=t)
     v1 = v2[tuple(slice(1, s - 1) for s in v2.shape)]
     out = []
     for c in range(dim):

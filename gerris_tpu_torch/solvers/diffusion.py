@@ -1,13 +1,13 @@
-"""Implicit diffusion via multigrid (port of gerris_tpu/solvers/diffusion.py,
-a scalar D with a scalar or cell-valued rho).
+"""Implicit diffusion via multigrid (port of gerris_tpu/solvers/diffusion.py).
 
-Solves  rho u - beta dt D lap(u) = rho u_old + (1-beta) dt D lap(u_old)
-[+ extra].  With a scalar rho it is divided through by beta dt D into
-the Helmholtz system lap(u) - (rho / (beta dt D)) u = -rhs / (beta dt D)
-with a scalar dia; with a cell rho (the variable-density velocity
-diffusion) it is div(beta dt D grad u) - rho u = -rhs, face coefficients
-beta dt D on every face and the cell dia rho (K15 in the multigrid).
-Face-valued D (a variable viscosity) is slice 3b.
+Solves  rho u - beta dt div(D grad u) = rho u_old + (1-beta) dt div(D
+grad u_old) [+ extra], D a scalar or face-valued (one face array per
+axis: a variable viscosity), rho a scalar or a cell array.  With scalar
+D and rho it is divided through by beta dt D into the Helmholtz system
+lap(u) - (rho / (beta dt D)) u = -rhs / (beta dt D) with a scalar dia;
+otherwise (a cell rho, the variable-density velocity diffusion, or a
+face-valued D) it is div(beta dt D grad u) - rho u = -rhs, face
+coefficients beta dt D and the cell dia rho (K15 in the multigrid).
 Reference: src/poisson.c:1280-1467, src/timestep.c:720-790.
 """
 from __future__ import annotations
@@ -29,18 +29,37 @@ def params_or_default(params):
     return DEFAULT_PARAMS if params is None else params
 
 
-def diffuse(v, grid: Grid, fbc: bcs.FieldBC, dt: float, D: float,
+def _diffuse_faces(v, grid, fbc, dt, D, rho, beta, params, extra_rhs, t):
+    """diffuse with face-valued ``D`` (reference diffusion.py:47-79): the
+    explicit beta < 1 term div(D grad v) on v padded with corners=False,
+    face coefficients beta dt D and the cell dia rho (a scalar rho
+    broadcast to the cells)."""
+    rho_c = rho if isinstance(rho, torch.Tensor) else torch.full(
+        grid.shape, rho, dtype=v.dtype, device=v.device)
+    rhs = rho_c * v
+    if beta < 1.0:
+        v_pad = bcs.apply_bc(v, grid, fbc, 1, t=t, corners=False)
+        rhs = rhs + (1.0 - beta) * dt * laplacian(v_pad, grid, D)
+    if extra_rhs is not None:
+        rhs = rhs + extra_rhs
+    alpha = tuple(beta * dt * a for a in D)
+    return poisson.solve(v, -rhs, grid, fbc, params, dia=rho_c, t=t,
+                         alpha=alpha)
+
+
+def diffuse(v, grid: Grid, fbc: bcs.FieldBC, dt: float, D,
             rho: float = 1.0, beta: float = 0.5,
             params: poisson.MultilevelParams = None, extra_rhs=None,
             t: float = 0.0):
     """One implicit diffusion solve for ``v``; returns (v_new, stats).
+    ``D``: a scalar, or per-axis face arrays (a variable viscosity).
     ``rho``: a scalar or a cell array (the reference's rhoc mass
     coefficient, the density of the velocity diffusion).
     ``params=None`` is the reference's adaptive default, DEFAULT_PARAMS."""
-    if not isinstance(D, (int, float)):
-        raise NotImplementedError("face-valued D (ROADMAP Queue 1, "
-                                  "slice 3b)")
     params = params_or_default(params)
+    if not isinstance(D, (int, float)):
+        return _diffuse_faces(v, grid, fbc, dt, tuple(D), rho, beta, params,
+                              extra_rhs, t)
     rhs = rho * v
     if beta < 1.0:
         v_pad = bcs.apply_bc(v, grid, fbc, 1, t=t, corners=False)
@@ -75,8 +94,11 @@ def diffuse_pair(vs, grid: Grid, fbcs, dt: float, D: float, beta: float,
     ``params=None`` is diffuse's default (adaptive, so one solve per
     component).  Returns ([v_new...], stats)."""
     if not isinstance(D, (int, float)):
-        raise NotImplementedError("face-valued D (ROADMAP Queue 1, "
-                                  "slice 3b)")
+        # the reference pairs no variable viscosity (gerris_tpu/models/
+        # ns.py:255-259 asks for mu None)
+        raise NotImplementedError("diffuse_pair takes a scalar D; a "
+                                  "face-valued D takes diffuse per "
+                                  "component")
     params = params_or_default(params)
     scale = beta * dt * D
     dia = 1.0 / scale

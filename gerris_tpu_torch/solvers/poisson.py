@@ -790,7 +790,7 @@ def _slice3(name):
     def solver(*args, **kwargs):
         raise NotImplementedError(
             f"solver {name!r} (gerris_tpu poisson.py:935-1079) is not "
-            "ported yet (ROADMAP Queue 1, slice 3b)")
+            "ported yet (ROADMAP Queue 1, slice 3c)")
     return solver
 
 

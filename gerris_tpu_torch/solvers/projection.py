@@ -44,10 +44,12 @@ from ..ops.stencils import divergence, face_average, face_gradient
 from . import poisson
 
 
-def face_gradients(p, grid: Grid, p_bc: bcs.FieldBC, alpha=None) -> list:
+def face_gradients(p, grid: Grid, p_bc: bcs.FieldBC, alpha=None,
+                   t: float = 0.0) -> list:
     """alpha_face * grad_face p for every face, per axis, on p padded with
-    corners=False (reference projection.py:24-42)."""
-    p_pad = bcs.apply_bc(p, grid, p_bc, 1, corners=False)
+    corners=False (reference projection.py:24-42), callable BC values at
+    time ``t``."""
+    p_pad = bcs.apply_bc(p, grid, p_bc, 1, corners=False, t=t)
     out = []
     for axis in range(grid.dim):
         g = face_gradient(p_pad, grid, axis)
@@ -93,7 +95,7 @@ def _mac_projection_generic(u_face, p, grid, p_bc, dt, params, alpha,
             div = div - div.mean()
     p, stats = poisson.solve(p, div, grid, p_bc, params, rhs_sub=rhs_sub,
                              t=t, alpha=alpha)
-    gf = face_gradients(p, grid, p_bc, alpha)
+    gf = face_gradients(p, grid, p_bc, alpha, t)
     u_face = [u_face[c] - dt * gf[c] for c in range(grid.dim)]
     if face_sources is not None:
         gf = [gf[c] - face_sources[c] for c in range(grid.dim)]
@@ -149,17 +151,21 @@ def mac_projection(u_face: list, p, grid: Grid, p_bc: bcs.FieldBC, dt,
         if not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides
                    for b in ax):
             rhs_sub = total / div.numel()
-        p, stats = poisson.solve(p, div, grid, p_bc, params, rhs_sub=rhs_sub)
-    kernel = bcg.applicable(grid) and bcg.kernel_spec(p_bc) is not None
-    correct = projops.correct_project if kernel else \
-        projops.correct_project_plain
-    out = correct(p, u_face[0], u_face[1], dt, grid, p_bc, cells)
+        p, stats = poisson.solve(p, div, grid, p_bc, params, rhs_sub=rhs_sub,
+                                 t=t)
+    if bcg.applicable(grid) and bcg.kernel_spec(p_bc) is not None:
+        out = projops.correct_project(p, u_face[0], u_face[1], dt, grid,
+                                      p_bc, cells)
+    else:
+        out = projops.correct_project_plain(p, u_face[0], u_face[1], dt,
+                                            grid, p_bc, cells, t=t)
     cells = None if cells is None else [out[4], out[5]]
     return [out[0], out[1]], p, [out[2], out[3]], stats, cells
 
 
 def face_interpolated_velocity(u_cell: list, grid: Grid, u_bcs: list,
-                               gp=None, dtv=None, div_scale=None):
+                               gp=None, dtv=None, div_scale=None,
+                               t: float = 0.0):
     """MAC velocities as the mean of the two adjacent centred values, with
     the Dirichlet value on boundary faces (reference: src/advection.c:
     546-566).  Returns (faces, cells, divp).  ``gp``/``dtv``: per-component
@@ -167,16 +173,20 @@ def face_interpolated_velocity(u_cell: list, grid: Grid, u_bcs: list,
     re-add, src/simulation.c:520), and ``cells`` are the updated cells
     (else the given ones).  ``div_scale``: ``divp`` is the faces'
     divergence scaled by div_scale and its sum (K9's fold of the
-    projection's divergence), else None (always in 3D)."""
+    projection's divergence), else None (always in 3D).  Callable BC
+    values (which K9 does not take) are evaluated at time ``t``."""
     if grid.dim == 3:
         src = u_cell if gp is None else [u_cell[c] + dtv * gp[c]
                                          for c in range(3)]
         faces = [bcs.apply_face_bc(face_average(bcs.apply_bc(
-            src[c], grid, u_bcs[c], 1, corners=False), grid, c), grid,
-            u_bcs[c], c) for c in range(3)]
+            src[c], grid, u_bcs[c], 1, corners=False, t=t), grid, c), grid,
+            u_bcs[c], c, t=t) for c in range(3)]
         return faces, src, None
-    kernel = bcg.applicable(grid) and bcg.face_specs(u_bcs) is not None
-    interp = projops.interp_faces if kernel else projops.interp_faces_plain
-    out = interp(u_cell[0], u_cell[1], grid, u_bcs, gp, dtv, div_scale)
+    if bcg.applicable(grid) and bcg.face_specs(u_bcs) is not None:
+        out = projops.interp_faces(u_cell[0], u_cell[1], grid, u_bcs, gp,
+                                   dtv, div_scale)
+    else:
+        out = projops.interp_faces_plain(u_cell[0], u_cell[1], grid, u_bcs,
+                                         gp, dtv, div_scale, t=t)
     divp = None if div_scale is None else (out[4], out[5])
     return [out[0], out[1]], [out[2], out[3]], divp

@@ -27,7 +27,8 @@ TPU_NRELAX = 8
 _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "approx_projection", "nu", "beta", "diffusion_params",
                  "div_in_src", "pair_advect", "rr_in_advect", "vof_tracers",
-                 "tension", "density"}
+                 "tension", "density", "body_force", "nu_var",
+                 "nu_var_fields"}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
@@ -99,9 +100,41 @@ def params_from_jax(p, dim: int = 2) -> MultilevelParams:
     return MultilevelParams(**fields)
 
 
-def config_from_jax(cfg) -> ns.NSConfig:
+def _counterpart(field: str, given):
+    """The port's torch function for a JAX callable in ``field``, which
+    cannot be carried over (it computes on jnp arrays)."""
+    if not callable(given):
+        raise NotImplementedError(
+            f"NSConfig.{field} holds a JAX callable: give config_from_jax "
+            f"its torch counterpart ({field}=...)")
+    return given
+
+
+def _body_force(bf, given):
+    """Per component: None, a constant, or for a JAX callable the torch
+    counterpart ``given[c]``."""
+    if bf is None:
+        return None
+    out = []
+    for c, v in enumerate(bf):
+        if callable(v):
+            v = _counterpart(f"body_force[{c}]",
+                             None if given is None else given[c])
+        elif v is not None:
+            v = float(v)
+        out.append(v)
+    return tuple(out)
+
+
+def config_from_jax(cfg, nu_var=None, body_force=None) -> ns.NSConfig:
     """A JAX ``NSConfig`` -> the port's.  A field outside the slice that
-    differs from its default raises NotImplementedError."""
+    differs from its default raises NotImplementedError.  A JAX callable
+    is carried over only through the torch counterpart given here:
+    ``nu_var``, a function f(x, y, t=..., **fields) of torch tensors, for
+    the config's ``nu_var``; ``body_force``, one entry per component, for
+    its callable components (constant ones carry over as they are).  A
+    callable with no counterpart raises NotImplementedError naming the
+    field."""
     for f in dataclasses.fields(type(cfg)):
         if f.name in _SLICE_FIELDS:
             continue
@@ -129,4 +162,8 @@ def config_from_jax(cfg) -> ns.NSConfig:
         tension=tuple((name, float(sigma)) for name, sigma in cfg.tension),
         density=None if cfg.density is None else
         (cfg.density[0], float(cfg.density[1]), float(cfg.density[2]),
-         int(cfg.density[3])))
+         int(cfg.density[3])),
+        body_force=_body_force(cfg.body_force, body_force),
+        nu_var=None if cfg.nu_var is None else
+        _counterpart("nu_var", nu_var),
+        nu_var_fields=tuple(tuple(f) for f in cfg.nu_var_fields))

@@ -387,7 +387,14 @@ def test_callable_bc_residual_matches_jax():
                             tgrid, tf, dia=0.3, t=0.7)
     assert _rel(ref, got) <= 1e-12
     assert not tbc.static_values(tf)
-    # the kernels refuse callable values, as the reference's do
+    # the kernels refuse callable values, as the reference's do; the
+    # corners=False route evaluates them at t as the reference's does
+    # (off the corner ghosts, which the reference leaves zero there)
     assert bcg.kernel_spec(tf) is None
-    with pytest.raises(NotImplementedError):
-        tbc.apply_bc(torch.from_numpy(u), tgrid, tf, corners=False)
+    want = np.asarray(jbc.apply_bc(jnp.asarray(u), jgrid, jf, t=0.7,
+                                   corners=False))
+    pad = tbc.apply_bc(torch.from_numpy(u), tgrid, tf, corners=False,
+                       t=0.7).numpy()
+    for sl in ((slice(1, -1), slice(None)), (slice(None), slice(1, -1))):
+        assert np.max(np.abs(pad[sl] - want[sl])) <= \
+            1e-15 * np.max(np.abs(want))

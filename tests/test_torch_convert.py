@@ -130,7 +130,7 @@ def test_config_from_jax_bench():
     ("tracers", (("T", jbc.default_scalar_bc(2), 0.0),)),
     ("solid_phi", lambda x, y: x),
     ("block_advect", True),
-    ("body_force", (0.0, -1.0)),
+    ("particle_coupling", True),
 ])
 def test_config_from_jax_refuses_fields_outside_slice(field, value):
     cfg = dataclasses.replace(cavity_cfg(6), **{field: value})

@@ -1458,3 +1458,139 @@ def test_twophase_step_on_the_card(dev):
             assert rbgs.LAUNCHES["rbgs_relax_alpha"] % 5 == 0  # 64^2 .. 4^2
     for k in ("U", "V", "T"):
         assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k
+
+
+# --- the bubble's box levels (n, 2n): K15 and the pyramid ---------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,levels", [(1024, 8), (64, 4), (4, 2)])
+def test_restrict_pyramid_box_kernel(dev, dtype, n, levels):
+    """The pyramid on a box's (n, 2n) level, the bubble's 1024 x 2048 ->
+    4 x 8 among them: bit-identical at every level to the chain of
+    restrict2 launches and to its plain version, single and pair, twice
+    (the last block's tail resets the arrival count)."""
+    r, r2 = _rnd(dev, dtype, 60 + n, (n, 2 * n), (n, 2 * n))
+    for _ in range(2):
+        got = rbgs.restrict_pyramid(r, levels)
+        pair = rbgs.restrict_pyramid_pair([r, r2], levels)
+        assert [tuple(t.shape) for t in got] == \
+            [(n >> k, 2 * n >> k) for k in range(1, levels + 1)]
+        for want in (_restrict2_chain(r, levels),
+                     rbgs.pyramid_plain(r, levels), pair[0]):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(pair[1], rbgs.pyramid_plain(r2, levels)))
+
+
+def _box_system(dev, dtype, seed, n0, n1, cell):
+    """A K15 system on an n0 x n1 level with walls: u, rhs, positive face
+    coefficients, a cell dia or the scalar 0, a few zero-diagonal
+    cells."""
+    u, rhs, ax, ay, d = _rnd(dev, dtype, seed, (n0, n1), (n0, n1),
+                             (n0 + 1, n1), (n0, n1 + 1), (n0, n1))
+    ax, ay = 0.2 + ax.abs(), 0.2 + ay.abs()
+    dia = 0.5 + d.abs() if cell else 0.3
+    for i, j in ((1, 2), (n0 // 2, n1 // 2 + 1), (n0 - 2, 3)):
+        ax[i, j] = ax[i + 1, j] = ay[i, j] = ay[i, j + 1] = 0.0
+        if cell:
+            dia[i, j] = 0.0
+    return u, rhs, ax, ay, dia if cell else 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1024, 256, 64, 32, 16, 8, 4])
+@pytest.mark.parametrize("cell", [False, True])
+def test_rbgs_relax_alpha_box_kernel(dev, dtype, n, cell):
+    """K15 on the bubble's (n, 2n) levels as its corrections run them:
+    from zero with 24 sweeps at (4, 8), the coarser (n/2, n) level
+    prolonged with 8 sweeps above, + u at the top (tiled above 64 cells a
+    side, one whole-level block on its longer side's square buffer
+    below); and from a given u; against the plain version."""
+    u, rhs, ax, ay, dia = _box_system(dev, dtype, 61, n, 2 * n, cell)
+    c = None if n == 4 else _rnd(dev, dtype, 62, (n // 2, n))[0]
+    kw = dict(nsweeps=24 if n == 4 else 8, h2=1.0 / n ** 2,
+              signs=(1.0, 1.0, -1.0, -1.0), periodic=(False, False),
+              omega=1.0, dia_cell=cell)
+    rbgs.reset_launch_counts()
+    got = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, coarse=c, add=u,
+                                **kw)
+    assert rbgs.LAUNCHES["rbgs_relax_alpha"] == 1
+    assert _rel(got, rbgs.rbgs_relax_alpha_plain(
+        None, rhs, ax, ay, dia, coarse=c, add=u, **kw)) <= BOUND[dtype]
+    from_u = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dia, **kw)
+    assert _rel(from_u, rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dia,
+                                                    **kw)) <= BOUND[dtype]
+    assert from_u[1, 2] == u[1, 2]        # a zero-diagonal cell stays
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rbgs_relax_alpha_box_tile_invariance(dev, dtype):
+    """On a box level K15 is bit-identical across its tiles and threads
+    at (256, 512), and a whole (32, 64) level (one block on the square
+    buffer of its longer side, the sweeps clipped to the domain) equals
+    the same level tiled by 16."""
+    u, rhs, ax, ay, dia = _box_system(dev, dtype, 63, 256, 512, True)
+    c, = _rnd(dev, dtype, 64, (128, 256))
+    kw = dict(nsweeps=8, h2=1.0 / 256 ** 2, signs=SIGNS_LID, omega=1.5,
+              dia_cell=True, coarse=c, add=u)
+    ref = rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dia, tile=16, **kw)
+    tiles = (64, 32) if dtype == torch.float32 else (32,)
+    for tile in tiles:
+        for threads in (256, 512):
+            assert torch.equal(ref, rbgs.rbgs_relax_alpha(
+                None, rhs, ax, ay, dia, tile=tile, threads=threads, **kw))
+    w = _box_system(dev, dtype, 65, 32, 64, True)
+    cw, = _rnd(dev, dtype, 66, (16, 32))
+    for x, start in ((w[0], dict()), (None, dict(coarse=cw, add=w[0]))):
+        kww = dict(kw, **start) if start else \
+            {k: v for k, v in kw.items() if k not in ("coarse", "add")}
+        assert torch.equal(
+            rbgs.rbgs_relax_alpha(x, *w[1:], **kww),
+            rbgs.rbgs_relax_alpha(x, *w[1:], tile=16, whole_max=32, **kww))
+
+
+def test_bubble_step_on_the_card(dev):
+    """Three steps of the rising bubble at level 5 (32 x 64) in float64 on
+    the card against the same steps on the CPU (the plain versions): K15
+    on the box's levels in every correction, the pyramid, K6, K4, K14
+    and K9 around them; the variable viscosity and gravity in torch."""
+    import numpy as np
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import vof
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    d0, nn = bc.Dirichlet(0.0), bc.Neumann()
+    proj = MultilevelParams(nrelax=8, coarsest_relax=16, tolerance=1e-3,
+                            nitermax=100)
+    cfg = ns.NSConfig(
+        grid=Grid(level=5, origin=(0.0, 0.0), extents=(1, 2)),
+        u_bcs=(bc.FieldBC(((d0, d0), (d0, d0))),
+               bc.FieldBC(((nn, nn), (d0, d0)))),
+        vof_tracers=(("T", bc.default_scalar_bc(2)),),
+        tension=(("T", 24.5),), density=("T", 1000.0, 100.0, 1),
+        body_force=(None, -0.98),
+        nu_var=lambda x, y, t=0.0, T1=None: 10.0 * T1 + (1.0 - T1),
+        nu_var_fields=(("T1", "T", 1),), projection=proj,
+        approx_projection=proj, diffusion_params=MultilevelParams(
+            nrelax=8, coarsest_relax=16, tolerance=1e-3, nitermax=10))
+    rng = np.random.default_rng(8)
+    st = {k: torch.from_numpy(0.01 * rng.standard_normal((32, 64)))
+          for k in ("U", "V", "P", "Pmac", "Gx", "Gy")}
+    st["T"] = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y: torch.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2)
+        - 0.25, device="cpu")
+    dt = 0.2 / 32
+    runs = {}
+    for where in ("cpu", dev):
+        s = {k: v.to(where) for k, v in st.items()}
+        rbgs.reset_launch_counts()
+        for i in range(3):
+            s = ns.ns_step(s, dt, i * dt, cfg, first_step=i == 0,
+                           cstart=i % 2)
+        runs[str(where)] = s
+        if where != "cpu":
+            # levels (32, 64) .. (4, 8): four K15 launches a cycle
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] > 0
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] % 4 == 0
+            assert rbgs.LAUNCHES["restrict_pyramid"] > 0
+    for k in ("U", "V", "T"):
+        assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k

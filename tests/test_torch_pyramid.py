@@ -83,8 +83,15 @@ def test_pyramid_refuses_bad_levels():
             rbgs.restrict_pyramid(r, levels)
     with pytest.raises(ValueError, match="power of two"):
         rbgs.restrict_pyramid(torch.zeros(48, 48, dtype=torch.float64), 2)
-    with pytest.raises(ValueError, match="square"):
-        rbgs.restrict_pyramid(torch.zeros(64, 32, dtype=torch.float64), 2)
+    with pytest.raises(ValueError, match="multiple"):
+        rbgs.restrict_pyramid(torch.zeros(96, 64, dtype=torch.float64), 2)
+    # a box's level (n, 2n) is taken: the chain of one-level pools
+    box = torch.arange(64.0 * 32, dtype=torch.float64).reshape(64, 32)
+    for a, b in zip(rbgs.restrict_pyramid(box, 5),
+                    rbgs.pyramid_plain(box, 5)):
+        assert torch.equal(a, b) and a.shape[0] == 2 * a.shape[1]
+    with pytest.raises(ValueError, match="levels"):
+        rbgs.restrict_pyramid(box, 6)
     with pytest.raises(TypeError):
         rbgs.restrict_pyramid(r.half(), 2)
     with pytest.raises(ValueError):

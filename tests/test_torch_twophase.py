@@ -121,9 +121,9 @@ def test_config_converts_to_the_tpu_schedule():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("body_force", (0.0, -1.0)),
+    ("particle_coupling", True),
     ("tension_css", (("T", 0.5),)),
-    ("nu_var", lambda x, y, t=0.0, **kw: x),
+    ("axi", True),
     ("tracers", (("C", jbc.default_scalar_bc(2), 0.0),)),
 ])
 def test_config_from_jax_refuses_slice_3b(field, value):
