@@ -119,7 +119,23 @@ Phases (any failure ends the run with a non-zero exit and no result):
      to 1e-9; in float32, where the velocities of the state from rest
      are at float32's floor, T and P to 2e-3 and U and V to twice the
      plain route's own distance from float64), five timed
-     windows and a profile;
+     windows and a profile; then ``spurious``, the reference's static
+     droplet (test/spurious) at 1024^2 in float32, scheme "none", solves
+     to 1e-6, with the well-balanced and then the CSS tension: init + 20
+     steps each through K4, K9, K5 (CSS: every projection; else at init),
+     K11, K12, the pyramid and K3, gated from the recorded cycle counts,
+     T's volume, held to the plain versions as the bubble is (float64 to
+     1e-9), five timed windows and a profile; ``tracer``, a tracer C on
+     the bench's 2048^2 route (K14 and a fused diffusion cycle a step
+     beside K7 and the K8 pair) and with van Leer slopes (the generic
+     route), gated and held to the plain versions (1e-4 on U, V, P, C);
+     ``mgcg``, the stiff 4-decade coefficient system at 1024^2 in
+     float64 (K15 per level of each preconditioning V-cycle, gated from
+     niter; the residual within 1e-9 of max|rhs| in no more iterations
+     than the adaptive multigrid; held to the plain versions), and cg at
+     256^2 to its cap; ``sessile``, a drop with contact angles 60 and
+     120 degrees at 256^2 in float64, 5 steps gated and held to the
+     plain versions (1e-9);
   4. physics: the 64^2 lid cavity under the bench's configuration to
      steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
      float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
@@ -129,7 +145,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      reference's 153.984, decaying; and the bubble at level 6 (64 x 128)
      in float32 to t = 3: its maximum mean rise velocity and its centroid
      at t = 3 within 3% and 2% of Hysing's (0.2417, 1.0813) and within 1%
-     of gerris_tpu's own level-6 values.
+     of gerris_tpu's own level-6 values; and the static droplet at level
+     5 in float64 to t = 1 with each tension: its shape error (L2, Linf
+     of T - T0) within 1% and max|u| within a factor 2 of gerris_tpu's
+     (tools/spurious_reference.py).
 The last two lines are the kernels' JSON record and the device line.
 """
 import contextlib
@@ -275,6 +294,57 @@ HYSING_VMAX_RTOL, HYSING_YC_RTOL = 0.03, 0.02
 JAX_VMAX, JAX_YC = 0.24064975467766936, 1.0777377578901863
 JAX_RTOL = 0.01
 
+# spurious: the static droplet of the reference's test/spurious (Popinet,
+# J. Comput. Phys. 228 (2009) 5838-5866, section 5.1; tests/test_spurious.py)
+# at full width: level 10, 1024^2, float32; the droplet of radius 0.4 at
+# (-0.5, 0.5), velocity_bc walls, sigma 1, rho 1, nu = sqrt(0.8 / 12000),
+# scheme "none", projections to 1e-6 in at most 100 cycles, diffusion to
+# 1e-6 in at most 20; once with the well-balanced tension, once with CSS
+LEVEL_SPURIOUS = 10
+SPURIOUS_STEPS = 20
+SPURIOUS_CHECK_STEPS = 5
+SPURIOUS_TIMED_STEPS = 4
+SPURIOUS_PROFILE_STEPS = 3
+SPURIOUS_LA = 12000.0
+SPURIOUS_KINDS = ("tension", "tension_css")
+# the correction of a 1024^2 adaptive solve: K12 at 512^2, one
+# restrict_pyramid launch (1024 -> 512) and one K3 at 1024^2
+SPURIOUS_PROLONGS = 1
+# the physics gate: level 5 in float64 to t = 1, both tensions, against
+# the JAX package's values at the same level and time
+# (tools/spurious_reference.py 5 1.0: 321 steps each, on the CPU): the
+# shape error L2 and Linf of T - T0 within 1%, max|u| within a factor 2
+# (it sits at the solves' tolerance)
+SPURIOUS_GATE_LEVEL = 5
+SPURIOUS_GATE_T = 1.0
+JAX_SPURIOUS = {
+    "tension": dict(shape_l2=0.0002367918334313299,
+                    shape_linf=0.0028132143746509852,
+                    umax=0.0001189633766583472, steps=321),
+    "tension_css": dict(shape_l2=0.04842093096789282,
+                        shape_linf=0.6008629355446319,
+                        umax=0.5881899111738118, steps=321),
+}
+SPURIOUS_SHAPE_RTOL = 0.01
+SPURIOUS_UMAX_FACTOR = 2.0
+# tracer: the bench's 2048^2 cavity on its route with one tracer C (D
+# 1e-3, the default scalar BCs, C0 = x + 0.5): K14 once a step for C and
+# its diffusion's fused cycle (K1, K2, K3) beside the main path's launches
+TRACER_STEPS = 5
+# mgcg: tests/test_poisson.py's stiff (4-decade) coefficient system at
+# level 10 in float64, to 1e-10 of max|rhs|; cg at level 8 to its cap
+LEVEL_MGCG = 10
+LEVEL_CG = 8
+MGCG_TOL = 1e-10
+MGCG_RESIDUAL = 1e-9
+# sessile: a quarter disk of radius 0.3 in the corner of the bottom wall
+# (contact angle 60 and 120 degrees) and the symmetry axis, level 8,
+# float64, 5 steps, kernels vs plain
+LEVEL_SESSILE = 8
+SESSILE_STEPS = 5
+SESSILE_ANGLES = (60.0, 120.0)
+SESSILE_RTOL = 1e-9
+
 ERR_KEYS = ("max_abs_err", "max_rel_err")
 CSRC = "gerris_tpu_torch/csrc/"
 # wrapper -> (source, the TPU kernel it replaces)
@@ -404,19 +474,7 @@ def want_adaptive(steps, solves):
     w.update(predict_xy=steps, divergence_mac=2 * steps + 1,
              correct_project=2 * steps + 1, interp_faces=steps + 1,
              advect2d=2 * steps)
-    for solver, niter, fixed in solves:
-        if solver == "relax":
-            w["residual"] += 2
-            w["rbgs_relax"] += 1
-            continue
-        w["residual"] += 1 + niter + int(fixed)
-        w["coarse_vcycle"] += niter
-        w["coarse_block"] += niter
-        w["coarse_vcycle.restrict_pyramid"] += niter
-        w["coarse_vcycle.prolong_relax"] += K12_LEVELS * niter
-        w["restrict_pyramid"] += niter
-        w["prolong_relax"] += ADA_PROLONGS * niter
-    return w
+    return add_solves(w, solves, ADA_PROLONGS)
 
 
 # device kernels of the port, by a substring of their names.  The pairs
@@ -2847,23 +2905,7 @@ def phase_twophase(dev, card):
               f"{rel:.3e} (bound {ADAPTIVE_RTOL:.0e})")
         if not rel <= ADAPTIVE_RTOL:
             raise AssertionError(f"twophase {k}: rel {rel:.3e}")
-    walls, syncs = [], []
-    for _ in range(TIMED_WINDOWS):
-        with recording_solves() as log:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.run(max_steps=TWOPHASE_TIMED_STEPS)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        # the solves' condition reads, and the CFL dt's one per step
-        syncs.append(sum(x[3] for x in log) / TWOPHASE_TIMED_STEPS + 1)
-        niters = [x[1] for x in log]
-    step = float(np.median(walls)) / TWOPHASE_TIMED_STEPS
-    print(f"  twophase step, timed windows of {TWOPHASE_TIMED_STEPS} steps: "
-          f"{' '.join(f'{w:.4f}' for w in walls)} s; median "
-          f"{step * 1e3:.3f} ms/step; host syncs per step "
-          f"{' '.join(f'{x:.1f}' for x in syncs)}; niter per solve in the "
-          f"last window {niters} on {card}")
+    step = timed_windows("twophase", s, TWOPHASE_TIMED_STEPS, card, n * n)
     phase_profile(s, step, card, TWOPHASE_PROFILE_STEPS, watch=PROLONG_OPS)
     return counts
 
@@ -2970,77 +3012,21 @@ def phase_bubble(dev, card):
           f"max|V| {float(s.state['V'].abs().max()):.6e}")
     check_bubble_plain(dev, early, counts)
     del early
-    walls, syncs = [], []
-    for _ in range(TIMED_WINDOWS):
-        with recording_solves() as log:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.run(max_steps=BUBBLE_TIMED_STEPS)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        syncs.append(sum(x[3] for x in log) / BUBBLE_TIMED_STEPS + 1)
-        niters = [x[1] for x in log]
-    step = float(np.median(walls)) / BUBBLE_TIMED_STEPS
-    print(f"  bubble step, timed windows of {BUBBLE_TIMED_STEPS} steps: "
-          f"{' '.join(f'{w:.4f}' for w in walls)} s; median "
-          f"{step * 1e3:.3f} ms/step, "
-          f"{n0 * n1 / step / 1e6:.2f}M cell-updates/s; host syncs per "
-          f"step {' '.join(f'{x:.1f}' for x in syncs)}; niter per solve in "
-          f"the last window {niters} on {card}")
+    step = timed_windows("bubble", s, BUBBLE_TIMED_STEPS, card, n0 * n1)
     ops = phase_profile(s, step, card, BUBBLE_PROFILE_STEPS)
     return counts, ops
 
 
 def check_bubble_plain(dev, early, counts):
     """The bubble's first BUBBLE_CHECK_STEPS steps against the plain
-    versions on the card: the float32 kernels' state ``early`` against
-    the float32 and float64 plain runs, and the same steps through the
-    kernels in float64 against the plain float64 run.
-    From rest the bubble's U and V after 5 steps (~1e-5 at dt 8e-5) are
-    at float32's floor: the hydrostatic pressure (~2000) in float32 moves
-    the velocities by ~1e-7 a step, and the plain float32 run itself
-    differs from the plain float64 run by more than ADAPTIVE_RTOL there
-    (printed below).  So the gates are: float64 kernels vs plain within
-    BUBBLE_F64_RTOL on U, V, T and mean-free P (same arithmetic, no
-    floor); float32 kernels vs plain within ADAPTIVE_RTOL on T and
-    mean-free P; and on U and V the float32 kernels no further from the
-    float64 plain run than twice the plain float32 run is (or
-    ADAPTIVE_RTOL, the larger): as accurate as float32 allows."""
-    import torch
-    runs = {}
-    for name, dtype, plain in (("plain32", torch.float32, True),
-                               ("plain64", torch.float64, True),
-                               ("kernels64", torch.float64, False)):
-        ctx = plain_versions() if plain else contextlib.nullcontext()
-        with ctx, recording_solves() as log:
-            runs[name] = bubble_sim(dev, dtype=dtype).run(
-                max_steps=BUBBLE_CHECK_STEPS).state
-        print(f"  bubble, {name}: niter {[x[1] for x in log]}")
-        if plain and launch_counts() != counts:
-            raise AssertionError("the plain reference run launched kernels")
-    for k in ("U", "V", "T", "P"):
-        def rel(a, b):
-            a, b = a.double(), b.double()
-            if k == "P":
-                a, b = a - a.mean(), b - b.mean()
-            return rel_err(a, b)
-        e32 = rel(early[k], runs["plain32"][k])
-        floor = rel(runs["plain32"][k], runs["plain64"][k])
-        e32_64 = rel(early[k], runs["plain64"][k])
-        e64 = rel(runs["kernels64"][k], runs["plain64"][k])
-        print(f"  bubble after {BUBBLE_CHECK_STEPS} steps, {k}"
-              f"{' (mean-free)' if k == 'P' else ''}: kernels vs plain "
-              f"float32 {e32:.3e}, float64 {e64:.3e} (bound "
-              f"{BUBBLE_F64_RTOL:.0e}); against the plain float64 run: "
-              f"float32 kernels {e32_64:.3e}, float32 plain {floor:.3e}")
-        if not e64 <= BUBBLE_F64_RTOL:
-            raise AssertionError(f"bubble {k}: float64 kernels vs plain "
-                                 f"{e64:.3e}")
-        if k in ("T", "P") and not e32 <= ADAPTIVE_RTOL:
-            raise AssertionError(f"bubble {k}: kernels vs plain {e32:.3e}")
-        if k in ("U", "V") and not e32_64 <= max(2 * floor, ADAPTIVE_RTOL):
-            raise AssertionError(f"bubble {k}: float32 kernels {e32_64:.3e}"
-                                 f" from float64, plain {floor:.3e}")
+    versions on the card (check_against_plain).  From rest the bubble's
+    U and V after 5 steps (~1e-5 at dt 8e-5) are at float32's floor: the
+    hydrostatic pressure (~2000) in float32 moves the velocities by ~1e-7
+    a step, and the plain float32 run itself differs from the plain
+    float64 run by more than ADAPTIVE_RTOL there, hence the float32 U
+    and V gate against that floor."""
+    check_against_plain("bubble", lambda dtype: bubble_sim(dev, dtype=dtype),
+                        BUBBLE_CHECK_STEPS, early, counts, BUBBLE_F64_RTOL)
 
 
 def phase_bubble_gate(dev, card):
@@ -3091,6 +3077,526 @@ def phase_bubble_gate(dev, card):
             raise AssertionError(f"bubble gate: {what} {got:.6f}")
     if abs(t_end - BUBBLE_GATE_T) > 1e-6 or not np.isfinite(rec).all():
         raise AssertionError(f"bubble gate: ended at t = {t_end}")
+
+
+def check_against_plain(name, make, steps, early, counts, f64_rtol):
+    """The first ``steps`` steps of ``name`` against the plain versions on
+    the card: the float32 kernels' state ``early`` against the float32
+    and float64 plain runs, and the same steps through the kernels in
+    float64 against the plain float64 run (``make(dtype)`` builds the
+    simulation at rest).  Gates: float64 kernels vs plain within
+    ``f64_rtol`` on U, V, T and mean-free P (same arithmetic, no floor);
+    float32 kernels vs plain within ADAPTIVE_RTOL on T and mean-free P;
+    and on U and V the float32 kernels no further from the float64 plain
+    run than twice the plain float32 run is (or ADAPTIVE_RTOL, the
+    larger): as accurate as float32 allows."""
+    import torch
+    runs = {}
+    for run, dtype, plain in (("plain32", torch.float32, True),
+                              ("plain64", torch.float64, True),
+                              ("kernels64", torch.float64, False)):
+        ctx = plain_versions() if plain else contextlib.nullcontext()
+        with ctx, recording_solves() as log:
+            runs[run] = make(dtype).run(max_steps=steps).state
+        print(f"  {name}, {run}: niter {[x[1] for x in log]}")
+        if plain and launch_counts() != counts:
+            raise AssertionError("the plain reference run launched kernels")
+    for k in ("U", "V", "T", "P"):
+        def rel(a, b):
+            a, b = a.double(), b.double()
+            if k == "P":
+                a, b = a - a.mean(), b - b.mean()
+            return rel_err(a, b)
+        e32 = rel(early[k], runs["plain32"][k])
+        floor = rel(runs["plain32"][k], runs["plain64"][k])
+        e32_64 = rel(early[k], runs["plain64"][k])
+        e64 = rel(runs["kernels64"][k], runs["plain64"][k])
+        print(f"  {name} after {steps} steps, {k}"
+              f"{' (mean-free)' if k == 'P' else ''}: kernels vs plain "
+              f"float32 {e32:.3e}, float64 {e64:.3e} (bound "
+              f"{f64_rtol:.0e}); against the plain float64 run: "
+              f"float32 kernels {e32_64:.3e}, float32 plain {floor:.3e}")
+        if not e64 <= f64_rtol:
+            raise AssertionError(f"{name} {k}: float64 kernels vs plain "
+                                 f"{e64:.3e}")
+        if k in ("T", "P") and not e32 <= ADAPTIVE_RTOL:
+            raise AssertionError(f"{name} {k}: kernels vs plain {e32:.3e}")
+        if k in ("U", "V") and not e32_64 <= max(2 * floor, ADAPTIVE_RTOL):
+            raise AssertionError(f"{name} {k}: float32 kernels {e32_64:.3e}"
+                                 f" from float64, plain {floor:.3e}")
+
+
+def timed_windows(name, s, steps, card, cells):
+    """TIMED_WINDOWS windows of ``steps`` steps of the running ``s``, each
+    closed by a synchronize: the median ms/step, the host syncs per step
+    (the solves' condition reads and the CFL dt's one) and the last
+    window's niter per solve.  Returns the median step in seconds."""
+    import torch
+    walls, syncs = [], []
+    for _ in range(TIMED_WINDOWS):
+        with recording_solves() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run(max_steps=steps)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        syncs.append(sum(x[3] for x in log) / steps + 1)
+        niters = [x[1] for x in log]
+    step = float(np.median(walls)) / steps
+    print(f"  {name} step, timed windows of {steps} steps: "
+          f"{' '.join(f'{w:.4f}' for w in walls)} s; median "
+          f"{step * 1e3:.3f} ms/step, {cells / step / 1e6:.2f}M "
+          f"cell-updates/s; host syncs per step "
+          f"{' '.join(f'{x:.1f}' for x in syncs)}; niter per solve in the "
+          f"last window {niters} on {card}")
+    return step
+
+
+def droplet_phi(x, y):
+    """test/spurious's droplet of radius 0.4 at (-0.5, 0.5)."""
+    return 0.16 - ((x + 0.5) ** 2 + (y - 0.5) ** 2)
+
+
+def spurious_cfg(level, kind="tension"):
+    """test/spurious (tests/test_spurious.py:33-50) at 2^level cells per
+    side, with the well-balanced ("tension") or the CSS ("tension_css")
+    surface tension, sigma 1."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.advection import AdvectionParams
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    proj = MultilevelParams(tolerance=1e-6, nitermax=100)
+    return ns.NSConfig(
+        grid=Grid(level=level), u_bcs=(bc.velocity_bc(0), bc.velocity_bc(1)),
+        nu=math.sqrt(0.8 / SPURIOUS_LA), beta=1.0,
+        advection=AdvectionParams(scheme="none"),
+        vof_tracers=(("T", bc.default_scalar_bc(2)),), projection=proj,
+        approx_projection=proj,
+        diffusion_params=MultilevelParams(tolerance=1e-6, nitermax=20),
+        **{kind: (("T", 1.0),)})
+
+
+def spurious_sim(dev, kind, level=None, dtype=None, end=math.inf):
+    """The static droplet at rest on the card at ``level`` (LEVEL_SPURIOUS
+    by default) in ``dtype`` (float32 by default), dt from Simulation
+    (the CFL and the capillary bound), not yet run."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    dtype = dtype or torch.float32
+    cfg = spurious_cfg(level or LEVEL_SPURIOUS, kind)
+    T0 = vof.fraction_from_levelset(cfg.grid, droplet_phi, device=dev,
+                                    dtype=dtype)
+    return Simulation(cfg, time=Time(end=end), device=dev,
+                      dtype=dtype).init(T=T0)
+
+
+def add_solves(w, solves, prolongs, k12=True):
+    """Add to ``w`` the launches of the 2D adaptive solves recorded as
+    (solver, niter, fixed count or not): per multigrid solve one K11 for
+    r0, one per cycle (and one more after a fixed count's cycles), and
+    per cycle the correction's restrict_pyramid, ``prolongs`` K3 and,
+    with ``k12``, K12 at 512^2 (its pyramid, block and K12_LEVELS K3);
+    per "relax" solve K11 twice and K10 once."""
+    for solver, niter, fixed in solves:
+        if solver == "relax":
+            w["residual"] += 2
+            w["rbgs_relax"] += 1
+            continue
+        w["residual"] += 1 + niter + int(fixed)
+        if k12:
+            w["coarse_vcycle"] += niter
+            w["coarse_block"] += niter
+            w["coarse_vcycle.restrict_pyramid"] += niter
+            w["coarse_vcycle.prolong_relax"] += K12_LEVELS * niter
+        w["restrict_pyramid"] += niter
+        w["prolong_relax"] += prolongs * niter
+    return w
+
+
+def want_spurious(steps, solves, css):
+    """Launches of init + ``steps`` static-droplet steps at 1024^2: K4
+    once per projection; K5 in every projection with CSS, and with the
+    well-balanced tension (face sources: the generic correction) only in
+    the initial projection; K9 once a step and at init; the adaptive
+    solves' K11, K12, pyramid and K3 (add_solves); no K6 or K14 (scheme
+    "none" takes the generic route)."""
+    w = {k: 0 for k in want_launches("pair", 0)}
+    w.update(divergence_mac=2 * steps + 1,
+             correct_project=2 * steps + 1 if css else 1,
+             interp_faces=steps + 1)
+    return add_solves(w, solves, SPURIOUS_PROLONGS)
+
+
+def phase_spurious(dev, card):
+    """init + SPURIOUS_STEPS steps of the static droplet at 1024^2 in
+    float32 with each tension, through the kernels, the counts set to 0
+    just before and gated just after from every solve's recorded cycle
+    count; finite values; T's volume; the first SPURIOUS_CHECK_STEPS
+    steps against the plain versions (check_against_plain, float64 to
+    1e-9); five timed windows and a profile.  Returns {kind: (launch
+    counts, device ops per step)}."""
+    import torch
+    n = 1 << LEVEL_SPURIOUS
+    out = {}
+    for kind in SPURIOUS_KINDS:
+        css = kind == "tension_css"
+        name = "spurious" + ("_css" if css else "")
+        print(f"phase 3, {name}: the static droplet (test/spurious), {n}^2,"
+              f" {'CSS' if css else 'well-balanced'} tension, scheme none, "
+              f"float32, init + {SPURIOUS_STEPS} steps")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_solves() as log:
+            s = spurious_sim(dev, kind)
+            vol0 = float(s.state["T"].double().sum())
+            s.run(max_steps=SPURIOUS_CHECK_STEPS)
+            early = {k: v.clone() for k, v in s.state.items()}
+            s.run(max_steps=SPURIOUS_STEPS - SPURIOUS_CHECK_STEPS)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = launch_counts()
+        niters = [x[1] for x in log]
+        capped = sum(x[1] == (20 if i % 4 in (1, 2) else 100)
+                     for i, x in enumerate(log[1:]))
+        print(f"  {name}, init + {SPURIOUS_STEPS} steps: {t_run:.3f} s; "
+              f"{len(niters)} solves, niter {niters} ({capped} of the "
+              f"steps' solves stopped at nitermax, not at 1e-6); host "
+              f"syncs {sum(x[3] for x in log)}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if len(niters) != 4 * SPURIOUS_STEPS + 1:
+            raise AssertionError(f"{name}: {len(niters)} solves")
+        want = want_spurious(SPURIOUS_STEPS, [x[:3] for x in log], css)
+        for k, w in want.items():
+            if counts[k] != w:
+                raise AssertionError(f"{name}: {k}: {counts[k]} launches, "
+                                     f"want {w}")
+        for k, v in s.state.items():
+            if v.shape != (n, n) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{name} {k}: not finite or wrong "
+                                     "shape")
+        vol = float(s.state["T"].double().sum())
+        print(f"  {name}: T's volume rel change {abs(vol - vol0) / vol0:.3e}"
+              f"; t {s.time.t:.6e} after {s.time.i} steps, dt {s.dt:.6e}; "
+              f"max|U| {float(s.state['U'].abs().max()):.6e}")
+        check_against_plain(name, lambda dtype: spurious_sim(dev, kind,
+                                                             dtype=dtype),
+                            SPURIOUS_CHECK_STEPS, early, counts, 1e-9)
+        del early
+        step = timed_windows(name, s, SPURIOUS_TIMED_STEPS, card, n * n)
+        ops = phase_profile(s, step, card, SPURIOUS_PROFILE_STEPS)
+        out[name] = (counts, ops)
+    return out
+
+
+def phase_spurious_gate(dev, card):
+    """The physics gate: the static droplet at level 5 in float64 to t = 1
+    on the card with each tension, its shape error (L2 and Linf of T -
+    T0) within SPURIOUS_SHAPE_RTOL of the JAX package's at the same level
+    and time and max|u| within SPURIOUS_UMAX_FACTOR of it
+    (JAX_SPURIOUS), printed beside them."""
+    import torch
+    for kind in SPURIOUS_KINDS:
+        t0 = time.perf_counter()
+        s = spurious_sim(dev, kind, SPURIOUS_GATE_LEVEL, torch.float64,
+                         end=SPURIOUS_GATE_T)
+        T0 = s.state["T"].clone()
+        s.run()
+        e = s.state["T"] - T0
+        got = dict(shape_l2=float(e.pow(2).mean().sqrt()),
+                   shape_linf=float(e.abs().max()),
+                   umax=float((s.state["U"] ** 2 + s.state["V"] ** 2)
+                              .sqrt().max()))
+        ref = JAX_SPURIOUS[kind]
+        print(f"phase 4, spurious gate, {kind}: level {SPURIOUS_GATE_LEVEL}"
+              f", float64, to t = {s.time.t:.6f} in {s.time.i} steps "
+              f"(gerris_tpu {ref['steps']}), "
+              f"{time.perf_counter() - t0:.1f} s on {card}")
+        for key, what in (("shape_l2", "shape error L2"),
+                          ("shape_linf", "shape error Linf"),
+                          ("umax", "max|u|")):
+            r = got[key] / ref[key]
+            if key == "umax":
+                bound = f"within x{SPURIOUS_UMAX_FACTOR:g}"
+                ok = 1 / SPURIOUS_UMAX_FACTOR <= r <= SPURIOUS_UMAX_FACTOR
+            else:
+                bound = f"rel {SPURIOUS_SHAPE_RTOL}"
+                ok = abs(r - 1.0) <= SPURIOUS_SHAPE_RTOL
+            print(f"  spurious gate, {kind}, {what}: {got[key]:.6e}; "
+                  f"gerris_tpu level {SPURIOUS_GATE_LEVEL} f64 "
+                  f"{ref[key]:.6e} (ratio {r:.6f}, bound {bound})")
+            if not ok:
+                raise AssertionError(f"spurious gate {kind}: {what} "
+                                     f"{got[key]:.6e}")
+        if abs(s.time.t - SPURIOUS_GATE_T) > 1e-9:
+            raise AssertionError(f"spurious gate: ended at t = {s.time.t}")
+
+
+def tracer_sim(dev, gradient="centered"):
+    """The bench's 2048^2 cavity (lid_cfg, its route) with the tracer C
+    (D 1e-3, the default scalar BCs) and ``gradient``, float32, C0 = x +
+    0.5, after init."""
+    import dataclasses
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.solvers.advection import AdvectionParams
+    cfg = dataclasses.replace(
+        lid_cfg(11), tracers=(("C", bc.default_scalar_bc(2), 1e-3),),
+        advection=AdvectionParams(gradient=gradient))
+    return Simulation(cfg, time=Time(dtmax=0.8 * cfg.grid.h), device=dev,
+                      dtype=torch.float32).init(C=lambda x, y: x + 0.5)
+
+
+def want_tracer(steps, gradient):
+    """Launches of init + ``steps`` steps of tracer_sim.  Centred: the
+    main path's (want_launches("pair")), and per step K14 once for C and
+    C's diffusion in one fused cycle (K1, K2, K3).  Van Leer (the generic
+    route): no K6, K7, K14 or K8; each projection and each diffusion (U,
+    V and C) one fused cycle; K4, K5 and K9 as on the main path."""
+    solves = 2 * steps + 1
+    if gradient == "centered":
+        w = want_launches("pair", steps)
+        w["advect2d"] += steps
+        extra = steps
+    else:
+        w = {k: 0 for k in want_launches("pair", 0)}
+        w.update(divergence_mac=solves, correct_project=solves,
+                 interp_faces=steps + 1)
+        extra = solves + 3 * steps
+    for k, per in (("residual_restrict", 1), ("cascade_prolong_relax", 1),
+                   ("prolong_relax", 1), ("cascade.restrict_pyramid", 1),
+                   ("cascade.coarse_block", 1),
+                   ("cascade.prolong_relax", CASCADE_K3)):
+        w[k] += per * extra
+    return w
+
+
+def phase_tracer(dev, card):
+    """The tracer on the bench's route (centred: K14 for C beside K7) and
+    on the generic route (van Leer), ROUTE_STEPS = TRACER_STEPS steps
+    each, gated, and held to the plain versions (MAIN_PATH_RTOL on U, V,
+    P and C).  Returns the centred run's launch counts."""
+    import torch
+    out = {}
+    for gradient in ("centered", "van_leer"):
+        print(f"phase 3, tracer: {N_MAIN}^2 lid cavity + tracer C, "
+              f"{gradient} slopes, float32, init + {TRACER_STEPS} steps")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = tracer_sim(dev, gradient).run(max_steps=TRACER_STEPS)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = launch_counts()
+        print(f"  tracer ({gradient}), init + {TRACER_STEPS} steps: "
+              f"{t_run:.3f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        for k, w in want_tracer(TRACER_STEPS, gradient).items():
+            if counts[k] != w:
+                raise AssertionError(f"tracer ({gradient}): {k}: {counts[k]}"
+                                     f" launches, want {w}")
+        for k, v in s.state.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"tracer {k}: not finite")
+        with plain_versions():
+            ref = tracer_sim(dev, gradient).run(max_steps=TRACER_STEPS)
+        if launch_counts() != counts:
+            raise AssertionError("the plain reference run launched kernels")
+        for k in ("U", "V", "P", "C"):
+            rel = rel_err(s.state[k], ref.state[k])
+            print(f"  tracer ({gradient}), kernels vs plain after "
+                  f"{TRACER_STEPS} steps, {k}: rel {rel:.3e} (bound "
+                  f"{MAIN_PATH_RTOL:.0e})")
+            if not rel <= MAIN_PATH_RTOL:
+                raise AssertionError(f"tracer ({gradient}) {k}: rel "
+                                     f"{rel:.3e}")
+        out[gradient] = counts
+    return out["centered"]
+
+
+def stiff_system(dev, level):
+    """tests/test_poisson.py's stiff system at 2^level cells per side in
+    float64 on the card: Dirichlet 0 walls, the 4-decade blobby
+    coefficient k (8 x 8 blocks from numpy's default_rng(7)), harmonic
+    means on the faces, rhs sin(3 pi x) sin(2 pi y).  Returns (grid,
+    fbc, alpha, rhs)."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    n = 1 << level
+    rng = np.random.default_rng(7)
+    k = np.exp(4.0 * np.log(10.0) * rng.random((8, 8)))
+    kf = np.kron(k, np.ones((n // 8, n // 8)))
+    kf = kf / kf.max()
+    alpha = []
+    for c in range(2):
+        pad = np.pad(kf, [(1, 1) if a == c else (0, 0) for a in range(2)],
+                     mode="edge")
+        lo = pad[tuple(slice(0, -1) if a == c else slice(None)
+                       for a in range(2))]
+        hi = pad[tuple(slice(1, None) if a == c else slice(None)
+                       for a in range(2))]
+        alpha.append(torch.as_tensor(2.0 / (1.0 / lo + 1.0 / hi),
+                                     device=dev))
+    grid = Grid(level=level)
+    x, y = (torch.as_tensor(c, device=dev) for c in grid.centers)
+    rhs = (torch.sin(3 * torch.pi * x) * torch.sin(2 * torch.pi * y)
+           + torch.zeros(grid.shape, dtype=torch.float64, device=dev))
+    return grid, bc.FieldBC.uniform(bc.Dirichlet(0.0), 2), tuple(alpha), rhs
+
+
+def phase_mgcg(dev, card):
+    """mgcg on the stiff system at level LEVEL_MGCG in float64: the
+    residual within MGCG_RESIDUAL of max|rhs|, niter at most the
+    adaptive multigrid's on the same system, K15's launches gated from
+    niter (one correction for z0 and one per iteration, each one K15
+    launch per level, the prolongation folded into all but the
+    coarsest), held to the plain versions (same niter, 1e-9); then cg at
+    level LEVEL_CG to its cap, its residual printed.  Returns mgcg's
+    launch counts."""
+    import torch
+    from gerris_tpu_torch.solvers import poisson
+    grid, fbc, alpha, rhs = stiff_system(dev, LEVEL_MGCG)
+    u0 = torch.zeros_like(rhs)
+    scale = float(rhs.abs().max())
+    levels = LEVEL_MGCG - 2 + 1
+    runs = {}
+    for solver in ("mgcg", "multigrid"):
+        params = poisson.MultilevelParams(tolerance=MGCG_TOL, nitermax=60,
+                                          solver=solver)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, st = poisson.solve(u0, rhs, grid, fbc, params, alpha=alpha)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        r = float(poisson.residual(u, rhs, grid, fbc, alpha=alpha).abs()
+                  .max()) / scale
+        runs[solver] = (u, st, counts)
+        print(f"phase 3, mgcg: the stiff system at {grid.shape[0]}^2, "
+              f"float64, {solver}: niter {st.niter}, max|r| / max|rhs| "
+              f"{r:.3e}, {wall:.3f} s, host syncs {st.host_syncs}; launches "
+              f"{ {k: v for k, v in counts.items() if v} } on {card}")
+        if solver == "mgcg" and not r <= MGCG_RESIDUAL:
+            raise AssertionError(f"mgcg: residual {r:.3e}")
+    u, st, counts = runs["mgcg"]
+    if not st.niter <= runs["multigrid"][1].niter:
+        raise AssertionError(f"mgcg: niter {st.niter} > multigrid's "
+                             f"{runs['multigrid'][1].niter}")
+    want = {k: 0 for k in want_launches("pair", 0)}
+    want.update(rbgs_relax_alpha=levels * (st.niter + 1),
+                restrict_pyramid=st.niter + 1)
+    want["rbgs_relax_alpha.prolong"] = (levels - 1) * (st.niter + 1)
+    for k, w in want.items():
+        if counts[k] != w:
+            raise AssertionError(f"mgcg: {k}: {counts[k]} launches, "
+                                 f"want {w}")
+    params = poisson.MultilevelParams(tolerance=MGCG_TOL, nitermax=60,
+                                      solver="mgcg")
+    with plain_versions():
+        up, sp = poisson.solve(u0, rhs, grid, fbc, params, alpha=alpha)
+    rel = rel_err(u, up)
+    print(f"  mgcg, kernels vs plain: niter {st.niter} / {sp.niter}, u rel "
+          f"{rel:.3e} (bound 1e-9)")
+    if sp.niter != st.niter or not rel <= 1e-9:
+        raise AssertionError(f"mgcg vs plain: rel {rel:.3e}")
+    grid, fbc, alpha, rhs = stiff_system(dev, LEVEL_CG)
+    params = poisson.MultilevelParams(tolerance=MGCG_TOL, nitermax=60,
+                                      solver="cg")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, st = poisson.solve(torch.zeros_like(rhs), rhs, grid, fbc, params,
+                          alpha=alpha)
+    torch.cuda.synchronize()
+    r = float(poisson.residual(u, rhs, grid, fbc, alpha=alpha).abs().max())
+    print(f"  cg at {grid.shape[0]}^2: niter {st.niter} (cap "
+          f"{20 * params.nitermax}), max|r| / max|rhs| "
+          f"{r / float(rhs.abs().max()):.3e}, "
+          f"{time.perf_counter() - t0:.3f} s, host syncs {st.host_syncs}")
+    return counts
+
+
+def sessile_cfg(level, angle):
+    """The sessile drop: T with Contact(angle) on the bottom wall (the
+    left wall is the symmetry axis), velocity_bc walls, nu 0.1, tension
+    1, unit density, the default adaptive solves."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    proj = MultilevelParams(tolerance=1e-3, nitermax=100)
+    return ns.NSConfig(
+        grid=Grid(level=level), u_bcs=(bc.velocity_bc(0), bc.velocity_bc(1)),
+        nu=0.1, beta=1.0,
+        vof_tracers=(("T", bc.FieldBC.make(2, bottom=bc.Contact(angle))),),
+        tension=(("T", 1.0),), projection=proj, approx_projection=proj)
+
+
+def sessile_sim(dev, angle):
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    cfg = sessile_cfg(LEVEL_SESSILE, angle)
+    T0 = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y: 0.09 - ((x + 0.5) ** 2 + (y + 0.5) ** 2),
+        device=dev, dtype=torch.float64)
+    return Simulation(cfg, time=Time(), device=dev,
+                      dtype=torch.float64).init(T=T0)
+
+
+def phase_sessile(dev, card):
+    """init + SESSILE_STEPS steps of the sessile drop at 256^2 in float64
+    for each angle, gated from the recorded cycle counts (K6, K4 per
+    projection, K5 at init, K9, K14 per component, and per cycle K11,
+    the pyramid and 2 K3 above the dense 64^2 level), held to the plain
+    versions on U, V, T and mean-free P within SESSILE_RTOL.  Returns
+    the 60-degree run's launch counts."""
+    import torch
+    out = {}
+    for angle in SESSILE_ANGLES:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_solves() as log:
+            s = sessile_sim(dev, angle).run(max_steps=SESSILE_STEPS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"phase 3, sessile: contact angle {angle:g}, "
+              f"{s.cfg.grid.shape[0]}^2, float64, init + {SESSILE_STEPS} "
+              f"steps: {time.perf_counter() - t0:.3f} s; niter "
+              f"{[x[1] for x in log]}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        w = {k: 0 for k in want_launches("pair", 0)}
+        w.update(predict_xy=SESSILE_STEPS,
+                 divergence_mac=2 * SESSILE_STEPS + 1, correct_project=1,
+                 interp_faces=SESSILE_STEPS + 1,
+                 advect2d=2 * SESSILE_STEPS)
+        add_solves(w, [x[:3] for x in log], 2, k12=False)
+        for k, v in w.items():
+            if counts[k] != v:
+                raise AssertionError(f"sessile {angle:g}: {k}: {counts[k]} "
+                                     f"launches, want {v}")
+        with plain_versions():
+            ref = sessile_sim(dev, angle).run(max_steps=SESSILE_STEPS)
+        if launch_counts() != counts:
+            raise AssertionError("the plain reference run launched kernels")
+        for k in ("U", "V", "T", "P"):
+            a, b = s.state[k], ref.state[k]
+            if k == "P":
+                a, b = a - a.mean(), b - b.mean()
+            rel = rel_err(a, b)
+            print(f"  sessile {angle:g}, kernels vs plain after "
+                  f"{SESSILE_STEPS} steps, {k}"
+                  f"{' (mean-free)' if k == 'P' else ''}: rel {rel:.3e} "
+                  f"(bound {SESSILE_RTOL:.0e})")
+            if not rel <= SESSILE_RTOL:
+                raise AssertionError(f"sessile {angle:g} {k}: rel {rel:.3e}")
+        out[angle] = counts
+    return out[SESSILE_ANGLES[0]]
 
 
 def oscillation_cfg(level=OSC_LEVEL):
@@ -3308,6 +3814,11 @@ def main():
     phase_poisson3d(dev)
     route_counts["twophase"] = phase_twophase(dev, card)
     route_counts["bubble"], bubble_ops = phase_bubble(dev, card)
+    for name, (c, _) in phase_spurious(dev, card).items():
+        route_counts[name] = c
+    route_counts["tracer"] = phase_tracer(dev, card)
+    route_counts["mgcg"] = phase_mgcg(dev, card)
+    route_counts["sessile"] = phase_sessile(dev, card)
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
@@ -3346,6 +3857,14 @@ def main():
               "advect2d", "interp_faces", "restrict_pyramid"):
         record[k]["launches_bubble"] = route_counts["bubble"][k]
     record["rbgs_relax_alpha"]["bubble_device_ops_per_step"] = bubble_ops
+    # the slice-3c paths' launches of each kernel they run (spurious:
+    # init + 20 steps per tension; tracer and sessile: init + 5 steps;
+    # mgcg: one solve)
+    for k in record:
+        for path in ("spurious", "spurious_css", "tracer", "mgcg",
+                     "sessile"):
+            if route_counts[path][k]:
+                record[k][f"launches_{path}"] = route_counts[path][k]
     ada = route_counts["adaptive"]
     record["coarse_vcycle"].update(
         launches_restrict_pyramid=ada["coarse_vcycle.restrict_pyramid"],
@@ -3360,6 +3879,7 @@ def main():
         raise AssertionError("Ghia phase failed")
     phase_oscillation(dev, card)
     phase_bubble_gate(dev, card)
+    phase_spurious_gate(dev, card)
 
     print(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ callable ``f(x, y[, t])`` of torch tensors (space/time dependent values,
 evaluated at time ``t`` at the boundary face centres by ``apply_bc`` and
 ``apply_face_bc``); the kernels' static ghost encoding takes constants
 only (``static_values``), so a configuration with a callable value takes
-the torch routes.  Navier slip and contact angles are outside this slice
-and raise.
+the torch routes.  A Navier side (slip length lambda, a constant) has
+the ghost (2 lambda - h) / (2 lambda + h) * interior, homogeneous or
+not; a contact-angle side pads as a mirror (the angle acts in
+physics/vof.py only).  The kernels take neither: ``kernel_ghosts``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from .grid import Grid
 DIRICHLET = "dirichlet"
 NEUMANN = "neumann"
 PERIODIC = "periodic"
-_KINDS = (DIRICHLET, NEUMANN, PERIODIC)
+NAVIER = "navier"
+CONTACT = "contact"
+_KINDS = (DIRICHLET, NEUMANN, PERIODIC, NAVIER, CONTACT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,9 +39,10 @@ class BC:
 
     def __post_init__(self):
         if self.kind not in _KINDS:
-            raise NotImplementedError(
-                f"BC kind {self.kind!r} is not ported yet "
-                "(ROADMAP Queue 1, slices 3-4)")
+            raise ValueError(f"unknown BC kind {self.kind!r}")
+        if self.kind == NAVIER and callable(self.value):
+            raise ValueError("a Navier slip length is a constant (the "
+                             "reference reads it with float())")
         if not callable(self.value):
             object.__setattr__(self, "value", float(self.value))
 
@@ -54,22 +59,61 @@ def Periodic() -> BC:
     return BC(PERIODIC)
 
 
+def Navier(slip_length: float = 0.0) -> BC:
+    """Navier slip, u = lambda du/dn at the wall (GfsBcNavier,
+    src/boundary.c; gerris_tpu/core/bc.py:61-66): lambda = 0 is no-slip,
+    lambda -> infinity free slip."""
+    return BC(NAVIER, slip_length)
+
+
+def Contact(angle=90.0) -> BC:
+    """A contact angle in degrees for a VOF fraction, a constant or a
+    function of the wall-face coordinates and t (GfsBcAngle,
+    src/boundary.c:412-457; gerris_tpu/core/bc.py:78-86).  The fraction
+    pads as a mirror; the angle acts on the normals, the sweep fluxes and
+    the heights in physics/vof.py."""
+    return BC(CONTACT, angle)
+
+
+def navier_factor(b: BC, h: float) -> float:
+    """The Navier ghost's factor (2 lambda - h) / (2 lambda + h) at cell
+    size ``h`` (gerris_tpu/core/bc.py:206-209)."""
+    return (2.0 * b.value - h) / (2.0 * b.value + h)
+
+
 def bc_value(b: BC) -> float:
     """BC value for static-offset ghost consumers (the kernels' "ghost =
-    sgn*mirror + off" encoding).  The reference maps a contact angle to
-    0 here; contact angles are not ported, so this is the plain value.
-    A callable value has no static offset: the callers check
-    ``static_values`` first."""
+    sgn*mirror + off" encoding): a contact angle pads as a mirror, value
+    0 (gerris_tpu/core/bc.py:69-76).  A callable value has no static
+    offset: the callers check ``static_values`` first."""
+    if b.kind == CONTACT:
+        return 0.0
     if callable(b.value):
         raise ValueError("a callable BC value has no static ghost offset")
     return b.value
 
 
+def has_kind(fbc: "FieldBC", kind: str) -> bool:
+    return any(b.kind == kind for ax in fbc.sides for b in ax)
+
+
 def static_values(fbc: "FieldBC") -> bool:
-    """True when no side's value is callable: the kernels' ghost encoding
-    takes the BCs (reference: poisson.residual's static_ok and
-    _bc_values_static)."""
-    return not any(callable(b.value) for ax in fbc.sides for b in ax)
+    """True when every side's ghost is a constant factor times the mirror
+    plus a constant: no callable value, a contact angle's aside (it pads
+    as a mirror whatever the angle).  The torch routes' shifted
+    neighbours take such BCs (reference: poisson.residual's static_ok
+    and _bc_values_static)."""
+    return not any(callable(b.value) and b.kind != CONTACT
+                   for ax in fbc.sides for b in ax)
+
+
+def kernel_ghosts(fbc: "FieldBC", homogeneous: bool = False) -> bool:
+    """True when the kernels' ghost encoding (sgn = -1 or 1, a constant
+    offset) takes the BCs: static values (or ``homogeneous`` ghosts) and
+    no Navier side, whose factor the kernels do not take
+    (gerris_tpu/solvers/poisson.py:193, 245; ops/pallas/bcg.py:
+    423-425)."""
+    return not has_kind(fbc, NAVIER) and (homogeneous or static_values(fbc))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +149,14 @@ def default_scalar_bc(dim: int = 2) -> FieldBC:
     return FieldBC.uniform(Neumann(), dim)
 
 
+def velocity_bc(component: int, dim: int = 2) -> FieldBC:
+    """The reference's default wall for a velocity component: Dirichlet 0
+    on the walls normal to it, Neumann 0 (free slip) on the others
+    (gerris_tpu/core/bc.py:125-132)."""
+    return FieldBC(tuple((Dirichlet(0.0), Dirichlet(0.0)) if ax == component
+                         else (Neumann(), Neumann()) for ax in range(dim)))
+
+
 def grad_bc(u_bc: FieldBC) -> FieldBC:
     """BC for pressure(-gradient) fields: periodic where the domain is
     periodic, symmetric (Neumann 0) otherwise."""
@@ -117,7 +169,12 @@ def _ghost(interior: torch.Tensor, b: BC, side: int, k: int, h: float,
            homogeneous: bool, v=None) -> torch.Tensor:
     """Ghost layer k (1-based) from the interior layer mirrored through
     the boundary face; ``v``: the value evaluated on the slab (a callable
-    BC), else the constant."""
+    BC), else the constant.  A Navier side: its factor times the
+    interior, homogeneous or not; a contact side: the mirror."""
+    if b.kind == NAVIER:
+        return navier_factor(b, h) * interior
+    if b.kind == CONTACT:
+        return interior
     if homogeneous:
         v = 0.0
     elif v is None:
@@ -212,7 +269,8 @@ def apply_bc(field: torch.Tensor, grid: Grid, fbc: FieldBC, width: int = 1,
 def _slab_values(grid, fbc, axis, homogeneous, pad, like, t):
     """The (lo, hi) values of one axis' callable BCs on their boundary
     slabs at time ``t`` (None for a constant, or with homogeneous)."""
-    return [None if homogeneous or not callable(b.value) else
+    return [None if homogeneous or not callable(b.value)
+            or b.kind == CONTACT else
             _eval(b.value, _boundary_coords(grid, axis, sd, pad, like), t)
             for sd, b in enumerate(fbc.sides[axis])]
 

@@ -38,8 +38,20 @@ tracer with the projected faces.  A variable viscosity ``nu_var``
 and the explicit transpose-stress sources (``viscous_transpose_sources``).
 Callable BC values are evaluated at the step's time ``t`` on every
 torch route; the kernels take constant values only, so such a
-configuration takes the plain versions where its callables are.  Plain
-tracers, CSS tension, 3D VOF, solids and metrics are later slices.
+configuration takes the plain versions where its callables are.
+
+Passive ``tracers`` (reference ns.py:450-483, :999-1004) advance after
+the approximate projection with its faces: K14 where it takes the
+tracer's BCs under the centred Godunov scheme, else the generic route,
+then a source and an implicit diffusion.  ``tension_css`` (2D) adds the
+CSS tension's cell accelerations to the momentum increments (beside
+the transpose sources).  A limited slope (van Leer, minmod) or
+``scheme="none"`` takes the reference's generic torch route for the
+predictor and the advections (``bcg.applicable`` is False; the kernels
+and their plain versions compute the centred Godunov scheme only), and
+``gc=False`` drops the gc gradient: no g_prev in the momentum rhs, K9
+without its gp term, no Gx/Gy written back.  3D VOF, solids and metrics
+are later slices.
 """
 from __future__ import annotations
 
@@ -111,16 +123,26 @@ class NSConfig:
     # VOF tracer
     nu_var: object = None
     nu_var_fields: tuple = ()
+    # passive tracers (GfsVariableTracer, src/timestep.c:1028): (name,
+    # FieldBC, diffusivity[, source]) tuples, the source dT/dt a constant
+    # or a function f(x, y[, z], t) of torch tensors (e.g. the unit source
+    # of GfsVariableAge)
+    tracers: tuple = ()
+    # CSS surface tension (GfsSourceTensionCSS, src/tension.c:181-305),
+    # 2D: (vof_name, sigma) pairs giving cell accelerations
+    tension_css: tuple = ()
 
     def __post_init__(self):
         if self.p_bc is None:
             object.__setattr__(self, "p_bc", bcs.grad_bc(self.u_bcs[0]))
         if (self.vof_tracers or self.tension or self.density is not None
-                or self.body_force is not None or self.nu_var is not None) \
-                and self.grid.dim != 2:
+                or self.body_force is not None or self.nu_var is not None
+                or self.tension_css) and self.grid.dim != 2:
             raise NotImplementedError("3D VOF, tension, variable density, "
                                       "body forces and variable viscosity "
-                                      "are slice 3c (ROADMAP Queue 1)")
+                                      "are the next slice (ROADMAP Queue "
+                                      "1); CSS tension is 2D only, as in "
+                                      "the reference")
 
     @property
     def dim(self):
@@ -142,21 +164,22 @@ def predicted_face_velocities(U: list, grid: Grid, cfg: NSConfig, dt,
     allow it (gerris_tpu/models/ns.py:190-196), else its plain version,
     with callable BC values at time ``t``.  ``div_scale``: ``divp`` is
     (div, total), the faces' divergence scaled by div_scale and its sum;
-    else None (always in 3D, where the faces take the reference's generic
-    route, gerris_tpu/models/ns.py:208-223)."""
-    if grid.dim == 3:
+    else None (always in 3D and under a limiter or ``scheme="none"``,
+    where the faces take the reference's generic route,
+    gerris_tpu/models/ns.py:208-223)."""
+    if grid.dim == 3 or not bcg.applicable(grid, cfg.advection):
         uc_pad = [bcs.apply_bc(U[c], grid, cfg.u_bcs[c], 1, corners=False,
-                               t=t) for c in range(3)]
+                               t=t) for c in range(grid.dim)]
         uf = []
-        for c in range(3):
+        for c in range(grid.dim):
             vp, vm = adv.advected_face_values(U[c], grid, cfg.u_bcs[c], dt,
-                                              uc_pad, axes=(c,), t=t)[c]
+                                              uc_pad, axes=(c,), t=t,
+                                              par=cfg.advection)[c]
             un = face_average(uc_pad[c], grid, c)
             uf.append(bcs.apply_face_bc(adv.upwind_face_value(vp, vm, un, c),
                                         grid, cfg.u_bcs[c], c, t=t))
         return uf, None
-    if (bcg.applicable(grid, cfg.advection)
-            and bcg.face_specs(cfg.u_bcs) is not None):
+    if bcg.face_specs(cfg.u_bcs) is not None:
         out = predict.predict_xy(U[0], U[1], dt, grid, cfg.u_bcs, div_scale)
     else:
         out = predict.predict_xy_plain(U[0], U[1], dt, grid, cfg.u_bcs,
@@ -200,10 +223,12 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     the diffusion's face coefficients are dt times its face means, and
     ``sources`` (per component, e.g. viscous_transpose_sources) add dt
     sources to each component's increment (reference ns.py:247-252,
-    :418-437).  Callable BC values are evaluated at time ``t``.  3D: the
-    reference's generic route, advection_diffusion_3d."""
-    if grid.dim == 3:
-        return advection_diffusion_3d(U, uf, gmac, g_prev, grid, cfg, dt, t)
+    :418-437).  In 3D, and under a limiter or ``scheme="none"``, each
+    component's increment takes the reference's generic route (ns.py:
+    335-347, 375-447, adv.advection_increment: the BCG face values with
+    the MAC faces' cell means as the advecting velocity, upwinded by the
+    MAC faces, minus the face mean of gmac times dt/2), then diffuse.
+    Callable BC values are evaluated at time ``t``."""
     fold = cfg.nu > 0.0 and cfg.beta == 1.0 and rho is None and mu is None \
         and sources is None
     dia = 1.0 / (dt * cfg.nu) if fold else None
@@ -235,19 +260,28 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
         mu_pad = bcs.apply_bc(mu, grid, bcs.default_scalar_bc(2), 1, t=t)
         D = tuple(face_average(mu_pad, grid, a) for a in range(2))
     kernel = bcg.applicable(grid, cfg.advection)
+    uc_pad = None if kernel else adv.mac_cell_mean(uf, grid)
+    gbc = bcs.grad_bc(cfg.u_bcs[0])
     out = []
     for c in range(grid.dim):
         fbc = cfg.u_bcs[c]
         kw = dict(g=gmac[c], gp=None if gp is None else gp[c],
                   oscale=None if dia is None else -dia)
-        if kernel and bcg.advect_spec(fbc) is not None:
+        if not kernel:
+            fv = adv.advection_increment(
+                U[c], uf, uc_pad, grid, fbc, dt, cfg.advection, c=c,
+                g_pad=bcs.apply_bc(gmac[c], grid, gbc, 1, corners=False),
+                t=t)
+            if gp is not None:
+                fv = fv - dt * gp[c]
+        elif bcg.advect_spec(fbc) is not None:
             fv = bcg.advect2d(U[c], c, uf[0], uf[1], dt, grid, fbc, **kw)
         else:
             fv = bcg.advect2d_plain(U[c], c, uf[0], uf[1], dt, grid, fbc,
                                     t=t, **kw)
         if sources is not None:
             fv = fv + dt * sources[c]
-        if fold:
+        if fold and kernel:
             v_new, _ = poisson.solve(
                 U[c], fv, grid, fbc,
                 diff.params_or_default(cfg.diffusion_params), dia=dia, t=t)
@@ -264,40 +298,33 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     return out
 
 
-def advection_diffusion_3d(U: list, uf: list, gmac: list, g_prev,
-                           grid: Grid, cfg: NSConfig, dt, t: float = 0.0):
-    """Per component: the BCG face values with the MAC faces' cell means
-    as the advecting velocity, upwinded by the MAC faces, minus the face
-    mean of gmac times dt/2 (the component's own faces then take its
-    Dirichlet value), the flux divergence, minus dt g_prev, then the
-    implicit diffusion solve (reference gerris_tpu/models/ns.py:375-447,
-    src/advection.c:419); callable BC values at time ``t``."""
-    uc_pad = adv.mac_cell_mean(uf, grid)
-    gbc = bcs.grad_bc(cfg.u_bcs[0])
-    out = []
-    for c in range(3):
-        fbc = cfg.u_bcs[c]
-        fvals = adv.advected_face_values(U[c], grid, fbc, dt, uc_pad, t=t)
-        g_pad = bcs.apply_bc(gmac[c], grid, gbc, 1, corners=False)
-        v_faces = []
-        for a in range(3):
-            vface = adv.upwind_face_value(fvals[a][0], fvals[a][1], uf[a], a)
-            vface = vface - face_average(g_pad, grid, a) * dt / 2.0
-            if a == c:
-                vface = bcs.apply_face_bc(vface, grid, fbc, a, t=t)
-            v_faces.append(vface)
-        fv = adv.flux_divergence(v_faces, uf, grid, dt)
-        if g_prev is not None:
-            fv = fv - dt * g_prev[c]
-        if cfg.nu > 0.0:
-            v_new, _ = diff.diffuse(U[c], grid, fbc, dt, cfg.nu, rho=1.0,
-                                    beta=cfg.beta,
-                                    params=cfg.diffusion_params,
-                                    extra_rhs=fv, t=t)
-        else:
-            v_new = U[c] + fv
-        out.append(v_new)
-    return out
+def advect_tracer(T, tracer: tuple, uf: list, grid: Grid, cfg: NSConfig,
+                  dt, t: float = 0.0):
+    """One passive tracer's advection-diffusion with the projected faces
+    ``uf`` (gfs_tracer_advection_diffusion, src/timestep.c:1028;
+    gerris_tpu ns.py:450-483): K14 where it takes the tracer's BCs under
+    the centred Godunov scheme (no face forced, no gmac), else the
+    generic route; then dt times the source (a constant, or a function of
+    the cell centres and ``t``) and, with D > 0, the implicit diffusion
+    solve with the increment as its extra rhs."""
+    _, fbc, D = tracer[:3]
+    src = tracer[3] if len(tracer) > 3 else None
+    if bcg.applicable(grid, cfg.advection) \
+            and bcg.advect_spec(fbc) is not None:
+        fv = bcg.advect2d(T, None, uf[0], uf[1], dt, grid, fbc)
+    else:
+        fv = adv.advection_increment(T, uf, adv.mac_cell_mean(uf, grid),
+                                     grid, fbc, dt, cfg.advection, t=t)
+    if src is not None:
+        sv = src(*cell_centers(grid, T.device, T.dtype), t) \
+            if callable(src) else src
+        fv = fv + dt * sv
+    if D and D > 0.0:
+        T_new, _ = diff.diffuse(T, grid, fbc, dt, D, beta=cfg.beta,
+                                params=cfg.diffusion_params, extra_rhs=fv,
+                                t=t)
+        return T_new
+    return T + fv
 
 
 def _vof_bc(cfg: NSConfig, name: str) -> bcs.FieldBC:
@@ -374,18 +401,21 @@ def viscosity_field(state: dict, cfg: NSConfig, t: float = 0.0):
     (GfsSourceViscosity with a GfsFunction, src/source.c; gerris_tpu
     ns.py:530-548), or None without one.  A field of ``nu_var_fields``
     that the state lacks is ``npass`` filter passes of its parent tracer
-    on the parent's BCs (a VOF tracer's, else the default scalar BCs)."""
+    on the parent's BCs (a VOF tracer's, a tracer's, else the default
+    scalar BCs)."""
     if cfg.nu_var is None:
         return None
     grid = cfg.grid
     like = state[velocity_names(grid.dim)[0]]
     vof_bc = dict((v[0], v[1]) for v in cfg.vof_tracers)
+    tr_bc = dict((tr[0], tr[1]) for tr in cfg.tracers)
     fields = {}
     for name, parent, npass in cfg.nu_var_fields:
         if parent is None or name in state:
             fields[name] = state[name]
         else:
-            fbc = vof_bc.get(parent) or bcs.default_scalar_bc(grid.dim)
+            fbc = vof_bc.get(parent) or tr_bc.get(parent) \
+                or bcs.default_scalar_bc(grid.dim)
             fields[name] = filtered(state[parent], grid, fbc, npass, t)
     mu = cfg.nu_var(*cell_centers(grid, like.device, like.dtype), t=t,
                     **fields)
@@ -463,10 +493,25 @@ def body_force_sources(cfg: NSConfig, like, t: float = 0.0) -> list:
     return out
 
 
+def css_sources(state: dict, cfg: NSConfig, rho_c=None,
+                t: float = 0.0):
+    """The CSS tension's cell accelerations of every (vof_name, sigma) in
+    ``cfg.tension_css``, summed in the reference's order, alpha_cell =
+    1/rho_c under a density (gerris_tpu ns.py:837-845), or None."""
+    srcs = None
+    for name, sigma in cfg.tension_css:
+        css = tens.css_tension_sources(
+            state[name], sigma, cfg.grid, _vof_bc(cfg, name),
+            alpha_cell=None if rho_c is None else 1.0 / rho_c, t=t)
+        srcs = css if srcs is None else [a + b for a, b in zip(css, srcs)]
+    return srcs
+
+
 def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
             first_step: bool = False, cstart: int = 0) -> dict:
     """One full time step from time ``t``; ``state`` holds U, V[, W], P,
-    Pmac, Gx, Gy[, Gz] and the VOF tracers.  ``dt`` is a host float (the
+    Pmac, the VOF and passive tracers, and with gc (the default) Gx,
+    Gy[, Gz].  ``dt`` is a host float (the
     Helmholtz dia = 1/(beta dt nu) is a kernel argument).  Callable BC
     values, a callable body force and ``nu_var`` are evaluated at ``t``
     throughout the step, as the reference does.  ``cstart``: the VOF
@@ -476,15 +521,20 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
     dim = grid.dim
     names = velocity_names(dim)
     U = [state[n] for n in names]
-    g_prev = [state[n] for n in gradient_names(dim)]
+    gc = cfg.advection.gc
+    g_prev = [state[n] for n in gradient_names(dim)] if gc else None
     rho_c, alpha = density_fields(state, cfg, t)
     fs = tension_sources(state, cfg, alpha=alpha, t=t)
     if cfg.body_force is not None:
         fg = body_force_sources(cfg, U[0], t)
         fs = fg if fs is None else [a + b for a, b in zip(fs, fg)]
+    sources = css_sources(state, cfg, rho_c, t)
     mu = viscosity_field(state, cfg, t)
-    sources = None if mu is None else viscous_transpose_sources(
-        U, mu, grid, cfg, None if rho_c is None else 1.0 / rho_c, t)
+    if mu is not None:
+        ts = viscous_transpose_sources(
+            U, mu, grid, cfg, None if rho_c is None else 1.0 / rho_c, t)
+        sources = ts if sources is None else \
+            [a + b for a, b in zip(ts, sources)]
     # 1-2. prediction, MAC projection at dt/2 (the reference swaps P and
     # Pmac around it, src/simulation.c:498-504).  div_in_src (2D): each
     # projection's divergence comes out of the launch that builds its
@@ -498,7 +548,7 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
         div_pre=mac_divp, alpha=alpha, face_sources=fs, t=t)
     # 3. at i == 0 the gc gradient role is played by this step's gmac
     # (src/simulation.c:514-521)
-    if first_step:
+    if gc and first_step:
         g_prev = gmac
     U = velocity_advection_diffusion(U, uf, gmac, g_prev, grid, cfg, dt,
                                      rho=rho_c, mu=mu, sources=sources, t=t)
@@ -516,9 +566,13 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
         new[n] = U[c]
     new["P"] = p
     new["Pmac"] = pmac
-    for c, n in enumerate(gradient_names(dim)):
-        new[n] = g_cell[c]
-    # 5. VOF tracers with the projected faces (gfs_advance_tracers)
+    if gc:
+        for c, n in enumerate(gradient_names(dim)):
+            new[n] = g_cell[c]
+    # 5. the tracers, then the VOF tracers, with the projected faces
+    # (gfs_advance_tracers)
+    for tr in cfg.tracers:
+        new[tr[0]] = advect_tracer(state[tr[0]], tr, uf2, grid, cfg, dt, t)
     for name, fbc in cfg.vof_tracers:
         new[name] = vof.advect(state[name], uf2, grid, fbc, dt,
                                cstart=cstart, t=t)
@@ -546,8 +600,9 @@ def initial_projection(state: dict, dt: float, t: float,
     for c, n in enumerate(names):
         new[n] = U[c]
     new["P"] = p
-    for c, n in enumerate(gradient_names(cfg.dim)):
-        new[n] = g_cell[c]
+    if cfg.advection.gc:
+        for c, n in enumerate(gradient_names(cfg.dim)):
+            new[n] = g_cell[c]
     return new
 
 

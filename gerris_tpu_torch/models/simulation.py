@@ -54,14 +54,17 @@ class Simulation:
         self._tnext = None
 
     def init(self, **fields):
-        """Fields by name (the velocities, P, Pmac, the gradients and the
-        VOF tracers, e.g. ``T=vof.fraction_from_levelset(...)``): a
-        scalar, an array (numpy or torch) of the grid shape, or a callable
-        of the cell-centre coordinates.  Missing fields start at zero."""
+        """Fields by name (the velocities, P, Pmac, the tracers, the VOF
+        tracers, e.g. ``T=vof.fraction_from_levelset(...)``, and with gc
+        the gradients): a scalar, an array (numpy or torch) of the grid
+        shape, or a callable of the cell-centre coordinates.  Missing
+        fields start at zero."""
         grid = self.cfg.grid
         names = list(ns.velocity_names(grid.dim)) + ["P", "Pmac"] + \
-            list(ns.gradient_names(grid.dim)) + \
+            [tr[0] for tr in self.cfg.tracers] + \
             [v[0] for v in self.cfg.vof_tracers]
+        if self.cfg.advection.gc:
+            names += list(ns.gradient_names(grid.dim))
         for n in names:
             v = fields.get(n, 0.0)
             if callable(v):
@@ -75,14 +78,17 @@ class Simulation:
         gfs_simulation_set_timestep src/simulation.c:1569; gerris_tpu
         simulation.py:91-105): with VOF tracers the CFL is at most 0.45
         (their sweeps need <= 0.5, src/vof.c:1654), then the capillary
-        bound of each tension (src/tension.c:106-137).  Reads one number
-        back from the device."""
+        bound of each tension, CSS among them: both are the reference
+        C's GfsSourceTensionGeneric, whose stability method gives it
+        (src/tension.c:106-137; gerris_tpu's simulation.py:97-102 omits
+        the CSS one, ROADMAP Queue 3).  Reads one number back from the
+        device."""
         cfl = self.cfg.advection.cfl
         if self.cfg.vof_tracers:
             cfl = min(cfl, 0.45)
         dt = cfl * float(ns.timescale(self.state, self.cfg))
         dt = min(dt, self.time.dtmax)
-        for _, sigma in self.cfg.tension:
+        for _, sigma in self.cfg.tension + self.cfg.tension_css:
             r1, r2 = (1.0, 1.0) if self.cfg.density is None else \
                 (self.cfg.density[1], self.cfg.density[2])
             dt = min(dt, stability_dt(self.cfg.grid, sigma, r1, r2))
@@ -145,6 +151,9 @@ class Simulation:
             return self.cfg.u_bcs[names.index(name)]
         if name in ("P", "Pmac"):
             return self.cfg.p_bc
+        for tr in self.cfg.tracers:
+            if tr[0] == name:
+                return tr[1]
         return bcs.default_scalar_bc(self.cfg.grid.dim)
 
     def interpolate(self, name: str, points):

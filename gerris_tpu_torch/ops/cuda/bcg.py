@@ -26,7 +26,6 @@ import torch
 
 from ...core import bc as bcs
 from ...solvers import advection as adv
-from ..stencils import face_average
 from .rbgs import (_call, _on_cpu, check, check_faces, doubles, pointers,
                    residual_restrict_plain)
 
@@ -52,9 +51,10 @@ def kernel_spec(fbc: bcs.FieldBC, with_face_bc: bool = False):
     """dict(sgn, off, per_y, fb_x, fb_y) for ``fbc``, or None when the BCs
     are outside the kernels' scope.  ``with_face_bc``: also give the
     Dirichlet value forced on each axis' domain-boundary faces (None for
-    a non-Dirichlet side).  Callable values are refused, as the
-    reference refuses them."""
-    if not bcs.static_values(fbc):
+    a non-Dirichlet side).  Callable values and the Navier and contact kinds
+    are refused, as the reference refuses them (gerris_tpu/ops/pallas/
+    bcg.py:423-425)."""
+    if not bcs.kernel_ghosts(fbc) or bcs.has_kind(fbc, bcs.CONTACT):
         return None
     sgn = [1.0] * 4
     off = [0.0] * 4
@@ -147,27 +147,19 @@ def advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None,
                    oscale=None, t=0.0):
     """The torch route: BCG face values of ``v`` on both axes with the
     advecting velocities from the MAC faces, the Godunov choice, the gmac
-    face correction, the Dirichlet faces of axis ``c`` and the flux
-    difference (reference: src/timestep.c:976-1017).  Corner ghosts in
-    the kernel's order where K14 takes ``fbc``, else the reference's
-    generic route's (solvers/advection.advected_face_values).  Callable
-    BC values (which K14 does not take) are evaluated at time ``t``."""
+    face correction, the Dirichlet faces of axis ``c`` (none for a
+    passive tracer, ``c`` None) and the flux difference (reference:
+    src/timestep.c:976-1017; solvers/advection.advection_increment).
+    Corner ghosts in the kernel's order where K14 takes ``fbc``, else the
+    reference's generic route's (solvers/advection.advected_face_values).
+    Callable BC values (which K14 does not take) are evaluated at time
+    ``t``."""
     uf = [ufx, ufy]
-    uc_pad = adv.mac_cell_mean(uf, grid)
-    fvals = adv.advected_face_values(
-        v, grid, fbc, dt, uc_pad,
-        kernel_corners=advect_spec(fbc) is not None, t=t)
     g_pad = None if g is None else \
         bcs.apply_bc(g, grid, bcs.grad_bc(fbc), 1, corners=False)
-    v_faces = []
-    for a in range(grid.dim):
-        vface = adv.upwind_face_value(fvals[a][0], fvals[a][1], uf[a], a)
-        if g_pad is not None:
-            vface = vface - face_average(g_pad, grid, a) * dt / 2.0
-        if a == c:
-            vface = bcs.apply_face_bc(vface, grid, fbc, a, t=t)
-        v_faces.append(vface)
-    fv = adv.flux_divergence(v_faces, uf, grid, dt)
+    fv = adv.advection_increment(
+        v, uf, adv.mac_cell_mean(uf, grid), grid, fbc, dt, c=c, g_pad=g_pad,
+        t=t, kernel_corners=advect_spec(fbc) is not None)
     if gp is not None:
         fv = fv - dt * gp
     return fv if oscale is None else oscale * (v + fv)
@@ -213,10 +205,11 @@ def _launch_args(name, vs, cs, fbcs):
     its own axis, bit 1 the high) and those faces' values."""
     specs = [advect_spec(f) for f in fbcs]
     for c, f, spec in zip(cs, fbcs, specs):
-        if spec is None or c not in (0, 1):
+        if spec is None or c not in (0, 1, None):
             raise refused(name, f"component {c} with BCs {f}")
-    fbs = [spec["fb_x"] if c == 0 else spec["fb_y"]
-           for c, spec in zip(cs, specs)]
+    # a passive tracer (c None) forces no face
+    fbs = [(None, None) if c is None else spec["fb_x"] if c == 0
+           else spec["fb_y"] for c, spec in zip(cs, specs)]
     return (doubles(*(x for s in specs for x in s["sgn"])),
             doubles(*(x for s in specs for x in s["off"])),
             [(fb[0] is not None) | (fb[1] is not None) << 1 for fb in fbs],
@@ -229,8 +222,9 @@ def advect2d(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None, oscale=None,
     with the MAC faces (ufx, ufy) and the BCs ``fbc``: with ``g`` (the
     gmac cell gradient) the faces' dt/2 face-mean correction, with ``gp``
     fv -= dt gp, and with ``oscale`` the output oscale (v + fv), the
-    implicit-diffusion rhs, instead of fv.  ``tile``: the kernel's tile
-    (tile_plan), for tests."""
+    implicit-diffusion rhs, instead of fv.  ``c`` None: a passive
+    tracer's increment, no face forced (gerris_tpu/models/ns.py:461-
+    465).  ``tile``: the kernel's tile (tile_plan), for tests."""
     _check_advect([v], ufx, ufy, [g], [gp])
     if _on_cpu(v, ufx, ufy, g, gp):
         return advect2d_plain(v, c, ufx, ufy, dt, grid, fbc, g, gp, oscale)
@@ -241,7 +235,7 @@ def advect2d(v, c, ufx, ufy, dt, grid, fbc, g=None, gp=None, oscale=None,
     _call("advect2d", v.dtype, v.device, v.data_ptr(), ufx.data_ptr(),
           ufy.data_ptr(), None if g is None else g.data_ptr(),
           None if gp is None else gp.data_ptr(), n0, n1, float(dt),
-          float(grid.h), sgn, off, c, mask, fb, int(oscale is not None),
+          float(grid.h), sgn, off, c or 0, mask, fb, int(oscale is not None),
           0.0 if oscale is None else float(oscale), out.data_ptr(), tr, tc)
     LAUNCHES["advect2d"] += 1
     return out

@@ -8,7 +8,8 @@ pressure balances it to the solver's tolerance (reference:
 GfsSourceTension src/tension.c:307-385, tension_coeff src/poisson.c:
 903-996, gfs_velocity_face_sources src/timestep.c:245-290).
 kappa > 0 for a convex fluid body; the force is + sigma kappa grad(c).
-The CSS variant is slice 3c.
+The CSS variant (``css_tension_sources``, 2D) gives cell accelerations
+instead: the divergence of the capillary stress from Youngs gradients.
 """
 from __future__ import annotations
 
@@ -58,3 +59,49 @@ def stability_dt(grid: Grid, sigma: float, rho1: float = 1.0,
         return math.inf
     rho = 0.5 * (rho1 + rho2)
     return math.sqrt(rho * grid.h ** 3 / (math.pi * sigma))
+
+
+def _youngs_gradient(a_pad):
+    """2D Youngs (3x3, 1-2-1 weighted) gradient of a 1-ghost padded
+    field, in per-cell units (gfs_youngs_gradient, src/fluid.c;
+    gerris_tpu/physics/tension.py:85-94)."""
+    gx = ((a_pad[2:, :-2] + 2.0 * a_pad[2:, 1:-1] + a_pad[2:, 2:])
+          - (a_pad[:-2, :-2] + 2.0 * a_pad[:-2, 1:-1] + a_pad[:-2, 2:])
+          ) / 8.0
+    gy = ((a_pad[:-2, 2:] + 2.0 * a_pad[1:-1, 2:] + a_pad[2:, 2:])
+          - (a_pad[:-2, :-2] + 2.0 * a_pad[1:-1, :-2] + a_pad[2:, :-2])
+          ) / 8.0
+    return gx, gy
+
+
+def css_tension_sources(T, sigma, grid: Grid, fbc: bcs.FieldBC,
+                        alpha_cell=None, t: float = 0.0) -> list:
+    """The CSS surface tension's cell accelerations [t_x, t_y], 2D
+    (GfsSourceTensionCSS, src/tension.c:181-305; gerris_tpu/physics/
+    tension.py:97-128): from the Youngs gradient n of T (its BC values
+    at time ``t``), g0 = (sigma/h) nx^2/|n|, g1 = (sigma/h) ny^2/|n|, g2
+    = (sigma/h) nx ny/|n| on the default scalar BCs, then t_x = alpha
+    (dx g1 - dy g2)/h and t_y = alpha (dy g0 - dx g2)/h, alpha the cell's
+    1/rho (``alpha_cell``) or 1.  |n| = sqrt(nx^2 + ny^2 + 1e-50) as the
+    reference takes it; where it is 0 (1e-50 is 0 in float32, so a cell
+    with no gradient gives 0/0 in the reference) the g are 0."""
+    if grid.dim != 2:
+        raise NotImplementedError("CSS tension is 2D (the reference's is)")
+    h = grid.h
+    nx, ny = _youngs_gradient(bcs.apply_bc(T, grid, fbc, 1, t=t))
+    nn = torch.sqrt(nx * nx + ny * ny + 1e-50)
+    ok = nn > 0.0
+    nns = torch.where(ok, nn, 1.0)
+    sigh = sigma / h
+    gbc = bcs.default_scalar_bc(2)
+
+    def grad(g):
+        return _youngs_gradient(bcs.apply_bc(torch.where(ok, g / nns, 0.0),
+                                             grid, gbc, 1))
+
+    g0x, g0y = grad(sigh * nx * nx)
+    g1x, g1y = grad(sigh * ny * ny)
+    g2x, g2y = grad(sigh * nx * ny)
+    a = 1.0 if alpha_cell is None else alpha_cell
+    return [a * (g1x - g2y) / h, a * (g0y - g2x) / h]
+

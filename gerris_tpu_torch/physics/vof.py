@@ -11,7 +11,13 @@ Conventions (the reference's):
   cell is {x : m.x <= alpha} with |mx| + |my| = 1;
 * kappa > 0 for a convex fluid body, the divergence of the outward
   normal.
-3D VOF, contact angles and concentrations are slice 3c and raise.
+A contact-angle side (core/bc.Contact) pads the fraction as a mirror;
+``contact_fill`` then writes the ghost band of the interface extended
+into the wall at the angle, which the normals, the sweep fluxes and the
+curvature read, and the heights next to such a wall are shifted by
+cot(theta) (gerris_tpu vof.py:734-870).  ``advect`` carries phase
+concentrations with the geometric fluxes.  3D VOF is the next slice and
+raises.
 """
 from __future__ import annotations
 
@@ -28,6 +34,12 @@ from ..core.grid import Grid
 
 EPS = 1e-30
 FULL_TOL = 1e-10   # reference: f_over_dV clamping, src/vof.c:1616
+# the reference's saturation SLOPE_MAX = 2 HMAX / 3 (src/vof.c:3211):
+# |cot(theta)| at most this, theta within [atan(1/2), pi - atan(1/2)]
+_SLOPE_MAX = 2.0
+# the contact machinery needs the wall band resolved: below this many
+# cells per axis the ghosts stay mirrors (gerris_tpu vof.py:741-744)
+_CONTACT_MIN_CELLS = 12
 
 
 def _check_2d(grid: Grid):
@@ -147,21 +159,118 @@ def is_full(f):
 
 
 def has_contact(fbc: bcs.FieldBC) -> bool:
-    """True if a side carries a contact angle.  Contact angles are slice
-    3b: the port's BCs refuse the kind (core/bc.BC), and a side that
-    names it raises here."""
-    if any(b.kind == "contact" for pair in fbc.sides for b in pair):
-        raise NotImplementedError("contact angles are slice 3c "
-                                  "(ROADMAP Queue 1)")
-    return False
+    """True if a side carries a contact angle."""
+    return bcs.has_kind(fbc, bcs.CONTACT)
+
+
+def _contact_theta(grid: Grid, fbc: bcs.FieldBC, tr_ax: int, side: int,
+                   t, like):
+    """The contact angle in radians along the wall (tr_ax, side) at its
+    face centres, a callable evaluated at time ``t``, saturated to
+    [atan(1/SLOPE_MAX), pi - atan(1/SLOPE_MAX)] (gerris_tpu vof.py:
+    747-760); ``like``'s dtype and device."""
+    b = fbc.sides[tr_ax][side]
+    ta = 1 - tr_ax
+    ntan = grid.shape[ta]
+    xt = grid.origin[ta] + (torch.arange(ntan, dtype=torch.float64,
+                                         device=like.device) + 0.5) * grid.h
+    xw = grid.boundary_coord(tr_ax, side)
+    coords = (xt, xw) if tr_ax == 1 else (xw, xt)
+    theta = torch.deg2rad(torch.broadcast_to(torch.as_tensor(
+        bcs._eval(b.value, coords, t), dtype=like.dtype,
+        device=like.device), (ntan,)))
+    tmin = math.atan(1.0 / _SLOPE_MAX)
+    return torch.clamp(theta, tmin, math.pi - tmin)
+
+
+def contact_fill(f_pad, P: int, grid: Grid, fbc: bcs.FieldBC,
+                 t: float = 0.0):
+    """``f_pad`` (P ghost layers) with the ghost band of each contact-angle
+    side replaced by the fractions of the PLIC interface extended into
+    the wall at the angle (gerris_tpu vof.py:763-870; the reference
+    imposes the angle on its height columns, contact_angle_height and
+    height_contact_normal_bc, src/vof.c:3224-3313).  For each wall cell
+    whose line wets part of the wall face (a contact-line cell), the
+    line of fluid-out normal at angle theta to the inward wall normal
+    and the cell's own fraction is evaluated in the ghost cells below it
+    and, when |cot theta| carries it there, in the tangentially shifted
+    ghost columns (the nearest shift written last); a wall cell with a
+    fully wet (dry) wall face continues full (empty).  Below
+    _CONTACT_MIN_CELLS cells a side the mirror ghosts stay."""
+    n0, n1 = (s - 2 * P for s in f_pad.shape)
+    if min(n0, n1) < _CONTACT_MIN_CELLS:
+        return f_pad
+    shape = (n0, n1)
+    ms = mycs_normals(f_pad[P - 1:P + n0 + 1, P - 1:P + n1 + 1])
+    f_pad = f_pad.clone()
+    dtype = f_pad.dtype
+    for tr_ax in range(2):
+        for side in range(2):
+            if fbc.sides[tr_ax][side].kind != bcs.CONTACT:
+                continue
+            ta = 1 - tr_ax
+            ntan = shape[ta]
+            r0 = 0 if side == 0 else shape[tr_ax] - 1
+
+            def row(a):
+                return a[r0, :] if tr_ax == 0 else a[:, r0]
+
+            fr = row(f_pad[P:P + n0, P:P + n1])
+            s_t = torch.where(row(ms[ta]) < 0.0, -1.0, 1.0).to(dtype)
+            theta = _contact_theta(grid, fbc, tr_ax, side, t, f_pad)
+            nrm = torch.sin(theta) + torch.abs(torch.cos(theta))
+            mt = s_t * torch.sin(theta) / nrm
+            mi = torch.cos(theta) / nrm
+            negt, negi = torch.clamp(-mt, min=0.0), torch.clamp(-mi, min=0.0)
+            alpha = line_alpha_positive(mt.abs(), mi.abs(), fr) - negt - negi
+            # the wetted share of the wall face (local tr = 0 edge)
+            w = torch.where(
+                mt.abs() < 1e-6, (alpha > 0.0).to(dtype),
+                torch.clamp((alpha - torch.clamp(mt, max=0.0))
+                            / torch.clamp(mt.abs(), min=EPS), 0.0, 1.0))
+            interf = (fr > FULL_TOL) & (fr < 1.0 - FULL_TOL)
+            contact = interf & (w > FULL_TOL) & (w < 1.0 - FULL_TOL)
+
+            def line_val(k, g):
+                # the fraction the line cuts from the ghost cell k
+                # columns over, g rows into the wall
+                return line_area_positive(
+                    mt.abs(), mi.abs(), alpha + k * mt + g * mi + negt + negi)
+
+            idx = torch.arange(ntan, device=f_pad.device)
+            for g in range(1, P + 1):
+                ghost = torch.where(interf, (w >= 0.5).to(dtype),
+                                    (fr >= 0.5).to(dtype))
+                ghost = torch.where(contact, line_val(0, g), ghost)
+                kmax = int(g * _SLOPE_MAX) + 1
+                for k in sorted(range(-kmax, kmax + 1), key=lambda q: -abs(q)):
+                    if k == 0:
+                        continue
+                    cand = torch.roll(line_val(k, g), -k)
+                    take = (torch.roll(contact, -k) & (idx + k >= 0)
+                            & (idx + k < ntan) & ~contact
+                            & (cand > FULL_TOL) & (cand < 1.0 - FULL_TOL))
+                    ghost = torch.where(take, cand, ghost)
+                gi = P - g if side == 0 else P + shape[tr_ax] - 1 + g
+                if tr_ax == 0:
+                    f_pad[gi, P:P + n1] = ghost
+                else:
+                    f_pad[P:P + n0, gi] = ghost
+    return f_pad
+
+
+def _pad(f, grid: Grid, fbc: bcs.FieldBC, width: int, t: float):
+    """f padded by ``width`` with its BCs, the contact sides' ghost band
+    filled (contact_fill)."""
+    p = bcs.apply_bc(f, grid, fbc, width, t=t)
+    return contact_fill(p, width, grid, fbc, t) if has_contact(fbc) else p
 
 
 def normals(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0):
-    """MYC normals of f padded with its BCs at time ``t`` (gerris_tpu
-    vof.py:425-433)."""
+    """MYC normals of f padded with its BCs at time ``t``, contact sides
+    filled (gerris_tpu vof.py:425-433)."""
     _check_2d(grid)
-    has_contact(fbc)
-    return mycs_normals(bcs.apply_bc(f, grid, fbc, 1, t=t))
+    return mycs_normals(_pad(f, grid, fbc, 1, t))
 
 
 # ---------------------------------------------------------------------------
@@ -242,11 +351,16 @@ def sweep_flux(f, u_face: list, grid: Grid, fbc: bcs.FieldBC, c: int, dt,
     """(geometric flux, face CFL) of one direction-split sweep along ``c``
     (gerris_tpu vof.py:530-583): MYC normals on the 2-ghost padding, the
     band refinement's transverse velocity increment from the cell means
-    of u_face[c] (grad_u src/vof.c:1595, dun :1491)."""
+    of u_face[c] (grad_u src/vof.c:1595, dun :1491).  With a contact
+    side both pads are the contact-filled 2-ghost one (gerris_tpu
+    vof.py:541-548)."""
     _check_2d(grid)
-    has_contact(fbc)
-    f_pad = bcs.apply_bc(f, grid, fbc, 1, t=t)
-    pad2 = bcs.apply_bc(f, grid, fbc, 2, t=t)
+    if has_contact(fbc):
+        pad2 = _pad(f, grid, fbc, 2, t)
+        f_pad = pad2[1:-1, 1:-1]
+    else:
+        f_pad = bcs.apply_bc(f, grid, fbc, 1, t=t)
+        pad2 = bcs.apply_bc(f, grid, fbc, 2, t=t)
     un = u_face[c] * dt / grid.h
     mx, my = mycs_normals(pad2)     # on the +1 ring layout
     o = 1 - c
@@ -277,23 +391,50 @@ def sweep_update(f, dV, flux, un, c: int):
     return f, dV
 
 
+def _conc_sweep(cq, f, dV, flux, un, c: int, grid: Grid, cbc, t):
+    """One sweep of every concentration amount q = c f, with the donor
+    cell's concentration on each face times the fraction flux and the
+    dilation bookkeeping of f itself (gerris_tpu vof.py:490-510)."""
+    n = flux.shape[c]
+    volflux = -(un.narrow(c, 1, n - 1) - un.narrow(c, 0, n - 1))
+    out = []
+    for q in cq:
+        ccur = torch.where(f > EPS, q / torch.clamp(f, min=EPS), 0.0)
+        cp = bcs.apply_bc(ccur, grid, cbc, 1, t=t)
+        cp = cp.narrow(1 - c, 1, cp.shape[1 - c] - 2)
+        cflux = torch.where(un > 0.0, cp.narrow(c, 0, n),
+                            cp.narrow(c, 1, n)) * flux
+        cfv = -(cflux.narrow(c, 1, n - 1) - cflux.narrow(c, 0, n - 1))
+        out.append((q * dV + cfv) / torch.clamp(dV + volflux, min=EPS))
+    return out
+
+
 def advect(f, u_face: list, grid: Grid, fbc: bcs.FieldBC, dt,
-           cstart: int = 0, concentrations=None, t: float = 0.0):
+           cstart: int = 0, concentrations=None, t: float = 0.0,
+           cbc: bcs.FieldBC = None):
     """One VOF advection step: direction-split sweeps starting at
     component ``cstart`` (rotated by the caller each step, src/vof.c:1648,
     1721), the dilation field carried across the sweeps (gerris_tpu
     vof.py:473-528).  Needs a per-sweep CFL u dt / h <= 0.5.
-    Concentrations are slice 3c and raise.  Callable BC values are
-    evaluated at time ``t``."""
-    if concentrations is not None:
-        raise NotImplementedError("VOF concentrations are slice 3c "
-                                  "(ROADMAP Queue 1)")
+    ``concentrations``: phase-intensive fields c whose amounts c f are
+    carried with the geometric fluxes, the donor cell's c on each face
+    (GfsVariableVOFConcentration, src/vof.c:962-1010), padded with
+    ``cbc`` (default ``fbc``); then returns (f, [c, ...]).  Callable BC
+    values are evaluated at time ``t``."""
     dV = torch.ones_like(f)
+    cq = None if concentrations is None else \
+        [torch.as_tensor(c, dtype=f.dtype, device=f.device) * f
+         for c in concentrations]
     for k in range(grid.dim):
         c = (cstart + k) % grid.dim
         flux, un = sweep_flux(f, u_face, grid, fbc, c, dt, t)
+        if cq is not None:
+            cq = _conc_sweep(cq, f, dV, flux, un, c, grid, cbc or fbc, t)
         f, dV = sweep_update(f, dV, flux, un, c)
-    return f
+    if cq is None:
+        return f
+    return f, [torch.where(f > EPS, q / torch.clamp(f, min=EPS), 0.0)
+               for q in cq]
 
 
 # ---------------------------------------------------------------------------
@@ -316,18 +457,22 @@ def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2,
     wide pad's (gerris_tpu vof.py:646-650).  Callable BC values are
     evaluated at time ``t``."""
     _check_2d(grid)
-    has_contact(fbc)
     R = 3  # column half-height
     o_max = min(off_max, max(0, (min(grid.shape) - 2 * R) // 2))
     OFF = (0,) + sum(((-o, o) for o in range(1, o_max + 1)), ())
     P = R + o_max + 1
-    f_pad = bcs.apply_bc(f, grid, fbc, P, t=t)
+    contact = has_contact(fbc)
+    f_pad = _pad(f, grid, fbc, P, t)
     n0, n1 = grid.shape
 
     def sub(di, dj):
         return f_pad[P + di:P + di + n0, P + dj:P + dj + n1]
 
-    mx, my = mycs_normals(bcs.apply_bc(f, grid, fbc, 1, t=t))
+    # the normals: the 1-ghost padding's (whose corner ghosts differ from
+    # the wide pad's), or with a contact side the filled wide pad's ring
+    mx, my = mycs_normals(f_pad[P - 1:P + n0 + 1, P - 1:P + n1 + 1]
+                          if contact else
+                          bcs.apply_bc(f, grid, fbc, 1, t=t))
     interface = (f > FULL_TOL) & (f < 1.0 - FULL_TOL)
     nan = torch.full_like(f, math.nan)
 
@@ -335,6 +480,7 @@ def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2,
     for d in range(2):
         kap_d = nan
         val_d = torch.zeros_like(f, dtype=torch.bool)
+        shifts = _contact_height_shifts(grid, fbc, d, t, f)
         for o in OFF:
             if d == 1:
                 def col(dtrans):
@@ -347,6 +493,11 @@ def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2,
                                for k in range(o - R, o + R + 1))
                 top, bot = sub(o + R, 0), sub(o - R, 0)
             Hm, H0, Hp = col(-1), col(0), col(1)
+            for side, wall, cot in shifts:
+                if side == 0:
+                    Hm = torch.where(wall, H0 + cot, Hm)
+                else:
+                    Hp = torch.where(wall, H0 - cot, Hp)
             Hx = 0.5 * (Hp - Hm)
             Hxx = Hp - 2.0 * H0 + Hm
             kap = -Hxx / grid.h / torch.pow(1.0 + Hx * Hx, 1.5)
@@ -368,6 +519,30 @@ def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2,
     kap_fit = parabola_curvature(f, grid, fbc, mx, my, t)
     kap = torch.where(torch.isfinite(kap), kap, kap_fit)
     return torch.where(interface, kap, nan)
+
+
+def _contact_height_shifts(grid: Grid, fbc: bcs.FieldBC, d: int, t, like):
+    """For the heights along axis ``d``: (side, wall cells, cot theta) of
+    each contact wall transverse to it, where the ghost column's height
+    is the wall cell's shifted by +cot theta (low wall) or -cot theta
+    (high wall), |cot| at most _SLOPE_MAX (contact_angle_height,
+    src/vof.c:3282-3313; gerris_tpu vof.py:682-700)."""
+    tr = 1 - d
+    out = []
+    if min(grid.shape) < _CONTACT_MIN_CELLS:
+        return out
+    for side in range(2):
+        if fbc.sides[tr][side].kind != bcs.CONTACT:
+            continue
+        th = _contact_theta(grid, fbc, tr, side, t, like)
+        cot = torch.clamp(1.0 / torch.tan(th), -_SLOPE_MAX, _SLOPE_MAX)
+        shp = [1, 1]
+        shp[d] = grid.shape[d]
+        ridx = torch.arange(grid.shape[tr], device=like.device).reshape(
+            [grid.shape[tr] if a == tr else 1 for a in range(2)])
+        wall = ridx == (0 if side == 0 else grid.shape[tr] - 1)
+        out.append((side, wall, cot.reshape(shp)))
+    return out
 
 
 def interface_point(f, mx, my):
@@ -392,10 +567,14 @@ def parabola_curvature(f, grid: Grid, fbc: bcs.FieldBC, mx, my,
     kappa = -2 a2 / (1 + a1^2)^(3/2) / h where at least 4 points and a
     regular system (ParabolaFit src/vof.c:2201-2493)."""
     _check_2d(grid)
-    has_contact(fbc)
     W = 2
-    f_all = bcs.apply_bc(f, grid, fbc, W, t=t)
-    mcx, mcy = mycs_normals(bcs.apply_bc(f, grid, fbc, W + 1, t=t))
+    if has_contact(fbc):
+        f_big = _pad(f, grid, fbc, W + 1, t)
+        f_all = f_big[1:-1, 1:-1]
+        mcx, mcy = mycs_normals(f_big)
+    else:
+        f_all = bcs.apply_bc(f, grid, fbc, W, t=t)
+        mcx, mcy = mycs_normals(bcs.apply_bc(f, grid, fbc, W + 1, t=t))
     n0, n1 = grid.shape
 
     def sub(a, di, dj):

@@ -1,6 +1,6 @@
 """Godunov/BCG second-order upwind advection
-(port of gerris_tpu/solvers/advection.py; centred unlimited slope; 2D
-and 3D).
+(port of gerris_tpu/solvers/advection.py; the centred, van Leer and
+minmod slopes, the Godunov scheme or none; 2D and 3D).
 
 Face value of v at t+dt/2, extrapolated from the upwind cell:
   v_face(+side) = v + min((1-u dt/h)/2, 1/2) * h dv/dx
@@ -16,34 +16,46 @@ import torch
 
 from ..core.grid import Grid
 from ..core import bc as bcs
+from ..ops.stencils import face_average
 
 
 @dataclasses.dataclass(frozen=True)
 class AdvectionParams:
     """Reference defaults (src/advection.c:924-948): cfl 0.8, centred
     unlimited gradient, Godunov scheme, gc (explicit pressure gradient in
-    the momentum rhs) on.  Only these values are ported."""
+    the momentum rhs) on.  ``gradient``: "centered", "van_leer" or
+    "minmod"; ``scheme``: "godunov", or "none" (face values v +- g/2, no
+    time extrapolation or transverse term)."""
     cfl: float = 0.8
     gradient: str = "centered"
     scheme: str = "godunov"
     gc: bool = True
 
     def __post_init__(self):
-        if (self.gradient != "centered" or self.scheme != "godunov"
-                or not self.gc):
-            raise NotImplementedError(
-                "only the centred Godunov scheme with gc is ported "
-                "(limiters and gc=False: ROADMAP Queue 1, slice 3)")
+        if self.gradient not in ("centered", "van_leer", "minmod"):
+            raise ValueError(f"gradient {self.gradient!r}")
+        if self.scheme not in ("godunov", "none"):
+            raise ValueError(f"scheme {self.scheme!r}")
 
 
-def _slope(a: torch.Tensor, axis: int) -> torch.Tensor:
-    """Centred slope * h of a once-padded array along ``axis`` (shrinks
-    by 2 along it)."""
+def _slope(a: torch.Tensor, axis: int,
+           limiter: str = "centered") -> torch.Tensor:
+    """The (limited) slope * h of a once-padded array along ``axis``
+    (shrinks by 2 along it; reference advection.py:39-62)."""
     n = a.shape[axis]
     c = a.narrow(axis, 1, n - 2)
     s0 = c - a.narrow(axis, 0, n - 2)
     s1 = a.narrow(axis, 2, n - 2) - c
-    return 0.5 * (s0 + s1)
+    if limiter == "centered":
+        return 0.5 * (s0 + s1)
+    if limiter == "van_leer":
+        prod = s0 * s1
+        harm = 2.0 * prod / torch.where(s0 + s1 == 0.0, 1.0, s0 + s1)
+        return torch.where(prod > 0.0, harm, 0.0)
+    if limiter == "minmod":
+        return torch.where(s0 * s1 > 0.0,
+                           torch.where(s0.abs() < s1.abs(), s0, s1), 0.0)
+    raise ValueError(limiter)
 
 
 def mac_cell_mean(u_face: list, grid: Grid) -> list:
@@ -62,11 +74,14 @@ def mac_cell_mean(u_face: list, grid: Grid) -> list:
 
 def advected_face_values(v, grid: Grid, fbc: bcs.FieldBC, dt,
                          uc_pad: list, axes=None, kernel_corners=False,
-                         t: float = 0.0):
+                         t: float = 0.0, par: AdvectionParams = None):
     """BCG-extrapolated face values of ``v`` at t+dt/2: per axis
     (v_plus, v_minus) on the 1-ghost padded cell layout, or None for an
     axis not in ``axes``.  ``uc_pad``: the advecting velocity per
     component, 1-ghost padded.  Reference: src/advection.c:58-99.
+    ``par`` (default: the centred Godunov scheme) gives the slope's
+    limiter, and with scheme "none" the faces are v +- g/2 (reference
+    advection.py:113-115).
     The transverse term of a ghost cell next to an edge reads the corner
     ghosts, and where a boundary face carries flux (periodic, outflow)
     they reach the result.  By default the ghosts of ``v`` are padded as
@@ -79,6 +94,7 @@ def advected_face_values(v, grid: Grid, fbc: bcs.FieldBC, dt,
     evaluated at time ``t``."""
     dim = grid.dim
     h = grid.h
+    par = par or AdvectionParams()
     if kernel_corners and dim == 2:
         v2 = bcs.apply_bc(v, grid, fbc, 2, axes=(1, 0), t=t)
     else:
@@ -91,7 +107,10 @@ def advected_face_values(v, grid: Grid, fbc: bcs.FieldBC, dt,
             continue
         idx = [slice(1, s - 1) for s in v2.shape]
         idx[c] = slice(None)
-        g = _slope(v2[tuple(idx)], c)
+        g = _slope(v2[tuple(idx)], c, par.gradient)
+        if par.scheme == "none":
+            out.append((v1 + 0.5 * g, v1 - 0.5 * g))
+            continue
         unorm = dt * uc_pad[c] / h
         vp = v1 + torch.clamp((1.0 - unorm) / 2.0, max=0.5) * g
         vm = v1 + torch.clamp((-1.0 - unorm) / 2.0, min=-0.5) * g
@@ -138,3 +157,28 @@ def flux_divergence(v_face: list, u_face: list, grid: Grid, dt):
         n = F.shape[axis]
         fv = fv - dt * (F.narrow(axis, 1, n - 1) - F.narrow(axis, 0, n - 1)) / grid.h
     return fv
+
+
+def advection_increment(v, uf: list, uc_pad: list, grid: Grid,
+                        fbc: bcs.FieldBC, dt, par: AdvectionParams = None,
+                        c: int = None, g_pad=None, t: float = 0.0,
+                        kernel_corners: bool = False):
+    """The conservative increment of ``v`` on the reference's generic
+    route (gerris_tpu/models/ns.py:335-347, :450-478): its face values
+    under ``par``, upwinded by the MAC faces ``uf``, less dt/2 the face
+    mean of ``g_pad`` (a 1-ghost padded cell gradient, the gmac
+    correction) where given, the Dirichlet value on the faces of axis
+    ``c`` (a velocity component; None for a tracer), and the flux
+    difference.  ``uc_pad``: mac_cell_mean(uf); ``kernel_corners``: as
+    in advected_face_values (the BCG kernels' plain versions)."""
+    fvals = advected_face_values(v, grid, fbc, dt, uc_pad, t=t, par=par,
+                                 kernel_corners=kernel_corners)
+    faces = []
+    for a in range(grid.dim):
+        vface = upwind_face_value(fvals[a][0], fvals[a][1], uf[a], a)
+        if g_pad is not None:
+            vface = vface - face_average(g_pad, grid, a) * dt / 2.0
+        if a == c:
+            vface = bcs.apply_face_bc(vface, grid, fbc, a, t=t)
+        faces.append(vface)
+    return flux_divergence(faces, uf, grid, dt)

@@ -10,8 +10,9 @@ branches (poisson.py:1090-1162):
   K3) where the BCs allow it (static values, non-periodic rows), else
   residual + ``correction`` per cycle;
 * a registry solver (``solver != "multigrid"``, SOLVER_REGISTRY): the
-  fine-relax-only ``solve_relax`` (K11 -> K10 -> K11); cg and mgcg wait
-  for slice 3 and raise;
+  fine-relax-only ``solve_relax`` (K11 -> K10 -> K11), the
+  Jacobi-preconditioned CG ``solve_cg`` and the V-cycle-preconditioned
+  flexible CG ``solve_mgcg``, their loop conditions read on the host;
 * ``nitermin == nitermax``: that many cycles, looped from the host;
 * else the adaptive tolerance loop (``_solve_adaptive``): one residual
   (K11) per cycle, cycles until max|r| <= tolerance * max|rhs| or
@@ -141,18 +142,26 @@ class SolveStats:
                 / torch.clamp(self.residual_after["infty"], min=tiny))
 
 
+def _sign(b: bcs.BC, grid: Grid) -> float:
+    if b.kind == bcs.DIRICHLET:
+        return -1.0
+    return bcs.navier_factor(b, grid.h) if b.kind == bcs.NAVIER else 1.0
+
+
 def _signs_offs(grid: Grid, fbc: bcs.FieldBC, homogeneous: bool):
-    """(signs, offs) ghost encodings for the kernels (ghost = sign *
-    mirror + off per side, sides ordered (x lo, x hi, y lo, y hi[, z lo,
-    z hi]); reference poisson.py:628-645)."""
+    """(signs, offs) ghost encodings (ghost = sign * mirror + off per
+    side, sides ordered (x lo, x hi, y lo, y hi[, z lo, z hi]); reference
+    poisson.py:628-645).  A Navier side's sign is its factor on ``grid``
+    (the torch routes take it; the kernels do not, ``bcs.kernel_ghosts``),
+    with no offset."""
     dim = len(fbc.sides)
-    signs = tuple(-1.0 if fbc.sides[ax][sd].kind == bcs.DIRICHLET else 1.0
+    signs = tuple(_sign(fbc.sides[ax][sd], grid)
                   for ax in range(dim) for sd in range(2))
     offs = []
     for ax in range(dim):
         for sd in range(2):
             b = fbc.sides[ax][sd]
-            if homogeneous or b.kind == bcs.PERIODIC:
+            if homogeneous or b.kind in (bcs.PERIODIC, bcs.NAVIER):
                 offs.append(0.0)
             elif b.kind == bcs.DIRICHLET:
                 offs.append(2.0 * bcs.bc_value(b))
@@ -296,8 +305,9 @@ def residual(u, rhs, grid: Grid, fbc: bcs.FieldBC, dia=None,
     reference's padded route (poisson.py:177-182), which evaluates
     callable values at time ``t``.  With face coefficients ``alpha`` or a
     cell dia, the reference's torch route on every device (K11 takes
-    neither, as residual_pallas does not)."""
-    if _variable(alpha, dia) or not (homogeneous or bcs.static_values(fbc)):
+    neither, as residual_pallas does not); so too with a Navier side, on
+    the shifted neighbours with its factor."""
+    if _variable(alpha, dia) or not bcs.kernel_ghosts(fbc, homogeneous):
         return _residual_generic(u, rhs, grid, fbc, alpha, dia, homogeneous,
                                  t)
     d = _scalar_dia(dia)
@@ -320,9 +330,11 @@ def relax(u, rhs, grid: Grid, fbc: bcs.FieldBC, nsweeps: int, dia=None,
     offsets, periodic sides included.  With face coefficients ``alpha``
     (and a scalar or cell dia) K15 in 2D with homogeneous ghosts
     (poisson.py:289-303), at every level size; otherwise, and for a cell
-    dia with unit coefficients, the reference's jnp sweeps in torch."""
+    dia with unit coefficients, the reference's jnp sweeps in torch.  A
+    Navier side takes the torch sweeps with its factor."""
+    kernel = bcs.kernel_ghosts(fbc, homogeneous=True)
     if _variable(alpha, dia):
-        if alpha is not None and homogeneous and grid.dim == 2:
+        if alpha is not None and homogeneous and grid.dim == 2 and kernel:
             return _relax_alpha(u, rhs, grid, fbc, nsweeps, dia, alpha,
                                 omega)
         return _relax_generic(u, rhs, grid, fbc, nsweeps, alpha, dia,
@@ -331,12 +343,12 @@ def relax(u, rhs, grid: Grid, fbc: bcs.FieldBC, nsweeps: int, dia=None,
     h2 = grid.h * grid.h
     signs, offs = _signs_offs(grid, fbc, homogeneous)
     if grid.dim == 3:
-        if homogeneous and not any(_periodic(fbc)):
+        if homogeneous and not any(_periodic(fbc)) and kernel:
             return rbgs3d.rbgs_relax_3d(u, rhs, d, nsweeps=nsweeps, h2=h2,
                                         signs=signs, omega=omega)
         return rbgs3d.rbgs3d_plain(u, rhs, nsweeps, h2, 1.0 / (6.0 + d * h2),
                                    signs, _periodic(fbc), omega, offs)
-    if homogeneous:
+    if homogeneous and kernel:
         return rbgs.rbgs_relax(u, rhs, d, nsweeps=nsweeps, h2=h2,
                                signs=signs, periodic=_periodic(fbc),
                                omega=omega)
@@ -366,12 +378,13 @@ def restrict(r):
     return r.reshape(n0 // 2, 2, n1 // 2, 2, n2 // 2, 2).mean(dim=(1, 3, 5))
 
 
-def prolong(c, fbc: bcs.FieldBC):
+def prolong(c, fbc: bcs.FieldBC, grid_c: Grid):
     """Bilinear (2D) or trilinear (3D) prolongation coarse -> fine with
     homogeneous BCs (reference: get_from_above, src/poisson.c:1005-1042;
     in 3D poisson.py:379-390: axis by axis, weights 0.75/0.25, ghosts
-    sgn * c or wrapped)."""
-    signs, _ = _signs_offs(None, fbc, True)
+    sgn * c or wrapped).  ``grid_c``: the coarse level, whose cell size
+    sets a Navier side's factor."""
+    signs, _ = _signs_offs(grid_c, fbc, True)
     if c.dim() == 2:
         return rbgs.prolong_plain(c, signs, _periodic(fbc))
     return rbgs3d.prolong3d_plain(c, signs, _periodic(fbc))
@@ -413,7 +426,8 @@ def _coeff_hierarchy(grid: Grid, minlevel: int, alpha, dia):
 
 def _laplacian_matrix(shape, h: float, kinds) -> np.ndarray:
     """The dense homogeneous-BC Laplacian of a 2D or 3D level, row-major
-    cells (reference poisson.py:_coarse_eig)."""
+    cells (reference poisson.py:_coarse_eig); a side's kind is periodic,
+    Dirichlet or Neumann, or (navier, its factor)."""
     ncell = int(np.prod(shape))
     strides = [int(np.prod(shape[a + 1:])) for a in range(len(shape))]
     A = np.zeros((ncell, ncell))
@@ -427,6 +441,9 @@ def _laplacian_matrix(shape, h: float, kinds) -> np.ndarray:
                     A[k, k] -= 1.0
                 elif kinds[axis][side] == bcs.DIRICHLET:
                     A[k, k] -= 2.0      # homogeneous ghost = -interior
+                elif isinstance(kinds[axis][side], tuple):
+                    # Navier: ghost = factor * interior
+                    A[k, k] += kinds[axis][side][1] - 1.0
                 # homogeneous Neumann: ghost = interior, no net term
     return A / (h * h)
 
@@ -448,7 +465,9 @@ def _dense_solve(rc, grid_c: Grid, fbc: bcs.FieldBC, d: float):
     mode of a pure-Neumann or periodic level projected out (reference
     poisson.py:571-583).  The products are torch.matmul, as the
     reference leaves them to XLA outside any kernel."""
-    kinds = tuple(tuple(b.kind for b in ax) for ax in fbc.sides)
+    kinds = tuple(tuple((b.kind, bcs.navier_factor(b, grid_c.h))
+                        if b.kind == bcs.NAVIER else b.kind for b in ax)
+                  for ax in fbc.sides)
     w, Q = _coarse_eig(tuple(rc.shape), grid_c.h, kinds, rc.device,
                        rc.dtype)
     denom = w - d
@@ -486,7 +505,8 @@ def _correction_variable(r, grid, fbc, params, alpha, dia, u_fine):
     nl = len(grids)
     coarsest = (params.nrelax * params.erelax ** (nl - 1)
                 + params.coarsest_relax)
-    if grid.dim == 2 and alpha is not None:
+    if (grid.dim == 2 and alpha is not None
+            and bcs.kernel_ghosts(fbc, homogeneous=True)):
         du = None
         for k in range(nl - 1, -1, -1):
             nswp = coarsest if k == nl - 1 else \
@@ -498,7 +518,7 @@ def _correction_variable(r, grid, fbc, params, alpha, dia, u_fine):
     du = relax(torch.zeros_like(rs[-1]), rs[-1], grids[-1], fbc, coarsest,
                dias[-1], omega=params.omega, alpha=alphas[-1])
     for k in range(nl - 2, -1, -1):
-        du = relax(prolong(du, fbc), rs[k], grids[k], fbc,
+        du = relax(prolong(du, fbc, grids[k + 1]), rs[k], grids[k], fbc,
                    params.nrelax * params.erelax ** k, dias[k],
                    omega=params.omega, alpha=alphas[k])
     return du if u_fine is None else u_fine + du
@@ -531,9 +551,11 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
                                     u_fine)
     d = _scalar_dia(dia)
     per_x = fbc.is_periodic(0)
+    kernel = bcs.kernel_ghosts(fbc, homogeneous=True)
     flat = grid.dim == 2
     minlevel = min(params.minlevel, grid.level)
-    fused_coarse = flat and not per_x and grid.shape[0] > params.coarse_top
+    fused_coarse = (flat and not per_x and kernel
+                    and grid.shape[0] > params.coarse_top)
     if fused_coarse:
         minlevel = params.coarse_top.bit_length() - 1
     else:
@@ -558,11 +580,11 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
         du = relax(torch.zeros_like(rs[-1]), rs[-1], gc, fbc,
                    params.nrelax * params.erelax ** (nl - 1)
                    + params.coarsest_relax, dia, omega=params.omega)
-    k13 = not flat and not any(_periodic(fbc))
+    k13 = not flat and not any(_periodic(fbc)) and kernel
     for k in range(nl - 2, -1, -1):
         nswp = params.nrelax * params.erelax ** k
         add_u = k == 0 and u_fine is not None
-        if flat and not per_x:
+        if flat and not per_x and kernel:
             du = rbgs.prolong_relax(du, rs[k], d, u_fine if add_u else None,
                                     nsweeps=nswp, h2=grids[k].h ** 2,
                                     signs=signs, per_y=per_y,
@@ -574,8 +596,8 @@ def correction(r, grid: Grid, fbc: bcs.FieldBC, params: MultilevelParams,
                                       coarse=du,
                                       add=u_fine if add_u else None)
         else:
-            du = relax(prolong(du, fbc), rs[k], grids[k], fbc, nswp, dia,
-                       omega=params.omega)
+            du = relax(prolong(du, fbc, grids[k + 1]), rs[k], grids[k], fbc,
+                       nswp, dia, omega=params.omega)
             continue
         if add_u:
             return du
@@ -600,7 +622,7 @@ def _fused_eligible(u, grid: Grid, fbc: bcs.FieldBC, dia,
         return False
     n0, n1 = u.shape
     return ((dia is None or isinstance(dia, (int, float)))
-            and bcs.static_values(fbc) and not fbc.is_periodic(0)
+            and bcs.kernel_ghosts(fbc) and not fbc.is_periodic(0)
             and n0 == n1 and n0 >= 4 * MIN_N and not n0 & (n0 - 1))
 
 
@@ -786,19 +808,115 @@ def solve_relax(u, rhs, grid: Grid, fbc: bcs.FieldBC,
                                           alpha=alpha))
 
 
-def _slice3(name):
-    def solver(*args, **kwargs):
-        raise NotImplementedError(
-            f"solver {name!r} (gerris_tpu poisson.py:935-1079) is not "
-            "ported yet (ROADMAP Queue 1, slice 3c)")
-    return solver
+def _krylov_setup(u, rhs, grid, fbc, params, dia, t, alpha):
+    """What cg and mgcg share (reference poisson.py:935-975, 1022-1046):
+    r0, the tolerance tolerance * max|rhs|, whether the operator is
+    singular (then b's and every residual's mean is removed), the
+    operator -(L - dia) v with homogeneous ghosts (SPD), and the Krylov
+    rhs b = -r0.  The operator is singular only with no Dirichlet side,
+    no Navier side (its factor is below 1) and no dia; the reference
+    looks at the Dirichlet sides alone and so drops mean(b)/dia from a
+    Neumann Helmholtz solve (ROADMAP Queue 3)."""
+    r0 = residual(u, rhs, grid, fbc, dia, t=t, alpha=alpha)
+    # the reference guards with 1e-300, which is 0 in float32
+    tol = params.tolerance * torch.clamp(rhs.abs().max(),
+                                         min=torch.finfo(rhs.dtype).tiny)
+    singular = (not bcs.has_kind(fbc, bcs.DIRICHLET)
+                and not bcs.has_kind(fbc, bcs.NAVIER)
+                and (dia is None or (not isinstance(dia, torch.Tensor)
+                                     and dia == 0.0)))
+
+    def aop(v):
+        return residual(v, torch.zeros_like(v), grid, fbc, dia,
+                        homogeneous=True, t=t, alpha=alpha)
+
+    b = -r0
+    if singular:
+        b = b - b.mean()
+    return r0, tol, singular, aop, b
+
+
+def _safe(x):
+    return torch.where(x == 0, torch.ones_like(x), x)
+
+
+def _krylov(u, r0, tol, singular, aop, prec, b, itmax, flexible):
+    """The (flexible) preconditioned CG loop of the reference's
+    while_loops (poisson.py:960-991, 1048-1076), its condition i < itmax
+    and max|r| > tol read on the host once per check, so it stops at the
+    reference's iteration.  Returns (u + du, SolveStats)."""
+    z = prec(b)
+    du, r, p = torch.zeros_like(u), b, z
+    rz = (b * z).sum()
+    i = syncs = 0
+    while i < itmax:
+        syncs += 1
+        if not bool(r.abs().max() > tol):
+            break
+        ap = aop(p)
+        a = rz / _safe((p * ap).sum())
+        du = du + a * p
+        r_new = r - a * ap
+        if singular:
+            r_new = r_new - r_new.mean()
+        z = prec(r_new)
+        rz_new = (r_new * z).sum()
+        if flexible:
+            # Polak-Ribiere: z.(r_new - r), clipped at 0
+            beta = torch.clamp(((r_new - r) * z).sum() / _safe(rz), min=0.0)
+        else:
+            beta = rz_new / _safe(rz)
+        p = z + beta * p
+        r, rz = r_new, rz_new
+        i += 1
+    return u + du, SolveStats(niter=i, r_before=r0, r_after=-r,
+                              host_syncs=syncs)
+
+
+def solve_cg(u, rhs, grid: Grid, fbc: bcs.FieldBC,
+             params: MultilevelParams = MultilevelParams(), dia=None,
+             t: float = 0.0, alpha=None):
+    """Jacobi-preconditioned conjugate gradients on -(L - dia) du = -r0
+    (reference poisson.py:935-993): the diagonal (the sum of the cell's
+    face coefficients) / h^2 + dia, at most 20 * nitermax iterations,
+    the operator K11 (unit coefficients) or the torch residual."""
+    r0, tol, singular, aop, b = _krylov_setup(u, rhs, grid, fbc, params,
+                                               dia, t, alpha)
+    if alpha is None:
+        den = 2.0 * grid.dim
+    else:
+        den = sum(a.narrow(ax, 0, a.shape[ax] - 1)
+                  + a.narrow(ax, 1, a.shape[ax] - 1)
+                  for ax, a in enumerate(alpha))
+    diag = torch.clamp(torch.as_tensor(
+        den / (grid.h * grid.h) + (0.0 if dia is None else dia),
+        dtype=u.dtype, device=u.device), min=1e-30)
+    return _krylov(u, r0, tol, singular, aop, lambda r: r / diag, b,
+                   20 * params.nitermax, flexible=False)
+
+
+def solve_mgcg(u, rhs, grid: Grid, fbc: bcs.FieldBC,
+               params: MultilevelParams = MultilevelParams(), dia=None,
+               t: float = 0.0, alpha=None):
+    """Multigrid-preconditioned flexible CG (reference poisson.py:
+    1022-1080): one ``correction`` V-cycle from zero as the
+    preconditioner (with face coefficients in 2D, one K15 launch per
+    level), Polak-Ribiere beta, at most nitermax iterations."""
+    r0, tol, singular, aop, b = _krylov_setup(u, rhs, grid, fbc, params,
+                                               dia, t, alpha)
+
+    def prec(r):
+        return -correction(r, grid, fbc, params, dia, alpha=alpha)
+
+    return _krylov(u, r0, tol, singular, aop, prec, b, params.nitermax,
+                   flexible=True)
 
 
 # the reference's pluggable-solver seam (par->poisson_solve): a registered
 # name is usable as MultilevelParams.solver; a solver is called as
-# fn(u, rhs, grid, fbc, params, dia, t) -> (u, SolveStats)
-SOLVER_REGISTRY = {"relax": solve_relax, "cg": _slice3("cg"),
-                   "mgcg": _slice3("mgcg")}
+# fn(u, rhs, grid, fbc, params, dia, t[, alpha=]) -> (u, SolveStats)
+SOLVER_REGISTRY = {"relax": solve_relax, "cg": solve_cg,
+                   "mgcg": solve_mgcg}
 
 
 def register_solver(name: str, fn):
@@ -817,7 +935,7 @@ def batched_fixed_eligible(us, grid: Grid, fbcs, dias) -> bool:
         return False
     if not all(d is None or isinstance(d, (int, float)) for d in dias):
         return False
-    if any(f.is_periodic(0) or not bcs.static_values(f) for f in fbcs):
+    if any(f.is_periodic(0) or not bcs.kernel_ghosts(f) for f in fbcs):
         return False
     sp = [(_signs_offs(grid, f, False)[0], f.is_periodic(1)) for f in fbcs]
     return all(x == sp[0] for x in sp[1:])

@@ -28,7 +28,7 @@ _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "approx_projection", "nu", "beta", "diffusion_params",
                  "div_in_src", "pair_advect", "rr_in_advect", "vof_tracers",
                  "tension", "density", "body_force", "nu_var",
-                 "nu_var_fields"}
+                 "nu_var_fields", "tracers", "tension_css"}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
@@ -46,18 +46,26 @@ def grid_from_jax(g) -> Grid:
                 size=g.size, extents=tuple(g.extents))
 
 
-def fieldbc_from_jax(fbc) -> bcs.FieldBC:
-    """BC kinds and constant values.  Kinds outside the port raise (port
-    BC), and so do callable values: a JAX callable computes on jnp
-    arrays, where the port's take torch tensors."""
-    for ax in fbc.sides:
-        for b in ax:
-            if callable(b.value):
-                raise NotImplementedError(
-                    "a JAX callable BC value: give the port a function of "
-                    "torch tensors")
-    return bcs.FieldBC(tuple(tuple(bcs.BC(b.kind, b.value) for b in ax)
-                             for ax in fbc.sides))
+def fieldbc_from_jax(fbc, values=None) -> bcs.FieldBC:
+    """BC kinds (Navier and contact angles among them) and constant
+    values.  A callable value cannot be carried over: a JAX callable
+    computes on jnp arrays, where the port's take torch tensors.  Give
+    its torch counterpart in ``values``, a dict {(axis, side): value};
+    a callable without one raises NotImplementedError."""
+    values = values or {}
+
+    def value(ax, sd, b):
+        if not callable(b.value):
+            return b.value
+        if (ax, sd) not in values:
+            raise NotImplementedError(
+                f"a JAX callable BC value on (axis {ax}, side {sd}): give "
+                "the port a function of torch tensors (values=...)")
+        return values[(ax, sd)]
+
+    return bcs.FieldBC(tuple(tuple(bcs.BC(b.kind, value(ax, sd, b))
+                                   for sd, b in enumerate(pair))
+                             for ax, pair in enumerate(fbc.sides)))
 
 
 def params_from_jax(p, dim: int = 2) -> MultilevelParams:
@@ -126,15 +134,36 @@ def _body_force(bf, given):
     return tuple(out)
 
 
-def config_from_jax(cfg, nu_var=None, body_force=None) -> ns.NSConfig:
+def _tracer(tr, sources, values):
+    """A JAX tracer (name, FieldBC, D[, source]); a callable source takes
+    its torch counterpart ``sources[name]``, callable BC values
+    ``values``."""
+    out = (tr[0], fieldbc_from_jax(tr[1], values), float(tr[2]))
+    if len(tr) < 4 or tr[3] is None:
+        return out
+    src = tr[3]
+    if callable(src):
+        src = _counterpart(f"tracers[{tr[0]!r}] source",
+                           (sources or {}).get(tr[0]))
+    else:
+        src = float(src)
+    return out + (src,)
+
+
+def config_from_jax(cfg, nu_var=None, body_force=None,
+                    tracer_sources=None, bc_values=None) -> ns.NSConfig:
     """A JAX ``NSConfig`` -> the port's.  A field outside the slice that
     differs from its default raises NotImplementedError.  A JAX callable
     is carried over only through the torch counterpart given here:
     ``nu_var``, a function f(x, y, t=..., **fields) of torch tensors, for
     the config's ``nu_var``; ``body_force``, one entry per component, for
-    its callable components (constant ones carry over as they are).  A
-    callable with no counterpart raises NotImplementedError naming the
-    field."""
+    its callable components (constant ones carry over as they are);
+    ``tracer_sources``, {tracer name: f(x, y, t)}, for a tracer's callable
+    source; ``bc_values``, {vof or tracer name: {(axis, side): value}},
+    for a callable BC value of that field's (a contact angle f(x, y, t)
+    among them).  A callable with no counterpart raises
+    NotImplementedError naming the field."""
+    bc_values = bc_values or {}
     for f in dataclasses.fields(type(cfg)):
         if f.name in _SLICE_FIELDS:
             continue
@@ -157,9 +186,13 @@ def config_from_jax(cfg, nu_var=None, body_force=None) -> ns.NSConfig:
         div_in_src=bool(cfg.div_in_src),
         pair_advect=bool(cfg.pair_advect),
         rr_in_advect=bool(cfg.rr_in_advect),
-        vof_tracers=tuple((name, fieldbc_from_jax(fbc))
+        vof_tracers=tuple((name, fieldbc_from_jax(fbc, bc_values.get(name)))
                           for name, fbc in cfg.vof_tracers),
         tension=tuple((name, float(sigma)) for name, sigma in cfg.tension),
+        tension_css=tuple((name, float(sigma))
+                          for name, sigma in cfg.tension_css),
+        tracers=tuple(_tracer(tr, tracer_sources, bc_values.get(tr[0]))
+                      for tr in cfg.tracers),
         density=None if cfg.density is None else
         (cfg.density[0], float(cfg.density[1]), float(cfg.density[2]),
          int(cfg.density[3])),

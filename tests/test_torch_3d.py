@@ -143,7 +143,8 @@ def test_residual_restrict_prolong_3d(kind):
                 tpoisson.restrict(_t(u))) <= PIECES
     (c,) = _rnd(8, (8, 8, 8))
     ref = jpoisson.prolong(jnp.asarray(c), JGrid(level=3, dim=3), jfbc)
-    assert _rel(ref, tpoisson.prolong(_t(c), tfbc)) <= PIECES
+    assert _rel(ref, tpoisson.prolong(_t(c), tfbc, TGrid(level=3, dim=3))) \
+        <= PIECES
     if kind == "dirichlet":
         jcb = jbc.FieldBC.make(3, top=jbc.Dirichlet(lambda x, y, z: x * z))
         tcb = tbc.FieldBC.make(3, top=tbc.Dirichlet(lambda x, y, z: x * z))

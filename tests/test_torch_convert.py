@@ -2,6 +2,7 @@
 the slice, and state (dict or .npz)."""
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -127,7 +128,6 @@ def test_config_from_jax_bench():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tracers", (("T", jbc.default_scalar_bc(2), 0.0),)),
     ("solid_phi", lambda x, y: x),
     ("block_advect", True),
     ("particle_coupling", True),
@@ -138,17 +138,59 @@ def test_config_from_jax_refuses_fields_outside_slice(field, value):
         convert.config_from_jax(cfg)
 
 
+def _age(x, y, t):
+    return 1.0 + 0.0 * x
+
+
+def test_config_from_jax_carries_tracers():
+    """Tracers carry over (refused before slice 3c): the BCs, D, a
+    constant source as it is, and a JAX callable source only through
+    its torch counterpart (``tracer_sources``); without one it raises,
+    naming the tracer."""
+    fbc = jbc.FieldBC.make(2, left=jbc.Dirichlet(1.0))
+    cfg = dataclasses.replace(cavity_cfg(6), tracers=(
+        ("T", fbc, 0.0), ("S", jbc.default_scalar_bc(2), 1e-3, 2.0)))
+    got = convert.config_from_jax(cfg).tracers
+    assert got == (("T", tbc.FieldBC.make(2, left=tbc.Dirichlet(1.0)), 0.0),
+                   ("S", tbc.default_scalar_bc(2), 1e-3, 2.0))
+    cfg = dataclasses.replace(cfg, tracers=(
+        ("A", jbc.default_scalar_bc(2), 0.0, lambda x, y, t: 1.0 + 0 * x),))
+    with pytest.raises(NotImplementedError, match="'A'"):
+        convert.config_from_jax(cfg)
+    got = convert.config_from_jax(cfg, tracer_sources={"A": _age})
+    assert got.tracers[0][3] is _age
+
+
 def test_fieldbc_from_jax_refuses_callables_and_navier():
+    """A JAX callable value without its torch counterpart is refused.
+    Since slice 3c a Navier side is not: it carries over as it is
+    (``test_fieldbc_from_jax_carries_navier`` holds its padding)."""
     fbc = jbc.FieldBC.make(2, top=jbc.Dirichlet(lambda x, y: x))
     with pytest.raises(NotImplementedError):
         convert.fieldbc_from_jax(fbc)
-    with pytest.raises(NotImplementedError):
-        convert.fieldbc_from_jax(jbc.FieldBC.uniform(jbc.Navier(0.1), 2))
+    got = convert.fieldbc_from_jax(fbc, {(1, 1): _age})
+    assert got.sides[1][1].value is _age
+    got = convert.fieldbc_from_jax(jbc.FieldBC.uniform(jbc.Navier(0.1), 2))
+    assert got == tbc.FieldBC.uniform(tbc.Navier(0.1), 2)
     per = jbc.FieldBC(((jbc.Neumann(0.5), jbc.Dirichlet(2.0)),
                        (jbc.Periodic(), jbc.Periodic())))
     got = convert.fieldbc_from_jax(per)
     assert got.is_periodic(1) and not got.is_periodic(0)
     assert got.sides[0] == (tbc.Neumann(0.5), tbc.Dirichlet(2.0))
+
+
+def test_fieldbc_from_jax_carries_navier():
+    """A Navier side carries over (refused before slice 3c) and pads as
+    gerris_tpu pads it, (2 lambda - h) / (2 lambda + h) * interior."""
+    fbc = jbc.FieldBC.make(2, bottom=jbc.Navier(0.1), top=jbc.Navier(0.0))
+    got = convert.fieldbc_from_jax(fbc)
+    assert got.sides[1] == (tbc.Navier(0.1), tbc.Navier(0.0))
+    grid = JGrid(level=4)
+    v = np.random.default_rng(0).standard_normal(grid.shape)
+    ref = jbc.apply_bc(jnp.asarray(v), grid, fbc, 2)
+    out = tbc.apply_bc(torch.from_numpy(v), convert.grid_from_jax(grid),
+                       got, 2)
+    assert np.array_equal(np.asarray(ref), out.numpy())
 
 
 def test_state_from_numpy_dict_and_npz(tmp_path):

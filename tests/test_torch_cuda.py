@@ -1594,3 +1594,103 @@ def test_bubble_step_on_the_card(dev):
             assert rbgs.LAUNCHES["restrict_pyramid"] > 0
     for k in ("U", "V", "T"):
         assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k
+
+
+# --- slice 3c on the card: a tracer's K14, Navier and contact fields ------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_advect2d_tracer_kernel(dev, dtype, grid):
+    """K14 on a passive tracer (c None): no gmac, no face forced, so a
+    Dirichlet side's boundary faces keep their computed values, as the
+    plain version's (and the reference's generic route's)."""
+    n0, n1 = grid.shape
+    v, ufx, ufy = _rnd(dev, dtype, 13, grid.shape, (n0 + 1, n1),
+                       (n0, n1 + 1))
+    fbc = bc.FieldBC.make(2, left=bc.Dirichlet(1.0), top=bc.Dirichlet(0.5))
+    dt = 0.3 * grid.h
+    bcg.reset_launch_counts()
+    got = bcg.advect2d(v, None, ufx, ufy, dt, grid, fbc)
+    assert bcg.LAUNCHES["advect2d"] == 1
+    ref = bcg.advect2d_plain(v, None, ufx, ufy, dt, grid, fbc)
+    assert _rel(got, ref) <= BOUND[dtype]
+
+
+def test_navier_solve_takes_no_kernel(dev):
+    """A Navier field's solve on the card runs the torch routes where a
+    kernel would read its ghosts (its configuration refuses them): only
+    the restriction pyramid, which reads none, launches; the result
+    matches the CPU's."""
+    from gerris_tpu_torch.solvers import poisson
+    grid = Grid(level=7)
+    fbc = bc.FieldBC.make(2, bottom=bc.Navier(0.05), top=bc.Navier(0.2),
+                          left=bc.Dirichlet(0.0))
+    u, rhs = _rnd(dev, torch.float64, 14, grid.shape, grid.shape)
+    params = poisson.MultilevelParams(tolerance=1e-8, nitermax=50)
+    rbgs.reset_launch_counts()
+    got, st = poisson.solve(u, rhs, grid, fbc, params, dia=30.0)
+    assert {k for k, v in rbgs.LAUNCHES.items() if v} == {"restrict_pyramid"}
+    assert rbgs.LAUNCHES["restrict_pyramid"] == st.niter
+    ref, sr = poisson.solve(u.cpu(), rhs.cpu(), grid, fbc, params, dia=30.0)
+    assert st.niter == sr.niter
+    assert _rel(got.cpu(), ref) <= 1e-12
+
+
+@pytest.mark.parametrize("case", ["css", "sessile"])
+def test_slice_3c_steps_on_the_card(dev, case):
+    """Three steps at level 5 in float64 on the card against the CPU: the
+    static droplet with the CSS tension under scheme "none" (the generic
+    predictor and advection, K4, K5, K9 and the adaptive solves' kernels)
+    and the sessile drop with a 60-degree contact angle (K6, K14 beside
+    them)."""
+    import math
+    import numpy as np
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import vof
+    from gerris_tpu_torch.solvers.advection import AdvectionParams
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    grid = Grid(level=5)
+    walls = (bc.velocity_bc(0), bc.velocity_bc(1))
+    if case == "css":
+        mp = MultilevelParams(tolerance=1e-6, nitermax=100)
+        cfg = ns.NSConfig(
+            grid=grid, u_bcs=walls, nu=math.sqrt(0.8 / 12000), beta=1.0,
+            advection=AdvectionParams(scheme="none"),
+            vof_tracers=(("T", bc.default_scalar_bc(2)),),
+            tension_css=(("T", 1.0),), projection=mp, approx_projection=mp,
+            diffusion_params=MultilevelParams(tolerance=1e-6, nitermax=20))
+
+        def phi(x, y):
+            return 0.16 - ((x + 0.5) ** 2 + (y - 0.5) ** 2)
+    else:
+        cfg = ns.NSConfig(
+            grid=grid, u_bcs=walls, nu=0.1, beta=1.0,
+            vof_tracers=(("T", bc.FieldBC.make(2, bottom=bc.Contact(60.0))),),
+            tension=(("T", 1.0),))
+
+        def phi(x, y):
+            return 0.09 - ((x + 0.5) ** 2 + (y + 0.5) ** 2)
+    rng = np.random.default_rng(9)
+    st = {k: torch.from_numpy(0.01 * rng.standard_normal((32, 32)))
+          for k in ("U", "V", "P", "Pmac", "Gx", "Gy")}
+    st["T"] = vof.fraction_from_levelset(grid, phi, device="cpu")
+    dt = math.sqrt(grid.h ** 3 / math.pi)
+    runs = {}
+    for where in ("cpu", dev):
+        s = {k: v.to(where) for k, v in st.items()}
+        for mod in (rbgs, projops, predict, bcg):
+            mod.reset_launch_counts()
+        for i in range(3):
+            s = ns.ns_step(s, dt, i * dt, cfg, first_step=i == 0,
+                           cstart=i % 2)
+        runs[str(where)] = s
+        if where != "cpu":
+            assert projops.LAUNCHES["divergence_mac"] == 6
+            assert projops.LAUNCHES["interp_faces"] == 3
+            assert rbgs.LAUNCHES["residual"] > 0
+            assert predict.LAUNCHES["predict_xy"] == (0 if case == "css"
+                                                      else 3)
+            assert bcg.LAUNCHES["advect2d"] == (0 if case == "css" else 6)
+    for k in ("U", "V", "T"):
+        assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k

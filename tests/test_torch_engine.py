@@ -162,7 +162,8 @@ def _unfolded_correction(r, grid, fbc, params, alpha, dia, u_fine):
                         + params.coarsest_relax, dias[-1],
                         omega=params.omega, alpha=alphas[-1])
     for k in range(nl - 2, -1, -1):
-        du = tpoisson.relax(tpoisson.prolong(du, fbc), rs[k], grids[k], fbc,
+        du = tpoisson.relax(tpoisson.prolong(du, fbc, grids[k + 1]), rs[k],
+                            grids[k], fbc,
                             params.nrelax * params.erelax ** k, dias[k],
                             omega=params.omega, alpha=alphas[k])
     return du if u_fine is None else u_fine + du

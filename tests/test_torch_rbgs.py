@@ -209,5 +209,5 @@ def test_poisson_blocks_match_jnp():
     assert _maxdiff(jpoisson.restrict(jnp.asarray(u), 2),
                     tpoisson.restrict(torch.from_numpy(u))) <= 1e-12
     ref = jpoisson.prolong(jnp.asarray(c), JGrid(level=5), fbc)
-    got = tpoisson.prolong(torch.from_numpy(c), tfbc)
+    got = tpoisson.prolong(torch.from_numpy(c), tfbc, TGrid(level=5))
     assert _maxdiff(ref, got) <= 1e-12

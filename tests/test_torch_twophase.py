@@ -29,6 +29,7 @@ from gerris_tpu.core.grid import Grid as JGrid  # noqa: E402
 from gerris_tpu.models import ns as jns  # noqa: E402
 from gerris_tpu.models.simulation import Simulation as JSimulation  # noqa: E402
 from gerris_tpu.models.simulation import Time as JTime  # noqa: E402
+from gerris_tpu.physics import tension as jtens  # noqa: E402
 from gerris_tpu.physics import vof as jvof  # noqa: E402
 from gerris_tpu.solvers import poisson as jpoisson  # noqa: E402
 
@@ -122,9 +123,7 @@ def test_config_converts_to_the_tpu_schedule():
 
 @pytest.mark.parametrize("field,value", [
     ("particle_coupling", True),
-    ("tension_css", (("T", 0.5),)),
     ("axi", True),
-    ("tracers", (("C", jbc.default_scalar_bc(2), 0.0),)),
 ])
 def test_config_from_jax_refuses_slice_3b(field, value):
     jcfg = dataclasses.replace(twophase_cfg(5), **{field: value})
@@ -132,13 +131,78 @@ def test_config_from_jax_refuses_slice_3b(field, value):
         config_from_jax(jcfg)
 
 
+@pytest.mark.parametrize("field,value", [
+    ("tension_css", (("T", 0.5),)),
+    ("tracers", (("C", jbc.default_scalar_bc(2), 1e-3, 0.5),)),
+])
+def test_config_from_jax_carries_slice_3c(field, value):
+    """The CSS tension and the tracers carry over (they were refused
+    before slice 3c), and compute what gerris_tpu computes on the
+    two-phase state at 32^2: the CSS sources, or one tracer advection
+    (source and diffusion) with random faces."""
+    jcfg, _ = _configs(5)
+    jcfg = dataclasses.replace(jcfg, **{field: value})
+    tcfg = dataclasses.replace(config_from_jax(jcfg),
+                               diffusion_params=tpoisson.MultilevelParams(
+                                   tolerance=1e-3, nitermax=10, nrelax=8,
+                                   coarsest_relax=16))
+    assert getattr(tcfg, field)[0][0] == value[0][0]
+    st = _state(5)
+    js = {k: jnp.asarray(v) for k, v in st.items()}
+    ts = state_from_numpy(st, device="cpu")
+    if field == "tension_css":
+        assert tcfg.tension_css == (("T", 0.5),)
+        jrho, _ = jns.density_fields(js, jcfg, 0.0)
+        trho, _ = tns.density_fields(ts, tcfg, 0.0)
+        ref = jtens.css_tension_sources(js["T"], 0.5, jcfg.grid,
+                                        jbc.default_scalar_bc(2),
+                                        alpha_cell=1.0 / jrho)
+        got = tns.css_sources(ts, tcfg, trho)
+    else:
+        assert tcfg.tracers == (("C", tbc.default_scalar_bc(2), 1e-3, 0.5),)
+        rng = np.random.default_rng(2)
+        uf = [0.3 * rng.standard_normal(jcfg.grid.face_shape(c))
+              for c in range(2)]
+        C = rng.random(jcfg.grid.shape)
+        ref = [jns.advect_tracer(jnp.asarray(C), jcfg.tracers[0],
+                                 [jnp.asarray(u) for u in uf], jcfg.grid,
+                                 jcfg, 0.01, 0.0)]
+        got = [tns.advect_tracer(torch.from_numpy(C), tcfg.tracers[0],
+                                 [torch.from_numpy(u) for u in uf],
+                                 tcfg.grid, tcfg, 0.01)]
+    for r, g in zip(ref, got):
+        assert _rel(r, g) <= RTOL
+
+
 def test_config_from_jax_refuses_contact():
+    """Named for what it checked before slice 3c, when the contact kind
+    was refused: now a contact angle carries over, a constant as it is
+    and a JAX callable only through its torch counterpart (without one it
+    is refused), and the port's contact-filled normals of the two-phase
+    interface bent onto the bottom wall match gerris_tpu's."""
     contact = jbc.FieldBC(((jbc.Neumann(), jbc.Neumann()),
                            (jbc.Contact(60.0), jbc.Neumann())))
     jcfg = dataclasses.replace(twophase_cfg(5),
                                vof_tracers=(("T", contact),))
-    with pytest.raises(NotImplementedError, match="contact"):
-        config_from_jax(jcfg)
+    tcfg = config_from_jax(jcfg)
+    tfbc = tcfg.vof_tracers[0][1]
+    assert tfbc.sides[1][0] == tbc.Contact(60.0)
+    with pytest.raises(NotImplementedError, match="callable"):
+        config_from_jax(dataclasses.replace(jcfg, vof_tracers=(
+            ("T", jbc.FieldBC.make(2, bottom=jbc.Contact(
+                lambda x, y, t: 60.0 + 0.0 * x))),)))
+    got = config_from_jax(
+        dataclasses.replace(jcfg, vof_tracers=(
+            ("T", jbc.FieldBC.make(2, bottom=jbc.Contact(
+                lambda x, y, t: 60.0 + 0.0 * x))),)),
+        bc_values={"T": {(1, 0): lambda x, y, t: 60.0 + 0.0 * x}})
+    assert callable(got.vof_tracers[0][1].sides[1][0].value)
+    T = np.asarray(jvof.fraction_from_levelset(
+        jcfg.grid, lambda x, y: 0.09 - ((x + 0.1) ** 2 + (y + 0.5) ** 2)))
+    for r, g in zip(jvof.normals(jnp.asarray(T), jcfg.grid, contact),
+                    tvof.normals(torch.from_numpy(T.copy()), tcfg.grid,
+                                 tfbc)):
+        assert _rel(r, g) <= 1e-13
 
 
 def _state(level, seed=0):

@@ -174,7 +174,9 @@ def test_sweep_matches_jax(kind, c):
 @pytest.mark.parametrize("cstart", [0, 1])
 def test_advect_matches_jax(cstart):
     """Five full steps of the direction-split advection on a wavy interface
-    with random faces, the first direction rotated each step."""
+    with random faces, the first direction rotated each step; then one
+    more with the fraction itself carried as a concentration (refused
+    before slice 3c), against the reference's."""
     fj, ft = _fractions(6, "wavy")
     uf = _faces(3, 64, 0.1)
     grid_j, grid_t = JGrid(level=6), TGrid(level=6)
@@ -187,9 +189,12 @@ def test_advect_matches_jax(cstart):
         ft = tvof.advect(ft, [_t(u) for u in uf], grid_t, tfbc, dt,
                          cstart=(cstart + i) % 2)
     _same(fj, ft)
-    with pytest.raises(NotImplementedError):
-        tvof.advect(ft, [_t(u) for u in uf], grid_t, tfbc, dt,
-                    concentrations=[ft])
+    fj, cj = jvof.advect(fj, [jnp.asarray(u) for u in uf], grid_j, fbc, dt,
+                         concentrations=[fj])
+    ft, ct = tvof.advect(ft, [_t(u) for u in uf], grid_t, tfbc, dt,
+                         concentrations=[ft])
+    _same(fj, ft)
+    _same(cj[0], ct[0])
 
 
 # --- curvature and tension ----------------------------------------------------------
@@ -385,4 +390,5 @@ def test_vof_refusals():
     with pytest.raises(NotImplementedError):
         tvof.fraction_from_levelset(grid3, lambda x, y: x, device="cpu")
     with pytest.raises(NotImplementedError):
-        tbc.BC("contact", 90.0)
+        tvof.curvature(torch.zeros(8, 8, 8, dtype=torch.float64), grid3,
+                       tbc.default_scalar_bc(3))
