@@ -135,7 +135,19 @@ Phases (any failure ends the run with a non-zero exit and no result):
      than the adaptive multigrid; held to the plain versions), and cg at
      256^2 to its cap; ``sessile``, a drop with contact angles 60 and
      120 degrees at 256^2 in float64, 5 steps gated and held to the
-     plain versions (1e-9);
+     plain versions (1e-9); ``droplet3d``, the 3D static droplet
+     (tests/test_vof3d.py::test_static_droplet_3d) at 128^3 in float32,
+     init + 10 steps through K13 in every correction of its five solves
+     a step, gated from the recorded cycle counts (no 2D kernel), the
+     first 2 steps held to the plain versions as the bubble is (float64
+     to 1e-9, on W too) with T's volume over them in float64, five
+     timed windows and a profile with K13's share; ``bubble3d``, the
+     rising bubble in 3D (1 x 2 x 1 box) at 128 x 256 x 128 in float32,
+     init + 5 steps with no kernel launched (its solves take face
+     coefficients or a cell dia), the first step held to the plain
+     versions by the bubble's rule, 3 steps at 16 x 32 x 16 in float64
+     on the card held to the port's CPU run (1e-9), five timed windows
+     and a profile;
   4. physics: the 64^2 lid cavity under the bench's configuration to
      steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
      float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
@@ -148,7 +160,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
      of gerris_tpu's own level-6 values; and the static droplet at level
      5 in float64 to t = 1 with each tension: its shape error (L2, Linf
      of T - T0) within 1% and max|u| within a factor 2 of gerris_tpu's
-     (tools/spurious_reference.py).
+     (tools/spurious_reference.py); and the 3D droplet at level 4 in
+     float64, 20 steps: max|u| and max|T - T0| within 1% of gerris_tpu's
+     (tools/droplet3d_reference.py) and inside the test's bounds.
 The last two lines are the kernels' JSON record and the device line.
 """
 import contextlib
@@ -344,6 +358,54 @@ LEVEL_SESSILE = 8
 SESSILE_STEPS = 5
 SESSILE_ANGLES = (60.0, 120.0)
 SESSILE_RTOL = 1e-9
+# droplet3d: the 3D static droplet of tests/test_vof3d.py::
+# test_static_droplet_3d (the 3D counterpart of test/spurious) at the 3D
+# bench's size, level 7, 128^3, float32: a sphere of radius 0.3 at the
+# centre of the unit box, velocity_bc walls, sigma 1, rho 1, nu 0.1,
+# scheme "none", both projections to 1e-6 in at most 50 cycles, the
+# default diffusion; dt the capillary bound.  Every solve's correction
+# runs K13 at 32^3, 64^3 and 128^3 above the dense 16^3 level
+# (K13_LEVELS launches a cycle); no other kernel lies on its path
+LEVEL_DROPLET3D = 7
+DROPLET3D_STEPS = 10
+DROPLET3D_CHECK_STEPS = 2
+DROPLET3D_TIMED_STEPS = 2
+DROPLET3D_PROFILE_STEPS = 2
+DROPLET3D_R = 0.3
+# |sum(T) - sum(T0)| / sum(T0) after DROPLET3D_CHECK_STEPS steps in
+# float64: the sweeps conserve the volume up to the faces' divergence,
+# which the projections leave at their tolerance (1e-6 of max|rhs|; at
+# 16^3 on the CPU ~1e-8 a step, ~1e-13 with the solves to 1e-11)
+DROPLET3D_VOLUME_RTOL = 1e-8
+# the physics gate: the test's own run, level 4 (16^3), float64, 20
+# steps to end time 1 (dt the capillary bound snapped to it), the dense
+# coarsest solve at 8^3 as the JAX package takes it on the CPU
+# (dense_coarse_max 1024), so K13 runs at 16^3; max|u| after the 20
+# steps and the shape error max|T - T0| within 1% of gerris_tpu's
+# (tools/droplet3d_reference.py 4 20 at commit d74d5c1, on the CPU in
+# float64: t 0.17543859649122806 after 20 steps) and inside the test's
+# bounds (umax < 5e-2, shape error < 2.5e-2)
+DROPLET3D_GATE_LEVEL = 4
+DROPLET3D_GATE_STEPS = 20
+JAX_DROPLET3D = dict(umax=0.0016816510622530796, shape_err=0.021415058367104,
+                     t=0.17543859649122806)
+DROPLET3D_UMAX_MAX, DROPLET3D_SHAPE_MAX = 5e-2, 2.5e-2
+# bubble3d: Hysing et al.'s test case 1 as Adelsberger et al. (2014)
+# extended it to 3D: the box [0, 1] x [0, 2] x [0, 1] (y up), a sphere of
+# radius 0.25 at (0.5, 0.5, 0.5), rho 1000 / 100, mu 10 / 1 of the
+# once-filtered fraction, gravity -0.98 on V, tension 24.5, no-slip at y
+# = 0 and 2, free slip on the four other sides; level 7, 128 x 256 x 128,
+# float32, init + 5 steps.  Every solve takes face coefficients or a cell
+# dia: the torch correction and smoother, no kernel
+LEVEL_BUBBLE3D = 7
+BUBBLE3D_STEPS = 5
+BUBBLE3D_CHECK_STEPS = 1
+BUBBLE3D_TIMED_STEPS = 1
+BUBBLE3D_PROFILE_STEPS = 1
+# the card against the port's CPU run: level 4 (16 x 32 x 16), float64,
+# 3 steps
+BUBBLE3D_CPU_LEVEL = 4
+BUBBLE3D_CPU_STEPS = 3
 
 ERR_KEYS = ("max_abs_err", "max_rel_err")
 CSRC = "gerris_tpu_torch/csrc/"
@@ -2721,10 +2783,8 @@ def phase_lid3d(dev, card):
     t_run = time.perf_counter() - t0
     counts = launch_counts()
     solves = LID3D_STEPS + 1
-    want = {k: 0 for k in counts}
-    k13 = K13_PER_STEP * LID3D_STEPS + K13_LEVELS
-    want.update({"rbgs_relax_3d": k13, "rbgs_relax_3d.launch": k13,
-                 "rbgs_relax_3d.prolong": k13})
+    # one cycle per solve: 5 solves a step and the initial projection
+    want = want_k13(counts, K13_PER_STEP // K13_LEVELS * LID3D_STEPS + 1)
     print(f"  lid3d, init + {LID3D_STEPS} steps (the first builds the dense "
           f"16^3 solves): {t_run:.3f} s; launches "
           f"{ {k: v for k, v in counts.items() if v} }; {solves} approximate"
@@ -2910,9 +2970,10 @@ def phase_twophase(dev, card):
     return counts
 
 
-def bubble_mu(x, y, t=0.0, T1=None):
+def bubble_mu(*xyz, t=0.0, T1=None):
     """The dynamic viscosity of the filtered liquid fraction T1: 10 in the
-    liquid, 1 in the bubble (MU(T1), test/capwave/air-water's form)."""
+    liquid, 1 in the bubble (MU(T1), test/capwave/air-water's form), in
+    2D and 3D."""
     return 10.0 * T1 + 1.0 * (1.0 - T1)
 
 
@@ -3079,7 +3140,8 @@ def phase_bubble_gate(dev, card):
         raise AssertionError(f"bubble gate: ended at t = {t_end}")
 
 
-def check_against_plain(name, make, steps, early, counts, f64_rtol):
+def check_against_plain(name, make, steps, early, counts, f64_rtol,
+                        keys=("U", "V", "T", "P")):
     """The first ``steps`` steps of ``name`` against the plain versions on
     the card: the float32 kernels' state ``early`` against the float32
     and float64 plain runs, and the same steps through the kernels in
@@ -3089,7 +3151,8 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol):
     float32 kernels vs plain within ADAPTIVE_RTOL on T and mean-free P;
     and on U and V the float32 kernels no further from the float64 plain
     run than twice the plain float32 run is (or ADAPTIVE_RTOL, the
-    larger): as accurate as float32 allows."""
+    larger): as accurate as float32 allows.  ``keys``: the fields
+    compared (W too in 3D).  Returns the three runs' states."""
     import torch
     runs = {}
     for run, dtype, plain in (("plain32", torch.float32, True),
@@ -3101,7 +3164,7 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol):
         print(f"  {name}, {run}: niter {[x[1] for x in log]}")
         if plain and launch_counts() != counts:
             raise AssertionError("the plain reference run launched kernels")
-    for k in ("U", "V", "T", "P"):
+    for k in keys:
         def rel(a, b):
             a, b = a.double(), b.double()
             if k == "P":
@@ -3121,9 +3184,11 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol):
                                  f"{e64:.3e}")
         if k in ("T", "P") and not e32 <= ADAPTIVE_RTOL:
             raise AssertionError(f"{name} {k}: kernels vs plain {e32:.3e}")
-        if k in ("U", "V") and not e32_64 <= max(2 * floor, ADAPTIVE_RTOL):
+        if k in ("U", "V", "W") and \
+                not e32_64 <= max(2 * floor, ADAPTIVE_RTOL):
             raise AssertionError(f"{name} {k}: float32 kernels {e32_64:.3e}"
                                  f" from float64, plain {floor:.3e}")
+    return runs
 
 
 def timed_windows(name, s, steps, card, cells):
@@ -3599,6 +3664,296 @@ def phase_sessile(dev, card):
     return out[SESSILE_ANGLES[0]]
 
 
+def droplet3d_cfg(level, dense_coarse_max=4096):
+    """tests/test_vof3d.py::test_static_droplet_3d at 2^level cells per
+    side (LEVEL_DROPLET3D's comment), the dense coarsest solve at the
+    finest level of at most ``dense_coarse_max`` unknowns."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.advection import AdvectionParams
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    proj = MultilevelParams(tolerance=1e-6, nitermax=50,
+                            dense_coarse_max=dense_coarse_max)
+    return ns.NSConfig(
+        grid=Grid(level=level, dim=3),
+        u_bcs=tuple(bc.velocity_bc(c, 3) for c in range(3)), nu=0.1,
+        beta=1.0, advection=AdvectionParams(scheme="none"),
+        vof_tracers=(("T", bc.default_scalar_bc(3)),), tension=(("T", 1.0),),
+        projection=proj, approx_projection=proj,
+        diffusion_params=MultilevelParams(tolerance=1e-3, nitermax=10,
+                                          dense_coarse_max=dense_coarse_max))
+
+
+def droplet3d_sim(dev, level=None, dtype=None, end=math.inf,
+                  dense_coarse_max=4096):
+    """The 3D droplet at rest on the card at ``level`` (LEVEL_DROPLET3D by
+    default) in ``dtype`` (float32 by default), dt from Simulation (the
+    capillary bound), not yet run."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    dtype = dtype or torch.float32
+    cfg = droplet3d_cfg(level or LEVEL_DROPLET3D, dense_coarse_max)
+    r2 = DROPLET3D_R ** 2
+    T0 = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y, z: r2 - (x * x + y * y + z * z), device=dev,
+        dtype=dtype)
+    return Simulation(cfg, time=Time(end=end), device=dev,
+                      dtype=dtype).init(T=T0)
+
+
+def want_k13(counts, cycles):
+    """K13's launches for ``cycles`` corrections of K13_LEVELS folded
+    launches each, and no other kernel's."""
+    want = {k: 0 for k in counts}
+    k13 = K13_LEVELS * cycles
+    want.update({"rbgs_relax_3d": k13, "rbgs_relax_3d.launch": k13,
+                 "rbgs_relax_3d.prolong": k13})
+    return want
+
+
+def phase_droplet3d(dev, card):
+    """init + DROPLET3D_STEPS steps of the 3D droplet at 128^3 in float32
+    through the kernels, the counts set to 0 just before and gated just
+    after from every solve's recorded cycle count (want_k13: K13 only,
+    no 2D kernel); finite values; the first DROPLET3D_CHECK_STEPS steps
+    against the plain versions (check_against_plain: float64 to 1e-9 on
+    U, V, W, T and mean-free P), T's volume over them in float64; five
+    timed windows and a profile with K13's share.  Returns the launch
+    counts."""
+    import torch
+    n = 1 << LEVEL_DROPLET3D
+    print(f"phase 3, droplet3d: the 3D static droplet "
+          f"(test_static_droplet_3d), {n}^3, float32, init + "
+          f"{DROPLET3D_STEPS} steps")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_solves() as log:
+        s = droplet3d_sim(dev)
+        s.run(max_steps=DROPLET3D_CHECK_STEPS)
+        early = {k: v.clone() for k, v in s.state.items()}
+        s.run(max_steps=DROPLET3D_STEPS - DROPLET3D_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    niters = [x[1] for x in log]
+    print(f"  droplet3d, init + {DROPLET3D_STEPS} steps (the first builds "
+          f"the dense 16^3 solves): {t_run:.3f} s; {len(niters)} solves, "
+          f"niter {niters}; host syncs {sum(x[3] for x in log)}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if len(niters) != 5 * DROPLET3D_STEPS + 1:
+        raise AssertionError(f"droplet3d: {len(niters)} solves")
+    want = want_k13(counts, sum(niters))
+    if counts != want:
+        raise AssertionError(f"droplet3d: launches {counts}, want {want}")
+    print(f"  droplet3d: rbgs_relax_3d {counts['rbgs_relax_3d']} launches "
+          f"= {K13_LEVELS} x sum(niter) {sum(niters)}, all with the "
+          "coarser level's correction prolonged in the kernel")
+    for k, v in s.state.items():
+        if v.shape != (n, n, n) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"droplet3d {k}: not finite or wrong shape")
+    u = torch.sqrt(s.state["U"] ** 2 + s.state["V"] ** 2 + s.state["W"] ** 2)
+    print(f"  droplet3d: t {s.time.t:.6e} after {s.time.i} steps, dt "
+          f"{s.dt:.6e}; max|u| {float(u.max()):.6e}")
+    runs = check_against_plain(
+        "droplet3d", lambda dtype: droplet3d_sim(dev, dtype=dtype),
+        DROPLET3D_CHECK_STEPS, early, counts, 1e-9,
+        keys=("U", "V", "W", "T", "P"))
+    del early
+    T0 = droplet3d_sim(dev, dtype=torch.float64).state["T"]
+    vol0 = float(T0.sum())
+    for run in ("kernels64", "plain64"):
+        drift = abs(float(runs[run]["T"].sum()) - vol0) / vol0
+        print(f"  droplet3d, {run}: T's volume rel change after "
+              f"{DROPLET3D_CHECK_STEPS} steps {drift:.3e} (bound "
+              f"{DROPLET3D_VOLUME_RTOL:.0e})")
+        if not drift <= DROPLET3D_VOLUME_RTOL:
+            raise AssertionError(f"droplet3d: T's volume {drift:.3e}")
+    del runs, T0
+    step = timed_windows("droplet3d", s, DROPLET3D_TIMED_STEPS, card, n ** 3)
+    kinds = {}
+    phase_profile(s, step, card, DROPLET3D_PROFILE_STEPS, watch=("rbgs3d_",),
+                  kinds=kinds)
+    print(f"  droplet3d: K13 kernels {kinds['rbgs3d_']:.1f} per step on the "
+          "card")
+    if not kinds["rbgs3d_"] > 0:
+        raise AssertionError("droplet3d: no K13 kernel in the profile")
+    vof_ops(s)
+    return counts
+
+
+def device_ops(fn):
+    """The device ops (kernels, copies, sets) that one call of ``fn``
+    runs, counted by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def vof_ops(s):
+    """The device ops of a 3D two-phase step's VOF modules on the running
+    ``s``'s state: one advection (three sweeps, each one 40-step
+    bisection of the plane's alpha), one bisection alone, and the
+    tension sources (the 3D curvature, its fill and the faces); the
+    counts depend on the shapes only."""
+    import torch
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import vof
+    cfg, T = s.cfg, s.state["T"]
+    g, fbc = cfg.grid, cfg.vof_tracers[0][1]
+    uf = [torch.zeros(g.face_shape(a), dtype=T.dtype, device=T.device)
+          for a in range(g.dim)]
+    ops = dict(advect=device_ops(lambda: vof.advect(T, uf, g, fbc, s.dt)),
+               bisection=device_ops(lambda: vof.plane_alpha_positive(
+                   T, T, T, T)),
+               tension=device_ops(lambda: ns.tension_sources(s.state, cfg)))
+    print("  " + ", ".join(f"{k} {v}" for k, v in ops.items())
+          + " device ops a call on the card")
+
+
+def phase_droplet3d_gate(dev, card):
+    """The physics gate: test_static_droplet_3d's own run (level 4,
+    float64, DROPLET3D_GATE_STEPS steps to end time 1, dense at 8^3) on
+    the card: max|u| and max|T - T0| within JAX_RTOL of the JAX
+    package's values (JAX_DROPLET3D) and inside the test's bounds."""
+    import torch
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    s = droplet3d_sim(dev, DROPLET3D_GATE_LEVEL, torch.float64, end=1.0,
+                      dense_coarse_max=1024)
+    T0 = s.state["T"].clone()
+    s.run(max_steps=DROPLET3D_GATE_STEPS)
+    k13 = launch_counts()["rbgs_relax_3d"]
+    st = s.state
+    got = dict(umax=float((st["U"] ** 2 + st["V"] ** 2 + st["W"] ** 2)
+                          .sqrt().max()),
+               shape_err=float((st["T"] - T0).abs().max()))
+    print(f"phase 4, droplet3d gate: level {DROPLET3D_GATE_LEVEL}, float64, "
+          f"t = {s.time.t:.12f} after {s.time.i} steps (gerris_tpu "
+          f"{JAX_DROPLET3D['t']:.12f}), {k13} K13 launches, "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    for key, what, bound in (("umax", "max|u|", DROPLET3D_UMAX_MAX),
+                             ("shape_err", "shape error max|T - T0|",
+                              DROPLET3D_SHAPE_MAX)):
+        ref = JAX_DROPLET3D[key]
+        rel = abs(got[key] - ref) / ref
+        print(f"  droplet3d gate, {what}: {got[key]:.6e}; gerris_tpu level "
+              f"{DROPLET3D_GATE_LEVEL} f64 {ref:.6e} (rel {rel:.2e}, bound "
+              f"{JAX_RTOL}); the test's bound {bound}")
+        if not (rel <= JAX_RTOL and got[key] < bound):
+            raise AssertionError(f"droplet3d gate: {what} {got[key]:.6e}")
+    if s.time.i != DROPLET3D_GATE_STEPS or \
+            abs(s.time.t - JAX_DROPLET3D["t"]) > 1e-12 or not k13:
+        raise AssertionError(f"droplet3d gate: t = {s.time.t}, {k13} K13")
+
+
+def bubble3d_cfg(level=None):
+    """The 3D bubble (LEVEL_BUBBLE3D's comment) at 2^level cells per
+    unit (LEVEL_BUBBLE3D by default): each component Dirichlet on its own
+    walls and at y = 0 and 2, Neumann elsewhere; NSConfig's default adaptive projections and
+    diffusion (in 3D the TPU's schedule carries no floor: utils/convert)."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    d0, nn = bc.Dirichlet(0.0), bc.Neumann()
+    return ns.NSConfig(
+        grid=Grid(level=level or LEVEL_BUBBLE3D, dim=3,
+                  origin=(0.0, 0.0, 0.0), extents=(1, 2, 1)),
+        u_bcs=tuple(bc.FieldBC(tuple((d0, d0) if a in (c, 1) else (nn, nn)
+                                     for a in range(3))) for c in range(3)),
+        nu=0.0, beta=1.0, vof_tracers=(("T", bc.default_scalar_bc(3)),),
+        tension=(("T", 24.5),), density=("T", 1000.0, 100.0, 1),
+        body_force=(None, -0.98, None), nu_var=bubble_mu,
+        nu_var_fields=(("T1", "T", 1),))
+
+
+def bubble3d_sim(dev, level=None, dtype=None):
+    """The 3D bubble on ``dev`` at ``level`` (LEVEL_BUBBLE3D by default) in
+    ``dtype`` (float32 by default), at rest, not yet run."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    dtype = dtype or torch.float32
+    cfg = bubble3d_cfg(level)
+    T0 = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y, z: torch.sqrt(
+            (x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2) - 0.25,
+        device=dev, dtype=dtype)
+    return Simulation(cfg, time=Time(), device=dev, dtype=dtype).init(T=T0)
+
+
+def phase_bubble3d(dev, card):
+    """init + BUBBLE3D_STEPS steps of the 3D bubble at 128 x 256 x 128 in
+    float32, the counts set to 0 just before and read just after (no
+    kernel lies on its path: every count 0); finite values; the first
+    step against the plain runs (check_against_plain, the bubble's rule,
+    float64 to BUBBLE_F64_RTOL); at 16 x 32 x 16 in float64, 3 steps on
+    the card against the port's CPU run of the same steps
+    (BUBBLE_F64_RTOL); five timed windows and a profile."""
+    import torch
+    n0, n1, n2 = bubble3d_cfg().grid.shape
+    print(f"phase 3, bubble3d: Hysing test case 1 in 3D, {n0} x {n1} x "
+          f"{n2}, float32, init + {BUBBLE3D_STEPS} steps")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_solves() as log:
+        s = bubble3d_sim(dev)
+        s.run(max_steps=BUBBLE3D_CHECK_STEPS)
+        early = {k: v.clone() for k, v in s.state.items()}
+        s.run(max_steps=BUBBLE3D_STEPS - BUBBLE3D_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    niters = [x[1] for x in log]
+    print(f"  bubble3d, init + {BUBBLE3D_STEPS} steps: {t_run:.3f} s; "
+          f"{len(niters)} solves, niter {niters}; host syncs "
+          f"{sum(x[3] for x in log)}")
+    if len(niters) != 5 * BUBBLE3D_STEPS + 1:
+        raise AssertionError(f"bubble3d: {len(niters)} solves")
+    if any(counts.values()):
+        raise AssertionError(f"bubble3d: kernels launched {counts}")
+    for k, v in s.state.items():
+        if v.shape != (n0, n1, n2) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"bubble3d {k}: not finite or wrong shape")
+    print(f"  bubble3d: t {s.time.t:.6e} after {s.time.i} steps, dt "
+          f"{s.dt:.6e}; max|V| {float(s.state['V'].abs().max()):.6e}")
+    check_against_plain("bubble3d", lambda dtype: bubble3d_sim(dev,
+                                                               dtype=dtype),
+                        BUBBLE3D_CHECK_STEPS, early, counts, BUBBLE_F64_RTOL,
+                        keys=("U", "V", "W", "T", "P"))
+    del early
+    t0 = time.perf_counter()
+    small = [bubble3d_sim(d, BUBBLE3D_CPU_LEVEL, torch.float64).run(
+        max_steps=BUBBLE3D_CPU_STEPS).state for d in (dev, "cpu")]
+    for k in ("U", "V", "W", "T", "P"):
+        a, b = small[0][k].cpu(), small[1][k]
+        if k == "P":
+            a, b = a - a.mean(), b - b.mean()
+        rel = rel_err(a, b)
+        print(f"  bubble3d, {BUBBLE3D_CPU_STEPS} steps at level "
+              f"{BUBBLE3D_CPU_LEVEL}, float64, the card vs the CPU, {k}"
+              f"{' (mean-free)' if k == 'P' else ''}: rel {rel:.3e} (bound "
+              f"{BUBBLE_F64_RTOL:.0e})")
+        if not rel <= BUBBLE_F64_RTOL:
+            raise AssertionError(f"bubble3d card vs CPU {k}: rel {rel:.3e}")
+    print(f"  bubble3d: card vs CPU runs {time.perf_counter() - t0:.1f} s")
+    step = timed_windows("bubble3d", s, BUBBLE3D_TIMED_STEPS, card,
+                         n0 * n1 * n2)
+    phase_profile(s, step, card, BUBBLE3D_PROFILE_STEPS)
+    vof_ops(s)
+    return counts
+
+
 def oscillation_cfg(level=OSC_LEVEL):
     """test/oscillation (tests/test_oscillation.py): symmetry walls
     (normal velocity Dirichlet 0, tangential Neumann), nu 0, sigma 1, rho
@@ -3819,6 +4174,8 @@ def main():
     route_counts["tracer"] = phase_tracer(dev, card)
     route_counts["mgcg"] = phase_mgcg(dev, card)
     route_counts["sessile"] = phase_sessile(dev, card)
+    route_counts["droplet3d"] = phase_droplet3d(dev, card)
+    phase_bubble3d(dev, card)
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
@@ -3849,6 +4206,8 @@ def main():
         route_counts["fold_div"]["residual_restrict_div"]
     record["rbgs_relax_3d"]["launches_prolong"] = \
         route_counts["lid3d"]["rbgs_relax_3d.prolong"]
+    record["rbgs_relax_3d"]["launches_droplet3d"] = \
+        route_counts["droplet3d"]["rbgs_relax_3d"]
     record["rbgs_relax_alpha"]["launches_prolong"] = \
         route_counts["twophase"]["rbgs_relax_alpha.prolong"]
     # the bubble's launches (init + BUBBLE_STEPS steps) of the kernels
@@ -3880,6 +4239,7 @@ def main():
     phase_oscillation(dev, card)
     phase_bubble_gate(dev, card)
     phase_spurious_gate(dev, card)
+    phase_droplet3d_gate(dev, card)
 
     print(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -24,18 +24,24 @@ solvers/projection.py), and each solve's upward levels run K13
 ``rbgs_relax_3d``; ``div_in_src``, ``pair_advect`` and ``rr_in_advect``
 are 2D routes and are ignored in 3D, as the reference ignores them.
 
-The two-phase step (2D; reference ns.py:822-1011): ``density`` names a
-VOF tracer whose filtered fraction gives the cell densities rho and the
-face coefficients alpha = 1/rho (``density_fields``); ``tension`` gives
-well-balanced face sources from the height-function curvature
-(``tension_sources``), and ``body_force`` (gravity) face sources beside
-them (``body_force_sources``).  Both projections then solve div(alpha
-grad p) with the face sources (K4, K15, a torch correction), each
-velocity component takes K14 and a rho-weighted diffusion solve (face
-coefficients dt nu, cell dia rho: K15), and step 5 advects each VOF
-tracer with the projected faces.  A variable viscosity ``nu_var``
-(``viscosity_field``) gives the diffusion face coefficients dt mu_face
-and the explicit transpose-stress sources (``viscous_transpose_sources``).
+The two-phase step (2D and 3D; reference ns.py:822-1011): ``density``
+names a VOF tracer whose filtered fraction gives the cell densities rho
+and the face coefficients alpha = 1/rho (``density_fields``);
+``tension`` gives well-balanced face sources from the height-function
+curvature (``tension_sources``), and ``body_force`` (gravity) face
+sources beside them (``body_force_sources``).  Both projections then
+solve div(alpha grad p) with the face sources (K4, K15, a torch
+correction), each velocity component takes K14 and a rho-weighted
+diffusion solve (face coefficients dt nu, cell dia rho: K15), and step 5
+advects each VOF tracer with the projected faces.  In 3D the same step
+runs on the generic torch routes: the projections and the diffusion
+solves with face coefficients or a cell dia take the torch correction
+and smoother (no K13: its dia is a scalar, and it takes no faces), and
+the VOF, curvature and tension are physics/vof.py's 3D branches; with
+unit density and scalar viscosity the solves still run K13.  A variable
+viscosity ``nu_var`` (``viscosity_field``) gives the diffusion face
+coefficients dt mu_face and the explicit transpose-stress sources
+(``viscous_transpose_sources``).
 Callable BC values are evaluated at the step's time ``t`` on every
 torch route; the kernels take constant values only, so such a
 configuration takes the plain versions where its callables are.
@@ -50,7 +56,8 @@ the transpose sources).  A limited slope (van Leer, minmod) or
 predictor and the advections (``bcg.applicable`` is False; the kernels
 and their plain versions compute the centred Godunov scheme only), and
 ``gc=False`` drops the gc gradient: no g_prev in the momentum rhs, K9
-without its gp term, no Gx/Gy written back.  3D VOF, solids and metrics
+without its gp term, no Gx/Gy written back.  ``tension_css`` and
+contact-angle sides are 2D, as the reference's are; solids and metrics
 are later slices.
 """
 from __future__ import annotations
@@ -102,7 +109,7 @@ class NSConfig:
     # its K8a launch (gerris_tpu/models/ns.py:144-149)
     rr_in_advect: bool = False
     # VOF interface tracking (GfsVariableTracerVOF, src/vof.c): (name,
-    # FieldBC) pairs, 2D
+    # FieldBC) pairs
     vof_tracers: tuple = ()
     # surface tension (GfsSourceTension, src/tension.c): (vof_name,
     # sigma) pairs
@@ -112,12 +119,12 @@ class NSConfig:
     density: tuple = None
     # a body force per component (GfsSource on a velocity component,
     # src/source.c: gravity): None, or per component None, a float or a
-    # function f(x, y, t=...) of torch tensors; it enters both
+    # function f(x, y[, z], t=...) of torch tensors; it enters both
     # projections as well-balanced face sources beside tension
     body_force: tuple = None
     # variable dynamic viscosity (GfsSourceViscosity with a GfsFunction,
     # src/source.c; MU(T1) in test/capwave/air-water): a function
-    # f(x, y, t=..., **fields) of torch tensors giving the viscosity per
+    # f(x, y[, z], t=..., **fields) of torch tensors giving the viscosity per
     # cell; nu_var_fields: the (name, parent, npass) fields it reads, a
     # field not in the state being ``npass`` filter passes of its parent
     # VOF tracer
@@ -135,14 +142,16 @@ class NSConfig:
     def __post_init__(self):
         if self.p_bc is None:
             object.__setattr__(self, "p_bc", bcs.grad_bc(self.u_bcs[0]))
-        if (self.vof_tracers or self.tension or self.density is not None
-                or self.body_force is not None or self.nu_var is not None
-                or self.tension_css) and self.grid.dim != 2:
-            raise NotImplementedError("3D VOF, tension, variable density, "
-                                      "body forces and variable viscosity "
-                                      "are the next slice (ROADMAP Queue "
-                                      "1); CSS tension is 2D only, as in "
-                                      "the reference")
+        if self.grid.dim == 3:
+            if self.tension_css:
+                raise NotImplementedError("CSS tension is 2D, as the "
+                                          "reference's is")
+            fbcs = (*self.u_bcs, self.p_bc,
+                    *(v[1] for v in self.vof_tracers),
+                    *(tr[1] for tr in self.tracers))
+            if any(bcs.has_kind(f, bcs.CONTACT) for f in fbcs):
+                raise NotImplementedError("contact angles are 2D, as the "
+                                          "reference's contact_fill is")
 
     @property
     def dim(self):
@@ -257,8 +266,9 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     D = cfg.nu
     if mu is not None:
         # the face viscosity of the implicit solve (reference ns.py:247-252)
-        mu_pad = bcs.apply_bc(mu, grid, bcs.default_scalar_bc(2), 1, t=t)
-        D = tuple(face_average(mu_pad, grid, a) for a in range(2))
+        mu_pad = bcs.apply_bc(mu, grid, bcs.default_scalar_bc(grid.dim), 1,
+                              t=t)
+        D = tuple(face_average(mu_pad, grid, a) for a in range(grid.dim))
     kernel = bcg.applicable(grid, cfg.advection)
     uc_pad = None if kernel else adv.mac_cell_mean(uf, grid)
     gbc = bcs.grad_bc(cfg.u_bcs[0])

@@ -1,7 +1,8 @@
-"""Volume-of-fluid interface tracking with PLIC reconstruction, 2D
-(port of gerris_tpu/physics/vof.py: the line geometry, the MYC normals,
-the direction-split geometric advection, the height-function curvature
-with its parabola-fit fallback, and the fraction of a level set).
+"""Volume-of-fluid interface tracking with PLIC reconstruction, 2D and 3D
+(port of gerris_tpu/physics/vof.py: the line and plane geometry, the MYC
+normals, the direction-split geometric advection, the height-function
+curvature with its parabola-fit fallback in 2D, and the fraction of a
+level set).
 
 Whole-array torch with ``where`` ladders, as the reference writes it in
 jnp; none of it runs a TPU kernel, so none of it is a kernel here.
@@ -16,12 +17,20 @@ A contact-angle side (core/bc.Contact) pads the fraction as a mirror;
 into the wall at the angle, which the normals, the sweep fluxes and the
 curvature read, and the heights next to such a wall are shifted by
 cot(theta) (gerris_tpu vof.py:734-870).  ``advect`` carries phase
-concentrations with the geometric fluxes.  3D VOF is the next slice and
-raises.
+concentrations with the geometric fluxes.  In 3D (gerris_tpu vof.py:
+103-289, :425-470, :895-966, :1142-1170) the plane's volume is the
+piecewise form of gfs_plane_volume (the reference's closed form cancels
+where a component is small), its alpha the reference's 40-step
+bisection; the sweeps take one band, the curvature has no parabola
+fallback (the caller's fill_curvature averages the defined neighbours
+into its gaps), and a contact side pads as a mirror: the reference's
+contact machinery is 2D, and ``contact_fill`` and
+``parabola_curvature`` raise in 3D.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -42,10 +51,9 @@ _SLOPE_MAX = 2.0
 _CONTACT_MIN_CELLS = 12
 
 
-def _check_2d(grid: Grid):
+def _check_2d(grid: Grid, what: str):
     if grid.dim != 2:
-        raise NotImplementedError("3D VOF (curvature_3d, the plane "
-                                  "geometry) is slice 3c (ROADMAP Queue 1)")
+        raise NotImplementedError(f"{what} is 2D, as the reference's is")
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +109,200 @@ def positive_normal(mx, my, alpha):
     a = alpha + torch.where(mx < 0.0, -mx, 0.0) \
         + torch.where(my < 0.0, -my, 0.0)
     return torch.abs(mx), torch.abs(my), a
+
+
+# ---------------------------------------------------------------------------
+# 3D plane geometry (reference src/vof.c:288-344, gerris_tpu vof.py:103-163)
+# ---------------------------------------------------------------------------
+
+def _plane_invariants(m1, m2, m3):
+    """What plane_volume_positive computes from the normal alone (hoisted
+    out of the bisection): the components ordered b1 <= b2 <= b3, b1 +
+    b2, min(b1 + b2, b3), the guarded products 6 b1 b2 b3 and b2 b3, the
+    cubic terms' coefficients and the masks of the branches that do not
+    depend on alpha.  ``small``: b1 below eps^(1/3) b2, where the
+    branches that divide by b1 (alpha within b1 of b2, or of b3 when b3
+    <= b1 + b2) lose more to cancellation, ~eps b2^2 / (6 b1 b3), than
+    the neighbouring branch's form is off there, < b1^2 / (6 b2 b3)."""
+    fi = torch.finfo(m1.dtype)
+    tiny = fi.tiny
+    lo, hi = torch.minimum(m1, m2), torch.maximum(m1, m2)
+    b1, b3 = torch.minimum(lo, m3), torch.maximum(hi, m3)
+    b2 = torch.maximum(lo, torch.minimum(hi, m3))
+    b12 = b1 + b2
+    d23 = torch.clamp(b2 * b3, min=tiny)
+    s1, s2 = b1 * b1, b2 * b2
+    return (b1, b2, b3, b12, torch.minimum(b12, b3),
+            torch.clamp(6.0 * b1 * b2 * b3, min=tiny), d23,
+            s1 / (6.0 * d23), s1 * b1 + s2 * b2, s1 + s2, b3 * b3,
+            b1 < fi.eps ** (1.0 / 3.0) * b2, b12 < b3)
+
+
+def _plane_volume(inv, alpha):
+    """The piecewise volume of one alpha (plane_volume_positive)."""
+    b1, b2, b3, b12, bm, pr, d23, c2, k0, k1, s3, small, thin = inv
+    a = torch.clamp(alpha, 0.0, 1.0)
+    a0 = torch.minimum(a, 1.0 - a)
+    a02 = a0 * a0
+    v2 = 0.5 * a0 * (a0 - b1) / d23 + c2
+    ends = k0 - 3.0 * a0 * k1
+    v3 = (a02 * (3.0 * b12 - a0) + ends) / pr
+    v5 = (a02 * (3.0 - 2.0 * a0) + ends + s3 * (b3 - 3.0 * a0)) / pr
+    v = torch.where(
+        a0 < b1, a0 * a02 / pr,
+        torch.where(a0 < b2, v2, torch.where(
+            a0 < bm, torch.where(small, v2, v3),
+            torch.where(thin, (a0 - 0.5 * b12) / b3,
+                        torch.where(small, v2, v5)))))
+    return torch.clamp(torch.where(a <= 0.5, v, 1.0 - v), 0.0, 1.0)
+
+
+def plane_volume_positive(m1, m2, m3, alpha):
+    """Fraction of the unit cube below m1 x + m2 y + m3 z = alpha, for
+    m >= 0 with m1 + m2 + m3 = 1: the piecewise form of gfs_plane_volume
+    (src/vof.c:288; Scardovelli and Zaleski, J. Comput. Phys. 164 (2000)
+    228-237) on the ordered components, for alpha <= 1/2 and by symmetry
+    above.  The reference's inclusion-exclusion closed form (gerris_tpu
+    vof.py:103-131) divides by every component: it agrees with this to
+    rounding where they are not small, and cancels where one is (a
+    float32 volume of 0 for a component of order 1e-5; ROADMAP Queue
+    3).  A zero component gives the 2D fraction, two the 1D one."""
+    return _plane_volume(_plane_invariants(m1, m2, m3), alpha)
+
+
+def plane_alpha_positive(m1, m2, m3, c, iters: int = 40):
+    """Inverse of plane_volume_positive: the reference's fixed bisection
+    of ``iters`` steps on [0, 1], lo moving where the volume is below c,
+    no early exit (gerris_tpu vof.py:134-145; src/vof.c:344 inverts the
+    piecewise form analytically)."""
+    c = torch.clamp(c, 0.0, 1.0)
+    inv = _plane_invariants(m1, m2, m3)
+    lo = torch.zeros_like(c)
+    hi = torch.ones_like(c)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        below = _plane_volume(inv, mid) < c
+        lo = torch.where(below, mid, lo)
+        hi = torch.where(below, hi, mid)
+    a = 0.5 * (lo + hi)
+    return torch.where(c <= 0.0, 0.0, torch.where(c >= 1.0, 1.0, a))
+
+
+def box_fraction(m1, m2, m3, alpha, b0, b1):
+    """Fluid fraction of the sub-box [b0, b1] (per-axis lists of tensors)
+    of the unit cube cut by {m.x <= alpha}, m positive."""
+    d = [torch.clamp(b1[k] - b0[k], min=EPS) for k in range(3)]
+    a = alpha - m1 * b0[0] - m2 * b0[1] - m3 * b0[2]
+    n = [m1 * d[0], m2 * d[1], m3 * d[2]]
+    norm = torch.clamp(n[0] + n[1] + n[2], min=EPS)
+    return plane_volume_positive(n[0] / norm, n[1] / norm, n[2] / norm,
+                                 a / norm)
+
+
+def positive_normal_3d(mx, my, mz, alpha):
+    """(m, alpha) of the fluid {m.x <= alpha} reflected onto positive m."""
+    a = alpha + torch.where(mx < 0.0, -mx, 0.0) \
+        + torch.where(my < 0.0, -my, 0.0) + torch.where(mz < 0.0, -mz, 0.0)
+    return torch.abs(mx), torch.abs(my), torch.abs(mz), a
+
+
+def _shifts_3d(f_pad):
+    n0, n1, n2 = f_pad.shape
+
+    def sh(i, j, k):
+        return f_pad[i:n0 - 2 + i, j:n1 - 2 + j, k:n2 - 2 + k]
+    return sh
+
+
+def youngs_normals_3d(f_pad):
+    """Youngs-gradient normal, |mx| + |my| + |mz| = 1, pointing out of the
+    fluid, of a field padded by 1 (gfs_youngs_gradient src/vof.c:
+    672-891; gerris_tpu vof.py:254-278)."""
+    sh = _shifts_3d(f_pad)
+
+    def grad(axis):
+        g = 0.0
+        for a in (-1, 0, 1):
+            for b in (-1, 0, 1):
+                wt = (2.0 if a == 0 else 1.0) * (2.0 if b == 0 else 1.0)
+                hi, lo = [a + 1, b + 1], [a + 1, b + 1]
+                hi.insert(axis, 2)
+                lo.insert(axis, 0)
+                g = g + wt * (sh(*hi) - sh(*lo))
+        return g
+
+    mx, my, mz = -grad(0), -grad(1), -grad(2)
+    norm = torch.abs(mx) + torch.abs(my) + torch.abs(mz) + EPS
+    return mx / norm, my / norm, mz / norm
+
+
+def mycs_normals_3d(f_pad):
+    """3D mixed Youngs-centred normal (|m|_1 = 1, out of the fluid) of a
+    field padded by 1, as the reference re-derives it (gerris_tpu
+    vof.py:165-251; src/myc.h:17-200): the dominant axis is the largest
+    Youngs component (the first on ties), the centred candidate takes
+    its transverse slopes from 3-cell column sums along it, and Youngs
+    wins where its transverse slope is steeper."""
+    sh = _shifts_3d(f_pad)
+    youngs = youngs_normals_3d(f_pad)
+
+    def colsum(d, t1, t2):
+        out = 0.0
+        taxes = [a for a in range(3) if a != d]
+        for k in (-1, 0, 1):
+            off = [0, 0, 0]
+            off[d] = k
+            off[taxes[0]] += t1
+            off[taxes[1]] += t2
+            out = out + sh(off[0] + 1, off[1] + 1, off[2] + 1)
+        return out
+
+    cands = []
+    for d in range(3):
+        s_t1 = s_t2 = 0.0
+        for t in (-1, 0, 1):
+            w = 2.0 if t == 0 else 1.0
+            s_t1 = s_t1 + w * (colsum(d, -1, t) - colsum(d, 1, t))
+            s_t2 = s_t2 + w * (colsum(d, t, -1) - colsum(d, t, 1))
+        off_m, off_p = [1, 1, 1], [1, 1, 1]
+        off_m[d], off_p[d] = 0, 2
+        dd = sh(*off_m) - sh(*off_p)
+        cands.append((0.5 * s_t1 / 4.0, 0.5 * s_t2 / 4.0,
+                      torch.sign(dd) + (dd == 0.0).to(dd.dtype)))
+
+    absY = [torch.abs(c) for c in youngs]
+    dom = torch.argmax(torch.stack(absY), dim=0)
+    out = []
+    for comp in range(3):
+        v = 0.0
+        for d in range(3):
+            mt1, mt2, md = cands[d]
+            taxes = [a for a in range(3) if a != d]
+            c = md if comp == d else mt1 if comp == taxes[0] else mt2
+            v = torch.where(dom == d, c, v)
+        out.append(v)
+    slope_c = slope_y = 0.0
+    for d in range(3):
+        mt1, mt2, _ = cands[d]
+        taxes = [a for a in range(3) if a != d]
+        sc = torch.maximum(torch.abs(mt1), torch.abs(mt2))
+        sy = torch.maximum(absY[taxes[0]], absY[taxes[1]]) / \
+            torch.clamp(absY[d], min=EPS)
+        slope_c = torch.where(dom == d, sc, slope_c)
+        slope_y = torch.where(dom == d, sy, slope_y)
+    take_youngs = slope_y > slope_c
+    m = [torch.where(take_youngs, y, c) for y, c in zip(youngs, out)]
+    norm = torch.abs(m[0]) + torch.abs(m[1]) + torch.abs(m[2]) + EPS
+    return m[0] / norm, m[1] / norm, m[2] / norm
+
+
+def reconstruct_alpha_3d(f, mx, my, mz):
+    """Per-cell alpha of the PLIC plane {m.x <= alpha} holding fraction f
+    (positive frame, mapped back to the signed one)."""
+    a_pos = plane_alpha_positive(torch.abs(mx), torch.abs(my), torch.abs(mz),
+                                 f)
+    return a_pos - torch.where(mx < 0.0, -mx, 0.0) \
+        - torch.where(my < 0.0, -my, 0.0) - torch.where(mz < 0.0, -mz, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +399,7 @@ def contact_fill(f_pad, P: int, grid: Grid, fbc: bcs.FieldBC,
     ghost columns (the nearest shift written last); a wall cell with a
     fully wet (dry) wall face continues full (empty).  Below
     _CONTACT_MIN_CELLS cells a side the mirror ghosts stay."""
+    _check_2d(grid, "contact_fill")
     n0, n1 = (s - 2 * P for s in f_pad.shape)
     if min(n0, n1) < _CONTACT_MIN_CELLS:
         return f_pad
@@ -268,8 +471,9 @@ def _pad(f, grid: Grid, fbc: bcs.FieldBC, width: int, t: float):
 
 def normals(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0):
     """MYC normals of f padded with its BCs at time ``t``, contact sides
-    filled (gerris_tpu vof.py:425-433)."""
-    _check_2d(grid)
+    filled in 2D (gerris_tpu vof.py:425-433)."""
+    if grid.dim == 3:
+        return mycs_normals_3d(bcs.apply_bc(f, grid, fbc, 1, t=t))
     return mycs_normals(_pad(f, grid, fbc, 1, t))
 
 
@@ -346,6 +550,37 @@ def _face_flux_1d(f_pad, mx_pad, my_pad, un, axis, dun=None, bands=4):
     return torch.where(interfacial, flux_b, flux)
 
 
+def _face_flux_3d(f_pad, m_pads, un, axis):
+    """Single-band geometric flux (fraction * CFL) through the faces of
+    ``axis`` from the 1-ghost padded fraction and the normals on the
+    same layout (vof_flux's 3D branch with one band, src/vof.c:
+    1510-1520; gerris_tpu vof.py:434-470)."""
+    n = f_pad.shape[axis]
+
+    def side(a, which):
+        for ax in range(3):
+            if ax != axis:
+                a = a.narrow(ax, 1, a.shape[ax] - 2)
+        return a.narrow(axis, which, n - 1)
+
+    upos = un > 0.0
+    donor_f = torch.where(upos, side(f_pad, 0), side(f_pad, 1))
+    dm = [torch.where(upos, side(m, 0), side(m, 1)) for m in m_pads]
+    a = reconstruct_alpha_3d(donor_f, *dm)
+    m1, m2, m3, ap = positive_normal_3d(dm[0], dm[1], dm[2], a)
+    cfl = torch.abs(un)
+    b0 = [torch.zeros_like(cfl)] * 3
+    b1 = [torch.ones_like(cfl)] * 3
+    s0 = torch.where(upos, 1.0 - cfl, 0.0)
+    s1 = torch.where(upos, 1.0, cfl)
+    neg = dm[axis] < 0.0
+    b0[axis] = torch.where(neg, 1.0 - s1, s0)
+    b1[axis] = torch.where(neg, 1.0 - s0, s1)
+    frac = box_fraction(m1, m2, m3, ap, b0, b1)
+    frac = torch.where(is_full(donor_f), torch.clamp(donor_f, 0.0, 1.0), frac)
+    return frac * un
+
+
 def sweep_flux(f, u_face: list, grid: Grid, fbc: bcs.FieldBC, c: int, dt,
                t: float = 0.0):
     """(geometric flux, face CFL) of one direction-split sweep along ``c``
@@ -353,8 +588,13 @@ def sweep_flux(f, u_face: list, grid: Grid, fbc: bcs.FieldBC, c: int, dt,
     band refinement's transverse velocity increment from the cell means
     of u_face[c] (grad_u src/vof.c:1595, dun :1491).  With a contact
     side both pads are the contact-filled 2-ghost one (gerris_tpu
-    vof.py:541-548)."""
-    _check_2d(grid)
+    vof.py:541-548).  In 3D: one band, MYC normals on the 2-ghost
+    padding, contact sides mirrored (gerris_tpu vof.py:553-556)."""
+    if grid.dim == 3:
+        un = u_face[c] * dt / grid.h
+        m_pads = mycs_normals_3d(bcs.apply_bc(f, grid, fbc, 2, t=t))
+        return _face_flux_3d(bcs.apply_bc(f, grid, fbc, 1, t=t), m_pads, un,
+                             c), un
     if has_contact(fbc):
         pad2 = _pad(f, grid, fbc, 2, t)
         f_pad = pad2[1:-1, 1:-1]
@@ -401,7 +641,9 @@ def _conc_sweep(cq, f, dV, flux, un, c: int, grid: Grid, cbc, t):
     for q in cq:
         ccur = torch.where(f > EPS, q / torch.clamp(f, min=EPS), 0.0)
         cp = bcs.apply_bc(ccur, grid, cbc, 1, t=t)
-        cp = cp.narrow(1 - c, 1, cp.shape[1 - c] - 2)
+        for a in range(f.dim()):
+            if a != c:
+                cp = cp.narrow(a, 1, cp.shape[a] - 2)
         cflux = torch.where(un > 0.0, cp.narrow(c, 0, n),
                             cp.narrow(c, 1, n)) * flux
         cfv = -(cflux.narrow(c, 1, n - 1) - cflux.narrow(c, 0, n - 1))
@@ -455,8 +697,10 @@ def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2,
     corners, axis 0 then axis 1 (apply_bc's default order); the normals
     come from a 1-ghost padding, whose corner ghosts differ from the
     wide pad's (gerris_tpu vof.py:646-650).  Callable BC values are
-    evaluated at time ``t``."""
-    _check_2d(grid)
+    evaluated at time ``t``.  In 3D: curvature_3d (``off_max`` unused, as
+    in the reference)."""
+    if grid.dim == 3:
+        return curvature_3d(f, grid, fbc, t)
     R = 3  # column half-height
     o_max = min(off_max, max(0, (min(grid.shape) - 2 * R) // 2))
     OFF = (0,) + sum(((-o, o) for o in range(1, o_max + 1)), ())
@@ -521,6 +765,68 @@ def curvature(f, grid: Grid, fbc: bcs.FieldBC, off_max: int = 2,
     return torch.where(interface, kap, nan)
 
 
+def curvature_3d(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0):
+    """3D height-function curvature on interface cells, NaN elsewhere and
+    where no column is valid (gerris_tpu vof.py:895-966; the 3D branches
+    of curvature_along_direction, src/vof.c:2068-2200, 2548): 7-cell
+    column sums along each axis over the 3 x 3 transverse stencil,
+    kappa = -(Hxx (1 + Hy^2) + Hyy (1 + Hx^2) - 2 Hxy Hx Hy) / (h (1 +
+    Hx^2 + Hy^2)^(3/2)), the sum of the principal curvatures; a column
+    counts where both window ends are full and opposite, the centre
+    height inside the window and |Hx|, |Hy| <= 1.  The dominant normal's
+    axis (the first on ties) wins, else the first valid axis.  The pads
+    are the reference's: 4 ghosts with corners (edge and corner ghosts
+    read by the transverse columns), the normals from a 1-ghost pad."""
+    R = 3
+    P = R + 1
+    f_pad = bcs.apply_bc(f, grid, fbc, P, t=t)
+    n0, n1, n2 = grid.shape
+
+    def sub(di, dj, dk):
+        return f_pad[P + di:P + di + n0, P + dj:P + dj + n1,
+                     P + dk:P + dk + n2]
+
+    m = mycs_normals_3d(bcs.apply_bc(f, grid, fbc, 1, t=t))
+    interface = (f > FULL_TOL) & (f < 1.0 - FULL_TOL)
+    kappas, valids = [], []
+    for d in range(3):
+        taxes = [a for a in range(3) if a != d]
+
+        def col(t1, t2):
+            s = 0.0
+            for k in range(-R, R + 1):
+                off = [0, 0, 0]
+                off[d] = k
+                off[taxes[0]] += t1
+                off[taxes[1]] += t2
+                s = s + sub(*off)
+            return s
+
+        H = {(t1, t2): col(t1, t2) for t1 in (-1, 0, 1) for t2 in (-1, 0, 1)}
+        Hx = 0.5 * (H[1, 0] - H[-1, 0])
+        Hy = 0.5 * (H[0, 1] - H[0, -1])
+        Hxx = H[1, 0] - 2.0 * H[0, 0] + H[-1, 0]
+        Hyy = H[0, 1] - 2.0 * H[0, 0] + H[0, -1]
+        Hxy = 0.25 * (H[1, 1] - H[1, -1] - H[-1, 1] + H[-1, -1])
+        den = torch.pow(1.0 + Hx * Hx + Hy * Hy, 1.5)
+        kappas.append(-(Hxx * (1.0 + Hy * Hy) + Hyy * (1.0 + Hx * Hx)
+                        - 2.0 * Hxy * Hx * Hy) / (grid.h * den))
+        off_top, off_bot = [0, 0, 0], [0, 0, 0]
+        off_top[d], off_bot[d] = R, -R
+        top, bot = sub(*off_top), sub(*off_bot)
+        ends_ok = is_full(top) & is_full(bot) & (torch.abs(top - bot) > 0.5)
+        sane = (H[0, 0] > 0.0) & (H[0, 0] < 2.0 * R + 1.0) \
+            & (torch.abs(Hx) <= 1.0) & (torch.abs(Hy) <= 1.0)
+        valids.append(ends_ok & sane)
+    dom = torch.argmax(torch.stack([torch.abs(c) for c in m]), dim=0)
+    kap = torch.full_like(f, math.nan)
+    for d in range(3):
+        kap = torch.where((dom == d) & valids[d], kappas[d], kap)
+    for d in range(3):
+        kap = torch.where(torch.isnan(kap) & valids[d], kappas[d], kap)
+    return torch.where(interface, kap, math.nan)
+
+
 def _contact_height_shifts(grid: Grid, fbc: bcs.FieldBC, d: int, t, like):
     """For the heights along axis ``d``: (side, wall cells, cot theta) of
     each contact wall transverse to it, where the ghost column's height
@@ -565,8 +871,9 @@ def parabola_curvature(f, grid: Grid, fbc: bcs.FieldBC, mx, my,
     """Least-squares parabola eta = a0 + a1 xi + a2 xi^2 through the
     interface points of the 5x5 stencil in the centre cell's normal frame;
     kappa = -2 a2 / (1 + a1^2)^(3/2) / h where at least 4 points and a
-    regular system (ParabolaFit src/vof.c:2201-2493)."""
-    _check_2d(grid)
+    regular system (ParabolaFit src/vof.c:2201-2493).  2D: the reference
+    fits no paraboloid in 3D."""
+    _check_2d(grid, "parabola_curvature")
     W = 2
     if has_contact(fbc):
         f_big = _pad(f, grid, fbc, W + 1, t)
@@ -653,21 +960,24 @@ def fill_curvature(kap, interface_band=None, niter: int = 4):
 
 def fraction_from_levelset(grid: Grid, phi, refine: int = 0, device=None,
                            dtype=torch.float64):
-    """Volume fraction of {phi > 0}, 2D, by a per-cell linearization of
-    the level set sampled at the cell vertices: exact for linear phi,
-    O(h^2 kappa) for curved interfaces (the dense form of gfs_vof_init).
-    ``phi(x, y)`` takes torch tensors.  ``refine``: evaluate that many
-    levels finer and average back (the reference's ``RefineSurface``).
-    The result is on ``device``, the CUDA card by default
-    (core/device.default_device)."""
-    _check_2d(grid)
+    """Volume fraction of {phi > 0} by a per-cell linearization of the
+    level set sampled at the cell vertices: exact for linear phi, O(h^2
+    kappa) for curved interfaces (the dense form of gfs_vof_init).
+    ``phi(x, y[, z])`` takes torch tensors.  ``refine``: evaluate that
+    many levels finer and average back (the reference's
+    ``RefineSurface``).  The result is on ``device``, the CUDA card by
+    default (core/device.default_device)."""
     device = default_device(device)
     if refine > 0:
         gf = dataclasses.replace(grid, level=grid.level + refine)
         f = fraction_from_levelset(gf, phi, device=device, dtype=dtype)
         r = 1 << refine
-        n0, n1 = f.shape[0] // r, f.shape[1] // r
-        return f.reshape(n0, r, n1, r).mean(dim=(1, 3))
+        sh = []
+        for n in f.shape:
+            sh += [n // r, r]
+        return f.reshape(sh).mean(dim=tuple(range(1, 2 * grid.dim, 2)))
+    if grid.dim == 3:
+        return _fraction_3d(grid, phi, device, dtype)
     X, Y = np.meshgrid(grid.axis_faces(0), grid.axis_faces(1),
                        indexing="ij")
     pv = phi(torch.as_tensor(X, dtype=dtype, device=device),
@@ -692,3 +1002,27 @@ def fraction_from_levelset(grid: Grid, phi, refine: int = 0, device=None,
     allneg = (p00 <= 0) & (p01 <= 0) & (p10 <= 0) & (p11 <= 0)
     return torch.where(allpos, 1.0,
                        torch.where(allneg, 0.0, f)).contiguous()
+
+
+def _fraction_3d(grid: Grid, phi, device, dtype):
+    """fraction_from_levelset's 3D plane per cell (gerris_tpu vof.py:
+    1142-1170): the gradient and centre value from the 8 vertices."""
+    pv = phi(*(torch.as_tensor(a, dtype=dtype, device=device)
+               for a in np.meshgrid(*(grid.axis_faces(k) for k in range(3)),
+                                    indexing="ij")))
+    n0, n1, n2 = (s - 1 for s in pv.shape)
+    c = {(i, j, k): pv[i:n0 + i, j:n1 + j, k:n2 + k]
+         for i in (0, 1) for j in (0, 1) for k in (0, 1)}
+    gx = 0.25 * sum(c[1, j, k] - c[0, j, k] for j in (0, 1) for k in (0, 1))
+    gy = 0.25 * sum(c[i, 1, k] - c[i, 0, k] for i in (0, 1) for k in (0, 1))
+    gz = 0.25 * sum(c[i, j, 1] - c[i, j, 0] for i in (0, 1) for j in (0, 1))
+    pc = 0.125 * sum(c.values())
+    mx, my, mz = -gx, -gy, -gz
+    alpha = pc + 0.5 * (mx + my + mz)
+    norm = torch.abs(mx) + torch.abs(my) + torch.abs(mz) + EPS
+    fr = plane_volume_positive(*positive_normal_3d(
+        mx / norm, my / norm, mz / norm, alpha / norm))
+    allpos = functools.reduce(torch.logical_and, [v > 0 for v in c.values()])
+    allneg = functools.reduce(torch.logical_and, [v <= 0 for v in c.values()])
+    return torch.where(allpos, 1.0,
+                       torch.where(allneg, 0.0, fr)).contiguous()

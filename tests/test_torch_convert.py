@@ -244,3 +244,67 @@ def test_config_from_jax_3d_bench_keeps_schedule():
     jp = jpoisson.MultilevelParams(tpu_nrelax=8)
     assert convert.params_from_jax(jp, dim=3) == tpoisson.MultilevelParams()
     assert convert.params_from_jax(jp).nrelax == 8
+
+
+def _mu3(x, y, z, t=0.0, T1=None):
+    return 10.0 * T1 + (1.0 - T1)
+
+
+def _gz(x, y, z, t=0.0):
+    return -0.5 + 0.0 * z
+
+
+def _twophase_3d():
+    """A 3D two-phase JAX NSConfig: VOF, tension, density, a body force
+    with a constant and a callable component, a variable viscosity."""
+    return jns.NSConfig(
+        grid=JGrid(level=3, dim=3, origin=(0.0, 0.0, 0.0),
+                   extents=(1, 2, 1)),
+        u_bcs=tuple(jbc.velocity_bc(c, 3) for c in range(3)), nu=0.0,
+        vof_tracers=(("T", jbc.default_scalar_bc(3)),),
+        tension=(("T", 24.5),), density=("T", 1000.0, 100.0, 1),
+        body_force=(None, -0.98, lambda x, y, z, t=0.0: -0.5 + 0.0 * z),
+        nu_var=lambda x, y, z, t=0.0, T1=None: 10.0 * T1 + (1.0 - T1),
+        nu_var_fields=(("T1", "T", 1),))
+
+
+def test_config_from_jax_3d_two_phase():
+    """A 3D two-phase NSConfig carries over (refused in 3D before slice
+    3d): the grid and its box, the VOF tracer, tension, density, the
+    constant force component as it is and the callable ones and nu_var
+    through their torch counterparts, and the schedules as given (no TPU
+    floors in 3D)."""
+    jcfg = _twophase_3d()
+    with pytest.raises(NotImplementedError, match="nu_var"):
+        convert.config_from_jax(jcfg, body_force=(None, None, _gz))
+    got = convert.config_from_jax(jcfg, nu_var=_mu3,
+                                  body_force=(None, None, _gz))
+    assert got.dim == 3 and got.grid.shape == (8, 16, 8)
+    assert got.vof_tracers == (("T", tbc.default_scalar_bc(3)),)
+    assert got.tension == (("T", 24.5),)
+    assert got.density == ("T", 1000.0, 100.0, 1)
+    assert got.body_force == (None, -0.98, _gz) and got.nu_var is _mu3
+    assert got.u_bcs == tuple(tbc.velocity_bc(c, 3) for c in range(3))
+    assert got.projection == convert.params_from_jax(jcfg.projection, 3)
+    assert got.projection.nrelax == jcfg.projection.nrelax
+
+
+@pytest.mark.parametrize("what", ["tension_css", "contact"])
+def test_config_from_jax_3d_refuses_css_and_contact(what):
+    """CSS tension and contact angles stay 2D, as the reference's are
+    (gerris_tpu/physics/tension.py:109, vof.py:763): a 3D config with
+    either raises; the same 2D config carries over."""
+    for dim, ok in ((3, False), (2, True)):
+        jcfg = jns.NSConfig(
+            grid=JGrid(level=3, dim=dim),
+            u_bcs=tuple(jbc.velocity_bc(c, dim) for c in range(dim)),
+            vof_tracers=(("T", jbc.FieldBC.make(
+                dim, bottom=jbc.Contact(60.0) if what == "contact"
+                else jbc.Neumann())),),
+            **({"tension_css": (("T", 1.0),)} if what == "tension_css"
+               else {"tension": (("T", 1.0),)}))
+        if ok:
+            assert convert.config_from_jax(jcfg).dim == 2
+        else:
+            with pytest.raises(NotImplementedError, match="2D"):
+                convert.config_from_jax(jcfg)

@@ -386,9 +386,33 @@ def test_curvature_circle():
 
 
 def test_vof_refusals():
+    """What stays 2D, as the reference's is: the parabola fit (no
+    paraboloid in 3D), contact_fill, the CSS tension, and contact-angle
+    sides on a 3D NSConfig (3D VOF, curvature and level-set fractions no
+    longer refuse)."""
     grid3 = TGrid(level=3, dim=3)
-    with pytest.raises(NotImplementedError):
-        tvof.fraction_from_levelset(grid3, lambda x, y: x, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tvof.curvature(torch.zeros(8, 8, 8, dtype=torch.float64), grid3,
-                       tbc.default_scalar_bc(3))
+    f3 = torch.zeros(8, 8, 8, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="2D"):
+        tvof.parabola_curvature(f3, grid3, tbc.default_scalar_bc(3), f3, f3)
+    with pytest.raises(NotImplementedError, match="2D"):
+        tvof.contact_fill(torch.zeros(10, 10, 10, dtype=torch.float64), 1,
+                          grid3, tbc.FieldBC.make(3, bottom=tbc.Contact(60.0)))
+    with pytest.raises(NotImplementedError, match="2D"):
+        ttens.css_tension_sources(f3, 1.0, grid3, tbc.default_scalar_bc(3))
+    u_bcs = tuple(tbc.velocity_bc(c, 3) for c in range(3))
+    with pytest.raises(NotImplementedError, match="2D"):
+        tns.NSConfig(grid=grid3, u_bcs=u_bcs, vof_tracers=(
+            ("T", tbc.FieldBC.make(3, bottom=tbc.Contact(60.0))),))
+    with pytest.raises(NotImplementedError, match="2D"):
+        tns.NSConfig(grid=grid3, u_bcs=u_bcs, tension_css=(("T", 1.0),),
+                     vof_tracers=(("T", tbc.default_scalar_bc(3)),))
+    # what slice 3d lifted: a 3D two-phase NSConfig and the 3D functions
+    tns.NSConfig(grid=grid3, u_bcs=u_bcs,
+                 vof_tracers=(("T", tbc.default_scalar_bc(3)),),
+                 tension=(("T", 1.0),), density=("T", 2.0, 1.0, 1),
+                 body_force=(None, -1.0, None),
+                 nu_var=lambda x, y, z, t=0.0: 1.0 + 0 * x)
+    assert tvof.fraction_from_levelset(
+        grid3, lambda x, y, z: x, device="cpu").shape == (8, 8, 8)
+    assert bool(torch.isnan(tvof.curvature(
+        f3, grid3, tbc.default_scalar_bc(3))).all())
