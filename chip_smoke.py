@@ -27,7 +27,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      (the lid's offsets, periodic rows, periodic columns; bit-identical
      to K1's r0), K10 (non-periodic, periodic rows, doubly periodic, plus
      its invariance across tiles, threads and sweep splits) at 2048^2,
-     and K12 at 512^2 (per_y off and on)
+     K11 and K10 on the capillary wave's box levels, (1024, 3072) down to
+     (1, 3) and two transposed, with K10 bit-identical across tiles and
+     threads on the (1024, 3072) box and its transpose and whole against
+     tiled at (32, 96), and K12 at 512^2 (per_y off and on)
      with its 64^2 block kernel alone; the block kernel as every cascade
      runs it (K2's and K8b's tails at the main path's shapes, a periodic
      pair down to 2^2) bit-identical to the K3 launches it replaces, and
@@ -147,7 +150,14 @@ Phases (any failure ends the run with a non-zero exit and no result):
      coefficients or a cell dia), the first step held to the plain
      versions by the bubble's rule, 3 steps at 16 x 32 x 16 in float64
      on the card held to the port's CPU run (1e-9), five timed windows
-     and a profile;
+     and a profile; ``capwave``, the capillary wave (test/capwave) at
+     1024 x 3072 in float32 on its 1 x 3 box with periodic rows, init +
+     5 steps through K4, K11, the pyramid and K10 on the box's levels,
+     gated from the recorded cycle counts, held to the plain versions as
+     the bubble is (float64 to 1e-9), five timed windows and a profile.
+     Every route held to the plain versions in float32 also bounds the
+     plain float32 run's distance from the plain float64 run per field
+     (FLOOR_BOUNDS);
   4. physics: the 64^2 lid cavity under the bench's configuration to
      steady state (EventStop U 1e-4 every 10 steps, at most 20000 steps),
      float32, against Ghia, Ghia & Shin (1982) at the reference tolerances
@@ -162,7 +172,18 @@ Phases (any failure ends the run with a non-zero exit and no result):
      of T - T0) within 1% and max|u| within a factor 2 of gerris_tpu's
      (tools/spurious_reference.py); and the 3D droplet at level 4 in
      float64, 20 steps: max|u| and max|T - T0| within 1% of gerris_tpu's
-     (tools/droplet3d_reference.py) and inside the test's bounds.
+     (tools/droplet3d_reference.py) and inside the test's bounds; the
+     level-5 static droplet also within the absolute bounds of
+     tests/test_spurious.py:84-90; the capillary wave at levels 4, 5 and 6
+     in float64 to t = 2.2426 (its RMS amplitude error against
+     Prosperetti's within 5% of the reference's table at levels 4 and 5
+     and within 1% of gerris_tpu's, tools/capwave_reference.py, the order
+     between them above 1.5, level 6 within 10% of the table); and the
+     sessile drop at level 4 in float64, 3000 steps at 60 and 120
+     degrees: the band's mean curvature within 8% of 1/R(theta), its std
+     within 0.25 of it.  The capwave and sessile gates, thousands of
+     host-paced steps each, run as child processes of this script
+     (``python3 chip_smoke.py --gate NAME``, gate_jobs) beside the others.
 The last two lines are the kernels' JSON record and the device line.
 """
 import contextlib
@@ -358,6 +379,63 @@ LEVEL_SESSILE = 8
 SESSILE_STEPS = 5
 SESSILE_ANGLES = (60.0, 120.0)
 SESSILE_RTOL = 1e-9
+# the sessile gate (tests/test_gfs_verbatim3.py:82-115 on sessile_cfg, the
+# .gfs not being in the repository): level 4, float64, 3000 steps per
+# angle; the mean curvature of the band 0.05 < T < 0.95 within 8% of
+# 1/R(theta) of the drop's volume (the symmetry axis doubling it), and
+# its std within 0.25 of 1/R(theta)
+SESSILE_GATE_LEVEL = 4
+SESSILE_GATE_STEPS = 3000
+SESSILE_GATE_RTOL = 0.08
+SESSILE_GATE_STD = 0.25
+# the absolute bounds of tests/test_spurious.py:84-90 on the
+# well-balanced run of the level-5 gate (3x the reference table's shape
+# and curvature errors; the currents decayed from their first samples,
+# one every 20 steps, and the capillary number below 1e-4)
+SPURIOUS_SHAPE_L2_MAX = 3.0 * 9.129e-05
+SPURIOUS_SHAPE_LINF_MAX = 3.0 * 1.271e-03
+SPURIOUS_KAPPA_LINF_MAX = 3.0 * 3.021e-03
+SPURIOUS_CA_MAX = 1e-4
+# capwave: the capillary wave of the reference's test/capwave (Popinet,
+# J. Comput. Phys. 228 (2009) 5838-5866, section 5.3, against
+# Prosperetti's solution; tests/test_capwave.py): the 1 x 3 box at
+# origin (-0.5, -1.5), periodic in x, u Neumann and v Dirichlet 0 on y,
+# nu 0.0182571749236, sigma 1, equal densities (no density: every solve
+# has unit coefficients), T from y - 0.01 cos(2 pi x), the solves to 1e-6
+# in at most 100 (projections) and 20 (diffusion) cycles; at full width,
+# level 10, 1024 x 3072, float32, init + 5 steps.  Every correction
+# restricts to the dense (32, 96) level (one restrict_pyramid launch) and
+# runs prolong + K10 on each of the CAPWAVE_K10_LEVELS box levels above
+# it (periodic rows: no K3 or K12); K11 per cycle, K4 per projection; the
+# predictor, advection and face interpolation are torch (K6, K14, K9 and
+# K5 refuse periodic rows, as the reference's kernels do)
+LEVEL_CAPWAVE = 10
+CAPWAVE_STEPS = 5
+CAPWAVE_CHECK_STEPS = 2
+CAPWAVE_TIMED_STEPS = 1
+CAPWAVE_PROFILE_STEPS = 1
+CAPWAVE_DENSE_LEVEL = 5
+CAPWAVE_K10_LEVELS = LEVEL_CAPWAVE - CAPWAVE_DENSE_LEVEL
+CAPWAVE_NU = 0.0182571749236
+CAPWAVE_A0 = 0.01
+# the gate: levels 4 and 5 in float64 to t = 2.2426211256, the amplitude
+# sampled every 3.04290519077e-3 as tests/test_capwave.py samples it, its
+# RMS error against Prosperetti's over A0 within 5% of the reference's
+# table (test/capwave/convergence.ref) and within 1% of the JAX
+# package's own values (tools/capwave_reference.py LEVEL on the CPU in
+# float64: 737 steps at either level), the order between them above 1.5;
+# level 6 against the table within 10% (test_capwave_level6; 2211
+# steps, ~180 s on an H100)
+CAPWAVE_TEND = 2.2426211256
+CAPWAVE_SAMPLE = 3.04290519077e-3
+CAPWAVE_REF = {4: 0.0316239, 5: 0.00769877, 6: 0.00215977}
+JAX_CAPWAVE = {4: 0.031909645677380125, 5: 0.007553518978307288}
+CAPWAVE_REF_RTOL = 0.05
+CAPWAVE_L6_RTOL = 0.1
+CAPWAVE_ORDER_MIN = 1.5
+# the gate jobs (gate_jobs) must end within this many seconds of their
+# start
+GATE_TIMEOUT = 900.0
 # droplet3d: the 3D static droplet of tests/test_vof3d.py::
 # test_static_droplet_3d (the 3D counterpart of test/spurious) at the 3D
 # bench's size, level 7, 128^3, float32: a sphere of radius 0.3 at the
@@ -406,6 +484,28 @@ BUBBLE3D_PROFILE_STEPS = 1
 # 3 steps
 BUBBLE3D_CPU_LEVEL = 4
 BUBBLE3D_CPU_STEPS = 3
+# the plain float32 run's distance from the plain float64 run after each
+# route's check steps (max|a - b| / max|b|, P mean-free), bounded per
+# route and field (check_floor): about 3x (2.7x to 3.5x) the distances
+# that an H100 (700 W) measured with the piecewise line area and plane
+# volume (PERF.md, Findings: bubble U, V 1.51e-2 / 1.41e-2, T 6.7e-6, P
+# 2.4e-4; spurious 3.68e-3 / 3.74e-3, 6.3e-6, 1.41e-4; CSS 2.5e-5 /
+# 2.6e-5, 6.3e-6, 3.2e-5; capwave 5.77e-2 / 0.160, 1.42e-6, 1.12e-3;
+# droplet3d U, V, W 2.06e-3 / 2.52e-3 / 2.11e-3, T 1.54e-6, P 7.6e-6;
+# bubble3d 1.83e-3 / 2.22e-3 / 1.80e-3, 2.19e-6, 6.2e-4).  The velocities
+# of these states from rest are small, and the float32 pressure's
+# rounding moves them by ~1e-6 of max|P|: a floor that grows as they
+# shrink with the level (tools/torch_f32_floor.py --cpu LEVEL).  The
+# closed-form line area and plane volume put them at 5.9 (capwave V 20.6)
+# and 1.23 of max, which these bounds fail.
+FLOOR_BOUNDS = {
+    "bubble": dict(U=5e-2, V=5e-2, T=2e-5, P=8e-4),
+    "spurious": dict(U=1e-2, V=1e-2, T=2e-5, P=5e-4),
+    "spurious_css": dict(U=8e-5, V=8e-5, T=2e-5, P=1e-4),
+    "capwave": dict(U=0.2, V=0.5, T=5e-6, P=4e-3),
+    "droplet3d": dict(U=7e-3, V=8e-3, W=7e-3, T=5e-6, P=3e-5),
+    "bubble3d": dict(U=6e-3, V=7e-3, W=6e-3, T=7e-6, P=2e-3),
+}
 
 ERR_KEYS = ("max_abs_err", "max_rel_err")
 CSRC = "gerris_tpu_torch/csrc/"
@@ -1041,6 +1141,7 @@ def check_adaptive_kernels(rnd, dtype, record):
             f"K10 rbgs_relax {n} nsweeps={nsw} periodic={per}",
             rbgs.rbgs_relax(u, rhs, dia, **kw),
             rbgs.rbgs_relax_plain(u, rhs, dia, **kw), b))
+    check_box_kernels(rnd, dtype, errs)
     r512 = rnd(dtype, 512, 512)
     for per_y, dia in ((False, 0.0), (True, 0.0), (False, dia_diff)):
         sg = (1.0, 1.0, 1.0, 1.0) if per_y else (signs if dia else neumann)
@@ -1326,6 +1427,50 @@ def check_rbgs3d(rnd, dtype, record):
         record["rbgs_relax_3d"].update(zip(ERR_KEYS, map(max, zip(*errs))))
 
 
+# the capillary wave's box levels (the 1 x 3 box, periodic rows) from
+# full width down to (1, 3), and two with the longer side first
+BOX_SHAPES = ((1024, 3072), (512, 1536), (128, 384), (64, 192), (32, 96),
+              (16, 48), (8, 24), (4, 12), (2, 6), (1, 3), (3072, 1024),
+              (384, 128))
+
+
+def check_box_kernels(rnd, dtype, errs):
+    """K11 and K10 against their plain versions on the levels of a box of
+    unit boxes (BOX_SHAPES): K11 with capwave's pressure ghosts (periodic
+    rows, Neumann columns), with walls and their offsets, and (the longer
+    side first) periodic columns; K10 from a given u with capwave's
+    corrections' 4 sweeps (periodic rows, dia 0 and the diffusion's),
+    12 sweeps on the coarsest boxes, and walls at omega 1.5.  Errors are
+    appended to ``errs``."""
+    from gerris_tpu_torch.ops.cuda import rbgs
+    b = BOUND[str(dtype).replace("torch.", "")]
+    walls = ((-1.0, 1.0, -1.0, 1.0), (0.5, 0.0, -0.25, 0.0))
+    for shape in BOX_SHAPES:
+        n0, n1 = shape
+        h2 = (3.0 / max(shape)) ** 2
+        dia_diff = 1.0 / (0.5 * 3.0 / max(shape) * CAPWAVE_NU)
+        u, rhs = rnd(dtype, n0, n1), rnd(dtype, n0, n1)
+        per = (True, False) if n0 <= n1 else (False, True)
+        cases = ((per, (1.0,) * 4, (0.0,) * 4), ((False, False), *walls))
+        for pr, sg, of in cases:
+            kw = dict(h2=h2, signs=sg, offs=of, periodic=pr)
+            errs.setdefault("residual", []).append(compare(
+                f"K11 residual {shape} periodic={pr}",
+                rbgs.residual(u, rhs, dia_diff, **kw),
+                rbgs.residual_plain(u, rhs, dia_diff, **kw), b))
+        nsw = 12 if min(shape) <= 2 else 4
+        for pr, sg, dia, omega in ((per, (1.0, 1.0, 1.0, 1.0), 0.0, 1.0),
+                                   (per, (1.0, 1.0, -1.0, -1.0), dia_diff,
+                                    1.0),
+                                   ((False, False), walls[0], 0.0, 1.5)):
+            kw = dict(nsweeps=nsw, h2=h2, signs=sg, periodic=pr,
+                      omega=omega)
+            errs.setdefault("rbgs_relax", []).append(compare(
+                f"K10 rbgs_relax {shape} nsweeps={nsw} periodic={pr} "
+                f"omega={omega}", rbgs.rbgs_relax(u, rhs, dia, **kw),
+                rbgs.rbgs_relax_plain(u, rhs, dia, **kw), b))
+
+
 def check_relax_tiles(rnd):
     """K10 bit-identical across tiles 64, 32 and 16 and threads 256 and
     512 at 2048^2, whole-level and tiled at 64^2, on every periodicity,
@@ -1357,9 +1502,34 @@ def check_relax_tiles(rnd):
             torch.equal(split, rbgs.rbgs_relax(u, rhs, 0.5, tile=t, **kw))
             for t in (64, 16)):
         raise AssertionError("K10: split sweeps differ across tiles")
+    # the box levels: tiles and threads at capwave's (1024, 3072) and its
+    # transpose, a whole (32, 96) level against the same level tiled
+    ub, rb = rnd(torch.float32, 1024, 3072), rnd(torch.float32, 1024, 3072)
+    for a, r, per in ((ub, rb, (True, False)),
+                      (ub.T.contiguous(), rb.T.contiguous(), (False, True))):
+        kw = dict(nsweeps=4, h2=1.0 / 1024 ** 2, signs=(1.0,) * 4,
+                  periodic=per)
+        ref = rbgs.rbgs_relax(a, r, 0.0, **kw)
+        for tile in (64, 32, 16):
+            for threads in (256, 512):
+                if not torch.equal(ref, rbgs.rbgs_relax(
+                        a, r, 0.0, tile=tile, threads=threads, **kw)):
+                    raise AssertionError(f"K10 box {tuple(a.shape)}: tile "
+                                         f"{tile} x {threads} threads "
+                                         "differs")
+        a32, r32 = a[:32, :96].contiguous(), r[:32, :96].contiguous()
+        if per[1]:
+            a32, r32 = a[:96, :32].contiguous(), r[:96, :32].contiguous()
+        whole = rbgs.rbgs_relax(a32, r32, 0.0, whole_max=96, **kw)
+        if not all(torch.equal(whole, rbgs.rbgs_relax(
+                a32, r32, 0.0, tile=t, **kw)) for t in (32, 16)):
+            raise AssertionError(f"K10 box {tuple(a32.shape)}: whole-level "
+                                 "and tiled launches differ")
     print("  K10 tiles 64 == 32 == 16 x threads 256 == 512 at 2048, whole "
           "== tiled at 64, every periodicity; 40 sweeps split over "
-          "launches at each tile: bit-identical")
+          "launches at each tile; on the box (1024, 3072) and its "
+          "transpose every tile and threads, whole == tiled at (32, 96): "
+          "bit-identical")
 
 
 ALPHA_CASES = (("walls", (-1.0, -1.0, -1.0, -1.0), (False, False)),
@@ -2009,6 +2179,21 @@ def phase_kernels(dev, record):
         lambda: rbgs.rbgs_relax(u, rhs, 0.0, **kwp),
         lambda: rbgs.rbgs_relax_plain(u, rhs, 0.0, **kwp),
         nbytes(u, rhs), n * n * 4 * 7, None)
+    # K11 and K10 on capwave's finest box level, (1024, 3072): K11 with
+    # its pressure ghosts, K10 as its corrections run it (4 sweeps from the
+    # prolonged correction, periodic rows, dia 0: 6 per cell per sweep)
+    u13, r13 = rnd(f32, 1024, 3072), rnd(f32, 1024, 3072)
+    kwb11 = dict(h2=(3.0 / 3072) ** 2, signs=(1.0,) * 4,
+                 periodic=(True, False))
+    timings["residual|box"] = (
+        lambda: rbgs.residual(u13, r13, 0.0, **kwb11),
+        lambda: rbgs.residual_plain(u13, r13, 0.0, **kwb11),
+        nbytes(u13, r13), u13.numel() * 8, None)
+    kwb10 = dict(kwb11, nsweeps=4)
+    timings["rbgs_relax|box"] = (
+        lambda: rbgs.rbgs_relax(u13, r13, 0.0, **kwb10),
+        lambda: rbgs.rbgs_relax_plain(u13, r13, 0.0, **kwb10),
+        nbytes(u13, r13), u13.numel() * 4 * 6, None)
     # K12 as the adaptive projections run it: 512^2 with the adaptive
     # schedule's 5 sweeps and 40 coarsest; its block kernel alone at 64^2
     # (one launch on the levels 64^2 .. 16^2 that K12's pyramid gives it)
@@ -3140,6 +3325,21 @@ def phase_bubble_gate(dev, card):
         raise AssertionError(f"bubble gate: ended at t = {t_end}")
 
 
+def check_floor(name, floors):
+    """Each field's ``floors`` entry, the plain float32 run's distance from
+    the plain float64 run after the route's check steps, within the
+    route's FLOOR_BOUNDS: a fault that the kernels and their plain
+    versions share (the closed-form plane volume put droplet3d's f32
+    velocities 1.23 off f64) fails here, where the kernels-vs-plain
+    gates cannot see it."""
+    bounds = FLOOR_BOUNDS[name]
+    for k, v in floors.items():
+        if not v <= bounds[k]:
+            raise AssertionError(f"{name} {k}: the plain float32 run "
+                                 f"{v:.3e} from the plain float64 run, "
+                                 f"bound {bounds[k]:.1e}")
+
+
 def check_against_plain(name, make, steps, early, counts, f64_rtol,
                         keys=("U", "V", "T", "P")):
     """The first ``steps`` steps of ``name`` against the plain versions on
@@ -3149,10 +3349,12 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol,
     simulation at rest).  Gates: float64 kernels vs plain within
     ``f64_rtol`` on U, V, T and mean-free P (same arithmetic, no floor);
     float32 kernels vs plain within ADAPTIVE_RTOL on T and mean-free P;
-    and on U and V the float32 kernels no further from the float64 plain
+    on U and V the float32 kernels no further from the float64 plain
     run than twice the plain float32 run is (or ADAPTIVE_RTOL, the
-    larger): as accurate as float32 allows.  ``keys``: the fields
-    compared (W too in 3D).  Returns the three runs' states."""
+    larger): as accurate as float32 allows; and that floor, the plain
+    float32 run's distance from the plain float64 run, within the
+    route's FLOOR_BOUNDS on every field (check_floor).  ``keys``: the
+    fields compared (W too in 3D).  Returns the three runs' states."""
     import torch
     runs = {}
     for run, dtype, plain in (("plain32", torch.float32, True),
@@ -3164,6 +3366,7 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol,
         print(f"  {name}, {run}: niter {[x[1] for x in log]}")
         if plain and launch_counts() != counts:
             raise AssertionError("the plain reference run launched kernels")
+    floors = {}
     for k in keys:
         def rel(a, b):
             a, b = a.double(), b.double()
@@ -3171,7 +3374,7 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol,
                 a, b = a - a.mean(), b - b.mean()
             return rel_err(a, b)
         e32 = rel(early[k], runs["plain32"][k])
-        floor = rel(runs["plain32"][k], runs["plain64"][k])
+        floor = floors[k] = rel(runs["plain32"][k], runs["plain64"][k])
         e32_64 = rel(early[k], runs["plain64"][k])
         e64 = rel(runs["kernels64"][k], runs["plain64"][k])
         print(f"  {name} after {steps} steps, {k}"
@@ -3188,6 +3391,10 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol,
                 not e32_64 <= max(2 * floor, ADAPTIVE_RTOL):
             raise AssertionError(f"{name} {k}: float32 kernels {e32_64:.3e}"
                                  f" from float64, plain {floor:.3e}")
+    print(f"  {name}: the plain float32 run's distance from float64 "
+          "(bound): " + ", ".join(f"{k} {v:.3e} ({FLOOR_BOUNDS[name][k]:.1e})"
+                                  for k, v in floors.items()))
+    check_floor(name, floors)
     return runs
 
 
@@ -3242,7 +3449,8 @@ def spurious_cfg(level, kind="tension"):
         **{kind: (("T", 1.0),)})
 
 
-def spurious_sim(dev, kind, level=None, dtype=None, end=math.inf):
+def spurious_sim(dev, kind, level=None, dtype=None, end=math.inf,
+                 events=()):
     """The static droplet at rest on the card at ``level`` (LEVEL_SPURIOUS
     by default) in ``dtype`` (float32 by default), dt from Simulation
     (the CFL and the capillary bound), not yet run."""
@@ -3253,8 +3461,8 @@ def spurious_sim(dev, kind, level=None, dtype=None, end=math.inf):
     cfg = spurious_cfg(level or LEVEL_SPURIOUS, kind)
     T0 = vof.fraction_from_levelset(cfg.grid, droplet_phi, device=dev,
                                     dtype=dtype)
-    return Simulation(cfg, time=Time(end=end), device=dev,
-                      dtype=dtype).init(T=T0)
+    return Simulation(cfg, time=Time(end=end), device=dev, dtype=dtype,
+                      events=list(events)).init(T=T0)
 
 
 def add_solves(w, solves, prolongs, k12=True):
@@ -3361,12 +3569,22 @@ def phase_spurious_gate(dev, card):
     on the card with each tension, its shape error (L2 and Linf of T -
     T0) within SPURIOUS_SHAPE_RTOL of the JAX package's at the same level
     and time and max|u| within SPURIOUS_UMAX_FACTOR of it
-    (JAX_SPURIOUS), printed beside them."""
+    (JAX_SPURIOUS), printed beside them; and the well-balanced run
+    within the absolute bounds of tests/test_spurious.py:84-90
+    (check_spurious_bounds)."""
     import torch
+    from gerris_tpu_torch.events.events import Event
     for kind in SPURIOUS_KINDS:
         t0 = time.perf_counter()
+        umax_hist = []
+
+        def track(sim):
+            umax_hist.append((sim.state["U"] ** 2 + sim.state["V"] ** 2)
+                             .sqrt().max())
+
         s = spurious_sim(dev, kind, SPURIOUS_GATE_LEVEL, torch.float64,
-                         end=SPURIOUS_GATE_T)
+                         end=SPURIOUS_GATE_T,
+                         events=[Event(action=track, istep=20)])
         T0 = s.state["T"].clone()
         s.run()
         e = s.state["T"] - T0
@@ -3374,6 +3592,8 @@ def phase_spurious_gate(dev, card):
                    shape_linf=float(e.abs().max()),
                    umax=float((s.state["U"] ** 2 + s.state["V"] ** 2)
                               .sqrt().max()))
+        if kind == "tension":
+            check_spurious_bounds(s, got, torch.stack(umax_hist).tolist())
         ref = JAX_SPURIOUS[kind]
         print(f"phase 4, spurious gate, {kind}: level {SPURIOUS_GATE_LEVEL}"
               f", float64, to t = {s.time.t:.6f} in {s.time.i} steps "
@@ -3397,6 +3617,36 @@ def phase_spurious_gate(dev, card):
                                      f"{got[key]:.6e}")
         if abs(s.time.t - SPURIOUS_GATE_T) > 1e-9:
             raise AssertionError(f"spurious gate: ended at t = {s.time.t}")
+
+
+def check_spurious_bounds(s, got, umax_hist):
+    """The absolute bounds of tests/test_spurious.py:84-90 on the
+    well-balanced static droplet ``s`` (its shape errors ``got`` and
+    max|u| every 20 steps ``umax_hist``): the shape error L2 and Linf and
+    the curvature error Linf over 1/R = 2.5 on the interface cells below
+    3x the reference table's, the last sampled max|u| below half the
+    largest of the first five samples, and the capillary number max|u|
+    nu below SPURIOUS_CA_MAX."""
+    import torch
+    from gerris_tpu_torch.physics import vof
+    T = s.state["T"]
+    kap = vof.curvature(T, s.cfg.grid, s.cfg.vof_tracers[0][1])
+    ifc = (T > 1e-6) & (T < 1 - 1e-6) & torch.isfinite(kap)
+    kinf = float(torch.where(ifc, (kap - 2.5).abs(), 0.0).max()) / 2.5
+    ca = umax_hist[-1] * s.cfg.nu
+    early = max(umax_hist[:5])
+    print(f"  spurious gate, tension, the test's bounds: shape L2 "
+          f"{got['shape_l2']:.3e} (< {SPURIOUS_SHAPE_L2_MAX:.3e}), Linf "
+          f"{got['shape_linf']:.3e} (< {SPURIOUS_SHAPE_LINF_MAX:.3e}); "
+          f"curvature Linf / K {kinf:.3e} (< {SPURIOUS_KAPPA_LINF_MAX:.3e});"
+          f" max|u| every 20 steps {len(umax_hist)} samples, last "
+          f"{umax_hist[-1]:.3e} (< half the first five's largest, "
+          f"{early:.3e}); Ca {ca:.3e} (< {SPURIOUS_CA_MAX:.0e})")
+    if not (got["shape_l2"] < SPURIOUS_SHAPE_L2_MAX
+            and got["shape_linf"] < SPURIOUS_SHAPE_LINF_MAX
+            and kinf < SPURIOUS_KAPPA_LINF_MAX
+            and umax_hist[-1] < 0.5 * early and ca < SPURIOUS_CA_MAX):
+        raise AssertionError("spurious gate: outside the test's bounds")
 
 
 def tracer_sim(dev, gradient="centered"):
@@ -3663,6 +3913,301 @@ def phase_sessile(dev, card):
         out[angle] = counts
     return out[SESSILE_ANGLES[0]]
 
+
+def sessile_gate_measure(s, angle):
+    """(mean band curvature, its std, 1/R(theta), band cells) of the
+    sessile drop ``s`` with contact angle ``angle``: the band 0.05 < T < 0.95 where the curvature is
+    finite, 1/R(theta) = sqrt((theta - cos sin) / V) with V twice the
+    computed quarter's volume (the left wall is the symmetry axis), as
+    tests/test_gfs_verbatim3.py:99-115 measures it."""
+    import torch
+    from gerris_tpu_torch.physics import vof
+    T, g = s.state["T"], s.cfg.grid
+    tbc = dict(s.cfg.vof_tracers)["T"]
+    kap = vof.curvature(T, g, tbc)
+    band = (T > 0.05) & (T < 0.95) & torch.isfinite(kap)
+    vol = 2.0 * float(T.double().sum()) * g.h ** 2
+    th = math.radians(angle)
+    kex = math.sqrt((th - math.cos(th) * math.sin(th)) / vol)
+    kb = kap[band].double()
+    return float(kb.mean()), float(kb.std()), kex, int(band.sum())
+
+
+def sessile_gate(dev, card, angle):
+    """The physics gate at one contact angle: the sessile drop at
+    SESSILE_GATE_LEVEL in float64 for SESSILE_GATE_STEPS steps on the
+    card; the mean curvature of the interface band within
+    SESSILE_GATE_RTOL of 1/R(theta) and its std within SESSILE_GATE_STD
+    of it."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    t0 = time.perf_counter()
+    cfg = sessile_cfg(SESSILE_GATE_LEVEL, angle)
+    T0 = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y: 0.09 - ((x + 0.5) ** 2 + (y + 0.5) ** 2),
+        device=dev, dtype=torch.float64)
+    s = Simulation(cfg, time=Time(), device=dev,
+                   dtype=torch.float64).init(T=T0)
+    s.run(max_steps=SESSILE_GATE_STEPS)
+    kavg, kstd, kex, nband = sessile_gate_measure(s, angle)
+    rel, spread = abs(kavg - kex) / kex, kstd / kex
+    print(f"phase 4, sessile gate, contact angle {angle:g}: level "
+          f"{SESSILE_GATE_LEVEL}, float64, {s.time.i} steps to t = "
+          f"{s.time.t:.6f}, {time.perf_counter() - t0:.1f} s on {card}; "
+          f"band of {nband} cells, mean curvature {kavg:.6f}, 1/R(theta) "
+          f"{kex:.6f} (rel {rel:.4f}, bound {SESSILE_GATE_RTOL}), std / "
+          f"(1/R) {spread:.4f} (bound {SESSILE_GATE_STD})")
+    if s.time.i != SESSILE_GATE_STEPS or nband <= 4 or not (
+            rel < SESSILE_GATE_RTOL and spread < SESSILE_GATE_STD):
+        raise AssertionError(f"sessile gate {angle:g}: curvature "
+                             f"{kavg:.6f} vs {kex:.6f}, std {kstd:.6f}")
+
+
+def capwave_cfg(level):
+    """tests/test_capwave.py's configuration (the reference's
+    test/capwave) at 2^level x 3 2^level cells: the 1 x 3 box at origin
+    (-0.5, -1.5), periodic in x, u Neumann and v Dirichlet 0 on y, T
+    Neumann on y, nu CAPWAVE_NU, sigma 1, equal densities, the
+    projections to 1e-6 in at most 100 cycles, the diffusion to 1e-6 in
+    at most 20."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    per = (bc.Periodic(), bc.Periodic())
+    nn = (bc.Neumann(), bc.Neumann())
+    proj = MultilevelParams(tolerance=1e-6, nitermax=100)
+    return ns.NSConfig(
+        grid=Grid(level=level, dim=2, origin=(-0.5, -1.5), extents=(1, 3)),
+        u_bcs=(bc.FieldBC((per, nn)),
+               bc.FieldBC((per, (bc.Dirichlet(0.0), bc.Dirichlet(0.0))))),
+        nu=CAPWAVE_NU, beta=1.0, vof_tracers=(("T", bc.FieldBC((per, nn))),),
+        tension=(("T", 1.0),), projection=proj, approx_projection=proj,
+        diffusion_params=MultilevelParams(tolerance=1e-6, nitermax=20))
+
+
+def capwave_sim(dev, level=None, dtype=None, events=(), end=math.inf):
+    """The capillary wave on the card at ``level`` (LEVEL_CAPWAVE by
+    default) in ``dtype`` (float32 by default), T0 the fraction of y - A0
+    cos(2 pi x), at rest, not yet run."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import vof
+    dtype = dtype or torch.float32
+    cfg = capwave_cfg(level or LEVEL_CAPWAVE)
+    T0 = vof.fraction_from_levelset(
+        cfg.grid, lambda x, y: y - CAPWAVE_A0 * torch.cos(2 * math.pi * x),
+        device=dev, dtype=dtype)
+    return Simulation(cfg, time=Time(end=end), device=dev, dtype=dtype,
+                      events=list(events)).init(T=T0)
+
+
+def want_capwave(steps, solves):
+    """Launches of init + ``steps`` capillary-wave steps from the solves
+    recorded as (solver, niter, fixed): K4 once per projection; per solve
+    one K11 for r0 and one per cycle; per cycle one restrict_pyramid down
+    to the dense level and CAPWAVE_K10_LEVELS K10 (prolong + K10 on each
+    box level above it); nothing else."""
+    w = {k: 0 for k in want_launches("pair", 0)}
+    w.update(divergence_mac=2 * steps + 1)
+    for solver, niter, fixed in solves:
+        if solver != "multigrid" or fixed:
+            raise AssertionError(f"capwave: a {solver} solve")
+        w["residual"] += 1 + niter
+        w["restrict_pyramid"] += niter
+        w["rbgs_relax"] += CAPWAVE_K10_LEVELS * niter
+    return w
+
+
+def phase_capwave(dev, card):
+    """init + CAPWAVE_STEPS steps of the capillary wave at 1024 x 3072 in
+    float32 through the kernels, the counts set to 0 just before and
+    gated just after from every solve's recorded cycle count
+    (want_capwave); finite values; T's volume; the first
+    CAPWAVE_CHECK_STEPS steps against the plain versions
+    (check_against_plain, float64 to 1e-9); five timed windows and a
+    profile.  Returns the launch counts."""
+    import torch
+    n0, n1 = capwave_cfg(LEVEL_CAPWAVE).grid.shape
+    print(f"phase 3, capwave: the capillary wave (test/capwave), {n0} x "
+          f"{n1}, periodic x, float32, init + {CAPWAVE_STEPS} steps")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_solves() as log:
+        s = capwave_sim(dev)
+        vol0 = float(s.state["T"].double().sum())
+        s.run(max_steps=CAPWAVE_CHECK_STEPS)
+        early = {k: v.clone() for k, v in s.state.items()}
+        s.run(max_steps=CAPWAVE_STEPS - CAPWAVE_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    niters = [x[1] for x in log]
+    print(f"  capwave, init + {CAPWAVE_STEPS} steps: {t_run:.3f} s; "
+          f"{len(niters)} solves, niter {niters}; host syncs "
+          f"{sum(x[3] for x in log)}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if len(niters) != 4 * CAPWAVE_STEPS + 1:
+        raise AssertionError(f"capwave: {len(niters)} solves")
+    for k, w in want_capwave(CAPWAVE_STEPS, [x[:3] for x in log]).items():
+        if counts[k] != w:
+            raise AssertionError(f"capwave: {k}: {counts[k]} launches, "
+                                 f"want {w}")
+    for k, v in s.state.items():
+        if v.shape != (n0, n1) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"capwave {k}: not finite or wrong shape")
+    vol = float(s.state["T"].double().sum())
+    print(f"  capwave: T's volume rel change {abs(vol - vol0) / vol0:.3e}; "
+          f"t {s.time.t:.6e} after {s.time.i} steps, dt {s.dt:.6e}; "
+          f"max|V| {float(s.state['V'].abs().max()):.6e}")
+    check_against_plain("capwave", lambda dtype: capwave_sim(dev,
+                                                             dtype=dtype),
+                        CAPWAVE_CHECK_STEPS, early, counts, 1e-9)
+    del early
+    step = timed_windows("capwave", s, CAPWAVE_TIMED_STEPS, card, n0 * n1)
+    phase_profile(s, step, card, CAPWAVE_PROFILE_STEPS)
+    return counts
+
+
+def capwave_rms(dev, level, dtype=None):
+    """The capillary wave at ``level`` on the card to CAPWAVE_TEND, the
+    amplitude max |y| of the interface points of the cells 1e-6 < T <
+    1 - 1e-6 (tests/test_capwave.py:amplitude) recorded every
+    CAPWAVE_SAMPLE on the card and read once at the end: (RMS of the
+    amplitude's error against Prosperetti's over A0, steps)."""
+    import torch
+    from gerris_tpu_torch.events.events import Event
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import vof
+    from gerris_tpu_torch.utils.analytic import prosperetti_capwave
+    dtype = dtype or torch.float64
+    times, amps = [], []
+
+    def record(sim):
+        T, grid = sim.state["T"], sim.cfg.grid
+        mx, my = vof.normals(T, grid, sim.cfg.vof_tracers[0][1])
+        _, py = vof.interface_point(T, mx, my)
+        ypos = ns.cell_centers(grid, dev, dtype)[1] + py * grid.h
+        ifc = (T > 1e-6) & (T < 1 - 1e-6)
+        times.append(sim.time.t)
+        amps.append(torch.where(ifc, ypos.abs(), 0.0).max())
+
+    s = capwave_sim(dev, level, dtype,
+                    events=[Event(action=record, step=CAPWAVE_SAMPLE)],
+                    end=CAPWAVE_TEND)
+    s.run()
+    got = torch.stack(amps).double().cpu().numpy()
+    exact = np.abs(prosperetti_capwave(np.array(times), CAPWAVE_A0,
+                                       2 * math.pi, CAPWAVE_NU, 1.0))
+    if abs(s.time.t - CAPWAVE_TEND) > 1e-9 or not np.isfinite(got).all():
+        raise AssertionError(f"capwave gate: ended at t = {s.time.t}")
+    return math.sqrt(float(np.mean((got - exact) ** 2))) / CAPWAVE_A0, \
+        s.time.i
+
+
+def capwave_gate(dev, card, level):
+    """The physics gate at one level: the capillary wave in float64 to
+    CAPWAVE_TEND (capwave_rms); levels 4 and 5 within CAPWAVE_REF_RTOL
+    of the reference's table and JAX_RTOL of the JAX package's values,
+    level 6 within CAPWAVE_L6_RTOL of the table.  Prints the RMS as a
+    JSON line for capwave_order."""
+    import torch
+    t0 = time.perf_counter()
+    rms, steps = capwave_rms(dev, level, torch.float64)
+    e_ref = abs(rms - CAPWAVE_REF[level]) / CAPWAVE_REF[level]
+    rtol = CAPWAVE_REF_RTOL if level in JAX_CAPWAVE else CAPWAVE_L6_RTOL
+    jax = JAX_CAPWAVE.get(level)
+    e_jax = 0.0 if jax is None else abs(rms - jax) / jax
+    print(f"phase 4, capwave gate: level {level}, float64, {steps} steps to "
+          f"t = {CAPWAVE_TEND}, {time.perf_counter() - t0:.1f} s on {card}: "
+          f"RMS / A0 {rms:.6g}; the reference's table {CAPWAVE_REF[level]} "
+          f"(rel {e_ref:.4f}, bound {rtol})"
+          + ("" if jax is None else
+             f", gerris_tpu level {level} f64 {jax:.6g} (rel {e_jax:.4f}, "
+             f"bound {JAX_RTOL})"))
+    print(json.dumps({"capwave_level": level, "rms": rms}))
+    if not (e_ref <= rtol and e_jax <= JAX_RTOL):
+        raise AssertionError(f"capwave gate: level {level} RMS {rms:.6g}")
+
+
+def capwave_order(outputs):
+    """The order between the capwave gate's levels 4 and 5 from their
+    jobs' outputs, above CAPWAVE_ORDER_MIN."""
+    rms = {}
+    for out in outputs:
+        for line in out.splitlines():
+            if line.startswith('{"capwave_level"'):
+                d = json.loads(line)
+                rms[d["capwave_level"]] = d["rms"]
+    order = math.log2(rms[4] / rms[5])
+    print(f"phase 4, capwave gate: order between levels 4 and 5 "
+          f"{order:.4f} (bound > {CAPWAVE_ORDER_MIN})")
+    if not order > CAPWAVE_ORDER_MIN:
+        raise AssertionError(f"capwave gate: order {order:.4f}")
+
+
+def gate_jobs():
+    """The host-bound physics gates that run as child processes of this
+    script beside phase 4's others (each a few thousand steps on grids of
+    16^2 to 64 x 192, where a step is a few thousand device ops paced by
+    the host): the capwave gate at levels 4, 5 and 6, the sessile gate
+    at each angle."""
+    return ([f"capwave_{lv}" for lv in CAPWAVE_REF]
+            + [f"sessile_{a:g}" for a in SESSILE_ANGLES])
+
+
+def run_gate(name, dev, card):
+    """One job of gate_jobs in this process."""
+    kind, arg = name.split("_")
+    if kind == "capwave":
+        capwave_gate(dev, card, int(arg))
+    else:
+        sessile_gate(dev, card, float(arg))
+
+
+def start_gates(names):
+    """Start each gate job as a child process (python3 chip_smoke.py
+    --gate NAME), its output piped."""
+    import os
+    here = os.path.abspath(__file__)
+    return {n: subprocess.Popen([sys.executable, here, "--gate", n],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+            for n in names}
+
+
+def finish_gates(procs, t_start, timeout=GATE_TIMEOUT):
+    """Wait for the gate jobs (within ``timeout`` s of ``t_start``), print
+    each one's output and seconds, and check the capwave order; any job
+    that failed or overran fails the run."""
+    outs, failed = [], []
+    for name, p in procs.items():
+        left = max(1.0, timeout - (time.perf_counter() - t_start))
+        try:
+            out, _ = p.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            failed.append(f"{name} (over {timeout:.0f} s)")
+        print(out.rstrip())
+        print(f"phase 4, gate job {name}: exit {p.returncode}, done "
+              f"{time.perf_counter() - t_start:.1f} s after the jobs' start")
+        if p.returncode != 0 and name not in str(failed):
+            failed.append(name)
+        outs.append(out)
+    if failed:
+        raise AssertionError(f"gate jobs failed: {failed}")
+    capwave_order(outs)
+
+
+def stop_gates(procs):
+    """Kill every gate job still running (the run failed before them)."""
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 def droplet3d_cfg(level, dense_coarse_max=4096):
     """tests/test_vof3d.py::test_static_droplet_3d at 2^level cells per
@@ -4142,14 +4687,19 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(card)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {torch.cuda.get_device_name(0)}")
     # the dense coarsest solves' products (the 2D periodic Poisson's 64^2,
     # the 3D path's 16^3: mat-vecs with a 4096^2 Q) stay in float32, and
     # no float32 reference could round to TF32 either
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--gate" in sys.argv:
+        # a gate job (gate_jobs), started by this script's phase 4
+        build.library()
+        run_gate(sys.argv[sys.argv.index("--gate") + 1], dev, card)
+        return 0
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     build.library()
     print(f"phase 1: kernels built and loaded in "
@@ -4176,6 +4726,7 @@ def main():
     route_counts["sessile"] = phase_sessile(dev, card)
     route_counts["droplet3d"] = phase_droplet3d(dev, card)
     phase_bubble3d(dev, card)
+    route_counts["capwave"] = phase_capwave(dev, card)
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
@@ -4221,7 +4772,7 @@ def main():
     # mgcg: one solve)
     for k in record:
         for path in ("spurious", "spurious_css", "tracer", "mgcg",
-                     "sessile"):
+                     "sessile", "capwave"):
             if route_counts[path][k]:
                 record[k][f"launches_{path}"] = route_counts[path][k]
     ada = route_counts["adaptive"]
@@ -4230,16 +4781,24 @@ def main():
         launches_block=ada["coarse_block"],
         launches_prolong_relax=ada["coarse_vcycle.prolong_relax"])
 
-    ok, eu, ev = phase_physics(dev, card)
-    if not (ok and eu <= GHIA_LINF_U and ev <= GHIA_LINF_V):
-        if not ok:
-            # for the diagnosis: the same run in f64
-            phase_physics(dev, card, "float64")
-        raise AssertionError("Ghia phase failed")
-    phase_oscillation(dev, card)
-    phase_bubble_gate(dev, card)
-    phase_spurious_gate(dev, card)
-    phase_droplet3d_gate(dev, card)
+    # phase 4: the host-bound gate jobs in child processes, beside the
+    # other gates in this one
+    t_gates = time.perf_counter()
+    gates = start_gates(gate_jobs())
+    try:
+        ok, eu, ev = phase_physics(dev, card)
+        if not (ok and eu <= GHIA_LINF_U and ev <= GHIA_LINF_V):
+            if not ok:
+                # for the diagnosis: the same run in f64
+                phase_physics(dev, card, "float64")
+            raise AssertionError("Ghia phase failed")
+        phase_oscillation(dev, card)
+        phase_bubble_gate(dev, card)
+        phase_spurious_gate(dev, card)
+        phase_droplet3d_gate(dev, card)
+        finish_gates(gates, t_gates)
+    finally:
+        stop_gates(gates)
 
     print(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -887,7 +887,8 @@ __global__ void __launch_bounds__(PR_THREADS)
 // K11 residual.
 // Replaces gerris_tpu/ops/pallas/rbgs.py:residual_pallas (_residual_kernel):
 // r = rhs - (L - dia) u with static ghosts (sgn * mirror + off per side),
-// periodic on either axis.  The adaptive solve's one residual per cycle.
+// periodic on either axis, on any n0 x n1 level (a box's rectangle).  The
+// adaptive solve's one residual per cycle.
 // Bound: device-memory bytes (reads u and rhs once, writes r once).
 // Design: one thread per cell reading its four neighbours straight from
 // device memory: a neighbour is the next thread's cell or the row above,
@@ -949,7 +950,11 @@ __global__ void residual_kernel(ResArgs<T> a) {
 // red-black Gauss-Seidel sweeps (red = global (i+j) even first) from a given
 // u on (L - dia) u = rhs, scalar dia, homogeneous ghosts, periodic rows
 // and/or columns, omega.  The "relax" solver's sweeps and the upward
-// levels of a correction with periodic rows.
+// levels of a correction with periodic rows.  A level may be a box's
+// rectangle (n x 3n for the capillary wave's 1 x 3 box, either side the
+// longer): tiles divide both sides, and a whole level is one block on the
+// square buffer of its longer side (rounded up to even), its sweeps
+// clipped to the domain, as K15's.
 // Bound: device-memory bytes for a level of many tiles (reads u and rhs,
 // writes the result once for all sweeps; at 2048^2 f32 ~50 MB, ~15 us);
 // a level that fits one block is bound by its serial half-sweeps.
@@ -1582,7 +1587,9 @@ int launch_rbgs_relax(const void* u, const void* rhs, void* out, int n0,
   const PRArgs<T> a =
       prolong_args<T>(1, &u, &rhs, &add, &out, &dia, n0, n1, tile, halo,
                       nsweeps, h2, omega, sgn, per_y);
-  const dim3 grid(n1 / tile, n0 / tile, 1);
+  // a whole level on a rectangle is one block whose tile is its longer
+  // side (even: a (1, 3) level takes tile 4), as K15's
+  const dim3 grid((n1 + tile - 1) / tile, (n0 + tile - 1) / tile, 1);
   const size_t smem = engine_smem<T, CF_CONST>(tile, halo);
   static int set[2][gtt::MAX_DEVICES];
   if (per_x)

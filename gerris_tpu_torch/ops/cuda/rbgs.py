@@ -29,9 +29,9 @@ own dia, sub and ghost offsets; its plain version is the single plain
 version per system.
 
 Each wrapper checks its inputs (dtype float32/float64, contiguous, square
-power-of-two levels; ``restrict_pyramid`` and K15 also the levels of a
-box of several unit boxes, whose longer side is a multiple of its
-shorter, power-of-two one, such as n x 2n) and then:
+power-of-two levels; ``restrict_pyramid``, K10, K11 and K15 also the
+levels of a box of several unit boxes, whose longer side is a multiple of
+its shorter, power-of-two one, such as n x 2n or n x 3n) and then:
 * for tensors on the CPU, returns the plain PyTorch version below (the
   CPU tests and the card-side reference in chip_smoke.py use these);
 * for CUDA tensors, launches the kernel on the current stream and adds
@@ -922,16 +922,17 @@ def cascade_prolong_relax_pair(r1s, r2s, dias, *, nsweeps, coarsest,
 def residual(u, rhs, dia=0.0, *, h2, signs, offs=_HOMOGENEOUS,
              periodic=(False, False)):
     """K11: r = rhs - (L - dia) u with static ghosts (sgn, off), periodic
-    on either axis (``periodic`` per axis overrides the signs)."""
-    _check_level(u, "u", min_n=2)
-    _check_level(rhs, "rhs", u.shape[0], min_n=2)
+    on either axis (``periodic`` per axis overrides the signs).  The level
+    may be a box's rectangle (n0, n1) (_check_box)."""
+    _check_box(u, "u", min_n=1)
+    _check_box(rhs, "rhs", u.shape, min_n=1)
     if _on_cpu(u, rhs):
         return residual_plain(u, rhs, dia, h2=h2, signs=signs, offs=offs,
                               periodic=periodic)
-    n = u.shape[0]
+    n0, n1 = u.shape
     r = torch.empty_like(u)
     _call("residual", u.dtype, u.device, u.data_ptr(), rhs.data_ptr(),
-          r.data_ptr(), n, n, float(dia), float(h2), doubles(*signs),
+          r.data_ptr(), n0, n1, float(dia), float(h2), doubles(*signs),
           doubles(*offs), int(periodic[0]), int(periodic[1]))
     LAUNCHES["residual"] += 1
     return r
@@ -946,9 +947,10 @@ BUFFERS = {"rbgs_relax": 2, "rbgs_relax_alpha": 5}
 def _sweep_plan(shape, nsweeps, buffers, itemsize, sms=1, tile=None,
                 threads=None, whole_max=64):
     """(tile, sweeps per launch, threads) of a K10 (``buffers`` 2) or K15
-    (5) launch on an n0 x n1 level (``shape``, or n for a square one;
-    K15's may be a box's rectangle).  A level of at most ``whole_max`` cells per side is one
-    block with no halo that takes every sweep, its tile the longer side.
+    (5) launch on an n0 x n1 level (``shape``, or n for a square one; a
+    box's rectangle).  A level of at most ``whole_max`` cells per side is
+    one block with no halo that takes every sweep, its tile the longer
+    side (rounded up to even).
     A larger one uses tile x tile tiles with a halo of 2 sweeps per
     launch:
     ``tile`` if given, else the largest of 64, 32, 16 whose buffers hold
@@ -967,6 +969,9 @@ def _sweep_plan(shape, nsweeps, buffers, itemsize, sms=1, tile=None,
     shape = (shape, shape) if isinstance(shape, int) else tuple(shape)
     n = max(shape)
     if n <= whole_max:
+        # the engine's colour halves want an even buffer side: a (1, 3)
+        # level takes tile 4, its sweeps and write clipped to the level
+        n += n & 1
         if _engine_smem(n + 2, itemsize, buffers) > _SMEM_MAX:
             raise ValueError(f"a whole {shape} level does not fit in shared "
                              "memory (a smaller whole_max)")
@@ -1008,22 +1013,24 @@ def rbgs_relax(u, rhs, dia=0.0, *, nsweeps, h2, signs,
     """K10: ``nsweeps`` red-black Gauss-Seidel sweeps from ``u`` on
     (L - dia) u = rhs with homogeneous ghosts, periodic on either axis.
     One launch, unless the sweeps' halo outgrows shared memory (then
-    consecutive launches of fewer sweeps each).  ``tile``, ``threads``
-    and ``whole_max`` override the plan (_sweep_plan; tests)."""
-    _check_level(u, "u", min_n=2)
-    _check_level(rhs, "rhs", u.shape[0], min_n=2)
+    consecutive launches of fewer sweeps each).  The level may be a box's
+    rectangle (n0, n1) (_check_box).  ``tile``, ``threads`` and
+    ``whole_max`` override the plan (_sweep_plan; tests)."""
+    _check_box(u, "u", min_n=1)
+    _check_box(rhs, "rhs", u.shape, min_n=1)
     if _on_cpu(u, rhs):
         return rbgs_relax_plain(u, rhs, dia, nsweeps=nsweeps, h2=h2,
                                 signs=signs, periodic=periodic, omega=omega)
-    n = u.shape[0]
+    n0, n1 = u.shape
     tile, per, threads = _plan("rbgs_relax", u, nsweeps, tile, threads,
                                whole_max)
+    whole = tile >= max(n0, n1)
     left = nsweeps
     while left > 0:
         k = min(left, per)
         out = torch.empty_like(u)
         _call("rbgs_relax", u.dtype, u.device, u.data_ptr(), rhs.data_ptr(),
-              out.data_ptr(), n, n, tile, 0 if tile == n else 2 * k, k,
+              out.data_ptr(), n0, n1, tile, 0 if whole else 2 * k, k,
               float(dia), float(h2), float(omega), doubles(*signs),
               int(periodic[0]), int(periodic[1]), threads)
         LAUNCHES["rbgs_relax"] += 1
@@ -1079,7 +1086,7 @@ def rbgs_relax_alpha(u, rhs, ax, ay, dia=0.0, *, nsweeps, h2, signs,
     n0, n1 = rhs.shape
     tile, per, threads = _plan("rbgs_relax_alpha", rhs, nsweeps, tile,
                                threads, whole_max)
-    whole = tile == max(n0, n1)
+    whole = tile >= max(n0, n1)
     src, prolong = (coarse, 1) if u is None else (u, 0)
     left = nsweeps
     while True:

@@ -1,8 +1,9 @@
 """Volume-of-fluid interface tracking with PLIC reconstruction, 2D and 3D
 (port of gerris_tpu/physics/vof.py: the line and plane geometry, the MYC
 normals, the direction-split geometric advection, the height-function
-curvature with its parabola-fit fallback in 2D, and the fraction of a
-level set).
+curvature with its parabola-fit fallback in 2D, its extensions off the
+interface (fill_curvature, and the Kmax variable's f(1-f)-weighted
+fill_curvature_weighted), and the fraction of a level set).
 
 Whole-array torch with ``where`` ladders, as the reference writes it in
 jnp; none of it runs a TPU kernel, so none of it is a kernel here.
@@ -62,13 +63,20 @@ def _check_2d(grid: Grid, what: str):
 
 def line_area_positive(m1, m2, alpha):
     """Fraction of the unit square below m1 x + m2 y = alpha, for
-    m1, m2 >= 0, m1 + m2 = 1 (gfs_line_area src/vof.c:40)."""
+    m1, m2 >= 0, m1 + m2 = 1 (gfs_line_area src/vof.c:40), in the
+    piecewise form on ordered components lo <= hi: the triangle a^2 /
+    (2 lo hi) up to lo, the band (a - lo/2) / hi up to hi, and 1 - (1 -
+    a)^2 / (2 lo hi) above.  The reference's closed form (gerris_tpu
+    vof.py:41-53) divides a difference of squares by 2 lo hi, which
+    loses ~eps / lo where lo is small (3.9e-2 at lo = 1e-6 in float32)."""
     a = torch.clamp(alpha, 0.0, 1.0)
     m1s = torch.clamp(m1, min=EPS)
     m2s = torch.clamp(m2, min=EPS)
-    v = (a * a
-         - torch.clamp(a - m1, min=0.0) ** 2
-         - torch.clamp(a - m2, min=0.0) ** 2) / (2.0 * m1s * m2s)
+    lo, hi = torch.minimum(m1s, m2s), torch.maximum(m1s, m2s)
+    d = 2.0 * lo * hi
+    v = torch.where(a <= lo, a * a / d,
+                    torch.where(a <= hi, (a - 0.5 * lo) / hi,
+                                1.0 - (1.0 - a) ** 2 / d))
     # degenerate (one-component) normals
     v = torch.where(m1 < EPS, torch.clamp(a / m2s, 0.0, 1.0), v)
     v = torch.where(m2 < EPS, torch.clamp(a / m1s, 0.0, 1.0), v)
@@ -434,26 +442,36 @@ def contact_fill(f_pad, P: int, grid: Grid, fbc: bcs.FieldBC,
             interf = (fr > FULL_TOL) & (fr < 1.0 - FULL_TOL)
             contact = interf & (w > FULL_TOL) & (w < 1.0 - FULL_TOL)
 
-            def line_val(k, g):
-                # the fraction the line cuts from the ghost cell k
-                # columns over, g rows into the wall
-                return line_area_positive(
-                    mt.abs(), mi.abs(), alpha + k * mt + g * mi + negt + negi)
-
             idx = torch.arange(ntan, device=f_pad.device)
             for g in range(1, P + 1):
                 ghost = torch.where(interf, (w >= 0.5).to(dtype),
                                     (fr >= 0.5).to(dtype))
-                ghost = torch.where(contact, line_val(0, g), ghost)
+                # the shifts k, farthest first (the nearest written last),
+                # and k = 0 at the end: each shift's fraction of the line
+                # in the ghost cell k columns over, g rows into the wall,
+                # all shifts at once
                 kmax = int(g * _SLOPE_MAX) + 1
-                for k in sorted(range(-kmax, kmax + 1), key=lambda q: -abs(q)):
-                    if k == 0:
-                        continue
-                    cand = torch.roll(line_val(k, g), -k)
-                    take = (torch.roll(contact, -k) & (idx + k >= 0)
-                            & (idx + k < ntan) & ~contact
-                            & (cand > FULL_TOL) & (cand < 1.0 - FULL_TOL))
-                    ghost = torch.where(take, cand, ghost)
+                ks = sorted((q for q in range(-kmax, kmax + 1) if q),
+                            key=lambda q: -abs(q)) + [0]
+                kt = torch.tensor(ks, dtype=dtype,
+                                  device=f_pad.device).unsqueeze(1)
+                vals = line_area_positive(
+                    mt.abs(), mi.abs(), alpha + kt * mt + g * mi + negt + negi)
+                ghost = torch.where(contact, vals[-1], ghost)
+                # the contact cell k columns over writes its line's value
+                # into this column (no wrap)
+                src = idx + kt[:-1].long()
+                inside = (src >= 0) & (src < ntan)
+                src = src.clamp(0, ntan - 1)
+                cand = torch.gather(vals[:-1], 1, src)
+                take = (contact[src] & inside & ~contact & (cand > FULL_TOL)
+                        & (cand < 1.0 - FULL_TOL))
+                # the last shift in the order that takes the column wins
+                n_k = len(ks) - 1
+                last = n_k - 1 - torch.argmax(
+                    torch.flip(take, (0,)).to(torch.int8), dim=0)
+                ghost = torch.where(take.any(dim=0),
+                                    cand[last, idx], ghost)
                 gi = P - g if side == 0 else P + shape[tr_ax] - 1 + g
                 if tr_ax == 0:
                     f_pad[gi, P:P + n1] = ghost
@@ -951,6 +969,34 @@ def fill_curvature(kap, interface_band=None, niter: int = 4):
                 w = w + pad_ok[tuple(idx)]
         avg = s / torch.clamp(w, min=1.0)
         kap = torch.where(ok, kap, torch.where(w > 0, avg, math.nan))
+    return kap
+
+
+def fill_curvature_weighted(kap, T, niter: int = 2, fmin: float = 0.01):
+    """The Kmax variable's f(1-f)-weighted curvature extension (the
+    reference's diffuse_kmax, src/tension.c:540-565; gerris_tpu
+    vof.py:1056-1082), ``niter`` times: a cell well inside the interface
+    band (f(1-f) > fmin(1-fmin), finite curvature) keeps its value, any
+    other takes the f(1-f)-weighted mean of such face neighbours (or
+    keeps its value without one).  nD."""
+    dim = kap.dim()
+    pad = (1, 1) * dim
+    thr = fmin * (1.0 - fmin)
+    wt = T * (1.0 - T)
+    for _ in range(niter):
+        w_core = torch.where(torch.isfinite(kap) & (wt > thr), wt, 0.0)
+        keep = w_core > 0.0
+        pad_k = F.pad(torch.where(keep, kap, 0.0) * w_core, pad)
+        pad_w = F.pad(w_core, pad)
+        s = w = 0.0
+        for ax in range(dim):
+            for off in (0, 2):
+                idx = [slice(1, -1)] * dim
+                idx[ax] = slice(off, pad_k.shape[ax] - 2 + off)
+                s = s + pad_k[tuple(idx)]
+                w = w + pad_w[tuple(idx)]
+        avg = s / torch.clamp(w, min=1e-30)
+        kap = torch.where(keep, kap, torch.where(w > 0.0, avg, kap))
     return kap
 
 

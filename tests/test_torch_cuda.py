@@ -25,7 +25,9 @@ every periodicity, dia mode and level size of a two-phase correction,
 from a given u and with the coarse correction's prolongation folded in
 (+ u), bit-identical across tiles, threads and sweep splits, and three
 two-phase steps on the card to the same steps on the CPU.  K10 likewise
-at 2048^2.  The block kernel is held to its plain version at every level
+at 2048^2; K11 and K10 on the capillary wave's box levels, (1024, 3072)
+down to (1, 3) and transposed, and three capillary-wave steps on the card
+to the same steps on the CPU.  The block kernel is held to its plain version at every level
 count, omega, periodicity and batch, bit-identical across its launch
 shapes, and each cascade's tail in it bit for bit the K3 launches it
 replaces.
@@ -1694,3 +1696,77 @@ def test_slice_3c_steps_on_the_card(dev, case):
             assert bcg.LAUNCHES["advect2d"] == (0 if case == "css" else 6)
     for k in ("U", "V", "T"):
         assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k
+
+
+# --- the capillary wave's box levels (n, 3n): K11 and K10 -------------------
+
+BOX_SHAPES = [(1024, 3072), (512, 1536), (128, 384), (64, 192), (32, 96),
+              (8, 24), (2, 6), (1, 3), (3072, 1024), (384, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", BOX_SHAPES)
+def test_residual_rbgs_relax_box_kernels(dev, dtype, shape):
+    """K11 and K10 on a box level (the longer side a multiple of the
+    shorter, either one longer): periodic along the shorter side (the
+    capillary wave's rows) and walls, against their plain versions; K10
+    with 4 sweeps (12 on the coarsest boxes) in one launch."""
+    n0, n1 = shape
+    u, rhs = _rnd(dev, dtype, 70 + n0, shape, shape)
+    per = (True, False) if n0 <= n1 else (False, True)
+    h2 = (3.0 / max(shape)) ** 2
+    for pr, sg, of in ((per, (1.0,) * 4, (0.0,) * 4),
+                       ((False, False), (-1.0, 1.0, -1.0, 1.0),
+                        (0.5, 0.0, -0.25, 0.0))):
+        kw = dict(h2=h2, signs=sg, offs=of, periodic=pr)
+        assert _rel(rbgs.residual(u, rhs, 2.0, **kw),
+                    rbgs.residual_plain(u, rhs, 2.0, **kw)) <= BOUND[dtype]
+        kw = dict(nsweeps=12 if min(shape) <= 2 else 4, h2=h2, signs=sg,
+                  periodic=pr, omega=1.0 if pr[0] or pr[1] else 1.5)
+        rbgs.reset_launch_counts()
+        got = rbgs.rbgs_relax(u, rhs, 0.5, **kw)
+        assert rbgs.LAUNCHES["rbgs_relax"] == 1
+        assert _rel(got, rbgs.rbgs_relax_plain(u, rhs, 0.5, **kw)) <= \
+            BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rbgs_relax_box_tile_invariance(dev, dtype):
+    """K10 on a (256, 768) box level with periodic rows: bit-identical
+    across its tiles and threads, and a whole (32, 96) level equals the
+    same level tiled by 16 and 32."""
+    u, rhs = _rnd(dev, dtype, 80, (256, 768), (256, 768))
+    kw = dict(nsweeps=4, h2=1.0 / 256 ** 2, signs=(1.0, 1.0, -1.0, 1.0),
+              periodic=(True, False))
+    ref = rbgs.rbgs_relax(u, rhs, 0.0, tile=16, **kw)
+    for tile in (64, 32):
+        for threads in (256, 512):
+            assert torch.equal(ref, rbgs.rbgs_relax(
+                u, rhs, 0.0, tile=tile, threads=threads, **kw))
+    w, wr = u[:32, :96].contiguous(), rhs[:32, :96].contiguous()
+    whole = rbgs.rbgs_relax(w, wr, 0.0, whole_max=96, **kw)
+    for tile in (32, 16):
+        assert torch.equal(whole, rbgs.rbgs_relax(w, wr, 0.0, tile=tile,
+                                                  **kw))
+
+
+def test_capwave_steps_on_the_card(dev):
+    """Three steps of the capillary wave at level 7 (128 x 384) in float64
+    on the card against the same steps on the CPU (the plain versions):
+    K11, the pyramid and K10 on the box's levels in every correction, K4
+    per projection."""
+    import chip_smoke
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        rbgs.reset_launch_counts()
+        s = chip_smoke.capwave_sim(where, 7, torch.float64)
+        runs[str(where)] = s.run(max_steps=3).state
+        if where.type == "cuda":
+            assert rbgs.LAUNCHES["rbgs_relax"] > 0
+            assert rbgs.LAUNCHES["rbgs_relax"] % 2 == 0  # (64, 192), (128, 384)
+            assert rbgs.LAUNCHES["residual"] > 0
+    for k in ("U", "V", "T", "P"):
+        a, b = runs[str(dev)][k].cpu(), runs["cpu"][k]
+        if k == "P":
+            a, b = a - a.mean(), b - b.mean()
+        assert _rel(a, b) <= 1e-9, k

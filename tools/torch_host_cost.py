@@ -44,7 +44,9 @@ Prints one JSON line, float32 throughout:
   where both checkouts compute it (a cascade at n/2 = 64, omega 1.5 and
   per_y, single and as a pair with two dias: the whole cascade is its
   tail; K12 with dia 3 at 512^2 and its 64^2 block alone) and of the
-  2048^2 main path's U, V, P after init + 5 steps (``main_5``);
+  2048^2 main path's U, V, P after init + 5 steps (``main_5``); of K10
+  and K11 on square levels (2048^2 and 64^2, every periodicity; K10's
+  sweeps split over launches at 512^2);
 * ``device_us``: torch.profiler's device time per call of K1 and K4 at
   2048^2, of K12 at 512^2 (``coarse_vcycle``: the pyramid, the block
   kernel and the K3 launches above 64^2, counted together) and of its
@@ -270,6 +272,43 @@ def digests(rbgs, dev, chip_smoke):
     return out
 
 
+def digests_k10_k11(rbgs, dev):
+    """SHA-256 of K10's and K11's outputs on square levels, fixed inputs,
+    float32 and float64: K11 with walls and offsets, periodic rows,
+    periodic columns and both at 2048^2 and 64^2; K10 from u at 2048^2
+    (4 sweeps, walls, periodic rows, both, omega 1.5 on one), at 64^2 (a
+    whole level) and at 512^2 with 40 sweeps (split over launches)."""
+    import torch
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(13)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+        for n in (2048, 64):
+            u, rhs = rnd(n, n), rnd(n, n)
+            for tag, per, sg, of in (
+                    ("walls", (False, False), (-1.0, -1.0, 1.0, -1.0),
+                     (0.0, 0.5, 0.0, 2.0)),
+                    ("per_x", (True, False), (1.0, 1.0, -1.0, 1.0),
+                     (0.0, 0.0, 0.25, 0.0)),
+                    ("per_y", (False, True), (-1.0, 1.0, 1.0, 1.0),
+                     (1.5, 0.0, 0.0, 0.0)),
+                    ("per_xy", (True, True), (1.0,) * 4, (0.0,) * 4)):
+                out[f"k11_{n}_{tag}_{str(dtype)[6:]}"] = sha(rbgs.residual(
+                    u, rhs, 3.0, h2=1.0 / n ** 2, signs=sg, offs=of,
+                    periodic=per))
+                out[f"k10_{n}_{tag}_{str(dtype)[6:]}"] = sha(rbgs.rbgs_relax(
+                    u, rhs, 0.5, nsweeps=4, h2=1.0 / n ** 2, signs=sg,
+                    periodic=per, omega=1.5 if per[1] else 1.0))
+        u, rhs = rnd(512, 512), rnd(512, 512)
+        out[f"k10_512_split_{str(dtype)[6:]}"] = sha(rbgs.rbgs_relax(
+            u, rhs, 0.0, nsweeps=40, h2=1.0 / 512 ** 2, signs=(1.0,) * 4,
+            periodic=(True, False)))
+    return out
+
+
 def digests_k4_tail(rbgs, projops, dev):
     """SHA-256 of K4's outputs and of the block kernel's function on fixed
     inputs, computed through wrappers that both checkouts have."""
@@ -394,6 +433,7 @@ def main():
                "digests": digests(rbgs, dev, chip_smoke)}
         out["digests"].update(digests_k4_tail(rbgs, projops, dev))
         out["digests"].update(digests_k1_k13(rbgs, rbgs3d, poisson, bc, dev))
+        out["digests"].update(digests_k10_k11(rbgs, dev))
         print(json.dumps(out))
         return 0
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -500,6 +540,7 @@ def main():
     out["digests"] = digests(rbgs, dev, chip_smoke)
     out["digests"].update(digests_k4_tail(rbgs, projops, dev))
     out["digests"].update(digests_k1_k13(rbgs, rbgs3d, poisson, bc, dev))
+    out["digests"].update(digests_k10_k11(rbgs, dev))
     out["main"] = route_cost(chip_smoke.lid_sim(dev, "pair"),
                              *ROUTE_STEPS["main"])
     out["twophase"] = route_cost(chip_smoke.twophase_sim(dev),
