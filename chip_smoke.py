@@ -53,7 +53,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      level down to 4^2 as a correction runs it, and on the bubble's box
      levels, (1024, 2048) down to (4, 8), plus its invariance across
      tiles, threads and sweep splits (the box's tiles, and a whole 32 x
-     64 level against the same level tiled); then each kernel's time
+     64 level against the same level tiled), and on the cylinder's
+     levels, (3072, 1024) down to (12, 4), with its geometry's face
+     fractions, dead cells and cell dia (the projections' and the
+     viscous solves' systems; the dead cells keep their value); then
+     each kernel's time
      against its plain version's at the main-path shapes (K13 at 128^3,
      from u and with the fold; K15 at 1024^2 and at the bubble's (1024,
      2048), the pyramid also at (1024, 2048)), float32 (CUDA events), K1
@@ -154,7 +158,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
      1024 x 3072 in float32 on its 1 x 3 box with periodic rows, init +
      5 steps through K4, K11, the pyramid and K10 on the box's levels,
      gated from the recorded cycle counts, held to the plain versions as
-     the bubble is (float64 to 1e-9), five timed windows and a profile.
+     the bubble is (float64 to 1e-9), five timed windows and a profile;
+     ``cylinder``, the flow past a cylinder (Re 160, the Gerris
+     tutorial's vortex street cut to a 3 x 1 box) at 3072 x 1024 in
+     float32 with a static embedded solid: init + 5 steps through K15 in
+     every correction of its six solves a step and the pyramid, gated
+     from the recorded cycle counts (K6 and K9 refuse its outflow BCs: no
+     other kernel), the solid's geometry printed, held to the plain
+     versions (float64 to 1e-9), run twice bit for bit (digests), five
+     timed windows and a profile.
      Every route held to the plain versions in float32 also bounds the
      plain float32 run's distance from the plain float64 run per field
      (FLOOR_BOUNDS);
@@ -181,9 +193,14 @@ Phases (any failure ends the run with a non-zero exit and no result):
      between them above 1.5, level 6 within 10% of the table); and the
      sessile drop at level 4 in float64, 3000 steps at 60 and 120
      degrees: the band's mean curvature within 8% of 1/R(theta), its std
-     within 0.25 of it.  The capwave and sessile gates, thousands of
-     host-paced steps each, run as child processes of this script
-     (``python3 chip_smoke.py --gate NAME``, gate_jobs) beside the others.
+     within 0.25 of it; test/circle in float64 at levels 7-9 (the level-8
+     Richardson L1 and L2 within 2x of the reference's error.ref, orders
+     above 1.5, the multigrid's reduction at least 8x a cycle at level 7)
+     and at level 6 within 1% of gerris_tpu's (tools/circle_reference.py);
+     the Couette profile at level 6 in float64 within tests/test_couette.py's
+     bounds.  The capwave, sessile, circle and Couette gates run as child
+     processes of this script (``python3 chip_smoke.py --gate NAME``,
+     gate_jobs) beside the others.
 The last two lines are the kernels' JSON record and the device line.
 """
 import contextlib
@@ -492,7 +509,8 @@ BUBBLE3D_CPU_STEPS = 3
 # 2.4e-4; spurious 3.68e-3 / 3.74e-3, 6.3e-6, 1.41e-4; CSS 2.5e-5 /
 # 2.6e-5, 6.3e-6, 3.2e-5; capwave 5.77e-2 / 0.160, 1.42e-6, 1.12e-3;
 # droplet3d U, V, W 2.06e-3 / 2.52e-3 / 2.11e-3, T 1.54e-6, P 7.6e-6;
-# bubble3d 1.83e-3 / 2.22e-3 / 1.80e-3, 2.19e-6, 6.2e-4).  The velocities
+# bubble3d 1.83e-3 / 2.22e-3 / 1.80e-3, 2.19e-6, 6.2e-4; cylinder U, V
+# 4.46e-5 / 1.84e-5, P 3.11e-3, its first run, from U = 1).  The velocities
 # of these states from rest are small, and the float32 pressure's
 # rounding moves them by ~1e-6 of max|P|: a floor that grows as they
 # shrink with the level (tools/torch_f32_floor.py --cpu LEVEL).  The
@@ -505,7 +523,39 @@ FLOOR_BOUNDS = {
     "capwave": dict(U=0.2, V=0.5, T=5e-6, P=4e-3),
     "droplet3d": dict(U=7e-3, V=8e-3, W=7e-3, T=5e-6, P=3e-5),
     "bubble3d": dict(U=6e-3, V=7e-3, W=6e-3, T=7e-6, P=2e-3),
+    "cylinder": dict(U=1.5e-4, V=6e-5, P=1e-2),
 }
+
+# the flow past a cylinder (slice 4a): the Gerris tutorial's vortex
+# street (a cylinder of diameter 0.125, inflow 1, nu 0.00078125: Re 160)
+# in a channel of 3 unit boxes (the tutorial's 8 cut to 3: the port's box
+# levels are n x 2n and n x 3n), at 3072 x 1024 in float32, init + 5
+# steps; its solves' corrections run K15 on every level from (3072, 1024)
+# down to minlevel 2's (12, 4)
+LEVEL_CYLINDER = 10
+CYLINDER_R = 0.0625
+CYLINDER_NU = 0.00078125
+CYLINDER_STEPS = 5
+CYLINDER_CHECK_STEPS = 2
+CYLINDER_TIMED_STEPS = 2
+CYLINDER_PROFILE_STEPS = 2
+CYLINDER_F64_RTOL = 1e-9
+# the solid-route gates (phase 4, child processes): tests/test_circle.py
+# at levels 7-9 in float64 (the reference's error.ref at level 8: L1
+# 6.904e-05, L2 8.562e-05; within CIRCLE_REF_FACTOR either way), its
+# orders and its multigrid reduction at level 7 with erelax 2; the
+# circle's level-6 Richardson norms within JAX_RTOL of the JAX package's
+# (python3 tools/circle_reference.py 6); tests/test_couette.py's
+# profile at level 6 in float64
+CIRCLE_REF = dict(l1=6.904e-05, l2=8.562e-05)
+CIRCLE_REF_FACTOR = 2.0
+CIRCLE_ORDER_MIN = 1.5
+CIRCLE_REDUCTION_MIN = 8.0
+JAX_CIRCLE6 = dict(l1=0.0013984713600482578, l2=0.001775144877487753,
+                   linf=0.008834733502320669)
+COUETTE_LEVEL = 6
+COUETTE_LINF = 0.012
+COUETTE_L2 = 6e-3
 
 ERR_KEYS = ("max_abs_err", "max_rel_err")
 CSRC = "gerris_tpu_torch/csrc/"
@@ -1657,6 +1707,81 @@ def check_alpha_kernels(rnd, dtype, record):
         record["rbgs_relax_alpha"].update(zip(ERR_KEYS, map(max, zip(*errs))))
 
 
+def cylinder_systems(dev, dtype):
+    """The cylinder's K15 systems at LEVEL_CYLINDER, down its correction's
+    levels (poisson._coeff_hierarchy): ("projection", alpha = s, dia 0,
+    the pressure's homogeneous signs) and ("viscous", alpha = beta dt nu s
+    and the cell dia a + beta dt nu dia_s at dt = 0.8 h, u's and v's
+    signs).  Returns [(name, signs, alphas, dias, grids)]."""
+    import dataclasses
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers import poisson
+    cfg = cylinder_cfg(LEVEL_CYLINDER)
+    grid = cfg.grid
+    ctx = ns._solid_ctx(grid, cfg.solid_phi, dev, dtype)
+    scale = 0.8 * grid.h * CYLINDER_NU
+    nl = cylinder_levels(LEVEL_CYLINDER)
+    grids = [dataclasses.replace(grid, level=LEVEL_CYLINDER - k)
+             for k in range(nl)]
+    out = []
+    for name, fbc, alpha, dia in (
+            ("projection", cfg.p_bc, ctx.s, 0.0),
+            ("viscous u", cfg.u_bcs[0], tuple(scale * f for f in ctx.s),
+             ctx.a + scale * ctx.ds.dia),
+            ("viscous v", cfg.u_bcs[1], tuple(scale * f for f in ctx.s),
+             ctx.a + scale * ctx.ds.dia)):
+        alphas, dias = poisson._coeff_hierarchy(grid, 2, alpha, dia)
+        signs = poisson._signs_offs(grid, fbc, True)[0]
+        out.append((name, signs, alphas, dias, grids))
+    return out, ctx
+
+
+def check_cylinder_alpha(dev, rnd, dtype, errs):
+    """K15 against its plain version on the cylinder's levels, (3072,
+    1024) down to (12, 4), with its geometry's coefficients
+    (cylinder_systems): the solid's whole cells of zero diagonal, which
+    keep their value, at the top from a given u (4 sweeps) and with the
+    coarser level's correction prolonged + u; every level below as the
+    correction runs it (the coarser one prolonged, 4 sweeps; from zero
+    with 12 at (12, 4))."""
+    from gerris_tpu_torch.ops.cuda import rbgs
+    b = BOUND[str(dtype).replace("torch.", "")]
+    systems, ctx = cylinder_systems(dev, dtype)
+    dead = ctx.a == 0.0
+    for name, signs, alphas, dias, grids in systems:
+        nl = len(grids)
+        for k in range(nl):
+            shape = grids[k].shape
+            cell = not isinstance(dias[k], float)
+            rhs = rnd(dtype, *shape)
+            kw = dict(nsweeps=12 if k == nl - 1 else 4,
+                      h2=grids[k].h ** 2, signs=signs,
+                      periodic=(False, False), dia_cell=cell)
+            ax, ay = alphas[k]
+            tag = f"{shape[0]}x{shape[1]} cylinder {name}"
+            if k == 0:
+                u = rnd(dtype, *shape)
+                got = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dias[k], **kw)
+                errs.append(compare(
+                    f"K15 rbgs_relax_alpha {tag} from u", got,
+                    rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dias[k],
+                                                **kw), b))
+                if not bool((got[dead] == u[dead]).all()):
+                    raise AssertionError(f"K15 {tag}: a solid cell of zero "
+                                         "diagonal moved")
+            c = None if k == nl - 1 else rnd(dtype, *grids[k + 1].shape)
+            fold = dict(kw, coarse=c, add=u if k == 0 else None)
+            errs.append(compare(
+                f"K15 rbgs_relax_alpha {tag} "
+                f"{'from zero' if c is None else 'coarse'}"
+                f"{' + u' if k == 0 else ''}",
+                rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dias[k], **fold),
+                rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dias[k],
+                                            **fold), b))
+    print(f"  K15 on the cylinder's levels: {int(dead.sum())} solid cells "
+          "of zero diagonal kept")
+
+
 def check_alpha_tiles(rnd):
     """K15 bit-identical across tiles 64, 32 and 16 and threads 256 and
     512 at 1024^2 (float32; tiles 32 and 16 in float64), from a given u
@@ -1788,9 +1913,11 @@ def vcycle_flops(n_top, nsweeps, coarsest, min_n=16):
 
 # the pyramids of the paths: (top, levels) of the cascades (512 -> 16),
 # the adaptive correction (2048 -> 512), the twophase correction (1024 ->
-# 4, past one cell per tile) and the bubble's ((1024, 2048) -> (4, 8))
+# 4, past one cell per tile), the bubble's ((1024, 2048) -> (4, 8)), the
+# capillary wave's ((1024, 3072) -> (32, 96)) and the cylinder's, the
+# longer side first ((3072, 1024) -> (12, 4))
 PYRAMIDS = (((512, 512), 5), ((2048, 2048), 2), ((1024, 1024), 8),
-            ((1024, 2048), 8))
+            ((1024, 2048), 8), ((1024, 3072), 5), ((3072, 1024), 8))
 
 
 def check_pyramids(rnd, dtype):
@@ -1936,6 +2063,12 @@ def phase_kernels(dev, record):
         check_fold_kernels(rnd, dtype, N_SMALL, None)
         check_rbgs3d(rnd, dtype, record if main else None)
         check_alpha_kernels(rnd, dtype, record if main else None)
+        errs15 = []
+        check_cylinder_alpha(dev, rnd, dtype, errs15)
+        if main:
+            record["rbgs_relax_alpha"].update(
+                {f"{k}_cylinder": v
+                 for k, v in zip(ERR_KEYS, map(max, zip(*errs15)))})
     check_relax_tiles(rnd)
     check_fold_tiles(rnd)
     check_alpha_tiles(rnd)
@@ -2288,6 +2421,28 @@ def phase_kernels(dev, record):
         lambda: rbgs.rbgs_relax_alpha_plain(None, *bx[1:], **kwbx),
         nbytes(cbx, *bx), 2 * alpha_flops(na, 8, 1.0, coarse=True, add=True),
         None)
+    # K15 at the cylinder's finest level, (3072, 1024), as its viscous
+    # solves run it there: the coarser level prolonged at placement, + u,
+    # 4 sweeps, the cut cells' face coefficients and cell dia; and its
+    # pyramid, (3072, 1024) -> (12, 4)
+    cyl, _ = cylinder_systems(dev, f32)
+    _, csg, cal, cdi, cgr = cyl[1]
+    n0c, n1c = cgr[0].shape
+    cu, cr = rnd(f32, n0c, n1c), rnd(f32, n0c, n1c)
+    cc = rnd(f32, n0c // 2, n1c // 2)
+    kwcy = dict(nsweeps=4, h2=cgr[0].h ** 2, signs=csg, dia_cell=True,
+                coarse=cc, add=cu)
+    timings["rbgs_relax_alpha|cylinder"] = (
+        lambda: rbgs.rbgs_relax_alpha(None, cr, *cal[0], cdi[0], **kwcy),
+        lambda: rbgs.rbgs_relax_alpha_plain(None, cr, *cal[0], cdi[0],
+                                            **kwcy),
+        nbytes(cc, cr, *cal[0], cdi[0], cu),
+        3 * alpha_flops(n1c, 4, 1.0, coarse=True, add=True), None)
+    pl_cy = len(cgr) - 1
+    timings["restrict_pyramid|cylinder"] = (
+        lambda: rbgs.restrict_pyramid(cr, pl_cy),
+        lambda: rbgs.pyramid_plain(cr, pl_cy), nbytes(cr),
+        sum((n0c >> k) * (n1c >> k) * 3 for k in range(1, pl_cy + 1)), None)
     rbx = rnd(f32, na, 2 * na)
     timings["restrict_pyramid|box"] = (
         lambda: rbgs.restrict_pyramid(rbx, 8),
@@ -4148,14 +4303,387 @@ def capwave_order(outputs):
         raise AssertionError(f"capwave gate: order {order:.4f}")
 
 
+def cylinder_phi(x, y):
+    """The cylinder's level set: the fluid outside the disk of radius
+    CYLINDER_R at the origin."""
+    import torch
+    return torch.sqrt(x * x + y * y) - CYLINDER_R
+
+
+def cylinder_cfg(level):
+    """The flow past a cylinder at 3 2^level x 2^level cells: the 3 x 1
+    box at origin (-0.5, -0.5), the cylinder at the origin (fluid
+    outside, a no-slip wall at rest: surface_u (0, 0)); u Dirichlet 1 at
+    the inflow (x low), Neumann 0 at the outflow and on the y sides (free
+    slip); v Dirichlet 0 at the inflow and on the y sides, Neumann 0 at
+    the outflow; p Dirichlet 0 at the outflow, Neumann elsewhere; nu
+    CYLINDER_NU; everything else NSConfig's defaults (the projections
+    adaptive to 1e-3 in at most 100 cycles, diffuse's default
+    diffusion)."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    nn = (bc.Neumann(), bc.Neumann())
+    u_bc = bc.FieldBC(((bc.Dirichlet(1.0), bc.Neumann()), nn))
+    v_bc = bc.FieldBC(((bc.Dirichlet(0.0), bc.Neumann()),
+                       (bc.Dirichlet(0.0), bc.Dirichlet(0.0))))
+    p_bc = bc.FieldBC(((bc.Neumann(), bc.Dirichlet(0.0)), nn))
+    return ns.NSConfig(
+        grid=Grid(level=level, dim=2, origin=(-0.5, -0.5), extents=(3, 1)),
+        u_bcs=(u_bc, v_bc), p_bc=p_bc, nu=CYLINDER_NU,
+        solid_phi=cylinder_phi, surface_u=(0.0, 0.0))
+
+
+def cylinder_sim(dev, level=None, dtype=None):
+    """The cylinder at ``level`` (LEVEL_CYLINDER by default) in ``dtype``
+    (float32 by default), U = 1 everywhere at t = 0 (the tutorial's
+    Init), not yet run."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    cfg = cylinder_cfg(level or LEVEL_CYLINDER)
+    return Simulation(cfg, time=Time(), device=dev,
+                      dtype=dtype or torch.float32).init(U=1.0)
+
+
+def cylinder_levels(level):
+    """K15's levels in a correction of the cylinder at ``level``: down to
+    MultilevelParams' minlevel 2."""
+    return level - 2 + 1
+
+
+def want_cylinder(level, solves):
+    """Launches of the cylinder route from its solves (solver, niter,
+    fixed): every solve adaptive multigrid with face fractions, so per
+    cycle K15 at each level (cylinder_levels), all but the coarsest with
+    the prolongation folded in, and one restrict_pyramid; no other
+    kernel: the divergence, residual and correction of a cut-cell solve
+    are torch (K4, K11, K5 take no face coefficients), the velocity
+    advection takes the generic route with a solid (no K7 or K14), and K6
+    and K9 refuse the outflow's Neumann u (their x faces want Dirichlet
+    values), as the reference's do (gerris_tpu/models/ns.py:190-196,
+    solvers/projection.py:303-310)."""
+    w = {k: 0 for k in want_launches("pair", 0)}
+    for solver, niter, fixed in solves:
+        if solver != "multigrid" or fixed:
+            raise AssertionError(f"cylinder: a {solver} solve")
+    cycles = sum(x[1] for x in solves)
+    nl = cylinder_levels(level)
+    w.update(rbgs_relax_alpha=nl * cycles, restrict_pyramid=cycles)
+    w["rbgs_relax_alpha.prolong"] = (nl - 1) * cycles
+    return w
+
+
+def digests(state):
+    """A short sha256 of each field's bytes."""
+    import hashlib
+    return {k: hashlib.sha256(v.contiguous().cpu().numpy().tobytes())
+            .hexdigest()[:16] for k, v in sorted(state.items())}
+
+
+def phase_cylinder(dev, card):
+    """init + CYLINDER_STEPS steps of the cylinder at 3072 x 1024 in float32
+    through the kernels, the counts set to 0 just before and gated just
+    after from every solve's recorded cycle count (want_cylinder); finite
+    values; the solid's geometry (fluid area, mixed and solid cells, merge
+    groups); the first CYLINDER_CHECK_STEPS steps against the plain
+    versions (check_against_plain, float64 to CYLINDER_F64_RTOL); the run
+    again with the geometry rebuilt, bit for bit the first (digests); five
+    timed windows and a profile.  Returns the launch counts."""
+    import torch
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import solid
+    cfg = cylinder_cfg(LEVEL_CYLINDER)
+    n0, n1 = cfg.grid.shape
+    print(f"phase 3, cylinder: the flow past a cylinder (Re 160), {n0} x "
+          f"{n1}, float32, init + {CYLINDER_STEPS} steps")
+    ns._solid_ctx.cache_clear()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_solves() as log:
+        s = cylinder_sim(dev)
+        s.run(max_steps=CYLINDER_CHECK_STEPS)
+        early = {k: v.clone() for k, v in s.state.items()}
+        s.run(max_steps=CYLINDER_STEPS - CYLINDER_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    niters = [x[1] for x in log]
+    print(f"  cylinder, init + {CYLINDER_STEPS} steps: {t_run:.3f} s (the "
+          f"geometry's build included); {len(niters)} solves, niter "
+          f"{niters}; host syncs {sum(x[3] for x in log)}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if len(niters) != 6 * CYLINDER_STEPS + 1:
+        raise AssertionError(f"cylinder: {len(niters)} solves")
+    for k, w in want_cylinder(LEVEL_CYLINDER, [x[:3] for x in log]).items():
+        if counts[k] != w:
+            raise AssertionError(f"cylinder: {k}: {counts[k]} launches, "
+                                 f"want {w}")
+    nl = cylinder_levels(LEVEL_CYLINDER)
+    print(f"  cylinder: rbgs_relax_alpha {counts['rbgs_relax_alpha']} "
+          f"launches = {nl} x sum(niter) {sum(niters)}, "
+          f"{counts['rbgs_relax_alpha.prolong']} with the prolongation "
+          f"folded in, {counts['restrict_pyramid']} restrict_pyramid; "
+          "predict_xy and interp_faces 0 (the outflow's BCs)")
+    for k, v in s.state.items():
+        if v.shape != (n0, n1) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"cylinder {k}: not finite or wrong shape")
+    ctx = ns._weights(cfg, s.state["U"])
+    h = cfg.grid.h
+    area = float(ctx.a.double().sum()) * h * h
+    exact = 3.0 - math.pi * CYLINDER_R ** 2
+    small, tgt = solid._merge_targets(ctx.a, ctx.s)
+    src = torch.nonzero(small.reshape(-1)).squeeze(1)
+    dst = tgt.reshape(-1)[src]
+    mutual = int((small.reshape(-1)[dst] & (tgt.reshape(-1)[dst] == src))
+                 .sum())
+    inside = float(s.state["U"].masked_select(ctx.a == 0.0).abs().max())
+    print(f"  cylinder: fluid area {area:.6f} (exact {exact:.6f}), "
+          f"{int(ctx.ds.mixed.sum())} cut cells, {int((ctx.a == 0).sum())} "
+          f"solid cells, {int(small.sum())} small cells in "
+          f"{ctx.groups.ngroups} merge groups of at most "
+          f"{ctx.groups.index.shape[1]}, {mutual} in mutual pairs; max|U| "
+          f"{float(s.state['U'].abs().max()):.6f}, max|V| "
+          f"{float(s.state['V'].abs().max()):.6f}, |U| in the solid "
+          f"{inside}; t {s.time.t:.6e} after {s.time.i} steps, dt "
+          f"{s.dt:.6e}")
+    if abs(area - exact) > 1e-3 * exact or inside != 0.0:
+        raise AssertionError(f"cylinder: fluid area {area}, |U| in the "
+                             f"solid {inside}")
+    check_against_plain("cylinder", lambda dtype: cylinder_sim(dev,
+                                                               dtype=dtype),
+                        CYLINDER_CHECK_STEPS, early, counts,
+                        CYLINDER_F64_RTOL, keys=("U", "V", "P"))
+    del early
+    # determinism: the same run with the geometry and merge groups
+    # rebuilt gives the same bits
+    first = digests(s.state)
+    ns._solid_ctx.cache_clear()
+    again = cylinder_sim(dev).run(max_steps=CYLINDER_STEPS)
+    second = digests(again.state)
+    print(f"  cylinder digests, run 1: {first}; run 2: {second}")
+    if first != second or any(not torch.equal(v, s.state[k])
+                              for k, v in again.state.items()):
+        raise AssertionError("cylinder: two runs differ")
+    del again
+    step = timed_windows("cylinder", s, CYLINDER_TIMED_STEPS, card, n0 * n1)
+    phase_profile(s, step, card, CYLINDER_PROFILE_STEPS)
+    return counts
+
+
+def circle_rhs(x, y):
+    """test/circle's rhs: test/poisson's with K = 3."""
+    import torch
+    return -(math.pi ** 2) * 18.0 * torch.sin(3 * math.pi * x) * \
+        torch.sin(3 * math.pi * y)
+
+
+def circle_phi(x, y):
+    """test/circle's disk of radius 0.25 at the origin (fluid outside)."""
+    return x * x + y * y - 0.0625
+
+
+def circle_solve(dev, level):
+    """tests/test_circle.py:solve_level on the port in float64: 10 cycles
+    with erelax 2, Neumann box walls.  Returns (u, a)."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import solid
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    grid = Grid(level=level)
+    x, y = ns.cell_centers(grid, dev, torch.float64)
+    u, _, a, _ = solid.poisson_solid_solve(
+        circle_rhs(x, y), grid, circle_phi, bc.default_scalar_bc(2),
+        MultilevelParams(nitermin=10, nitermax=10, erelax=2))
+    return u, a
+
+
+def circle_richardson(coarse, fine):
+    """tests/test_circle.py:richardson_error from two levels' (u, a): the
+    L1, L2 and Linf norms of the difference between the coarse solution
+    and the fine one, volume-weighted restricted, less their fluid means,
+    on the cells fluid at both."""
+    import torch
+    u0, a0 = coarse
+    u1, a1 = fine
+    n0, n1 = u0.shape
+
+    def pool(t):
+        return t.reshape(n0, 2, n1, 2).sum(dim=(1, 3))
+
+    ac = pool(a1)
+    u1r = pool(u1 * a1) / torch.clamp(ac, min=1e-300)
+    a1r = ac / 4.0
+
+    def mean(u, a):
+        return (u * a).sum() / a.sum()
+
+    d = (u0 - mean(u0, a0)) - (u1r - mean(u1r, a1r))
+    w = torch.minimum(a0, a1r)
+    w = torch.where(w > 1e-6, w, 0.0)
+    wsum = w.sum()
+    return (float((d.abs() * w).sum() / wsum),
+            float(torch.sqrt((d * d * w).sum() / wsum)),
+            float(torch.where(w > 0.0, d.abs(), 0.0).max()))
+
+
+def circle_reduction(dev, level=7, cycles=8):
+    """tests/test_circle.py:test_circle_mg_reduction on the port in
+    float64: the average factor by which a cycle (erelax 2) reduces
+    max|r| over ``cycles`` cycles from zero."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import solid
+    from gerris_tpu_torch.solvers import poisson
+    grid = Grid(level=level)
+    fbc = bc.default_scalar_bc(2)
+    a, s = solid.solid_fractions(grid, circle_phi, dev, torch.float64)
+    rhs = a * circle_rhs(*ns.cell_centers(grid, dev, torch.float64))
+    rhs = rhs - a * (rhs.sum() / a.sum())
+    params = poisson.MultilevelParams(erelax=2)
+    u = torch.zeros_like(rhs)
+    res = [poisson.residual(u, rhs, grid, fbc, alpha=s).abs().max()]
+    for _ in range(cycles):
+        u = poisson.cycle(u, rhs, grid, fbc, params, alpha=s)
+        res.append(poisson.residual(u, rhs, grid, fbc, alpha=s).abs().max())
+    res = [float(r) for r in res]
+    return (res[0] / res[-1]) ** (1.0 / cycles), res
+
+
+def circle_gate(dev, card):
+    """test/circle on the card in float64 at levels 7, 8 and 9: the level-8
+    Richardson L1 and L2 within CIRCLE_REF_FACTOR of the reference's
+    error.ref either way, the L1 and L2 orders between levels 7 and 8
+    above CIRCLE_ORDER_MIN, and the multigrid's average reduction per
+    cycle at level 7 at least CIRCLE_REDUCTION_MIN."""
+    t0 = time.perf_counter()
+    sols = {lv: circle_solve(dev, lv) for lv in (7, 8, 9)}
+    e7 = circle_richardson(sols[7], sols[8])
+    e8 = circle_richardson(sols[8], sols[9])
+    orders = [math.log2(e7[k] / e8[k]) for k in range(3)]
+    red, res = circle_reduction(dev)
+    ratios = [e8[0] / CIRCLE_REF["l1"], e8[1] / CIRCLE_REF["l2"]]
+    print(f"phase 4, circle gate: float64, levels 7-9, "
+          f"{time.perf_counter() - t0:.1f} s on {card}: Richardson L1, L2, "
+          f"Linf at level 7 {e7}, level 8 {e8} (error.ref L1 "
+          f"{CIRCLE_REF['l1']}, L2 {CIRCLE_REF['l2']}: ratios "
+          f"{ratios[0]:.3f}, {ratios[1]:.3f}, bound {CIRCLE_REF_FACTOR}x); "
+          f"orders {orders[0]:.4f}, {orders[1]:.4f}, {orders[2]:.4f} "
+          f"(L1 and L2 bound > {CIRCLE_ORDER_MIN}); multigrid reduction at "
+          f"level 7 {red:.2f} per cycle (bound >= {CIRCLE_REDUCTION_MIN}), "
+          f"max|r| {res[0]:.3e} -> {res[-1]:.3e}")
+    if not (all(1.0 / CIRCLE_REF_FACTOR <= r <= CIRCLE_REF_FACTOR
+                for r in ratios)
+            and orders[0] > CIRCLE_ORDER_MIN and orders[1] > CIRCLE_ORDER_MIN
+            and red >= CIRCLE_REDUCTION_MIN):
+        raise AssertionError(f"circle gate: {e8}, orders {orders}, "
+                             f"reduction {red}")
+
+
+def circle_jax_gate(dev, card):
+    """test/circle's Richardson norms at level 6 (levels 6 and 7) on the
+    card in float64 within JAX_RTOL of the JAX package's
+    (tools/circle_reference.py 6, JAX_CIRCLE6)."""
+    t0 = time.perf_counter()
+    e6 = circle_richardson(circle_solve(dev, 6), circle_solve(dev, 7))
+    rel = [abs(e6[k] - JAX_CIRCLE6[key]) / JAX_CIRCLE6[key]
+           for k, key in enumerate(("l1", "l2", "linf"))]
+    print(f"phase 4, circle gate against gerris_tpu: level 6, float64, "
+          f"{time.perf_counter() - t0:.1f} s on {card}: L1, L2, Linf {e6}; "
+          f"gerris_tpu {JAX_CIRCLE6['l1']}, {JAX_CIRCLE6['l2']}, "
+          f"{JAX_CIRCLE6['linf']} (rel {rel[0]:.2e}, {rel[1]:.2e}, "
+          f"{rel[2]:.2e}, bound {JAX_RTOL})")
+    if not all(r <= JAX_RTOL for r in rel):
+        raise AssertionError(f"circle gate against gerris_tpu: {rel}")
+
+
+COUETTE_R = (0.25, 0.49998)
+
+
+def couette_cfg(level):
+    """tests/test_couette.py:test_couette_profile's configuration (the
+    reference's test/couette): the annulus 0.25 < r < 0.49998 in the unit
+    box, the inner cylinder turning with (-y, x) and the outer one at
+    rest (a surface velocity split at r = 0.375), nu 1, beta 1, velocity_bc
+    walls, scheme "none", the projections to 1e-6 in at most 100 cycles,
+    the diffusion to 1e-6 in at most 30."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.advection import AdvectionParams
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    proj = MultilevelParams(tolerance=1e-6, nitermax=100)
+    return ns.NSConfig(
+        grid=Grid(level=level), u_bcs=(bc.velocity_bc(0, 2),
+                                       bc.velocity_bc(1, 2)),
+        nu=1.0, beta=1.0, solid_phi=couette_phi,
+        surface_u=(couette_us_u, couette_us_v),
+        advection=AdvectionParams(scheme="none"), projection=proj,
+        approx_projection=proj,
+        diffusion_params=MultilevelParams(tolerance=1e-6, nitermax=30))
+
+
+def couette_phi(x, y):
+    import torch
+    r2 = x * x + y * y
+    return torch.minimum(COUETTE_R[1] ** 2 - r2, r2 - COUETTE_R[0] ** 2)
+
+
+def couette_us_u(x, y):
+    import torch
+    return torch.where(x * x + y * y > 0.375 ** 2, 0.0, -y)
+
+
+def couette_us_v(x, y):
+    import torch
+    return torch.where(x * x + y * y > 0.375 ** 2, 0.0, x)
+
+
+def couette_gate(dev, card, level=COUETTE_LEVEL):
+    """tests/test_couette.py's gate on the card in float64: at most 100
+    steps of dt 1e-2, stopping when a step moves U by less than 1e-5; the
+    tangential velocity V(r, 0) at 11 radii in [0.27, 0.47] against the
+    analytic profile, Linf < COUETTE_LINF and L2 < COUETTE_L2."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    t0 = time.perf_counter()
+    sim = Simulation(couette_cfg(level), time=Time(iend=100, dtmax=1e-2),
+                     device=dev, dtype=torch.float64).init()
+    prev = None
+    for _ in range(100):
+        sim.run(max_steps=1)
+        U = sim.state["U"]
+        if prev is not None and float((U - prev).abs().max()) < 1e-5:
+            break
+        prev = U
+    rs = np.linspace(0.27, 0.47, 11)
+    vt = np.array([sim.interpolate("V", (r, 0.0)) for r in rs])
+    ex = rs * ((0.5 / rs) ** 2 - 1.0) / ((0.5 / 0.25) ** 2 - 1.0)
+    err = np.abs(vt - ex)
+    linf, l2 = float(err.max()), float(np.sqrt((err ** 2).mean()))
+    print(f"phase 4, couette gate: level {level}, float64, {sim.time.i} "
+          f"steps, {time.perf_counter() - t0:.1f} s on {card}: Linf "
+          f"{linf:.5f} (bound {COUETTE_LINF}), L2 {l2:.5f} (bound "
+          f"{COUETTE_L2})")
+    if not (linf < COUETTE_LINF and l2 < COUETTE_L2):
+        raise AssertionError(f"couette gate: Linf {linf}, L2 {l2}")
+
+
 def gate_jobs():
     """The host-bound physics gates that run as child processes of this
     script beside phase 4's others (each a few thousand steps on grids of
     16^2 to 64 x 192, where a step is a few thousand device ops paced by
     the host): the capwave gate at levels 4, 5 and 6, the sessile gate
-    at each angle."""
+    at each angle, and the solid route's: the circle gate (levels 7-9),
+    the circle against gerris_tpu (level 6) and the Couette gate."""
     return ([f"capwave_{lv}" for lv in CAPWAVE_REF]
-            + [f"sessile_{a:g}" for a in SESSILE_ANGLES])
+            + [f"sessile_{a:g}" for a in SESSILE_ANGLES]
+            + ["circle_9", "circlejax_6", f"couette_{COUETTE_LEVEL}"])
 
 
 def run_gate(name, dev, card):
@@ -4163,8 +4691,14 @@ def run_gate(name, dev, card):
     kind, arg = name.split("_")
     if kind == "capwave":
         capwave_gate(dev, card, int(arg))
-    else:
+    elif kind == "sessile":
         sessile_gate(dev, card, float(arg))
+    elif kind == "circle":
+        circle_gate(dev, card)
+    elif kind == "circlejax":
+        circle_jax_gate(dev, card)
+    else:
+        couette_gate(dev, card, int(arg))
 
 
 def start_gates(names):
@@ -4727,6 +5261,7 @@ def main():
     route_counts["droplet3d"] = phase_droplet3d(dev, card)
     phase_bubble3d(dev, card)
     route_counts["capwave"] = phase_capwave(dev, card)
+    route_counts["cylinder"] = phase_cylinder(dev, card)
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
@@ -4772,7 +5307,7 @@ def main():
     # mgcg: one solve)
     for k in record:
         for path in ("spurious", "spurious_css", "tracer", "mgcg",
-                     "sessile", "capwave"):
+                     "sessile", "capwave", "cylinder"):
             if route_counts[path][k]:
                 record[k][f"launches_{path}"] = route_counts[path][k]
     ada = route_counts["adaptive"]

@@ -1,5 +1,6 @@
-"""Incompressible Navier-Stokes time step (port of gerris_tpu/models/ns.py,
-the uniform-grid, solid-free, single-phase step, 2D and 3D).
+"""Incompressible Navier-Stokes time step (port of gerris_tpu/models/ns.py:
+the uniform-grid step in 2D and 3D, with the two-phase physics and a
+static embedded solid).
 
 One step (reference: src/simulation.c:432-557):
   1. predicted face velocities (BCG from the centred field), K6
@@ -57,8 +58,19 @@ predictor and the advections (``bcg.applicable`` is False; the kernels
 and their plain versions compute the centred Godunov scheme only), and
 ``gc=False`` drops the gc gradient: no g_prev in the momentum rhs, K9
 without its gp term, no Gx/Gy written back.  ``tension_css`` and
-contact-angle sides are 2D, as the reference's are; solids and metrics
-are later slices.
+contact-angle sides are 2D, as the reference's are.
+
+A static embedded solid (``solid_phi``, 2D; reference ns.py:615-639,
+:770-818, :375-445, :901-988): its geometry (fractions, Dirichlet surface,
+merge groups) is built once per configuration, device and dtype
+(_solid_ctx).  The predictor and the face interpolation ignore it and its
+closed faces are zeroed after them; both projections solve div(s grad p)
+with the s-weighted divergence (K15 in every correction); each velocity
+component takes the generic advection with s-weighted fluxes, the
+merged-cell update (physics/solid.py) and a viscous solve with the
+no-slip or ``surface_u`` Dirichlet surface, deferred-corrected (K15 with
+the cell dia); the velocities are zero in the solid.  Moving solids and
+the metrics are slices 4b and 4c.
 """
 from __future__ import annotations
 
@@ -75,6 +87,7 @@ from ..solvers import advection as adv
 from ..solvers import diffusion as diff
 from ..solvers import poisson
 from ..solvers import projection as proj
+from ..physics import solid as solid_mod
 from ..physics import tension as tens
 from ..physics import vof
 
@@ -138,10 +151,26 @@ class NSConfig:
     # CSS surface tension (GfsSourceTensionCSS, src/tension.c:181-305),
     # 2D: (vof_name, sigma) pairs giving cell accelerations
     tension_css: tuple = ()
+    # a static embedded solid (Solid in .gfs, src/solid.c), 2D: a level set
+    # phi(x, y) of torch tensors, the fluid {phi > 0}
+    solid_phi: object = None
+    # the solid surface's velocity (SurfaceBc Dirichlet, src/timestep.c:
+    # 1062-1229): per component a constant or a function f(x, y) of torch
+    # tensors; None is a no-slip wall at rest (0 on every component)
+    surface_u: tuple = None
 
     def __post_init__(self):
         if self.p_bc is None:
             object.__setattr__(self, "p_bc", bcs.grad_bc(self.u_bcs[0]))
+        if self.solid_phi is not None:
+            if self.grid.dim == 3:
+                raise NotImplementedError(
+                    "a solid in the 3D step: the reference's Dirichlet "
+                    "surface is 2D (gerris_tpu/physics/solid.py:105)")
+            if self.nu_var is not None:
+                raise NotImplementedError(
+                    "a variable viscosity with a solid: the reference does "
+                    "not compose them (gerris_tpu/models/ns.py:894-895)")
         if self.grid.dim == 3:
             if self.tension_css:
                 raise NotImplementedError("CSS tension is 2D, as the "
@@ -208,9 +237,108 @@ def _pair_route(grid: Grid, cfg: NSConfig, rho=None, mu=None) -> bool:
             and all(bcg.advect_spec(f) is not None for f in cfg.u_bcs))
 
 
+@dataclasses.dataclass
+class SolidContext:
+    """A static solid's geometry on one device and dtype: the Dirichlet
+    surface ``ds`` (solid.DirichletSurface, which holds the volume
+    fractions ``a`` and the face fractions ``s``) and the merge groups
+    (solid.merge_groups)."""
+    ds: solid_mod.DirichletSurface
+    groups: solid_mod.MergeGroups
+
+    @property
+    def a(self) -> torch.Tensor:
+        return self.ds.a
+
+    @property
+    def s(self) -> tuple:
+        return self.ds.s
+
+
+# two entries: a configuration runs on one device in one dtype, and at
+# most once more in float64 for a check; each entry holds about nine
+# full-grid tensors on its device
+@functools.lru_cache(maxsize=2)
+def _solid_ctx(grid: Grid, solid_phi, device, dtype) -> SolidContext:
+    """The solid's geometry, built once per (grid, level set, device,
+    dtype) on the device (reference ns.py:770-780, which caches the
+    fractions and the Dirichlet surface per (grid, phi)), with the merge
+    groups of the merged-cell update."""
+    ds = solid_mod.DirichletSurface(grid, solid_phi, device=device,
+                                    dtype=dtype)
+    return SolidContext(ds, solid_mod.merge_groups(ds.a, ds.s))
+
+
+def _weights(cfg: NSConfig, like):
+    """The step's cell and face weights (reference ns.py:615-639): a
+    static solid's SolidContext on ``like``'s device and dtype, or None.
+    The axisymmetric and general metrics, whose factors the reference
+    multiplies into the same weights, are slice 4c (config_from_jax
+    refuses them)."""
+    if cfg.solid_phi is None:
+        return None
+    return _solid_ctx(cfg.grid, cfg.solid_phi, like.device, like.dtype)
+
+
+def solid_velocity_diffusion(v, ds, us_v, grid: Grid, fbc: bcs.FieldBC, dt,
+                             nu, a, s, beta, params, extra_rhs,
+                             t: float = 0.0):
+    """The implicit viscous solve on cut cells with the Dirichlet velocity
+    ``us_v`` on the embedded surface ``ds`` (a DirichletSurface; reference
+    ns.py:783-818, GfsSurfaceBc src/timestep.c:1062-1229, src/poisson.c:
+    561-586): a u - beta dt [div(nu s grad u) + nu ell (u_s - u_probe) /
+    (d_p h^2)] = a v + extra, as div(beta dt nu s grad u) - (a + beta dt
+    nu dia_s) u = -(a v + extra + beta dt nu dia_s u_s) with the probe
+    term deferred-corrected in two solves (face coefficients and a cell
+    dia: K15 in every correction)."""
+    scale = beta * dt * nu
+    alpha = tuple(scale * s[c] for c in range(grid.dim))
+    dia = a + scale * ds.dia
+    base = -(a * v + extra_rhs + scale * ds.dia * ds.surface_value(us_v, t))
+    params = diff.params_or_default(params)
+    u = v
+    for _ in range(2):
+        u, _ = poisson.solve(u, base + ds.correction(u, scale), grid, fbc,
+                             params, alpha=alpha, dia=dia, t=t)
+    return u
+
+
+def _solid_component(v, c: int, uf: list, uc_pad: list, gmac, gp, grid: Grid,
+                     cfg: NSConfig, dt, solid: SolidContext, rho, source,
+                     t: float):
+    """One velocity component's advection and diffusion with a solid
+    (reference ns.py:375-445): the generic route's face values with fluxes
+    through the face fractions, the merged-cell update, the gc and source
+    terms, the Dirichlet-surface viscous solve (u_s from ``surface_u``, 0
+    without it), and zero in the solid."""
+    fbc = cfg.u_bcs[c]
+    fv_acc = adv.advection_increment(
+        v, uf, uc_pad, grid, fbc, dt, cfg.advection, c=c,
+        g_pad=bcs.apply_bc(gmac, grid, bcs.grad_bc(cfg.u_bcs[0]), 1,
+                           corners=False),
+        t=t, face_frac=solid.s)
+    merged = solid_mod.merged_cell_update(v, fv_acc, solid.a, solid.s,
+                                          solid.groups)
+    fv = torch.where(solid.a > 0.0, merged - v, 0.0)
+    if gp is not None:
+        fv = fv - dt * gp
+    if source is not None:
+        fv = fv + dt * source
+    if cfg.nu > 0.0:
+        a_w = solid.a if rho is None else rho * solid.a
+        us = 0.0 if cfg.surface_u is None else cfg.surface_u[c]
+        v_new = solid_velocity_diffusion(v, solid.ds, us, grid, fbc, dt,
+                                         cfg.nu, a_w, solid.s, cfg.beta,
+                                         cfg.diffusion_params, a_w * fv, t)
+    else:
+        v_new = v + fv
+    return torch.where(solid.a > 0.0, v_new, 0.0)
+
+
 def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
                                  grid: Grid, cfg: NSConfig, dt, rho=None,
-                                 mu=None, sources=None, t: float = 0.0):
+                                 mu=None, sources=None, t: float = 0.0,
+                                 solid: SolidContext = None):
     """BCG advection of each component with the MAC faces, the gmac face
     correction and the -dt g_prev gc term, then its implicit diffusion
     (reference: src/timestep.c:976-1017; gerris_tpu ns.py:257-374).  With
@@ -237,11 +365,20 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     335-347, 375-447, adv.advection_increment: the BCG face values with
     the MAC faces' cell means as the advecting velocity, upwinded by the
     MAC faces, minus the face mean of gmac times dt/2), then diffuse.
-    Callable BC values are evaluated at time ``t``."""
+    With a ``solid`` every component takes that generic route too, with
+    the cut-cell update of _solid_component (no K7 or K14, ns.py:257,
+    :342).  Callable BC values are evaluated at time ``t``."""
     fold = cfg.nu > 0.0 and cfg.beta == 1.0 and rho is None and mu is None \
         and sources is None
     dia = 1.0 / (dt * cfg.nu) if fold else None
     gp = None if g_prev is None else list(g_prev)
+    if solid is not None:
+        uc_pad = adv.mac_cell_mean(uf, grid)
+        return [_solid_component(U[c], c, uf, uc_pad, gmac[c],
+                                 None if gp is None else gp[c], grid, cfg, dt,
+                                 solid, rho,
+                                 None if sources is None else sources[c], t)
+                for c in range(grid.dim)]
     if sources is None and _pair_route(grid, cfg, rho, mu):
         bcs_ = list(cfg.u_bcs)
         dp = cfg.diffusion_params
@@ -517,6 +654,13 @@ def css_sources(state: dict, cfg: NSConfig, rho_c=None,
     return srcs
 
 
+def _close_faces(uf: list, sfrac) -> list:
+    """The faces with the solid's closed ones (s = 0) zeroed."""
+    if sfrac is None:
+        return uf
+    return [torch.where(s > 0.0, u, 0.0) for u, s in zip(uf, sfrac)]
+
+
 def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
             first_step: bool = False, cstart: int = 0) -> dict:
     """One full time step from time ``t``; ``state`` holds U, V[, W], P,
@@ -545,23 +689,33 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
             U, mu, grid, cfg, None if rho_c is None else 1.0 / rho_c, t)
         sources = ts if sources is None else \
             [a + b for a, b in zip(ts, sources)]
+    solid = _weights(cfg, U[0])
+    sfrac = vfrac = None
+    if solid is not None:
+        sfrac, vfrac = solid.s, solid.a
     # 1-2. prediction, MAC projection at dt/2 (the reference swaps P and
     # Pmac around it, src/simulation.c:498-504).  div_in_src (2D): each
     # projection's divergence comes out of the launch that builds its
-    # faces, unless face sources or coefficients touch the faces first
-    fold = cfg.div_in_src and dim == 2 and fs is None and alpha is None
+    # faces, unless face sources, coefficients or a solid touch the faces
+    # first.  The predictor and the face interpolation ignore a solid; its
+    # closed faces are zeroed after them (reference ns.py:931-934, :979)
+    fold = cfg.div_in_src and dim == 2 and fs is None and alpha is None \
+        and solid is None
     uf, mac_divp = predicted_face_velocities(
         U, grid, cfg, dt,
         div_scale=1.0 / (grid.h * (dt / 2.0)) if fold else None, t=t)
+    uf = _close_faces(uf, sfrac)
     uf, pmac, gmac, _, _ = proj.mac_projection(
         uf, state["Pmac"], grid, cfg.p_bc, dt / 2.0, cfg.projection,
-        div_pre=mac_divp, alpha=alpha, face_sources=fs, t=t)
+        div_pre=mac_divp, alpha=alpha, face_sources=fs, face_frac=sfrac,
+        vol_frac=vfrac, t=t)
     # 3. at i == 0 the gc gradient role is played by this step's gmac
     # (src/simulation.c:514-521)
     if gc and first_step:
         g_prev = gmac
     U = velocity_advection_diffusion(U, uf, gmac, g_prev, grid, cfg, dt,
-                                     rho=rho_c, mu=mu, sources=sources, t=t)
+                                     rho=rho_c, mu=mu, sources=sources, t=t,
+                                     solid=solid)
     # 4. approximate projection at dt with the gc re-add folded into the
     # face interpolation (src/simulation.c:520) and the centred
     # correction into the projection's correction launch
@@ -569,8 +723,11 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
         U, grid, list(cfg.u_bcs), gp=g_prev, dtv=dt,
         div_scale=1.0 / (grid.h * dt) if fold else None, t=t)
     uf2, p, g_cell, _, U = proj.mac_projection(
-        uf2, state["P"], grid, cfg.p_bc, dt, cfg.approx_projection, cells=U,
-        div_pre=apx_divp, alpha=alpha, face_sources=fs, t=t)
+        _close_faces(uf2, sfrac), state["P"], grid, cfg.p_bc, dt,
+        cfg.approx_projection, cells=U, div_pre=apx_divp, alpha=alpha,
+        face_sources=fs, face_frac=sfrac, vol_frac=vfrac, t=t)
+    if solid is not None:
+        U = [torch.where(solid.a > 0.0, u, 0.0) for u in U]
     new = dict(state)
     for c, n in enumerate(names):
         new[n] = U[c]
@@ -600,12 +757,16 @@ def initial_projection(state: dict, dt: float, t: float,
     names = velocity_names(cfg.dim)
     U = [state[n] for n in names]
     _, alpha = density_fields(state, cfg, t)
+    solid = _weights(cfg, U[0])
+    sfrac = vfrac = None
+    if solid is not None:
+        sfrac, vfrac = solid.s, solid.a
     uf, _, _ = proj.face_interpolated_velocity(U, cfg.grid, list(cfg.u_bcs),
                                                t=t)
-    _, p, g_cell, _, U = proj.mac_projection(uf, state["P"], cfg.grid,
-                                             cfg.p_bc, dt,
-                                             cfg.approx_projection, cells=U,
-                                             alpha=alpha, t=t)
+    _, p, g_cell, _, U = proj.mac_projection(
+        _close_faces(uf, sfrac), state["P"], cfg.grid, cfg.p_bc, dt,
+        cfg.approx_projection, cells=U, alpha=alpha, face_frac=sfrac,
+        vol_frac=vfrac, t=t)
     new = dict(state)
     for c, n in enumerate(names):
         new[n] = U[c]

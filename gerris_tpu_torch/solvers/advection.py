@@ -162,7 +162,7 @@ def flux_divergence(v_face: list, u_face: list, grid: Grid, dt):
 def advection_increment(v, uf: list, uc_pad: list, grid: Grid,
                         fbc: bcs.FieldBC, dt, par: AdvectionParams = None,
                         c: int = None, g_pad=None, t: float = 0.0,
-                        kernel_corners: bool = False):
+                        kernel_corners: bool = False, face_frac=None):
     """The conservative increment of ``v`` on the reference's generic
     route (gerris_tpu/models/ns.py:335-347, :450-478): its face values
     under ``par``, upwinded by the MAC faces ``uf``, less dt/2 the face
@@ -170,7 +170,12 @@ def advection_increment(v, uf: list, uc_pad: list, grid: Grid,
     correction) where given, the Dirichlet value on the faces of axis
     ``c`` (a velocity component; None for a tracer), and the flux
     difference.  ``uc_pad``: mac_cell_mean(uf); ``kernel_corners``: as
-    in advected_face_values (the BCG kernels' plain versions)."""
+    in advected_face_values (the BCG kernels' plain versions).
+    ``face_frac``: an embedded solid's face fractions s, by which both the
+    face values and the MAC faces are weighted in the flux difference, as
+    the reference weights them (gerris_tpu/models/ns.py:402-405: the flux
+    is s^2 u v); the result is then the accumulated increment, not yet
+    divided by the fluid fraction (solid.merged_cell_update)."""
     fvals = advected_face_values(v, grid, fbc, dt, uc_pad, t=t, par=par,
                                  kernel_corners=kernel_corners)
     faces = []
@@ -181,4 +186,7 @@ def advection_increment(v, uf: list, uc_pad: list, grid: Grid,
         if a == c:
             vface = bcs.apply_face_bc(vface, grid, fbc, a, t=t)
         faces.append(vface)
+    if face_frac is not None:
+        faces = [face_frac[a] * f for a, f in enumerate(faces)]
+        uf = [face_frac[a] * u for a, u in enumerate(uf)]
     return flux_divergence(faces, uf, grid, dt)

@@ -1,5 +1,4 @@
-"""MAC and approximate projections (port of gerris_tpu/solvers/projection.py;
-no embedded solids).
+"""MAC and approximate projections (port of gerris_tpu/solvers/projection.py).
 
 The MAC projection makes the face-normal velocity exactly
 divergence-free: solve div(alpha grad p) = div(u_f)/dt, then u_f -= dt
@@ -28,6 +27,12 @@ a MAC projection takes the reference's fold route (projection.py:
 with ``fold_correct`` K2 and K17 ``prolong_relax_correct``, whose
 epilogue is the correction: three launches per projection.
 
+With a divergence source or an embedded solid's face fractions a MAC
+projection takes the generic route (projection.py:169-212, :247-276;
+_mac_projection_generic): the s-weighted divergence in torch, the solve
+with coefficients s alpha (K15 in 2D), the mean weighted by the fluid
+volume, and closed faces left uncorrected.
+
 In 3D both take the reference's generic torch route (gerris_tpu/solvers/
 projection.py:24-58, :164-167, :201-209, :247-280, :333-343): the
 divergence / dt with its mean subtracted, the solve, face gradients on
@@ -36,6 +41,8 @@ gradients as the mean of the two face gradients, and the cells' -dt g
 correction.
 """
 from __future__ import annotations
+
+import torch
 
 from ..core.grid import Grid
 from ..core import bc as bcs
@@ -65,41 +72,77 @@ def cell_gradient_from_faces(gf: list) -> list:
             for a, f in enumerate(gf)]
 
 
-def _refuse_slice4(div_source, face_frac, vol_frac):
-    if div_source is not None or face_frac is not None \
-            or vol_frac is not None:
-        raise NotImplementedError("div_source, face_frac and vol_frac "
-                                  "(embedded solids) are slice 4 "
-                                  "(ROADMAP Queue 1)")
-
-
 def _mac_projection_generic(u_face, p, grid, p_bc, dt, params, alpha,
-                            face_sources, cells, t):
+                            face_sources, cells, t, div_source=None,
+                            face_frac=None, vol_frac=None):
     """mac_projection on the reference's generic route (projection.py:
-    93-280), taken in 3D and with face coefficients and/or face sources:
-    u_f += dt dp, the divergence (K4 in 2D) and its mean as rhs_sub (no
-    Dirichlet side), the solve, then alpha grad_f p, u_f -= dt alpha
-    grad_f p, the net gradient alpha grad_f p - dp averaged to the cells,
-    and the cells corrected by -dt g_cell."""
+    93-280), taken in 3D and with face coefficients, face sources, a
+    divergence source or an embedded solid: u_f += dt dp, the divergence
+    (K4 in 2D without a solid) plus ``div_source``, and with no Dirichlet
+    side its mean removed (K4's total as rhs_sub where nothing was added
+    to it), the solve, then alpha grad_f p, u_f -= dt alpha grad_f p, the
+    net gradient alpha grad_f p - dp averaged to the cells, and the cells
+    corrected by -dt g_cell.
+
+    With the face fractions ``face_frac`` of a solid (projection.py:169-
+    212, :247-276) the divergence is that of s u_f (torch), the solve's
+    coefficients s alpha, and a cell with no open face keeps rhs 0 (no
+    pressure unknown there); the mean removed is weighted by the fluid
+    volume ``vol_frac`` of the cells with an open face; the face
+    gradients are zero on closed faces, and with face sources a cell's
+    net gradient is the s-weighted mean over its open faces."""
     if face_sources is not None:
         u_face = [u_face[c] + dt * face_sources[c] for c in range(grid.dim)]
-    rhs_sub = None
-    pure = not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides for b in ax)
-    if grid.dim == 2:
+    total = rhs_sub = None
+    alpha_solve = alpha
+    if face_frac is not None:
+        div = divergence([face_frac[c] * u_face[c] for c in range(grid.dim)],
+                         grid) / dt
+        alpha_solve = tuple(face_frac[c] * (1.0 if alpha is None else alpha[c])
+                            for c in range(grid.dim))
+    elif grid.dim == 2:
         div, total = projops.divergence_mac(u_face[0], u_face[1], dt, grid.h)
-        if pure:
-            rhs_sub = total / div.numel()
     else:
         div = divergence(u_face, grid) / dt
-        if pure:
+    if div_source is not None:
+        # the mean removed below is that of div + div_source, as on the
+        # reference's generic route (its CPU route); its K4 route on a TPU
+        # subtracts K4's total alone (tests/test_torch_div_source.py)
+        div, total = div + div_source, None
+    if face_frac is not None:
+        conn = sum(f.narrow(c, 0, f.shape[c] - 1)
+                   + f.narrow(c, 1, f.shape[c] - 1)
+                   for c, f in enumerate(face_frac)) > 1e-9
+        div = torch.where(conn, div, 0.0)
+        if vol_frac is not None:
+            vol_frac = torch.where(conn, vol_frac, 0.0)
+    if not any(b.kind == bcs.DIRICHLET for ax in p_bc.sides for b in ax):
+        if vol_frac is not None:
+            div = div - vol_frac * (div.sum() / torch.clamp(vol_frac.sum(),
+                                                            min=1e-30))
+        elif total is not None:
+            rhs_sub = total / div.numel()
+        else:
             div = div - div.mean()
     p, stats = poisson.solve(p, div, grid, p_bc, params, rhs_sub=rhs_sub,
-                             t=t, alpha=alpha)
+                             t=t, alpha=alpha_solve)
     gf = face_gradients(p, grid, p_bc, alpha, t)
+    if face_frac is not None:
+        gf = [torch.where(face_frac[c] > 0.0, gf[c], 0.0)
+              for c in range(grid.dim)]
     u_face = [u_face[c] - dt * gf[c] for c in range(grid.dim)]
     if face_sources is not None:
         gf = [gf[c] - face_sources[c] for c in range(grid.dim)]
-    g_cell = cell_gradient_from_faces(gf)
+    if face_frac is not None and face_sources is not None:
+        g_cell = []
+        for c, (f, w) in enumerate(zip(gf, face_frac)):
+            n = f.shape[c]
+            wf = w * f
+            num = wf.narrow(c, 0, n - 1) + wf.narrow(c, 1, n - 1)
+            den = w.narrow(c, 0, n - 1) + w.narrow(c, 1, n - 1)
+            g_cell.append(num / torch.clamp(den, min=1e-30))
+    else:
+        g_cell = cell_gradient_from_faces(gf)
     if cells is not None:
         cells = [cells[c] - dt * g_cell[c] for c in range(grid.dim)]
     return u_face, p, g_cell, stats, cells
@@ -119,17 +162,20 @@ def mac_projection(u_face: list, p, grid: Grid, p_bc: bcs.FieldBC, dt,
     the device and is subtracted inside the solver's first kernel, except
     on the fold route, which drops it as the reference does.
     ``alpha``: per-axis face coefficients 1/rho; ``face_sources``: per-axis
-    face accelerations dp (surface tension), see
-    _mac_projection_generic.  ``div_source``, ``face_frac`` and
-    ``vol_frac`` (embedded solids) are slice 4 and raise."""
-    _refuse_slice4(div_source, face_frac, vol_frac)
-    variable = alpha is not None or face_sources is not None
+    face accelerations dp (surface tension); ``div_source``: a cell
+    divergence added to the rhs; ``face_frac`` and ``vol_frac``: an
+    embedded solid's face and cell fractions; see
+    _mac_projection_generic."""
+    variable = alpha is not None or face_sources is not None \
+        or div_source is not None or face_frac is not None
     if variable and div_pre is not None:
-        raise ValueError("mac_projection: a producer divergence with alpha "
-                         "or face sources (the reference folds none there)")
+        raise ValueError("mac_projection: a producer divergence with alpha, "
+                         "face sources, a divergence source or a solid (the "
+                         "reference folds none there)")
     if grid.dim == 3 or variable:
         return _mac_projection_generic(u_face, p, grid, p_bc, dt, params,
-                                       alpha, face_sources, cells, t)
+                                       alpha, face_sources, cells, t,
+                                       div_source, face_frac, vol_frac)
     if (div_pre is None and bcg.applicable(grid)
             and poisson.fold_div_eligible(p, grid, p_bc, params)):
         # the fold route (reference projection.py:135-155): the divergence

@@ -28,7 +28,11 @@ _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "approx_projection", "nu", "beta", "diffusion_params",
                  "div_in_src", "pair_advect", "rr_in_advect", "vof_tracers",
                  "tension", "density", "body_force", "nu_var",
-                 "nu_var_fields", "tracers", "tension_css"}
+                 "nu_var_fields", "tracers", "tension_css", "solid_phi",
+                 "surface_u"}
+# the later slices of the fields outside this one (ROADMAP Queue 1)
+_LATER = {"moving_solid": "slice 4b", "moving_order": "slice 4b",
+          "axi": "slice 4c", "metric": "slice 4c"}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
@@ -134,6 +138,16 @@ def _body_force(bf, given):
     return tuple(out)
 
 
+def _surface_u(su, given):
+    """Per component: a constant carried over, or for a JAX callable the
+    torch counterpart ``given[c]``."""
+    if su is None:
+        return None
+    return tuple(
+        _counterpart(f"surface_u[{c}]", None if given is None else given[c])
+        if callable(v) else float(v) for c, v in enumerate(su))
+
+
 def _tracer(tr, sources, values):
     """A JAX tracer (name, FieldBC, D[, source]); a callable source takes
     its torch counterpart ``sources[name]``, callable BC values
@@ -151,7 +165,8 @@ def _tracer(tr, sources, values):
 
 
 def config_from_jax(cfg, nu_var=None, body_force=None,
-                    tracer_sources=None, bc_values=None) -> ns.NSConfig:
+                    tracer_sources=None, bc_values=None, solid_phi=None,
+                    surface_u=None) -> ns.NSConfig:
     """A JAX ``NSConfig`` -> the port's.  A field outside the slice that
     differs from its default raises NotImplementedError.  A JAX callable
     is carried over only through the torch counterpart given here:
@@ -161,8 +176,11 @@ def config_from_jax(cfg, nu_var=None, body_force=None,
     ``tracer_sources``, {tracer name: f(x, y, t)}, for a tracer's callable
     source; ``bc_values``, {vof or tracer name: {(axis, side): value}},
     for a callable BC value of that field's (a contact angle f(x, y, t)
-    among them).  A callable with no counterpart raises
-    NotImplementedError naming the field."""
+    among them); ``solid_phi``, a level set f(x, y) of torch tensors, for
+    the config's solid; ``surface_u``, one entry per component, for its
+    callable components (constant ones carry over as they are).  A
+    callable with no counterpart raises NotImplementedError naming the
+    field."""
     bc_values = bc_values or {}
     for f in dataclasses.fields(type(cfg)):
         if f.name in _SLICE_FIELDS:
@@ -170,7 +188,7 @@ def config_from_jax(cfg, nu_var=None, body_force=None,
         if getattr(cfg, f.name) != f.default:
             raise NotImplementedError(
                 f"NSConfig.{f.name} = {getattr(cfg, f.name)!r} is outside "
-                "the ported slice (ROADMAP Queue 1)")
+                f"the ported slice ({_LATER.get(f.name, 'ROADMAP Queue 1')})")
     a = cfg.advection
     dim = cfg.grid.dim
     return ns.NSConfig(
@@ -199,4 +217,7 @@ def config_from_jax(cfg, nu_var=None, body_force=None,
         body_force=_body_force(cfg.body_force, body_force),
         nu_var=None if cfg.nu_var is None else
         _counterpart("nu_var", nu_var),
-        nu_var_fields=tuple(tuple(f) for f in cfg.nu_var_fields))
+        nu_var_fields=tuple(tuple(f) for f in cfg.nu_var_fields),
+        solid_phi=None if cfg.solid_phi is None else
+        _counterpart("solid_phi", solid_phi),
+        surface_u=_surface_u(cfg.surface_u, surface_u))

@@ -1462,21 +1462,27 @@ def test_twophase_step_on_the_card(dev):
         assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k
 
 
-# --- the bubble's box levels (n, 2n): K15 and the pyramid ---------------------
+# --- the boxes' levels (n, 2n), (n, 3n), (3n, n): K15 and the pyramid --------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,levels", [(1024, 8), (64, 4), (4, 2)])
-def test_restrict_pyramid_box_kernel(dev, dtype, n, levels):
-    """The pyramid on a box's (n, 2n) level, the bubble's 1024 x 2048 ->
-    4 x 8 among them: bit-identical at every level to the chain of
-    restrict2 launches and to its plain version, single and pair, twice
-    (the last block's tail resets the arrival count)."""
-    r, r2 = _rnd(dev, dtype, 60 + n, (n, 2 * n), (n, 2 * n))
+@pytest.mark.parametrize("shape,levels", [
+    ((1024, 2048), 8), ((64, 128), 4), ((4, 8), 2),
+    ((1024, 3072), 5), ((64, 192), 4),
+    ((3072, 1024), 8), ((192, 64), 4), ((12, 4), 2)])
+def test_restrict_pyramid_box_kernel(dev, dtype, shape, levels):
+    """The pyramid on a box's level: the bubble's (n, 2n) (1024 x 2048 ->
+    4 x 8), the capillary wave's (n, 3n) (1024 x 3072 -> 32 x 96) and the
+    cylinder's (3n, n), the longer side first (3072 x 1024 -> 12 x 4):
+    bit-identical at every level to the chain of restrict2 launches and to
+    its plain version, single and pair, twice (the last block's tail
+    resets the arrival count)."""
+    n0, n1 = shape
+    r, r2 = _rnd(dev, dtype, 60 + n0 + 7 * n1, shape, shape)
     for _ in range(2):
         got = rbgs.restrict_pyramid(r, levels)
         pair = rbgs.restrict_pyramid_pair([r, r2], levels)
         assert [tuple(t.shape) for t in got] == \
-            [(n >> k, 2 * n >> k) for k in range(1, levels + 1)]
+            [(n0 >> k, n1 >> k) for k in range(1, levels + 1)]
         for want in (_restrict2_chain(r, levels),
                      rbgs.pyramid_plain(r, levels), pair[0]):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -1770,3 +1776,59 @@ def test_capwave_steps_on_the_card(dev):
         if k == "P":
             a, b = a - a.mean(), b - b.mean()
         assert _rel(a, b) <= 1e-9, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("system", ["projection", "viscous u", "viscous v"])
+def test_rbgs_relax_alpha_cylinder_kernel(dev, dtype, system):
+    """K15 on the cylinder's levels, (3072, 1024) down to (12, 4), with its
+    geometry's coefficients (chip_smoke.cylinder_systems: the face
+    fractions and dia 0 of the projections, beta dt nu s and the cell dia
+    a + beta dt nu dia_s of the viscous solves) as a correction runs
+    them, against the plain version; the solid's cells of zero diagonal
+    keep their value."""
+    import chip_smoke
+    systems, ctx = chip_smoke.cylinder_systems(dev, dtype)
+    _, signs, alphas, dias, grids = [x for x in systems if x[0] == system][0]
+    nl = len(grids)
+    for k in range(nl):
+        shape = grids[k].shape
+        rhs, u = _rnd(dev, dtype, 90 + k, shape, shape)
+        c = None if k == nl - 1 else _rnd(dev, dtype, 99, grids[k + 1].shape)[0]
+        kw = dict(nsweeps=12 if c is None else 4, h2=grids[k].h ** 2,
+                  signs=signs, periodic=(False, False),
+                  dia_cell=not isinstance(dias[k], float))
+        args = (rhs, *alphas[k], dias[k])
+        fold = dict(kw, coarse=c, add=u if k == 0 else None)
+        assert _rel(rbgs.rbgs_relax_alpha(None, *args, **fold),
+                    rbgs.rbgs_relax_alpha_plain(None, *args, **fold)) \
+            <= BOUND[dtype], shape
+        if k == 0:
+            got = rbgs.rbgs_relax_alpha(u, *args, **kw)
+            assert _rel(got, rbgs.rbgs_relax_alpha_plain(u, *args, **kw)) \
+                <= BOUND[dtype]
+            dead = ctx.a == 0.0
+            assert bool(dead.any()) and torch.equal(got[dead], u[dead])
+
+
+def test_cylinder_steps_on_the_card(dev):
+    """Init and three steps of the flow past a cylinder at level 5 (96 x
+    32) in float64 on the card against the same steps on the CPU (the
+    plain versions): K15 and the pyramid in every solve's correction, no
+    other kernel."""
+    import chip_smoke
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        rbgs.reset_launch_counts()
+        projops.reset_launch_counts()
+        predict.reset_launch_counts()
+        s = chip_smoke.cylinder_sim(where, 5, torch.float64)
+        runs[str(where)] = s.run(max_steps=3).state
+        if where.type == "cuda":
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] > 0
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] % 4 == 0  # 4 levels
+            assert rbgs.LAUNCHES["restrict_pyramid"] > 0
+            assert predict.LAUNCHES["predict_xy"] == 0
+            assert projops.LAUNCHES["interp_faces"] == 0
+    for k in ("U", "V", "P"):
+        assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k
