@@ -56,11 +56,17 @@ Phases (any failure ends the run with a non-zero exit and no result):
      64 level against the same level tiled), and on the cylinder's
      levels, (3072, 1024) down to (12, 4), with its geometry's face
      fractions, dead cells and cell dia (the projections' and the
-     viscous solves' systems; the dead cells keep their value); then
+     viscous solves' systems; the dead cells keep their value), and on
+     slice 4b's levels, 2048^2 down to 4^2: the moving disk's (its
+     geometry after one step), the axisymmetric pipe's and the stretched
+     cavity's systems; the pyramid also 2048^2 -> 4^2; then
      each kernel's time
      against its plain version's at the main-path shapes (K13 at 128^3,
-     from u and with the fold; K15 at 1024^2 and at the bubble's (1024,
-     2048), the pyramid also at (1024, 2048)), float32 (CUDA events), K1
+     from u and with the fold; K15 at 1024^2, at the bubble's (1024,
+     2048), at the cylinder's (3072, 1024) and at 2048^2 as the moving
+     disk's and the axisymmetric pipe's viscous solves run it, the
+     pyramid also at (1024, 2048), (3072, 1024) and 2048^2 -> 4^2),
+     float32 (CUDA events), K1
      per tile height, K13 per level and launch shape (device time per
      launch, profiled), K7 beside two K14 launches,
      K15's and K3's per level, K15's per tile and threads (with and
@@ -166,7 +172,32 @@ Phases (any failure ends the run with a non-zero exit and no result):
      from the recorded cycle counts (K6 and K9 refuse its outflow BCs: no
      other kernel), the solid's geometry printed, held to the plain
      versions (float64 to 1e-9), run twice bit for bit (digests), five
-     timed windows and a profile.
+     timed windows and a profile; slice 4b's routes at 2048^2 in float32,
+     each gated from its solves' recorded cycle counts (K15 at every
+     level down to 4^2 in every correction, all but the coarsest with the
+     prolongation folded in, and the pyramid; K6 and K9 where the walls
+     admit them; no other kernel), held to the plain versions (float64 to
+     1e-9; in float32 U and V by the floor rule, P within ADAPTIVE_RTOL
+     of plain or, where named below, by the floor rule), one step's host
+     syncs against its solves' reads plus a stated constant
+     (count_syncs), five timed windows and a profile with K15's share:
+     ``moving1`` and ``moving2``, the impulsively started disk of
+     tests/test_moving.py (Re 150: nu 1e-3) at orders 1 and 2, init + 5
+     steps, its geometry and merge groups re-cut every step, run twice
+     bit for bit, three syncs a step beyond the solves' (the Dirichlet
+     surface's cut cells, the merge groups' two), P by the floor rule
+     (from rest its float32 pressure is at its floor); ``rigid``, the
+     falling disk of tests/test_rigid.py (a RigidBodyDriver, 5 steps;
+     the force and the motion stay on the card: three syncs beyond the
+     solves', the moving solid's), its trajectory printed; ``axi``, the
+     axisymmetric Poiseuille pipe (init + 5; x periodic: no K6 or K9; V
+     and P, 0 up to the solves' tolerance, relative to max|U|); and
+     ``stretch``, the bench's lid cavity under MetricStretch(1, 0.1)
+     (init + 5, one cycle a solve), P by the floor rule and P less its
+     mean over y in each column (``P_y``, column_free) too: the float32
+     sweeps on its 100:1 coefficients leave the column means, its
+     weakest x modes, ~0.25 of max from float64 at 2048^2, as the JAX
+     package's float32 step does (tools/stretch_f32_floor.py).
      Every route held to the plain versions in float32 also bounds the
      plain float32 run's distance from the plain float64 run per field
      (FLOOR_BOUNDS);
@@ -198,9 +229,21 @@ Phases (any failure ends the run with a non-zero exit and no result):
      above 1.5, the multigrid's reduction at least 8x a cycle at level 7)
      and at level 6 within 1% of gerris_tpu's (tools/circle_reference.py);
      the Couette profile at level 6 in float64 within tests/test_couette.py's
-     bounds.  The capwave, sessile, circle and Couette gates run as child
-     processes of this script (``python3 chip_smoke.py --gate NAME``,
-     gate_jobs) beside the others.
+     bounds; slice 4b's, in float64: the axisymmetric Poiseuille pipe at
+     level 5 (at most 400 steps to steady) within 1% of u(r) = G (1 -
+     r^2) / (4 nu), V below 1e-6, and the axisymmetric Poisson's order
+     between levels 5 and 6 above 1.8, its error below 3e-4
+     (tests/test_axi.py); the moving disk's order-2 temporal rate above
+     order 1's + 0.05 at level 5 (tests/test_moving.py's weak gate), the
+     Galilean disk's far field within 0.06 of the stream at level 6
+     (every fluid cell within 0.6), the buoyancy force on a disk in a
+     hydrostatic field within 5% of Archimedes' (Fx within 2% of it;
+     tests/test_rigid.py); the stretch Poisson's order in (1.8, 2.2) and
+     the lon-lat one's above 1.6 with its error below 5e-4 at levels 5-6
+     (tests/test_metric.py).  The capwave, sessile, circle, Couette, axi,
+     moving and metric gates run as child processes of this script
+     (``python3 chip_smoke.py --gate NAME``, gate_jobs) beside the
+     others.
 The last two lines are the kernels' JSON record and the device line.
 """
 import contextlib
@@ -510,7 +553,16 @@ BUBBLE3D_CPU_STEPS = 3
 # 2.6e-5, 6.3e-6, 3.2e-5; capwave 5.77e-2 / 0.160, 1.42e-6, 1.12e-3;
 # droplet3d U, V, W 2.06e-3 / 2.52e-3 / 2.11e-3, T 1.54e-6, P 7.6e-6;
 # bubble3d 1.83e-3 / 2.22e-3 / 1.80e-3, 2.19e-6, 6.2e-4; cylinder U, V
-# 4.46e-5 / 1.84e-5, P 3.11e-3, its first run, from U = 1).  The velocities
+# 4.46e-5 / 1.84e-5, P 3.11e-3, its first run, from U = 1; the moving disk
+# at order 1 U, V, P 9.32e-4 / 1.13e-3 / 5.87e-3, at order 2 8.25e-4 /
+# 1.04e-3 / 4.78e-3; the falling disk 1.38e-4 / 1.06e-4 / 1.11e-4; the
+# axisymmetric pipe U 9.49e-4, V and P 7.2e-6 and 4.2e-5 of max|U|; the
+# stretched cavity 1.97e-3 / 4.73e-4 / 0.252: the float32 sweeps on its
+# 100:1 coefficients leave its pressure's column means, its weakest x
+# modes, to the rounding, as the JAX package's float32 step does
+# (tools/stretch_f32_floor.py: both 1.0e-2 from float64 at 256^2, the
+# port's P less its column means 2.1e-4), and P less its column means
+# (P_y, column_free) 6.21e-3 at 2048^2.  The velocities
 # of these states from rest are small, and the float32 pressure's
 # rounding moves them by ~1e-6 of max|P|: a floor that grows as they
 # shrink with the level (tools/torch_f32_floor.py --cpu LEVEL).  The
@@ -524,7 +576,15 @@ FLOOR_BOUNDS = {
     "droplet3d": dict(U=7e-3, V=8e-3, W=7e-3, T=5e-6, P=3e-5),
     "bubble3d": dict(U=6e-3, V=7e-3, W=6e-3, T=7e-6, P=2e-3),
     "cylinder": dict(U=1.5e-4, V=6e-5, P=1e-2),
+    "moving1": dict(U=3e-3, V=3.5e-3, P=1.8e-2),
+    "moving2": dict(U=2.5e-3, V=3e-3, P=1.5e-2),
+    "rigid": dict(U=4e-4, V=3.5e-4, P=3.5e-4),
+    "axi": dict(U=3e-3, V=2e-5, P=1.3e-4),
+    "stretch": dict(U=6e-3, V=1.5e-3, P=0.75, P_y=2e-2),
 }
+# the routes with no VOF tracer (FLOOR_BOUNDS holds no T for them)
+SINGLE_PHASE_ROUTES = ("cylinder", "moving1", "moving2", "rigid", "axi",
+                       "stretch")
 
 # the flow past a cylinder (slice 4a): the Gerris tutorial's vortex
 # street (a cylinder of diameter 0.125, inflow 1, nu 0.00078125: Re 160)
@@ -1718,7 +1778,8 @@ def cylinder_systems(dev, dtype):
     from gerris_tpu_torch.solvers import poisson
     cfg = cylinder_cfg(LEVEL_CYLINDER)
     grid = cfg.grid
-    ctx = ns._solid_ctx(grid, cfg.solid_phi, dev, dtype)
+    ctx = ns._static_weights(grid, cfg.solid_phi, False, None, dev,
+                               dtype)
     scale = 0.8 * grid.h * CYLINDER_NU
     nl = cylinder_levels(LEVEL_CYLINDER)
     grids = [dataclasses.replace(grid, level=LEVEL_CYLINDER - k)
@@ -1736,19 +1797,16 @@ def cylinder_systems(dev, dtype):
     return out, ctx
 
 
-def check_cylinder_alpha(dev, rnd, dtype, errs):
-    """K15 against its plain version on the cylinder's levels, (3072,
-    1024) down to (12, 4), with its geometry's coefficients
-    (cylinder_systems): the solid's whole cells of zero diagonal, which
-    keep their value, at the top from a given u (4 sweeps) and with the
-    coarser level's correction prolonged + u; every level below as the
-    correction runs it (the coarser one prolonged, 4 sweeps; from zero
-    with 12 at (12, 4))."""
+def check_alpha_systems(tag, systems, dead, rnd, dtype, errs):
+    """K15 against its plain version on each system's levels (systems:
+    [(name, signs, periodic, alphas, dias, grids)]): the whole cells of
+    zero diagonal ``dead`` (a solid's), which keep their value, at the top
+    from a given u (4 sweeps) and with the coarser level's correction
+    prolonged + u; every level below as the correction runs it (the
+    coarser one prolonged, 4 sweeps; from zero with 12 at the coarsest)."""
     from gerris_tpu_torch.ops.cuda import rbgs
     b = BOUND[str(dtype).replace("torch.", "")]
-    systems, ctx = cylinder_systems(dev, dtype)
-    dead = ctx.a == 0.0
-    for name, signs, alphas, dias, grids in systems:
+    for name, signs, periodic, alphas, dias, grids in systems:
         nl = len(grids)
         for k in range(nl):
             shape = grids[k].shape
@@ -1756,30 +1814,41 @@ def check_cylinder_alpha(dev, rnd, dtype, errs):
             rhs = rnd(dtype, *shape)
             kw = dict(nsweeps=12 if k == nl - 1 else 4,
                       h2=grids[k].h ** 2, signs=signs,
-                      periodic=(False, False), dia_cell=cell)
+                      periodic=periodic, dia_cell=cell)
             ax, ay = alphas[k]
-            tag = f"{shape[0]}x{shape[1]} cylinder {name}"
+            lab = f"{shape[0]}x{shape[1]} {tag} {name}"
             if k == 0:
                 u = rnd(dtype, *shape)
                 got = rbgs.rbgs_relax_alpha(u, rhs, ax, ay, dias[k], **kw)
                 errs.append(compare(
-                    f"K15 rbgs_relax_alpha {tag} from u", got,
+                    f"K15 rbgs_relax_alpha {lab} from u", got,
                     rbgs.rbgs_relax_alpha_plain(u, rhs, ax, ay, dias[k],
                                                 **kw), b))
                 if not bool((got[dead] == u[dead]).all()):
-                    raise AssertionError(f"K15 {tag}: a solid cell of zero "
+                    raise AssertionError(f"K15 {lab}: a solid cell of zero "
                                          "diagonal moved")
             c = None if k == nl - 1 else rnd(dtype, *grids[k + 1].shape)
             fold = dict(kw, coarse=c, add=u if k == 0 else None)
             errs.append(compare(
-                f"K15 rbgs_relax_alpha {tag} "
+                f"K15 rbgs_relax_alpha {lab} "
                 f"{'from zero' if c is None else 'coarse'}"
                 f"{' + u' if k == 0 else ''}",
                 rbgs.rbgs_relax_alpha(None, rhs, ax, ay, dias[k], **fold),
                 rbgs.rbgs_relax_alpha_plain(None, rhs, ax, ay, dias[k],
                                             **fold), b))
-    print(f"  K15 on the cylinder's levels: {int(dead.sum())} solid cells "
+    print(f"  K15 on the {tag}'s levels: {int(dead.sum())} solid cells "
           "of zero diagonal kept")
+
+
+def check_cylinder_alpha(dev, rnd, dtype, errs):
+    """K15 against its plain version on the cylinder's levels, (3072,
+    1024) down to (12, 4), with its geometry's coefficients
+    (cylinder_systems, check_alpha_systems)."""
+    systems, ctx = cylinder_systems(dev, dtype)
+    check_alpha_systems("cylinder", [
+        (name, signs, (False, False), alphas, dias, grids)
+        for name, signs, alphas, dias, grids in systems], ctx.a == 0.0, rnd,
+        dtype, errs)
 
 
 def check_alpha_tiles(rnd):
@@ -1917,7 +1986,8 @@ def vcycle_flops(n_top, nsweeps, coarsest, min_n=16):
 # capillary wave's ((1024, 3072) -> (32, 96)) and the cylinder's, the
 # longer side first ((3072, 1024) -> (12, 4))
 PYRAMIDS = (((512, 512), 5), ((2048, 2048), 2), ((1024, 1024), 8),
-            ((1024, 2048), 8), ((1024, 3072), 5), ((3072, 1024), 8))
+            ((1024, 2048), 8), ((1024, 3072), 5), ((3072, 1024), 8),
+            ((2048, 2048), 9))
 
 
 def check_pyramids(rnd, dtype):
@@ -2065,10 +2135,15 @@ def phase_kernels(dev, record):
         check_alpha_kernels(rnd, dtype, record if main else None)
         errs15 = []
         check_cylinder_alpha(dev, rnd, dtype, errs15)
+        errs_w = []
+        check_weighted_alpha(dev, rnd, dtype, errs_w)
         if main:
             record["rbgs_relax_alpha"].update(
                 {f"{k}_cylinder": v
                  for k, v in zip(ERR_KEYS, map(max, zip(*errs15)))})
+            record["rbgs_relax_alpha"].update(
+                {f"{k}_weighted": v
+                 for k, v in zip(ERR_KEYS, map(max, zip(*errs_w)))})
     check_relax_tiles(rnd)
     check_fold_tiles(rnd)
     check_alpha_tiles(rnd)
@@ -2443,6 +2518,40 @@ def phase_kernels(dev, record):
         lambda: rbgs.restrict_pyramid(cr, pl_cy),
         lambda: rbgs.pyramid_plain(cr, pl_cy), nbytes(cr),
         sum((n0c >> k) * (n1c >> k) * 3 for k in range(1, pl_cy + 1)), None)
+    # K15 at slice 4b's finest level, 2048^2, as the moving disk's viscous
+    # u solve (its geometry after one step: the cut cells' face
+    # coefficients and cell dia, the solid's dead cells) and the
+    # axisymmetric pipe's viscous v solve (the cell dia a + beta dt nu a /
+    # r^2) run it: coarse + u, 4 sweeps; and the pyramid 2048^2 -> 4^2
+    from gerris_tpu_torch.models import ns as ns_mod
+    for tag, cfg_w in (("moving", moving_cfg(LEVEL_MOVING, 1)),
+                       ("axi", axi_cfg(LEVEL_AXI))):
+        zw = torch.zeros(cfg_w.grid.shape, dtype=f32, device=dev)
+        dtw = MOVING_DT * cfg_w.grid.h
+        ww = ns_mod._moving_weights(cfg_w, [zw, zw], dtw, 0.0)[0] \
+            if cfg_w.moving_solid else ns_mod._weights(cfg_w, zw)
+        name_w = "viscous u" if tag == "moving" else "viscous v"
+        _, wsg, wper, wal, wdi, wgr = [x for x in weighted_systems(
+            cfg_w, ww, dtw) if x[0] == name_w][0]
+        mw0, mw1 = wgr[0].shape
+        wu, wr = rnd(f32, mw0, mw1), rnd(f32, mw0, mw1)
+        wc = rnd(f32, mw0 // 2, mw1 // 2)
+        kww = dict(nsweeps=4, h2=wgr[0].h ** 2, signs=wsg, periodic=wper,
+                   dia_cell=True, coarse=wc, add=wu)
+        timings[f"rbgs_relax_alpha|{tag}"] = (
+            lambda wr=wr, wal=wal, wdi=wdi, kww=kww: rbgs.rbgs_relax_alpha(
+                None, wr, *wal[0], wdi[0], **kww),
+            lambda wr=wr, wal=wal, wdi=wdi, kww=kww:
+                rbgs.rbgs_relax_alpha_plain(None, wr, *wal[0], wdi[0],
+                                            **kww),
+            nbytes(wc, wr, *wal[0], wdi[0], wu),
+            3 * alpha_flops(mw0, 4, 1.0, coarse=True, add=True), None)
+        del zw, ww
+    timings["restrict_pyramid|2048_to_4"] = (
+        lambda: rbgs.restrict_pyramid(wr, LEVEL_MOVING - 2),
+        lambda: rbgs.pyramid_plain(wr, LEVEL_MOVING - 2), nbytes(wr),
+        sum((mw0 >> k) * (mw1 >> k) * 3
+            for k in range(1, LEVEL_MOVING - 1)), None)
     rbx = rnd(f32, na, 2 * na)
     timings["restrict_pyramid|box"] = (
         lambda: rbgs.restrict_pyramid(rbx, 8),
@@ -2842,13 +2951,14 @@ PROLONG_OPS = ("roll", "where", "CatArray", "MulFunctor", "CUDAFunctor_add",
 
 
 def phase_profile(s, step_s, card, steps=PROFILE_STEPS, watch=(),
-                  kinds=None):
+                  kinds=None, shares=()):
     """torch.profiler over ``steps`` steps of the running simulation:
     device time by kernel, the port's kernels against the plain torch
     ops, and the device's busy share of an unprofiled step; the device
     ops per step whose kernel names hold each substring of ``watch``
-    (also into the dict ``kinds`` when given).  Returns the device ops
-    per step."""
+    (also into the dict ``kinds`` when given), and the share of the
+    device time of the kernels whose names hold each of ``shares``.
+    Returns the device ops per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2885,6 +2995,10 @@ def phase_profile(s, step_s, card, steps=PROFILE_STEPS, watch=(),
     for us, count, key in rows[:16]:
         print(f"    {us / 1e3:9.3f} ms {100 * us / total:5.1f}% "
               f"{count / steps:6.1f}/step  {key[:90]}")
+    for w in shares:
+        us = sum(r[0] for r in rows if w in r[2])
+        print(f"  {w}: {us / 1e3 / steps:.3f} ms/step of device time, "
+              f"{100 * us / total:.1f}%")
     per_kind = {w: sum(r[1] for r in rows if w in r[2]) / steps
                 for w in watch}
     if watch:
@@ -3496,7 +3610,8 @@ def check_floor(name, floors):
 
 
 def check_against_plain(name, make, steps, early, counts, f64_rtol,
-                        keys=("U", "V", "T", "P")):
+                        keys=("U", "V", "T", "P"), norm=None,
+                        floor_rule=("U", "V", "W"), derived=None):
     """The first ``steps`` steps of ``name`` against the plain versions on
     the card: the float32 kernels' state ``early`` against the float32
     and float64 plain runs, and the same steps through the kernels in
@@ -3504,12 +3619,18 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol,
     simulation at rest).  Gates: float64 kernels vs plain within
     ``f64_rtol`` on U, V, T and mean-free P (same arithmetic, no floor);
     float32 kernels vs plain within ADAPTIVE_RTOL on T and mean-free P;
-    on U and V the float32 kernels no further from the float64 plain
-    run than twice the plain float32 run is (or ADAPTIVE_RTOL, the
-    larger): as accurate as float32 allows; and that floor, the plain
+    on U and V (the fields of ``floor_rule``) the float32 kernels no
+    further from the float64 plain run than twice the plain float32 run
+    is (or ADAPTIVE_RTOL, the larger): as accurate as float32 allows;
+    and that floor, the plain
     float32 run's distance from the plain float64 run, within the
     route's FLOOR_BOUNDS on every field (check_floor).  ``keys``: the
-    fields compared (W too in 3D).  Returns the three runs' states."""
+    fields compared (W too in 3D); ``norm``: {field: other field} for a
+    field whose distances are taken relative to the other's magnitude
+    (the axisymmetric pipe's V and P, which are 0 up to the solves'
+    tolerance, relative to U); ``derived``: {name: f(state)} for a key
+    that is a function of the state's fields (stretch's P_y).  Returns
+    the three runs' states."""
     import torch
     runs = {}
     for run, dtype, plain in (("plain32", torch.float32, True),
@@ -3522,28 +3643,38 @@ def check_against_plain(name, make, steps, early, counts, f64_rtol,
         if plain and launch_counts() != counts:
             raise AssertionError("the plain reference run launched kernels")
     floors = {}
+    norm = norm or {}
+    derived = derived or {}
     for k in keys:
         def rel(a, b):
+            if k in derived:
+                a, b = derived[k](a), derived[k](b)
+            else:
+                a, b = a[k], b[k]
             a, b = a.double(), b.double()
             if k == "P":
                 a, b = a - a.mean(), b - b.mean()
+            if k in norm:
+                return float((a - b).abs().max()) / float(
+                    runs["plain64"][norm[k]].double().abs().max())
             return rel_err(a, b)
-        e32 = rel(early[k], runs["plain32"][k])
-        floor = floors[k] = rel(runs["plain32"][k], runs["plain64"][k])
-        e32_64 = rel(early[k], runs["plain64"][k])
-        e64 = rel(runs["kernels64"][k], runs["plain64"][k])
+        e32 = rel(early, runs["plain32"])
+        floor = floors[k] = rel(runs["plain32"], runs["plain64"])
+        e32_64 = rel(early, runs["plain64"])
+        e64 = rel(runs["kernels64"], runs["plain64"])
         print(f"  {name} after {steps} steps, {k}"
-              f"{' (mean-free)' if k == 'P' else ''}: kernels vs plain "
+              f"{' (mean-free)' if k == 'P' else ''}"
+              f"{f' (relative to max|{norm[k]}|)' if k in norm else ''}: "
+              "kernels vs plain "
               f"float32 {e32:.3e}, float64 {e64:.3e} (bound "
               f"{f64_rtol:.0e}); against the plain float64 run: "
               f"float32 kernels {e32_64:.3e}, float32 plain {floor:.3e}")
         if not e64 <= f64_rtol:
             raise AssertionError(f"{name} {k}: float64 kernels vs plain "
                                  f"{e64:.3e}")
-        if k in ("T", "P") and not e32 <= ADAPTIVE_RTOL:
+        if k not in floor_rule and not e32 <= ADAPTIVE_RTOL:
             raise AssertionError(f"{name} {k}: kernels vs plain {e32:.3e}")
-        if k in ("U", "V", "W") and \
-                not e32_64 <= max(2 * floor, ADAPTIVE_RTOL):
+        if k in floor_rule and not e32_64 <= max(2 * floor, ADAPTIVE_RTOL):
             raise AssertionError(f"{name} {k}: float32 kernels {e32_64:.3e}"
                                  f" from float64, plain {floor:.3e}")
     print(f"  {name}: the plain float32 run's distance from float64 "
@@ -4396,7 +4527,7 @@ def phase_cylinder(dev, card):
     n0, n1 = cfg.grid.shape
     print(f"phase 3, cylinder: the flow past a cylinder (Re 160), {n0} x "
           f"{n1}, float32, init + {CYLINDER_STEPS} steps")
-    ns._solid_ctx.cache_clear()
+    ns._static_weights.cache_clear()
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4458,7 +4589,7 @@ def phase_cylinder(dev, card):
     # determinism: the same run with the geometry and merge groups
     # rebuilt gives the same bits
     first = digests(s.state)
-    ns._solid_ctx.cache_clear()
+    ns._static_weights.cache_clear()
     again = cylinder_sim(dev).run(max_steps=CYLINDER_STEPS)
     second = digests(again.state)
     print(f"  cylinder digests, run 1: {first}; run 2: {second}")
@@ -4674,16 +4805,786 @@ def couette_gate(dev, card, level=COUETTE_LEVEL):
         raise AssertionError(f"couette gate: Linf {linf}, L2 {l2}")
 
 
+# ---------------------------------------------------------------------------
+# slice 4b: moving solids, rigid bodies, the axisymmetric and general
+# metrics
+# ---------------------------------------------------------------------------
+# the impulsively started disk of tests/test_moving.py:102-121 (radius
+# 0.15 from x = -0.2, surface velocity (0.5, 0), velocity_bc walls, dt =
+# 0.25 h) with nu 1e-3 (Re 150 on the diameter), so that the moving
+# Dirichlet surface's viscous solve runs; at 2048^2 in float32, init + 5
+# steps at orders 1 and 2, the NSConfig defaults' schedule (the test's
+# solves to 1e-9 are below float32's floor)
+LEVEL_MOVING = 11
+MOVING_R = 0.15
+MOVING_U = 0.5
+MOVING_NU = 1e-3
+MOVING_DT = 0.25          # times h
+MOVING_STEPS = 5
+MOVING_CHECK_STEPS = 2
+MOVING_TIMED_STEPS = 2
+MOVING_PROFILE_STEPS = 2
+WEIGHTED_F64_RTOL = 1e-9
+# host syncs of a step (ns_step, or a rigid body's step) beyond its
+# solves' condition reads: with a moving solid the Dirichlet surface's cut
+# cells (one nonzero) and the merge groups' two (solid.merge_groups: the
+# linked cells, then the count and largest size of the groups), whatever
+# the groups' sizes.  A Simulation adds its CFL dt's read.
+MOVING_SYNCS = 3
+# the falling disk of tests/test_rigid.py:37-66 (mass 0.1, radius 0.12
+# from (0, 0.2), gravity -1, nu 0, dt 0.25 h) at 2048^2 in float32, 5
+# steps, the NSConfig defaults' schedule
+LEVEL_RIGID = 11
+RIGID_MASS = 0.1
+RIGID_R = 0.12
+RIGID_Y0 = 0.2
+RIGID_G = -1.0
+RIGID_STEPS = 5
+RIGID_CHECK_STEPS = 2
+# the axisymmetric Poiseuille pipe of tests/test_axi.py:56-93 (origin
+# (-0.5, 0), x periodic, G 1, nu 0.5, scheme "none", dtmax 2e-2) at
+# 2048^2 in float32, init + 5 steps, the NSConfig defaults' schedule
+LEVEL_AXI = 11
+AXI_G = 1.0
+AXI_NU = 0.5
+AXI_STEPS = 5
+AXI_CHECK_STEPS = 2
+# the bench's lid cavity (bench.py:128-173, lid_cfg) under
+# MetricStretch(1, 0.1), test/lake's factor, at 2048^2 in float32, init
+# + 5 steps
+LEVEL_STRETCH = 11
+STRETCH = (1.0, 0.1)
+STRETCH_STEPS = 5
+STRETCH_CHECK_STEPS = 2
+# the phases' timed windows and profiles (steps)
+WEIGHTED_TIMED_STEPS = 2
+WEIGHTED_PROFILE_STEPS = 2
+# the gates (phase 4, child processes; tests/test_axi.py, test_moving.py,
+# test_metric.py, test_rigid.py on the port): the axi Poiseuille at level
+# 5 in float64 within 1% of u(r), V below 1e-6; the axi Poisson's order
+# above 1.8 at levels 5-6, its error below 3e-4; the moving disk's
+# order-2 temporal rate above order 1's + 0.05 at level 5 in float64 (a
+# weak gate, ROADMAP); the Galilean disk's far field within 0.06 at level
+# 6; the buoyancy force within 5% at level 6; the stretch Poisson's order
+# in (1.8, 2.2), the lon-lat one's above 1.6 with its error below 5e-4
+AXI_GATE_LEVEL = 5
+AXI_POISEUILLE_RTOL = 0.01
+AXI_ORDER_MIN = 1.8
+AXI_ERR_MAX = 3e-4
+MOVING_GATE_LEVEL = 5
+MOVING_RATE_GAIN = 0.05
+GALILEAN_LEVEL = 6
+GALILEAN_FAR = 0.06
+BUOYANCY_RTOL = 0.05
+STRETCH_ORDER = (1.8, 2.2)
+LONLAT_ORDER_MIN = 1.6
+LONLAT_ERR_MAX = 5e-4
+
+
+# the tensor calls that read a value back to the host: each a host sync
+# on the card
+HOST_READS = frozenset(("item", "__bool__", "__float__", "__int__",
+                        "__index__", "tolist", "nonzero", "equal",
+                        "unique_consecutive", "bincount", "cpu", "numpy"))
+
+
+def count_syncs(fn, dev=None, where=None):
+    """(host syncs, fn's result): on the card (``dev`` None or CUDA) the
+    synchronizing CUDA operations of fn(), counted by torch.cuda's sync
+    debug mode (a warning each); on the CPU the calls of HOST_READS that
+    fn() makes, counted by a torch function mode.  ``where``: a list
+    that takes each sync's (file, line) on the card."""
+    import warnings
+    import torch
+    from torch.overrides import TorchFunctionMode
+    if dev is not None and torch.device(dev).type == "cpu":
+        class Reads(TorchFunctionMode):
+            n = 0
+
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if getattr(func, "__name__", "") in HOST_READS:
+                    self.n += 1
+                return func(*args, **(kwargs or {}))
+
+        with Reads() as mode:
+            out = fn()
+        return mode.n, out
+    # the first switch to "warn" in a process reports one sync of its
+    # own (torch/cuda/__init__.py): switch once uncounted
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [(w.filename, w.lineno) for w in caught
+             if "synchroniz" in str(w.message)]
+    if where is not None:
+        where.extend(syncs)
+    return len(syncs), out
+
+
+def walls():
+    from gerris_tpu_torch.core import bc
+    return (bc.velocity_bc(0, 2), bc.velocity_bc(1, 2))
+
+
+def moving_phi(x, y, t):
+    """The impulsively started disk's level set at time t (fluid
+    outside), tests/test_moving.py:107."""
+    import torch
+    return torch.sqrt((x + 0.2 - 0.5 * t) ** 2 + y ** 2) - MOVING_R
+
+
+def moving_cfg(level, order):
+    """The impulsively started disk (LEVEL_MOVING's comment) at 2^level
+    cells per side, scheme order ``order``."""
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    return ns.NSConfig(grid=Grid(level=level), u_bcs=walls(), nu=MOVING_NU,
+                       solid_phi=moving_phi, moving_solid=True,
+                       moving_order=order, surface_u=(MOVING_U, 0.0))
+
+
+def moving_sim(dev, order, level=None, dtype=None):
+    """The disk from rest in ``dtype`` (float32 by default), dt = 0.25 h,
+    not yet run."""
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    cfg = moving_cfg(level or LEVEL_MOVING, order)
+    return Simulation(cfg, time=Time(dtmax=MOVING_DT * cfg.grid.h),
+                      device=dev, dtype=dtype or torch.float32).init()
+
+
+def rigid_shape(x, y, cx, cy):
+    import torch
+    return torch.sqrt((x - cx) ** 2 + (y - cy) ** 2) - RIGID_R
+
+
+class BodyRun:
+    """A RigidBodyDriver stepped at a fixed dt, as a Simulation is run:
+    run(max_steps) and state."""
+
+    def __init__(self, drv, dt):
+        self.drv, self.dt = drv, dt
+
+    def run(self, max_steps):
+        for _ in range(max_steps):
+            self.drv.step(self.dt)
+        return self
+
+    @property
+    def state(self):
+        return self.drv.state
+
+
+def rigid_run(dev, level=None, dtype=None):
+    """The falling disk (LEVEL_RIGID's comment) at rest, dt = 0.25 h, as a
+    BodyRun."""
+    import torch
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import rigid
+    grid = Grid(level=level or LEVEL_RIGID)
+    drv = rigid.RigidBodyDriver(
+        grid, walls(), rigid_shape,
+        rigid.RigidBody(mass=RIGID_MASS, pos=(0.0, RIGID_Y0),
+                        gravity=(0.0, RIGID_G)),
+        device=dev, dtype=dtype or torch.float32)
+    return BodyRun(drv, MOVING_DT * grid.h)
+
+
+def axi_cfg(level, tol=None):
+    """The axisymmetric Poiseuille pipe (LEVEL_AXI's comment) at 2^level
+    cells per side; ``tol``: every solve to that tolerance (the test's
+    1e-8, at most 100 cycles, 30 for the diffusion), else the NSConfig
+    defaults'."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.advection import AdvectionParams
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    per = (bc.Periodic(), bc.Periodic())
+    ubc = bc.FieldBC((per, (bc.Neumann(), bc.Dirichlet(0.0))))
+    vbc = bc.FieldBC((per, (bc.Dirichlet(0.0), bc.Dirichlet(0.0))))
+    kw = {}
+    if tol is not None:
+        proj = MultilevelParams(tolerance=tol, nitermax=100)
+        kw = dict(projection=proj, approx_projection=proj,
+                  diffusion_params=MultilevelParams(tolerance=tol,
+                                                    nitermax=30))
+    return ns.NSConfig(
+        grid=Grid(level=level, origin=(-0.5, 0.0)), u_bcs=(ubc, vbc),
+        nu=AXI_NU, beta=1.0, axi=True, body_force=(AXI_G, None),
+        advection=AdvectionParams(scheme="none"), **kw)
+
+
+def axi_sim(dev, level=None, dtype=None, tol=None, iend=2 ** 31):
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    return Simulation(axi_cfg(level or LEVEL_AXI, tol),
+                      time=Time(iend=iend, dtmax=2e-2), device=dev,
+                      dtype=dtype or torch.float32).init()
+
+
+def stretch_cfg(level):
+    """The bench's lid cavity under MetricStretch(*STRETCH)."""
+    import dataclasses
+    from gerris_tpu_torch.core.metric import MetricStretch
+    return dataclasses.replace(lid_cfg(level), metric=MetricStretch(*STRETCH))
+
+
+def stretch_sim(dev, level=None, dtype=None):
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    cfg = stretch_cfg(level or LEVEL_STRETCH)
+    return Simulation(cfg, time=Time(dtmax=0.8 * cfg.grid.h), device=dev,
+                      dtype=dtype or torch.float32).init()
+
+
+def want_weighted(level, solves, steps, faces, inits=1):
+    """Launches of a weighted route (a solid or a metric) from its solves
+    (solver, niter, fixed): every solve multigrid with face coefficients,
+    so per cycle K15 at each level down to minlevel 2, all but the
+    coarsest with the prolongation folded in, and one restrict_pyramid;
+    with ``faces`` (walls: K6 and K9 take the BCs) one predict_xy a step
+    and one interp_faces a step and per initial projection (``inits``);
+    no other kernel: a weighted divergence, residual and correction are
+    torch (K4, K11, K5 take no face coefficients) and the velocity
+    advection takes the generic route (no K7 or K14), as the
+    reference's (gerris_tpu/models/ns.py:257, :342, solvers/
+    projection.py:218)."""
+    w = {k: 0 for k in want_launches("pair", 0)}
+    for solver, niter, fixed in solves:
+        if solver != "multigrid":
+            raise AssertionError(f"a {solver} solve on a weighted route")
+    cycles = sum(x[1] for x in solves)
+    nl = level - 2 + 1
+    w.update(rbgs_relax_alpha=nl * cycles, restrict_pyramid=cycles)
+    w["rbgs_relax_alpha.prolong"] = (nl - 1) * cycles
+    if faces:
+        w.update(predict_xy=steps, interp_faces=steps + inits)
+    return w
+
+
+def one_step(s):
+    """One step of a run, a Simulation's ns_step at its dt and time (no CFL
+    read, the run left as it was) or a BodyRun's."""
+    from gerris_tpu_torch.models import ns
+    if isinstance(s, BodyRun):
+        return s.drv.step(s.dt)
+    return ns.ns_step(s.state, s.dt, s.time.t, s.cfg,
+                      cstart=s.time.i % s.cfg.dim)
+
+
+def phase_weighted(dev, card, name, make, level, steps, check_steps,
+                   faces, syncs, inits=1, cells=None, twice=False,
+                   norm=None, floor_rule=("U", "V"), derived=None):
+    """init + ``steps`` steps of ``make(float32)`` through the kernels, the
+    counts set to 0 just before and gated just after from every solve's
+    recorded cycle count (want_weighted); finite values; the first
+    ``check_steps`` steps against the plain versions (check_against_plain,
+    float64 to WEIGHTED_F64_RTOL, U, V, P and the keys of ``derived``,
+    ``norm``, ``floor_rule`` and ``derived`` as there); one more
+    step's host syncs
+    (one_step, count_syncs) against its solves' reads plus ``syncs``; with
+    ``twice`` the run again, bit for bit (digests); five timed windows
+    and a profile with K15's share.  Returns (counts, the run, digests,
+    the device ops per step)."""
+    import torch
+    derived = derived or {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_solves() as log:
+        s = make(torch.float32)
+        s.run(max_steps=check_steps)
+        early = {k: v.clone() for k, v in s.state.items()}
+        s.run(max_steps=steps - check_steps)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    niters = [x[1] for x in log]
+    print(f"  {name}, {'init + ' if inits else ''}{steps} steps: "
+          f"{t_run:.3f} s; {len(niters)} solves, niter {niters}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for k, w in want_weighted(level, [x[:3] for x in log], steps, faces,
+                              inits).items():
+        if counts[k] != w:
+            raise AssertionError(f"{name}: {k}: {counts[k]} launches, "
+                                 f"want {w}")
+    shape = tuple(s.state["U"].shape)
+    for k, v in s.state.items():
+        if v.shape != shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{name} {k}: not finite or wrong shape")
+    print(f"  {name}: rbgs_relax_alpha {counts['rbgs_relax_alpha']} "
+          f"launches ({level - 1} levels x sum(niter) {sum(niters)}), "
+          f"{counts['rbgs_relax_alpha.prolong']} with the prolongation "
+          f"folded in, {counts['restrict_pyramid']} restrict_pyramid, "
+          f"predict_xy {counts['predict_xy']}, interp_faces "
+          f"{counts['interp_faces']}; max|U| "
+          f"{float(s.state['U'].abs().max()):.6f}, max|V| "
+          f"{float(s.state['V'].abs().max()):.6f}")
+    digest = digests(s.state)
+    check_against_plain(name, make, check_steps, early, counts,
+                        WEIGHTED_F64_RTOL, keys=("U", "V", "P", *derived),
+                        norm=norm, floor_rule=floor_rule, derived=derived)
+    del early
+    if twice:
+        again = make(torch.float32).run(max_steps=steps)
+        second = digests(again.state)
+        print(f"  {name} digests, run 1: {digest}; run 2: {second}")
+        if digest != second or any(not torch.equal(v, s.state[k])
+                                    for k, v in again.state.items()):
+            raise AssertionError(f"{name}: two runs differ")
+        del again
+    # the caching allocator's own syncs (a cache flush when an allocation
+    # fails) are not the step's: start the counted step with an empty
+    # cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    where = []
+    with recording_solves() as log:
+        n, _ = count_syncs(lambda: one_step(s), dev, where)
+    own = sum(x[3] for x in log)
+    print(f"  {name}: host syncs of one step {n} = its solves' {own} + "
+          f"{n - own} (want {syncs})")
+    if n - own != syncs:
+        raise AssertionError(f"{name}: {n} host syncs a step, its solves' "
+                             f"{own} + {syncs} wanted; at {where}")
+    cells = cells or shape[0] * shape[1]
+    step = timed_windows(name, s, WEIGHTED_TIMED_STEPS, card, cells)
+    ops = phase_profile(s, step, card, WEIGHTED_PROFILE_STEPS,
+                        shares=("rbgs_relax_alpha",))
+    return counts, s, digest, ops
+
+
+def phase_moving(dev, card):
+    """The moving disk at orders 1 and 2 (phase_weighted, run twice bit for
+    bit), its geometry after the run (cut cells, small cells, merge
+    groups).  Returns {route: counts}."""
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import solid
+    out = {}
+    for order in (1, 2):
+        name = f"moving{order}"
+        n = 1 << LEVEL_MOVING
+        print(f"phase 3, {name}: the impulsively started disk (Re 150), "
+              f"order {order}, {n}^2, float32, init + {MOVING_STEPS} steps")
+        out[name], s, _, _ = phase_weighted(
+            dev, card, name, lambda dtype: moving_sim(dev, order,
+                                                      dtype=dtype),
+            LEVEL_MOVING, MOVING_STEPS, MOVING_CHECK_STEPS, True,
+            MOVING_SYNCS, twice=True, floor_rule=("U", "V", "P"))
+        w, _, _, _ = ns._moving_weights(s.cfg, [s.state["U"], s.state["V"]],
+                                        s.dt, s.time.t)
+        small, _ = solid._merge_targets(w.a, w.s)
+        print(f"  {name}: at t {s.time.t:.6e}, {int(w.ds.mixed.sum())} cut "
+              f"cells, {int(small.sum())} small cells, "
+              f"{w.groups.members.numel()} cells in {w.groups.ngroups} merge "
+              f"groups of at most {w.groups.index.shape[1]}")
+    return out
+
+
+def phase_rigid(dev, card):
+    """The falling disk at 2048^2 (phase_weighted: no initial projection,
+    no CFL read; the body's force and motion stay on the device), its
+    trajectory after the steps."""
+    n = 1 << LEVEL_RIGID
+    print(f"phase 3, rigid: the falling disk, {n}^2, float32, "
+          f"{RIGID_STEPS} steps")
+    counts, run, _, _ = phase_weighted(
+        dev, card, "rigid", lambda dtype: rigid_run(dev, dtype=dtype),
+        LEVEL_RIGID, RIGID_STEPS, RIGID_CHECK_STEPS, True, MOVING_SYNCS,
+        inits=0)
+    traj = run.drv.trajectory()
+    t, x, y, u, v, fx, fy = traj[RIGID_STEPS - 1]
+    print(f"  rigid after {RIGID_STEPS} steps: t {t:.6e}, position "
+          f"({x:.9f}, {y:.9f}), velocity ({u:.6e}, {v:.6e}), force "
+          f"({fx:.6e}, {fy:.6e})")
+    if not (np.isfinite(traj).all() and y < RIGID_Y0 and v < 0.0
+            and v > RIGID_G * t * 1.5):
+        raise AssertionError(f"rigid: trajectory {traj[-1]}")
+    return counts
+
+
+def phase_axi(dev, card):
+    n = 1 << LEVEL_AXI
+    print(f"phase 3, axi: the axisymmetric Poiseuille pipe, {n}^2, "
+          f"float32, init + {AXI_STEPS} steps")
+    return phase_weighted(dev, card, "axi",
+                          lambda dtype: axi_sim(dev, dtype=dtype),
+                          LEVEL_AXI, AXI_STEPS, AXI_CHECK_STEPS, False,
+                          0, norm={"V": "U", "P": "U"})[0]
+
+
+def phase_stretch(dev, card):
+    n = 1 << LEVEL_STRETCH
+    print(f"phase 3, stretch: the bench's lid cavity under MetricStretch"
+          f"{STRETCH}, {n}^2, float32, init + {STRETCH_STEPS} steps")
+    return phase_weighted(dev, card, "stretch",
+                          lambda dtype: stretch_sim(dev, dtype=dtype),
+                          LEVEL_STRETCH, STRETCH_STEPS, STRETCH_CHECK_STEPS,
+                          True, 0, floor_rule=("U", "V", "P", "P_y"),
+                          derived={"P_y": column_free})[0]
+
+
+def column_free(state):
+    """The pressure less its mean over y in each column (x = const): the
+    part of the stretched cavity's pressure that its strong y coupling
+    fixes (the column means are its weakest x modes)."""
+    p = state["P"]
+    return p - p.mean(dim=1, keepdim=True)
+
+
+def weighted_systems(cfg, w, dt):
+    """The K15 systems of a weighted configuration ``cfg`` with weights
+    ``w`` (ns.Weights) at time step ``dt``, down its correction's levels
+    (poisson._coeff_hierarchy): ("projection", alpha = s, dia 0) and with
+    nu > 0 ("viscous u" / "viscous v", alpha = beta dt nu s, the cell dia
+    a + beta dt nu (dia_s + the axisymmetric a / r^2 on v)).  Returns
+    [(name, signs, periodic, alphas, dias, grids)]."""
+    import dataclasses
+    import torch
+    from gerris_tpu_torch.solvers import poisson
+    grid = cfg.grid
+    nl = grid.level - 2 + 1
+    grids = [dataclasses.replace(grid, level=grid.level - k)
+             for k in range(nl)]
+    scale = cfg.beta * dt * cfg.nu
+    systems = [("projection", cfg.p_bc, w.s, 0.0)]
+    if cfg.nu > 0.0:
+        for c in range(2):
+            dia = w.a
+            if cfg.axi and c == 1:
+                yc = torch.as_tensor(grid.axis_centers(1), dtype=w.a.dtype,
+                                     device=w.a.device)[None, :]
+                dia = dia + scale * (w.a / (yc * yc))
+            if w.ds is not None:
+                dia = dia + scale * w.ds.dia
+            systems.append((f"viscous {'uv'[c]}", cfg.u_bcs[c],
+                            tuple(scale * f for f in w.s), dia))
+    out = []
+    for name, fbc, alpha, dia in systems:
+        alphas, dias = poisson._coeff_hierarchy(grid, 2, alpha, dia)
+        out.append((name, poisson._signs_offs(grid, fbc, True)[0],
+                    poisson._periodic(fbc), alphas, dias, grids))
+    return out
+
+
+def check_weighted_alpha(dev, rnd, dtype, errs):
+    """K15 against its plain version on the levels of the moving disk (its
+    order-1 geometry after its first step), the axisymmetric pipe and the
+    stretched cavity, 2048^2 down to 4^2, with their coefficients
+    (weighted_systems, check_alpha_systems)."""
+    import torch
+    from gerris_tpu_torch.models import ns
+    for name, cfg in (("moving", moving_cfg(LEVEL_MOVING, 1)),
+                      ("axi", axi_cfg(LEVEL_AXI)),
+                      ("stretch", stretch_cfg(LEVEL_STRETCH))):
+        z = torch.zeros(cfg.grid.shape, dtype=dtype, device=dev)
+        dt = MOVING_DT * cfg.grid.h
+        if cfg.moving_solid:
+            w = ns._moving_weights(cfg, [z, z], dt, 0.0)[0]
+        else:
+            w = ns._weights(cfg, z)
+        check_alpha_systems(name, weighted_systems(cfg, w, dt), w.a == 0.0,
+                            rnd, dtype, errs)
+
+
+def axi_poiseuille(dev, level=AXI_GATE_LEVEL, dtype=None):
+    """tests/test_axi.py::test_axi_poiseuille on the port: at most 400 steps
+    (dtmax 2e-2, solves to 1e-8), stopping when a step moves U by less
+    than 1e-7.  Returns (steps, max|mean U(r) - G (1 - r^2) / (4 nu)| /
+    max of it, max|V|)."""
+    import torch
+    s = axi_sim(dev, level, dtype or torch.float64, tol=1e-8, iend=400)
+    prev = None
+    for _ in range(400):
+        s.run(max_steps=1)
+        if prev is not None and \
+                float((s.state["U"] - prev).abs().max()) < 1e-7:
+            break
+        prev = s.state["U"]
+    y = s.cfg.grid.axis_centers(1)
+    prof = s.state["U"].double().mean(dim=0).cpu().numpy()
+    exact = AXI_G * (1.0 - y * y) / (4.0 * AXI_NU)
+    return (s.time.i, float(np.abs(prof - exact).max() / exact.max()),
+            float(s.state["V"].abs().max()))
+
+
+def axi_poisson(dev, levels=(4, 5, 6)):
+    """tests/test_axi.py::test_axi_poisson_order on the port in float64:
+    div(r grad u) = r f with u = (1 - r^2)^2 on r in [0, 1], Neumann at the
+    axis, Dirichlet 0 at r = 1, 10 cycles.  Returns the Linf errors."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers import poisson
+    errs = []
+    for lv in levels:
+        g = Grid(level=lv, origin=(-0.5, 0.0))
+        cm, fm = ns._axi_metric(g, dev, torch.float64)
+        y = ns.cell_centers(g, dev, torch.float64)[1]
+        fbc = bc.FieldBC(((bc.Neumann(), bc.Neumann()),
+                          (bc.Neumann(), bc.Dirichlet(0.0))))
+        u, _ = poisson.solve(torch.zeros(g.shape, dtype=torch.float64,
+                                         device=dev),
+                             cm * 8.0 * (2.0 * y * y - 1.0), g, fbc,
+                             poisson.MultilevelParams(nitermin=10,
+                                                      nitermax=10),
+                             alpha=fm)
+        errs.append(float((u - (1.0 - y * y) ** 2).abs().max()))
+    return errs
+
+
+def moving_rates(dev, level=MOVING_GATE_LEVEL, steps=(16, 32, 64)):
+    """tests/test_moving.py::test_moving_order2_temporal_convergence on the
+    port in float64: an oscillating disk (x_c = 0.08 sin(2 pi t)) to t =
+    0.25 in each count of ``steps``, nu 0, solves to 1e-10 in at most 60
+    cycles, from rest; per order the rate log2(e1 / e2) of the mean
+    differences on the cells fluid at the end, e1 = the coarsest count's
+    from the finest's, e2 the middle one's.  Returns {order: rate}."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import solid
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    A, W, T = 0.08, 2 * math.pi, 0.25
+    grid = Grid(level=level)
+
+    def phi(x, y, t):
+        return torch.sqrt((x - A * math.sin(W * t)) ** 2 + y ** 2) - MOVING_R
+
+    def us_u(x, y, t):
+        return A * W * math.cos(W * t) + 0 * x
+
+    proj = MultilevelParams(tolerance=1e-10, nitermax=60)
+    fluid = solid.solid_fractions(grid, lambda x, y: phi(x, y, T), dev,
+                                  torch.float64)[0] > 0.999
+
+    def run(order, n):
+        cfg = ns.NSConfig(
+            grid=grid, u_bcs=(bc.FieldBC.uniform(bc.Neumann(), 2),
+                              bc.FieldBC.uniform(bc.Dirichlet(0.0), 2)),
+            solid_phi=phi, moving_solid=True, moving_order=order,
+            surface_u=(us_u, 0.0), projection=proj, approx_projection=proj)
+        z = torch.zeros(grid.shape, dtype=torch.float64, device=dev)
+        s = {k: z for k in ("U", "V", "P", "Pmac", "Gx", "Gy")}
+        dt, t = T / n, 0.0
+        for i in range(n):
+            s = ns.ns_step(s, dt, t, cfg, first_step=(i == 0))
+            t += dt
+        return s["U"], s["V"]
+
+    rates = {}
+    for order in (1, 2):
+        sols = {n: run(order, n) for n in steps}
+        e1, e2 = (max(float((sols[n][k] - sols[steps[-1]][k]).abs()[fluid]
+                            .mean()) for k in range(2)) for n in steps[:2])
+        rates[order] = math.log2(e1 / e2)
+    return rates
+
+
+def galilean(dev, level=GALILEAN_LEVEL, steps=8):
+    """tests/test_moving.py::test_galilean_uniform_flow on the port in
+    float64: a disk moving at (1, 0) through a co-moving uniform stream, x
+    periodic, 8 steps of 0.25 h.  Returns (max|U - 1|, max|V|) on the far
+    fluid cells (r > 0.35) and on every fluid cell."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.physics import solid
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    grid = Grid(level=level)
+    per = (bc.Periodic(), bc.Periodic())
+    uper = bc.FieldBC((per, (bc.Neumann(), bc.Neumann())))
+    vper = bc.FieldBC((per, (bc.Dirichlet(0.0), bc.Dirichlet(0.0))))
+
+    def phi(x, y, t):
+        return torch.sqrt((torch.remainder(x - t + 0.5, 1.0) - 0.5) ** 2
+                          + y ** 2) - MOVING_R
+
+    proj = MultilevelParams(tolerance=1e-9, nitermax=50)
+    cfg = ns.NSConfig(grid=grid, u_bcs=(uper, vper), solid_phi=phi,
+                      moving_solid=True, surface_u=(1.0, 0.0),
+                      projection=proj, approx_projection=proj)
+    z = torch.zeros(grid.shape, dtype=torch.float64, device=dev)
+    s = {"U": z + 1.0, "V": z, "P": z, "Pmac": z, "Gx": z, "Gy": z}
+    dt, t = 0.25 * grid.h, 0.0
+    for i in range(steps):
+        s = ns.ns_step(s, dt, t, cfg, first_step=(i == 0))
+        t += dt
+    a = solid.solid_fractions(grid, lambda x, y: phi(x, y, t), dev,
+                              torch.float64)[0]
+    fluid = a > 0.99
+    x, y = ns.cell_centers(grid, dev, torch.float64)
+    r = torch.sqrt((torch.remainder(x - t + 0.5, 1.0) - 0.5) ** 2 + y ** 2)
+    far = fluid & (r > 0.35)
+    du, v = (s["U"] - 1.0).abs(), s["V"].abs()
+    return (float(du[far].max()), float(v[far].max()),
+            float(du[fluid].max()), float(v[fluid].max()))
+
+
+def buoyancy(dev, level=6):
+    """tests/test_rigid.py::test_hydrostatic_buoyancy_force on the port in
+    float64: a disk of radius 0.2 in P = 2.5 y.  Returns (Fx, Fy, the
+    exact Fy = -2.5 pi R^2)."""
+    import torch
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns, rigid
+    R, c = 0.2, 2.5
+
+    def phi(x, y, t, cx, cy, vx, vy):
+        return torch.sqrt((x - cx) ** 2 + (y - cy) ** 2) - R
+
+    grid = Grid(level=level)
+    cfg = ns.NSConfig(grid=grid, u_bcs=walls(), solid_phi=phi,
+                      moving_solid=True)
+    y = ns.cell_centers(grid, dev, torch.float64)[1]
+    z = torch.zeros(grid.shape, dtype=torch.float64, device=dev)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    fx, fy = rigid.solid_force({"P": c * y, "U": z, "V": z}, cfg, 0.0,
+                               (zero,) * 4)
+    return float(fx), float(fy), -c * math.pi * R ** 2
+
+
+def stretch_poisson(dev, levels=(5, 6), sy=0.4):
+    """tests/test_metric.py::test_stretch_poisson_order on the port in
+    float64: cos(pi x) cos(pi y) on the box stretched by (1, sy),
+    Dirichlet 0, solves to 1e-11.  Returns the Linf errors."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.core.metric import MetricStretch
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers import poisson
+    errs = []
+    for lv in levels:
+        g = Grid(level=lv)
+        x, y = ns.cell_centers(g, dev, torch.float64)
+        exact = torch.cos(math.pi * x) * torch.cos(math.pi * y)
+        cm, fm = MetricStretch(1.0, sy).weights(g, dev)
+        u, _ = poisson.solve(
+            torch.zeros_like(exact),
+            cm * (-(math.pi ** 2) * (1.0 + 1.0 / sy ** 2) * exact), g,
+            bc.FieldBC.uniform(bc.Dirichlet(0.0), 2),
+            poisson.MultilevelParams(tolerance=1e-11, nitermax=60),
+            alpha=fm)
+        errs.append(float((u - exact).abs().max()))
+    return errs
+
+
+def lonlat_poisson(dev, levels=(5, 6)):
+    """tests/test_metric.py::test_lonlat_poisson on the port in float64:
+    sin(lat) on the latitude band [-pi/4, pi/4] (MetricLonLat(pi / 2)),
+    its value on the band's edges, solves to 1e-11.  Returns the Linf
+    errors."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.core.metric import MetricLonLat
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers import poisson
+    scale = math.pi / 2.0
+
+    def blat(x, y, t=0.0):
+        return torch.sin(y * scale)
+
+    errs = []
+    for lv in levels:
+        g = Grid(level=lv)
+        y = ns.cell_centers(g, dev, torch.float64)[1]
+        cm, fm = MetricLonLat(scale).weights(g, dev)
+        fbc = bc.FieldBC(((bc.Neumann(), bc.Neumann()),
+                          (bc.Dirichlet(blat), bc.Dirichlet(blat))))
+        u, _ = poisson.solve(
+            torch.zeros_like(y), cm * scale * scale * (-2.0 * torch.sin(
+                y * scale)), g, fbc,
+            poisson.MultilevelParams(tolerance=1e-11, nitermax=60), alpha=fm)
+        errs.append(float((u - torch.sin(y * scale)).abs().max()))
+    return errs
+
+
+def axi_gate(dev, card):
+    """The axi Poiseuille (AXI_GATE_LEVEL, float64) within
+    AXI_POISEUILLE_RTOL of u(r) and V below 1e-6, and the axi Poisson's
+    order above AXI_ORDER_MIN, its error below AXI_ERR_MAX."""
+    t0 = time.perf_counter()
+    steps, err, vmax = axi_poiseuille(dev)
+    errs = axi_poisson(dev)
+    order = math.log2(errs[-2] / errs[-1])
+    print(f"phase 4, axi gate: float64, {time.perf_counter() - t0:.1f} s on "
+          f"{card}: the Poiseuille pipe at level {AXI_GATE_LEVEL} after "
+          f"{steps} steps, max|U(r) - exact| / max exact {err:.3e} (bound "
+          f"{AXI_POISEUILLE_RTOL}), max|V| {vmax:.3e} (bound 1e-6); the "
+          f"Poisson's errors {errs}, order {order:.4f} (bound > "
+          f"{AXI_ORDER_MIN}, error < {AXI_ERR_MAX})")
+    if not (err < AXI_POISEUILLE_RTOL and vmax < 1e-6
+            and order > AXI_ORDER_MIN and errs[-1] < AXI_ERR_MAX):
+        raise AssertionError(f"axi gate: {err}, {vmax}, {errs}")
+
+
+def moving_gate(dev, card):
+    """The moving disk's temporal rates (order 2 above order 1 +
+    MOVING_RATE_GAIN, level MOVING_GATE_LEVEL), the Galilean disk's far
+    field within GALILEAN_FAR (and every fluid cell within 0.6), and the
+    buoyancy force within BUOYANCY_RTOL, float64."""
+    t0 = time.perf_counter()
+    rates = moving_rates(dev)
+    gal = galilean(dev)
+    fx, fy, exact = buoyancy(dev)
+    print(f"phase 4, moving gate: float64, {time.perf_counter() - t0:.1f} s "
+          f"on {card}: temporal rates at level {MOVING_GATE_LEVEL}, order 1 "
+          f"{rates[1]:.4f}, order 2 {rates[2]:.4f} (bound: order 1 + "
+          f"{MOVING_RATE_GAIN}); the Galilean disk at level "
+          f"{GALILEAN_LEVEL}, far field max|U - 1| {gal[0]:.4f}, max|V| "
+          f"{gal[1]:.4f} (bound {GALILEAN_FAR}), every fluid cell "
+          f"{gal[2]:.4f}, {gal[3]:.4f} (bound 0.6); buoyancy ({fx:.6f}, "
+          f"{fy:.6f}) against (0, {exact:.6f}) (bound {BUOYANCY_RTOL})")
+    if not (rates[2] > rates[1] + MOVING_RATE_GAIN
+            and max(gal[:2]) < GALILEAN_FAR and max(gal[2:]) < 0.6
+            and abs(fx) < 0.02 * abs(exact)
+            and abs(fy - exact) < BUOYANCY_RTOL * abs(exact)):
+        raise AssertionError(f"moving gate: {rates}, {gal}, {fx}, {fy}")
+
+
+def metric_gate(dev, card):
+    """The stretch Poisson's order within STRETCH_ORDER and the lon-lat
+    one's above LONLAT_ORDER_MIN with its error below LONLAT_ERR_MAX,
+    float64, levels 5 and 6."""
+    t0 = time.perf_counter()
+    es, el = stretch_poisson(dev), lonlat_poisson(dev)
+    os_, ol = math.log2(es[0] / es[1]), math.log2(el[0] / el[1])
+    print(f"phase 4, metric gate: float64, {time.perf_counter() - t0:.1f} s "
+          f"on {card}: the stretch Poisson's errors {es}, order {os_:.4f} "
+          f"(bound {STRETCH_ORDER}); the lon-lat one's {el}, order "
+          f"{ol:.4f} (bound > {LONLAT_ORDER_MIN}, error < {LONLAT_ERR_MAX})")
+    if not (STRETCH_ORDER[0] < os_ < STRETCH_ORDER[1]
+            and ol > LONLAT_ORDER_MIN and el[-1] < LONLAT_ERR_MAX):
+        raise AssertionError(f"metric gate: {es}, {el}")
+
+
 def gate_jobs():
     """The host-bound physics gates that run as child processes of this
     script beside phase 4's others (each a few thousand steps on grids of
     16^2 to 64 x 192, where a step is a few thousand device ops paced by
     the host): the capwave gate at levels 4, 5 and 6, the sessile gate
     at each angle, and the solid route's: the circle gate (levels 7-9),
-    the circle against gerris_tpu (level 6) and the Couette gate."""
+    the circle against gerris_tpu (level 6) and the Couette gate; slice
+    4b's: the axi, moving and metric gates."""
     return ([f"capwave_{lv}" for lv in CAPWAVE_REF]
             + [f"sessile_{a:g}" for a in SESSILE_ANGLES]
-            + ["circle_9", "circlejax_6", f"couette_{COUETTE_LEVEL}"])
+            + ["circle_9", "circlejax_6", f"couette_{COUETTE_LEVEL}"]
+            + [f"axi_{AXI_GATE_LEVEL}", f"moving_{MOVING_GATE_LEVEL}",
+               "metric_6"])
 
 
 def run_gate(name, dev, card):
@@ -4697,6 +5598,12 @@ def run_gate(name, dev, card):
         circle_gate(dev, card)
     elif kind == "circlejax":
         circle_jax_gate(dev, card)
+    elif kind == "axi":
+        axi_gate(dev, card)
+    elif kind == "moving":
+        moving_gate(dev, card)
+    elif kind == "metric":
+        metric_gate(dev, card)
     else:
         couette_gate(dev, card, int(arg))
 
@@ -5262,6 +6169,10 @@ def main():
     phase_bubble3d(dev, card)
     route_counts["capwave"] = phase_capwave(dev, card)
     route_counts["cylinder"] = phase_cylinder(dev, card)
+    route_counts.update(phase_moving(dev, card))
+    route_counts["rigid"] = phase_rigid(dev, card)
+    route_counts["axi"] = phase_axi(dev, card)
+    route_counts["stretch"] = phase_stretch(dev, card)
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
@@ -5307,7 +6218,8 @@ def main():
     # mgcg: one solve)
     for k in record:
         for path in ("spurious", "spurious_css", "tracer", "mgcg",
-                     "sessile", "capwave", "cylinder"):
+                     "sessile", "capwave", "cylinder", "moving1", "moving2",
+                     "rigid", "axi", "stretch"):
             if route_counts[path][k]:
                 record[k][f"launches_{path}"] = route_counts[path][k]
     ada = route_counts["adaptive"]

@@ -63,14 +63,24 @@ contact-angle sides are 2D, as the reference's are.
 A static embedded solid (``solid_phi``, 2D; reference ns.py:615-639,
 :770-818, :375-445, :901-988): its geometry (fractions, Dirichlet surface,
 merge groups) is built once per configuration, device and dtype
-(_solid_ctx).  The predictor and the face interpolation ignore it and its
-closed faces are zeroed after them; both projections solve div(s grad p)
-with the s-weighted divergence (K15 in every correction); each velocity
-component takes the generic advection with s-weighted fluxes, the
-merged-cell update (physics/solid.py) and a viscous solve with the
+(_static_weights).  The predictor and the face interpolation ignore it
+and its closed faces are zeroed after them; both projections solve
+div(s grad p) with the s-weighted divergence (K15 in every correction);
+each velocity component takes the generic advection with s-weighted
+fluxes, the merged-cell update (physics/solid.py) and a viscous solve with the
 no-slip or ``surface_u`` Dirichlet surface, deferred-corrected (K15 with
-the cell dia); the velocities are zero in the solid.  Moving solids and
-the metrics are slices 4b and 4c.
+the cell dia); the velocities are zero in the solid.
+
+The axisymmetric metric (``axi``) and a general one (``metric``,
+core/metric.py) multiply their cell and face factors into the same
+weights (_weights, Weights; reference ns.py:599-639), so their step is
+the solid's, with no Dirichlet surface and no merging where no solid cuts
+a cell; ``axi`` adds the radial term a / r^2 to component 1's viscous
+solve (ns.py:423-432).  A moving solid (``moving_solid``, orders 1 and 2;
+reference ns.py:674-766, :896-935) re-cuts its fractions, Dirichlet
+surface and merge groups every step on the device (_moving_weights,
+solid.merge_groups in a fixed number of host reads), fills the uncovered cells, and gives both projections
+its volume displacement as divergence sources.
 """
 from __future__ import annotations
 
@@ -156,8 +166,23 @@ class NSConfig:
     solid_phi: object = None
     # the solid surface's velocity (SurfaceBc Dirichlet, src/timestep.c:
     # 1062-1229): per component a constant or a function f(x, y) of torch
-    # tensors; None is a no-slip wall at rest (0 on every component)
+    # tensors (a moving solid's: f(x, y, t[, *solid_args])); None is a
+    # no-slip wall at rest (0 on every component)
     surface_u: tuple = None
+    # a moving solid (GfsSimulationMoving, src/moving.c), 2D: solid_phi
+    # takes (x, y, t[, *solid_args]) and the fractions, the Dirichlet
+    # surface and the merge groups are re-cut every step at t + dt
+    moving_solid: bool = False
+    # its scheme's order (AdvectionParams moving_order, src/advection.h:60,
+    # src/moving2.c): 2 takes the time-centred face fractions and fills
+    # the uncovered cells from their fluid neighbours
+    moving_order: int = 1
+    # the axisymmetric metric (GfsAxi), 2D: y is the radius, and the cell
+    # and face factors r enter the weights as a solid's fractions do
+    axi: bool = False
+    # a general orthogonal metric (core/metric.py: MetricStretch,
+    # MetricLonLat, MetricCubed), 2D, composed into the weights as axi is
+    metric: object = None
 
     def __post_init__(self):
         if self.p_bc is None:
@@ -171,6 +196,30 @@ class NSConfig:
                 raise NotImplementedError(
                     "a variable viscosity with a solid: the reference does "
                     "not compose them (gerris_tpu/models/ns.py:894-895)")
+        if self.moving_solid:
+            if self.solid_phi is None:
+                raise ValueError("a moving solid needs its solid_phi")
+            if self.axi:
+                raise NotImplementedError(
+                    "a moving solid with the axisymmetric metric: the "
+                    "reference does not compose them "
+                    "(gerris_tpu/models/ns.py:897)")
+            if self.metric is not None:
+                raise NotImplementedError(
+                    "a moving solid with a metric: the reference's moving "
+                    "step drops the metric (gerris_tpu/models/ns.py:"
+                    "896-903)")
+        if self.axi or self.metric is not None:
+            if self.grid.dim == 3:
+                raise NotImplementedError(
+                    "a metric in the 3D step: the reference's metric "
+                    "factors are 2D (gerris_tpu/models/ns.py:600-612, "
+                    "core/metric.py)")
+            if self.nu_var is not None:
+                raise NotImplementedError(
+                    "a variable viscosity with a metric: the reference's "
+                    "weighted viscous solve takes the scalar nu "
+                    "(gerris_tpu/models/ns.py:418-432)")
         if self.grid.dim == 3:
             if self.tension_css:
                 raise NotImplementedError("CSS tension is 2D, as the "
@@ -238,64 +287,218 @@ def _pair_route(grid: Grid, cfg: NSConfig, rho=None, mu=None) -> bool:
 
 
 @dataclasses.dataclass
-class SolidContext:
-    """A static solid's geometry on one device and dtype: the Dirichlet
-    surface ``ds`` (solid.DirichletSurface, which holds the volume
-    fractions ``a`` and the face fractions ``s``) and the merge groups
-    (solid.merge_groups)."""
-    ds: solid_mod.DirichletSurface
-    groups: solid_mod.MergeGroups
+class Weights:
+    """The step's cell and face weights on one device and dtype (reference
+    ns.py:615-639, :764-765): the cell weights ``a`` and per-axis face
+    weights ``s`` (a solid's fractions, a metric's factors, or their
+    products), the solid's Dirichlet surface ``ds`` (a
+    solid.DirichletSurface) and its merge groups (solid.MergeGroups), or
+    None without a solid.  A moving solid's order 2 adds the time-centred
+    face fractions ``s_half`` (the advection's fluxes and the MAC
+    projection's faces) and the old cell fractions ``a_old`` (the MAC
+    projection's)."""
+    a: torch.Tensor
+    s: tuple
+    ds: solid_mod.DirichletSurface = None
+    groups: solid_mod.MergeGroups = None
+    s_half: tuple = None
+    a_old: torch.Tensor = None
 
-    @property
-    def a(self) -> torch.Tensor:
-        return self.ds.a
 
-    @property
-    def s(self) -> tuple:
-        return self.ds.s
+def _axi_metric(grid: Grid, device, dtype) -> tuple:
+    """(cm, (fmx, fmy)): the axisymmetric metric's cell and face factors,
+    r = y at the cell centres and at the y faces (GfsAxi; reference
+    ns.py:599-612, src/metric.c)."""
+    yc = torch.as_tensor(grid.axis_centers(1), dtype=torch.float64,
+                         device=device).to(dtype)[None, :]
+    yf = torch.as_tensor(grid.axis_faces(1), dtype=torch.float64,
+                         device=device).to(dtype)[None, :]
+    return (yc.expand(grid.shape).contiguous(),
+            (yc.expand(grid.face_shape(0)).contiguous(),
+             yf.expand(grid.face_shape(1)).contiguous()))
 
 
 # two entries: a configuration runs on one device in one dtype, and at
 # most once more in float64 for a check; each entry holds about nine
 # full-grid tensors on its device
 @functools.lru_cache(maxsize=2)
-def _solid_ctx(grid: Grid, solid_phi, device, dtype) -> SolidContext:
-    """The solid's geometry, built once per (grid, level set, device,
-    dtype) on the device (reference ns.py:770-780, which caches the
-    fractions and the Dirichlet surface per (grid, phi)), with the merge
-    groups of the merged-cell update."""
-    ds = solid_mod.DirichletSurface(grid, solid_phi, device=device,
-                                    dtype=dtype)
-    return SolidContext(ds, solid_mod.merge_groups(ds.a, ds.s))
+def _static_weights(grid: Grid, solid_phi, axi: bool, metric, device,
+                    dtype) -> Weights:
+    """The weights of a static solid, the axisymmetric or general metric,
+    or both, built once per configuration, device and dtype (reference
+    ns.py:615-639, :770-780, which caches the fractions and the Dirichlet
+    surface per (grid, phi)): the solid's fractions (if any) times the
+    metrics' factors, as the reference multiplies them, with the solid's
+    Dirichlet surface and the merge groups of the products.  The groups
+    take only the cells the solid cuts: the reference's merged-cell
+    update also merges cells a metric's weights make small (trap in
+    ROADMAP Queue 3); without a solid there are none."""
+    a = s = ds = None
+    if solid_phi is not None:
+        ds = solid_mod.DirichletSurface(grid, solid_phi, device=device,
+                                        dtype=dtype)
+        a, s = ds.a, ds.s
+    for on, factors in ((axi, lambda: _axi_metric(grid, device, dtype)),
+                        (metric is not None,
+                         lambda: metric.weights(grid, device, dtype))):
+        if on:
+            cm, fm = factors()
+            a = cm if a is None else a * cm
+            s = fm if s is None else tuple(f * m for f, m in zip(s, fm))
+    if ds is None:
+        return Weights(a, s)
+    cut = (ds.a > 0.0) & (ds.a < 1.0)
+    return Weights(a, s, ds, solid_mod.merge_groups(a, s, cut))
 
 
 def _weights(cfg: NSConfig, like):
-    """The step's cell and face weights (reference ns.py:615-639): a
-    static solid's SolidContext on ``like``'s device and dtype, or None.
-    The axisymmetric and general metrics, whose factors the reference
-    multiplies into the same weights, are slice 4c (config_from_jax
-    refuses them)."""
-    if cfg.solid_phi is None:
+    """The step's weights (Weights) on ``like``'s device and dtype, or
+    None without a solid or a metric (reference ns.py:615-639): a static
+    solid's fractions, the axisymmetric metric's and ``metric``'s factors,
+    or their products."""
+    if cfg.solid_phi is None and not cfg.axi and cfg.metric is None:
         return None
-    return _solid_ctx(cfg.grid, cfg.solid_phi, like.device, like.dtype)
+    return _static_weights(cfg.grid, cfg.solid_phi, cfg.axi, cfg.metric,
+                           like.device, like.dtype)
+
+
+def _eval_surface_u(us, x, y, t):
+    """A surface velocity's value: a constant, or f(x, y, t), or failing
+    that f(x, y) (reference ns.py:642-649)."""
+    if callable(us):
+        try:
+            return us(x, y, t)
+        except TypeError:
+            return us(x, y)
+    return us
+
+
+def _redistribute_small(src, a, s):
+    """The divergence source of the small cut cells (0 < a < 1/2) moved
+    into the neighbour across each one's largest face fraction (the first
+    of x lo, x hi, y lo, y hi among equals), the dense stand-in for the
+    reference's merged-cell distribution (reference ns.py:652-671,
+    src/moving.c:1000-1025).  As the reference, it moves them by a
+    periodic roll: a small cell whose largest face is a box side sends its
+    source across the box (ROADMAP Queue 3)."""
+    sx, sy = s
+    fr = torch.stack([sx[:-1, :], sx[1:, :], sy[:, :-1], sy[:, 1:]])
+    small = (a < 0.5) & (a > 0.0)
+    d = torch.argmax(fr, dim=0)
+    moved = torch.where(small, src, 0.0)
+    out = src - moved
+    for k, (axis, shift) in enumerate(((0, -1), (0, 1), (1, -1), (1, 1))):
+        out = out + torch.roll(torch.where(d == k, moved, 0.0), shift, axis)
+    return out
+
+
+def _fill_order2(u, a, a_old, us):
+    """Order 2's fill (reference ns.py:714-735, moving2.c:488-560): each
+    freshly uncovered cell takes the mean of its neighbours that held
+    fluid at both times, in two rings (a cell filled in the first ring
+    counts in the second), else the surface velocity ``us``; the solid
+    keeps ``us``."""
+    valid = (a > 0.0) & (a_old > 0.0)
+    vmask = valid
+    for _ in range(2):
+        up = torch.nn.functional.pad(torch.where(vmask, u, 0.0),
+                                     (1, 1, 1, 1))
+        vp = torch.nn.functional.pad(vmask.to(u.dtype), (1, 1, 1, 1))
+        ssum = up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2] + up[1:-1, 2:]
+        cnt = vp[:-2, 1:-1] + vp[2:, 1:-1] + vp[1:-1, :-2] + vp[1:-1, 2:]
+        fill = torch.where(cnt > 0.0, ssum / torch.clamp(cnt, min=1.0), us)
+        fresh = (a > 0.0) & ~vmask
+        u = torch.where(fresh, fill, u)
+        vmask = vmask | (fresh & (cnt > 0.0))
+    return torch.where(a > 0.0, u, us)
+
+
+def _moving_weights(cfg: NSConfig, U: list, dt, t, solid_args=None):
+    """A moving solid's step context (reference ns.py:674-766): (Weights,
+    the filled velocities, the MAC projection's divergence source, the
+    approximate projection's).  The fractions at t (a_old, s_old); the
+    Dirichlet surface, the fractions (a, s) and the merge groups at t + dt
+    (move_solids before the step, src/moving.c:949-990); the surface
+    velocity at the cell centres at t + dt, ``solid_args`` passed on to
+    ``solid_phi`` and ``surface_u`` after (x, y, t).  Order 1: the cells
+    uncovered since t and the solid take the surface velocity
+    (init_new_cell_velocity_from_solid, moving.c:135-140); order 2: the
+    fill of _fill_order2, and s_half = (s_old + s) / 2.  The MAC source
+    2 (a - a_old) / dt^2, redistributed with (a, s), or with (a_old,
+    s_half) at order 2 (moving.c:1043-1068, moving2.c:744-780); the
+    approximate source -u_s . (s_hi - s_lo) / (h dt) on the fluid cells,
+    redistributed with (a, s) (moving.c:993-998)."""
+    grid = cfg.grid
+    like = U[0]
+    dev, dtype = like.device, like.dtype
+    extra = tuple(solid_args) if solid_args is not None else ()
+    a_old, s_old = solid_mod.solid_fractions(
+        grid, lambda x, y: cfg.solid_phi(x, y, t, *extra), dev, dtype)
+    ds = solid_mod.DirichletSurface(
+        grid, lambda x, y: cfg.solid_phi(x, y, t + dt, *extra), device=dev,
+        dtype=dtype)
+    a, s = ds.a, ds.s
+    x, y = cell_centers(grid, dev, dtype)
+    if solid_args is not None and cfg.surface_u is not None:
+        us = [f(x, y, t + dt, *extra) if callable(f) else f
+              for f in cfg.surface_u]
+    else:
+        us = [_eval_surface_u(cfg.surface_u[c] if cfg.surface_u else 0.0,
+                              x, y, t + dt) for c in range(2)]
+    us = [u.to(dtype) if isinstance(u, torch.Tensor) else u for u in us]
+    s_half = a_mac = None
+    if cfg.moving_order >= 2:
+        U = [_fill_order2(U[c], a, a_old, us[c]) for c in range(2)]
+        s_half = tuple(0.5 * (s_old[c] + s[c]) for c in range(2))
+        mac_div = _redistribute_small(2.0 * (a - a_old) / (dt * dt), a_old,
+                                      s_half)
+        a_mac = a_old
+    else:
+        keep = (a > 0.0) & (a_old > 0.0)
+        U = [torch.where(keep, U[c], us[c]) for c in range(2)]
+        mac_div = _redistribute_small(2.0 * (a - a_old) / (dt * dt), a, s)
+    approx_div = -(us[0] * (s[0][1:, :] - s[0][:-1, :])
+                   + us[1] * (s[1][:, 1:] - s[1][:, :-1])) / (grid.h * dt)
+    approx_div = _redistribute_small(torch.where(a > 0.0, approx_div, 0.0),
+                                     a, s)
+    w = Weights(a, s, ds, solid_mod.merge_groups(a, s), s_half, a_mac)
+    return w, U, mac_div, approx_div
 
 
 def solid_velocity_diffusion(v, ds, us_v, grid: Grid, fbc: bcs.FieldBC, dt,
                              nu, a, s, beta, params, extra_rhs,
-                             t: float = 0.0):
-    """The implicit viscous solve on cut cells with the Dirichlet velocity
-    ``us_v`` on the embedded surface ``ds`` (a DirichletSurface; reference
-    ns.py:783-818, GfsSurfaceBc src/timestep.c:1062-1229, src/poisson.c:
-    561-586): a u - beta dt [div(nu s grad u) + nu ell (u_s - u_probe) /
-    (d_p h^2)] = a v + extra, as div(beta dt nu s grad u) - (a + beta dt
-    nu dia_s) u = -(a v + extra + beta dt nu dia_s u_s) with the probe
-    term deferred-corrected in two solves (face coefficients and a cell
-    dia: K15 in every correction)."""
+                             t: float = 0.0, extra_dia=None):
+    """The implicit viscous solve with cell weights ``a`` and face weights
+    ``s`` (cut cells and metric factors; reference ns.py:783-818, GfsSurfaceBc
+    src/timestep.c:1062-1229, src/poisson.c:561-586): a u - beta dt
+    [div(nu s grad u) + nu ell (u_s - u_probe) / (d_p h^2)] + beta dt nu
+    extra_dia u = a v + extra, as div(beta dt nu s grad u) - (a + beta dt
+    nu (dia_s + extra_dia)) u = -(a v + extra + beta dt nu dia_s u_s),
+    with the Dirichlet velocity ``us_v`` on the embedded surface ``ds``
+    (a DirichletSurface) and its probe term deferred-corrected in two
+    solves; without a surface (a metric alone) one solve.  ``extra_dia``:
+    the axisymmetric radial term a / r^2 of component 1, or None.  Face
+    coefficients and a cell dia: K15 in every correction.  A callable
+    ``us_v`` is called f(x, y) at the surface points, as the reference
+    calls it (gerris_tpu/physics/solid.py:233-236): one that takes more
+    arguments raises NotImplementedError, where the reference fails."""
     scale = beta * dt * nu
-    alpha = tuple(scale * s[c] for c in range(grid.dim))
-    dia = a + scale * ds.dia
-    base = -(a * v + extra_rhs + scale * ds.dia * ds.surface_value(us_v, t))
+    alpha = tuple(scale * f for f in s)
+    dia = a if extra_dia is None else a + scale * extra_dia
     params = diff.params_or_default(params)
+    if ds is None:
+        return poisson.solve(v, -(a * v + extra_rhs), grid, fbc, params,
+                             alpha=alpha, dia=dia, t=t)[0]
+    try:
+        usv = ds.surface_value(us_v, t)
+    except TypeError as err:
+        raise NotImplementedError(
+            "a surface velocity that is not a constant or f(x, y) in a "
+            "viscous step: the reference calls it f(x, y) at the surface "
+            "points (gerris_tpu/physics/solid.py:233-236) and fails") \
+            from err
+    dia = dia + scale * ds.dia
+    base = -(a * v + extra_rhs + scale * ds.dia * usv)
     u = v
     for _ in range(2):
         u, _ = poisson.solve(u, base + ds.correction(u, scale), grid, fbc,
@@ -304,41 +507,51 @@ def solid_velocity_diffusion(v, ds, us_v, grid: Grid, fbc: bcs.FieldBC, dt,
 
 
 def _solid_component(v, c: int, uf: list, uc_pad: list, gmac, gp, grid: Grid,
-                     cfg: NSConfig, dt, solid: SolidContext, rho, source,
+                     cfg: NSConfig, dt, w: Weights, rho, source,
                      t: float):
-    """One velocity component's advection and diffusion with a solid
+    """One velocity component's advection and diffusion with weights
     (reference ns.py:375-445): the generic route's face values with fluxes
-    through the face fractions, the merged-cell update, the gc and source
-    terms, the Dirichlet-surface viscous solve (u_s from ``surface_u``, 0
-    without it), and zero in the solid."""
+    through the face weights (``s_half`` at a moving solid's order 2),
+    the merged-cell update where a solid cuts cells (the plain (a v + fv)
+    / a elsewhere and without one), the gc and source terms, the viscous
+    solve (solid_velocity_diffusion: the Dirichlet surface with u_s from
+    ``surface_u``, 0 without it; the axisymmetric a / r^2 term on
+    component 1), and zero where a = 0."""
     fbc = cfg.u_bcs[c]
     fv_acc = adv.advection_increment(
         v, uf, uc_pad, grid, fbc, dt, cfg.advection, c=c,
         g_pad=bcs.apply_bc(gmac, grid, bcs.grad_bc(cfg.u_bcs[0]), 1,
                            corners=False),
-        t=t, face_frac=solid.s)
-    merged = solid_mod.merged_cell_update(v, fv_acc, solid.a, solid.s,
-                                          solid.groups)
-    fv = torch.where(solid.a > 0.0, merged - v, 0.0)
+        t=t, face_frac=w.s if w.s_half is None else w.s_half)
+    if w.groups is None:
+        merged = solid_mod.cell_update(v, fv_acc, w.a)
+    else:
+        merged = solid_mod.merged_cell_update(v, fv_acc, w.a, w.s, w.groups)
+    fv = torch.where(w.a > 0.0, merged - v, 0.0)
     if gp is not None:
         fv = fv - dt * gp
     if source is not None:
         fv = fv + dt * source
     if cfg.nu > 0.0:
-        a_w = solid.a if rho is None else rho * solid.a
+        a_w = w.a if rho is None else rho * w.a
         us = 0.0 if cfg.surface_u is None else cfg.surface_u[c]
-        v_new = solid_velocity_diffusion(v, solid.ds, us, grid, fbc, dt,
-                                         cfg.nu, a_w, solid.s, cfg.beta,
-                                         cfg.diffusion_params, a_w * fv, t)
+        extra_dia = None
+        if cfg.axi and c == 1:
+            yc = cell_centers(grid, v.device, v.dtype)[1][:1]
+            extra_dia = w.a / (yc * yc)
+        v_new = solid_velocity_diffusion(v, w.ds, us, grid, fbc, dt, cfg.nu,
+                                         a_w, w.s, cfg.beta,
+                                         cfg.diffusion_params, a_w * fv, t,
+                                         extra_dia=extra_dia)
     else:
         v_new = v + fv
-    return torch.where(solid.a > 0.0, v_new, 0.0)
+    return torch.where(w.a > 0.0, v_new, 0.0)
 
 
 def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
                                  grid: Grid, cfg: NSConfig, dt, rho=None,
                                  mu=None, sources=None, t: float = 0.0,
-                                 solid: SolidContext = None):
+                                 solid: Weights = None):
     """BCG advection of each component with the MAC faces, the gmac face
     correction and the -dt g_prev gc term, then its implicit diffusion
     (reference: src/timestep.c:976-1017; gerris_tpu ns.py:257-374).  With
@@ -365,9 +578,9 @@ def velocity_advection_diffusion(U: list, uf: list, gmac: list, g_prev,
     335-347, 375-447, adv.advection_increment: the BCG face values with
     the MAC faces' cell means as the advecting velocity, upwinded by the
     MAC faces, minus the face mean of gmac times dt/2), then diffuse.
-    With a ``solid`` every component takes that generic route too, with
-    the cut-cell update of _solid_component (no K7 or K14, ns.py:257,
-    :342).  Callable BC values are evaluated at time ``t``."""
+    With weights ``solid`` (a solid, a metric) every component takes that
+    generic route too, with the update of _solid_component (no K7 or K14,
+    ns.py:257, :342).  Callable BC values are evaluated at time ``t``."""
     fold = cfg.nu > 0.0 and cfg.beta == 1.0 and rho is None and mu is None \
         and sources is None
     dia = 1.0 / (dt * cfg.nu) if fold else None
@@ -662,7 +875,8 @@ def _close_faces(uf: list, sfrac) -> list:
 
 
 def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
-            first_step: bool = False, cstart: int = 0) -> dict:
+            first_step: bool = False, cstart: int = 0,
+            solid_args=None) -> dict:
     """One full time step from time ``t``; ``state`` holds U, V[, W], P,
     Pmac, the VOF and passive tracers, and with gc (the default) Gx,
     Gy[, Gz].  ``dt`` is a host float (the
@@ -670,7 +884,10 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
     values, a callable body force and ``nu_var`` are evaluated at ``t``
     throughout the step, as the reference does.  ``cstart``: the VOF
     advection's first sweep direction (Simulation rotates it,
-    src/vof.c:1648,1721).  Returns a new state dict."""
+    src/vof.c:1648,1721).  ``solid_args``: a moving solid's extra
+    arguments of ``solid_phi`` and ``surface_u`` after (x, y, t), e.g. a
+    rigid body's state as 0-d tensors (models/rigid.py).  Returns a new
+    state dict."""
     grid = cfg.grid
     dim = grid.dim
     names = velocity_names(dim)
@@ -689,26 +906,37 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
             U, mu, grid, cfg, None if rho_c is None else 1.0 / rho_c, t)
         sources = ts if sources is None else \
             [a + b for a, b in zip(ts, sources)]
-    solid = _weights(cfg, U[0])
+    mac_src = apx_src = None
+    if cfg.moving_solid:
+        solid, U, mac_src, apx_src = _moving_weights(cfg, U, dt, t,
+                                                     solid_args)
+    else:
+        solid = _weights(cfg, U[0])
     sfrac = vfrac = None
     if solid is not None:
         sfrac, vfrac = solid.s, solid.a
+    # a moving solid's order 2 projects the MAC faces with the time-centred
+    # face fractions and the old cell fractions (ns.py:926-935)
+    mac_s, mac_a = sfrac, vfrac
+    if solid is not None and solid.s_half is not None:
+        mac_s, mac_a = solid.s_half, solid.a_old
     # 1-2. prediction, MAC projection at dt/2 (the reference swaps P and
     # Pmac around it, src/simulation.c:498-504).  div_in_src (2D): each
     # projection's divergence comes out of the launch that builds its
-    # faces, unless face sources, coefficients or a solid touch the faces
-    # first.  The predictor and the face interpolation ignore a solid; its
-    # closed faces are zeroed after them (reference ns.py:931-934, :979)
+    # faces, unless face sources, coefficients or weights touch the faces
+    # first.  The predictor and the face interpolation ignore the weights;
+    # the closed faces are zeroed after them (reference ns.py:931-934,
+    # :979)
     fold = cfg.div_in_src and dim == 2 and fs is None and alpha is None \
         and solid is None
     uf, mac_divp = predicted_face_velocities(
         U, grid, cfg, dt,
         div_scale=1.0 / (grid.h * (dt / 2.0)) if fold else None, t=t)
-    uf = _close_faces(uf, sfrac)
+    uf = _close_faces(uf, mac_s)
     uf, pmac, gmac, _, _ = proj.mac_projection(
         uf, state["Pmac"], grid, cfg.p_bc, dt / 2.0, cfg.projection,
-        div_pre=mac_divp, alpha=alpha, face_sources=fs, face_frac=sfrac,
-        vol_frac=vfrac, t=t)
+        div_pre=mac_divp, alpha=alpha, face_sources=fs, div_source=mac_src,
+        face_frac=mac_s, vol_frac=mac_a, t=t)
     # 3. at i == 0 the gc gradient role is played by this step's gmac
     # (src/simulation.c:514-521)
     if gc and first_step:
@@ -725,7 +953,8 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
     uf2, p, g_cell, _, U = proj.mac_projection(
         _close_faces(uf2, sfrac), state["P"], grid, cfg.p_bc, dt,
         cfg.approx_projection, cells=U, div_pre=apx_divp, alpha=alpha,
-        face_sources=fs, face_frac=sfrac, vol_frac=vfrac, t=t)
+        face_sources=fs, div_source=apx_src, face_frac=sfrac,
+        vol_frac=vfrac, t=t)
     if solid is not None:
         U = [torch.where(solid.a > 0.0, u, 0.0) for u in U]
     new = dict(state)
@@ -747,19 +976,25 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
 
 
 def initial_projection(state: dict, dt: float, t: float,
-                       cfg: NSConfig) -> dict:
+                       cfg: NSConfig, solid_args=None) -> dict:
     """The i == 0 approximate projection that makes the initial field
     divergence-free and seeds the gc gradient (src/simulation.c:466-474),
     with the density's face coefficients and no face sources: the
     reference's curvature is not evaluated yet at that time, and its body
     force is not applied there either (gerris_tpu ns.py:1014-1044,
-    src/poisson.c:929-936)."""
+    src/poisson.c:929-936).  A moving solid takes its fractions at ``t``
+    (reference ns.py:1026-1029), ``solid_args`` passed on to
+    ``solid_phi`` after (x, y, t)."""
     names = velocity_names(cfg.dim)
     U = [state[n] for n in names]
     _, alpha = density_fields(state, cfg, t)
-    solid = _weights(cfg, U[0])
     sfrac = vfrac = None
-    if solid is not None:
+    if cfg.moving_solid:
+        extra = tuple(solid_args) if solid_args is not None else ()
+        vfrac, sfrac = solid_mod.solid_fractions(
+            cfg.grid, lambda x, y: cfg.solid_phi(x, y, t, *extra),
+            U[0].device, U[0].dtype)
+    elif (solid := _weights(cfg, U[0])) is not None:
         sfrac, vfrac = solid.s, solid.a
     uf, _, _ = proj.face_interpolated_velocity(U, cfg.grid, list(cfg.u_bcs),
                                                t=t)

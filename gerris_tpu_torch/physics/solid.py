@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core.device import default_device
-from ..core.grid import Grid
+from ..core.grid import Grid, center_coords, vertex_coords
 from . import vof
 
 
@@ -37,9 +37,7 @@ def _tiny(t: torch.Tensor) -> float:
 
 def _vertex_values(grid: Grid, phi, device, dtype):
     """phi at the (n0 + 1) x (n1 + 1) cell vertices (2D)."""
-    X, Y = np.meshgrid(grid.axis_faces(0), grid.axis_faces(1), indexing="ij")
-    return phi(torch.as_tensor(X, dtype=dtype, device=device),
-               torch.as_tensor(Y, dtype=dtype, device=device))
+    return phi(*vertex_coords(grid, device, dtype))
 
 
 def _edge_fraction(p0, p1):
@@ -199,8 +197,7 @@ class DirichletSurface:
         self.length, _ = surface_geometry(grid, phi, device, dtype)
         self.mixed = self.length > 0.0
         h = grid.h
-        x, y = (torch.as_tensor(c, dtype=dtype, device=device)
-                for c in grid.centers)
+        x, y = center_coords(grid, device, dtype)
         sx_ = x + dsurf * nx * h
         sy_ = y + dsurf * ny * h
         self.surf_xy = (sx_, sy_)
@@ -308,12 +305,12 @@ def poisson_solid_solve(rhs_pointwise, grid: Grid, phi, fbc, params,
 
 @dataclasses.dataclass
 class MergeGroups:
-    """The merge groups of one (a, s), static per configuration: every
-    cell of a group of two or more as ``members`` (flat indices, grouped,
-    each group in increasing index order), ``index`` (ngroups, width)
+    """The merge groups of one (a, s): the cells of the groups (each of two
+    or more) as ``members`` (flat indices, grouped, each group in
+    increasing index order), ``index`` (groups, the largest group's size)
     member positions into ``members`` padded with len(members) (a zero
-    slot), and ``group`` each member's group number.  The cells of no
-    group are their own singletons."""
+    slot), and ``group`` each member's row.  The cells of no group are
+    their own singletons."""
     members: torch.Tensor
     index: torch.Tensor
     group: torch.Tensor
@@ -323,13 +320,17 @@ class MergeGroups:
         return self.index.shape[0]
 
 
-def _merge_targets(a, s):
+def _merge_targets(a, s, cut=None):
     """(small, target): the small cut cells (a / s_d < 1/2 through some
-    open face, 0 < a < 1) and each cell's best neighbour's flat index, a
-    full neighbour through an open face before the mixed one of largest a
-    (the first in the order x lo, x hi, y lo, y hi[, z lo, z hi] among
-    equals, and x lo when none qualifies), as the reference picks them
-    (solid.py:318-347, src/advection.c:595-667)."""
+    open face, among the cells ``cut``: by default 0 < a < 1) and each
+    cell's best neighbour's flat index, a full neighbour through an open
+    face before the mixed one of largest a (the first in the order x lo,
+    x hi, y lo, y hi[, z lo, z hi] among equals, and x lo when none
+    qualifies), as the reference picks them (solid.py:318-347,
+    src/advection.c:595-667).  With a metric, ``a`` and ``s`` are the
+    products of the fractions and the metric's factors, and ``cut`` the
+    cells the solid cuts: the C merges cut cells only (trap of the
+    reference, ROADMAP Queue 3)."""
     dim = a.dim()
     shape = a.shape
     flat = torch.arange(a.numel(), device=a.device).reshape(shape)
@@ -351,49 +352,77 @@ def _merge_targets(a, s):
             ok = (s_d > 0.0) & (a_nb > 0.0)
             score.append(torch.where(ok, a_nb + 1e6 * (a_nb >= 1.0), -1.0))
             targets.append(torch.roll(flat, -shift, ax))
-    small = small & (a > 0.0) & (a < 1.0)
+    small = small & ((a > 0.0) & (a < 1.0) if cut is None else cut)
     best = torch.argmax(torch.stack(score), dim=0)
     tgt = torch.gather(torch.stack(targets), 0, best[None])[0]
     return small, tgt
 
 
-def merge_groups(a, s) -> MergeGroups:
-    """The transitive merge groups of the small cut cells: the connected
-    components of the links small cell - its target (_merge_targets),
-    labelled by their least flat index by propagating the least label
-    across the links and pointer jumping to a fixed point, on the device
-    of ``a``.  The reference (solid.py:350-351) follows each cell's target
-    two hops only, so a mutual pair of small cells, or a chain of more than
-    four, does not end in one group (ROADMAP Queue 3); the C builds the
-    full transitive merge (src/advection.c:613-667), as this does."""
-    small, tgt = _merge_targets(a, s)
-    src = torch.nonzero(small.reshape(-1)).squeeze(1)
-    dst = tgt.reshape(-1)[src]
-    label = torch.arange(a.numel(), device=a.device)
-    while True:
-        m = torch.minimum(label[src], label[dst])
-        new = label.scatter_reduce(0, src, m, "amin")
-        new = new.scatter_reduce(0, dst, m, "amin")
-        new = new[new]
-        if torch.equal(new, label):
-            break
-        label = new
-    counts = torch.bincount(label, minlength=a.numel())
-    members = torch.nonzero(counts[label] > 1).squeeze(1)
-    # group the members by label; a stable sort keeps each group's members
-    # in increasing flat index
-    lab = label[members]
-    order = torch.sort(lab, stable=True).indices
-    members, lab = members[order], lab[order]
-    _, group, sizes = torch.unique_consecutive(lab, return_inverse=True,
-                                               return_counts=True)
-    width = int(sizes.max()) if sizes.numel() else 1
-    start = torch.cumsum(sizes, 0) - sizes
-    pos = torch.arange(members.numel(), device=a.device) - start[group]
-    index = torch.full((sizes.numel(), width), members.numel(),
-                       dtype=torch.long, device=a.device)
-    index[group, pos] = torch.arange(members.numel(), device=a.device)
+def merge_groups(a, s, cut=None) -> MergeGroups:
+    """The transitive merge groups of the small cut cells (among ``cut``,
+    _merge_targets), on the device of ``a`` in two host reads whatever
+    the groups' sizes or the chains' lengths: the linked cells (the small
+    ones and their targets; nonzero), then the count of groups and the
+    largest.  Each small cell links to one target, so a group (a
+    connected component of the links) holds one root, a target that is
+    not small, or one cycle, a mutual pair or longer; ceil(log2(count))
+    passes of pointer doubling take every cell to its root or round its
+    cycle, carrying the least slot on the way, and each group is labelled
+    by its least flat index.  Rows are the groups in increasing least
+    index, each group's members in increasing flat index (so
+    merged_cell_update sums them in the same order on every run).  The
+    reference (solid.py:350-351) follows each cell's target two hops
+    only, so a mutual pair of small cells, or a chain of more than four,
+    does not end in one group (ROADMAP Queue 3); the C builds the full
+    transitive merge (src/advection.c:613-667), as this does."""
+    dev = a.device
+    n = a.numel()
+    small, tgt = _merge_targets(a, s, cut)
+    small, tgt = small.reshape(-1), tgt.reshape(-1)
+    linked = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    linked[:n] = small
+    linked.index_put_((torch.where(small, tgt, n),),
+                      torch.ones((), dtype=torch.bool, device=dev))
+    members = torch.nonzero(linked[:n]).squeeze(1)
+    count = members.numel()
+    slots = torch.arange(count, device=dev)
+    # each small member's target's slot (members are sorted), else its own
+    nxt = torch.where(small[members],
+                      torch.searchsorted(members, tgt[members]), slots)
+    least = slots
+    for _ in range(max(count - 1, 1).bit_length()):
+        least = torch.minimum(least, least[nxt])
+        nxt = nxt[nxt]
+    # the least slot of each cell's root or cycle, then of its group
+    root = least[nxt]
+    label = torch.full((count,), count, dtype=torch.long, device=dev)
+    label = label.scatter_reduce(0, root, slots, "amin")[root]
+    order = torch.sort(label, stable=True).indices
+    members, label = members[order], label[order]
+    first = torch.ones(count, dtype=torch.bool, device=dev)
+    first[1:] = label[1:] != label[:-1]
+    group = torch.cumsum(first, 0) - 1
+    pos = slots - torch.cummax(torch.where(first, slots, 0), 0).values
+    ngroups, width = torch.stack([first.sum(), torch.cat(
+        [pos, pos.new_zeros(1)]).max() + 1]).tolist()
+    index = torch.full((ngroups, width), count, dtype=torch.long, device=dev)
+    index[group, pos] = slots
     return MergeGroups(members=members, index=index, group=group)
+
+
+def _row_sums(rows):
+    """Each row's sum, its columns added left to right."""
+    out = rows[:, 0]
+    for k in range(1, rows.shape[1]):
+        out = out + rows[:, k]
+    return out
+
+
+def cell_update(v, fv, a):
+    """(a v + fv) / a on the cells of a > 0, v elsewhere: the advection
+    update of a cell that merges with none (merged_cell_update's
+    singletons; the whole update where no solid cuts a cell)."""
+    return torch.where(a > 0.0, (a * v + fv) / torch.clamp(a, min=1e-30), v)
 
 
 def merged_cell_update(v, fv, a, s, groups: MergeGroups = None):
@@ -404,9 +433,9 @@ def merged_cell_update(v, fv, a, s, groups: MergeGroups = None):
     gfs_advection_update src/advection.c:784-851).  ``fv``: the
     accumulated increment (the flux sum, not yet divided by a).
     ``groups``: merge_groups(a, s), built here when not given.  A group's
-    sums run over its members in a fixed order (a padded row summed along
-    it), so they give the same bits on every run; the reference's
-    scatter-add has no fixed order on the card."""
+    sums run over its members left to right (_row_sums), so they give the
+    same bits on every run; the reference's scatter-add has no fixed
+    order on the card."""
     if groups is None:
         groups = merge_groups(a, s)
     num = a * v + fv
@@ -414,8 +443,8 @@ def merged_cell_update(v, fv, a, s, groups: MergeGroups = None):
     if groups.ngroups:
         nf, af = num.reshape(-1), a.reshape(-1)
         zero = torch.zeros(1, dtype=v.dtype, device=v.device)
-        gnum = torch.cat([nf[groups.members], zero])[groups.index].sum(1)
-        gden = torch.cat([af[groups.members], zero])[groups.index].sum(1)
+        gnum = _row_sums(torch.cat([nf[groups.members], zero])[groups.index])
+        gden = _row_sums(torch.cat([af[groups.members], zero])[groups.index])
         w.view(-1)[groups.members] = (gnum / torch.clamp(gden, min=1e-30))[
             groups.group]
     return torch.where(a > 0.0, w, v)

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from ..core import bc as bcs
 from ..core.device import default_device
-from ..core.grid import Grid
+from ..core.grid import Grid, vertex_coords
 
 EPS = 1e-30
 FULL_TOL = 1e-10   # reference: f_over_dV clamping, src/vof.c:1616
@@ -1024,10 +1024,7 @@ def fraction_from_levelset(grid: Grid, phi, refine: int = 0, device=None,
         return f.reshape(sh).mean(dim=tuple(range(1, 2 * grid.dim, 2)))
     if grid.dim == 3:
         return _fraction_3d(grid, phi, device, dtype)
-    X, Y = np.meshgrid(grid.axis_faces(0), grid.axis_faces(1),
-                       indexing="ij")
-    pv = phi(torch.as_tensor(X, dtype=dtype, device=device),
-             torch.as_tensor(Y, dtype=dtype, device=device))
+    pv = phi(*vertex_coords(grid, device, dtype))
     p00 = pv[:-1, :-1]
     p10 = pv[1:, :-1]
     p01 = pv[:-1, 1:]

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core import bc as bcs
+from ..core import metric as metric_mod
 from ..core.device import default_device
 from ..core.grid import Grid
 from ..models import ns
@@ -29,10 +30,11 @@ _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "div_in_src", "pair_advect", "rr_in_advect", "vof_tracers",
                  "tension", "density", "body_force", "nu_var",
                  "nu_var_fields", "tracers", "tension_css", "solid_phi",
-                 "surface_u"}
+                 "surface_u", "moving_solid", "moving_order", "axi",
+                 "metric"}
 # the later slices of the fields outside this one (ROADMAP Queue 1)
-_LATER = {"moving_solid": "slice 4b", "moving_order": "slice 4b",
-          "axi": "slice 4c", "metric": "slice 4c"}
+_LATER = {"block_advect": "slice 5", "composite_vof": "slice 5",
+          "particle_coupling": "slice 6"}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
@@ -148,6 +150,41 @@ def _surface_u(su, given):
         if callable(v) else float(v) for c, v in enumerate(su))
 
 
+# the metrics of core/metric.py by class name, and their fields
+_METRICS = {"MetricStretch": (metric_mod.MetricStretch, ("sx", "sy")),
+            "MetricLonLat": (metric_mod.MetricLonLat, ("scale",)),
+            "MetricCubed": (metric_mod.MetricCubed, ("a",)),
+            "MapTransform": (metric_mod.MapTransform, ("tx", "ty", "angle")),
+            "MapProjection": (metric_mod.MapProjection,
+                              ("kind", "L", "lon0"))}
+
+
+def metric_from_jax(m):
+    """A JAX metric or mapping of gerris_tpu/core/metric.py -> the port's,
+    read by its class name and fields (None stays None); another class
+    raises NotImplementedError."""
+    if m is None:
+        return None
+    name = type(m).__name__
+    if name not in _METRICS:
+        raise NotImplementedError(f"a metric of class {name}: the port has "
+                                  f"{sorted(_METRICS)}")
+    cls, fields = _METRICS[name]
+    return cls(**{f: (getattr(m, f) if f == "kind"
+                      else float(getattr(m, f))) for f in fields})
+
+
+def rigid_body_from_jax(b):
+    """A JAX models/rigid.RigidBody -> the port's, its mass, position,
+    velocity and gravity as floats (numpy)."""
+    from ..models import rigid
+
+    def pair(v):
+        return tuple(float(x) for x in np.asarray(v, dtype=np.float64))
+    return rigid.RigidBody(mass=float(b.mass), pos=pair(b.pos),
+                           vel=pair(b.vel), gravity=pair(b.gravity))
+
+
 def _tracer(tr, sources, values):
     """A JAX tracer (name, FieldBC, D[, source]); a callable source takes
     its torch counterpart ``sources[name]``, callable BC values
@@ -176,11 +213,13 @@ def config_from_jax(cfg, nu_var=None, body_force=None,
     ``tracer_sources``, {tracer name: f(x, y, t)}, for a tracer's callable
     source; ``bc_values``, {vof or tracer name: {(axis, side): value}},
     for a callable BC value of that field's (a contact angle f(x, y, t)
-    among them); ``solid_phi``, a level set f(x, y) of torch tensors, for
-    the config's solid; ``surface_u``, one entry per component, for its
-    callable components (constant ones carry over as they are).  A
-    callable with no counterpart raises NotImplementedError naming the
-    field."""
+    among them); ``solid_phi``, a level set f(x, y) of torch tensors (a
+    moving solid's f(x, y, t[, *solid_args])), for the config's solid;
+    ``surface_u``, one entry per component, for its callable components
+    (constant ones carry over as they are).  A callable with no
+    counterpart raises NotImplementedError naming the field.  The metric
+    carries over by metric_from_jax, ``moving_solid``, ``moving_order``
+    and ``axi`` as they are."""
     bc_values = bc_values or {}
     for f in dataclasses.fields(type(cfg)):
         if f.name in _SLICE_FIELDS:
@@ -220,4 +259,7 @@ def config_from_jax(cfg, nu_var=None, body_force=None,
         nu_var_fields=tuple(tuple(f) for f in cfg.nu_var_fields),
         solid_phi=None if cfg.solid_phi is None else
         _counterpart("solid_phi", solid_phi),
-        surface_u=_surface_u(cfg.surface_u, surface_u))
+        surface_u=_surface_u(cfg.surface_u, surface_u),
+        moving_solid=bool(cfg.moving_solid),
+        moving_order=int(cfg.moving_order), axi=bool(cfg.axi),
+        metric=metric_from_jax(cfg.metric))

@@ -9,11 +9,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gerris_tpu.core import bc as jbc  # noqa: E402
+from gerris_tpu.core import metric as jmetric  # noqa: E402
 from gerris_tpu.core.grid import Grid as JGrid  # noqa: E402
 from gerris_tpu.models import ns as jns  # noqa: E402
 from gerris_tpu.solvers import poisson as jpoisson  # noqa: E402
 
 from gerris_tpu_torch.core import bc as tbc  # noqa: E402
+from gerris_tpu_torch.core import grid as tgrid  # noqa: E402
 from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils import convert  # noqa: E402
 
@@ -308,3 +310,65 @@ def test_config_from_jax_3d_refuses_css_and_contact(what):
         else:
             with pytest.raises(NotImplementedError, match="2D"):
                 convert.config_from_jax(jcfg)
+
+
+@pytest.mark.parametrize("jm", [
+    jmetric.MetricStretch(1.0, 0.1), jmetric.MetricLonLat(1.2),
+    jmetric.MetricCubed(), jmetric.MapTransform(0.1, 0.2, 15.0),
+    jmetric.MapProjection("mercator", 2.0, 10.0), None,
+], ids=["stretch", "lonlat", "cubed", "transform", "projection", "none"])
+def test_metric_from_jax(jm):
+    """Every class of gerris_tpu/core/metric.py carries over by name and
+    fields, its weights the JAX package's (1e-14); None stays None."""
+    tm = convert.metric_from_jax(jm)
+    if jm is None:
+        assert tm is None
+        return
+    assert type(tm).__name__ == type(jm).__name__
+    assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
+    if hasattr(jm, "weights"):
+        cm, fm = jm.weights(JGrid(4))
+        tcm, tfm = tm.weights(tgrid.Grid(4), "cpu")
+        for a, b in zip((cm, *fm), (tcm, *tfm)):
+            a = np.asarray(a)
+            assert np.max(np.abs(a - b.numpy())) <= 1e-14 * np.max(np.abs(a))
+
+
+def test_metric_from_jax_refuses_another_class():
+    @dataclasses.dataclass(frozen=True)
+    class MetricSpiral:
+        turns: float = 1.0
+
+    with pytest.raises(NotImplementedError, match="MetricSpiral"):
+        convert.metric_from_jax(MetricSpiral())
+
+
+@pytest.mark.parametrize("field,value", [
+    ("moving_solid", True), ("moving_order", 2), ("axi", True),
+    ("metric", jmetric.MetricStretch(1.0, 0.1)),
+])
+def test_config_from_jax_carries_slice_4b(field, value):
+    """The moving solids' flag and order, the axisymmetric flag and a
+    metric carry over (refused before slice 4b)."""
+    kw = {field: value}
+    solid = {}
+    if field in ("moving_solid", "moving_order"):
+        kw.update(moving_solid=True,
+                  solid_phi=lambda x, y, t: x * x + y * y - 0.04)
+        solid = dict(solid_phi=lambda x, y, t: x * x + y * y - 0.04)
+    cfg = convert.config_from_jax(dataclasses.replace(cavity_cfg(5), **kw),
+                                  **solid)
+    want = convert.metric_from_jax(value) if field == "metric" else value
+    assert getattr(cfg, field) == want
+
+
+@pytest.mark.parametrize("field,later", [
+    ("block_advect", "slice 5"), ("composite_vof", "slice 5"),
+    ("particle_coupling", "slice 6"),
+])
+def test_config_from_jax_refuses_the_later_slices(field, later):
+    """The fields no slice has ported yet are refused naming their slice
+    (ROADMAP Queue 1)."""
+    with pytest.raises(NotImplementedError, match=later):
+        convert.config_from_jax(dataclasses.replace(cavity_cfg(5),
+                                                    **{field: True}))

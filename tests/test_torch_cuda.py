@@ -27,7 +27,10 @@ from a given u and with the coarse correction's prolongation folded in
 two-phase steps on the card to the same steps on the CPU.  K10 likewise
 at 2048^2; K11 and K10 on the capillary wave's box levels, (1024, 3072)
 down to (1, 3) and transposed, and three capillary-wave steps on the card
-to the same steps on the CPU.  The block kernel is held to its plain version at every level
+to the same steps on the CPU.  Slice 4b's routes (the moving disk at orders
+1 and 2, the falling disk, the axisymmetric pipe, the stretched cavity)
+run three steps on the card against the CPU, and the merge groups build
+in two host syncs, bit for bit the CPU's.  The block kernel is held to its plain version at every level
 count, omega, periodicity and batch, bit-identical across its launch
 shapes, and each cascade's tail in it bit for bit the K3 launches it
 replaces.
@@ -1832,3 +1835,67 @@ def test_cylinder_steps_on_the_card(dev):
             assert projops.LAUNCHES["interp_faces"] == 0
     for k in ("U", "V", "P"):
         assert _rel(runs[str(dev)][k].cpu(), runs["cpu"][k]) <= 1e-9, k
+
+
+# --- slice 4b on the card: moving solids, rigid bodies, the metrics -------
+
+@pytest.mark.parametrize("case", ["moving1", "moving2", "rigid", "axi",
+                                  "stretch"])
+def test_slice_4b_steps_on_the_card(dev, case):
+    """Three steps of each slice 4b route at level 5 in float64 on the card
+    against the same steps on the CPU (the plain versions): K15 and the
+    pyramid in every solve's correction (K6 and K9 where the walls admit
+    them); a moving solid's merge groups rebuilt every step on the card.
+    The axisymmetric pipe's V and P, 0 up to the solves' tolerance, are
+    held relative to max|U|, as chip_smoke's axi phase holds them."""
+    import chip_smoke
+    make = {"moving1": lambda w: chip_smoke.moving_sim(w, 1, 5,
+                                                       torch.float64),
+            "moving2": lambda w: chip_smoke.moving_sim(w, 2, 5,
+                                                       torch.float64),
+            "rigid": lambda w: chip_smoke.rigid_run(w, 5, torch.float64),
+            "axi": lambda w: chip_smoke.axi_sim(w, 5, torch.float64),
+            "stretch": lambda w: chip_smoke.stretch_sim(w, 5,
+                                                        torch.float64)}[case]
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        rbgs.reset_launch_counts()
+        runs[where.type] = make(where).run(max_steps=3).state
+        if where.type == "cuda":
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] > 0
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] % 4 == 0  # 4 levels
+            assert rbgs.LAUNCHES["restrict_pyramid"] > 0
+    for k in ("U", "V", "P"):
+        got, ref = runs["cuda"][k].cpu(), runs["cpu"][k]
+        if case == "axi" and k != "U":
+            err = float((got - ref).abs().max()
+                        / runs["cpu"]["U"].abs().max())
+        else:
+            err = _rel(got, ref)
+        assert err <= 1e-9, k
+
+
+@pytest.mark.parametrize("level", [7, 10])
+def test_merge_groups_on_the_card(dev, level):
+    """merge_groups on the card: two host syncs (torch.cuda's sync debug
+    mode), the groups and merged_cell_update bit for bit those of the
+    CPU on the cylinder's geometry, and the same bits on a second
+    build."""
+    import chip_smoke
+    from gerris_tpu_torch.physics import solid
+    g = Grid(level, extents=(3, 1))
+    a, s = solid.solid_fractions(g, chip_smoke.cylinder_phi, dev,
+                                 torch.float64)
+    torch.cuda.synchronize()
+    n, groups = chip_smoke.count_syncs(lambda: solid.merge_groups(a, s), dev)
+    assert n == 2
+    ca, cs = a.cpu(), tuple(f.cpu() for f in s)
+    ref = solid.merge_groups(ca, cs)
+    for k in ("members", "index", "group"):
+        assert torch.equal(getattr(groups, k).cpu(), getattr(ref, k)), k
+    v, fv = _rnd(dev, torch.float64, 7, g.shape, g.shape)
+    got = solid.merged_cell_update(v, fv, a, s, groups)
+    assert torch.equal(got, solid.merged_cell_update(
+        v, fv, a, s, solid.merge_groups(a, s)))
+    assert torch.equal(got.cpu(), solid.merged_cell_update(
+        v.cpu(), fv.cpu(), ca, cs, ref))

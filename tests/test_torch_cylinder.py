@@ -133,12 +133,13 @@ def test_config_from_jax_takes_the_solid_counterparts():
 
 
 @pytest.mark.parametrize("field,value,later", [
-    ("axi", True, "slice 4c"),
-    ("moving_solid", True, "slice 4b"),
+    ("block_advect", True, "slice 5"),
+    ("particle_coupling", True, "slice 6"),
 ])
 def test_config_from_jax_names_the_later_slices(field, value, later):
-    """The metrics and moving solids, which share the solid's weights in
-    the reference, are refused naming their slices."""
+    """The fields of the later slices are refused naming their slices
+    (the metrics and moving solids, refused before slice 4b, carry over:
+    tests/test_torch_convert.py)."""
     jcfg = dataclasses.replace(cylinder_jcfg(4), **{field: value})
     with pytest.raises(NotImplementedError, match=later):
         convert.config_from_jax(jcfg, solid_phi=chip_smoke.cylinder_phi)

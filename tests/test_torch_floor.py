@@ -20,10 +20,12 @@ PIECEWISE = dict(U=2.1e-3, V=2.5e-3, W=2.1e-3, T=1.5e-6, P=7.6e-6)
 
 def test_every_route_has_finite_bounds():
     """Every route's bounds cover U, V and P, and T on every route that
-    carries a VOF tracer (all but the cylinder's), each finite and
-    positive."""
+    carries a VOF tracer (all but the single-phase ones: the cylinder's,
+    the moving solids', the rigid body's and the metrics'), each finite
+    and positive."""
     for name, bounds in chip_smoke.FLOOR_BOUNDS.items():
-        want = set("UVP") | (set() if name == "cylinder" else {"T"})
+        want = set("UVP") | (set() if name in chip_smoke.SINGLE_PHASE_ROUTES
+                             else {"T"})
         assert want <= set(bounds), name
         assert all(math.isfinite(v) and v > 0 for v in bounds.values()), name
 

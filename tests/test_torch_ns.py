@@ -68,18 +68,16 @@ def _clear_jax_step_cache():
 
 
 def _jax_step(state, dt, t, cfg, first_step):
-    """The JAX ns_step, its first step run eagerly: that variant
-    (first_step) runs once per test, and eager it takes ~20 s against
-    ~120 s of compile; the later steps share one compiled program."""
-    if first_step:
-        with jax.disable_jit():
-            return jns.ns_step(state, dt, t, cfg, first_step=True)
-    return jns.ns_step(state, dt, t, cfg, first_step=False)
+    """The JAX ns_step run eagerly (jax.disable_jit): the first eager step
+    of a process takes ~20 s (its primitives compile once), each later
+    one ~2 s, where compiling the jitted step took ~120 s on the CPU."""
+    with jax.disable_jit():
+        return jns.ns_step(state, dt, t, cfg, first_step=first_step)
 
 
 class _JSim(JSimulation):
     """The JAX Simulation with the step's VOF sweep-direction argument left
-    at its default, so both tests share one compiled ns_step."""
+    at its default and its step run eagerly (_jax_step)."""
 
     def _advance(self):
         self.state = _jax_step(self.state, self.dt, self.time.t, self.cfg,
@@ -146,7 +144,8 @@ def test_simulation_run_matches_jax():
     is unbounded, so the first step would otherwise span the whole run."""
     jcfg, tcfg = _configs()
     jsim = _JSim(jcfg, time=JTime(end=300.0, dtmax=1.0)).init()
-    jsim.run(max_steps=4)
+    with jax.disable_jit():
+        jsim.run(max_steps=4)
     tsim = Simulation(tcfg, time=Time(end=300.0, dtmax=1.0), device="cpu",
                       dtype=torch.float64).init()
     rbgs.reset_launch_counts()
