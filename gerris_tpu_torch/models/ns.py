@@ -183,6 +183,12 @@ class NSConfig:
     # a general orthogonal metric (core/metric.py: MetricStretch,
     # MetricLonLat, MetricCubed), 2D, composed into the weights as axi is
     metric: object = None
+    # the composite (AMR) step only (models/amr_ns.py): the corrector
+    # advection on the block engine's active blocks
+    # (solvers/blockadv.py), and the VOF sweeps on every level with
+    # fine-to-coarse flux matching instead of the finest level's alone
+    block_advect: bool = False
+    composite_vof: bool = False
 
     def __post_init__(self):
         if self.p_bc is None:
@@ -706,16 +712,19 @@ def filtered(T, grid: Grid, fbc: bcs.FieldBC, npass: int = 1,
     return T
 
 
-def density_fields(state: dict, cfg: NSConfig, t: float = 0.0):
+def density_fields(state: dict, cfg: NSConfig, t: float = 0.0,
+                   grid: Grid = None):
     """(rho_cell, alpha_faces) from the VOF tracer: rho = rho2 + T1 (rho1 -
     rho2) with T1 the filtered fraction clipped to [0, 1], alpha = 1 /
     rho(T1 on the face) (gfs_poisson_coefficients src/poisson.c:868;
-    gerris_tpu ns.py:507-527), or (None, None) at unit density."""
+    gerris_tpu ns.py:507-527), or (None, None) at unit density.  ``grid``
+    (default cfg.grid): the level the state lies on (the composite
+    step's per-level evaluation)."""
     if cfg.density is None:
         return None, None
     name, rho1, rho2, npass = cfg.density
     fbc = _vof_bc(cfg, name)
-    grid = cfg.grid
+    grid = grid or cfg.grid
     T1 = filtered(state[name], grid, fbc, npass, t)
     rho_c = rho2 + torch.clamp(T1, 0.0, 1.0) * (rho1 - rho2)
     T1p = bcs.apply_bc(T1, grid, fbc, 1, t=t)
@@ -727,18 +736,20 @@ def density_fields(state: dict, cfg: NSConfig, t: float = 0.0):
 
 
 def tension_sources(state: dict, cfg: NSConfig, alpha=None,
-                    off_max: int = 2, t: float = 0.0):
+                    off_max: int = 2, t: float = 0.0, grid: Grid = None):
     """The well-balanced tension face sources of every (vof_name, sigma)
     in ``cfg.tension``, summed: height-function curvature, filled twice
     into the neighbouring cells, times sigma grad(T) on the faces (and
-    alpha; gerris_tpu ns.py:575-597), or None without tension."""
+    alpha; gerris_tpu ns.py:575-597), or None without tension.  ``grid``
+    (default cfg.grid): the level the state lies on."""
+    grid = grid or cfg.grid
     srcs = None
     for name, sigma in cfg.tension:
         fbc = _vof_bc(cfg, name)
         T = state[name]
-        kap = vof.curvature(T, cfg.grid, fbc, off_max=off_max, t=t)
+        kap = vof.curvature(T, grid, fbc, off_max=off_max, t=t)
         kap = vof.fill_curvature(kap, None, niter=2)
-        dp = tens.tension_face_sources(T, kap, sigma, cfg.grid, fbc,
+        dp = tens.tension_face_sources(T, kap, sigma, grid, fbc,
                                        alpha=alpha, t=t)
         srcs = dp if srcs is None else [a + b for a, b in zip(srcs, dp)]
     return srcs
@@ -756,16 +767,18 @@ def cell_centers(grid: Grid, device, dtype) -> tuple:
     return tuple(torch.meshgrid(*axes, indexing="ij"))
 
 
-def viscosity_field(state: dict, cfg: NSConfig, t: float = 0.0):
+def viscosity_field(state: dict, cfg: NSConfig, t: float = 0.0,
+                    grid: Grid = None):
     """The dynamic viscosity per cell from ``cfg.nu_var`` at time ``t``
     (GfsSourceViscosity with a GfsFunction, src/source.c; gerris_tpu
     ns.py:530-548), or None without one.  A field of ``nu_var_fields``
     that the state lacks is ``npass`` filter passes of its parent tracer
     on the parent's BCs (a VOF tracer's, a tracer's, else the default
-    scalar BCs)."""
+    scalar BCs).  ``grid`` (default cfg.grid): the level the state lies
+    on."""
     if cfg.nu_var is None:
         return None
-    grid = cfg.grid
+    grid = grid or cfg.grid
     like = state[velocity_names(grid.dim)[0]]
     vof_bc = dict((v[0], v[1]) for v in cfg.vof_tracers)
     tr_bc = dict((tr[0], tr[1]) for tr in cfg.tracers)

@@ -1069,3 +1069,68 @@ def _fraction_3d(grid: Grid, phi, device, dtype):
     allneg = functools.reduce(torch.logical_and, [v <= 0 for v in c.values()])
     return torch.where(allpos, 1.0,
                        torch.where(allneg, 0.0, fr)).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# What only the composite AMR reads (gerris_tpu vof.py:871-893, :1195-1260)
+# ---------------------------------------------------------------------------
+
+def height_fields(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0,
+                  R: int = 3) -> dict:
+    """Per-direction height fields, the GfsVariableTracerVOFHeight hb/ht
+    API (src/vof.h:130-146) recomputed on demand: {axis: H}, H the
+    (2R+1)-cell fluid column sum centred on each cell along that axis
+    (H - R - 1/2 is the interface's signed height above the cell centre,
+    in cells, where the column is valid).  2D."""
+    _check_2d(grid, "height_fields")
+    P = R + 1
+    f_pad = bcs.apply_bc(f, grid, fbc, P, t=t)
+    n0, n1 = grid.shape
+
+    def sub(di, dj):
+        return f_pad[P + di:P + di + n0, P + dj:P + dj + n1]
+
+    return {0: sum(sub(k, 0) for k in range(-R, R + 1)),
+            1: sum(sub(0, k) for k in range(-R, R + 1))}
+
+
+def prolong_geometric(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0):
+    """PLIC-geometric prolongation of a fraction to the next finer level:
+    each child gets the volume of the coarse cell's reconstruction inside
+    its sub-box, so the children average back to the coarse fraction and
+    the interface stays sharp (gfs_vof_coarse_fine, src/vof.c:210-296).
+    Full and empty cells copy their value.  2D and 3D."""
+    full = is_full(f)
+    f_pad = bcs.apply_bc(f, grid, fbc, 1, t=t)
+    if grid.dim == 2:
+        mx, my = mycs_normals(f_pad)
+        m1, m2, ap = positive_normal(mx, my, reconstruct_alpha(f, mx, my))
+        rows = []
+        for i in (0, 1):
+            # the positive frame reflects an axis with m < 0: child i spans
+            # [0.5 i, 0.5 i + 0.5] of the signed cell
+            x0 = torch.where(mx < 0.0, 0.5 * (1 - i), 0.5 * i)
+            ch = []
+            for j in (0, 1):
+                y0 = torch.where(my < 0.0, 0.5 * (1 - j), 0.5 * j)
+                q = rectangle_fraction(m1, m2, ap, x0, x0 + 0.5, y0,
+                                       y0 + 0.5)
+                ch.append(torch.where(full, f, q))
+            rows.append(torch.stack(ch, dim=-1))
+        n0, n1 = f.shape
+        return torch.stack(rows, dim=1).reshape(2 * n0, 2 * n1)
+    mx, my, mz = mycs_normals_3d(f_pad)
+    m1, m2, m3, ap = positive_normal_3d(
+        mx, my, mz, reconstruct_alpha_3d(f, mx, my, mz))
+    out = torch.empty((2,) * 3 + f.shape, dtype=f.dtype, device=f.device)
+    for i in (0, 1):
+        x0 = torch.where(mx < 0.0, 0.5 * (1 - i), 0.5 * i)
+        for j in (0, 1):
+            y0 = torch.where(my < 0.0, 0.5 * (1 - j), 0.5 * j)
+            for k in (0, 1):
+                z0 = torch.where(mz < 0.0, 0.5 * (1 - k), 0.5 * k)
+                q = box_fraction(m1, m2, m3, ap, [x0, y0, z0],
+                                 [x0 + 0.5, y0 + 0.5, z0 + 0.5])
+                out[i, j, k] = torch.where(full, f, q)
+    n0, n1, n2 = f.shape
+    return out.permute(3, 0, 4, 1, 5, 2).reshape(2 * n0, 2 * n1, 2 * n2)

@@ -19,6 +19,7 @@ from ..core.grid import Grid
 from ..models import ns
 from ..solvers.advection import AdvectionParams
 from ..solvers.diffusion import DEFAULT_PARAMS
+from ..solvers.composite import CompositeGrid
 from ..solvers.poisson import COARSEST_FLOOR, MultilevelParams
 
 # the reference's MultilevelParams.tpu_nrelax default, the floor its
@@ -31,10 +32,9 @@ _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "tension", "density", "body_force", "nu_var",
                  "nu_var_fields", "tracers", "tension_css", "solid_phi",
                  "surface_u", "moving_solid", "moving_order", "axi",
-                 "metric"}
+                 "metric", "block_advect", "composite_vof"}
 # the later slices of the fields outside this one (ROADMAP Queue 1)
-_LATER = {"block_advect": "slice 5", "composite_vof": "slice 5",
-          "particle_coupling": "slice 6"}
+_LATER = {"particle_coupling": "slice 6"}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
@@ -262,4 +262,51 @@ def config_from_jax(cfg, nu_var=None, body_force=None,
         surface_u=_surface_u(cfg.surface_u, surface_u),
         moving_solid=bool(cfg.moving_solid),
         moving_order=int(cfg.moving_order), axi=bool(cfg.axi),
-        metric=metric_from_jax(cfg.metric))
+        metric=metric_from_jax(cfg.metric),
+        block_advect=bool(cfg.block_advect),
+        composite_vof=bool(cfg.composite_vof))
+
+
+def composite_from_jax(cg) -> CompositeGrid:
+    """A JAX ``CompositeGrid`` -> the port's, from its base grid and leaf
+    masks (host numpy, bit for bit)."""
+    base = grid_from_jax(cg.base)
+    return CompositeGrid.build(base, {l: np.asarray(cg.leaf_np(l))
+                                      for l in range(cg.lmin, cg.lmax + 1)})
+
+
+def amr_state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
+    """{name: {level: array}} (a JAX AMRSimulation's state read with
+    ``np.asarray``) -> {name: {level: contiguous tensor on ``device``}},
+    the CUDA card by default."""
+    device = default_device(device)
+    return {k: {int(l): torch.as_tensor(np.asarray(a)).to(
+        device=device, dtype=dtype).contiguous() for l, a in v.items()}
+        for k, v in d.items()}
+
+
+# the reference's named criteria (gerris_tpu/models/amr_ns.py) and their
+# counterparts here
+_CRITERIA = {"interface_vorticity_criterion",
+             "streamline_curvature_cost", "thickness_cost"}
+
+
+def adapt_spec_from_jax(spec) -> "amr_ns.AdaptSpec":
+    """A JAX ``AdaptSpec`` -> the port's.  Its criterion must be one of the
+    reference's named criteria (interface_vorticity_criterion,
+    streamline_curvature_cost, thickness_cost), which map to the port's;
+    a user callable computes on jnp arrays and raises
+    NotImplementedError (give the port's AdaptSpec a torch criterion)."""
+    from ..models import amr_ns
+    crit = spec.criterion
+    name = getattr(crit, "__name__", None)
+    if name not in _CRITERIA or not getattr(crit, "__module__", "") \
+            .endswith("models.amr_ns"):
+        raise NotImplementedError(
+            f"AdaptSpec.criterion {crit!r} is a user callable: give the "
+            "port's AdaptSpec its torch counterpart")
+    return amr_ns.AdaptSpec(
+        criterion=getattr(amr_ns, name), cmax=float(spec.cmax),
+        cfactor=float(spec.cfactor), minlevel=int(spec.minlevel),
+        maxlevel=int(spec.maxlevel), istep=int(spec.istep),
+        maxcells=None if spec.maxcells is None else int(spec.maxcells))

@@ -131,7 +131,7 @@ def test_config_from_jax_bench():
 
 @pytest.mark.parametrize("field,value", [
     ("solid_phi", lambda x, y: x),
-    ("block_advect", True),
+    ("pack_faces", True),
     ("particle_coupling", True),
 ])
 def test_config_from_jax_refuses_fields_outside_slice(field, value):
@@ -363,12 +363,13 @@ def test_config_from_jax_carries_slice_4b(field, value):
 
 
 @pytest.mark.parametrize("field,later", [
-    ("block_advect", "slice 5"), ("composite_vof", "slice 5"),
-    ("particle_coupling", "slice 6"),
+    ("pack_faces", "ROADMAP Queue 1"), ("particle_coupling", "slice 6"),
 ])
 def test_config_from_jax_refuses_the_later_slices(field, later):
     """The fields no slice has ported yet are refused naming their slice
-    (ROADMAP Queue 1)."""
+    (ROADMAP Queue 1); pack_faces, a TPU layout with no counterpart,
+    names the queue.  block_advect and composite_vof carry over since
+    slice 5 (tests/test_torch_amr_ns.py)."""
     with pytest.raises(NotImplementedError, match=later):
         convert.config_from_jax(dataclasses.replace(cavity_cfg(5),
                                                     **{field: True}))

@@ -1899,3 +1899,39 @@ def test_merge_groups_on_the_card(dev, level):
         v, fv, a, s, solid.merge_groups(a, s)))
     assert torch.equal(got.cpu(), solid.merged_cell_update(
         v.cpu(), fv.cpu(), ca, cs, ref))
+
+
+@pytest.mark.parametrize("route", ["amr_osc", "amr_capwave"])
+def test_amr_steps_on_the_card(dev, route):
+    """Init + 3 steps of an AMR route at maxlevel 6 in float64 on the card
+    against the same steps on the CPU (the plain versions): the block
+    engine's base corrections (K15, the pyramid), K6 and K9 per level
+    (amr_osc); K11 and K10 on every box level (amr_capwave); the leaves
+    equal."""
+    import warnings
+    import chip_smoke
+    from gerris_tpu_torch.ops.cuda import predict, projops
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        for mod in (rbgs, predict, projops):
+            mod.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            s = chip_smoke.AMR_ROUTES[route](where, 6, torch.float64)
+            s.run(max_steps=3)
+        runs[str(where)] = s
+        if where.type == "cuda" and route == "amr_osc":
+            assert s._use_blocks
+            assert rbgs.LAUNCHES["rbgs_relax_alpha"] > 0
+            assert predict.LAUNCHES["predict_xy"] == 3 * 4
+            assert projops.LAUNCHES["interp_faces"] == 4 * 4
+        elif where.type == "cuda":
+            assert rbgs.LAUNCHES["residual"] > 0
+            assert rbgs.LAUNCHES["rbgs_relax"] > 0
+    a, b = runs[str(dev)], runs["cpu"]
+    assert a.leaf_history == b.leaf_history
+    for k in ("U", "V", "T", "P"):
+        x, y = a.fine(k).cpu(), b.fine(k)
+        if k == "P":
+            x, y = x - x.mean(), y - y.mean()
+        assert _rel(x, y) <= 1e-9, k

@@ -133,13 +133,14 @@ def test_config_from_jax_takes_the_solid_counterparts():
 
 
 @pytest.mark.parametrize("field,value,later", [
-    ("block_advect", True, "slice 5"),
+    ("pack_faces", True, "ROADMAP Queue 1"),
     ("particle_coupling", True, "slice 6"),
 ])
 def test_config_from_jax_names_the_later_slices(field, value, later):
-    """The fields of the later slices are refused naming their slices
-    (the metrics and moving solids, refused before slice 4b, carry over:
-    tests/test_torch_convert.py)."""
+    """The fields of the later slices are refused naming their slices, a
+    TPU layout (pack_faces) naming the queue (the metrics and moving
+    solids, refused before slice 4b, carry over:
+    tests/test_torch_convert.py; block_advect since slice 5)."""
     jcfg = dataclasses.replace(cylinder_jcfg(4), **{field: value})
     with pytest.raises(NotImplementedError, match=later):
         convert.config_from_jax(jcfg, solid_phi=chip_smoke.cylinder_phi)

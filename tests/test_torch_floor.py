@@ -50,9 +50,7 @@ def test_check_against_plain_applies_the_floor_bound(monkeypatch):
         return chip_smoke.capwave_sim(dev, 3, dtype)
 
     early = make(torch.float32).run(max_steps=2).state
-    counts = chip_smoke.launch_counts()
-    runs = chip_smoke.check_against_plain("capwave", make, 2, early, counts,
-                                          1e-9)
+    runs = chip_smoke.check_against_plain("capwave", make, 2, early, 1e-9)
     floor = chip_smoke.rel_err(runs["plain32"]["U"].double(),
                                runs["plain64"]["U"])
     assert 0.0 < floor <= chip_smoke.FLOOR_BOUNDS["capwave"]["U"]
@@ -60,5 +58,4 @@ def test_check_against_plain_applies_the_floor_bound(monkeypatch):
                         {**chip_smoke.FLOOR_BOUNDS["capwave"],
                          "U": floor / 2})
     with pytest.raises(AssertionError, match="capwave U"):
-        chip_smoke.check_against_plain("capwave", make, 2, early, counts,
-                                       1e-9)
+        chip_smoke.check_against_plain("capwave", make, 2, early, 1e-9)

@@ -123,7 +123,7 @@ def test_config_converts_to_the_tpu_schedule():
 
 @pytest.mark.parametrize("field,value", [
     ("particle_coupling", True),
-    ("composite_vof", True),
+    ("pack_faces", True),
 ])
 def test_config_from_jax_refuses_slice_3b(field, value):
     jcfg = dataclasses.replace(twophase_cfg(5), **{field: value})
