@@ -216,6 +216,17 @@ Phases (any failure ends the run with a non-zero exit and no result):
      3072) and (8, 24)) against plain, timed with bounds, and the block
      solve's time on ring meshes at lmax 8-11 (its growth from 8 to 9
      under 3x: test_blockrt_walltime_scales_with_leaves).
+     Slice 6's route ``particles``: the 2048^2 lid with 2^20 two-way
+     coupled particles (particle_coupling, a ParticleSystem: density
+     1000, diameter h, the five default forces at gravity 0, the
+     Gaussian deposit of radius h over 7^2 cells), float32, init + 5
+     steps: launches gated (want_particles: the per-component route with
+     a fused K1-K2-K3 cycle per diffusion, no K7 or K8), held to the
+     plain versions (float64 to 1e-9; float32 by the floor rule on U, V,
+     P and the particles' pos and vel), one step's host syncs equal to
+     the per-component lid route's, five timed windows and a profile
+     with the particle phase's and the deposit's device time
+     (record_function spans).
      Every route held to the plain versions in float32 also bounds the
      plain float32 run's distance from the plain float64 run per field
      (FLOOR_BOUNDS);
@@ -264,7 +275,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
      uniform; the AMR capillary wave at levels 4 and 5 within 25% of the
      table, the order above 1.5, level 5's leaves under 0.75 of uniform;
      the interface-not-pinned droplet (level 6, the volume within 5e-3,
-     interface cells on coarser leaves).  The capwave, sessile, circle,
+     interface cells on coarser leaves); slice 6's, in this process:
+     2^16 bubbles' Minnaert periods within 5% (float32, on the lid's
+     grid), 64 interacting bubbles against the CPU (float64, 1e-9) and
+     the in-phase pair's frequency shift within 5%; the particles
+     route's energy spectrum (Parseval, and the CPU's float64, 1e-5) and
+     init_solenoidal at 2048^2 (divergence 1e-6, shells 1e-5); 4096
+     droplets to particles, fed and stamped back with the volume kept
+     (1e-6); the stream function of the route's velocity (lap psi =
+     omega to 1e-8); the momentum gate at 256^2 in float64 (20%).  The capwave, sessile, circle,
      Couette, axi, moving, metric and AMR gates run as child processes
      of this script (``python3 chip_smoke.py --gate NAME``, gate_jobs)
      beside the others.
@@ -593,7 +612,9 @@ BUBBLE3D_CPU_STEPS = 3
 # closed-form line area and plane volume put them at 5.9 (capwave V 20.6)
 # and 1.23 of max, which these bounds fail.  The AMR routes:
 # amr_osc U, V 1.15e-3 / 1.27e-3, T 6.5e-6, P 1.98e-4; amr_capwave 5.77e-2
-# / 0.160, 1.42e-6, 1.10e-3, the uniform capwave's.
+# / 0.160, 1.42e-6, 1.10e-3, the uniform capwave's.  The particles route
+# (on an H100): U 1.27e-5, V 7.5e-6, P 3.1e-5, the particles' pos 2.2e-7
+# and vel 8.8e-5.
 FLOOR_BOUNDS = {
     "bubble": dict(U=5e-2, V=5e-2, T=2e-5, P=8e-4),
     "spurious": dict(U=1e-2, V=1e-2, T=2e-5, P=5e-4),
@@ -609,10 +630,11 @@ FLOOR_BOUNDS = {
     "stretch": dict(U=6e-3, V=1.5e-3, P=0.75, P_y=2e-2),
     "amr_osc": dict(U=3.5e-3, V=4e-3, T=2e-5, P=6e-4),
     "amr_capwave": dict(U=0.2, V=0.5, T=5e-6, P=4e-3),
+    "particles": dict(U=4e-5, V=2.5e-5, P=1e-4, pos=7e-7, vel=3e-4),
 }
 # the routes with no VOF tracer (FLOOR_BOUNDS holds no T for them)
 SINGLE_PHASE_ROUTES = ("cylinder", "moving1", "moving2", "rigid", "axi",
-                       "stretch")
+                       "stretch", "particles")
 
 # the flow past a cylinder (slice 4a): the Gerris tutorial's vortex
 # street (a cylinder of diameter 0.125, inflow 1, nu 0.00078125: Re 160)
@@ -2756,14 +2778,18 @@ def phase_kernels(dev, record):
         nsw = 40 if m == 16 else 5
         kwl = dict(nsweeps=nsw, h2=1.0 / m ** 2, signs=signs, omega=1.5)
         t = cuda_ms(lambda: rbgs.prolong_relax(cl, rl, 0.0, ul, **kwl))
+        pt = cuda_ms(lambda: rbgs.prolong_relax_plain(cl, rl, 0.0, ul,
+                                                      **kwl), iters=3)
         tile = rbgs._prolong_plan(rl, nsw, None, 64)[0]
         bms, _ = bound(nbytes(cl, rl, ul), rl, cycle_flops(m, nsw, 1.5))
-        k3_levels[m] = {"ms": t, "bound_ms": bms, "tile": tile}
+        k3_levels[m] = {"ms": t, "plain_ms": pt, "bound_ms": bms,
+                        "tile": tile}
     record["prolong_relax"]["levels"] = k3_levels
     print("  K3 per level of the main path's cycle (float32, omega 1.5, 5 "
-          "sweeps, 40 from zero at 16^2; ms, bound, tile): " + ", ".join(
-              f"{m}: {v['ms']:.4f} ({v['bound_ms']:.4f}, {v['tile']})"
-              for m, v in k3_levels.items()))
+          "sweeps, 40 from zero at 16^2; ms, plain ms, bound, tile): " +
+          ", ".join(f"{m}: {v['ms']:.4f} ({v['plain_ms']:.4f}, "
+                    f"{v['bound_ms']:.4f}, {v['tile']})"
+                    for m, v in k3_levels.items()))
     # K7 (rhs mode, as on the main path), K14 (u) and K6 at every tile
     # plan, in turns (plans forward, then backward; the lower time)
     tile_ms = {}
@@ -2979,24 +3005,42 @@ PROLONG_OPS = ("roll", "where", "CatArray", "MulFunctor", "CUDAFunctor_add",
 
 
 def phase_profile(s, step_s, card, steps=PROFILE_STEPS, watch=(),
-                  kinds=None, shares=()):
+                  kinds=None, shares=(), spans=(), host=True):
     """torch.profiler over ``steps`` steps of the running simulation:
     device time by kernel, the port's kernels against the plain torch
     ops, and the device's busy share of an unprofiled step; the device
     ops per step whose kernel names hold each substring of ``watch``
     (also into the dict ``kinds`` when given), and the share of the
-    device time of the kernels whose names hold each of ``shares``.
-    Returns the device ops per step."""
+    device time of the kernels whose names hold each of ``shares``;
+    for each record_function span named in ``spans``, the device time
+    of the kernels launched inside it (the span's CPU event, children
+    included) and its extent on the card, per step.  ``host=False``
+    records the card's activity only: the profiler's host events of a
+    step of ~10^5 ops took 30-100 s to process (the AMR routes), and no
+    number here but a span's reads them.  Returns the device ops per
+    step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                      else [])
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         s.run(max_steps=steps)
         torch.cuda.synchronize()
     rows = []
+    inside, extent = {}, {}
     for evt in prof.key_averages():
+        if evt.key in spans:
+            # a span: on the host its kernels' device time (children
+            # included), on the card its annotation's extent
+            if evt.device_type == DeviceType.CUDA:
+                us = getattr(evt, "device_time_total", None)
+                extent[evt.key] = evt.cuda_time_total if us is None else us
+            else:
+                us = getattr(evt, "device_time_total", None)
+                inside[evt.key] = evt.cuda_time_total if us is None else us
+            continue
         # device-side events only (kernels, copies, sets): a CPU op's
         # device time repeats its kernels'
         if evt.device_type != DeviceType.CUDA:
@@ -3027,6 +3071,11 @@ def phase_profile(s, step_s, card, steps=PROFILE_STEPS, watch=(),
         us = sum(r[0] for r in rows if w in r[2])
         print(f"  {w}: {us / 1e3 / steps:.3f} ms/step of device time, "
               f"{100 * us / total:.1f}%")
+    for w in spans:
+        us, ext = inside.get(w, 0.0), extent.get(w, 0.0)
+        print(f"  span {w}: {us / 1e3 / steps:.3f} ms/step of device time "
+              f"({100 * us / total:.1f}%), {ext / 1e3 / steps:.3f} ms/step "
+              f"of extent on {card}")
     per_kind = {w: sum(r[1] for r in rows if w in r[2]) / steps
                 for w in watch}
     if watch:
@@ -6205,6 +6254,9 @@ LEVEL_AMR = 10
 AMR_STEPS = 5
 AMR_CHECK_STEPS = 2
 AMR_TIMED_STEPS = 1
+# the AMR routes' timed windows: three of TIMED_WINDOWS' five since slice
+# 6, whose route and gates took the script past its clock
+AMR_TIMED_WINDOWS = 3
 AMR_PROFILE_STEPS = 1
 AMR_F64_RTOL = 1e-9
 AMR_OSC_MINLEVEL = 3
@@ -6481,7 +6533,7 @@ def phase_amr(dev, card, name):
         errors.append(f"{name}: {n - 1} host syncs a step, its solves' "
                       f"{own} + {AMR_SYNCS[name]} wanted; at {where}")
     walls_, syncs = [], []
-    for _ in range(TIMED_WINDOWS):
+    for _ in range(AMR_TIMED_WINDOWS):
         with recording_amr_solves() as wlog:
             h0 = s.host_syncs
             torch.cuda.synchronize()
@@ -6498,9 +6550,12 @@ def phase_amr(dev, card, name):
           f"leaf-updates/s ({s.n_leaves()} leaves), {uni / step / 1e6:.3f}M "
           f"uniform-cell-updates/s; host syncs per step "
           f"{' '.join(f'{x:.1f}' for x in syncs)} on {card}")
+    t1 = time.perf_counter()
     phase_profile(AMRRun(s), step, card, AMR_PROFILE_STEPS,
                   shares=("rbgs_relax", "residual", "predict_xy",
-                          "interp_faces"))
+                          "interp_faces"), host=False)
+    print(f"  {name}: the profile took {time.perf_counter() - t1:.1f} s "
+          "of wall time")
     if errors:
         raise AssertionError("; ".join(errors))
     return counts
@@ -6792,6 +6847,18 @@ def check_amr_kernels(dev, record):
              lambda: rbgs.rbgs_relax_alpha(u0, r, ax, ay, 0.0, **kw),
              lambda: rbgs.rbgs_relax_alpha_plain(u0, r, ax, ay, 0.0, **kw),
              nbytes(u0, r, ax, ay, c), alpha_flops(n, nsw, 1.0, coarse))
+    # the pyramid of amr_osc's base corrections, 8^2 -> 4^2, with its
+    # device time per launch (profiled)
+    r8 = rnd(f32, 8, 8)
+    hold("restrict_pyramid", "8^2 -> 4^2",
+         lambda: rbgs.restrict_pyramid(r8, 1),
+         lambda: rbgs.pyramid_plain(r8, 1), nbytes(r8), 8 * 8)
+    host_us, dev_us = host_device_us(lambda: rbgs.restrict_pyramid(r8, 1),
+                                     200)
+    out["restrict_pyramid"]["8^2 -> 4^2"].update(host_us=host_us,
+                                                  device_us=dev_us)
+    print(f"  restrict_pyramid at 8^2 -> 4^2: {host_us:.2f} us of host a "
+          f"call, {dev_us:.2f} us a launch on the card")
     for n in (1024, 8):
         g = Grid(level=int(math.log2(n)))
         U, V = rnd(f32, n, n), rnd(f32, n, n)
@@ -6824,6 +6891,551 @@ def check_amr_kernels(dev, record):
              nbytes(u, r), 7 * u.numel())
     for k, v in out.items():
         record[k]["amr"] = v
+
+
+# slice 6: the fork's Lagrangian particles.  The route ``particles``: the
+# bench's 2048^2 lid (lid_cfg(11)) with particle coupling, float32,
+# PARTICLES_N particles seeded uniformly over the box from a
+# torch.Generator on the card (seed 0), at rest, of diameter h (vol pi h^3
+# / 6) and density PARTICLE_RHO (a mass loading of ~6%), the five default
+# forces at gravity 0, two-way through the Gaussian deposit of radius h
+# over 7^2 cells (49 offsets x PARTICLES_N particles x 2 components a
+# step); init + PARTICLES_STEPS steps, five timed windows and a profile
+LEVEL_PARTICLES = 11
+PARTICLES_N = 1 << 20
+PARTICLE_RHO = 1000.0
+PARTICLES_STEPS = 5
+PARTICLES_TIMED_STEPS = 5
+PARTICLES_PROFILE_STEPS = 3
+PARTICLES_F64_RTOL = 1e-9
+# the slice-6 gates on the card (phase 4, this process): the Minnaert
+# period of each of BUBBLES_N bubbles (R0 in [0.009, 0.011], the liquid
+# at p0) within MINNAERT_RTOL over BUBBLES_STEPS steps of about 1/64 of a
+# period on the lid's grid; integrate_radius_coupled on CLOUD_N bubbles
+# against the CPU within CLOUD_RTOL (float64) and the in-phase pair's
+# frequency shift within MINNAERT_RTOL (tests/test_particles.py:180-235);
+# the spectra (Parseval within SPECTRUM_RTOL in float32, against the
+# CPU's float64 within SPECTRUM_RTOL of max E; init_solenoidal at 2048^2
+# divergence-free to SOLENOIDAL_DIV of max|u_hat| with its shells within
+# SOLENOIDAL_RTOL of the target); DROPLETS_SIDE^2 droplets of radius 1-3
+# h through droplets_to_particles, feed_particles and particle_to_droplet
+# with the volume kept to DROPLET_VOLUME_RTOL; the stream function of the
+# route's last velocity (float64, tolerance STREAM_TOL); the momentum
+# gate of tests/test_particles.py at 2^MOMENTUM_LEVEL cells a side in
+# float64, the particles scaled with the cells (16 at 32^2), each one's
+# volume cut by as much (the test's mass loading)
+BUBBLES_N = 1 << 16
+BUBBLES_STEPS = 200
+MINNAERT_RTOL = 0.05
+CLOUD_N = 64
+CLOUD_STEPS = 20
+CLOUD_RTOL = 1e-9
+PAIR_SUBSTEPS = 4
+SPECTRUM_RTOL = 1e-5
+SOLENOIDAL_DIV = 1e-6
+SOLENOIDAL_RTOL = 1e-5
+SOLENOIDAL_BAND = (4, 256)
+DROPLETS_SIDE = 64
+DROPLET_VOLUME_RTOL = 1e-6
+STREAM_TOL = 1e-8
+MOMENTUM_LEVEL = 8
+MOMENTUM_STEPS = 60
+MOMENTUM_RTOL = 0.2
+
+
+def profiled_system(pcfg, state):
+    """A ParticleSystem whose step is a torch.profiler.record_function span
+    named "particles", so that a profile reads the particle phase's
+    device time."""
+    from torch.profiler import record_function
+    from gerris_tpu_torch.models.particle_system import ParticleSystem
+
+    class Profiled(ParticleSystem):
+        def step(self, sim):
+            with record_function("particles"):
+                super().step(sim)
+    return Profiled(pcfg, state)
+
+
+@contextlib.contextmanager
+def deposit_span():
+    """The reaction fields' deposit as a record_function span named
+    "deposit" (particles.reaction_force_fields, which ParticleSystem
+    calls through its module) while the block runs."""
+    from torch.profiler import record_function
+    from gerris_tpu_torch.physics import particles as parts
+    fields = parts.reaction_force_fields
+
+    def spanned(*args, **kw):
+        with record_function("deposit"):
+            return fields(*args, **kw)
+    parts.reaction_force_fields = spanned
+    try:
+        yield
+    finally:
+        parts.reaction_force_fields = fields
+
+
+def particles_sim(dev, level=None, dtype=None, n=None):
+    """The particles route at 2^level cells a side (LEVEL_PARTICLES) with
+    ``n`` particles (PARTICLES_N), float32 unless ``dtype``, after init;
+    the positions drawn in float64 from a generator on the card, so every
+    dtype starts from the same particles."""
+    import dataclasses
+    import torch
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import particles as parts
+    level = LEVEL_PARTICLES if level is None else level
+    n = PARTICLES_N if n is None else n
+    dtype = torch.float32 if dtype is None else dtype
+    cfg = dataclasses.replace(lid_cfg(level), particle_coupling=True)
+    g = cfg.grid
+    gen = torch.Generator(device=dev).manual_seed(0)
+    u = torch.rand((n, 2), generator=gen, device=dev, dtype=torch.float64)
+    pos = (g.origin[0] + g.length(0) * u).to(dtype)
+    vol = torch.full((n,), math.pi * g.h ** 3 / 6.0, dtype=dtype, device=dev)
+    pcfg = parts.ParticleConfig(capacity=n, two_way=True, rkernel=g.h,
+                                kernel_cells=3)
+    state = parts.make_particles(n, 2, pos=pos, vol=vol,
+                                 mass=PARTICLE_RHO * vol, device=dev,
+                                 dtype=dtype)
+    return Simulation(cfg, time=Time(dtmax=0.8 * g.h), device=dev,
+                      dtype=dtype,
+                      particle_systems=[profiled_system(pcfg, state)]).init()
+
+
+class ParticleRun:
+    """A coupled Simulation as check_against_plain takes a run: ``state``
+    holds the fields and the particles' ``pos`` and ``vel``."""
+
+    def __init__(self, sim):
+        self.sim = sim
+
+    def run(self, max_steps=None):
+        self.sim.run(max_steps=max_steps)
+        return self
+
+    @property
+    def state(self):
+        p = self.sim.particle_systems[0].state
+        return {**self.sim.state, "pos": p["pos"], "vel": p["vel"]}
+
+
+def want_particles(steps):
+    """Launches of init + ``steps`` steps of the particles route: the
+    per-component route's (want_launches("per_component")) but for the
+    diffusion.  The PF sources take the K14 launches' oscale fold off
+    and give each component's diffusion a fused cycle of its own (K1,
+    K2: its pyramid, block and CASCADE_K3 K3, then K3), so no K8a-c run
+    (models/ns.py velocity_advection_diffusion).  The particle phase
+    launches none of the port's kernels."""
+    w = want_launches("per_component", steps)
+    for k in ("residual_restrict_pair", "cascade_prolong_relax_pair",
+              "cascade_pair.restrict_pyramid", "cascade_pair.coarse_block",
+              "cascade_pair.prolong_relax", "prolong_relax_pair"):
+        w[k] = 0
+    for k, per in (("residual_restrict", 1), ("cascade_prolong_relax", 1),
+                   ("prolong_relax", 1), ("cascade.restrict_pyramid", 1),
+                   ("cascade.coarse_block", 1),
+                   ("cascade.prolong_relax", CASCADE_K3)):
+        w[k] += 2 * per * steps
+    return w
+
+
+def phase_particles(dev, card):
+    """init + PARTICLES_STEPS steps of the particles route through the
+    kernels, the counts set to 0 just before and gated just after
+    (want_particles); finite values; the live particles; the steps
+    against the plain versions (check_against_plain, deferred: float64
+    to PARTICLES_F64_RTOL, float32 by the floor rule on U, V, P and the
+    particles' pos and vel; index_add_'s float atomics make two runs
+    differ in their last bits); one step's host syncs against the
+    per-component lid route's step (count_syncs: the particle phase adds
+    none); five timed windows and a profile with the particle phase's
+    and the deposit's device time (record_function spans).  Returns
+    (the launch counts, the last U and V)."""
+    import torch
+    n = 1 << LEVEL_PARTICLES
+    print(f"phase 3, particles: the {n}^2 lid, {PARTICLES_N} two-way "
+          f"coupled particles (density {PARTICLE_RHO:g}, diameter h, the "
+          f"Gaussian deposit of radius h), float32, init + "
+          f"{PARTICLES_STEPS} steps")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = particles_sim(dev)
+    s.run(max_steps=PARTICLES_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"  particles, init + {PARTICLES_STEPS} steps: {t_run:.3f} s; "
+          f"launches { {k: v for k, v in counts.items() if v} }")
+    errors = [f"particles: {k}: {counts[k]} launches, want {w}"
+              for k, w in want_particles(PARTICLES_STEPS).items()
+              if counts[k] != w]
+    run = ParticleRun(s)
+    for k, v in run.state.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"particles {k}: not finite")
+    psys = s.particle_systems[0]
+    mom = float((psys.state["vel"][:, 0] * psys.state["mass"]).sum())
+    print(f"  particles: {psys.n_alive()} of {PARTICLES_N} alive; t "
+          f"{s.time.t:.6e} after {s.time.i} steps, dt {s.dt:.6e}; "
+          f"max|U| {float(s.state['U'].abs().max()):.6e}, max|PFx| "
+          f"{float(s.state['PFx'].abs().max()):.6e}, particles' "
+          f"x-momentum {mom:.6e}")
+    early = {k: v.clone() for k, v in run.state.items()}
+    check_against_plain(
+        "particles", lambda dtype: ParticleRun(particles_sim(dev,
+                                                             dtype=dtype)),
+        PARTICLES_STEPS, early, PARTICLES_F64_RTOL,
+        keys=("U", "V", "P", "pos", "vel"),
+        floor_rule=("U", "V", "P", "pos", "vel"))
+    del early
+    lid = lid_sim(dev, "per_component").run(max_steps=2)
+    base, _ = count_syncs(lambda: lid.run(max_steps=1), dev)
+    del lid
+    where = []
+    syncs, _ = count_syncs(lambda: s.run(max_steps=1), dev, where)
+    print(f"  particles: host syncs of one step {syncs}, the "
+          f"per-component lid route's {base} (a run's entry dt read "
+          "included in both)")
+    if syncs != base:
+        errors.append(f"particles: {syncs} host syncs a step, the lid's "
+                      f"{base}; at {where}")
+    step = timed_windows("particles", s, PARTICLES_TIMED_STEPS, card, n * n)
+    with deposit_span():
+        phase_profile(s, step, card, PARTICLES_PROFILE_STEPS,
+                      spans=("particles", "deposit"))
+    if errors:
+        raise AssertionError("; ".join(errors))
+    return counts, (s.state["U"].clone(), s.state["V"].clone())
+
+
+def minnaert_periods(hist, R0, dt):
+    """Each bubble's period from its radius history ``hist`` (steps, n;
+    hist[k] after k + 1 steps of ``dt``): twice the mean time between the
+    sign changes of R - R0 (0 counted positive: float32 radii meet R0
+    exactly), each crossing placed by linear interpolation.  Returns
+    (periods, crossings per bubble)."""
+    s = hist - R0[None, :]
+    up = s >= 0.0
+    cross = up[:-1] != up[1:]
+    frac = s[:-1] / np.where(cross, s[:-1] - s[1:], 1.0)
+    tc = (np.arange(1, s.shape[0])[:, None] + frac) * dt
+    count = cross.sum(axis=0)
+    first = np.argmax(cross, axis=0)
+    last = s.shape[0] - 2 - np.argmax(cross[::-1], axis=0)
+    cols = np.arange(s.shape[1])
+    span = tc[last, cols] - tc[first, cols]
+    return 2.0 * span / np.maximum(count - 1, 1), count
+
+
+def bubbles_gate(dev, card):
+    """step_bubbles on BUBBLES_N bubbles over the lid's 2048^2 grid in
+    float32 (the fluid at rest, the liquid pressure p0 = 1 everywhere,
+    rho 1, gamma 1.4, R0 uniform in [0.009, 0.011], each released at
+    1.001 R0), BUBBLES_STEPS steps of 1/64 of the mean Minnaert period:
+    every bubble's period within MINNAERT_RTOL of 2 pi R0 sqrt(rho / (3
+    gamma p0)) (tests/test_particles.py:103-129); then
+    integrate_radius_coupled on CLOUD_N interacting bubbles in float64
+    against the same on the CPU, and the in-phase pair's frequency shift
+    (tests/test_particles.py:180-235) on the card."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.physics import bubbles as bub
+    from gerris_tpu_torch.physics import particles as parts
+    t0 = time.perf_counter()
+    g = Grid(LEVEL_PARTICLES)
+    f32 = torch.float32
+    n = BUBBLES_N
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pos = torch.rand((n, 2), generator=gen, device=dev) - 0.5
+    R0 = 0.009 + 0.002 * torch.rand(n, generator=gen, device=dev)
+    b = bub.make_bubbles(n, 2, pos, R=R0, p0=torch.ones(n, device=dev),
+                         device=dev, dtype=f32)
+    b["R"] = 1.001 * R0
+    zero = torch.zeros(g.shape, dtype=f32, device=dev)
+    P = torch.ones(g.shape, dtype=f32, device=dev)
+    gamma, rho, p0 = 1.4, 1.0, 1.0
+    periods = (2 * math.pi * R0.double() * math.sqrt(rho / (3 * gamma * p0))
+               ).cpu().numpy()
+    dt = float(periods.mean()) / 64
+    pcfg = parts.ParticleConfig(capacity=n)
+    bcfg = bub.BubbleConfig(model="rp", gamma=gamma)
+    hist = torch.empty((BUBBLES_STEPS, n), dtype=f32, device=dev)
+    for k in range(BUBBLES_STEPS):
+        b, _, _ = bub.step_bubbles(b, [zero, zero], [zero, zero], P, g,
+                                   list(walls()), bc.default_scalar_bc(2),
+                                   pcfg, bcfg, 1e-3, rho, dt)
+        hist[k] = b["R"]
+    got, count = minnaert_periods(hist.double().cpu().numpy(),
+                                  R0.double().cpu().numpy(), dt)
+    err = np.abs(got - periods) / periods
+    alive = int(b["alive"].sum())
+    print(f"phase 4, bubbles gate: {n} bubbles on the {g.shape[0]}^2 grid, "
+          f"float32, {BUBBLES_STEPS} steps of {dt:.6e}, "
+          f"{time.perf_counter() - t0:.1f} s on {card}: Minnaert periods "
+          f"within {err.max():.4e} (mean {err.mean():.4e}, bound "
+          f"{MINNAERT_RTOL}), {count.min()}-{count.max()} crossings a "
+          f"bubble, {alive} alive")
+    if not (err.max() < MINNAERT_RTOL and count.min() >= 3 and alive == n):
+        raise AssertionError(f"bubbles gate: periods {err.max():.3e}, "
+                             f"crossings {count.min()}, alive {alive}")
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    cgen = torch.Generator().manual_seed(2)
+    cpos = 0.1 * torch.rand((CLOUD_N, 2), generator=cgen, dtype=f64)
+    cR0 = 0.004 + 0.002 * torch.rand(CLOUD_N, generator=cgen, dtype=f64)
+    alive = torch.ones(CLOUD_N, dtype=torch.bool)
+    alive[5] = False
+    ccfg = bub.BubbleConfig(model="rp", gamma=gamma, substeps=8,
+                            interactions=True)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        R, Rd = 1.01 * cR0.to(where), torch.zeros(CLOUD_N, dtype=f64,
+                                                  device=where)
+        for _ in range(CLOUD_STEPS):
+            R, Rd = bub.integrate_radius_coupled(
+                R, Rd, torch.full_like(R, 1e5), cR0.to(where),
+                torch.full_like(R, 1e5), 1000.0, cpos.to(where),
+                alive.to(where), 1.5e-5, ccfg)
+        runs.append((R.cpu(), Rd.cpu()))
+    cerr = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(*runs))
+    # 4 RK4 substeps a step (omega0 h = 0.008): the card's launches pace
+    # this loop, beside the gate jobs
+    w1, w2, want = pair_frequencies(dev, substeps=PAIR_SUBSTEPS)
+    e1 = abs(w1 - want[0]) / want[0]
+    e2 = abs(w2 - want[1]) / want[1]
+    print(f"phase 4, bubble interactions: {CLOUD_N} bubbles ({CLOUD_STEPS} "
+          f"steps, float64) against the CPU {cerr:.3e} (bound "
+          f"{CLOUD_RTOL:.0e}); {PAIR_SUBSTEPS} substeps a step, the pair's "
+          f"frequency {w2:.1f} (theory "
+          f"{want[1]:.1f}, rel {e2:.4f}), alone {w1:.1f} (theory "
+          f"{want[0]:.1f}, rel {e1:.4f}; bound {MINNAERT_RTOL}), "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    if not (cerr <= CLOUD_RTOL and e1 < MINNAERT_RTOL and
+            e2 < MINNAERT_RTOL and w2 < 0.95 * w1):
+        raise AssertionError("bubble interactions gate failed")
+
+
+def pair_frequencies(dev, R0=0.01, d=0.05, rho=1000.0, p0=1e5, gamma=1.4,
+                     dt=1.5e-5, steps=800, far=1e6, substeps=8):
+    """tests/test_particles.py:180-235 in float64 on ``dev``, both of its
+    runs in one system: a bubble alone (``far`` from the others: its
+    coupling R0^2 / far changes its frequency by ~1e-10) and an in-phase
+    pair at distance d, 800 steps of ``substeps`` RK4 substeps (the
+    test's 8); their radial frequencies from the zero crossings, and
+    their theories omega0 and omega0 / sqrt(1 + R0 / d)."""
+    import torch
+    from gerris_tpu_torch.physics import bubbles as bub
+    cfg = bub.BubbleConfig(model="rp", gamma=gamma, substeps=substeps,
+                           interactions=True)
+    omega0 = math.sqrt(3.0 * gamma * p0 / (rho * R0 * R0))
+    pos = torch.tensor([[far, 0.0], [0.0, 0.0], [d, 0.0]],
+                       dtype=torch.float64, device=dev)
+    alive = torch.ones(3, dtype=torch.bool, device=dev)
+    full = torch.ones(3, dtype=torch.float64, device=dev)
+    R, Rd = 1.01 * R0 * full, 0.0 * full
+    hist = torch.empty((steps, 3), dtype=torch.float64, device=dev)
+    for k in range(steps):
+        R, Rd = bub.integrate_radius_coupled(R, Rd, p0 * full, R0 * full,
+                                             p0 * full, rho, pos, alive, dt,
+                                             cfg)
+        hist[k] = R
+    hist = hist.cpu().numpy()
+    ts = dt * (1.0 + np.arange(steps))
+    out = []
+    for rs in (hist[:, 0], hist[:, 1]):
+        sgn = np.sign(rs - rs.mean())
+        crossings = np.nonzero(sgn[1:] * sgn[:-1] < 0)[0]
+        out.append(math.pi / np.mean(np.diff(ts[crossings])))
+    return out[0], out[1], (omega0, omega0 / math.sqrt(1.0 + R0 / d))
+
+
+def spectra_gate(dev, card, U, V):
+    """energy_spectrum of the particles route's last velocity (float32):
+    Parseval within SPECTRUM_RTOL, and against the same function on the
+    CPU in float64 within SPECTRUM_RTOL of max E; init_solenoidal at
+    2048^2 in float64 (a k^-5/3 band, noise from a generator on the
+    card): its k-space divergence within SOLENOIDAL_DIV of max|u_hat|,
+    every shell of the band within SOLENOIDAL_RTOL of the target."""
+    import torch
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.spectral import fft as spec
+    t0 = time.perf_counter()
+    g = Grid(LEVEL_PARTICLES)
+    _, E = spec.energy_spectrum([U, V], g)
+    ke = float((0.5 * (U.double() ** 2 + V.double() ** 2)).mean())
+    pars = abs(float(E.double().sum()) - ke) / ke
+    _, E64 = spec.energy_spectrum([U.double().cpu(), V.double().cpu()], g)
+    dE = float((E.double().cpu() - E64).abs().max() / E64.abs().max())
+    lo, hi = SOLENOIDAL_BAND
+    hi = min(hi, g.shape[0] // 4)
+
+    def target(k):
+        return torch.where((k >= lo) & (k <= hi), k ** (-5.0 / 3.0), 0.0)
+    Us = spec.init_solenoidal(
+        g, target, generator=torch.Generator(device=dev).manual_seed(2),
+        device=dev)
+    uh = [torch.fft.fftn(u) for u in Us]
+    n = g.shape[0]
+    k = torch.fft.fftfreq(n, device=dev, dtype=torch.float64) * n
+    div = k[:, None] * uh[0] + k[None, :] * uh[1]
+    rdiv = float(div.abs().max() / max(float(h.abs().max()) for h in uh))
+    _, Es = spec.energy_spectrum(Us, g)
+    kk = torch.arange(lo, hi + 1, device=dev, dtype=torch.float64)
+    shell = float(((Es[lo:hi + 1] - kk ** (-5.0 / 3.0)).abs()
+                   / kk ** (-5.0 / 3.0)).max())
+    print(f"phase 4, spectra gate: {n}^2, {time.perf_counter() - t0:.1f} s "
+          f"on {card}: the particles route's E(k), float32, Parseval rel "
+          f"{pars:.3e}, against float64 on the CPU {dE:.3e} of max E "
+          f"(bounds {SPECTRUM_RTOL:.0e}); init_solenoidal float64, k-space "
+          f"divergence {rdiv:.3e} of max|u_hat| (bound "
+          f"{SOLENOIDAL_DIV:.0e}), shells {lo}-{hi} within {shell:.3e} of "
+          f"k^-5/3 (bound {SOLENOIDAL_RTOL:.0e})")
+    if not (pars <= SPECTRUM_RTOL and dE <= SPECTRUM_RTOL
+            and rdiv <= SOLENOIDAL_DIV and shell <= SOLENOIDAL_RTOL):
+        raise AssertionError("spectra gate failed")
+
+
+def droplets_gate(dev, card):
+    """A 2048^2 fraction (float64, fraction_from_levelset on the card) of
+    DROPLETS_SIDE^2 discs of radius 1-3 h, one in each cell of a lattice
+    at a seeded jitter: every disc a droplet; droplets_to_particles turns
+    all but the largest into particles, feed_particles puts them into a
+    particle state, and particle_to_droplet stamps each back; the volume
+    kept within DROPLET_VOLUME_RTOL through the conversion and the
+    stamps."""
+    import torch
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.physics import droplets as drops
+    from gerris_tpu_torch.physics import particles as parts
+    from gerris_tpu_torch.physics import vof
+    t0 = time.perf_counter()
+    g = Grid(LEVEL_PARTICLES)
+    h, m = g.h, DROPLETS_SIDE
+    f64 = torch.float64
+    side = g.length(0) / m
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rad = h * (1.0 + 2.0 * torch.rand((m, m), generator=gen, device=dev,
+                                      dtype=f64))
+    jit = 8.0 * h * (2.0 * torch.rand((2, m, m), generator=gen, device=dev,
+                                      dtype=f64) - 1.0)
+    c = g.origin[0] + side * (torch.arange(m, device=dev, dtype=f64) + 0.5)
+    cx, cy = c[:, None] + jit[0], c[None, :] + jit[1]
+
+    def phi(x, y):
+        i = torch.floor((x - g.origin[0]) / side).long().clamp(0, m - 1)
+        j = torch.floor((y - g.origin[1]) / side).long().clamp(0, m - 1)
+        return rad[i, j] ** 2 - (x - cx[i, j]) ** 2 - (y - cy[i, j]) ** 2
+    f = vof.fraction_from_levelset(g, phi, device=dev, dtype=f64)
+    cv = g.cell_volume
+    vol0 = float(f.sum()) * cv
+    f2, p = drops.droplets_to_particles(f, None, g, min_cells=64)
+    k = p["vol"].shape[0]
+    vol1 = float(f2.sum()) * cv + float(p["vol"].sum())
+    state = parts.feed_particles(
+        parts.make_particles(2 * m * m, 2, device=dev, dtype=f64), p["pos"],
+        vel=p["vel"], vol=p["vol"], mass=p["mass"])
+    fed = int(state["alive"].sum())
+    for q in range(k):
+        f2 = drops.particle_to_droplet(f2, p["pos"][q], p["vol"][q], g)
+    vol2 = float(f2.sum()) * cv
+    e1, e2 = abs(vol1 - vol0) / vol0, abs(vol2 - vol0) / vol0
+    print(f"phase 4, droplets gate: {g.shape[0]}^2 float64, {m * m} discs, "
+          f"{k} droplets to particles, {fed} fed, stamped back, "
+          f"{time.perf_counter() - t0:.1f} s on {card}: volume "
+          f"{vol0:.12e}, after the conversion rel {e1:.3e}, after the "
+          f"stamps rel {e2:.3e} (bound {DROPLET_VOLUME_RTOL:.0e})")
+    if not (k == m * m - 1 and fed == k and e1 <= DROPLET_VOLUME_RTOL
+            and e2 <= DROPLET_VOLUME_RTOL):
+        raise AssertionError("droplets gate failed")
+
+
+def derived_gate(dev, card, U, V):
+    """The stream function of the particles route's last velocity in
+    float64 (derived.stream_function, tolerance STREAM_TOL): lap(psi) =
+    the vorticity within STREAM_TOL of max|omega|."""
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.ops import derived
+    t0 = time.perf_counter()
+    cfg = lid_cfg(LEVEL_PARTICLES)
+    g, ubcs = cfg.grid, list(cfg.u_bcs)
+    U64 = [U.double(), V.double()]
+    psi = derived.stream_function(U64, g, ubcs, tol=STREAM_TOL)
+    w = derived.vorticity(U64, g, ubcs)
+    lap = derived.laplacian_of(psi, g, bc.FieldBC.uniform(bc.Dirichlet(0.0)))
+    res = float((lap - w).abs().max() / w.abs().max())
+    print(f"phase 4, derived gate: the stream function at {g.shape[0]}^2, "
+          f"float64, {time.perf_counter() - t0:.1f} s on {card}: "
+          f"max|lap(psi) - omega| {res:.3e} of max|omega| (bound "
+          f"{STREAM_TOL:.0e}), max|psi| {float(psi.abs().max()):.6e}")
+    if not res <= STREAM_TOL:
+        raise AssertionError(f"derived gate: {res:.3e}")
+
+
+def momentum_gate(dev, card):
+    """tests/test_particles.py's momentum gate at 2^MOMENTUM_LEVEL cells a
+    side in float64 on the card: a periodic box at U = 0.3, 16 particles
+    per 32^2 cells (mass loading 10, drag, two-way, bilinear), each of
+    2e-4 of the box at 32^2 cut with the cell count; after MOMENTUM_STEPS
+    steps the particles' gained x-momentum and the fluid's lost one agree
+    within MOMENTUM_RTOL."""
+    import torch
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.models.particle_system import ParticleSystem
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    from gerris_tpu_torch.physics import particles as parts
+    t0 = time.perf_counter()
+    g = Grid(MOMENTUM_LEVEL)
+    scale = (1 << MOMENTUM_LEVEL) ** 2 // 32 ** 2
+    n, vol = 16 * scale, 2e-4 / scale
+    per = bc.FieldBC.uniform(bc.Periodic())
+    cfg = ns.NSConfig(grid=g, u_bcs=(per, per), nu=1e-3,
+                      particle_coupling=True)
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(4)
+    pos = 0.8 * torch.rand((n, 2), generator=gen, device=dev,
+                           dtype=f64) - 0.4
+    vols = torch.full((n,), vol, dtype=f64, device=dev)
+    psys = ParticleSystem(
+        parts.ParticleConfig(capacity=n, forces=("drag",), two_way=True),
+        parts.make_particles(n, 2, pos=pos, vol=vols, mass=10.0 * vols,
+                             device=dev, dtype=f64))
+    sim = Simulation(cfg, time=Time(end=1.0, dtmax=0.01), device=dev,
+                     dtype=f64, particle_systems=[psys]).init(U=0.3)
+    mom0 = float(sim.state["U"].sum()) * g.cell_volume
+    sim.run(max_steps=MOMENTUM_STEPS)
+    lost = mom0 - float(sim.state["U"].sum()) * g.cell_volume
+    gained = float((psys.state["vel"][:, 0] * psys.state["mass"]).sum())
+    rel = abs(lost - gained) / gained
+    print(f"phase 4, momentum gate: {g.shape[0]}^2 float64, {n} particles, "
+          f"{MOMENTUM_STEPS} steps, {time.perf_counter() - t0:.1f} s on "
+          f"{card}: the fluid lost {lost:.6e}, the particles gained "
+          f"{gained:.6e} (rel {rel:.4f}, bound {MOMENTUM_RTOL})")
+    if not (gained > 0.0 and lost > 0.0 and rel < MOMENTUM_RTOL):
+        raise AssertionError(f"momentum gate: rel {rel:.3e}")
+
+
+def phase_slice6_gates(dev, card, last, stamp):
+    """The slice-6 gates in this process (phase 4), each closed by a
+    ``stamp``: bubbles, spectra and the stream function of the
+    particles route's last velocity ``last``, droplets, momentum."""
+    bubbles_gate(dev, card)
+    stamp("phase 4, bubbles gate done")
+    spectra_gate(dev, card, *last)
+    stamp("phase 4, spectra gate done")
+    droplets_gate(dev, card)
+    stamp("phase 4, droplets gate done")
+    derived_gate(dev, card, *last)
+    stamp("phase 4, derived gate done")
+    momentum_gate(dev, card)
+    stamp("phase 4, momentum gate done")
 
 
 def main():
@@ -6878,25 +7490,38 @@ def main():
     phase_kernels(dev, record)
     stamp("phase 2 done")
     counts, main_sim = phase_main_path(dev, card)
+    stamp("phase 3, main path done")
     route_counts = phase_routes(dev, card, main_sim)
+    stamp("phase 3, other lid routes done")
     route_counts.update(phase_adaptive(dev, card, main_sim))
     stamp("phase 3, uniform routes done")
     route_counts["lid3d"] = phase_lid3d(dev, card)
+    stamp("phase 3, lid3d done")
     phase_poisson3d(dev)
+    stamp("phase 3, poisson3d done")
     route_counts["twophase"] = phase_twophase(dev, card)
+    stamp("phase 3, twophase done")
     route_counts["bubble"], bubble_ops = phase_bubble(dev, card)
+    stamp("phase 3, bubble done")
     for name, (c, _) in phase_spurious(dev, card).items():
         route_counts[name] = c
+    stamp("phase 3, spurious done")
     route_counts["tracer"] = phase_tracer(dev, card)
+    stamp("phase 3, tracer done")
     route_counts["mgcg"] = phase_mgcg(dev, card)
+    stamp("phase 3, mgcg done")
     route_counts["sessile"] = phase_sessile(dev, card)
     stamp("phase 3, lid3d to sessile done")
     route_counts["droplet3d"] = phase_droplet3d(dev, card)
+    stamp("phase 3, droplet3d done")
     phase_bubble3d(dev, card)
+    stamp("phase 3, bubble3d done")
     route_counts["capwave"] = phase_capwave(dev, card)
     stamp("phase 3, droplet3d to capwave done")
     route_counts["cylinder"] = phase_cylinder(dev, card)
+    stamp("phase 3, cylinder done")
     route_counts.update(phase_moving(dev, card))
+    stamp("phase 3, moving done")
     route_counts["rigid"] = phase_rigid(dev, card)
     route_counts["axi"] = phase_axi(dev, card)
     route_counts["stretch"] = phase_stretch(dev, card)
@@ -6908,6 +7533,8 @@ def main():
     for name in AMR_ROUTES:
         route_counts[name] = phase_amr(dev, card, name)
         stamp(f"phase 3, {name} measured")
+    route_counts["particles"], last = phase_particles(dev, card)
+    stamp("phase 3, particles measured")
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
@@ -6954,7 +7581,8 @@ def main():
     for k in record:
         for path in ("spurious", "spurious_css", "tracer", "mgcg",
                      "sessile", "capwave", "cylinder", "moving1", "moving2",
-                     "rigid", "axi", "stretch", *AMR_ROUTES):
+                     "rigid", "axi", "stretch", *AMR_ROUTES,
+                     "particles"):
             if route_counts[path][k]:
                 record[k][f"launches_{path}"] = route_counts[path][k]
     ada = route_counts["adaptive"]
@@ -6983,10 +7611,15 @@ def main():
                 # for the diagnosis: the same run in f64
                 phase_physics(dev, card, "float64")
             raise AssertionError("Ghia phase failed")
+        stamp("phase 4, Ghia done")
         phase_bubble_gate(dev, card)
+        stamp("phase 4, bubble gate done")
         phase_spurious_gate(dev, card)
+        stamp("phase 4, spurious gate done")
         phase_droplet3d_gate(dev, card)
         stamp("phase 4, this process's gates done")
+        phase_slice6_gates(dev, card, last, stamp)
+        del last
         finish_gates(gates, t_gates)
         stamp("phase 4, gate jobs done")
     finally:

@@ -580,7 +580,8 @@ class AMRSimulation:
             raise NotImplementedError(
                 "AMRSimulation does not support embedded solids (the "
                 "reference's amr_step has no cut-cell phase)")
-        dropped = [f for f in ("body_force", "tension_css", "metric")
+        dropped = [f for f in ("body_force", "tension_css", "metric",
+                               "particle_coupling")
                    if getattr(cfg, f)] + (["axi"] if cfg.axi else [])
         if dropped:
             raise NotImplementedError(

@@ -189,6 +189,11 @@ class NSConfig:
     # fine-to-coarse flux matching instead of the finest level's alone
     block_advect: bool = False
     composite_vof: bool = False
+    # two-way particle coupling (GfsSourceParticulate, modules/
+    # particulatecommon.c:2089): the state's reaction-force densities PFx,
+    # PFy[, PFz], written by models/particle_system.ParticleSystem, are
+    # sources of the velocity advection-diffusion
+    particle_coupling: bool = False
 
     def __post_init__(self):
         if self.p_bc is None:
@@ -919,6 +924,10 @@ def ns_step(state: dict, dt: float, t: float, cfg: NSConfig,
             U, mu, grid, cfg, None if rho_c is None else 1.0 / rho_c, t)
         sources = ts if sources is None else \
             [a + b for a, b in zip(ts, sources)]
+    if cfg.particle_coupling:
+        ps = [state["PF" + ax] for ax in "xyz"[:dim]]
+        sources = ps if sources is None else \
+            [a + b for a, b in zip(ps, sources)]
     mac_src = apx_src = None
     if cfg.moving_solid:
         solid, U, mac_src, apx_src = _moving_weights(cfg, U, dt, t,
@@ -1027,12 +1036,13 @@ def initial_projection(state: dict, dt: float, t: float,
 
 def timescale(state: dict, cfg: NSConfig) -> torch.Tensor:
     """min over components of h / max|u| (reference: gfs_domain_cfl,
-    src/domain.c:2857-2906), and with a body force the acceleration bound
-    sqrt(2 h / max|a|) of each component that has one, a callable force
-    evaluated at the cell centres at t = 0 as the reference does
-    (gerris_tpu ns.py:1061-1080); a 0-d tensor on the state's device.
-    The reference guards with 1e-300, which is 0 in float32: the port
-    uses the dtype's smallest normal number."""
+    src/domain.c:2857-2906), and of each component's acceleration bound
+    sqrt(2 h / max|a|), max|a| the sum of the body force's (a callable
+    force evaluated at the cell centres at t = 0, as the reference does)
+    and, with particle coupling, max|PF| of that component (gerris_tpu
+    ns.py:1061-1080); a 0-d tensor on the state's device.  The reference
+    guards with 1e-300, which is 0 in float32: the port uses the dtype's
+    smallest normal number."""
     ts = None
     h = cfg.grid.h
     for n in velocity_names(cfg.dim):
@@ -1040,13 +1050,19 @@ def timescale(state: dict, cfg: NSConfig) -> torch.Tensor:
         umax = torch.clamp(v.abs().max(), min=torch.finfo(v.dtype).tiny)
         t_c = h / umax
         ts = t_c if ts is None else torch.minimum(ts, t_c)
-    for bf in cfg.body_force or ():
-        if bf is None:
-            continue
-        if callable(bf):
-            bf = bf(*cell_centers(cfg.grid, ts.device, ts.dtype), 0.0)
-        amax = torch.as_tensor(bf, dtype=ts.dtype, device=ts.device) \
-            .abs().max()
-        ts = torch.minimum(ts, torch.sqrt(
-            2.0 * h / torch.clamp(amax, min=torch.finfo(ts.dtype).tiny)))
+    tiny = torch.finfo(ts.dtype).tiny
+    for c in range(cfg.dim):
+        bf = None if cfg.body_force is None else cfg.body_force[c]
+        amax = None
+        if bf is not None:
+            if callable(bf):
+                bf = bf(*cell_centers(cfg.grid, ts.device, ts.dtype), 0.0)
+            amax = torch.as_tensor(bf, dtype=ts.dtype, device=ts.device) \
+                .abs().max()
+        if cfg.particle_coupling:
+            pf = state["PF" + "xyz"[c]].abs().max()
+            amax = pf if amax is None else amax + pf
+        if amax is not None:
+            ts = torch.minimum(ts, torch.sqrt(
+                2.0 * h / torch.clamp(amax, min=tiny)))
     return ts

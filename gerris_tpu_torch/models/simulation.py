@@ -39,13 +39,19 @@ class Simulation:
 
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` to run the kernels' plain versions on the CPU.
+    ``particle_systems``: models/particle_system.ParticleSystem objects,
+    each advanced in the event phase before every step (with
+    cfg.particle_coupling their PF fields are the step's sources).
     """
 
     def __init__(self, cfg: ns.NSConfig, time: Time = None, events=None,
-                 device=None, dtype=torch.float64):
+                 device=None, dtype=torch.float64, particle_systems=None):
         self.cfg = cfg
         self.time = time or Time()
         self.events = list(events or [])
+        self.particle_systems = list(particle_systems or [])
+        # the velocities before the last step (the particles' u_old)
+        self.prev_state = None
         self.device = default_device(device)
         self.dtype = dtype
         self.state = {}
@@ -56,15 +62,17 @@ class Simulation:
     def init(self, **fields):
         """Fields by name (the velocities, P, Pmac, the tracers, the VOF
         tracers, e.g. ``T=vof.fraction_from_levelset(...)``, and with gc
-        the gradients): a scalar, an array (numpy or torch) of the grid
-        shape, or a callable of the cell-centre coordinates.  Missing
-        fields start at zero."""
+        the gradients, with particle coupling PFx, PFy[, PFz]): a scalar,
+        an array (numpy or torch) of the grid shape, or a callable of the
+        cell-centre coordinates.  Missing fields start at zero."""
         grid = self.cfg.grid
         names = list(ns.velocity_names(grid.dim)) + ["P", "Pmac"] + \
             [tr[0] for tr in self.cfg.tracers] + \
             [v[0] for v in self.cfg.vof_tracers]
         if self.cfg.advection.gc:
             names += list(ns.gradient_names(grid.dim))
+        if self.cfg.particle_coupling:
+            names += ["PF" + ax for ax in "xyz"[:grid.dim]]
         for n in names:
             v = fields.get(n, 0.0)
             if callable(v):
@@ -132,6 +140,13 @@ class Simulation:
             self.do_events()
             if self.stop:
                 break
+            # the particle and bubble systems advance in the event phase
+            # with the current fields (the GfsParticleList event,
+            # modules/particulatecommon.c:955-1010)
+            for psys in self.particle_systems:
+                psys.step(self)
+            self.prev_state = {n: self.state[n]
+                               for n in ns.velocity_names(self.cfg.dim)}
             self.state = ns.ns_step(self.state, self.dt, self.time.t,
                                     self.cfg, first_step=self.time.i == 0,
                                     cstart=self.time.i % self.cfg.dim)

@@ -32,9 +32,10 @@ _SLICE_FIELDS = {"grid", "u_bcs", "p_bc", "advection", "projection",
                  "tension", "density", "body_force", "nu_var",
                  "nu_var_fields", "tracers", "tension_css", "solid_phi",
                  "surface_u", "moving_solid", "moving_order", "axi",
-                 "metric", "block_advect", "composite_vof"}
-# the later slices of the fields outside this one (ROADMAP Queue 1)
-_LATER = {"particle_coupling": "slice 6"}
+                 "metric", "block_advect", "composite_vof",
+                 "particle_coupling"}
+# the later slices of the fields outside this one (ROADMAP Queue 1): none
+_LATER = {}
 
 
 def state_from_numpy(d, device=None, dtype=torch.float64) -> dict:
@@ -264,7 +265,39 @@ def config_from_jax(cfg, nu_var=None, body_force=None,
         moving_order=int(cfg.moving_order), axi=bool(cfg.axi),
         metric=metric_from_jax(cfg.metric),
         block_advect=bool(cfg.block_advect),
-        composite_vof=bool(cfg.composite_vof))
+        composite_vof=bool(cfg.composite_vof),
+        particle_coupling=bool(cfg.particle_coupling))
+
+
+def particles_from_numpy(d, device=None, dtype=torch.float64) -> dict:
+    """A JAX particle or bubble state read with ``np.asarray`` ({key:
+    array}) -> {key: contiguous tensor on ``device``}, the CUDA card by
+    default: ``alive`` stays bool, the rest takes ``dtype``."""
+    device = default_device(device)
+    return {k: torch.as_tensor(np.asarray(d[k])).to(
+        device=device, dtype=torch.bool if k == "alive" else dtype)
+        .contiguous() for k in d.keys()}
+
+
+def particle_config_from_jax(c):
+    """A JAX physics/particles.ParticleConfig -> the port's, field by
+    field."""
+    from ..physics import particles
+    return particles.ParticleConfig(
+        capacity=int(c.capacity), forces=tuple(c.forces),
+        cd=None if c.cd is None else float(c.cd), cl=float(c.cl),
+        cm=float(c.cm), gravity=tuple(float(g) for g in c.gravity),
+        fluid_rho=float(c.fluid_rho), two_way=bool(c.two_way),
+        rkernel=float(c.rkernel), kernel_cells=int(c.kernel_cells))
+
+
+def bubble_config_from_jax(c):
+    """A JAX physics/bubbles.BubbleConfig -> the port's, field by field."""
+    from ..physics import bubbles
+    return bubbles.BubbleConfig(
+        model=str(c.model), gamma=float(c.gamma), sigma=float(c.sigma),
+        visc=float(c.visc), cl=float(c.cl), substeps=int(c.substeps),
+        interactions=bool(c.interactions))
 
 
 def composite_from_jax(cg) -> CompositeGrid:

@@ -13,7 +13,10 @@ level): both sides are given ``dense_coarse_max=512`` (dense at 8^3).
 Gates: 1e-12 of max|ref| for the pieces, equal cycle counts and 1e-10
 per solve, 1e-9 of max|ref| over the steps."""
 import dataclasses
+import functools
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +42,9 @@ from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils import convert  # noqa: E402
 
 from test_torch_convert import bench_3d_cfg  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 NAMES = ("U", "V", "W", "P", "Pmac", "Gx", "Gy", "Gz")
 DENSE = 512
@@ -222,39 +228,64 @@ def test_advection_pads_like_the_reference_3d(monkeypatch):
     assert max(_rel(r[0], o[0]) for r, o in zip(ref, other)) > 1e-3
 
 
-def _steps(jcfg, state, steps, dt, init=False):
+def _jax_steps(jcfg, state, steps, dt, init=False):
     """``steps`` JAX ns_steps (one compiled program), after its initial
-    projection with ``init``, and the port's on the converted config."""
-    tcfg = convert.config_from_jax(jcfg)
+    projection with ``init``."""
     js = {k: jnp.asarray(v) for k, v in state.items()}
-    ts = {k: _t(v) for k, v in state.items()}
     if init:
         js = jns.initial_projection(js, dt, 0.0, jcfg)
-        ts = tns.initial_projection(ts, dt, 0.0, tcfg)
     step = jax.jit(lambda s: jns.ns_step(s, dt, 0.0, jcfg))
     for _ in range(steps):
         js = step(js)
+    return js
+
+
+def _port_steps(jcfg, state, steps, dt, init=False):
+    """The same steps of the port on the converted config."""
+    tcfg = convert.config_from_jax(jcfg)
+    ts = {k: _t(v) for k, v in state.items()}
+    if init:
+        ts = tns.initial_projection(ts, dt, 0.0, tcfg)
+    for _ in range(steps):
         ts = tns.ns_step(ts, dt, 0.0, tcfg)
-    return js, ts
+    return ts
+
+
+def _bench_case(level):
+    jcfg = bench_3d_cfg(level, DENSE)
+    shape = jcfg.grid.shape
+    state = dict(zip(NAMES, (0.1 * a for a in _rnd(level, *[shape] * 8))))
+    return jcfg, state
+
+
+def _jax_bench(level, steps):
+    """The JAX side of test_bench_3d_step_matches_jax."""
+    jcfg, state = _bench_case(level)
+    js = _jax_steps(jcfg, state, steps, 0.8 * jcfg.grid.h)
+    return {k: js[k] for k in ("U", "V", "W", "P")}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {f"bench3d_{level}_{steps}": functools.partial(_jax_bench, level,
+                                                          steps)
+            for level, steps in ((4, 5), (5, 3))}
 
 
 @pytest.mark.parametrize("level,steps", [(4, 5), (5, 3)])
 def test_bench_3d_step_matches_jax(level, steps):
     """The bench's 3D lid cavity under its fixed schedule (1 cycle,
     nrelax 4 at omega 1.5 for the projections, 1 sweep for the diffusion;
-    no TPU floor in 3D), from a random state at dt = 0.8 h."""
-    jcfg = bench_3d_cfg(level, DENSE)
-    shape = jcfg.grid.shape
-    state = dict(zip(NAMES, (0.1 * a for a in _rnd(level, *[shape] * 8))))
-    js, ts = _steps(jcfg, state, steps, 0.8 * jcfg.grid.h)
+    no TPU floor in 3D), from a random state at dt = 0.8 h, against the
+    JAX package's jitted steps pinned by tools/jax_pins.py
+    (bench3d_LEVEL_STEPS)."""
+    ref = jax_pins.load(f"bench3d_{level}_{steps}")
+    jcfg, state = _bench_case(level)
+    ts = _port_steps(jcfg, state, steps, 0.8 * jcfg.grid.h)
     for k in ("U", "V", "W", "P"):
-        assert _rel(js[k], ts[k]) <= STEP, k
+        assert _rel(ref[k], ts[k]) <= STEP, k
 
 
-def test_default_3d_step_matches_jax():
-    """The default adaptive schedule (tolerance 1e-3, the diffusion's
-    default) at 16^3 with a periodic x axis and lid walls: the initial
-    projection and 2 steps."""
+def _default_3d_case():
     grid = JGrid(level=4, dim=3)
     per = (jbc.Periodic(), jbc.Periodic())
     wall = (jbc.Dirichlet(0.0), jbc.Dirichlet(0.0))
@@ -268,9 +299,29 @@ def test_default_3d_step_matches_jax():
                             tolerance=1e-3, nitermax=10,
                             dense_coarse_max=DENSE))
     state = dict(zip(NAMES, (0.1 * a for a in _rnd(16, *[grid.shape] * 8))))
-    js, ts = _steps(jcfg, state, 2, 0.8 * grid.h, init=True)
+    return jcfg, state
+
+
+def _jax_default_3d():
+    """The JAX side of test_default_3d_step_matches_jax."""
+    jcfg, state = _default_3d_case()
+    js = _jax_steps(jcfg, state, 2, 0.8 * jcfg.grid.h, init=True)
+    return {k: js[k] for k in NAMES}
+
+
+JAX_PINS["default3d"] = _jax_default_3d
+
+
+def test_default_3d_step_matches_jax():
+    """The default adaptive schedule (tolerance 1e-3, the diffusion's
+    default) at 16^3 with a periodic x axis and lid walls: the initial
+    projection and 2 steps, against the JAX package's steps pinned by
+    tools/jax_pins.py (default3d)."""
+    ref = jax_pins.load("default3d")
+    jcfg, state = _default_3d_case()
+    ts = _port_steps(jcfg, state, 2, 0.8 * jcfg.grid.h, init=True)
     for k in NAMES:
-        assert _rel(js[k], ts[k]) <= STEP, k
+        assert _rel(ref[k], ts[k]) <= STEP, k
 
 
 NU = 0.02

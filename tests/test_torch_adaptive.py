@@ -10,7 +10,10 @@ route).  The JAX side runs eagerly (``jax.disable_jit``), which costs no
 compile of its loops.  Gates: equal cycle counts and 1e-10 of max|u| per
 solve; 1e-9 relative over 10 NS steps."""
 import dataclasses
+import functools
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +42,10 @@ from gerris_tpu_torch.utils.convert import (fieldbc_from_jax,  # noqa: E402
                                             state_from_numpy)
 
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
+
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 
 def _rel(ref, got):
@@ -196,25 +203,42 @@ def _ns_configs(level=6, diffusion=None):
     return jcfg, tcfg
 
 
-@pytest.mark.parametrize("diffusion", [
-    None, jpoisson.MultilevelParams(tolerance=1e-3, nitermax=100,
-                                    solver="relax")])
-def test_default_ns_step_matches_jax(diffusion):
-    """10 lid steps at 64^2 from a small random state (seeded numpy),
-    fixed dt = 0.8 h: the default NSConfig (adaptive projections, the
-    adaptive diffusion per component), and the "relax" diffusion."""
-    jcfg, tcfg = _ns_configs(diffusion=diffusion)
+DIFFUSIONS = [None, jpoisson.MultilevelParams(tolerance=1e-3, nitermax=100,
+                                             solver="relax")]
+
+
+def _ns_state():
     rng = np.random.default_rng(3)
-    st = {n: 0.05 * rng.standard_normal(jcfg.grid.shape) for n in NAMES}
-    js = dict(st)
-    ts = state_from_numpy(st, device="cpu")
+    return {n: 0.05 * rng.standard_normal((64, 64)) for n in NAMES}
+
+
+def _jax_default_ns(k):
+    """The JAX side of test_default_ns_step_matches_jax with DIFFUSIONS[k]:
+    10 eager steps."""
+    jcfg, _ = _ns_configs(diffusion=DIFFUSIONS[k])
+    js = _ns_state()
     dt = 0.8 * jcfg.grid.h
     for i in range(10):
         with jax.disable_jit():
             js = jns.ns_step(js, dt, 0.0, jcfg, first_step=i == 0)
+    return {n: js[n] for n in ("U", "V", "P")}
+
+
+@pytest.mark.parametrize("diffusion", DIFFUSIONS)
+def test_default_ns_step_matches_jax(diffusion):
+    """10 lid steps at 64^2 from a small random state (seeded numpy),
+    fixed dt = 0.8 h: the default NSConfig (adaptive projections, the
+    adaptive diffusion per component), and the "relax" diffusion, against
+    the JAX package's eager steps pinned by tools/jax_pins.py
+    (adaptive_ns_0, adaptive_ns_1)."""
+    ref = jax_pins.load(f"adaptive_ns_{DIFFUSIONS.index(diffusion)}")
+    _, tcfg = _ns_configs(diffusion=diffusion)
+    ts = state_from_numpy(_ns_state(), device="cpu")
+    dt = 0.8 * tcfg.grid.h
+    for i in range(10):
         ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0)
     for n in ("U", "V", "P"):
-        assert _rel(js[n], ts[n]) <= 1e-9, (n, _rel(js[n], ts[n]))
+        assert _rel(ref[n], ts[n]) <= 1e-9, (n, _rel(ref[n], ts[n]))
 
 
 class _JSim(JSimulation):
@@ -226,22 +250,38 @@ class _JSim(JSimulation):
                                  first_step=self.time.i == 0)
 
 
-def test_default_simulation_run_matches_jax():
-    """Simulation.init + run (initial projection, CFL timesteps) for 5
-    steps with the default configuration; no kernel launches on the
-    CPU."""
-    jcfg, tcfg = _ns_configs()
+def _jax_default_simulation():
+    """The JAX side of test_default_simulation_run_matches_jax: init + 5
+    eager steps, and the time."""
+    jcfg, _ = _ns_configs()
     with jax.disable_jit():
         jsim = _JSim(jcfg, time=JTime(end=300.0, dtmax=1.0)).init()
         jsim.run(max_steps=5)
+    return {**{n: jsim.state[n] for n in ("U", "V", "P")},
+            "i": jsim.time.i, "t": jsim.time.t}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"adaptive_simulation": _jax_default_simulation,
+            **{f"adaptive_ns_{k}": functools.partial(_jax_default_ns, k)
+               for k in range(len(DIFFUSIONS))}}
+
+
+def test_default_simulation_run_matches_jax():
+    """Simulation.init + run (initial projection, CFL timesteps) for 5
+    steps with the default configuration against the JAX Simulation's,
+    pinned by tools/jax_pins.py (adaptive_simulation); no kernel
+    launches on the CPU."""
+    ref = jax_pins.load("adaptive_simulation")
+    _, tcfg = _ns_configs()
     tsim = Simulation(tcfg, time=Time(end=300.0, dtmax=1.0), device="cpu",
                       dtype=torch.float64).init()
     rbgs.reset_launch_counts()
     tsim.run(max_steps=5)
-    assert tsim.time.i == jsim.time.i == 5
-    assert abs(tsim.time.t - jsim.time.t) <= 1e-12 * abs(jsim.time.t)
+    assert tsim.time.i == int(ref["i"]) == 5
+    assert abs(tsim.time.t - float(ref["t"])) <= 1e-12 * abs(float(ref["t"]))
     for n in ("U", "V", "P"):
-        assert _rel(jsim.state[n], tsim.state[n]) <= 1e-9, n
+        assert _rel(ref[n], tsim.state[n]) <= 1e-9, n
     assert all(v == 0 for v in rbgs.LAUNCHES.values()), rbgs.LAUNCHES
 
 

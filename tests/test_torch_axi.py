@@ -14,6 +14,8 @@ is small under r), so both steps compute the same update.  The pipe's
 profile gate (level 5, 226 steps to steady, ~27 s on the CPU) runs on
 the card in float64 (chip_smoke.axi_gate); the Poisson's order here."""
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +35,9 @@ from gerris_tpu_torch.core.grid import Grid  # noqa: E402
 from gerris_tpu_torch.models import ns as tns  # noqa: E402
 from gerris_tpu_torch.ops.cuda import rbgs  # noqa: E402
 from gerris_tpu_torch.utils import convert  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-10
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
@@ -70,32 +75,49 @@ def _rel(ref, got):
                                                       else 1.0))
 
 
-def test_axi_step_matches_jax():
-    """The initial projection and two ns_steps of the pipe at level 4 from
-    the seeded velocity on the port and on the JAX package (eagerly):
-    every field within 1e-10 of max after each, no kernel launched on the
-    CPU."""
-    tcfg = chip_smoke.axi_cfg(4, tol=1e-8)
-    jcfg = axi_jcfg(4)
-    grid = tcfg.grid
-    x, y = (np.asarray(c) for c in jcfg.grid.centers)
+def _axi_state(grid):
+    x, y = (np.asarray(c) for c in grid.centers)
     st = {n: np.zeros(grid.shape) for n in NAMES}
     st["U"], st["V"] = axi_state(x, y)
-    dt = 0.2 * grid.h
-    js = {k: jnp.asarray(v) for k, v in st.items()}
+    return st
+
+
+def _jax_axi():
+    """The JAX side of test_axi_step_matches_jax: the initial projection
+    and two eager steps."""
+    jcfg = axi_jcfg(4)
+    dt = 0.2 * jcfg.grid.h
+    js = {k: jnp.asarray(v) for k, v in _axi_state(jcfg.grid).items()}
     with jax.disable_jit():
         jout = [jns.initial_projection(js, dt, 0.0, jcfg)]
         for i in range(2):
             jout.append(jns.ns_step(jout[-1], dt, i * dt, jcfg,
                                     first_step=(i == 0), cstart=0))
+    return {f"{k}_{n}": st[n] for k, st in enumerate(jout) for n in NAMES}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"axi_step": _jax_axi}
+
+
+def test_axi_step_matches_jax():
+    """The initial projection and two ns_steps of the pipe at level 4 from
+    the seeded velocity on the port and on the JAX package (eagerly,
+    pinned by tools/jax_pins.py: axi_step): every field within 1e-10 of
+    max after each, no kernel launched on the CPU."""
+    ref = jax_pins.load("axi_step")
+    tcfg = chip_smoke.axi_cfg(4, tol=1e-8)
+    grid = tcfg.grid
+    dt = 0.2 * grid.h
     rbgs.reset_launch_counts()
     tout = [tns.initial_projection(
-        convert.state_from_numpy(st, device="cpu"), dt, 0.0, tcfg)]
+        convert.state_from_numpy(_axi_state(grid), device="cpu"), dt, 0.0,
+        tcfg)]
     for i in range(2):
         tout.append(tns.ns_step(tout[-1], dt, i * dt, tcfg,
                                 first_step=(i == 0), cstart=0))
-    errs = {(k, n): _rel(ref[n], got[n])
-            for k, (ref, got) in enumerate(zip(jout, tout)) for n in NAMES}
+    errs = {(k, n): _rel(ref[f"{k}_{n}"], got[n])
+            for k, got in enumerate(tout) for n in NAMES}
     assert max(errs.values()) <= RTOL, errs
     assert all(v == 0 for v in rbgs.LAUNCHES.values())
 

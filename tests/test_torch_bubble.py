@@ -15,6 +15,8 @@ sweeps): the JAX side states those params explicitly, so both run the
 same sweeps.  The JAX steps run eagerly (``jax.disable_jit``) so that
 each solve's niter can be read."""
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +39,9 @@ from gerris_tpu_torch.solvers import diffusion as tdiff  # noqa: E402
 from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             grid_from_jax, state_from_numpy)
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-9
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
@@ -201,29 +206,41 @@ def test_diffuse_face_D_matches_jax(beta):
                            1.0, None, extra_rhss=[tv, tv])
 
 
+def _jax_bubble_steps():
+    """The JAX side of test_bubble_step_matches_jax: 3 eager steps, and
+    every solve's niter."""
+    jcfg, _ = _configs(5)
+    js = {k: jnp.asarray(v) for k, v in _state(jcfg.grid, seed=0).items()}
+    dt = 0.2 * jcfg.grid.h
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
+        for i in range(3):
+            js = jns.ns_step(js, dt, i * dt, jcfg, cstart=i % 2,
+                             first_step=i == 0)
+    return {**{n: js[n] for n in ("U", "V", "T", "P")},
+            "niter": np.asarray(rec)}
+
+
 def test_bubble_step_matches_jax(monkeypatch):
     """3 steps of the bubble at level 5 (32 x 64) from a small random
     velocity (seeded numpy), dt = 0.2 h, the VOF sweeps' first direction
     rotated each step: U, V, T and mean-free P within 1e-9 of max, and the
-    niter of every solve (2 projections and 2 diffusions per step)."""
+    niter of every solve (2 projections and 2 diffusions per step),
+    against the JAX package's eager run pinned by tools/jax_pins.py
+    (bubble_steps)."""
+    ref = jax_pins.load("bubble_steps")
     jcfg, tcfg = _configs(5)
     st = _state(jcfg.grid, seed=0)
-    js = {k: jnp.asarray(v) for k, v in st.items()}
     ts = state_from_numpy(st, device="cpu")
     dt = 0.2 * jcfg.grid.h
-    jrec = _record(monkeypatch, jpoisson)
     trec = _record(monkeypatch, tpoisson)
     rbgs.reset_launch_counts()
-    with jax.disable_jit():
-        for i in range(3):
-            js = jns.ns_step(js, dt, i * dt, jcfg, cstart=i % 2,
-                             first_step=i == 0)
-            ts = tns.ns_step(ts, dt, i * dt, tcfg, first_step=i == 0,
-                             cstart=i % 2)
-    assert len(trec) == 12 and trec == jrec, (trec, jrec)
+    for i in range(3):
+        ts = tns.ns_step(ts, dt, i * dt, tcfg, first_step=i == 0,
+                         cstart=i % 2)
+    assert len(trec) == 12 and trec == list(ref["niter"]), (trec, ref)
     for n in ("U", "V", "T"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL
     # the bubble rose, and no kernel launched on the CPU
     T = ts["T"].numpy()
     assert np.sum((1 - T) * st["V"]) != np.sum((1 - T) * ts["V"].numpy())
@@ -267,7 +284,38 @@ def _line_area_piecewise(m1, m2, alpha):
     return jnp.clip(v, 0.0, 1.0)
 
 
-def test_hydrostatic_column_stays_at_rest(monkeypatch):
+def _column_state(grid):
+    _, y = grid.centers
+    st = {n: np.zeros(grid.shape) for n in NAMES}
+    st["T"] = (np.asarray(y) < -0.1).astype(float)
+    return st
+
+
+def _jax_column():
+    """The JAX side of test_hydrostatic_column_stays_at_rest: 10 eager
+    steps of the resting column at 16^2, its line area the piecewise
+    form."""
+    real = jvof.line_area_positive
+    jvof.line_area_positive = _line_area_piecewise
+    try:
+        jcfg, _ = _column(4)
+        grid = jcfg.grid
+        js = {k: jnp.asarray(v) for k, v in _column_state(grid).items()}
+        dt = 0.5 * grid.h
+        with jax.disable_jit():
+            for i in range(10):
+                js = jns.ns_step(js, dt, i * dt, jcfg, cstart=i % 2,
+                                 first_step=i == 0)
+    finally:
+        jvof.line_area_positive = real
+    return {n: js[n] for n in ("U", "V")}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"bubble_column": _jax_column, "bubble_steps": _jax_bubble_steps}
+
+
+def test_hydrostatic_column_stays_at_rest():
     """The body force enters as a face source beside tension, so a
     hydrostatic state stays at rest: 10 steps of the resting column at
     16^2 (the JAX step eagerly: jitted, its rounding differs and the
@@ -278,24 +326,18 @@ def test_hydrostatic_column_stays_at_rest(monkeypatch):
     components of ~1e-12, where the reference's closed-form line area
     loses digits that the port's piecewise form keeps (6e-12 of U after
     10 steps): the JAX side runs the piecewise form, the intended
-    function, for this test (_line_area_piecewise)."""
-    monkeypatch.setattr(jvof, "line_area_positive", _line_area_piecewise)
-    jcfg, tcfg = _column(4)
-    grid = jcfg.grid
-    _, y = grid.centers
-    st = {n: np.zeros(grid.shape) for n in NAMES}
-    st["T"] = (y < -0.1).astype(float)
-    js = {k: jnp.asarray(v) for k, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
+    function, for this test (_line_area_piecewise).  The JAX side's
+    values are pinned (tools/jax_pins.py, bubble_column)."""
+    ref = jax_pins.load("bubble_column")
+    _, tcfg = _column(4)
+    grid = tcfg.grid
+    ts = state_from_numpy(_column_state(grid), device="cpu")
     dt = 0.5 * grid.h
-    with jax.disable_jit():
-        for i in range(10):
-            js = jns.ns_step(js, dt, i * dt, jcfg, cstart=i % 2,
-                             first_step=i == 0)
-            ts = tns.ns_step(ts, dt, i * dt, tcfg, first_step=i == 0,
-                             cstart=i % 2)
+    for i in range(10):
+        ts = tns.ns_step(ts, dt, i * dt, tcfg, first_step=i == 0,
+                         cstart=i % 2)
     for n in ("U", "V"):
-        err = float(np.max(np.abs(np.asarray(js[n]) - ts[n].numpy())))
+        err = float(np.max(np.abs(ref[n] - ts[n].numpy())))
         assert err <= 1e-12, (n, err)
         # far below the free fall's g t = 0.31
         assert float(ts[n].abs().max()) <= 1e-5, n

@@ -15,6 +15,9 @@ schedules carry over as given (the reference's defaults: adaptive to
 solve's niter can be read.  No TPU kernel lies on this path: the face
 coefficients and the cell dia take the torch correction and smoother in
 both packages."""
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +36,9 @@ from gerris_tpu_torch.ops.cuda import rbgs, rbgs3d  # noqa: E402
 from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             state_from_numpy)
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-9
 NAMES = ("U", "V", "W", "P", "Pmac", "Gx", "Gy", "Gz")
@@ -122,37 +128,54 @@ def test_config_carries_the_3d_bubble():
         (jp.nrelax, jp.coarsest_relax)
 
 
+def _bubble3d_state(grid):
+    rng = np.random.default_rng(0)
+    st = {n: 0.01 * rng.standard_normal(grid.shape) for n in NAMES}
+    st["T"] = _bubble_T(grid)
+    return st
+
+
+def _jax_bubble3d():
+    """The JAX side of test_bubble3d_step_matches_jax: one eager step, and
+    every solve's niter."""
+    jcfg = bubble3d_jcfg(4)
+    js = {k: jnp.asarray(v) for k, v in _bubble3d_state(jcfg.grid).items()}
+    dt = 0.2 * jcfg.grid.h
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
+        js = jns.ns_step(js, dt, 0.0, jcfg, cstart=0, first_step=True)
+    return {**dict(js), "niter": np.asarray(rec)}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"bubble3d_step": _jax_bubble3d}
+
+
 def test_bubble3d_step_matches_jax(monkeypatch):
     """One step of the bubble at 16 x 32 x 16 from a small random velocity
     (seeded numpy), dt = 0.2 h: U, V, W, T and mean-free P within 1e-9 of
     max, the same niter for every solve (2 projections and 3 diffusions,
     each with the density's face coefficients), the tension's face
     sources non-zero (the curvature is defined on the interface) and no
-    kernel launched.  (An eager JAX step costs ~45 s here, most of it
-    compiling its primitives: the initial projection is compared on the
-    droplet, tests/test_torch_droplet3d.py.)"""
+    kernel launched, against the JAX package's eager step pinned by
+    tools/jax_pins.py (bubble3d_step).  (The initial projection is
+    compared on the droplet, tests/test_torch_droplet3d.py.)"""
+    ref = jax_pins.load("bubble3d_step")
     jcfg = bubble3d_jcfg(4)
     tcfg = config_from_jax(jcfg, nu_var=mu_torch)
-    rng = np.random.default_rng(0)
-    st = {n: 0.01 * rng.standard_normal(jcfg.grid.shape) for n in NAMES}
-    st["T"] = _bubble_T(jcfg.grid)
-    js = {k: jnp.asarray(v) for k, v in st.items()}
+    st = _bubble3d_state(jcfg.grid)
     ts = state_from_numpy(st, device="cpu")
     _, alpha = tns.density_fields(ts, tcfg)
     fs = tns.tension_sources(ts, tcfg, alpha=alpha)
     assert all(bool(f.abs().max() > 0.0) for f in fs)
     dt = 0.2 * jcfg.grid.h
-    jrec = _record(monkeypatch, jpoisson)
     trec = _record(monkeypatch, tpoisson)
     rbgs.reset_launch_counts()
     rbgs3d.reset_launch_counts()
-    with jax.disable_jit():
-        js = jns.ns_step(js, dt, 0.0, jcfg, cstart=0, first_step=True)
     ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=True, cstart=0)
-    assert len(trec) == 5 and trec == jrec, (trec, jrec)
+    assert len(trec) == 5 and trec == list(ref["niter"]), (trec, ref)
     for n in ("U", "V", "W", "T", "Gx", "Gy", "Gz", "Pmac"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL
     assert bool((ts["V"] != torch.from_numpy(st["V"])).any())
     assert all(v == 0 for v in rbgs.LAUNCHES.values())
     assert all(v == 0 for v in rbgs3d.LAUNCHES.values())

@@ -13,6 +13,9 @@ only JAX step of this file.  Tolerance: 1e-10 of max on U, V, T and the
 mean-free P."""
 import math
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +36,9 @@ from gerris_tpu_torch.ops.cuda import rbgs  # noqa: E402
 from gerris_tpu_torch.utils.analytic import prosperetti_capwave  # noqa: E402
 from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             state_from_numpy)
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-10
 NU = 0.0182571749236
@@ -102,25 +108,41 @@ def test_capwave_config_is_the_tests():
             (b.tolerance, b.nitermax, b.nrelax, b.minlevel), f
 
 
-def test_capwave_step_matches_jax():
-    """One step of the capillary wave at level 4 from a small seeded
-    velocity, dt = 0.2 h: U, V, T and mean-free P within 1e-10 of the
-    JAX step's, and no kernel launched on the CPU."""
+def _jax_capwave():
+    """The JAX side of test_capwave_step_matches_jax: the seeded state (T
+    the JAX package's fraction) and one eager step."""
     jcfg = capwave_jcfg(4)
-    tcfg = chip_smoke.capwave_cfg(4)
     grid = jcfg.grid
     rng = np.random.default_rng(7)
     st = {n: 0.01 * rng.standard_normal(grid.shape) for n in NAMES}
     st["T"] = np.asarray(jvof.fraction_from_levelset(
         grid, lambda x, y: y - 0.01 * jnp.cos(2 * math.pi * x)))
     js = {k: jnp.asarray(v) for k, v in st.items()}
+    with jax.disable_jit():
+        js = jns.ns_step(js, 0.2 * grid.h, 0.0, jcfg, cstart=0,
+                         first_step=True)
+    return {**{f"init_{n}": v for n, v in st.items()},
+            **{n: js[n] for n in ("U", "V", "T", "P")}}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"capwave_step": _jax_capwave}
+
+
+def test_capwave_step_matches_jax():
+    """One step of the capillary wave at level 4 from a small seeded
+    velocity, dt = 0.2 h: U, V, T and mean-free P within 1e-10 of the
+    JAX step's (pinned by tools/jax_pins.py, capwave_step, with its
+    initial state), and no kernel launched on the CPU."""
+    ref = jax_pins.load("capwave_step")
+    tcfg = chip_smoke.capwave_cfg(4)
+    grid = tcfg.grid
+    st = {n: ref[f"init_{n}"] for n in (*NAMES, "T")}
     ts = state_from_numpy(st, device="cpu")
     dt = 0.2 * grid.h
     rbgs.reset_launch_counts()
-    with jax.disable_jit():
-        js = jns.ns_step(js, dt, 0.0, jcfg, cstart=0, first_step=True)
     ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=True, cstart=0)
     for n in ("U", "V", "T"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL
     assert all(v == 0 for v in rbgs.LAUNCHES.values())

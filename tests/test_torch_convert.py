@@ -135,7 +135,12 @@ def test_config_from_jax_bench():
     ("particle_coupling", True),
 ])
 def test_config_from_jax_refuses_fields_outside_slice(field, value):
+    """A field outside the ported slices is refused, naming it;
+    particle_coupling carries over since slice 6."""
     cfg = dataclasses.replace(cavity_cfg(6), **{field: value})
+    if field == "particle_coupling":
+        assert convert.config_from_jax(cfg).particle_coupling is value
+        return
     with pytest.raises(NotImplementedError, match=field):
         convert.config_from_jax(cfg)
 
@@ -369,7 +374,13 @@ def test_config_from_jax_refuses_the_later_slices(field, later):
     """The fields no slice has ported yet are refused naming their slice
     (ROADMAP Queue 1); pack_faces, a TPU layout with no counterpart,
     names the queue.  block_advect and composite_vof carry over since
-    slice 5 (tests/test_torch_amr_ns.py)."""
+    slice 5 (tests/test_torch_amr_ns.py), particle_coupling since slice 6:
+    no field names a later slice any more."""
+    if field == "particle_coupling":
+        assert not convert._LATER
+        assert convert.config_from_jax(dataclasses.replace(
+            cavity_cfg(5), particle_coupling=True)).particle_coupling
+        return
     with pytest.raises(NotImplementedError, match=later):
         convert.config_from_jax(dataclasses.replace(cavity_cfg(5),
                                                     **{field: True}))

@@ -10,6 +10,8 @@ eagerly under jax.disable_jit, the only JAX step of this file), U, V,
 Gx, Gy and the mean-free P and Pmac within 1e-10 of max.  The profile
 gate at level 6 runs on the card (chip_smoke.couette_gate); here its
 level-5 run on the port."""
+import os
+import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,9 @@ from gerris_tpu.solvers import poisson as jpoisson  # noqa: E402
 import chip_smoke  # noqa: E402
 from gerris_tpu_torch.models import ns as tns  # noqa: E402
 from gerris_tpu_torch.utils import convert  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-10
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
@@ -66,21 +71,44 @@ def _clear_jax_step_cache():
     jns.initial_projection.clear_cache()
 
 
-def test_couette_step_matches_jax():
-    jcfg, tcfg = couette_jcfg(4), chip_smoke.couette_cfg(4)
+def _couette_state(shape):
     rng = np.random.default_rng(3)
-    st = {n: 0.01 * rng.standard_normal(jcfg.grid.shape) for n in NAMES}
+    return {n: 0.01 * rng.standard_normal(shape) for n in NAMES}
+
+
+def _jax_couette():
+    """The JAX side of test_couette_step_matches_jax: the initial
+    projection and one eager step."""
+    jcfg = couette_jcfg(4)
+    st = _couette_state(jcfg.grid.shape)
     dt = 1e-2
     with jax.disable_jit():
         j0 = jns.initial_projection({k: jnp.asarray(v) for k, v in
                                      st.items()}, dt, 0.0, jcfg)
         j1 = jns.ns_step(j0, dt, 0.0, jcfg, cstart=0, first_step=True)
+    return {**{f"init_{n}": j0[n] for n in NAMES},
+            **{f"step_{n}": j1[n] for n in NAMES}}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"couette_step": _jax_couette}
+
+
+def test_couette_step_matches_jax():
+    """The initial projection and one step of the Couette flow at level 4
+    against the JAX package's eager run pinned by tools/jax_pins.py
+    (couette_step): every field (P, Pmac mean-free) within RTOL."""
+    ref = jax_pins.load("couette_step")
+    tcfg = chip_smoke.couette_cfg(4)
+    st = _couette_state(tcfg.grid.shape)
+    dt = 1e-2
     t0 = tns.initial_projection(convert.state_from_numpy(st, device="cpu"),
                                 dt, 0.0, tcfg)
     t1 = tns.ns_step(t0, dt, 0.0, tcfg, first_step=True, cstart=0)
-    for ref, got in ((j0, t0), (j1, t1)):
+    for phase, got in (("init", t0), ("step", t1)):
         for n in NAMES:
-            assert _rel(ref[n], got[n], n in ("P", "Pmac")) <= RTOL, n
+            assert _rel(ref[f"{phase}_{n}"], got[n],
+                        n in ("P", "Pmac")) <= RTOL, (phase, n)
     # the turning inner cylinder drives the fluid next to it
     assert float(t1["V"].abs().max()) > 0.1
 

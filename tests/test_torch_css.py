@@ -13,7 +13,10 @@ contact angles, a tension-driven drop on a wall.  The JAX steps run
 eagerly (``jax.disable_jit``) so that each solve's niter can be read.  Bound: U, V, T and mean-free P within 1e-9
 of max, equal niter per solve."""
 import dataclasses
+import functools
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +45,9 @@ from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             grid_from_jax, state_from_numpy)
 
 from test_torch_contact import sessile_T, sessile_jcfg  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-9
 LA = 12000.0
@@ -167,36 +173,50 @@ def test_css_sources_float32_have_no_nan():
         assert _rel(g64, g32) <= 1e-5
 
 
-@pytest.mark.parametrize("kind", ["tension", "tension_css"])
-def test_static_droplet_steps_match_jax(monkeypatch, kind):
-    """3 steps of the static droplet at level 5 from rest after the
-    initial projection, dt the capillary bound: U, V, T and mean-free P
-    within 1e-9 of max, and the niter of every solve (4 a step)."""
-    jcfg = spurious_jcfg(5, kind)
-    tcfg = _port_cfg(jcfg)
-    assert getattr(tcfg, kind) == (("T", 1.0),)
-    st = {n: np.zeros(jcfg.grid.shape) for n in
+def _static_state(grid):
+    st = {n: np.zeros(grid.shape) for n in
           ("U", "V", "P", "Pmac", "Gx", "Gy")}
-    st["T"] = _droplet(jcfg.grid)
-    js = {k: jnp.asarray(v) for k, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
+    st["T"] = _droplet(grid)
+    return st
+
+
+def _jax_static(kind):
+    """The JAX side of test_static_droplet_steps_match_jax: the initial
+    projection and 3 eager steps, and every solve's niter."""
+    jcfg = spurious_jcfg(5, kind)
+    js = {k: jnp.asarray(v) for k, v in _static_state(jcfg.grid).items()}
     dt = jtens.stability_dt(jcfg.grid, 1.0)
-    jrec = _record(monkeypatch, jpoisson)
-    trec = _record(monkeypatch, tpoisson)
-    rbgs.reset_launch_counts()
-    with jax.disable_jit():
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
         js = jns.initial_projection(js, dt, 0.0, jcfg)
         for i in range(3):
             js = jns.ns_step(js, dt, i * dt, jcfg, cstart=i % 2,
                              first_step=i == 0)
+    return {**{n: js[n] for n in ("U", "V", "T", "P")},
+            "niter": np.asarray(rec)}
+
+
+@pytest.mark.parametrize("kind", ["tension", "tension_css"])
+def test_static_droplet_steps_match_jax(monkeypatch, kind):
+    """3 steps of the static droplet at level 5 from rest after the
+    initial projection, dt the capillary bound: U, V, T and mean-free P
+    within 1e-9 of max, and the niter of every solve (4 a step), against
+    the JAX package's run pinned by tools/jax_pins.py (css_static_KIND)."""
+    ref = jax_pins.load(f"css_static_{kind}")
+    jcfg = spurious_jcfg(5, kind)
+    tcfg = _port_cfg(jcfg)
+    assert getattr(tcfg, kind) == (("T", 1.0),)
+    ts = state_from_numpy(_static_state(jcfg.grid), device="cpu")
+    dt = jtens.stability_dt(jcfg.grid, 1.0)
+    trec = _record(monkeypatch, tpoisson)
+    rbgs.reset_launch_counts()
     ts = tns.initial_projection(ts, dt, 0.0, tcfg)
     for i in range(3):
         ts = tns.ns_step(ts, dt, i * dt, tcfg, first_step=i == 0,
                          cstart=i % 2)
-    assert trec == jrec and len(trec) == 13, (trec, jrec)
+    assert trec == list(ref["niter"]) and len(trec) == 13, (trec, ref)
     for n in ("U", "V", "T"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL
     assert all(v == 0 for v in rbgs.LAUNCHES.values())
 
 
@@ -226,13 +246,44 @@ def test_css_takes_the_capillary_timestep():
     assert js.dt == s.dt
 
 
+def _sessile_state(grid):
+    st = {n: np.zeros(grid.shape) for n in
+          ("U", "V", "P", "Pmac", "Gx", "Gy")}
+    st["T"] = sessile_T(grid)
+    return st
+
+
+def _jax_sessile(angle):
+    """The JAX side of test_sessile_steps_match_jax: the initial
+    projection and 3 eager steps, and every solve's niter."""
+    jcfg = sessile_jcfg(5, angle)
+    js = {k: jnp.asarray(v) for k, v in _sessile_state(jcfg.grid).items()}
+    dt = math.sqrt(jcfg.grid.h ** 3 / math.pi)
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
+        js = jns.initial_projection(js, dt, 0.0, jcfg)
+        for i in range(3):
+            js = jns.ns_step(js, dt, i * dt, jcfg, cstart=i % 2,
+                             first_step=i == 0)
+    return {**{n: js[n] for n in ("U", "V", "T", "P")},
+            "niter": np.asarray(rec)}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {**{f"css_static_{k}": functools.partial(_jax_static, k)
+               for k in ("tension", "tension_css")},
+            **{f"css_sessile_{a:g}": functools.partial(_jax_sessile, a)
+               for a in (60.0, 120.0)}}
+
+
 @pytest.mark.parametrize("angle", (60.0, 120.0))
 def test_sessile_steps_match_jax(monkeypatch, angle):
     """3 steps of the sessile drop (tests/test_torch_contact.py: the
     contact angle on the bottom wall, tension 1, nu 0.1) at level 5 from
     rest, dt the capillary bound: U, V, T and mean-free P within 1e-9 of
     max, and the niter of every solve (4 a step and the initial
-    projection's)."""
+    projection's), against the JAX package's run pinned by
+    tools/jax_pins.py (css_sessile_60, css_sessile_120)."""
+    ref = jax_pins.load(f"css_sessile_{angle:g}")
     jcfg = sessile_jcfg(5, angle)
     tcfg = config_from_jax(jcfg)
     p = tpoisson.MultilevelParams(tolerance=1e-3, nitermax=100,
@@ -241,26 +292,16 @@ def test_sessile_steps_match_jax(monkeypatch, angle):
                                diffusion_params=dataclasses.replace(
                                    p, nitermax=10))
     assert tcfg.vof_tracers[0][1].sides[1][0] == tbc.Contact(angle)
-    st = {n: np.zeros(jcfg.grid.shape) for n in
-          ("U", "V", "P", "Pmac", "Gx", "Gy")}
-    st["T"] = sessile_T(jcfg.grid)
-    js = {k: jnp.asarray(v) for k, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
+    ts = state_from_numpy(_sessile_state(jcfg.grid), device="cpu")
     dt = math.sqrt(jcfg.grid.h ** 3 / math.pi)
-    jrec = _record(monkeypatch, jpoisson)
     trec = _record(monkeypatch, tpoisson)
     rbgs.reset_launch_counts()
-    with jax.disable_jit():
-        js = jns.initial_projection(js, dt, 0.0, jcfg)
-        for i in range(3):
-            js = jns.ns_step(js, dt, i * dt, jcfg, cstart=i % 2,
-                             first_step=i == 0)
     ts = tns.initial_projection(ts, dt, 0.0, tcfg)
     for i in range(3):
         ts = tns.ns_step(ts, dt, i * dt, tcfg, first_step=i == 0,
                          cstart=i % 2)
-    assert trec == jrec and len(trec) == 13, (trec, jrec)
+    assert trec == list(ref["niter"]) and len(trec) == 13, (trec, ref)
     for n in ("U", "V", "T"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL
     assert all(v == 0 for v in rbgs.LAUNCHES.values())

@@ -1935,3 +1935,51 @@ def test_amr_steps_on_the_card(dev, route):
         if k == "P":
             x, y = x - x.mean(), y - y.mean()
         assert _rel(x, y) <= 1e-9, k
+
+
+def _particle_case(dev, dtype, n=4096, cap=4608):
+    """Seeded fields and particles at 128^2 of ``dtype`` on the card, n
+    particles in a box a little larger than the grid's, and the same
+    values in float64 on the CPU: (card, cpu), each (U, particles,
+    values)."""
+    from gerris_tpu_torch.physics import particles
+    g = torch.Generator().manual_seed(6)
+    U = [torch.randn((128, 128), generator=g).to(dtype) for _ in range(2)]
+    pos = (1.04 * torch.rand((n, 2), generator=g) - 0.52).to(dtype)
+    vals = torch.randn(cap, generator=g).to(dtype)
+    out = []
+    for where, dt in ((dev, dtype), (torch.device("cpu"), torch.float64)):
+        out.append(([u.to(where, dt) for u in U],
+                    particles.make_particles(cap, 2, pos=pos.to(dt),
+                                             device=where, dtype=dt),
+                    vals.to(where, dt)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_particle_gather_on_the_card(dev, dtype):
+    """The particles' gather (the lid's BC ghosts, all 2^2 corners in one
+    indexing) on the card against the CPU in float64."""
+    from gerris_tpu_torch.physics import particles
+    grid = Grid(7)
+    (got_u, got_p, _), (ref_u, ref_p, _) = _particle_case(dev, dtype)
+    ubc = bc.FieldBC.make(2, default=bc.Dirichlet(0.0), top=bc.Dirichlet(1.0))
+    got = particles.interpolate_at(got_u[0], grid, ubc, got_p["pos"])
+    ref = particles.interpolate_at(ref_u[0], grid, ubc, ref_p["pos"])
+    assert _rel(got.cpu().double(), ref) <= BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rkernel", [0.0, 1.0])
+def test_particle_deposit_on_the_card(dev, dtype, rkernel):
+    """Both deposits (bilinear; the Gaussian of radius h over 7^2 cells),
+    one index_add_ each, on the card against the CPU in float64 (the
+    card's float atomics sum in any order: within the bound, not bit for
+    bit)."""
+    from gerris_tpu_torch.physics import particles
+    grid = Grid(7)
+    cfg = particles.ParticleConfig(4608, rkernel=rkernel * grid.h)
+    (_, got_p, got_v), (_, ref_p, ref_v) = _particle_case(dev, dtype)
+    got = particles.deposit(got_v, got_p, grid, cfg)
+    ref = particles.deposit(ref_v, ref_p, grid, cfg)
+    assert _rel(got.cpu().double(), ref) <= BOUND[dtype]

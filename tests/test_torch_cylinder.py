@@ -12,6 +12,9 @@ given."""
 import dataclasses
 import math
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +32,9 @@ from gerris_tpu_torch.core.grid import Grid  # noqa: E402
 from gerris_tpu_torch.models import ns as tns  # noqa: E402
 from gerris_tpu_torch.ops.cuda import rbgs  # noqa: E402
 from gerris_tpu_torch.utils import convert  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-10
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
@@ -68,27 +74,47 @@ def _clear_jax_step_cache():
     jns.initial_projection.clear_cache()
 
 
-def test_cylinder_step_matches_jax():
-    """initial_projection and one ns_step at level 4: every field within
-    1e-10 of max after each, the solid's cells at rest, and no kernel
-    launched on the CPU."""
-    jcfg, tcfg = cylinder_jcfg(4), chip_smoke.cylinder_cfg(4)
-    grid = jcfg.grid
+def _cylinder_state(grid):
     st = {n: np.zeros(grid.shape) for n in NAMES}
     st["U"] = np.ones(grid.shape)
-    dt = 0.8 * grid.h
-    js = {k: jnp.asarray(v) for k, v in st.items()}
+    return st
+
+
+def _jax_cylinder():
+    """The JAX side of test_cylinder_step_matches_jax: the initial
+    projection and one eager step."""
+    jcfg = cylinder_jcfg(4)
+    dt = 0.8 * jcfg.grid.h
+    js = {k: jnp.asarray(v) for k, v in _cylinder_state(jcfg.grid).items()}
     with jax.disable_jit():
         j0 = jns.initial_projection(js, dt, 0.0, jcfg)
         j1 = jns.ns_step(j0, dt, 0.0, jcfg, cstart=0, first_step=True)
+    return {**{f"init_{n}": j0[n] for n in NAMES},
+            **{f"step_{n}": j1[n] for n in NAMES}}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"cylinder_step": _jax_cylinder}
+
+
+def test_cylinder_step_matches_jax():
+    """initial_projection and one ns_step at level 4: every field within
+    1e-10 of max after each, against the JAX package's eager run pinned
+    by tools/jax_pins.py (cylinder_step); the solid's cells at rest, and
+    no kernel launched on the CPU."""
+    ref = jax_pins.load("cylinder_step")
+    tcfg = chip_smoke.cylinder_cfg(4)
+    grid = tcfg.grid
+    dt = 0.8 * grid.h
     rbgs.reset_launch_counts()
-    ts = convert.state_from_numpy(st, device="cpu")
+    ts = convert.state_from_numpy(_cylinder_state(grid), device="cpu")
     t0 = tns.initial_projection(ts, dt, 0.0, tcfg)
     t1 = tns.ns_step(t0, dt, 0.0, tcfg, first_step=True, cstart=0)
-    for ref, got in ((j0, t0), (j1, t1)):
+    for phase, got in (("init", t0), ("step", t1)):
         for n in NAMES:
-            if float(np.max(np.abs(np.asarray(ref[n])))) > 0:
-                assert _rel(ref[n], got[n]) <= RTOL, n
+            r = ref[f"{phase}_{n}"]
+            if float(np.max(np.abs(r))) > 0:
+                assert _rel(r, got[n]) <= RTOL, (phase, n)
     a = tns._weights(tcfg, t1["U"]).a
     assert bool((t1["U"][a == 0] == 0).all() and (t1["V"][a == 0] == 0).all())
     assert float(t1["U"].abs().max()) > 1.0
@@ -140,8 +166,13 @@ def test_config_from_jax_names_the_later_slices(field, value, later):
     """The fields of the later slices are refused naming their slices, a
     TPU layout (pack_faces) naming the queue (the metrics and moving
     solids, refused before slice 4b, carry over:
-    tests/test_torch_convert.py; block_advect since slice 5)."""
+    tests/test_torch_convert.py; block_advect since slice 5;
+    particle_coupling since slice 6)."""
     jcfg = dataclasses.replace(cylinder_jcfg(4), **{field: value})
+    if field == "particle_coupling":
+        assert convert.config_from_jax(
+            jcfg, solid_phi=chip_smoke.cylinder_phi).particle_coupling
+        return
     with pytest.raises(NotImplementedError, match=later):
         convert.config_from_jax(jcfg, solid_phi=chip_smoke.cylinder_phi)
 

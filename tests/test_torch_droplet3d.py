@@ -13,6 +13,9 @@ Every solve of this configuration runs K13's plain version on the CPU
 (a scalar dia, Dirichlet/Neumann sides)."""
 import math
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +41,9 @@ from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             fieldbc_from_jax, state_from_numpy)
 from gerris_tpu_torch.utils.convert import \
     grid_from_jax as convert_grid  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-9
 R = 0.3
@@ -102,34 +108,53 @@ def test_config_carries_the_3d_droplet():
     assert (tcfg.projection.tolerance, tcfg.projection.nitermax) == (1e-6, 50)
 
 
+def _droplet3d_state(T0):
+    st = {n: np.zeros(T0.shape) for n in
+          ("U", "V", "W", "P", "Pmac", "Gx", "Gy", "Gz")}
+    st["T"] = T0
+    return st
+
+
+def _jax_droplet3d():
+    """The JAX side of test_droplet3d_step_matches_jax: the sphere's
+    fraction, the initial projection and one eager step, and every
+    solve's niter."""
+    jcfg = droplet_jcfg(4)
+    T0 = np.asarray(jvof.fraction_from_levelset(jcfg.grid, _sphere))
+    js = {k: jnp.asarray(v) for k, v in _droplet3d_state(T0).items()}
+    dt = jtens.stability_dt(jcfg.grid, 1.0)
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
+        js = jns.initial_projection(js, dt, 0.0, jcfg)
+        js = jns.ns_step(js, dt, 0.0, jcfg, cstart=0, first_step=True)
+    return {**dict(js), "T0": T0, "dt": dt, "niter": np.asarray(rec)}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"droplet3d_step": _jax_droplet3d}
+
+
 def test_droplet3d_step_matches_jax(monkeypatch):
     """init (the initial projection) and one step at 16^3, dt the
     capillary bound: U, V, W, T and mean-free P within 1e-9 of max, the
     same niter for every solve (2 projections and 3 diffusions), and the
-    velocity non-zero after the step (the tension drives it)."""
+    velocity non-zero after the step (the tension drives it), against
+    the JAX package's eager run pinned by tools/jax_pins.py
+    (droplet3d_step; the sphere's fraction from it too)."""
+    ref = jax_pins.load("droplet3d_step")
     jcfg = droplet_jcfg(4)
     tcfg = config_from_jax(jcfg)
-    T0 = np.asarray(jvof.fraction_from_levelset(jcfg.grid, _sphere))
-    st = {n: np.zeros(jcfg.grid.shape) for n in
-          ("U", "V", "W", "P", "Pmac", "Gx", "Gy", "Gz")}
-    st["T"] = T0
-    js = {k: jnp.asarray(v) for k, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
-    dt = jtens.stability_dt(jcfg.grid, 1.0)
+    ts = state_from_numpy(_droplet3d_state(ref["T0"]), device="cpu")
+    dt = float(ref["dt"])
     assert dt == ttens.stability_dt(tcfg.grid, 1.0)
-    jrec = _record(monkeypatch, jpoisson)
     trec = _record(monkeypatch, tpoisson)
     rbgs.reset_launch_counts()
     rbgs3d.reset_launch_counts()
-    with jax.disable_jit():
-        js = jns.initial_projection(js, dt, 0.0, jcfg)
-        js = jns.ns_step(js, dt, 0.0, jcfg, cstart=0, first_step=True)
     ts = tns.initial_projection(ts, dt, 0.0, tcfg)
     ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=True, cstart=0)
-    assert len(trec) == 6 and trec == jrec, (trec, jrec)
+    assert len(trec) == 6 and trec == list(ref["niter"]), (trec, ref)
     for n in ("U", "V", "W", "T", "Gx", "Gy", "Gz", "Pmac"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL
     umax = float(torch.sqrt(ts["U"] ** 2 + ts["V"] ** 2 + ts["W"] ** 2).max())
     assert umax > 1e-4, umax
     # no kernel launches on the CPU: the plain versions ran

@@ -14,6 +14,7 @@ into a neighbour that is not small, so the port's transitive merge and
 the reference's two hops agree.  The Galilean gate runs on the port at
 level 6, here and on the card (chip_smoke.moving_gate)."""
 import dataclasses
+import functools
 import os
 import sys
 
@@ -40,6 +41,8 @@ from gerris_tpu_torch.utils import convert  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import metric_reference  # noqa: E402
+
+import jax_pins  # noqa: E402
 
 RTOL = 1e-10
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
@@ -69,33 +72,51 @@ def _rel(ref, got):
                                                       else 1.0))
 
 
-def compare_moving_step(order):
-    """The initial projection and two ns_steps of the disk at level 4 and
-    ``order`` from metric_reference.initial_state's velocity, on the port
-    and on the JAX package (eagerly): every field within RTOL of max
-    after each; the solid's cells at rest; no kernel launched on the
-    CPU."""
-    tcfg = chip_smoke.moving_cfg(4, order)
-    jcfg = moving_jcfg(4, order)
-    grid = tcfg.grid
-    dt = chip_smoke.MOVING_DT * grid.h
+def _moving_state(grid):
     x, y = (np.asarray(c) for c in JGrid(4).centers)
     st = {n: np.zeros(grid.shape) for n in NAMES}
     st["U"], st["V"] = metric_reference.initial_state(x, y)
-    js = {k: jnp.asarray(v) for k, v in st.items()}
+    return st
+
+
+def _jax_moving(order):
+    """The JAX side of compare_moving_step: the initial projection and two
+    eager steps."""
+    jcfg = moving_jcfg(4, order)
+    dt = chip_smoke.MOVING_DT * jcfg.grid.h
+    js = {k: jnp.asarray(v) for k, v in _moving_state(jcfg.grid).items()}
     with jax.disable_jit():
         jout = [jns.initial_projection(js, dt, 0.0, jcfg)]
         for i in range(2):
             jout.append(jns.ns_step(jout[-1], dt, i * dt, jcfg,
                                     first_step=(i == 0), cstart=0))
+    return {f"{k}_{n}": st[n] for k, st in enumerate(jout) for n in NAMES}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {f"moving_{order}": functools.partial(_jax_moving, order)
+            for order in (1, 2)}
+
+
+def compare_moving_step(order):
+    """The initial projection and two ns_steps of the disk at level 4 and
+    ``order`` from metric_reference.initial_state's velocity, on the port
+    and on the JAX package (eagerly, pinned by tools/jax_pins.py:
+    moving_1, moving_2): every field within RTOL of max after each; the
+    solid's cells at rest; no kernel launched on the CPU."""
+    ref = jax_pins.load(f"moving_{order}")
+    tcfg = chip_smoke.moving_cfg(4, order)
+    grid = tcfg.grid
+    dt = chip_smoke.MOVING_DT * grid.h
     rbgs.reset_launch_counts()
     tout = [tns.initial_projection(
-        convert.state_from_numpy(st, device="cpu"), dt, 0.0, tcfg)]
+        convert.state_from_numpy(_moving_state(grid), device="cpu"), dt,
+        0.0, tcfg)]
     for i in range(2):
         tout.append(tns.ns_step(tout[-1], dt, i * dt, tcfg,
                                 first_step=(i == 0), cstart=0))
-    errs = {(k, n): _rel(ref[n], got[n])
-            for k, (ref, got) in enumerate(zip(jout, tout)) for n in NAMES}
+    errs = {(k, n): _rel(ref[f"{k}_{n}"], got[n])
+            for k, got in enumerate(tout) for n in NAMES}
     assert max(errs.values()) <= RTOL, errs
     t1 = tout[-1]
     a = solid.solid_fractions(

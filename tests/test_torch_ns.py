@@ -11,6 +11,8 @@ dense_coarse_max=0, coarsest_relax=40-N) (its correction() then relaxes
 state_from_numpy.  Tolerance: 1e-9 relative on U, V and P, in float64.
 """
 import dataclasses
+import os
+import sys
 
 import jax
 import numpy as np
@@ -31,6 +33,9 @@ from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             state_from_numpy)
 
 from test_bench_schedule import cavity_cfg  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
 RTOL = 1e-9
@@ -84,46 +89,73 @@ class _JSim(JSimulation):
                                self.time.i == 0)
 
 
+def _ns_state():
+    rng = np.random.default_rng(0)
+    return {n: 0.05 * rng.standard_normal((64, 64)) for n in NAMES}
+
+
+def _jax_ns_steps():
+    """The JAX side of test_ns_step_matches_jax: 10 eager steps."""
+    jcfg, _ = _configs()
+    js = _ns_state()
+    dt = 0.8 * jcfg.grid.h
+    for i in range(10):
+        js = _jax_step(js, dt, 0.0, jcfg, i == 0)
+    return {n: js[n] for n in ("U", "V", "P")}
+
+
 def test_ns_step_matches_jax():
     """10 lid-cavity steps at 64^2 from a small random state (seeded
-    numpy), fixed dt = 0.8 h."""
-    jcfg, tcfg = _configs()
+    numpy), fixed dt = 0.8 h, against the JAX package's eager steps
+    pinned by tools/jax_pins.py (ns_steps)."""
+    ref = jax_pins.load("ns_steps")
+    _, tcfg = _configs()
     assert tcfg.projection == tpoisson.MultilevelParams(
         nrelax=5, omega=1.5, coarsest_relax=40, ncycles=1)
     assert tcfg.diffusion_params == tpoisson.MultilevelParams(
         nrelax=1, omega=1.0, coarsest_relax=40, ncycles=1)
-    rng = np.random.default_rng(0)
-    st = {n: 0.05 * rng.standard_normal(jcfg.grid.shape) for n in NAMES}
-    js = {n: np.asarray(v) for n, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
-    dt = 0.8 * jcfg.grid.h
+    ts = state_from_numpy(_ns_state(), device="cpu")
+    dt = 0.8 * tcfg.grid.h
     for i in range(10):
-        js = _jax_step(js, dt, 0.0, jcfg, i == 0)
         ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0)
     for n in ("U", "V", "P"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+
+
+def _div_in_src_state():
+    rng = np.random.default_rng(1)
+    return {n: 0.05 * rng.standard_normal((64, 64)) for n in NAMES}
+
+
+def _jax_div_in_src():
+    """The JAX side of test_ns_step_div_in_src_matches_jax: 4 eager
+    steps of its jnp route of the config."""
+    jcfg, _ = _configs()
+    jcfg = dataclasses.replace(jcfg, div_in_src=True)
+    js = _div_in_src_state()
+    dt = 0.8 * jcfg.grid.h
+    for i in range(4):
+        js = _jax_step(js, dt, 0.0, jcfg, i == 0)
+    return {n: js[n] for n in ("U", "V", "P")}
 
 
 def test_ns_step_div_in_src_matches_jax():
     """div_in_src: the port folds each projection's divergence into K6 and
     K9; the JAX CPU step takes its jnp route of the same config, run
     eagerly (jax.disable_jit) so that this config costs no compile of
-    the jitted step.  4 steps at 64^2, fixed dt = 0.8 h."""
+    the jitted step, pinned by tools/jax_pins.py (ns_div_in_src).  4
+    steps at 64^2, fixed dt = 0.8 h."""
+    ref = jax_pins.load("ns_div_in_src")
     jcfg, tcfg = _configs()
     jcfg = dataclasses.replace(jcfg, div_in_src=True)
     tcfg = dataclasses.replace(tcfg, div_in_src=True)
     assert config_from_jax(jcfg).div_in_src
-    rng = np.random.default_rng(1)
-    st = {n: 0.05 * rng.standard_normal(jcfg.grid.shape) for n in NAMES}
-    js = dict(st)
-    ts = state_from_numpy(st, device="cpu")
+    ts = state_from_numpy(_div_in_src_state(), device="cpu")
     dt = 0.8 * jcfg.grid.h
     for i in range(4):
-        with jax.disable_jit():
-            js = jns.ns_step(js, dt, 0.0, jcfg, first_step=i == 0)
         ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0)
     for n in ("U", "V", "P"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -138,27 +170,43 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert Simulation(tcfg, device="cpu").device == torch.device("cpu")
 
 
-def test_simulation_run_matches_jax():
-    """Simulation.init + run (initial projection, CFL timesteps) for
-    4 steps.  dtmax as in tests/test_lid.py: from rest the CFL timestep
-    is unbounded, so the first step would otherwise span the whole run."""
-    jcfg, tcfg = _configs()
+def _jax_simulation():
+    """The JAX side of test_simulation_run_matches_jax: init + 4 eager
+    steps, the time and U at (0, 0.5)."""
+    jcfg, _ = _configs()
     jsim = _JSim(jcfg, time=JTime(end=300.0, dtmax=1.0)).init()
     with jax.disable_jit():
         jsim.run(max_steps=4)
+    return {**{n: jsim.state[n] for n in ("U", "V", "P")},
+            "i": jsim.time.i, "t": jsim.time.t,
+            "u_probe": jsim.interpolate("U", (0.0, 0.5))}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"ns_steps": _jax_ns_steps, "ns_div_in_src": _jax_div_in_src,
+            "ns_simulation": _jax_simulation}
+
+
+def test_simulation_run_matches_jax():
+    """Simulation.init + run (initial projection, CFL timesteps) for
+    4 steps against the JAX Simulation's, pinned by tools/jax_pins.py
+    (ns_simulation).  dtmax as in tests/test_lid.py: from rest the CFL
+    timestep is unbounded, so the first step would otherwise span the
+    whole run."""
+    ref = jax_pins.load("ns_simulation")
+    _, tcfg = _configs()
     tsim = Simulation(tcfg, time=Time(end=300.0, dtmax=1.0), device="cpu",
                       dtype=torch.float64).init()
     rbgs.reset_launch_counts()
     tsim.run(max_steps=4)
-    assert tsim.time.i == jsim.time.i == 4
-    assert abs(tsim.time.t - jsim.time.t) <= 1e-12 * abs(jsim.time.t)
+    assert tsim.time.i == int(ref["i"]) == 4
+    assert abs(tsim.time.t - float(ref["t"])) <= 1e-12 * abs(float(ref["t"]))
     for n in ("U", "V", "P"):
-        assert _rel(jsim.state[n], tsim.state[n]) <= RTOL, n
+        assert _rel(ref[n], tsim.state[n]) <= RTOL, n
     # CPU tensors take the plain versions: no kernel launched
     assert all(v == 0 for v in rbgs.LAUNCHES.values()), rbgs.LAUNCHES
     u = float(tsim.interpolate("U", (0.0, 0.5)))
-    assert u == pytest.approx(float(jsim.interpolate("U", (0.0, 0.5))),
-                              rel=RTOL)
+    assert u == pytest.approx(float(ref["u_probe"]), rel=RTOL)
 
 
 def test_adaptive_and_other_solvers_raise():

@@ -15,6 +15,8 @@
 """
 import dataclasses
 import functools
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -47,6 +49,9 @@ from test_torch_predict import velocity_bcs  # noqa: E402
 TOL = 1e-12
 STRIP = 32
 LEVEL = 7
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
+
 STEPS = 10
 
 
@@ -246,35 +251,49 @@ def test_diffuse_pair_forms_and_fallback():
 
 # --- the lid step on the pair routes ------------------------------------------
 
+def _lid_state():
+    rng = np.random.default_rng(44)
+    return {n: 0.05 * rng.standard_normal((64, 64)) for n in NAMES}
+
+
+def _jax_lid():
+    """The JAX side of lid_runs: STEPS eager steps of the config with the
+    bench's pair_advect and rr_in_advect (on the CPU its step takes the
+    jnp route, the reference's function for every route of the port)."""
+    jcfg, _ = _configs()
+    jcfg = dataclasses.replace(jcfg, pair_advect=True, rr_in_advect=True)
+    dt = 0.8 * jcfg.grid.h
+    js = _lid_state()
+    with jax.disable_jit():
+        for i in range(STEPS):
+            js = jns.ns_step(js, dt, 0.0, jcfg, first_step=i == 0)
+    return {n: js[n] for n in ("U", "V", "P")}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"pair_lid": _jax_lid}
+
+
 @pytest.fixture(scope="module")
 def lid_runs():
     """(JAX states, port states by route) after STEPS steps at 64^2 from
-    one seeded random state, fixed dt = 0.8 h.  The JAX config carries the
-    bench's pair_advect and rr_in_advect; on the CPU its step takes the
-    jnp route, the reference's function for every route of the port.  It
-    runs eagerly (jax.disable_jit), so that this config costs no compile
-    of the jitted step."""
-    jcfg, tcfg = _configs()
-    jcfg = dataclasses.replace(jcfg, pair_advect=True, rr_in_advect=True)
+    one seeded random state, fixed dt = 0.8 h; the JAX side's pinned by
+    tools/jax_pins.py (pair_lid)."""
+    _, tcfg = _configs()
     routes = {
         "pair": dataclasses.replace(tcfg, pair_advect=True),
         "rr": dataclasses.replace(tcfg, pair_advect=True, rr_in_advect=True),
         "per_component": tcfg,
     }
-    rng = np.random.default_rng(44)
-    st = {n: 0.05 * rng.standard_normal(jcfg.grid.shape) for n in NAMES}
-    dt = 0.8 * jcfg.grid.h
-    js = {n: np.asarray(v) for n, v in st.items()}
-    with jax.disable_jit():
-        for i in range(STEPS):
-            js = jns.ns_step(js, dt, 0.0, jcfg, first_step=i == 0)
+    st = _lid_state()
+    dt = 0.8 * tcfg.grid.h
     out = {}
     for name, cfg in routes.items():
         ts = state_from_numpy(st, device="cpu")
         for i in range(STEPS):
             ts = tns.ns_step(ts, dt, 0.0, cfg, first_step=i == 0)
         out[name] = ts
-    return js, out
+    return jax_pins.load("pair_lid"), out
 
 
 @pytest.mark.parametrize("route", ["pair", "rr"])

@@ -15,6 +15,8 @@ constant); 1e-12 for the advection alone, which involves no solve.
 """
 import dataclasses
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +46,9 @@ from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             state_from_numpy)
 
 LEVEL = 5
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
+
 STEPS = 5
 RTOL = 1e-9
 ADVECT_RTOL = 1e-12
@@ -89,18 +94,24 @@ def _rel(ref, got, mean_free=False):
     return float(np.max(np.abs(ref - got)) / np.max(np.abs(ref)))
 
 
-def _steps(jcfg, st, steps):
+def _steps(jcfg, st, steps, jax_=True, port=True):
     """``steps`` steps of the JAX step (jitted, one program) and of the
-    port's on the carried-over config, at dt = 0.4 h."""
-    tcfg = config_from_jax(jcfg)
+    port's on the carried-over config, at dt = 0.4 h (either side left
+    out: None)."""
     dt = 0.4 * jcfg.grid.h
-    js = {k: jnp.asarray(v) for k, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
-    first = jax.jit(lambda s: jns.ns_step(s, dt, 0.0, jcfg, first_step=True))
-    step = jax.jit(lambda s: jns.ns_step(s, dt, 0.0, jcfg))
-    for i in range(steps):
-        js = (first if i == 0 else step)(js)
-        ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0)
+    js = ts = None
+    if jax_:
+        js = {k: jnp.asarray(v) for k, v in st.items()}
+        first = jax.jit(lambda s: jns.ns_step(s, dt, 0.0, jcfg,
+                                              first_step=True))
+        step = jax.jit(lambda s: jns.ns_step(s, dt, 0.0, jcfg))
+        for i in range(steps):
+            js = (first if i == 0 else step)(js)
+    if port:
+        tcfg = config_from_jax(jcfg)
+        ts = state_from_numpy(st, device="cpu")
+        for i in range(steps):
+            ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0)
     return js, ts
 
 
@@ -110,16 +121,30 @@ def _hold(js, ts, bound):
     assert all(e <= bound for e in errs.values()), errs
 
 
+def _jax_doubly_periodic():
+    """The JAX side of test_doubly_periodic_step_matches_jax: STEPS
+    jitted steps."""
+    jcfg = doubly_periodic_cfg()
+    return _steps(jcfg, _state(0, jcfg.grid.shape), STEPS, port=False)[0]
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"periodic_doubly": _jax_doubly_periodic}
+
+
 def test_doubly_periodic_step_matches_jax():
-    """5 steps at 32^2 from a seeded random state.  No kernel takes
-    periodic rows, so every BCG advection pads corners=False, as the
-    reference does: with the kernels' corner order P differed by 1e-4."""
+    """5 steps at 32^2 from a seeded random state, against the JAX
+    package's jitted steps pinned by tools/jax_pins.py (periodic_doubly).
+    No kernel takes periodic rows, so every BCG advection pads
+    corners=False, as the reference does: with the kernels' corner order
+    P differed by 1e-4."""
+    ref = jax_pins.load("periodic_doubly")
     jcfg = doubly_periodic_cfg()
     tcfg = config_from_jax(jcfg)
     assert tbcg.face_specs(tcfg.u_bcs) is None
     assert tbcg.advect_spec(tcfg.u_bcs[0]) is None
-    js, ts = _steps(jcfg, _state(0, jcfg.grid.shape), STEPS)
-    _hold(js, ts, RTOL)
+    _, ts = _steps(jcfg, _state(0, jcfg.grid.shape), STEPS, jax_=False)
+    _hold(ref, ts, RTOL)
 
 
 def test_channel_corrector_advection_matches_generic_route():
@@ -176,18 +201,36 @@ def _k6_predictor(U, grid, cfg, dt, t, packed=False, div_scale=None):
     return (uf, None) if div_scale is not None else uf
 
 
-def test_channel_step_matches_jax_with_k6_predictor(monkeypatch):
+def _channel_case():
+    # a config no other test compiles, so the swapped predictor is traced
+    jcfg = dataclasses.replace(channel_cfg(), nu=0.0125)
+    return jcfg, _state(1, jcfg.grid.shape, u_mean=1.0)
+
+
+def _jax_channel():
+    """The JAX side of test_channel_step_matches_jax_with_k6_predictor:
+    STEPS jitted steps with K6 (interpret mode) as the predictor."""
+    real = jns.predicted_face_velocities
+    jns.predicted_face_velocities = _k6_predictor
+    try:
+        jcfg, st = _channel_case()
+        return _steps(jcfg, st, STEPS, port=False)[0]
+    finally:
+        jns.predicted_face_velocities = real
+
+
+def test_channel_step_matches_jax_with_k6_predictor():
     """5 steps of the periodic-y channel (U = 1 + noise).  K6 takes these
     BCs, so the port's predictor runs K6's function on every device; the
     reference runs K6 on the TPU only, so its step here gets K6 in
-    interpret mode in place of its CPU predictor.  Every other phase
-    takes the generic route on both sides (periodic y: no K14)."""
-    monkeypatch.setattr(jns, "predicted_face_velocities", _k6_predictor)
-    jcfg = channel_cfg()
-    # a config no other test compiles, so the swapped predictor is traced
-    jcfg = dataclasses.replace(jcfg, nu=0.0125)
-    js, ts = _steps(jcfg, _state(1, jcfg.grid.shape, u_mean=1.0), STEPS)
-    errs = {n: _rel(js[n], ts[n], mean_free=n == "P") for n in ("U", "V", "P")}
+    interpret mode in place of its CPU predictor (pinned by
+    tools/jax_pins.py, periodic_channel).  Every other phase takes the
+    generic route on both sides (periodic y: no K14)."""
+    ref = jax_pins.load("periodic_channel")
+    jcfg, st = _channel_case()
+    _, ts = _steps(jcfg, st, STEPS, jax_=False)
+    errs = {n: _rel(ref[n], ts[n], mean_free=n == "P")
+            for n in ("U", "V", "P")}
     print("rel errors (P mean-free):", errs)
     assert errs["U"] <= RTOL and errs["V"] <= RTOL, errs
     assert errs["P"] <= 1e-8, errs
@@ -270,3 +313,6 @@ def test_energy_decay_rate():
     print(f"decay rate {rate:.3f} vs analytic {expect:.3f}")
     assert abs(rate - expect) / expect < 0.05
 
+
+
+JAX_PINS["periodic_channel"] = _jax_channel

@@ -9,6 +9,9 @@ since those compute the centred Godunov scheme only.  Inputs are made
 with numpy from a seed; the functions agree to rounding (1e-13 of max),
 the steps to 1e-9 with equal niter per solve."""
 import dataclasses
+import functools
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +34,9 @@ from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             fieldbc_from_jax, grid_from_jax,
                                             state_from_numpy)
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 GRADIENTS = ("centered", "van_leer", "minmod")
 SCHEMES = ("godunov", "none")
@@ -193,34 +199,57 @@ def test_predictor_and_advection_match_jax(monkeypatch, adv):
         assert _rel(a, b) <= RTOL
 
 
-@pytest.mark.parametrize("adv", [dict(scheme="none", gc=False),
-                                 dict(gradient="van_leer")])
-def test_cavity_steps_match_jax(monkeypatch, adv):
-    """4 lid-cavity steps at 32^2 from a small random state (seeded
-    numpy), dt = 0.5 h: U, V and mean-free P within 1e-9 and the niter
-    of every solve.  With gc=False the state keeps no gradients: the
-    step reads none and writes none back."""
+CAVITY_ADV = {"none": dict(scheme="none", gc=False),
+              "van_leer": dict(gradient="van_leer")}
+
+
+def _cavity_case(adv):
     jcfg, tcfg = _cavity(5, **adv)
-    gc = adv.get("gc", True)
-    names = NAMES if gc else NAMES[:4]
+    names = NAMES if adv.get("gc", True) else NAMES[:4]
     rng = np.random.default_rng(3)
     st = {n: 0.05 * rng.standard_normal(jcfg.grid.shape) for n in names}
+    return jcfg, tcfg, names, st
+
+
+def _jax_cavity(adv):
+    """The JAX side of test_cavity_steps_match_jax: the initial projection
+    and 4 eager steps, and every solve's niter."""
+    jcfg, _, _, st = _cavity_case(adv)
     js = {k: jnp.asarray(v) for k, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
     dt = 0.5 * jcfg.grid.h
-    jrec = _record(monkeypatch, jpoisson)
-    trec = _record(monkeypatch, tpoisson)
-    rbgs.reset_launch_counts()
-    projops.reset_launch_counts()
-    with jax.disable_jit():
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
         js = jns.initial_projection(js, dt, 0.0, jcfg)
         for i in range(4):
             js = jns.ns_step(js, dt, i * dt, jcfg, first_step=i == 0)
+    return {**dict(js), "niter": np.asarray(rec)}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {f"schemes_cavity_{k}": functools.partial(_jax_cavity, adv)
+            for k, adv in CAVITY_ADV.items()}
+
+
+@pytest.mark.parametrize("adv", list(CAVITY_ADV.values()))
+def test_cavity_steps_match_jax(monkeypatch, adv):
+    """4 lid-cavity steps at 32^2 from a small random state (seeded
+    numpy), dt = 0.5 h: U, V and mean-free P within 1e-9 and the niter
+    of every solve, against the JAX package's run pinned by
+    tools/jax_pins.py (schemes_cavity_none, schemes_cavity_van_leer).
+    With gc=False the state keeps no gradients: the step reads none and
+    writes none back."""
+    name = next(k for k, v in CAVITY_ADV.items() if v == adv)
+    ref = jax_pins.load(f"schemes_cavity_{name}")
+    jcfg, tcfg, names, st = _cavity_case(adv)
+    ts = state_from_numpy(st, device="cpu")
+    dt = 0.5 * jcfg.grid.h
+    trec = _record(monkeypatch, tpoisson)
+    rbgs.reset_launch_counts()
+    projops.reset_launch_counts()
     ts = tns.initial_projection(ts, dt, 0.0, tcfg)
     for i in range(4):
         ts = tns.ns_step(ts, dt, i * dt, tcfg, first_step=i == 0)
-    assert trec == jrec and len(trec) == 17, (trec, jrec)
-    assert set(ts) == set(js) == set(names)
+    assert trec == list(ref["niter"]) and len(trec) == 17, (trec, ref)
+    assert set(ts) == set(ref) - {"niter"} == set(names)
     for n in ("U", "V"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL

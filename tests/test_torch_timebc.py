@@ -9,6 +9,9 @@ residual.  The kernels take constant values only, so a component with a
 callable value takes its kernels' plain versions, chosen from the
 configuration.  The JAX step runs eagerly (``jax.disable_jit``), as in
 tests/test_torch_twophase.py."""
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +30,9 @@ from gerris_tpu_torch.models import ns as tns  # noqa: E402
 from gerris_tpu_torch.ops.cuda import bcg, predict  # noqa: E402
 from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils.convert import state_from_numpy  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
 
@@ -79,42 +85,59 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(a)))
 
 
+def _jax_lid_ramp():
+    """The JAX side of test_lid_ramp_steps_match_jax: 5 eager steps from
+    t = 0.96, and every solve's niter."""
+    jcfg, _ = _configs()
+    grid = jcfg.grid
+    js = {n: jnp.zeros(grid.shape) for n in NAMES}
+    dt = 0.8 * grid.h
+    t = 0.96
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
+        for i in range(5):
+            js = jns.ns_step(js, dt, t, jcfg, first_step=i == 0)
+            t += dt
+    return {**{n: js[n] for n in ("U", "V", "P")}, "niter": np.asarray(rec)}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"timebc_lid_ramp": _jax_lid_ramp}
+
+
 def test_lid_ramp_steps_match_jax(monkeypatch):
     """5 steps of the cavity whose lid speed is min(t, 1) at 64^2 from
     rest, t advancing from 0.96 by dt = 0.8 h (so the ramp ends inside
     the run): U, V and mean-free P within 1e-9 of max and the same niter
-    per solve.  The U component takes the plain versions of K6, K14 and
-    K9 (its value is callable), V its kernels' routes."""
-    jcfg, tcfg = _configs()
+    per solve, against the JAX package's eager run pinned by
+    tools/jax_pins.py (timebc_lid_ramp).  The U component takes the
+    plain versions of K6, K14 and K9 (its value is callable), V its
+    kernels' routes."""
+    ref = jax_pins.load("timebc_lid_ramp")
+    _, tcfg = _configs()
     assert bcg.face_specs(tcfg.u_bcs) is None
     assert bcg.advect_spec(tcfg.u_bcs[0]) is None
     assert bcg.advect_spec(tcfg.u_bcs[1]) is not None
-    grid = jcfg.grid
-    st = {n: np.zeros(grid.shape) for n in NAMES}
-    js = {k: jnp.asarray(v) for k, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
+    grid = tcfg.grid
+    ts = state_from_numpy({n: np.zeros(grid.shape) for n in NAMES},
+                          device="cpu")
     dt = 0.8 * grid.h
-    rec = {}
-    for name, mod in (("jax", jpoisson), ("port", tpoisson)):
-        rec[name] = []
-        real = mod.solve
+    rec = []
+    real = tpoisson.solve
 
-        def spy(*args, _real=real, _rec=rec[name], **kw):
-            out = _real(*args, **kw)
-            _rec.append(int(out[1].niter))
-            return out
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        rec.append(int(out[1].niter))
+        return out
 
-        monkeypatch.setattr(mod, "solve", spy)
+    monkeypatch.setattr(tpoisson, "solve", spy)
     t = 0.96
-    with jax.disable_jit():
-        for i in range(5):
-            js = jns.ns_step(js, dt, t, jcfg, first_step=i == 0)
-            ts = tns.ns_step(ts, dt, t, tcfg, first_step=i == 0)
-            t += dt
-    assert rec["port"] == rec["jax"] and len(rec["port"]) == 20
+    for i in range(5):
+        ts = tns.ns_step(ts, dt, t, tcfg, first_step=i == 0)
+        t += dt
+    assert rec == list(ref["niter"]) and len(rec) == 20
     for n in ("U", "V"):
-        assert _rel(js[n], ts[n]) <= 1e-9, (n, _rel(js[n], ts[n]))
-    p_j = np.asarray(js["P"]) - np.asarray(js["P"]).mean()
+        assert _rel(ref[n], ts[n]) <= 1e-9, (n, _rel(ref[n], ts[n]))
+    p_j = ref["P"] - ref["P"].mean()
     p_t = ts["P"] - ts["P"].mean()
     assert _rel(p_j, p_t) <= 1e-9
     # the lid moved the fluid at the ramp's speed: the top row's U

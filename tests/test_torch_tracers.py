@@ -11,6 +11,9 @@ the two agree (the corner ghosts, which they order differently, carry
 no flux).  Inputs are made with numpy from a seed; bound 1e-9 of max,
 equal niter per solve."""
 import dataclasses
+import functools
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +37,9 @@ from gerris_tpu_torch.ops.cuda import bcg, rbgs  # noqa: E402
 from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             state_from_numpy)
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-9
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
@@ -176,12 +182,7 @@ def test_k14_takes_a_tracer():
     assert masks == [1]
 
 
-@pytest.mark.parametrize("gc", [False, True])
-def test_cavity_with_tracer_matches_jax(monkeypatch, gc):
-    """5 lid-cavity steps at 32^2 with a tracer C (D = 1e-3, the default
-    scalar BCs, C0 = x + 0.5) and gc off or on, from a small random
-    velocity (seeded numpy), dt = 0.5 h: U, V, C and mean-free P within
-    1e-9 and the niter of every solve (5 a step with the tracer's)."""
+def _cavity_tracer_case(gc):
     jtr = ("C", jbc.default_scalar_bc(2), 1e-3)
     jcfg, tcfg = _cavity(5, (jtr,), gc=gc)
     names = NAMES if gc else NAMES[:4]
@@ -189,41 +190,78 @@ def test_cavity_with_tracer_matches_jax(monkeypatch, gc):
     st = {n: 0.05 * rng.standard_normal(jcfg.grid.shape) for n in names}
     st["C"] = np.asarray(jcfg.grid.centers[0]) + 0.5 \
         + np.zeros(jcfg.grid.shape)
+    return jcfg, tcfg, st
+
+
+def _jax_cavity_tracer(gc):
+    """The JAX side of test_cavity_with_tracer_matches_jax: 5 eager
+    steps, and every solve's niter."""
+    jcfg, _, st = _cavity_tracer_case(gc)
     js = {k: jnp.asarray(v) for k, v in st.items()}
-    ts = state_from_numpy(st, device="cpu")
     dt = 0.5 * jcfg.grid.h
-    jrec = _record(monkeypatch, jpoisson)
-    trec = _record(monkeypatch, tpoisson)
-    rbgs.reset_launch_counts()
-    with jax.disable_jit():
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
         for i in range(5):
             js = jns.ns_step(js, dt, i * dt, jcfg, first_step=i == 0)
+    return {**dict(js), "niter": np.asarray(rec)}
+
+
+@pytest.mark.parametrize("gc", [False, True])
+def test_cavity_with_tracer_matches_jax(monkeypatch, gc):
+    """5 lid-cavity steps at 32^2 with a tracer C (D = 1e-3, the default
+    scalar BCs, C0 = x + 0.5) and gc off or on, from a small random
+    velocity (seeded numpy), dt = 0.5 h: U, V, C and mean-free P within
+    1e-9 and the niter of every solve (5 a step with the tracer's),
+    against the JAX package's run pinned by tools/jax_pins.py
+    (tracers_cavity_gc0, tracers_cavity_gc1)."""
+    ref = jax_pins.load(f"tracers_cavity_gc{int(gc)}")
+    jcfg, tcfg, st = _cavity_tracer_case(gc)
+    ts = state_from_numpy(st, device="cpu")
+    dt = 0.5 * jcfg.grid.h
+    trec = _record(monkeypatch, tpoisson)
+    rbgs.reset_launch_counts()
     for i in range(5):
         ts = tns.ns_step(ts, dt, i * dt, tcfg, first_step=i == 0)
-    assert trec == jrec and len(trec) == 25, (trec, jrec)
-    assert set(ts) == set(js)
+    assert trec == list(ref["niter"]) and len(trec) == 25, (trec, ref)
+    assert set(ts) == set(ref) - {"niter"}
     for n in ("U", "V", "C"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL
     assert all(v == 0 for v in rbgs.LAUNCHES.values())
+
+
+def _sim_tracer():
+    return ("C", jbc.FieldBC.make(2, left=jbc.Dirichlet(1.0)), 1e-3)
+
+
+def _jax_simulation_tracer():
+    """The JAX side of test_simulation_takes_tracers: 3 eager steps of the
+    JAX Simulation with the tracer C."""
+    jcfg, _ = _cavity(4, (_sim_tracer(),), gc=False)
+    with jax.disable_jit():
+        js = JSimulation(jcfg, time=JTime(dtmax=0.5 * jcfg.grid.h))
+        js.init(C=jnp.full(jcfg.grid.shape, 0.25))
+        js.run(max_steps=3)
+    return dict(js.state)
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"tracers_simulation": _jax_simulation_tracer,
+            **{f"tracers_cavity_gc{int(gc)}": functools.partial(
+                _jax_cavity_tracer, gc) for gc in (False, True)}}
 
 
 def test_simulation_takes_tracers():
     """Simulation.init creates each tracer (and the gradients only with
     gc), field_bc gives a tracer's BCs, and a short run matches the JAX
-    Simulation's."""
-    jtr = ("C", jbc.FieldBC.make(2, left=jbc.Dirichlet(1.0)), 1e-3)
-    jcfg, tcfg = _cavity(4, (jtr,), gc=False)
+    Simulation's (pinned by tools/jax_pins.py, tracers_simulation)."""
+    jcfg, tcfg = _cavity(4, (_sim_tracer(),), gc=False)
     s = Simulation(tcfg, time=Time(dtmax=0.5 * tcfg.grid.h), device="cpu")
     s.init(C=0.25)
     assert set(s.state) == {"U", "V", "P", "Pmac", "C"}
     assert s.field_bc("C") == tcfg.tracers[0][1]
     assert tcfg.tracers[0][1].sides[0][0] == tbc.Dirichlet(1.0)
     s.run(max_steps=3)
-    with jax.disable_jit():
-        js = JSimulation(jcfg, time=JTime(dtmax=0.5 * jcfg.grid.h))
-        js.init(C=jnp.full(jcfg.grid.shape, 0.25))
-        js.run(max_steps=3)
-    assert set(js.state) == set(s.state)
+    ref = jax_pins.load("tracers_simulation")
+    assert set(ref) == set(s.state)
     for n in ("U", "V", "C"):
-        assert _rel(js.state[n], s.state[n]) <= RTOL
+        assert _rel(ref[n], s.state[n]) <= RTOL

@@ -16,6 +16,8 @@ solve.  The oscillation gate of tests/test_oscillation.py is ported at
 the end (marked slow, as the reference's)."""
 import dataclasses
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +45,9 @@ from gerris_tpu_torch.physics import vof as tvof  # noqa: E402
 from gerris_tpu_torch.solvers import poisson as tpoisson  # noqa: E402
 from gerris_tpu_torch.utils.convert import (config_from_jax,  # noqa: E402
                                             state_from_numpy)
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import jax_pins  # noqa: E402
 
 RTOL = 1e-9
 NAMES = ("U", "V", "P", "Pmac", "Gx", "Gy")
@@ -126,7 +131,12 @@ def test_config_converts_to_the_tpu_schedule():
     ("pack_faces", True),
 ])
 def test_config_from_jax_refuses_slice_3b(field, value):
+    """Outside the slices: refused, naming the field; particle_coupling
+    carries over since slice 6."""
     jcfg = dataclasses.replace(twophase_cfg(5), **{field: value})
+    if field == "particle_coupling":
+        assert config_from_jax(jcfg).particle_coupling is value
+        return
     with pytest.raises(NotImplementedError, match=field):
         config_from_jax(jcfg)
 
@@ -214,31 +224,43 @@ def _state(level, seed=0):
     return st
 
 
+def _jax_twophase_steps():
+    """The JAX side of test_twophase_step_matches_jax: 5 eager steps, and
+    every solve's niter."""
+    jcfg, _ = _configs(6)
+    js = {k: jnp.asarray(v) for k, v in _state(6).items()}
+    dt = 0.2 * jcfg.grid.h
+    with jax.disable_jit(), jax_pins.recording(jpoisson) as rec:
+        for i in range(5):
+            js = jns.ns_step(js, dt, 0.0, jcfg, cstart=i % 2,
+                             first_step=i == 0)
+    return {**{n: js[n] for n in ("U", "V", "T", "P")},
+            "niter": np.asarray(rec)}
+
+
 def test_twophase_step_matches_jax(monkeypatch):
     """5 two-phase steps at 64^2 from a small random velocity (seeded
     numpy) and the perturbed interface, dt = 0.2 h, the VOF sweeps'
     first direction rotated each step: U, V, T and mean-free P, and the
-    niter of every solve (2 projections and 2 diffusions per step)."""
-    jcfg, tcfg = _configs(6)
+    niter of every solve (2 projections and 2 diffusions per step),
+    against the JAX package's run pinned by tools/jax_pins.py
+    (twophase_steps)."""
+    ref = jax_pins.load("twophase_steps")
+    _, tcfg = _configs(6)
     st = _state(6)
-    js = {k: jnp.asarray(v) for k, v in st.items()}
     ts = state_from_numpy(st, device="cpu")
-    dt = 0.2 * jcfg.grid.h
-    jrec = _record(monkeypatch, jpoisson)
+    dt = 0.2 * tcfg.grid.h
     trec = _record(monkeypatch, tpoisson)
     rbgs.reset_launch_counts()
-    with jax.disable_jit():
-        for i in range(5):
-            js = jns.ns_step(js, dt, 0.0, jcfg, cstart=i % 2,
-                             first_step=i == 0)
-            ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0,
-                             cstart=i % 2)
-    assert len(trec) == 20 and trec == jrec, (trec, jrec)
+    for i in range(5):
+        ts = tns.ns_step(ts, dt, 0.0, tcfg, first_step=i == 0,
+                         cstart=i % 2)
+    assert len(trec) == 20 and trec == list(ref["niter"]), (trec, ref)
     for n in ("U", "V", "T"):
-        assert _rel(js[n], ts[n]) <= RTOL, (n, _rel(js[n], ts[n]))
-    assert _rel(js["P"], ts["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], ts[n]) <= RTOL, (n, _rel(ref[n], ts[n]))
+    assert _rel(ref["P"], ts["P"], mean_free=True) <= RTOL
     # the interface moved, and no kernel launched on the CPU
-    assert not np.array_equal(np.asarray(js["T"]), st["T"])
+    assert not np.array_equal(ref["T"], st["T"])
     assert all(v == 0 for v in rbgs.LAUNCHES.values())
 
 
@@ -278,30 +300,46 @@ class _Dts:
         self.dts.append(sim.dt)
 
 
-def test_twophase_simulation_run_matches_jax():
-    """Simulation.init(T=...) + run for 3 steps against the JAX
-    Simulation at 64^2: the initial projection with alpha, the VOF CFL and the
-    capillary dt bound, the rotated sweep direction; the same dt
-    sequence."""
-    jcfg, tcfg = _configs(6)
-    T0 = np.asarray(jvof.fraction_from_levelset(jcfg.grid, _level_set_j))
-    jrec, trec = _Dts(), _Dts()
+def _jax_twophase_run():
+    """The JAX side of test_twophase_simulation_run_matches_jax: the JAX
+    Simulation at 64^2, init + 3 eager steps, and its dt sequence."""
     from gerris_tpu.events.events import Event as JEvent
+    jcfg, _ = _configs(6)
+    T0 = np.asarray(jvof.fraction_from_levelset(jcfg.grid, _level_set_j))
+    jrec = _Dts()
     with jax.disable_jit():
         jsim = JSimulation(jcfg, time=JTime(end=10.0),
                            events=[JEvent(action=jrec, istep=1)])
         jsim.init(T=T0)
         jsim.run(max_steps=3)
+    return {**{n: jsim.state[n] for n in ("U", "V", "T", "P")},
+            "T0": T0, "dts": np.asarray(jrec.dts), "i": jsim.time.i}
+
+
+# the JAX package's runs pinned by tools/jax_pins.py
+JAX_PINS = {"twophase_simulation": _jax_twophase_run,
+            "twophase_steps": _jax_twophase_steps}
+
+
+def test_twophase_simulation_run_matches_jax():
+    """Simulation.init(T=...) + run for 3 steps against the JAX
+    Simulation at 64^2 (pinned by tools/jax_pins.py,
+    twophase_simulation): the initial projection with alpha, the VOF CFL
+    and the capillary dt bound, the rotated sweep direction; the same dt
+    sequence."""
+    ref = jax_pins.load("twophase_simulation")
+    _, tcfg = _configs(6)
+    trec = _Dts()
     tsim = Simulation(tcfg, time=Time(end=10.0), device="cpu",
                       dtype=torch.float64,
                       events=[Event(action=trec, istep=1)])
-    tsim.init(T=T0).run(max_steps=3)
-    assert tsim.time.i == jsim.time.i == 3
-    assert len(trec.dts) == len(jrec.dts) == 4
-    assert np.allclose(trec.dts, jrec.dts, rtol=1e-12, atol=0.0)
+    tsim.init(T=ref["T0"]).run(max_steps=3)
+    assert tsim.time.i == int(ref["i"]) == 3
+    assert len(trec.dts) == len(ref["dts"]) == 4
+    assert np.allclose(trec.dts, ref["dts"], rtol=1e-12, atol=0.0)
     for n in ("U", "V", "T"):
-        assert _rel(jsim.state[n], tsim.state[n]) <= RTOL, n
-    assert _rel(jsim.state["P"], tsim.state["P"], mean_free=True) <= RTOL
+        assert _rel(ref[n], tsim.state[n]) <= RTOL, n
+    assert _rel(ref["P"], tsim.state["P"], mean_free=True) <= RTOL
 
 
 # --- the reference's test/oscillation on the port (tests/test_oscillation.py) --
