@@ -227,6 +227,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
      the per-component lid route's, five timed windows and a profile
      with the particle phase's and the deposit's device time
      (record_function spans).
+     Slice 7's phase ``gfs``: the bench's lid as .gfs text (GFS_LID) at
+     2048^2, float32, init + 5 steps through gerris_tpu_torch.cli.run and
+     through a Simulation built by hand from the configuration the reader
+     must give (gfs_lid_cfg): bit-identical states, equal launches per
+     kernel (the launch counts set to 0 before each run, read after; the
+     kernels line's launches_gfs) and equal to the adaptive route's rule
+     of the CLI run's own solves (want_adaptive), equal OutputScalarNorm
+     rows, held to the plain versions (2e-3); timed windows without an
+     output event, with OutputScalarNorm every step and with OutputTiming
+     (median ms/step, host syncs per step; the step timer's CUDA events,
+     recorded only under OutputTiming), and a profile; python3 -m
+     gerris_tpu_torch on the same file in a process of its own (exit 0,
+     its OutputScalarNorm lines the in-process run's, its end.gfs dump
+     resumed through the reader to the same state, bit for bit);
+     GfsPoisson (test/poisson) at 2048^2 in float32 against its plain
+     run (launches gated from its cycles) and at levels 6-8 in float64
+     (error norms falling 4 +- 0.6 a level, level 6 within 1e-10 of the
+     JAX package's pinned run, tests/data/jax_pins/gfs_poisson.npz);
+     GfsAdvection at 1024^2, whose generic route runs no hand-written
+     kernel: no launch and finite fields.
      Every route held to the plain versions in float32 also bounds the
      plain float32 run's distance from the plain float64 run per field
      (FLOOR_BOUNDS);
@@ -539,6 +559,46 @@ CAPWAVE_ORDER_MIN = 1.5
 # the gate jobs (gate_jobs) must end within this many seconds of their
 # start
 GATE_TIMEOUT = 900.0
+
+# the gfs phase (slice 7): the lid's .gfs text at 2^GFS_LEVEL per side,
+# float32, GFS_STEPS steps through the CLI's entry point and by hand; the
+# timed windows; GfsPoisson at GFS_POISSON_LEVEL in float32 against its
+# plain run and at GFS_POISSON_F64 in float64 (error norms falling by
+# GFS_POISSON_ORDER per level, the first level's held to the JAX
+# package's pinned run, tests/data/jax_pins/gfs_poisson.npz, within
+# GFS_PIN_RTOL); GfsAdvection at 2^GFS_ADVECTION_LEVEL (no kernel, finite
+# fields)
+GFS_LEVEL = 11
+GFS_STEPS = 5
+GFS_TIMED_STEPS = 10
+GFS_WINDOWS = 3
+GFS_PROFILE_STEPS = 3
+GFS_POISSON_LEVEL = 11
+GFS_POISSON_F64 = (6, 7, 8)
+GFS_POISSON_ORDER = (3.4, 4.6)
+GFS_PIN_RTOL = 1e-10
+GFS_ADVECTION_LEVEL = 10
+GFS_POISSON = """1 0 GfsPoisson GfsBox GfsGEdge {} {
+  Time { iend = 1 }
+  Refine LEVEL
+  ApproxProjectionParams { tolerance = 1e-30 nitermin = 10 nitermax = 10 }
+  Init {} {
+    Div = { int k = 3, l = 3; return -M_PI*M_PI*(k*k + l*l)*sin (M_PI*k*x)*sin (M_PI*l*y); }
+  }
+}
+GfsBox {}
+"""
+GFS_ADVECTION = """1 0 GfsAdvection GfsBox GfsGEdge {} {
+  Time { end = 0.1 }
+  Refine LEVEL
+  VariableTracerVOF T
+  VariableTracer C { gradient = gfs_center_minmod_gradient }
+  InitFraction T (0.0225 - (x - 0.1)*(x - 0.1) - y*y)
+  Init {} { C = exp(-100.*(x*x + y*y)) }
+  VariableStreamFunction { istep = 1 } Psi sin(M_PI*(x + 0.5))*sin(M_PI*(y + 0.5))/M_PI
+}
+GfsBox {}
+"""
 # droplet3d: the 3D static droplet of tests/test_vof3d.py::
 # test_static_droplet_3d (the 3D counterpart of test/spurious) at the 3D
 # bench's size, level 7, 128^3, float32: a sphere of radius 0.3 at the
@@ -862,6 +922,103 @@ def lid_cfg(level, pair_advect=True, rr_in_advect=False, schedule="fixed",
                        beta=1.0, projection=proj, approx_projection=proj,
                        diffusion_params=diff, pair_advect=pair_advect,
                        rr_in_advect=rr_in_advect)
+
+
+def gfs_lid_cfg(level):
+    """The configuration the reader gives for the lid's .gfs text
+    (GFS_LID): the reference's default walls (each component Dirichlet 0
+    on the walls normal to it, Neumann 0 along the others) with U = 1 on
+    the top, nu 1e-3, and both projections and the diffusion on the JAX
+    reader's adaptive defaults with the TPU's floors
+    (utils/convert.params_from_jax: 8 sweeps per level, 16 coarsest).
+    tests/test_torch_gfs_build.py holds the reader to it."""
+    import dataclasses
+    import types
+    from gerris_tpu_torch.core import bc
+    from gerris_tpu_torch.core.grid import Grid
+    from gerris_tpu_torch.models import ns
+    from gerris_tpu_torch.solvers.poisson import MultilevelParams
+    from gerris_tpu_torch.utils.convert import params_from_jax
+    d0, n0 = bc.Dirichlet(0.0), bc.Neumann()
+    u_bc = bc.FieldBC(((d0, d0), (n0, bc.Dirichlet(1.0))))
+    v_bc = bc.FieldBC(((n0, n0), (d0, d0)))
+    proj = params_from_jax(types.SimpleNamespace(
+        **dataclasses.asdict(MultilevelParams()), tpu_nrelax=8), 2)
+    return ns.NSConfig(grid=Grid(level=level), u_bcs=(u_bc, v_bc),
+                       p_bc=bc.FieldBC.uniform(n0, 2), nu=1e-3,
+                       projection=proj, approx_projection=proj,
+                       diffusion_params=params_from_jax(None, 2))
+
+
+# the lid's .gfs text for the gfs phase (its defines: LEVEL, DTMAX, IEND,
+# DUMP): the bench's cavity with U = 1 on the top and the reference's
+# default walls elsewhere; dtmax, as from rest the CFL step is unbounded
+GFS_LID = """1 0 GfsSimulation GfsBox GfsGEdge {} {
+  Time { iend = IEND dtmax = DTMAX }
+  Refine LEVEL
+  SourceViscosity 1e-3
+  OutputScalarNorm { istep = 1 } stdout { v = U }
+  OutputSimulation { start = end } DUMP
+}
+GfsBox { top = Boundary { BcDirichlet U 1 } }
+"""
+
+
+def gfs_build(text, dev, dtype, **defines):
+    """The simulation of a .gfs text through the port's reader."""
+    from gerris_tpu_torch.utils import gfs_config
+    return gfs_config.build_simulation(
+        gfs_config.parse_gfs(text, {k: str(v) for k, v in defines.items()}),
+        device=dev, dtype=dtype)
+
+
+def gfs_resume(path, dev, dtype):
+    """An OutputSimulation .gfs dump read back through the reader (its
+    InitCheckpoint restores the state and time)."""
+    with open(path) as f:
+        return gfs_build(f.read(), dev, dtype)
+
+
+def gfs_lid_runs(path, level, dtmax, iend, dump, dev, dtype, counted=False):
+    """The lid's .gfs file at ``path`` run through the CLI's entry point
+    (gerris_tpu_torch.cli.run) and a Simulation built by hand from
+    gfs_lid_cfg(level) with the same Time and an OutputScalarNorm of U:
+    their final states, norm rows, and with ``counted`` each run's kernel
+    launches (the counts set to 0 just before the run, read just after)
+    and its solves' records (solver, niter, fixed count or not).  The
+    CLI's run writes the end dump to ``dump``."""
+    import torch
+    from gerris_tpu_torch import cli
+    from gerris_tpu_torch.events.outputs import OutputScalarNorm
+    from gerris_tpu_torch.models.simulation import Simulation, Time
+    out = {}
+    argv = [path, "-D", f"LEVEL={level}", "-D", f"DTMAX={dtmax!r}", "-D",
+            f"IEND={iend}", "-D", f"DUMP={dump}", "--device", str(dev),
+            "--dtype", str(dtype).removeprefix("torch.")]
+    if counted:
+        reset_launch_counts()
+    with recording_solves() as log:
+        sim = cli.run(argv)
+    if counted:
+        out["counts_cli"] = launch_counts()
+        out["solves_cli"] = [(sv, n, f) for sv, n, f, _ in log]
+    cfg = gfs_lid_cfg(level)
+    if sim.cfg != cfg:
+        raise AssertionError("the reader's configuration of the lid's text "
+                             "is not gfs_lid_cfg")
+    norm = OutputScalarNorm("U", istep=1)
+    if counted:
+        reset_launch_counts()
+    with recording_solves() as log:
+        hand = Simulation(cfg, time=Time(iend=iend, dtmax=dtmax),
+                          events=[norm], device=dev,
+                          dtype=dtype).init().run()
+    if counted:
+        out["counts_hand"] = launch_counts()
+        out["solves_hand"] = [(sv, n, f) for sv, n, f, _ in log]
+    out.update(cli=sim.state, hand=hand.state, sim=sim,
+               rows_cli=sim.events[0].rows, rows_hand=norm.rows)
+    return out
 
 
 def launch_counts():
@@ -7438,6 +7595,237 @@ def phase_slice6_gates(dev, card, last, stamp):
     stamp("phase 4, momentum gate done")
 
 
+def gfs_poisson_norms(sim):
+    """GfsPoisson's unbiased error norms against sin(3 pi x) sin(3 pi y)
+    (test/poisson), in float64 on the host."""
+    x, y = np.broadcast_arrays(*sim.grid.centers)
+    P = sim.state["P"].double().cpu().numpy() if hasattr(
+        sim.state["P"], "cpu") else np.asarray(sim.state["P"])
+    return poisson_norms(P, x, y)
+
+
+def poisson_norms(P, x, y):
+    e = P - np.sin(3 * math.pi * x) * np.sin(3 * math.pi * y)
+    e = e - e.mean()
+    return np.array([np.abs(e).mean(), math.sqrt((e * e).mean()),
+                     np.abs(e).max()])
+
+
+def phase_gfs(dev, card, stamp):
+    """Slice 7's user API on the card: the lid's .gfs text at 2048^2 in
+    float32 through gerris_tpu_torch.cli.run and by hand from the
+    configuration it states (gfs_lid_cfg), bit-identical with equal
+    launches per kernel, those the adaptive route's rule gives for the
+    CLI run's solves, held to the plain run; the timed windows without an
+    output event, with OutputScalarNorm every step and with OutputTiming,
+    and a profile; python3 -m gerris_tpu_torch on the same file in a
+    process of its own (its lines the in-process run's, its end.gfs
+    resumed through the reader to the same state); GfsPoisson against its
+    plain run, and GfsAdvection, which launches no kernel.  Returns the
+    CLI run's launch counts."""
+    import os
+    import tempfile
+    import torch
+    from gerris_tpu_torch.solvers import poisson
+    t_phase = time.perf_counter()
+    n = 1 << GFS_LEVEL
+    dtmax = 0.8 / n
+    print(f"phase 3, gfs: the lid's .gfs text at {n}^2, float32, "
+          f"{GFS_STEPS} steps through the CLI and by hand")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as wd:
+        lid = os.path.join(wd, "lid.gfs")
+        with open(lid, "w") as f:
+            f.write(GFS_LID)
+        runs = gfs_lid_runs(lid, GFS_LEVEL, dtmax, GFS_STEPS,
+                            os.path.join(wd, "inproc.gfs"), dev,
+                            torch.float32, counted=True)
+        cli_counts, hand = runs["counts_cli"], runs["counts_hand"]
+        print(f"  the reader's configuration is gfs_lid_cfg({GFS_LEVEL}); "
+              f"launches (CLI) { {k: v for k, v in cli_counts.items() if v} }")
+        same = all(torch.equal(runs["cli"][k], runs["hand"][k])
+                   for k in runs["hand"])
+        print(f"  CLI run vs hand-built Simulation: bit-identical={same}, "
+              f"equal launches per kernel={cli_counts == hand}, equal "
+              f"solves={runs['solves_cli'] == runs['solves_hand']}, equal "
+              f"norm rows={runs['rows_cli'] == runs['rows_hand']}")
+        if not (same and cli_counts == hand
+                and runs["solves_cli"] == runs["solves_hand"]
+                and runs["rows_cli"] == runs["rows_hand"]):
+            raise AssertionError("gfs: the CLI run is not the hand-built "
+                                 "one")
+        want = want_adaptive(GFS_STEPS, runs["solves_cli"])
+        diff = {k: (cli_counts[k], w) for k, w in want.items()
+                if cli_counts[k] != w}
+        print(f"  launches against the adaptive route's rule "
+              f"(want_adaptive of the CLI run's solves): "
+              f"{'equal' if not diff else diff}")
+        if diff:
+            raise AssertionError(f"gfs: launches (got, want) {diff}")
+        for k in ("residual", "coarse_vcycle", "prolong_relax",
+                  "restrict_pyramid", "predict_xy", "divergence_mac",
+                  "correct_project", "interp_faces"):
+            if not cli_counts[k]:
+                raise AssertionError(f"gfs: no {k} launch on the lid's run")
+        cfg = gfs_lid_cfg(GFS_LEVEL)
+        from gerris_tpu_torch.models.simulation import Simulation, Time
+        with plain_versions():
+            ref = Simulation(cfg, time=Time(iend=GFS_STEPS, dtmax=dtmax),
+                             device=dev, dtype=torch.float32).init().run()
+        for k in ("U", "V", "P"):
+            rel = rel_err(runs["cli"][k], ref.state[k])
+            print(f"  gfs lid, kernels vs plain after {GFS_STEPS} steps, "
+                  f"{k}: rel {rel:.3e} (bound {ADAPTIVE_RTOL:.0e})")
+            if not rel <= ADAPTIVE_RTOL:
+                raise AssertionError(f"gfs lid {k}: rel {rel:.3e}")
+        del ref, hand
+        stamp("phase 3, gfs lid runs done")
+        # the real entry point in a process of its own
+        dump = os.path.join(wd, "end.gfs")
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "gerris_tpu_torch", lid, "-D",
+             f"LEVEL={GFS_LEVEL}", "-D", f"DTMAX={dtmax!r}", "-D",
+             f"IEND={GFS_STEPS}", "-D", f"DUMP={dump}"]
+            + ([] if dev.type == "cuda" else ["--device", str(dev)]),
+            cwd=root, env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith("OutputScalarNorm")]
+        want_lines = ["%s time: %g first: %g second: %g infty: %g"
+                      % ("OutputScalarNorm(U)", *row)
+                      for row in runs["rows_cli"]]
+        print(f"  python3 -m gerris_tpu_torch lid.gfs: exit {p.returncode} "
+              f"in {wall:.1f} s, {len(lines)} OutputScalarNorm lines, equal "
+              f"to the in-process run's: {lines == want_lines}")
+        if p.returncode != 0 or lines != want_lines:
+            print(p.stderr[-4000:])
+            raise AssertionError("gfs: python -m gerris_tpu_torch")
+        back = gfs_resume(dump, dev, torch.float32)
+        same = back.time.i == GFS_STEPS and all(
+            torch.equal(back.state[k], runs["cli"][k]) for k in runs["cli"])
+        print(f"  end.gfs through the reader: step {back.time.i}, state "
+              f"bit-identical to the in-process run's: {same}")
+        if not same:
+            raise AssertionError("gfs: end.gfs does not resume the state")
+        del back
+    sim = runs["sim"]
+    del runs
+    stamp("phase 3, gfs subprocess done")
+    # timed windows on the CLI's simulation: no output event, then
+    # OutputScalarNorm every step (its rows only, no file), then
+    # OutputTiming at each window's end (the step timer on); the profile
+    # is read against the first
+    from gerris_tpu_torch.events.outputs import OutputScalarNorm, OutputTiming
+    sim.time.iend = 2 ** 31
+    for label, events in (("no output event", []),
+                          ("OutputScalarNorm every step",
+                           [OutputScalarNorm("U", istep=1)]),
+                          ("OutputTiming at each window's end",
+                           [OutputTiming(file=os.devnull, start="end")])):
+        sim.events = events
+        walls = []
+        for _ in range(GFS_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run(max_steps=GFS_TIMED_STEPS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        syncs, _ = count_syncs(lambda: sim.run(max_steps=GFS_TIMED_STEPS),
+                               dev)
+        step = float(np.median(walls)) / GFS_TIMED_STEPS
+        print(f"  gfs lid, {label}: timed windows of {GFS_TIMED_STEPS} "
+              f"steps {' '.join(f'{w:.4f}' for w in walls)} s; median "
+              f"{step * 1e3:.3f} ms/step; host syncs per step "
+              f"{syncs / GFS_TIMED_STEPS:.1f} on {card}")
+        if not events:
+            bare = step
+        if events and isinstance(events[0], OutputTiming):
+            seconds, steps = sim.timer_totals()["step"]
+            print(f"  the simulation's step timer (CUDA events, read at "
+                  f"each window's end): {steps} steps, "
+                  f"{1e3 * seconds / steps:.3f} ms/step")
+    sim.events = []
+    phase_profile(sim, bare, card, GFS_PROFILE_STEPS)
+    del sim
+    torch.cuda.empty_cache()
+    stamp("phase 3, gfs lid timed")
+    # GfsPoisson: the card against the plain versions in float32
+    pn = 1 << GFS_POISSON_LEVEL
+    reset_launch_counts()
+    with recording_solves() as log:
+        ps = gfs_build(GFS_POISSON, dev, torch.float32,
+                       LEVEL=GFS_POISSON_LEVEL).run()
+    counts = launch_counts()
+    want = add_solves({k: 0 for k in counts},
+                      [(sv, it, fx) for sv, it, fx, _ in log], ADA_PROLONGS)
+    print(f"  GfsPoisson {pn}^2 float32: niter {ps.stats.niter}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise AssertionError(f"GfsPoisson launches {counts}, want {want}")
+    with plain_versions():
+        pref = gfs_build(GFS_POISSON, dev, torch.float32,
+                         LEVEL=GFS_POISSON_LEVEL).run()
+    rel = rel_err(ps.state["P"] - ps.state["P"].mean(),
+                  pref.state["P"] - pref.state["P"].mean())
+    print(f"  GfsPoisson kernels vs plain, P mean-free: rel {rel:.3e} "
+          f"(bound {MAIN_PATH_RTOL:.0e}); error norms "
+          f"{gfs_poisson_norms(ps).tolist()}")
+    if not rel <= MAIN_PATH_RTOL:
+        raise AssertionError(f"GfsPoisson vs plain: rel {rel:.3e}")
+    del ps, pref
+    norms = {}
+    for level in GFS_POISSON_F64:
+        norms[level] = gfs_poisson_norms(gfs_build(
+            GFS_POISSON, dev, torch.float64, LEVEL=level).run())
+    ratios = [norms[a] / norms[b] for a, b in
+              zip(GFS_POISSON_F64, GFS_POISSON_F64[1:])]
+    with np.load(os.path.join(root, "tests", "data", "jax_pins",
+                              "gfs_poisson.npz")) as z:
+        g = 1 << GFS_POISSON_F64[0]
+        c = (np.arange(g) + 0.5) / g - 0.5
+        pin = poisson_norms(z["P"], *np.meshgrid(c, c, indexing="ij"))
+    prel = np.abs(norms[GFS_POISSON_F64[0]] / pin - 1.0).max()
+    print(f"  GfsPoisson float64 levels {GFS_POISSON_F64}: norms (first, "
+          f"second, infty) {[v.tolist() for v in norms.values()]}; ratios "
+          f"{[r.tolist() for r in ratios]} (want {GFS_POISSON_ORDER} for "
+          f"first and second); level {GFS_POISSON_F64[0]} against the JAX "
+          f"pin {pin.tolist()}: rel {prel:.3e} (bound {GFS_PIN_RTOL:.0e})")
+    for r in ratios:
+        if not all(GFS_POISSON_ORDER[0] <= v <= GFS_POISSON_ORDER[1]
+                   for v in r[:2]):
+            raise AssertionError(f"GfsPoisson order: ratios {ratios}")
+    if not prel <= GFS_PIN_RTOL:
+        raise AssertionError(f"GfsPoisson against the pin: rel {prel:.3e}")
+    stamp("phase 3, gfs poisson done")
+    # GfsAdvection: its generic advection route runs no hand-written
+    # kernel, so the run is checked for that and for finite fields
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    adv = gfs_build(GFS_ADVECTION, dev, torch.float32,
+                    LEVEL=GFS_ADVECTION_LEVEL).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    print(f"  GfsAdvection {1 << GFS_ADVECTION_LEVEL}^2 float32: {adv.i} "
+          f"steps to t = {adv.t} in {wall:.2f} s; launches {counts} (the "
+          f"generic advection route runs no hand-written kernel)")
+    if counts:
+        raise AssertionError(f"GfsAdvection launched kernels: {counts}")
+    for k in ("T", "C"):
+        v = adv.state[k]
+        if v.shape != adv.grid.shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"GfsAdvection {k}: not finite or wrong "
+                                 "shape")
+    del adv
+    torch.cuda.empty_cache()
+    print(f"  phase gfs: {time.perf_counter() - t_phase:.1f} s")
+    return cli_counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7535,6 +7923,8 @@ def main():
         stamp(f"phase 3, {name} measured")
     route_counts["particles"], last = phase_particles(dev, card)
     stamp("phase 3, particles measured")
+    route_counts["gfs"] = phase_gfs(dev, card, stamp)
+    stamp("phase 3, gfs done")
     # launches on each kernel's path: the main path's; K14 is off it (K7
     # takes its place), so its count is that of its own path, the
     # per-component route; K10-K12 are the adaptive routes'; K13 lid3d's
@@ -7582,7 +7972,7 @@ def main():
         for path in ("spurious", "spurious_css", "tracer", "mgcg",
                      "sessile", "capwave", "cylinder", "moving1", "moving2",
                      "rigid", "axi", "stretch", *AMR_ROUTES,
-                     "particles"):
+                     "particles", "gfs"):
             if route_counts[path][k]:
                 record[k][f"launches_{path}"] = route_counts[path][k]
     ada = route_counts["adaptive"]

@@ -10,6 +10,8 @@ import dataclasses
 import math
 from typing import Callable, Optional
 
+import torch
+
 
 @dataclasses.dataclass
 class Event:
@@ -64,25 +66,38 @@ class Event:
 
 
 class EventStop(Event):
-    """Stop when max|v - v_prev| < tolerance, checked every ``istep``.
-    The previous field stays on the device; each check reads back one
-    number."""
+    """Stop when max|v - v_prev| < tolerance, checked every ``istep``
+    (GfsEventStop, src/event.h:228-246).  ``var`` is a field, or a
+    derived or curvature variable resolved by outputs.sim_field (an AMR
+    simulation's at its finest level); ``diff_name`` stores the per-cell
+    change as a field (gfs_event_stop, src/event.c).  The previous field
+    stays on the device; each check reads back one number."""
 
-    def __init__(self, var: str, tolerance: float, istep: int = 1, **kw):
+    def __init__(self, var: str, tolerance: float, istep: int = 1,
+                 diff_name: Optional[str] = None, **kw):
         super().__init__(istep=istep, name=f"EventStop({var})", **kw)
         self.var = var
         self.tolerance = tolerance
+        self.diff_name = diff_name
         self._prev = None
         self.last_change = None
 
     def fire(self, sim, t, i):
+        from .outputs import sim_field
         super().fire(sim, t, i)
-        if self.var not in sim.state:
-            raise KeyError(f"EventStop: no field {self.var!r} (derived "
-                           "variables are ROADMAP Queue 1, slice 7)")
-        cur = sim.state[self.var]
+        cur = sim_field(sim, self.var)
+        if self.diff_name and self.diff_name not in sim.state:
+            sim.state[self.diff_name] = torch.zeros_like(cur)
         if self._prev is not None and cur.shape == self._prev.shape:
-            self.last_change = float((cur - self._prev).abs().max())
+            dfield = (cur - self._prev).abs()
+            self.last_change = float(dfield.max())
+            if self.diff_name:
+                sim.state[self.diff_name] = dfield
+                sim.__dict__.setdefault("diagnostics", {})[
+                    self.diff_name] = self.last_change
             if self.last_change < self.tolerance:
                 sim.stop = True
+        elif self._prev is not None and self.diff_name:
+            # the shape changed (an AMR resample): reset the stale diff
+            sim.state[self.diff_name] = torch.zeros_like(cur)
         self._prev = cur.clone()

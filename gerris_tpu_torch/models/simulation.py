@@ -7,7 +7,9 @@ set_timestep:1569-1640.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -58,6 +60,45 @@ class Simulation:
         self.stop = False
         self.dt = None
         self._tnext = None
+        self.diagnostics = {}
+        # the step timer (gfs_domain_timer_start/stop, src/domain.h:50-61)
+        # that OutputTiming reads, kept only while such an event is
+        # scheduled: [seconds, steps, (start, end) CUDA events not read]
+        self.step_timer = [0.0, 0, []]
+
+    def _timed_step(self, step):
+        """step() timed into ``step_timer``.  On the card the time is a
+        pair of CUDA events, recorded without a synchronisation; the pairs
+        already finished are read here (a query, no wait), the rest by
+        ``timer_totals``.  On the CPU the host clock."""
+        rec = self.step_timer
+        rec[1] += 1
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            out = step()
+            rec[0] += time.perf_counter() - t0
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step()
+        end.record()
+        pending = rec[2]
+        pending.append((start, end))
+        while pending and pending[0][1].query():
+            s, e = pending.pop(0)
+            rec[0] += 1e-3 * s.elapsed_time(e)
+        return out
+
+    def timer_totals(self) -> dict:
+        """{"step": (seconds, steps)} of the steps timed so far, {} before
+        any; waits once for the last recorded CUDA event."""
+        rec = self.step_timer
+        if rec[2]:
+            rec[2][-1][1].synchronize()
+            rec[0] += 1e-3 * sum(s.elapsed_time(e) for s, e in rec[2])
+            rec[2].clear()
+        return {"step": (rec[0], rec[1])} if rec[1] else {}
 
     def init(self, **fields):
         """Fields by name (the velocities, P, Pmac, the tracers, the VOF
@@ -135,6 +176,8 @@ class Simulation:
                                                self.time.t, self.cfg)
             self.set_timestep()
         steps = 0
+        timed = any(getattr(e, "name", "") == "OutputTiming"
+                    for e in self.events)
         while (self.time.t < self.time.end and self.time.i < self.time.iend
                and not self.stop):
             self.do_events()
@@ -147,9 +190,11 @@ class Simulation:
                 psys.step(self)
             self.prev_state = {n: self.state[n]
                                for n in ns.velocity_names(self.cfg.dim)}
-            self.state = ns.ns_step(self.state, self.dt, self.time.t,
-                                    self.cfg, first_step=self.time.i == 0,
-                                    cstart=self.time.i % self.cfg.dim)
+            step = functools.partial(
+                ns.ns_step, self.state, self.dt, self.time.t, self.cfg,
+                first_step=self.time.i == 0,
+                cstart=self.time.i % self.cfg.dim)
+            self.state = self._timed_step(step) if timed else step()
             self.time.t = self._tnext
             self.time.i += 1
             self.set_timestep()

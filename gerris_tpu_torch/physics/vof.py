@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 
 import numpy as np
@@ -1094,6 +1095,14 @@ def height_fields(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0,
             1: sum(sub(0, k) for k in range(-R, R + 1))}
 
 
+def _interleave2(c00, c01, c10, c11):
+    """fine[2a + i, 2b + j] = c_ij[a, b] (gerris_tpu vof.py:1197)."""
+    n0, n1 = c00.shape
+    r0 = torch.stack([c00, c01], dim=-1).reshape(n0, 2 * n1)
+    r1 = torch.stack([c10, c11], dim=-1).reshape(n0, 2 * n1)
+    return torch.stack([r0, r1], dim=1).reshape(2 * n0, 2 * n1)
+
+
 def prolong_geometric(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0):
     """PLIC-geometric prolongation of a fraction to the next finer level:
     each child gets the volume of the coarse cell's reconstruction inside
@@ -1105,20 +1114,17 @@ def prolong_geometric(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0):
     if grid.dim == 2:
         mx, my = mycs_normals(f_pad)
         m1, m2, ap = positive_normal(mx, my, reconstruct_alpha(f, mx, my))
-        rows = []
+        ch = {}
         for i in (0, 1):
             # the positive frame reflects an axis with m < 0: child i spans
             # [0.5 i, 0.5 i + 0.5] of the signed cell
             x0 = torch.where(mx < 0.0, 0.5 * (1 - i), 0.5 * i)
-            ch = []
             for j in (0, 1):
                 y0 = torch.where(my < 0.0, 0.5 * (1 - j), 0.5 * j)
                 q = rectangle_fraction(m1, m2, ap, x0, x0 + 0.5, y0,
                                        y0 + 0.5)
-                ch.append(torch.where(full, f, q))
-            rows.append(torch.stack(ch, dim=-1))
-        n0, n1 = f.shape
-        return torch.stack(rows, dim=1).reshape(2 * n0, 2 * n1)
+                ch[i, j] = torch.where(full, f, q)
+        return _interleave2(ch[0, 0], ch[0, 1], ch[1, 0], ch[1, 1])
     mx, my, mz = mycs_normals_3d(f_pad)
     m1, m2, m3, ap = positive_normal_3d(
         mx, my, mz, reconstruct_alpha_3d(f, mx, my, mz))
@@ -1134,3 +1140,71 @@ def prolong_geometric(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0):
                 out[i, j, k] = torch.where(full, f, q)
     n0, n1, n2 = f.shape
     return out.permute(3, 0, 4, 1, 5, 2).reshape(2 * n0, 2 * n1, 2 * n2)
+
+
+# ---------------------------------------------------------------------------
+# Sampled fractions and the interface facets (gerris_tpu vof.py:1263-1340)
+# ---------------------------------------------------------------------------
+
+def init_fraction(grid: Grid, phi, subsample: int = 4, device=None,
+                  dtype=torch.float64):
+    """Volume fraction of {phi > 0} per cell by sub-cell sampling at
+    ``subsample``^dim points (GfsInitFraction, src/vof.c gfs_vof_init,
+    which intersects the surface exactly; the samples converge to it at
+    O((h / subsample)^2)).  ``phi`` takes the numpy sample coordinates; the
+    count is made on the host and copied to ``device`` (the CUDA card by
+    default) once."""
+    device = default_device(device)
+    n = subsample
+    offs = (np.arange(n) + 0.5) / n - 0.5
+    cs = grid.centers
+    f = 0.0
+    for o in itertools.product(offs, repeat=grid.dim):
+        f = f + (np.asarray(phi(*(c + oa * grid.h
+                                  for c, oa in zip(cs, o)))) > 0.0)
+    return torch.as_tensor(np.asarray(f, np.float64) / n ** grid.dim,
+                           dtype=dtype, device=device)
+
+
+def facets(f, grid: Grid, fbc: bcs.FieldBC, t: float = 0.0) -> np.ndarray:
+    """The PLIC interface facets as physical segments, an (nseg, 4) numpy
+    array of (x1, y1, x2, y2): for each interface cell, its line {m.s =
+    alpha} (cell-local s in [0, 1]^2) cut by the cell's border
+    (gfs_vof_facet, src/vof.c:2088-2158).  The normals and alpha are
+    computed on the device and read to the host once.  2D."""
+    _check_2d(grid, "facets")
+    mx, my = normals(f, grid, fbc, t=t)
+    a = reconstruct_alpha(f, mx, my)
+    fa, mxa, mya, aa = torch.stack([f, mx, my, a]).to(torch.float64) \
+        .cpu().numpy()
+    ifc = (fa > FULL_TOL) & (fa < 1.0 - FULL_TOL)
+    idx = np.argwhere(ifc)
+    mxa, mya, aa = mxa[ifc], mya[ifc], aa[ifc]
+    eps = 1e-30
+    # the line's crossings of the unit square's four edges
+    cands = np.stack([
+        np.stack([np.zeros_like(aa), aa / (mya + eps)], -1),          # sx=0
+        np.stack([np.ones_like(aa), (aa - mxa) / (mya + eps)], -1),   # sx=1
+        np.stack([aa / (mxa + eps), np.zeros_like(aa)], -1),          # sy=0
+        np.stack([(aa - mya) / (mxa + eps), np.ones_like(aa)], -1),   # sy=1
+    ], axis=1)
+    tol = 1e-9
+    valid = np.all((cands >= -tol) & (cands <= 1.0 + tol), axis=-1)
+    segs = []
+    h = grid.h
+    x0 = grid.axis_faces(0)
+    y0 = grid.axis_faces(1)
+    for k in range(idx.shape[0]):
+        uniq = []
+        for p in (cands[k, e] for e in range(4) if valid[k, e]):
+            # a corner is the crossing of two edges: keep it once
+            if not any(abs(p[0] - q[0]) + abs(p[1] - q[1]) < 1e-7
+                       for q in uniq):
+                uniq.append(p)
+        if len(uniq) < 2:
+            continue
+        i, j = idx[k]
+        p1, p2 = uniq[0], uniq[1]
+        segs.append((x0[i] + p1[0] * h, y0[j] + p1[1] * h,
+                     x0[i] + p2[0] * h, y0[j] + p2[1] * h))
+    return np.asarray(segs).reshape(-1, 4)

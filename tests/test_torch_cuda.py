@@ -1983,3 +1983,57 @@ def test_particle_deposit_on_the_card(dev, dtype, rkernel):
     got = particles.deposit(got_v, got_p, grid, cfg)
     ref = particles.deposit(ref_v, ref_p, grid, cfg)
     assert _rel(got.cpu().double(), ref) <= BOUND[dtype]
+
+
+# --- slice 7 on the card: the .gfs reader, the CLI, GfsPoisson --------------
+
+def test_gfs_lid_cli_is_the_hand_built_run_on_the_card(dev, tmp_path):
+    """The lid's .gfs text at 64^2 in float32 through the CLI's entry point
+    and by hand from chip_smoke.gfs_lid_cfg on the card: bit-identical,
+    with equal launches per kernel; held to the plain versions on the
+    card (chip_smoke's gfs phase at 2048^2 does the same)."""
+    import chip_smoke
+    path = tmp_path / "lid.gfs"
+    path.write_text(chip_smoke.GFS_LID)
+    runs = chip_smoke.gfs_lid_runs(str(path), 6, 0.8 / 64, 3,
+                                   str(tmp_path / "end.gfs"), dev,
+                                   torch.float32, counted=True)
+    assert runs["counts_cli"] == runs["counts_hand"]
+    assert runs["counts_cli"]["residual"] > 0
+    for k in ("U", "V", "P"):
+        assert torch.equal(runs["cli"][k], runs["hand"][k]), k
+    assert runs["rows_cli"] == runs["rows_hand"]
+    ref = chip_smoke.gfs_resume(str(tmp_path / "end.gfs"), dev,
+                                torch.float32)
+    for k in ("U", "V", "P"):
+        assert torch.equal(ref.state[k], runs["cli"][k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gfs_poisson_on_the_card(dev, dtype):
+    """GfsPoisson's .gfs text at 128^2 on the card against the same solve
+    on the CPU (mean-free), its error norms the CPU's."""
+    import chip_smoke
+    got = chip_smoke.gfs_build(chip_smoke.GFS_POISSON, dev, dtype,
+                               LEVEL=7).run()
+    ref = chip_smoke.gfs_build(chip_smoke.GFS_POISSON, "cpu",
+                               torch.float64, LEVEL=7).run()
+    a = got.state["P"].cpu().double()
+    b = ref.state["P"]
+    assert _rel(a - a.mean(), b - b.mean()) <= \
+        (1e-10 if dtype == torch.float64 else 1e-4)
+    nr = chip_smoke.gfs_poisson_norms(ref)
+    assert abs(chip_smoke.gfs_poisson_norms(got) / nr - 1).max() <= \
+        (1e-9 if dtype == torch.float64 else 1e-2)
+
+
+def test_gfs_advection_on_the_card(dev):
+    """GfsAdvection's .gfs text at 64^2 on the card against the CPU."""
+    import chip_smoke
+    got = chip_smoke.gfs_build(chip_smoke.GFS_ADVECTION, dev, torch.float64,
+                               LEVEL=6).run()
+    ref = chip_smoke.gfs_build(chip_smoke.GFS_ADVECTION, "cpu",
+                               torch.float64, LEVEL=6).run()
+    assert got.i == ref.i
+    for k in ("T", "C"):
+        assert _rel(got.state[k].cpu(), ref.state[k]) <= 1e-10, k

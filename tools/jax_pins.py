@@ -27,7 +27,8 @@ DATA = os.path.join(ROOT, "tests", "data", "jax_pins")
 MODULES = ("test_torch_3d", "test_torch_adaptive", "test_torch_axi",
            "test_torch_bubble", "test_torch_bubble3d", "test_torch_capwave",
            "test_torch_couette", "test_torch_css", "test_torch_cylinder",
-           "test_torch_droplet3d", "test_torch_moving", "test_torch_ns",
+           "test_torch_droplet3d", "test_torch_gfs_build",
+           "test_torch_moving", "test_torch_ns",
            "test_torch_pair", "test_torch_periodic", "test_torch_schemes",
            "test_torch_timebc", "test_torch_tracers", "test_torch_twophase")
 
